@@ -1,0 +1,21 @@
+"""phi3-medium-14b [dense] — 40L, d_model=5120, 40H (GQA kv=10), d_ff=17920,
+vocab=100352, RoPE + SwiGLU + GQA. [arXiv:2404.14219]
+"""
+
+from repro_torch.config import ModelConfig
+
+
+def make_config() -> ModelConfig:
+    return ModelConfig(
+        name="phi3-medium-14b",
+        family="dense",
+        num_layers=40,
+        d_model=5120,
+        num_heads=40,
+        num_kv_heads=10,
+        head_dim=128,
+        d_ff=17920,
+        vocab_size=100352,
+        rope_theta=10_000.0,
+        citation="arXiv:2404.14219",
+    )
