@@ -10,16 +10,25 @@ Phases, each of which must pass (nothing is caught):
               with nvcc, one process per source, all at once;
 3. kernels  — each kernel against its plain PyTorch version on the card, in
               float32 and bfloat16, at the shapes the serving path gives it
-              and at the smaller head dims the kernels take, with CUDA-event
-              timings (median) and the bound for its work;
+              and at the smaller widths the kernels take, with CUDA-event
+              timings (median) and the bound for its work; the SSD scan also
+              under strong decay and against the sequential-scan oracle;
 4. serve-check — Yi-6B widths cut to 2 layers, float32, through
               ``PlanServer``: identical token streams under the paged,
               gather and ref decode kernels;
 5. serve    — full Yi-6B (32 layers, bfloat16, random weights from a seeded
               generator) serving three requests through ``PlanServer``, with
               every kernel's launch count checked against the layer count;
-              then each request once more under ``torch.profiler`` for the
-              device's busy time and idle share in prefill and decode.
+              then each request once more (in its bucket, with 8 or more
+              new tokens) under ``torch.profiler`` for the device's busy
+              time and idle share in prefill and decode;
+6. serve-check-ssm — Mamba-2 1.3B widths cut to 2 layers, float32, through
+              ``PlanServer``: identical token streams with the SSD kernel
+              and with its plain version, and the prefill -> decode handoff
+              equal to a prefill one token longer;
+7. serve-ssm — full Mamba-2 1.3B (48 layers, bfloat16, seeded random
+              weights) serving the same three requests, the SSD kernel's
+              launches checked against the layer count, then traced.
 
 Before the last line it prints one JSON ``kernels`` line and the card's
 ``nvidia-smi`` name and power limit; the last line is the JSON ``ok`` line.
@@ -59,6 +68,20 @@ FP32_TOL = (1e-4, 1e-4, 1e-5)
 # the rtol term and an RMS ratio of ~1.4e-2, caught by both limits.
 PAGED_BF16_TOL = (1e-5, 2.0 ** -8, 2.0 ** -8)
 FLASH_BF16_TOL = (2e-3, 2.0 ** -8, 2.0 ** -8)
+# SSD: the kernel computes in float32 on the bfloat16 inputs and rounds only
+# its output, so the plain version on float32 copies of the same inputs is
+# its reference; atol covers float32 summation order where an output sits
+# near zero (terms of size ~10-100 summed over 64 positions and 128 state
+# entries: ~1e-5).
+SSD_BF16_TOL = (1e-4, 2.0 ** -8, 2.0 ** -8)
+# the serving requests of both models: (batch, context), 32 new tokens each
+SERVE_REQUESTS = ((1, 512), (4, 1000), (8, 2000))
+CHECK_REQUESTS = ((2, 300), (1, 100), (3, 64))
+# fewest new tokens of a traced request (more where fewer would change its
+# bucket): per-step device time needs a few steps, and the profiler's
+# post-processing grows with every traced event
+TRACE_NEW_TOKENS = 8
+_T0 = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -67,7 +90,7 @@ def fail(msg: str) -> None:
 
 
 def phase(name: str) -> None:
-    print(f"\n== {name} ==", flush=True)
+    print(f"\n== {name} == (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
@@ -159,12 +182,14 @@ def phase_build():
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ssd_scan as SSD
 
     phase("build")
     t0 = time.perf_counter()
     out = _build.build_all()
     _build.library("paged_decode", PA._bind)
     _build.library("flash_attention", FA._bind)
+    _build.library("ssd_scan", SSD._bind)
     print(f"built {sorted(p.name for p in out.glob('*.so'))} into {out} "
           f"in {time.perf_counter() - t0:.1f} s")
 
@@ -363,9 +388,109 @@ def phase_kernels():
         replaces="src/repro/kernels/flash_attention.py:116",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
         library_ms=lib_ms)
-    del q, k, v, ke, ve, flush
+    del q, k, v, ke, ve
+    results["ssd_scan"] = ssd_kernel_cases(flush)
+    del flush
     torch.cuda.empty_cache()
     return results
+
+
+def _ssd_inputs(b, s, h, p, n, dtype, seed, strong_decay=False):
+    """x, B, C ~ N(0, 1) in ``dtype``; dt softplus'd normals and a the
+    model's init (-(1 + 15 u)), both float32; d ones. ``strong_decay``: a =
+    -16 and dt mostly in [5.5, 7] with one position in five near 0, so the
+    within-chunk cumsum falls below -5,000 while some near-diagonal L
+    entries stay near 1."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    bm = torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
+    cm = torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
+    if strong_decay:
+        u = torch.rand((b, s, h), generator=gen, device="cuda")
+        big = 5.5 + 1.5 * torch.rand((b, s, h), generator=gen, device="cuda")
+        dt = torch.where(u < 0.8, big, 0.01 * u)
+        a = torch.full((h,), -16.0, device="cuda")
+    else:
+        dt = F.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
+        a = -(1.0 + 15.0 * torch.rand((h,), generator=gen, device="cuda"))
+    d = torch.ones((h,), device="cuda")
+    return x, dt, a, bm, cm, d
+
+
+def _ssd_work(x, dt, b_mat) -> tuple:
+    """(bytes, operations) of one SSD scan: each input read once and y
+    written once; C B^T once per (row, chunk) and, per (row, head, chunk),
+    the masked score product, the inter-chunk product and the state update."""
+    b, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    chunk = min(64, s)
+    nc = s // chunk
+    flops = b * nc * 2 * chunk * chunk * n + b * h * nc * (2 * chunk * chunk * p
+                                                           + 4 * chunk * n * p)
+    nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4
+              + 2 * b_mat.numel() * b_mat.element_size() + 2 * h * 4)
+    return nbytes, flops
+
+
+def ssd_kernel_cases(flush) -> dict:
+    """The SSD scan kernel against its plain version (and the sequential
+    oracle) on the card, each case timed; returns the kernels-line entry of
+    the serving shape in bfloat16 (the (8, 2000) request's prompt pass)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as SSD
+
+    def run_case(label, args, want, tol) -> dict:
+        got = SSD.ssd_scan(*args)
+        torch.cuda.synchronize()
+        err = check_close(label, got, want, tol)
+        del got
+        ms = cuda_ms(lambda: SSD.ssd_scan(*args), flush=flush)
+        plain_ms = cuda_ms(lambda: SSD.ssd_scan_torch(*args), flush=flush)
+        nbytes, flops = _ssd_work(args[0], args[1], args[3])
+        bound, by = _bound_ms(nbytes, flops, args[0].dtype)
+        print(f"    timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+
+    cases = [  # (name, b, s, h, p, n, strong decay)
+        ("serving shape (B=8, S=2048)", 8, 2048, 64, 64, 128, False),
+        ("B=1 S=1024", 1, 1024, 64, 64, 128, False),
+        ("S=16 (chunk 16)", 2, 16, 64, 64, 128, False),
+        ("smoke width (2, 32, 16, 16, 16), chunk 32", 2, 32, 16, 16, 16, False),
+        ("strong decay (a=-16, dt to 7)", 2, 256, 64, 64, 128, True),
+        ("strong decay, smoke width", 2, 128, 16, 16, 16, True),
+    ]
+    serving = None
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, SSD_BF16_TOL)):
+        for name, b, s, h, p, n, strong in cases:
+            args = _ssd_inputs(b, s, h, p, n, dtype, 7, strong_decay=strong)
+            if strong:
+                cum = torch.cumsum((args[1] * args[2]).double()[:, :64], dim=1)
+                name += f", cum down to {float(cum.min()):.0f}"
+            # float32 copies of the inputs: the kernel computes in float32
+            # and rounds only its output
+            want = SSD.ssd_scan_torch(*(t.float() for t in args))
+            result = run_case(f"ssd {str(dtype)[6:]} {name}", args, want, tol)
+            if dtype == torch.bfloat16 and (b, s) == (8, 2048):
+                serving = result
+            del args, want
+    # the sequential-scan oracle, float32, at both widths
+    for b, s, h, p, n in ((2, 128, 64, 64, 128), (2, 64, 16, 16, 16)):
+        args = _ssd_inputs(b, s, h, p, n, torch.float32, 8)
+        want, _state = ref.ssd_ref(*args)
+        run_case(f"ssd float32 ({b}, {s}, {h}, {p}, {n}) vs sequential oracle", args, want,
+                 FP32_TOL)
+        del args, want
+    print(f"  ssd timing at the serving shape, bfloat16: kernel {serving['ms']:.4f} ms, plain "
+          f"{serving['plain_ms']:.4f} ms, bound {serving['bound_ms']:.4f} ms "
+          f"({serving['bound_by']}); no single library call")
+    return dict(name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:91", library_ms=None, **serving)
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +517,7 @@ def phase_serve_check():
             params = srv.params
         srv.params = params
         outs = [srv.handle(ServeRequest(batch, ctx, new_tokens=8))
-                for batch, ctx in ((2, 300), (1, 100), (3, 64))]
+                for batch, ctx in CHECK_REQUESTS]
         streams[kernel] = [o["tokens"].cpu().numpy() for o in outs]
         logits[kernel] = [o["last_logits"].float() for o in outs]
         print(f"  {kernel}: {[s.tolist() for s in streams[kernel]]}")
@@ -432,11 +557,28 @@ def phase_serve():
 
     FA.flash_attention.launches = 0
     PA.paged_decode_attention.launches = 0
-    requests = [ServeRequest(1, 512, new_tokens=32), ServeRequest(4, 1000, new_tokens=32),
-                ServeRequest(8, 2000, new_tokens=32)]
+    requests = [ServeRequest(b, c, new_tokens=32) for b, c in SERVE_REQUESTS]
     outs = [srv.handle(r) for r in requests]
     launches = {"flash_attention": FA.flash_attention.launches,
                 "paged_decode_attention": PA.paged_decode_attention.launches}
+    report_requests(cfg, requests, outs)
+    steps = sum(o["decode_steps"] for o in outs)
+    want = {"flash_attention": cfg.num_layers * len(requests),
+            "paged_decode_attention": cfg.num_layers * steps}
+    print(f"  launches {launches} (expected {want}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if launches != want:
+        fail(f"kernel launches {launches} != {want}")
+    trace_decode(srv, requests)
+    del srv
+    torch.cuda.empty_cache()
+    return launches
+
+
+def report_requests(cfg, requests, outs) -> None:
+    """Checks each served request's tokens and logits and prints its
+    prefill ms, decode ms/step and tokens per second."""
+    import torch
 
     for req, out in zip(requests, outs):
         steps = out["decode_steps"]
@@ -453,15 +595,128 @@ def phase_serve():
               f"({steps} steps, {req.batch * steps / out['decode_s']:.1f} tok/s) | "
               f"total {out['latency_s'] * 1e3:.1f} ms, "
               f"{req.batch * req.new_tokens / out['latency_s']:.1f} tok/s")
-    steps = sum(o["decode_steps"] for o in outs)
-    want = {"flash_attention": cfg.num_layers * len(requests),
-            "paged_decode_attention": cfg.num_layers * steps}
+
+
+# ---------------------------------------------------------------------------
+# 6. serve-check-ssm and 7. serve-ssm
+# ---------------------------------------------------------------------------
+
+
+def phase_serve_check_ssm():
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.runtime.engine_config import EngineConfig
+    from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
+
+    phase("serve-check-ssm: Mamba-2 1.3B widths, 2 layers, float32, SSD kernel == plain")
+    cfg = get_config("mamba2-1.3b").replace(num_layers=2)
+    srv = PlanServer(cfg, config=EngineConfig(dtype="float32", prefill=True, page_size=64,
+                                              seed=SEED))
+    streams, logits = {}, {}
+    for backend in ("auto", "torch"):
+        ops.BACKEND = backend
+        launches0 = SSD.ssd_scan.launches
+        outs = [srv.handle(ServeRequest(batch, ctx, new_tokens=8))
+                for batch, ctx in CHECK_REQUESTS]
+        streams[backend] = [o["tokens"].cpu().numpy() for o in outs]
+        logits[backend] = [o["last_logits"].float() for o in outs]
+        launched = SSD.ssd_scan.launches - launches0
+        print(f"  {backend}: {[s.tolist() for s in streams[backend]]} "
+              f"({launched} ssd_scan launches)")
+        if launched != (cfg.num_layers * len(CHECK_REQUESTS) if backend == "auto" else 0):
+            fail(f"ops.BACKEND={backend!r}: {launched} ssd_scan launches")
+    ops.BACKEND = "auto"
+    for a, c in zip(streams["auto"], streams["torch"]):
+        if not np.array_equal(a, c):
+            fail("token streams differ between the SSD kernel and its plain version")
+    for a, c in zip(logits["auto"], logits["torch"]):
+        if not torch.allclose(a, c, atol=1e-3, rtol=1e-3):
+            fail("final logits differ between the SSD kernel and its plain version")
+    print("  token streams identical with the kernel and with its plain version")
+
+    # handle() prompts with all ones, which this tied-embedding model at
+    # random weights echoes; random prompts at mixed lengths hold the kernel
+    # inside the model: prefill logits and handed-off state, kernel vs plain
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 320), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    lens = torch.tensor([300, 177], dtype=torch.int32, device="cuda")
+    pre = {}
+    for backend in ("auto", "torch"):
+        ops.BACKEND = backend
+        pre[backend] = srv.model.prefill(srv.params, tokens, lengths=lens)
+    ops.BACKEND = "auto"
+    for name, a, c in (("logits", pre["auto"][0], pre["torch"][0]),
+                       ("state", pre["auto"][1]["l.state"], pre["torch"][1]["l.state"])):
+        diff, rms = float((a - c).abs().max()), float(c.pow(2).mean().sqrt())
+        print(f"  random prompts (300, 177): prefill {name} kernel vs plain, max abs "
+              f"difference {diff:.3e} (RMS {rms:.3f})")
+        if not torch.allclose(a, c, atol=1e-3, rtol=1e-3):
+            fail(f"prefill {name} differ between the SSD kernel and its plain version")
+    del pre
+
+    # handoff: a prefill of T tokens then one decode step on token T equals
+    # the last logits of a prefill of the T + 1 tokens (rows padded to 320)
+    t = 300
+    full = torch.full((2,), t, dtype=torch.int32, device="cuda")
+    _, cache = srv.model.prefill(srv.params, tokens, lengths=full)
+    step, _ = srv.model.decode_step(srv.params, cache, tokens[:, t:t + 1], full)
+    want, _ = srv.model.prefill(srv.params, tokens, lengths=full + 1)
+    err = float((step[:, -1] - want).abs().max())
+    rms = float(want.pow(2).mean().sqrt())
+    print(f"  handoff: decode after a {t}-token prefill vs a {t + 1}-token prefill, "
+          f"max abs logit difference {err:.3e} (logit RMS {rms:.3f})")
+    if not torch.allclose(step[:, -1], want, atol=1e-3, rtol=1e-3):
+        fail("prefill -> decode handoff disagrees with the longer prefill")
+    del srv, cache, logits
+    torch.cuda.empty_cache()
+
+
+def phase_serve_ssm():
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.runtime.engine_config import EngineConfig
+    from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
+
+    cfg = get_config("mamba2-1.3b")
+    phase(f"serve-ssm: {cfg.name}, {cfg.num_layers} layers, bfloat16, page 64, SSD kernel")
+    t0 = time.perf_counter()
+    srv = PlanServer(cfg, config=EngineConfig(dtype="bfloat16", prefill=True, page_size=64,
+                                              seed=SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in srv.params.values())
+    print(f"  weights: {n_params / 1e9:.2f} B parameters, random from seed {SEED}, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    srv.handle(ServeRequest(1, 16, new_tokens=2))     # warm-up: cuBLAS, allocator
+    torch.cuda.reset_peak_memory_stats()
+
+    FA.flash_attention.launches = 0
+    PA.paged_decode_attention.launches = 0
+    SSD.ssd_scan.launches = 0
+    requests = [ServeRequest(b, c, new_tokens=32) for b, c in SERVE_REQUESTS]
+    outs = [srv.handle(r) for r in requests]
+    launches = {"ssd_scan": SSD.ssd_scan.launches,
+                "flash_attention": FA.flash_attention.launches,
+                "paged_decode_attention": PA.paged_decode_attention.launches}
+    report_requests(cfg, requests, outs)
+    want = {"ssd_scan": cfg.num_layers * len(requests), "flash_attention": 0,
+            "paged_decode_attention": 0}
     print(f"  launches {launches} (expected {want}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; pool peak "
+          f"{srv.pool.metrics.peak_bytes / 2**20:.1f} MiB of recurrent state")
     if launches != want:
         fail(f"kernel launches {launches} != {want}")
     trace_decode(srv, requests)
-    return launches
+    del srv
+    torch.cuda.empty_cache()
+    return {"ssd_scan": launches["ssd_scan"]}
 
 
 def _busy_us(intervals) -> float:
@@ -478,6 +733,8 @@ def _kernel_family(name: str) -> str:
     low = name.lower()
     if "paged_split" in name or "paged_combine" in name:
         return "paged_decode"
+    if "ssd_scan" in name:
+        return "ssd"
     if "flash_" in name:
         return "flash"
     if any(s in low for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "sm90_")):
@@ -488,7 +745,9 @@ def _kernel_family(name: str) -> str:
 
 
 def trace_decode(srv, requests) -> None:
-    """Device time under ``torch.profiler``: each request served once more.
+    """Device time under ``torch.profiler``: each request served once more,
+    in its own bucket, with as few new tokens as that allows (at least
+    ``TRACE_NEW_TOKENS``).
     ``PlanServer.handle`` names its prefill and decode phases as spans that
     end after the device has finished them; a phase's device time is the
     union of the device events that start inside its span, its idle share
@@ -496,10 +755,15 @@ def trace_decode(srv, requests) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.runtime.serve_loop import DECODE_SPAN, PREFILL_SPAN
+    from repro_torch.runtime.serve_loop import DECODE_SPAN, PREFILL_SPAN, ServeRequest
 
-    print("  trace (torch.profiler, each request served once more):")
-    for req in requests:
+    print("  trace (torch.profiler, each request served once more in its bucket, "
+          f"with at least {TRACE_NEW_TOKENS} new tokens):")
+    for full in requests:
+        bucket = srv.buckets(full.batch, srv.request_span(full))
+        n = next(n for n in range(TRACE_NEW_TOKENS, full.new_tokens + 1)
+                 if srv.buckets(full.batch, full.context + n) == bucket)
+        req = ServeRequest(full.batch, full.context, new_tokens=n)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             out = srv.handle(req)
         events = prof.events()
@@ -552,17 +816,20 @@ def main() -> int:
     kernels = phase_kernels()
     phase_serve_check()
     launches = phase_serve()
+    phase_serve_check_ssm()
+    launches.update(phase_serve_ssm())
     for name, n in launches.items():
         kernels[name]["launches"] = n
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [{key: kernels[n][key] for key in order}
-                        for n in ("paged_decode_attention", "flash_attention")]}
+                        for n in ("paged_decode_attention", "flash_attention", "ssd_scan")]}
     for entry in line["kernels"]:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms"):
             if entry[key] is not None and not math.isfinite(entry[key]):
                 fail(f"{entry['name']}: {key} is not finite")
-    print(f"\nall phases passed in {time.perf_counter() - t0:.1f} s")
+    print(f"\nall phases passed in {time.perf_counter() - t0:.1f} s "
+          f"({time.perf_counter() - _T0:.1f} s since start)")
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

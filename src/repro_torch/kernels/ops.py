@@ -1,4 +1,4 @@
-"""Operator dispatch for the attention kernels (port of ``kernels/ops.py``).
+"""Operator dispatch for the kernels (port of ``kernels/ops.py``).
 
 ``BACKEND`` picks the physical operator:
 
@@ -21,6 +21,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_torch
 from repro_torch.kernels.paged_attention import (paged_attention_torch,
                                                  paged_decode_attention)
+from repro_torch.kernels.ssd_scan import MAX_CHUNK, ssd_scan, ssd_scan_torch
 
 BACKEND = "auto"
 _BACKENDS = ("auto", "kernel", "torch")
@@ -46,3 +47,10 @@ def paged_attention(q, k_cache, v_cache, tables, pos, *, page: int, sc: int):
     """Fused paged-decode attention; page tables resolved inside the op."""
     fn = paged_attention_torch if _use_plain(q) else paged_decode_attention
     return fn(q, k_cache, v_cache, tables, pos, page=page, sc=sc)
+
+
+def ssd(x, dt, a, b_mat, c_mat, d, *, chunk: int = MAX_CHUNK):
+    """Mamba-2 SSD over x (B, S, H, P) at ``chunk = min(chunk, S)``; y in
+    x's dtype."""
+    fn = ssd_scan_torch if _use_plain(x) else ssd_scan
+    return fn(x, dt, a, b_mat, c_mat, d, chunk=chunk)

@@ -1,9 +1,9 @@
-"""Plain PyTorch oracles for the attention kernels (port of ``kernels/ref.py``).
+"""Plain PyTorch oracles for the kernels (port of ``kernels/ref.py``).
 
 Each function is the semantic ground truth its kernel and plain version are
-held against. Only the attention oracles are ported in this slice;
-``matmul_ref``, ``conv2d_ref`` and the ``ssd_*`` oracles come with their
-kernels.
+held against: the attention oracles and the Mamba-2 SSD oracles
+(``ssd_ref``, the sequential scan, and ``ssd_chunked_ref``, the chunked
+form). ``matmul_ref`` and ``conv2d_ref`` come with their kernels.
 """
 
 from __future__ import annotations
@@ -92,3 +92,81 @@ def paged_decode_ref(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhk,bkhd->bhd", p, ve.float())
     return o[:, None].to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality): sequential-scan semantics
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(x, dt, a, b_mat, c_mat, init_state):
+    bsz, _s, h, p = x.shape
+    n = b_mat.shape[-1]
+    state0 = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+              if init_state is None else init_state.float())
+    return x.float(), dt.float(), a.float(), b_mat.float(), c_mat.float(), state0
+
+
+def ssd_ref(
+    x: torch.Tensor,      # (B, S, H, P)
+    dt: torch.Tensor,     # (B, S, H)   softplus-activated step sizes
+    a: torch.Tensor,      # (H,)        negative decay rates (A = -exp(a_log))
+    b_mat: torch.Tensor,  # (B, S, N)
+    c_mat: torch.Tensor,  # (B, S, N)
+    d: torch.Tensor,      # (H,)        skip connection
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+):
+    """Returns ``(y (B, S, H, P) in x's dtype, final_state (B, H, P, N)
+    float32)``. Recurrence per head h:
+
+        state_t = exp(dt_t a_h) state_{t-1} + dt_t x_t b_t^T
+        y_t     = state_t c_t + d_h x_t
+    """
+    xf, dtf, af, bf, cf, state = _ssd_inputs(x, dt, a, b_mat, c_mat, init_state)
+    ys = []
+    for t in range(x.shape[1]):
+        decay = torch.exp(dtf[:, t] * af[None, :])                   # (B, H)
+        upd = (dtf[:, t, :, None] * xf[:, t])[..., None] * bf[:, t, None, None, :]
+        state = decay[..., None, None] * state + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cf[:, t]))
+    y = torch.stack(ys, dim=1) + d.float()[None, None, :, None] * xf
+    return y.to(x.dtype), state
+
+
+def ssd_chunked_ref(x, dt, a, b_mat, c_mat, d, chunk: int = 16, init_state=None):
+    """Chunked ("duality") form of :func:`ssd_ref`: within-chunk matrix
+    products plus an inter-chunk state carry, the algorithm the kernel
+    implements. Returns ``(y, final_state)`` like :func:`ssd_ref`."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of chunk {chunk}")
+    nc = s // chunk
+    xf, dtf, af, bf, cf, state = _ssd_inputs(x, dt, a, b_mat, c_mat, init_state)
+    xf = xf.reshape(bsz, nc, chunk, h, p)
+    dtf = dtf.reshape(bsz, nc, chunk, h)
+    bf = bf.reshape(bsz, nc, chunk, n)
+    cf = cf.reshape(bsz, nc, chunk, n)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    ys = []
+    for ci in range(nc):
+        xc, dtc, bc, cc = xf[:, ci], dtf[:, ci], bf[:, ci], cf[:, ci]
+        cum = torch.cumsum(dtc * af[None, None, :], dim=1)         # (B, c, H)
+        total = cum[:, -1]                                          # (B, H)
+        # intra-chunk: L[i,j] = exp(cum_i - cum_j) for i >= j. Mask BEFORE
+        # the exp: the i < j entries are positive and overflow to inf.
+        li = cum[:, :, None, :] - cum[:, None, :, :]                # (B, c, c, H)
+        lmat = torch.exp(torch.where(tri[None, :, :, None], li,
+                                     torch.full((), NEG_INF, device=x.device)))
+        scores = torch.einsum("bin,bjn->bij", cc, bc)               # (B, c, c)
+        w = scores[..., None] * lmat
+        dx = dtc[..., None] * xc                                    # (B, c, H, P)
+        y_intra = torch.einsum("bijh,bjhp->bihp", w, dx)
+        y_inter = torch.einsum("bhpn,bin->bihp", state, cc) * torch.exp(cum)[..., None]
+        decay_to_end = torch.exp(total[:, None, :] - cum)           # (B, c, H)
+        contrib = torch.einsum("bihp,bin->bhpn", dx * decay_to_end[..., None], bc)
+        state = torch.exp(total)[..., None, None] * state + contrib
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(bsz, s, h, p)
+    y = y + d.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype), state

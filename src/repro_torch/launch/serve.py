@@ -2,11 +2,12 @@
 
 Requests of varying (batch, context) go one by one through
 ``PlanServer.handle`` — bucket, arena, row admission, prefill, handoff
-write, paged decode — on the GPU unless ``--device`` names another:
+write, paged decode — on the GPU unless ``--device`` names another. The
+default arch is the reference launcher's, ``mamba2-1.3b-smoke``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b-smoke \\
         --stream --prefill --requests 8 --tokens 4
-    PYTHONPATH=src python -m repro_torch.launch.serve --stream \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --stream --prefill \\
         --shapes 2x100,1x40 --device cpu
 
 The reference's single-shot and ``--scheduler`` modes run through its
@@ -47,7 +48,7 @@ def serve_stream(args) -> None:
     rng = random.Random(args.seed)
     reqs = [ServeRequest(*mix[rng.randrange(len(mix))], args.tokens)
             for _ in range(args.requests)]
-    print(f"# stream: {args.requests} requests over shape mix {mix} on "
+    print(f"# stream: {args.arch}, {args.requests} requests over shape mix {mix} on "
           f"{srv.device} ({args.dtype}, page={args.page_size}, "
           f"decode_kernel={args.decode_kernel}, prefill={args.prefill})")
     for i, req in enumerate(reqs):
@@ -62,7 +63,7 @@ def serve_stream(args) -> None:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="yi-6b-smoke")
+    ap.add_argument("--arch", default="mamba2-1.3b-smoke")
     ap.add_argument("--stream", action="store_true",
                     help="serve a mixed-shape request stream via PlanServer")
     ap.add_argument("--prefill", action="store_true",

@@ -1,9 +1,9 @@
-"""The attention block (port of the dense part of ``repro/models/blocks.py``).
+"""The attention and Mamba-2 SSD blocks (port of ``repro/models/blocks.py``).
 
-``attn_block_params(cfg)`` gives the per-layer specs, ``attn_block_apply``
-the full-sequence forward (prefill), ``attn_block_decode`` the one-token
-forward with its cache write. The SSD, RG-LRU and MoE blocks come with the
-slices that port their families.
+``*_block_params(cfg)`` gives a block's per-layer specs, ``*_block_apply``
+its full-sequence forward (prefill), ``*_block_decode`` its one-token
+forward with its in-place cache update. The RG-LRU and MoE blocks come with
+the slices that port their families.
 """
 
 from __future__ import annotations
@@ -11,12 +11,13 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as ATT
-from repro_torch.models.common import rms_norm, rope, swiglu
+from repro_torch.models.common import causal_conv1d, rms_norm, rope, swiglu
 
 DECODE_KERNELS = ("paged", "gather", "ref")
 
@@ -134,3 +135,149 @@ def attn_cache_spec(cfg: ModelConfig, batch: int, seq: int) -> Dict:
     kvshape = (batch, seq, cfg.num_kv_heads, cfg.head_dim)
     axes = ("batch", "seq", "kv_heads", "head_dim")
     return {"k": (kvshape, axes), "v": (kvshape, axes)}
+
+
+# ===========================================================================
+# Mamba-2 SSD block
+# ===========================================================================
+
+
+def ssd_block_params(cfg: ModelConfig) -> Dict:
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_num_heads
+    wc = cfg.ssm_conv_width
+    return {
+        "ln": ((d,), (None,), "ones"),
+        "wz": ((d, di), ("embed", "ssm_inner"), "normal"),
+        "wx": ((d, di), ("embed", "ssm_inner"), "normal"),
+        "wb": ((d, n), ("embed", None), "normal"),
+        "wc": ((d, n), ("embed", None), "normal"),
+        "wdt": ((d, h), ("embed", "ssm_heads"), "normal"),
+        "dt_bias": ((h,), (None,), "zeros"),
+        "conv_x": ((wc, di), ("conv", "ssm_inner"), "normal"),
+        "conv_b": ((wc, n), ("conv", None), "normal"),
+        "conv_c": ((wc, n), ("conv", None), "normal"),
+        "a_log": ((h,), (None,), "ssm_a"),
+        "d_skip": ((h,), (None,), "ones"),
+        "gate_ln": ((di,), (None,), "ones"),
+        "w_out": ((di, d), ("ssm_inner", "embed_out"), "normal"),
+    }
+
+
+def _ssd_pre(cfg: ModelConfig, p: Dict, h: torch.Tensor):
+    """Input projections: z, x, B, C in the model dtype and the softplus'd
+    step sizes dt in float32."""
+    z = torch.matmul(h, p["wz"])
+    xin = torch.matmul(h, p["wx"])
+    bm = torch.matmul(h, p["wb"])
+    cm = torch.matmul(h, p["wc"])
+    dt = F.softplus(torch.matmul(h, p["wdt"]).float() + p["dt_bias"].float())
+    return z, xin, bm, cm, dt
+
+
+def _conv_tail(x_raw: torch.Tensor, wd: int, lengths: torch.Tensor) -> torch.Tensor:
+    """Decode conv state after a prefill of per-row length T: the last
+    ``wd - 1`` raw pre-conv inputs before position T (zeros below position
+    0). x_raw (B, S, C), lengths (B,) -> (B, wd-1, C)."""
+    b = x_raw.shape[0]
+    xp = F.pad(x_raw, (0, 0, wd - 1, 0))            # index j <-> position j-(wd-1)
+    idx = lengths.long()[:, None] + torch.arange(wd - 1, device=x_raw.device)[None, :]
+    return xp[torch.arange(b, device=x_raw.device)[:, None], idx]
+
+
+def _decay_rates(p: Dict) -> torch.Tensor:
+    """Per-head A = -exp(a_log), float32 and negative."""
+    return -torch.exp(p["a_log"].float())
+
+
+def _gate_out(cfg: ModelConfig, p: Dict, x: torch.Tensor, y: torch.Tensor,
+              z: torch.Tensor) -> torch.Tensor:
+    """Gated RMSNorm of the SSD output, the output projection and the
+    residual."""
+    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["gate_ln"])
+    return x + torch.matmul(y, p["w_out"])
+
+
+def ssd_block_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
+                    lengths: Optional[torch.Tensor] = None,
+                    want_cache: bool = False):
+    """Full-sequence forward. Returns ``x_out``, or with ``want_cache``
+    ``(x_out, cache)`` where cache is the decode state after a per-row
+    prompt of ``lengths`` tokens — {"state", "conv_x", "conv_b", "conv_c"}
+    exactly as :func:`ssd_block_decode` consumes them. x, B and C enter the
+    scan rounded to the model dtype; the prefill state is formed from their
+    unrounded float32 values, as the reference does."""
+    b, s, _d = x.shape
+    h = rms_norm(x, p["ln"])
+    z, xin_raw, bm_raw, cm_raw, dt = _ssd_pre(cfg, p, h)
+    xin_f = F.silu(causal_conv1d(xin_raw, p["conv_x"]).float())
+    bm_f = F.silu(causal_conv1d(bm_raw, p["conv_b"]).float())
+    cm_f = F.silu(causal_conv1d(cm_raw, p["conv_c"]).float())
+    xin, bm, cm = (t.to(x.dtype) for t in (xin_f, bm_f, cm_f))
+    nh, hd = cfg.ssm_num_heads, cfg.ssm_head_dim
+    a = _decay_rates(p)
+    y = kops.ssd(xin.reshape(b, s, nh, hd), dt, a, bm, cm, p["d_skip"].float())
+    out = _gate_out(cfg, p, x, y.reshape(b, s, cfg.d_inner), z)
+    if not want_cache:
+        return out
+    # Final SSM state at per-row prompt length T, in closed form:
+    #   state_T = sum_{t<T} exp(sum_{u=t+1..T-1} dt_u a) dt_t x_t (x) b_t
+    # via log-space prefix sums: no per-position states are held.
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    rows = torch.arange(b, device=x.device)
+    cum = torch.cumsum(dt * a[None, None, :], dim=1)                # (B, S, H), <= 0
+    cum_t = cum[rows, lengths.long() - 1][:, None, :]                 # (B, 1, H)
+    tmask = torch.arange(s, device=x.device)[None, :] < lengths[:, None]
+    w = torch.exp(torch.clamp(cum_t - cum, max=0.0)) * tmask[..., None]
+    wx = (w * dt)[..., None] * xin_f.reshape(b, s, nh, hd)           # (B, S, H, P)
+    state = torch.matmul(wx.permute(0, 2, 3, 1), bm_f[:, None])      # (B, H, P, N)
+    wc = cfg.ssm_conv_width
+    cache = {
+        "state": state,
+        "conv_x": _conv_tail(xin_raw, wc, lengths),
+        "conv_b": _conv_tail(bm_raw, wc, lengths),
+        "conv_c": _conv_tail(cm_raw, wc, lengths),
+    }
+    return out, cache
+
+
+def ssd_block_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                     cache: Dict) -> torch.Tensor:
+    """x (B, 1, D). cache: {"state": (B, H, P, N) float32, "conv_x":
+    (B, W-1, Di), "conv_b"/"conv_c": (B, W-1, N)}, updated in place."""
+    b = x.shape[0]
+    h = rms_norm(x, p["ln"])
+    z, xin, bm, cm, dt = _ssd_pre(cfg, p, h)
+    xin, cx = causal_conv1d(xin, p["conv_x"], state=cache["conv_x"])
+    bm, cb = causal_conv1d(bm, p["conv_b"], state=cache["conv_b"])
+    cm, cc = causal_conv1d(cm, p["conv_c"], state=cache["conv_c"])
+    xin = F.silu(xin.float()).to(x.dtype)
+    bm = F.silu(bm.float())[:, 0]                                    # (B, N)
+    cm = F.silu(cm.float())[:, 0]
+    nh, hd = cfg.ssm_num_heads, cfg.ssm_head_dim
+    xh = xin.reshape(b, nh, hd).float()                              # (B, H, P)
+    dtv = dt[:, 0]                                                   # (B, H)
+    decay = torch.exp(dtv * _decay_rates(p)[None, :])
+    upd = (dtv[..., None] * xh)[..., None] * bm[:, None, None, :]
+    state = decay[..., None, None] * cache["state"] + upd
+    y = torch.einsum("bhpn,bn->bhp", state, cm)
+    y = y + p["d_skip"].float()[None, :, None] * xh
+    out = _gate_out(cfg, p, x, y.reshape(b, 1, cfg.d_inner).to(x.dtype), z)
+    cache["state"].copy_(state)
+    cache["conv_x"].copy_(cx)
+    cache["conv_b"].copy_(cb)
+    cache["conv_c"].copy_(cc)
+    return out
+
+
+def ssd_cache_spec(cfg: ModelConfig, batch: int, dtype: torch.dtype) -> Dict:
+    """Per-layer decode state: {name: (shape, axes, dtype)}; the SSD state
+    stays float32, the conv tails are in the model dtype."""
+    wc = cfg.ssm_conv_width
+    return {
+        "state": ((batch, cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                  ("batch", "ssm_heads", None, "ssm_state"), torch.float32),
+        "conv_x": ((batch, wc - 1, cfg.d_inner), ("batch", None, "ssm_inner"), dtype),
+        "conv_b": ((batch, wc - 1, cfg.ssm_state), ("batch", None, None), dtype),
+        "conv_c": ((batch, wc - 1, cfg.ssm_state), ("batch", None, None), dtype),
+    }

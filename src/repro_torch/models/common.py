@@ -1,4 +1,5 @@
-"""Shared model substrate: param specs, RMSNorm, RoPE, SwiGLU.
+"""Shared model substrate: param specs, RMSNorm, RoPE, SwiGLU, the causal
+depthwise convolution of the SSM block.
 
 Port of ``repro/models/common.py`` for one device: the reference's
 ``ShardCtx`` (sharding hints under a device mesh) has no counterpart here.
@@ -93,3 +94,23 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     u = torch.matmul(x, w_up)
     h = F.silu(g.float()).to(x.dtype) * u
     return torch.matmul(h, w_down)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None):
+    """Depthwise causal convolution. x (B, S, C), w (W, C); the sum of the
+    W shifted products is taken in float32 and rounded to ``x.dtype`` once.
+    With ``state`` (B, W-1, C) — the last W-1 inputs before x — it is the
+    single-step decode form (S == 1) and returns ``(y, new_state)``."""
+    wd = w.shape[0]
+    wf = w.float()
+    if state is not None:
+        full = torch.cat([state, x], dim=1)                       # (B, W, C)
+        y = torch.einsum("bwc,wc->bc", full[:, -wd:].float(), wf)[:, None, :]
+        return y.to(x.dtype), full[:, 1:]
+    s = x.shape[1]
+    xp = F.pad(x, (0, 0, wd - 1, 0))                              # zeros before t=0
+    y = xp[:, 0:s].float() * wf[0]
+    for i in range(1, wd):
+        y += xp[:, i:i + s].float() * wf[i]
+    return y.to(x.dtype)

@@ -1,4 +1,5 @@
-"""Model assembly for the dense family (port of ``repro/models/model.py``).
+"""Model assembly for the dense and SSM families (port of
+``repro/models/model.py``).
 
 Parameters are a flat dict with the reference's keys and layer-stacked
 layouts (``l.wq`` is ``(L, d, Hq, Dh)``), so weights convert one to one
@@ -19,7 +20,8 @@ from repro_torch.models import blocks as B
 from repro_torch.models.common import SpecBuilder, rms_norm
 
 # family -> the port slice that brings it (ROADMAP.md "Queue A")
-_LATER_SLICES = {"ssm": 3, "hybrid": 3, "moe": 6, "vlm": 6, "audio": 6}
+_LATER_SLICES = {"hybrid": 3, "moe": 6, "vlm": 6, "audio": 6}
+_PORTED = ("dense", "ssm")
 
 
 def _subtree(params: Dict, prefix: str) -> Dict:
@@ -29,12 +31,12 @@ def _subtree(params: Dict, prefix: str) -> Dict:
 
 class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16):
-        if cfg.family != "dense" or cfg.num_experts or cfg.is_encdec:
+        if cfg.family not in _PORTED or cfg.num_experts or cfg.is_encdec:
             slice_no = _LATER_SLICES.get(cfg.family, 6)
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is ported in slice "
-                f"{slice_no} of the PyTorch port; this slice serves the dense "
-                f"family only")
+                f"{slice_no} of the PyTorch port; the port serves the "
+                f"{' and '.join(_PORTED)} families so far")
         self.cfg = cfg
         self.dtype = dtype
         self.sb = self._build_specs()
@@ -47,13 +49,18 @@ class Model:
         sb = SpecBuilder(self.dtype)
         sb.add("embed", (cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
                "normal", scale=0.02)
-        for name, (shape, axes, init) in B.attn_block_params(cfg).items():
+        blocks = B.ssd_block_params(cfg) if self.is_ssm else B.attn_block_params(cfg)
+        for name, (shape, axes, init) in blocks.items():
             sb.add(f"l.{name}", (cfg.num_layers, *shape), ("layers", *axes), init)
         sb.add("final_ln", (cfg.d_model,), (None,), "ones")
         if not cfg.tie_embeddings:
             sb.add("head", (cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
                    "normal", scale=0.02)
         return sb
+
+    @property
+    def is_ssm(self) -> bool:
+        return self.cfg.family == "ssm"
 
     def init_params(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         return self.sb.init(generator)
@@ -86,27 +93,37 @@ class Model:
               last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns ``(logits, aux_loss)``: logits for every position, or
         with ``last_only`` for the final position only (``(B, 1, vocab)``).
-        The dense family has no auxiliary loss (0)."""
+        Neither ported family has an auxiliary loss (0)."""
         x, _ = self._stack_prefill(params, self._embed(params, tokens),
-                                   want_kv=False)
+                                   want_cache=False)
         x = rms_norm(x, params["final_ln"])
         logits = self._logits(params, x[:, -1:] if last_only else x)
         return logits, torch.zeros((), device=logits.device)
 
-    def _stack_prefill(self, params, x, *, want_kv: bool = True):
+    def _stack_prefill(self, params, x, *, lengths: Optional[torch.Tensor] = None,
+                       want_cache: bool = True):
+        """The layer stack over a full sequence. With ``want_cache`` also
+        the layer-stacked per-layer caches: rope'd K/V ``(L, B, S, Kv, Dh)``
+        for attention, the decode state after each row's ``lengths`` prompt
+        tokens for SSD."""
         cfg = self.cfg
         stacked = _subtree(params, "l.")
         positions = torch.arange(x.shape[1], device=x.device)
-        ks, vs = [], []
+        caches = []
         for i in range(cfg.num_layers):
-            x, kv = B.attn_block_apply(cfg, self._layer(stacked, i), x, positions,
-                                       causal=True, window=cfg.window_size)
-            if want_kv:
-                ks.append(kv["k"])
-                vs.append(kv["v"])
-        if not want_kv:
+            lp = self._layer(stacked, i)
+            if self.is_ssm:
+                out = B.ssd_block_apply(cfg, lp, x, lengths=lengths,
+                                        want_cache=want_cache)
+                x, c = out if want_cache else (out, None)
+            else:
+                x, c = B.attn_block_apply(cfg, lp, x, positions, causal=True,
+                                          window=cfg.window_size)
+            if want_cache:
+                caches.append(c)
+        if not want_cache:
             return x, None
-        return x, {"l.k": torch.stack(ks), "l.v": torch.stack(vs)}
+        return x, {f"l.{k}": torch.stack([c[k] for c in caches]) for k in caches[0]}
 
     def prefill(self, params, tokens: torch.Tensor, *,
                 lengths: Optional[torch.Tensor] = None,
@@ -123,14 +140,18 @@ class Model:
             lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
         lengths = lengths.to(device=dev, dtype=torch.int32)
         cache_len = int(cache_len) if cache_len else s
-        x, cache = self._stack_prefill(params, self._embed(params, tokens))
+        x, cache = self._stack_prefill(params, self._embed(params, tokens),
+                                       lengths=lengths)
         x = rms_norm(x, params["final_ln"])
         # the reference's take_along_axis clamps; lengths >= 1 on every path
         last = torch.clamp(lengths.long() - 1, 0, s - 1)
         xl = x[torch.arange(b, device=dev), last]                  # (B, D)
         logits = self._logits(params, xl[:, None])[:, 0]
+        # attention K/V land in their decode-slot layout; recurrent state
+        # entries are already in decode form
         sc = self.attn_cache_len(cache_len)
-        cache = {k: gather_cache_slots(v, lengths, sc) for k, v in cache.items()}
+        cache = {k: (gather_cache_slots(v, lengths, sc) if self.is_paged_cache_key(k)
+                     else v) for k, v in cache.items()}
         return logits, cache
 
     # ------------------------------------------------------------------
@@ -156,10 +177,14 @@ class Model:
         return 0
 
     def cache_entries(self, batch: int, seq_len: int) -> Dict[str, Tuple]:
-        """{name: (shape, axes, dtype)} for the dense decode cache."""
+        """{name: (shape, axes, dtype)} for the decode cache."""
         cfg = self.cfg
-        sc = self.attn_cache_len(seq_len)
         ent = {}
+        if self.is_ssm:
+            for name, (shape, axes, dt) in B.ssd_cache_spec(cfg, batch, self.dtype).items():
+                ent[f"l.{name}"] = ((cfg.num_layers, *shape), ("layers", *axes), dt)
+            return ent
+        sc = self.attn_cache_len(seq_len)
         for name, (shape, axes) in B.attn_cache_spec(cfg, batch, sc).items():
             ent[f"l.{name}"] = ((cfg.num_layers, *shape), ("layers", *axes),
                                 self.dtype)
@@ -167,22 +192,29 @@ class Model:
 
     @staticmethod
     def is_paged_cache_key(key: str) -> bool:
-        """Attention K/V stacks page their sequence dimension."""
+        """Attention K/V stacks page their sequence dimension; recurrent
+        state is O(1) in sequence and stays per row."""
         return (key.endswith(".k") or key.endswith(".v")) and not key.startswith("x.")
 
     def paged_cache_entries(self, batch: int, seq_len: int, page: int):
         """Block-granular layout: attention K/V trade their per-row sequence
         dimension ``(L, B, sc, Kv, Dh)`` for one flat per-arena slot stack
         ``(L, n_pages * page, Kv, Dh)`` shared by all rows through per-row
-        page tables. Returns ``(entries, n_pages, sc)``."""
+        page tables; everything else keeps its ``(L, B, ...)`` row layout.
+        Returns ``(entries, n_pages, sc)``; ``n_pages`` is 0 when no entry
+        pages (the SSM family)."""
         ent = self.cache_entries(batch, seq_len)
         sc = self.attn_cache_len(seq_len)
-        n_pages = batch * -(-sc // page)
+        has_paged = any(self.is_paged_cache_key(k) for k in ent)
+        n_pages = batch * -(-sc // page) if has_paged else 0
         out = {}
         for k, (shape, axes, dt) in ent.items():
-            ll, _b, s, *rest = shape
-            out[k] = ((ll, n_pages * page, *rest),
-                      (axes[0], "kv_slots", *axes[3:]), dt)
+            if self.is_paged_cache_key(k):
+                ll, _b, _s, *rest = shape
+                out[k] = ((ll, n_pages * page, *rest),
+                          (axes[0], "kv_slots", *axes[3:]), dt)
+            else:
+                out[k] = (shape, axes, dt)
         return out, n_pages, sc
 
     def init_cache(self, batch: int, seq_len: int, device) -> Dict[str, torch.Tensor]:
@@ -204,17 +236,26 @@ class Model:
         are flat slot stacks (``paged_cache_entries``) read through the
         (B, max_pages) int32 page table, ``seq_len`` is the bucket context
         the arena was sized for, and ``decode_kernel`` picks the paged read
-        (paged | gather | ref; see ``blocks.attn_block_decode``)."""
+        (paged | gather | ref; see ``blocks.attn_block_decode``). The SSM
+        family ignores ``pos``, ``tables`` and the window: its state is
+        per row."""
         cfg = self.cfg
-        pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
         x = self._embed(params, tokens)
+        stacked = _subtree(params, "l.")
+        if self.is_ssm:
+            names = [k[2:] for k in cache if k.startswith("l.")]
+            for i in range(cfg.num_layers):
+                x = B.ssd_block_decode(cfg, self._layer(stacked, i), x,
+                                       {n: cache[f"l.{n}"][i] for n in names})
+            x = rms_norm(x, params["final_ln"])
+            return self._logits(params, x), cache
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
         paged = tables is not None and page > 0
         sc = self.attn_cache_len(seq_len) if paged else 0
         window = (window_override if window_override is not None
                   else self.decode_window(seq_len if paged else cache["l.k"].shape[2]))
         if not paged:
             tables, page = None, 0
-        stacked = _subtree(params, "l.")
         ck, cv = cache["l.k"], cache["l.v"]
         for i in range(cfg.num_layers):
             x = B.attn_block_decode(cfg, self._layer(stacked, i), x,

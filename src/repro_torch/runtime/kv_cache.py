@@ -13,7 +13,10 @@ Port of ``repro/runtime/kv_cache.py``:
 
 Row and page bookkeeping is host-side (numpy); the device holds the slot
 stacks and an int32 page table, uploaded lazily when the host table changed.
-The handoff write updates the arena's tensors in place.
+The handoff write updates the arena's tensors in place. Recurrent state
+(the SSM family's SSD state and conv tails) keeps its per-row layout in a
+paged arena: a pure-recurrent arena has no pages, no allocator and no page
+table, and its rows are charged ``row_nbytes`` each.
 """
 
 from __future__ import annotations
@@ -105,15 +108,19 @@ class BlockAllocator:
 class CacheArena:
     """One bucket-shaped cache whose batch rows are individually leasable.
 
-    In paged mode (``page > 0``) the arena owns a :class:`BlockAllocator`
-    over ``n_pages`` physical pages and a ``(batch, max_pages)`` int32 page
-    table whose unallocated entries hold the sentinel ``n_pages`` (reads
-    through it are masked, writes through it are dropped)."""
+    In paged mode (``page > 0``) with paged entries (``n_pages > 0``) the
+    arena owns a :class:`BlockAllocator` over ``n_pages`` physical pages and
+    a ``(batch, max_pages)`` int32 page table whose unallocated entries hold
+    the sentinel ``n_pages`` (reads through it are masked, writes through it
+    are dropped). A paged arena with no paged entries (pure-recurrent
+    families) has neither: rows are its only granularity and ``tables`` is
+    None."""
 
     def __init__(self, batch: int, seq: int, cache: Dict[str, torch.Tensor],
                  nbytes: float, *, page: int = 0, sc: int = 0,
                  n_pages: int = 0, page_nbytes: float = 0.0,
-                 rotating: bool = False, paged_keys: Sequence[str] = ()):
+                 row_nbytes: float = 0.0, rotating: bool = False,
+                 paged_keys: Sequence[str] = ()):
         self.batch = batch
         self.seq = seq
         self.cache = cache
@@ -124,17 +131,19 @@ class CacheArena:
         self.sc = sc                    # logical cache slots per row
         self.n_pages = n_pages
         self.page_nbytes = page_nbytes  # bytes of one page across the stack
+        self.row_nbytes = row_nbytes    # per-row bytes of non-paged entries
         self.rotating = rotating        # rotating-window slot semantics
         self.paged_keys = tuple(paged_keys)
-        self.allocator = BlockAllocator(n_pages) if page else None
+        self.paging = bool(page and n_pages)    # pages, allocator, page table
+        self.allocator = BlockAllocator(n_pages) if self.paging else None
         self.max_pages = max(1, -(-sc // page)) if page else 0
         self._row_pages: Dict[int, List[int]] = {}
         self._row_reserved: Dict[int, int] = {}
         self._row_slots: Dict[int, int] = {}   # valid slots per row
         self._tables_np = (np.full((batch, self.max_pages), n_pages, np.int32)
-                           if page else None)
+                           if self.paging else None)
         self._tables: Optional[torch.Tensor] = None
-        self._tables_dirty = bool(page)
+        self._tables_dirty = self.paging
 
     @property
     def device(self) -> torch.device:
@@ -177,20 +186,24 @@ class CacheArena:
 
     def span_pages(self, span: int) -> int:
         """Pages a row occupying ``span`` logical slots needs end to end."""
-        if not self.page:
+        if not self.paging:
             return 0
         return -(-min(max(1, span), self.sc) // self.page)
 
     def live_nbytes(self) -> float:
-        """Page-exact committed bytes (the full arena when not paged)."""
+        """Page-exact committed bytes: leased and reserved pages plus the
+        per-row (recurrent) bytes of leased rows; the full arena when not
+        paged."""
         if not self.page:
             return self.nbytes
-        return self.pages_committed * self.page_nbytes
+        return (self.pages_committed * self.page_nbytes
+                + self.rows_used * self.row_nbytes)
 
     @property
-    def tables(self) -> torch.Tensor:
+    def tables(self) -> Optional[torch.Tensor]:
         """Device page table, re-uploaded lazily: admissions and page grants
-        mutate the host table and only mark it dirty."""
+        mutate the host table and only mark it dirty. None for an arena with
+        no paged entries."""
         if self._tables_dirty:
             self._tables = torch.tensor(self._tables_np, device=self.device)
             self._tables_dirty = False
@@ -202,7 +215,7 @@ class CacheArena:
         valid slots (the prompt plus the first decode write — or the whole
         span with ``eager``) and reserve the rest of its span. Returns the
         leased pages."""
-        if not self.page:
+        if not self.paging:
             return []
         total = self.span_pages(span)
         init_slots = min(span, self.sc) if eager else min(prompt + 1, self.sc)
@@ -227,7 +240,7 @@ class CacheArena:
         """Grant the page covering logical slot ``lslot`` to ``row`` from its
         admission-time reservation (no-op when already granted). Returns the
         newly granted physical page, if any."""
-        if not self.page:
+        if not self.paging:
             return None
         lp = lslot // self.page
         pages = self._row_pages.get(row)
@@ -258,7 +271,7 @@ class CacheArena:
     def release_row_pages(self, rows: Sequence[int]) -> int:
         """Return rows' pages (and outstanding reservations) to the
         allocator; returns how many leased pages were freed."""
-        if not self.page:
+        if not self.paging:
             return 0
         freed = 0
         for r in rows:
@@ -318,29 +331,39 @@ class KVCachePool:
                          in self.model.cache_entries(batch, seq).values()))
 
     def _arena_params(self, batch: int, seq: int):
-        """(entries, sc, n_pages, page_nbytes, nbytes) of a paged arena."""
+        """(entries, sc, n_pages, page_nbytes, row_nbytes, nbytes) of a paged
+        arena: paged entries are charged per page, the others per row."""
         key = (batch, seq)
         if key not in self._params:
             ent, n_pages, sc = self.model.paged_cache_entries(batch, seq,
                                                               self.page_size)
-            total = float(sum(math.prod(shape) * dt.itemsize
-                              for shape, _a, dt in ent.values()))
-            self._params[key] = (ent, sc, n_pages, total / max(1, n_pages), total)
+            page_nbytes = row_nbytes = total = 0.0
+            for k, (shape, _a, dt) in ent.items():
+                nb = math.prod(shape) * dt.itemsize
+                total += nb
+                if self.model.is_paged_cache_key(k):
+                    page_nbytes += nb / max(1, n_pages)
+                else:
+                    row_nbytes += nb / batch
+            self._params[key] = (ent, sc, n_pages, page_nbytes, row_nbytes, total)
         return self._params[key]
 
     def span_pages(self, seq: int, span: int) -> int:
         """Pages one row of a ``seq``-bucket arena needs for ``span``."""
         if not self.paged:
             return 0
-        sc = self._arena_params(1, seq)[1]
+        _ent, sc, n_pages = self._arena_params(1, seq)[:3]
+        if not n_pages:
+            return 0
         return -(-min(max(1, span), sc) // self.page_size)
 
     def member_bytes(self, seq: int, batch_rows: int, span: int) -> float:
-        """Page-exact bytes one request commits (the admission unit)."""
+        """Page-exact bytes one request commits (the admission unit): its
+        rows' recurrent bytes plus its span's pages per row."""
         if not self.paged:
             return 0.0
-        page_nbytes = self._arena_params(1, seq)[3]
-        return batch_rows * self.span_pages(seq, span) * page_nbytes
+        page_nbytes, row_nbytes = self._arena_params(1, seq)[3:5]
+        return batch_rows * (row_nbytes + self.span_pages(seq, span) * page_nbytes)
 
     def live_bytes(self) -> float:
         """Bytes committed to requests (page-exact when paged)."""
@@ -376,11 +399,12 @@ class KVCachePool:
         if not self.paged:
             return CacheArena(batch, seq, self.model.init_cache(batch, seq, self.device),
                               self.arena_bytes(batch, seq))
-        ent, sc, n_pages, page_nbytes, nbytes = self._arena_params(batch, seq)
+        ent, sc, n_pages, page_nbytes, row_nbytes, nbytes = self._arena_params(batch, seq)
         cache = {k: torch.zeros(s, dtype=d, device=self.device)
                  for k, (s, _a, d) in ent.items()}
         return CacheArena(batch, seq, cache, nbytes, page=self.page_size, sc=sc,
                           n_pages=n_pages, page_nbytes=page_nbytes,
+                          row_nbytes=row_nbytes,
                           rotating=self.model.decode_window(seq) > 0,
                           paged_keys=[k for k in ent if self.model.is_paged_cache_key(k)])
 
@@ -461,7 +485,7 @@ class KVCachePool:
                             pos: int) -> None:
         """Grant the page covering the next write position to ``rows``
         (no-op off a page boundary; draws from admission reservations)."""
-        if not arena.page:
+        if not arena.paging:
             return
         if not arena.rotating and pos >= arena.sc:
             return  # out-of-capacity writes drop; nothing to grant

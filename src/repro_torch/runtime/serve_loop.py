@@ -10,8 +10,10 @@ admission):
 2. acquire an arena of that bucket from the KV-cache pool;
 3. admit the request's rows (pages for the whole span);
 4. prefill the prompt (with ``prefill=True``);
-5. scatter the prefill's K/V into the rows (the handoff write);
-6. decode greedily on the paged tables, one step per token.
+5. scatter the prefill's cache into the rows (the handoff write: K/V through
+   the page tables, recurrent state and conv tails row by row);
+6. decode greedily on the paged tables, one step per token (a
+   pure-recurrent arena has no page table and decodes its rows directly).
 
 The plan compiler, plan cache, dynamic recompilation, the engine with its
 scheduler and metrics come in slice 2; until then each bucket's step is the
@@ -59,11 +61,12 @@ def _sync(device: torch.device) -> None:
 def make_decode_step(model, page: int = 0, seq_len: int = 0,
                      decode_kernel: str = "paged"):
     """``page > 0``: the paged decode step, taking the (B, max_pages) page
-    table as a fifth argument; ``seq_len`` is the bucket context the arena
-    is sized for. ``decode_kernel`` picks the paged read (paged | gather |
-    ref)."""
+    table as a fifth argument (None for an arena with no paged entries,
+    which then decodes with dense semantics); ``seq_len`` is the bucket
+    context the arena is sized for. ``decode_kernel`` picks the paged read
+    (paged | gather | ref)."""
     if page:
-        def decode_step(params, cache, tokens, pos, tables):
+        def decode_step(params, cache, tokens, pos, tables=None):
             return model.decode_step(params, cache, tokens, pos, tables=tables,
                                      page=page, seq_len=seq_len,
                                      decode_kernel=decode_kernel)
