@@ -28,7 +28,16 @@ Phases, each of which must pass (nothing is caught):
               equal to a prefill one token longer;
 7. serve-ssm — full Mamba-2 1.3B (48 layers, bfloat16, seeded random
               weights) serving the same three requests, the SSD kernel's
-              launches checked against the layer count, then traced.
+              launches checked against the layer count, then traced;
+8. lenet-check — LeNet at the paper's width (1 x 28 x 28, 10 classes,
+              float32): the test-mode forward at batch 64 and one training
+              step (loss, gradients, updated parameters) with the matmul and
+              conv kernels against the same with their plain versions, and
+              2 conv + 2 matmul launches per forward;
+9. lenet    — ``Keras2Plan`` trains LeNet for one epoch of 8,192 synthetic
+              images at batch 64 and scores 10,000 (accuracy above 0.6),
+              with step and scoring times and launches against layers x
+              calls, then one step and one scoring pass traced.
 
 Before the last line it prints one JSON ``kernels`` line and the card's
 ``nvidia-smi`` name and power limit; the last line is the JSON ``ok`` line.
@@ -74,6 +83,23 @@ FLASH_BF16_TOL = (2e-3, 2.0 ** -8, 2.0 ** -8)
 # near zero (terms of size ~10-100 summed over 64 positions and 128 state
 # entries: ~1e-5).
 SSD_BF16_TOL = (1e-4, 2.0 ** -8, 2.0 ** -8)
+# matmul and conv2d_im2col in bfloat16: the kernel multiplies the bfloat16
+# inputs exactly and sums in float32, so the plain version on float32 copies
+# of the same inputs is its reference; what remains is the output's own
+# rounding (2^-8 relative) and, near zero, float32 summation order over K
+# (inputs scaled to unit-variance outputs: ~1e-5 at K = 4096)
+GEMM_BF16_TOL = (1e-4, 2.0 ** -8, 2.0 ** -8)
+# LeNet's training step, kernels against plain versions: the two runs' conv
+# and affine outputs differ by float32 summation order (~1e-6 relative); a
+# relu input or a max-pool pair that close to a tie then sends one element's
+# gradient the other way, which moves a weight gradient entry by up to ~5e-3
+# of that tensor's largest entry and the tensor's RMS by ~1e-3 of its own.
+# A wrong kernel moves them by O(1). Held per tensor: (max error over the
+# largest reference entry, error RMS over reference RMS).
+LENET_STEP_TOL = (1e-2, 1e-3)
+# LeNet's workloads (paper's demo model): the training batch, one epoch of
+# synthetic 28 x 28 images, and the scoring set
+LENET_BATCH, LENET_TRAIN, LENET_SCORE = 64, 8192, 10000
 # the serving requests of both models: (batch, context), 32 new tokens each
 SERVE_REQUESTS = ((1, 512), (4, 1000), (8, 2000))
 CHECK_REQUESTS = ((2, 300), (1, 100), (3, 64))
@@ -81,6 +107,10 @@ CHECK_REQUESTS = ((2, 300), (1, 100), (3, 64))
 # bucket): per-step device time needs a few steps, and the profiler's
 # post-processing grows with every traced event
 TRACE_NEW_TOKENS = 8
+# idle time at the start of a LeNet trace, and traces taken at most until
+# one holds the forward's kernel launches (phase_lenet)
+TRACE_SLACK_S = 0.25
+TRACE_ATTEMPTS = 3
 _T0 = time.perf_counter()
 
 
@@ -180,7 +210,9 @@ def phase_device():
 
 def phase_build():
     from repro_torch.kernels import _build
+    from repro_torch.kernels import conv2d_im2col as CONV
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import matmul as MM
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import ssd_scan as SSD
 
@@ -190,6 +222,8 @@ def phase_build():
     _build.library("paged_decode", PA._bind)
     _build.library("flash_attention", FA._bind)
     _build.library("ssd_scan", SSD._bind)
+    _build.library("matmul", MM._bind)
+    _build.library("conv2d_im2col", CONV._bind)
     print(f"built {sorted(p.name for p in out.glob('*.so'))} into {out} "
           f"in {time.perf_counter() - t0:.1f} s")
 
@@ -390,6 +424,8 @@ def phase_kernels():
         library_ms=lib_ms)
     del q, k, v, ke, ve
     results["ssd_scan"] = ssd_kernel_cases(flush)
+    results["matmul"] = matmul_kernel_cases(flush)
+    results["conv2d_im2col"] = conv_kernel_cases(flush)
     del flush
     torch.cuda.empty_cache()
     return results
@@ -491,6 +527,117 @@ def ssd_kernel_cases(flush) -> dict:
           f"({serving['bound_by']}); no single library call")
     return dict(name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan.py:91", library_ms=None, **serving)
+
+
+def _gemm_case(label, run, plain, library, want, tol, nbytes, flops, dtype, flush) -> dict:
+    """Holds ``run()`` against ``want`` under ``tol`` and times the kernel,
+    its plain version and the library call; returns the kernels-line
+    numbers of the case."""
+    import torch
+
+    got = run()
+    torch.cuda.synchronize()
+    err = check_close(label, got, want, tol)
+    del got
+    ms = cuda_ms(run, flush=flush)
+    plain_ms = cuda_ms(plain, flush=flush)
+    lib_ms = cuda_ms(library, flush=flush)
+    bound, by = _bound_ms(nbytes, flops, dtype)
+    print(f"    timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
+
+
+def matmul_kernel_cases(flush) -> dict:
+    """The matmul kernel against its plain version on the card, in float32
+    and bfloat16, at the kernel benchmark's shapes, LeNet's and unaligned
+    ones, each timed beside ``torch.matmul`` (cuBLAS, a yardstick only);
+    returns the kernels-line entry of LeNet's first affine layer on the
+    scoring set."""
+    import torch
+
+    from repro_torch.kernels import matmul as MM
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (name, m, k, n, dtype)
+        ("1024^3 (kernel benchmark)", 1024, 1024, 1024, bf16),
+        ("1024^3 (kernel benchmark)", 1024, 1024, 1024, f32),
+        ("4096^3", 4096, 4096, 4096, bf16),
+        ("LeNet affine 1, batch 64", LENET_BATCH, 3136, 512, f32),
+        ("LeNet affine 1, scoring set", LENET_SCORE, 3136, 512, f32),
+        ("LeNet affine 2, batch 64", LENET_BATCH, 512, 10, f32),
+        ("LeNet affine 2, scoring set", LENET_SCORE, 512, 10, f32),
+        ("split-K, unaligned (33, 1000) @ (1000, 70)", 33, 1000, 70, f32),
+    ] + [(f"unaligned ({m}, {k}) @ ({k}, {n})", m, k, n, dt)
+         for m, k, n in ((100, 70, 50), (17, 33, 9), (8, 8, 8)) for dt in (f32, bf16)]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    main = None
+    for name, m, k, n, dtype in cases:
+        # unit-variance outputs, as He-initialised layers give
+        a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        b = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).to(dtype)
+        want = MM.matmul_torch(a.float(), b.float())
+        tol = FP32_TOL if dtype == f32 else GEMM_BF16_TOL
+        result = _gemm_case(
+            f"matmul {str(dtype)[6:]} {name}", lambda: MM.matmul(a, b),
+            lambda: MM.matmul_torch(a, b), lambda: torch.matmul(a, b), want, tol,
+            (m * k + k * n + m * n) * a.element_size(), 2 * m * n * k, dtype, flush)
+        if (m, k, n) == (LENET_SCORE, 3136, 512):
+            main = result
+        del a, b, want
+    return dict(name="matmul", route="cuda", source="src/repro_torch/kernels/csrc/matmul.cu",
+                replaces="src/repro/kernels/matmul.py:58", **main)
+
+
+def conv_kernel_cases(flush) -> dict:
+    """The conv2d_im2col kernel against its plain version (unfold + product)
+    on the card, at the kernel benchmark's shape, LeNet's two convs at the
+    training batch and on the scoring set, the kernel tests' shapes (stride 2
+    among them) and one bfloat16 case, each timed beside ``F.conv2d``
+    (cuDNN, a yardstick only); returns the kernels-line entry of LeNet's
+    second conv on the scoring set."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import conv2d_im2col as CONV
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (name, (n, c, h, w), f, k, stride, pad, dtype)
+        ("kernel benchmark", (8, 16, 32, 32), 32, 3, 1, 1, f32),
+        ("LeNet conv 1, batch 64", (LENET_BATCH, 1, 28, 28), 32, 5, 1, 2, f32),
+        ("LeNet conv 2, batch 64", (LENET_BATCH, 32, 14, 14), 64, 5, 1, 2, f32),
+        ("LeNet conv 1, scoring set", (LENET_SCORE, 1, 28, 28), 32, 5, 1, 2, f32),
+        ("LeNet conv 2, scoring set", (LENET_SCORE, 32, 14, 14), 64, 5, 1, 2, f32),
+        ("test shape 1", (2, 3, 8, 8), 4, 3, 1, 1, f32),
+        ("test shape 2 (stride 2)", (1, 1, 12, 12), 8, 5, 2, 2, f32),
+        ("test shape 3", (3, 4, 16, 16), 16, 3, 1, 0, f32),
+        ("test shape 4 (stride 2)", (2, 2, 10, 10), 6, 3, 2, 1, f32),
+        ("LeNet conv 2, batch 64", (LENET_BATCH, 32, 14, 14), 64, 5, 1, 2, bf16),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    main = None
+    for name, (n, c, h, w), f, k, stride, pad, dtype in cases:
+        x = torch.randn((n, c, h, w), generator=gen, device="cuda").to(dtype)
+        wt = (torch.randn((f, c, k, k), generator=gen, device="cuda")
+              / math.sqrt(c * k * k)).to(dtype)
+        want = CONV.conv2d_torch(x.float(), wt.float(), stride=stride, pad=pad)
+        ho, wo = want.shape[2], want.shape[3]
+        tol = FP32_TOL if dtype == f32 else GEMM_BF16_TOL
+        nbytes = (x.numel() + wt.numel() + want.numel()) * x.element_size()
+        result = _gemm_case(
+            f"conv2d_im2col {str(dtype)[6:]} {name}: x {(n, c, h, w)}, w {(f, c, k, k)}, "
+            f"stride {stride}, pad {pad}",
+            lambda: CONV.conv2d_im2col(x, wt, stride=stride, pad=pad),
+            lambda: CONV.conv2d_torch(x, wt, stride=stride, pad=pad),
+            lambda: F.conv2d(x, wt, stride=stride, padding=pad), want, tol,
+            nbytes, 2 * n * ho * wo * f * c * k * k, dtype, flush)
+        if (n, c) == (LENET_SCORE, 32):
+            main = result
+        del x, wt, want
+    return dict(name="conv2d_im2col", route="cuda",
+                source="src/repro_torch/kernels/csrc/conv2d_im2col.cu",
+                replaces="src/repro/kernels/conv2d_im2col.py:64", **main)
 
 
 # ---------------------------------------------------------------------------
@@ -719,6 +866,195 @@ def phase_serve_ssm():
     return {"ssd_scan": launches["ssd_scan"]}
 
 
+# ---------------------------------------------------------------------------
+# 8. lenet-check and 9. lenet
+# ---------------------------------------------------------------------------
+
+
+def check_step(name, got, want) -> None:
+    """Holds one tensor of LeNet's training step, kernels against plain
+    versions, under ``LENET_STEP_TOL``."""
+    import torch
+
+    max_tol, rms_tol = LENET_STEP_TOL
+    want = want.float()
+    err = (got.float() - want).abs()
+    max_ratio = float(err.max()) / max(float(want.abs().max()), 1e-30)
+    rms_ratio = float(err.pow(2).mean().sqrt()) / max(float(want.pow(2).mean().sqrt()), 1e-30)
+    ok = max_ratio <= max_tol and rms_ratio <= rms_tol and bool(torch.isfinite(got).all())
+    print(f"  {name}: max_err/ref_max={max_ratio:.3e} err_rms/ref_rms={rms_ratio:.3e} "
+          f"tol({max_tol:g}, {rms_tol:g}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{name}: the kernels' training step disagrees with the plain versions'")
+
+
+def phase_lenet_check() -> None:
+    import torch
+
+    from repro_torch.configs.lenet import make_spec
+    from repro_torch.kernels import conv2d_im2col as CONV
+    from repro_torch.kernels import matmul as MM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train_lenet import synthetic_images
+    from repro_torch.nn import loss as LOSS
+    from repro_torch.nn.module import Sequential
+
+    phase(f"lenet-check: LeNet 1x28x28, 10 classes, float32, batch {LENET_BATCH}, "
+          "kernels == plain")
+    module = Sequential(*make_spec())
+    params = module.init(torch.Generator().manual_seed(SEED), device="cuda")
+    xs, ys = synthetic_images(LENET_BATCH, num_classes=10, size=28, seed=SEED + 2)
+    x, y = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    xent = LOSS.cross_entropy_loss
+    runs = {}
+    for backend in ("auto", "torch"):
+        ops.BACKEND = backend
+        CONV.conv2d_im2col.launches = MM.matmul.launches = 0
+        probs = module.predict(params, x)
+        forward = (CONV.conv2d_im2col.launches, MM.matmul.launches)
+        # the same dropout masks in both runs
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        out, caches = module.forward(params, x, mode="train", generator=gen)
+        _, grads = module.backward(params, caches, xent.backward(out, y))
+        gen.manual_seed(SEED + 3)
+        opt_state = module.init_opt_state("sgd_momentum", params)
+        new_params, _, loss = module.make_train_step("sgd_momentum", 0.01)(
+            params, opt_state, x, y, gen, t=1)
+        total = (CONV.conv2d_im2col.launches, MM.matmul.launches)
+        runs[backend] = dict(probs=probs, loss=loss, grads=grads, new=new_params,
+                             loss_fwd=xent.forward(out, y))
+        print(f"  ops.BACKEND={backend!r}: test-mode forward launched conv2d_im2col "
+              f"{forward[0]}, matmul {forward[1]}; with a train forward and a train step "
+              f"{total[0]}, {total[1]}; loss {float(loss):.6f}")
+        per_forward = (2, 2) if backend == "auto" else (0, 0)
+        if forward != per_forward or total != (3 * per_forward[0], 3 * per_forward[1]):
+            fail(f"ops.BACKEND={backend!r}: launches {forward}, {total}; expected "
+                 f"{per_forward} per forward")
+    ops.BACKEND = "auto"
+    kern, plain = runs["auto"], runs["torch"]
+    check_close("test-mode forward (class probabilities), kernels vs plain", kern["probs"],
+                plain["probs"], FP32_TOL)
+    for key in ("loss_fwd", "loss"):
+        a, b = float(kern[key]), float(plain[key])
+        print(f"  {key}: kernels {a:.7f}, plain {b:.7f}")
+        if not abs(a - b) <= 1e-5 * abs(b):
+            fail(f"{key} differs between the kernels' and the plain versions' step")
+    for i, li in enumerate(module.layers):
+        for j, part in enumerate(("w", "b")[:len(kern["grads"][i])]):
+            check_step(f"layer {i} {li.kind} d{part}", kern["grads"][i][j], plain["grads"][i][j])
+            check_step(f"layer {i} {li.kind} updated {part}", kern["new"][i][j],
+                       plain["new"][i][j])
+    del runs, kern, plain
+    torch.cuda.empty_cache()
+
+
+def phase_lenet() -> dict:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs.lenet import make_spec
+    from repro_torch.frontend import Keras2Plan
+    from repro_torch.kernels import conv2d_im2col as CONV
+    from repro_torch.kernels import matmul as MM
+    from repro_torch.launch.train_lenet import synthetic_images
+
+    phase(f"lenet: Keras2Plan trains LeNet (1x28x28, 10 classes, float32) for one epoch of "
+          f"{LENET_TRAIN} images at batch {LENET_BATCH}, scores {LENET_SCORE}")
+    spec, meta = make_spec()
+    x, y = synthetic_images(LENET_TRAIN, num_classes=10, size=28, seed=SEED)
+    xt, yt = synthetic_images(LENET_SCORE, num_classes=10, size=28, seed=SEED + 1)
+    kw = dict(optimizer="sgd_momentum", lr=0.01, batch_size=LENET_BATCH, epochs=1, seed=SEED)
+    warm = Keras2Plan(spec, meta, **kw).fit(x[:4 * LENET_BATCH], y[:4 * LENET_BATCH])
+    warm.predict_proba(xt[:LENET_BATCH])          # warm-up: cuBLAS, allocator
+    del warm
+    est = Keras2Plan(spec, meta, **kw)
+    torch.cuda.synchronize()
+
+    CONV.conv2d_im2col.launches = MM.matmul.launches = 0
+    t0 = time.perf_counter()
+    est.fit(x, y)                                 # ends reading the loss history
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probs = est.predict_proba(xt)                 # ends copying to the host
+    score_s = time.perf_counter() - t0
+    launches = {"conv2d_im2col": CONV.conv2d_im2col.launches, "matmul": MM.matmul.launches}
+
+    steps = LENET_TRAIN // LENET_BATCH
+    calls = steps + 1                             # forwards: one per step, one scoring pass
+    want = {"conv2d_im2col": 2 * calls, "matmul": 2 * calls}
+    acc = float(np.mean(probs.argmax(axis=1) == yt.argmax(axis=1)))
+    print(f"  trained {steps} steps in {fit_s * 1e3:.1f} ms ({fit_s * 1e3 / steps:.3f} ms/step, "
+          f"{LENET_TRAIN / fit_s:.0f} images/s); loss {est.history[0]:.4f} -> "
+          f"{est.history[-1]:.4f}")
+    print(f"  scored {LENET_SCORE} images in {score_s * 1e3:.1f} ms "
+          f"({LENET_SCORE / score_s:.0f} images/s); test accuracy {acc:.4f}")
+    print(f"  launches {launches} (expected 2 conv + 2 matmul layers x {calls} forwards = "
+          f"{want})")
+    if launches != want:
+        fail(f"kernel launches {launches} != {want}")
+    if probs.shape != (LENET_SCORE, 10) or not np.isfinite(probs).all():
+        fail(f"scores: shape {probs.shape}, all finite {np.isfinite(probs).all()}")
+    if not np.allclose(probs.sum(axis=1), 1.0, atol=1e-4):
+        fail("class probabilities do not sum to 1")
+    if not np.isfinite(est.history).all() or not est.history[-1] < est.history[0]:
+        fail(f"training loss {est.history[0]} -> {est.history[-1]}")
+    if not acc > 0.6:
+        fail(f"test accuracy {acc:.4f} is not above 0.6")
+
+    # per-step latency: more steps from the trained weights, each synchronised
+    step = est.module.make_train_step(est.optimizer, est.lr)
+    params, state = est.params, est.opt_state
+    xb = torch.from_numpy(x[:LENET_BATCH]).cuda()
+    yb = torch.from_numpy(y[:LENET_BATCH]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    times = []
+    for t in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, xb, yb, gen, t=steps + 1 + t)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"  train step (batch {LENET_BATCH}, synchronised): median "
+          f"{statistics.median(times):.3f} ms over {len(times)} steps")
+
+    print("  trace (torch.profiler, one train step and one scoring pass again):")
+    for span, label, fn in (
+            ("lenet.train_step", f"train step, batch {LENET_BATCH}",
+             lambda: step(params, state, xb, yb, gen, t=steps + 21)),
+            ("lenet.score", f"scoring pass, {LENET_SCORE} images",
+             lambda: est.predict_proba(xt))):
+        # after the serving phases' traces, the profiler dropped the first
+        # device events of a new session (most of a scoring pass, a train
+        # step's conv launches): each session runs the pass once unspanned,
+        # then once inside the span, which must hold the forward's 2 conv
+        # and 2 or more matmul kernel launches
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(TRACE_SLACK_S)
+                fn()
+                torch.cuda.synchronize()
+                with record_function(span):
+                    fn()
+                    torch.cuda.synchronize()
+            events = prof.events()
+            lo, hi = next((e.time_range.start, e.time_range.end) for e in events
+                          if e.name == span and e.device_type == DeviceType.CPU)
+            found = {fam: sum(1 for e in events if _kernel_family(e.name) == fam
+                              and lo <= e.time_range.start < hi)
+                     for fam in ("conv_kernel", "mm_kernel")}
+            if found["conv_kernel"] >= 2 and found["mm_kernel"] >= 2:
+                span_report(events, span, 1, label)
+                break
+            print(f"    {label}: trace {attempt} incomplete (kernel events in the span "
+                  f"{found}; the forward launches 2 conv and 2 or more matmul kernels)")
+        else:
+            print(f"    {label}: not measured (no complete trace in {TRACE_ATTEMPTS} tries)")
+    del est, params, state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total, reach = 0.0, -math.inf
@@ -737,6 +1073,10 @@ def _kernel_family(name: str) -> str:
         return "ssd"
     if "flash_" in name:
         return "flash"
+    if "repro_mm_" in name:
+        return "mm_kernel"
+    if "repro_conv_" in name:
+        return "conv_kernel"
     if any(s in low for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "sm90_")):
         return "matmul"
     if "memcpy" in low or "memset" in low:
@@ -752,7 +1092,6 @@ def trace_decode(srv, requests) -> None:
     end after the device has finished them; a phase's device time is the
     union of the device events that start inside its span, its idle share
     the rest of the span."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.runtime.serve_loop import DECODE_SPAN, PREFILL_SPAN, ServeRequest
@@ -766,35 +1105,45 @@ def trace_decode(srv, requests) -> None:
         req = ServeRequest(full.batch, full.context, new_tokens=n)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             out = srv.handle(req)
-        events = prof.events()
-        spans = {e.name: e.time_range for e in events
-                 if e.name in (PREFILL_SPAN, DECODE_SPAN) and e.device_type == DeviceType.CPU}
-        dev = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation and e.name not in (PREFILL_SPAN, DECODE_SPAN)]
         shape = f"{req.batch}x{req.context}"
-        if len(spans) < 2 or not dev:
-            print(f"    req {shape}: not measured (spans {sorted(spans)}, {len(dev)} device "
-                  f"events in the trace)")
-            continue
+        events = prof.events()
         for span, n in ((PREFILL_SPAN, 1), (DECODE_SPAN, out["decode_steps"])):
-            lo, hi = spans[span].start, spans[span].end
-            inside = [e for e in dev if lo <= e.time_range.start < hi]
-            busy = _busy_us((e.time_range.start, min(e.time_range.end, hi)) for e in inside)
-            fam, names = {}, {}
-            for e in inside:
-                dur = e.time_range.end - e.time_range.start
-                key = _kernel_family(e.name)
-                fam[key] = fam.get(key, 0.0) + dur
-                names[e.name] = names.get(e.name, 0.0) + dur
-            by_kind = ", ".join(f"{k} {v / n / 1e3:.3f}"
-                                for k, v in sorted(fam.items(), key=lambda kv: -kv[1]))
-            top = "; ".join(f"{k[:48]} {v / n / 1e3:.3f}"
-                            for k, v in sorted(names.items(), key=lambda kv: -kv[1])[:3])
-            unit = "ms" if n == 1 else f"ms/step over {n} steps"
-            print(f"    req {shape} bucket={out['bucket']} {span.split('.')[1]}: span "
-                  f"{(hi - lo) / n / 1e3:.3f} {unit}, device busy {busy / n / 1e3:.3f}, idle "
-                  f"share {1 - busy / (hi - lo):.3f}, {len(inside) / n:.0f} device events; "
-                  f"device time by kind: {by_kind}; top kernels: {top}")
+            span_report(events, span, n,
+                        f"req {shape} bucket={out['bucket']} {span.split('.')[1]}")
+
+
+def span_report(events, span: str, n: int, label: str) -> None:
+    """Prints the device's time inside the CPU span ``span`` of a
+    ``torch.profiler`` trace, per each of its ``n`` steps: the span, the
+    union of the device events that start inside it (busy), the idle
+    share, and device time by kernel kind and by kernel."""
+    from torch.autograd import DeviceType
+
+    found = [e.time_range for e in events if e.name == span and e.device_type == DeviceType.CPU]
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation and e.name != span]
+    if not found or not dev:
+        print(f"    {label}: not measured ({len(found)} spans, {len(dev)} device events in "
+              f"the trace)")
+        return
+    lo, hi = found[0].start, found[0].end
+    inside = [e for e in dev if lo <= e.time_range.start < hi]
+    busy = _busy_us((e.time_range.start, min(e.time_range.end, hi)) for e in inside)
+    fam, names = {}, {}
+    for e in inside:
+        dur = e.time_range.end - e.time_range.start
+        key = _kernel_family(e.name)
+        fam[key] = fam.get(key, 0.0) + dur
+        names[e.name] = names.get(e.name, 0.0) + dur
+    by_kind = ", ".join(f"{k} {v / n / 1e3:.3f}"
+                        for k, v in sorted(fam.items(), key=lambda kv: -kv[1]))
+    top = "; ".join(f"{k[:48]} {v / n / 1e3:.3f}"
+                    for k, v in sorted(names.items(), key=lambda kv: -kv[1])[:3])
+    unit = "ms" if n == 1 else f"ms/step over {n} steps"
+    print(f"    {label}: span {(hi - lo) / n / 1e3:.3f} {unit}, device busy "
+          f"{busy / n / 1e3:.3f}, idle share {1 - busy / (hi - lo):.3f}, "
+          f"{len(inside) / n:.0f} device events; device time by kind: {by_kind}; "
+          f"top kernels: {top}")
 
 
 def main() -> int:
@@ -818,12 +1167,15 @@ def main() -> int:
     launches = phase_serve()
     phase_serve_check_ssm()
     launches.update(phase_serve_ssm())
+    phase_lenet_check()
+    launches.update(phase_lenet())
     for name, n in launches.items():
         kernels[name]["launches"] = n
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [{key: kernels[n][key] for key in order}
-                        for n in ("paged_decode_attention", "flash_attention", "ssd_scan")]}
+                        for n in ("paged_decode_attention", "flash_attention", "ssd_scan",
+                                  "matmul", "conv2d_im2col")]}
     for entry in line["kernels"]:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms"):
             if entry[key] is not None and not math.isfinite(entry[key]):

@@ -1,0 +1,107 @@
+"""conv2d via im2col: the CUDA kernel's wrapper and its plain version.
+
+Port of ``repro/kernels/conv2d_im2col.py`` (``conv2d_im2col``, body
+``_conv_kernel``): an NCHW x OIHW convolution with a square kernel, stride
+and symmetric zero padding (no bias, no dilation), computed as the patch
+matrix ``(Ho*Wo, C*k*k)`` of each image times the ``(C*k*k, F)`` filters,
+accumulated in float32, output ``(N, F, Ho, Wo)`` in x's dtype. The patch
+columns are ordered channel-major, then kernel row, then kernel column.
+
+- :func:`conv2d_im2col` is the kernel wrapper: on a CUDA tensor it launches
+  ``csrc/conv2d_im2col.cu``, an implicit GEMM whose patch matrix never
+  reaches device memory, raising on anything the kernel does not take; on a
+  CPU tensor it runs the plain version.
+- :func:`conv2d_torch` is the plain version: the reference's lowering, an
+  explicit im2col (``unfold``) followed by a product.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.linearize import conv2d_out_hw
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_INDEX = 2**31 - 1
+# blockIdx.y covers the filters in tiles of up to 128
+_MAX_FILTERS = 65535 * 32
+
+
+def conv2d_torch(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                 pad: int = 0) -> torch.Tensor:
+    """Plain version: x (N, C, H, W), w (F, C, k, k) -> (N, F, Ho, Wo);
+    the (N, C*k*k, Ho*Wo) patches times the (F, C*k*k) filters in float32,
+    rounded to x's dtype."""
+    n, _, h, wd = x.shape
+    f, _, k, _ = w.shape
+    ho, wo = conv2d_out_hw(h, wd, k, stride, pad)
+    cols = F.unfold(x.float(), k, padding=pad, stride=stride)      # (N, C*k*k, Ho*Wo)
+    out = w.reshape(f, -1).float() @ cols                            # (N, F, Ho*Wo)
+    return out.reshape(n, f, ho, wo).to(x.dtype)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int) -> None:
+    """Raise with the reason on anything the CUDA kernel does not take."""
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"conv2d takes x (N, C, H, W) and w (F, C, k, k), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    n, c, h, wd = x.shape
+    f, cw, k, k2 = w.shape
+    if cw != c or k2 != k:
+        raise ValueError(f"w must be (F, {c}, k, k) with a square kernel, got {tuple(w.shape)}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"conv2d kernel takes float32 or bfloat16 x and w of one dtype, "
+                        f"got {x.dtype} and {w.dtype}")
+    if stride < 1 or pad < 0 or k < 1:
+        raise ValueError(f"conv2d kernel needs stride >= 1, pad >= 0, k >= 1, got "
+                         f"stride={stride}, pad={pad}, k={k}")
+    if h + 2 * pad < k or wd + 2 * pad < k or min(n, c, f) < 1:
+        raise ValueError(f"conv2d kernel: empty input or output for x {tuple(x.shape)}, "
+                         f"k={k}, pad={pad}")
+    ho, wo = conv2d_out_hw(h, wd, k, stride, pad)
+    if max(x.numel(), n * f * ho * wo) > _MAX_INDEX or f > _MAX_FILTERS:
+        raise ValueError(f"conv2d kernel indexes positions with 32-bit ints: x "
+                         f"{tuple(x.shape)} with {f} filters is too large")
+    if w.device != x.device:
+        raise ValueError(f"w is on {w.device}, x on {x.device}")
+    if not x.is_contiguous() or not w.is_contiguous():
+        raise ValueError("conv2d kernel takes contiguous x and w")
+
+
+def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                  pad: int = 0) -> torch.Tensor:
+    """Kernel wrapper: launches ``csrc/conv2d_im2col.cu`` on a CUDA tensor
+    (counting the launch in ``conv2d_im2col.launches``), runs
+    :func:`conv2d_torch` on a CPU tensor."""
+    if x.device.type == "cpu":
+        return conv2d_torch(x, w, stride=stride, pad=pad)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv2d kernel runs on CUDA tensors, got {x.device}")
+    _check(x, w, stride, pad)
+    n, c, h, wd = x.shape
+    f, _, k, _ = w.shape
+    ho, wo = conv2d_out_hw(h, wd, k, stride, pad)
+    lib = _build.library("conv2d_im2col", _bind)
+    out = torch.empty((n, f, ho, wo), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_conv2d_im2col(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                      _DTYPES[x.dtype], n, c, h, wd, f, k, stride, pad,
+                                      stream)
+    conv2d_im2col.launches += 1
+    if err:
+        raise RuntimeError(f"conv2d_im2col launch failed: cudaError_t {err}")
+    return out
+
+
+conv2d_im2col.launches = 0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.repro_conv2d_im2col.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                                        + [ctypes.c_void_p])
+    lib.repro_conv2d_im2col.restype = ctypes.c_int

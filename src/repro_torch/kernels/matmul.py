@@ -1,0 +1,113 @@
+"""Tiled matrix product: the CUDA kernel's wrapper and its plain version.
+
+Port of ``repro/kernels/matmul.py`` (``matmul``, body ``_matmul_kernel``):
+``(M, K) @ (K, N)`` with a float32 accumulator and the output in ``a``'s
+dtype, at any M, N, K — the paper's "Native BLAS" / "GPU backend" point
+that compute-bound operators go to a tuned kernel.
+
+- :func:`matmul` is the kernel wrapper: on a CUDA tensor it launches
+  ``csrc/matmul.cu`` (float32 on the CUDA cores in full float32, bfloat16
+  on the tensor cores; ragged edges masked in the kernel; a float32 product
+  with few output tiles and a deep K split along K, see :func:`splits_for`),
+  raising on anything the kernel does not take; on a CPU tensor it runs the
+  plain version.
+- :func:`matmul_torch` is the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel indexes with 32-bit dims; blockIdx.y covers N in 128-column tiles
+_MAX_DIM = 2**31 - 1
+_MAX_N = 65535 * 128
+# split-K: the float32 path's small output tile, and the least depth worth
+# a split of its own
+_SMALL_TILE = 64
+_MIN_SPLIT_DEPTH = 256
+_SM_COUNT: Dict[int, int] = {}
+
+
+def splits_for(m: int, n: int, k: int, sm_count: int) -> int:
+    """How many parts a float32 product's depth is cut into: 1 while its
+    64 x 64 output tiles give every SM a block, else enough parts to fill
+    the SMs, each at least 256 deep (LeNet's first affine layer at batch 64,
+    (64, 3136) @ (3136, 512): 8 tiles, 12 parts)."""
+    tiles = math.ceil(m / _SMALL_TILE) * math.ceil(n / _SMALL_TILE)
+    if tiles >= sm_count:
+        return 1
+    return max(1, min(math.ceil(sm_count / tiles), k // _MIN_SPLIT_DEPTH))
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNT[index]
+
+
+def matmul_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version: the product in float32, rounded to a's dtype."""
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+def _check(a: torch.Tensor, b: torch.Tensor) -> None:
+    """Raise with the reason on anything the CUDA kernel does not take."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul takes (M, K) @ (K, N), got {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"matmul kernel takes float32 or bfloat16 operands of one dtype, "
+                        f"got {a.dtype} and {b.dtype}")
+    (m, k), n = a.shape, b.shape[1]
+    if min(m, n, k) < 1:
+        raise ValueError(f"matmul kernel needs M, N, K >= 1, got ({m}, {k}) @ ({k}, {n})")
+    if max(m, k) > _MAX_DIM or n > _MAX_N:
+        raise ValueError(f"matmul kernel takes M, K < 2**31 and N <= {_MAX_N}, "
+                         f"got M={m}, K={k}, N={n}")
+    if b.device != a.device:
+        raise ValueError(f"b is on {b.device}, a on {a.device}")
+    if not a.is_contiguous() or not b.is_contiguous():
+        raise ValueError("matmul kernel takes contiguous (row-major) operands")
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Kernel wrapper: launches ``csrc/matmul.cu`` on a CUDA tensor
+    (counting the launch in ``matmul.launches``), runs :func:`matmul_torch`
+    on a CPU tensor."""
+    if a.device.type == "cpu":
+        return matmul_torch(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"matmul kernel runs on CUDA tensors, got {a.device}")
+    _check(a, b)
+    (m, k), n = a.shape, b.shape[1]
+    lib = _build.library("matmul", _bind)
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    splits = splits_for(m, n, k, _sm_count(a.device)) if a.dtype == torch.float32 else 1
+    # the float32 partial products of a split-K launch
+    part = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+            if splits > 1 else None)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                               part.data_ptr() if part is not None else None,
+                               _DTYPES[a.dtype], m, n, k, splits, stream)
+    matmul.launches += 1
+    if err:
+        raise RuntimeError(f"matmul launch failed: cudaError_t {err}")
+    return out
+
+
+matmul.launches = 0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.repro_matmul.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.repro_matmul.restype = ctypes.c_int

@@ -18,7 +18,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.conv2d_im2col import conv2d_im2col, conv2d_torch
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_torch
+from repro_torch.kernels.matmul import matmul as matmul_kernel
+from repro_torch.kernels.matmul import matmul_torch
 from repro_torch.kernels.paged_attention import (paged_attention_torch,
                                                  paged_decode_attention)
 from repro_torch.kernels.ssd_scan import MAX_CHUNK, ssd_scan, ssd_scan_torch
@@ -33,6 +36,20 @@ def _use_plain(x: torch.Tensor) -> bool:
     if BACKEND == "kernel" and x.device.type != "cuda":
         raise ValueError(f"ops.BACKEND='kernel' needs CUDA tensors, got {x.device}")
     return BACKEND == "torch"
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) with a float32 accumulator, in a's dtype."""
+    fn = matmul_torch if _use_plain(a) else matmul_kernel
+    return fn(a, b)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, pad: int = 0) -> torch.Tensor:
+    """x (N, C, H, W) * w (F, C, k, k) -> (N, F, Ho, Wo) in x's dtype. The
+    kernel is an implicit GEMM: unlike the reference's per-image VMEM fit,
+    it has no per-image size limit."""
+    fn = conv2d_torch if _use_plain(x) else conv2d_im2col
+    return fn(x, w, stride=stride, pad=pad)
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,

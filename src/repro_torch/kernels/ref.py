@@ -1,9 +1,10 @@
 """Plain PyTorch oracles for the kernels (port of ``kernels/ref.py``).
 
 Each function is the semantic ground truth its kernel and plain version are
-held against: the attention oracles and the Mamba-2 SSD oracles
-(``ssd_ref``, the sequential scan, and ``ssd_chunked_ref``, the chunked
-form). ``matmul_ref`` and ``conv2d_ref`` come with their kernels.
+held against: ``matmul_ref``, ``conv2d_ref``, the attention oracles and the
+Mamba-2 SSD oracles (``ssd_ref``, the sequential scan, and
+``ssd_chunked_ref``, the chunked form). ``conv2d_ref`` is the library
+convolution; nothing on the port's path calls it.
 """
 
 from __future__ import annotations
@@ -13,6 +14,26 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# matmul
+# ---------------------------------------------------------------------------
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) in float32, rounded to a's dtype."""
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+# ---------------------------------------------------------------------------
+# conv2d via im2col (paper ref [5]) — NCHW, square kernel
+# ---------------------------------------------------------------------------
+
+def conv2d_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1, pad: int = 0) -> torch.Tensor:
+    """x: (N, C, H, W); w: (F, C, k, k) -> (N, F, Ho, Wo), in float32,
+    rounded to x's dtype."""
+    out = torch.nn.functional.conv2d(x.float(), w.float(), stride=stride, padding=pad)
+    return out.to(x.dtype)
 
 
 def attention_ref(

@@ -13,7 +13,10 @@ torch = pytest.importorskip("torch")
 
 from repro.configs import ARCH_IDS as JAX_ARCH_IDS  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
-from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
+from repro.configs import lenet as jax_lenet  # noqa: E402
+from repro.configs import softmax_classifier as jax_softmax  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config, lenet, softmax_classifier  # noqa: E402
+from repro_torch.frontend import Keras2Plan  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime import serve_loop  # noqa: E402
 from repro_torch.runtime.engine_config import EngineConfig  # noqa: E402
@@ -65,6 +68,16 @@ def test_config_copy_equals_reference(arch):
     assert ours.layer_pattern() == ref.layer_pattern()
 
 
+@pytest.mark.parametrize("port,ref,kwargs", [
+    (lenet, jax_lenet, {}),
+    (lenet, jax_lenet, {"input_shape": (1, 16, 16), "num_classes": 5}),
+    (softmax_classifier, jax_softmax, {}),
+    (softmax_classifier, jax_softmax, {"num_features": 20, "num_classes": 4}),
+], ids=["lenet", "lenet-16x16", "softmax", "softmax-20x4"])
+def test_nn_spec_copy_equals_reference(port, ref, kwargs):
+    assert port.make_spec(**kwargs) == ref.make_spec(**kwargs)
+
+
 def test_plan_server_without_device_raises_when_cuda_is_absent(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -72,6 +85,14 @@ def test_plan_server_without_device_raises_when_cuda_is_absent(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_loop.resolve_device(None)
     assert serve_loop.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_keras2plan_runs_on_the_card_unless_told_otherwise(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec, meta = softmax_classifier.make_spec(4, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Keras2Plan(spec, meta)
+    assert Keras2Plan(spec, meta, device="cpu").device == torch.device("cpu")
 
 
 def test_unported_parts_raise_and_name_their_slice():
@@ -82,3 +103,8 @@ def test_unported_parts_raise_and_name_their_slice():
     assert build_model(get_config("mamba2-1.3b-smoke")).is_ssm   # ported
     with pytest.raises(NotImplementedError, match="slice 6"):
         build_model(get_config("qwen3-moe-235b-a22b-smoke"))
+    spec, meta = softmax_classifier.make_spec(4, 2)
+    with pytest.raises(NotImplementedError, match="core/parfor.py.*slice 5"):
+        Keras2Plan(spec, meta, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="core/parfor.py.*slice 5"):
+        Keras2Plan(spec, meta, device="cpu").set(mesh=object())
