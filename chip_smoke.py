@@ -11,8 +11,10 @@ Phases, each of which must pass (nothing is caught):
 3. kernels  — each kernel against its plain PyTorch version on the card, in
               float32 and bfloat16, at the shapes the serving path gives it
               and at the smaller widths the kernels take, with CUDA-event
-              timings (median) and the bound for its work; the SSD scan also
-              under strong decay and against the sequential-scan oracle;
+              timings (median), the rate and the bound for its work; the SSD
+              scan also under strong decay and against the sequential-scan
+              oracle; which flash kernel each head dim and dtype ran, read
+              from a profiler trace;
 4. serve-check — Yi-6B widths cut to 2 layers, float32, through
               ``PlanServer``: identical token streams under the paged,
               gather and ref decode kernels;
@@ -262,7 +264,11 @@ def _flash_pairs(sq, sk, causal, window, q_offset) -> int:
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
-def _bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+def _bound_ms(nbytes: float, flops: float, dtype, tf32x3: bool = False) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over the peak for their type. With
+    ``tf32x3`` a float32 product may also run as three TF32 tensor-core
+    products, and its operation bound is the smaller of the two."""
     import torch
 
     from repro_torch import hw
@@ -270,7 +276,13 @@ def _bound_ms(nbytes: float, flops: float, dtype) -> tuple:
     peak = hw.H100.peak_flops if dtype == torch.bfloat16 else hw.H100_FP32_FLOPS
     t_bytes = nbytes / hw.H100.hbm_bandwidth * 1e3
     t_ops = flops / peak * 1e3
+    if tf32x3 and dtype == torch.float32:
+        t_ops = min(t_ops, 3 * flops / hw.H100_TF32_FLOPS * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _tflops(flops: float, ms: float) -> str:
+    return f"{flops / ms / 1e9:.1f} TFLOP/s"
 
 
 def phase_kernels():
@@ -350,7 +362,8 @@ def phase_kernels():
     nbytes = (slots * hkv * d * 2 * item + 2 * b * hq * d * item
               + tables.numel() * 4 + b * 4)
     bound, by = _bound_ms(nbytes, 4 * hq * d * slots, torch.bfloat16)
-    print(f"  paged timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    print(f"  paged timing: kernel {ms:.4f} ms ({_tflops(4 * hq * d * slots, ms)}, "
+          f"{nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, bound "
           f"{bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB committed K/V + q/out)")
     results["paged_decode_attention"] = dict(
         name="paged_decode_attention", route="cuda",
@@ -362,10 +375,11 @@ def phase_kernels():
 
     def plain_flash(q, k, v, **mask):
         # float32: the plain version the port runs on the CPU; bfloat16: the
-        # plain version in the kernel's order, rounding P as the kernel does
+        # plain version in the kernel's order (its key tile), rounding P as
+        # the kernel does
         if q.dtype == torch.float32:
             return FA.flash_attention_torch(q, k, v, **mask)
-        return FA.flash_attention_tiled(q, k, v, **mask)
+        return FA.flash_attention_tiled(q, k, v, bk=FA.key_tile(q.shape[-1]), **mask)
 
     # -- flash attention: B=2, Hq=32, Hkv=4, D=128 ---------------------------
     flash_cases = [  # (name, b, hq, hkv, d, sq, sk, causal, window, q_offset)
@@ -376,6 +390,11 @@ def phase_kernels():
         ("Sq=512 Sk=2048 q_offset=700 window=256", 2, 32, 4, 128, 512, 2048, True, 256,
          700),
         ("S=1000 bidirectional", 2, 32, 4, 128, 1000, 1000, False, 0, -1),
+        # a window narrower than the 128-key tile; the first 100 rows of
+        # Sq=300 over Sk=200 see no key (zeros); one row past a query tile
+        ("S=1000 window=100", 2, 32, 4, 128, 1000, 1000, True, 100, -1),
+        ("Sq=300 Sk=200 causal", 2, 32, 4, 128, 300, 200, True, 0, -1),
+        ("S=129 causal", 2, 32, 4, 128, 129, 129, True, 0, -1),
         # the smaller head dims the kernel is built for (yi-6b-smoke: D=32)
         ("D=32 S=100 causal", 2, 4, 2, 32, 100, 100, True, 0, -1),
         ("D=32 S=100 bidirectional", 2, 4, 2, 32, 100, 100, False, 0, -1),
@@ -391,7 +410,14 @@ def phase_kernels():
             want = plain_flash(q, k, v, causal=causal, window=window, q_offset=off)
             torch.cuda.synchronize()
             check_close(f"flash {str(dtype)[6:]} {name}", got, want, tol)
+            # causal rows before the first key (query position < 0) see none
+            blind = max(0, -(sk - sq if off < 0 else off)) if causal else 0
+            if blind and bool(got[:, :, :blind].ne(0).any()):
+                fail(f"flash {str(dtype)[6:]} {name}: rows with no unmasked key are not zero")
+            elif blind:
+                print(f"    the first {blind} rows, which see no key, are zero")
             del q, k, v, got, want
+    flash_kernel_names(FA)
 
     # the serving path's shape: the (8, 2000) request's prompt pass, bucket 2048
     b, hq, hkv, d, s = 8, 32, 4, 128, 2048
@@ -413,9 +439,10 @@ def phase_kernels():
     pairs = _flash_pairs(s, s, True, 0, -1)
     nbytes = (2 * q.numel() + 2 * k.numel()) * 2
     bound, by = _bound_ms(nbytes, 4 * d * pairs * b * hq, torch.bfloat16)
-    print(f"  flash timing: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"scaled_dot_product_attention {lib_ms:.3f} ms, bound {bound:.4f} ms ({by}; "
-          f"{4 * d * pairs * b * hq / 1e9:.1f} GFLOP)")
+    flops = 4 * d * pairs * b * hq
+    print(f"  flash timing: kernel {ms:.4f} ms ({_tflops(flops, ms)}), plain {plain_ms:.3f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms ({_tflops(flops, lib_ms)}), bound "
+          f"{bound:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP)")
     results["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -429,6 +456,45 @@ def phase_kernels():
     del flush
     torch.cuda.empty_cache()
     return results
+
+
+def flash_kernel_names(FA) -> None:
+    """Which kernel of csrc/flash_attention.cu each head dim and dtype ran,
+    read from one profiler trace of a small call each (inside its own span,
+    after a warm-up call); fails where a traced call ran another kernel than
+    the one the source dispatches to (``FA.kernel_name``)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    configs = [(dtype, d) for dtype in (torch.bfloat16, torch.float32) for d in FA.HEAD_DIMS]
+    inputs = {c: [torch.randn((1, 4, 200, c[1]), generator=gen, device="cuda").to(c[0])
+                  for _ in range(3)] for c in configs}
+    FA.flash_attention(*inputs[configs[0]])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        FA.flash_attention(*inputs[configs[0]])
+        torch.cuda.synchronize()
+        for dtype, d in configs:
+            with record_function(f"flash {str(dtype)[6:]} D={d}"):
+                FA.flash_attention(*inputs[(dtype, d)])
+                torch.cuda.synchronize()
+    events = prof.events()
+    took = []
+    for dtype, d in configs:
+        label = f"flash {str(dtype)[6:]} D={d}"
+        span = next(e.time_range for e in events if e.name == label
+                    and e.device_type == DeviceType.CPU)
+        names = {m.group(0) for e in events if e.device_type == DeviceType.CUDA
+                 and span.start <= e.time_range.start < span.end
+                 for m in [re.search(r"flash_\w+_kernel(<\d+>)?", e.name)] if m}
+        took.append(f"{str(dtype)[6:]} D={d} -> {', '.join(sorted(names)) or 'not measured'}")
+        if names and not any(FA.kernel_name(d, dtype) in n for n in names):
+            fail(f"{label} ran {names}, not {FA.kernel_name(d, dtype)}")
+    print("  flash kernels by head dim (profiler): " + "; ".join(took))
 
 
 def _ssd_inputs(b, s, h, p, n, dtype, seed, strong_decay=False):
@@ -489,8 +555,8 @@ def ssd_kernel_cases(flush) -> dict:
         plain_ms = cuda_ms(lambda: SSD.ssd_scan_torch(*args), flush=flush)
         nbytes, flops = _ssd_work(args[0], args[1], args[3])
         bound, by = _bound_ms(nbytes, flops, args[0].dtype)
-        print(f"    timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-              f"({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        print(f"    timing: kernel {ms:.4f} ms ({_tflops(flops, ms)}), plain {plain_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
 
     cases = [  # (name, b, s, h, p, n, strong decay)
@@ -542,9 +608,11 @@ def _gemm_case(label, run, plain, library, want, tol, nbytes, flops, dtype, flus
     ms = cuda_ms(run, flush=flush)
     plain_ms = cuda_ms(plain, flush=flush)
     lib_ms = cuda_ms(library, flush=flush)
-    bound, by = _bound_ms(nbytes, flops, dtype)
-    print(f"    timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-          f"bound {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    # a float32 product's bound: the CUDA cores' rate or three TF32 products
+    bound, by = _bound_ms(nbytes, flops, dtype, tf32x3=True)
+    print(f"    timing: kernel {ms:.4f} ms ({_tflops(flops, ms)}), plain {plain_ms:.4f} ms, "
+          f"library {lib_ms:.4f} ms ({_tflops(flops, lib_ms)}), bound {bound:.4f} ms ({by}; "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=lib_ms)
 

@@ -29,6 +29,10 @@ H100 = HardwareSpec(
 
 # dense float32 rate outside the tensor cores, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12
+# dense TF32 tensor-core rate, H100 SXM data sheet; a float32 product the
+# kernels compute as three TF32 products (3xTF32) is bounded by 3 x its
+# FLOPs at this rate where that is below its float32 CUDA-core bound
+H100_TF32_FLOPS = 495e12
 
 
 def probe(device: int = 0) -> Dict[str, Any]:

@@ -9,10 +9,14 @@ columns are ordered channel-major, then kernel row, then kernel column.
 
 - :func:`conv2d_im2col` is the kernel wrapper: on a CUDA tensor it launches
   ``csrc/conv2d_im2col.cu``, an implicit GEMM whose patch matrix never
-  reaches device memory, raising on anything the kernel does not take; on a
-  CPU tensor it runs the plain version.
+  reaches device memory (float32 on the tensor cores in 3xTF32, bfloat16
+  inputs on the CUDA cores), raising on anything the kernel does not take;
+  on a CPU tensor it runs the plain version.
 - :func:`conv2d_torch` is the plain version: the reference's lowering, an
   explicit im2col (``unfold``) followed by a product.
+- :func:`conv2d_tf32x3_torch` models the float32 kernel's rounding (tests
+  only): each operand split into a TF32 hi part and a lo part read as TF32,
+  three products.
 """
 
 from __future__ import annotations
@@ -42,6 +46,40 @@ def conv2d_torch(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     cols = F.unfold(x.float(), k, padding=pad, stride=stride)      # (N, C*k*k, Ho*Wo)
     out = w.reshape(f, -1).float() @ cols                            # (N, F, Ho*Wo)
     return out.reshape(n, f, ho, wo).to(x.dtype)
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 significand bits), ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds finite values: add half of
+    the dropped 13 bits to the magnitude, then clear them."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_truncate(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 by clearing the 13 low significand bits: how the
+    tensor cores read a float32 operand of a TF32 product."""
+    return (t.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def conv2d_tf32x3_torch(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                        pad: int = 0, terms: int = 3) -> torch.Tensor:
+    """The float32 kernel's arithmetic: x (N, C, H, W), w (F, C, k, k) ->
+    float32 (N, F, Ho, Wo). Patches and filters are split as hi = tf32(v)
+    (rounded), lo = v - hi (read as TF32, truncated); the output is hi.hi +
+    (lo.hi + hi.lo), each product of TF32 values exact in float32 and summed
+    in float32. ``terms=1`` keeps hi.hi alone: a plain TF32 product."""
+    n, _, h, wd = x.shape
+    f, _, k, _ = w.shape
+    ho, wo = conv2d_out_hw(h, wd, k, stride, pad)
+    cols = F.unfold(x.float(), k, padding=pad, stride=stride)      # (N, C*k*k, Ho*Wo)
+    wm = w.reshape(f, -1).float()
+    c_hi, w_hi = tf32_round(cols), tf32_round(wm)
+    out = w_hi @ c_hi
+    if terms == 3:
+        c_lo, w_lo = tf32_truncate(cols - c_hi), tf32_truncate(wm - w_hi)
+        out = out + (w_hi @ c_lo + w_lo @ c_hi)
+    return out.reshape(n, f, ho, wo)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int) -> None:

@@ -19,32 +19,40 @@
 // (a tap outside the image loads 0) and the stride by index arithmetic.
 //
 // What bounds it on an H100. LeNet's second conv (C 32, k 5, F 64, 14 x 14)
-// does 20 kFLOP per output value: operations (200.7 GFLOP at 10,000 images,
-// 3.0 ms at the float32 peak). Its first conv (C 1, k 5, F 32, 28 x 28) does
-// 50 FLOP per output value: the 1.0 GB it writes at 10,000 images (0.30 ms).
-// So the kernel keeps the arithmetic fed from registers (the float32 tile
-// loop of fp32_tile.cuh, shared with matmul.cu) and writes its output once,
-// in wide coalesced stores:
-// - the block tile covers 32, 64 or 128 filters (the smallest that covers
-//   F up to 128; 256 or 128 output positions), so a 32- or 64-filter layer
-//   wastes no multiply-adds on padding filters;
-// - each thread keeps one output position for the whole K loop: its image,
-//   (oh, ow) and input base are computed once, and its patch taps (c, ki, kj)
-//   advance incrementally from slice to slice with no division;
-// - neighbouring threads own neighbouring output positions, so both the
-//   gathered loads from x and the stores of each filter's output plane are
-//   coalesced, and the output is written directly in (N, F, Ho, Wo) order,
-//   4 positions per store where Ho * Wo is a multiple of 4 — no transpose
-//   pass (the Pallas wrapper transposes (N, Ho*Wo, F) afterwards);
-// - float32 on the CUDA cores in full float32 (no TF32); bfloat16 inputs are
-//   widened to float32 as they are staged, on the CUDA cores too. A
-//   tensor-core path is later work.
+// does 20 kFLOP per output value: operations (200.7 GFLOP at 10,000 images:
+// 3.0 ms at the float32 CUDA-core peak, 1.2 ms as three TF32 tensor-core
+// products). Its first conv (C 1, k 5, F 32, 28 x 28) does 50 FLOP per
+// output value: the 1.0 GB it writes at 10,000 images (0.30 ms).
+//
+// What the design does about it.
+// - float32 (repro_conv_tf32x3): the product runs on the tensor cores in
+//   3xTF32 (tf32x3_tile.cuh: each operand split into TF32 hi and lo parts,
+//   lo.hi + hi.lo into one float32 accumulator and hi.hi into another per
+//   8-deep k-step, wgmma m64nFk8), which keeps float32's tolerance at three
+//   times the tensor-core work. Block tiles of 128 output positions x 32,
+//   64 or 128 filters (the smallest that covers F up to 128, so LeNet's 32-
+//   and 64-filter layers waste no filters), two warpgroups, 32-deep slices
+//   through a 3-stage cp.async ring: the patch taps are gathered with
+//   4-byte cp.async (a tap outside the image copies zeros through the source
+//   size 0, so padding costs no branch on the data path), each thread
+//   owning one output position for the whole loop with its tap (c, ki, kj)
+//   and the tap's 32-bit offset advanced without division, and issuing the
+//   next slice's copies while the current slice's products run; the filters
+//   (F, K) arrive with 16-byte cp.async where K % 4 == 0. The output is
+//   written directly in (N, F, Ho, Wo) order, eight neighbouring positions
+//   of one filter plane per quarter-warp — no transpose pass (the Pallas
+//   wrapper transposes (N, Ho*Wo, F) afterwards).
+// - bfloat16 inputs (repro_conv_im2col): widened to float32 as they are
+//   staged and multiplied on the CUDA cores in the float32 tile loop of
+//   fp32_tile.cuh (shared with matmul.cu), one output position per thread
+//   for the whole loop, 4 positions per store where Ho * Wo % 4 == 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fp32_tile.cuh"
+#include "tf32x3_tile.cuh"
 
 namespace {
 
@@ -52,16 +60,11 @@ using bf16 = __nv_bfloat16;
 using repro_tile::Tile;
 using repro_tile::tile_pos;
 
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f(const bf16* p) { return __bfloat162float(__ldg(p)); }
 
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16(v); }
 
-// four consecutive outputs; p is 16-byte (float) or 8-byte (bfloat16) aligned
-__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
+// four consecutive outputs; p is 8-byte aligned
 __device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float d) {
   __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
   __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
@@ -74,6 +77,188 @@ __device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float
 struct ConvShape {
   int C, H, W, F, ks, stride, pad, Ho, Wo, M, K;
 };
+
+// moves the tap (ch, row, col) `step` depths on in the (c, ki, kj) order,
+// with no division
+__device__ __forceinline__ void advance_tap(int& ch, int& row, int& col, int step, int ks) {
+  col += step;
+  while (col >= ks) {
+    col -= ks;
+    if (++row == ks) {
+      row = 0;
+      ++ch;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+// A: the patch matrix gathered with 4-byte cp.async into As[k][m]. Each
+// thread owns output position m0 + tid % BM for the whole loop and the
+// depths tid / BM + e * KSTEP of every slice; its tap (c, ki, kj) and the
+// tap's offset from the window's top-left input element advance KSTEP
+// depths after every element, so slices must be loaded in order. Offsets
+// are 32-bit: the wrapper refuses tensors of 2^31 elements or more.
+template <class Cfg>
+struct GatherPatches {
+  static constexpr int KSTEP = Cfg::NT / Cfg::BM;
+  static constexpr int PER = Cfg::BK / KSTEP;        // elements per thread and slice
+  static_assert(Cfg::NT % Cfg::BM == 0 && Cfg::BK % KSTEP == 0, "whole taps per thread");
+  const ConvShape s;
+  const float* x;             // also the (unread) source of zero-filled copies
+  int corner = 0;             // x offset of the window's top-left tap (may lie outside)
+  int ih0 = 0, iw0 = 0;       // its row and column (may be negative)
+  bool valid = false;
+  int c = 0, ki = 0, kj = 0;  // tap of the next element
+  int off = 0;                // its offset from corner: (c H + ki) W + kj
+
+  __device__ __forceinline__ GatherPatches(const float* x_, const ConvShape& shape, int m0)
+      : s(shape), x(x_) {
+    const int gm = m0 + threadIdx.x % Cfg::BM;
+    valid = gm < s.M;
+    if (valid) {
+      const int hw = s.Ho * s.Wo;
+      const int n = gm / hw;
+      const int p = gm - n * hw;
+      const int oh = p / s.Wo;
+      const int ow = p - oh * s.Wo;
+      ih0 = oh * s.stride - s.pad;
+      iw0 = ow * s.stride - s.pad;
+      corner = (n * s.C * s.H + ih0) * s.W + iw0;
+    }
+    const int kk0 = threadIdx.x / Cfg::BM;
+    c = kk0 / (s.ks * s.ks);
+    ki = (kk0 / s.ks) % s.ks;
+    kj = kk0 % s.ks;
+    off = (c * s.H + ki) * s.W + kj;
+  }
+
+  // part `part` of PARTS of this thread's elements of a slice; a slice's
+  // parts in order, slices in order
+  template <int PARTS>
+  __device__ __forceinline__ void load_part(float* As, int part) {
+    static_assert(PER % PARTS == 0, "whole elements per part");
+    constexpr int N = PER / PARTS;
+    float* dst =
+        As + (threadIdx.x / Cfg::BM + part * N * KSTEP) * Cfg::LDA + threadIdx.x % Cfg::BM;
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const bool in = valid && c < s.C && (unsigned)(ih0 + ki) < (unsigned)s.H &&
+                      (unsigned)(iw0 + kj) < (unsigned)s.W;
+      repro_tf32x3::cp_async4(dst + e * KSTEP * Cfg::LDA, in ? x + (corner + off) : x, in);
+      // KSTEP depths on: kj, then ki, then c, with the offset alongside
+      kj += KSTEP;
+      off += KSTEP;
+      while (kj >= s.ks) {
+        kj -= s.ks;
+        off += s.W - s.ks;
+        if (++ki == s.ks) {
+          ki = 0;
+          ++c;
+          off += (s.H - s.ks) * s.W;
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void load(float* As) {
+    load_part<1>(As, 0);
+  }
+};
+
+// B: the filters (F, K) row-major into Bs[f][k]; VEC: 16-byte copies (K % 4
+// == 0 and w 16-byte aligned, so a chunk lies wholly inside K or outside)
+template <class Cfg, bool VEC>
+struct CopyFilters {
+  const float* __restrict__ w;
+  int F, K, f0;
+
+  __device__ __forceinline__ void load(float* Bs, int k0) const {
+    constexpr int W = VEC ? 4 : 1;                     // floats per copy
+    constexpr int PER_ROW = Cfg::BK / W;
+    static_assert(Cfg::BN * PER_ROW % Cfg::NT == 0, "whole copies per thread");
+#pragma unroll
+    for (int e = 0; e < Cfg::BN * PER_ROW / Cfg::NT; ++e) {
+      const int idx = threadIdx.x + e * Cfg::NT;
+      const int n = idx / PER_ROW;
+      const int kk = (idx % PER_ROW) * W;
+      const int gf = f0 + n;
+      const int gk = k0 + kk;
+      const bool in = gf < F && gk < K;
+      const float* src = in ? w + (long long)gf * K + gk : w;
+      if (VEC)
+        repro_tf32x3::cp_async16(Bs + n * Cfg::LDB + kk, src, in);
+      else
+        repro_tf32x3::cp_async4(Bs + n * Cfg::LDB + kk, src, in);
+    }
+  }
+};
+
+template <class Cfg, bool VEC_W>
+__global__ void __launch_bounds__(Cfg::NT, Cfg::MIN_BLOCKS)
+repro_conv_tf32x3(const float* __restrict__ x, const float* __restrict__ w,
+                  float* __restrict__ out, ConvShape s) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const int m0 = blockIdx.x * Cfg::BM;
+  const int f0 = blockIdx.y * Cfg::BN;
+  GatherPatches<Cfg> la(x, s, m0);
+  CopyFilters<Cfg, VEC_W> lb{w, s.F, s.K, f0};
+  float acc[Cfg::ACC];
+  repro_tf32x3::tile_loop<Cfg>(s.K, la, lb, smem_tc, acc);
+
+  // accumulator 4 j + 2 h + c: position row + 8 h (row = 16 warp + lane / 4),
+  // filter 8 j + 2 (lane % 4) + c
+  const int lane = threadIdx.x % 32;
+  const int hw = s.Ho * s.Wo;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gm = m0 + (threadIdx.x / 32) * 16 + lane / 4 + 8 * h;
+    if (gm >= s.M) continue;
+    const int n = gm / hw;
+    float* base = out + (long long)n * s.F * hw + (gm - n * hw);
+#pragma unroll
+    for (int j = 0; j < Cfg::BN / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int gf = f0 + 8 * j + 2 * (lane % 4) + c;
+        if (gf < s.F) base[(long long)gf * hw] = acc[4 * j + 2 * h + c];
+      }
+    }
+  }
+}
+
+template <class Cfg>
+cudaError_t launch_tf32x3(const void* x, const void* w, void* out, const ConvShape& s,
+                          cudaStream_t stream) {
+  const bool vec_w = s.K % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  auto kernel = vec_w ? repro_conv_tf32x3<Cfg, true> : repro_conv_tf32x3<Cfg, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((s.M + Cfg::BM - 1) / Cfg::BM, (s.F + Cfg::BN - 1) / Cfg::BN);
+  kernel<<<grid, Cfg::NT, Cfg::SMEM_BYTES, stream>>>(static_cast<const float*>(x),
+                                                     static_cast<const float*>(w),
+                                                     static_cast<float*>(out), s);
+  return cudaGetLastError();
+}
+
+// block tiles by filter count: 128 positions x 32, 64 or 128 filters, two
+// warpgroups of 64 positions each
+using TC32 = repro_tf32x3::Tile<32>;
+using TC64 = repro_tf32x3::Tile<64>;
+using TC128 = repro_tf32x3::Tile<128>;
+
+cudaError_t launch_f32(const void* x, const void* w, void* out, const ConvShape& s,
+                       cudaStream_t stream) {
+  if (s.F <= 32) return launch_tf32x3<TC32>(x, w, out, s, stream);
+  if (s.F <= 64) return launch_tf32x3<TC64>(x, w, out, s, stream);
+  return launch_tf32x3<TC128>(x, w, out, s, stream);
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 inputs: the float32 tile loop on the CUDA cores
+// ---------------------------------------------------------------------------
 
 // A: the patch matrix (M, K), gathered from x -> As[k][m]. Each thread owns
 // output position row = tid % BM of the block for the whole loop and the
@@ -109,19 +294,6 @@ struct LoadPatches {
     kj = kk0 % s.ks;
   }
 
-  // moves the tap (ch, row, col) `step` depths on, with no division
-  __device__ __forceinline__ static void advance(int& ch, int& row, int& col, int step,
-                                                 int ks) {
-    col += step;
-    while (col >= ks) {
-      col -= ks;
-      if (++row == ks) {
-        row = 0;
-        ++ch;
-      }
-    }
-  }
-
   __device__ __forceinline__ void fetch(int /*k0*/, float (&r)[Cfg::A_PER]) {
     int cc = c, ii = ki, jj = kj;
 #pragma unroll
@@ -131,9 +303,9 @@ struct LoadPatches {
       r[e] = (valid && cc < s.C && (unsigned)ih < (unsigned)s.H && (unsigned)iw < (unsigned)s.W)
                  ? load_f(img + ((long long)cc * s.H + ih) * s.W + iw)
                  : 0.f;
-      advance(cc, ii, jj, KSTEP, s.ks);
+      advance_tap(cc, ii, jj, KSTEP, s.ks);
     }
-    advance(c, ki, kj, Cfg::BK, s.ks);
+    advance_tap(c, ki, kj, Cfg::BK, s.ks);
   }
 
   __device__ __forceinline__ void stash(float* As, const float (&r)[Cfg::A_PER]) const {
@@ -267,7 +439,7 @@ extern "C" int repro_conv2d_im2col(const void* x, const void* w, void* out, int 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_for_filters<float>(x, w, out, s, vec4, st);
+    err = launch_f32(x, w, out, s, st);
   else if (dtype == 1)
     err = launch_for_filters<bf16>(x, w, out, s, vec4, st);
   else

@@ -6,45 +6,64 @@
 // head hq (absolute position q_offset + i) and key j of kv head hq / g,
 //   mask(i, j) = j < Sk && (!causal || j <= q_offset + i)
 //                       && (window <= 0 || j > q_offset + i - window),
-// scores q . k * D^-0.5 in float32 masked to -1e30, an online softmax in
-// float32, P cast to V's dtype before the P.V product, and rows with no
-// unmasked key giving zeros.
+// scores q . k * D^-0.5 in float32 masked out, an online softmax in float32,
+// P cast to V's dtype before the P.V product, and rows with no unmasked key
+// giving zeros.
 //
 // What bounds it on an H100: operations. At prefill lengths each K/V tile
-// is reused by a whole tile of queries (64 here), so the work per byte is
-// far above the memory roofline, and only the tensor cores reach the
-// card's rate.
+// is reused by a whole tile of queries, so the work per byte is far above
+// the memory roofline, and only the tensor cores reach the card's rate —
+// at full rate only through wgmma, with its operands fed by TMA.
 //
-// What the design does about it. Both paths: one block of 4 warps per
-// (b * Hq, 64-row query tile) keeps its query tile in shared memory and
-// loops over 64-key tiles of the kv head it reads (bh / g, so the GQA
-// expansion is never materialized); kv tiles wholly outside the causal /
-// window mask are skipped (they contribute exactly zero) and the ragged Sk
-// tail is masked per element with no padding copy.
-// - bfloat16 (the serving path): the tensor cores through mma.sync
-//   m16n8k16 (bf16 in, float32 accumulate). Each warp owns 16 query rows;
-//   its Q fragments stay in registers for the whole kv loop, K and V tiles
-//   reach the MMAs through ldmatrix (V transposed on the fly) from padded,
-//   bank-conflict-free shared rows, and the score accumulators are rounded
-//   to bf16 in registers to become the P operand of the P.V product — S
-//   and P never touch shared memory. Tiles are loaded synchronously;
-//   cp.async/TMA pipelining and wgmma are later work.
-// - float32: the CUDA cores. Each of the 128 threads owns an 8 x 4 block of
-//   the score tile and an 8 x D/16 block of the output, so every shared
-//   value it loads feeds 8 or 4 multiply-adds; K is stored transposed so the
-//   score loop reads it with 16-byte loads.
+// What the design does about it. Every path runs one block per (b * Hq,
+// query tile), loops over key tiles of the kv head it reads (bh / g, so the
+// GQA expansion is never materialized), skips kv tiles wholly outside the
+// causal / window mask (they contribute exactly zero) and masks the ragged
+// Sk tail in the kernel, with no padding copy.
+// - bfloat16, D = 128 (the serving shape; flash_wgmma_kernel): three
+//   warpgroups per 128-row query tile. Warpgroup 2 is the producer: one
+//   thread issues TMA loads of Q (once) and of 128-key K and V tiles into a
+//   three-stage ring of shared memory, guarded by full and empty mbarriers
+//   for K and V apart; the warpgroup gives up registers (setmaxnreg.dec).
+//   Warpgroups 0 and 1 consume, 64 query rows each, with raised registers
+//   (setmaxnreg.inc), each holding one tile's S, P and O: S = Q.K^T is 8
+//   wgmma m64n128k16 from shared memory; the softmax runs in exp2 on scores
+//   times scale * log2(e), with the per-element mask only on the tiles that
+//   the diagonal, the window's lower edge or the Sk tail crosses; the score
+//   accumulators are rounded to bf16 in place into the A operand of O +=
+//   P.V, 8 wgmma with V read through the descriptor's transpose bit (no
+//   copy of V^T). The tensor maps are 3-D, (D, S, heads), so rows past Sq or
+//   Sk load as zeros and never reach into the next head; they are encoded
+//   on the host through the driver entry point, with 128-byte swizzle to
+//   match the wgmma shared-memory descriptors. Query tiles are launched
+//   longest first. Not yet: overlapping a tile's softmax with products
+//   (within a warpgroup, the next tile's S while this tile's softmax runs
+//   needs a second score buffer, for which ptxas spilled, and that version
+//   ran slower on the H100; across the two warpgroups, ping-pong
+//   scheduling), persistent blocks.
+// - bfloat16, D = 32 and 64 (the smoke configurations; flash_mma_kernel):
+//   mma.sync m16n8k16 on 64-row query tiles and 64-key tiles loaded
+//   synchronously; each warp keeps its Q fragments in registers, K and V
+//   reach the MMAs through ldmatrix (V transposed on the fly), and the
+//   scores become the P operand in registers. Same exp2 softmax.
+// - float32 (flash_fp32_kernel): the CUDA cores. Each of the 128 threads
+//   owns an 8 x 4 block of the score tile and an 8 x D/16 block of the
+//   output; K is stored transposed so the score loop reads it with 16-byte
+//   loads.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;                 // query rows per block
-constexpr int BK = 64;                 // keys per kv tile
-constexpr int NT = 128;                // threads per block (4 warps)
+constexpr int BQ = 64;                 // query rows per block (fp32, mma.sync)
+constexpr int BK = 64;                 // keys per kv tile (fp32, mma.sync)
+constexpr int NT = 128;                // threads per block (fp32, mma.sync)
 constexpr int KTP = BK + 4;            // padded row of the transposed K tile
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 constexpr int smem_floats() {
@@ -63,6 +82,17 @@ __device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// the first and last kv tile a query range [qlo, qhi] can see (absolute
+// positions), tiles of bk keys; the range is empty when begin >= end
+__device__ __forceinline__ void kv_range(int qlo, int qhi, int sk, int causal, int window,
+                                         int bk, int& begin, int& end) {
+  end = sk;
+  if (causal) end = min(end, qhi + 1);
+  begin = 0;
+  if (window > 0) begin = max(0, qlo - window + 1);
+  begin = (begin / bk) * bk;
 }
 
 // ---------------------------------------------------------------------------
@@ -113,14 +143,9 @@ flash_fp32_kernel(const float* __restrict__ q,   // (B, Hq, Sq, D)
     for (int j = 0; j < DC; ++j) o[i][j] = 0.f;
   }
 
-  // kv range that can hold an unmasked key for some row of this tile
-  const int qlo = q_offset + q0;
-  const int qhi = q_offset + min(q0 + BQ, sq) - 1;
-  int kv_end = sk;
-  if (causal) kv_end = min(kv_end, qhi + 1);
-  int kv_begin = 0;
-  if (window > 0) kv_begin = max(0, qlo - window + 1);
-  kv_begin = (kv_begin / BK) * BK;
+  int kv_begin, kv_end;
+  kv_range(q_offset + q0, q_offset + min(q0 + BQ, sq) - 1, sk, causal, window, BK, kv_begin,
+           kv_end);
 
   for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();  // previous tile's P.V done before kv_s is overwritten
@@ -229,7 +254,7 @@ flash_fp32_kernel(const float* __restrict__ q,   // (B, Hq, Sq, D)
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16, float32 accumulate)
+// bfloat16 helpers
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -237,6 +262,59 @@ using bf16 = __nv_bfloat16;
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// Key e of the scores a thread holds of one row: k0 + 8 (e / 2) + col0 +
+// e % 2 (the accumulator layout of mma.sync and wgmma alike), against the
+// row's query position; true where the key is seen.
+struct KeyMask {
+  int k0, col0, qpos, sk, causal, window;
+  __device__ __forceinline__ bool operator()(int e) const {
+    const int kpos = k0 + 8 * (e >> 1) + col0 + (e & 1);
+    return kpos < sk && (!causal || kpos <= qpos) && (window <= 0 || kpos > qpos - window);
+  }
+};
+
+// One row's online-softmax step over the N scores this thread holds of it
+// (the other three threads of its quad hold the rest of the row): masked
+// scores (MASKED: where !ok) become kNegInf; the scaled running max ms
+// becomes max(ms, max(s) * c); s becomes p = exp2(s * c - ms), 0 where
+// masked; the row sum of p joins l; the factor alpha by which the row's
+// output must be scaled is returned.
+template <int N, bool MASKED>
+__device__ __forceinline__ float softmax_row(float (&s)[N], float& ms, float& l, float c,
+                                             const KeyMask& ok) {
+  float mx = kNegInf;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    if (MASKED && !ok(e)) s[e] = kNegInf;
+    mx = fmaxf(mx, s[e]);
+  }
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+  const float ms_new = fmaxf(ms, mx * c);
+  float sum = 0.f;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const float p = exp2f(fmaf(s[e], c, -ms_new));
+    s[e] = (!MASKED || ok(e)) ? p : 0.f;
+    sum += s[e];
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  const float alpha = exp2f(ms - ms_new);
+  l = alpha * l + sum;
+  ms = ms_new;
+  return alpha;
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16, D = 32 and 64: mma.sync m16n8k16, float32 accumulate
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -258,11 +336,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
 }
 
 template <int D>
@@ -294,12 +367,12 @@ flash_mma_kernel(const bf16* __restrict__ q,   // (B, Hq, Sq, D)
                  const bf16* __restrict__ v,   // (B, Hkv, Sk, D)
                  bf16* __restrict__ out,       // (B, Hq, Sq, D)
                  int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
-                 float scale) {
+                 float c) {                    // scale * log2(e)
   constexpr int LD = D + 8;            // padded row: ldmatrix rows hit distinct banks
   constexpr int KS = D / 16;           // k-steps over D
   constexpr int DN = D / 8;            // 8-wide output column tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_mma);
   bf16* k_s = q_s + 64 * LD;
   bf16* v_s = k_s + 64 * LD;
 
@@ -326,17 +399,13 @@ flash_mma_kernel(const bf16* __restrict__ q,   // (B, Hq, Sq, D)
   float o[DN][4];
 #pragma unroll
   for (int j = 0; j < DN; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};     // rows lane/4 and lane/4 + 8 of the warp
+  float ms[2] = {kNegInf, kNegInf};    // rows lane/4 and lane/4 + 8 of the warp, scaled
   float l[2] = {0.f, 0.f};
   const int qpos0 = q_offset + q0 + warp * 16 + (lane >> 2);
 
-  const int qlo = q_offset + q0;
-  const int qhi = q_offset + min(q0 + BQ, sq) - 1;
-  int kv_end = sk;
-  if (causal) kv_end = min(kv_end, qhi + 1);
-  int kv_begin = 0;
-  if (window > 0) kv_begin = max(0, qlo - window + 1);
-  kv_begin = (kv_begin / BK) * BK;
+  int kv_begin, kv_end;
+  kv_range(q_offset + q0, q_offset + min(q0 + BQ, sq) - 1, sk, causal, window, BK, kv_begin,
+           kv_end);
 
   for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();  // previous tile's ldmatrix reads done
@@ -361,41 +430,13 @@ flash_mma_kernel(const bf16* __restrict__ q,   // (B, Hq, Sq, D)
 
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int qpos = qpos0 + half * 8;
-      float mx = kNegInf;
+      const KeyMask ok{k0, (lane & 3) * 2, qpos0 + half * 8, sk, causal, window};
+      float row[16];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int e = 0; e < 16; ++e) row[e] = s[e >> 1][half * 2 + (e & 1)];
+      const float alpha = softmax_row<16, true>(row, ms[half], l[half], c, ok);
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int kpos = k0 + n * 8 + (lane & 3) * 2 + c;
-          const bool ok = kpos < sk && (!causal || kpos <= qpos) &&
-                          (window <= 0 || kpos > qpos - window);
-          const float val = ok ? s[n][half * 2 + c] * scale : kNegInf;
-          s[n][half * 2 + c] = val;
-          mx = fmaxf(mx, val);
-        }
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[half], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int kpos = k0 + n * 8 + (lane & 3) * 2 + c;
-          const bool ok = kpos < sk && (!causal || kpos <= qpos) &&
-                          (window <= 0 || kpos > qpos - window);
-          const float p = ok ? expf(s[n][half * 2 + c] - m_new) : 0.f;
-          s[n][half * 2 + c] = p;
-          sum += p;
-        }
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float alpha = expf(m[half] - m_new);
-      l[half] = alpha * l[half] + sum;
-      m[half] = m_new;
+      for (int e = 0; e < 16; ++e) s[e >> 1][half * 2 + (e & 1)] = row[e];
 #pragma unroll
       for (int j = 0; j < DN; ++j) {
         o[j][half * 2] *= alpha;
@@ -439,6 +480,333 @@ flash_mma_kernel(const bf16* __restrict__ q,   // (B, Hq, Sq, D)
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16, D = 128: TMA + wgmma, warp-specialised
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int D = 128;
+constexpr int BM = 128;                     // query rows per block, 64 per consumer
+constexpr int BN = 128;                     // keys per kv tile
+constexpr int STAGES = 3;                   // K/V ring depth
+constexpr int THREADS = 384;                // producer + 2 consumer warpgroups
+constexpr int HALF = 128 * 128;             // one 64-column half of a 128-row tile
+constexpr int TILE = 2 * HALF;              // a 128 x 128 bf16 tile, 32 KB
+constexpr int BARRIERS = 1 + 4 * STAGES;    // q_full; full and empty, K and V, per stage
+// Q, then per stage K and V, then the barriers, aligned to 1024 bytes (the
+// 128-byte swizzle's period) from a base that may sit anywhere
+constexpr int SMEM_BYTES = 1024 + TILE * (1 + 2 * STAGES) + 8 * BARRIERS;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// waits until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (all in 16-byte units)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// a K-major operand (rows of 64 bf16 = 128 B, 8-row groups 1024 B apart);
+// the leading offset is unused when a k-step stays inside the 128-B row
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) { return desc(addr, 16, 1024); }
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// waits until at most N of this warpgroup's committed groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accesses of the accumulators across the
+// asynchronous products
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_ACC8(i)                                                                   \
+  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
+      "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+#define WG_ACC64                                                                      \
+  WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24), WG_ACC8(32), WG_ACC8(40), WG_ACC8(48), \
+      WG_ACC8(56)
+#define WG_REGS64                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "     \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, float32) (+)= A (64 x 16, shared, K-major) . B (16 x 128,
+// shared, K-major); d is overwritten where accumulate == 0
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_ACC64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, float32) += A (64 x 16, bf16 registers) . B (16 x 128,
+// shared, MN-major: the descriptor's transpose bit)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
+      ", {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      "}\n"
+      : WG_ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+#undef WG_ACC8
+#undef WG_ACC64
+#undef WG_REGS64
+
+
+// a block's shared memory: Q, then per stage K and V, then the mbarriers
+struct Smem {
+  uint32_t base;
+  __device__ __forceinline__ uint32_t q() const { return base; }
+  __device__ __forceinline__ uint32_t k(int st) const { return base + (1 + 2 * st) * TILE; }
+  __device__ __forceinline__ uint32_t v(int st) const { return base + (2 + 2 * st) * TILE; }
+  __device__ __forceinline__ uint32_t bar(int i) const {
+    return base + TILE * (1 + 2 * STAGES) + 8u * i;
+  }
+  __device__ __forceinline__ uint32_t q_full() const { return bar(0); }
+  __device__ __forceinline__ uint32_t full_k(int st) const { return bar(1 + st); }
+  __device__ __forceinline__ uint32_t full_v(int st) const { return bar(1 + STAGES + st); }
+  __device__ __forceinline__ uint32_t empty_k(int st) const { return bar(1 + 2 * STAGES + st); }
+  __device__ __forceinline__ uint32_t empty_v(int st) const { return bar(1 + 3 * STAGES + st); }
+};
+
+// S = Q K^T of the tile in stage st, issued once it has landed: 8 k-steps of
+// 16 over D, 4 in each 64-column half
+__device__ __forceinline__ void issue_s(float (&s)[64], const Smem& sm, uint32_t q_w, int st,
+                                        uint32_t phase) {
+  mbar_wait(sm.full_k(st), phase);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const uint32_t off = (ks / 4) * HALF + (ks % 4) * 32;
+    wgmma_ss(s, desc_k(q_w + off), desc_k(sm.k(st) + off), ks);
+  }
+  wgmma_commit();
+}
+
+// O += P V of the tile in stage st, issued once it has landed: 8 k-steps
+// of 16 keys (16 rows of 128 B); V is MN-major, its second 64-column half
+// one HALF on
+__device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&pa)[8][4],
+                                         const Smem& sm, int st, uint32_t phase) {
+  mbar_wait(sm.full_v(st), phase);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) wgmma_rs(o, pa[kk], desc(sm.v(st) + kk * 16 * 128, HALF, 1024));
+  wgmma_commit();
+}
+
+// P's bf16 A fragment of keys 16 kk .. 16 kk + 15 is the score accumulators
+// of column tiles 2 kk and 2 kk + 1
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4], const float (&s)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// one kv tile's softmax on a consumer thread's score accumulators, in
+// place (element 4 j + 2 i + c: row i, key k0 + 8 j + col0 + c); the rows'
+// output scale factors go to alpha. Only tiles the mask crosses (masked)
+// test each key.
+__device__ __forceinline__ void tile_softmax(float (&s)[64], float (&ms)[2], float (&l)[2],
+                                             float (&alpha)[2], bool masked, int k0, int qpos0,
+                                             int col0, int sk, int causal, int window,
+                                             float c) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const KeyMask ok{k0, col0, qpos0 + 8 * i, sk, causal, window};
+    float row[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) row[e] = s[4 * (e >> 1) + 2 * i + (e & 1)];
+    alpha[i] = masked ? softmax_row<32, true>(row, ms[i], l[i], c, ok)
+                      : softmax_row<32, false>(row, ms[i], l[i], c, ok);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[4 * (e >> 1) + 2 * i + (e & 1)] = row[e];
+  }
+}
+
+__device__ __forceinline__ void scale_rows(float (&o)[64], const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    o[4 * j] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
+  }
+}
+
+}  // namespace wg
+
+__global__ void __launch_bounds__(wg::THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // (D, Sq, B*Hq)
+                   const __grid_constant__ CUtensorMap tm_k,   // (D, Sk, B*Hkv)
+                   const __grid_constant__ CUtensorMap tm_v,   // (D, Sk, B*Hkv)
+                   bf16* __restrict__ out,                     // (B, Hq, Sq, D)
+                   int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
+                   float c) {                                  // scale * log2(e)
+  using namespace wg;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  const Smem sm{(smem_addr(smem_wg) + 1023u) & ~1023u};
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.q_full(), 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(sm.full_k(st), 1);
+      mbar_init(sm.full_v(st), 1);
+      mbar_init(sm.empty_k(st), 2 * 128);
+      mbar_init(sm.empty_v(st), 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // longest query tiles first
+  int kv_begin, kv_end;
+  kv_range(q_offset + q0, q_offset + min(q0 + BM, sq) - 1, sk, causal, window, BN, kv_begin,
+           kv_end);
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BN - 1) / BN : 0;
+  // warpgroups 0 and 1 consume, 2 produces; warp-uniform by construction
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (role == 2) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      const int b = bh / hq;
+      const int kvh = b * hkv + (bh - b * hq) / (hq / hkv);
+      mbar_expect_tx(sm.q_full(), TILE);
+      tma_load(sm.q(), &tm_q, sm.q_full(), 0, q0, bh);
+      tma_load(sm.q() + HALF, &tm_q, sm.q_full(), 64, q0, bh);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % STAGES;
+        const uint32_t phase = ((it / STAGES) & 1) ^ 1;   // the first round finds them free
+        const int k0 = kv_begin + it * BN;
+        mbar_wait(sm.empty_k(st), phase);
+        mbar_expect_tx(sm.full_k(st), TILE);
+        tma_load(sm.k(st), &tm_k, sm.full_k(st), 0, k0, kvh);
+        tma_load(sm.k(st) + HALF, &tm_k, sm.full_k(st), 64, k0, kvh);
+        mbar_wait(sm.empty_v(st), phase);
+        mbar_expect_tx(sm.full_v(st), TILE);
+        tma_load(sm.v(st), &tm_v, sm.full_v(st), 0, k0, kvh);
+        tma_load(sm.v(st) + HALF, &tm_v, sm.full_v(st), 64, k0, kvh);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int lane = threadIdx.x % 32;
+    const int row0 = q0 + role * 64 + (threadIdx.x % 128 / 32) * 16 + lane / 4;   // and + 8
+    const int qpos0 = q_offset + row0;
+    const int col0 = 2 * (lane % 4);                        // + 8 j + {0, 1}
+    const int qlo = q_offset + q0 + role * 64;              // this warpgroup's rows
+    const int qhi = qlo + 63;
+    const uint32_t q_w = sm.q() + role * 64 * 128;          // its 64 rows of each half
+    // the per-element mask is needed where the Sk tail, the diagonal or the
+    // window's lower edge crosses the tile for these rows
+    auto crossed = [=](int k0) {
+      return (k0 + BN > sk) || (causal && k0 + BN - 1 > qlo) || (window > 0 && k0 <= qhi - window);
+    };
+
+    float o[64], s[64], ms[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+    uint32_t pa[8][4];                  // P as the bf16 A fragments of P.V
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+
+    mbar_wait(sm.q_full(), 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % STAGES;
+      const uint32_t phase = (it / STAGES) & 1;
+      const int k0 = kv_begin + it * BN;
+      issue_s(s, sm, q_w, st, phase);
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_arrive(sm.empty_k(st));
+      tile_softmax(s, ms, l, alpha, crossed(k0), k0, qpos0, col0, sk, causal, window, c);
+      scale_rows(o, alpha);
+      pack_p(pa, s);
+      wgmma_fence();                    // the writes of o and pa before the products
+      issue_pv(o, pa, sm, st, phase);
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(sm.empty_v(st));
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 8 * i;
+      if (r < sq) {
+        const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+        bf16* orow = out + ((size_t)bh * sq + r) * D + col0;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+              __floats2bfloat162_rn(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -459,9 +827,9 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* out, 
 }
 
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int batch,
-                        int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
-                        float scale, cudaStream_t stream) {
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int batch,
+                       int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
+                       float scale, cudaStream_t stream) {
   const int bytes = mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -469,7 +837,65 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
   dim3 grid((sq + BQ - 1) / BQ, batch * hq);
   flash_mma_kernel<D><<<grid, NT, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), hq, hkv, sq, sk, causal, window, q_offset, scale);
+      static_cast<bf16*>(out), hq, hkv, sq, sk, causal, window, q_offset, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no link against libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+        cudaSuccess)
+      p = nullptr;
+#endif
+    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// a (heads, rows, 128) bf16 tensor as a 3-D map, innermost first, loaded in
+// boxes of 64 columns (128 bytes, the swizzle's width) x 128 rows of one
+// head; rows past `rows` read as zeros
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int rows, int heads) {
+  const cuuint64_t dims[3] = {128, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {128 * sizeof(bf16), (cuuint64_t)rows * 128 * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, 128, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int batch,
+                         int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
+                         float scale, cudaStream_t stream) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(enc, &tq, q, sq, batch * hq) || !make_map(enc, &tk, k, sk, batch * hkv) ||
+      !make_map(enc, &tv, v, sk, batch * hkv))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid(batch * hq, (sq + wg::BM - 1) / wg::BM);
+  flash_wgmma_kernel<<<grid, wg::THREADS, wg::SMEM_BYTES, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), hq, hkv, sq, sk, causal, window, q_offset,
+      scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -480,16 +906,19 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
   if (dtype == 0)
     return launch_fp32<D>(q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset,
                           scale, s);
-  if (dtype == 1)
-    return launch_bf16<D>(q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset,
-                          scale, s);
-  return cudaErrorInvalidValue;
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if (D == 128)
+    return launch_wgmma(q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset, scale,
+                        s);
+  return launch_mma<D>(q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset, scale,
+                       s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 128}; bfloat16 rows must
-// be 16-byte aligned. Returns the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 128}; rows must be
+// 16-byte aligned. bfloat16 at d = 128 runs flash_wgmma_kernel, at d = 32
+// and 64 flash_mma_kernel. Returns the launch's cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
                                int dtype, int batch, int hq, int hkv, int sq, int sk, int d,
                                int causal, int window, int q_offset, float scale,

@@ -10,20 +10,25 @@ expansion is never materialized.
   launches ``csrc/flash_attention.cu`` (raising on anything the kernel does
   not take), on a CPU tensor it runs the plain version. Unlike the TPU
   kernel it pads nothing: the ragged ``Sk`` tail is masked per element, so
-  unaligned bidirectional attention needs no special case.
+  unaligned bidirectional attention needs no special case. bfloat16 at
+  D = 128 runs ``flash_wgmma_kernel`` (TMA + wgmma, 128-key tiles), at
+  D = 32 and 64 ``flash_mma_kernel`` (mma.sync, 64-key tiles); float32
+  runs ``flash_fp32_kernel`` (CUDA cores).
 - :func:`flash_attention_torch` is the plain version: the same masks
   applied to the full score matrix (``kernels/ref.py::attention_ref`` with
   the kernel's ``q_offset`` convention).
-- :func:`flash_attention_tiled` is the plain version in the kernel's own
-  order and rounding (64-key tiles, a running max, P rounded to V's dtype
-  before P.V), returning float32: in bfloat16 the kernel's output is then
-  within its own rounding (half a bfloat16 ulp) of it.
+- :func:`flash_attention_tiled` is the plain version in the bfloat16
+  kernels' own order and rounding (:func:`key_tile` keys per tile, a
+  running max, exp2 of the scores times ``scale * log2(e)``, P rounded to
+  V's dtype before P.V), returning float32: in bfloat16 the kernel's output
+  is then within its own rounding (half a bfloat16 ulp) of it.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.hw import H100
@@ -32,18 +37,48 @@ from repro_torch.kernels.ref import NEG_INF, attention_ref
 
 # head dims csrc/flash_attention.cu is instantiated for
 HEAD_DIMS = (32, 64, 128)
+# query rows and keys per tile of flash_fp32_kernel and flash_mma_kernel
 BQ, BK = 64, 64
+# flash_wgmma_kernel (bfloat16, D = 128): 128-row query tiles, 128-key
+# tiles, a ring of WGMMA_STAGES K/V stages
+WGMMA_BQ, WGMMA_BK, WGMMA_STAGES = 128, 128, 3
+LOG2E = 1.4426950408889634
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def key_tile(d: int) -> int:
+    """Keys per tile of the bfloat16 kernel at head dim d: 128 for
+    flash_wgmma_kernel (D = 128), 64 for flash_mma_kernel."""
+    return WGMMA_BK if d == 128 else BK
+
+
 def smem_bytes(d: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory one block of the kernel takes at head dim d.
-    bfloat16 (tensor cores): Q, K and V tiles of padded bf16 rows. float32:
-    the query tile, the transposed K tile (reused for V) and the P tile."""
+    bfloat16 at D = 128: the Q tile, WGMMA_STAGES K and V tiles, the
+    mbarriers and 1 KB to align the tiles to the 128-byte swizzle's period;
+    at D = 32, 64: Q, K and V tiles of padded bf16 rows. float32: the query
+    tile, the transposed K tile (reused for V) and the P tile."""
+    if dtype == torch.bfloat16 and d == 128:
+        q_tile, kv_tile = WGMMA_BQ * d * 2, WGMMA_BK * d * 2
+        return 1024 + q_tile + 2 * WGMMA_STAGES * kv_tile + 8 * (1 + 4 * WGMMA_STAGES)
     if dtype == torch.bfloat16:
         return 3 * BQ * (d + 8) * 2
     return 4 * (BQ * d + max(d * (BK + 4), BK * d) + BQ * BK)
+
+
+def kernel_name(d: int, dtype: torch.dtype) -> str:
+    """The kernel of ``csrc/flash_attention.cu`` that a call at head dim d
+    in dtype runs (the C entry point dispatches on both)."""
+    if dtype == torch.float32:
+        return "flash_fp32_kernel"
+    return "flash_wgmma_kernel" if d == 128 else "flash_mma_kernel"
+
+
+def exp2_scale(d: int) -> float:
+    """``scale * log2(e)`` as the bfloat16 kernels compute it: the float32
+    product of the float32 scale and the float32 log2(e)."""
+    return float(np.float32(np.float32(1.0 / (d ** 0.5)) * np.float32(LOG2E)))
 
 
 def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
@@ -54,23 +89,27 @@ def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_tiled(q, k, v, *, causal: bool = True, window: int = 0,
-                          q_offset: int = -1, bk: int = BK) -> torch.Tensor:
-    """Plain version in the kernel's order: q (B, Hq, Sq, D), k/v
+                          q_offset: int = -1, bk: int | None = None) -> torch.Tensor:
+    """Plain version in the bfloat16 kernels' order: q (B, Hq, Sq, D), k/v
     (B, Hkv, Sk, D) -> float32 (B, Hq, Sq, D), unrounded.
 
-    Keys are visited in tiles of ``bk``; each tile's scores are scaled after
-    the dot product, the running max and denominator stay in float32, and P
-    is rounded to V's dtype before the P.V product, as in
-    ``csrc/flash_attention.cu`` (and ``_flash_kernel``)."""
+    Keys are visited in tiles of ``bk`` (default :func:`key_tile`). Each
+    row keeps the running max of its scores times ``c = scale * log2(e)``
+    (``ms``) and its denominator in float32; a tile's unscaled scores s give
+    ``p = exp2(s * c - ms)``, the exponent rounded once as the kernel's fused
+    multiply-add rounds it, and P is rounded to V's dtype before the P.V
+    product, as in ``csrc/flash_attention.cu``. ``_flash_kernel`` computes
+    the same function with exp of pre-scaled scores."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
+    bk = key_tile(d) if bk is None else bk
     off = sk - sq if q_offset < 0 else q_offset
-    scale = 1.0 / (d ** 0.5)
+    c = exp2_scale(d)
     qf = q.float().reshape(b, hkv, g, sq, d)
     qpos = off + torch.arange(sq, device=q.device)[:, None]
-    m = torch.full((b, hkv, g, sq, 1), NEG_INF, device=q.device)
-    l = torch.zeros_like(m)
+    ms = torch.full((b, hkv, g, sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(ms)
     acc = torch.zeros((b, hkv, g, sq, d), device=q.device)
     for k0 in range(0, sk, bk):
         kt, vt = k[:, :, k0:k0 + bk].float(), v[:, :, k0:k0 + bk]
@@ -80,15 +119,17 @@ def flash_attention_tiled(q, k, v, *, causal: bool = True, window: int = 0,
             ok &= kpos <= qpos
         if window > 0:
             ok &= kpos > qpos - window
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt) * scale
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt)
         s = torch.where(ok, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        p = torch.where(ok, torch.exp(s - m_new), 0.0)
-        alpha = torch.exp(m - m_new)
+        ms_new = torch.maximum(ms, s.amax(-1, keepdim=True) * c)
+        # s * c is exact in float64, so one rounding to float32 follows
+        arg = (s.double() * c - ms_new.double()).float()
+        p = torch.where(ok, torch.exp2(arg), 0.0)
+        alpha = torch.exp2(ms - ms_new)
         l = alpha * l + p.sum(-1, keepdim=True)
         acc = alpha * acc + torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(),
                                          vt.float())
-        m = m_new
+        ms = ms_new
     return (acc / torch.where(l == 0, 1.0, l)).reshape(b, hq, sq, d)
 
 

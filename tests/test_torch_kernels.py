@@ -209,7 +209,7 @@ def test_dense_cache_write_matches_jax():
 
 
 # ---------------------------------------------------------------------------
-# flash attention: plain version == Pallas (interpret, bq = bk = 32)
+# flash attention: plain version == Pallas (interpret)
 # ---------------------------------------------------------------------------
 
 
@@ -221,6 +221,10 @@ FLASH_CASES = [  # b, hq, hkv, sq, sk, d, causal, window, q_offset
     (1, 4, 1, 32, 96, 32, True, 0, -1),      # Sq < Sk, q_offset = Sk - Sq
     (1, 4, 2, 32, 96, 32, True, 8, 40),      # explicit q_offset + window
     (2, 4, 4, 64, 64, 32, False, 0, -1),     # bidirectional
+    # D = 128, the head dim of flash_wgmma_kernel (128-key tiles)
+    (1, 2, 1, 256, 256, 128, True, 0, -1),   # two key tiles
+    (1, 4, 2, 320, 320, 128, True, 100, -1), # window narrower than a key tile, ragged
+    (1, 2, 1, 128, 384, 128, True, 0, -1),   # Sq < Sk over three key tiles
 ]
 
 
@@ -234,18 +238,37 @@ def test_flash_plain_matches_pallas(b, hq, hkv, sq, sk, d, causal, window, q_off
     _close(got, want)
 
 
+@pytest.mark.parametrize("bk", [64, 128])
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,q_offset", FLASH_CASES)
 def test_flash_tiled_plain_matches_pallas(b, hq, hkv, sq, sk, d, causal, window,
-                                          q_offset):
-    """The plain version in the CUDA kernel's order (64-key tiles) against
-    the Pallas kernel with the same key tile."""
+                                          q_offset, bk):
+    """The plain version in the CUDA kernels' order (64-key tiles of
+    flash_mma_kernel, 128-key tiles of flash_wgmma_kernel) against the
+    Pallas kernel with the same key tile."""
     q, k, v = _attn_inputs(b, hq, hkv, sq, sk, d, seed=2)
     want = jflash(*map(jnp.asarray, (q, k, v)), causal=causal, window=window,
-                  q_offset=q_offset, bq=32, bk=64, interpret=True)
+                  q_offset=q_offset, bq=32, bk=bk, interpret=True)
     got = tflash.flash_attention_tiled(*_t(q, k, v), causal=causal, window=window,
-                                       q_offset=q_offset)
+                                       q_offset=q_offset, bk=bk)
     assert got.dtype == torch.float32
     _close(got, want)
+
+
+def test_flash_key_tile_follows_the_kernels():
+    """128-key tiles where flash_wgmma_kernel runs (bfloat16, D = 128), 64
+    where flash_mma_kernel does; the tiled plain version defaults to them."""
+    assert [tflash.key_tile(d) for d in tflash.HEAD_DIMS] == [64, 64, 128]
+    assert [tflash.kernel_name(d, torch.bfloat16) for d in tflash.HEAD_DIMS] == [
+        "flash_mma_kernel", "flash_mma_kernel", "flash_wgmma_kernel"]
+    assert {tflash.kernel_name(d, torch.float32) for d in tflash.HEAD_DIMS} == {
+        "flash_fp32_kernel"}
+    assert tflash.smem_bytes(128, torch.bfloat16) == 1024 + 32768 * 7 + 8 * 13
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _attn_inputs(1, 2, 1, 200, 200, 128, seed=5))
+    assert torch.equal(tflash.flash_attention_tiled(q, k, v),
+                       tflash.flash_attention_tiled(q, k, v, bk=128))
+    assert tflash.exp2_scale(128) == float(np.float32(np.float32(128 ** -0.5)
+                                                      * np.float32(np.log2(np.e))))
 
 
 def _chip_smoke():

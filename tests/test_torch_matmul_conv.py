@@ -6,6 +6,10 @@ checks. Inputs come from seeded numpy; bfloat16 inputs are rounded from the
 same float32 values in both packages. The CUDA kernels themselves run only
 on the card (``chip_smoke.py``)."""
 
+import importlib.util
+import math
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -84,6 +88,51 @@ def test_conv2d_plain_version_keeps_bfloat16_and_rounds_once():
     assert got.dtype == torch.bfloat16
     want = tconv.conv2d_torch(x.float(), w.float(), stride=2, pad=1).bfloat16()
     assert torch.equal(got, want)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """``tf32_round`` keeps 10 significand bits as ``cvt.rna.tf32.f32`` does:
+    TF32 values stay, halfway cases go away from zero, carries reach the
+    exponent."""
+    x = torch.tensor([1.0, -3.0, 1 + 2 ** -10, 1 + 2 ** -11, -(1 + 2 ** -11),
+                      1 + 3 * 2 ** -11, 1 + 2 ** -12, 2 - 2 ** -12, 0.0])
+    want = torch.tensor([1.0, -3.0, 1 + 2 ** -10, 1 + 2 ** -10, -(1 + 2 ** -10),
+                         1 + 2 ** -9, 1.0, 2.0, 0.0])
+    assert torch.equal(tconv.tf32_round(x), want)
+
+
+@pytest.mark.parametrize("n,c,h,w,f,kern,stride,pad", [
+    (2, 32, 14, 14, 64, 5, 1, 2),    # LeNet conv2: K = 800
+    (8, 16, 32, 32, 32, 3, 1, 1),    # chip_smoke.py's kernel-benchmark shape
+], ids=["lenet-conv2-K800", "kernel-benchmark"])
+def test_tf32x3_meets_fp32_tol_where_plain_tf32_does_not(n, c, h, w, f, kern, stride, pad):
+    """The float32 conv kernel's arithmetic (3xTF32: lo.hi + hi.lo + hi.hi)
+    is within chip_smoke.py's ``FP32_TOL`` of the float64 convolution on
+    inputs made as chip_smoke.py makes them (unit-variance outputs), while
+    the hi.hi product alone (plain TF32) is not: the tolerance tells the two
+    apart."""
+    tol = _chip_smoke().FP32_TOL
+    within = _chip_smoke().within
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((n, c, h, w)).astype(np.float32))
+    wt = torch.from_numpy((rng.standard_normal((f, c, kern, kern))
+                           / math.sqrt(c * kern * kern)).astype(np.float32))
+    exact = torch.nn.functional.conv2d(x.double(), wt.double(), stride=stride, padding=pad)
+    three = tconv.conv2d_tf32x3_torch(x, wt, stride=stride, pad=pad)
+    one = tconv.conv2d_tf32x3_torch(x, wt, stride=stride, pad=pad, terms=1)
+    assert three.dtype == torch.float32 and three.shape == exact.shape
+    ok, _, _, rms = within(three, exact, tol)
+    assert ok and rms < tol[2] / 10
+    ok, _, _, rms = within(one, exact, tol)
+    assert not ok and rms > 10 * tol[2]
 
 
 # ---------------------------------------------------------------------------
