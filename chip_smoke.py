@@ -13,8 +13,9 @@ Phases, each of which must pass (nothing is caught):
               and at the smaller widths the kernels take, with CUDA-event
               timings (median), the rate and the bound for its work; the SSD
               scan also under strong decay and against the sequential-scan
-              oracle; which flash kernel each head dim and dtype ran, read
-              from a profiler trace;
+              oracle, with its two passes (C B^T, then the chunk walk) timed
+              apart from a profiler trace; which flash, matmul and SSD
+              kernel variant ran, read from a profiler trace;
 4. serve-check — Yi-6B widths cut to 2 layers, float32, through
               ``PlanServer``: identical token streams under the paged,
               gather and ref decode kernels;
@@ -460,41 +461,59 @@ def phase_kernels():
 
 def flash_kernel_names(FA) -> None:
     """Which kernel of csrc/flash_attention.cu each head dim and dtype ran,
-    read from one profiler trace of a small call each (inside its own span,
-    after a warm-up call); fails where a traced call ran another kernel than
-    the one the source dispatches to (``FA.kernel_name``)."""
+    read from a profiler trace of a small call each, one trace per
+    configuration (a shared trace's time spans had caught a neighbouring
+    call's kernel); fails where a traced call ran another kernel than the
+    one the source dispatches to (``FA.kernel_name``)."""
     import re
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     gen = torch.Generator(device="cuda").manual_seed(6)
-    configs = [(dtype, d) for dtype in (torch.bfloat16, torch.float32) for d in FA.HEAD_DIMS]
-    inputs = {c: [torch.randn((1, 4, 200, c[1]), generator=gen, device="cuda").to(c[0])
-                  for _ in range(3)] for c in configs}
-    FA.flash_attention(*inputs[configs[0]])
+    took = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in FA.HEAD_DIMS:
+            q, k, v = (torch.randn((1, 4, 200, d), generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            names = {m.group(0) for name in traced_kernels(lambda: FA.flash_attention(q, k, v),
+                                                           calls=1)
+                     for m in [re.search(r"flash_\w+_kernel(<\d+>)?", name)] if m}
+            label = f"flash {str(dtype)[6:]} D={d}"
+            took.append(f"{str(dtype)[6:]} D={d} -> {', '.join(sorted(names)) or 'not measured'}")
+            if names and not any(FA.kernel_name(d, dtype) in n for n in names):
+                fail(f"{label} ran {names}, not {FA.kernel_name(d, dtype)}")
+    print("  flash kernels by head dim (profiler): " + "; ".join(took))
+
+
+def traced_kernels(fn, calls: int = 5) -> dict:
+    """Device milliseconds per call of each kernel that ``fn`` launches,
+    by name, from one profiler trace of ``calls`` calls (after a warm-up
+    call); empty where the trace holds no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        FA.flash_attention(*inputs[configs[0]])
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        for dtype, d in configs:
-            with record_function(f"flash {str(dtype)[6:]} D={d}"):
-                FA.flash_attention(*inputs[(dtype, d)])
-                torch.cuda.synchronize()
-    events = prof.events()
-    took = []
-    for dtype, d in configs:
-        label = f"flash {str(dtype)[6:]} D={d}"
-        span = next(e.time_range for e in events if e.name == label
-                    and e.device_type == DeviceType.CPU)
-        names = {m.group(0) for e in events if e.device_type == DeviceType.CUDA
-                 and span.start <= e.time_range.start < span.end
-                 for m in [re.search(r"flash_\w+_kernel(<\d+>)?", e.name)] if m}
-        took.append(f"{str(dtype)[6:]} D={d} -> {', '.join(sorted(names)) or 'not measured'}")
-        if names and not any(FA.kernel_name(d, dtype) in n for n in names):
-            fail(f"{label} ran {names}, not {FA.kernel_name(d, dtype)}")
-    print("  flash kernels by head dim (profiler): " + "; ".join(took))
+    times = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            dur = (e.time_range.end - e.time_range.start) / 1e3 / calls
+            times[e.name] = times.get(e.name, 0.0) + dur
+    return times
+
+
+def _short(name: str) -> str:
+    """A kernel's demangled name without the anonymous namespace and the
+    argument list."""
+    import re
+
+    name = re.sub(r"\(anonymous namespace\)::|void ", "", name)
+    return name.split("(")[0]
 
 
 def _ssd_inputs(b, s, h, p, n, dtype, seed, strong_decay=False):
@@ -559,6 +578,16 @@ def ssd_kernel_cases(flush) -> dict:
               f"bound {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
 
+    def passes(label, args) -> None:
+        # one wrapper call launches two kernels: the C B^T pass and the walk
+        times = traced_kernels(lambda: SSD.ssd_scan(*args))
+        split = "; ".join(f"{_short(k)} {v:.4f} ms" for k, v in times.items()
+                          if "ssd_scan" in k)
+        print(f"    passes ({label}, profiler, per call): {split or 'not measured'}")
+        if times and not (any("ssd_scan_gram_kernel" in k for k in times)
+                          and any("ssd_scan_walk_kernel" in k for k in times)):
+            fail(f"ssd {label}: the trace holds {sorted(times)}, not the two passes")
+
     cases = [  # (name, b, s, h, p, n, strong decay)
         ("serving shape (B=8, S=2048)", 8, 2048, 64, 64, 128, False),
         ("B=1 S=1024", 1, 1024, 64, 64, 128, False),
@@ -566,21 +595,33 @@ def ssd_kernel_cases(flush) -> dict:
         ("smoke width (2, 32, 16, 16, 16), chunk 32", 2, 32, 16, 16, 16, False),
         ("strong decay (a=-16, dt to 7)", 2, 256, 64, 64, 128, True),
         ("strong decay, smoke width", 2, 128, 16, 16, 16, True),
+        ("strong decay, B=4 (whole-P tile in bfloat16)", 4, 256, 64, 64, 128, True),
     ]
-    serving = None
+    serving = bucket = None
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, SSD_BF16_TOL)):
         for name, b, s, h, p, n, strong in cases:
             args = _ssd_inputs(b, s, h, p, n, dtype, 7, strong_decay=strong)
             if strong:
                 cum = torch.cumsum((args[1] * args[2]).double()[:, :64], dim=1)
                 name += f", cum down to {float(cum.min()):.0f}"
+            name += f", P tile {SSD._check(*args, min(64, s), SSD._sm_count(args[0].device))}"
             # float32 copies of the inputs: the kernel computes in float32
             # and rounds only its output
             want = SSD.ssd_scan_torch(*(t.float() for t in args))
             result = run_case(f"ssd {str(dtype)[6:]} {name}", args, want, tol)
             if dtype == torch.bfloat16 and (b, s) == (8, 2048):
                 serving = result
+                passes(f"serving shape, {str(dtype)[6:]}", args)
             del args, want
+    # the (1, 1024) bucket's prompt pass (the (1, 512) request), bfloat16,
+    # on other seeded inputs than the B=1 S=1024 case above
+    args = _ssd_inputs(1, 1024, 64, 64, 128, torch.bfloat16, 11)
+    want = SSD.ssd_scan_torch(*(t.float() for t in args))
+    bucket = run_case("ssd bfloat16 (1, 1024) bucket, P tile "
+                      f"{SSD._check(*args, 64, SSD._sm_count(args[0].device))}", args, want,
+                      SSD_BF16_TOL)
+    passes("(1, 1024) bucket, bfloat16", args)
+    del args, want
     # the sequential-scan oracle, float32, at both widths
     for b, s, h, p, n in ((2, 128, 64, 64, 128), (2, 64, 16, 16, 16)):
         args = _ssd_inputs(b, s, h, p, n, torch.float32, 8)
@@ -590,7 +631,8 @@ def ssd_kernel_cases(flush) -> dict:
         del args, want
     print(f"  ssd timing at the serving shape, bfloat16: kernel {serving['ms']:.4f} ms, plain "
           f"{serving['plain_ms']:.4f} ms, bound {serving['bound_ms']:.4f} ms "
-          f"({serving['bound_by']}); no single library call")
+          f"({serving['bound_by']}); (1, 1024) bucket {bucket['ms']:.4f} ms; no single "
+          "library call")
     return dict(name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan.py:91", library_ms=None, **serving)
 
@@ -654,6 +696,16 @@ def matmul_kernel_cases(flush) -> dict:
         if (m, k, n) == (LENET_SCORE, 3136, 512):
             main = result
         del a, b, want
+    # which kernel each dtype ran (profiler), at the scoring shape and 1024^3
+    for m, k, n, dtype in ((LENET_SCORE, 3136, 512, f32), (1024, 1024, 1024, bf16)):
+        a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+        names = [_short(nm) for nm in traced_kernels(lambda: MM.matmul(a, b), calls=1)]
+        print(f"  matmul {str(dtype)[6:]} ({m}, {k}) @ ({k}, {n}) ran (profiler): "
+              f"{', '.join(names) or 'not measured'}")
+        if names and not any(MM.kernel_name(dtype) in nm for nm in names):
+            fail(f"matmul {str(dtype)[6:]} ran {names}, not {MM.kernel_name(dtype)}")
+        del a, b
     return dict(name="matmul", route="cuda", source="src/repro_torch/kernels/csrc/matmul.cu",
                 replaces="src/repro/kernels/matmul.py:58", **main)
 

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.linearize import conv2d_out_hw
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import tf32_round, tf32_truncate
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_INDEX = 2**31 - 1
@@ -46,20 +47,6 @@ def conv2d_torch(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     cols = F.unfold(x.float(), k, padding=pad, stride=stride)      # (N, C*k*k, Ho*Wo)
     out = w.reshape(f, -1).float() @ cols                            # (N, F, Ho*Wo)
     return out.reshape(n, f, ho, wo).to(x.dtype)
-
-
-def tf32_round(t: torch.Tensor) -> torch.Tensor:
-    """float32 -> the nearest TF32 value (10 significand bits), ties away
-    from zero, as ``cvt.rna.tf32.f32`` rounds finite values: add half of
-    the dropped 13 bits to the magnitude, then clear them."""
-    bits = t.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def tf32_truncate(t: torch.Tensor) -> torch.Tensor:
-    """float32 -> TF32 by clearing the 13 low significand bits: how the
-    tensor cores read a float32 operand of a TF32 product."""
-    return (t.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
 def conv2d_tf32x3_torch(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,

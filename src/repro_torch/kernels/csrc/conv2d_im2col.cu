@@ -44,8 +44,9 @@
 //   wrapper transposes (N, Ho*Wo, F) afterwards).
 // - bfloat16 inputs (repro_conv_im2col): widened to float32 as they are
 //   staged and multiplied on the CUDA cores in the float32 tile loop of
-//   fp32_tile.cuh (shared with matmul.cu), one output position per thread
-//   for the whole loop, 4 positions per store where Ho * Wo % 4 == 0.
+//   fp32_tile.cuh, one output position per thread for the whole loop, 4
+//   positions per store where Ho * Wo % 4 == 0. (tf32x3_tile.cuh is shared
+//   with matmul.cu's float32 path.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

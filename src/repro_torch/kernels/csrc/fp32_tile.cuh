@@ -1,5 +1,5 @@
-// The float32 CUDA-core tile loop shared by matmul.cu (its float32 path) and
-// conv2d_im2col.cu: C (BM x BN) += A (BM x K) . B (K x BN), accumulated in
+// The float32 CUDA-core tile loop of conv2d_im2col.cu's bfloat16 path
+// (inputs widened to float32 as they are staged): C (BM x BN) += A (BM x K) . B (K x BN), accumulated in
 // float32 registers, with both operands staged through shared memory in
 // BK-deep slices.
 //
@@ -16,7 +16,7 @@
 // the multiply, stored after it), so a load's latency hides behind the
 // multiply with one barrier per slice.
 //
-// The loaders are the only part that differs between the two kernels:
+// The loaders are the caller's part:
 //   fetch(k0, regs)  reads this thread's elements of slice k0 (0 outside the
 //                    matrix or past the loop's last depth: the ragged edges
 //                    are masked here, nothing is padded in device memory);

@@ -6,144 +6,117 @@
 // _matmul_kernel): (bm x bk) @ (bk x bn) tiles staged through VMEM into a
 // float32 accumulator, written once per output tile. The Pallas wrapper pads
 // M, N and K up to its tiles with jnp.pad; here the ragged edges are masked
-// in the kernel instead (predicated loads that zero-fill shared memory, and
+// in the kernel instead (copies that zero-fill shared memory, and
 // predicated stores), so nothing is copied or padded in device memory.
 //
 // What bounds it on an H100: operations, at every size the port gives it
 // beyond a few hundred rows (a 1024^3 product does 2.1 GFLOP on 12.6 MB;
-// LeNet's first affine layer at batch 10,000 does 32 GFLOP on 133 MB). So the
-// design is about keeping the arithmetic units fed from registers:
-// - float32: the CUDA cores, in full float32 (fmaf; no TF32, so the result
-//   meets its plain version at the float32 tolerance). The tile loop of
-//   fp32_tile.cuh: each thread accumulates an 8 x 8 (128 x 128 block tile,
-//   256 threads) or 4 x 8 (64 x 64 block tile, 128 threads) block of the
-//   output in registers, so each value it reads from shared memory feeds 8
-//   or 4 multiply-adds. The larger tile is taken when it still gives every
-//   SM a block, the smaller one otherwise (a 1024^3 product has 64 blocks of
-//   128 x 128 for 132 SMs, but 256 of 64 x 64). Where even the small tiles
+// LeNet's first affine layer at batch 10,000 does 32 GFLOP on 152 MB). So the
+// design is about the arithmetic units' rate:
+// - float32 (repro_mm_tf32x3): the tensor cores in 3xTF32, through the
+//   wgmma mainloop of tf32x3_tile.cuh shared with the float32 conv. Each
+//   operand is split into a TF32 hi part and a lo part; hi.hi, hi.lo and
+//   lo.hi are three TF32 products (495 TFLOP/s a card) that together meet
+//   the float32 tolerance, where full float32 FMAs on the CUDA cores top
+//   out at 67 TFLOP/s (the first version of this kernel ran there, at 4.9x
+//   its 3xTF32 bound and 1.3x slower than cuBLAS's float32 SGEMM).
+//   Block tiles of 128 rows x 32, 64 or 128 columns (the smallest that
+//   covers N up to 128: LeNet's 10-way output layer wastes no columns), two
+//   warpgroups of 64 rows, 32-deep slices through a 3-stage cp.async ring.
+//   The dense loaders take the conv's patch gather's place: A (M, K)
+//   row-major arrives as it is, with 16-byte copies, in As[m][k] rows
+//   padded to 36 floats (a fragment read hits 32 banks); raw B (K, N)
+//   arrives as Bs[k][n] with 16-byte copies, and the once-per-slice pass
+//   that splits B into its swizzled hi and lo tiles also transposes it to
+//   the K-major layout wgmma reads. Rows with K or N not a multiple of 4,
+//   or misaligned bases, take 4-byte copies. Where even the 128-row tiles
 //   leave SMs idle and K is deep (LeNet's first affine layer at batch 64:
-//   8 tiles, K = 3136), the wrapper asks for split-K: each block sums one
-//   part of K, and a second pass adds the parts in a fixed order.
+//   4 tiles, K = 3136), the wrapper asks for split-K: each block sums one
+//   part of K, and a second pass adds the parts in a fixed order, so the
+//   result does not depend on the schedule.
 // - bfloat16: the tensor cores through mma.sync m16n8k16 (bfloat16 in,
 //   float32 accumulate), as csrc/flash_attention.cu does. A block of 8 warps
 //   owns a 128 x 128 output tile, each warp a 64 x 32 part of it (4 x 4 MMA
 //   tiles, 64 float32 accumulators a thread); A and B reach the MMAs through
 //   ldmatrix (B transposed on the fly) from padded, bank-conflict-free
-//   shared rows, in 32-deep slices. K not a multiple of 16 is zero-filled.
-// Both paths double-buffer shared memory: the next slice is read into
-// registers before the current one is multiplied and stored after it.
-// Loads are 16 bytes wide where rows allow it (K and N multiples of 4 in
-// float32, of 8 in bfloat16, 16-byte aligned bases), else one element at a
-// time. wgmma and TMA-fed tiles are later work.
+//   shared rows, in 32-deep slices, double-buffered: the next slice is read
+//   into registers before the current one is multiplied and stored after
+//   it. K not a multiple of 16 is zero-filled. No path of the port sends a
+//   bfloat16 product here yet; wgmma fed by TMA is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fp32_tile.cuh"
+#include "tf32x3_tile.cuh"
 
 namespace {
 
-using repro_tile::Tile;
-using repro_tile::tile_pos;
-
 // ---------------------------------------------------------------------------
-// float32: CUDA cores
+// float32: 3xTF32 on the tensor cores (wgmma)
 // ---------------------------------------------------------------------------
 
-// A (M, lda) row-major, depths below kend -> As[k][m]
+using repro_tf32x3::cp_async16;
+using repro_tf32x3::cp_async4;
+
+// A (M, K) row-major, depths [k0, kend) -> As[m][k]; VEC: 16-byte copies
+// (K % 4 == 0 and a 16-byte aligned, so a 4-wide chunk lies wholly inside
+// K or outside). Slices are loaded in order from the block's first depth.
 template <class Cfg, bool VEC>
-struct LoadA {
-  const float* __restrict__ a;
-  int M, lda, kend, m0;
+struct RowsA {
+  const float* __restrict__ a;   // also the (unread) source of zero-filled copies
+  int M, K, kend, m0;
+  int k0;                        // depth of the next slice
 
-  __device__ __forceinline__ void fetch(int k0, float (&r)[Cfg::A_PER]) {
-    if (VEC) {
+  template <int PARTS>
+  __device__ __forceinline__ void load_part(float* As, int part) {
+    constexpr int W = VEC ? 4 : 1;                     // floats per copy
+    constexpr int PER_ROW = Cfg::BK / W;
+    constexpr int PER = Cfg::BM * PER_ROW / Cfg::NT / PARTS;
+    static_assert(Cfg::BM * PER_ROW % (Cfg::NT * PARTS) == 0, "whole copies per part");
 #pragma unroll
-      for (int e = 0; e < Cfg::A_PER / 4; ++e) {
-        const int idx = threadIdx.x + e * Cfg::NT;
-        const int gm = m0 + idx / (Cfg::BK / 4);
-        const int gk = k0 + (idx % (Cfg::BK / 4)) * 4;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (gm < M && gk < kend)
-          v = __ldg(reinterpret_cast<const float4*>(a + (long long)gm * lda + gk));
-        r[4 * e] = v.x; r[4 * e + 1] = v.y; r[4 * e + 2] = v.z; r[4 * e + 3] = v.w;
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < Cfg::A_PER; ++e) {
-        const int idx = threadIdx.x + e * Cfg::NT;
-        const int gm = m0 + idx / Cfg::BK;
-        const int gk = k0 + idx % Cfg::BK;
-        r[e] = (gm < M && gk < kend) ? __ldg(a + (long long)gm * lda + gk) : 0.f;
-      }
+    for (int e = 0; e < PER; ++e) {
+      const int idx = threadIdx.x + (part * PER + e) * Cfg::NT;
+      const int r = idx / PER_ROW;
+      const int kk = (idx % PER_ROW) * W;
+      const int gm = m0 + r;
+      const int gk = k0 + kk;
+      const bool in = gm < M && gk < kend;
+      const float* src = in ? a + (long long)gm * K + gk : a;
+      if (VEC)
+        cp_async16(As + r * Cfg::LDA + kk, src, in);
+      else
+        cp_async4(As + r * Cfg::LDA + kk, src, in);
     }
+    if (part == PARTS - 1) k0 += Cfg::BK;
   }
-
-  __device__ __forceinline__ void stash(float* As, const float (&r)[Cfg::A_PER]) const {
-    if (VEC) {
-#pragma unroll
-      for (int e = 0; e < Cfg::A_PER / 4; ++e) {
-        const int idx = threadIdx.x + e * Cfg::NT;
-        const int row = idx / (Cfg::BK / 4);
-        const int k = (idx % (Cfg::BK / 4)) * 4;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) As[(k + j) * Cfg::LDA + row] = r[4 * e + j];
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < Cfg::A_PER; ++e) {
-        const int idx = threadIdx.x + e * Cfg::NT;
-        As[(idx % Cfg::BK) * Cfg::LDA + idx / Cfg::BK] = r[e];
-      }
-    }
-  }
+  __device__ __forceinline__ void load(float* As) { load_part<1>(As, 0); }
 };
 
-// B (K, N) row-major, depths below kend -> Bs[k][n]
+// B (K, N) row-major, depths [kbase + k0, ...) below kend -> Bs[k][n];
+// VEC: 16-byte copies (N % 4 == 0 and b 16-byte aligned)
 template <class Cfg, bool VEC>
-struct LoadB {
+struct RowsB {
   const float* __restrict__ b;
-  int N, kend, n0;
+  int N, kend, n0, kbase;
 
-  __device__ __forceinline__ void fetch(int k0, float (&r)[Cfg::B_PER]) {
-    if (VEC) {
+  __device__ __forceinline__ void load(float* Bs, int k0) const {
+    constexpr int W = VEC ? 4 : 1;
+    constexpr int PER_ROW = Cfg::BN / W;
+    static_assert(Cfg::BK * PER_ROW % Cfg::NT == 0, "whole copies per thread");
 #pragma unroll
-      for (int e = 0; e < Cfg::B_PER / 4; ++e) {
-        const int idx = threadIdx.x + e * Cfg::NT;
-        const int gk = k0 + idx / (Cfg::BN / 4);
-        const int gn = n0 + (idx % (Cfg::BN / 4)) * 4;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (gk < kend && gn < N)
-          v = __ldg(reinterpret_cast<const float4*>(b + (long long)gk * N + gn));
-        r[4 * e] = v.x; r[4 * e + 1] = v.y; r[4 * e + 2] = v.z; r[4 * e + 3] = v.w;
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < Cfg::B_PER; ++e) {
-        const int idx = threadIdx.x + e * Cfg::NT;
-        const int gk = k0 + idx / Cfg::BN;
-        const int gn = n0 + idx % Cfg::BN;
-        r[e] = (gk < kend && gn < N) ? __ldg(b + (long long)gk * N + gn) : 0.f;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void stash(float* Bs, const float (&r)[Cfg::B_PER]) const {
-    if (VEC) {
-#pragma unroll
-      for (int e = 0; e < Cfg::B_PER / 4; ++e) {
-        const int idx = threadIdx.x + e * Cfg::NT;
-        *reinterpret_cast<float4*>(Bs + (idx / (Cfg::BN / 4)) * Cfg::LDB +
-                                   (idx % (Cfg::BN / 4)) * 4) =
-            make_float4(r[4 * e], r[4 * e + 1], r[4 * e + 2], r[4 * e + 3]);
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < Cfg::B_PER; ++e) {
-        const int idx = threadIdx.x + e * Cfg::NT;
-        Bs[(idx / Cfg::BN) * Cfg::LDB + idx % Cfg::BN] = r[e];
-      }
+    for (int e = 0; e < Cfg::BK * PER_ROW / Cfg::NT; ++e) {
+      const int idx = threadIdx.x + e * Cfg::NT;
+      const int r = idx / PER_ROW;
+      const int nn = (idx % PER_ROW) * W;
+      const int gk = kbase + k0 + r;
+      const int gn = n0 + nn;
+      const bool in = gk < kend && gn < N;
+      const float* src = in ? b + (long long)gk * N + gn : b;
+      if (VEC)
+        cp_async16(Bs + r * Cfg::LDB + nn, src, in);
+      else
+        cp_async4(Bs + r * Cfg::LDB + nn, src, in);
     }
   }
 };
@@ -153,39 +126,38 @@ struct LoadB {
 // kchunk >= K) out is C itself, with several it is the float32 partial sums
 // that repro_mm_splitk_sum adds up.
 template <class Cfg, bool VEC>
-__global__ void __launch_bounds__(Cfg::NT)
-repro_mm_fp32(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out,
-              int M, int N, int K, int kchunk) {
-  __shared__ __align__(16) float smem[Cfg::SMEM_FLOATS];
-  const int tx = threadIdx.x % Cfg::TX;
-  const int ty = threadIdx.x / Cfg::TX;
+__global__ void __launch_bounds__(Cfg::NT, Cfg::MIN_BLOCKS)
+repro_mm_tf32x3(const float* __restrict__ a, const float* __restrict__ b,
+                float* __restrict__ out, int M, int N, int K, int kchunk) {
+  extern __shared__ __align__(16) unsigned char smem_mm[];
   const int m0 = blockIdx.x * Cfg::BM;
   const int n0 = blockIdx.y * Cfg::BN;
   const int k_begin = blockIdx.z * kchunk;
   const int k_end = min(K, k_begin + kchunk);
-  LoadA<Cfg, VEC> la{a, M, K, k_end, m0};
-  LoadB<Cfg, VEC> lb{b, N, k_end, n0};
-  float acc[Cfg::TM][Cfg::TN];
-  repro_tile::tile_loop<Cfg>(k_begin, k_end, la, lb, smem, tx, ty, acc);
-  float* c = out + (long long)blockIdx.z * M * N;
+  RowsA<Cfg, VEC> la{a, M, K, k_end, m0, k_begin};
+  RowsB<Cfg, VEC> lb{b, N, k_end, n0, k_begin};
+  float acc[Cfg::ACC];
+  repro_tf32x3::tile_loop<Cfg>(k_end - k_begin, la, lb, smem_mm, acc);
 
+  // accumulator 4 j + 2 h + c: row 16 warp + lane / 4 + 8 h, column
+  // 8 j + 2 (lane % 4) + c
+  float* c = out + (long long)blockIdx.z * M * N;
+  const int lane = threadIdx.x % 32;
+  const bool even_n = (N & 1) == 0;
 #pragma unroll
-  for (int i = 0; i < Cfg::TM; ++i) {
-    const int gm = m0 + tile_pos<Cfg::TX>(i / 4, tx, i % 4);
+  for (int h = 0; h < 2; ++h) {
+    const int gm = m0 + (threadIdx.x / 32) * 16 + lane / 4 + 8 * h;
     if (gm >= M) continue;
     float* row = c + (long long)gm * N;
 #pragma unroll
-    for (int cj = 0; cj < Cfg::TN / 4; ++cj) {
-      const int gn = n0 + tile_pos<Cfg::TY>(cj, ty, 0);
-      if (VEC) {   // N % 4 == 0: the 4 columns are all in or all out
-        if (gn < N)
-          *reinterpret_cast<float4*>(row + gn) =
-              make_float4(acc[i][4 * cj], acc[i][4 * cj + 1], acc[i][4 * cj + 2],
-                          acc[i][4 * cj + 3]);
+    for (int j = 0; j < Cfg::BN / 8; ++j) {
+      const int gn = n0 + 8 * j + 2 * (lane % 4);
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (even_n) {   // gn is even, so gn < N means gn + 1 < N too
+        if (gn < N) *reinterpret_cast<float2*>(row + gn) = make_float2(v0, v1);
       } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (gn + j < N) row[gn + j] = acc[i][4 * cj + j];
+        if (gn < N) row[gn] = v0;
+        if (gn + 1 < N) row[gn + 1] = v1;
       }
     }
   }
@@ -405,21 +377,29 @@ int sm_count() {
   return count;
 }
 
+// block tiles by output columns: 128 rows x 32, 64 or 128 columns
+// (kernels/matmul.py's tile_n makes the same choice to count tiles for
+// split-K); A row-major As[m][k], B row-major Bs[k][n]
+using TC32 = repro_tf32x3::Tile<32, true, true>;
+using TC64 = repro_tf32x3::Tile<64, true, true>;
+using TC128 = repro_tf32x3::Tile<128, true, true>;
+
 template <class Cfg>
-cudaError_t launch_fp32(const void* a, const void* b, void* c, void* part, int m, int n,
-                        int k, int splits, bool vec, cudaStream_t s) {
+cudaError_t launch_tf32x3(const void* a, const void* b, void* c, void* part, int m, int n,
+                          int k, int splits, bool vec, cudaStream_t s) {
   // depth per split: a whole number of slices
   const int kchunk = ((k + splits - 1) / splits + Cfg::BK - 1) / Cfg::BK * Cfg::BK;
   splits = (k + kchunk - 1) / kchunk;
+  auto kernel = vec ? repro_mm_tf32x3<Cfg, true> : repro_mm_tf32x3<Cfg, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
   dim3 grid((m + Cfg::BM - 1) / Cfg::BM, (n + Cfg::BN - 1) / Cfg::BN, splits);
-  const float* fa = static_cast<const float*>(a);
-  const float* fb = static_cast<const float*>(b);
   float* out = static_cast<float*>(splits > 1 ? part : c);
-  if (vec)
-    repro_mm_fp32<Cfg, true><<<grid, Cfg::NT, 0, s>>>(fa, fb, out, m, n, k, kchunk);
-  else
-    repro_mm_fp32<Cfg, false><<<grid, Cfg::NT, 0, s>>>(fa, fb, out, m, n, k, kchunk);
-  cudaError_t err = cudaGetLastError();
+  kernel<<<grid, Cfg::NT, Cfg::SMEM_BYTES, s>>>(static_cast<const float*>(a),
+                                                static_cast<const float*>(b), out, m, n, k,
+                                                kchunk);
+  err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const long long mn = (long long)m * n;
   const long long want_blocks = (mn + 255) / 256;
@@ -428,9 +408,6 @@ cudaError_t launch_fp32(const void* a, const void* b, void* c, void* part, int m
   repro_mm_splitk_sum<<<blocks, 256, 0, s>>>(out, static_cast<float*>(c), mn, splits);
   return cudaGetLastError();
 }
-
-using Big = Tile<16, 16, 8, 8>;     // 128 x 128, 256 threads, 8 x 8 each
-using Small = Tile<16, 8, 4, 8>;    // 64 x 64, 128 threads, 4 x 8 each
 
 }  // namespace
 
@@ -449,11 +426,13 @@ extern "C" int repro_matmul(const void* a, const void* b, void* c, void* part, i
                        (splits == 1 || aligned16(part));
   if (dtype == 0) {
     const bool vec = base_ok && k % 4 == 0 && n % 4 == 0;
-    const long long big_blocks =
-        (long long)((m + Big::BM - 1) / Big::BM) * ((n + Big::BN - 1) / Big::BN);
-    const cudaError_t err = big_blocks >= sm_count() && splits == 1
-                                ? launch_fp32<Big>(a, b, c, part, m, n, k, 1, vec, s)
-                                : launch_fp32<Small>(a, b, c, part, m, n, k, splits, vec, s);
+    cudaError_t err;
+    if (n <= 32)
+      err = launch_tf32x3<TC32>(a, b, c, part, m, n, k, splits, vec, s);
+    else if (n <= 64)
+      err = launch_tf32x3<TC64>(a, b, c, part, m, n, k, splits, vec, s);
+    else
+      err = launch_tf32x3<TC128>(a, b, c, part, m, n, k, splits, vec, s);
     return static_cast<int>(err);
   }
   if (dtype == 1) {

@@ -9,357 +9,553 @@
 //            (masked before the exp: those entries are positive and overflow)
 //   state  = exp(total) state + (dt x exp(total - cum))^T B
 // x (B, S, H, P) and B, C (B, S, N) in float32 or bfloat16, dt (B, S, H),
-// a (H,) and d (H,) in float32, y in x's dtype. cum is kept in float64:
-// under strong decay it reaches thousands, and a float32 difference of two
-// such values carries an absolute error of ~5e-4 however small the
+// a (H,) and d (H,) in float32, y in x's dtype, rounded once. cum is kept in
+// float64: under strong decay it reaches thousands, and a float32 difference
+// of two such values carries an absolute error of ~5e-4 however small the
 // difference is; each difference is rounded to float32 before its exp.
 //
 // What bounds it on an H100: bytes, at the serving shape (B 8, S 2048,
-// H 64, P 64, N 128, bf16): ~281 MB moved against ~43-60 GFLOP of small
-// products, 0.084 ms at 3.35 TB/s. This first version multiplies in
-// float32 on the CUDA cores, so it sits on the float32 operation rate
-// instead, well above that bound.
+// H 64, P 64, N 128, bf16): ~281 MB moved, 0.084 ms at 3.35 TB/s, against
+// 43 GFLOP of small products (0.26 ms as 3xTF32 at the TF32 peak). The
+// first version of this kernel (one block per (row, head, 32-column P
+// tile), every product as float32 FMAs on the CUDA cores, C B^T redone for
+// each of those blocks, five block-wide barriers per chunk and loads that
+// did not overlap the products) ran 36x above the byte bound.
 //
-// What the design does about it. On the TPU the chunk axis is the grid's
-// sequential minor axis and the state lives in VMEM between grid steps; on
-// Hopper blocks run in no order, so one block owns one (b, h, P tile) and
-// walks the chunks itself, carrying its state tile in shared memory.
-// Output column p depends only on x[:, p] and state[p, :], so P splits over
-// blocks with no communication: P = 64 runs as two tiles of 32 (128 blocks
-// for one batch row instead of 64 on 132 SMs), at the price of computing
-// C B^T once per tile. Per chunk the block loads x, dt, B and C with
-// 16-byte loads (rows past the chunk zero-filled, so a chunk shorter than
-// 64 runs the same code), warp 0 forms cum with a warp scan while the other
-// threads form C B^T (4 x 4 register tiles fed by 16-byte shared loads
-// from padded, conflict-free rows), then the block writes the masked score
-// tile, forms y, and updates the state. 256 threads, ~110 KB of dynamic
-// shared memory at (64, 128): two blocks per SM. mma.sync/wgmma, TMA and a
-// chunk-parallel (state-passing) form are later work.
+// What this design does about it:
+// - C B^T once per (row, chunk). C and B are shared by every head, so a
+//   small first pass (ssd_scan_gram_kernel, one block per (chunk, row))
+//   writes G = C B^T as (B, nc, 64, 64) float32 scratch (4.2 MB at the
+//   serving shape, which the next pass reads from L2). With bfloat16 inputs
+//   C and B are exact in TF32, so this is one TF32 product per k-step.
+// - The three per-head products on the tensor cores, mma.sync m16n8k8 TF32
+//   (the tiles are a 64-row chunk, a 32-column P tile and N = 128: too
+//   small a block of work per product for wgmma's 64-row warpgroup tiles to
+//   pay), each float32 operand split into a TF32 hi and lo part (3xTF32, as
+//   tf32x3_tile.cuh does) so the result meets the float32 tolerance:
+//     y_intra = W x,       W = (G o L) dt_j   (W split; x exact in bf16)
+//     y_inter = C state^T                     (C exact in bf16; state split)
+//     state  += (x sc)^T B, sc = dt exp(total - cum)   ((x sc) split; B exact)
+//   An operand that is exact in TF32 (a bfloat16 input) is not split, so
+//   with bfloat16 inputs each product costs two TF32 products, not three.
+//   The lo terms go to their own accumulator, added once at the end. The
+//   causal mask leaves W's upper k-steps zero; they are skipped.
+// - The (P, N) state stays float32 in the update product's accumulator
+//   registers across chunks; at each chunk's start it is written once to
+//   shared memory, where the inter-chunk product reads it, each warp
+//   splitting the values it reads. (Splitting it once there into TF32 hi
+//   and lo arrays ran slower on the H100: the extra 33 KB of shared memory
+//   and the two loads per value cost more than the split saved.)
+// - The chunk walk is pipelined: chunk c + 1's G, x, C and B tiles arrive
+//   by 16-byte cp.async in a 2-stage ring (rows past the chunk zero-filled)
+//   while chunk c's products run; warp 0 forms chunk c + 1's float64
+//   cumsum during chunk c from dt it read into registers a chunk earlier. Two
+//   block-wide barriers per chunk remain: one for the landed stage, one
+//   between forming (W, the shared state) and the products reading them.
+// - Grid: one block per (P tile, head, row), one block per SM. The wrapper
+//   takes the whole P of 64 in a block of 16 warps (bfloat16: ring, state
+//   and cumsum ~156 KB) where that still gives every SM a block (the (4,
+//   2048) and (8, 2048) buckets), so W, the cumsum and the G, C and B tiles
+//   are formed and loaded once per head; else 32-column tiles in blocks of
+//   8 warps (128 blocks at the (1, 1024) bucket for the 132 SMs; float32
+//   always, as its full-P ring does not fit: ~207 KB at 32 columns). Each
+//   warp holds the same tiles either way: 2 of y's and 4 of the state's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3_tile.cuh"
+
 namespace {
 
+using bf16 = __nv_bfloat16;
+using repro_tf32x3::cp_async16;
+
 constexpr int CH = 64;         // largest chunk; shorter chunks are zero-padded
-constexpr int NT = 256;        // threads per block (8 warps)
-constexpr int WLD = CH + 4;    // padded row of the score tile
+constexpr int GRAM_NT = 128;   // threads of a Gram block: 4 warps x 16 rows
+constexpr int STAGES = 2;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int PT, int N>
-constexpr int smem_floats() {
-  // cum (CH doubles), C, B, x tile, score tile, state, dt/ec/sc, exp(total)
-  return 2 * CH + 2 * CH * (N + 4) + CH * (PT + 4) + CH * WLD + PT * (N + 4) + 3 * CH + 4;
-}
-
-// 16-byte loads of V consecutive elements, widened to float32
 template <typename T>
-struct Vec;
-
+struct Exact {   // values of T are TF32 values already
+  static constexpr bool value = false;
+};
 template <>
-struct Vec<float> {
-  static constexpr int n = 4;
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
-  }
-  __device__ __forceinline__ static float store(float v) { return v; }
+struct Exact<bf16> {
+  static constexpr bool value = true;
 };
 
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int n = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      out[2 * k] = f.x;
-      out[2 * k + 1] = f.y;
-    }
-  }
-  __device__ __forceinline__ static __nv_bfloat16 store(float v) {
-    return __float2bfloat16_rn(v);
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+// d += a (16 x 8, row) . b (8 x 8, col), TF32 in, float32 accumulate.
+// Fragments (g = lane / 4, t = lane % 4): a = (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4); b = (k t, n g), (k t + 4, n g); d = (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// R values of one operand fragment as TF32 hi and lo parts; EXACT: the
+// values are TF32 already, lo is zero and never formed
+template <int R, bool EXACT>
+struct Frag {
+  uint32_t hi[R], lo[R];
+  __device__ __forceinline__ void set(int i, float v) {
+    if (EXACT)
+      hi[i] = __float_as_uint(v);
+    else
+      repro_tf32x3::split_tf32(v, hi[i], lo[i]);
   }
 };
 
-// CH rows of COLS elements (global row stride `gstride`) into float32 shared
-// rows of stride `ld`; rows at or past `rows` are zero-filled.
-template <typename T, int COLS>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, size_t gstride,
-                                          int rows) {
-  constexpr int V = Vec<T>::n;
-  constexpr int PER_ROW = COLS / V;
-  static_assert(COLS % V == 0, "tile width must be a whole number of 16-byte loads");
-  for (int e = threadIdx.x; e < CH * PER_ROW; e += NT) {
-    const int r = e / PER_ROW;
-    const int c0 = (e - r * PER_ROW) * V;
-    float v[V];
-    if (r < rows) {
-      Vec<T>::load(src + r * gstride + c0, v);
-    } else {
-#pragma unroll
-      for (int k = 0; k < V; ++k) v[k] = 0.f;
+// big += a_hi b_hi; small += a_hi b_lo + a_lo b_hi (the terms that are not zero)
+template <bool AX, bool BX>
+__device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4], const Frag<4, AX>& a,
+                                     const Frag<2, BX>& b) {
+  mma_tf32(big, a.hi, b.hi[0], b.hi[1]);
+  if (!BX) mma_tf32(small, a.hi, b.lo[0], b.lo[1]);
+  if (!AX) mma_tf32(small, a.lo, b.hi[0], b.hi[1]);
+}
+
+// ---------------------------------------------------------------------------
+// pass 1: G = C B^T per (row, chunk)
+// ---------------------------------------------------------------------------
+
+// shared C and B rows of a Gram block (T elements), padded by 16 bytes so
+// a fragment read (8 rows x 4 columns) hits distinct banks
+template <typename T, int N>
+struct Gram {
+  static constexpr int LD = N + 16 / static_cast<int>(sizeof(T));
+  static constexpr int BYTES = 2 * CH * LD * static_cast<int>(sizeof(T));
+};
+
+// g[b, c] (CH x CH float32) = C[b, chunk c] . B[b, chunk c]^T, rows and
+// columns at or past `chunk` zero. Block (c, b); warp w owns rows 16 w + 0..15.
+template <typename T, int N>
+__global__ void __launch_bounds__(GRAM_NT)
+ssd_scan_gram_kernel(const T* __restrict__ bm, const T* __restrict__ cm, float* __restrict__ g,
+                     int seqlen, int chunk) {
+  constexpr int LD = Gram<T, N>::LD;
+  constexpr int V = 16 / static_cast<int>(sizeof(T));   // elements per 16-byte load
+  constexpr bool EX = Exact<T>::value;
+  extern __shared__ __align__(16) unsigned char smem_g[];
+  T* cs = reinterpret_cast<T*>(smem_g);
+  T* bs = cs + CH * LD;
+  const int c = blockIdx.x;
+  const int b = blockIdx.y;
+  const size_t row0 = static_cast<size_t>(b) * seqlen + static_cast<size_t>(c) * chunk;
+  for (int e = threadIdx.x; e < CH * (N / V); e += GRAM_NT) {
+    const int r = e / (N / V);
+    const int q = (e % (N / V)) * V;
+    uint4 cv = make_uint4(0, 0, 0, 0), bv = make_uint4(0, 0, 0, 0);
+    if (r < chunk) {
+      cv = __ldg(reinterpret_cast<const uint4*>(cm + (row0 + r) * N + q));
+      bv = __ldg(reinterpret_cast<const uint4*>(bm + (row0 + r) * N + q));
     }
-#pragma unroll
-    for (int k = 0; k < V; k += 4)
-      *reinterpret_cast<float4*>(dst + r * ld + c0 + k) =
-          make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+    *reinterpret_cast<uint4*>(cs + r * LD + q) = cv;
+    *reinterpret_cast<uint4*>(bs + r * LD + q) = bv;
   }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int i0 = (threadIdx.x / 32) * 16;
+  float big[CH / 8][4], small[CH / 8][4];
+#pragma unroll
+  for (int j = 0; j < CH / 8; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) big[j][v] = small[j][v] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < N; k0 += 8) {
+    Frag<4, EX> af;
+    af.set(0, to_f(cs[(i0 + gq) * LD + k0 + tq]));
+    af.set(1, to_f(cs[(i0 + gq + 8) * LD + k0 + tq]));
+    af.set(2, to_f(cs[(i0 + gq) * LD + k0 + tq + 4]));
+    af.set(3, to_f(cs[(i0 + gq + 8) * LD + k0 + tq + 4]));
+#pragma unroll
+    for (int j = 0; j < CH / 8; ++j) {
+      Frag<2, EX> bf;
+      bf.set(0, to_f(bs[(8 * j + gq) * LD + k0 + tq]));
+      bf.set(1, to_f(bs[(8 * j + gq) * LD + k0 + tq + 4]));
+      mma3(big[j], small[j], af, bf);
+    }
+  }
+  float* out = g + (static_cast<size_t>(b) * gridDim.x + c) * CH * CH;
+#pragma unroll
+  for (int j = 0; j < CH / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      store2(out + (i0 + gq + 8 * h) * CH + 8 * j + 2 * tq, big[j][2 * h] + small[j][2 * h],
+             big[j][2 * h + 1] + small[j][2 * h + 1]);
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
+// ---------------------------------------------------------------------------
+// pass 2: the chunk walk
+// ---------------------------------------------------------------------------
 
+// Shared memory of a walk block (bytes), mirrored by kernels/ssd_scan.py's
+// smem_bytes: per-chunk vectors (two buffers), the shared state, then
+// STAGES ring stages of G (W in place), x, C and B. Row paddings keep every
+// fragment read on distinct banks: G, C and the state are read (8 rows x 4
+// columns), x and B (4 rows x 8 columns).
 template <typename T, int PT, int N>
-__global__ void __launch_bounds__(NT, 2)
-ssd_scan_kernel(const T* __restrict__ x,        // (B, S, H, P)
-                const float* __restrict__ dt,   // (B, S, H)
-                const float* __restrict__ a,    // (H,)
-                const T* __restrict__ bm,       // (B, S, N)
-                const T* __restrict__ cm,       // (B, S, N)
-                const float* __restrict__ dskip,  // (H,)
-                T* __restrict__ y,              // (B, S, H, P)
-                int seqlen, int heads, int p_total, int chunk) {
-  constexpr int NLD = N + 4;   // padded row of C, B and the state
-  constexpr int XLD = PT + 4;  // padded row of the x tile
-  constexpr int YS = PT / 16;  // output columns per thread
-  constexpr int TN = N < 32 ? N : 32;  // state update: threads along N
-  constexpr int TP = NT / TN;          //               threads along P
-  constexpr int RP = PT / TP;
-  constexpr int RN = N / TN;
-  static_assert(PT % 16 == 0 && N % 4 == 0, "tile shapes");
-  static_assert(RP >= 1 && PT % TP == 0 && N % TN == 0, "state update map");
+struct Walk {
+  static constexpr int SZ = static_cast<int>(sizeof(T));
+  static constexpr int LDG = CH + 4;            // floats
+  static constexpr int LDX = PT + 8;            // T
+  static constexpr int LDC = N + 16 / SZ;       // T
+  static constexpr int LDB = N + 8;             // T
+  static constexpr int LDS = N + 4;             // floats
+  static constexpr int G_BYTES = CH * LDG * 4;
+  static constexpr int X_BYTES = CH * LDX * SZ;
+  static constexpr int C_BYTES = CH * LDC * SZ;
+  static constexpr int B_BYTES = CH * LDB * SZ;
+  static constexpr int STAGE_BYTES = G_BYTES + X_BYTES + C_BYTES + B_BYTES;
+  // cum (float64), dt, exp(cum), dt exp(total - cum), exp(total): two buffers
+  static constexpr int VEC_BYTES = 2 * CH * 8 + 3 * 2 * CH * 4 + 16;
+  static constexpr int S_BYTES = PT * LDS * 4;
+  static constexpr int BYTES = VEC_BYTES + S_BYTES + STAGES * STAGE_BYTES;
+  static_assert(G_BYTES % 16 == 0 && X_BYTES % 16 == 0 && C_BYTES % 16 == 0 &&
+                    B_BYTES % 16 == 0 && S_BYTES % 16 == 0 && VEC_BYTES % 16 == 0,
+                "16-byte aligned regions");
+};
 
-  extern __shared__ __align__(16) float smem[];
-  double* cum_s = reinterpret_cast<double*>(smem);  // CH   cum (float64)
-  float* c_s = smem + 2 * CH;                       // CH x NLD   C rows
-  float* b_s = c_s + CH * NLD;                      // CH x NLD   B rows
-  float* x_s = b_s + CH * NLD;                      // CH x XLD   x, this P tile
-  float* w_s = x_s + CH * XLD;                      // CH x WLD   (C B^T o L) * dt_j
-  float* st_s = w_s + CH * WLD;                     // PT x NLD   state
-  float* dt_s = st_s + PT * NLD;                    // CH   dt
-  float* ec_s = dt_s + CH;                          // CH   exp(cum)
-  float* sc_s = ec_s + CH;                          // CH   dt * exp(total - cum)
-  float* et_s = sc_s + CH;                          // [0]  exp(total)
+// Warp 0: the chunk's inclusive prefix sum of dt * a in float64 (two
+// positions per lane), its exponentials, and dt, into buffer `buf`.
+// Padded positions have dt = 0 and leave cum at its total.
+__device__ __forceinline__ void chunk_scan(float dt0, float dt1, float ah, double* cum,
+                                           float* dts, float* ec, float* sc, float* et) {
+  const int lane = threadIdx.x;
+  const double v0 = static_cast<double>(dt0 * ah);
+  const double v1 = static_cast<double>(dt1 * ah);
+  double s = v0 + v1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double u = __shfl_up_sync(kFull, s, o);
+    if (lane >= o) s += u;
+  }
+  const double total = __shfl_sync(kFull, s, 31);
+  const double c0 = s - v1;
+  const int i0 = 2 * lane;
+  cum[i0] = c0;
+  cum[i0 + 1] = s;
+  dts[i0] = dt0;
+  dts[i0 + 1] = dt1;
+  ec[i0] = expf(static_cast<float>(c0));
+  ec[i0 + 1] = expf(static_cast<float>(s));
+  sc[i0] = dt0 * expf(static_cast<float>(total - c0));
+  sc[i0 + 1] = dt1 * expf(static_cast<float>(total - s));
+  if (lane == 0) *et = expf(static_cast<float>(total));
+}
+
+// Block (P tile, head h, row b) of NW warps walks the chunks; see the head
+// of the file.
+template <typename T, int PT, int N, int NW>
+__global__ void __launch_bounds__(32 * NW, 1)
+ssd_scan_walk_kernel(const T* __restrict__ x,          // (B, S, H, P)
+                     const float* __restrict__ dt,     // (B, S, H)
+                     const float* __restrict__ a,      // (H,)
+                     const T* __restrict__ bm,         // (B, S, N)
+                     const T* __restrict__ cm,         // (B, S, N)
+                     const float* __restrict__ dskip,  // (H,)
+                     const float* __restrict__ g,      // (B, nc, CH, CH) from pass 1
+                     T* __restrict__ y,                // (B, S, H, P)
+                     int seqlen, int heads, int p_total, int chunk) {
+  using L = Walk<T, PT, N>;
+  constexpr int NT = 32 * NW;
+  constexpr bool EX = Exact<T>::value;
+  constexpr int V = 16 / L::SZ;                // T elements per 16-byte copy
+  // output tiles (16 x 8) of y (CH x PT) and of the state (PT x N); a warp
+  // takes consecutive tiles of one row block, so its A fragments serve all
+  constexpr int YT = (CH / 16) * (PT / 8), YPW = (YT + NW - 1) / NW;
+  constexpr int UT = (PT / 16) * (N / 8), UPW = (UT + NW - 1) / NW;
+  static_assert(PT % 16 == 0 && N % 8 == 0, "tile shapes");
+  static_assert((PT / 8) % YPW == 0 && (N / 8) % UPW == 0, "a warp's tiles share rows");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* cum_s = reinterpret_cast<double*>(smem);   // [2][CH]
+  float* dt_s = reinterpret_cast<float*>(cum_s + 2 * CH);
+  float* ec_s = dt_s + 2 * CH;
+  float* sc_s = ec_s + 2 * CH;
+  float* et_s = sc_s + 2 * CH;                       // [2] (+ 2 padding)
+  float* st_s = et_s + 4;                            // PT x LDS: the state
+  unsigned char* ring = smem + L::VEC_BYTES + L::S_BYTES;
 
   const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
   const int p0 = blockIdx.x * PT;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const float ah = a[h];
   const float dh = dskip[h];
   const size_t xrow = static_cast<size_t>(heads) * p_total;  // x / y row stride
-  const int ti = tid >> 4;  // C B^T and y: rows ti + 16 r
-  const int tj = tid & 15;  //              cols tj + 16 s
-  const int sp = tid / TN;  // state update: rows sp + TP r
-  const int sn = tid % TN;  //               cols sn + TN q
-
-  for (int e = tid; e < PT * NLD; e += NT) st_s[e] = 0.f;
-
   const int n_chunks = seqlen / chunk;
+  const size_t brow = static_cast<size_t>(b) * seqlen;
+
+  const int yt0 = warp * YPW;
+  const bool y_on = yt0 < YT;
+  const int yi0 = 16 * (yt0 / (PT / 8)), yp0 = 8 * (yt0 % (PT / 8));
+  const int ut0 = warp * UPW;
+  const bool u_on = ut0 < UT;
+  const int up0 = 16 * (ut0 / (N / 8)), un0 = 8 * (ut0 % (N / 8));
+
+  // issue chunk ci's tiles into its stage (one commit group)
+  auto load_chunk = [&](int ci) {
+    unsigned char* st = ring + (ci % STAGES) * L::STAGE_BYTES;
+    float* gs = reinterpret_cast<float*>(st);
+    T* xs = reinterpret_cast<T*>(st + L::G_BYTES);
+    T* cs = reinterpret_cast<T*>(st + L::G_BYTES + L::X_BYTES);
+    T* bs = reinterpret_cast<T*>(st + L::G_BYTES + L::X_BYTES + L::C_BYTES);
+    const size_t row0 = brow + static_cast<size_t>(ci) * chunk;
+    const float* gsrc = g + (static_cast<size_t>(b) * n_chunks + ci) * CH * CH;
+    for (int e = tid; e < CH * CH / 4; e += NT)
+      cp_async16(gs + (e / (CH / 4)) * L::LDG + (e % (CH / 4)) * 4, gsrc + e * 4, true);
+    const T* xsrc = x + row0 * xrow + static_cast<size_t>(h) * p_total + p0;
+    for (int e = tid; e < CH * (PT / V); e += NT) {
+      const int r = e / (PT / V), q = (e % (PT / V)) * V;
+      const bool in = r < chunk;
+      cp_async16(reinterpret_cast<float*>(xs + r * L::LDX + q), in ? xsrc + r * xrow + q : xsrc,
+                 in);
+    }
+    for (int e = tid; e < CH * (N / V); e += NT) {
+      const int r = e / (N / V), q = (e % (N / V)) * V;
+      const bool in = r < chunk;
+      const size_t off = in ? (row0 + r) * N + q : 0;
+      cp_async16(reinterpret_cast<float*>(cs + r * L::LDC + q), cm + off, in);
+      cp_async16(reinterpret_cast<float*>(bs + r * L::LDB + q), bm + off, in);
+    }
+    repro_tf32x3::cp_async_commit();
+  };
+  // warp 0: dt of chunk ci, two positions per lane (0 past the chunk)
+  auto load_dt = [&](int ci, float& d0, float& d1) {
+    const size_t row0 = brow + static_cast<size_t>(ci) * chunk;
+    const int i0 = 2 * lane;
+    d0 = i0 < chunk ? __ldg(dt + (row0 + i0) * heads + h) : 0.f;
+    d1 = i0 + 1 < chunk ? __ldg(dt + (row0 + i0 + 1) * heads + h) : 0.f;
+  };
+
+  float st[UPW][4];   // the state tiles this warp updates
+#pragma unroll
+  for (int j = 0; j < UPW; ++j) st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
+
+  load_chunk(0);
+  float dn0 = 0.f, dn1 = 0.f;   // warp 0: dt of the chunk after the current one
+  if (warp == 0) {
+    load_dt(0, dn0, dn1);
+    chunk_scan(dn0, dn1, ah, cum_s, dt_s, ec_s, sc_s, et_s);
+    if (n_chunks > 1) load_dt(1, dn0, dn1);
+  }
+
   for (int ci = 0; ci < n_chunks; ++ci) {
-    const size_t row0 = static_cast<size_t>(b) * seqlen + static_cast<size_t>(ci) * chunk;
-    __syncthreads();  // the previous chunk is done with b_s, x_s and the state
-    load_tile<T, N>(c_s, NLD, cm + row0 * N, N, chunk);
-    load_tile<T, N>(b_s, NLD, bm + row0 * N, N, chunk);
-    load_tile<T, PT>(x_s, XLD, x + row0 * xrow + static_cast<size_t>(h) * p_total + p0, xrow,
-                     chunk);
-    if (tid < CH) dt_s[tid] = tid < chunk ? dt[(row0 + tid) * heads + h] : 0.f;
-    __syncthreads();
-
-    if (tid < 32) {
-      // inclusive prefix sum of dt * a, two positions per lane; padded
-      // positions have dt = 0 and leave cum at its total
-      const int i0 = 2 * tid;
-      const double v0 = static_cast<double>(dt_s[i0] * ah);
-      const double v1 = static_cast<double>(dt_s[i0 + 1] * ah);
-      double s = v0 + v1;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const double u = __shfl_up_sync(kFull, s, o);
-        if (tid >= o) s += u;
-      }
-      const double total = __shfl_sync(kFull, s, 31);
-      const double c0 = s - v1;
-      cum_s[i0] = c0;
-      cum_s[i0 + 1] = s;
-      ec_s[i0] = expf(static_cast<float>(c0));
-      ec_s[i0 + 1] = expf(static_cast<float>(s));
-      sc_s[i0] = dt_s[i0] * expf(static_cast<float>(total - c0));
-      sc_s[i0 + 1] = dt_s[i0 + 1] * expf(static_cast<float>(total - s));
-      if (tid == 0) et_s[0] = expf(static_cast<float>(total));
+    const int buf = ci & 1;
+    unsigned char* stage = ring + (ci % STAGES) * L::STAGE_BYTES;
+    float* ws = reinterpret_cast<float*>(stage);
+    const T* xs = reinterpret_cast<const T*>(stage + L::G_BYTES);
+    const T* cs = reinterpret_cast<const T*>(stage + L::G_BYTES + L::X_BYTES);
+    const T* bs = reinterpret_cast<const T*>(stage + L::G_BYTES + L::X_BYTES + L::C_BYTES);
+    repro_tf32x3::cp_async_wait<0>();
+    __syncthreads();   // chunk ci has landed; chunk ci - 1 is done everywhere
+    const bool more = ci + 1 < n_chunks;
+    if (more) load_chunk(ci + 1);
+    // warp 0: chunk ci + 1's cumsum into the other buffer (last read in
+    // chunk ci - 1), then chunk ci + 2's dt. Warp 0 has the fewest masked
+    // product k-steps, so the scan runs in the others' product time rather
+    // than ahead of the next barrier.
+    if (warp == 0 && more) {
+      const int nb = buf ^ 1;
+      chunk_scan(dn0, dn1, ah, cum_s + nb * CH, dt_s + nb * CH, ec_s + nb * CH, sc_s + nb * CH,
+                 et_s + nb);
+      if (ci + 2 < n_chunks) load_dt(ci + 2, dn0, dn1);
     }
 
-    // G = C B^T, 4 x 4 per thread
-    float g[4][4];
+    // the state entering this chunk, for the inter-chunk product
+    if (u_on) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) g[r][q] = 0.f;
+      for (int j = 0; j < UPW; ++j) {
+        float* row = st_s + (up0 + gq) * L::LDS + un0 + 8 * j + 2 * tq;
+        *reinterpret_cast<float2*>(row) = make_float2(st[j][0], st[j][1]);
+        *reinterpret_cast<float2*>(row + 8 * L::LDS) = make_float2(st[j][2], st[j][3]);
+      }
+    }
+    // W = (G o L) * dt_j in place of G, masked before the exp
+    {
+      const double* cum = cum_s + buf * CH;
+      const float* dts = dt_s + buf * CH;
 #pragma unroll 4
-    for (int n = 0; n < N; n += 4) {
-      float4 cv[4], bv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        cv[r] = *reinterpret_cast<const float4*>(c_s + (ti + 16 * r) * NLD + n);
-        bv[r] = *reinterpret_cast<const float4*>(b_s + (tj + 16 * r) * NLD + n);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) g[r][q] = dot4(cv[r], bv[q], g[r][q]);
-    }
-    __syncthreads();  // cum, ec, sc and exp(total) are in shared memory
-
-    // W = (G o L) * dt_j, masked before the exp
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = ti + 16 * r;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = tj + 16 * q;
-        w_s[i * WLD + j] =
-            i >= j ? g[r][q] * expf(static_cast<float>(cum_s[i] - cum_s[j])) * dt_s[j] : 0.f;
+      for (int e = 0; e < CH * CH / NT; ++e) {
+        const int idx = tid + e * NT;
+        const int i = idx / CH, j = idx % CH;
+        float* w = ws + i * L::LDG + j;
+        *w = i >= j ? *w * expf(static_cast<float>(cum[i] - cum[j])) * dts[j] : 0.f;
       }
     }
     __syncthreads();
 
-    // y = W x + exp(cum) C state^T + d x
-    float yi[4][YS], yo[4][YS];
+    const float* ec = ec_s + buf * CH;
+    const float* sc = sc_s + buf * CH;
+    if (y_on) {
+      // y = W x + exp(cum) (C state^T) + d x over this warp's tiles
+      float yi[YPW][4], yis[YPW][4], yo[YPW][4], yos[YPW][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+      for (int j = 0; j < YPW; ++j)
 #pragma unroll
-      for (int s = 0; s < YS; ++s) yi[r][s] = yo[r][s] = 0.f;
-#pragma unroll 2
-    for (int j = 0; j < CH; j += 4) {
-      float4 wv[4];
+        for (int v = 0; v < 4; ++v) yi[j][v] = yis[j][v] = yo[j][v] = yos[j][v] = 0.f;
+      // W's columns past the tile's last row are zero: k-steps below i0 + 16
+      for (int k0 = 0; k0 < yi0 + 16; k0 += 8) {
+        Frag<4, false> af;
+        af.set(0, ws[(yi0 + gq) * L::LDG + k0 + tq]);
+        af.set(1, ws[(yi0 + gq + 8) * L::LDG + k0 + tq]);
+        af.set(2, ws[(yi0 + gq) * L::LDG + k0 + tq + 4]);
+        af.set(3, ws[(yi0 + gq + 8) * L::LDG + k0 + tq + 4]);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        wv[r] = *reinterpret_cast<const float4*>(w_s + (ti + 16 * r) * WLD + j);
-#pragma unroll
-      for (int s = 0; s < YS; ++s) {
-        const int p = tj + 16 * s;
-        const float4 xv = make_float4(x_s[j * XLD + p], x_s[(j + 1) * XLD + p],
-                                      x_s[(j + 2) * XLD + p], x_s[(j + 3) * XLD + p]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) yi[r][s] = dot4(wv[r], xv, yi[r][s]);
+        for (int j = 0; j < YPW; ++j) {
+          const int p = yp0 + 8 * j + gq;
+          Frag<2, EX> bf;
+          bf.set(0, to_f(xs[(k0 + tq) * L::LDX + p]));
+          bf.set(1, to_f(xs[(k0 + tq + 4) * L::LDX + p]));
+          mma3(yi[j], yis[j], af, bf);
+        }
       }
-    }
 #pragma unroll 4
-    for (int n = 0; n < N; n += 4) {
-      float4 cv[4], sv[YS];
+      for (int k0 = 0; k0 < N; k0 += 8) {
+        Frag<4, EX> af;
+        af.set(0, to_f(cs[(yi0 + gq) * L::LDC + k0 + tq]));
+        af.set(1, to_f(cs[(yi0 + gq + 8) * L::LDC + k0 + tq]));
+        af.set(2, to_f(cs[(yi0 + gq) * L::LDC + k0 + tq + 4]));
+        af.set(3, to_f(cs[(yi0 + gq + 8) * L::LDC + k0 + tq + 4]));
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        cv[r] = *reinterpret_cast<const float4*>(c_s + (ti + 16 * r) * NLD + n);
+        for (int j = 0; j < YPW; ++j) {
+          const int p = yp0 + 8 * j + gq;
+          Frag<2, false> bf;
+          bf.set(0, st_s[p * L::LDS + k0 + tq]);
+          bf.set(1, st_s[p * L::LDS + k0 + tq + 4]);
+          mma3(yo[j], yos[j], af, bf);
+        }
+      }
+      const size_t row0 = brow + static_cast<size_t>(ci) * chunk;
 #pragma unroll
-      for (int s = 0; s < YS; ++s)
-        sv[s] = *reinterpret_cast<const float4*>(st_s + (tj + 16 * s) * NLD + n);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int s = 0; s < YS; ++s) yo[r][s] = dot4(cv[r], sv[s], yo[r][s]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = ti + 16 * r;
-      if (i < chunk) {
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = yi0 + gq + 8 * hh;
+        if (i >= chunk) continue;
         T* yrow = y + (row0 + i) * xrow + static_cast<size_t>(h) * p_total + p0;
+        const float e = ec[i];
 #pragma unroll
-        for (int s = 0; s < YS; ++s) {
-          const int p = tj + 16 * s;
-          const float v = yi[r][s] + ec_s[i] * yo[r][s] + dh * x_s[i * XLD + p];
-          yrow[p] = Vec<T>::store(v);
+        for (int j = 0; j < YPW; ++j) {
+          const int p = yp0 + 8 * j + 2 * tq;
+          const float v0 = (yi[j][2 * hh] + yis[j][2 * hh]) +
+                           e * (yo[j][2 * hh] + yos[j][2 * hh]) +
+                           dh * to_f(xs[i * L::LDX + p]);
+          const float v1 = (yi[j][2 * hh + 1] + yis[j][2 * hh + 1]) +
+                           e * (yo[j][2 * hh + 1] + yos[j][2 * hh + 1]) +
+                           dh * to_f(xs[i * L::LDX + p + 1]);
+          store2(yrow + p, v0, v1);
         }
       }
     }
-    __syncthreads();  // every read of the old state is done
-
-    // state = exp(total) state + (x * dt * exp(total - cum))^T B
-    float acc[RP][RN];
+    if (u_on) {
+      // state = exp(total) state + (x sc)^T B over this warp's tiles
+      const float et = et_s[buf];
+      float us[UPW][4];
 #pragma unroll
-    for (int r = 0; r < RP; ++r)
+      for (int j = 0; j < UPW; ++j)
 #pragma unroll
-      for (int q = 0; q < RN; ++q) acc[r][q] = 0.f;
-#pragma unroll 4
-    for (int t = 0; t < CH; ++t) {
-      const float st = sc_s[t];
-      float xv[RP], bv[RN];
+        for (int v = 0; v < 4; ++v) {
+          st[j][v] *= et;
+          us[j][v] = 0.f;
+        }
 #pragma unroll
-      for (int r = 0; r < RP; ++r) xv[r] = x_s[t * XLD + sp + TP * r] * st;
+      for (int k0 = 0; k0 < CH; k0 += 8) {
+        const float s0 = sc[k0 + tq], s1 = sc[k0 + tq + 4];
+        Frag<4, false> af;
+        af.set(0, to_f(xs[(k0 + tq) * L::LDX + up0 + gq]) * s0);
+        af.set(1, to_f(xs[(k0 + tq) * L::LDX + up0 + gq + 8]) * s0);
+        af.set(2, to_f(xs[(k0 + tq + 4) * L::LDX + up0 + gq]) * s1);
+        af.set(3, to_f(xs[(k0 + tq + 4) * L::LDX + up0 + gq + 8]) * s1);
 #pragma unroll
-      for (int q = 0; q < RN; ++q) bv[q] = b_s[t * NLD + sn + TN * q];
-#pragma unroll
-      for (int r = 0; r < RP; ++r)
-#pragma unroll
-        for (int q = 0; q < RN; ++q) acc[r][q] = fmaf(xv[r], bv[q], acc[r][q]);
-    }
-    const float et = et_s[0];
-#pragma unroll
-    for (int r = 0; r < RP; ++r)
-#pragma unroll
-      for (int q = 0; q < RN; ++q) {
-        float* cell = st_s + (sp + TP * r) * NLD + sn + TN * q;
-        *cell = fmaf(et, *cell, acc[r][q]);
+        for (int j = 0; j < UPW; ++j) {
+          const int n = un0 + 8 * j + gq;
+          Frag<2, EX> bf;
+          bf.set(0, to_f(bs[(k0 + tq) * L::LDB + n]));
+          bf.set(1, to_f(bs[(k0 + tq + 4) * L::LDB + n]));
+          mma3(st[j], us[j], af, bf);
+        }
       }
+#pragma unroll
+      for (int j = 0; j < UPW; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) st[j][v] += us[j][v];
+    }
   }
 }
 
-template <typename T, int PT, int N>
+template <typename T, int PT, int N, int NW>
 cudaError_t launch_typed(const void* x, const void* dt, const void* a, const void* b,
-                         const void* c, const void* d, void* y, int batch, int seqlen,
+                         const void* c, const void* d, void* g, void* y, int batch, int seqlen,
                          int heads, int p, int chunk, cudaStream_t stream) {
-  const int bytes = smem_floats<PT, N>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel<T, PT, N>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const int n_chunks = seqlen / chunk;
+  constexpr int gram_bytes = Gram<T, N>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(ssd_scan_gram_kernel<T, N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, gram_bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(p / PT, heads, batch);
-  ssd_scan_kernel<T, PT, N><<<grid, NT, bytes, stream>>>(
+  ssd_scan_gram_kernel<T, N><<<dim3(n_chunks, batch), GRAM_NT, gram_bytes, stream>>>(
+      static_cast<const T*>(b), static_cast<const T*>(c), static_cast<float*>(g), seqlen, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int walk_bytes = Walk<T, PT, N>::BYTES;
+  auto walk = ssd_scan_walk_kernel<T, PT, N, NW>;
+  err = cudaFuncSetAttribute(walk, cudaFuncAttributeMaxDynamicSharedMemorySize, walk_bytes);
+  if (err != cudaSuccess) return err;
+  walk<<<dim3(p / PT, heads, batch), 32 * NW, walk_bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(a),
       static_cast<const T*>(b), static_cast<const T*>(c), static_cast<const float*>(d),
-      static_cast<T*>(y), seqlen, heads, p, chunk);
+      static_cast<const float*>(g), static_cast<T*>(y), seqlen, heads, p, chunk);
   return cudaGetLastError();
-}
-
-template <int PT, int N>
-cudaError_t launch(int dtype, const void* x, const void* dt, const void* a, const void* b,
-                   const void* c, const void* d, void* y, int batch, int seqlen, int heads,
-                   int p, int chunk, cudaStream_t s) {
-  if (dtype == 0)
-    return launch_typed<float, PT, N>(x, dt, a, b, c, d, y, batch, seqlen, heads, p, chunk,
-                                      s);
-  if (dtype == 1)
-    return launch_typed<__nv_bfloat16, PT, N>(x, dt, a, b, c, d, y, batch, seqlen, heads, p,
-                                              chunk, s);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, B, C and y); (p, n) in {(64, 128),
-// (16, 16)}; 1 <= chunk <= 64 and seqlen % chunk == 0; x, B and C rows
-// 16-byte aligned. Returns the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (x, B, C and y); (p, n, p_tile) in
+// {(64, 128, 32), (64, 128, 64) bfloat16 only, (16, 16, 16)}; 1 <= chunk <=
+// 64 and seqlen % chunk == 0; x, B and C rows 16-byte aligned; g: (batch,
+// seqlen / chunk, 64, 64) float32 scratch for C B^T. Two launches (the Gram
+// pass, then the walk). Returns the first failing launch's cudaError_t.
 extern "C" int ssd_scan(const void* x, const void* dt, const void* a, const void* b,
-                        const void* c, const void* d, void* y, int dtype, int batch,
-                        int seqlen, int heads, int p, int n, int chunk, void* stream) {
-  if (chunk < 1 || chunk > CH || seqlen % chunk != 0)
+                        const void* c, const void* d, void* g, void* y, int dtype, int batch,
+                        int seqlen, int heads, int p, int n, int p_tile, int chunk,
+                        void* stream) {
+  if (chunk < 1 || chunk > CH || seqlen % chunk != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (p == 64 && n == 128)
-    err = launch<32, 128>(dtype, x, dt, a, b, c, d, y, batch, seqlen, heads, p, chunk, s);
-  else if (p == 16 && n == 16)
-    err = launch<16, 16>(dtype, x, dt, a, b, c, d, y, batch, seqlen, heads, p, chunk, s);
-  else
-    err = cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  // a 32-column P tile: 8 warps; the whole P of 64 (bfloat16; the float32
+  // ring does not fit beside a 64-row state): 16 warps, the same tiles per warp
+  if (p == 64 && n == 128 && p_tile == 32)
+    err = dtype == 0 ? launch_typed<float, 32, 128, 8>(x, dt, a, b, c, d, g, y, batch, seqlen,
+                                                       heads, p, chunk, s)
+                     : launch_typed<bf16, 32, 128, 8>(x, dt, a, b, c, d, g, y, batch, seqlen,
+                                                      heads, p, chunk, s);
+  else if (p == 64 && n == 128 && p_tile == 64 && dtype == 1)
+    err = launch_typed<bf16, 64, 128, 16>(x, dt, a, b, c, d, g, y, batch, seqlen, heads, p,
+                                          chunk, s);
+  else if (p == 16 && n == 16 && p_tile == 16)
+    err = dtype == 0 ? launch_typed<float, 16, 16, 8>(x, dt, a, b, c, d, g, y, batch, seqlen,
+                                                      heads, p, chunk, s)
+                     : launch_typed<bf16, 16, 16, 8>(x, dt, a, b, c, d, g, y, batch, seqlen,
+                                                     heads, p, chunk, s);
   return static_cast<int>(err);
 }

@@ -1,6 +1,7 @@
-// A float32 GEMM tile on the tensor cores in 3xTF32, for conv2d_im2col.cu's
-// float32 path: C (128 x BN) = A (128 x K) . B (K x BN), with A and B staged
-// through a STAGES-deep cp.async ring of BK-deep shared slices.
+// A float32 GEMM tile on the tensor cores in 3xTF32, shared by
+// conv2d_im2col.cu's float32 path and matmul.cu's float32 path:
+// C (128 x BN) = A (128 x K) . B (K x BN), with A and B staged through a
+// STAGES-deep cp.async ring of BK-deep shared slices.
 //
 // 3xTF32. TF32 keeps 10 of float32's 23 significand bits, so one TF32
 // product misses the float32 tolerance. Each operand is split as hi =
@@ -15,13 +16,21 @@
 // its float32 peak 67.
 //
 // The products are wgmma m64nBNk8 (tf32 in, float32 accumulate): each of
-// the block's two warpgroups owns 64 rows of the tile. A comes from
-// registers, split as the fragments are read from shared memory (As[k][m],
-// rows padded to BM + 8 floats so a warp's fragment reads hit 32 distinct
-// banks); B comes from shared memory through wgmma descriptors, so each
-// slice's raw B (Bs[n][k], rows padded to BK + 4) is split once into a hi
-// and a lo tile, K-major rows of 32 TF32 values (128 B) in the 128-byte
-// swizzle. A slice runs in two halves of two k-steps: a half's 6 products
+// the block's two warpgroups owns 64 rows of the tile. wgmma reads TF32
+// operands only K-major (there is no transpose bit below 16 bits), so:
+// - A comes from registers, split as the fragments are read from shared
+//   memory. Two staged layouts: As[k][m] (the conv's patch gather, rows
+//   padded to BM + 8 floats) or As[m][k] (a row-major matrix copied as it
+//   is, rows padded to BK + 4 floats); either padding puts a warp's 8 rows
+//   x 4 depths of a fragment read on 32 distinct banks.
+// - B comes from shared memory through wgmma descriptors: each slice's raw
+//   B is split once into a hi and a lo tile, K-major rows of 32 TF32 values
+//   (128 B) in the 128-byte swizzle. Two raw layouts: Bs[n][k] (the conv's
+//   filters, rows padded to BK + 4) or Bs[k][n] (a row-major (K, N) matrix
+//   copied as it is, rows padded to BN + 8); for the second the split pass
+//   is also the transpose, each warp reading 8 columns x 4 depths (32 banks
+//   at that padding) and writing them as 8 swizzled 16-byte chunks.
+// A slice runs in two halves of two k-steps: a half's 6 products
 // are issued asynchronously and half of the next slice's copies are issued
 // while they run, so only one half's A fragments are held in registers
 // (all four spilled past the 128 registers two blocks per SM allow). The hi
@@ -46,24 +55,30 @@
 
 namespace repro_tf32x3 {
 
-template <int BN_>
+// A_ROWS: A staged as As[m][k] (else As[k][m]); B_ROWS: raw B staged as
+// Bs[k][n] (else Bs[n][k])
+template <int BN_, bool A_ROWS_ = false, bool B_ROWS_ = false>
 struct Tile {
   static constexpr int BM = 128, BN = BN_, BK = 32, STAGES = 3;
+  static constexpr bool A_ROWS = A_ROWS_, B_ROWS = B_ROWS_;
   static constexpr int NT = 256;                       // two warpgroups
-  // blocks per SM the kernel's registers are held to (__launch_bounds__):
-  // as many as the shared memory holds at 32 and 64 filters. Left free,
-  // ptxas took more registers than two blocks per SM leave at 64 filters,
-  // and one block per SM ran LeNet's conv2 markedly slower on the H100; at
-  // 32 filters three blocks ran conv1 faster than two.
-  static constexpr int MIN_BLOCKS = BN == 32 ? 3 : BN == 64 ? 2 : 1;
   static constexpr int ACC = BN / 2;                   // accumulator floats per thread
-  static constexpr int LDA = BM + 8;                   // As[k][m]
-  static constexpr int LDB = BK + 4;                   // Bs[n][k], 16-byte rows
-  static constexpr int A_STAGE = BK * LDA, B_STAGE = BN * LDB;
+  static constexpr int LDA = A_ROWS ? BK + 4 : BM + 8;
+  static constexpr int LDB = B_ROWS ? BN + 8 : BK + 4;   // 16-byte rows either way
+  static constexpr int A_STAGE = A_ROWS ? BM * LDA : BK * LDA;
+  static constexpr int B_STAGE = B_ROWS ? BK * LDB : BN * LDB;
   static constexpr int SPLIT = BN * BK;                // floats of B's hi (or lo) tile
   // B's hi and lo tiles (1024-byte aligned for the swizzle), the raw A and
   // B stages, and the slack to align the base
   static constexpr int SMEM_BYTES = 1024 + 4 * (2 * SPLIT + STAGES * (A_STAGE + B_STAGE));
+  // blocks per SM the kernel's registers are held to (__launch_bounds__):
+  // as many as the shared memory holds (228 KB an SM, 1 KB of it reserved
+  // per block), at most 3. Left free, ptxas took more registers than two
+  // blocks per SM leave at 64 filters, and one block per SM ran LeNet's
+  // conv2 markedly slower on the H100; at 32 filters three blocks ran conv1
+  // faster than two.
+  static constexpr int FIT = 233472 / (SMEM_BYTES + 1024);
+  static constexpr int MIN_BLOCKS = FIT < 1 ? 1 : FIT > 3 ? 3 : FIT;
   static_assert(BK * 4 == 128, "a B row is one 128-byte swizzle row");
   static_assert(BN % 32 == 0 && BN <= 128, "wgmma widths 32, 64, 128");
 };
@@ -185,10 +200,17 @@ __device__ __forceinline__ void tile_loop(int k_end, LoadA& la, LoadB& lb, unsig
 #pragma unroll
     for (int e = 0; e < Cfg::SPLIT / Cfg::NT; ++e) {
       const int idx = threadIdx.x + e * Cfg::NT;
-      const int n = idx / Cfg::BK;
-      const int k = idx % Cfg::BK;
+      int n, k;
+      if (Cfg::B_ROWS) {   // a warp: 8 columns x 4 depths of Bs[k][n]
+        const int w = idx / 32;
+        n = (w % (Cfg::BN / 8)) * 8 + (idx % 32) / 4;
+        k = (w / (Cfg::BN / 8)) * 4 + idx % 4;
+      } else {             // a warp: one column's 32 depths of Bs[n][k]
+        n = idx / Cfg::BK;
+        k = idx % Cfg::BK;
+      }
       uint32_t hi, lo;
-      split_tf32(b[n * Cfg::LDB + k], hi, lo);
+      split_tf32(Cfg::B_ROWS ? b[k * Cfg::LDB + n] : b[n * Cfg::LDB + k], hi, lo);
       const int off = n * Cfg::BK + (((k >> 2) ^ (n & 7)) << 2) + (k & 3);
       Bhi[off] = __uint_as_float(hi);
       Blo[off] = __uint_as_float(lo);
@@ -204,13 +226,17 @@ __device__ __forceinline__ void tile_loop(int k_end, LoadA& la, LoadB& lb, unsig
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       uint32_t ah[HALF][4], al[HALF][4];
-      const float* a = As + s * Cfg::A_STAGE + (8 * HALF * half + t) * Cfg::LDA + row;
+      // fragment element (r, c) of k-step q: row row + r, depth 8 q + c
+      // of the half
+      constexpr int RS = Cfg::A_ROWS ? Cfg::LDA : 1;   // stride of a row
+      constexpr int KS = Cfg::A_ROWS ? 1 : Cfg::LDA;   // stride of a depth
+      const float* a = As + s * Cfg::A_STAGE + row * RS + (8 * HALF * half + t) * KS;
 #pragma unroll
       for (int q = 0; q < HALF; ++q) {
-        split_tf32(a[8 * q * Cfg::LDA], ah[q][0], al[q][0]);             // (row, t)
-        split_tf32(a[8 * q * Cfg::LDA + 8], ah[q][1], al[q][1]);         // (row + 8, t)
-        split_tf32(a[(8 * q + 4) * Cfg::LDA], ah[q][2], al[q][2]);       // (row, t + 4)
-        split_tf32(a[(8 * q + 4) * Cfg::LDA + 8], ah[q][3], al[q][3]);   // (row + 8, t + 4)
+        split_tf32(a[8 * q * KS], ah[q][0], al[q][0]);                  // (row, t)
+        split_tf32(a[8 * q * KS + 8 * RS], ah[q][1], al[q][1]);         // (row + 8, t)
+        split_tf32(a[(8 * q + 4) * KS], ah[q][2], al[q][2]);            // (row, t + 4)
+        split_tf32(a[(8 * q + 4) * KS + 8 * RS], ah[q][3], al[q][3]);   // (row + 8, t + 4)
       }
       wgmma_fence();
 #pragma unroll

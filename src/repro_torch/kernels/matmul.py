@@ -6,12 +6,15 @@ dtype, at any M, N, K — the paper's "Native BLAS" / "GPU backend" point
 that compute-bound operators go to a tuned kernel.
 
 - :func:`matmul` is the kernel wrapper: on a CUDA tensor it launches
-  ``csrc/matmul.cu`` (float32 on the CUDA cores in full float32, bfloat16
-  on the tensor cores; ragged edges masked in the kernel; a float32 product
-  with few output tiles and a deep K split along K, see :func:`splits_for`),
-  raising on anything the kernel does not take; on a CPU tensor it runs the
-  plain version.
+  ``csrc/matmul.cu`` (float32 on the tensor cores in 3xTF32 through
+  ``wgmma``, bfloat16 through ``mma.sync``; ragged edges masked in the
+  kernel; a float32 product with few output tiles and a deep K split along
+  K, see :func:`splits_for`), raising on anything the kernel does not take;
+  on a CPU tensor it runs the plain version.
 - :func:`matmul_torch` is the plain version.
+- :func:`matmul_tf32x3_torch` models the float32 kernel's rounding (tests
+  only): each operand split into a TF32 hi part and a lo part read as TF32,
+  three products.
 """
 
 from __future__ import annotations
@@ -23,27 +26,39 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import tf32_round, tf32_truncate
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel indexes with 32-bit dims; blockIdx.y covers N in 128-column tiles
 _MAX_DIM = 2**31 - 1
 _MAX_N = 65535 * 128
-# split-K: the float32 path's small output tile, and the least depth worth
-# a split of its own
-_SMALL_TILE = 64
+# the float32 path's block tile rows, and the least depth worth a split of
+# its own
+_TILE_M = 128
 _MIN_SPLIT_DEPTH = 256
 _SM_COUNT: Dict[int, int] = {}
 
 
+def tile_n(n: int) -> int:
+    """Columns of the float32 kernel's block tile: the smallest of 32, 64
+    and 128 that covers N up to 128 (``csrc/matmul.cu`` chooses the same)."""
+    return 32 if n <= 32 else 64 if n <= 64 else 128
+
+
 def splits_for(m: int, n: int, k: int, sm_count: int) -> int:
     """How many parts a float32 product's depth is cut into: 1 while its
-    64 x 64 output tiles give every SM a block, else enough parts to fill
+    128-row output tiles give every SM a block, else enough parts to fill
     the SMs, each at least 256 deep (LeNet's first affine layer at batch 64,
-    (64, 3136) @ (3136, 512): 8 tiles, 12 parts)."""
-    tiles = math.ceil(m / _SMALL_TILE) * math.ceil(n / _SMALL_TILE)
+    (64, 3136) @ (3136, 512): 4 tiles of 128 x 128, 12 parts)."""
+    tiles = math.ceil(m / _TILE_M) * math.ceil(n / tile_n(n))
     if tiles >= sm_count:
         return 1
     return max(1, min(math.ceil(sm_count / tiles), k // _MIN_SPLIT_DEPTH))
+
+
+def kernel_name(dtype: torch.dtype) -> str:
+    """The ``csrc/matmul.cu`` kernel a product of this dtype runs."""
+    return "repro_mm_tf32x3" if dtype == torch.float32 else "repro_mm_bf16"
 
 
 def _sm_count(device: torch.device) -> int:
@@ -56,6 +71,21 @@ def _sm_count(device: torch.device) -> int:
 def matmul_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version: the product in float32, rounded to a's dtype."""
     return (a.float() @ b.float()).to(a.dtype)
+
+
+def matmul_tf32x3_torch(a: torch.Tensor, b: torch.Tensor, *, terms: int = 3) -> torch.Tensor:
+    """The float32 kernel's arithmetic: a (M, K) @ b (K, N) -> float32. Both
+    operands are split as hi = tf32(v) (rounded), lo = v - hi (read as TF32,
+    truncated); the output is hi.hi + (hi.lo + lo.hi), each product of TF32
+    values exact in float32 and summed in float32. ``terms=1`` keeps hi.hi
+    alone: a plain TF32 product."""
+    af, bf = a.float(), b.float()
+    a_hi, b_hi = tf32_round(af), tf32_round(bf)
+    out = a_hi @ b_hi
+    if terms == 3:
+        a_lo, b_lo = tf32_truncate(af - a_hi), tf32_truncate(bf - b_hi)
+        out = out + (a_hi @ b_lo + a_lo @ b_hi)
+    return out
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:

@@ -17,6 +17,24 @@ NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
+# TF32 rounding: the float32 kernels' 3xTF32 models (matmul, conv2d, ssd)
+# ---------------------------------------------------------------------------
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 significand bits), ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds finite values: add half of
+    the dropped 13 bits to the magnitude, then clear them."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_truncate(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 by clearing the 13 low significand bits: how the
+    tensor cores read a float32 operand of a TF32 product."""
+    return (t.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+# ---------------------------------------------------------------------------
 # matmul
 # ---------------------------------------------------------------------------
 

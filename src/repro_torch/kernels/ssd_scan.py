@@ -20,41 +20,75 @@ size in every ``L`` entry near the diagonal). The differences are rounded to
 float32 before the exp, so everything else is float32 arithmetic.
 
 - :func:`ssd_scan` is the kernel wrapper: on a CUDA tensor it launches
-  ``csrc/ssd_scan.cu`` (raising on anything the kernel does not take), on
-  a CPU tensor it runs the plain version.
+  ``csrc/ssd_scan.cu`` (raising on anything the kernel does not take): a
+  Gram pass writes ``G = C B^T`` once per (row, chunk) into float32
+  scratch, then the chunk walk runs the per-head products on the tensor
+  cores in 3xTF32; one wrapper call, counted once, issues both launches.
+  On a CPU tensor it runs the plain version.
 - :func:`ssd_scan_torch` is the plain version: the same chunked algorithm
   as a Python loop over chunks.
+- :func:`ssd_scan_tf32x3_torch` models the kernel's decomposition and
+  rounding (tests only): ``G`` once per (row, chunk), ``W = (G o L) dt``,
+  and every product's operands split into TF32 hi and lo parts.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
 from repro_torch.hw import H100
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import NEG_INF
+from repro_torch.kernels.ref import NEG_INF, tf32_round, tf32_truncate
 
 # largest chunk the kernel holds in shared memory (the reference's default)
 MAX_CHUNK = 64
-# (P, N) -> P columns per block: the (P, N) the kernel is instantiated for
-# (mamba2-1.3b and its -smoke variant); a P of 64 splits into two blocks
-P_TILES = {(64, 128): 32, (16, 16): 16}
+# (P, N) -> the P tiles (columns per walk block) the kernel is instantiated
+# for (mamba2-1.3b and its -smoke variant), widest first. A tile of 64 runs
+# 16 warps and one of 32 or 16 runs 8, with the same tiles per warp.
+P_TILES = {(64, 128): (64, 32), (16, 16): (16,)}
+# ring stages of the walk (csrc/ssd_scan.cu STAGES)
+STAGES = 2
+# the H100's SM count, for callers that have no card (the tests)
+H100_SMS = 132
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SM_COUNT: Dict[int, int] = {}
 
 
-def smem_bytes(p: int, n: int) -> int:
-    """Dynamic shared memory one block takes at head dim ``p``, state ``n``:
-    the chunk's cumsum (float64), C and B rows, the x tile, the masked score
-    tile, the state tile and four per-position vectors, in float32 with
-    padded rows (csrc/ssd_scan.cu ``smem_bytes``)."""
-    pt = P_TILES[(p, n)]
+def smem_bytes(p: int, n: int, dtype: torch.dtype, pt: int) -> int:
+    """Dynamic shared memory one walk block takes at head dim ``p``, state
+    ``n``, input ``dtype`` and P tile ``pt`` (csrc/ssd_scan.cu
+    ``Walk::BYTES``): the per-chunk vectors (cumsum in float64, dt,
+    exp(cum), dt exp(total - cum), exp(total); two buffers), the float32
+    state tile, and ``STAGES`` ring stages of the chunk's G (float32), x, C
+    and B tiles in the input dtype, rows padded."""
+    item = 2 if dtype == torch.bfloat16 else 4
     ch = MAX_CHUNK
-    floats = (2 * ch + 2 * ch * (n + 4) + ch * (pt + 4) + ch * (ch + 4)
-              + pt * (n + 4) + 3 * ch + 4)
-    return 4 * floats
+    stage = 4 * ch * (ch + 4) + item * ch * ((pt + 8) + (n + 16 // item) + (n + 8))
+    return 2 * ch * 8 + 3 * 2 * ch * 4 + 16 + 4 * pt * (n + 4) + STAGES * stage
+
+
+def p_tile(bsz: int, h: int, p: int, n: int, dtype: torch.dtype, sm_count: int) -> int:
+    """The walk's P tile: the widest whose block fits the shared memory and
+    whose grid, one block per (P tile, head, row), still gives every SM a
+    block; else the narrowest (the (1, 1024) bucket: 64 heads, two 32-column
+    tiles each, 128 blocks). Float32's full-P block does not fit."""
+    tiles = P_TILES[(p, n)]
+    for pt in tiles:
+        if (smem_bytes(p, n, dtype, pt) <= H100.vmem_bytes
+                and bsz * h * (p // pt) >= sm_count):
+            return pt
+    return tiles[-1]
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNT[index]
 
 
 def ssd_scan_torch(x, dt, a, b_mat, c_mat, d, *, chunk: int = MAX_CHUNK) -> torch.Tensor:
@@ -98,8 +132,57 @@ def ssd_scan_torch(x, dt, a, b_mat, c_mat, d, *, chunk: int = MAX_CHUNK) -> torc
     return y.to(x.dtype)
 
 
-def _check(x, dt, a, b_mat, c_mat, d, chunk: int) -> None:
-    """Raise with the reason on anything the CUDA kernel does not take."""
+def ssd_scan_tf32x3_torch(x, dt, a, b_mat, c_mat, d, *, chunk: int = MAX_CHUNK,
+                          terms: int = 3) -> torch.Tensor:
+    """The kernel's decomposition and rounding, float32 out (tests only).
+    Per (row, chunk) ``G = C B^T`` once; per head ``W = (G o L) * dt_j``
+    (float64 cumsum, mask before the exp), ``y = W x + exp(cum) (C
+    state^T) + d x`` and ``state = exp(total) state + (x sc)^T B`` with
+    ``sc = dt exp(total - cum)``. Every product splits both operands as hi
+    = tf32(v) (rounded), lo = v - hi (read as TF32, truncated) and sums
+    hi.hi + (hi.lo + lo.hi) in float32; an operand exact in TF32 (a
+    bfloat16 input) has lo = 0. ``terms=1`` keeps hi.hi alone."""
+    def mm(u, v):
+        u_hi, v_hi = tf32_round(u), tf32_round(v)
+        out = u_hi @ v_hi
+        if terms == 3:
+            out = out + (u_hi @ tf32_truncate(v - v_hi) + tf32_truncate(u - u_hi) @ v_hi)
+        return out
+
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of chunk {chunk}")
+    dev = x.device
+    xf, bf, cf, dtf, af = x.float(), b_mat.float(), c_mat.float(), dt.float(), a.float()
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev))
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=dev)
+    y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=dev)
+    for t0 in range(0, s, chunk):
+        xc = xf[:, t0:t0 + chunk]                                # (B, c, H, P)
+        dtc = dtf[:, t0:t0 + chunk]                              # (B, c, H)
+        bc, cc = bf[:, t0:t0 + chunk], cf[:, t0:t0 + chunk]      # (B, c, N)
+        g = mm(cc, bc.transpose(1, 2))                           # (B, c, c), once per chunk
+        cum = torch.cumsum((dtc * af).double(), dim=1)           # (B, c, H)
+        total = cum[:, -1:]
+        li = (cum[:, :, None, :] - cum[:, None, :, :]).float()   # (B, c, c, H)
+        lmat = torch.exp(torch.where(tri[None, :, :, None], li,
+                                     torch.full((), NEG_INF, device=dev)))
+        w = (g[..., None] * lmat * dtc[:, None, :, :]).permute(0, 3, 1, 2)  # (B, H, c, c)
+        y_intra = mm(w, xc.permute(0, 2, 1, 3))                  # (B, H, c, P)
+        y_inter = mm(cc[:, None], state.transpose(2, 3))         # (B, H, c, P)
+        ec = torch.exp(cum.float()).permute(0, 2, 1)[..., None]  # (B, H, c, 1)
+        sc = dtc * torch.exp((total - cum).float())              # (B, c, H)
+        upd = mm((xc * sc[..., None]).permute(0, 2, 3, 1), bc[:, None])   # (B, H, P, N)
+        state = torch.exp(total.float())[:, 0, :, None, None] * state + upd
+        y[:, t0:t0 + chunk] = (y_intra + ec * y_inter).permute(0, 2, 1, 3)
+    return y + d.float()[None, None, :, None] * xf
+
+
+def _check(x, dt, a, b_mat, c_mat, d, chunk: int, sm_count: int = H100_SMS) -> int:
+    """Raise with the reason on anything the CUDA kernel does not take;
+    return the walk's P tile on a card of ``sm_count`` SMs."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, S, H, P), got {tuple(x.shape)}")
     bsz, s, h, p = x.shape
@@ -122,9 +205,10 @@ def _check(x, dt, a, b_mat, c_mat, d, chunk: int) -> None:
     if not 1 <= chunk <= MAX_CHUNK or s % chunk:
         raise ValueError(f"ssd kernel needs 1 <= chunk <= {MAX_CHUNK} and S % chunk "
                          f"== 0, got S={s}, chunk={chunk}")
-    if smem_bytes(p, n) > H100.vmem_bytes:
-        raise ValueError(f"ssd kernel needs {smem_bytes(p, n)} B of shared memory "
-                         f"per block, the budget is {H100.vmem_bytes} B")
+    pt = p_tile(bsz, h, p, n, x.dtype, sm_count)
+    if smem_bytes(p, n, x.dtype, pt) > H100.vmem_bytes:
+        raise ValueError(f"ssd kernel needs {smem_bytes(p, n, x.dtype, pt)} B of shared memory "
+                         f"per block at P tile {pt}, the budget is {H100.vmem_bytes} B")
     if h > 65535 or bsz > 65535:
         raise ValueError(f"H={h} and B={bsz} must each fit the grid's 65535 blocks")
     for name, t in (("x", x), ("dt", dt), ("a", a), ("b_mat", b_mat), ("c_mat", c_mat),
@@ -136,6 +220,7 @@ def _check(x, dt, a, b_mat, c_mat, d, chunk: int) -> None:
     if any(t.data_ptr() % 16 for t in (x, b_mat, c_mat)):
         raise ValueError("ssd kernel loads rows with 16-byte loads: x/b_mat/c_mat "
                          "base addresses must be multiples of 16")
+    return pt
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
@@ -148,15 +233,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Te
     if x.device.type != "cuda":
         raise ValueError(f"ssd kernel runs on CUDA tensors, got {x.device}")
     chunk = min(chunk, x.shape[1])
-    _check(x, dt, a, b_mat, c_mat, d, chunk)
+    pt = _check(x, dt, a, b_mat, c_mat, d, chunk, _sm_count(x.device))
     bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
     lib = _build.library("ssd_scan", _bind)
     y = torch.empty_like(x)
+    # C B^T per (row, chunk), written by the Gram pass and read by the walk
+    g = torch.empty((bsz, s // chunk, MAX_CHUNK, MAX_CHUNK), dtype=torch.float32,
+                    device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_scan(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
-                           c_mat.data_ptr(), d.data_ptr(), y.data_ptr(), _DTYPES[x.dtype],
-                           bsz, s, h, p, b_mat.shape[-1], chunk, stream)
+                           c_mat.data_ptr(), d.data_ptr(), g.data_ptr(), y.data_ptr(),
+                           _DTYPES[x.dtype], bsz, s, h, p, n, pt, chunk, stream)
     ssd_scan.launches += 1
     if err:
         raise RuntimeError(f"ssd_scan launch failed: cudaError_t {err}")
@@ -167,5 +256,5 @@ ssd_scan.launches = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.ssd_scan.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.ssd_scan.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.ssd_scan.restype = ctypes.c_int

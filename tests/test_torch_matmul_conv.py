@@ -106,28 +106,44 @@ def test_tf32_round_is_round_to_nearest_ties_away():
                       1 + 3 * 2 ** -11, 1 + 2 ** -12, 2 - 2 ** -12, 0.0])
     want = torch.tensor([1.0, -3.0, 1 + 2 ** -10, 1 + 2 ** -10, -(1 + 2 ** -10),
                          1 + 2 ** -9, 1.0, 2.0, 0.0])
-    assert torch.equal(tconv.tf32_round(x), want)
+    assert torch.equal(ref.tf32_round(x), want)
 
 
-@pytest.mark.parametrize("n,c,h,w,f,kern,stride,pad", [
-    (2, 32, 14, 14, 64, 5, 1, 2),    # LeNet conv2: K = 800
-    (8, 16, 32, 32, 32, 3, 1, 1),    # chip_smoke.py's kernel-benchmark shape
-], ids=["lenet-conv2-K800", "kernel-benchmark"])
-def test_tf32x3_meets_fp32_tol_where_plain_tf32_does_not(n, c, h, w, f, kern, stride, pad):
-    """The float32 conv kernel's arithmetic (3xTF32: lo.hi + hi.lo + hi.hi)
-    is within chip_smoke.py's ``FP32_TOL`` of the float64 convolution on
-    inputs made as chip_smoke.py makes them (unit-variance outputs), while
-    the hi.hi product alone (plain TF32) is not: the tolerance tells the two
-    apart."""
+def _conv_case(n, c, h, w, f, kern, stride, pad):
+    def run(rng):
+        x = torch.from_numpy(rng.standard_normal((n, c, h, w)).astype(np.float32))
+        wt = torch.from_numpy((rng.standard_normal((f, c, kern, kern))
+                               / math.sqrt(c * kern * kern)).astype(np.float32))
+        exact = torch.nn.functional.conv2d(x.double(), wt.double(), stride=stride,
+                                           padding=pad)
+        return (exact, *(tconv.conv2d_tf32x3_torch(x, wt, stride=stride, pad=pad, terms=t)
+                         for t in (3, 1)))
+    return run
+
+
+def _matmul_case(m, k, n):
+    def run(rng):
+        a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+        b = torch.from_numpy((rng.standard_normal((k, n)) / math.sqrt(k)).astype(np.float32))
+        return (a.double() @ b.double(),
+                *(tmm.matmul_tf32x3_torch(a, b, terms=t) for t in (3, 1)))
+    return run
+
+
+@pytest.mark.parametrize("case", [
+    _conv_case(2, 32, 14, 14, 64, 5, 1, 2),    # LeNet conv2: K = 800
+    _conv_case(8, 16, 32, 32, 32, 3, 1, 1),    # chip_smoke.py's kernel-benchmark shape
+    _matmul_case(64, 3136, 512),               # LeNet affine 1 at batch 64: K = 3136
+], ids=["lenet-conv2-K800", "kernel-benchmark", "matmul-lenet-affine1-K3136"])
+def test_tf32x3_meets_fp32_tol_where_plain_tf32_does_not(case):
+    """The float32 conv and matmul kernels' arithmetic (3xTF32: lo.hi +
+    hi.lo + hi.hi) is within chip_smoke.py's ``FP32_TOL`` of the float64
+    product on inputs made as chip_smoke.py makes them (unit-variance
+    outputs), while the hi.hi product alone (plain TF32) is not: the
+    tolerance tells the two apart."""
     tol = _chip_smoke().FP32_TOL
     within = _chip_smoke().within
-    rng = np.random.default_rng(12)
-    x = torch.from_numpy(rng.standard_normal((n, c, h, w)).astype(np.float32))
-    wt = torch.from_numpy((rng.standard_normal((f, c, kern, kern))
-                           / math.sqrt(c * kern * kern)).astype(np.float32))
-    exact = torch.nn.functional.conv2d(x.double(), wt.double(), stride=stride, padding=pad)
-    three = tconv.conv2d_tf32x3_torch(x, wt, stride=stride, pad=pad)
-    one = tconv.conv2d_tf32x3_torch(x, wt, stride=stride, pad=pad, terms=1)
+    exact, three, one = case(np.random.default_rng(12))
     assert three.dtype == torch.float32 and three.shape == exact.shape
     ok, _, _, rms = within(three, exact, tol)
     assert ok and rms < tol[2] / 10
@@ -263,12 +279,23 @@ def test_wrappers_refuse_tensors_neither_on_cpu_nor_on_cuda(fn, args):
 
 
 @pytest.mark.parametrize("m,k,n,sm_count,splits", [
-    (64, 3136, 512, 132, 12),      # LeNet affine 1 at batch 64: 8 tiles -> 96 blocks
+    (64, 3136, 512, 132, 12),      # LeNet affine 1 at batch 64: 4 tiles -> 48 blocks
     (64, 512, 10, 132, 2),         # LeNet affine 2: 1 tile, K too shallow for more
-    (10000, 3136, 512, 132, 1),    # scoring set: 1264 tiles fill the card
-    (1024, 1024, 1024, 132, 1),    # 256 tiles
+    (10000, 3136, 512, 132, 1),    # scoring set: 316 tiles fill the card
+    (1024, 1024, 1024, 132, 3),    # 64 tiles of 128 x 128
     (8, 8, 8, 132, 1),             # too shallow to split
-    (64, 3136, 512, 8, 1),         # a card with as many SMs as tiles
+    (64, 3136, 512, 4, 1),         # a card with as many SMs as tiles
 ])
 def test_matmul_splits_the_depth_only_where_tiles_leave_sms_idle(m, k, n, sm_count, splits):
     assert tmm.splits_for(m, n, k, sm_count) == splits
+
+
+@pytest.mark.parametrize("n,tile", [(10, 32), (32, 32), (33, 64), (64, 64), (65, 128),
+                                    (512, 128)])
+def test_matmul_tile_covers_n_with_the_fewest_columns(n, tile):
+    assert tmm.tile_n(n) == tile
+
+
+def test_matmul_kernel_names():
+    assert tmm.kernel_name(torch.float32) == "repro_mm_tf32x3"
+    assert tmm.kernel_name(torch.bfloat16) == "repro_mm_bf16"

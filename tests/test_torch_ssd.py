@@ -6,8 +6,12 @@ Float32, ``atol = rtol = 1e-4``: the chunked forms sum in another order than
 the sequential scan and take the within-chunk cumsum in another order than
 XLA (outputs reach ~100 on these inputs; the largest difference seen is
 ~8e-5). The CUDA kernel itself runs only on the card (``chip_smoke.py``);
-here the wrapper's CPU dispatch and the checks it makes before a launch are
-tested."""
+here its arithmetic is held through ``ssd_scan_tf32x3_torch`` (its
+decomposition: C B^T once per (row, chunk), then 3xTF32 products), and the
+wrapper's CPU dispatch, tile choice and pre-launch checks are tested."""
+
+import importlib.util
+from pathlib import Path
 
 import pytest
 
@@ -189,10 +193,87 @@ def test_wrapper_check_rejects_what_the_kernel_cannot_take(kind, error):
 
 
 def test_kernel_tiles_fit_two_blocks_per_sm():
-    """Every built (P, N) fits the opt-in shared memory of one block, and at
-    the full width two blocks share an SM (228 KB per SM, 1 KB reserved per
-    block), which the design counts on."""
-    for (p, n), pt in SSD.P_TILES.items():
-        assert p % pt == 0 and pt % 16 == 0
-        assert SSD.smem_bytes(p, n) <= H100.vmem_bytes
-    assert 2 * (SSD.smem_bytes(64, 128) + 1024) <= 228 * 1024
+    """The walk's layout (the name is the first design's, which ran two
+    blocks per SM; the redesign runs one block of 8 or 16 warps per SM):
+    every P tile the wrapper can pick, in both dtypes, fits the opt-in
+    shared memory of one block, and the only tile that does not fit (float32
+    at the whole P of 64) is never picked. Two 32-column tiles cover P = 64,
+    so the (1, 1024) bucket's 64 heads run 128 blocks."""
+    for (p, n), tiles in SSD.P_TILES.items():
+        for pt in tiles:
+            assert p % pt == 0 and pt % 16 == 0
+        for dtype in (torch.float32, torch.bfloat16):
+            for bsz in (1, 2, 4, 8):
+                pt = SSD.p_tile(bsz, 64, p, n, dtype, SSD.H100_SMS)
+                assert SSD.smem_bytes(p, n, dtype, pt) <= H100.vmem_bytes
+    assert SSD.smem_bytes(64, 128, torch.float32, 64) > H100.vmem_bytes
+    assert 1 * 64 * (64 // SSD.p_tile(1, 64, 64, 128, torch.bfloat16, 132)) == 128
+
+
+@pytest.mark.parametrize("bsz,dtype,sm_count,pt", [
+    (1, torch.bfloat16, 132, 32),    # (1, 1024) bucket: 64 whole-P blocks leave SMs idle
+    (2, torch.bfloat16, 132, 32),
+    (4, torch.bfloat16, 132, 64),    # (4, 2048): 256 whole-P blocks
+    (8, torch.bfloat16, 132, 64),    # serving shape
+    (8, torch.float32, 132, 32),     # float32's whole-P ring does not fit
+    (1, torch.bfloat16, 64, 64),     # a card with as many SMs as heads
+])
+def test_walk_takes_the_widest_p_tile_that_fills_the_card(bsz, dtype, sm_count, pt):
+    assert SSD.p_tile(bsz, 64, 64, 128, dtype, sm_count) == pt
+    assert SSD.p_tile(bsz, 16, 16, 16, dtype, sm_count) == 16
+
+
+def _fp32_tol():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.within, mod.FP32_TOL
+
+
+# (B, S, H, P, N, chunk): the kernel's two widths at chunks 64, 32 and 16
+MODEL_SHAPES = [(1, 128, 2, 64, 128, 64), (1, 128, 2, 64, 128, 32), (1, 64, 2, 64, 128, 16),
+                (2, 64, 4, 16, 16, 64), (2, 64, 4, 16, 16, 32), (2, 64, 4, 16, 16, 16)]
+
+
+@pytest.mark.parametrize("shape", MODEL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernel_model_matches_pallas_interpret_and_sequential_oracle(shape):
+    """The kernel's decomposition (``ssd_scan_tf32x3_torch``: G = C B^T once
+    per (row, chunk), W = (G o L) dt, every product 3xTF32) against the
+    reference's Pallas kernel in interpret mode and against ``ssd_ref``."""
+    *dims, chunk = shape
+    arrs = _inputs(*dims, seed=5)
+    got = SSD.ssd_scan_tf32x3_torch(*_t(arrs), chunk=chunk)
+    assert got.dtype == torch.float32 and tuple(got.shape) == tuple(dims[:3]) + (dims[3],)
+    _close(got, jssd(*_j(arrs), chunk=chunk, interpret=True))
+    want, _ = ref.ssd_ref(*_t(arrs))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("dims", [(2, 128, 4, 16, 16), (1, 256, 2, 64, 128)],
+                         ids=["smoke-width", "full-width"])
+def test_kernel_model_strong_decay_matches_sequential_oracle(dims):
+    """a = -16, dt to 7.5 (cumsum below -5,000): the kernel's decomposition
+    keeps the float64 cumsum and stays on the sequential scan."""
+    arrs = _inputs(*dims, seed=3, strong_decay=True)
+    want, _ = ref.ssd_ref(*_t(arrs))
+    got = SSD.ssd_scan_tf32x3_torch(*_t(arrs))
+    assert torch.isfinite(got).all()
+    _close(got, want.numpy())
+
+
+@pytest.mark.parametrize("dims,strong", [((2, 128, 4, 16, 16), False),
+                                         ((1, 128, 4, 64, 128), False),
+                                         ((1, 256, 2, 64, 128), True)],
+                         ids=["smoke-width", "full-width", "full-width-strong-decay"])
+def test_kernel_model_meets_fp32_tol_where_plain_tf32_does_not(dims, strong):
+    """3xTF32 (hi.hi + hi.lo + lo.hi) in every product is within
+    chip_smoke.py's ``FP32_TOL`` of the float64 sequential scan; the hi.hi
+    products alone (plain TF32) are not: the tolerance tells them apart."""
+    within, tol = _fp32_tol()
+    arrs = _t(_inputs(*dims, seed=6, strong_decay=strong))
+    exact, _ = ref.ssd_ref(*(t.double() for t in arrs))
+    ok, _, _, rms = within(SSD.ssd_scan_tf32x3_torch(*arrs), exact, tol)
+    assert ok and rms < tol[2] / 10
+    ok, _, _, rms = within(SSD.ssd_scan_tf32x3_torch(*arrs, terms=1), exact, tol)
+    assert not ok and rms > 10 * tol[2]
