@@ -10,12 +10,15 @@ Phases, each of which must pass (nothing is caught):
               with nvcc, one process per source, all at once;
 3. kernels  — each kernel against its plain PyTorch version on the card, in
               float32 and bfloat16, at the shapes the serving path gives it
-              and at the smaller widths the kernels take, with CUDA-event
-              timings (median), the rate and the bound for its work; the SSD
-              scan also under strong decay and against the sequential-scan
-              oracle, with its two passes (C B^T, then the chunk walk) timed
-              apart from a profiler trace; which flash, matmul and SSD
-              kernel variant ran, read from a profiler trace;
+              and at the smaller widths the kernels take, timed by CUDA
+              events (median) and by profiler device time (the kernel's own
+              events), the L2 flushed before every call, beside the rate and
+              the bound for its work; paged decode also against its plain
+              version in the kernels' order; the SSD scan also under strong
+              decay and against the sequential-scan oracle, with its two
+              passes (C B^T, then the chunk walk) timed apart; which paged,
+              flash, matmul and SSD kernel variant ran, read from a profiler
+              trace;
 4. serve-check — Yi-6B widths cut to 2 layers, float32, through
               ``PlanServer``: identical token streams under the paged,
               gather and ref decode kernels;
@@ -291,88 +294,12 @@ def phase_kernels():
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import paged_attention as PA
-    from repro_torch.kernels.ref import paged_decode_ref
-    from repro_torch.models.attention import paged_cache_write
 
     phase("kernels")
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     results = {}
 
-    def plain_paged(q, k, v, tables, posv, page, sc):
-        # float32 copies of the inputs: the kernel computes in float32 and
-        # rounds only its output
-        return PA.paged_attention_torch(q.float(), k.float(), v.float(), tables, posv,
-                                        page=page, sc=sc)
-
-    def check_paged(name, b, hq, hkv, d, page, sc, pos, dtype, seed):
-        q, k, v, tables, posv = _paged_inputs(b, hq, hkv, d, page, sc, pos, dtype, seed)
-        got = PA.paged_decode_attention(q, k, v, tables, posv, page=page, sc=sc)
-        want = plain_paged(q, k, v, tables, posv, page, sc)
-        torch.cuda.synchronize()
-        tol = FP32_TOL if dtype == torch.float32 else PAGED_BF16_TOL
-        return check_close(f"paged {str(dtype)[6:]} {name}", got, want, tol)
-
-    # -- paged decode: B=8, Hq=32, Hkv=4, D=128, page 64, Sc=4096 ----------
-    b, hq, hkv, d, page, sc = 8, 32, 4, 128, 64, 4096
-    pos_cases = {
-        "pos=0": [0] * b,
-        "pos=page-1": [page - 1] * b,
-        "pos=page": [page] * b,
-        "pos mixed": [0, 63, 64, 1000, 2047, 3000, 4095, 4103],
-        "pos>=Sc": [sc + 7 * i for i in range(b)],
-    }
-    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, PAGED_BF16_TOL)):
-        for name, pos in pos_cases.items():
-            check_paged(name, b, hq, hkv, d, page, sc, pos, dtype, 1)
-        # rotating writes: rows past a window of Sc wrap into their own pages
-        pos = [sc + 5, sc + 900, 2 * sc - 1, sc + 64, sc + 63, sc, 3 * sc + 17, sc + 2000]
-        q, k, v, tables, posv = _paged_inputs(b, hq, hkv, d, page, sc, pos, dtype, 2)
-        gen = torch.Generator(device="cuda").manual_seed(3)
-        for step in range(3):
-            kn = torch.randn((b, 1, hkv, d), generator=gen, device="cuda").to(dtype)
-            vn = torch.randn((b, 1, hkv, d), generator=gen, device="cuda").to(dtype)
-            paged_cache_write(k, v, kn, vn, posv - 2 + step, tables, page, sc, window=sc)
-        got = PA.paged_decode_attention(q, k, v, tables, posv, page=page, sc=sc)
-        want = plain_paged(q, k, v, tables, posv, page, sc)
-        lit = paged_decode_ref(q.float(), k.float(), v.float(), tables, posv, page=page,
-                               sc=sc, window=sc)
-        torch.cuda.synchronize()
-        check_close(f"paged {str(dtype)[6:]} rotating writes", got, want, tol)
-        check_close(f"paged {str(dtype)[6:]} rotating writes vs literal-rule oracle",
-                    got, lit, tol)
-        # the smaller head dims the kernel takes (yi-6b-smoke has D=32, g=2)
-        for dd in (32, 64):
-            check_paged(f"D={dd} g=2 page 16", 2, 4, 2, dd, 16, 64, [5, 70], dtype, 6)
-
-    # the serving path's shape: the (8, 2000) request mid-decode, bucket 2048
-    sc_main = 2048
-    pos = [2000 + 4 * i for i in range(b)]
-    q, k, v, tables, posv = _paged_inputs(b, hq, hkv, d, page, sc_main, pos,
-                                          torch.bfloat16, 4)
-    got = PA.paged_decode_attention(q, k, v, tables, posv, page=page, sc=sc_main)
-    want = plain_paged(q, k, v, tables, posv, page, sc_main)
-    err = check_close("paged bfloat16 serving shape (B=8, Sc=2048)", got, want,
-                      PAGED_BF16_TOL)
-    ms = cuda_ms(lambda: PA.paged_decode_attention(q, k, v, tables, posv, page=page,
-                                                   sc=sc_main), flush=flush)
-    plain_ms = cuda_ms(lambda: PA.paged_attention_torch(q, k, v, tables, posv, page=page,
-                                                        sc=sc_main), flush=flush)
-    slots = sum(min(p + 1, sc_main) for p in pos)
-    item = 2
-    nbytes = (slots * hkv * d * 2 * item + 2 * b * hq * d * item
-              + tables.numel() * 4 + b * 4)
-    bound, by = _bound_ms(nbytes, 4 * hq * d * slots, torch.bfloat16)
-    print(f"  paged timing: kernel {ms:.4f} ms ({_tflops(4 * hq * d * slots, ms)}, "
-          f"{nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, bound "
-          f"{bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB committed K/V + q/out)")
-    results["paged_decode_attention"] = dict(
-        name="paged_decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/paged_decode.cu",
-        replaces="src/repro/kernels/paged_attention.py:130",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-        library_ms=None)
-    del q, k, v, tables, posv, got, want
+    results["paged_decode_attention"] = paged_kernel_cases(flush)
 
     def plain_flash(q, k, v, **mask):
         # float32: the plain version the port runs on the CPU; bfloat16: the
@@ -437,19 +364,21 @@ def phase_kernels():
     ke, ve = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True),
                      flush=flush)
+    dev_ms, _ = device_ms(lambda: FA.flash_attention(q, k, v, causal=True), "flash", flush)
     pairs = _flash_pairs(s, s, True, 0, -1)
     nbytes = (2 * q.numel() + 2 * k.numel()) * 2
     bound, by = _bound_ms(nbytes, 4 * d * pairs * b * hq, torch.bfloat16)
     flops = 4 * d * pairs * b * hq
-    print(f"  flash timing: kernel {ms:.4f} ms ({_tflops(flops, ms)}), plain {plain_ms:.3f} ms, "
+    print(f"  flash timing: kernel {ms:.4f} ms by events ({_tflops(flops, ms)}), device time "
+          f"{_dev(dev_ms)}, plain {plain_ms:.3f} ms, "
           f"scaled_dot_product_attention {lib_ms:.4f} ms ({_tflops(flops, lib_ms)}), bound "
           f"{bound:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP)")
     results["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:116",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-        library_ms=lib_ms)
+        max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=lib_ms)
     del q, k, v, ke, ve
     results["ssd_scan"] = ssd_kernel_cases(flush)
     results["matmul"] = matmul_kernel_cases(flush)
@@ -457,6 +386,159 @@ def phase_kernels():
     del flush
     torch.cuda.empty_cache()
     return results
+
+
+def paged_kernel_cases(flush) -> dict:
+    """The paged decode kernels against their plain version and against
+    the plain version in their own order (``paged_attention_model``) on the
+    card, in float32 and bfloat16: positions at page edges, mixed, past Sc,
+    rotating writes, the smaller head dims the kernels take, the serving
+    shape and the (1, 1024) bucket's shape; which split kernel each head
+    dim and dtype ran, from a profiler trace; the two bfloat16 shapes timed
+    by CUDA events and by profiler device time. Returns the kernels-line
+    entry of the serving shape."""
+    import torch
+
+    from repro_torch.hw import sm_count
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels.ref import paged_decode_ref
+    from repro_torch.models.attention import paged_cache_write
+
+    sms = sm_count(torch.device("cuda"))
+
+    def check(label, q, k, v, tables, posv, page, sc) -> float:
+        got = PA.paged_decode_attention(q, k, v, tables, posv, page=page, sc=sc)
+        # float32 copies of the inputs: the kernels compute in float32 and
+        # round only their output
+        qf, kf, vf = q.float(), k.float(), v.float()
+        want = PA.paged_attention_torch(qf, kf, vf, tables, posv, page=page, sc=sc)
+        model = PA.paged_attention_model(q, k, v, tables, posv, page=page, sc=sc,
+                                         sms=sms)
+        torch.cuda.synchronize()
+        tol = FP32_TOL if q.dtype == torch.float32 else PAGED_BF16_TOL
+        label = f"paged {str(q.dtype)[6:]} {label}"
+        err = check_close(label, got, want, tol)
+        check_close(f"{label} vs the kernel's order", got, model, tol)
+        return err
+
+    def check_case(label, b, hq, hkv, d, page, sc, pos, dtype, seed) -> float:
+        return check(label, *_paged_inputs(b, hq, hkv, d, page, sc, pos, dtype, seed), page, sc)
+
+    # -- B=8, Hq=32, Hkv=4, D=128, page 64, Sc=4096 ---------------------------
+    b, hq, hkv, d, page, sc = 8, 32, 4, 128, 64, 4096
+    pos_cases = {
+        "pos=0": [0] * b,
+        "pos=page-1": [page - 1] * b,
+        "pos=page": [page] * b,
+        "pos mixed": [0, 63, 64, 1000, 2047, 3000, 4095, 4103],
+        "pos>=Sc": [sc + 7 * i for i in range(b)],
+    }
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, PAGED_BF16_TOL)):
+        for name, pos in pos_cases.items():
+            check_case(name, b, hq, hkv, d, page, sc, pos, dtype, 1)
+        # rotating writes: rows past a window of Sc wrap into their own pages
+        pos = [sc + 5, sc + 900, 2 * sc - 1, sc + 64, sc + 63, sc, 3 * sc + 17, sc + 2000]
+        q, k, v, tables, posv = _paged_inputs(b, hq, hkv, d, page, sc, pos, dtype, 2)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        for step in range(3):
+            kn = torch.randn((b, 1, hkv, d), generator=gen, device="cuda").to(dtype)
+            vn = torch.randn((b, 1, hkv, d), generator=gen, device="cuda").to(dtype)
+            paged_cache_write(k, v, kn, vn, posv - 2 + step, tables, page, sc, window=sc)
+        got = PA.paged_decode_attention(q, k, v, tables, posv, page=page, sc=sc)
+        lit = paged_decode_ref(q.float(), k.float(), v.float(), tables, posv, page=page,
+                               sc=sc, window=sc)
+        torch.cuda.synchronize()
+        check("rotating writes", q, k, v, tables, posv, page, sc)
+        check_close(f"paged {str(dtype)[6:]} rotating writes vs literal-rule oracle",
+                    got, lit, tol)
+        del q, k, v, tables, posv, got, lit
+        # the smaller head dims the kernels take (yi-6b-smoke has D=32, g=2);
+        # bfloat16 at D=40 runs the CUDA-core split kernel, at D=16 and 96
+        # the mma kernel's instantiations for a head dim below their widest
+        for dd in (16, 32, 40, 64, 96):
+            check_case(f"D={dd} g=2 page 16", 2, 4, 2, dd, 16, 64, [5, 70], dtype, 6)
+        # the widest group and head dim (g * D <= 2048), pages of 4 slots
+        check_case("D=256 g=8 page 4", 2, 8, 1, 256, 4, 200, [150, 199], dtype, 6)
+        check_case("D=128 g=16 page 4", 2, 32, 2, 128, 4, 200, [3, 180], dtype, 6)
+    paged_kernel_names(PA)
+
+    # the serving path's shapes: the (8, 2000) request mid-decode in its
+    # (8, 2048) bucket, and the (1, 512) request's (1, 1024) bucket
+    timed = {}
+    for label, b, sc, pos in (("serving shape (B=8, Sc=2048)", 8, 2048,
+                               [2000 + 4 * i for i in range(8)]),
+                              ("(1, 1024) bucket", 1, 1024, [527])):
+        for dtype in (torch.float32, torch.bfloat16):
+            inputs = _paged_inputs(b, hq, hkv, d, page, sc, pos, dtype, 4)
+            err = check(label, *inputs, page, sc)
+            if dtype == torch.bfloat16:
+                timed[label] = paged_timing(PA, label, inputs, page, sc, err, flush)
+            del inputs
+    serving = timed["serving shape (B=8, Sc=2048)"]
+    return dict(name="paged_decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/paged_decode.cu",
+                replaces="src/repro/kernels/paged_attention.py:130", library_ms=None,
+                **serving)
+
+
+def paged_timing(PA, label, inputs, page, sc, err, flush) -> dict:
+    """Event median and profiler device time (L2 flushed) of one paged
+    decode call, its plain version's time and its byte bound; fails if the
+    trace names another split kernel than ``PA.kernel_name``."""
+    from repro_torch.hw import sm_count
+
+    q, k, v, tables, posv = inputs
+    b, _, hq, d = q.shape
+    hkv = k.shape[1]
+    ms = cuda_ms(lambda: PA.paged_decode_attention(q, k, v, tables, posv, page=page, sc=sc),
+                 flush=flush)
+    dev_ms, names = device_ms(
+        lambda: PA.paged_decode_attention(q, k, v, tables, posv, page=page, sc=sc),
+        "paged_decode", flush)
+    plain_ms = cuda_ms(lambda: PA.paged_attention_torch(q, k, v, tables, posv, page=page,
+                                                        sc=sc), flush=flush)
+    want = PA.kernel_name(d, q.dtype)
+    if names and not any(want in n for n in names):
+        fail(f"paged {label}: the trace holds {sorted(names)}, not {want}")
+    slots = sum(min(int(p) + 1, sc) for p in posv.tolist())
+    item = q.element_size()
+    nbytes = (slots * hkv * d * 2 * item + 2 * b * hq * d * item
+              + tables.numel() * 4 + b * 4)
+    bound, by = _bound_ms(nbytes, 4 * hq * d * slots, q.dtype)
+    split = "; ".join(f"{_short(n)} {t:.4f}" for n, t in names.items())
+    dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms ({split})"
+    print(f"  paged timing, {label}: kernel {ms:.4f} ms by events, device time {dev} "
+          f"({nbytes / (dev_ms or ms) / 1e6:.0f} GB/s); plain {plain_ms:.4f} ms; bound "
+          f"{bound:.5f} ms ({by}; {nbytes / 1e6:.1f} MB committed K/V + q/out); "
+          f"split plan {PA.split_plan(b, hkv, sc, d, q.dtype, sm_count(q.device))}")
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by)
+
+
+def paged_kernel_names(PA) -> None:
+    """Which split kernel of csrc/paged_decode.cu each head dim and dtype
+    ran, read from a profiler trace of three small calls each (a session
+    can drop its first device event), traced again, up to
+    ``TRACE_ATTEMPTS`` times, while it holds no paged kernel; fails where
+    the traced calls ran another than the one the source dispatches to
+    (``PA.kernel_name``)."""
+    import torch
+
+    took = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (32, 40, 64, 128):
+            inputs = _paged_inputs(2, 16, 2, d, 16, 256, [200, 100], dtype, 8)
+            names = set()
+            for _ in range(TRACE_ATTEMPTS):
+                names = {_short(n) for n in traced_kernels(
+                    lambda: PA.paged_decode_attention(*inputs, page=16, sc=256), calls=3)
+                    if _kernel_family(n) == "paged_decode"}
+                if names:
+                    break
+            took.append(f"{str(dtype)[6:]} D={d} -> {', '.join(sorted(names)) or 'not measured'}")
+            if names and not any(n.startswith(PA.kernel_name(d, dtype)) for n in names):
+                fail(f"paged {str(dtype)[6:]} D={d} ran {names}, not {PA.kernel_name(d, dtype)}")
+    print("  paged kernels by head dim (profiler): " + "; ".join(took))
 
 
 def flash_kernel_names(FA) -> None:
@@ -485,10 +567,12 @@ def flash_kernel_names(FA) -> None:
     print("  flash kernels by head dim (profiler): " + "; ".join(took))
 
 
-def traced_kernels(fn, calls: int = 5) -> dict:
+def traced_kernels(fn, calls: int = 5, flush=None) -> dict:
     """Device milliseconds per call of each kernel that ``fn`` launches,
     by name, from one profiler trace of ``calls`` calls (after a warm-up
-    call); empty where the trace holds no device events."""
+    call); empty where the trace holds no device events. ``flush`` (a large
+    buffer) is rewritten before each call, as in ``cuda_ms``: its fill
+    kernel is in the trace under its own name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -497,6 +581,8 @@ def traced_kernels(fn, calls: int = 5) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     times = {}
@@ -505,6 +591,21 @@ def traced_kernels(fn, calls: int = 5) -> dict:
             dur = (e.time_range.end - e.time_range.start) / 1e3 / calls
             times[e.name] = times.get(e.name, 0.0) + dur
     return times
+
+
+def device_ms(fn, family: str, flush, calls: int = 10) -> tuple:
+    """(device milliseconds per call or None, {kernel: ms per call}) of the
+    kernels of ``family`` (``_kernel_family``) that ``fn`` launches, from a
+    profiler trace with the L2 flushed before each call: the kernels' own
+    time, without the wrapper's host time that an event median can hold and
+    without the flush. None where the trace holds none of them."""
+    times = traced_kernels(fn, calls=calls, flush=flush)
+    mine = {k: v for k, v in times.items() if _kernel_family(k) == family}
+    return (sum(mine.values()) if mine else None), mine
+
+
+def _dev(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def _short(name: str) -> str:
@@ -562,6 +663,7 @@ def ssd_kernel_cases(flush) -> dict:
     the serving shape in bfloat16 (the (8, 2000) request's prompt pass)."""
     import torch
 
+    from repro_torch.hw import sm_count
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as SSD
 
@@ -578,15 +680,16 @@ def ssd_kernel_cases(flush) -> dict:
               f"bound {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
 
-    def passes(label, args) -> None:
+    def passes(label, args):
         # one wrapper call launches two kernels: the C B^T pass and the walk
-        times = traced_kernels(lambda: SSD.ssd_scan(*args))
-        split = "; ".join(f"{_short(k)} {v:.4f} ms" for k, v in times.items()
-                          if "ssd_scan" in k)
-        print(f"    passes ({label}, profiler, per call): {split or 'not measured'}")
+        dev_ms, times = device_ms(lambda: SSD.ssd_scan(*args), "ssd", flush)
+        split = "; ".join(f"{_short(k)} {v:.4f} ms" for k, v in times.items())
+        print(f"    device time ({label}, profiler, L2 flushed, per call): {_dev(dev_ms)}"
+              f"{f' = {split}' if split else ''}")
         if times and not (any("ssd_scan_gram_kernel" in k for k in times)
                           and any("ssd_scan_walk_kernel" in k for k in times)):
             fail(f"ssd {label}: the trace holds {sorted(times)}, not the two passes")
+        return dev_ms
 
     cases = [  # (name, b, s, h, p, n, strong decay)
         ("serving shape (B=8, S=2048)", 8, 2048, 64, 64, 128, False),
@@ -604,23 +707,23 @@ def ssd_kernel_cases(flush) -> dict:
             if strong:
                 cum = torch.cumsum((args[1] * args[2]).double()[:, :64], dim=1)
                 name += f", cum down to {float(cum.min()):.0f}"
-            name += f", P tile {SSD._check(*args, min(64, s), SSD._sm_count(args[0].device))}"
+            name += f", P tile {SSD._check(*args, min(64, s), sm_count(args[0].device))}"
             # float32 copies of the inputs: the kernel computes in float32
             # and rounds only its output
             want = SSD.ssd_scan_torch(*(t.float() for t in args))
             result = run_case(f"ssd {str(dtype)[6:]} {name}", args, want, tol)
             if dtype == torch.bfloat16 and (b, s) == (8, 2048):
                 serving = result
-                passes(f"serving shape, {str(dtype)[6:]}", args)
+                serving["device_ms"] = passes(f"serving shape, {str(dtype)[6:]}", args)
             del args, want
     # the (1, 1024) bucket's prompt pass (the (1, 512) request), bfloat16,
     # on other seeded inputs than the B=1 S=1024 case above
     args = _ssd_inputs(1, 1024, 64, 64, 128, torch.bfloat16, 11)
     want = SSD.ssd_scan_torch(*(t.float() for t in args))
     bucket = run_case("ssd bfloat16 (1, 1024) bucket, P tile "
-                      f"{SSD._check(*args, 64, SSD._sm_count(args[0].device))}", args, want,
+                      f"{SSD._check(*args, 64, sm_count(args[0].device))}", args, want,
                       SSD_BF16_TOL)
-    passes("(1, 1024) bucket, bfloat16", args)
+    bucket["device_ms"] = passes("(1, 1024) bucket, bfloat16", args)
     del args, want
     # the sequential-scan oracle, float32, at both widths
     for b, s, h, p, n in ((2, 128, 64, 64, 128), (2, 64, 16, 16, 16)):
@@ -629,18 +732,21 @@ def ssd_kernel_cases(flush) -> dict:
         run_case(f"ssd float32 ({b}, {s}, {h}, {p}, {n}) vs sequential oracle", args, want,
                  FP32_TOL)
         del args, want
-    print(f"  ssd timing at the serving shape, bfloat16: kernel {serving['ms']:.4f} ms, plain "
-          f"{serving['plain_ms']:.4f} ms, bound {serving['bound_ms']:.4f} ms "
-          f"({serving['bound_by']}); (1, 1024) bucket {bucket['ms']:.4f} ms; no single "
-          "library call")
+    print(f"  ssd timing at the serving shape, bfloat16: kernel {serving['ms']:.4f} ms by events, "
+          f"device time {_dev(serving['device_ms'])}, plain {serving['plain_ms']:.4f} ms, bound "
+          f"{serving['bound_ms']:.4f} ms ({serving['bound_by']}); (1, 1024) bucket "
+          f"{bucket['ms']:.4f} ms by events, device time {_dev(bucket['device_ms'])}; no "
+          "single library call")
     return dict(name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan.py:91", library_ms=None, **serving)
 
 
-def _gemm_case(label, run, plain, library, want, tol, nbytes, flops, dtype, flush) -> dict:
+def _gemm_case(label, run, plain, library, want, tol, nbytes, flops, dtype, flush,
+               family=None) -> dict:
     """Holds ``run()`` against ``want`` under ``tol`` and times the kernel,
-    its plain version and the library call; returns the kernels-line
-    numbers of the case."""
+    its plain version and the library call (and, given the kernel's
+    ``family``, its profiler device time); returns the kernels-line numbers
+    of the case."""
     import torch
 
     got = run()
@@ -650,13 +756,15 @@ def _gemm_case(label, run, plain, library, want, tol, nbytes, flops, dtype, flus
     ms = cuda_ms(run, flush=flush)
     plain_ms = cuda_ms(plain, flush=flush)
     lib_ms = cuda_ms(library, flush=flush)
+    dev_ms = device_ms(run, family, flush)[0] if family else None
     # a float32 product's bound: the CUDA cores' rate or three TF32 products
     bound, by = _bound_ms(nbytes, flops, dtype, tf32x3=True)
-    print(f"    timing: kernel {ms:.4f} ms ({_tflops(flops, ms)}), plain {plain_ms:.4f} ms, "
+    dev = f", device time {_dev(dev_ms)}" if family else ""
+    print(f"    timing: kernel {ms:.4f} ms ({_tflops(flops, ms)}){dev}, plain {plain_ms:.4f} ms, "
           f"library {lib_ms:.4f} ms ({_tflops(flops, lib_ms)}), bound {bound:.4f} ms ({by}; "
           f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=lib_ms)
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms)
 
 
 def matmul_kernel_cases(flush) -> dict:
@@ -692,7 +800,8 @@ def matmul_kernel_cases(flush) -> dict:
         result = _gemm_case(
             f"matmul {str(dtype)[6:]} {name}", lambda: MM.matmul(a, b),
             lambda: MM.matmul_torch(a, b), lambda: torch.matmul(a, b), want, tol,
-            (m * k + k * n + m * n) * a.element_size(), 2 * m * n * k, dtype, flush)
+            (m * k + k * n + m * n) * a.element_size(), 2 * m * n * k, dtype, flush,
+            family="mm_kernel" if (m, k, n) == (LENET_SCORE, 3136, 512) else None)
         if (m, k, n) == (LENET_SCORE, 3136, 512):
             main = result
         del a, b, want
@@ -751,7 +860,8 @@ def conv_kernel_cases(flush) -> dict:
             lambda: CONV.conv2d_im2col(x, wt, stride=stride, pad=pad),
             lambda: CONV.conv2d_torch(x, wt, stride=stride, pad=pad),
             lambda: F.conv2d(x, wt, stride=stride, padding=pad), want, tol,
-            nbytes, 2 * n * ho * wo * f * c * k * k, dtype, flush)
+            nbytes, 2 * n * ho * wo * f * c * k * k, dtype, flush,
+            family="conv_kernel" if (n, c) == (LENET_SCORE, 32) else None)
         if (n, c) == (LENET_SCORE, 32):
             main = result
         del x, wt, want
@@ -1187,7 +1297,8 @@ def _busy_us(intervals) -> float:
 
 def _kernel_family(name: str) -> str:
     low = name.lower()
-    if "paged_split" in name or "paged_combine" in name:
+    if any(k in name for k in ("paged_mma_kernel", "paged_split_kernel",
+                                "paged_combine_kernel")):
         return "paged_decode"
     if "ssd_scan" in name:
         return "ssd"
@@ -1292,12 +1403,12 @@ def main() -> int:
     for name, n in launches.items():
         kernels[name]["launches"] = n
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-             "plain_ms", "bound_ms", "bound_by", "library_ms")
+             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [{key: kernels[n][key] for key in order}
                         for n in ("paged_decode_attention", "flash_attention", "ssd_scan",
                                   "matmul", "conv2d_im2col")]}
     for entry in line["kernels"]:
-        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms"):
+        for key in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms"):
             if entry[key] is not None and not math.isfinite(entry[key]):
                 fail(f"{entry['name']}: {key} is not finite")
     print(f"\nall phases passed in {time.perf_counter() - t0:.1f} s "

@@ -29,6 +29,9 @@ H100 = HardwareSpec(
 
 # dense float32 rate outside the tensor cores, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12
+# streaming multiprocessors of an H100 SXM, for callers that have no card
+# (the tests); a kernel wrapper asks the present card (sm_count)
+H100_SMS = 132
 # dense TF32 tensor-core rate, H100 SXM data sheet; a float32 product the
 # kernels compute as three TF32 products (3xTF32) is bounded by 3 x its
 # FLOPs at this rate where that is below its float32 CUDA-core bound
@@ -49,3 +52,14 @@ def probe(device: int = 0) -> Dict[str, Any]:
         "total_memory": props.total_memory,
         "capability": f"{props.major}.{props.minor}",
     }
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of the card ``device`` lies on, read once per card."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNT[index]

@@ -21,10 +21,10 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
 
 import torch
 
+from repro_torch.hw import sm_count
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import tf32_round, tf32_truncate
 
@@ -36,7 +36,6 @@ _MAX_N = 65535 * 128
 # its own
 _TILE_M = 128
 _MIN_SPLIT_DEPTH = 256
-_SM_COUNT: Dict[int, int] = {}
 
 
 def tile_n(n: int) -> int:
@@ -59,13 +58,6 @@ def splits_for(m: int, n: int, k: int, sm_count: int) -> int:
 def kernel_name(dtype: torch.dtype) -> str:
     """The ``csrc/matmul.cu`` kernel a product of this dtype runs."""
     return "repro_mm_tf32x3" if dtype == torch.float32 else "repro_mm_bf16"
-
-
-def _sm_count(device: torch.device) -> int:
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _SM_COUNT:
-        _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _SM_COUNT[index]
 
 
 def matmul_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -120,7 +112,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (m, k), n = a.shape, b.shape[1]
     lib = _build.library("matmul", _bind)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    splits = splits_for(m, n, k, _sm_count(a.device)) if a.dtype == torch.float32 else 1
+    splits = splits_for(m, n, k, sm_count(a.device)) if a.dtype == torch.float32 else 1
     # the float32 partial products of a split-K launch
     part = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
             if splits > 1 else None)

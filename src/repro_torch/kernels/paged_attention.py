@@ -1,4 +1,4 @@
-"""Paged-attention decode: the CUDA kernel's wrapper and its plain version.
+"""Paged-attention decode: the CUDA kernels' wrapper and its plain versions.
 
 Port of ``repro/kernels/paged_attention.py``. One query token per row
 attends to a flat slot stack ``(n_slots, Hkv, D)`` through a ``(B, n_pages)``
@@ -10,29 +10,74 @@ reduction).
 
 - :func:`paged_decode_attention` is the kernel wrapper: on a CUDA tensor it
   launches ``csrc/paged_decode.cu`` (raising on anything the kernel does not
-  take), on a CPU tensor it runs the plain version.
+  take), on a CPU tensor it runs the plain version. bfloat16 at a head dim
+  that is a multiple of 16 runs ``paged_mma_kernel`` (tensor cores, per-warp
+  ``cp.async`` rings, splits sized by :func:`split_plan`); float32, and
+  bfloat16 at other head dims, run ``paged_split_kernel`` (CUDA cores,
+  128-slot splits); :func:`kernel_name` says which. A second kernel,
+  ``paged_combine_kernel``, merges the splits.
 - :func:`paged_attention_torch` is the plain version, a port of
   ``paged_attention_xla``: committed-slot mask, uncommitted slots pinned to
   slot 0, one gather, scores in grouped (kv-head) form with no GQA
   expansion.
+- :func:`paged_attention_model` is the plain version in the kernels' order:
+  per-split partials (max in log2 units, denominator, accumulator) and
+  their combine, with P split into bfloat16 hi + lo before P.V as
+  ``paged_mma_kernel`` splits it; returns float32, unrounded.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.hw import H100_SMS, sm_count
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF, phys_slots
 
-# limits of csrc/paged_decode.cu (kMaxG, kMaxD, kThreads * kMaxElems, kSplit)
+# limits of csrc/paged_decode.cu (kMaxG, kMaxD, kThreads * kMaxElems)
 MAX_GROUP = 16
 MAX_HEAD_DIM = 256
 MAX_GROUP_X_DIM = 2048
+# slots per split of paged_split_kernel (kSplit)
 SPLIT_SLOTS = 128
+# paged_mma_kernel: 64-slot tiles (16 slots to each of 4 warps), a split is
+# a whole number of tiles; splits are sized for about BLOCKS_PER_SM blocks
+# on every SM (two blocks of the D = 128 instantiation fit an SM)
+TILE_SLOTS = 64
+BLOCKS_PER_SM = 2
+LOG2E = 1.4426950408889634
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_name(d: int, dtype: torch.dtype) -> str:
+    """The split kernel of ``csrc/paged_decode.cu`` that a call at head dim
+    d in dtype runs (the C entry point dispatches on both)."""
+    if dtype == torch.bfloat16 and d % 16 == 0:
+        return "paged_mma_kernel"
+    return "paged_split_kernel"
+
+
+def split_plan(bsz: int, hkv: int, n: int, d: int, dtype: torch.dtype,
+               sms: int = H100_SMS) -> Tuple[int, int]:
+    """(slots per split, splits) for ``n = min(sc, n_tab * page)`` slots per
+    row. ``paged_split_kernel`` takes ``SPLIT_SLOTS``. ``paged_mma_kernel``
+    takes a whole number of ``TILE_SLOTS`` tiles, as few as give the B * Hkv
+    (row, kv head) pairs about ``BLOCKS_PER_SM`` blocks on each of ``sms``
+    SMs: on 132 SMs the (8, 2048) bucket's 32 pairs take 8 splits of 256
+    slots (256 blocks). Rows' positions are not read (the host would have
+    to wait for the device), so a split past a row's committed slots is
+    planned and exits at once."""
+    if kernel_name(d, dtype) == "paged_split_kernel":
+        return SPLIT_SLOTS, max(1, -(-n // SPLIT_SLOTS))
+    tiles = max(1, -(-n // TILE_SLOTS))
+    want = max(1, BLOCKS_PER_SM * sms // (bsz * hkv))
+    slots = -(-tiles // want) * TILE_SLOTS
+    return slots, max(1, -(-n // slots))
 
 
 def paged_attention_torch(
@@ -66,6 +111,76 @@ def paged_attention_torch(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, ve.float())
     return o.reshape(bsz, hq, d)[:, None].to(q.dtype)
+
+
+def paged_attention_model(
+    q: torch.Tensor,        # (B, 1, Hq, D)
+    k_cache: torch.Tensor,  # (n_slots, Hkv, D)
+    v_cache: torch.Tensor,  # (n_slots, Hkv, D)
+    tables: torch.Tensor,   # (B, n_pages) int32
+    pos: torch.Tensor,      # (B,) int32
+    *,
+    page: int,
+    sc: int,
+    split_slots: Optional[int] = None,
+    p_terms: Optional[int] = None,
+    sms: int = H100_SMS,
+) -> torch.Tensor:
+    """Plain version in the kernels' order -> float32 (B, 1, Hq, D),
+    unrounded.
+
+    The ``n = min(sc, n_tab * page)`` slots are cut into splits of
+    ``split_slots`` (default: :func:`split_plan` of the kernel this call
+    would run on ``sms`` SMs). Each split keeps the max ``m`` of its scores
+    ``q.k`` times ``c = D^-0.5 * log2(e)``, ``p = exp2(q.k * c - m)`` (0
+    where masked), its denominator ``sum p`` and its accumulator ``P.V``,
+    with P taken as
+    ``p_terms`` bfloat16 parts: 2 (``paged_mma_kernel``: hi + lo), 1 (P
+    rounded to bfloat16 alone, which the kernel does not do) or 0 (float32 P,
+    ``paged_split_kernel``; default by :func:`kernel_name`). The combine
+    weighs split s by ``exp2(m_s - max m)``; a row with nothing committed
+    gives zeros."""
+    bsz, _, hq, d = q.shape
+    hkv = k_cache.shape[1]
+    g = hq // hkv
+    n_slots = k_cache.shape[0]
+    n = min(sc, tables.shape[1] * page)
+    plan_slots, _ = split_plan(bsz, hkv, n, d, q.dtype, sms)
+    split_slots = plan_slots if split_slots is None else split_slots
+    if p_terms is None:
+        p_terms = 2 if kernel_name(d, q.dtype) == "paged_mma_kernel" else 0
+    n_splits = -(-n // split_slots)
+    width = n_splits * split_slots
+    posb = pos.reshape(-1).long().expand(bsz)
+    n_valid = torch.clamp(posb + 1, max=n)[:, None]                   # (B, 1)
+    valid = torch.arange(width, device=q.device)[None, :] < n_valid   # (B, W)
+    phys = torch.clamp(phys_slots(tables, n, page), max=n_slots - 1)
+    phys = torch.nn.functional.pad(phys, (0, width - n))
+    phys = torch.where(valid, phys, torch.zeros((), dtype=phys.dtype, device=q.device))
+    ke = k_cache[phys].float()                                       # (B, W, Hkv, D)
+    ve = v_cache[phys].float()
+    c = float(np.float32(np.float32(1.0 / (d ** 0.5)) * np.float32(LOG2E)))
+    qf = q.float()[:, 0].reshape(bsz, hkv, g, d)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, ke) * c                  # (B, Hkv, g, W)
+    s = torch.where(valid[:, None, None, :], s, torch.full((), NEG_INF, device=q.device))
+    s = s.reshape(bsz, hkv, g, n_splits, split_slots)
+    ok = valid.reshape(bsz, 1, 1, n_splits, split_slots)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(ok, torch.exp2(s - m), 0.0)
+    l = p.sum(-1)                                                    # (B, Hkv, g, S)
+    if p_terms == 0:
+        parts = [p]
+    else:
+        hi = p.to(torch.bfloat16).float()
+        parts = [hi] if p_terms == 1 else [hi, (p - hi).to(torch.bfloat16).float()]
+    vs = ve.reshape(bsz, n_splits, split_slots, hkv, d)
+    acc = sum(torch.einsum("bhgsk,bskhd->bhgsd", part, vs) for part in parts)
+    m = m[..., 0]
+    w = torch.exp2(m - m.amax(-1, keepdim=True))
+    num = (w[..., None] * acc).sum(-2)                               # (B, Hkv, g, D)
+    den = (w * l).sum(-1)[..., None]
+    out = num / torch.where(den == 0, 1.0, den)
+    return out.reshape(bsz, hq, d)[:, None]
 
 
 def _check(q, k_cache, v_cache, tables, pos, page, sc) -> None:
@@ -122,8 +237,9 @@ def paged_decode_attention(
     sc: int,                # logical cache length per row (bucket Sc)
 ) -> torch.Tensor:
     """Kernel wrapper: launches ``csrc/paged_decode.cu`` on a CUDA tensor
-    (counting the launch in ``paged_decode_attention.launches``), runs
-    :func:`paged_attention_torch` on a CPU tensor."""
+    (:func:`kernel_name`'s split kernel, then the combine; counted once in
+    ``paged_decode_attention.launches``), runs :func:`paged_attention_torch`
+    on a CPU tensor."""
     if q.device.type == "cpu":
         return paged_attention_torch(q, k_cache, v_cache, tables, pos,
                                      page=page, sc=sc)
@@ -134,7 +250,8 @@ def paged_decode_attention(
     hkv = k_cache.shape[1]
     g = hq // hkv
     n_tab = tables.shape[1]
-    n_splits = -(-min(sc, n_tab * page) // SPLIT_SLOTS)
+    split_slots, n_splits = split_plan(bsz, hkv, min(sc, n_tab * page), d, q.dtype,
+                                       sm_count(q.device))
     lib = _build.library("paged_decode", _bind)
     out = torch.empty_like(q)
     # per-split (max, denominator, accumulator) partials for the combine pass
@@ -148,7 +265,7 @@ def paged_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
             part_acc.data_ptr(), part_ml.data_ptr(), _DTYPES[q.dtype], bsz, hkv, g,
-            d, n_tab, page, sc, k_cache.shape[0] // page, n_splits, SPLIT_SLOTS,
+            d, n_tab, page, sc, k_cache.shape[0] // page, n_splits, split_slots,
             1.0 / (d ** 0.5), stream)
     paged_decode_attention.launches += 1
     if err:

@@ -35,11 +35,10 @@ float32 before the exp, so everything else is float32 arithmetic.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import torch
 
-from repro_torch.hw import H100
+from repro_torch.hw import H100, H100_SMS, sm_count
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF, tf32_round, tf32_truncate
 
@@ -51,11 +50,8 @@ MAX_CHUNK = 64
 P_TILES = {(64, 128): (64, 32), (16, 16): (16,)}
 # ring stages of the walk (csrc/ssd_scan.cu STAGES)
 STAGES = 2
-# the H100's SM count, for callers that have no card (the tests)
-H100_SMS = 132
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SM_COUNT: Dict[int, int] = {}
 
 
 def smem_bytes(p: int, n: int, dtype: torch.dtype, pt: int) -> int:
@@ -82,13 +78,6 @@ def p_tile(bsz: int, h: int, p: int, n: int, dtype: torch.dtype, sm_count: int) 
                 and bsz * h * (p // pt) >= sm_count):
             return pt
     return tiles[-1]
-
-
-def _sm_count(device: torch.device) -> int:
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _SM_COUNT:
-        _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _SM_COUNT[index]
 
 
 def ssd_scan_torch(x, dt, a, b_mat, c_mat, d, *, chunk: int = MAX_CHUNK) -> torch.Tensor:
@@ -233,7 +222,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Te
     if x.device.type != "cuda":
         raise ValueError(f"ssd kernel runs on CUDA tensors, got {x.device}")
     chunk = min(chunk, x.shape[1])
-    pt = _check(x, dt, a, b_mat, c_mat, d, chunk, _sm_count(x.device))
+    pt = _check(x, dt, a, b_mat, c_mat, d, chunk, sm_count(x.device))
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
     lib = _build.library("ssd_scan", _bind)

@@ -61,7 +61,9 @@ def serve_stream(args) -> None:
     print(srv.summary())
 
 
-def main():
+def build_parser() -> argparse.ArgumentParser:
+    """The launcher's command line; its defaults follow the reference
+    launcher's (``repro/launch/serve.py``) where the option exists there."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2-1.3b-smoke")
     ap.add_argument("--stream", action="store_true",
@@ -71,7 +73,7 @@ def main():
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--shapes", default="",
                     help='request mix as "BxC,BxC,..." (default: built-in mix)')
-    ap.add_argument("--tokens", type=int, default=8)
+    ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     ap.add_argument("--page-size", type=int, default=64)
     ap.add_argument("--decode-kernel", default="paged",
@@ -83,7 +85,11 @@ def main():
                     help="seeds model init and the request mix")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; fails without a card)")
-    args = ap.parse_args()
+    return ap
+
+
+def main():
+    args = build_parser().parse_args()
     if not args.stream:
         raise SystemExit("only --stream is ported so far; the single-shot and "
                          "--scheduler modes come with the serving engine in slice 2")

@@ -1,7 +1,8 @@
-"""PyTorch port, package boundaries: the port and ``chip_smoke.py`` import
-neither JAX nor the JAX package; the port's copied configs stay equal to
-the reference's; entry points refuse to fall back to the CPU silently; and
-what this slice does not port yet says so instead of half-working."""
+"""PyTorch port, package boundaries: the port, ``chip_smoke.py`` and the
+port's ``tools/`` scripts import neither JAX nor the JAX package; the
+port's copied configs stay equal to the reference's; entry points refuse
+to fall back to the CPU silently; and what this slice does not port yet
+says so instead of half-working."""
 
 import ast
 import dataclasses
@@ -22,7 +23,8 @@ from repro_torch.runtime import serve_loop  # noqa: E402
 from repro_torch.runtime.engine_config import EngineConfig  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _forbidden_imports(text: str):

@@ -209,6 +209,178 @@ def test_dense_cache_write_matches_jax():
 
 
 # ---------------------------------------------------------------------------
+# paged decode: the kernels' split plan and order (paged_attention_model)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sc,page", [(16, 4), (13, 4), (100, 16), (1000, 3), (1024, 64),
+                                     (2048, 64), (4096, 64)])
+@pytest.mark.parametrize("bsz,hkv", [(1, 4), (4, 4), (8, 4), (2, 1), (128, 8)])
+def test_paged_split_plan_covers_every_slot_once(bsz, hkv, sc, page):
+    """Every slot of [0, min(sc, n_tab * page)) lies in exactly one split,
+    the splits are whole 64-slot tiles (paged_mma_kernel) or 128 slots
+    (paged_split_kernel), and no planned split lies wholly past the slots."""
+    n = min(sc, -(-sc // page) * page)
+    for d, dtype in ((128, torch.bfloat16), (32, torch.bfloat16), (40, torch.bfloat16),
+                     (128, torch.float32)):
+        slots, splits = tpaged.split_plan(bsz, hkv, n, d, dtype)
+        if tpaged.kernel_name(d, dtype) == "paged_mma_kernel":
+            assert slots % tpaged.TILE_SLOTS == 0
+        else:
+            assert slots == tpaged.SPLIT_SLOTS
+        covered = np.zeros(n, np.int64)
+        for s in range(splits):
+            covered[s * slots:(s + 1) * slots] += 1
+        assert (covered == 1).all() and (splits - 1) * slots < n
+
+
+def test_paged_split_plan_fills_the_card_at_the_serving_buckets():
+    """About two blocks per SM of a 132-SM H100 where the slots allow it:
+    the (8, 2048) bucket's 32 (row, kv head) pairs take 8 splits of 256
+    slots; the (4, 2048) bucket 16 of 128; the (1, 1024) bucket one 64-slot
+    tile per split (64 blocks, as many as its slots allow)."""
+    bf16 = torch.bfloat16
+    assert tpaged.split_plan(8, 4, 2048, 128, bf16, 132) == (256, 8)
+    assert tpaged.split_plan(4, 4, 2048, 128, bf16, 132) == (128, 16)
+    assert tpaged.split_plan(1, 4, 1024, 128, bf16, 132) == (64, 16)
+    assert tpaged.split_plan(8, 4, 2048, 128, torch.float32, 132) == (128, 16)
+
+
+def test_paged_kernel_name_follows_dtype_and_head_dim():
+    assert tpaged.kernel_name(128, torch.bfloat16) == "paged_mma_kernel"
+    assert tpaged.kernel_name(32, torch.bfloat16) == "paged_mma_kernel"
+    assert tpaged.kernel_name(256, torch.bfloat16) == "paged_mma_kernel"
+    assert tpaged.kernel_name(40, torch.bfloat16) == "paged_split_kernel"
+    assert tpaged.kernel_name(128, torch.float32) == "paged_split_kernel"
+    smoke = _chip_smoke()
+    for name in ("paged_mma_kernel", "paged_split_kernel", "paged_combine_kernel"):
+        assert smoke._kernel_family(f"void (anonymous namespace)::{name}<128>(...)") == \
+            "paged_decode"
+
+
+def _paged_committed_case(b, hq, hkv, d, page, sc, pos, seed):
+    """Like ``_paged_case``, with a sentinel entry (>= n_phys) on every page
+    a row has not committed, as the serving pool leaves them."""
+    q, k, v, tables = _paged_case(b=b, hq=hq, hkv=hkv, d=d, page=page, sc=sc, seed=seed,
+                                  sentinel=False)
+    n_phys = k.shape[0] // page
+    for row, p in enumerate(pos):
+        tables[row, -(-min(p + 1, sc) // page):] = n_phys + row
+    return q, k, v, tables
+
+
+def _bf16_values(*arrs):
+    """float32 arrays holding the bfloat16 roundings of ``arrs``."""
+    return [torch.from_numpy(a).to(torch.bfloat16).float().numpy() for a in arrs]
+
+
+PAGED_MODEL_CASES = {  # name: (b, hq, hkv, d, page, sc, pos)
+    "pos=0": (3, 8, 2, 32, 4, 32, [0, 0, 0]),
+    "pos=page-1": (3, 8, 2, 32, 4, 32, [3, 3, 3]),
+    "pos=page": (3, 8, 2, 32, 4, 32, [4, 4, 4]),
+    "pos mixed": (3, 8, 2, 32, 4, 32, [0, 13, 31]),
+    "pos>=Sc": (3, 8, 2, 32, 4, 32, [32, 45, 77]),
+    "g=16 D=64 page 16": (2, 16, 1, 64, 16, 96, [95, 40]),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(PAGED_MODEL_CASES))
+def test_paged_model_matches_plain_pallas_and_oracle(case, dtype):
+    """The kernels' order — per-split partials with P split into bfloat16
+    hi + lo, then the combine — against the plain version, the Pallas
+    kernel (interpret) and the oracle on the same seeded inputs, with
+    sentinel entries on every uncommitted page, at the kernel's own split
+    plan and at 8-slot splits (several splits per row). float32 inputs:
+    chip_smoke.py's FP32_TOL (the hi + lo split keeps P to 2^-18 relative).
+    bfloat16 inputs (the references on the same rounded values in float32):
+    the model's output rounded to bfloat16 within PAGED_BF16_TOL."""
+    b, hq, hkv, d, page, sc, pos = PAGED_MODEL_CASES[case]
+    q, k, v, tables = _paged_committed_case(b, hq, hkv, d, page, sc, pos, seed=7)
+    if dtype == "bfloat16":
+        q, k, v = _bf16_values(q, k, v)
+    posv = np.asarray(pos, np.int32)
+    jargs = [jnp.asarray(a) for a in (q, k, v, tables, posv)]
+    wants = {"pallas": jpaged(*jargs, page=page, sc=sc, interpret=True),
+             "oracle": jref.paged_decode_ref(*jargs, page=page, sc=sc),
+             "plain": tpaged.paged_attention_torch(*_t(q, k, v, tables, posv), page=page,
+                                                   sc=sc)}
+    smoke = _chip_smoke()
+    tol = smoke.FP32_TOL if dtype == "float32" else smoke.PAGED_BF16_TOL
+    args = _t(q, k, v, tables, posv)
+    if dtype == "bfloat16":
+        args[:3] = [t.to(torch.bfloat16) for t in args[:3]]
+    for split_slots in (None, 8):
+        got = tpaged.paged_attention_model(*args, page=page, sc=sc, split_slots=split_slots,
+                                           p_terms=2)
+        got = got if dtype == "float32" else got.to(torch.bfloat16)
+        for name, want in wants.items():
+            ok, *readings = smoke.within(got, torch.from_numpy(np.array(want)), tol)
+            assert ok, (name, split_slots, readings)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_model_rotating_writes(dtype):
+    """Rows decoded past a rotating window through the reference's rotating
+    paged write: the kernels' order against the Pallas kernel and the
+    literal-rule oracle, as in ``test_paged_model_matches_plain_pallas_and_oracle``."""
+    b, hkv, d, page, sc = 2, 2, 32, 4, 16
+    q, k, v, tables = _paged_case(b=b, hq=8, hkv=hkv, d=d, page=page, sc=sc, sentinel=False)
+    rng = np.random.default_rng(3)
+    jk, jv = jnp.asarray(k), jnp.asarray(v)
+    for p in range(37):  # decode depth wraps the window twice
+        posv = np.asarray([p, p + 3], np.int32)
+        kn = rng.normal(size=(b, 1, hkv, d)).astype(np.float32)
+        vn = rng.normal(size=(b, 1, hkv, d)).astype(np.float32)
+        jk, jv = JATT.paged_cache_write(jk, jv, jnp.asarray(kn), jnp.asarray(vn),
+                                        jnp.asarray(posv), jnp.asarray(tables),
+                                        page, sc, window=sc)
+    k, v = np.asarray(jk), np.asarray(jv)
+    if dtype == "bfloat16":
+        q, k, v = _bf16_values(q, k, v)
+    jargs = [jnp.asarray(a) for a in (q, k, v, tables, posv)]
+    wants = {"pallas": jpaged(*jargs, page=page, sc=sc, interpret=True),
+             "oracle": jref.paged_decode_ref(*jargs, page=page, sc=sc, window=sc)}
+    smoke = _chip_smoke()
+    tol = smoke.FP32_TOL if dtype == "float32" else smoke.PAGED_BF16_TOL
+    args = _t(q, k, v, tables, posv)
+    if dtype == "bfloat16":
+        args[:3] = [t.to(torch.bfloat16) for t in args[:3]]
+    for split_slots in (None, 4):
+        got = tpaged.paged_attention_model(*args, page=page, sc=sc, split_slots=split_slots,
+                                           p_terms=2)
+        got = got if dtype == "float32" else got.to(torch.bfloat16)
+        for name, want in wants.items():
+            ok, *readings = smoke.within(got, torch.from_numpy(np.array(want)), tol)
+            assert ok, (name, split_slots, readings)
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,page,sc,pos,seed", [
+    (2, 8, 1, 128, 16, 512, [300, 511], 0),      # Yi's g = 8, D = 128
+    (1, 8, 1, 128, 64, 1024, [520], 3),          # one row of the (1, 1024) bucket
+    (2, 16, 2, 64, 16, 1024, [1000, 700], 1),    # g = 16, D = 64
+])
+def test_paged_bf16_needs_p_hi_lo_where_rounding_p_alone_fails(b, hq, hkv, d, page, sc, pos,
+                                                                seed):
+    """On bfloat16 inputs (numpy seed ``seed``), paged_mma_kernel's order
+    with P split into hi + lo, its output rounded to bfloat16, stays within
+    chip_smoke.py's PAGED_BF16_TOL of the float32 plain version on the same
+    inputs; rounding P to bfloat16 alone before P.V (about 2^-9 relative
+    per term) does not: an output near zero misses the elementwise rtol."""
+    q, k, v, tables = _paged_committed_case(b, hq, hkv, d, page, sc, pos, seed=seed)
+    args = _t(q, k, v, tables, np.asarray(pos, np.int32))
+    args[:3] = [t.to(torch.bfloat16) for t in args[:3]]
+    want = tpaged.paged_attention_torch(*(t.float() for t in args[:3]), *args[3:], page=page,
+                                        sc=sc)
+    smoke = _chip_smoke()
+    model = {terms: tpaged.paged_attention_model(*args, page=page, sc=sc,
+                                                 p_terms=terms).to(torch.bfloat16)
+             for terms in (1, 2)}
+    assert smoke.within(model[2], want, smoke.PAGED_BF16_TOL)[0]
+    assert not smoke.within(model[1], want, smoke.PAGED_BF16_TOL)[0]
+
+
+# ---------------------------------------------------------------------------
 # flash attention: plain version == Pallas (interpret)
 # ---------------------------------------------------------------------------
 

@@ -18,6 +18,7 @@ causal convolution up to ``PlanServer.handle``.
 import io
 import sys
 from contextlib import redirect_stdout
+from pathlib import Path
 
 import pytest
 
@@ -316,3 +317,28 @@ def test_serve_cli_defaults_to_mamba2_smoke(monkeypatch):
     out = buf.getvalue()
     assert "mamba2-1.3b-smoke" in out
     assert out.count("req[") == 2 and "handoff_writes=2" in out
+
+
+def _reference_cli_default(option: str):
+    """The default of ``option`` in the reference launcher's parser, read
+    from its source (``repro/launch/serve.py``), which stays as it is."""
+    import ast
+
+    src = Path(__file__).resolve().parents[1] / "src/repro/launch/serve.py"
+    for node in ast.walk(ast.parse(src.read_text())):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument"
+                and node.args and isinstance(node.args[0], ast.Constant)
+                and node.args[0].value == option):
+            return next(ast.literal_eval(kw.value) for kw in node.keywords
+                        if kw.arg == "default")
+    raise AssertionError(f"{option} not in the reference launcher's parser")
+
+
+@pytest.mark.parametrize("option,dest", [("--tokens", "tokens"), ("--arch", "arch"),
+                                         ("--requests", "requests"),
+                                         ("--page-size", "page_size")])
+def test_serve_cli_defaults_follow_the_reference(option, dest):
+    """The port's stream options default as the reference launcher's do:
+    the same ``--stream`` command line decodes as many tokens per request."""
+    assert getattr(serve_cli.build_parser().parse_args([]), dest) == \
+        _reference_cli_default(option)
