@@ -19,22 +19,37 @@ Phases, each of which must pass (nothing is caught):
               passes (C B^T, then the chunk walk) timed apart; which paged,
               flash, matmul and SSD kernel variant ran, read from a profiler
               trace;
+   Then the H100's paged-dispatch figure fitted from the paged kernel's
+   device time (beside ``core/cost.py``'s ``PAGED_STEP_LATENCY_S``);
 4. serve-check — Yi-6B widths cut to 2 layers, float32, through
-              ``PlanServer``: identical token streams under the paged,
-              gather and ref decode kernels;
+              ``PlanServer`` (plan cache, one CUDA graph per bucket's decode
+              step): identical token streams under the paged, gather, ref
+              and auto decode kernels; each request's stream byte-identical
+              to the same request decoded eagerly by ``make_decode_step``;
+              paged launches exact per replay; a row freed while a later
+              graphed tick is queued leaves that tick's table alone;
 5. serve    — full Yi-6B (32 layers, bfloat16, random weights from a seeded
-              generator) serving three requests through ``PlanServer``, with
-              every kernel's launch count checked against the layer count;
-              then each request once more (in its bucket, with 8 or more
-              new tokens) under ``torch.profiler`` for the device's busy
-              time and idle share in prefill and decode;
+              generator) serving three requests twice through ``PlanServer``
+              with ``decode_kernel="auto"``: the first pass compiles the
+              plans and captures the graphs (capture seconds), the second is
+              the steady state; each plan's decode kernel printed (every one
+              must be paged) and every kernel's launch count checked against
+              the layer count and the plans; then each request once more (in
+              its bucket, with 8 or more new tokens) under ``torch.profiler``
+              for the device's busy time and idle share in prefill and in
+              the graphed decode, and the paged split-kernel events on the
+              device held at one per attention layer and tick; then
+              the planner's paged and gather seconds per bucket beside both
+              operators' measured device time;
 6. serve-check-ssm — Mamba-2 1.3B widths cut to 2 layers, float32, through
               ``PlanServer``: identical token streams with the SSD kernel
-              and with its plain version, and the prefill -> decode handoff
-              equal to a prefill one token longer;
+              and with its plain version, graphed == eager, auto == paged,
+              and the prefill -> decode handoff equal to a prefill one token
+              longer;
 7. serve-ssm — full Mamba-2 1.3B (48 layers, bfloat16, seeded random
-              weights) serving the same three requests, the SSD kernel's
-              launches checked against the layer count, then traced;
+              weights) serving the same three requests twice with graphs,
+              the SSD kernel's launches checked against the layer count,
+              then traced (no paged events in its decode);
 8. lenet-check — LeNet at the paper's width (1 x 28 x 28, 10 classes,
               float32): the test-mode forward at batch 64 and one training
               step (loss, gradients, updated parameters) with the matmul and
@@ -478,7 +493,7 @@ def paged_kernel_cases(flush) -> dict:
     return dict(name="paged_decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/paged_decode.cu",
                 replaces="src/repro/kernels/paged_attention.py:130", library_ms=None,
-                **serving)
+                timed=timed, **serving)
 
 
 def paged_timing(PA, label, inputs, page, sc, err, flush) -> dict:
@@ -512,7 +527,7 @@ def paged_timing(PA, label, inputs, page, sc, err, flush) -> dict:
           f"{bound:.5f} ms ({by}; {nbytes / 1e6:.1f} MB committed K/V + q/out); "
           f"split plan {PA.split_plan(b, hkv, sc, d, q.dtype, sm_count(q.device))}")
     return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by)
+                bound_by=by, steps=b * hkv * -(-sc // page))
 
 
 def paged_kernel_names(PA) -> None:
@@ -875,86 +890,265 @@ def conv_kernel_cases(flush) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _eager_kernel(plan) -> str:
+    """The decode-attention operator a plan's step runs (the attention-free
+    family's "none" reads as the default)."""
+    k = plan.config.decode_kernel
+    return k if k in ("paged", "ref") else "gather"
+
+
+def eager_handle(srv, req) -> tuple:
+    """``req`` served as ``PlanServer.handle`` serves it (prompt pass,
+    handoff write, greedy decoding in the same bucket and pool), but with
+    the step of ``make_decode_step`` called eagerly tick by tick, with the
+    operator the server's plan chose: no graph, no plan cache. Returns the
+    tokens on the host and the request rows' last logits."""
+    import torch
+
+    from repro_torch.runtime.serve_loop import make_decode_step
+
+    dev = srv.device
+    span = srv.request_span(req)
+    b, s = srv.buckets(req.batch, span)
+    kernel = _eager_kernel(srv.decode_entry(req.batch, span).plan)
+    pool = srv.pool
+    arena = pool.acquire(b, s, force=True,
+                         demand_bytes=pool.member_bytes(s, req.batch, span) if pool.paged
+                         else None)
+    rows = pool.admit_request_rows(arena, req.batch, prompt=req.context, span=span, eager=True)
+    rows_t = torch.tensor(rows, device=dev)
+    lengths = torch.tensor([req.context] * req.batch + [1] * (b - req.batch),
+                           dtype=torch.int32, device=dev)
+    logits, pkv = srv.model.prefill(
+        srv.params, torch.ones((b, s), dtype=torch.int32, device=dev), lengths=lengths)
+    first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    pool.write_rows(arena, rows, pkv, src_rows=range(len(rows)))
+    toks = torch.ones((b, 1), dtype=torch.int32, device=dev)
+    pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+    toks[rows_t] = first[:len(rows)]
+    pos[rows_t] = req.context
+    step = make_decode_step(srv.model, page=srv.page_size, seq_len=s, decode_kernel=kernel)
+    out = [first[:req.batch]]
+    for t in range(req.new_tokens - 1):
+        pool.ensure_decode_slots(arena, rows, req.context + t)
+        tables = arena.tables
+        logits, _ = (step(srv.params, arena.cache, toks, pos) if tables is None
+                     else step(srv.params, arena.cache, toks, pos, tables))
+        toks = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        pos = pos + 1
+        out.append(toks[rows_t])
+    last = logits[:, -1][rows_t].float()
+    tokens = torch.cat(out, dim=1).cpu().numpy()
+    pool.free_rows(arena, rows)
+    pool.release(arena)
+    return tokens, last
+
+
+def check_graphed_against_eager(srv, requests, outs, label: str) -> None:
+    """Each served request's token stream (graphed decode through the plan
+    cache) byte-identical to the same request decoded eagerly, and its
+    final logits within the phase's tolerance."""
+    import torch
+
+    for req, out in zip(requests, outs):
+        tokens, last = eager_handle(srv, req)
+        if not np.array_equal(tokens, out["tokens"].cpu().numpy()):
+            fail(f"{label} {req.batch}x{req.context}: graphed and eager token streams differ")
+        if not torch.allclose(out["last_logits"].float(), last, atol=1e-3, rtol=1e-3):
+            fail(f"{label} {req.batch}x{req.context}: graphed and eager final logits differ")
+    print(f"  {label}: graphed == eager (make_decode_step tick by tick) on "
+          f"{len(requests)} requests")
+
+
+def check_free_while_queued(srv) -> None:
+    """A row freed while a later graphed tick is queued: two one-row
+    tenants decode from a zero cache in one (2, 128) arena; the stream is
+    held busy, tick 3 is queued behind it, and the first tenant's row is
+    freed (its host table entries rewritten) before tick 3 has run. Tick 3
+    must still read the table as it was: every token up to tick 3, and the
+    other tenant's tokens throughout, equal the same ticks run eagerly with
+    no row freed."""
+    import torch
+
+    from repro_torch.runtime.graph_step import tick
+    from repro_torch.runtime.serve_loop import make_decode_step
+
+    entry = srv.decode_entry(2, 100)
+    b, s = entry.key.batch_bucket, entry.key.seq_bucket
+    eager_step = make_decode_step(srv.model, page=srv.page_size, seq_len=s,
+                                  decode_kernel=_eager_kernel(entry.plan))
+    runs, busy = {}, None
+    for graphed in (True, False):
+        arena = srv.pool.acquire(b, s, zero=True, force=True, demand_bytes=0.0)
+        gone = srv.pool.admit_request_rows(arena, 1, prompt=0, span=100, eager=True)
+        kept = srv.pool.admit_request_rows(arena, 1, prompt=0, span=100, eager=True)
+        if graphed:
+            toks, pos = entry.step_fn.buffers(arena)
+        else:
+            toks = torch.empty((b, 1), dtype=torch.int32, device=srv.device)
+            pos = torch.empty((b,), dtype=torch.int32, device=srv.device)
+        toks.fill_(1)
+        pos.zero_()
+        seen = []
+        for t in range(6):
+            if graphed:
+                if t == 3:
+                    torch.cuda._sleep(200_000_000)     # ~0.1 s of device time
+                entry.step_fn(srv.params, arena, toks, pos)
+            else:
+                tick(eager_step, srv.params, arena.cache, arena.tables, toks, pos)
+            seen.append(toks[:, 0].clone())
+            if graphed and t == 3:
+                busy = not torch.cuda.current_stream().query()
+                srv.pool.free_rows(arena, gone, early=True)
+        runs[graphed] = torch.stack(seen, dim=1)[:len(gone) + len(kept)].cpu()
+        srv.pool.free_rows(arena, kept if graphed else gone + kept)
+        srv.pool.release(arena)
+    g, e = runs[True], runs[False]
+    print(f"  freed a row while tick 3 was queued (stream busy at the free: {busy}): "
+          f"graphed {g.tolist()}, eager {e.tolist()}")
+    if not (torch.equal(g[:, :4], e[:, :4]) and torch.equal(g[kept[0]], e[kept[0]])):
+        fail("a row freed while a graphed tick was queued changed what that tick read")
+
+
 def phase_serve_check():
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as PA
     from repro_torch.runtime.engine_config import EngineConfig
     from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
 
-    phase("serve-check: Yi-6B widths, 2 layers, float32, paged == gather == ref")
+    phase("serve-check: Yi-6B widths, 2 layers, float32: graphed == eager; "
+          "paged == gather == ref == auto")
     cfg = get_config("yi-6b").replace(num_layers=2)
     streams, logits = {}, {}
     params = None
-    for kernel in ("paged", "gather", "ref"):
+    requests = [ServeRequest(batch, ctx, new_tokens=8) for batch, ctx in CHECK_REQUESTS]
+    for kernel in ("paged", "gather", "ref", "auto"):
         srv = PlanServer(cfg, config=EngineConfig(dtype="float32", prefill=True,
                                                   page_size=64, decode_kernel=kernel,
                                                   seed=SEED))
         if params is None:
             params = srv.params
         srv.params = params
-        outs = [srv.handle(ServeRequest(batch, ctx, new_tokens=8))
-                for batch, ctx in CHECK_REQUESTS]
+        PA.paged_decode_attention.launches = 0
+        outs = [srv.handle(r) for r in requests]
+        chosen = [o["plan"].explain_axes()["decode_kernel"] for o in outs]
+        want = cfg.num_layers * sum(o["decode_steps"] for o, k in zip(outs, chosen)
+                                    if k == "paged")
         streams[kernel] = [o["tokens"].cpu().numpy() for o in outs]
         logits[kernel] = [o["last_logits"].float() for o in outs]
-        print(f"  {kernel}: {[s.tolist() for s in streams[kernel]]}")
+        print(f"  {kernel}: plans chose {chosen}; {[s.tolist() for s in streams[kernel]]}; "
+              f"{PA.paged_decode_attention.launches} paged launches (expected {want})")
+        if PA.paged_decode_attention.launches != want:
+            fail(f"decode_kernel={kernel}: paged launches "
+                 f"{PA.paged_decode_attention.launches} != {want}")
+        check_graphed_against_eager(srv, requests, outs, f"decode_kernel={kernel}")
+        if kernel == "paged":
+            check_free_while_queued(srv)
         del srv
-    for kernel in ("gather", "ref"):
+    for kernel in ("gather", "ref", "auto"):
         for a, c in zip(streams["paged"], streams[kernel]):
             if not np.array_equal(a, c):
                 fail(f"token streams differ between paged and {kernel}")
         for a, c in zip(logits["paged"], logits[kernel]):
             if not torch.allclose(a, c, atol=1e-3, rtol=1e-3):
                 fail(f"final logits differ between paged and {kernel}")
-    print("  token streams identical across paged, gather and ref")
+    print("  token streams identical across paged, gather, ref and auto")
     del params, logits
     torch.cuda.empty_cache()
 
 
-def phase_serve():
+def serve_passes(srv, cfg, decode_kernel=None) -> dict:
+    """Serves ``SERVE_REQUESTS`` (32 new tokens each) twice through
+    ``PlanServer.handle``. The first pass compiles each bucket's plans and
+    captures its decode graph (``metrics.compile_seconds`` holds both); the
+    second is the steady state: cache hits and one graph replay per tick.
+    Each request's tokens and logits are checked, each pass's kernel
+    launches held against the layer count, the plans' decode kernels and
+    the ticks. Fails where ``decode_kernel`` is given and a plan chose
+    another operator. Returns the launches of both passes."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.runtime.serve_loop import ServeRequest
+
+    wrappers = {"flash_attention": FA.flash_attention,
+                "paged_decode_attention": PA.paged_decode_attention,
+                "ssd_scan": SSD.ssd_scan}
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    pattern = cfg.layer_pattern()
+    n_attn, n_ssd = pattern.count("a"), pattern.count("s")
+    total = dict.fromkeys(wrappers, 0)
+    for label in ("first pass: plans compiled, decode graphs captured",
+                  "second pass: steady state, cache hits and graph replays"):
+        requests = [ServeRequest(b, c, new_tokens=32) for b, c in SERVE_REQUESTS]
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        m0 = srv.metrics.as_dict()
+        outs = [srv.handle(r) for r in requests]
+        m1 = srv.metrics.as_dict()
+        got = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+        chosen = [o["plan"].explain_axes()["decode_kernel"] for o in outs]
+        if decode_kernel is not None and set(chosen) != {decode_kernel}:
+            fail(f"the plans chose decode kernels {chosen}; every bucket must choose "
+                 f"{decode_kernel}")
+        want = {"flash_attention": n_attn * len(requests),
+                "paged_decode_attention": n_attn * sum(
+                    o["decode_steps"] for o, k in zip(outs, chosen) if k == "paged"),
+                "ssd_scan": n_ssd * len(requests)}
+        print(f"  {label}: compile + capture {m1['compile_seconds'] - m0['compile_seconds']:.3f} s; "
+              f"plan cache +{m1['hits'] - m0['hits']} hits, +{m1['compiles'] - m0['compiles']} "
+              f"compiles, {m1['recompiles']} recompiles")
+        report_requests(cfg, requests, outs)
+        print(f"    launches {got} (expected {want})")
+        if got != want:
+            fail(f"kernel launches {got} != {want}")
+        for k in total:
+            total[k] += got[k]
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({held / 2**30:.2f} GiB held before the passes; the rest arenas, prompt passes "
+          f"and the decode graphs' private pools); {srv.summary()}")
+    return total
+
+
+def phase_serve(fit) -> dict:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import paged_attention as PA
     from repro_torch.runtime.engine_config import EngineConfig
     from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
 
     cfg = get_config("yi-6b")
-    phase(f"serve: {cfg.name}, {cfg.num_layers} layers, bfloat16, page 64, paged decode")
+    phase(f"serve: {cfg.name}, {cfg.num_layers} layers, bfloat16, page 64, "
+          "decode_kernel=auto, one CUDA graph per bucket")
     t0 = time.perf_counter()
     srv = PlanServer(cfg, config=EngineConfig(dtype="bfloat16", prefill=True, page_size=64,
-                                              decode_kernel="paged", seed=SEED))
+                                              decode_kernel="auto", seed=SEED))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in srv.params.values())
     print(f"  weights: {n_params / 1e9:.2f} B parameters, random from seed {SEED}, "
           f"built in {time.perf_counter() - t0:.1f} s")
     srv.handle(ServeRequest(1, 16, new_tokens=2))     # warm-up: cuBLAS, allocator
-    torch.cuda.reset_peak_memory_stats()
-
-    FA.flash_attention.launches = 0
-    PA.paged_decode_attention.launches = 0
-    requests = [ServeRequest(b, c, new_tokens=32) for b, c in SERVE_REQUESTS]
-    outs = [srv.handle(r) for r in requests]
-    launches = {"flash_attention": FA.flash_attention.launches,
-                "paged_decode_attention": PA.paged_decode_attention.launches}
-    report_requests(cfg, requests, outs)
-    steps = sum(o["decode_steps"] for o in outs)
-    want = {"flash_attention": cfg.num_layers * len(requests),
-            "paged_decode_attention": cfg.num_layers * steps}
-    print(f"  launches {launches} (expected {want}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    if launches != want:
-        fail(f"kernel launches {launches} != {want}")
-    trace_decode(srv, requests)
+    # the planner's own terms put paged 7x or more below gather at these
+    # buckets: a plan that chose gather takes the kernel off the main path
+    launches = serve_passes(srv, cfg, decode_kernel="paged")
+    trace_decode(srv, [ServeRequest(b, c, new_tokens=32) for b, c in SERVE_REQUESTS])
+    planner_on_card(srv, fit)
     del srv
     torch.cuda.empty_cache()
-    return launches
+    return {k: launches[k] for k in ("flash_attention", "paged_decode_attention")}
 
 
 def report_requests(cfg, requests, outs) -> None:
     """Checks each served request's tokens and logits and prints its
-    prefill ms, decode ms/step and tokens per second."""
+    bucket, plan's decode kernel, prefill ms, decode ms/step and tokens per
+    second."""
     import torch
 
     for req, out in zip(requests, outs):
@@ -967,11 +1161,75 @@ def report_requests(cfg, requests, outs) -> None:
         if not bool(((tok >= 0) & (tok < cfg.vocab_size)).all()):
             fail(f"request {req.batch}x{req.context}: token out of the vocabulary")
         dec_ms = out["decode_s"] * 1e3 / max(1, steps)
-        print(f"  req {req.batch}x{req.context} -> bucket={out['bucket']} "
-              f"prefill {out['prefill_s'] * 1e3:.1f} ms | decode {dec_ms:.2f} ms/step "
+        print(f"    req {req.batch}x{req.context} -> bucket={out['bucket']} decode kernel "
+              f"{out['plan'].explain_axes()['decode_kernel']} | prefill "
+              f"{out['prefill_s'] * 1e3:.1f} ms | decode {dec_ms:.2f} ms/step "
               f"({steps} steps, {req.batch * steps / out['decode_s']:.1f} tok/s) | "
               f"total {out['latency_s'] * 1e3:.1f} ms, "
               f"{req.batch * req.new_tokens / out['latency_s']:.1f} tok/s")
+
+
+def fit_dispatch(paged: dict) -> dict:
+    """The H100's paged-dispatch figure from phase 3: the paged kernel's
+    profiler device time minus its byte bound, over the (row, kv head, page)
+    steps of the shape, at the Yi serving shape and at the (1, 1024) bucket;
+    printed beside ``core/cost.py``'s ``PAGED_STEP_LATENCY_S``."""
+    from repro_torch.core import cost
+
+    fit = {}
+    for label, t in paged["timed"].items():
+        dev = t["device_ms"] if t["device_ms"] is not None else t["ms"]
+        fit[label] = (dev - t["bound_ms"]) * 1e-3 / t["steps"]
+        print(f"  paged dispatch fit, {label}: ({dev:.5f} - {t['bound_ms']:.5f}) ms / "
+              f"{t['steps']} steps = {fit[label]:.3e} s per step "
+              f"({'device time' if t['device_ms'] is not None else 'event median'})")
+    print(f"  core/cost.py PAGED_STEP_LATENCY_S = {cost.PAGED_STEP_LATENCY_S:.3e} s")
+    return fit
+
+
+def planner_on_card(srv, fit) -> None:
+    """For each serving bucket the planner's analytic decode-attention
+    seconds of both operators (``selection_trace``: every attention layer of
+    one tick) beside their measured device time at the bucket's shape
+    (profiler, L2 flushed before each call, one call times the attention
+    layers), mid-decode. Printed, not gated."""
+    import torch
+
+    from repro_torch.config import InputShape
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import attention as ATT
+
+    cfg = srv.cfg
+    n_attn = cfg.layer_pattern().count("a")
+    hq, hkv, d, g = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.q_per_kv
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    print("  planner on the card (per tick, all attention layers; measured = one call's "
+          "device time x layers):")
+    for b, c in SERVE_REQUESTS:
+        bb, s = srv.buckets(b, c + 32)
+        rec = srv.compiler.selection_trace(cfg, InputShape("bucket", s, bb, "decode"))
+        q, k, v, tables, posv = _paged_inputs(bb, hq, hkv, d, srv.page_size, s,
+                                              [c + 16] * b + [0] * (bb - b),
+                                              torch.bfloat16, 12)
+
+        def gather():
+            ke, ve = ATT.paged_gather_kv(k, v, tables, srv.page_size, s, pos=posv)
+            return ATT.decode_attention(q, ke.repeat_interleave(g, dim=2),
+                                        ve.repeat_interleave(g, dim=2), posv)
+
+        measured = {}
+        for op, fn in (("paged", lambda: PA.paged_decode_attention(
+                q, k, v, tables, posv, page=srv.page_size, sc=s)), ("gather", gather)):
+            times = traced_kernels(fn, calls=5, flush=flush)
+            ms = sum(t for name, t in times.items() if "FillFunctor<unsigned char>" not in name)
+            measured[op] = ms * n_attn if times else None
+        fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"  # noqa: E731
+        print(f"    bucket ({bb}, {s}): planner paged_s {rec['paged_s'] * 1e3:.4f} ms, gather_s "
+              f"{rec['gather_s'] * 1e3:.4f} ms -> {rec['kernel']}; measured paged "
+              f"{fmt(measured['paged'])}, gather {fmt(measured['gather'])}")
+        del q, k, v, tables, posv
+    print(f"  fitted dispatch figures: {', '.join(f'{k} {v:.3e} s' for k, v in fit.items())}")
+    del flush
 
 
 # ---------------------------------------------------------------------------
@@ -988,16 +1246,17 @@ def phase_serve_check_ssm():
     from repro_torch.runtime.engine_config import EngineConfig
     from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
 
-    phase("serve-check-ssm: Mamba-2 1.3B widths, 2 layers, float32, SSD kernel == plain")
+    phase("serve-check-ssm: Mamba-2 1.3B widths, 2 layers, float32: SSD kernel == plain, "
+          "graphed == eager, auto == paged")
     cfg = get_config("mamba2-1.3b").replace(num_layers=2)
     srv = PlanServer(cfg, config=EngineConfig(dtype="float32", prefill=True, page_size=64,
                                               seed=SEED))
+    requests = [ServeRequest(batch, ctx, new_tokens=8) for batch, ctx in CHECK_REQUESTS]
     streams, logits = {}, {}
     for backend in ("auto", "torch"):
         ops.BACKEND = backend
         launches0 = SSD.ssd_scan.launches
-        outs = [srv.handle(ServeRequest(batch, ctx, new_tokens=8))
-                for batch, ctx in CHECK_REQUESTS]
+        outs = [srv.handle(r) for r in requests]
         streams[backend] = [o["tokens"].cpu().numpy() for o in outs]
         logits[backend] = [o["last_logits"].float() for o in outs]
         launched = SSD.ssd_scan.launches - launches0
@@ -1005,6 +1264,8 @@ def phase_serve_check_ssm():
               f"({launched} ssd_scan launches)")
         if launched != (cfg.num_layers * len(CHECK_REQUESTS) if backend == "auto" else 0):
             fail(f"ops.BACKEND={backend!r}: {launched} ssd_scan launches")
+        if backend == "auto":
+            check_graphed_against_eager(srv, requests, outs, "Mamba-2, decode_kernel=auto")
     ops.BACKEND = "auto"
     for a, c in zip(streams["auto"], streams["torch"]):
         if not np.array_equal(a, c):
@@ -1013,6 +1274,14 @@ def phase_serve_check_ssm():
         if not torch.allclose(a, c, atol=1e-3, rtol=1e-3):
             fail("final logits differ between the SSD kernel and its plain version")
     print("  token streams identical with the kernel and with its plain version")
+    paged = PlanServer(cfg, config=EngineConfig(dtype="float32", prefill=True, page_size=64,
+                                                decode_kernel="paged", seed=SEED))
+    paged.params = srv.params
+    for req, a in zip(requests, streams["auto"]):
+        if not np.array_equal(paged.handle(req)["tokens"].cpu().numpy(), a):
+            fail("token streams differ between decode_kernel=auto and paged")
+    print("  token streams identical under decode_kernel=auto and paged")
+    del paged
 
     # handle() prompts with all ones, which this tied-embedding model at
     # random weights echoes; random prompts at mixed lengths hold the kernel
@@ -1056,41 +1325,23 @@ def phase_serve_ssm():
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import paged_attention as PA
-    from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.runtime.engine_config import EngineConfig
     from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
 
     cfg = get_config("mamba2-1.3b")
-    phase(f"serve-ssm: {cfg.name}, {cfg.num_layers} layers, bfloat16, page 64, SSD kernel")
+    phase(f"serve-ssm: {cfg.name}, {cfg.num_layers} layers, bfloat16, page 64, SSD kernel, "
+          "decode_kernel=auto, one CUDA graph per bucket")
     t0 = time.perf_counter()
     srv = PlanServer(cfg, config=EngineConfig(dtype="bfloat16", prefill=True, page_size=64,
-                                              seed=SEED))
+                                              decode_kernel="auto", seed=SEED))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in srv.params.values())
     print(f"  weights: {n_params / 1e9:.2f} B parameters, random from seed {SEED}, "
           f"built in {time.perf_counter() - t0:.1f} s")
     srv.handle(ServeRequest(1, 16, new_tokens=2))     # warm-up: cuBLAS, allocator
-    torch.cuda.reset_peak_memory_stats()
-
-    FA.flash_attention.launches = 0
-    PA.paged_decode_attention.launches = 0
-    SSD.ssd_scan.launches = 0
-    requests = [ServeRequest(b, c, new_tokens=32) for b, c in SERVE_REQUESTS]
-    outs = [srv.handle(r) for r in requests]
-    launches = {"ssd_scan": SSD.ssd_scan.launches,
-                "flash_attention": FA.flash_attention.launches,
-                "paged_decode_attention": PA.paged_decode_attention.launches}
-    report_requests(cfg, requests, outs)
-    want = {"ssd_scan": cfg.num_layers * len(requests), "flash_attention": 0,
-            "paged_decode_attention": 0}
-    print(f"  launches {launches} (expected {want}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; pool peak "
-          f"{srv.pool.metrics.peak_bytes / 2**20:.1f} MiB of recurrent state")
-    if launches != want:
-        fail(f"kernel launches {launches} != {want}")
-    trace_decode(srv, requests)
+    launches = serve_passes(srv, cfg)
+    print(f"  pool peak {srv.pool.metrics.peak_bytes / 2**20:.1f} MiB of recurrent state")
+    trace_decode(srv, [ServeRequest(b, c, new_tokens=32) for b, c in SERVE_REQUESTS])
     del srv
     torch.cuda.empty_cache()
     return {"ssd_scan": launches["ssd_scan"]}
@@ -1322,11 +1573,18 @@ def trace_decode(srv, requests) -> None:
     ``PlanServer.handle`` names its prefill and decode phases as spans that
     end after the device has finished them; a phase's device time is the
     union of the device events that start inside its span, its idle share
-    the rest of the span."""
+    the rest of the span.
+
+    The replayed graphs' launches are held against the device: the decode
+    span must hold one paged split-kernel event per attention layer and
+    tick where the plan chose paged, none elsewhere. A trace that misses
+    (a session can drop device events) is taken again, up to
+    ``TRACE_ATTEMPTS`` times; the phase fails if none holds that count."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.runtime.serve_loop import DECODE_SPAN, PREFILL_SPAN, ServeRequest
 
+    n_attn = srv.cfg.layer_pattern().count("a")
     print("  trace (torch.profiler, each request served once more in its bucket, "
           f"with at least {TRACE_NEW_TOKENS} new tokens):")
     for full in requests:
@@ -1334,13 +1592,42 @@ def trace_decode(srv, requests) -> None:
         n = next(n for n in range(TRACE_NEW_TOKENS, full.new_tokens + 1)
                  if srv.buckets(full.batch, full.context + n) == bucket)
         req = ServeRequest(full.batch, full.context, new_tokens=n)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            out = srv.handle(req)
         shape = f"{req.batch}x{req.context}"
-        events = prof.events()
-        for span, n in ((PREFILL_SPAN, 1), (DECODE_SPAN, out["decode_steps"])):
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = srv.handle(req)
+            events = prof.events()
+            steps = out["decode_steps"]
+            paged = out["plan"].explain_axes()["decode_kernel"] == "paged"
+            want = n_attn * steps if paged else 0
+            got = paged_split_events(events, DECODE_SPAN)
+            if got == want:
+                break
+            print(f"    req {shape}: trace {attempt} holds {got} paged split-kernel events "
+                  f"in the decode span, expected {want}")
+        else:
+            fail(f"req {shape}: no trace in {TRACE_ATTEMPTS} held {want} paged "
+                 f"split-kernel launches ({n_attn} attention layers x {steps} ticks)")
+        for span, n in ((PREFILL_SPAN, 1), (DECODE_SPAN, steps)):
             span_report(events, span, n,
                         f"req {shape} bucket={out['bucket']} {span.split('.')[1]}")
+        print(f"    req {shape}: {got / steps:.0f} paged split-kernel events per tick "
+              f"on the device ({n_attn} attention layers)")
+
+
+def paged_split_events(events, span: str):
+    """The paged decode split-kernel events (one per wrapper call; the
+    combine kernel left out) that start inside the CPU span ``span``, or
+    None where the trace holds no such span."""
+    from torch.autograd import DeviceType
+
+    found = [e.time_range for e in events if e.name == span and e.device_type == DeviceType.CPU]
+    if not found:
+        return None
+    lo, hi = found[0].start, found[0].end
+    return sum(1 for e in events if e.device_type == DeviceType.CUDA
+               and lo <= e.time_range.start < hi
+               and ("paged_mma_kernel" in e.name or "paged_split_kernel" in e.name))
 
 
 def span_report(events, span: str, n: int, label: str) -> None:
@@ -1394,8 +1681,9 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     kernels = phase_kernels()
+    fit = fit_dispatch(kernels["paged_decode_attention"])
     phase_serve_check()
-    launches = phase_serve()
+    launches = phase_serve(fit)
     phase_serve_check_ssm()
     launches.update(phase_serve_ssm())
     phase_lenet_check()

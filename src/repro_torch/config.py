@@ -1,7 +1,8 @@
 """Configuration dataclasses of the PyTorch port.
 
 A copy of the parts of ``repro.config`` the port needs (``ModelConfig``,
-``reduced_config``, ``InputShape``, ``MeshConfig``, ``HardwareSpec``): the
+``reduced_config``, ``InputShape``, ``INPUT_SHAPES``, ``MeshConfig`` with the
+named meshes and ``mesh_config``, ``TrainConfig``, ``HardwareSpec``): the
 port imports nothing of the JAX package, and the machine that runs it has no
 JAX at all. ``tests/test_torch_boundaries.py`` holds the copy equal to the
 original for every architecture id. ``HardwareSpec`` keeps the reference's
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Hardware characteristics
@@ -75,7 +76,13 @@ class MeshConfig:
         return 1
 
 
+SINGLE_POD_MESH = MeshConfig(shape=(16, 16), axis_names=("data", "model"))
+MULTI_POD_MESH = MeshConfig(shape=(2, 16, 16), axis_names=("pod", "data", "model"))
 SINGLE_DEVICE_MESH = MeshConfig(shape=(1,), axis_names=("data",))
+
+
+def mesh_config(multi_pod: bool = False) -> MeshConfig:
+    return MULTI_POD_MESH if multi_pod else SINGLE_POD_MESH
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +100,14 @@ class InputShape:
     @property
     def is_decode(self) -> bool:
         return self.kind == "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -269,3 +284,24 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     if cfg.frontend == "vision":
         kw.update(num_frontend_tokens=16)
     return cfg.replace(**kw)
+
+
+# ---------------------------------------------------------------------------
+# Training / serving run configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "adam"          # one of repro_torch.nn.optim's optimizers
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    microbatch: Optional[int] = None  # per-step microbatch (grad accumulation)
+    remat: bool = True
+    seed: int = 0
+    steps: int = 100
+    log_every: int = 10
+    # planner knobs (None = let the compiler decide, SystemML-style)
+    force_strategy: Optional[str] = None
+    opt_state_dtype: Optional[str] = None  # "float32" | "bfloat16" | None=auto

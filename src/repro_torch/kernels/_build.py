@@ -13,6 +13,10 @@ so an edited source rebuilds and an unchanged one is reused. A failed build
 raises with the compiler's output; nothing falls back to a plain version.
 Each C entry point returns its ``cudaError_t`` (0 on success), which the
 kernel wrappers check after every launch.
+
+Each wrapper counts its launches in ``fn.launches`` and registers itself in
+:data:`COUNTED` through :func:`counted`; a CUDA graph's capture and replays
+adjust the counts of every registered wrapper (``runtime/graph_step.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -33,6 +37,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+# every kernel wrapper that counts its launches in ``fn.launches``
+COUNTED: List[Callable] = []
+
+
+def counted(fn: Callable) -> Callable:
+    """Registers ``fn`` as a kernel wrapper that adds one to
+    ``fn.launches`` where it launches its kernel; the count starts at 0."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
 
 
 def _nvcc() -> str:

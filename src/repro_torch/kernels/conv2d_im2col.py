@@ -97,6 +97,7 @@ def _check(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int) -> None:
         raise ValueError("conv2d kernel takes contiguous x and w")
 
 
+@_build.counted
 def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                   pad: int = 0) -> torch.Tensor:
     """Kernel wrapper: launches ``csrc/conv2d_im2col.cu`` on a CUDA tensor
@@ -121,9 +122,6 @@ def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     if err:
         raise RuntimeError(f"conv2d_im2col launch failed: cudaError_t {err}")
     return out
-
-
-conv2d_im2col.launches = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:

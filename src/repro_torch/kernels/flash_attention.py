@@ -161,6 +161,7 @@ def _check(q, k, v, hw_smem: int) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+@_build.counted
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     q_offset: int = -1) -> torch.Tensor:
@@ -189,9 +190,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError_t {err}")
     return out
-
-
-flash_attention.launches = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:

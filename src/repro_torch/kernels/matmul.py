@@ -100,6 +100,7 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("matmul kernel takes contiguous (row-major) operands")
 
 
+@_build.counted
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Kernel wrapper: launches ``csrc/matmul.cu`` on a CUDA tensor
     (counting the launch in ``matmul.launches``), runs :func:`matmul_torch`
@@ -125,9 +126,6 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"matmul launch failed: cudaError_t {err}")
     return out
-
-
-matmul.launches = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:

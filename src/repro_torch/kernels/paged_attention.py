@@ -226,6 +226,7 @@ def _check(q, k_cache, v_cache, tables, pos, page, sc) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+@_build.counted
 def paged_decode_attention(
     q: torch.Tensor,        # (B, 1, Hq, D) — one new token per row
     k_cache: torch.Tensor,  # (n_slots, Hkv, D) flat slot stack
@@ -271,9 +272,6 @@ def paged_decode_attention(
     if err:
         raise RuntimeError(f"paged_decode launch failed: cudaError_t {err}")
     return out
-
-
-paged_decode_attention.launches = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:

@@ -212,6 +212,7 @@ def _check(x, dt, a, b_mat, c_mat, d, chunk: int, sm_count: int = H100_SMS) -> i
     return pt
 
 
+@_build.counted
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
              c_mat: torch.Tensor, d: torch.Tensor, *, chunk: int = MAX_CHUNK) -> torch.Tensor:
     """Kernel wrapper: launches ``csrc/ssd_scan.cu`` on a CUDA tensor
@@ -239,9 +240,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Te
     if err:
         raise RuntimeError(f"ssd_scan launch failed: cudaError_t {err}")
     return y
-
-
-ssd_scan.launches = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:

@@ -1,8 +1,9 @@
 """Serving launcher of the PyTorch port: the sequential request stream.
 
 Requests of varying (batch, context) go one by one through
-``PlanServer.handle`` — bucket, arena, row admission, prefill, handoff
-write, paged decode — on the GPU unless ``--device`` names another. The
+``PlanServer.handle`` — the bucket's cached plan, arena, row admission,
+prefill, handoff write, decode (one CUDA graph replay per tick on the card),
+dynamic recompilation — on the GPU unless ``--device`` names another. The
 default arch is the reference launcher's, ``mamba2-1.3b-smoke``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b-smoke \\
@@ -11,7 +12,7 @@ default arch is the reference launcher's, ``mamba2-1.3b-smoke``:
         --shapes 2x100,1x40 --device cpu
 
 The reference's single-shot and ``--scheduler`` modes run through its
-serving engine, which this port brings in slice 2.
+serving engine, which the port brings with ``ROADMAP.md`` Queue A 9.
 """
 
 from __future__ import annotations
@@ -42,7 +43,11 @@ def _parse_shapes(spec: str):
 
 def serve_stream(args) -> None:
     config = EngineConfig(dtype=args.dtype, seed=args.seed, prefill=args.prefill,
-                          page_size=args.page_size, decode_kernel=args.decode_kernel)
+                          page_size=args.page_size, decode_kernel=args.decode_kernel,
+                          enable_cache=not args.no_cache,
+                          cache_capacity=args.cache_capacity,
+                          pool_arenas=args.pool_arenas,
+                          recompile_margin=args.recompile_margin)
     srv = PlanServer(get_config(args.arch), config=config, device=args.device)
     mix = _parse_shapes(args.shapes) if args.shapes else DEFAULT_SHAPE_MIX
     rng = random.Random(args.seed)
@@ -50,14 +55,17 @@ def serve_stream(args) -> None:
             for _ in range(args.requests)]
     print(f"# stream: {args.arch}, {args.requests} requests over shape mix {mix} on "
           f"{srv.device} ({args.dtype}, page={args.page_size}, "
-          f"decode_kernel={args.decode_kernel}, prefill={args.prefill})")
+          f"decode_kernel={args.decode_kernel}, prefill={args.prefill}, "
+          f"cache={'off' if args.no_cache else args.cache_capacity})")
     for i, req in enumerate(reqs):
         out = srv.handle(req)
         n = out["tokens"].shape[1]
         fin = "" if out["finish_reason"] == "length" else f" [{out['finish_reason']}]"
+        flag = "  RECOMPILED: " + "; ".join(out["recompile_reasons"]) if out["recompiled"] else ""
         print(f"req[{i:03d}] batch={req.batch} ctx={req.context} -> "
               f"bucket={out['bucket']} {out['latency_s'] * 1e3:8.1f}ms "
-              f"(prefill {out['prefill_s'] * 1e3:.1f}ms, {n} tokens){fin}")
+              f"(prefill {out['prefill_s'] * 1e3:.1f}ms, {n} tokens, decode kernel "
+              f"{out['plan'].explain_axes()['decode_kernel']}){fin}{flag}")
     print(srv.summary())
 
 
@@ -75,12 +83,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help='request mix as "BxC,BxC,..." (default: built-in mix)')
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
+    ap.add_argument("--no-cache", action="store_true",
+                    help="disable the plan cache (A/B baseline): every request "
+                         "compiles its plan and builds its step anew")
+    ap.add_argument("--cache-capacity", type=int, default=16)
+    ap.add_argument("--pool-arenas", type=int, default=4,
+                    help="KV-cache pool arenas the compile-time memory "
+                         "statistics are provisioned for (pool growth past "
+                         "them triggers dynamic recompilation)")
     ap.add_argument("--page-size", type=int, default=64)
-    ap.add_argument("--decode-kernel", default="paged",
-                    choices=DECODE_KERNELS,
-                    help="paged = hand-written CUDA paged-decode kernel (its "
-                         "plain version on the CPU); gather = gathered view + "
-                         "dense decode attention; ref = the oracle")
+    ap.add_argument("--decode-kernel", default="auto", dest="decode_kernel",
+                    choices=("auto",) + DECODE_KERNELS,
+                    help="auto = the planner picks per bucket from the analytic "
+                         "cost terms; paged = hand-written CUDA paged-decode "
+                         "kernel (its plain version on the CPU); gather = "
+                         "gathered view + dense decode attention; ref = the oracle")
+    ap.add_argument("--recompile-margin", type=float, default=0.25,
+                    help="dynamic-recompilation watermark margin")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds model init and the request mix")
     ap.add_argument("--device", default=None,
@@ -92,7 +111,8 @@ def main():
     args = build_parser().parse_args()
     if not args.stream:
         raise SystemExit("only --stream is ported so far; the single-shot and "
-                         "--scheduler modes come with the serving engine in slice 2")
+                         "--scheduler modes come with the serving engine "
+                         "(ROADMAP.md Queue A 9)")
     serve_stream(args)
 
 

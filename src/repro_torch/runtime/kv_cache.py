@@ -12,8 +12,10 @@ Port of ``repro/runtime/kv_cache.py``:
   prefill→decode handoff write) and accounts page-exact live bytes.
 
 Row and page bookkeeping is host-side (numpy); the device holds the slot
-stacks and an int32 page table, uploaded lazily when the host table changed.
-The handoff write updates the arena's tensors in place. Recurrent state
+stacks and an int32 page table. Each paged arena owns one device table for
+its whole life, copied over in place from the host table when that changed
+(a captured decode graph reads the table at the address it was captured
+with). The handoff write updates the arena's tensors in place. Recurrent state
 (the SSM family's SSD state and conv tails) keeps its per-row layout in a
 paged arena: a pure-recurrent arena has no pages, no allocator and no page
 table, and its rows are charged ``row_nbytes`` each.
@@ -24,7 +26,7 @@ from __future__ import annotations
 import heapq
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -142,7 +144,9 @@ class CacheArena:
         self._row_slots: Dict[int, int] = {}   # valid slots per row
         self._tables_np = (np.full((batch, self.max_pages), n_pages, np.int32)
                            if self.paging else None)
-        self._tables: Optional[torch.Tensor] = None
+        self._tables: Optional[torch.Tensor] = (
+            torch.empty(self._tables_np.shape, dtype=torch.int32, device=self.device)
+            if self.paging else None)
         self._tables_dirty = self.paging
 
     @property
@@ -199,13 +203,20 @@ class CacheArena:
         return (self.pages_committed * self.page_nbytes
                 + self.rows_used * self.row_nbytes)
 
+    def used_slots(self) -> int:
+        return sum(self._row_slots.values())
+
     @property
     def tables(self) -> Optional[torch.Tensor]:
-        """Device page table, re-uploaded lazily: admissions and page grants
-        mutate the host table and only mark it dirty. None for an arena with
-        no paged entries."""
+        """The arena's device page table: one tensor for the arena's life,
+        brought up to date in place when admissions, page grants or releases
+        changed the host table. The copy is a blocking one from pageable
+        memory on the current stream: it runs after every tick already
+        queued there (which read the table as it was) and returns once the
+        host table has been read, so the host may rewrite it at once. None
+        for an arena with no paged entries."""
         if self._tables_dirty:
-            self._tables = torch.tensor(self._tables_np, device=self.device)
+            self._tables.copy_(torch.from_numpy(self._tables_np))
             self._tables_dirty = False
         return self._tables
 
@@ -310,6 +321,9 @@ class KVCachePool:
     def __init__(self, model, device, *, max_arenas: int = 0,
                  max_bytes: float = 0.0, max_free: int = 4, page_size: int = 0):
         self.model = model
+        # called with each arena the pool evicts, before its buffers go
+        # (the server drops the decode graphs captured on it)
+        self.on_evict: List[Callable[[CacheArena], None]] = []
         self.device = torch.device(device)
         self.max_arenas = max_arenas
         self.max_bytes = max_bytes
@@ -369,6 +383,12 @@ class KVCachePool:
         """Bytes committed to requests (page-exact when paged)."""
         return sum(a.live_nbytes() for a in self._leased)
 
+    def bytes_room(self) -> float:
+        """Byte budget headroom for further commitments (inf: unbounded)."""
+        if not self.max_bytes:
+            return math.inf
+        return max(0.0, self.max_bytes - self.live_bytes())
+
     def total_bytes(self) -> float:
         """Leased plus pooled-free bytes (a fully-freed paged arena commits
         no pages, so holding it for recycling charges nothing)."""
@@ -379,13 +399,32 @@ class KVCachePool:
     def arena_count(self) -> int:
         return len(self._leased) + len(self._pooled)
 
+    def occupancy(self) -> float:
+        """Fraction of leased-arena rows holding live requests."""
+        total = sum(a.batch for a in self._leased)
+        used = sum(a.rows_used for a in self._leased)
+        return used / total if total else 0.0
+
+    def slot_utilization(self) -> float:
+        """Fraction of leased page slots holding valid cache entries (the
+        internal-fragmentation complement, at page-grant granularity)."""
+        leased = sum(a.pages_leased for a in self._leased) * self.page_size
+        used = sum(a.used_slots() for a in self._leased)
+        return used / leased if leased else 1.0
+
     def pages_live(self) -> int:
         return sum(a.pages_committed for a in self._leased)
 
     # -- lease lifecycle ---------------------------------------------------
     def _evict_free(self, count: int = 1) -> int:
+        """Drop up to ``count`` least-recently-released free arenas (their
+        device buffers go with them, after the ``on_evict`` callbacks).
+        Returns how many were evicted."""
         n = min(count, len(self._pooled))
         if n:
+            for arena in self._pooled[:n]:
+                for hook in self.on_evict:
+                    hook(arena)
             del self._pooled[:n]
             self.metrics.arenas_evicted += n
         return n
@@ -394,6 +433,32 @@ class KVCachePool:
         if self.max_arenas and self.arena_count >= self.max_arenas:
             return True
         return bool(self.max_bytes and self.total_bytes() + nbytes > self.max_bytes)
+
+    def can_acquire(self, batch: int, seq: int,
+                    demand_bytes: Optional[float] = None) -> bool:
+        pooled = any((a.batch, a.seq) == (batch, seq) for a in self._pooled)
+        if self.paged:
+            need = (demand_bytes if demand_bytes is not None
+                    else self.member_bytes(seq, batch, seq))
+            if self.max_bytes and self.live_bytes() + need > self.max_bytes:
+                return False
+            if pooled:
+                return True
+            if self.max_arenas and len(self._leased) >= self.max_arenas:
+                return False
+            return True
+        if pooled:
+            return True
+        nbytes = self.arena_bytes(batch, seq)
+        if not self._budget_blocks(nbytes):
+            return True
+        # free arenas of other buckets are evictable — only *leased* memory
+        # can genuinely refuse a lease
+        if self.max_arenas and len(self._leased) >= self.max_arenas:
+            return False
+        if self.max_bytes and self.live_bytes() + nbytes > self.max_bytes:
+            return False
+        return True
 
     def _build_arena(self, batch: int, seq: int) -> CacheArena:
         if not self.paged:
@@ -552,3 +617,22 @@ class KVCachePool:
             else:
                 v.index_copy_(1, rows_idx, src)
         self.metrics.handoff_writes += 1
+
+    def zero_rows(self, arena: CacheArena, rows: Sequence[int]) -> None:
+        """Clear ``rows``' state in place — for tenants without a handoff
+        write landing on rows recycled mid-lease, whose recurrent state would
+        otherwise leak into them. Paged entries are cleared through the
+        rows' page tables (slots on uncommitted pages are skipped)."""
+        rows_l = list(rows)
+        dev = arena.device
+        rows_idx = torch.tensor(rows_l, dtype=torch.long, device=dev)
+        phys_idx = None
+        for k, v in arena.cache.items():
+            if arena.page and k in arena.paged_keys:
+                if phys_idx is None:
+                    phys = arena.phys_slots(rows_l).reshape(-1)
+                    phys_idx = torch.tensor(phys[phys < v.shape[1]], dtype=torch.long,
+                                            device=dev)
+                v.index_fill_(1, phys_idx, 0)
+            else:
+                v.index_fill_(1, rows_idx, 0)

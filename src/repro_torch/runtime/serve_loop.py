@@ -1,40 +1,56 @@
-"""Serving runtime: prefill + paged decode (port of
+"""Serving runtime: prefill + paged decode under a plan (port of
 ``repro/runtime/serve_loop.py``).
 
-:class:`PlanServer` is the sequential front door. Its :meth:`PlanServer.handle`
-runs one request the way the reference's ``ServingEngine`` runs it for
-``PlanServer.handle`` (no mid-decode joins, whole-span pages committed at
-admission):
+:class:`PlanServer` is the dynamic-recompilation serving session: requests
+round up to power-of-two (batch, span) buckets, each bucket's plan and step
+live in a :class:`~repro_torch.core.plan_cache.PlanCache` entry, and the
+observed runtime statistics feed back into the plan compiler when they
+breach the plan's compile-time estimates. On the card each decode entry's
+step is one CUDA graph per arena (``runtime.graph_step``); prefill entries
+hold the eager prompt pass.
 
-1. round the request up to its (batch, span) power-of-two bucket;
+:meth:`PlanServer.handle` runs one request the way the reference's
+``ServingEngine`` runs it for ``PlanServer.handle`` (no mid-decode joins,
+whole-span pages committed at admission):
+
+1. draw the request's decode entry from the cache (its bucket's plan);
 2. acquire an arena of that bucket from the KV-cache pool;
 3. admit the request's rows (pages for the whole span);
-4. prefill the prompt (with ``prefill=True``);
+4. prefill the prompt through the bucket's prefill entry (with
+   ``prefill=True``);
 5. scatter the prefill's cache into the rows (the handoff write: K/V through
    the page tables, recurrent state and conv tails row by row);
-6. decode greedily on the paged tables, one step per token (a
-   pure-recurrent arena has no page table and decodes its rows directly).
+6. decode greedily, one tick per token, through the entry's step;
+7. free the rows and observe the request's runtime statistics (dynamic
+   recompilation), then return the arena to the pool.
 
-The plan compiler, plan cache, dynamic recompilation, the engine with its
-scheduler and metrics come in slice 2; until then each bucket's step is the
-eager model call.
+The serving engine (continuous batching, the scheduler) comes with
+``ROADMAP.md`` Queue A 9.
 """
 
 from __future__ import annotations
 
 import itertools
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
-from repro_torch.core.plan_cache import BucketPolicy, bucket_pow2
+from repro_torch.config import (SINGLE_DEVICE_MESH, HardwareSpec, InputShape, MeshConfig,
+                                ModelConfig)
+from repro_torch.core.plan_cache import (BucketPolicy, CacheEntry, PlanCache, PlanKey,
+                                         bucket_pow2)
+from repro_torch.core.planner import PlanCompiler
+from repro_torch.core.strategies import ExecutionPlan, RuntimeStats
+from repro_torch.hw import H100
 from repro_torch.models.model import build_model
 from repro_torch.runtime.engine_config import EngineConfig
+from repro_torch.runtime.graph_step import build_decode_step
 from repro_torch.runtime.kv_cache import KVCachePool
+from repro_torch.runtime.metrics import LatencyStats, pool_summary, serve_summary
 
 # names of PlanServer.handle's phases as torch.profiler spans
 PREFILL_SPAN = "PlanServer.prefill"
@@ -160,33 +176,198 @@ class _StopState:
 
 
 class PlanServer:
-    """Sequential serving session over a paged KV-cache pool.
+    """Serving session that amortizes plan compilation across requests.
+
+    Request flow (the reference's SystemML recompilation loop):
+
+    1. the request shape rounds up to its power-of-two bucket
+       (:class:`BucketPolicy`) and forms a :class:`PlanKey`;
+    2. cache hit → reuse the bucket's compiled plan and step; miss → one
+       planner walk and one step build, installed in the LRU cache (on the
+       card the step captures its CUDA graph at its first tick on an arena,
+       and that capture time is billed to ``metrics.compile_seconds``);
+    3. after execution, observed :class:`RuntimeStats` (live-bytes
+       watermark, actual shape) are checked against the plan's compile-time
+       estimates; a breach beyond ``recompile_margin`` re-enters the
+       compiler with runtime-corrected statistics and installs the new
+       plan — at most once per divergence.
+
+    With ``enable_cache=False`` every request pays the full compile path
+    (and, on the card, a fresh capture).
 
     ``device`` defaults to ``cuda`` and raises when there is no card; the
-    tests pass ``device="cpu"``. Parameters come from ``SpecBuilder.init``
-    with a ``torch.Generator`` seeded from ``config.seed``; callers may
-    replace ``server.params`` (for example with weights converted from the
-    reference by ``repro_torch.interop``)."""
+    tests pass ``device="cpu"``. ``hw`` sizes the planner's statistics
+    (default: the H100). Parameters come from ``SpecBuilder.init`` with a
+    ``torch.Generator`` seeded from ``config.seed``; callers may replace
+    ``server.params`` (for example with weights converted from the reference
+    by ``repro_torch.interop``), which drops every captured graph."""
 
-    def __init__(self, cfg: ModelConfig, *, config: Optional[EngineConfig] = None,
+    def __init__(self, cfg: ModelConfig, mesh_cfg: Optional[MeshConfig] = None, *,
+                 hw: HardwareSpec = H100, config: Optional[EngineConfig] = None,
                  device=None, policy: BucketPolicy = BucketPolicy()):
         self.config = config if config is not None else EngineConfig()
         c = self.config
         self.cfg = cfg
+        self.mesh_cfg = mesh_cfg or SINGLE_DEVICE_MESH
         self.device = resolve_device(device)
         self.dtype = c.torch_dtype()
+        self.dtype_name = c.dtype
         self.model = build_model(cfg, dtype=self.dtype)
+        # every decode step built, so graphs can be dropped with their
+        # arena or their weights
+        self._decode_steps = weakref.WeakSet()
         gen = torch.Generator(device=self.device).manual_seed(c.seed)
         self.params = self.model.init_params(gen)
-        self.page_size = c.page_size
-        self.pool_arenas = c.pool_arenas
-        self.pool = KVCachePool(self.model, self.device,
-                                max_arenas=c.pool_max_arenas,
+        # block-granular paged arenas (0 = row-granular)
+        self.page_size = max(0, int(c.page_size))
+        # compile-time cache statistics are sized for a pool provisioned
+        # with ``pool_arenas`` concurrent bucket arenas; the pool's live
+        # bytes are checked against them at observe() time
+        self.pool_arenas = max(1, c.pool_arenas)
+        self.compiler = PlanCompiler(hw, cache_pool_arenas=self.pool_arenas,
+                                     cache_page_size=self.page_size,
+                                     decode_kernel=c.decode_kernel,
+                                     donate_cache=True)
+        self.pool = KVCachePool(self.model, self.device, max_arenas=c.pool_max_arenas,
                                 max_bytes=c.pool_max_bytes, page_size=self.page_size)
+        # drops an evicted arena's graphs (closes over the steps, not the
+        # server, so the server is freed as soon as its last reference goes)
+        steps = self._decode_steps
+        self.pool.on_evict.append(lambda arena: [st.drop(arena) for st in list(steps)])
+        self.cache = PlanCache(capacity=c.cache_capacity)
+        self.metrics = self.cache.metrics
+        self.latency = LatencyStats()
+        self.enable_cache = c.enable_cache
+        self.recompile_margin = c.recompile_margin
         self.policy = policy
         self.prefill = c.prefill
-        self.decode_kernel = c.decode_kernel
-        self.latencies: List[float] = []
+
+    # ------------------------------------------------------------------
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return self._params
+
+    @params.setter
+    def params(self, params: Dict[str, torch.Tensor]) -> None:
+        """New weights: every graph captured with the old ones goes."""
+        self._params = params
+        self._params_bytes = float(sum(t.nbytes for t in params.values()))
+        for step in list(self._decode_steps):
+            step.clear()
+
+    # ------------------------------------------------------------------
+    def _build_step(self, plan: ExecutionPlan):
+        """The entry's step: the eager prompt pass for a prefill plan; for a
+        decode plan the tick of ``runtime.graph_step`` (a CUDA graph per
+        arena on the card), with the plan's decode-attention operator."""
+        if plan.shape.kind == "prefill":
+            return make_prefill(self.model)
+        kernel = plan.config.decode_kernel
+        step = build_decode_step(
+            make_decode_step(self.model, page=self.page_size, seq_len=plan.shape.seq_len,
+                             decode_kernel=kernel if kernel in ("paged", "ref") else "gather"),
+            self.device)
+        self._decode_steps.add(step)
+        return step
+
+    def _compile_entry(self, key: PlanKey) -> CacheEntry:
+        t0 = time.perf_counter()
+        plan = self.compiler.compile(self.cfg, key.bucket_shape(), self.mesh_cfg,
+                                     dtype=self.dtype_name)
+        entry = CacheEntry(key=key, plan=plan, step_fn=self._build_step(plan))
+        self.metrics.compile_seconds += time.perf_counter() - t0
+        return entry
+
+    def _key_for(self, batch: int, context: int, kind: str) -> PlanKey:
+        shape = InputShape(f"req_{batch}x{context}", context, batch, kind)
+        return PlanKey.for_request(self.cfg, self.mesh_cfg, self.dtype_name, shape,
+                                   self.policy)
+
+    def _entry_for(self, key: PlanKey) -> CacheEntry:
+        if self.enable_cache:
+            return self.cache.get_or_compile(key, lambda: self._compile_entry(key))
+        # pre-cache behaviour: full planner walk + a fresh step
+        self.metrics.misses += 1
+        self.metrics.compiles += 1
+        return self._compile_entry(key)
+
+    def decode_entry(self, batch: int, context: int) -> CacheEntry:
+        """Bucketed decode plan + its decode step (cache-backed)."""
+        return self._entry_for(self._key_for(batch, context, "decode"))
+
+    def prefill_entry(self, batch: int, context: int) -> CacheEntry:
+        """Bucketed prefill plan + its prompt pass from the same cache
+        (``PlanKey.kind`` keeps the key spaces disjoint)."""
+        return self._entry_for(self._key_for(batch, context, "prefill"))
+
+    def run_prefill(self, entry: CacheEntry, tokens=None, lengths=None):
+        """Execute a cached prefill plan at its bucket shape; returns
+        ``(logits, cache)``: per-row last-prompt-position logits
+        ``(batch_bucket, vocab)`` plus the populated decode cache.
+        ``tokens`` defaults to all ones and ``lengths`` (the per-row prompt
+        length inside the padded bucket) to the full bucket width. Waits
+        for the device."""
+        b, s = entry.key.batch_bucket, entry.key.seq_bucket
+        if tokens is None:
+            tokens = torch.ones((b, s), dtype=torch.int32, device=self.device)
+        if lengths is None:
+            lengths = torch.full((b,), s, dtype=torch.int32, device=self.device)
+        logits, kv = entry.step_fn(self.params, {"tokens": tokens, "lengths": lengths})
+        _sync(self.device)
+        return logits, kv
+
+    def prefill_first_token(self, batch: int, context: int,
+                            lengths=None) -> Tuple[torch.Tensor, Any]:
+        """Prompt pass through the cached prefill plan; returns the greedy
+        first decode token per bucket row ``(batch_bucket, 1)`` and the
+        populated decode cache for the handoff."""
+        entry = self.prefill_entry(batch, context)
+        logits, kv = self.run_prefill(entry, lengths=lengths)
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], kv
+
+    # ------------------------------------------------------------------
+    def observed_stats(self, entry: CacheEntry, shape: InputShape, toks,
+                       double_buffer_bytes: float = 0.0) -> RuntimeStats:
+        """Measured runtime statistics for one executed request: the live-
+        bytes watermark per device (params + the *whole* KV-cache pool +
+        in-flight tokens) and the pool's own per-device bytes. Each tensor
+        class only divides across the devices the plan shards it over.
+        ``double_buffer_bytes``: extra cache-class bytes observed live during
+        a tick (0 here: the port's step updates the cache in place)."""
+        cfgp = entry.plan.config
+        mesh = self.mesh_cfg
+        param_div = 1
+        if cfgp.tensor_parallel or cfgp.expert_parallel:
+            param_div *= mesh.model_parallelism
+        if cfgp.params_over_data:
+            param_div *= mesh.data_parallelism
+        kv_div = 1
+        for ax, sz in zip(mesh.axis_names, mesh.shape):
+            if ax in cfgp.cache_batch_axes or ax in cfgp.cache_seq_axes:
+                kv_div *= sz
+        if cfgp.cache_heads_over_model:
+            kv_div *= mesh.model_parallelism
+        pool_bytes = self.pool.live_bytes()
+        watermark = (self._params_bytes / param_div
+                     + (pool_bytes + double_buffer_bytes + toks.nbytes) / kv_div)
+        return RuntimeStats(shape=shape, watermark_bytes=watermark,
+                            cache_pool_bytes=pool_bytes / kv_div)
+
+    def observe(self, key: PlanKey, stats: RuntimeStats
+                ) -> Tuple[Optional[CacheEntry], Tuple[str, ...]]:
+        """Feed observed runtime statistics back into the cache (dynamic
+        recompilation). Compile time is billed only when ``refresh``
+        actually re-entered the compiler."""
+        if not self.enable_cache:
+            return None, ()
+        t_r = time.perf_counter()
+        recompiles_before = self.metrics.recompiles
+        refreshed, reasons = self.cache.refresh(
+            key, stats, self.compiler, margin=self.recompile_margin,
+            build_step=self._build_step, policy=self.policy)
+        if self.metrics.recompiles > recompiles_before:
+            self.metrics.compile_seconds += time.perf_counter() - t_r
+        return refreshed, reasons
 
     def buckets(self, batch: int, span: int) -> Tuple[int, int]:
         """(batch bucket, seq bucket) a request shape rounds up to."""
@@ -199,22 +380,7 @@ class PlanServer:
         power-of-two boundary from overflowing its rows mid-decode)."""
         return req.context + req.new_tokens
 
-    def run_prefill(self, batch_bucket: int, seq_bucket: int, tokens=None,
-                    lengths=None):
-        """Prompt pass at a bucket shape; returns ``(logits, cache)``:
-        per-row last-prompt-position logits ``(batch_bucket, vocab)`` plus
-        the populated decode cache. ``tokens`` defaults to all ones and
-        ``lengths`` to the full bucket width. Waits for the device."""
-        b, s = batch_bucket, seq_bucket
-        if tokens is None:
-            tokens = torch.ones((b, s), dtype=torch.int32, device=self.device)
-        if lengths is None:
-            lengths = torch.full((b,), s, dtype=torch.int32, device=self.device)
-        logits, kv = make_prefill(self.model)(
-            self.params, {"tokens": tokens, "lengths": lengths})
-        _sync(self.device)
-        return logits, kv
-
+    # ------------------------------------------------------------------
     def handle(self, req: ServeRequest) -> Dict[str, Any]:
         """Serve one request synchronously; returns tokens + accounting.
 
@@ -222,11 +388,14 @@ class PlanServer:
         and its greedy token opens the output; decode step 0 consumes it at
         the prompt's position. Without it the request decodes from a zero
         cache (the decode-only request shape) and emits ``new_tokens``
-        decode outputs."""
+        decode outputs. The returned keys are the reference's (``plan``,
+        ``recompiled``, ``recompile_reasons``, ``watermark_bytes``,
+        ``pool_bytes`` among them) plus the phase timings."""
         t0 = time.perf_counter()
         dev = self.device
         span = self.request_span(req)
-        b, s = self.buckets(req.batch, span)
+        entry = self.decode_entry(req.batch, span)
+        b, s = entry.key.batch_bucket, entry.key.seq_bucket
         demand = (self.pool.member_bytes(s, req.batch, span)
                   if self.pool.paged else None)
         arena = self.pool.acquire(b, s, zero=not self.prefill, force=True,
@@ -235,8 +404,11 @@ class PlanServer:
             arena, req.batch, prompt=req.context if self.prefill else 0,
             span=span, eager=True)
         rows_t = torch.tensor(rows, dtype=torch.long, device=dev)
-        toks = torch.ones((b, 1), dtype=torch.int32, device=dev)
-        pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+        step = entry.step_fn
+        capture_s = step.capture_seconds
+        toks, pos = step.buffers(arena)
+        toks.fill_(1)
+        pos.zero_()
         stops = _StopState(req)
         out: List[torch.Tensor] = []
         reason = None
@@ -249,7 +421,8 @@ class PlanServer:
                 lengths = torch.tensor([req.context] * req.batch
                                        + [1] * (b - req.batch),
                                        dtype=torch.int32, device=dev)
-                logits, pkv = self.run_prefill(b, s, lengths=lengths)
+                logits, pkv = self.run_prefill(self.prefill_entry(req.batch, span),
+                                               lengths=lengths)
                 first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
                 self.pool.write_rows(arena, rows, pkv, src_rows=range(len(rows)))
                 del pkv
@@ -261,52 +434,51 @@ class PlanServer:
             reason = stops.check(out[-1])
 
         base_pos = req.context if self.prefill else 0
-        step = make_decode_step(self.model, page=self.page_size, seq_len=s,
-                                decode_kernel=self.decode_kernel)
         t1 = time.perf_counter()
         steps = 0
         with torch.profiler.record_function(DECODE_SPAN):
             while reason is None and len(out) < req.new_tokens:
                 if self.pool.paged:
                     self.pool.ensure_decode_slots(arena, rows, base_pos + steps)
-                    logits, _ = step(self.params, arena.cache, toks, pos, arena.tables)
-                else:
-                    logits, _ = step(self.params, arena.cache, toks, pos)
-                toks = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-                pos = pos + 1
+                logits = step(self.params, arena, toks, pos)
                 steps += 1
+                # the emitted tokens leave the step's buffer before the next tick
                 out.append(toks[rows_t])
                 reason = stops.check(out[-1])
             tokens = (torch.cat(out, dim=1) if out
                       else torch.zeros((req.batch, 0), dtype=torch.int32, device=dev))
+            last = None
+            if logits is not None:
+                last = logits[:, -1] if logits.dim() == 3 else logits
+                last = last[rows_t]
             _sync(dev)
-        t_end = time.perf_counter()
+        t_decode = time.perf_counter() - t1
+        self.metrics.compile_seconds += step.capture_seconds - capture_s
+        # the sequential engine's retire: rows go back, the observed
+        # statistics feed dynamic recompilation, then the arena returns
         self.pool.free_rows(arena, rows, early=reason is not None)
+        shape = InputShape(f"group_{req.batch}x{req.context}", s, req.batch, "decode")
+        stats = self.observed_stats(entry, shape, toks)
+        refreshed, reasons = self.observe(entry.key, stats)
         self.pool.release(arena)
-        self.latencies.append(t_end - t0)
-        last = None
-        if logits is not None:
-            last = logits[:, -1] if logits.dim() == 3 else logits
-            last = last[rows_t]
+        latency = time.perf_counter() - t0
+        self.latency.record(latency)
         return {
             "tokens": tokens,
-            "latency_s": t_end - t0,
-            "prefill_s": t_prefill,
-            "decode_s": t_end - t1,
-            "decode_steps": steps,
+            "latency_s": latency,
             "bucket": (b, s),
+            "plan": (refreshed or entry).plan,
+            "recompiled": bool(reasons),
+            "recompile_reasons": reasons,
+            "watermark_bytes": stats.watermark_bytes,
+            "pool_bytes": stats.cache_pool_bytes,
             "finish_reason": reason or "length",
-            "last_logits": last,
             "rid": req.rid,
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "decode_steps": steps,
+            "last_logits": last,
         }
 
     def summary(self) -> str:
-        m = self.pool.metrics
-        lat = sorted(self.latencies)
-        p50 = lat[len(lat) // 2] * 1e3 if lat else 0.0
-        return (f"served {len(lat)} requests | latency p50={p50:.1f}ms "
-                f"max={(lat[-1] * 1e3 if lat else 0.0):.1f}ms | kv_pages "
-                f"leased={m.pages_leased} freed={m.pages_freed} "
-                f"peak={m.peak_pages} | arenas created={m.arenas_created} "
-                f"reused={m.arenas_reused} | rows leased={m.rows_leased} "
-                f"handoff_writes={m.handoff_writes}")
+        return serve_summary(self.metrics, self.latency) + "\n" + pool_summary(self.pool)

@@ -1,8 +1,9 @@
 """PyTorch port, package boundaries: the port, ``chip_smoke.py`` and the
 port's ``tools/`` scripts import neither JAX nor the JAX package; the
-port's copied configs stay equal to the reference's; entry points refuse
-to fall back to the CPU silently; and what this slice does not port yet
-says so instead of half-working."""
+port's copied configs stay equal to the reference's; the serving CLI's
+defaults are the reference launcher's; entry points refuse to fall back to
+the CPU silently; and what this slice does not port yet says so instead of
+half-working."""
 
 import ast
 import dataclasses
@@ -12,12 +13,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro import config as jax_config_module  # noqa: E402
 from repro.configs import ARCH_IDS as JAX_ARCH_IDS  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.configs import lenet as jax_lenet  # noqa: E402
 from repro.configs import softmax_classifier as jax_softmax  # noqa: E402
+from repro_torch import config as port_config_module  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, lenet, softmax_classifier  # noqa: E402
 from repro_torch.frontend import Keras2Plan  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime import serve_loop  # noqa: E402
 from repro_torch.runtime.engine_config import EngineConfig  # noqa: E402
@@ -70,6 +74,49 @@ def test_config_copy_equals_reference(arch):
     assert ours.layer_pattern() == ref.layer_pattern()
 
 
+@pytest.mark.parametrize("name,args", [
+    ("INPUT_SHAPES", None), ("SINGLE_POD_MESH", None), ("MULTI_POD_MESH", None),
+    ("SINGLE_DEVICE_MESH", None), ("mesh_config", (False,)), ("mesh_config", (True,)),
+    ("TrainConfig", ())])
+def test_planner_config_copy_equals_reference(name, args):
+    """The shapes, meshes and training defaults the planner reads."""
+    ours, ref = getattr(port_config_module, name), getattr(jax_config_module, name)
+    if args is not None:
+        ours, ref = ours(*args), ref(*args)
+    if isinstance(ours, dict):
+        assert {k: dataclasses.asdict(v) for k, v in ours.items()} == \
+            {k: dataclasses.asdict(v) for k, v in ref.items()}
+    else:
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+        if hasattr(ours, "num_devices"):
+            assert (ours.num_devices, ours.data_axes, ours.data_parallelism,
+                    ours.model_parallelism) == (ref.num_devices, ref.data_axes,
+                                                ref.data_parallelism,
+                                                ref.model_parallelism)
+
+
+def _reference_cli_default(option: str):
+    """The default of ``option`` in the reference launcher's parser, read
+    from its source (``repro/launch/serve.py``), which stays as it is."""
+    for node in ast.walk(ast.parse((ROOT / "src/repro/launch/serve.py").read_text())):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument"
+                and node.args and isinstance(node.args[0], ast.Constant)
+                and node.args[0].value == option):
+            return next(ast.literal_eval(kw.value) for kw in node.keywords
+                        if kw.arg == "default")
+    raise AssertionError(f"{option} not in the reference launcher's parser")
+
+
+@pytest.mark.parametrize("option,dest", [("--decode-kernel", "decode_kernel"),
+                                         ("--cache-capacity", "cache_capacity"),
+                                         ("--pool-arenas", "pool_arenas"),
+                                         ("--recompile-margin", "recompile_margin")])
+def test_serve_cli_plan_cache_defaults_follow_the_reference(option, dest):
+    default = getattr(serve_cli.build_parser().parse_args([]), dest)
+    assert default == _reference_cli_default(option)
+    assert default == getattr(EngineConfig(), dest)
+
+
 @pytest.mark.parametrize("port,ref,kwargs", [
     (lenet, jax_lenet, {}),
     (lenet, jax_lenet, {"input_shape": (1, 16, 16), "num_classes": 5}),
@@ -98,8 +145,11 @@ def test_keras2plan_runs_on_the_card_unless_told_otherwise(monkeypatch):
 
 
 def test_unported_parts_raise_and_name_their_slice():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        EngineConfig(decode_kernel="auto")
+    # the planner is ported: "auto" is the default and accepted
+    assert EngineConfig().decode_kernel == "auto"
+    assert EngineConfig(decode_kernel="auto").decode_kernel == "auto"
+    with pytest.raises(ValueError, match="decode_kernel"):
+        EngineConfig(decode_kernel="fused")
     with pytest.raises(NotImplementedError, match="slice 3"):
         build_model(get_config("recurrentgemma-2b-smoke"))
     assert build_model(get_config("mamba2-1.3b-smoke")).is_ssm   # ported

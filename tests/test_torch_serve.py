@@ -126,7 +126,8 @@ def test_plan_server_matches_jax(prefill, page):
 @pytest.mark.parametrize("kernel", ["gather", "ref"])
 def test_decode_kernels_serve_identical_streams(kernel):
     jsrv = _jax_server(True)
-    paged, other = _port_server(jsrv), _port_server(jsrv, decode_kernel=kernel)
+    paged = _port_server(jsrv, decode_kernel="paged")
+    other = _port_server(jsrv, decode_kernel=kernel)
     for batch, context in ((1, 40), (3, 70)):
         a = paged.handle(ServeRequest(batch, context, new_tokens=6))
         b = other.handle(ServeRequest(batch, context, new_tokens=6))
@@ -212,3 +213,93 @@ def test_pool_budgets_and_on_demand_pages_match_jax():
         tp.free_rows(ta, trows[:1], early=True)
         assert tp.metrics.as_dict() == jp.metrics.as_dict()
         assert tp.live_bytes() == jp.live_bytes()
+
+
+def test_freeing_a_row_leaves_a_queued_ticks_table_alone():
+    """An arena keeps one device page table for its life (a captured decode
+    graph reads it at a fixed address). Freeing a row while a later tick is
+    queued rewrites only the host table: the device table the queued tick
+    reads keeps its entries until the next tick brings it up to date, in
+    place, on the stream after the queued one. The other rows' entries
+    never move, and neither do their tokens."""
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.kv_cache import KVCachePool
+    from repro_torch.runtime.serve_loop import make_decode_step
+
+    tm = build_model(get_config(ARCH), dtype=torch.float32)
+    params = tm.init_params(torch.Generator().manual_seed(0))
+    streams = {}
+    for free_early in (False, True):
+        pool = KVCachePool(tm, "cpu", page_size=16)
+        arena = pool.acquire(4, 64, demand_bytes=0.0)
+        gone = pool.admit_request_rows(arena, 2, prompt=0, span=50, eager=True)
+        kept = pool.admit_request_rows(arena, 2, prompt=0, span=50, eager=True)
+        step = make_decode_step(tm, page=16, seq_len=64, decode_kernel="paged")
+        toks = torch.ones((4, 1), dtype=torch.int32)
+        pos = torch.zeros((4,), dtype=torch.int32)
+        queued = arena.tables
+        ptr, before = queued.data_ptr(), queued.clone()
+        out = []
+        for t in range(6):
+            logits, _ = step(params, arena.cache, toks, pos, arena.tables)
+            toks = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            pos = pos + 1
+            out.append(toks[kept])
+            if free_early and t == 2:
+                pool.free_rows(arena, gone, early=True)
+                assert torch.equal(queued, before)        # the queued tick's view
+                now = arena.tables
+                assert now is queued and now.data_ptr() == ptr
+                assert (now[gone] == arena.n_pages).all()
+                assert torch.equal(now[kept], before[kept])
+        streams[free_early] = torch.cat(out, dim=1)
+    assert torch.equal(streams[True], streams[False])
+
+
+@pytest.mark.parametrize("page,budget", [(16, {}), (16, dict(max_bytes=2.0e5)),
+                                         (0, dict(max_arenas=2))])
+def test_pool_occupancy_room_and_zero_rows_match_jax(page, budget):
+    """The pool's read-outs and ``zero_rows`` (rows recycled mid-lease):
+    ``can_acquire``, ``occupancy``, ``slot_utilization``, ``used_slots``,
+    ``bytes_room`` as the reference's, and the cleared rows' cache entries
+    equal to the reference's after the same writes."""
+    from repro.models.model import build_model as jax_build
+    from repro.runtime.kv_cache import KVCachePool as JaxPool
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.kv_cache import KVCachePool
+
+    jm = jax_build(jax_config(ARCH), dtype=jnp.float32)
+    tm = build_model(get_config(ARCH), dtype=torch.float32)
+    jp, tp = JaxPool(jm, page_size=page, **budget), KVCachePool(tm, "cpu", page_size=page,
+                                                                **budget)
+
+    def readouts():
+        cells = [(b, s, d) for b, s in ((1, 32), (2, 64), (4, 128)) for d in (None, 1e4, 1e6)]
+        j = ([jp.can_acquire(b, s, d) for b, s, d in cells], jp.occupancy(),
+             jp.slot_utilization(), jp.bytes_room())
+        t = ([tp.can_acquire(b, s, d) for b, s, d in cells], tp.occupancy(),
+             tp.slot_utilization(), tp.bytes_room())
+        assert t == j
+
+    readouts()
+    ja, ta = jp.acquire(4, 64, demand_bytes=0.0), tp.acquire(4, 64, demand_bytes=0.0)
+    jrows = jp.admit_request_rows(ja, 3, prompt=20, span=40)
+    trows = tp.admit_request_rows(ta, 3, prompt=20, span=40)
+    assert jrows == trows
+    readouts()
+    if page:
+        assert ta.used_slots() == ja.used_slots() == 3 * 21
+    rng = np.random.default_rng(0)
+    filled = {k: rng.normal(size=tuple(v.shape)).astype(np.float32)
+              for k, v in ta.cache.items()}
+    ja.cache = {k: jnp.asarray(v) for k, v in filled.items()}
+    for k, v in filled.items():
+        ta.cache[k].copy_(torch.from_numpy(v))
+    jp.zero_rows(ja, jrows[1:])
+    tp.zero_rows(ta, trows[1:])
+    for k in filled:
+        np.testing.assert_array_equal(ta.cache[k].numpy(), np.asarray(ja.cache[k]), err_msg=k)
+    assert not np.array_equal(ta.cache["l.k"].numpy(), filled["l.k"])
+    jp.free_rows(ja, jrows[:1])
+    tp.free_rows(ta, trows[:1])
+    readouts()

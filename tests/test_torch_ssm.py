@@ -316,7 +316,7 @@ def test_serve_cli_defaults_to_mamba2_smoke(monkeypatch):
         serve_cli.main()
     out = buf.getvalue()
     assert "mamba2-1.3b-smoke" in out
-    assert out.count("req[") == 2 and "handoff_writes=2" in out
+    assert out.count("req[") == 2 and "handoffs=2" in out
 
 
 def _reference_cli_default(option: str):
