@@ -27,7 +27,12 @@ Phases, each of which must pass (nothing is caught):
               and auto decode kernels; each request's stream byte-identical
               to the same request decoded eagerly by ``make_decode_step``;
               paged launches exact per replay; a row freed while a later
-              graphed tick is queued leaves that tick's table alone;
+              graphed tick is queued leaves that tick's table alone; one
+              step-driven trace through ``ServingEngine`` (sanitizer on): an
+              (8, 256) group, mid-decode joins, a cancel, an EOS and a
+              stop-sequence exit, each stream byte-identical to the request
+              alone through ``handle`` (or its prefix), launches exact, every
+              page freed at the end;
 5. serve    — full Yi-6B (32 layers, bfloat16, random weights from a seeded
               generator) serving three requests twice through ``PlanServer``
               with ``decode_kernel="auto"``: the first pass compiles the
@@ -41,11 +46,22 @@ Phases, each of which must pass (nothing is caught):
               device held at one per attention layer and tick; then
               the planner's paged and gather seconds per bucket beside both
               operators' measured device time;
+   serve-engine — phase 5's model and weights with a pool of one arena,
+              through ``ContinuousBatchingScheduler``: a closed burst of 12
+              seeded batch-1 requests forms one (8, 2048) group, the rest
+              join as members finish, one is cancelled and one stops at
+              EOS; finish reasons, the EOS stream against the request
+              alone, a byte-identical second replay, joins, reclaimed
+              pages, the sanitizer and the launches gated; TTFT, queue and
+              exec time per request, engine ms per tick, a traced tick's
+              idle share, aggregate tok/s beside the same requests one by
+              one through ``handle``, graphs held and peak memory printed;
 6. serve-check-ssm — Mamba-2 1.3B widths cut to 2 layers, float32, through
               ``PlanServer``: identical token streams with the SSD kernel
               and with its plain version, graphed == eager, auto == paged,
               and the prefill -> decode handoff equal to a prefill one token
-              longer;
+              longer; phase 4's engine trace (SSD launches per layer and
+              prompt pass);
 7. serve-ssm — full Mamba-2 1.3B (48 layers, bfloat16, seeded random
               weights) serving the same three requests twice with graphs,
               the SSD kernel's launches checked against the layer count,
@@ -132,6 +148,24 @@ TRACE_NEW_TOKENS = 8
 # one holds the forward's kernel launches (phase_lenet)
 TRACE_SLACK_S = 0.25
 TRACE_ATTEMPTS = 3
+# the 2-layer serve-checks' engine trace, every span in the 256 bucket:
+# (batch, context, new_tokens, role); the first ENGINE_CHECK_GROUP fill an
+# (8, 256) group, the rest arrive as its rows free and join into rows that
+# the members with the fewest new tokens, the cancel and the early exits
+# free
+ENGINE_CHECK_TRACE = ((2, 150, 12, None), (1, 140, 3, None), (1, 160, 4, None),
+                      (1, 130, 10, "cancel"), (1, 170, 10, "eos"), (1, 150, 10, "stop"),
+                      (1, 120, 14, None), (1, 180, 6, None), (1, 140, 8, None),
+                      (2, 130, 5, None))
+ENGINE_CHECK_GROUP = 7
+CANCEL_AFTER = 4          # tokens a cancelled request streams first
+# serve-engine: ENGINE_REQUESTS batch-1 requests with seeded contexts and new
+# tokens, every span in (1024, 2048] so that all share the (8, 2048)
+# bucket: eight form the group, the rest join; ENGINE_CANCEL is cancelled,
+# ENGINE_EOS stops at its own 6th token
+ENGINE_REQUESTS, ENGINE_CONTEXTS, ENGINE_NEW_TOKENS = 12, (1040, 1792), (8, 48)
+ENGINE_CANCEL, ENGINE_EOS = 2, 5
+ENGINE_STEP_SPAN = "ServingEngine.step"
 _T0 = time.perf_counter()
 
 
@@ -1047,6 +1081,7 @@ def phase_serve_check():
         check_graphed_against_eager(srv, requests, outs, f"decode_kernel={kernel}")
         if kernel == "paged":
             check_free_while_queued(srv)
+            engine_trace_check(srv, "decode_kernel=paged")
         del srv
     for kernel in ("gather", "ref", "auto"):
         for a, c in zip(streams["paged"], streams[kernel]):
@@ -1233,6 +1268,311 @@ def planner_on_card(srv, fit) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the serving engine: the 2-layer traces of phases 4 and 6, and serve-engine
+# ---------------------------------------------------------------------------
+
+
+def _first_new(stream) -> int:
+    """Index of the first token that did not occur earlier (past the first),
+    else 0: where an EOS set to that token ends the stream."""
+    return next((i for i, t in enumerate(stream) if i and t not in stream[:i]), 0)
+
+
+def _first_new_pair(stream) -> int:
+    """Index of the last token of the first adjacent pair that did not occur
+    earlier (past the first pair), else 1: where a stop sequence set to that
+    pair ends the stream."""
+    pairs = list(zip(stream, stream[1:]))
+    return next((i + 1 for i, p in enumerate(pairs) if i and p not in pairs[:i]), 1)
+
+
+def _engine_case(solo, role) -> tuple:
+    """For a request whose stream alone is ``solo`` (batch, n): the
+    ``ServeRequest`` keywords of its role, the stream the engine must give
+    (a prefix of ``solo`` where the role ends it early) and the finish
+    reason."""
+    s = solo[0].tolist()
+    if role == "eos":
+        i = _first_new(s)
+        return {"eos_id": s[i]}, solo[:, :i + 1], "eos"
+    if role == "stop":
+        j = _first_new_pair(s)
+        return {"stop": ((s[j - 1], s[j]),)}, solo[:, :j + 1], "stop"
+    if role == "cancel":
+        return {}, solo[:, :CANCEL_AFTER], "cancelled"
+    return {}, solo, "length"
+
+
+def _counted_wrappers() -> dict:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ssd_scan as SSD
+
+    return {"flash_attention": FA.flash_attention,
+            "paged_decode_attention": PA.paged_decode_attention, "ssd_scan": SSD.ssd_scan}
+
+
+def engine_launches_expected(srv, ticks: int, prefills: int, bucket) -> dict:
+    """Each kernel's launches for ``ticks`` group decode ticks and
+    ``prefills`` prompt passes: flash and the SSD scan once per layer of
+    their kind and prompt pass, paged decode once per attention layer and
+    tick where the bucket's plan chose it."""
+    pattern = srv.cfg.layer_pattern()
+    n_attn, n_ssd = pattern.count("a"), pattern.count("s")
+    paged = srv.decode_entry(*bucket).plan.explain_axes()["decode_kernel"] == "paged"
+    return {"flash_attention": n_attn * prefills,
+            "paged_decode_attention": n_attn * ticks if paged else 0,
+            "ssd_scan": n_ssd * prefills}
+
+
+def engine_trace_check(srv, label: str) -> None:
+    """One step-driven trace through ``ServingEngine`` with the sanitizer
+    on: seven requests fill an (8, 256) group at ``max_group_batch`` 8; three
+    more arrive, each once the group has rows free for it, and join into
+    rows that members with fewer new tokens, a cancel (after
+    ``CANCEL_AFTER`` tokens), an EOS exit and a stop-sequence exit free.
+    Each request's stream must be byte-identical to the same request alone
+    through ``PlanServer.handle`` (a prefix of it, up to the stop, for the
+    cancel and the early exits); the
+    launches exact (flash and SSD per layer and prompt pass, paged decode per
+    attention layer and group tick); at least two joins; and at the end every
+    page leased has been freed and the pool holds no bytes."""
+    from dataclasses import replace
+
+    from repro_torch.runtime.engine import ServingEngine
+    from repro_torch.runtime.serve_loop import ServeRequest
+
+    solo = [srv.handle(ServeRequest(b, c, new_tokens=n))["tokens"].cpu().numpy()
+            for b, c, n, _ in ENGINE_CHECK_TRACE]
+    reqs, want = [], []
+    for (b, c, n, role), s in zip(ENGINE_CHECK_TRACE, solo):
+        kw, tokens, reason = _engine_case(s, role)
+        reqs.append(ServeRequest(b, c, new_tokens=n, **kw))
+        want.append((tokens, reason))
+    cancel_rid = next(r.rid for r, t in zip(reqs, ENGINE_CHECK_TRACE) if t[3] == "cancel")
+    eng = ServingEngine(srv, config=replace(srv.config, sanitize=True, max_group_batch=8))
+    wrappers = _counted_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    handoffs = srv.pool.metrics.handoff_writes
+    handles = [eng.submit(r) for r in reqs[:ENGINE_CHECK_GROUP]]
+    late = reqs[ENGINE_CHECK_GROUP:]
+    while late or not eng.idle:
+        for ev in eng.step():
+            if ev.rid == cancel_rid and ev.token is not None and ev.index + 1 >= CANCEL_AFTER:
+                eng.cancel(eng.handles[ev.rid])
+        # a late request arrives once the group has rows free for it, so the
+        # next step's join phase seats it there (before a new group forms)
+        while late and (not eng.active or eng.active[0].arena.rows_free >= late[0].batch):
+            handles.append(eng.submit(late.pop(0)))
+    got = {k: fn.launches for k, fn in wrappers.items()}
+    prefills = srv.pool.metrics.handoff_writes - handoffs
+    bucket = handles[0].result["bucket"]
+    expected = engine_launches_expected(srv, eng.decode_ticks, prefills, bucket)
+    recs = [h.result for h in handles]
+    print(f"  {label}: engine trace, {len(reqs)} requests, bucket {bucket}: "
+          f"{[(r['finish_reason'], r['joined_at_step'], r['tokens'].shape[1]) for r in recs]}; "
+          f"{eng.metrics.joins} joins, {eng.decode_ticks} ticks, {prefills} prompt passes; "
+          f"launches {got} (expected {expected})")
+    for req, rec, (tokens, reason) in zip(reqs, recs, want):
+        shape = f"{req.batch}x{req.context}+{req.new_tokens}"
+        if rec["finish_reason"] != reason:
+            fail(f"{label} engine trace {shape}: finished {rec['finish_reason']!r}, "
+                 f"expected {reason!r}")
+        if not np.array_equal(rec["tokens"].cpu().numpy(), tokens):
+            fail(f"{label} engine trace {shape}: stream {rec['tokens'].tolist()} is not the "
+                 f"request's stream alone through handle {tokens.tolist()}")
+    if got != expected:
+        fail(f"{label} engine trace: launches {got} != {expected}")
+    joined = [r for r in recs[ENGINE_CHECK_GROUP:] if r["joined_at_step"] > 0
+              and r["bucket"] == bucket]
+    if eng.metrics.joins < 2 or len(joined) < 2:
+        fail(f"{label} engine trace: {eng.metrics.joins} joins ({len(joined)} mid-decode)")
+    pm = srv.pool.metrics
+    if pm.pages_leased != pm.pages_freed or srv.pool.live_bytes() != 0:
+        fail(f"{label} engine trace: pages leased {pm.pages_leased}, freed {pm.pages_freed}, "
+             f"live bytes {srv.pool.live_bytes()}")
+    print(f"  {label}: engine streams == each request alone through handle (prefixes for "
+          f"the cancel, EOS and stop exits); sanitizer clean; pages leased == freed "
+          f"({pm.pages_leased}), live bytes 0")
+
+
+def serve_engine_trace():
+    """The serve-engine phase's requests: ``ENGINE_REQUESTS`` batch-1
+    (context, new_tokens) pairs from ``SEED``, every span in (1024, 2048]."""
+    rng = np.random.default_rng(SEED)
+    ctx = rng.integers(ENGINE_CONTEXTS[0], ENGINE_CONTEXTS[1] + 1, ENGINE_REQUESTS)
+    new = rng.integers(ENGINE_NEW_TOKENS[0], ENGINE_NEW_TOKENS[1] + 1, ENGINE_REQUESTS)
+    return [(int(c), int(n)) for c, n in zip(ctx, new)]
+
+
+def replay_engine_trace(srv, specs, eos: int) -> dict:
+    """One closed burst of ``specs`` through ``ContinuousBatchingScheduler``
+    (sanitizer on, ``max_group_batch`` 8): request ``ENGINE_EOS`` stops at
+    ``eos``, request ``ENGINE_CANCEL`` is cancelled through ``on_event``
+    after ``CANCEL_AFTER`` tokens. Launch counts are set to 0 just before
+    the run and read just after it."""
+    import torch
+    from dataclasses import replace
+
+    from repro_torch.runtime.scheduler import ContinuousBatchingScheduler, simulate_arrivals
+    from repro_torch.runtime.serve_loop import ServeRequest
+
+    reqs = [ServeRequest(1, c, new_tokens=n, eos_id=eos if i == ENGINE_EOS else None)
+            for i, (c, n) in enumerate(specs)]
+    index = {r.rid: i for i, r in enumerate(reqs)}
+    sched = ContinuousBatchingScheduler(
+        srv, config=replace(srv.config, sanitize=True, max_group_batch=8))
+    eng = sched.engine
+    ttft = {}
+
+    def on_event(ev):
+        if ev.token is None:
+            return
+        if ev.index == 0:
+            ttft[index[ev.rid]] = ev.t
+        if index[ev.rid] == ENGINE_CANCEL and ev.index + 1 >= CANCEL_AFTER:
+            eng.cancel(eng.handles[ev.rid])
+
+    wrappers = _counted_wrappers()
+    pm = srv.pool.metrics
+    handoffs, reclaimed = pm.handoff_writes, pm.pages_reclaimed
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.run(simulate_arrivals(reqs), on_event=on_event)
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    recs = {index[r["rid"]]: r for r in sched.results}
+    return {"sched": sched, "recs": recs, "ttft": ttft, "seconds": seconds,
+            "launches": launches, "ticks": eng.decode_ticks,
+            "prefills": pm.handoff_writes - handoffs,
+            "reclaimed": pm.pages_reclaimed - reclaimed,
+            "tokens": sum(r["tokens"].shape[1] for r in recs.values())}
+
+
+def phase_serve_engine(srv=None) -> None:
+    """Full Yi-6B (phase 5's configuration and weights, one pool arena: one
+    batch of 8 rows, as a card serving one model holds it) through
+    ``ContinuousBatchingScheduler``: a closed burst of ``ENGINE_REQUESTS``
+    batch-1 requests forms one (8, 2048) group and joins the rest into rows
+    its members free; one request is cancelled, one stops at EOS. Gates: the
+    expected finish reasons, the EOS stream a prefix of the same request
+    alone through handle, a second replay byte-identical, at least 4 joins
+    and pages reclaimed, the sanitizer clean, launches exact. Printed: per
+    request TTFT, queue and exec time; the scheduler summary; engine ms per
+    tick and one traced tick's device busy time and idle share; aggregate
+    output tok/s beside the same requests one by one through
+    ``PlanServer.handle``; graphs held and peak memory. ``srv`` replaces the
+    phase's server (the CPU rehearsal passes a small one)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.engine import ServingEngine
+    from repro_torch.runtime.engine_config import EngineConfig
+    from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
+
+    specs = serve_engine_trace()
+    cfg = srv.cfg if srv is not None else get_config("yi-6b")
+    config = srv.config if srv is not None else EngineConfig(
+        dtype="bfloat16", prefill=True, page_size=64, decode_kernel="auto", seed=SEED,
+        pool_max_arenas=1)
+    phase(f"serve-engine: {cfg.name}, {cfg.num_layers} layers, {config.dtype}, page "
+          f"{config.page_size}, decode_kernel={config.decode_kernel}, pool_max_arenas="
+          f"{config.pool_max_arenas}, {len(specs)} requests through ContinuousBatchingScheduler")
+    if srv is None:
+        t0 = time.perf_counter()
+        srv = PlanServer(cfg, config=config)
+        srv.handle(ServeRequest(1, 16, new_tokens=2))     # warm-up: cuBLAS, allocator
+        print(f"  weights random from seed {SEED} (phase 5's), server built and warmed up in "
+              f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    # the same requests one by one through handle: the sequential baseline
+    # and each request's stream alone; one short request first compiles the
+    # (1, 2048) plans and captures that bucket's graph
+    srv.handle(ServeRequest(1, ENGINE_CONTEXTS[0], new_tokens=2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solo = [srv.handle(ServeRequest(1, c, new_tokens=n))["tokens"].cpu().numpy()
+            for c, n in specs]
+    seq_s = time.perf_counter() - t0
+    seq_tokens = sum(n for _, n in specs)
+    eos = int(solo[ENGINE_EOS][0, 5])
+    runs = [replay_engine_trace(srv, specs, eos) for _ in range(2)]
+    run = runs[0]
+    recs = run["recs"]
+    expected = engine_launches_expected(srv, run["ticks"], run["prefills"], (8, 2048))
+    print(f"  trace: {len(specs)} x batch 1, (context, new tokens) {specs}; request "
+          f"{ENGINE_CANCEL} cancelled after {CANCEL_AFTER} tokens, request {ENGINE_EOS} "
+          f"stops at eos {eos} (its 6th token alone)")
+    for i, (c, n) in enumerate(specs):
+        r = recs[i]
+        same = np.array_equal(r["tokens"].cpu().numpy(), solo[i][:, :r["tokens"].shape[1]])
+        print(f"    req {i} 1x{c}+{n}: bucket={r['bucket']} joined@{r['joined_at_step']} "
+              f"{r['finish_reason']} {r['tokens'].shape[1]} tokens | TTFT "
+              f"{run['ttft'][i] * 1e3:.1f} ms, queue {r['queue_s'] * 1e3:.1f} ms, exec "
+              f"{r['exec_s'] * 1e3:.1f} ms | stream {'==' if same else '!='} alone (prefix)")
+    print("  " + run["sched"].summary().replace("\n", "\n  "))
+    m = run["sched"].metrics
+    print(f"  engine: {run['ticks']} group ticks, {run['prefills']} prompt passes in "
+          f"{run['seconds'] * 1e3:.1f} ms ({run['seconds'] * 1e3 / run['ticks']:.2f} ms per tick "
+          f"with the prompt passes, inter-token p50 {m.itl_latency.percentile(50) * 1e3:.2f} ms "
+          f"/ mean {m.itl_latency.mean() * 1e3:.2f} ms); launches {run['launches']} (expected "
+          f"{expected}); second replay {runs[1]['seconds'] * 1e3:.1f} ms")
+    rates = [r["tokens"] / r["seconds"] for r in runs]
+    print(f"  aggregate output: engine {run['tokens']} tokens, {rates[0]:.1f} tok/s in the "
+          f"first replay (the group's graph captured in it), {rates[1]:.1f} tok/s in the "
+          f"second; sequential through handle {seq_tokens} tokens in {seq_s:.3f} s = "
+          f"{seq_tokens / seq_s:.1f} tok/s; ratio (second replay) "
+          f"{rates[1] / (seq_tokens / seq_s):.2f}")
+    reasons = ["cancelled" if i == ENGINE_CANCEL else "eos" if i == ENGINE_EOS else "length"
+               for i in range(len(specs))]
+    got = [recs[i]["finish_reason"] for i in range(len(specs))]
+    if got != reasons:
+        fail(f"serve-engine: finish reasons {got} != {reasons}")
+    s = solo[ENGINE_EOS][0].tolist()
+    if recs[ENGINE_EOS]["tokens"][0].tolist() != s[:s.index(eos) + 1]:
+        fail(f"serve-engine: the EOS stream {recs[ENGINE_EOS]['tokens'][0].tolist()} is not "
+             f"the prefix of the request alone {s[:s.index(eos) + 1]}")
+    for i in range(len(specs)):
+        if not torch.equal(recs[i]["tokens"], runs[1]["recs"][i]["tokens"]):
+            fail(f"serve-engine: request {i}'s stream differs between two replays")
+    if m.joins < 4 or run["reclaimed"] <= 0:
+        fail(f"serve-engine: {m.joins} joins, {run['reclaimed']} pages reclaimed")
+    for r in runs:
+        if r["launches"] != engine_launches_expected(srv, r["ticks"], r["prefills"], (8, 2048)):
+            fail(f"serve-engine: launches {r['launches']} != {expected}")
+    print("  reasons as expected; EOS stream == its prefix alone; second replay "
+          "byte-identical; sanitizer clean; launches exact")
+
+    # the group's first 8 requests with the sanitizer off: four steps timed
+    # after the step that formed the group, then four traced
+    eng = ServingEngine(srv)
+    for c, n in specs[:8]:
+        eng.submit(ServeRequest(1, c, new_tokens=n))
+    eng.step()
+    steps = 4
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    print(f"  engine tick (8, 2048), 8 live rows, sanitizer off, untraced: "
+          f"{(time.perf_counter() - t0) * 1e3 / steps:.2f} ms per step (each ends in a "
+          f"device sync)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(ENGINE_STEP_SPAN):
+            for _ in range(steps):
+                eng.step()
+    eng.drain()
+    span_report(prof.events(), ENGINE_STEP_SPAN, steps, "traced engine ticks (8, 2048)")
+    print(f"  decode graphs held {srv.decode_graphs()}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del srv, eng, runs, run, recs
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # 6. serve-check-ssm and 7. serve-ssm
 # ---------------------------------------------------------------------------
 
@@ -1270,6 +1610,7 @@ def phase_serve_check_ssm():
     for a, c in zip(streams["auto"], streams["torch"]):
         if not np.array_equal(a, c):
             fail("token streams differ between the SSD kernel and its plain version")
+    engine_trace_check(srv, "Mamba-2 2 layers, SSD kernel")
     for a, c in zip(logits["auto"], logits["torch"]):
         if not torch.allclose(a, c, atol=1e-3, rtol=1e-3):
             fail("final logits differ between the SSD kernel and its plain version")
@@ -1684,6 +2025,7 @@ def main() -> int:
     fit = fit_dispatch(kernels["paged_decode_attention"])
     phase_serve_check()
     launches = phase_serve(fit)
+    phase_serve_engine()
     phase_serve_check_ssm()
     launches.update(phase_serve_ssm())
     phase_lenet_check()

@@ -125,6 +125,13 @@ class Model:
             return x, None
         return x, {f"l.{k}": torch.stack([c[k] for c in caches]) for k in caches[0]}
 
+    @property
+    def supports_handoff(self) -> bool:
+        """Whether prefill can hand a populated cache to decode: decoder-only
+        text stacks do; enc-dec and modality-prefix frontends start decode
+        from a zero cache."""
+        return not self.cfg.is_encdec and self.cfg.frontend == "none"
+
     def prefill(self, params, tokens: torch.Tensor, *,
                 lengths: Optional[torch.Tensor] = None,
                 cache_len: Optional[int] = None):

@@ -1,14 +1,26 @@
-"""EngineConfig: the serving configuration (port of
-``repro/runtime/engine_config.py``, the fields ``PlanServer`` reads, with
-the reference's defaults and checks).
+"""EngineConfig: the one configuration surface for the serving stack (port
+of ``repro/runtime/engine_config.py``, with the reference's fields, defaults
+and checks).
 
-Batching, topology and diagnostics fields come with the engine, scheduler
-and router (``ROADMAP.md`` Queue A 9 and 11).
+``PlanServer`` reads the plan-cache and pool fields, ``ServingEngine`` the
+batching fields; the ``launch/serve.py`` argparse maps onto the whole thing
+through :meth:`EngineConfig.from_args`.
+
+Two parts of the reference stay out:
+
+- ``donate``: the port's decode step updates the arena in place (the tick is
+  one CUDA graph on fixed buffers), so there is nothing to donate and the
+  planner always plans for an in-place cache;
+- the deprecated per-knob kwargs (``fold_legacy_kwargs``): every class of
+  the port takes ``config=`` only.
+
+``replicas > 1`` needs the router, which comes with ``ROADMAP.md`` Queue A
+11; ``build_client`` raises until then.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
 
@@ -17,6 +29,9 @@ from repro_torch.models.blocks import DECODE_KERNELS
 
 @dataclass(frozen=True)
 class EngineConfig:
+    """Every serving knob, in one place, grouped by the layer it drives.
+    Frozen: a config names a scenario."""
+
     # -- model / plan-cache (PlanServer) -------------------------------------
     dtype: str = "float32"            # "float32" | "bfloat16"
     enable_cache: bool = True
@@ -37,9 +52,34 @@ class EngineConfig:
     # force one operator on every decode plan
     decode_kernel: str = "auto"       # "auto" | "paged" | "gather" | "ref"
 
+    # -- batching / lifecycle (ServingEngine) --------------------------------
+    max_group_batch: int = 8
+    slo_ms: float = 0.0
+    join_mid_decode: bool = True
+    # "hol": strict head-of-line bucket pick; "arrival": the pending bucket
+    # with the most coalescable rows forms first (bounded deferral keeps
+    # the head-of-line bucket starvation-free)
+    bucket_select: str = "hol"
+
+    # -- topology (the router, ROADMAP.md Queue A 11) ------------------------
+    replicas: int = 1
+    placement: str = "affinity"       # "affinity" | "load"
+
+    # -- diagnostics ---------------------------------------------------------
+    # per-tick structural assertions over pool and engine state
+    # (repro_torch.analysis.sanitize); host-side walks, no device sync
+    sanitize: bool = False
+
     def __post_init__(self):
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be float32|bfloat16, got {self.dtype!r}")
+        if self.bucket_select not in ("hol", "arrival"):
+            raise ValueError(f"bucket_select must be hol|arrival, "
+                             f"got {self.bucket_select!r}")
+        if self.placement not in ("affinity", "load"):
+            raise ValueError(f"placement must be affinity|load, got {self.placement!r}")
+        if self.replicas < 1:
+            raise ValueError("replicas must be >= 1")
         if self.cache_capacity < 1:
             raise ValueError("cache_capacity must be >= 1")
         if self.recompile_margin < 0:
@@ -53,6 +93,47 @@ class EngineConfig:
             raise ValueError("pool_arenas must be >= 1")
         if self.pool_max_arenas < 0 or self.pool_max_bytes < 0:
             raise ValueError("pool caps must be >= 0 (0 = unbounded)")
+        if self.max_group_batch < 1:
+            raise ValueError("max_group_batch must be >= 1")
+        if self.slo_ms < 0:
+            raise ValueError("slo_ms must be >= 0")
 
     def torch_dtype(self) -> torch.dtype:
         return torch.float32 if self.dtype == "float32" else torch.bfloat16
+
+    @classmethod
+    def from_args(cls, args) -> "EngineConfig":
+        """Build from an argparse namespace (``launch/serve.py`` flag names).
+        Missing attributes keep their config defaults, so partial namespaces
+        work too."""
+        pick = {f.name: getattr(args, f.name) for f in fields(cls) if hasattr(args, f.name)}
+        # a flag whose argparse spelling differs from the field name
+        if hasattr(args, "no_cache"):
+            pick["enable_cache"] = not args.no_cache
+        return cls(**pick)
+
+    # -- construction (function-local imports break the layering cycle:
+    # serve_loop and engine import *this* module) ---------------------------
+    def build_server(self, model_cfg, mesh_cfg=None, **kw):
+        """A ``PlanServer`` over this config; ``kw`` goes to it (``device``,
+        ``hw``, ``policy``)."""
+        from repro_torch.runtime.serve_loop import PlanServer
+        return PlanServer(model_cfg, mesh_cfg, config=self, **kw)
+
+    def build_engine(self, server, *, clock=None, **kw):
+        from repro_torch.runtime.engine import ServingEngine
+        return ServingEngine(server, config=self, clock=clock, **kw)
+
+    def build_client(self, model_cfg, mesh_cfg=None, *, servers=None, **kw):
+        """The topology decision: one engine for ``replicas == 1``. More
+        replicas need the router (``ROADMAP.md`` Queue A 11), which raises
+        until it is ported. ``servers``: pre-built (warm) PlanServers to
+        wrap instead of constructing fresh ones; ``kw`` goes to
+        :meth:`build_server`."""
+        if self.replicas > 1:
+            raise NotImplementedError(
+                f"replicas={self.replicas} needs the EngineRouter, which the PyTorch "
+                f"port brings with ROADMAP.md Queue A 11; use replicas=1")
+        if servers is None:
+            servers = [self.build_server(model_cfg, mesh_cfg, **kw)]
+        return self.build_engine(servers[0])

@@ -66,6 +66,7 @@ class EagerDecodeStep:
     """The plain decode tick (CPU devices): each call runs the step."""
 
     capture_seconds = 0.0
+    graphs = 0
 
     def __init__(self, step_fn):
         self.step_fn = step_fn
@@ -112,6 +113,11 @@ class GraphDecodeStep:
         self._graphs: Dict[object, _Graph] = {}
         self._stream: Optional[torch.cuda.Stream] = None
         self.capture_seconds = 0.0     # time spent capturing, summed
+
+    @property
+    def graphs(self) -> int:
+        """Captured graphs held (one per arena ticked on)."""
+        return sum(g.graph is not None for g in self._graphs.values())
 
     def buffers(self, arena) -> Tuple[torch.Tensor, torch.Tensor]:
         """The arena's static token and position buffers (the graph's

@@ -1,7 +1,7 @@
 """Serving-path counters (port of ``repro/runtime/metrics.py``:
-``LatencyStats``, ``serve_summary``, ``pool_summary``; the training step
-timer, the scheduler's and the router's metrics come with the paths that
-call them).
+``LatencyStats``, ``serve_summary``, ``SchedulerMetrics``, ``pool_summary``,
+``scheduler_summary``, ``format_metrics``; the training step timer and the
+router's metrics and fleet rollup come with the paths that call them).
 
 The plan-cache counters (:class:`PlanCacheMetrics`) live next to the cache
 in ``repro_torch.core.plan_cache``; they are re-exported here so the runtime
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import List
+from typing import Dict, List
 
 from repro_torch.core.plan_cache import PlanCacheMetrics  # noqa: F401  (re-export)
 
@@ -61,6 +61,121 @@ def serve_summary(cache: PlanCacheMetrics, latency: LatencyStats) -> str:
             f"compile_s={cache.compile_seconds:.2f}  |  {latency.summary()}")
 
 
+@dataclass
+class SchedulerMetrics:
+    """Continuous-batching accounting: queueing vs. execution latency per
+    request, coalescing effectiveness, and SLO attainment.
+
+    ``slo_s`` is the per-request total-latency objective (admission to last
+    token); 0 disables SLO accounting. ``batch_slots_used`` /
+    ``batch_slots_total`` measure how well coalescing fills each group's
+    batch-bucket capacity (the anti-padding story: sequential serving pads
+    every request up to its own bucket alone)."""
+
+    slo_s: float = 0.0
+    admitted: int = 0
+    completed: int = 0
+    groups: int = 0
+    coalesced_requests: int = 0     # requests that shared a group
+    joins: int = 0                  # requests absorbed mid-decode
+    join_rows: int = 0              # arena rows filled by mid-decode joins
+    peak_resident: int = 0          # max concurrently in-flight requests
+    batch_slots_used: int = 0       # sum of member request batches
+    batch_slots_total: int = 0      # sum of group batch-bucket capacities
+    cancelled: int = 0              # requests terminated by cancel()
+    early_exits: int = 0            # completed before max_tokens (eos/stop)
+    slo_met: int = 0
+    slo_missed: int = 0
+    queue_latency: LatencyStats = field(default_factory=LatencyStats)
+    exec_latency: LatencyStats = field(default_factory=LatencyStats)
+    total_latency: LatencyStats = field(default_factory=LatencyStats)
+    # streaming-consumer latencies: admission -> first token, and the gap
+    # between consecutive token events of one request
+    ttft_latency: LatencyStats = field(default_factory=LatencyStats)
+    itl_latency: LatencyStats = field(default_factory=LatencyStats)
+
+    @property
+    def bucket_fill(self) -> float:
+        """Fraction of coalesced batch-bucket slots holding real requests."""
+        return (self.batch_slots_used / self.batch_slots_total
+                if self.batch_slots_total else 0.0)
+
+    @property
+    def slo_attainment(self) -> float:
+        judged = self.slo_met + self.slo_missed
+        return self.slo_met / judged if judged else 1.0
+
+    def observe_group(self, member_batches, bucket_batch: int) -> None:
+        self.groups += 1
+        if len(member_batches) > 1:
+            self.coalesced_requests += len(member_batches)
+        self.batch_slots_used += sum(member_batches)
+        self.batch_slots_total += bucket_batch
+
+    def observe_joins(self, member_batches) -> None:
+        """Mid-decode joins: requests absorbed into free rows of an
+        in-flight group. Tracked separately from ``bucket_fill`` — that
+        ratio stays an admission-time fill fraction (<= 1.0); joins reuse
+        slots the group already paid for, and their utilization shows up
+        in the pool occupancy line instead."""
+        self.joins += len(member_batches)
+        self.join_rows += sum(member_batches)
+
+    def observe_resident(self, live_requests: int) -> None:
+        """Track the peak number of concurrently in-flight requests — the
+        residency the pool budget actually admitted (the paged-vs-dense
+        fragmentation benchmark gates on this)."""
+        self.peak_resident = max(self.peak_resident, live_requests)
+
+    def observe_first_token(self, ttft_s: float) -> None:
+        """Time-to-first-token: request admission to its first TokenEvent
+        (the latency a streaming consumer actually perceives)."""
+        self.ttft_latency.record(ttft_s)
+
+    def observe_token_gap(self, gap_s: float) -> None:
+        """Inter-token latency: gap between consecutive token events of
+        one request (steady-state streaming cadence)."""
+        self.itl_latency.record(gap_s)
+
+    def observe_request(self, queue_s: float, exec_s: float) -> None:
+        self.completed += 1
+        total = queue_s + exec_s
+        self.queue_latency.record(queue_s)
+        self.exec_latency.record(exec_s)
+        self.total_latency.record(total)
+        if self.slo_s > 0:
+            if total <= self.slo_s:
+                self.slo_met += 1
+            else:
+                self.slo_missed += 1
+
+    def summary(self) -> str:
+        ms = 1e3
+        line = (f"scheduler: admitted={self.admitted} "
+                f"completed={self.completed} groups={self.groups} "
+                f"coalesced={self.coalesced_requests} "
+                f"joins={self.joins} join_rows={self.join_rows} "
+                f"peak_resident={self.peak_resident} "
+                f"bucket_fill={self.bucket_fill:.2f}  |  "
+                f"queue p50={self.queue_latency.percentile(50) * ms:.1f}ms "
+                f"p95={self.queue_latency.percentile(95) * ms:.1f}ms  "
+                f"exec p50={self.exec_latency.percentile(50) * ms:.1f}ms "
+                f"p95={self.exec_latency.percentile(95) * ms:.1f}ms")
+        if self.ttft_latency.count:
+            line += (f"  |  ttft p50={self.ttft_latency.percentile(50) * ms:.1f}ms "
+                     f"p95={self.ttft_latency.percentile(95) * ms:.1f}ms  "
+                     f"itl p50={self.itl_latency.percentile(50) * ms:.1f}ms "
+                     f"p95={self.itl_latency.percentile(95) * ms:.1f}ms")
+        if self.cancelled or self.early_exits:
+            line += (f"  |  cancelled={self.cancelled} "
+                     f"early_exits={self.early_exits}")
+        if self.slo_s > 0:
+            line += (f"  |  slo<{self.slo_s * ms:.0f}ms: "
+                     f"met={self.slo_met} missed={self.slo_missed} "
+                     f"attainment={self.slo_attainment:.2f}")
+        return line
+
+
 def pool_summary(pool) -> str:
     """KV-cache pool report (``repro_torch.runtime.kv_cache``): arena churn, row
     reuse, live occupancy — plus, for paged pools, page churn and internal
@@ -80,3 +195,23 @@ def pool_summary(pool) -> str:
                  f"peak={m.peak_pages} live={pool.pages_live()} "
                  f"frag={1.0 - pool.slot_utilization():.2f}")
     return line
+
+
+def scheduler_summary(sched: "SchedulerMetrics", cache: PlanCacheMetrics,
+                      latency: LatencyStats, pool=None) -> str:
+    """Scheduler accounting, optional KV-pool line, plan-cache line."""
+    lines = [sched.summary()]
+    if pool is not None:
+        lines.append(pool_summary(pool))
+    lines.append(serve_summary(cache, latency))
+    return "\n".join(lines)
+
+
+def format_metrics(rec: Dict) -> str:
+    parts = []
+    for k, v in rec.items():
+        if isinstance(v, float):
+            parts.append(f"{k}={v:.4g}")
+        else:
+            parts.append(f"{k}={v}")
+    return "  ".join(parts)

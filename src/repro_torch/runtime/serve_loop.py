@@ -9,23 +9,12 @@ breach the plan's compile-time estimates. On the card each decode entry's
 step is one CUDA graph per arena (``runtime.graph_step``); prefill entries
 hold the eager prompt pass.
 
-:meth:`PlanServer.handle` runs one request the way the reference's
-``ServingEngine`` runs it for ``PlanServer.handle`` (no mid-decode joins,
-whole-span pages committed at admission):
-
-1. draw the request's decode entry from the cache (its bucket's plan);
-2. acquire an arena of that bucket from the KV-cache pool;
-3. admit the request's rows (pages for the whole span);
-4. prefill the prompt through the bucket's prefill entry (with
-   ``prefill=True``);
-5. scatter the prefill's cache into the rows (the handoff write: K/V through
-   the page tables, recurrent state and conv tails row by row);
-6. decode greedily, one tick per token, through the entry's step;
-7. free the rows and observe the request's runtime statistics (dynamic
-   recompilation), then return the arena to the pool.
-
-The serving engine (continuous batching, the scheduler) comes with
-``ROADMAP.md`` Queue A 9.
+:meth:`PlanServer.handle` serves one request synchronously as a thin
+submit-and-drain adapter over
+:class:`~repro_torch.runtime.engine.ServingEngine`, the one request-lifecycle
+implementation, configured for the sequential shape: wall-clock time, no
+mid-decode joins, whole-span pages committed at admission, no wait for the
+device between ticks.
 """
 
 from __future__ import annotations
@@ -34,9 +23,9 @@ import itertools
 import time
 import weakref
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from dataclasses import replace as dc_replace
+from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.config import (SINGLE_DEVICE_MESH, HardwareSpec, InputShape, MeshConfig,
@@ -47,14 +36,12 @@ from repro_torch.core.planner import PlanCompiler
 from repro_torch.core.strategies import ExecutionPlan, RuntimeStats
 from repro_torch.hw import H100
 from repro_torch.models.model import build_model
+from repro_torch.runtime.engine import (DECODE_SPAN, PREFILL_SPAN,  # noqa: F401  (re-export)
+                                        ServingEngine, WallClock, sync)
 from repro_torch.runtime.engine_config import EngineConfig
 from repro_torch.runtime.graph_step import build_decode_step
 from repro_torch.runtime.kv_cache import KVCachePool
 from repro_torch.runtime.metrics import LatencyStats, pool_summary, serve_summary
-
-# names of PlanServer.handle's phases as torch.profiler spans
-PREFILL_SPAN = "PlanServer.prefill"
-DECODE_SPAN = "PlanServer.decode"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -67,11 +54,6 @@ def resolve_device(device=None) -> torch.device:
                                "to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def make_decode_step(model, page: int = 0, seq_len: int = 0,
@@ -141,40 +123,6 @@ class ServeRequest:
     rid: int = field(default_factory=lambda: next(_NEXT_RID))
 
 
-class _StopState:
-    """Per-request stop-condition tracking (the reference engine's
-    ``_register_token`` checks)."""
-
-    def __init__(self, req: ServeRequest):
-        self.req = req
-        self.rows_live = np.ones(req.batch, bool)
-        self.tails: List[List[int]] = [[] for _ in range(req.batch)]
-
-    def check(self, tok: torch.Tensor) -> Optional[str]:
-        req = self.req
-        if req.eos_id is None and not req.stop:
-            return None
-        tok_host = tok[:, 0].cpu().numpy()
-        if req.eos_id is not None:
-            self.rows_live &= tok_host != req.eos_id
-            if not self.rows_live.any():
-                return "eos"
-        if req.stop:
-            max_len = max(len(s) for s in req.stop)
-            for i in range(req.batch):
-                if not self.rows_live[i]:
-                    continue
-                tail = self.tails[i]
-                tail.append(int(tok_host[i]))
-                del tail[:-max_len]
-                if any(len(s) <= len(tail) and tail[len(tail) - len(s):] == list(s)
-                       for s in req.stop):
-                    self.rows_live[i] = False
-            if not self.rows_live.any():
-                return "stop"
-        return None
-
-
 class PlanServer:
     """Serving session that amortizes plan compilation across requests.
 
@@ -241,6 +189,7 @@ class PlanServer:
         self.recompile_margin = c.recompile_margin
         self.policy = policy
         self.prefill = c.prefill
+        self._engine: Optional[ServingEngine] = None
 
     # ------------------------------------------------------------------
     @property
@@ -254,6 +203,11 @@ class PlanServer:
         self._params_bytes = float(sum(t.nbytes for t in params.values()))
         for step in list(self._decode_steps):
             step.clear()
+
+    def decode_graphs(self) -> int:
+        """Decode graphs captured and held by this server's entries (0 on the
+        CPU)."""
+        return sum(step.graphs for step in list(self._decode_steps))
 
     # ------------------------------------------------------------------
     def _build_step(self, plan: ExecutionPlan):
@@ -313,7 +267,7 @@ class PlanServer:
         if lengths is None:
             lengths = torch.full((b,), s, dtype=torch.int32, device=self.device)
         logits, kv = entry.step_fn(self.params, {"tokens": tokens, "lengths": lengths})
-        _sync(self.device)
+        sync(self.device)
         return logits, kv
 
     def prefill_first_token(self, batch: int, context: int,
@@ -384,100 +338,66 @@ class PlanServer:
     def handle(self, req: ServeRequest) -> Dict[str, Any]:
         """Serve one request synchronously; returns tokens + accounting.
 
-        With ``prefill=True`` the prompt pass populates the request's rows
-        and its greedy token opens the output; decode step 0 consumes it at
-        the prompt's position. Without it the request decodes from a zero
-        cache (the decode-only request shape) and emits ``new_tokens``
-        decode outputs. The returned keys are the reference's (``plan``,
-        ``recompiled``, ``recompile_reasons``, ``watermark_bytes``,
-        ``pool_bytes`` among them) plus the phase timings."""
+        A submit-and-drain adapter over the server's own
+        :class:`~repro_torch.runtime.engine.ServingEngine`: the request's
+        group forms (its prompt pass inside ``PREFILL_SPAN``), then the
+        engine ticks until it is idle (inside ``DECODE_SPAN``). With
+        ``prefill=True`` the prompt pass populates the request's rows and its
+        greedy token opens the output; decode step 0 consumes it at the
+        prompt's position. Without it the request decodes from a zero cache
+        (the decode-only request shape) and emits ``new_tokens`` decode
+        outputs. Stop conditions (``eos_id`` / ``stop``) apply. The returned
+        keys are the reference's plus the phase timings (``prefill_s``,
+        ``decode_s``: host clock, each ending after the device has finished
+        the phase), ``decode_steps`` and ``last_logits`` (the request rows'
+        logits of the pass that produced its last token)."""
+        if self._engine is None:
+            # count_first: with a handoff the prefill token is output token
+            # #1. sync_per_tick=False: nobody streams this request, so the
+            # ticks queue on the device and one wait at the end settles them.
+            # The engine sees the server through a weak proxy: the server owns
+            # it, and a cycle would keep a dropped server's weights, arenas
+            # and graphs on the card until the garbage collector runs
+            self._engine = ServingEngine(
+                weakref.proxy(self), config=dc_replace(self.config, join_mid_decode=False),
+                clock=WallClock(), prefill=self.prefill,
+                count_first=self.prefill and self.model.supports_handoff,
+                eager_pages=True, sync_per_tick=False)
+        eng = self._engine
         t0 = time.perf_counter()
-        dev = self.device
-        span = self.request_span(req)
-        entry = self.decode_entry(req.batch, span)
-        b, s = entry.key.batch_bucket, entry.key.seq_bucket
-        demand = (self.pool.member_bytes(s, req.batch, span)
-                  if self.pool.paged else None)
-        arena = self.pool.acquire(b, s, zero=not self.prefill, force=True,
-                                  demand_bytes=demand)
-        rows = self.pool.admit_request_rows(
-            arena, req.batch, prompt=req.context if self.prefill else 0,
-            span=span, eager=True)
-        rows_t = torch.tensor(rows, dtype=torch.long, device=dev)
-        step = entry.step_fn
-        capture_s = step.capture_seconds
-        toks, pos = step.buffers(arena)
-        toks.fill_(1)
-        pos.zero_()
-        stops = _StopState(req)
-        out: List[torch.Tensor] = []
-        reason = None
-        logits = None
-        t_prefill = 0.0
-        # the two spans name the phases in a torch.profiler trace; each ends
-        # after the device has finished the phase's work
-        if self.prefill:
-            with torch.profiler.record_function(PREFILL_SPAN):
-                lengths = torch.tensor([req.context] * req.batch
-                                       + [1] * (b - req.batch),
-                                       dtype=torch.int32, device=dev)
-                logits, pkv = self.run_prefill(self.prefill_entry(req.batch, span),
-                                               lengths=lengths)
-                first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-                self.pool.write_rows(arena, rows, pkv, src_rows=range(len(rows)))
-                del pkv
-                pos[rows_t] = req.context
-                toks[rows_t] = first[:len(rows)]
-                _sync(dev)
-            t_prefill = time.perf_counter() - t0
-            out.append(first[:req.batch])
-            reason = stops.check(out[-1])
-
-        base_pos = req.context if self.prefill else 0
+        handle = eng.submit(req)
+        eng.admit()
         t1 = time.perf_counter()
         steps = 0
         with torch.profiler.record_function(DECODE_SPAN):
-            while reason is None and len(out) < req.new_tokens:
-                if self.pool.paged:
-                    self.pool.ensure_decode_slots(arena, rows, base_pos + steps)
-                logits = step(self.params, arena, toks, pos)
-                steps += 1
-                # the emitted tokens leave the step's buffer before the next tick
-                out.append(toks[rows_t])
-                reason = stops.check(out[-1])
-            tokens = (torch.cat(out, dim=1) if out
-                      else torch.zeros((req.batch, 0), dtype=torch.int32, device=dev))
-            last = None
-            if logits is not None:
-                last = logits[:, -1] if logits.dim() == 3 else logits
-                last = last[rows_t]
-            _sync(dev)
-        t_decode = time.perf_counter() - t1
-        self.metrics.compile_seconds += step.capture_seconds - capture_s
-        # the sequential engine's retire: rows go back, the observed
-        # statistics feed dynamic recompilation, then the arena returns
-        self.pool.free_rows(arena, rows, early=reason is not None)
-        shape = InputShape(f"group_{req.batch}x{req.context}", s, req.batch, "decode")
-        stats = self.observed_stats(entry, shape, toks)
-        refreshed, reasons = self.observe(entry.key, stats)
-        self.pool.release(arena)
-        latency = time.perf_counter() - t0
+            while not eng.idle:
+                # a step ticks the request's group while the request is live,
+                # and retires the group once it has finished
+                steps += handle.result is None
+                eng.step()
+            sync(self.device)
+        t2 = time.perf_counter()
+        rec = handle.result
+        eng.discard(handle)   # one-shot: don't accumulate engine records
+        # latency includes any in-request recompilation — that cost is the
+        # mechanism under measurement, not overhead to hide
+        latency = t2 - t0
         self.latency.record(latency)
         return {
-            "tokens": tokens,
+            "tokens": rec["tokens"],
             "latency_s": latency,
-            "bucket": (b, s),
-            "plan": (refreshed or entry).plan,
-            "recompiled": bool(reasons),
-            "recompile_reasons": reasons,
-            "watermark_bytes": stats.watermark_bytes,
-            "pool_bytes": stats.cache_pool_bytes,
-            "finish_reason": reason or "length",
+            "bucket": rec["bucket"],
+            "plan": rec["plan"],
+            "recompiled": rec["recompiled"],
+            "recompile_reasons": rec["recompile_reasons"],
+            "watermark_bytes": rec["watermark_bytes"],
+            "pool_bytes": rec["pool_bytes"],
+            "finish_reason": rec["finish_reason"],
             "rid": req.rid,
-            "prefill_s": t_prefill,
-            "decode_s": t_decode,
+            "prefill_s": t1 - t0 if self.prefill else 0.0,
+            "decode_s": t2 - t1,
             "decode_steps": steps,
-            "last_logits": last,
+            "last_logits": rec["last_logits"],
         }
 
     def summary(self) -> str:

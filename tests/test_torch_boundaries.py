@@ -47,6 +47,13 @@ def _forbidden_imports(text: str):
     return out
 
 
+def test_import_scan_covers_the_engine_slice():
+    for name in ("runtime/engine.py", "runtime/scheduler.py", "runtime/metrics.py",
+                 "runtime/engine_config.py", "analysis/__init__.py", "analysis/sanitize.py",
+                 "launch/serve.py"):
+        assert ROOT / "src" / "repro_torch" / name in PORT_FILES, name
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
     assert path.exists(), path
@@ -97,13 +104,16 @@ def test_planner_config_copy_equals_reference(name, args):
 
 def _reference_cli_default(option: str):
     """The default of ``option`` in the reference launcher's parser, read
-    from its source (``repro/launch/serve.py``), which stays as it is."""
+    from its source (``repro/launch/serve.py``), which stays as it is (a
+    ``store_true`` flag's is False)."""
     for node in ast.walk(ast.parse((ROOT / "src/repro/launch/serve.py").read_text())):
         if (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument"
                 and node.args and isinstance(node.args[0], ast.Constant)
                 and node.args[0].value == option):
-            return next(ast.literal_eval(kw.value) for kw in node.keywords
-                        if kw.arg == "default")
+            kws = {kw.arg: kw.value for kw in node.keywords}
+            if "default" not in kws and ast.literal_eval(kws["action"]) == "store_true":
+                return False
+            return ast.literal_eval(kws["default"])
     raise AssertionError(f"{option} not in the reference launcher's parser")
 
 
@@ -115,6 +125,43 @@ def test_serve_cli_plan_cache_defaults_follow_the_reference(option, dest):
     default = getattr(serve_cli.build_parser().parse_args([]), dest)
     assert default == _reference_cli_default(option)
     assert default == getattr(EngineConfig(), dest)
+
+
+@pytest.mark.parametrize("option", [
+    "--batch", "--context", "--pool-max-arenas", "--pool-max-bytes", "--scheduler",
+    "--arrival-rate", "--max-group-batch", "--join-mid-decode", "--slo-ms",
+    "--bucket-select", "--replicas", "--eos-id", "--cancel-after", "--sanitize"])
+def test_serve_cli_engine_defaults_follow_the_reference(option):
+    """The single-shot and ``--scheduler`` modes' flags; those that are
+    ``EngineConfig`` fields default to its value too."""
+    dest = option[2:].replace("-", "_")
+    default = getattr(serve_cli.build_parser().parse_args([]), dest)
+    assert default == _reference_cli_default(option)
+    if dest in {f.name for f in dataclasses.fields(EngineConfig)}:
+        assert default == getattr(EngineConfig(), dest)
+
+
+def test_engine_config_defaults_and_checks_follow_the_reference():
+    """Every field the reference's ``EngineConfig`` has (but ``donate``, which
+    the port leaves out) with its default, and the same refusals."""
+    from repro.runtime.engine_config import EngineConfig as JaxEngineConfig
+
+    ref = dataclasses.asdict(JaxEngineConfig())
+    assert ref.pop("donate") is True
+    assert dataclasses.asdict(EngineConfig()) == ref
+    for bad in (dict(dtype="float16"), dict(bucket_select="lifo"), dict(placement="x"),
+                dict(replicas=0), dict(cache_capacity=0), dict(recompile_margin=-1),
+                dict(page_size=-1), dict(decode_kernel="fused"), dict(pool_arenas=0),
+                dict(pool_max_bytes=-1), dict(max_group_batch=0), dict(slo_ms=-1)):
+        with pytest.raises(ValueError):
+            JaxEngineConfig(**bad)
+        with pytest.raises(ValueError):
+            EngineConfig(**bad)
+    args = serve_cli.build_parser().parse_args(
+        ["--no-cache", "--max-group-batch", "4", "--no-join-mid-decode", "--sanitize"])
+    cfg = EngineConfig.from_args(args)
+    assert (cfg.enable_cache, cfg.max_group_batch, cfg.join_mid_decode, cfg.sanitize) == \
+        (False, 4, False, True)
 
 
 @pytest.mark.parametrize("port,ref,kwargs", [
@@ -160,3 +207,6 @@ def test_unported_parts_raise_and_name_their_slice():
         Keras2Plan(spec, meta, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="core/parfor.py.*slice 5"):
         Keras2Plan(spec, meta, device="cpu").set(mesh=object())
+    # the engine is ported; several replicas wait for the router
+    with pytest.raises(NotImplementedError, match="Queue A 11"):
+        EngineConfig(replicas=2).build_client(get_config("yi-6b-smoke"), device="cpu")
