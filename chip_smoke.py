@@ -19,6 +19,10 @@ Phases, each of which must pass (nothing is caught):
               passes (C B^T, then the chunk walk) timed apart; which paged,
               flash, matmul and SSD kernel variant ran, read from a profiler
               trace;
+              the same for recurrentgemma-2b's shapes: flash and paged decode at
+              10 query heads on one kv head of 256 (window 2048, a row past
+              Sc), and the RG-LRU scan kernel at (8, 2048, 2560), also under
+              strong and weak decay;
    Then the H100's paged-dispatch figure fitted from the paged kernel's
    device time (beside ``core/cost.py``'s ``PAGED_STEP_LATENCY_S``);
 4. serve-check — Yi-6B widths cut to 2 layers, float32, through
@@ -74,7 +78,18 @@ Phases, each of which must pass (nothing is caught):
 9. lenet    — ``Keras2Plan`` trains LeNet for one epoch of 8,192 synthetic
               images at batch 64 and scores 10,000 (accuracy above 0.6),
               with step and scoring times and launches against layers x
-              calls, then one step and one scoring pass traced.
+              calls, then one step and one scoring pass traced;
+10. serve-check-hybrid — RecurrentGemma-2B widths cut to 3 layers (rra),
+              float32, window 2048, prompts past the window: identical token
+              streams under paged, gather, ref and auto (every auto plan
+              paged), graphed == eager, launches exact (flash and the RG-LRU
+              scan per layer and prompt pass, paged per attention layer and
+              tick), phase 4's engine trace, and the handoff past the window
+              equal to a prefill one token longer;
+11. serve-hybrid — full recurrentgemma-2b (26 layers, bfloat16, seeded random
+              weights) serving phase 5's three requests and a (1, 3000) one in
+              the (1, 4096) bucket twice with graphs, every plan paged,
+              launches exact, then traced.
 
 Before the last line it prints one JSON ``kernels`` line and the card's
 ``nvidia-smi`` name and power limit; the last line is the JSON ``ok`` line.
@@ -120,6 +135,12 @@ FLASH_BF16_TOL = (2e-3, 2.0 ** -8, 2.0 ** -8)
 # near zero (terms of size ~10-100 summed over 64 positions and 128 state
 # entries: ~1e-5).
 SSD_BF16_TOL = (1e-4, 2.0 ** -8, 2.0 ** -8)
+# rglru_scan in bfloat16: the kernel computes in float32 on the bfloat16
+# inputs and rounds only y, so the plain version on the same inputs with y
+# left in float32 is its reference; what remains is y's own rounding (2^-8
+# relative) and, near zero, float32 differences between the card's exp,
+# tanh and sigmoid and PyTorch's (an ulp or two of h over ~1, ~1e-6)
+RGLRU_BF16_TOL = (1e-5, 2.0 ** -8, 2.0 ** -8)
 # matmul and conv2d_im2col in bfloat16: the kernel multiplies the bfloat16
 # inputs exactly and sums in float32, so the plain version on float32 copies
 # of the same inputs is its reference; what remains is the output's own
@@ -140,6 +161,11 @@ LENET_BATCH, LENET_TRAIN, LENET_SCORE = 64, 8192, 10000
 # the serving requests of both models: (batch, context), 32 new tokens each
 SERVE_REQUESTS = ((1, 512), (4, 1000), (8, 2000))
 CHECK_REQUESTS = ((2, 300), (1, 100), (3, 64))
+# recurrentgemma-2b: the three serving requests and one (1, 3000) request in
+# the (1, 4096) bucket, where the window of 2048 cuts in the prompt pass and
+# decode rotates; its 3-layer check serves a prompt past the window too
+HYBRID_SERVE_REQUESTS = SERVE_REQUESTS + ((1, 3000),)
+HYBRID_CHECK_REQUESTS = ((1, 2100), (2, 300), (1, 64))
 # fewest new tokens of a traced request (more where fewer would change its
 # bucket): per-step device time needs a few steps, and the profiler's
 # post-processing grows with every traced event
@@ -269,6 +295,7 @@ def phase_build():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import matmul as MM
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import rglru_scan as RG
     from repro_torch.kernels import ssd_scan as SSD
 
     phase("build")
@@ -279,6 +306,7 @@ def phase_build():
     _build.library("ssd_scan", SSD._bind)
     _build.library("matmul", MM._bind)
     _build.library("conv2d_im2col", CONV._bind)
+    _build.library("rglru_scan", RG._bind)
     print(f"built {sorted(p.name for p in out.glob('*.so'))} into {out} "
           f"in {time.perf_counter() - t0:.1f} s")
 
@@ -376,6 +404,10 @@ def phase_kernels():
         ("D=32 S=100 causal", 2, 4, 2, 32, 100, 100, True, 0, -1),
         ("D=32 S=100 bidirectional", 2, 4, 2, 32, 100, 100, False, 0, -1),
         ("D=64 S=100 causal", 2, 4, 2, 64, 100, 100, True, 0, -1),
+        # recurrentgemma's head dim and group (10 query heads on one kv head
+        # of 256): a window that cuts, Sq < Sk, a ragged tail
+        ("D=256 g=10 S=300 window=100", 1, 10, 1, 256, 300, 300, True, 100, -1),
+        ("D=256 g=10 Sq=70 Sk=333 window=128", 2, 10, 1, 256, 70, 333, True, 128, -1),
     ]
     gen = torch.Generator(device="cuda").manual_seed(5)
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, FLASH_BF16_TOL)):
@@ -429,12 +461,202 @@ def phase_kernels():
         max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by=by, library_ms=lib_ms)
     del q, k, v, ke, ve
+    results["flash_attention_d256"] = flash_hybrid_cases(flush, plain_flash)
+    results["paged_decode_attention_g10_d256"] = paged_hybrid_cases(flush)
+    results["rglru_scan"] = rglru_kernel_cases(flush)
     results["ssd_scan"] = ssd_kernel_cases(flush)
     results["matmul"] = matmul_kernel_cases(flush)
     results["conv2d_im2col"] = conv_kernel_cases(flush)
     del flush
     torch.cuda.empty_cache()
     return results
+
+
+def flash_hybrid_cases(flush, plain_flash) -> dict:
+    """Flash at recurrentgemma-2b's shape (10 query heads on one kv head of
+    256, window 2048) against its plain version in float32 and bfloat16:
+    the (8, 2000) request's prompt pass in the (8, 2048) bucket, and the
+    (1, 3000) request's (1, 4096) bucket, where the window cuts (key tiles
+    wholly outside it are skipped). The (8, 2048) bfloat16 shape timed by
+    events and device time beside its plain version, SDPA and its bound.
+    Returns its kernels-line entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    hq, hkv, d, win = 10, 1, 256, 2048
+    timed = None
+    for b, s in ((8, 2048), (1, 4096)):
+        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, FLASH_BF16_TOL)):
+            q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
+            got = FA.flash_attention(q, k, v, causal=True, window=win)
+            want = plain_flash(q, k, v, causal=True, window=win)
+            torch.cuda.synchronize()
+            err = check_close(f"flash {str(dtype)[6:]} recurrentgemma (B={b}, S={s}, Hq=10, "
+                              f"Hkv=1, D=256, window {win})", got, want, tol)
+            del got, want
+            pairs = _flash_pairs(s, s, True, win, -1)
+            flops = 4 * d * pairs * b * hq
+            bound, by = _bound_ms((2 * q.numel() + 2 * k.numel()) * q.element_size(), flops,
+                                  dtype)
+            if dtype == torch.bfloat16:
+                ms = cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True, window=win),
+                             flush=flush)
+                dev_ms, names = device_ms(
+                    lambda: FA.flash_attention(q, k, v, causal=True, window=win), "flash",
+                    flush)
+                plain_ms = cuda_ms(lambda: FA.flash_attention_torch(q, k, v, causal=True,
+                                                                    window=win),
+                                   reps=5, flush=flush)
+                lib = "not timed (the window needs an explicit mask there)"
+                lib_ms = None
+                if s <= win:
+                    # yardstick only: the library's fused attention, K/V
+                    # expanded to all heads; at S <= window the mask is causal
+                    ke, ve = k.repeat_interleave(hq, 1), v.repeat_interleave(hq, 1)
+                    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                        q, ke, ve, is_causal=True), flush=flush)
+                    lib = f"{lib_ms:.4f} ms ({_tflops(flops, lib_ms)})"
+                    del ke, ve
+                print(f"  flash timing, D=256 (B={b}, S={s}): kernel {ms:.4f} ms by events "
+                      f"({_tflops(flops, ms)}), device time {_dev(dev_ms)} "
+                      f"({', '.join(_short(n) for n in names) or 'no events'}), plain "
+                      f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib}, bound "
+                      f"{bound:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP, {pairs} pairs a head)")
+                if timed is None:
+                    timed = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                 bound_ms=bound, bound_by=by, library_ms=lib_ms)
+            del q, k, v
+    return dict(name="flash_attention_d256", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:116", **timed)
+
+
+def paged_hybrid_cases(flush) -> dict:
+    """Paged decode at recurrentgemma-2b's serving shape, g * D = 2560 (10
+    query heads on one kv head of 256): the (8, 2000) request mid-decode in
+    its (8, 2048) bucket, pages of 64, rows at positions 2000-2024 and one
+    past Sc whose slots were written by rotating writes, in float32 and
+    bfloat16, against the plain version, the kernels' order and the
+    literal-rule oracle; the bfloat16 call timed. Returns its kernels-line
+    entry."""
+    import torch
+
+    from repro_torch.hw import sm_count
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels.ref import paged_decode_ref
+    from repro_torch.models.attention import paged_cache_write
+
+    sms = sm_count(torch.device("cuda"))
+    b, hq, hkv, d, page, sc = 8, 10, 1, 256, 64, 2048
+    pos = [2000 + 4 * i for i in range(7)] + [sc + 52]
+    timed = None
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, PAGED_BF16_TOL)):
+        q, k, v, tables, posv = _paged_inputs(b, hq, hkv, d, page, sc, pos, dtype, 16)
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        for step in range(3):
+            kn = torch.randn((b, 1, hkv, d), generator=gen, device="cuda").to(dtype)
+            vn = torch.randn((b, 1, hkv, d), generator=gen, device="cuda").to(dtype)
+            paged_cache_write(k, v, kn, vn, posv - 2 + step, tables, page, sc, window=sc)
+        label = f"paged {str(dtype)[6:]} recurrentgemma (B=8, g=10, D=256, Sc=2048)"
+        got = PA.paged_decode_attention(q, k, v, tables, posv, page=page, sc=sc)
+        want = PA.paged_attention_torch(q.float(), k.float(), v.float(), tables, posv,
+                                        page=page, sc=sc)
+        model = PA.paged_attention_model(q, k, v, tables, posv, page=page, sc=sc, sms=sms)
+        lit = paged_decode_ref(q.float(), k.float(), v.float(), tables, posv, page=page,
+                               sc=sc, window=sc)
+        torch.cuda.synchronize()
+        err = check_close(label, got, want, tol)
+        check_close(f"{label} vs the kernel's order", got, model, tol)
+        check_close(f"{label} vs literal-rule oracle", got, lit, tol)
+        del got, want, model, lit
+        if dtype == torch.bfloat16:
+            timed = paged_timing(PA, "recurrentgemma (B=8, g=10, D=256, Sc=2048)",
+                                 (q, k, v, tables, posv), page, sc, err, flush)
+        del q, k, v, tables, posv
+    timed.pop("steps")
+    return dict(name="paged_decode_attention_g10_d256", route="cuda",
+                source="src/repro_torch/kernels/csrc/paged_decode.cu",
+                replaces="src/repro/kernels/paged_attention.py:130", library_ms=None, **timed)
+
+
+def _rglru_inputs(b, s, w, dtype, seed, decay="normal"):
+    """xb, r_pre, i_pre, y_pre ~ N(0, 1) in ``dtype`` and c = -8 softplus
+    of a_log: log(1 + 15 u) (the model's init), 10 (strong decay, with
+    r > 0.95: a < 1e-33) or -30 (weak: a = 1 in float32)."""
+    import torch
+
+    from repro_torch.models.blocks import _lru_decay
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xb, r_pre, i_pre, y_pre = (torch.randn((b, s, w), generator=gen, device="cuda")
+                               for _ in range(4))
+    if decay == "normal":
+        a_log = torch.log1p(15 * torch.rand((w,), generator=gen, device="cuda"))
+    else:
+        a_log = torch.full((w,), 10.0 if decay == "strong" else -30.0, device="cuda")
+    if decay == "strong":
+        r_pre = r_pre.abs() + 3.0
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    return ([t.to(dtype) for t in (xb, r_pre, i_pre, y_pre)]
+            + [_lru_decay({"a_log": a_log}), lengths])
+
+
+def rglru_kernel_cases(flush) -> dict:
+    """The RG-LRU scan kernel against its plain version (the sequential
+    float32 loop): at recurrentgemma-2b's prompt shape (8, 2048, 2560) in
+    float32 and bfloat16, and under strong and weak decay; y and the state
+    at each row's ``lengths - 1``. The bfloat16 serving shape timed by
+    events and device time beside the plain loop and the byte bound (no
+    single PyTorch call computes the recurrence). Returns its kernels-line
+    entry."""
+    import torch
+
+    from repro_torch.kernels import rglru_scan as RG
+
+    b, s, w = 8, 2048, 2560
+    timed = None
+    for label, dtype, decay, shape in (("float32", torch.float32, "normal", (b, s, w)),
+                                       ("float32 strong decay", torch.float32, "strong",
+                                        (2, 512, w)),
+                                       ("float32 weak decay", torch.float32, "weak",
+                                        (2, 512, w)),
+                                       ("bfloat16", torch.bfloat16, "normal", (b, s, w))):
+        args = _rglru_inputs(*shape, dtype, 21, decay)
+        y, h_last = RG.rglru_scan(*args)
+        want_y, want_h = RG.rglru_scan_torch(*args, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        tol = FP32_TOL if dtype == torch.float32 else RGLRU_BF16_TOL
+        name = f"rglru_scan {label} {shape}"
+        err = check_close(f"{name} y", y, want_y, tol)
+        check_close(f"{name} state at lengths - 1", h_last, want_h, FP32_TOL)
+        del y, h_last, want_y, want_h
+        if dtype == torch.bfloat16:
+            ms = cuda_ms(lambda: RG.rglru_scan(*args), flush=flush)
+            dev_ms, names = device_ms(lambda: RG.rglru_scan(*args), "rglru", flush)
+            plain_ms = cuda_ms(lambda: RG.rglru_scan_torch(*args), reps=3, warmup=1,
+                               flush=flush)
+            elems = b * s * w
+            # four bf16 inputs read, y written; c, lengths and the state
+            nbytes = 5 * 2 * elems + 4 * w + 4 * b + 4 * b * w
+            # ~26 float32 operations an element (two sigmoids, exp, sqrt,
+            # the tanh gelu, the products and the recurrence's multiply-add)
+            bound, by = _bound_ms(nbytes, 26 * elems, torch.float32)
+            print(f"  rglru_scan timing, bfloat16 {(b, s, w)}: kernel {ms:.4f} ms by events "
+                  f"({nbytes / ms / 1e6:.0f} GB/s), device time {_dev(dev_ms)} "
+                  f"({', '.join(_short(n) for n in names) or 'no events'}), plain loop "
+                  f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB); "
+                  f"library: none (no single PyTorch call computes the recurrence)")
+            timed = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by)
+        del args
+    return dict(name="rglru_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+                replaces="src/repro/models/blocks.py:570", library_ms=None, **timed)
 
 
 def paged_kernel_cases(flush) -> dict:
@@ -506,8 +728,11 @@ def paged_kernel_cases(flush) -> dict:
         # the mma kernel's instantiations for a head dim below their widest
         for dd in (16, 32, 40, 64, 96):
             check_case(f"D={dd} g=2 page 16", 2, 4, 2, dd, 16, 64, [5, 70], dtype, 6)
-        # the widest group and head dim (g * D <= 2048), pages of 4 slots
+        # the widest groups and head dims (g <= 16, D <= 256; recurrentgemma's
+        # g = 10 at D = 256), pages of 4 slots
         check_case("D=256 g=8 page 4", 2, 8, 1, 256, 4, 200, [150, 199], dtype, 6)
+        check_case("D=256 g=10 page 4", 2, 10, 1, 256, 4, 200, [150, 199], dtype, 6)
+        check_case("D=256 g=16 page 4", 2, 16, 1, 256, 4, 200, [3, 180], dtype, 6)
         check_case("D=128 g=16 page 4", 2, 32, 2, 128, 4, 200, [3, 180], dtype, 6)
     paged_kernel_names(PA)
 
@@ -1095,8 +1320,8 @@ def phase_serve_check():
     torch.cuda.empty_cache()
 
 
-def serve_passes(srv, cfg, decode_kernel=None) -> dict:
-    """Serves ``SERVE_REQUESTS`` (32 new tokens each) twice through
+def serve_passes(srv, cfg, decode_kernel=None, requests=SERVE_REQUESTS) -> dict:
+    """Serves ``requests`` (32 new tokens each) twice through
     ``PlanServer.handle``. The first pass compiles each bucket's plans and
     captures its decode graph (``metrics.compile_seconds`` holds both); the
     second is the steady state: cache hits and one graph replay per tick.
@@ -1106,24 +1331,18 @@ def serve_passes(srv, cfg, decode_kernel=None) -> dict:
     another operator. Returns the launches of both passes."""
     import torch
 
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import paged_attention as PA
-    from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.runtime.serve_loop import ServeRequest
 
-    wrappers = {"flash_attention": FA.flash_attention,
-                "paged_decode_attention": PA.paged_decode_attention,
-                "ssd_scan": SSD.ssd_scan}
+    wrappers = _counted_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    pattern = cfg.layer_pattern()
-    n_attn, n_ssd = pattern.count("a"), pattern.count("s")
+    shapes = requests
     total = dict.fromkeys(wrappers, 0)
     for label in ("first pass: plans compiled, decode graphs captured",
                   "second pass: steady state, cache hits and graph replays"):
-        requests = [ServeRequest(b, c, new_tokens=32) for b, c in SERVE_REQUESTS]
+        requests = [ServeRequest(b, c, new_tokens=32) for b, c in shapes]
         before = {k: fn.launches for k, fn in wrappers.items()}
         m0 = srv.metrics.as_dict()
         outs = [srv.handle(r) for r in requests]
@@ -1133,10 +1352,8 @@ def serve_passes(srv, cfg, decode_kernel=None) -> dict:
         if decode_kernel is not None and set(chosen) != {decode_kernel}:
             fail(f"the plans chose decode kernels {chosen}; every bucket must choose "
                  f"{decode_kernel}")
-        want = {"flash_attention": n_attn * len(requests),
-                "paged_decode_attention": n_attn * sum(
-                    o["decode_steps"] for o, k in zip(outs, chosen) if k == "paged"),
-                "ssd_scan": n_ssd * len(requests)}
+        want = launches_expected(cfg, len(requests), sum(
+            o["decode_steps"] for o, k in zip(outs, chosen) if k == "paged"))
         print(f"  {label}: compile + capture {m1['compile_seconds'] - m0['compile_seconds']:.3f} s; "
               f"plan cache +{m1['hits'] - m0['hits']} hits, +{m1['compiles'] - m0['compiles']} "
               f"compiles, {m1['recompiles']} recompiles")
@@ -1304,25 +1521,35 @@ def _engine_case(solo, role) -> tuple:
 
 
 def _counted_wrappers() -> dict:
+    """The kernel wrappers on the serving path, by name."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import rglru_scan as RG
     from repro_torch.kernels import ssd_scan as SSD
 
     return {"flash_attention": FA.flash_attention,
-            "paged_decode_attention": PA.paged_decode_attention, "ssd_scan": SSD.ssd_scan}
+            "paged_decode_attention": PA.paged_decode_attention, "ssd_scan": SSD.ssd_scan,
+            "rglru_scan": RG.rglru_scan}
+
+
+def launches_expected(cfg, prefills: int, paged_ticks: int) -> dict:
+    """Each serving kernel's launches for ``prefills`` prompt passes and
+    ``paged_ticks`` decode ticks whose plan chose the paged kernel: flash,
+    the SSD scan and the RG-LRU scan once per layer of their kind and prompt
+    pass, paged decode once per attention layer and paged tick."""
+    pattern = cfg.layer_pattern()
+    n_attn = pattern.count("a")
+    return {"flash_attention": n_attn * prefills,
+            "paged_decode_attention": n_attn * paged_ticks,
+            "ssd_scan": pattern.count("s") * prefills,
+            "rglru_scan": pattern.count("r") * prefills}
 
 
 def engine_launches_expected(srv, ticks: int, prefills: int, bucket) -> dict:
-    """Each kernel's launches for ``ticks`` group decode ticks and
-    ``prefills`` prompt passes: flash and the SSD scan once per layer of
-    their kind and prompt pass, paged decode once per attention layer and
-    tick where the bucket's plan chose it."""
-    pattern = srv.cfg.layer_pattern()
-    n_attn, n_ssd = pattern.count("a"), pattern.count("s")
+    """:func:`launches_expected` of an engine trace: ``ticks`` group decode
+    ticks in ``bucket``, counted where the bucket's plan chose paged."""
     paged = srv.decode_entry(*bucket).plan.explain_axes()["decode_kernel"] == "paged"
-    return {"flash_attention": n_attn * prefills,
-            "paged_decode_attention": n_attn * ticks if paged else 0,
-            "ssd_scan": n_ssd * prefills}
+    return launches_expected(srv.cfg, prefills, ticks if paged else 0)
 
 
 def engine_trace_check(srv, label: str) -> None:
@@ -1689,6 +1916,110 @@ def phase_serve_ssm():
 
 
 # ---------------------------------------------------------------------------
+# 10. serve-check-hybrid and 11. serve-hybrid
+# ---------------------------------------------------------------------------
+
+
+def phase_serve_check_hybrid():
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.engine_config import EngineConfig
+    from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
+
+    phase("serve-check-hybrid: RecurrentGemma-2B widths, 3 layers (rra), float32, window "
+          "2048: graphed == eager; paged == gather == ref == auto; handoff == longer prefill")
+    cfg = get_config("recurrentgemma-2b").replace(num_layers=3)
+    requests = [ServeRequest(batch, ctx, new_tokens=8) for batch, ctx in HYBRID_CHECK_REQUESTS]
+    wrappers = _counted_wrappers()
+    streams, logits, params, model = {}, {}, None, None
+    for kernel in ("paged", "gather", "ref", "auto"):
+        srv = PlanServer(cfg, config=EngineConfig(dtype="float32", prefill=True,
+                                                  page_size=64, decode_kernel=kernel,
+                                                  seed=SEED))
+        if params is None:
+            params, model = srv.params, srv.model
+        srv.params = params
+        for fn in wrappers.values():
+            fn.launches = 0
+        outs = [srv.handle(r) for r in requests]
+        got = {k: fn.launches for k, fn in wrappers.items()}
+        chosen = [o["plan"].explain_axes()["decode_kernel"] for o in outs]
+        want = launches_expected(cfg, len(requests), sum(
+            o["decode_steps"] for o, k in zip(outs, chosen) if k == "paged"))
+        streams[kernel] = [o["tokens"].cpu().numpy() for o in outs]
+        logits[kernel] = [o["last_logits"].float() for o in outs]
+        print(f"  {kernel}: buckets {[o['bucket'] for o in outs]}, plans chose {chosen}; "
+              f"{[t.tolist() for t in streams[kernel]]}; launches {got} (expected {want})")
+        if got != want:
+            fail(f"hybrid decode_kernel={kernel}: launches {got} != {want}")
+        if kernel == "auto" and set(chosen) != {"paged"}:
+            fail(f"hybrid decode_kernel=auto: the plans chose {chosen}, not paged")
+        check_graphed_against_eager(srv, requests, outs, f"hybrid decode_kernel={kernel}")
+        if kernel == "paged":
+            engine_trace_check(srv, "RecurrentGemma 3 layers, decode_kernel=paged")
+        del srv
+    for kernel in ("gather", "ref", "auto"):
+        for a, c in zip(streams["paged"], streams[kernel]):
+            if not np.array_equal(a, c):
+                fail(f"hybrid token streams differ between paged and {kernel}")
+        for a, c in zip(logits["paged"], logits[kernel]):
+            if not torch.allclose(a, c, atol=1e-3, rtol=1e-3):
+                fail(f"hybrid final logits differ between paged and {kernel}")
+    print("  token streams identical across paged, gather, ref and auto")
+
+    # handoff past the window: a prefill of T tokens then one decode step
+    # (the rotating dense cache) on token T equals the last logits of a
+    # prefill of T + 1 tokens, with random prompts at T = 2100 and 1500
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2200), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    lens = torch.tensor([2100, 1500], dtype=torch.int32, device="cuda")
+    _, cache = model.prefill(params, tokens, lengths=lens)
+    nxt = tokens[torch.arange(2, device="cuda"), lens.long()][:, None]
+    step, _ = model.decode_step(params, cache, nxt, lens)
+    want, _ = model.prefill(params, tokens, lengths=lens + 1)
+    err = float((step[:, -1] - want).abs().max())
+    rms = float(want.pow(2).mean().sqrt())
+    print(f"  handoff: decode after prefills of (2100, 1500) tokens vs prefills one token "
+          f"longer, max abs logit difference {err:.3e} (logit RMS {rms:.3f})")
+    if not torch.allclose(step[:, -1], want, atol=1e-3, rtol=1e-3):
+        fail("hybrid prefill -> decode handoff disagrees with the longer prefill")
+    del params, model, cache, logits
+    torch.cuda.empty_cache()
+
+
+def phase_serve_hybrid() -> dict:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.engine_config import EngineConfig
+    from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
+
+    cfg = get_config("recurrentgemma-2b")
+    phase(f"serve-hybrid: {cfg.name}, {cfg.num_layers} layers ({cfg.block_pattern}), "
+          f"bfloat16, window {cfg.window_size}, page 64, decode_kernel=auto, one CUDA graph "
+          "per bucket")
+    t0 = time.perf_counter()
+    srv = PlanServer(cfg, config=EngineConfig(dtype="bfloat16", prefill=True, page_size=64,
+                                              decode_kernel="auto", seed=SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in srv.params.values())
+    print(f"  weights: {n_params / 1e9:.2f} B parameters, random from seed {SEED}, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    srv.handle(ServeRequest(1, 16, new_tokens=2))     # warm-up: cuBLAS, allocator
+    launches = serve_passes(srv, cfg, decode_kernel="paged", requests=HYBRID_SERVE_REQUESTS)
+    print(f"  pool peak {srv.pool.metrics.peak_bytes / 2**20:.1f} MiB (paged K/V of the "
+          f"attention layers and the RG-LRU state)")
+    trace_decode(srv, [ServeRequest(b, c, new_tokens=32) for b, c in HYBRID_SERVE_REQUESTS])
+    del srv
+    torch.cuda.empty_cache()
+    return {"flash_attention_d256": launches["flash_attention"],
+            "paged_decode_attention_g10_d256": launches["paged_decode_attention"],
+            "rglru_scan": launches["rglru_scan"]}
+
+
+# ---------------------------------------------------------------------------
 # 8. lenet-check and 9. lenet
 # ---------------------------------------------------------------------------
 
@@ -1894,6 +2225,8 @@ def _kernel_family(name: str) -> str:
         return "paged_decode"
     if "ssd_scan" in name:
         return "ssd"
+    if "rglru_scan" in name:
+        return "rglru"
     if "flash_" in name:
         return "flash"
     if "repro_mm_" in name:
@@ -2030,13 +2363,16 @@ def main() -> int:
     launches.update(phase_serve_ssm())
     phase_lenet_check()
     launches.update(phase_lenet())
+    phase_serve_check_hybrid()
+    launches.update(phase_serve_hybrid())
     for name, n in launches.items():
         kernels[name]["launches"] = n
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [{key: kernels[n][key] for key in order}
                         for n in ("paged_decode_attention", "flash_attention", "ssd_scan",
-                                  "matmul", "conv2d_im2col")]}
+                                  "matmul", "conv2d_im2col", "flash_attention_d256",
+                                  "paged_decode_attention_g10_d256", "rglru_scan")]}
     for entry in line["kernels"]:
         for key in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms"):
             if entry[key] is not None and not math.isfinite(entry[key]):

@@ -32,8 +32,7 @@ from repro_torch.core.cost import analytic_cost, decode_kernel_seconds
 from repro_torch.core.memory import ACT_BYTES, cache_page_count, estimate_memory
 from repro_torch.core.strategies import ExecutionPlan, PlanConfig, RuntimeStats, Strategy
 from repro_torch.hw import H100
-from repro_torch.kernels.paged_attention import (MAX_GROUP, MAX_GROUP_X_DIM,
-                                                 MAX_HEAD_DIM)
+from repro_torch.kernels.paged_attention import MAX_GROUP, MAX_HEAD_DIM
 
 LONG_CONTEXT_THRESHOLD = 262_144  # beyond this, full attention must window
 
@@ -75,9 +74,8 @@ class PlanCompiler:
         seconds when the cost comparison actually ran. The fit test is the
         reference's per-block fast-memory test against ``hw.vmem_bytes``
         (on the H100 the opt-in shared memory of one block) and, in the
-        port, the shapes ``csrc/paged_decode.cu`` takes (g <= 16, D <= 256,
-        g * D <= 2048), so ``auto`` never selects a kernel that would
-        refuse the shape."""
+        port, the shapes ``csrc/paged_decode.cu`` takes (g <= 16, D <= 256),
+        so ``auto`` never selects a kernel that would refuse the shape."""
         page = self.cache_page_size
         rec = {
             "kernel": "gather",
@@ -105,14 +103,14 @@ class PlanCompiler:
         d = model.head_dim
         g = model.q_per_kv
         blk = 2 * page * d * ACT_BYTES + g * d * ACT_BYTES + g * (d + 2) * 4
-        takes = g <= MAX_GROUP and d <= MAX_HEAD_DIM and g * d <= MAX_GROUP_X_DIM
+        takes = g <= MAX_GROUP and d <= MAX_HEAD_DIM
         rec["vmem_fit"] = blk <= self.hw.vmem_bytes * 0.8 and takes
         if not rec["vmem_fit"]:
             rec.update(reason=(
                 f"page block {blk}B exceeds the per-block memory budget"
                 if takes else
-                f"paged kernel takes g <= {MAX_GROUP}, D <= {MAX_HEAD_DIM}, "
-                f"g*D <= {MAX_GROUP_X_DIM}; got g={g}, D={d}"))
+                f"paged kernel takes g <= {MAX_GROUP}, D <= {MAX_HEAD_DIM}; "
+                f"got g={g}, D={d}"))
             return rec
         paged_s = decode_kernel_seconds(model, shape, self.hw, "paged", page,
                                         committed_frac)

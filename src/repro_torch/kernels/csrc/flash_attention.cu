@@ -41,11 +41,15 @@
 //   needs a second score buffer, for which ptxas spilled, and that version
 //   ran slower on the H100; across the two warpgroups, ping-pong
 //   scheduling), persistent blocks.
-// - bfloat16, D = 32 and 64 (the smoke configurations; flash_mma_kernel):
-//   mma.sync m16n8k16 on 64-row query tiles and 64-key tiles loaded
-//   synchronously; each warp keeps its Q fragments in registers, K and V
-//   reach the MMAs through ldmatrix (V transposed on the fly), and the
-//   scores become the P operand in registers. Same exp2 softmax.
+// - bfloat16, D = 32 and 64 (the smoke configurations) and D = 256
+//   (recurrentgemma's local attention; flash_mma_kernel): mma.sync m16n8k16
+//   on 64-row query tiles and 64-key tiles loaded synchronously; each warp
+//   keeps its Q fragments in registers (at D = 256 it reloads them from the
+//   Q tile per k-step, leaving its registers to the 16 x 256 float32
+//   output), K and V reach the MMAs through ldmatrix (V transposed on the
+//   fly), and the scores become the P operand in registers. Same exp2
+//   softmax. At D = 256 a block takes 101 KB of shared memory, two blocks
+//   an SM. Not yet: TMA and wgmma at D = 256.
 // - float32 (flash_fp32_kernel): the CUDA cores. Each of the 128 threads
 //   owns an 8 x 4 block of the score tile and an 8 x D/16 block of the
 //   output; K is stored transposed so the score loop reads it with 16-byte
@@ -371,6 +375,7 @@ flash_mma_kernel(const bf16* __restrict__ q,   // (B, Hq, Sq, D)
   constexpr int LD = D + 8;            // padded row: ldmatrix rows hit distinct banks
   constexpr int KS = D / 16;           // k-steps over D
   constexpr int DN = D / 8;            // 8-wide output column tiles
+  constexpr bool Q_IN_REGS = D <= 64;
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_mma);
   bf16* k_s = q_s + 64 * LD;
@@ -391,10 +396,16 @@ flash_mma_kernel(const bf16* __restrict__ q,   // (B, Hq, Sq, D)
 
   load_tile<D>(q_s, qb, q0, sq, tid);
   __syncthreads();
-  uint32_t qf[KS][4];                  // this warp's 16 query rows, all of D
+  // this warp's 16 query rows as A fragments: held in registers for all of
+  // D at D <= 64; at D = 256 (64 registers) they are reloaded from the Q
+  // tile for each k-step, which leaves the registers to the 16 x 256
+  // float32 output (128 a thread) and keeps ptxas from spilling
+  const bf16* q_frag = q_s + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+  uint32_t qf[Q_IN_REGS ? KS : 1][4];
+  if (Q_IN_REGS) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ldmatrix_x4(qf[ks], q_s + (warp * 16 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
+    for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[Q_IN_REGS ? ks : 0], q_frag + ks * 16);
+  }
 
   float o[DN][4];
 #pragma unroll
@@ -418,13 +429,15 @@ flash_mma_kernel(const bf16* __restrict__ q,   // (B, Hq, Sq, D)
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      const int qi = Q_IN_REGS ? ks : 0;
+      if (!Q_IN_REGS) ldmatrix_x4(qf[0], q_frag + ks * 16);
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t kf[4];
         ldmatrix_x4(kf, k_s + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + ks * 16 +
                             ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
+        mma_bf16(s[2 * np], qf[qi], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf[qi], kf[2], kf[3]);
       }
     }
 
@@ -916,9 +929,9 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 128}; rows must be
-// 16-byte aligned. bfloat16 at d = 128 runs flash_wgmma_kernel, at d = 32
-// and 64 flash_mma_kernel. Returns the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 128, 256}; rows must be
+// 16-byte aligned. bfloat16 at d = 128 runs flash_wgmma_kernel, at d = 32,
+// 64 and 256 flash_mma_kernel. Returns the launch's cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
                                int dtype, int batch, int hq, int hkv, int sq, int sk, int d,
                                int causal, int window, int q_offset, float scale,
@@ -937,6 +950,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
       break;
     case 128:
       err = launch<128>(dtype, q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset,
+                        scale, s);
+      break;
+    case 256:
+      err = launch<256>(dtype, q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset,
                         scale, s);
       break;
     default:

@@ -45,7 +45,9 @@
 // float32, and bfloat16 with D % 16 != 0: paged_split_kernel, 128-slot
 // splits on the CUDA cores. Each block stages 64-slot K and V tiles into
 // shared memory with 16-byte loads, reads each K/V row once for all g query
-// heads of its group, and keeps the g x D float32 accumulator in registers.
+// heads of its group, and keeps the g x D float32 accumulator in registers
+// (16 elements a thread up to g x D = 2048, 32 up to the g = 16, D = 256
+// bound).
 //
 // Host side: the dynamic shared memory opt-in (cudaFuncSetAttribute) runs
 // once per kernel instantiation and device, not once per launch.
@@ -66,7 +68,7 @@ constexpr int kTile = 64;        // slots per tile (both kernels)
 constexpr int kSplit = 128;      // slots per block of paged_split_kernel
 constexpr int kMaxG = 16;        // query heads per kv head
 constexpr int kMaxD = 256;       // head dim
-constexpr int kMaxElems = 16;    // accumulator elements per thread (split kernel)
+constexpr int kMaxElems = 32;    // accumulator elements per thread (split kernel)
 constexpr int kMaxDevices = 64;  // devices whose shared-memory opt-in is remembered
 constexpr int kStages = 3;       // cp.async ring stages per warp (mma kernel)
 constexpr int kWarpSlots = kTile / kWarps;   // 16 slots of a tile per warp
@@ -123,7 +125,9 @@ constexpr size_t smem_bytes(int g, int d) {
          + sizeof(long long) * kTile;              // row offsets of the tile
 }
 
-template <typename T>
+// ELEMS: accumulator elements per thread, g * D <= kThreads * ELEMS (16
+// up to g * D = 2048, 32 above: recurrentgemma's g = 10 at D = 256)
+template <typename T, int ELEMS>
 __global__ void __launch_bounds__(kThreads)
 paged_split_kernel(const T* __restrict__ q,             // (B, Hq, D)
                    const T* __restrict__ k,             // (n_slots, Hkv, D)
@@ -164,9 +168,9 @@ paged_split_kernel(const T* __restrict__ q,             // (B, Hq, D)
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
   }
-  float acc[kMaxElems];
+  float acc[ELEMS];
 #pragma unroll
-  for (int i = 0; i < kMaxElems; ++i) acc[i] = 0.f;
+  for (int i = 0; i < ELEMS; ++i) acc[i] = 0.f;
 
   const long long slot_stride = (long long)hkv * d;
   const int chunks_per_row = d * (int)sizeof(T) / 16;   // 16-byte chunks
@@ -235,7 +239,7 @@ paged_split_kernel(const T* __restrict__ q,             // (B, Hq, D)
 
     // acc = alpha * acc + P . V, each thread owning (row, d) elements
 #pragma unroll
-    for (int i = 0; i < kMaxElems; ++i) {
+    for (int i = 0; i < ELEMS; ++i) {
       const int e = tid + i * kThreads;
       if (e < gd) {
         const int r = e / d;
@@ -251,7 +255,7 @@ paged_split_kernel(const T* __restrict__ q,             // (B, Hq, D)
   __syncthreads();
 
 #pragma unroll
-  for (int i = 0; i < kMaxElems; ++i) {
+  for (int i = 0; i < ELEMS; ++i) {
     const int e = tid + i * kThreads;
     if (e < gd) part_acc[part * gd + e] = acc[i];
   }
@@ -652,17 +656,17 @@ paged_combine_kernel(const float* __restrict__ part_acc, const float* __restrict
 // launchers
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int ELEMS>
 cudaError_t launch_split(const void* q, const void* k, const void* v, const void* tables,
                          const void* pos, void* out, float* part_acc, float* part_ml,
                          int batch, int hkv, int g, int d, int n_tab, int page, int sc,
                          int n_phys, int n_splits, float scale, cudaStream_t stream) {
   static bool opted_in[kMaxDevices] = {};
-  cudaError_t err = opt_in_once(reinterpret_cast<const void*>(paged_split_kernel<T>),
+  cudaError_t err = opt_in_once(reinterpret_cast<const void*>(paged_split_kernel<T, ELEMS>),
                                 static_cast<int>(smem_bytes<T>(kMaxG, kMaxD)), opted_in);
   if (err != cudaSuccess) return err;
   const int bytes = static_cast<int>(smem_bytes<T>(g, d));
-  paged_split_kernel<T><<<dim3(n_splits, hkv, batch), kThreads, bytes, stream>>>(
+  paged_split_kernel<T, ELEMS><<<dim3(n_splits, hkv, batch), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int32_t*>(tables), static_cast<const int32_t*>(pos), part_acc,
       part_ml, hkv, g, d, n_tab, page, sc, n_phys, scale);
@@ -712,7 +716,8 @@ extern "C" int paged_decode(const void* q, const void* k, const void* v,
                             int n_splits, int split_slots, float scale, void* stream) {
   const bool mma = dtype == 1 && d % 16 == 0;
   const long long covered = (long long)n_splits * split_slots;
-  if (g < 1 || g > kMaxG || d < 1 || d > kMaxD || g * d > kThreads * kMaxElems ||
+  static_assert(kMaxG * kMaxD <= kThreads * kMaxElems, "split accumulator bound");
+  if (g < 1 || g > kMaxG || d < 1 || d > kMaxD ||
       n_splits < 1 || split_slots < 1 || covered < (long long)min(sc, n_tab * page) ||
       (mma ? split_slots % kTile != 0 : split_slots != kSplit))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -735,12 +740,19 @@ extern "C" int paged_decode(const void* q, const void* k, const void* v,
           : d <= 64  ? run(std::integral_constant<int, 64>{})
           : d <= 128 ? run(std::integral_constant<int, 128>{})
                      : run(std::integral_constant<int, 256>{});
-  } else if (dtype == 0) {
-    err = launch_split<float>(q, k, v, tables, pos, out, pa, pm, batch, hkv, g, d, n_tab,
-                              page, sc, n_phys, n_splits, scale, s);
-  } else if (dtype == 1) {
-    err = launch_split<bf16>(q, k, v, tables, pos, out, pa, pm, batch, hkv, g, d, n_tab,
-                             page, sc, n_phys, n_splits, scale, s);
+  } else if (dtype == 0 || dtype == 1) {
+    // the split kernel whose accumulator holds g * d in the fewest registers
+    auto run = [&](auto type, auto elems) {
+      using T = decltype(type);
+      constexpr int ELEMS = decltype(elems)::value;
+      return launch_split<T, ELEMS>(q, k, v, tables, pos, out, pa, pm, batch, hkv, g, d,
+                                    n_tab, page, sc, n_phys, n_splits, scale, s);
+    };
+    using Half = std::integral_constant<int, kMaxElems / 2>;
+    using Full = std::integral_constant<int, kMaxElems>;
+    const bool half = g * d <= kThreads * kMaxElems / 2;
+    err = dtype == 0 ? (half ? run(float{}, Half{}) : run(float{}, Full{}))
+                     : (half ? run(bf16{}, Half{}) : run(bf16{}, Full{}));
   } else {
     err = cudaErrorInvalidValue;
   }

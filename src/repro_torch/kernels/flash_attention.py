@@ -12,8 +12,9 @@ expansion is never materialized.
   kernel it pads nothing: the ragged ``Sk`` tail is masked per element, so
   unaligned bidirectional attention needs no special case. bfloat16 at
   D = 128 runs ``flash_wgmma_kernel`` (TMA + wgmma, 128-key tiles), at
-  D = 32 and 64 ``flash_mma_kernel`` (mma.sync, 64-key tiles); float32
-  runs ``flash_fp32_kernel`` (CUDA cores).
+  D = 32, 64 and 256 ``flash_mma_kernel`` (mma.sync, 64-key tiles); float32
+  runs ``flash_fp32_kernel`` (CUDA cores). Key tiles wholly outside the
+  causal and window masks are skipped, not masked.
 - :func:`flash_attention_torch` is the plain version: the same masks
   applied to the full score matrix (``kernels/ref.py::attention_ref`` with
   the kernel's ``q_offset`` convention).
@@ -36,7 +37,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF, attention_ref
 
 # head dims csrc/flash_attention.cu is instantiated for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 # query rows and keys per tile of flash_fp32_kernel and flash_mma_kernel
 BQ, BK = 64, 64
 # flash_wgmma_kernel (bfloat16, D = 128): 128-row query tiles, 128-key
@@ -57,7 +58,7 @@ def smem_bytes(d: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory one block of the kernel takes at head dim d.
     bfloat16 at D = 128: the Q tile, WGMMA_STAGES K and V tiles, the
     mbarriers and 1 KB to align the tiles to the 128-byte swizzle's period;
-    at D = 32, 64: Q, K and V tiles of padded bf16 rows. float32: the query
+    at D = 32, 64, 256: Q, K and V tiles of padded bf16 rows. float32: the query
     tile, the transposed K tile (reused for V) and the P tile."""
     if dtype == torch.bfloat16 and d == 128:
         q_tile, kv_tile = WGMMA_BQ * d * 2, WGMMA_BK * d * 2

@@ -24,6 +24,7 @@ from repro_torch.kernels.matmul import matmul as matmul_kernel
 from repro_torch.kernels.matmul import matmul_torch
 from repro_torch.kernels.paged_attention import (paged_attention_torch,
                                                  paged_decode_attention)
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_torch
 from repro_torch.kernels.ssd_scan import MAX_CHUNK, ssd_scan, ssd_scan_torch
 
 BACKEND = "auto"
@@ -71,3 +72,10 @@ def ssd(x, dt, a, b_mat, c_mat, d, *, chunk: int = MAX_CHUNK):
     x's dtype."""
     fn = ssd_scan_torch if _use_plain(x) else ssd_scan
     return fn(x, dt, a, b_mat, c_mat, d, chunk=chunk)
+
+
+def rglru(xb, r_pre, i_pre, y_pre, c, lengths=None):
+    """The RG-LRU gates, recurrence and output product over (B, S, W):
+    ``(y in xb's dtype, the float32 state at each row's lengths - 1)``."""
+    fn = rglru_scan_torch if _use_plain(xb) else rglru_scan
+    return fn(xb, r_pre, i_pre, y_pre, c, lengths)

@@ -38,17 +38,17 @@ from repro_torch.hw import H100_SMS, sm_count
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF, phys_slots
 
-# limits of csrc/paged_decode.cu (kMaxG, kMaxD, kThreads * kMaxElems)
+# limits of csrc/paged_decode.cu (kMaxG, kMaxD); every g * D within them
+# fits the split kernel's accumulator
 MAX_GROUP = 16
 MAX_HEAD_DIM = 256
-MAX_GROUP_X_DIM = 2048
 # slots per split of paged_split_kernel (kSplit)
 SPLIT_SLOTS = 128
 # paged_mma_kernel: 64-slot tiles (16 slots to each of 4 warps), a split is
-# a whole number of tiles; splits are sized for about BLOCKS_PER_SM blocks
-# on every SM (two blocks of the D = 128 instantiation fit an SM)
+# a whole number of tiles; splits are sized for as many blocks as fit on
+# every SM: two of the instantiations up to D = 128, one of D = 256 (its
+# 211 KB of shared memory)
 TILE_SLOTS = 64
-BLOCKS_PER_SM = 2
 LOG2E = 1.4426950408889634
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -62,20 +62,26 @@ def kernel_name(d: int, dtype: torch.dtype) -> str:
     return "paged_split_kernel"
 
 
+def blocks_per_sm(d: int) -> int:
+    """Blocks of ``paged_mma_kernel`` that fit an SM at head dim d."""
+    return 2 if d <= 128 else 1
+
+
 def split_plan(bsz: int, hkv: int, n: int, d: int, dtype: torch.dtype,
                sms: int = H100_SMS) -> Tuple[int, int]:
     """(slots per split, splits) for ``n = min(sc, n_tab * page)`` slots per
     row. ``paged_split_kernel`` takes ``SPLIT_SLOTS``. ``paged_mma_kernel``
     takes a whole number of ``TILE_SLOTS`` tiles, as few as give the B * Hkv
-    (row, kv head) pairs about ``BLOCKS_PER_SM`` blocks on each of ``sms``
-    SMs: on 132 SMs the (8, 2048) bucket's 32 pairs take 8 splits of 256
-    slots (256 blocks). Rows' positions are not read (the host would have
+    (row, kv head) pairs about :func:`blocks_per_sm` blocks on each of
+    ``sms`` SMs: on 132 SMs the Yi (8, 2048) bucket's 32 pairs take 8 splits
+    of 256 slots (256 blocks), recurrentgemma's 8 pairs at D = 256 16 splits
+    of 128 (128 blocks). Rows' positions are not read (the host would have
     to wait for the device), so a split past a row's committed slots is
     planned and exits at once."""
     if kernel_name(d, dtype) == "paged_split_kernel":
         return SPLIT_SLOTS, max(1, -(-n // SPLIT_SLOTS))
     tiles = max(1, -(-n // TILE_SLOTS))
-    want = max(1, BLOCKS_PER_SM * sms // (bsz * hkv))
+    want = max(1, blocks_per_sm(d) * sms // (bsz * hkv))
     slots = -(-tiles // want) * TILE_SLOTS
     return slots, max(1, -(-n // slots))
 
@@ -196,10 +202,9 @@ def _check(q, k_cache, v_cache, tables, pos, page, sc) -> None:
         raise ValueError(f"head shapes do not match: q {tuple(q.shape)}, "
                          f"cache {tuple(k_cache.shape)}")
     g = hq // hkv
-    if g > MAX_GROUP or d > MAX_HEAD_DIM or g * d > MAX_GROUP_X_DIM:
+    if g > MAX_GROUP or d > MAX_HEAD_DIM:
         raise ValueError(f"paged_decode kernel takes g <= {MAX_GROUP}, "
-                         f"D <= {MAX_HEAD_DIM}, g*D <= {MAX_GROUP_X_DIM}; "
-                         f"got g={g}, D={d}")
+                         f"D <= {MAX_HEAD_DIM}; got g={g}, D={d}")
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise TypeError(f"paged_decode kernel takes float32 or bfloat16 q/k/v of "
                         f"one dtype, got {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")

@@ -1,0 +1,134 @@
+"""The RG-LRU recurrence of a prompt pass: the CUDA kernel's wrapper and its
+plain version.
+
+The reference runs ``h_t = a_t * h_{t-1} + b_t`` as ``lax.associative_scan``
+(``repro/models/blocks.py:570``, in ``rglru_block_apply``); no Pallas kernel
+computes it. Both forms here fuse the gates of ``_lru_gates`` and the
+product with the gelu'd ``y`` branch around the recurrence, with the
+reference's rounding points:
+
+- inputs in the model dtype: ``xb`` (the conv output), ``r_pre`` and
+  ``i_pre`` (``xb @ w_r + b_r`` and ``xb @ w_i + b_i``, the bias added in
+  the model dtype) and ``y_pre`` (``h @ w_y``); ``c = -8 softplus(a_log)``
+  per channel in float32;
+- ``r, i = sigmoid(float(.))``, ``a = exp(c r)``,
+  ``bt = sqrt(max(1 - a^2, 1e-9)) i float(xb)``, ``h`` in float32;
+- ``y = (h * gelu_tanh(float(y_pre))).to(model dtype)``, and the state ``h``
+  at each row's ``lengths - 1`` for the prefill -> decode handoff.
+
+- :func:`rglru_scan` is the kernel wrapper: on a CUDA tensor it launches
+  ``csrc/rglru_scan.cu`` (raising on anything the kernel does not take), on
+  a CPU tensor it runs the plain version.
+- :func:`rglru_scan_torch` is the plain version: the gates over the whole
+  sequence, then a sequential float32 loop over t.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def lru_gates_torch(r_pre: torch.Tensor, i_pre: torch.Tensor,
+                    c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(a, gate)`` in float32: the recurrence's decay and its input gate
+    (``bt = gate * float(xb)``), as the reference's ``_lru_gates``."""
+    r = torch.sigmoid(r_pre.float())
+    i = torch.sigmoid(i_pre.float())
+    a = torch.exp(c * r)
+    beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9))
+    return a, beta * i
+
+
+def rglru_scan_torch(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
+                     y_pre: torch.Tensor, c: torch.Tensor,
+                     lengths: Optional[torch.Tensor] = None,
+                     out_dtype: Optional[torch.dtype] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: (B, S, W) inputs -> ``(y, h_last)``, y in
+    ``out_dtype`` (default ``xb.dtype``; float32 leaves it unrounded),
+    h_last (B, W) float32 at ``clamp(lengths - 1, 0, S - 1)`` (default: the
+    last position)."""
+    b, s, w = xb.shape
+    a, gate = lru_gates_torch(r_pre, i_pre, c)
+    bt = gate * xb.float()
+    yb = F.gelu(y_pre.float(), approximate="tanh")
+    hseq = torch.empty((b, s, w), dtype=torch.float32, device=xb.device)
+    h = torch.zeros((b, w), dtype=torch.float32, device=xb.device)
+    for t in range(s):
+        h = a[:, t] * h + bt[:, t]
+        hseq[:, t] = h
+    y = (hseq * yb).to(out_dtype or xb.dtype)
+    if lengths is None:
+        last = torch.full((b,), s - 1, dtype=torch.long, device=xb.device)
+    else:
+        last = torch.clamp(lengths.long() - 1, 0, s - 1)
+    return y, hseq[torch.arange(b, device=xb.device), last]
+
+
+def _check(xb, r_pre, i_pre, y_pre, c, lengths) -> None:
+    """Raise with the reason on anything the CUDA kernel does not take."""
+    if xb.dim() != 3:
+        raise ValueError(f"xb must be (B, S, W), got {tuple(xb.shape)}")
+    b, _s, w = xb.shape
+    for name, t in (("r_pre", r_pre), ("i_pre", i_pre), ("y_pre", y_pre)):
+        if t.shape != xb.shape or t.dtype != xb.dtype:
+            raise ValueError(f"{name} must match xb {tuple(xb.shape)} {xb.dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if xb.dtype not in _DTYPES:
+        raise TypeError(f"rglru_scan kernel takes float32 or bfloat16 inputs, got {xb.dtype}")
+    if c.dtype != torch.float32 or tuple(c.shape) != (w,):
+        raise ValueError(f"c must be float32 ({w},), got {c.dtype} {tuple(c.shape)}")
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
+        raise ValueError(f"lengths must be int32 ({b},), got {lengths.dtype} "
+                         f"{tuple(lengths.shape)}")
+    if b > 65535:
+        raise ValueError(f"B={b} exceeds the grid's 65535 blocks in y")
+    for name, t in (("xb", xb), ("r_pre", r_pre), ("i_pre", i_pre), ("y_pre", y_pre),
+                    ("c", c), ("lengths", lengths)):
+        if t.device != xb.device:
+            raise ValueError(f"{name} is on {t.device}, xb on {xb.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+@_build.counted
+def rglru_scan(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
+               y_pre: torch.Tensor, c: torch.Tensor,
+               lengths: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper: launches ``csrc/rglru_scan.cu`` on a CUDA tensor
+    (counting the launch in ``rglru_scan.launches``), runs
+    :func:`rglru_scan_torch` on a CPU tensor. Returns ``(y, h_last)``."""
+    if xb.device.type == "cpu":
+        return rglru_scan_torch(xb, r_pre, i_pre, y_pre, c, lengths)
+    if xb.device.type != "cuda":
+        raise ValueError(f"rglru_scan kernel runs on CUDA tensors, got {xb.device}")
+    b, s, w = xb.shape
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.int32, device=xb.device)
+    _check(xb, r_pre, i_pre, y_pre, c, lengths)
+    lib = _build.library("rglru_scan", _bind)
+    y = torch.empty_like(xb)
+    h_last = torch.empty((b, w), dtype=torch.float32, device=xb.device)
+    with torch.cuda.device(xb.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rglru_scan(xb.data_ptr(), r_pre.data_ptr(), i_pre.data_ptr(),
+                             y_pre.data_ptr(), c.data_ptr(), lengths.data_ptr(),
+                             y.data_ptr(), h_last.data_ptr(), _DTYPES[xb.dtype], b, s, w,
+                             stream)
+    rglru_scan.launches += 1
+    if err:
+        raise RuntimeError(f"rglru_scan launch failed: cudaError_t {err}")
+    return y, h_last
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.rglru_scan.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.rglru_scan.restype = ctypes.c_int

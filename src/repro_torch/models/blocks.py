@@ -1,9 +1,10 @@
-"""The attention and Mamba-2 SSD blocks (port of ``repro/models/blocks.py``).
+"""The attention, Mamba-2 SSD and RG-LRU blocks (port of
+``repro/models/blocks.py``).
 
 ``*_block_params(cfg)`` gives a block's per-layer specs, ``*_block_apply``
 its full-sequence forward (prefill), ``*_block_decode`` its one-token
-forward with its in-place cache update. The RG-LRU and MoE blocks come with
-the slices that port their families.
+forward with its in-place cache update. The MoE block comes with the slice
+that ports its family.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.rglru_scan import lru_gates_torch
 from repro_torch.models import attention as ATT
 from repro_torch.models.common import causal_conv1d, rms_norm, rope, swiglu
 
@@ -280,4 +282,98 @@ def ssd_cache_spec(cfg: ModelConfig, batch: int, dtype: torch.dtype) -> Dict:
         "conv_x": ((batch, wc - 1, cfg.d_inner), ("batch", None, "ssm_inner"), dtype),
         "conv_b": ((batch, wc - 1, cfg.ssm_state), ("batch", None, None), dtype),
         "conv_c": ((batch, wc - 1, cfg.ssm_state), ("batch", None, None), dtype),
+    }
+
+
+# ===========================================================================
+# RG-LRU (recurrentgemma) block
+# ===========================================================================
+
+LRU_C = 8.0
+
+
+def rglru_block_params(cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    w = cfg.lru_width or d
+    return {
+        "ln": ((d,), (None,), "ones"),
+        "wx": ((d, w), ("embed", "lru"), "normal"),
+        "wy": ((d, w), ("embed", "lru"), "normal"),
+        "conv": ((4, w), ("conv", "lru"), "normal"),
+        "w_r": ((w, w), (None, "lru"), "normal"),
+        "w_i": ((w, w), (None, "lru"), "normal"),
+        "b_r": ((w,), (None,), "zeros"),
+        "b_i": ((w,), (None,), "zeros"),
+        "a_log": ((w,), (None,), "ssm_a"),
+        "w_out": ((w, d), ("lru", "embed_out"), "normal"),
+    }
+
+
+def _lru_decay(p: Dict) -> torch.Tensor:
+    """Per-channel ``-LRU_C * softplus(a_log)`` in float32; softplus as
+    ``logaddexp(x, 0)``, the reference's form (``F.softplus`` switches to x
+    above 20)."""
+    a_log = p["a_log"].float()
+    return -LRU_C * torch.logaddexp(a_log, torch.zeros_like(a_log))
+
+
+def _gate_pre(p: Dict, xb: torch.Tensor):
+    """The gates' pre-activations, each bias added in the model dtype."""
+    return torch.matmul(xb, p["w_r"]) + p["b_r"], torch.matmul(xb, p["w_i"]) + p["b_i"]
+
+
+def _lru_gates(p: Dict, xb: torch.Tensor):
+    """``(a, gate)`` in float32 for the conv output ``xb``."""
+    return lru_gates_torch(*_gate_pre(p, xb), _lru_decay(p))
+
+
+def rglru_block_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
+                      lengths: Optional[torch.Tensor] = None,
+                      want_cache: bool = False):
+    """Full-sequence forward. Returns ``x_out``, or with ``want_cache``
+    ``(x_out, cache)`` where cache is the decode state after a per-row
+    prompt of ``lengths`` tokens: {"h": (B, W) float32 at each row's
+    ``lengths - 1``, "conv": the last 3 raw conv inputs}. The gates, the
+    recurrence and the product with the gelu'd y branch run in
+    ``kernels.ops.rglru`` (one kernel on the card)."""
+    h = rms_norm(x, p["ln"])
+    xb_raw = torch.matmul(h, p["wx"])
+    y_pre = torch.matmul(h, p["wy"])
+    xb = causal_conv1d(xb_raw, p["conv"])
+    r_pre, i_pre = _gate_pre(p, xb)
+    y, h_state = kops.rglru(xb, r_pre, i_pre, y_pre, _lru_decay(p),
+                            lengths)
+    out = x + torch.matmul(y, p["w_out"])
+    if not want_cache:
+        return out
+    if lengths is None:
+        lengths = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                             device=x.device)
+    return out, {"h": h_state, "conv": _conv_tail(xb_raw, p["conv"].shape[0], lengths)}
+
+
+def rglru_block_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                       cache: Dict) -> torch.Tensor:
+    """x (B, 1, D). cache: {"h": (B, W) float32, "conv": (B, 3, W)},
+    updated in place. One step, in plain PyTorch."""
+    hn = rms_norm(x, p["ln"])
+    xb = torch.matmul(hn, p["wx"])
+    yb = F.gelu(torch.matmul(hn, p["wy"]).float(), approximate="tanh")
+    xb, conv_state = causal_conv1d(xb, p["conv"], state=cache["conv"])
+    a, gate = _lru_gates(p, xb)
+    hstate = a[:, 0] * cache["h"] + (gate * xb.float())[:, 0]
+    y = (hstate[:, None, :] * yb).to(x.dtype)
+    out = x + torch.matmul(y, p["w_out"])
+    cache["h"].copy_(hstate)
+    cache["conv"].copy_(conv_state)
+    return out
+
+
+def rglru_cache_spec(cfg: ModelConfig, batch: int, dtype: torch.dtype) -> Dict:
+    """Per-layer decode state: {name: (shape, axes, dtype)}; the state
+    stays float32, the conv tail is in the model dtype."""
+    w = cfg.lru_width or cfg.d_model
+    return {
+        "h": ((batch, w), ("batch", "lru"), torch.float32),
+        "conv": ((batch, 3, w), ("batch", None, "lru"), dtype),
     }

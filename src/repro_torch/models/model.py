@@ -1,17 +1,19 @@
-"""Model assembly for the dense and SSM families (port of
+"""Model assembly for the dense, SSM and hybrid families (port of
 ``repro/models/model.py``).
 
 Parameters are a flat dict with the reference's keys and layer-stacked
-layouts (``l.wq`` is ``(L, d, Hq, Dh)``), so weights convert one to one
-(``repro_torch.interop``). The reference's ``lax.scan`` over layers becomes
-a Python loop over the stacked dimension. Other families raise
-``NotImplementedError`` naming the slice that ports them.
+layouts (``l.wq`` is ``(L, d, Hq, Dh)``; the hybrid family stacks its RG-LRU
+layers under ``r.`` and its attention layers under ``a.``), so weights
+convert one to one (``repro_torch.interop``). The reference's ``lax.scan``
+over layers, and its unrolled hybrid pattern, become one Python loop over
+the layers in order (:meth:`Model.layers`). The MoE, vision and audio
+families raise ``NotImplementedError`` naming the slice that ports them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -20,8 +22,8 @@ from repro_torch.models import blocks as B
 from repro_torch.models.common import SpecBuilder, rms_norm
 
 # family -> the port slice that brings it (ROADMAP.md "Queue A")
-_LATER_SLICES = {"hybrid": 3, "moe": 6, "vlm": 6, "audio": 6}
-_PORTED = ("dense", "ssm")
+_LATER_SLICES = {"moe": 6, "vlm": 6, "audio": 6}
+_PORTED = ("dense", "ssm", "hybrid")
 
 
 def _subtree(params: Dict, prefix: str) -> Dict:
@@ -36,7 +38,7 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is ported in slice "
                 f"{slice_no} of the PyTorch port; the port serves the "
-                f"{' and '.join(_PORTED)} families so far")
+                f"{', '.join(_PORTED[:-1])} and {_PORTED[-1]} families so far")
         self.cfg = cfg
         self.dtype = dtype
         self.sb = self._build_specs()
@@ -49,14 +51,35 @@ class Model:
         sb = SpecBuilder(self.dtype)
         sb.add("embed", (cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
                "normal", scale=0.02)
-        blocks = B.ssd_block_params(cfg) if self.is_ssm else B.attn_block_params(cfg)
-        for name, (shape, axes, init) in blocks.items():
-            sb.add(f"l.{name}", (cfg.num_layers, *shape), ("layers", *axes), init)
+        for prefix, n, blocks in self._stacks():
+            for name, (shape, axes, init) in blocks.items():
+                sb.add(f"{prefix}{name}", (n, *shape), ("layers", *axes), init)
         sb.add("final_ln", (cfg.d_model,), (None,), "ones")
         if not cfg.tie_embeddings:
             sb.add("head", (cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
                    "normal", scale=0.02)
         return sb
+
+    def _stacks(self):
+        """(prefix, layers, per-layer param specs) of each layer stack. A
+        hybrid pattern that drops a block kind keeps its zero-layer stack,
+        as the reference does."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            pat = cfg.layer_pattern()
+            return (("r.", pat.count("r"), B.rglru_block_params(cfg)),
+                    ("a.", pat.count("a"), B.attn_block_params(cfg)))
+        blocks = B.ssd_block_params(cfg) if self.is_ssm else B.attn_block_params(cfg)
+        return (("l.", cfg.num_layers, blocks),)
+
+    def layers(self) -> Iterator[Tuple[str, str, int]]:
+        """(kind, stack prefix, index in the stack) of every layer in order;
+        kind is 'a' attention, 'r' RG-LRU or 's' SSD."""
+        seen: Dict[str, int] = {}
+        for kind in self.cfg.layer_pattern():
+            prefix = f"{kind}." if self.cfg.family == "hybrid" else "l."
+            yield kind, prefix, seen.setdefault(prefix, 0)
+            seen[prefix] += 1
 
     @property
     def is_ssm(self) -> bool:
@@ -93,7 +116,7 @@ class Model:
               last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns ``(logits, aux_loss)``: logits for every position, or
         with ``last_only`` for the final position only (``(B, 1, vocab)``).
-        Neither ported family has an auxiliary loss (0)."""
+        No ported family has an auxiliary loss (0)."""
         x, _ = self._stack_prefill(params, self._embed(params, tokens),
                                    want_cache=False)
         x = rms_norm(x, params["final_ln"])
@@ -102,28 +125,29 @@ class Model:
 
     def _stack_prefill(self, params, x, *, lengths: Optional[torch.Tensor] = None,
                        want_cache: bool = True):
-        """The layer stack over a full sequence. With ``want_cache`` also
-        the layer-stacked per-layer caches: rope'd K/V ``(L, B, S, Kv, Dh)``
+        """The layers over a full sequence. With ``want_cache`` also the
+        layer-stacked per-layer caches: rope'd K/V ``(L, B, S, Kv, Dh)``
         for attention, the decode state after each row's ``lengths`` prompt
-        tokens for SSD."""
+        tokens for SSD and RG-LRU."""
         cfg = self.cfg
-        stacked = _subtree(params, "l.")
+        stacks = {prefix: _subtree(params, prefix) for prefix, _n, _b in self._stacks()}
         positions = torch.arange(x.shape[1], device=x.device)
-        caches = []
-        for i in range(cfg.num_layers):
-            lp = self._layer(stacked, i)
-            if self.is_ssm:
-                out = B.ssd_block_apply(cfg, lp, x, lengths=lengths,
-                                        want_cache=want_cache)
-                x, c = out if want_cache else (out, None)
-            else:
+        caches: Dict[str, list] = {prefix: [] for prefix in stacks}
+        for kind, prefix, i in self.layers():
+            lp = self._layer(stacks[prefix], i)
+            if kind == "a":
                 x, c = B.attn_block_apply(cfg, lp, x, positions, causal=True,
                                           window=cfg.window_size)
+            else:
+                block = B.ssd_block_apply if kind == "s" else B.rglru_block_apply
+                out = block(cfg, lp, x, lengths=lengths, want_cache=want_cache)
+                x, c = out if want_cache else (out, None)
             if want_cache:
-                caches.append(c)
+                caches[prefix].append(c)
         if not want_cache:
             return x, None
-        return x, {f"l.{k}": torch.stack([c[k] for c in caches]) for k in caches[0]}
+        return x, {f"{prefix}{k}": torch.stack([c[k] for c in cs])
+                   for prefix, cs in caches.items() if cs for k in cs[0]}
 
     @property
     def supports_handoff(self) -> bool:
@@ -159,6 +183,11 @@ class Model:
         sc = self.attn_cache_len(cache_len)
         cache = {k: (gather_cache_slots(v, lengths, sc) if self.is_paged_cache_key(k)
                      else v) for k, v in cache.items()}
+        # the init_cache dict exactly: a hybrid pattern that drops a block
+        # kind still carries that kind's zero-layer entries
+        for k, (shape, _axes, dt) in self.cache_entries(b, cache_len).items():
+            if k not in cache:
+                cache[k] = torch.zeros(shape, dtype=dt, device=dev)
         return logits, cache
 
     # ------------------------------------------------------------------
@@ -191,10 +220,16 @@ class Model:
             for name, (shape, axes, dt) in B.ssd_cache_spec(cfg, batch, self.dtype).items():
                 ent[f"l.{name}"] = ((cfg.num_layers, *shape), ("layers", *axes), dt)
             return ent
+        n_attn, prefix = cfg.num_layers, "l."
+        if cfg.family == "hybrid":
+            pat = cfg.layer_pattern()
+            n_attn, prefix = pat.count("a"), "a."
+            for name, (shape, axes, dt) in B.rglru_cache_spec(cfg, batch,
+                                                              self.dtype).items():
+                ent[f"r.{name}"] = ((pat.count("r"), *shape), ("layers", *axes), dt)
         sc = self.attn_cache_len(seq_len)
         for name, (shape, axes) in B.attn_cache_spec(cfg, batch, sc).items():
-            ent[f"l.{name}"] = ((cfg.num_layers, *shape), ("layers", *axes),
-                                self.dtype)
+            ent[f"{prefix}{name}"] = ((n_attn, *shape), ("layers", *axes), self.dtype)
         return ent
 
     @staticmethod
@@ -243,32 +278,41 @@ class Model:
         are flat slot stacks (``paged_cache_entries``) read through the
         (B, max_pages) int32 page table, ``seq_len`` is the bucket context
         the arena was sized for, and ``decode_kernel`` picks the paged read
-        (paged | gather | ref; see ``blocks.attn_block_decode``). The SSM
-        family ignores ``pos``, ``tables`` and the window: its state is
-        per row."""
+        (paged | gather | ref; see ``blocks.attn_block_decode``). Recurrent
+        layers (SSD, RG-LRU) ignore ``pos``, ``tables`` and the window:
+        their state is per row. The hybrid family's attention layers take
+        the arch's window, as the reference's do."""
         cfg = self.cfg
         x = self._embed(params, tokens)
-        stacked = _subtree(params, "l.")
-        if self.is_ssm:
-            names = [k[2:] for k in cache if k.startswith("l.")]
-            for i in range(cfg.num_layers):
-                x = B.ssd_block_decode(cfg, self._layer(stacked, i), x,
-                                       {n: cache[f"l.{n}"][i] for n in names})
-            x = rms_norm(x, params["final_ln"])
-            return self._logits(params, x), cache
         pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
         paged = tables is not None and page > 0
         sc = self.attn_cache_len(seq_len) if paged else 0
-        window = (window_override if window_override is not None
-                  else self.decode_window(seq_len if paged else cache["l.k"].shape[2]))
         if not paged:
             tables, page = None, 0
-        ck, cv = cache["l.k"], cache["l.v"]
-        for i in range(cfg.num_layers):
-            x = B.attn_block_decode(cfg, self._layer(stacked, i), x,
-                                    {"k": ck[i], "v": cv[i]}, pos, window=window,
-                                    tables=tables, page=page, sc=sc,
-                                    decode_kernel=decode_kernel)
+        if cfg.family == "hybrid":
+            # the reference's hybrid decode gives every attention layer the
+            # arch's window (rotating cache), whatever the override
+            window = cfg.window_size
+        elif self.is_ssm:
+            window = 0                      # no attention layer
+        else:
+            window = (window_override if window_override is not None
+                      else self.decode_window(seq_len if paged else cache["l.k"].shape[2]))
+        stacks, lcaches = {}, {}
+        for prefix, _n, _b in self._stacks():
+            stacks[prefix] = _subtree(params, prefix)
+            lcaches[prefix] = _subtree(cache, prefix)
+        for kind, prefix, i in self.layers():
+            lp = self._layer(stacks[prefix], i)
+            lc = self._layer(lcaches[prefix], i)
+            if kind == "s":
+                x = B.ssd_block_decode(cfg, lp, x, lc)
+            elif kind == "r":
+                x = B.rglru_block_decode(cfg, lp, x, lc)
+            else:
+                x = B.attn_block_decode(cfg, lp, x, lc, pos, window=window,
+                                        tables=tables, page=page, sc=sc,
+                                        decode_kernel=decode_kernel)
         x = rms_norm(x, params["final_ln"])
         return self._logits(params, x), cache
 

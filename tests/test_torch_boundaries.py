@@ -197,11 +197,16 @@ def test_unported_parts_raise_and_name_their_slice():
     assert EngineConfig(decode_kernel="auto").decode_kernel == "auto"
     with pytest.raises(ValueError, match="decode_kernel"):
         EngineConfig(decode_kernel="fused")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        build_model(get_config("recurrentgemma-2b-smoke"))
+    # the hybrid family is ported (slice 3): both stacks, full and reduced
+    for arch, kinds in (("recurrentgemma-2b", "rra"), ("recurrentgemma-2b-smoke", "rr")):
+        model = build_model(get_config(arch))
+        assert "".join(k for k, _p, _i in model.layers())[:3] == kinds
+        assert {k.split(".")[0] for k in model.sb.shapes()} >= {"r", "a"}
     assert build_model(get_config("mamba2-1.3b-smoke")).is_ssm   # ported
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        build_model(get_config("qwen3-moe-235b-a22b-smoke"))
+    # the moe, vlm and audio families still raise and name their slice
+    for arch in ("qwen3-moe-235b-a22b-smoke", "internvl2-2b-smoke", "whisper-medium-smoke"):
+        with pytest.raises(NotImplementedError, match="slice 6"):
+            build_model(get_config(arch))
     spec, meta = softmax_classifier.make_spec(4, 2)
     with pytest.raises(NotImplementedError, match="core/parfor.py.*slice 5"):
         Keras2Plan(spec, meta, mesh=object(), device="cpu")

@@ -124,6 +124,18 @@ def test_paged_plain_matches_pallas_and_xla(pos, hq, hkv):
     _close(got, want_ref)
 
 
+@pytest.mark.parametrize("pos", [[15, 5, 9], [0, 3, 11], [16, 40, 9]])
+def test_paged_plain_matches_pallas_at_recurrentgemma_group(pos):
+    """recurrentgemma-2b's GQA group, 10 query heads on one kv head of 256
+    (g * D = 2560), including rows past Sc."""
+    q, k, v, tables = _paged_case(hq=10, hkv=1, d=256)
+    posv = np.asarray(pos, np.int32)
+    jargs = [jnp.asarray(a) for a in (q, k, v, tables, posv)]
+    got = tpaged.paged_attention_torch(*_t(q, k, v, tables, posv), page=4, sc=16)
+    _close(got, jpaged(*jargs, page=4, sc=16, interpret=True))
+    _close(got, jref.paged_decode_ref(*jargs, page=4, sc=16))
+
+
 def test_paged_plain_rotating_writes():
     """Rows decoded past a rotating window, cache contents written through
     both packages' rotating paged write: the plain version (reduced
@@ -222,7 +234,7 @@ def test_paged_split_plan_covers_every_slot_once(bsz, hkv, sc, page):
     (paged_split_kernel), and no planned split lies wholly past the slots."""
     n = min(sc, -(-sc // page) * page)
     for d, dtype in ((128, torch.bfloat16), (32, torch.bfloat16), (40, torch.bfloat16),
-                     (128, torch.float32)):
+                     (128, torch.float32), (256, torch.bfloat16), (256, torch.float32)):
         slots, splits = tpaged.split_plan(bsz, hkv, n, d, dtype)
         if tpaged.kernel_name(d, dtype) == "paged_mma_kernel":
             assert slots % tpaged.TILE_SLOTS == 0
@@ -238,8 +250,12 @@ def test_paged_split_plan_fills_the_card_at_the_serving_buckets():
     """About two blocks per SM of a 132-SM H100 where the slots allow it:
     the (8, 2048) bucket's 32 (row, kv head) pairs take 8 splits of 256
     slots; the (4, 2048) bucket 16 of 128; the (1, 1024) bucket one 64-slot
-    tile per split (64 blocks, as many as its slots allow)."""
+    tile per split (64 blocks, as many as its slots allow). At D = 256 one
+    block fits an SM: recurrentgemma's (8, 2048) bucket (one kv head) takes
+    16 splits of 128 slots, 128 blocks."""
     bf16 = torch.bfloat16
+    assert tpaged.split_plan(8, 1, 2048, 256, bf16, 132) == (128, 16)
+    assert tpaged.split_plan(1, 1, 4096, 256, bf16, 132) == (64, 64)
     assert tpaged.split_plan(8, 4, 2048, 128, bf16, 132) == (256, 8)
     assert tpaged.split_plan(4, 4, 2048, 128, bf16, 132) == (128, 16)
     assert tpaged.split_plan(1, 4, 1024, 128, bf16, 132) == (64, 16)
@@ -281,6 +297,9 @@ PAGED_MODEL_CASES = {  # name: (b, hq, hkv, d, page, sc, pos)
     "pos mixed": (3, 8, 2, 32, 4, 32, [0, 13, 31]),
     "pos>=Sc": (3, 8, 2, 32, 4, 32, [32, 45, 77]),
     "g=16 D=64 page 16": (2, 16, 1, 64, 16, 96, [95, 40]),
+    # recurrentgemma's group: 10 query heads on one kv head of 256
+    "g=10 D=256 page 16": (2, 10, 1, 256, 16, 64, [63, 20]),
+    "g=10 D=256 pos>=Sc": (2, 10, 1, 256, 16, 64, [64, 150]),
 }
 
 
@@ -397,6 +416,9 @@ FLASH_CASES = [  # b, hq, hkv, sq, sk, d, causal, window, q_offset
     (1, 2, 1, 256, 256, 128, True, 0, -1),   # two key tiles
     (1, 4, 2, 320, 320, 128, True, 100, -1), # window narrower than a key tile, ragged
     (1, 2, 1, 128, 384, 128, True, 0, -1),   # Sq < Sk over three key tiles
+    # D = 256, recurrentgemma's 10 query heads on one kv head, windowed
+    (1, 10, 1, 96, 96, 256, True, 32, -1),   # the window cuts inside the prompt
+    (1, 10, 1, 40, 136, 256, True, 64, -1),  # Sq < Sk, window, ragged tile
 ]
 
 
@@ -428,13 +450,18 @@ def test_flash_tiled_plain_matches_pallas(b, hq, hkv, sq, sk, d, causal, window,
 
 def test_flash_key_tile_follows_the_kernels():
     """128-key tiles where flash_wgmma_kernel runs (bfloat16, D = 128), 64
-    where flash_mma_kernel does; the tiled plain version defaults to them."""
-    assert [tflash.key_tile(d) for d in tflash.HEAD_DIMS] == [64, 64, 128]
+    where flash_mma_kernel does (D = 32, 64, 256); the tiled plain version
+    defaults to them. At D = 256 a bfloat16 block takes three padded 64-row
+    tiles (101,376 bytes), a float32 block 151,552 bytes."""
+    assert tflash.HEAD_DIMS == (32, 64, 128, 256)
+    assert [tflash.key_tile(d) for d in tflash.HEAD_DIMS] == [64, 64, 128, 64]
     assert [tflash.kernel_name(d, torch.bfloat16) for d in tflash.HEAD_DIMS] == [
-        "flash_mma_kernel", "flash_mma_kernel", "flash_wgmma_kernel"]
+        "flash_mma_kernel", "flash_mma_kernel", "flash_wgmma_kernel", "flash_mma_kernel"]
     assert {tflash.kernel_name(d, torch.float32) for d in tflash.HEAD_DIMS} == {
         "flash_fp32_kernel"}
     assert tflash.smem_bytes(128, torch.bfloat16) == 1024 + 32768 * 7 + 8 * 13
+    assert tflash.smem_bytes(256, torch.bfloat16) == 3 * 64 * 264 * 2 == 101_376
+    assert tflash.smem_bytes(256, torch.float32) == 4 * (64 * 256 + 256 * 68 + 64 * 64)
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
                for a in _attn_inputs(1, 2, 1, 200, 200, 128, seed=5))
     assert torch.equal(tflash.flash_attention_tiled(q, k, v),
@@ -537,6 +564,9 @@ def test_paged_wrapper_check_rejects_what_the_kernel_cannot_take():
                       tables, posv, 4, 16)
     with pytest.raises(ValueError, match="exceeds"):
         tpaged._check(q, k, v, tables, posv, 4, 17)
+    # recurrentgemma's g = 10, D = 256 (g * D = 2560) is taken
+    wide_q, wide_k, *_ = _paged_case(hq=10, hkv=1, d=256)
+    tpaged._check(*_t(wide_q, wide_k, wide_k), tables, posv, 4, 16)
     big = torch.zeros((3, 1, 32, 128))
     with pytest.raises(ValueError, match="g <= 16"):
         tpaged._check(big, torch.zeros((64, 1, 128)), torch.zeros((64, 1, 128)),

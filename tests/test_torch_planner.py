@@ -7,10 +7,11 @@ shapes plus serving buckets, all three meshes, page sizes 0, 16 and 64,
 donated and un-donated decode and both compute dtypes, the two compilers
 must give equal ``explain_axes()``, equal ``selection_trace()`` records
 (floats to a relative 1e-12), equal ``estimate_memory`` classes and equal
-``analytic_cost`` terms. The one place the two differ by design: the port's
-fit test also refuses any shape ``csrc/paged_decode.cu`` does not take
-(g <= 16, D <= 256, g * D <= 2048), and then selects ``gather`` with the
-reason named."""
+``analytic_cost`` terms. The port's fit test also refuses any shape
+``csrc/paged_decode.cu`` does not take (g <= 16, D <= 256), and then selects
+``gather`` with the reason named; no arch of the registry has such a shape,
+so every record equals the reference's (recurrentgemma-2b's g * D = 2560
+included)."""
 
 import dataclasses
 
@@ -62,7 +63,7 @@ def _shapes(name, seq, batch, kind):
 
 def _kernel_takes(cfg) -> bool:
     g, d = cfg.q_per_kv, cfg.head_dim
-    return g <= PA.MAX_GROUP and d <= PA.MAX_HEAD_DIM and g * d <= PA.MAX_GROUP_X_DIM
+    return g <= PA.MAX_GROUP and d <= PA.MAX_HEAD_DIM
 
 
 def _same_record(ours: dict, ref: dict) -> None:
@@ -96,7 +97,10 @@ def _same_memory(ours, ref) -> None:
 def test_plans_equal_reference(arch, mesh):
     jcfg, tcfg = jax_config(arch), get_config(arch)
     jmesh, tmesh = getattr(jax_config_module, mesh), getattr(port_config_module, mesh)
-    refused = attention = 0
+    attention = 0
+    # the paged kernel takes every arch's head shape (recurrentgemma-2b's
+    # g * D = 2560 included), so no record differs from the reference's
+    assert _kernel_takes(tcfg)
     for page in (0, 16, 64):
         for donate in (True, False):
             jc = jax_planner.PlanCompiler(JAX_HW, cache_pool_arenas=4, cache_page_size=page,
@@ -107,13 +111,6 @@ def test_plans_equal_reference(arch, mesh):
                 jshape, tshape = _shapes(*shape)
                 jrec = jc.selection_trace(jcfg, jshape)
                 trec = tc.selection_trace(tcfg, tshape)
-                port_refuses = (jrec["vmem_fit"] is not None and not _kernel_takes(tcfg))
-                if port_refuses:
-                    # the port's kernel does not take the shape: gather, named
-                    refused += 1
-                    assert trec["kernel"] == "gather" and trec["vmem_fit"] is False
-                    assert "paged kernel takes g <= 16" in trec["reason"]
-                    continue
                 _same_record(trec, jrec)
                 attention += jrec["paged_s"] is not None
                 for dtype in ("bfloat16", "float32"):
@@ -125,9 +122,8 @@ def test_plans_equal_reference(arch, mesh):
                     _same_cost(tp.cost, jp.cost)
                     assert tp.explain() == jp.explain()
     # the sweep reaches the cost comparison wherever a paged decode bucket
-    # has attention, and the port refuses only recurrentgemma-2b's g*D=2560
-    assert bool(refused) == (arch == "recurrentgemma-2b")
-    assert bool(attention) == (jcfg.layer_pattern().count("a") > 0 and not refused)
+    # has attention
+    assert bool(attention) == (jcfg.layer_pattern().count("a") > 0)
 
 
 @pytest.mark.parametrize("arch", ["yi-6b-smoke", "granite-8b", "mamba2-1.3b-smoke"])
@@ -206,7 +202,7 @@ def test_roofline_terms_and_model_flops_equal_reference():
 @pytest.mark.parametrize("num_heads,num_kv_heads,head_dim", [
     (64, 2, 128),    # g = 32 > 16
     (8, 8, 512),     # D = 512 > 256
-    (12, 1, 256),    # g * D = 3072 > 2048
+    (17, 1, 64),     # g = 17 > 16
 ])
 def test_paged_shape_beyond_the_kernel_selects_gather_with_the_reason(
         num_heads, num_kv_heads, head_dim):
@@ -224,10 +220,11 @@ def test_paged_shape_beyond_the_kernel_selects_gather_with_the_reason(
             cfg, shape, port_config_module.SINGLE_DEVICE_MESH)
         assert plan.config.decode_kernel == "gather"
     # within the limits the same bucket runs the cost comparison and picks
-    # the paged kernel on the H100
-    rec = port_planner.PlanCompiler(cache_page_size=64).selection_trace(
-        get_config("yi-6b"), shape)
-    assert rec["vmem_fit"] is True and rec["kernel"] == "paged"
+    # the paged kernel on the H100, at recurrentgemma's g = 10, D = 256 too
+    for arch in ("yi-6b", "recurrentgemma-2b"):
+        rec = port_planner.PlanCompiler(cache_page_size=64).selection_trace(
+            get_config(arch), shape)
+        assert rec["vmem_fit"] is True and rec["kernel"] == "paged", arch
 
 
 def test_h100_is_the_default_and_its_dispatch_figure_is_the_ports_own():
