@@ -21,8 +21,10 @@ Phases, each of which must pass (nothing is caught):
               trace;
               the same for recurrentgemma-2b's shapes: flash and paged decode at
               10 query heads on one kv head of 256 (window 2048, a row past
-              Sc), and the RG-LRU scan kernel at (8, 2048, 2560), also under
-              strong and weak decay;
+              Sc), and the RG-LRU scan kernel at (8, 2048, 2560) and
+              (1, 4096, 2560), also under strong and weak decay, at an S
+              that neither its chunk nor its tile divides and with lengths - 1
+              on chunk and tile edges;
    Then the H100's paged-dispatch figure fitted from the paged kernel's
    device time (beside ``core/cost.py``'s ``PAGED_STEP_LATENCY_S``);
 4. serve-check — Yi-6B widths cut to 2 layers, float32, through
@@ -408,6 +410,13 @@ def phase_kernels():
         # of 256): a window that cuts, Sq < Sk, a ragged tail
         ("D=256 g=10 S=300 window=100", 1, 10, 1, 256, 300, 300, True, 100, -1),
         ("D=256 g=10 Sq=70 Sk=333 window=128", 2, 10, 1, 256, 70, 333, True, 128, -1),
+        # its 64-key tiles: a window of one tile, bidirectional with a ragged
+        # tail, rows that see no key, Sk past the window at both ends
+        ("D=256 g=10 S=500 window=64", 1, 10, 1, 256, 500, 500, True, 64, -1),
+        ("D=256 g=2 S=1000 bidirectional", 2, 4, 2, 256, 1000, 1000, False, 0, -1),
+        ("D=256 g=10 Sq=300 Sk=200 causal", 1, 10, 1, 256, 300, 200, True, 0, -1),
+        ("D=256 g=10 Sq=200 Sk=1100 q_offset=700 window=300", 1, 10, 1, 256, 200, 1100, True,
+         300, 700),
     ]
     gen = torch.Generator(device="cuda").manual_seed(5)
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, FLASH_BF16_TOL)):
@@ -608,32 +617,54 @@ def _rglru_inputs(b, s, w, dtype, seed, decay="normal"):
 
 def rglru_kernel_cases(flush) -> dict:
     """The RG-LRU scan kernel against its plain version (the sequential
-    float32 loop): at recurrentgemma-2b's prompt shape (8, 2048, 2560) in
-    float32 and bfloat16, and under strong and weak decay; y and the state
-    at each row's ``lengths - 1``. The bfloat16 serving shape timed by
-    events and device time beside the plain loop and the byte bound (no
-    single PyTorch call computes the recurrence). Returns its kernels-line
-    entry."""
+    float32 loop): at recurrentgemma-2b's prompt shapes, (8, 2048, 2560) and
+    the (1, 3000) request's (1, 4096) bucket, in float32 and bfloat16, under
+    strong and weak decay, and in float32 at an S that is a multiple of
+    neither the chunk nor the planned tile of chunks; y and the state at
+    each row's ``lengths - 1``. There and at batch 1, also against the plain
+    version in the kernel's chunked order; then at 1, 2 and 32 chunks a
+    block with ``lengths - 1`` on chunk and tile edges, and at a width that
+    is not a multiple of a block's 16 channels. Both bfloat16 prompt
+    shapes timed by events and device time beside the plain loop and the
+    byte bound (no single PyTorch call computes the recurrence). Returns the
+    kernels-line entry of the (8, 2048) shape."""
     import torch
 
+    from repro_torch.hw import sm_count
     from repro_torch.kernels import rglru_scan as RG
 
-    b, s, w = 8, 2048, 2560
-    timed = None
-    for label, dtype, decay, shape in (("float32", torch.float32, "normal", (b, s, w)),
+    sms = sm_count(torch.device("cuda"))
+    w = 2560
+    timed = {}
+    for label, dtype, decay, shape in (("float32", torch.float32, "normal", (8, 2048, w)),
                                        ("float32 strong decay", torch.float32, "strong",
                                         (2, 512, w)),
                                        ("float32 weak decay", torch.float32, "weak",
                                         (2, 512, w)),
-                                       ("bfloat16", torch.bfloat16, "normal", (b, s, w))):
+                                       ("float32 ragged chunks", torch.float32, "normal",
+                                        (3, 1001, w)),
+                                       ("bfloat16", torch.bfloat16, "normal", (8, 2048, w)),
+                                       ("bfloat16 batch 1", torch.bfloat16, "normal",
+                                        (1, 4096, w))):
+        b, s = shape[:2]
+        chunk, chunks = RG.chunk_plan(b, s, w, sms)
+        if label == "float32 ragged chunks" and not (s % chunk and s % (chunk * chunks)):
+            fail(f"rglru_scan: S={s} is a multiple of the chunk {chunk} or of the tile of "
+                 f"{chunks}; the ragged case needs another S")
         args = _rglru_inputs(*shape, dtype, 21, decay)
         y, h_last = RG.rglru_scan(*args)
         want_y, want_h = RG.rglru_scan_torch(*args, out_dtype=torch.float32)
         torch.cuda.synchronize()
         tol = FP32_TOL if dtype == torch.float32 else RGLRU_BF16_TOL
-        name = f"rglru_scan {label} {shape}"
+        name = f"rglru_scan {label} {shape} ({chunks} chunks of {chunk} a block)"
         err = check_close(f"{name} y", y, want_y, tol)
         check_close(f"{name} state at lengths - 1", h_last, want_h, FP32_TOL)
+        if label in ("float32 ragged chunks", "bfloat16 batch 1"):
+            own_y, own_h = RG.rglru_scan_chunked_torch(*args, out_dtype=torch.float32,
+                                                       chunk=chunk)
+            check_close(f"{name} y vs the kernel's order", y, own_y, tol)
+            check_close(f"{name} state vs the kernel's order", h_last, own_h, FP32_TOL)
+            del own_y, own_h
         del y, h_last, want_y, want_h
         if dtype == torch.bfloat16:
             ms = cuda_ms(lambda: RG.rglru_scan(*args), flush=flush)
@@ -646,17 +677,48 @@ def rglru_kernel_cases(flush) -> dict:
             # ~26 float32 operations an element (two sigmoids, exp, sqrt,
             # the tanh gelu, the products and the recurrence's multiply-add)
             bound, by = _bound_ms(nbytes, 26 * elems, torch.float32)
-            print(f"  rglru_scan timing, bfloat16 {(b, s, w)}: kernel {ms:.4f} ms by events "
-                  f"({nbytes / ms / 1e6:.0f} GB/s), device time {_dev(dev_ms)} "
-                  f"({', '.join(_short(n) for n in names) or 'no events'}), plain loop "
-                  f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB); "
-                  f"library: none (no single PyTorch call computes the recurrence)")
-            timed = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                         bound_ms=bound, bound_by=by)
+            passes = ", ".join(f"{_short(n)} {t:.4f}" for n, t in names.items())
+            print(f"  rglru_scan timing, bfloat16 {shape}, {chunks} chunks of {chunk} a block: "
+                  f"kernel {ms:.4f} ms by events ({nbytes / ms / 1e6:.0f} GB/s), device time "
+                  f"{_dev(dev_ms)} ({passes or 'no events'}), plain loop {plain_ms:.3f} ms, "
+                  f"bound {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB); library: none (no "
+                  f"single PyTorch call computes the recurrence)")
+            timed[shape] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                bound_ms=bound, bound_by=by)
         del args
+    print("  rglru_scan device time: " + "; ".join(
+        f"{shape} {_dev(t['device_ms'])} (bound {t['bound_ms']:.4f})"
+        for shape, t in timed.items()))
+
+    # the edges: lengths - 1 at 0, on both sides of a chunk's end (7 | 8)
+    # and of a tile's (255 | 256 at 32 or 2 chunks a block), past S; one
+    # chunk a block (the sequential walk over tiles), two, 32, the plan
+    args = _rglru_inputs(6, 300, w, torch.float32, 22)
+    args[-1] = torch.tensor([0, 8, 9, 256, 257, 400], dtype=torch.int32, device="cuda")
+    want_y, want_h = RG.rglru_scan_torch(*args, out_dtype=torch.float32)
+    for chunks in sorted({1, 2, RG.SCAN_MAX_CHUNKS, RG.chunk_plan(6, 300, w, sms)[1]}):
+        y, h_last = RG.rglru_scan(*args, chunks=chunks)
+        torch.cuda.synchronize()
+        name = (f"rglru_scan float32 (6, 300, {w}), {chunks} chunks a block, lengths 0, 8, "
+                f"9, 256, 257, 400")
+        check_close(f"{name} y", y, want_y, FP32_TOL)
+        check_close(f"{name} state at lengths - 1", h_last, want_h, FP32_TOL)
+        del y, h_last
+    del args, want_y, want_h
+    # a width that is not a multiple of a block's 16 channels
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, RGLRU_BF16_TOL)):
+        args = _rglru_inputs(3, 77, 100, dtype, 23)
+        y, h_last = RG.rglru_scan(*args)
+        want_y, want_h = RG.rglru_scan_torch(*args, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        name = f"rglru_scan {str(dtype)[6:]} (3, 77, 100)"
+        check_close(f"{name} y", y, want_y, tol)
+        check_close(f"{name} state at lengths - 1", h_last, want_h, FP32_TOL)
+        del args, y, h_last, want_y, want_h
     return dict(name="rglru_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/rglru_scan.cu",
-                replaces="src/repro/models/blocks.py:570", library_ms=None, **timed)
+                replaces="src/repro/models/blocks.py:570", library_ms=None,
+                **timed[(8, 2048, w)])
 
 
 def paged_kernel_cases(flush) -> dict:

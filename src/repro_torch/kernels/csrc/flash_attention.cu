@@ -20,36 +20,45 @@
 // GQA expansion is never materialized), skips kv tiles wholly outside the
 // causal / window mask (they contribute exactly zero) and masks the ragged
 // Sk tail in the kernel, with no padding copy.
-// - bfloat16, D = 128 (the serving shape; flash_wgmma_kernel): three
-//   warpgroups per 128-row query tile. Warpgroup 2 is the producer: one
-//   thread issues TMA loads of Q (once) and of 128-key K and V tiles into a
-//   three-stage ring of shared memory, guarded by full and empty mbarriers
-//   for K and V apart; the warpgroup gives up registers (setmaxnreg.dec).
-//   Warpgroups 0 and 1 consume, 64 query rows each, with raised registers
-//   (setmaxnreg.inc), each holding one tile's S, P and O: S = Q.K^T is 8
-//   wgmma m64n128k16 from shared memory; the softmax runs in exp2 on scores
-//   times scale * log2(e), with the per-element mask only on the tiles that
-//   the diagonal, the window's lower edge or the Sk tail crosses; the score
-//   accumulators are rounded to bf16 in place into the A operand of O +=
-//   P.V, 8 wgmma with V read through the descriptor's transpose bit (no
-//   copy of V^T). The tensor maps are 3-D, (D, S, heads), so rows past Sq or
+// - bfloat16, D = 128 (Yi's serving shape) and D = 256 (recurrentgemma's
+//   local attention): flash_wgmma_kernel<D>, three warpgroups per 128-row
+//   query tile. Warpgroup 2 is the producer: one thread issues TMA loads of
+//   Q (once) and of K and V tiles into a ring of shared memory, guarded by
+//   full and empty mbarriers for K and V apart; the warpgroup gives up
+//   registers (setmaxnreg.dec). Warpgroups 0 and 1 consume, 64 query rows
+//   each, with raised registers (setmaxnreg.inc), each holding one tile's S,
+//   P and O. Every tile is stored as 64-column slabs of 128-byte rows, the
+//   swizzle's width. S = Q.K^T is D / 16 wgmma k-steps from shared memory,
+//   the descriptors moving to the next slab every 4; the softmax runs in
+//   exp2 on scores times scale * log2(e), with the per-element mask only on
+//   the tiles that the diagonal, the window's lower edge or the Sk tail
+//   crosses; the score accumulators are rounded to bf16 in place into the A
+//   operand of O += P.V, wgmma m64n128k16 with V read through the
+//   descriptor's transpose bit (no copy of V^T), one per 128 output columns
+//   and 16 keys. The tensor maps are 3-D, (D, S, heads), so rows past Sq or
 //   Sk load as zeros and never reach into the next head; they are encoded
 //   on the host through the driver entry point, with 128-byte swizzle to
 //   match the wgmma shared-memory descriptors. Query tiles are launched
-//   longest first. Not yet: overlapping a tile's softmax with products
-//   (within a warpgroup, the next tile's S while this tile's softmax runs
-//   needs a second score buffer, for which ptxas spilled, and that version
-//   ran slower on the H100; across the two warpgroups, ping-pong
-//   scheduling), persistent blocks.
-// - bfloat16, D = 32 and 64 (the smoke configurations) and D = 256
-//   (recurrentgemma's local attention; flash_mma_kernel): mma.sync m16n8k16
-//   on 64-row query tiles and 64-key tiles loaded synchronously; each warp
-//   keeps its Q fragments in registers (at D = 256 it reloads them from the
-//   Q tile per k-step, leaving its registers to the 16 x 256 float32
-//   output), K and V reach the MMAs through ldmatrix (V transposed on the
-//   fly), and the scores become the P operand in registers. Same exp2
-//   softmax. At D = 256 a block takes 101 KB of shared memory, two blocks
-//   an SM. Not yet: TMA and wgmma at D = 256.
+//   longest first.
+//   The register budget sets the two shapes. At D = 128: 128-key tiles
+//   (S m64n128k16, 64 registers a thread; O 64), a three-stage ring,
+//   consumers at 232 registers and the producer at 40. At D = 256 a
+//   consumer's O is 64 x 256 float32, 128 registers a thread, so a 128-key
+//   tile's S (64) and P (32) would pass the 240 that setmaxnreg can give:
+//   64-key tiles (S m64n64k16, 32 registers; P 16), two P.V products per
+//   16 keys, consumers at 240 and the producer at 24 (2 x 128 x 240 +
+//   128 x 24 = 64,512 of the SM's 65,536). Q (128 x 256) takes 64 KB and a
+//   K or V tile 32 KB, so two stages (197,704 bytes, one block an SM) fit
+//   where three would not. Not yet: overlapping a tile's softmax with
+//   products (within a warpgroup, the next tile's S while this tile's
+//   softmax runs needs a second score buffer, for which ptxas spilled at
+//   D = 128, and that version ran slower on the H100; across the two
+//   warpgroups, ping-pong scheduling), persistent blocks.
+// - bfloat16, D = 32 and 64 (the smoke configurations; flash_mma_kernel):
+//   mma.sync m16n8k16 on 64-row query tiles and 64-key tiles loaded
+//   synchronously; each warp keeps its Q fragments in registers, K and V
+//   reach the MMAs through ldmatrix (V transposed on the fly), and the
+//   scores become the P operand in registers. Same exp2 softmax.
 // - float32 (flash_fp32_kernel): the CUDA cores. Each of the 128 threads
 //   owns an 8 x 4 block of the score tile and an 8 x D/16 block of the
 //   output; K is stored transposed so the score loop reads it with 16-byte
@@ -372,10 +381,10 @@ flash_mma_kernel(const bf16* __restrict__ q,   // (B, Hq, Sq, D)
                  bf16* __restrict__ out,       // (B, Hq, Sq, D)
                  int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
                  float c) {                    // scale * log2(e)
+  static_assert(D <= 64, "flash_mma_kernel keeps a warp's Q fragments in registers");
   constexpr int LD = D + 8;            // padded row: ldmatrix rows hit distinct banks
   constexpr int KS = D / 16;           // k-steps over D
   constexpr int DN = D / 8;            // 8-wide output column tiles
-  constexpr bool Q_IN_REGS = D <= 64;
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_mma);
   bf16* k_s = q_s + 64 * LD;
@@ -396,16 +405,11 @@ flash_mma_kernel(const bf16* __restrict__ q,   // (B, Hq, Sq, D)
 
   load_tile<D>(q_s, qb, q0, sq, tid);
   __syncthreads();
-  // this warp's 16 query rows as A fragments: held in registers for all of
-  // D at D <= 64; at D = 256 (64 registers) they are reloaded from the Q
-  // tile for each k-step, which leaves the registers to the 16 x 256
-  // float32 output (128 a thread) and keeps ptxas from spilling
+  // this warp's 16 query rows as A fragments, held in registers for all of D
   const bf16* q_frag = q_s + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-  uint32_t qf[Q_IN_REGS ? KS : 1][4];
-  if (Q_IN_REGS) {
+  uint32_t qf[KS][4];
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[Q_IN_REGS ? ks : 0], q_frag + ks * 16);
-  }
+  for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[ks], q_frag + ks * 16);
 
   float o[DN][4];
 #pragma unroll
@@ -429,15 +433,13 @@ flash_mma_kernel(const bf16* __restrict__ q,   // (B, Hq, Sq, D)
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      const int qi = Q_IN_REGS ? ks : 0;
-      if (!Q_IN_REGS) ldmatrix_x4(qf[0], q_frag + ks * 16);
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t kf[4];
         ldmatrix_x4(kf, k_s + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + ks * 16 +
                             ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[qi], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf[qi], kf[2], kf[3]);
+        mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
       }
     }
 
@@ -493,22 +495,42 @@ flash_mma_kernel(const bf16* __restrict__ q,   // (B, Hq, Sq, D)
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16, D = 128: TMA + wgmma, warp-specialised
+// bfloat16, D = 128 and 256: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
 namespace wg {
 
-constexpr int D = 128;
 constexpr int BM = 128;                     // query rows per block, 64 per consumer
-constexpr int BN = 128;                     // keys per kv tile
-constexpr int STAGES = 3;                   // K/V ring depth
-constexpr int THREADS = 384;                // producer + 2 consumer warpgroups
-constexpr int HALF = 128 * 128;             // one 64-column half of a 128-row tile
-constexpr int TILE = 2 * HALF;              // a 128 x 128 bf16 tile, 32 KB
-constexpr int BARRIERS = 1 + 4 * STAGES;    // q_full; full and empty, K and V, per stage
-// Q, then per stage K and V, then the barriers, aligned to 1024 bytes (the
-// 128-byte swizzle's period) from a base that may sit anywhere
-constexpr int SMEM_BYTES = 1024 + TILE * (1 + 2 * STAGES) + 8 * BARRIERS;
+constexpr int THREADS = 384;                // 2 consumer warpgroups + the producer
+constexpr int SLAB_ROW = 128;               // bytes of a slab row: 64 bf16, the swizzle's width
+
+// per head dim: keys per kv tile, K/V ring depth, and the registers a
+// consumer and a producer thread hold after setmaxnreg (2 x 128 x consumer
+// + 128 x producer <= 65,536)
+template <int D> struct Shape;
+template <> struct Shape<128> {
+  static constexpr int BN = 128, STAGES = 3, CONSUMER_REGS = 232, PRODUCER_REGS = 40;
+};
+template <> struct Shape<256> {
+  static constexpr int BN = 64, STAGES = 2, CONSUMER_REGS = 240, PRODUCER_REGS = 24;
+};
+
+// A tile of R rows x D columns is D / 64 slabs of R rows of 128 bytes, each
+// slab 128-byte swizzled (one TMA box of 64 columns x R rows). Shared
+// memory holds Q, then per stage K and V, then the barriers, aligned to
+// 1024 bytes (the swizzle's period) from a base that may sit anywhere.
+template <int D>
+struct Layout {
+  static constexpr int BN = Shape<D>::BN, STAGES = Shape<D>::STAGES;
+  static constexpr int SLABS = D / 64;
+  static constexpr int Q_SLAB = BM * SLAB_ROW;
+  static constexpr int KV_SLAB = BN * SLAB_ROW;
+  static constexpr int Q_BYTES = SLABS * Q_SLAB;
+  static constexpr int KV_BYTES = SLABS * KV_SLAB;
+  static constexpr int BARRIERS = 1 + 4 * STAGES;   // q_full; full and empty, K and V, per stage
+  static constexpr int SMEM_BYTES = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS;
+  static_assert(SMEM_BYTES <= 232448, "a block's shared memory is past the opt-in limit");
+};
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -574,17 +596,20 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keeps the compiler from moving accesses of the accumulators across the
 // asynchronous products
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define WG_ACC8(i)                                                                   \
   "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
       "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
-#define WG_ACC64                                                                      \
-  WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24), WG_ACC8(32), WG_ACC8(40), WG_ACC8(48), \
-      WG_ACC8(56)
+#define WG_ACC32 WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
+#define WG_ACC64 WG_ACC32, WG_ACC8(32), WG_ACC8(40), WG_ACC8(48), WG_ACC8(56)
+#define WG_REGS32                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "     \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 #define WG_REGS64                                                               \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "     \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
@@ -606,6 +631,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// the same with B 16 x 64: d is 64 x 64
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_ACC32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 128, float32) += A (64 x 16, bf16 registers) . B (16 x 128,
 // shared, MN-major: the descriptor's transpose bit)
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
@@ -619,56 +658,76 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 }
 
 #undef WG_ACC8
+#undef WG_ACC32
 #undef WG_ACC64
+#undef WG_REGS32
 #undef WG_REGS64
 
-
 // a block's shared memory: Q, then per stage K and V, then the mbarriers
+template <int D>
 struct Smem {
+  using L = Layout<D>;
   uint32_t base;
   __device__ __forceinline__ uint32_t q() const { return base; }
-  __device__ __forceinline__ uint32_t k(int st) const { return base + (1 + 2 * st) * TILE; }
-  __device__ __forceinline__ uint32_t v(int st) const { return base + (2 + 2 * st) * TILE; }
+  __device__ __forceinline__ uint32_t k(int st) const {
+    return base + L::Q_BYTES + 2 * st * L::KV_BYTES;
+  }
+  __device__ __forceinline__ uint32_t v(int st) const { return k(st) + L::KV_BYTES; }
   __device__ __forceinline__ uint32_t bar(int i) const {
-    return base + TILE * (1 + 2 * STAGES) + 8u * i;
+    return base + L::Q_BYTES + 2 * L::STAGES * L::KV_BYTES + 8u * i;
   }
   __device__ __forceinline__ uint32_t q_full() const { return bar(0); }
   __device__ __forceinline__ uint32_t full_k(int st) const { return bar(1 + st); }
-  __device__ __forceinline__ uint32_t full_v(int st) const { return bar(1 + STAGES + st); }
-  __device__ __forceinline__ uint32_t empty_k(int st) const { return bar(1 + 2 * STAGES + st); }
-  __device__ __forceinline__ uint32_t empty_v(int st) const { return bar(1 + 3 * STAGES + st); }
+  __device__ __forceinline__ uint32_t full_v(int st) const { return bar(1 + L::STAGES + st); }
+  __device__ __forceinline__ uint32_t empty_k(int st) const {
+    return bar(1 + 2 * L::STAGES + st);
+  }
+  __device__ __forceinline__ uint32_t empty_v(int st) const {
+    return bar(1 + 3 * L::STAGES + st);
+  }
 };
 
-// S = Q K^T of the tile in stage st, issued once it has landed: 8 k-steps of
-// 16 over D, 4 in each 64-column half
-__device__ __forceinline__ void issue_s(float (&s)[64], const Smem& sm, uint32_t q_w, int st,
-                                        uint32_t phase) {
+// S = Q K^T of the tile in stage st, issued once it has landed: D / 16
+// k-steps of 16 columns, 4 in each 64-column slab of Q and K
+template <int D>
+__device__ __forceinline__ void issue_s(float (&s)[Shape<D>::BN / 2], const Smem<D>& sm,
+                                        uint32_t q_w, int st, uint32_t phase) {
+  using L = Layout<D>;
   mbar_wait(sm.full_k(st), phase);
   wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
-    const uint32_t off = (ks / 4) * HALF + (ks % 4) * 32;
-    wgmma_ss(s, desc_k(q_w + off), desc_k(sm.k(st) + off), ks);
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t col = (ks % 4) * 32;
+    wgmma_ss(s, desc_k(q_w + (ks / 4) * L::Q_SLAB + col),
+             desc_k(sm.k(st) + (ks / 4) * L::KV_SLAB + col), ks);
   }
   wgmma_commit();
 }
 
-// O += P V of the tile in stage st, issued once it has landed: 8 k-steps
-// of 16 keys (16 rows of 128 B); V is MN-major, its second 64-column half
-// one HALF on
-__device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&pa)[8][4],
-                                         const Smem& sm, int st, uint32_t phase) {
+// O += P V of the tile in stage st, issued once it has landed: per 16 keys
+// (16 slab rows of 128 B) one m64n128k16 for each 128 output columns, whose
+// V is two 64-column slabs, KV_SLAB apart (MN-major)
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 128][64],
+                                         const uint32_t (&pa)[Shape<D>::BN / 16][4],
+                                         const Smem<D>& sm, int st, uint32_t phase) {
+  using L = Layout<D>;
   mbar_wait(sm.full_v(st), phase);
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) wgmma_rs(o, pa[kk], desc(sm.v(st) + kk * 16 * 128, HALF, 1024));
+  for (int kk = 0; kk < L::BN / 16; ++kk)
+#pragma unroll
+    for (int h = 0; h < D / 128; ++h)
+      wgmma_rs(o[h], pa[kk],
+               desc(sm.v(st) + 2 * h * L::KV_SLAB + kk * 16 * SLAB_ROW, L::KV_SLAB, 1024));
   wgmma_commit();
 }
 
 // P's bf16 A fragment of keys 16 kk .. 16 kk + 15 is the score accumulators
 // of column tiles 2 kk and 2 kk + 1
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4], const float (&s)[64]) {
+template <int N>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[N / 8][4], const float (&s)[N]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < N / 8; ++kk) {
     pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
     pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
     pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -676,24 +735,25 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4], const float (&s)[64
   }
 }
 
-// one kv tile's softmax on a consumer thread's score accumulators, in
+// one kv tile's softmax on a consumer thread's N score accumulators, in
 // place (element 4 j + 2 i + c: row i, key k0 + 8 j + col0 + c); the rows'
 // output scale factors go to alpha. Only tiles the mask crosses (masked)
 // test each key.
-__device__ __forceinline__ void tile_softmax(float (&s)[64], float (&ms)[2], float (&l)[2],
+template <int N>
+__device__ __forceinline__ void tile_softmax(float (&s)[N], float (&ms)[2], float (&l)[2],
                                              float (&alpha)[2], bool masked, int k0, int qpos0,
                                              int col0, int sk, int causal, int window,
                                              float c) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const KeyMask ok{k0, col0, qpos0 + 8 * i, sk, causal, window};
-    float row[32];
+    float row[N / 2];
 #pragma unroll
-    for (int e = 0; e < 32; ++e) row[e] = s[4 * (e >> 1) + 2 * i + (e & 1)];
-    alpha[i] = masked ? softmax_row<32, true>(row, ms[i], l[i], c, ok)
-                      : softmax_row<32, false>(row, ms[i], l[i], c, ok);
+    for (int e = 0; e < N / 2; ++e) row[e] = s[4 * (e >> 1) + 2 * i + (e & 1)];
+    alpha[i] = masked ? softmax_row<N / 2, true>(row, ms[i], l[i], c, ok)
+                      : softmax_row<N / 2, false>(row, ms[i], l[i], c, ok);
 #pragma unroll
-    for (int e = 0; e < 32; ++e) s[4 * (e >> 1) + 2 * i + (e & 1)] = row[e];
+    for (int e = 0; e < N / 2; ++e) s[4 * (e >> 1) + 2 * i + (e & 1)] = row[e];
   }
 }
 
@@ -709,6 +769,7 @@ __device__ __forceinline__ void scale_rows(float (&o)[64], const float (&alpha)[
 
 }  // namespace wg
 
+template <int D>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // (D, Sq, B*Hq)
                    const __grid_constant__ CUtensorMap tm_k,   // (D, Sk, B*Hkv)
@@ -717,8 +778,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // (D, Sq, B*Hq)
                    int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
                    float c) {                                  // scale * log2(e)
   using namespace wg;
+  using L = Layout<D>;
+  constexpr int BN = L::BN, STAGES = L::STAGES, OH = D / 128;
   extern __shared__ __align__(1024) unsigned char smem_wg[];
-  const Smem sm{(smem_addr(smem_wg) + 1023u) & ~1023u};
+  const Smem<D> sm{(smem_addr(smem_wg) + 1023u) & ~1023u};
 
   if (threadIdx.x == 0) {
     mbar_init(sm.q_full(), 1);
@@ -743,64 +806,73 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // (D, Sq, B*Hq)
 
   if (role == 2) {
     // ---- producer warpgroup: one thread keeps the ring full ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Shape<D>::PRODUCER_REGS)
+                 : "memory");
     if (threadIdx.x == 256) {
       const int b = bh / hq;
       const int kvh = b * hkv + (bh - b * hq) / (hq / hkv);
-      mbar_expect_tx(sm.q_full(), TILE);
-      tma_load(sm.q(), &tm_q, sm.q_full(), 0, q0, bh);
-      tma_load(sm.q() + HALF, &tm_q, sm.q_full(), 64, q0, bh);
+      mbar_expect_tx(sm.q_full(), L::Q_BYTES);
+#pragma unroll
+      for (int j = 0; j < L::SLABS; ++j)
+        tma_load(sm.q() + j * L::Q_SLAB, &tm_q, sm.q_full(), 64 * j, q0, bh);
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % STAGES;
         const uint32_t phase = ((it / STAGES) & 1) ^ 1;   // the first round finds them free
         const int k0 = kv_begin + it * BN;
         mbar_wait(sm.empty_k(st), phase);
-        mbar_expect_tx(sm.full_k(st), TILE);
-        tma_load(sm.k(st), &tm_k, sm.full_k(st), 0, k0, kvh);
-        tma_load(sm.k(st) + HALF, &tm_k, sm.full_k(st), 64, k0, kvh);
+        mbar_expect_tx(sm.full_k(st), L::KV_BYTES);
+#pragma unroll
+        for (int j = 0; j < L::SLABS; ++j)
+          tma_load(sm.k(st) + j * L::KV_SLAB, &tm_k, sm.full_k(st), 64 * j, k0, kvh);
         mbar_wait(sm.empty_v(st), phase);
-        mbar_expect_tx(sm.full_v(st), TILE);
-        tma_load(sm.v(st), &tm_v, sm.full_v(st), 0, k0, kvh);
-        tma_load(sm.v(st) + HALF, &tm_v, sm.full_v(st), 64, k0, kvh);
+        mbar_expect_tx(sm.full_v(st), L::KV_BYTES);
+#pragma unroll
+        for (int j = 0; j < L::SLABS; ++j)
+          tma_load(sm.v(st) + j * L::KV_SLAB, &tm_v, sm.full_v(st), 64 * j, k0, kvh);
       }
     }
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Shape<D>::CONSUMER_REGS)
+                 : "memory");
     const int lane = threadIdx.x % 32;
     const int row0 = q0 + role * 64 + (threadIdx.x % 128 / 32) * 16 + lane / 4;   // and + 8
     const int qpos0 = q_offset + row0;
     const int col0 = 2 * (lane % 4);                        // + 8 j + {0, 1}
     const int qlo = q_offset + q0 + role * 64;              // this warpgroup's rows
     const int qhi = qlo + 63;
-    const uint32_t q_w = sm.q() + role * 64 * 128;          // its 64 rows of each half
+    const uint32_t q_w = sm.q() + role * 64 * SLAB_ROW;     // its 64 rows of each slab
     // the per-element mask is needed where the Sk tail, the diagonal or the
     // window's lower edge crosses the tile for these rows
     auto crossed = [=](int k0) {
       return (k0 + BN > sk) || (causal && k0 + BN - 1 > qlo) || (window > 0 && k0 <= qhi - window);
     };
 
-    float o[64], s[64], ms[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
-    uint32_t pa[8][4];                  // P as the bf16 A fragments of P.V
+    float o[OH][64], s[BN / 2], ms[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+    uint32_t pa[BN / 16][4];            // P as the bf16 A fragments of P.V
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int h = 0; h < OH; ++h)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[h][i] = 0.f;
 
     mbar_wait(sm.q_full(), 0);
     for (int it = 0; it < n_tiles; ++it) {
       const int st = it % STAGES;
       const uint32_t phase = (it / STAGES) & 1;
       const int k0 = kv_begin + it * BN;
-      issue_s(s, sm, q_w, st, phase);
+      issue_s<D>(s, sm, q_w, st, phase);
       wgmma_wait<0>();
       fence_regs(s);
       mbar_arrive(sm.empty_k(st));
       tile_softmax(s, ms, l, alpha, crossed(k0), k0, qpos0, col0, sk, causal, window, c);
-      scale_rows(o, alpha);
+#pragma unroll
+      for (int h = 0; h < OH; ++h) scale_rows(o[h], alpha);
       pack_p(pa, s);
       wgmma_fence();                    // the writes of o and pa before the products
-      issue_pv(o, pa, sm, st, phase);
+      issue_pv<D>(o, pa, sm, st, phase);
       wgmma_wait<0>();
-      fence_regs(o);
+#pragma unroll
+      for (int h = 0; h < OH; ++h) fence_regs(o[h]);
       mbar_arrive(sm.empty_v(st));
     }
 
@@ -811,9 +883,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // (D, Sq, B*Hq)
         const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
         bf16* orow = out + ((size_t)bh * sq + r) * D + col0;
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-              __floats2bfloat162_rn(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+        for (int h = 0; h < OH; ++h)
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(orow + 128 * h + 8 * j) =
+                __floats2bfloat162_rn(o[h][4 * j + 2 * i] * inv, o[h][4 * j + 2 * i + 1] * inv);
       }
     }
   }
@@ -879,13 +953,14 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a (heads, rows, 128) bf16 tensor as a 3-D map, innermost first, loaded in
-// boxes of 64 columns (128 bytes, the swizzle's width) x 128 rows of one
-// head; rows past `rows` read as zeros
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int rows, int heads) {
-  const cuuint64_t dims[3] = {128, (cuuint64_t)rows, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {128 * sizeof(bf16), (cuuint64_t)rows * 128 * sizeof(bf16)};
-  const cuuint32_t box[3] = {64, 128, 1};
+// a (heads, rows, width) bf16 tensor as a 3-D map, innermost first, loaded
+// in boxes of 64 columns (128 bytes, the swizzle's width) x box_rows rows of
+// one head; rows past `rows` read as zeros
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int width, int rows,
+              int heads, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {width * sizeof(bf16), (cuuint64_t)rows * width * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
              box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -893,20 +968,23 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int rows, int 
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int batch,
                          int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
                          float scale, cudaStream_t stream) {
+  using L = wg::Layout<D>;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!make_map(enc, &tq, q, sq, batch * hq) || !make_map(enc, &tk, k, sk, batch * hkv) ||
-      !make_map(enc, &tv, v, sk, batch * hkv))
+  if (!make_map(enc, &tq, q, D, sq, batch * hq, wg::BM) ||
+      !make_map(enc, &tk, k, D, sk, batch * hkv, L::BN) ||
+      !make_map(enc, &tv, v, D, sk, batch * hkv, L::BN))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
+      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid(batch * hq, (sq + wg::BM - 1) / wg::BM);
-  flash_wgmma_kernel<<<grid, wg::THREADS, wg::SMEM_BYTES, stream>>>(
+  flash_wgmma_kernel<D><<<grid, wg::THREADS, L::SMEM_BYTES, stream>>>(
       tq, tk, tv, static_cast<bf16*>(out), hq, hkv, sq, sk, causal, window, q_offset,
       scale * kLog2e);
   return cudaGetLastError();
@@ -920,18 +998,19 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
     return launch_fp32<D>(q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset,
                           scale, s);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if (D == 128)
-    return launch_wgmma(q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset, scale,
-                        s);
-  return launch_mma<D>(q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset, scale,
-                       s);
+  if constexpr (D >= 128)
+    return launch_wgmma<D>(q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset,
+                           scale, s);
+  else
+    return launch_mma<D>(q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset,
+                         scale, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 128, 256}; rows must be
-// 16-byte aligned. bfloat16 at d = 128 runs flash_wgmma_kernel, at d = 32,
-// 64 and 256 flash_mma_kernel. Returns the launch's cudaError_t.
+// 16-byte aligned. bfloat16 at d = 128 and 256 runs flash_wgmma_kernel<d>,
+// at d = 32 and 64 flash_mma_kernel<d>. Returns the launch's cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
                                int dtype, int batch, int hq, int hkv, int sq, int sk, int d,
                                int causal, int window, int q_offset, float scale,

@@ -11,9 +11,10 @@ expansion is never materialized.
   not take), on a CPU tensor it runs the plain version. Unlike the TPU
   kernel it pads nothing: the ragged ``Sk`` tail is masked per element, so
   unaligned bidirectional attention needs no special case. bfloat16 at
-  D = 128 runs ``flash_wgmma_kernel`` (TMA + wgmma, 128-key tiles), at
-  D = 32, 64 and 256 ``flash_mma_kernel`` (mma.sync, 64-key tiles); float32
-  runs ``flash_fp32_kernel`` (CUDA cores). Key tiles wholly outside the
+  D = 128 and 256 runs ``flash_wgmma_kernel<D>`` (TMA + wgmma; 128-key
+  tiles at D = 128, 64-key tiles at D = 256), at D = 32 and 64
+  ``flash_mma_kernel`` (mma.sync, 64-key tiles); float32 runs
+  ``flash_fp32_kernel`` (CUDA cores). Key tiles wholly outside the
   causal and window masks are skipped, not masked.
 - :func:`flash_attention_torch` is the plain version: the same masks
   applied to the full score matrix (``kernels/ref.py::attention_ref`` with
@@ -40,9 +41,13 @@ from repro_torch.kernels.ref import NEG_INF, attention_ref
 HEAD_DIMS = (32, 64, 128, 256)
 # query rows and keys per tile of flash_fp32_kernel and flash_mma_kernel
 BQ, BK = 64, 64
-# flash_wgmma_kernel (bfloat16, D = 128): 128-row query tiles, 128-key
-# tiles, a ring of WGMMA_STAGES K/V stages
-WGMMA_BQ, WGMMA_BK, WGMMA_STAGES = 128, 128, 3
+# flash_wgmma_kernel<D> (bfloat16, D = 128 and 256): 128-row query tiles;
+# per head dim, (keys per tile, K/V ring stages): at D = 256 a consumer's
+# 64 x 256 float32 output takes 128 registers a thread, which leaves room
+# for a 64-key tile's scores only, and two 32 KB K/V stages beside the
+# 64 KB Q tile fill an SM's shared memory
+WGMMA_BQ = 128
+WGMMA_TILES = {128: (128, 3), 256: (64, 2)}
 LOG2E = 1.4426950408889634
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,19 +55,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def key_tile(d: int) -> int:
     """Keys per tile of the bfloat16 kernel at head dim d: 128 for
-    flash_wgmma_kernel (D = 128), 64 for flash_mma_kernel."""
-    return WGMMA_BK if d == 128 else BK
+    flash_wgmma_kernel<128>, 64 for flash_wgmma_kernel<256> and
+    flash_mma_kernel."""
+    return WGMMA_TILES[d][0] if d in WGMMA_TILES else BK
 
 
 def smem_bytes(d: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory one block of the kernel takes at head dim d.
-    bfloat16 at D = 128: the Q tile, WGMMA_STAGES K and V tiles, the
-    mbarriers and 1 KB to align the tiles to the 128-byte swizzle's period;
-    at D = 32, 64, 256: Q, K and V tiles of padded bf16 rows. float32: the query
-    tile, the transposed K tile (reused for V) and the P tile."""
-    if dtype == torch.bfloat16 and d == 128:
-        q_tile, kv_tile = WGMMA_BQ * d * 2, WGMMA_BK * d * 2
-        return 1024 + q_tile + 2 * WGMMA_STAGES * kv_tile + 8 * (1 + 4 * WGMMA_STAGES)
+    bfloat16 at D = 128 and 256: the Q tile, a K and a V tile per ring
+    stage, the mbarriers and 1 KB to align the tiles to the 128-byte
+    swizzle's period; at D = 32, 64: Q, K and V tiles of padded bf16 rows.
+    float32: the query tile, the transposed K tile (reused for V) and the P
+    tile."""
+    if dtype == torch.bfloat16 and d in WGMMA_TILES:
+        bk, stages = WGMMA_TILES[d]
+        q_tile, kv_tile = WGMMA_BQ * d * 2, bk * d * 2
+        return 1024 + q_tile + 2 * stages * kv_tile + 8 * (1 + 4 * stages)
     if dtype == torch.bfloat16:
         return 3 * BQ * (d + 8) * 2
     return 4 * (BQ * d + max(d * (BK + 4), BK * d) + BQ * BK)
@@ -73,7 +81,7 @@ def kernel_name(d: int, dtype: torch.dtype) -> str:
     in dtype runs (the C entry point dispatches on both)."""
     if dtype == torch.float32:
         return "flash_fp32_kernel"
-    return "flash_wgmma_kernel" if d == 128 else "flash_mma_kernel"
+    return f"flash_wgmma_kernel<{d}>" if d in WGMMA_TILES else "flash_mma_kernel"
 
 
 def exp2_scale(d: int) -> float:

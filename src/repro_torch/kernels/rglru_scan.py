@@ -18,9 +18,17 @@ reference's rounding points:
 
 - :func:`rglru_scan` is the kernel wrapper: on a CUDA tensor it launches
   ``csrc/rglru_scan.cu`` (raising on anything the kernel does not take), on
-  a CPU tensor it runs the plain version.
+  a CPU tensor it runs the plain version. The kernel scans t in chunks of
+  ``SCAN_CHUNK`` positions, ``chunks`` of them side by side in a block
+  (:func:`chunk_plan`): each chunk's decay product and end state, then
+  every chunk from the state the chunks before it hand on. It takes the
+  special functions (exp, reciprocal, rsqrt) from the hardware's
+  approximations, a few float32 ulp each.
 - :func:`rglru_scan_torch` is the plain version: the gates over the whole
   sequence, then a sequential float32 loop over t.
+- :func:`rglru_scan_chunked_torch` is the plain version in the kernel's
+  order (its chunks, its float32 association of the recurrence); the tests
+  hold it to a float64 sequential loop and to the reference.
 """
 
 from __future__ import annotations
@@ -31,9 +39,32 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.hw import H100_SMS, sm_count
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's shape (csrc/rglru_scan.cu): positions per chunk (one
+# thread's), chunks per block at most (16 channels x 32 chunks: 512 threads)
+SCAN_CHUNK, SCAN_MAX_CHUNKS = 8, 32
+# threads per SM the chunk plan aims at: a full SM (two 512-thread blocks
+# of 64 registers), for loads enough in flight to cover the memory's latency
+SCAN_THREADS_PER_SM = 2048
+
+
+def chunk_plan(b: int, s: int, w: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """(positions per chunk, chunks per block) of the scan kernel at
+    (B, S, W). A block owns 16 channels of one row, so ``B * W / 16``
+    blocks whatever the plan; its threads are one per (channel, chunk).
+    Chunks per block: the fewest, a power of two, that give about
+    ``SCAN_THREADS_PER_SM`` threads on each of ``sms`` SMs, at most
+    ``SCAN_MAX_CHUNKS`` and no more than one tile covering S needs. On 132
+    SMs at W = 2560: 16 at (8, 2048) (1,280 blocks of 256 threads), 32 at
+    batch 1 (160 blocks of 512)."""
+    want = -(-SCAN_THREADS_PER_SM * sms // (b * w))
+    chunks = 1
+    while chunks < min(want, SCAN_MAX_CHUNKS) and chunks * SCAN_CHUNK < s:
+        chunks *= 2
+    return SCAN_CHUNK, chunks
 
 
 def lru_gates_torch(r_pre: torch.Tensor, i_pre: torch.Tensor,
@@ -73,7 +104,42 @@ def rglru_scan_torch(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
     return y, hseq[torch.arange(b, device=xb.device), last]
 
 
-def _check(xb, r_pre, i_pre, y_pre, c, lengths) -> None:
+def rglru_scan_chunked_torch(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
+                             y_pre: torch.Tensor, c: torch.Tensor,
+                             lengths: Optional[torch.Tensor] = None,
+                             out_dtype: Optional[torch.dtype] = None, *, chunk: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version in the kernel's order (at ``chunk = SCAN_CHUNK``), for
+    the tests: the same function as :func:`rglru_scan_torch`, with t cut
+    into chunks of ``chunk`` positions. Each chunk's decay product A and
+    its end state H from h = 0 (in order, in float32); the state entering
+    chunk k is ``A[k-1] h + H[k-1]`` composed from h = 0 over the chunks
+    before it; each chunk then runs again from that state."""
+    b, s, w = xb.shape
+    a, gate = lru_gates_torch(r_pre, i_pre, c)
+    bt = gate * xb.float()
+    yb = F.gelu(y_pre.float(), approximate="tanh")
+    hseq = torch.empty((b, s, w), dtype=torch.float32, device=xb.device)
+    h_in = torch.zeros((b, w), dtype=torch.float32, device=xb.device)
+    for t0 in range(0, s, chunk):
+        prod = torch.ones_like(h_in)
+        end = torch.zeros_like(h_in)
+        h = h_in
+        for t in range(t0, min(t0 + chunk, s)):
+            prod = prod * a[:, t]
+            end = a[:, t] * end + bt[:, t]
+            h = a[:, t] * h + bt[:, t]
+            hseq[:, t] = h
+        h_in = prod * h_in + end
+    y = (hseq * yb).to(out_dtype or xb.dtype)
+    if lengths is None:
+        last = torch.full((b,), s - 1, dtype=torch.long, device=xb.device)
+    else:
+        last = torch.clamp(lengths.long() - 1, 0, s - 1)
+    return y, hseq[torch.arange(b, device=xb.device), last]
+
+
+def _check(xb, r_pre, i_pre, y_pre, c, lengths, chunks: int = 1) -> None:
     """Raise with the reason on anything the CUDA kernel does not take."""
     if xb.dim() != 3:
         raise ValueError(f"xb must be (B, S, W), got {tuple(xb.shape)}")
@@ -91,6 +157,8 @@ def _check(xb, r_pre, i_pre, y_pre, c, lengths) -> None:
                          f"{tuple(lengths.shape)}")
     if b > 65535:
         raise ValueError(f"B={b} exceeds the grid's 65535 blocks in y")
+    if not 1 <= chunks <= SCAN_MAX_CHUNKS:
+        raise ValueError(f"chunks={chunks}: a block takes 1 to {SCAN_MAX_CHUNKS} chunks")
     for name, t in (("xb", xb), ("r_pre", r_pre), ("i_pre", i_pre), ("y_pre", y_pre),
                     ("c", c), ("lengths", lengths)):
         if t.device != xb.device:
@@ -102,10 +170,13 @@ def _check(xb, r_pre, i_pre, y_pre, c, lengths) -> None:
 @_build.counted
 def rglru_scan(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
                y_pre: torch.Tensor, c: torch.Tensor,
-               lengths: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+               lengths: Optional[torch.Tensor] = None, *,
+               chunks: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper: launches ``csrc/rglru_scan.cu`` on a CUDA tensor
-    (counting the launch in ``rglru_scan.launches``), runs
-    :func:`rglru_scan_torch` on a CPU tensor. Returns ``(y, h_last)``."""
+    (counting the launch in ``rglru_scan.launches``) with ``chunks``
+    chunks a block (default :func:`chunk_plan` for the card; the result
+    does not depend on it); runs :func:`rglru_scan_torch` on a CPU tensor.
+    Returns ``(y, h_last)``."""
     if xb.device.type == "cpu":
         return rglru_scan_torch(xb, r_pre, i_pre, y_pre, c, lengths)
     if xb.device.type != "cuda":
@@ -113,7 +184,9 @@ def rglru_scan(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
     b, s, w = xb.shape
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=xb.device)
-    _check(xb, r_pre, i_pre, y_pre, c, lengths)
+    if chunks is None:
+        chunks = chunk_plan(b, s, w, sm_count(xb.device))[1]
+    _check(xb, r_pre, i_pre, y_pre, c, lengths, chunks)
     lib = _build.library("rglru_scan", _bind)
     y = torch.empty_like(xb)
     h_last = torch.empty((b, w), dtype=torch.float32, device=xb.device)
@@ -122,7 +195,7 @@ def rglru_scan(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
         err = lib.rglru_scan(xb.data_ptr(), r_pre.data_ptr(), i_pre.data_ptr(),
                              y_pre.data_ptr(), c.data_ptr(), lengths.data_ptr(),
                              y.data_ptr(), h_last.data_ptr(), _DTYPES[xb.dtype], b, s, w,
-                             stream)
+                             chunks, stream)
     rglru_scan.launches += 1
     if err:
         raise RuntimeError(f"rglru_scan launch failed: cudaError_t {err}")
@@ -130,5 +203,5 @@ def rglru_scan(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.rglru_scan.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.rglru_scan.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.rglru_scan.restype = ctypes.c_int

@@ -23,7 +23,8 @@ Tolerances:
   the packages round their other bf16 intermediates at their own places;
 - the scan's plain version against a float64 sequential oracle on the same
   float32 gates: ``rtol = 1e-5`` and ``atol = 1e-6`` of the state's peak,
-  under normal, strong (a ~ 0) and weak (a ~ 1) decay.
+  under normal, strong (a ~ 0) and weak (a ~ 1) decay; the same for its
+  version in the kernel's chunked order, at chunk lengths 1, 16, 64 and S.
 """
 
 import io
@@ -200,15 +201,8 @@ def _scan_inputs(decay: str, b=3, s=64, w=48, seed=4):
     return [torch.from_numpy(v) for v in (xb, r_pre, i_pre, y_pre)] + [c]
 
 
-@pytest.mark.parametrize("decay", ["normal", "strong", "weak"])
-def test_scan_plain_version_matches_float64_oracle(decay):
-    """The plain version's float32 recurrence against a float64 sequential
-    loop over the same float32 gates, y unrounded and the state at each
-    row's ``lengths - 1`` (clamped: a 0 and an over-long length)."""
-    xb, r_pre, i_pre, y_pre, c = _scan_inputs(decay)
-    lengths = torch.tensor([64, 0, 200], dtype=torch.int32)
-    y, h_last = TRG.rglru_scan_torch(xb, r_pre, i_pre, y_pre, c, lengths,
-                                     out_dtype=torch.float32)
+def _oracle64(xb, r_pre, i_pre, y_pre, c, decay):
+    """(hseq, y) of a float64 sequential loop over the float32 gates."""
     a, gate = TRG.lru_gates_torch(r_pre, i_pre, c)
     if decay == "strong":
         assert float(a.max()) < 1e-30
@@ -222,12 +216,94 @@ def test_scan_plain_version_matches_float64_oracle(decay):
         h = a64[:, t] * h + bt64[:, t]
         hseq.append(h)
     hseq = torch.stack(hseq, 1)
+    return hseq, hseq * yb64
+
+
+@pytest.mark.parametrize("decay", ["normal", "strong", "weak"])
+def test_scan_plain_version_matches_float64_oracle(decay):
+    """The plain version's float32 recurrence against a float64 sequential
+    loop over the same float32 gates, y unrounded and the state at each
+    row's ``lengths - 1`` (clamped: a 0 and an over-long length)."""
+    xb, r_pre, i_pre, y_pre, c = _scan_inputs(decay)
+    lengths = torch.tensor([64, 0, 200], dtype=torch.int32)
+    y, h_last = TRG.rglru_scan_torch(xb, r_pre, i_pre, y_pre, c, lengths,
+                                     out_dtype=torch.float32)
+    hseq, want_y = _oracle64(xb, r_pre, i_pre, y_pre, c, decay)
     atol = 1e-6 * float(hseq.abs().max())
-    np.testing.assert_allclose(y.numpy(), (hseq * yb64).numpy(), rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), rtol=1e-5, atol=atol)
     want_last = hseq[torch.arange(3), torch.tensor([63, 0, 63])]
     np.testing.assert_allclose(h_last.numpy(), want_last.numpy(), rtol=1e-5, atol=atol)
 
 
+@pytest.mark.parametrize("chunk", [1, 8, 16, 64, 100])
+@pytest.mark.parametrize("decay", ["normal", "strong", "weak"])
+def test_chunked_scan_matches_float64_oracle(decay, chunk):
+    """The plain version in the kernel's chunked order (the kernel's chunk
+    is 8) against the float64 sequential loop: S = 100 (not a multiple of
+    8, 16 or 64; 100 is one chunk),
+    each row's state at ``lengths - 1`` for lengths 0, 1, at a chunk's last
+    position (16, 64), at a chunk's first (17, 65) and past S."""
+    xb, r_pre, i_pre, y_pre, c = _scan_inputs(decay, b=7, s=100)
+    lengths = torch.tensor([0, 1, 16, 17, 64, 65, 300], dtype=torch.int32)
+    y, h_last = TRG.rglru_scan_chunked_torch(xb, r_pre, i_pre, y_pre, c, lengths,
+                                             out_dtype=torch.float32, chunk=chunk)
+    hseq, want_y = _oracle64(xb, r_pre, i_pre, y_pre, c, decay)
+    atol = 1e-6 * float(hseq.abs().max())
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), rtol=1e-5, atol=atol)
+    want_last = hseq[torch.arange(7), torch.tensor([0, 0, 15, 16, 63, 64, 99])]
+    np.testing.assert_allclose(h_last.numpy(), want_last.numpy(), rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,chunk", [("float32", 8), ("float32", 7), ("bfloat16", 8)])
+def test_chunked_scan_in_the_block_matches_reference(monkeypatch, dtype, chunk):
+    """One RG-LRU block with its recurrence run in the kernel's chunked
+    order, against the reference's ``rglru_block_apply`` (its
+    ``lax.associative_scan``) on the interop weights: the output and the
+    state handed off at each row's ``lengths - 1`` (positions 39, 4 and
+    22: in the last, the first and a middle chunk)."""
+    _jm, jp, _tm, tp = _models("rr", dtype)
+    cfg, jcfg = get_config(ARCH), jax_config(ARCH)
+    jl, tl = _rlayer0(jp, tp)
+    jdt, tdt = _dtypes(dtype)
+    tol = BLOCK_TOL if dtype == "float32" else BF16_TOL
+    monkeypatch.setattr(ops, "rglru", lambda *args: TRG.rglru_scan_chunked_torch(
+        *args, chunk=chunk))
+    x = np.random.default_rng(2).normal(size=(3, 40, cfg.d_model)).astype(np.float32)
+    lens = np.asarray([40, 5, 23], np.int32)
+    jout, _, jc = JB.rglru_block_apply(jcfg, jl, jnp.asarray(x, jdt), lengths=jnp.asarray(lens),
+                                       want_cache=True)
+    tout, tc = TB.rglru_block_apply(cfg, tl, torch.from_numpy(x).to(tdt),
+                                    lengths=torch.from_numpy(lens), want_cache=True)
+    np.testing.assert_allclose(_f32(tout), _f32(jout), **tol)
+    np.testing.assert_allclose(_f32(tc["h"]), _f32(jc["h"]), **tol)
+
+
+# (B, S) of the prompt passes chip_smoke.py drives at W = 2560: phase 3's
+# kernel cases, phase 10's buckets (and phase 4's engine trace, (8, 256)),
+# phase 11's buckets; the chunks a block takes, planned for 132 SMs
+PLANNED_CHUNKS = {(8, 2048): 16, (1, 4096): 32, (2, 512): 32, (3, 1001): 32,
+                  (8, 256): 16, (1, 128): 16, (1, 1024): 32, (4, 2048): 32}
+
+
+@pytest.mark.parametrize("b,s", sorted(PLANNED_CHUNKS))
+def test_chunk_plan_for_the_smoke_phases(b, s):
+    """``chunk_plan`` at the shapes the card runs: chunks of the kernel's
+    ``SCAN_CHUNK`` positions, a power of two of them a block, at most
+    ``SCAN_MAX_CHUNKS``; at least ``SCAN_THREADS_PER_SM`` threads an SM
+    where that many chunks fit in S, and one tile of chunks no longer than
+    twice S. chip_smoke.py's float32 case has an S that is a multiple of
+    neither the chunk nor a tile."""
+    w, sms = 2560, 132
+    chunk, chunks = TRG.chunk_plan(b, s, w, sms)
+    assert chunk == TRG.SCAN_CHUNK == 8
+    assert chunks == PLANNED_CHUNKS[(b, s)]
+    assert chunks & (chunks - 1) == 0 and 1 <= chunks <= TRG.SCAN_MAX_CHUNKS
+    threads = b * w * chunks
+    assert (threads >= TRG.SCAN_THREADS_PER_SM * sms or chunks == TRG.SCAN_MAX_CHUNKS
+            or chunks * chunk >= s)
+    assert chunks * chunk < 2 * s
+    assert 1001 % chunk and 1001 % (chunk * PLANNED_CHUNKS[(3, 1001)])
+    assert TRG.chunk_plan(1, 10, 16, sms) == (8, 2)      # one tile covers S
 def _chip_smoke():
     import importlib.util
     from pathlib import Path
@@ -239,12 +315,15 @@ def _chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("flaw", ["exact gelu", "state one step late"])
+@pytest.mark.parametrize("flaw", ["exact gelu", "state one step late",
+                                  "carry dropped at one chunk boundary"])
 def test_bf16_scan_check_catches_a_flawed_kernel(flaw):
     """chip_smoke.py's bfloat16 check of the scan kernel (y against the
     plain version's unrounded float32 y) passes a kernel whose only error
     is y's rounding, and fails one with the erf gelu in place of the tanh
-    one, or with y formed from the state one position late."""
+    one, with y formed from the state one position late, or with the
+    chunks after position 128 started from h = 0 (the carry into one chunk
+    lost)."""
     smoke = _chip_smoke()
     xb, r_pre, i_pre, y_pre, c = _scan_inputs("normal", b=2, s=256, w=64)
     args = [t.to(torch.bfloat16) for t in (xb, r_pre, i_pre, y_pre)] + [c]
@@ -260,6 +339,12 @@ def test_bf16_scan_check_catches_a_flawed_kernel(flaw):
     hseq = torch.stack(hseq, 1)
     if flaw == "exact gelu":
         flawed = hseq * torch.nn.functional.gelu(args[3].float())
+    elif flaw == "carry dropped at one chunk boundary":
+        head, tail = ([t[:, :128] for t in args[:4]] + [c], [t[:, 128:] for t in args[:4]] + [c])
+        flawed = torch.cat([TRG.rglru_scan_chunked_torch(*part, chunk=8)[0]
+                            for part in (head, tail)], 1)
+        assert smoke.within(TRG.rglru_scan_chunked_torch(*args, chunk=8)[0], want,
+                            smoke.RGLRU_BF16_TOL)[0]
     else:
         late = torch.cat([torch.zeros(2, 1, 64), hseq[:, :-1]], 1)
         flawed = late * torch.nn.functional.gelu(args[3].float(), approximate="tanh")
@@ -293,6 +378,9 @@ def test_scan_wrapper_dispatch_and_checks(monkeypatch):
     with pytest.raises(ValueError, match="contiguous"):
         t = xb.transpose(1, 2).contiguous().transpose(1, 2)
         TRG._check(t, r_pre, i_pre, y_pre, c, lengths)
+    for chunks in (0, TRG.SCAN_MAX_CHUNKS + 1):
+        with pytest.raises(ValueError, match=f"chunks={chunks}"):
+            TRG._check(xb, r_pre, i_pre, y_pre, c, lengths, chunks)
 
 
 # ---------------------------------------------------------------------------

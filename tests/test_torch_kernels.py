@@ -22,6 +22,7 @@ from repro.kernels.flash_attention import flash_attention as jflash  # noqa: E40
 from repro.kernels.paged_attention import (paged_attention_xla,  # noqa: E402
                                            paged_decode_attention as jpaged)
 from repro.models import attention as JATT  # noqa: E402
+from repro_torch.hw import H100  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import paged_attention as tpaged  # noqa: E402
@@ -449,19 +450,29 @@ def test_flash_tiled_plain_matches_pallas(b, hq, hkv, sq, sk, d, causal, window,
 
 
 def test_flash_key_tile_follows_the_kernels():
-    """128-key tiles where flash_wgmma_kernel runs (bfloat16, D = 128), 64
-    where flash_mma_kernel does (D = 32, 64, 256); the tiled plain version
-    defaults to them. At D = 256 a bfloat16 block takes three padded 64-row
-    tiles (101,376 bytes), a float32 block 151,552 bytes."""
+    """128-key tiles where flash_wgmma_kernel<128> runs (bfloat16, D = 128),
+    64 where flash_wgmma_kernel<256> (D = 256) and flash_mma_kernel (D = 32,
+    64) do; the tiled plain version defaults to them. At D = 256 a bfloat16
+    block takes the 64 KB Q tile, two stages of 32 KB K and V tiles, 9
+    mbarriers and 1 KB of alignment (197,704 bytes, one block an SM), a
+    float32 block 151,552 bytes; every block fits the H100's opt-in shared
+    memory."""
     assert tflash.HEAD_DIMS == (32, 64, 128, 256)
     assert [tflash.key_tile(d) for d in tflash.HEAD_DIMS] == [64, 64, 128, 64]
+    assert tflash.key_tile(256) == 64
     assert [tflash.kernel_name(d, torch.bfloat16) for d in tflash.HEAD_DIMS] == [
-        "flash_mma_kernel", "flash_mma_kernel", "flash_wgmma_kernel", "flash_mma_kernel"]
+        "flash_mma_kernel", "flash_mma_kernel", "flash_wgmma_kernel<128>",
+        "flash_wgmma_kernel<256>"]
     assert {tflash.kernel_name(d, torch.float32) for d in tflash.HEAD_DIMS} == {
         "flash_fp32_kernel"}
     assert tflash.smem_bytes(128, torch.bfloat16) == 1024 + 32768 * 7 + 8 * 13
-    assert tflash.smem_bytes(256, torch.bfloat16) == 3 * 64 * 264 * 2 == 101_376
+    assert tflash.smem_bytes(256, torch.bfloat16) == 1024 + 65536 + 4 * 32768 + 8 * 9 \
+        == 197_704
     assert tflash.smem_bytes(256, torch.float32) == 4 * (64 * 256 + 256 * 68 + 64 * 64)
+    for d in tflash.HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            assert tflash.smem_bytes(d, dtype) <= H100.vmem_bytes
+    assert 2 * tflash.smem_bytes(256, torch.bfloat16) > H100.vmem_bytes   # one block an SM
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
                for a in _attn_inputs(1, 2, 1, 200, 200, 128, seed=5))
     assert torch.equal(tflash.flash_attention_tiled(q, k, v),
