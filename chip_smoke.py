@@ -38,7 +38,14 @@ Phases, each of which must pass (nothing is caught):
               (8, 256) group, mid-decode joins, a cancel, an EOS and a
               stop-sequence exit, each stream byte-identical to the request
               alone through ``handle`` (or its prefix), launches exact, every
-              page freed at the end;
+              page freed at the end; then the router over two replicas that
+              share the server's weights (sanitizer on): the reference's
+              failover trace (six batch-1 requests, contexts 40-56, 8 new
+              tokens, arriving at 200/s from seed 3) with replica 1 drained
+              after a token of index 2 or more while it holds live work;
+              zero loss, requests resubmitted, every stream gapless and
+              byte-identical to the request alone through ``handle``, no
+              placement on the drained replica, launches exact over both;
 5. serve    — full Yi-6B (32 layers, bfloat16, random weights from a seeded
               generator) serving three requests twice through ``PlanServer``
               with ``decode_kernel="auto"``: the first pass compiles the
@@ -62,6 +69,19 @@ Phases, each of which must pass (nothing is caught):
               exec time per request, engine ms per tick, a traced tick's
               idle share, aggregate tok/s beside the same requests one by
               one through ``handle``, graphs held and peak memory printed;
+   serve-router — the serve-engine phase's server as replica 0 and a second
+              ``PlanServer`` holding the same weight tensors as replica 1
+              behind ``EngineRouter`` (affinity placement, one (8, 2048)
+              arena a pool, sanitizer on): the serve-engine trace twice, once
+              undisturbed and once with replica 1 drained after its first
+              member's 2nd token; 12 records a run, gapless streams, the
+              trace's finish reasons, launches exact over both replicas and
+              shared weight pointers gated; placements by reason, each
+              replica's counters and device clock, aggregate tok/s on this
+              card beside the single engine's, the fleet's tok/s by virtual
+              device time (what two cards would give), device memory before
+              and after the second replica, and how many bf16 streams equal
+              the single engine's and the undisturbed run's printed;
 6. serve-check-ssm — Mamba-2 1.3B widths cut to 2 layers, float32, through
               ``PlanServer``: identical token streams with the SSD kernel
               and with its plain version, graphed == eager, auto == paged,
@@ -194,6 +214,12 @@ CANCEL_AFTER = 4          # tokens a cancelled request streams first
 ENGINE_REQUESTS, ENGINE_CONTEXTS, ENGINE_NEW_TOKENS = 12, (1040, 1792), (8, 48)
 ENGINE_CANCEL, ENGINE_EOS = 2, 5
 ENGINE_STEP_SPAN = "ServingEngine.step"
+# the router check of phase 4: the reference's failover trace
+# (tests/test_router.py), batch-1 (context, new tokens) pairs arriving at
+# ROUTER_RATE per second from ROUTER_SEED; replica 1 is drained after a
+# token of index ROUTER_DRAIN_AT or more while it holds live work
+ROUTER_CHECK_TRACE = ((40, 8), (44, 8), (52, 8), (40, 8), (56, 8), (48, 8))
+ROUTER_RATE, ROUTER_SEED, ROUTER_DRAIN_AT = 200.0, 3, 2
 _T0 = time.perf_counter()
 
 
@@ -1369,6 +1395,7 @@ def phase_serve_check():
         if kernel == "paged":
             check_free_while_queued(srv)
             engine_trace_check(srv, "decode_kernel=paged")
+            router_check(srv, "decode_kernel=paged")
         del srv
     for kernel in ("gather", "ref", "auto"):
         for a, c in zip(streams["paged"], streams[kernel]):
@@ -1686,6 +1713,145 @@ def engine_trace_check(srv, label: str) -> None:
           f"({pm.pages_leased}), live bytes 0")
 
 
+def _shared_weights(a, b) -> bool:
+    """Whether two servers hold the same weight tensors (one copy)."""
+    return a.params.keys() == b.params.keys() and all(
+        a.params[k].data_ptr() == b.params[k].data_ptr() for k in a.params)
+
+
+def _twin(srv):
+    """A second ``PlanServer`` of ``srv``'s model and configuration that
+    takes ``srv``'s weight tensors (its own random ones are freed)."""
+    from repro_torch.runtime.serve_loop import PlanServer
+
+    twin = PlanServer(srv.cfg, config=srv.config, device=srv.device)
+    twin.params = srv.params
+    return twin
+
+
+def router_launches_expected(router, prefills: dict, bucket) -> dict:
+    """:func:`engine_launches_expected` summed over the router's replicas:
+    each replica's group ticks and prompt passes (``prefills`` by replica)."""
+    total = {}
+    for r in router.replicas:
+        want = engine_launches_expected(r.server, r.engine.decode_ticks, prefills[r.idx], bucket)
+        for k, n in want.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def run_router(router, arrivals, drain_after=None, cancel=None) -> dict:
+    """``router.run`` over ``arrivals`` with the launch counts set to 0 just
+    before and read just after. ``drain_after``: drain replica 1 at the
+    first token event of index ``drain_after`` or more of a request placed
+    there; ``cancel``: the rid cancelled after ``CANCEL_AFTER`` tokens.
+    Returns the records by rid, each rid's streamed tokens and indices, the
+    decision count at the drain, the drained handles, the prompt passes by
+    replica, the launches and the wall seconds."""
+    import torch
+
+    streams, indices, drained = {}, {}, {}
+    handoffs = {r.idx: r.server.pool.metrics.handoff_writes for r in router.replicas}
+
+    def on_event(ev):
+        if ev.token is None:
+            return
+        streams.setdefault(ev.rid, []).append(ev.token.cpu().numpy())
+        indices.setdefault(ev.rid, []).append(ev.index)
+        h = router.handles.get(ev.rid)
+        if (drain_after is not None and not drained and ev.index >= drain_after
+                and h is not None and h.replica.idx == 1):
+            drained["moved"] = router.drain_replica(1)
+            drained["at"] = len(router.decisions)
+        if ev.rid == cancel and ev.index + 1 >= CANCEL_AFTER and h is not None:
+            router.cancel(h)
+
+    wrappers = _counted_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    router.run(arrivals, on_event=on_event)
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    return {"recs": {r["rid"]: r for r in router.results}, "seconds": seconds,
+            "streams": {rid: np.concatenate(t, axis=1) for rid, t in streams.items()},
+            "indices": indices, "drained": drained, "launches": launches,
+            "prefills": {r.idx: r.server.pool.metrics.handoff_writes - handoffs[r.idx]
+                         for r in router.replicas}}
+
+
+def check_router_run(run, router, rids, label: str) -> None:
+    """Gates of a router run: one record per request, every stream gapless
+    (indices 0, 1, ... once each) and equal to its record's tokens, and
+    after a drain: requests resubmitted, none placed on replica 1."""
+    if sorted(run["recs"]) != sorted(rids) or router.handles:
+        fail(f"{label}: {len(run['recs'])} records for {len(rids)} requests, "
+             f"{len(router.handles)} handles left")
+    for rid in rids:
+        rec = run["recs"][rid]["tokens"].cpu().numpy()
+        got = run["streams"].get(rid, rec[:, :0])
+        if run["indices"].get(rid, []) != list(range(rec.shape[1])):
+            fail(f"{label}: rid {rid} streamed indices {run['indices'].get(rid)}")
+        if not np.array_equal(got, rec):
+            fail(f"{label}: rid {rid} streamed {got.tolist()} but its record holds "
+                 f"{rec.tolist()}")
+    if run["drained"]:
+        moved = run["drained"]["moved"]
+        late = router.decisions[run["drained"]["at"] - len(moved):]
+        if not moved or router.router_metrics.resubmitted != len(moved):
+            fail(f"{label}: the drain moved {len(moved)} requests")
+        if any(d.replica == 1 for d in late):
+            fail(f"{label}: the drained replica took a placement after the drain")
+
+
+def router_check(srv, label: str) -> None:
+    """The router over ``srv`` and a twin holding its weight tensors, with
+    the sanitizer on: the reference's failover trace, replica 1 drained
+    after a token of index ``ROUTER_DRAIN_AT`` or more while it holds live
+    work. Gates: zero loss, requests resubmitted, gapless streams each
+    byte-identical to the request alone through ``handle``, no placement on
+    the drained replica, flash and paged launches equal to the sum over the
+    replicas' prompt passes and group ticks."""
+    from dataclasses import replace
+
+    from repro_torch.runtime.router import EngineRouter
+    from repro_torch.runtime.scheduler import simulate_arrivals
+    from repro_torch.runtime.serve_loop import ServeRequest
+
+    solo = [srv.handle(ServeRequest(1, c, new_tokens=n))["tokens"].cpu().numpy()
+            for c, n in ROUTER_CHECK_TRACE]
+    twin = _twin(srv)
+    if not _shared_weights(srv, twin):
+        fail(f"{label} router: the twin replica does not share the weight tensors")
+    router = EngineRouter([srv, twin], config=replace(srv.config, sanitize=True, replicas=2,
+                                                      max_group_batch=8))
+    reqs = [ServeRequest(1, c, new_tokens=n) for c, n in ROUTER_CHECK_TRACE]
+    run = run_router(router, simulate_arrivals(reqs, ROUTER_RATE, seed=ROUTER_SEED),
+                     drain_after=ROUTER_DRAIN_AT)
+    check_router_run(run, router, [r.rid for r in reqs], f"{label} router")
+    if not run["drained"]:
+        fail(f"{label} router: replica 1 held no live work at a token of index "
+             f">= {ROUTER_DRAIN_AT}")
+    for req, want in zip(reqs, solo):
+        if not np.array_equal(run["streams"][req.rid], want):
+            fail(f"{label} router: rid {req.rid} 1x{req.context} streamed "
+                 f"{run['streams'][req.rid].tolist()}, alone through handle {want.tolist()}")
+    expected = router_launches_expected(router, run["prefills"], (1, 64))
+    got = {k: run["launches"][k] for k in expected}
+    rm = router.router_metrics
+    print(f"  {label}: router over 2 replicas (shared weights), {len(reqs)} requests at "
+          f"{ROUTER_RATE:.0f}/s: placements {dict(sorted(rm.placements.items()))}, drained "
+          f"replica 1 resubmitting {[h.rid - reqs[0].rid for h in run['drained']['moved']]}; "
+          f"ticks {[r.engine.decode_ticks for r in router.replicas]}, prompt passes "
+          f"{run['prefills']}; launches {got} (expected {expected})")
+    if got != expected:
+        fail(f"{label} router: launches {got} != {expected}")
+    print(f"  {label}: router: zero loss, streams gapless and == each request alone through "
+          f"handle, no placement on the drained replica, sanitizer clean")
+    del router, twin
+
+
 def serve_engine_trace():
     """The serve-engine phase's requests: ``ENGINE_REQUESTS`` batch-1
     (context, new_tokens) pairs from ``SEED``, every span in (1024, 2048]."""
@@ -1693,6 +1859,22 @@ def serve_engine_trace():
     ctx = rng.integers(ENGINE_CONTEXTS[0], ENGINE_CONTEXTS[1] + 1, ENGINE_REQUESTS)
     new = rng.integers(ENGINE_NEW_TOKENS[0], ENGINE_NEW_TOKENS[1] + 1, ENGINE_REQUESTS)
     return [(int(c), int(n)) for c, n in zip(ctx, new)]
+
+
+def log_prompt_passes(engine, log: dict) -> None:
+    """Observe ``engine``'s admissions: append, by rid, the (batch, seq)
+    bucket of each prompt pass that admits the request (a group's start or
+    a join; a request moved by failover gets one per admission)."""
+    admit = engine._admit_members
+
+    def logged(group, queued, join_step, now):
+        bucket = engine.server.buckets(sum(qr.req.batch for qr in queued),
+                                       max(engine.server.request_span(qr.req) for qr in queued))
+        for qr in queued:
+            log.setdefault(qr.rid, []).append(bucket)
+        return admit(group, queued, join_step, now)
+
+    engine._admit_members = logged
 
 
 def replay_engine_trace(srv, specs, eos: int) -> dict:
@@ -1713,7 +1895,8 @@ def replay_engine_trace(srv, specs, eos: int) -> dict:
     sched = ContinuousBatchingScheduler(
         srv, config=replace(srv.config, sanitize=True, max_group_batch=8))
     eng = sched.engine
-    ttft = {}
+    ttft, prompts = {}, {}
+    log_prompt_passes(eng, prompts)
 
     def on_event(ev):
         if ev.token is None:
@@ -1735,13 +1918,14 @@ def replay_engine_trace(srv, specs, eos: int) -> dict:
     launches = {k: fn.launches for k, fn in wrappers.items()}
     recs = {index[r["rid"]]: r for r in sched.results}
     return {"sched": sched, "recs": recs, "ttft": ttft, "seconds": seconds,
+            "prompts": {index[rid]: b for rid, b in prompts.items()},
             "launches": launches, "ticks": eng.decode_ticks,
             "prefills": pm.handoff_writes - handoffs,
             "reclaimed": pm.pages_reclaimed - reclaimed,
             "tokens": sum(r["tokens"].shape[1] for r in recs.values())}
 
 
-def phase_serve_engine(srv=None) -> None:
+def phase_serve_engine(srv=None) -> dict:
     """Full Yi-6B (phase 5's configuration and weights, one pool arena: one
     batch of 8 rows, as a card serving one model holds it) through
     ``ContinuousBatchingScheduler``: a closed burst of ``ENGINE_REQUESTS``
@@ -1754,7 +1938,9 @@ def phase_serve_engine(srv=None) -> None:
     tick and one traced tick's device busy time and idle share; aggregate
     output tok/s beside the same requests one by one through
     ``PlanServer.handle``; graphs held and peak memory. ``srv`` replaces the
-    phase's server (the CPU rehearsal passes a small one)."""
+    phase's server (the CPU rehearsal passes a small one). Returns the
+    server, both replays, the EOS token and the sequential tok/s, for the
+    serve-router phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1857,7 +2043,160 @@ def phase_serve_engine(srv=None) -> None:
     span_report(prof.events(), ENGINE_STEP_SPAN, steps, "traced engine ticks (8, 2048)")
     print(f"  decode graphs held {srv.decode_graphs()}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del srv, eng, runs, run, recs
+    del eng, run, recs
+    return {"srv": srv, "runs": runs, "eos": eos, "seq_rate": seq_tokens / seq_s}
+
+
+def _mem() -> str:
+    import torch
+
+    return (f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+
+
+def first_difference(a, b) -> int:
+    """Index of the first token where two (1, n) streams differ over their
+    common length, else -1."""
+    n = min(a.shape[1], b.shape[1])
+    diff = np.nonzero(a[0, :n] != b[0, :n])[0]
+    return int(diff[0]) if diff.size else -1
+
+
+def phase_serve_router(engine_out: dict) -> None:
+    """The serve-engine phase's server as replica 0 and a second
+    ``PlanServer`` that takes its weight tensors as replica 1, behind
+    ``EngineRouter`` (affinity placement, ``max_group_batch`` 8, one arena a
+    pool, sanitizer on). The serve-engine trace runs twice as a closed
+    burst: undisturbed, then with replica 1 drained once its first member
+    has streamed its 2nd token. Gates: 12 records a run, gapless streams,
+    the trace's finish reasons, launches exact over both replicas, the
+    replicas' weights at the same addresses, requests resubmitted and none
+    placed on the drained replica. Printed: placements by reason; per
+    replica admitted, completed, joins and its device clock; aggregate
+    output tok/s by wall time on this card beside the single engine's; the
+    fleet's tok/s by virtual device time (the replicas' clocks: what two
+    cards would give); device memory before replica 1, after its weights
+    were swapped, after its warm-up and after the first run; and how many
+    bfloat16 streams equal the single engine's replay and the undisturbed
+    run, with the first differing index and both runs' prompt-pass buckets
+    where one differs."""
+    import torch
+    from dataclasses import replace
+
+    from repro_torch.runtime.router import EngineRouter
+    from repro_torch.runtime.scheduler import simulate_arrivals
+    from repro_torch.runtime.serve_loop import ServeRequest
+
+    srv, eos = engine_out["srv"], engine_out["eos"]
+    specs = serve_engine_trace()
+    config = replace(srv.config, sanitize=True, max_group_batch=8, replicas=2,
+                     placement="affinity")
+    phase(f"serve-router: {srv.cfg.name}, {srv.cfg.num_layers} layers, {config.dtype}, two "
+          f"replicas on one card sharing one copy of the weights, placement "
+          f"{config.placement}, {len(specs)} requests twice (undisturbed, then replica 1 "
+          f"drained)")
+    torch.cuda.synchronize()
+    memory = [("before replica 1", _mem())]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    twin = _twin(srv)
+    torch.cuda.synchronize()
+    memory.append((f"replica 1 built and its weights swapped for replica 0's "
+                   f"({time.perf_counter() - t0:.3f} s; peak allocated during the build "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB: its own random "
+                   f"weights, freed at the swap)", _mem()))
+    if not _shared_weights(srv, twin):
+        fail("serve-router: the replicas' weight tensors are not the same")
+    # the warm-up every server gets, and the (1, 2048) plans and graph, as
+    # replica 0 holds them from the serve-engine phase
+    twin.handle(ServeRequest(1, 16, new_tokens=2))
+    twin.handle(ServeRequest(1, ENGINE_CONTEXTS[0], new_tokens=2))
+    torch.cuda.synchronize()
+    memory.append(("replica 1 warmed up (its (1, 2048) arena and graph)", _mem()))
+    index = {}
+    runs = []
+    for drain in (False, True):
+        router = EngineRouter([srv, twin], config=config)
+        prompts = {}
+        for r in router.replicas:
+            log_prompt_passes(r.engine, prompts)
+        reqs = [ServeRequest(1, c, new_tokens=n, eos_id=eos if i == ENGINE_EOS else None)
+                for i, (c, n) in enumerate(specs)]
+        index.update({r.rid: i for i, r in enumerate(reqs)})
+        run = run_router(router, simulate_arrivals(reqs),
+                         drain_after=1 if drain else None, cancel=reqs[ENGINE_CANCEL].rid)
+        label = "drained run" if drain else "undisturbed run"
+        check_router_run(run, router, [r.rid for r in reqs], f"serve-router {label}")
+        if drain and not run["drained"]:
+            fail("serve-router: replica 1 streamed no 2nd token")
+        run.update(label=label, router=router, tokens=sum(
+            rec["tokens"].shape[1] for rec in run["recs"].values()),
+            prompts={index[rid]: b for rid, b in prompts.items()},
+            by_index={index[rid]: rec for rid, rec in run["recs"].items()})
+        runs.append(run)
+        if not drain:
+            torch.cuda.synchronize()
+            memory.append(("after the undisturbed run (replica 1's (8, 2048) arena and graph)",
+                           _mem()))
+    for run in runs:
+        router = run["router"]
+        rm = router.router_metrics
+        reasons = [run["by_index"][i]["finish_reason"] for i in range(len(specs))]
+        want = ["cancelled" if i == ENGINE_CANCEL else "eos" if i == ENGINE_EOS else "length"
+                for i in range(len(specs))]
+        expected = router_launches_expected(router, run["prefills"], (8, 2048))
+        got = {k: run["launches"][k] for k in expected}
+        device_t = max(r.clock.now() for r in router.replicas)
+        moved = sorted(index[h.rid] for h in run["drained"].get("moved", []))
+        print(f"  {run['label']}: placements {dict(sorted(rm.placements.items()))}"
+              + (f", replica 1 drained, requests {moved} resubmitted" if moved else ""))
+        for r in router.replicas:
+            m = r.engine.metrics
+            print(f"    replica[{r.idx}]{' DRAINING' if r.draining else ''}: admitted "
+                  f"{m.admitted}, completed {m.completed}, joins {m.joins}, group ticks "
+                  f"{r.engine.decode_ticks}, prompt passes {run['prefills'][r.idx]}, device_t "
+                  f"{r.clock.now():.4f} s")
+        print(f"    {run['tokens']} tokens in {run['seconds']:.4f} s wall = "
+              f"{run['tokens'] / run['seconds']:.1f} tok/s on this one card; fleet "
+              f"{run['tokens'] / device_t:.1f} tok/s by the replicas' virtual device time "
+              f"({device_t:.4f} s: what two cards would give, not this card's figure); "
+              f"finish reasons {reasons}; launches {got} (expected {expected})")
+        if reasons != want:
+            fail(f"serve-router {run['label']}: finish reasons {reasons} != {want}")
+        if got != expected:
+            fail(f"serve-router {run['label']}: launches {got} != {expected}")
+    single = engine_out["runs"]
+    rates = [r["tokens"] / r["seconds"] for r in single]
+    print(f"  one engine, same trace, same call (serve-engine phase): {rates[0]:.1f} tok/s "
+          f"(first replay), {rates[1]:.1f} (second); one by one through handle "
+          f"{engine_out['seq_rate']:.1f} tok/s")
+    for mark, mem in memory:
+        print(f"  memory {mark}: {mem}")
+    # bfloat16: a prompt pass re-run at another batch bucket may round
+    # differently, so equality is counted here (gated in float32, phase 4)
+    for run in runs:
+        for ref_label, ref_recs, ref_prompts in (
+                ("the single engine's replay", single[1]["recs"], single[1]["prompts"]),
+                ("the undisturbed run", runs[0]["by_index"], runs[0]["prompts"])):
+            if run is runs[0] and ref_recs is runs[0]["by_index"]:
+                continue
+            same, differ = 0, []
+            for i in range(len(specs)):
+                a = run["by_index"][i]["tokens"].cpu().numpy()
+                b = ref_recs[i]["tokens"].cpu().numpy()
+                at = first_difference(a, b)
+                if at < 0 and a.shape == b.shape:
+                    same += 1
+                else:
+                    differ.append(f"request {i} from index {at} (prompt passes "
+                                  f"{run['prompts'].get(i)} vs {ref_prompts.get(i)})")
+            print(f"  {run['label']}: {same} of {len(specs)} streams == {ref_label}"
+                  + (f"; differing: {'; '.join(differ)}" if differ else ""))
+    print(f"  decode graphs held: replica 0 {srv.decode_graphs()}, replica 1 "
+          f"{twin.decode_graphs()}; zero loss, gapless streams, finish reasons, launches and "
+          f"shared weights as gated; sanitizer clean")
+    engine_out.clear()
+    del srv, twin, runs, run, router
     torch.cuda.empty_cache()
 
 
@@ -2420,7 +2759,7 @@ def main() -> int:
     fit = fit_dispatch(kernels["paged_decode_attention"])
     phase_serve_check()
     launches = phase_serve(fit)
-    phase_serve_engine()
+    phase_serve_router(phase_serve_engine())
     phase_serve_check_ssm()
     launches.update(phase_serve_ssm())
     phase_lenet_check()

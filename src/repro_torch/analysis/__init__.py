@@ -1,7 +1,7 @@
 """Analysis passes of the PyTorch port (port of ``repro/analysis``).
 
 So far the runtime sanitizer (:mod:`repro_torch.analysis.sanitize`), which
-the serving engine runs under ``EngineConfig(sanitize=True)``; the linter
+the serving engine and the router run under ``EngineConfig(sanitize=True)``; the linter
 and the plan, memory and cost auditors come with ``ROADMAP.md`` Queue A 12.
 
 This ``__init__`` stays import-light: ``runtime.engine`` imports the

@@ -1,19 +1,19 @@
 """Runtime sanitizer: per-tick structural assertions over the live serving
-stack (port of ``repro/analysis/sanitize.py``; ``check_router`` and
-``assert_router`` come with the router, ``ROADMAP.md`` Queue A 11).
+stack (port of ``repro/analysis/sanitize.py``).
 
-A from-scratch recount of the invariants the pool and the engine maintain
-incrementally. Every check walks raw structures (``_row_pages``, the
+A from-scratch recount of the invariants the pool, the engine and the router
+maintain incrementally. Every check walks raw structures (``_row_pages``, the
 allocator's free set, the host page table, member row lists) and rebuilds
 the derived quantity (``live_bytes``, page counts, handle liveness)
 independently, so drift in the incremental bookkeeping fails the tick it
 happens in instead of surfacing ticks later as a corrupted decode.
 
 Enabled with ``EngineConfig(sanitize=True)`` (or ``serve.py --sanitize``):
-:class:`~repro_torch.runtime.engine.ServingEngine` then runs
-:func:`assert_engine` at the end of every tick and after every
-cancel/withdraw, raising :class:`SanitizeError` on the first violating
-tick. The checks are Python walks over host-side metadata — no device sync.
+:class:`~repro_torch.runtime.engine.ServingEngine` and
+:class:`~repro_torch.runtime.router.EngineRouter` then run
+:func:`assert_engine` / :func:`assert_router` at the end of every tick and
+after every cancel/withdraw/drain, raising :class:`SanitizeError` on the
+first violating tick. The checks are Python walks over host-side metadata — no device sync.
 
 This module imports nothing from ``repro_torch.runtime`` (the engine imports
 *it*); every check duck-types its subject.
@@ -173,7 +173,7 @@ def check_pool(pool, where: str = "pool") -> List[Finding]:
 
 
 # ---------------------------------------------------------------------------
-# engine
+# engine / router
 # ---------------------------------------------------------------------------
 
 
@@ -221,6 +221,37 @@ def check_engine(engine, where: str = "engine") -> List[Finding]:
     return out
 
 
+def check_router(router, where: str = "router") -> List[Finding]:
+    """Fleet-level invariants: every replica's engine, plus router-handle
+    placement (a live handle points at exactly one replica engine that
+    still tracks it) and the router's bounded event buffer."""
+    out: List[Finding] = []
+    for r in router.replicas:
+        out.extend(check_engine(r.engine, where=f"{where}.replica[{r.idx}]"))
+    for rid, h in router.handles.items():
+        if h.rid != rid:
+            out.append(_f("handle-leak", where, f"handle keyed {rid} carries rid {h.rid}"))
+        if h.done:
+            out.append(_f("handle-leak", where,
+                          f"finished rid {rid} still tracked (terminal event not "
+                          f"forwarded?)"))
+            continue
+        if h.inner is None or h.replica is None:
+            out.append(_f("handle-missing", where, f"live rid {rid} has no replica placement"))
+            continue
+        eng = h.replica.engine
+        queued = {qr.rid for qr in eng.queue.pending}
+        members = {m.qr.rid for g in eng.active for m in g.members}
+        if rid not in queued and rid not in members:
+            out.append(_f("handle-missing", where,
+                          f"rid {rid} placed on replica {h.replica.idx} but that engine "
+                          f"does not hold it"))
+    if router._events.maxlen is not None and len(router._events) > router._events.maxlen:
+        out.append(_f("event-buffer-leak", where,
+                      f"{len(router._events)} events exceed the {router._events.maxlen} cap"))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # entry points the runtime calls
 # ---------------------------------------------------------------------------
@@ -232,3 +263,9 @@ def assert_engine(engine) -> None:
     if found:
         raise SanitizeError(found)
 
+
+def assert_router(router) -> None:
+    """Raise :class:`SanitizeError` if any fleet invariant fails."""
+    found = check_router(router)
+    if found:
+        raise SanitizeError(found)

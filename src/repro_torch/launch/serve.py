@@ -1,7 +1,8 @@
-"""Serving launcher of the PyTorch port: every mode is one ``ServingEngine``
+"""Serving launcher of the PyTorch port: every mode is one ``EngineClient``
 behind one ``EngineConfig`` (port of ``repro/launch/serve.py``), on the GPU
-unless ``--device`` names another. The default arch is the reference
-launcher's, ``mamba2-1.3b-smoke``.
+unless ``--device`` names another, and ``--replicas N`` swaps the bare
+engine for an ``EngineRouter`` over N replicas without changing anything
+else. The default arch is the reference launcher's, ``mamba2-1.3b-smoke``.
 
 Single-shot mode (streams the one request's tokens as they decode):
 
@@ -32,8 +33,17 @@ streamed token; both release the request's rows and pages the same tick:
     PYTHONPATH=src python -m repro_torch.launch.serve --scheduler \\
         --requests 24 --eos-id 450 --cancel-after 6 --sanitize --device cpu
 
-``--replicas`` above 1 (the router, with ``--placement`` and
-``--drain-replica``) comes with ``ROADMAP.md`` Queue A 11.
+Multi-replica fleet mode — the same scheduler front door over an
+``EngineRouter``: requests are placed across replicas (bucket affinity by
+default, ``--placement load`` for queue-pressure ranking), and
+``--drain-replica N`` takes replica N out mid-run (its in-flight requests
+finish on the survivors, token streams intact). The replicas share one copy
+of the weights on the card:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --scheduler --replicas 2 \\
+        --requests 24 --arrival-rate 50
+    PYTHONPATH=src python -m repro_torch.launch.serve --scheduler --replicas 2 \\
+        --requests 12 --drain-replica 1 --sanitize --device cpu
 """
 
 from __future__ import annotations
@@ -100,26 +110,44 @@ def serve_stream(args) -> None:
 
 
 def serve_scheduled(args) -> None:
-    """Continuous-batching mode: arrivals in (Poisson at ``--arrival-rate``,
-    a closed burst at 0), token events out, cancelling mid-decode when
-    ``--cancel-after`` says the client hung up."""
+    """Continuous-batching mode, written once against the ``EngineClient``
+    protocol: a bare engine for ``--replicas 1``, an ``EngineRouter`` for
+    more. Arrivals in (Poisson at ``--arrival-rate``, a closed burst at 0),
+    token events out, cancelling mid-decode when ``--cancel-after`` says the
+    client hung up, draining a replica mid-run when ``--drain-replica`` says
+    it is going away."""
     cfg = EngineConfig.from_args(args)
+    if args.drain_replica is not None and not 0 <= args.drain_replica < cfg.replicas:
+        raise SystemExit(f"--drain-replica {args.drain_replica}: no such replica "
+                         f"(--replicas {cfg.replicas})")
     client = cfg.build_client(get_config(args.arch), device=args.device)
+    server = client.replicas[0].server if cfg.replicas > 1 else client.server
     mix, reqs = _request_mix(args)
     arrivals = simulate_arrivals(reqs, args.arrival_rate, seed=args.seed)
     print(f"# scheduler: {args.arch}, {args.requests} requests over shape mix {mix} on "
-          f"{client.server.device} arrival_rate={args.arrival_rate}/s "
-          f"max_group_batch={cfg.max_group_batch} "
+          f"{server.device} arrival_rate={args.arrival_rate}/s replicas={cfg.replicas} "
+          f"placement={cfg.placement} max_group_batch={cfg.max_group_batch} "
           f"join_mid_decode={cfg.join_mid_decode} bucket_select={cfg.bucket_select} "
           f"eos_id={args.eos_id} cancel_after={args.cancel_after} sanitize={cfg.sanitize}")
+    drain_pending = args.drain_replica is not None
 
     def on_event(ev):
-        if ev.token is not None and ev.index + 1 >= args.cancel_after:
+        nonlocal drain_pending
+        if (drain_pending and ev.token is not None and ev.index >= 1
+                and any(h.replica is not None and h.replica.idx == args.drain_replica
+                        for h in client.handles.values())):
+            moved = client.drain_replica(args.drain_replica)
+            print(f"# drained replica {args.drain_replica}; resubmitted "
+                  f"{[h.rid for h in moved]} to survivors")
+            drain_pending = False
+        if (args.cancel_after and ev.token is not None
+                and ev.index + 1 >= args.cancel_after):
             handle = client.handles.get(ev.rid)
             if handle is not None:
                 client.cancel(handle)
 
-    client.run(arrivals, on_event=on_event if args.cancel_after else None)
+    need_hook = bool(args.cancel_after) or drain_pending
+    client.run(arrivals, on_event=on_event if need_hook else None)
     for rec in client.results:
         joined = f" joined@{rec['joined_at_step']}" if rec["joined_at_step"] > 0 else ""
         fin = "" if rec["finish_reason"] == "length" else f" [{rec['finish_reason']}]"
@@ -222,9 +250,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "arrival-aware (the pending bucket with the most "
                          "coalescable rows forms first, with bounded deferral "
                          "of the head bucket)")
+    # multi-replica fleet (EngineRouter)
     ap.add_argument("--replicas", type=int, default=1,
-                    help="engine replicas behind a router (only 1 until the "
-                         "router is ported: ROADMAP.md Queue A 11)")
+                    help="scheduler mode: serve through an EngineRouter over N engine "
+                         "replicas sharing one copy of the weights (1 = bare engine; "
+                         "both present the same EngineClient API)")
+    ap.add_argument("--placement", default="affinity", choices=("affinity", "load"),
+                    help="router placement policy: deterministic bucket/plan-cache "
+                         "affinity, or adaptive queue-pressure + observed-TTFT ranking")
+    ap.add_argument("--drain-replica", type=int, default=None, metavar="N",
+                    help="fleet mode: drain replica N once it holds streaming work "
+                         "(after a token of index 1 or more); its in-flight requests "
+                         "finish on the survivors (failover)")
     # request-lifecycle knobs (engine stop conditions + cancellation)
     ap.add_argument("--eos-id", type=int, default=None,
                     help="stamp an end-of-sequence stop condition on every "
@@ -244,10 +281,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.replicas != 1:
-        raise SystemExit(f"--replicas {args.replicas}: serving over several replicas "
-                         f"needs the router, which the PyTorch port brings with "
-                         f"ROADMAP.md Queue A 11; use --replicas 1")
     if args.scheduler:
         serve_scheduled(args)
     elif args.stream:

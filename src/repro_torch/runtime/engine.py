@@ -478,10 +478,11 @@ class _Group:
 @runtime_checkable
 class EngineClient(Protocol):
     """The serving surface callers program against — satisfied by
-    :class:`ServingEngine` (one device) and, once ported, the router over N
-    replicas (``ROADMAP.md`` Queue A 11), so callers are written once and
-    ``replicas=1`` is the bare engine. ``handles`` maps live request ids to
-    their handles (event-driven cancellation routes through it)."""
+    :class:`ServingEngine` (one device) and
+    :class:`~repro_torch.runtime.router.EngineRouter` (N replicas), so
+    callers are written once and ``replicas=1`` is the bare engine.
+    ``handles`` maps live request ids to their handles (event-driven
+    cancellation routes through it)."""
 
     handles: Dict[int, Any]
 

@@ -14,8 +14,11 @@ Two parts of the reference stay out:
 - the deprecated per-knob kwargs (``fold_legacy_kwargs``): every class of
   the port takes ``config=`` only.
 
-``replicas > 1`` needs the router, which comes with ``ROADMAP.md`` Queue A
-11; ``build_client`` raises until then.
+``build_client`` is the topology decision: the bare engine for
+``replicas == 1``, an ``EngineRouter`` over that many replicas above it.
+Replicas it builds itself share replica 0's weights: the reference gives
+every replica seed-equal weights (one mesh each), and one card holds them
+once.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ class EngineConfig:
     # the head-of-line bucket starvation-free)
     bucket_select: str = "hol"
 
-    # -- topology (the router, ROADMAP.md Queue A 11) ------------------------
+    # -- topology (EngineRouter) ---------------------------------------------
     replicas: int = 1
     placement: str = "affinity"       # "affinity" | "load"
 
@@ -125,15 +128,26 @@ class EngineConfig:
         return ServingEngine(server, config=self, clock=clock, **kw)
 
     def build_client(self, model_cfg, mesh_cfg=None, *, servers=None, **kw):
-        """The topology decision: one engine for ``replicas == 1``. More
-        replicas need the router (``ROADMAP.md`` Queue A 11), which raises
-        until it is ported. ``servers``: pre-built (warm) PlanServers to
-        wrap instead of constructing fresh ones; ``kw`` goes to
-        :meth:`build_server`."""
-        if self.replicas > 1:
-            raise NotImplementedError(
-                f"replicas={self.replicas} needs the EngineRouter, which the PyTorch "
-                f"port brings with ROADMAP.md Queue A 11; use replicas=1")
+        """The topology decision: one engine for ``replicas == 1``, an
+        :class:`~repro_torch.runtime.router.EngineRouter` above that — the
+        same ``EngineClient`` surface either way. ``servers``: pre-built
+        (warm) PlanServers to wrap instead of constructing fresh ones (one
+        per replica); ``kw`` goes to :meth:`build_server`.
+
+        Servers built here hold one copy of the weights: replicas 1..N-1
+        take replica 0's tensors through the ``PlanServer.params`` setter,
+        so their tokens equal those of the reference's seed-equal replicas.
+        Each still initialises its own random weights first (a transient
+        copy, freed at the swap), and each replica's planner still counts
+        the whole weight bytes in its own statistics, as one mesh per
+        replica would hold them."""
         if servers is None:
             servers = [self.build_server(model_cfg, mesh_cfg, **kw)]
-        return self.build_engine(servers[0])
+            for _ in range(1, self.replicas):
+                srv = self.build_server(model_cfg, mesh_cfg, **kw)
+                srv.params = servers[0].params
+                servers.append(srv)
+        if self.replicas <= 1:
+            return self.build_engine(servers[0])
+        from repro_torch.runtime.router import EngineRouter
+        return EngineRouter(servers, config=self)

@@ -1,7 +1,8 @@
 """Serving-path counters (port of ``repro/runtime/metrics.py``:
 ``LatencyStats``, ``serve_summary``, ``SchedulerMetrics``, ``pool_summary``,
-``scheduler_summary``, ``format_metrics``; the training step timer and the
-router's metrics and fleet rollup come with the paths that call them).
+``scheduler_summary``, ``format_metrics``, and the router's
+``merge_scheduler_metrics``, ``RouterMetrics`` and ``router_summary``; the
+training step timer comes with the path that calls it).
 
 The plan-cache counters (:class:`PlanCacheMetrics`) live next to the cache
 in ``repro_torch.core.plan_cache``; they are re-exported here so the runtime
@@ -174,6 +175,68 @@ class SchedulerMetrics:
                      f"met={self.slo_met} missed={self.slo_missed} "
                      f"attainment={self.slo_attainment:.2f}")
         return line
+
+
+def merge_scheduler_metrics(parts) -> "SchedulerMetrics":
+    """Fleet rollup: one :class:`SchedulerMetrics` summing N replicas'
+    counters and pooling their latency samples (percentiles over the
+    merged distribution, not averages of per-replica percentiles — an
+    idle replica must not dilute a hot one's p95). ``peak_resident`` sums
+    per-replica peaks: an upper bound on fleet-wide concurrent residency
+    (the peaks need not have coincided)."""
+    parts = list(parts)
+    out = SchedulerMetrics(slo_s=parts[0].slo_s if parts else 0.0)
+    for m in parts:
+        for name in ("admitted", "completed", "groups", "coalesced_requests", "joins",
+                     "join_rows", "peak_resident", "batch_slots_used", "batch_slots_total",
+                     "cancelled", "early_exits", "slo_met", "slo_missed"):
+            setattr(out, name, getattr(out, name) + getattr(m, name))
+        for name in ("queue_latency", "exec_latency", "total_latency", "ttft_latency",
+                     "itl_latency"):
+            getattr(out, name).samples.extend(getattr(m, name).samples)
+    return out
+
+
+@dataclass
+class RouterMetrics:
+    """EngineRouter accounting: where requests were placed and why, plus
+    the failover counters (``resubmitted`` requests moved off ``drained``
+    replicas with zero loss)."""
+
+    placements: Dict[str, int] = field(default_factory=dict)
+    failovers: int = 0             # drain_replica invocations
+    resubmitted: int = 0           # live requests moved to survivors
+    drained: int = 0               # replicas currently draining
+
+    def observe_placement(self, reason: str) -> None:
+        self.placements[reason] = self.placements.get(reason, 0) + 1
+
+    def summary(self) -> str:
+        placed = ",".join(f"{k}={v}" for k, v in sorted(self.placements.items()))
+        return (f"placements[{placed}] failovers={self.failovers} "
+                f"resubmitted={self.resubmitted} drained={self.drained}")
+
+
+def router_summary(router) -> str:
+    """Multi-line fleet report: one line per replica (its scheduler
+    counters, TTFT tail, and device-clock time), that replica's KV-pool
+    line, then the fleet rollup over the merged metrics."""
+    ms = 1e3
+    lines = [f"router: replicas={len(router.replicas)} "
+             f"placement={router.config.placement} "
+             f"{router.router_metrics.summary()}"]
+    for r in router.replicas:
+        m = r.engine.metrics
+        flag = " DRAINING" if r.draining else ""
+        lines.append(
+            f"replica[{r.idx}]{flag}: admitted={m.admitted} "
+            f"completed={m.completed} groups={m.groups} joins={m.joins} "
+            f"ttft_p95={m.ttft_latency.percentile(95) * ms:.1f}ms "
+            f"device_t={r.clock.now():.3f}s")
+        lines.append("  " + pool_summary(r.server.pool).replace("\n", "\n  "))
+    lines.append("fleet: " + merge_scheduler_metrics(
+        [r.engine.metrics for r in router.replicas]).summary())
+    return "\n".join(lines)
 
 
 def pool_summary(pool) -> str:

@@ -50,7 +50,8 @@ def _forbidden_imports(text: str):
 def test_import_scan_covers_the_engine_slice():
     for name in ("runtime/engine.py", "runtime/scheduler.py", "runtime/metrics.py",
                  "runtime/engine_config.py", "analysis/__init__.py", "analysis/sanitize.py",
-                 "launch/serve.py"):
+                 "launch/serve.py", "runtime/router.py", "launch/serve_engine.py",
+                 "launch/serve_batched.py", "launch/serve_router.py"):
         assert ROOT / "src" / "repro_torch" / name in PORT_FILES, name
 
 
@@ -130,7 +131,8 @@ def test_serve_cli_plan_cache_defaults_follow_the_reference(option, dest):
 @pytest.mark.parametrize("option", [
     "--batch", "--context", "--pool-max-arenas", "--pool-max-bytes", "--scheduler",
     "--arrival-rate", "--max-group-batch", "--join-mid-decode", "--slo-ms",
-    "--bucket-select", "--replicas", "--eos-id", "--cancel-after", "--sanitize"])
+    "--bucket-select", "--replicas", "--placement", "--drain-replica", "--eos-id",
+    "--cancel-after", "--sanitize"])
 def test_serve_cli_engine_defaults_follow_the_reference(option):
     """The single-shot and ``--scheduler`` modes' flags; those that are
     ``EngineConfig`` fields default to its value too."""
@@ -212,6 +214,8 @@ def test_unported_parts_raise_and_name_their_slice():
         Keras2Plan(spec, meta, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="core/parfor.py.*slice 5"):
         Keras2Plan(spec, meta, device="cpu").set(mesh=object())
-    # the engine is ported; several replicas wait for the router
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
-        EngineConfig(replicas=2).build_client(get_config("yi-6b-smoke"), device="cpu")
+    # the engine and the router are ported: several replicas build a router
+    from repro_torch.runtime.router import EngineRouter
+
+    client = EngineConfig(replicas=2).build_client(get_config("yi-6b-smoke"), device="cpu")
+    assert isinstance(client, EngineRouter) and len(client.replicas) == 2

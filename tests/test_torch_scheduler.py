@@ -219,6 +219,13 @@ def test_cli_scheduler_mode_with_cancel_and_sanitizer():
     assert "scheduler: admitted=10 completed=0" in out and "cancelled=10" in out
 
 
-def test_cli_refuses_replicas_until_the_router_is_ported():
-    with pytest.raises(SystemExit, match="Queue A 11"):
-        serve_cli.main(["--scheduler", "--replicas", "2", "--device", "cpu"])
+def test_cli_refuses_replicas_until_the_router_is_ported(capsys):
+    """The router is ported: ``--replicas 2`` serves through it, and what
+    the CLI still refuses is a replica it does not have."""
+    serve_cli.main(["--scheduler", "--replicas", "2", "--requests", "4", "--tokens", "2",
+                    "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "router: replicas=2" in out and "fleet: scheduler: admitted=4 completed=4" in out
+    with pytest.raises(SystemExit, match=r"--drain-replica 2: no such replica \(--replicas 2\)"):
+        serve_cli.main(["--scheduler", "--replicas", "2", "--drain-replica", "2",
+                        "--device", "cpu"])
