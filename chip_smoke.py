@@ -123,16 +123,60 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+# the port's sources beside this script (a tree a caller put on the path
+# first, as tools/*_ab.py --tree does, wins)
+if str(SRC) not in sys.path:
+    sys.path.append(str(SRC))
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
+
+from repro_torch import hw  # noqa: E402
+from repro_torch.analysis import cost_audit, memory_audit, plan_audit  # noqa: E402
+from repro_torch.analysis import matrix as analysis_matrix  # noqa: E402
+from repro_torch.config import InputShape  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.lenet import make_spec  # noqa: E402
+from repro_torch.core import cost  # noqa: E402
+from repro_torch.core.plan_cache import bucket_pow2 as bucket  # noqa: E402
+from repro_torch.frontend import Keras2Plan  # noqa: E402
+from repro_torch.hw import sm_count  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import conv2d_im2col as CONV  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import matmul as MM  # noqa: E402
+from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.kernels import rglru_scan as RG  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
+from repro_torch.kernels.ref import paged_decode_ref  # noqa: E402
+from repro_torch.launch.train_lenet import synthetic_images  # noqa: E402
+from repro_torch.models import attention as ATT  # noqa: E402
+from repro_torch.models.attention import paged_cache_write  # noqa: E402
+from repro_torch.models.blocks import _lru_decay  # noqa: E402
+from repro_torch.nn import loss as LOSS  # noqa: E402
+from repro_torch.nn.module import Sequential  # noqa: E402
+from repro_torch.runtime.engine import ServingEngine  # noqa: E402
+from repro_torch.runtime.engine_config import EngineConfig  # noqa: E402
+from repro_torch.runtime.graph_step import tick  # noqa: E402
+from repro_torch.runtime.router import EngineRouter  # noqa: E402
+from repro_torch.runtime.scheduler import (ContinuousBatchingScheduler,  # noqa: E402
+                                           simulate_arrivals)
+from repro_torch.runtime.serve_loop import (DECODE_SPAN, PREFILL_SPAN,  # noqa: E402
+                                            PlanServer, ServeRequest, make_decode_step)
 SEED = 0
 # (atol, rtol, limit on the error's RMS over the reference's RMS). A
 # kernel's error passes where |got - want| <= atol + rtol * |want|.
@@ -220,6 +264,14 @@ ENGINE_STEP_SPAN = "ServingEngine.step"
 # token of index ROUTER_DRAIN_AT or more while it holds live work
 ROUTER_CHECK_TRACE = ((40, 8), (44, 8), (52, 8), (40, 8), (56, 8), (48, 8))
 ROUTER_RATE, ROUTER_SEED, ROUTER_DRAIN_AT = 200.0, 3, 2
+# the analysis phase: the full-width cells of phases 5, 7 and 11 (each
+# request's (batch, context) bucketed as the servers bucket it), and the
+# measured peaks of one eager tick and one prompt pass per bucket that
+# those phases take on their own servers (analysis_measure)
+ANALYSIS_MODELS = (("yi-6b", SERVE_REQUESTS), ("mamba2-1.3b", SERVE_REQUESTS),
+                   ("recurrentgemma-2b", HYBRID_SERVE_REQUESTS))
+ANALYSIS_MEASURED: list = []
+SERVE_NEW_TOKENS = 32     # new tokens of each request of phases 5, 7 and 11
 _T0 = time.perf_counter()
 
 
@@ -236,8 +288,6 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
     """Median milliseconds of ``fn`` over ``reps`` CUDA-event-timed calls;
     ``flush`` (a large buffer) is rewritten before each call so the call
     finds the L2 cache cold, as it does between layers on the serving path."""
-    import torch
-
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -258,8 +308,6 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
 def within(got, want, tol) -> tuple:
     """(ok, max abs error, max error over the reference's RMS, error RMS
     over the reference's RMS) of ``got`` against ``want`` under ``tol``."""
-    import torch
-
     atol, rtol, rms_limit = tol
     want = want.float()
     err = (got.float() - want).abs()
@@ -289,10 +337,6 @@ def check_close(name, got, want, tol) -> float:
 
 
 def phase_device():
-    import torch
-
-    from repro_torch import hw
-
     phase("device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -318,14 +362,6 @@ def phase_device():
 
 
 def phase_build():
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import conv2d_im2col as CONV
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import matmul as MM
-    from repro_torch.kernels import paged_attention as PA
-    from repro_torch.kernels import rglru_scan as RG
-    from repro_torch.kernels import ssd_scan as SSD
-
     phase("build")
     t0 = time.perf_counter()
     out = _build.build_all()
@@ -347,8 +383,6 @@ def phase_build():
 def _paged_inputs(b, hq, hkv, d, page, sc, pos, dtype, seed):
     """Flat slot stacks, shuffled page tables, sentinel entries on every page
     a row has not committed."""
-    import torch
-
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n_tab = -(-sc // page)
     n_phys = b * n_tab
@@ -364,24 +398,11 @@ def _paged_inputs(b, hq, hkv, d, page, sc, pos, dtype, seed):
             torch.tensor(pos, dtype=torch.int32, device="cuda"))
 
 
-def _flash_pairs(sq, sk, causal, window, q_offset) -> int:
-    """Unmasked (query, key) pairs — the work the masks leave."""
-    off = sk - sq if q_offset < 0 else q_offset
-    qpos = off + np.arange(sq)
-    hi = np.minimum(sk - 1, qpos) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros(sq, np.int64)
-    return int(np.maximum(0, hi - lo + 1).sum())
-
-
 def _bound_ms(nbytes: float, flops: float, dtype, tf32x3: bool = False) -> tuple:
     """(ms, "bytes" or "operations"): the larger of the bytes over the
     memory rate and the operations over the peak for their type. With
     ``tf32x3`` a float32 product may also run as three TF32 tensor-core
     products, and its operation bound is the smaller of the two."""
-    import torch
-
-    from repro_torch import hw
-
     peak = hw.H100.peak_flops if dtype == torch.bfloat16 else hw.H100_FP32_FLOPS
     t_bytes = nbytes / hw.H100.hbm_bandwidth * 1e3
     t_ops = flops / peak * 1e3
@@ -395,11 +416,6 @@ def _tflops(flops: float, ms: float) -> str:
 
 
 def phase_kernels():
-    import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import flash_attention as FA
-
     phase("kernels")
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     results = {}
@@ -481,10 +497,8 @@ def phase_kernels():
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True),
                      flush=flush)
     dev_ms, _ = device_ms(lambda: FA.flash_attention(q, k, v, causal=True), "flash", flush)
-    pairs = _flash_pairs(s, s, True, 0, -1)
-    nbytes = (2 * q.numel() + 2 * k.numel()) * 2
-    bound, by = _bound_ms(nbytes, 4 * d * pairs * b * hq, torch.bfloat16)
-    flops = 4 * d * pairs * b * hq
+    flops, nbytes = FA.work(q, k, v, True, 0, -1)
+    bound, by = _bound_ms(nbytes, flops, torch.bfloat16)
     print(f"  flash timing: kernel {ms:.4f} ms by events ({_tflops(flops, ms)}), device time "
           f"{_dev(dev_ms)}, plain {plain_ms:.3f} ms, "
           f"scaled_dot_product_attention {lib_ms:.4f} ms ({_tflops(flops, lib_ms)}), bound "
@@ -515,11 +529,6 @@ def flash_hybrid_cases(flush, plain_flash) -> dict:
     wholly outside it are skipped). The (8, 2048) bfloat16 shape timed by
     events and device time beside its plain version, SDPA and its bound.
     Returns its kernels-line entry."""
-    import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import flash_attention as FA
-
     gen = torch.Generator(device="cuda").manual_seed(15)
     hq, hkv, d, win = 10, 1, 256, 2048
     timed = None
@@ -534,10 +543,9 @@ def flash_hybrid_cases(flush, plain_flash) -> dict:
             err = check_close(f"flash {str(dtype)[6:]} recurrentgemma (B={b}, S={s}, Hq=10, "
                               f"Hkv=1, D=256, window {win})", got, want, tol)
             del got, want
-            pairs = _flash_pairs(s, s, True, win, -1)
-            flops = 4 * d * pairs * b * hq
-            bound, by = _bound_ms((2 * q.numel() + 2 * k.numel()) * q.element_size(), flops,
-                                  dtype)
+            flops, nbytes = FA.work(q, k, v, True, win, -1)
+            pairs = FA.unmasked_pairs(s, s, True, win, -1)
+            bound, by = _bound_ms(nbytes, flops, dtype)
             if dtype == torch.bfloat16:
                 ms = cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True, window=win),
                              flush=flush)
@@ -579,13 +587,6 @@ def paged_hybrid_cases(flush) -> dict:
     bfloat16, against the plain version, the kernels' order and the
     literal-rule oracle; the bfloat16 call timed. Returns its kernels-line
     entry."""
-    import torch
-
-    from repro_torch.hw import sm_count
-    from repro_torch.kernels import paged_attention as PA
-    from repro_torch.kernels.ref import paged_decode_ref
-    from repro_torch.models.attention import paged_cache_write
-
     sms = sm_count(torch.device("cuda"))
     b, hq, hkv, d, page, sc = 8, 10, 1, 256, 64, 2048
     pos = [2000 + 4 * i for i in range(7)] + [sc + 52]
@@ -623,10 +624,6 @@ def _rglru_inputs(b, s, w, dtype, seed, decay="normal"):
     """xb, r_pre, i_pre, y_pre ~ N(0, 1) in ``dtype`` and c = -8 softplus
     of a_log: log(1 + 15 u) (the model's init), 10 (strong decay, with
     r > 0.95: a < 1e-33) or -30 (weak: a = 1 in float32)."""
-    import torch
-
-    from repro_torch.models.blocks import _lru_decay
-
     gen = torch.Generator(device="cuda").manual_seed(seed)
     xb, r_pre, i_pre, y_pre = (torch.randn((b, s, w), generator=gen, device="cuda")
                                for _ in range(4))
@@ -654,11 +651,6 @@ def rglru_kernel_cases(flush) -> dict:
     shapes timed by events and device time beside the plain loop and the
     byte bound (no single PyTorch call computes the recurrence). Returns the
     kernels-line entry of the (8, 2048) shape."""
-    import torch
-
-    from repro_torch.hw import sm_count
-    from repro_torch.kernels import rglru_scan as RG
-
     sms = sm_count(torch.device("cuda"))
     w = 2560
     timed = {}
@@ -697,12 +689,9 @@ def rglru_kernel_cases(flush) -> dict:
             dev_ms, names = device_ms(lambda: RG.rglru_scan(*args), "rglru", flush)
             plain_ms = cuda_ms(lambda: RG.rglru_scan_torch(*args), reps=3, warmup=1,
                                flush=flush)
-            elems = b * s * w
-            # four bf16 inputs read, y written; c, lengths and the state
-            nbytes = 5 * 2 * elems + 4 * w + 4 * b + 4 * b * w
-            # ~26 float32 operations an element (two sigmoids, exp, sqrt,
-            # the tanh gelu, the products and the recurrence's multiply-add)
-            bound, by = _bound_ms(nbytes, 26 * elems, torch.float32)
+            # float32 operations on the elements: the CUDA cores' rate
+            flops, nbytes = RG.work(*args)
+            bound, by = _bound_ms(nbytes, flops, torch.float32)
             passes = ", ".join(f"{_short(n)} {t:.4f}" for n, t in names.items())
             print(f"  rglru_scan timing, bfloat16 {shape}, {chunks} chunks of {chunk} a block: "
                   f"kernel {ms:.4f} ms by events ({nbytes / ms / 1e6:.0f} GB/s), device time "
@@ -756,13 +745,6 @@ def paged_kernel_cases(flush) -> dict:
     dim and dtype ran, from a profiler trace; the two bfloat16 shapes timed
     by CUDA events and by profiler device time. Returns the kernels-line
     entry of the serving shape."""
-    import torch
-
-    from repro_torch.hw import sm_count
-    from repro_torch.kernels import paged_attention as PA
-    from repro_torch.kernels.ref import paged_decode_ref
-    from repro_torch.models.attention import paged_cache_write
-
     sms = sm_count(torch.device("cuda"))
 
     def check(label, q, k, v, tables, posv, page, sc) -> float:
@@ -847,8 +829,6 @@ def paged_timing(PA, label, inputs, page, sc, err, flush) -> dict:
     """Event median and profiler device time (L2 flushed) of one paged
     decode call, its plain version's time and its byte bound; fails if the
     trace names another split kernel than ``PA.kernel_name``."""
-    from repro_torch.hw import sm_count
-
     q, k, v, tables, posv = inputs
     b, _, hq, d = q.shape
     hkv = k.shape[1]
@@ -863,10 +843,8 @@ def paged_timing(PA, label, inputs, page, sc, err, flush) -> dict:
     if names and not any(want in n for n in names):
         fail(f"paged {label}: the trace holds {sorted(names)}, not {want}")
     slots = sum(min(int(p) + 1, sc) for p in posv.tolist())
-    item = q.element_size()
-    nbytes = (slots * hkv * d * 2 * item + 2 * b * hq * d * item
-              + tables.numel() * 4 + b * 4)
-    bound, by = _bound_ms(nbytes, 4 * hq * d * slots, q.dtype)
+    flops, nbytes = PA.work(q, k, v, tables, posv, page, sc, slots=slots)
+    bound, by = _bound_ms(nbytes, flops, q.dtype)
     split = "; ".join(f"{_short(n)} {t:.4f}" for n, t in names.items())
     dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms ({split})"
     print(f"  paged timing, {label}: kernel {ms:.4f} ms by events, device time {dev} "
@@ -884,8 +862,6 @@ def paged_kernel_names(PA) -> None:
     ``TRACE_ATTEMPTS`` times, while it holds no paged kernel; fails where
     the traced calls ran another than the one the source dispatches to
     (``PA.kernel_name``)."""
-    import torch
-
     took = []
     for dtype in (torch.bfloat16, torch.float32):
         for d in (32, 40, 64, 128):
@@ -909,10 +885,6 @@ def flash_kernel_names(FA) -> None:
     configuration (a shared trace's time spans had caught a neighbouring
     call's kernel); fails where a traced call ran another kernel than the
     one the source dispatches to (``FA.kernel_name``)."""
-    import re
-
-    import torch
-
     gen = torch.Generator(device="cuda").manual_seed(6)
     took = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -935,10 +907,6 @@ def traced_kernels(fn, calls: int = 5, flush=None) -> dict:
     call); empty where the trace holds no device events. ``flush`` (a large
     buffer) is rewritten before each call, as in ``cuda_ms``: its fill
     kernel is in the trace under its own name."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -973,8 +941,6 @@ def _dev(ms) -> str:
 def _short(name: str) -> str:
     """A kernel's demangled name without the anonymous namespace and the
     argument list."""
-    import re
-
     name = re.sub(r"\(anonymous namespace\)::|void ", "", name)
     return name.split("(")[0]
 
@@ -985,9 +951,6 @@ def _ssd_inputs(b, s, h, p, n, dtype, seed, strong_decay=False):
     -16 and dt mostly in [5.5, 7] with one position in five near 0, so the
     within-chunk cumsum falls below -5,000 while some near-diagonal L
     entries stay near 1."""
-    import torch
-    import torch.nn.functional as F
-
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
     bm = torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
@@ -1004,31 +967,10 @@ def _ssd_inputs(b, s, h, p, n, dtype, seed, strong_decay=False):
     return x, dt, a, bm, cm, d
 
 
-def _ssd_work(x, dt, b_mat) -> tuple:
-    """(bytes, operations) of one SSD scan: each input read once and y
-    written once; C B^T once per (row, chunk) and, per (row, head, chunk),
-    the masked score product, the inter-chunk product and the state update."""
-    b, s, h, p = x.shape
-    n = b_mat.shape[-1]
-    chunk = min(64, s)
-    nc = s // chunk
-    flops = b * nc * 2 * chunk * chunk * n + b * h * nc * (2 * chunk * chunk * p
-                                                           + 4 * chunk * n * p)
-    nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4
-              + 2 * b_mat.numel() * b_mat.element_size() + 2 * h * 4)
-    return nbytes, flops
-
-
 def ssd_kernel_cases(flush) -> dict:
     """The SSD scan kernel against its plain version (and the sequential
     oracle) on the card, each case timed; returns the kernels-line entry of
     the serving shape in bfloat16 (the (8, 2000) request's prompt pass)."""
-    import torch
-
-    from repro_torch.hw import sm_count
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import ssd_scan as SSD
-
     def run_case(label, args, want, tol) -> dict:
         got = SSD.ssd_scan(*args)
         torch.cuda.synchronize()
@@ -1036,7 +978,7 @@ def ssd_kernel_cases(flush) -> dict:
         del got
         ms = cuda_ms(lambda: SSD.ssd_scan(*args), flush=flush)
         plain_ms = cuda_ms(lambda: SSD.ssd_scan_torch(*args), flush=flush)
-        nbytes, flops = _ssd_work(args[0], args[1], args[3])
+        flops, nbytes = SSD.work(*args)
         bound, by = _bound_ms(nbytes, flops, args[0].dtype)
         print(f"    timing: kernel {ms:.4f} ms ({_tflops(flops, ms)}), plain {plain_ms:.4f} ms, "
               f"bound {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
@@ -1103,14 +1045,13 @@ def ssd_kernel_cases(flush) -> dict:
                 replaces="src/repro/kernels/ssd_scan.py:91", library_ms=None, **serving)
 
 
-def _gemm_case(label, run, plain, library, want, tol, nbytes, flops, dtype, flush,
+def _gemm_case(label, run, plain, library, want, tol, work, dtype, flush,
                family=None) -> dict:
     """Holds ``run()`` against ``want`` under ``tol`` and times the kernel,
     its plain version and the library call (and, given the kernel's
-    ``family``, its profiler device time); returns the kernels-line numbers
-    of the case."""
-    import torch
-
+    ``family``, its profiler device time), its bound from ``work`` (the
+    kernel module's count); returns the kernels-line numbers of the case."""
+    flops, nbytes = work
     got = run()
     torch.cuda.synchronize()
     err = check_close(label, got, want, tol)
@@ -1135,10 +1076,6 @@ def matmul_kernel_cases(flush) -> dict:
     ones, each timed beside ``torch.matmul`` (cuBLAS, a yardstick only);
     returns the kernels-line entry of LeNet's first affine layer on the
     scoring set."""
-    import torch
-
-    from repro_torch.kernels import matmul as MM
-
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # (name, m, k, n, dtype)
         ("1024^3 (kernel benchmark)", 1024, 1024, 1024, bf16),
@@ -1162,7 +1099,7 @@ def matmul_kernel_cases(flush) -> dict:
         result = _gemm_case(
             f"matmul {str(dtype)[6:]} {name}", lambda: MM.matmul(a, b),
             lambda: MM.matmul_torch(a, b), lambda: torch.matmul(a, b), want, tol,
-            (m * k + k * n + m * n) * a.element_size(), 2 * m * n * k, dtype, flush,
+            MM.work(a, b), dtype, flush,
             family="mm_kernel" if (m, k, n) == (LENET_SCORE, 3136, 512) else None)
         if (m, k, n) == (LENET_SCORE, 3136, 512):
             main = result
@@ -1188,11 +1125,6 @@ def conv_kernel_cases(flush) -> dict:
     among them) and one bfloat16 case, each timed beside ``F.conv2d``
     (cuDNN, a yardstick only); returns the kernels-line entry of LeNet's
     second conv on the scoring set."""
-    import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import conv2d_im2col as CONV
-
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # (name, (n, c, h, w), f, k, stride, pad, dtype)
         ("kernel benchmark", (8, 16, 32, 32), 32, 3, 1, 1, f32),
@@ -1213,16 +1145,14 @@ def conv_kernel_cases(flush) -> dict:
         wt = (torch.randn((f, c, k, k), generator=gen, device="cuda")
               / math.sqrt(c * k * k)).to(dtype)
         want = CONV.conv2d_torch(x.float(), wt.float(), stride=stride, pad=pad)
-        ho, wo = want.shape[2], want.shape[3]
         tol = FP32_TOL if dtype == f32 else GEMM_BF16_TOL
-        nbytes = (x.numel() + wt.numel() + want.numel()) * x.element_size()
         result = _gemm_case(
             f"conv2d_im2col {str(dtype)[6:]} {name}: x {(n, c, h, w)}, w {(f, c, k, k)}, "
             f"stride {stride}, pad {pad}",
             lambda: CONV.conv2d_im2col(x, wt, stride=stride, pad=pad),
             lambda: CONV.conv2d_torch(x, wt, stride=stride, pad=pad),
             lambda: F.conv2d(x, wt, stride=stride, padding=pad), want, tol,
-            nbytes, 2 * n * ho * wo * f * c * k * k, dtype, flush,
+            CONV.work(x, wt, stride, pad), dtype, flush,
             family="conv_kernel" if (n, c) == (LENET_SCORE, 32) else None)
         if (n, c) == (LENET_SCORE, 32):
             main = result
@@ -1250,10 +1180,6 @@ def eager_handle(srv, req) -> tuple:
     the step of ``make_decode_step`` called eagerly tick by tick, with the
     operator the server's plan chose: no graph, no plan cache. Returns the
     tokens on the host and the request rows' last logits."""
-    import torch
-
-    from repro_torch.runtime.serve_loop import make_decode_step
-
     dev = srv.device
     span = srv.request_span(req)
     b, s = srv.buckets(req.batch, span)
@@ -1295,8 +1221,6 @@ def check_graphed_against_eager(srv, requests, outs, label: str) -> None:
     """Each served request's token stream (graphed decode through the plan
     cache) byte-identical to the same request decoded eagerly, and its
     final logits within the phase's tolerance."""
-    import torch
-
     for req, out in zip(requests, outs):
         tokens, last = eager_handle(srv, req)
         if not np.array_equal(tokens, out["tokens"].cpu().numpy()):
@@ -1315,11 +1239,6 @@ def check_free_while_queued(srv) -> None:
     must still read the table as it was: every token up to tick 3, and the
     other tenant's tokens throughout, equal the same ticks run eagerly with
     no row freed."""
-    import torch
-
-    from repro_torch.runtime.graph_step import tick
-    from repro_torch.runtime.serve_loop import make_decode_step
-
     entry = srv.decode_entry(2, 100)
     b, s = entry.key.batch_bucket, entry.key.seq_bucket
     eager_step = make_decode_step(srv.model, page=srv.page_size, seq_len=s,
@@ -1359,13 +1278,6 @@ def check_free_while_queued(srv) -> None:
 
 
 def phase_serve_check():
-    import torch
-
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import paged_attention as PA
-    from repro_torch.runtime.engine_config import EngineConfig
-    from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
-
     phase("serve-check: Yi-6B widths, 2 layers, float32: graphed == eager; "
           "paged == gather == ref == auto")
     cfg = get_config("yi-6b").replace(num_layers=2)
@@ -1418,10 +1330,6 @@ def serve_passes(srv, cfg, decode_kernel=None, requests=SERVE_REQUESTS) -> dict:
     launches held against the layer count, the plans' decode kernels and
     the ticks. Fails where ``decode_kernel`` is given and a plan chose
     another operator. Returns the launches of both passes."""
-    import torch
-
-    from repro_torch.runtime.serve_loop import ServeRequest
-
     wrappers = _counted_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
@@ -1459,12 +1367,6 @@ def serve_passes(srv, cfg, decode_kernel=None, requests=SERVE_REQUESTS) -> dict:
 
 
 def phase_serve(fit) -> dict:
-    import torch
-
-    from repro_torch.configs import get_config
-    from repro_torch.runtime.engine_config import EngineConfig
-    from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
-
     cfg = get_config("yi-6b")
     phase(f"serve: {cfg.name}, {cfg.num_layers} layers, bfloat16, page 64, "
           "decode_kernel=auto, one CUDA graph per bucket")
@@ -1481,6 +1383,7 @@ def phase_serve(fit) -> dict:
     launches = serve_passes(srv, cfg, decode_kernel="paged")
     trace_decode(srv, [ServeRequest(b, c, new_tokens=32) for b, c in SERVE_REQUESTS])
     planner_on_card(srv, fit)
+    analysis_measure(srv, SERVE_REQUESTS)
     del srv
     torch.cuda.empty_cache()
     return {k: launches[k] for k in ("flash_attention", "paged_decode_attention")}
@@ -1490,8 +1393,6 @@ def report_requests(cfg, requests, outs) -> None:
     """Checks each served request's tokens and logits and prints its
     bucket, plan's decode kernel, prefill ms, decode ms/step and tokens per
     second."""
-    import torch
-
     for req, out in zip(requests, outs):
         steps = out["decode_steps"]
         tok = out["tokens"]
@@ -1515,8 +1416,6 @@ def fit_dispatch(paged: dict) -> dict:
     profiler device time minus its byte bound, over the (row, kv head, page)
     steps of the shape, at the Yi serving shape and at the (1, 1024) bucket;
     printed beside ``core/cost.py``'s ``PAGED_STEP_LATENCY_S``."""
-    from repro_torch.core import cost
-
     fit = {}
     for label, t in paged["timed"].items():
         dev = t["device_ms"] if t["device_ms"] is not None else t["ms"]
@@ -1534,12 +1433,6 @@ def planner_on_card(srv, fit) -> None:
     one tick) beside their measured device time at the bucket's shape
     (profiler, L2 flushed before each call, one call times the attention
     layers), mid-decode. Printed, not gated."""
-    import torch
-
-    from repro_torch.config import InputShape
-    from repro_torch.kernels import paged_attention as PA
-    from repro_torch.models import attention as ATT
-
     cfg = srv.cfg
     n_attn = cfg.layer_pattern().count("a")
     hq, hkv, d, g = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.q_per_kv
@@ -1611,11 +1504,6 @@ def _engine_case(solo, role) -> tuple:
 
 def _counted_wrappers() -> dict:
     """The kernel wrappers on the serving path, by name."""
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import paged_attention as PA
-    from repro_torch.kernels import rglru_scan as RG
-    from repro_torch.kernels import ssd_scan as SSD
-
     return {"flash_attention": FA.flash_attention,
             "paged_decode_attention": PA.paged_decode_attention, "ssd_scan": SSD.ssd_scan,
             "rglru_scan": RG.rglru_scan}
@@ -1653,11 +1541,6 @@ def engine_trace_check(srv, label: str) -> None:
     launches exact (flash and SSD per layer and prompt pass, paged decode per
     attention layer and group tick); at least two joins; and at the end every
     page leased has been freed and the pool holds no bytes."""
-    from dataclasses import replace
-
-    from repro_torch.runtime.engine import ServingEngine
-    from repro_torch.runtime.serve_loop import ServeRequest
-
     solo = [srv.handle(ServeRequest(b, c, new_tokens=n))["tokens"].cpu().numpy()
             for b, c, n, _ in ENGINE_CHECK_TRACE]
     reqs, want = [], []
@@ -1722,8 +1605,6 @@ def _shared_weights(a, b) -> bool:
 def _twin(srv):
     """A second ``PlanServer`` of ``srv``'s model and configuration that
     takes ``srv``'s weight tensors (its own random ones are freed)."""
-    from repro_torch.runtime.serve_loop import PlanServer
-
     twin = PlanServer(srv.cfg, config=srv.config, device=srv.device)
     twin.params = srv.params
     return twin
@@ -1748,8 +1629,6 @@ def run_router(router, arrivals, drain_after=None, cancel=None) -> dict:
     Returns the records by rid, each rid's streamed tokens and indices, the
     decision count at the drain, the drained handles, the prompt passes by
     replica, the launches and the wall seconds."""
-    import torch
-
     streams, indices, drained = {}, {}, {}
     handoffs = {r.idx: r.server.pool.metrics.handoff_writes for r in router.replicas}
 
@@ -1813,12 +1692,6 @@ def router_check(srv, label: str) -> None:
     byte-identical to the request alone through ``handle``, no placement on
     the drained replica, flash and paged launches equal to the sum over the
     replicas' prompt passes and group ticks."""
-    from dataclasses import replace
-
-    from repro_torch.runtime.router import EngineRouter
-    from repro_torch.runtime.scheduler import simulate_arrivals
-    from repro_torch.runtime.serve_loop import ServeRequest
-
     solo = [srv.handle(ServeRequest(1, c, new_tokens=n))["tokens"].cpu().numpy()
             for c, n in ROUTER_CHECK_TRACE]
     twin = _twin(srv)
@@ -1883,12 +1756,6 @@ def replay_engine_trace(srv, specs, eos: int) -> dict:
     ``eos``, request ``ENGINE_CANCEL`` is cancelled through ``on_event``
     after ``CANCEL_AFTER`` tokens. Launch counts are set to 0 just before
     the run and read just after it."""
-    import torch
-    from dataclasses import replace
-
-    from repro_torch.runtime.scheduler import ContinuousBatchingScheduler, simulate_arrivals
-    from repro_torch.runtime.serve_loop import ServeRequest
-
     reqs = [ServeRequest(1, c, new_tokens=n, eos_id=eos if i == ENGINE_EOS else None)
             for i, (c, n) in enumerate(specs)]
     index = {r.rid: i for i, r in enumerate(reqs)}
@@ -1941,14 +1808,6 @@ def phase_serve_engine(srv=None) -> dict:
     phase's server (the CPU rehearsal passes a small one). Returns the
     server, both replays, the EOS token and the sequential tok/s, for the
     serve-router phase."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from repro_torch.configs import get_config
-    from repro_torch.runtime.engine import ServingEngine
-    from repro_torch.runtime.engine_config import EngineConfig
-    from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
-
     specs = serve_engine_trace()
     cfg = srv.cfg if srv is not None else get_config("yi-6b")
     config = srv.config if srv is not None else EngineConfig(
@@ -2048,8 +1907,6 @@ def phase_serve_engine(srv=None) -> dict:
 
 
 def _mem() -> str:
-    import torch
-
     return (f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
 
@@ -2080,13 +1937,6 @@ def phase_serve_router(engine_out: dict) -> None:
     bfloat16 streams equal the single engine's replay and the undisturbed
     run, with the first differing index and both runs' prompt-pass buckets
     where one differs."""
-    import torch
-    from dataclasses import replace
-
-    from repro_torch.runtime.router import EngineRouter
-    from repro_torch.runtime.scheduler import simulate_arrivals
-    from repro_torch.runtime.serve_loop import ServeRequest
-
     srv, eos = engine_out["srv"], engine_out["eos"]
     specs = serve_engine_trace()
     config = replace(srv.config, sanitize=True, max_group_batch=8, replicas=2,
@@ -2206,14 +2056,6 @@ def phase_serve_router(engine_out: dict) -> None:
 
 
 def phase_serve_check_ssm():
-    import torch
-
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import ssd_scan as SSD
-    from repro_torch.runtime.engine_config import EngineConfig
-    from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
-
     phase("serve-check-ssm: Mamba-2 1.3B widths, 2 layers, float32: SSD kernel == plain, "
           "graphed == eager, auto == paged")
     cfg = get_config("mamba2-1.3b").replace(num_layers=2)
@@ -2291,12 +2133,6 @@ def phase_serve_check_ssm():
 
 
 def phase_serve_ssm():
-    import torch
-
-    from repro_torch.configs import get_config
-    from repro_torch.runtime.engine_config import EngineConfig
-    from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
-
     cfg = get_config("mamba2-1.3b")
     phase(f"serve-ssm: {cfg.name}, {cfg.num_layers} layers, bfloat16, page 64, SSD kernel, "
           "decode_kernel=auto, one CUDA graph per bucket")
@@ -2311,6 +2147,7 @@ def phase_serve_ssm():
     launches = serve_passes(srv, cfg)
     print(f"  pool peak {srv.pool.metrics.peak_bytes / 2**20:.1f} MiB of recurrent state")
     trace_decode(srv, [ServeRequest(b, c, new_tokens=32) for b, c in SERVE_REQUESTS])
+    analysis_measure(srv, SERVE_REQUESTS)
     del srv
     torch.cuda.empty_cache()
     return {"ssd_scan": launches["ssd_scan"]}
@@ -2322,12 +2159,6 @@ def phase_serve_ssm():
 
 
 def phase_serve_check_hybrid():
-    import torch
-
-    from repro_torch.configs import get_config
-    from repro_torch.runtime.engine_config import EngineConfig
-    from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
-
     phase("serve-check-hybrid: RecurrentGemma-2B widths, 3 layers (rra), float32, window "
           "2048: graphed == eager; paged == gather == ref == auto; handoff == longer prefill")
     cfg = get_config("recurrentgemma-2b").replace(num_layers=3)
@@ -2391,12 +2222,6 @@ def phase_serve_check_hybrid():
 
 
 def phase_serve_hybrid() -> dict:
-    import torch
-
-    from repro_torch.configs import get_config
-    from repro_torch.runtime.engine_config import EngineConfig
-    from repro_torch.runtime.serve_loop import PlanServer, ServeRequest
-
     cfg = get_config("recurrentgemma-2b")
     phase(f"serve-hybrid: {cfg.name}, {cfg.num_layers} layers ({cfg.block_pattern}), "
           f"bfloat16, window {cfg.window_size}, page 64, decode_kernel=auto, one CUDA graph "
@@ -2413,6 +2238,7 @@ def phase_serve_hybrid() -> dict:
     print(f"  pool peak {srv.pool.metrics.peak_bytes / 2**20:.1f} MiB (paged K/V of the "
           f"attention layers and the RG-LRU state)")
     trace_decode(srv, [ServeRequest(b, c, new_tokens=32) for b, c in HYBRID_SERVE_REQUESTS])
+    analysis_measure(srv, HYBRID_SERVE_REQUESTS)
     del srv
     torch.cuda.empty_cache()
     return {"flash_attention_d256": launches["flash_attention"],
@@ -2428,8 +2254,6 @@ def phase_serve_hybrid() -> dict:
 def check_step(name, got, want) -> None:
     """Holds one tensor of LeNet's training step, kernels against plain
     versions, under ``LENET_STEP_TOL``."""
-    import torch
-
     max_tol, rms_tol = LENET_STEP_TOL
     want = want.float()
     err = (got.float() - want).abs()
@@ -2443,16 +2267,6 @@ def check_step(name, got, want) -> None:
 
 
 def phase_lenet_check() -> None:
-    import torch
-
-    from repro_torch.configs.lenet import make_spec
-    from repro_torch.kernels import conv2d_im2col as CONV
-    from repro_torch.kernels import matmul as MM
-    from repro_torch.kernels import ops
-    from repro_torch.launch.train_lenet import synthetic_images
-    from repro_torch.nn import loss as LOSS
-    from repro_torch.nn.module import Sequential
-
     phase(f"lenet-check: LeNet 1x28x28, 10 classes, float32, batch {LENET_BATCH}, "
           "kernels == plain")
     module = Sequential(*make_spec())
@@ -2503,16 +2317,6 @@ def phase_lenet_check() -> None:
 
 
 def phase_lenet() -> dict:
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from repro_torch.configs.lenet import make_spec
-    from repro_torch.frontend import Keras2Plan
-    from repro_torch.kernels import conv2d_im2col as CONV
-    from repro_torch.kernels import matmul as MM
-    from repro_torch.launch.train_lenet import synthetic_images
-
     phase(f"lenet: Keras2Plan trains LeNet (1x28x28, 10 classes, float32) for one epoch of "
           f"{LENET_TRAIN} images at batch {LENET_BATCH}, scores {LENET_SCORE}")
     spec, meta = make_spec()
@@ -2655,10 +2459,6 @@ def trace_decode(srv, requests) -> None:
     tick where the plan chose paged, none elsewhere. A trace that misses
     (a session can drop device events) is taken again, up to
     ``TRACE_ATTEMPTS`` times; the phase fails if none holds that count."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.runtime.serve_loop import DECODE_SPAN, PREFILL_SPAN, ServeRequest
-
     n_attn = srv.cfg.layer_pattern().count("a")
     print("  trace (torch.profiler, each request served once more in its bucket, "
           f"with at least {TRACE_NEW_TOKENS} new tokens):")
@@ -2694,8 +2494,6 @@ def paged_split_events(events, span: str):
     """The paged decode split-kernel events (one per wrapper call; the
     combine kernel left out) that start inside the CPU span ``span``, or
     None where the trace holds no such span."""
-    from torch.autograd import DeviceType
-
     found = [e.time_range for e in events if e.name == span and e.device_type == DeviceType.CPU]
     if not found:
         return None
@@ -2710,8 +2508,6 @@ def span_report(events, span: str, n: int, label: str) -> None:
     ``torch.profiler`` trace, per each of its ``n`` steps: the span, the
     union of the device events that start inside it (busy), the idle
     share, and device time by kernel kind and by kernel."""
-    from torch.autograd import DeviceType
-
     found = [e.time_range for e in events if e.name == span and e.device_type == DeviceType.CPU]
     dev = [e for e in events if e.device_type == DeviceType.CUDA
            and not e.is_user_annotation and e.name != span]
@@ -2739,16 +2535,138 @@ def span_report(events, span: str, n: int, label: str) -> None:
           f"top kernels: {top}")
 
 
+# ---------------------------------------------------------------------------
+# analysis: the plan, memory and cost audits at full width and on the smoke
+# matrix, traced on fake CUDA tensors; measured peaks on the card
+# ---------------------------------------------------------------------------
+
+
+def analysis_measure(srv, requests) -> None:
+    """One eager decode tick and one prompt pass per bucket of ``requests``
+    on ``srv`` (phases 5, 7 and 11 call this after their passes, outside
+    their launch counts): the measured peak, the plan's estimate and the
+    cache leaves' ``data_ptr`` across the tick, kept for the analysis
+    phase, which holds them against the traced floors."""
+    spans = {srv.buckets(b, srv.request_span(ServeRequest(b, c, new_tokens=SERVE_NEW_TOKENS)))
+             for b, c in requests}
+    for batch, span in sorted(spans):
+        for measure in (memory_audit.measure_decode, memory_audit.measure_prefill):
+            ANALYSIS_MEASURED.append(measure(srv, batch, span))
+    torch.cuda.empty_cache()
+
+
+def cublas_workspace_bytes() -> int:
+    """The bytes cuBLAS's workspace takes from the caching allocator: the
+    growth beyond its output of the first product after the workspaces are
+    cleared (the analysis phase runs last, with no graph left to replay)."""
+    a = torch.ones((256, 256), device="cuda")
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = a @ a
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before - out.nbytes
+    del a, out
+    return grown
+
+
+def phase_analysis() -> None:
+    """The analysis layer on the card's path. Full width (phases 5, 7 and
+    11's cells, bfloat16, page 64, the servers' pool of 4 arenas and
+    ``decode_kernel="auto"``): each cell's step traced once on fake CUDA
+    tensors (no weights), the plan audit's and the cost audit's findings,
+    the kernel nodes, and the measured peaks phases 5, 7 and 11 took held
+    against the traced floor and the plan's estimate. Then the smoke matrix:
+    the three audits traced with their self-tests, the decision audits and
+    the trace closure, and each smoke arch served in both dtypes with one
+    tick's and one prompt pass's peak measured. Any finding or missed
+    self-test fails."""
+    phase("analysis: plan, memory and cost audits on fake CUDA tensors at full width and on "
+          "the smoke matrix; measured peaks against the traced floor and the estimate")
+    t0 = time.perf_counter()
+    findings = []
+    floors = {}
+    kernel_nodes = {}
+    for arch, requests in ANALYSIS_MODELS:
+        buckets = sorted({(bucket(b, 1), bucket(c + SERVE_NEW_TOKENS, 16))
+                          for b, c in requests})
+        for b, s in buckets:
+            for kind in ("decode", "prefill"):
+                where = plan_audit.cell_where(arch, "bfloat16", kind, b, s)
+                _cfg, model, plan, _ = plan_audit.compile_cell(arch, "bfloat16", kind, b, s)
+                trace = plan_audit.trace_cell(model, plan, kind, b, s)
+                rec, found = plan_audit.audit_cell(arch, "bfloat16", kind, b, s, trace=trace)
+                cost_rec, cost_found = cost_audit.audit_cell(arch, "bfloat16", kind, b, s,
+                                                             trace=trace)
+                floors[where] = rec["memory"]["floor_bytes"]
+                for k, n in rec["kernel_nodes"].items():
+                    kernel_nodes[k] = kernel_nodes.get(k, 0) + n
+                print(f"  {where}: {rec['nodes']} nodes, kernels {rec['kernel_nodes']}, "
+                      f"plan {rec['decode_kernel']}; memory floor "
+                      f"{rec['memory']['floor_bytes'] / 2**30:.3f} <= estimate "
+                      f"{rec['memory']['estimate_bytes'] / 2**30:.3f} <= ceiling "
+                      f"{rec['memory']['ceiling_bytes'] / 2**30:.3f} GiB; "
+                      f"{cost_audit.cost_line(cost_rec)}; "
+                      f"{len(found) + len(cost_found)} finding(s)")
+                findings += found + cost_found
+    print(f"  kernel nodes over the full-width cells: {kernel_nodes} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not ANALYSIS_MEASURED:
+        fail("analysis: phases 5, 7 and 11 measured no peak")
+    print("  measured peaks (full width, phases 5, 7 and 11's servers):")
+    for rec, found in ANALYSIS_MEASURED:
+        found = found + memory_audit.hold_measured(rec, floors[rec["where"]])
+        print(f"    {memory_audit.measured_line(rec)}, cache data_ptr moved: "
+              f"{rec['cache_moved'] or 'none'}"
+              f"{'' if not found else ' — ' + '; '.join(str(f) for f in found)}")
+        findings += found
+
+    t1 = time.perf_counter()
+    smoke = {}
+    for name, audit in (("plan", plan_audit), ("memory", memory_audit), ("cost", cost_audit)):
+        cells, found = audit.run_audit()
+        probes = audit.selftest()
+        smoke[name] = (len(cells), len(found), probes)
+        findings += found
+        missed = [k for k, ok in probes.items() if not ok]
+        print(f"  smoke {name} audit: {len(cells)} cells, {len(found)} finding(s), self-test "
+              f"{'ok' if not missed else 'MISSED ' + ', '.join(missed)}")
+        if missed:
+            fail(f"analysis: the {name} audit's self-test missed {missed}")
+    _, found = cost_audit.audit_decisions()
+    closure, closure_found = cost_audit.trace_closure_certificate()
+    findings += found + closure_found
+    print(f"  decision audits: {len(found)} finding(s); trace closure {closure['signatures']} "
+          f"signatures (bound {closure['bound']}) ({time.perf_counter() - t1:.1f} s)")
+    servers = [(PlanServer(get_config(arch), config=EngineConfig(dtype=dtype, prefill=True,
+                                                                  seed=SEED)),
+                analysis_matrix.SMOKE_BUCKETS)
+               for arch in analysis_matrix.SMOKE_ARCHS for dtype in analysis_matrix.SMOKE_DTYPES]
+    print("  measured peaks (smoke matrix):")
+    _, found = memory_audit.measure_servers(servers, log=lambda line: print(f"  {line}"))
+    findings += found
+    del servers
+    torch.cuda.empty_cache()
+    ws = cublas_workspace_bytes()
+    print(f"  cuBLAS workspace: {ws / 2**20:.2f} MiB (the audits' ceiling counts "
+          f"{plan_audit.CUBLAS_WORKSPACE_BYTES / 2**20:.2f} MiB)")
+    if ws > plan_audit.CUBLAS_WORKSPACE_BYTES:
+        fail(f"cuBLAS's workspace {ws} B exceeds the ceiling's "
+             f"{plan_audit.CUBLAS_WORKSPACE_BYTES} B")
+    for f in findings:
+        print(f"  FINDING {f}")
+    if findings:
+        fail(f"analysis: {len(findings)} finding(s)")
+    print(f"  analysis: 0 findings in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script", file=sys.stderr)
         return 2
-    import torch
-
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2766,6 +2684,7 @@ def main() -> int:
     launches.update(phase_lenet())
     phase_serve_check_hybrid()
     launches.update(phase_serve_hybrid())
+    phase_analysis()
     for name, n in launches.items():
         kernels[name]["launches"] = n
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -20,6 +20,7 @@ from typing import Dict
 
 from repro_torch.config import HardwareSpec, InputShape, MeshConfig, ModelConfig, TrainConfig
 from repro_torch.core.strategies import PlanConfig
+from repro_torch.hw import H100
 
 ACT_BYTES = 2       # bf16 default (cost-model roofline terms)
 PARAM_BYTES = 2     # bf16 default
@@ -43,6 +44,20 @@ def dtype_bytes(dtype: str) -> int:
     """Bytes per element for a dtype name (worst-case 4 for unknown names:
     the estimator must never under-estimate)."""
     return DTYPE_BYTES.get(str(dtype), 4)
+
+# The H100's terms. The port's prompt pass on the card runs op by op (eager
+# PyTorch, no fusion): every elementwise intermediate of a layer is
+# materialized, in float32 where the model computes in float32, so a
+# layer's working set takes EAGER_WORKING_BYTES a column whatever the model
+# dtype, and the SSD block, which also keeps x, B and C in float32 beside
+# their model-dtype copies for the handoff state, EAGER_SSD_FACTOR times
+# that. chip_smoke.py's analysis phase measures it (on an H100 80GB HBM3
+# at 700 W, Mamba-2 1.3B's (8, 2048) prompt pass held 2.40 GiB above its
+# inputs where the fused terms give 1.21). Every other HardwareSpec keeps
+# the reference's (XLA-fused) terms, so the planner equals the reference's
+# on its figures.
+EAGER_WORKING_BYTES = 4
+EAGER_SSD_FACTOR = 1.5
 
 # optimizer -> number of per-param state slots (repro_torch.nn.optim)
 OPTIMIZER_SLOTS = {
@@ -159,7 +174,8 @@ def estimate_memory(
         )
         est.per_device["activations"] = _train_activation_bytes(model, shape, plan, dp, mp, nb)
     elif shape.kind == "prefill":
-        est.per_device["activations"] = _prefill_activation_bytes(model, shape, plan, dp, mp, nb)
+        est.per_device["activations"] = _prefill_activation_bytes(
+            model, shape, plan, dp, mp, nb, eager=hw.name == H100.name)
     else:  # decode
         if cache_pages and cache_page_size:
             est.per_device["kv_cache"] = _cache_paged_bytes(
@@ -243,8 +259,10 @@ def _train_activation_bytes(
 
 def _prefill_activation_bytes(
     model: ModelConfig, shape: InputShape, plan: PlanConfig, dp: int, mp: int,
-    nb: int = ACT_BYTES,
+    nb: int = ACT_BYTES, eager: bool = False,
 ) -> float:
+    """``eager``: the H100's terms, the working set of a prompt pass run op
+    by op."""
     b_dev = max(1, shape.global_batch // dp)
     # context parallelism: seq dim itself sharded (KV all-gathered per layer)
     sp = mp if plan.seq_axes else 1
@@ -253,6 +271,9 @@ def _prefill_activation_bytes(
     # KV cache being produced
     live = 3 * tok * model.d_model * nb
     working = tok * _layer_working_cols(model, mp, plan.attention_variant) * nb
+    if eager:
+        ssd = EAGER_SSD_FACTOR if "s" in model.layer_pattern() else 1.0
+        working *= EAGER_WORKING_BYTES / nb * ssd
     kv = _cache_dense_bytes(model, shape.seq_len, b_dev, nb) / (
         mp if (plan.tensor_parallel or plan.seq_axes) else 1)
     if plan.seq_axes:

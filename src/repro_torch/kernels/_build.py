@@ -14,9 +14,19 @@ raises with the compiler's output; nothing falls back to a plain version.
 Each C entry point returns its ``cudaError_t`` (0 on success), which the
 kernel wrappers check after every launch.
 
-Each wrapper counts its launches in ``fn.launches`` and registers itself in
-:data:`COUNTED` through :func:`counted`; a CUDA graph's capture and replays
-adjust the counts of every registered wrapper (``runtime/graph_step.py``).
+Each kernel is a ``torch.library`` custom op, ``repro_torch::<name>``
+(:func:`kernel_op`): its CPU implementation is the plain version, its CUDA
+implementation the launch through ctypes, and its fake implementation gives
+the output's shape, dtype and device only, so ``make_fx`` and
+``FakeTensorMode`` trace each kernel as one graph node, on a fake ``cuda``
+device too (``repro_torch.analysis``). Beside each op, :data:`WORK` holds
+its ``work(...)``: the FLOPs and bytes one call must do and move, read by the
+cost audit and by ``chip_smoke.py``'s bounds.
+
+Each public wrapper counts its launches in ``fn.launches`` and registers
+itself in :data:`COUNTED` through :func:`counted`; a CUDA graph's capture and
+replays adjust the counts of every registered wrapper
+(``runtime/graph_step.py``).
 """
 
 from __future__ import annotations
@@ -28,7 +38,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, NamedTuple, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -41,6 +53,21 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # every kernel wrapper that counts its launches in ``fn.launches``
 COUNTED: List[Callable] = []
 
+NAMESPACE = "repro_torch"
+
+
+class Work(NamedTuple):
+    """What one kernel call must do: its FLOPs, and the bytes it must move
+    (each input read once, each output written once)."""
+
+    flops: float
+    bytes: float
+
+
+# "repro_torch::<name>" -> the op's work(...), called with the op's own
+# arguments (real or fake tensors)
+WORK: Dict[str, Callable[..., Work]] = {}
+
 
 def counted(fn: Callable) -> Callable:
     """Registers ``fn`` as a kernel wrapper that adds one to
@@ -48,6 +75,31 @@ def counted(fn: Callable) -> Callable:
     fn.launches = 0
     COUNTED.append(fn)
     return fn
+
+
+def kernel_op(name: str, work: Callable[..., Work], launch: Callable,
+              fake: Callable) -> Callable:
+    """Decorator: the annotated plain function becomes the custom op
+    ``repro_torch::<name>`` (no argument mutated; every kernel writes only
+    outputs it allocates) with the plain function as its CPU
+    implementation, ``launch`` as its CUDA implementation and ``fake`` as
+    its fake implementation; ``work`` goes into :data:`WORK`. Returns the
+    op, called like the plain function."""
+    def wrap(plain: Callable) -> Callable:
+        op = torch.library.custom_op(f"{NAMESPACE}::{name}", plain, mutates_args=(),
+                                     device_types="cpu")
+        op.register_kernel("cuda")(launch)
+        op.register_fake(fake)
+        WORK[f"{NAMESPACE}::{name}"] = work
+        return op
+    return wrap
+
+
+def require_cpu_or_cuda(t: torch.Tensor, what: str) -> None:
+    """A wrapper runs its plain version on a CPU tensor and its kernel on a
+    CUDA tensor (real or fake); any other device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CUDA tensors, got {t.device}")
 
 
 def _nvcc() -> str:

@@ -7,7 +7,9 @@ matrix ``(Ho*Wo, C*k*k)`` of each image times the ``(C*k*k, F)`` filters,
 accumulated in float32, output ``(N, F, Ho, Wo)`` in x's dtype. The patch
 columns are ordered channel-major, then kernel row, then kernel column.
 
-- :func:`conv2d_im2col` is the kernel wrapper: on a CUDA tensor it launches
+- :func:`conv2d_im2col` is the kernel wrapper, the custom op
+  ``repro_torch::conv2d_im2col`` (:func:`work` counts a call's FLOPs and
+  bytes): on a CUDA tensor it launches
   ``csrc/conv2d_im2col.cu``, an implicit GEMM whose patch matrix never
   reaches device memory (float32 on the tensor cores in 3xTF32, bfloat16
   inputs on the CUDA cores), raising on anything the kernel does not take;
@@ -97,16 +99,19 @@ def _check(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int) -> None:
         raise ValueError("conv2d kernel takes contiguous x and w")
 
 
-@_build.counted
-def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
-                  pad: int = 0) -> torch.Tensor:
-    """Kernel wrapper: launches ``csrc/conv2d_im2col.cu`` on a CUDA tensor
-    (counting the launch in ``conv2d_im2col.launches``), runs
-    :func:`conv2d_torch` on a CPU tensor."""
-    if x.device.type == "cpu":
-        return conv2d_torch(x, w, stride=stride, pad=pad)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv2d kernel runs on CUDA tensors, got {x.device}")
+def work(x, w, stride: int = 1, pad: int = 0) -> _build.Work:
+    """FLOPs and bytes of one call: 2 x output elements x C k k; x and w
+    read, the output written."""
+    n, c, h, wd = x.shape
+    f, _, k, _ = w.shape
+    ho, wo = conv2d_out_hw(h, wd, k, stride, pad)
+    return _build.Work(2 * n * ho * wo * f * c * k * k,
+                       (x.numel() + w.numel() + n * f * ho * wo) * x.element_size())
+
+
+def _launch(x, w, stride, pad):
+    """CUDA implementation of ``repro_torch::conv2d_im2col``, counted in
+    ``conv2d_im2col.launches``."""
     _check(x, w, stride, pad)
     n, c, h, wd = x.shape
     f, _, k, _ = w.shape
@@ -122,6 +127,26 @@ def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     if err:
         raise RuntimeError(f"conv2d_im2col launch failed: cudaError_t {err}")
     return out
+
+
+def _fake(x, w, stride, pad):
+    ho, wo = conv2d_out_hw(x.shape[2], x.shape[3], w.shape[2], stride, pad)
+    return x.new_empty((x.shape[0], w.shape[0], ho, wo))
+
+
+@_build.kernel_op("conv2d_im2col", work, _launch, _fake)
+def _conv_op(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int) -> torch.Tensor:
+    return conv2d_torch(x, w, stride=stride, pad=pad)
+
+
+@_build.counted
+def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                  pad: int = 0) -> torch.Tensor:
+    """Kernel wrapper: the custom op ``repro_torch::conv2d_im2col``, which
+    launches ``csrc/conv2d_im2col.cu`` on a CUDA tensor and runs
+    :func:`conv2d_torch` on a CPU tensor."""
+    _build.require_cpu_or_cuda(x, "conv2d kernel")
+    return _conv_op(x, w, stride, pad)
 
 
 def _bind(lib: ctypes.CDLL) -> None:

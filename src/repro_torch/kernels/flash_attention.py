@@ -6,9 +6,11 @@ causal and/or sliding-window masks (``kpos > qpos - window``), ``q_offset``
 giving zeros. K/V come in kv-head form ``(B, Hkv, Sk, D)``: the GQA
 expansion is never materialized.
 
-- :func:`flash_attention` is the kernel wrapper: on a CUDA tensor it
-  launches ``csrc/flash_attention.cu`` (raising on anything the kernel does
-  not take), on a CPU tensor it runs the plain version. Unlike the TPU
+- :func:`flash_attention` is the kernel wrapper, the custom op
+  ``repro_torch::flash_attention``: on a CUDA tensor it launches
+  ``csrc/flash_attention.cu`` (raising on anything the kernel does not
+  take), on a CPU tensor it runs the plain version; :func:`work` counts a
+  call's FLOPs and bytes. Unlike the TPU
   kernel it pads nothing: the ragged ``Sk`` tail is masked per element, so
   unaligned bidirectional attention needs no special case. bfloat16 at
   D = 128 and 256 runs ``flash_wgmma_kernel<D>`` (TMA + wgmma; 128-key
@@ -87,7 +89,8 @@ def kernel_name(d: int, dtype: torch.dtype) -> str:
 def exp2_scale(d: int) -> float:
     """``scale * log2(e)`` as the bfloat16 kernels compute it: the float32
     product of the float32 scale and the float32 log2(e)."""
-    return float(np.float32(np.float32(1.0 / (d ** 0.5)) * np.float32(LOG2E)))
+    c = np.float32(np.float32(1.0 / (d ** 0.5)) * np.float32(LOG2E))
+    return float(c)  # lint: allow-tracer-host-sync (a numpy scalar)
 
 
 def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
@@ -170,18 +173,29 @@ def _check(q, k, v, hw_smem: int) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-@_build.counted
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    q_offset: int = -1) -> torch.Tensor:
-    """Kernel wrapper: launches ``csrc/flash_attention.cu`` on a CUDA tensor
-    (counting the launch in ``flash_attention.launches``), runs
-    :func:`flash_attention_torch` on a CPU tensor."""
-    if q.device.type == "cpu":
-        return flash_attention_torch(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash kernel runs on CUDA tensors, got {q.device}")
+def unmasked_pairs(sq: int, sk: int, causal: bool, window: int, q_offset: int) -> int:
+    """(query, key) pairs the causal and window masks leave, per (row, head)."""
+    off = sk - sq if q_offset < 0 else q_offset
+    qpos = off + np.arange(sq)
+    hi = np.minimum(sk - 1, qpos) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros(sq, np.int64)
+    pairs = np.maximum(0, hi - lo + 1).sum()
+    return int(pairs)  # lint: allow-tracer-host-sync (a numpy scalar)
+
+
+def work(q, k, v, causal: bool, window: int, q_offset: int) -> _build.Work:
+    """FLOPs and bytes of one call: ``q.k`` and ``p.v`` over the unmasked
+    pairs of every (row, query head); q, K and V read once, the output
+    written once."""
+    b, hq, sq, d = q.shape
+    pairs = unmasked_pairs(sq, k.shape[2], causal, window, q_offset)
+    return _build.Work(4 * d * pairs * b * hq,
+                       (2 * q.numel() + 2 * k.numel()) * q.element_size())
+
+
+def _launch(q, k, v, causal, window, q_offset):
+    """CUDA implementation of ``repro_torch::flash_attention``, counted in
+    ``flash_attention.launches``."""
     _check(q, k, v, H100.vmem_bytes)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -193,12 +207,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, int(causal), int(window),
-            int(q_offset), 1.0 / (d ** 0.5), stream)
+            _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, causal, window, q_offset,
+            1.0 / (d ** 0.5), stream)
     flash_attention.launches += 1
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError_t {err}")
     return out
+
+
+def _fake(q, k, v, causal, window, q_offset):
+    return torch.empty_like(q)
+
+
+@_build.kernel_op("flash_attention", work, _launch, _fake)
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              window: int, q_offset: int) -> torch.Tensor:
+    return flash_attention_torch(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+@_build.counted
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = -1) -> torch.Tensor:
+    """Kernel wrapper: the custom op ``repro_torch::flash_attention``, which
+    launches ``csrc/flash_attention.cu`` on a CUDA tensor and runs
+    :func:`flash_attention_torch` on a CPU tensor."""
+    _build.require_cpu_or_cuda(q, "flash kernel")
+    return _flash_op(q, k, v, causal, window, q_offset)
 
 
 def _bind(lib: ctypes.CDLL) -> None:

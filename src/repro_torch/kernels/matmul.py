@@ -5,7 +5,8 @@ Port of ``repro/kernels/matmul.py`` (``matmul``, body ``_matmul_kernel``):
 dtype, at any M, N, K — the paper's "Native BLAS" / "GPU backend" point
 that compute-bound operators go to a tuned kernel.
 
-- :func:`matmul` is the kernel wrapper: on a CUDA tensor it launches
+- :func:`matmul` is the kernel wrapper, the custom op ``repro_torch::matmul``
+  (:func:`work` counts a call's FLOPs and bytes): on a CUDA tensor it launches
   ``csrc/matmul.cu`` (float32 on the tensor cores in 3xTF32 through
   ``wgmma``, bfloat16 through ``mma.sync``; ragged edges masked in the
   kernel; a float32 product with few output tiles and a deep K split along
@@ -100,15 +101,16 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("matmul kernel takes contiguous (row-major) operands")
 
 
-@_build.counted
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Kernel wrapper: launches ``csrc/matmul.cu`` on a CUDA tensor
-    (counting the launch in ``matmul.launches``), runs :func:`matmul_torch`
-    on a CPU tensor."""
-    if a.device.type == "cpu":
-        return matmul_torch(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"matmul kernel runs on CUDA tensors, got {a.device}")
+def work(a, b) -> _build.Work:
+    """FLOPs and bytes of one call: 2 M N K; a and b read, the output
+    written."""
+    (m, k), n = a.shape, b.shape[1]
+    return _build.Work(2 * m * n * k, (m * k + k * n + m * n) * a.element_size())
+
+
+def _launch(a, b):
+    """CUDA implementation of ``repro_torch::matmul``, counted in
+    ``matmul.launches``."""
     _check(a, b)
     (m, k), n = a.shape, b.shape[1]
     lib = _build.library("matmul", _bind)
@@ -126,6 +128,24 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"matmul launch failed: cudaError_t {err}")
     return out
+
+
+def _fake(a, b):
+    return a.new_empty((a.shape[0], b.shape[1]))
+
+
+@_build.kernel_op("matmul", work, _launch, _fake)
+def _matmul_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return matmul_torch(a, b)
+
+
+@_build.counted
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Kernel wrapper: the custom op ``repro_torch::matmul``, which launches
+    ``csrc/matmul.cu`` on a CUDA tensor and runs :func:`matmul_torch` on a
+    CPU tensor."""
+    _build.require_cpu_or_cuda(a, "matmul kernel")
+    return _matmul_op(a, b)
 
 
 def _bind(lib: ctypes.CDLL) -> None:

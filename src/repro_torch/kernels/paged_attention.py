@@ -8,9 +8,11 @@ query at ``pos`` both validity rules reduce to it (``kernels/ref.py``'s
 ``paged_decode_ref`` applies the literal rules, and the tests prove the
 reduction).
 
-- :func:`paged_decode_attention` is the kernel wrapper: on a CUDA tensor it
-  launches ``csrc/paged_decode.cu`` (raising on anything the kernel does not
-  take), on a CPU tensor it runs the plain version. bfloat16 at a head dim
+- :func:`paged_decode_attention` is the kernel wrapper, the custom op
+  ``repro_torch::paged_decode_attention``: on a CUDA tensor it launches
+  ``csrc/paged_decode.cu`` (raising on anything the kernel does not take),
+  on a CPU tensor it runs the plain version; :func:`work` counts a call's
+  FLOPs and bytes. bfloat16 at a head dim
   that is a multiple of 16 runs ``paged_mma_kernel`` (tensor cores, per-warp
   ``cp.async`` rings, splits sized by :func:`split_plan`); float32, and
   bfloat16 at other head dims, run ``paged_split_kernel`` (CUDA cores,
@@ -165,7 +167,8 @@ def paged_attention_model(
     phys = torch.where(valid, phys, torch.zeros((), dtype=phys.dtype, device=q.device))
     ke = k_cache[phys].float()                                       # (B, W, Hkv, D)
     ve = v_cache[phys].float()
-    c = float(np.float32(np.float32(1.0 / (d ** 0.5)) * np.float32(LOG2E)))
+    c32 = np.float32(np.float32(1.0 / (d ** 0.5)) * np.float32(LOG2E))
+    c = float(c32)  # lint: allow-tracer-host-sync (a numpy scalar)
     qf = q.float()[:, 0].reshape(bsz, hkv, g, d)
     s = torch.einsum("bhgd,bkhd->bhgk", qf, ke) * c                  # (B, Hkv, g, W)
     s = torch.where(valid[:, None, None, :], s, torch.full((), NEG_INF, device=q.device))
@@ -231,26 +234,27 @@ def _check(q, k_cache, v_cache, tables, pos, page, sc) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-@_build.counted
-def paged_decode_attention(
-    q: torch.Tensor,        # (B, 1, Hq, D) — one new token per row
-    k_cache: torch.Tensor,  # (n_slots, Hkv, D) flat slot stack
-    v_cache: torch.Tensor,  # (n_slots, Hkv, D)
-    tables: torch.Tensor,   # (B, n_pages) int32; unallocated entries >= n_phys
-    pos: torch.Tensor,      # (B,) int32 absolute position of the new token
-    *,
-    page: int,
-    sc: int,                # logical cache length per row (bucket Sc)
-) -> torch.Tensor:
-    """Kernel wrapper: launches ``csrc/paged_decode.cu`` on a CUDA tensor
-    (:func:`kernel_name`'s split kernel, then the combine; counted once in
-    ``paged_decode_attention.launches``), runs :func:`paged_attention_torch`
-    on a CPU tensor."""
-    if q.device.type == "cpu":
-        return paged_attention_torch(q, k_cache, v_cache, tables, pos,
-                                     page=page, sc=sc)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode kernel runs on CUDA tensors, got {q.device}")
+def work(q, k_cache, v_cache, tables, pos, page: int, sc: int,
+         slots: Optional[int] = None) -> _build.Work:
+    """FLOPs and bytes of one call: ``q.k`` and ``p.v`` over ``slots``
+    committed (row, slot) pairs, each committed K/V slot read once, q read and
+    the output written, the table and positions read. ``slots`` defaults to
+    every slot of every row (``B * min(sc, n_pages * page)``); a caller
+    holding the positions passes ``sum(min(pos + 1, sc))``."""
+    b, _, hq, d = q.shape
+    hkv = k_cache.shape[1]
+    item = q.element_size()
+    if slots is None:
+        slots = b * min(sc, tables.shape[1] * page)
+    nbytes = (slots * hkv * d * 2 * item + 2 * b * hq * d * item
+              + tables.numel() * 4 + b * 4)
+    return _build.Work(4 * hq * d * slots, nbytes)
+
+
+def _launch(q, k_cache, v_cache, tables, pos, page, sc):
+    """CUDA implementation of ``repro_torch::paged_decode_attention``:
+    :func:`kernel_name`'s split kernel, then the combine; counted once in
+    ``paged_decode_attention.launches``."""
     _check(q, k_cache, v_cache, tables, pos, page, sc)
     bsz, _, hq, d = q.shape
     hkv = k_cache.shape[1]
@@ -277,6 +281,35 @@ def paged_decode_attention(
     if err:
         raise RuntimeError(f"paged_decode launch failed: cudaError_t {err}")
     return out
+
+
+def _fake(q, k_cache, v_cache, tables, pos, page, sc):
+    return torch.empty_like(q)
+
+
+@_build.kernel_op("paged_decode_attention", work, _launch, _fake)
+def _paged_decode_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     tables: torch.Tensor, pos: torch.Tensor, page: int,
+                     sc: int) -> torch.Tensor:
+    return paged_attention_torch(q, k_cache, v_cache, tables, pos, page=page, sc=sc)
+
+
+@_build.counted
+def paged_decode_attention(
+    q: torch.Tensor,        # (B, 1, Hq, D) — one new token per row
+    k_cache: torch.Tensor,  # (n_slots, Hkv, D) flat slot stack
+    v_cache: torch.Tensor,  # (n_slots, Hkv, D)
+    tables: torch.Tensor,   # (B, n_pages) int32; unallocated entries >= n_phys
+    pos: torch.Tensor,      # (B,) int32 absolute position of the new token
+    *,
+    page: int,
+    sc: int,                # logical cache length per row (bucket Sc)
+) -> torch.Tensor:
+    """Kernel wrapper: the custom op ``repro_torch::paged_decode_attention``,
+    which launches ``csrc/paged_decode.cu`` on a CUDA tensor and runs
+    :func:`paged_attention_torch` on a CPU tensor."""
+    _build.require_cpu_or_cuda(q, "paged_decode kernel")
+    return _paged_decode_op(q, k_cache, v_cache, tables, pos, page, sc)
 
 
 def _bind(lib: ctypes.CDLL) -> None:

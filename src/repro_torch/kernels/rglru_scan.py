@@ -16,7 +16,9 @@ reference's rounding points:
 - ``y = (h * gelu_tanh(float(y_pre))).to(model dtype)``, and the state ``h``
   at each row's ``lengths - 1`` for the prefill -> decode handoff.
 
-- :func:`rglru_scan` is the kernel wrapper: on a CUDA tensor it launches
+- :func:`rglru_scan` is the kernel wrapper, the custom op
+  ``repro_torch::rglru_scan`` (:func:`work` counts a call's FLOPs and
+  bytes): on a CUDA tensor it launches
   ``csrc/rglru_scan.cu`` (raising on anything the kernel does not take), on
   a CPU tensor it runs the plain version. The kernel scans t in chunks of
   ``SCAN_CHUNK`` positions, ``chunks`` of them side by side in a block
@@ -167,20 +169,20 @@ def _check(xb, r_pre, i_pre, y_pre, c, lengths, chunks: int = 1) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-@_build.counted
-def rglru_scan(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
-               y_pre: torch.Tensor, c: torch.Tensor,
-               lengths: Optional[torch.Tensor] = None, *,
-               chunks: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel wrapper: launches ``csrc/rglru_scan.cu`` on a CUDA tensor
-    (counting the launch in ``rglru_scan.launches``) with ``chunks``
-    chunks a block (default :func:`chunk_plan` for the card; the result
-    does not depend on it); runs :func:`rglru_scan_torch` on a CPU tensor.
-    Returns ``(y, h_last)``."""
-    if xb.device.type == "cpu":
-        return rglru_scan_torch(xb, r_pre, i_pre, y_pre, c, lengths)
-    if xb.device.type != "cuda":
-        raise ValueError(f"rglru_scan kernel runs on CUDA tensors, got {xb.device}")
+def work(xb, r_pre, i_pre, y_pre, c, lengths=None, chunks=None) -> _build.Work:
+    """FLOPs and bytes of one call: ~26 float32 operations an element (two
+    sigmoids, exp, sqrt, the tanh gelu, the products and the recurrence's
+    multiply-add); the four inputs read and y written, c, the lengths and
+    the float32 state."""
+    b, s, w = xb.shape
+    elems = b * s * w
+    nbytes = 5 * xb.element_size() * elems + 4 * w + 4 * b + 4 * b * w
+    return _build.Work(26 * elems, nbytes)
+
+
+def _launch(xb, r_pre, i_pre, y_pre, c, lengths, chunks):
+    """CUDA implementation of ``repro_torch::rglru_scan``, counted in
+    ``rglru_scan.launches``."""
     b, s, w = xb.shape
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=xb.device)
@@ -200,6 +202,32 @@ def rglru_scan(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
     if err:
         raise RuntimeError(f"rglru_scan launch failed: cudaError_t {err}")
     return y, h_last
+
+
+def _fake(xb, r_pre, i_pre, y_pre, c, lengths, chunks):
+    return torch.empty_like(xb), xb.new_empty((xb.shape[0], xb.shape[2]),
+                                              dtype=torch.float32)
+
+
+@_build.kernel_op("rglru_scan", work, _launch, _fake)
+def _rglru_op(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
+              y_pre: torch.Tensor, c: torch.Tensor, lengths: Optional[torch.Tensor],
+              chunks: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    return rglru_scan_torch(xb, r_pre, i_pre, y_pre, c, lengths)
+
+
+@_build.counted
+def rglru_scan(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
+               y_pre: torch.Tensor, c: torch.Tensor,
+               lengths: Optional[torch.Tensor] = None, *,
+               chunks: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper: the custom op ``repro_torch::rglru_scan``, which
+    launches ``csrc/rglru_scan.cu`` on a CUDA tensor with ``chunks`` chunks
+    a block (default :func:`chunk_plan` for the card; the result does not
+    depend on it) and runs :func:`rglru_scan_torch` on a CPU tensor.
+    Returns ``(y, h_last)``."""
+    _build.require_cpu_or_cuda(xb, "rglru_scan kernel")
+    return _rglru_op(xb, r_pre, i_pre, y_pre, c, lengths, chunks)
 
 
 def _bind(lib: ctypes.CDLL) -> None:

@@ -19,9 +19,10 @@ an absolute error of ~5e-4 whatever its size (a relative error of the same
 size in every ``L`` entry near the diagonal). The differences are rounded to
 float32 before the exp, so everything else is float32 arithmetic.
 
-- :func:`ssd_scan` is the kernel wrapper: on a CUDA tensor it launches
-  ``csrc/ssd_scan.cu`` (raising on anything the kernel does not take): a
-  Gram pass writes ``G = C B^T`` once per (row, chunk) into float32
+- :func:`ssd_scan` is the kernel wrapper, the custom op
+  ``repro_torch::ssd_scan`` (:func:`work` counts a call's FLOPs and bytes):
+  on a CUDA tensor it launches ``csrc/ssd_scan.cu`` (raising on anything
+  the kernel does not take): a Gram pass writes ``G = C B^T`` once per (row, chunk) into float32
   scratch, then the chunk walk runs the per-head products on the tensor
   cores in 3xTF32; one wrapper call, counted once, issues both launches.
   On a CPU tensor it runs the plain version.
@@ -212,16 +213,24 @@ def _check(x, dt, a, b_mat, c_mat, d, chunk: int, sm_count: int = H100_SMS) -> i
     return pt
 
 
-@_build.counted
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
-             c_mat: torch.Tensor, d: torch.Tensor, *, chunk: int = MAX_CHUNK) -> torch.Tensor:
-    """Kernel wrapper: launches ``csrc/ssd_scan.cu`` on a CUDA tensor
-    (counting the launch in ``ssd_scan.launches``), runs
-    :func:`ssd_scan_torch` on a CPU tensor. ``chunk`` is capped at S."""
-    if x.device.type == "cpu":
-        return ssd_scan_torch(x, dt, a, b_mat, c_mat, d, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd kernel runs on CUDA tensors, got {x.device}")
+def work(x, dt, a, b_mat, c_mat, d, chunk: int = MAX_CHUNK) -> _build.Work:
+    """FLOPs and bytes of one call: C B^T once per (row, chunk) and, per
+    (row, head, chunk), the masked score product, the inter-chunk product
+    and the state update; each input read once and y written once."""
+    b, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    chunk = min(chunk, s)
+    nc = s // chunk
+    flops = b * nc * 2 * chunk * chunk * n + b * h * nc * (2 * chunk * chunk * p
+                                                           + 4 * chunk * n * p)
+    nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4
+              + 2 * b_mat.numel() * b_mat.element_size() + 2 * h * 4)
+    return _build.Work(flops, nbytes)
+
+
+def _launch(x, dt, a, b_mat, c_mat, d, chunk):
+    """CUDA implementation of ``repro_torch::ssd_scan``: the Gram pass and
+    the chunk walk, counted once in ``ssd_scan.launches``."""
     chunk = min(chunk, x.shape[1])
     pt = _check(x, dt, a, b_mat, c_mat, d, chunk, sm_count(x.device))
     bsz, s, h, p = x.shape
@@ -240,6 +249,26 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Te
     if err:
         raise RuntimeError(f"ssd_scan launch failed: cudaError_t {err}")
     return y
+
+
+def _fake(x, dt, a, b_mat, c_mat, d, chunk):
+    return torch.empty_like(x)
+
+
+@_build.kernel_op("ssd_scan", work, _launch, _fake)
+def _ssd_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+            c_mat: torch.Tensor, d: torch.Tensor, chunk: int) -> torch.Tensor:
+    return ssd_scan_torch(x, dt, a, b_mat, c_mat, d, chunk=chunk)
+
+
+@_build.counted
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+             c_mat: torch.Tensor, d: torch.Tensor, *, chunk: int = MAX_CHUNK) -> torch.Tensor:
+    """Kernel wrapper: the custom op ``repro_torch::ssd_scan``, which
+    launches ``csrc/ssd_scan.cu`` on a CUDA tensor and runs
+    :func:`ssd_scan_torch` on a CPU tensor. ``chunk`` is capped at S."""
+    _build.require_cpu_or_cuda(x, "ssd kernel")
+    return _ssd_op(x, dt, a, b_mat, c_mat, d, chunk)
 
 
 def _bind(lib: ctypes.CDLL) -> None:

@@ -221,6 +221,9 @@ def ssd_block_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
     out = _gate_out(cfg, p, x, y.reshape(b, s, cfg.d_inner), z)
     if not want_cache:
         return out
+    # run eagerly, the block would hold these to its end, beside the state's
+    # (B, S, H, P) float32 product below
+    del h, z, xin, bm, cm, cm_f, y
     # Final SSM state at per-row prompt length T, in closed form:
     #   state_T = sum_{t<T} exp(sum_{u=t+1..T-1} dt_u a) dt_t x_t (x) b_t
     # via log-space prefix sums: no per-position states are held.
@@ -232,7 +235,10 @@ def ssd_block_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
     tmask = torch.arange(s, device=x.device)[None, :] < lengths[:, None]
     w = torch.exp(torch.clamp(cum_t - cum, max=0.0)) * tmask[..., None]
     wx = (w * dt)[..., None] * xin_f.reshape(b, s, nh, hd)           # (B, S, H, P)
-    state = torch.matmul(wx.permute(0, 2, 3, 1), bm_f[:, None])      # (B, H, P, N)
+    # one (H P, S) @ (S, N) product per row: B is shared by every head, so
+    # it is never expanded to (B, H, S, N)
+    state = torch.matmul(wx.reshape(b, s, nh * hd).transpose(1, 2),
+                         bm_f).reshape(b, nh, hd, -1)                # (B, H, P, N)
     wc = cfg.ssm_conv_width
     cache = {
         "state": state,

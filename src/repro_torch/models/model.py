@@ -170,7 +170,7 @@ class Model:
         if lengths is None:
             lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
         lengths = lengths.to(device=dev, dtype=torch.int32)
-        cache_len = int(cache_len) if cache_len else s
+        cache_len = cache_len or s
         x, cache = self._stack_prefill(params, self._embed(params, tokens),
                                        lengths=lengths)
         x = rms_norm(x, params["final_ln"])

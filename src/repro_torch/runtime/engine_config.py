@@ -120,11 +120,11 @@ class EngineConfig:
     def build_server(self, model_cfg, mesh_cfg=None, **kw):
         """A ``PlanServer`` over this config; ``kw`` goes to it (``device``,
         ``hw``, ``policy``)."""
-        from repro_torch.runtime.serve_loop import PlanServer
+        from repro_torch.runtime.serve_loop import PlanServer  # lint: allow-local-import
         return PlanServer(model_cfg, mesh_cfg, config=self, **kw)
 
     def build_engine(self, server, *, clock=None, **kw):
-        from repro_torch.runtime.engine import ServingEngine
+        from repro_torch.runtime.engine import ServingEngine  # lint: allow-local-import
         return ServingEngine(server, config=self, clock=clock, **kw)
 
     def build_client(self, model_cfg, mesh_cfg=None, *, servers=None, **kw):
@@ -149,5 +149,5 @@ class EngineConfig:
                 servers.append(srv)
         if self.replicas <= 1:
             return self.build_engine(servers[0])
-        from repro_torch.runtime.router import EngineRouter
+        from repro_torch.runtime.router import EngineRouter  # lint: allow-local-import
         return EngineRouter(servers, config=self)

@@ -80,6 +80,18 @@ def make_prefill(model):
     return prefill
 
 
+def plan_step(model, plan: ExecutionPlan, page: int):
+    """The eager step of a plan: the prompt pass of a prefill plan; for a
+    decode plan the paged decode step at the plan's bucket with its
+    decode-attention operator (``none``, an attention-free family's, reads
+    as gather)."""
+    if plan.shape.kind == "prefill":
+        return make_prefill(model)
+    kernel = plan.config.decode_kernel
+    return make_decode_step(model, page=page, seq_len=plan.shape.seq_len,
+                            decode_kernel=kernel if kernel in ("paged", "ref") else "gather")
+
+
 def greedy_decode(model, params, cache, first_token, start_pos, num_tokens,
                   decode_step=None, tables=None):
     """Greedy generation loop. ``start_pos`` is a scalar or a (B,) per-row
@@ -167,7 +179,7 @@ class PlanServer:
         gen = torch.Generator(device=self.device).manual_seed(c.seed)
         self.params = self.model.init_params(gen)
         # block-granular paged arenas (0 = row-granular)
-        self.page_size = max(0, int(c.page_size))
+        self.page_size = max(0, c.page_size)
         # compile-time cache statistics are sized for a pool provisioned
         # with ``pool_arenas`` concurrent bucket arenas; the pool's live
         # bytes are checked against them at observe() time
@@ -200,7 +212,7 @@ class PlanServer:
     def params(self, params: Dict[str, torch.Tensor]) -> None:
         """New weights: every graph captured with the old ones goes."""
         self._params = params
-        self._params_bytes = float(sum(t.nbytes for t in params.values()))
+        self._params_bytes = sum(t.nbytes for t in params.values())
         for step in list(self._decode_steps):
             step.clear()
 
@@ -215,12 +227,8 @@ class PlanServer:
         decode plan the tick of ``runtime.graph_step`` (a CUDA graph per
         arena on the card), with the plan's decode-attention operator."""
         if plan.shape.kind == "prefill":
-            return make_prefill(self.model)
-        kernel = plan.config.decode_kernel
-        step = build_decode_step(
-            make_decode_step(self.model, page=self.page_size, seq_len=plan.shape.seq_len,
-                             decode_kernel=kernel if kernel in ("paged", "ref") else "gather"),
-            self.device)
+            return plan_step(self.model, plan, self.page_size)
+        step = build_decode_step(plan_step(self.model, plan, self.page_size), self.device)
         self._decode_steps.add(step)
         return step
 

@@ -30,6 +30,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import torch
+
 HERE = Path(__file__).resolve().parents[1]
 # (label, batch, Sc, positions): the (8, 2000) request mid-decode in its
 # (8, 2048) bucket and the (1, 512) request in its (1, 1024) bucket; Yi-6B
@@ -46,15 +48,14 @@ def main() -> int:
                     choices=("write", "read", "none"))
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
+    # the tree's own chip_smoke.py and sources, chosen here at run time
     sys.path.insert(0, str(tree / "src"))
-    sys.path.insert(1, str(HERE))
-    import torch
-
+    sys.path.insert(1, str(tree))
     if not torch.cuda.is_available():
         print("paged_decode_ab: no CUDA device available", file=sys.stderr)
         return 2
-    import chip_smoke as CS
-    from repro_torch.kernels import paged_attention as PA
+    import chip_smoke as CS  # lint: allow-local-import
+    from repro_torch.kernels import paged_attention as PA  # lint: allow-local-import
 
     if not Path(PA.__file__).resolve().is_relative_to(tree):
         print(f"paged_decode_ab: imported {PA.__file__}, not from {tree}", file=sys.stderr)

@@ -23,15 +23,14 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
+import torch  # noqa: E402
+
 import chip_smoke as cs  # noqa: E402
+from repro_torch.hw import sm_count  # noqa: E402
+from repro_torch.kernels import rglru_scan as RG  # noqa: E402
 
 
 def main() -> int:
-    import torch
-
-    from repro_torch.hw import sm_count
-    from repro_torch.kernels import rglru_scan as RG
-
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--shapes", nargs="*", default=["8x2048", "4x2048", "1x4096", "1x1024"],
                     help="BxS prompt shapes at W = 2560")
