@@ -111,7 +111,33 @@ Phases, each of which must pass (nothing is caught):
 11. serve-hybrid — full recurrentgemma-2b (26 layers, bfloat16, seeded random
               weights) serving phase 5's three requests and a (1, 3000) one in
               the (1, 4096) bucket twice with graphs, every plan paged,
-              launches exact, then traced.
+              launches exact, then traced;
+   analysis — the plan, memory and cost audits (see phase_analysis);
+12. train-check — Yi-6B widths cut to 2 layers, float32, batch 2, seq 512,
+              three steps of sgd and of adam (grad_clip 1.0) through
+              ``make_train_step`` with the flash kernel's training forward
+              (``flash_attention_train``) against the same steps with
+              attention forced to the plain path (``ops.BACKEND``), with 2
+              microbatches, and with remat off: losses, grad norms and
+              parameters within the stated tolerances, flash launches exact
+              (layers x steps x microbatches x (1 + remat));
+13. train    — full Yi-6B (32 layers, bfloat16, seeded random weights),
+              (4, 2048), 8 steps of adam through ``repro_torch.launch.train``'s
+              own entry on the plan the port's planner compiles for one H100:
+              losses finite and falling, flash launches exact, no CPU
+              attention operator called; step ms, tokens/s, MFU, peak memory
+              against the plan's estimate, the checkpoint's save and restore
+              time (restored == trained), then one step traced: device time
+              by part (matmul, flash forward, attention backward, optimizer,
+              other) and the idle share;
+14. quickstart — the paper's softmax classifier through ``Keras2Plan`` on the
+              card (``repro_torch.launch.quickstart``): accuracy above 0.8,
+              matmul launches exact, the DML script byte-equal to the
+              reference's (its sha256 pinned here, held by the CPU tests).
+
+Phase 3 also holds ``flash_attention_train`` at the serving shapes (D = 128
+and 256, both dtypes): its output bit for bit the serving op's, its lse and
+its recompute backward's gradients against the plain versions.
 
 Before the last line it prints one JSON ``kernels`` line and the card's
 ``nvidia-smi`` name and power limit; the last line is the JSON ``ok`` line.
@@ -121,9 +147,12 @@ or when the port's sources are not beside it.
 
 from __future__ import annotations
 
+import gc
+import hashlib
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -148,11 +177,14 @@ from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E
 from repro_torch import hw  # noqa: E402
 from repro_torch.analysis import cost_audit, memory_audit, plan_audit  # noqa: E402
 from repro_torch.analysis import matrix as analysis_matrix  # noqa: E402
-from repro_torch.config import InputShape  # noqa: E402
+from repro_torch.checkpoint import load_checkpoint  # noqa: E402
+from repro_torch.config import InputShape, MeshConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.lenet import make_spec  # noqa: E402
 from repro_torch.core import cost  # noqa: E402
 from repro_torch.core.plan_cache import bucket_pow2 as bucket  # noqa: E402
+from repro_torch.core.planner import compile_plan  # noqa: E402
+from repro_torch.data import make_batch  # noqa: E402
 from repro_torch.frontend import Keras2Plan  # noqa: E402
 from repro_torch.hw import sm_count  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -163,10 +195,13 @@ from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import rglru_scan as RG  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.ref import paged_decode_ref  # noqa: E402
+from repro_torch.launch import quickstart  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.train_lenet import synthetic_images  # noqa: E402
 from repro_torch.models import attention as ATT  # noqa: E402
 from repro_torch.models.attention import paged_cache_write  # noqa: E402
 from repro_torch.models.blocks import _lru_decay  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.nn import loss as LOSS  # noqa: E402
 from repro_torch.nn.module import Sequential  # noqa: E402
 from repro_torch.runtime.engine import ServingEngine  # noqa: E402
@@ -177,6 +212,8 @@ from repro_torch.runtime.scheduler import (ContinuousBatchingScheduler,  # noqa:
                                            simulate_arrivals)
 from repro_torch.runtime.serve_loop import (DECODE_SPAN, PREFILL_SPAN,  # noqa: E402
                                             PlanServer, ServeRequest, make_decode_step)
+from repro_torch.runtime.train_loop import (OPTIMIZER_SPAN, init_opt_state,  # noqa: E402
+                                            make_train_step)
 SEED = 0
 # (atol, rtol, limit on the error's RMS over the reference's RMS). A
 # kernel's error passes where |got - want| <= atol + rtol * |want|.
@@ -272,6 +309,41 @@ ANALYSIS_MODELS = (("yi-6b", SERVE_REQUESTS), ("mamba2-1.3b", SERVE_REQUESTS),
                    ("recurrentgemma-2b", HYBRID_SERVE_REQUESTS))
 ANALYSIS_MEASURED: list = []
 SERVE_NEW_TOKENS = 32     # new tokens of each request of phases 5, 7 and 11
+# flash_attention_train's recompute backward in bfloat16 against autograd
+# through the plain full-score form in float32 on the same bfloat16 inputs:
+# rtol and the RMS limit are the flash check's 2^-8 (the gradients' own
+# rounding, ~1.8e-3 as an RMS ratio); the backward's delta = sum(dout * out)
+# reads the kernel's bf16-rounded out, which moves a dq or dk element near
+# zero by up to ~0.10 of the gradient's RMS (the kernel's order modelled on
+# the CPU at S = 2048, D = 128 and 256), so atol is a quarter of the
+# reference gradient's RMS
+FLASH_BWD_BF16 = (0.25, 2.0 ** -8, 2.0 ** -8)
+# train-check: Yi-6B widths cut to TRAIN_CHECK_LAYERS layers, float32,
+# (batch, seq), TRAIN_CHECK_STEPS steps, grad_clip 1.0, per optimizer lr,
+# on trainable_params' weights. The kernel path against the plain path (and
+# microbatches, remat) under the CPU tests' tolerances against the
+# reference (tests/test_torch_train.py): loss rtol 1e-5; grad_norm rtol
+# 1e-3 (softmax's backward cancels in float32; at the model's own weights
+# two float32 gradients differ by up to ~3e-4 of the largest); parameters
+# under SGD atol 1e-5 and rtol 1e-5 (lr times that spread); under Adam each
+# element within 2 x steps x lr (an element whose gradient is near Adam's
+# eps moves by a rounding-dependent fraction of lr) and the error's RMS
+# within 3e-3 of the parameter's
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_SHAPE, TRAIN_CHECK_STEPS = 2, (2, 512), 3
+TRAIN_CHECK_LR = {"sgd": 1e-3, "adam": 1e-4}
+# train: full Yi-6B, bfloat16, trainable_params' seeded random weights,
+# through repro_torch.launch.train's own entry; the plan is the planner's
+# for one H100. Adam at lr 3e-4 (the port's TrainConfig default) with the
+# launcher's grad_clip 1.0: on the card 1e-4 lowered the loss less in 8
+# steps and 1e-3 raised it (PERF.md, PR 23)
+TRAIN_STEPS, TRAIN_SHAPE, TRAIN_LR = 8, (4, 2048), 3e-4
+TRAIN_ARGS = ["--arch", "yi-6b", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_SHAPE[0]),
+              "--seq", str(TRAIN_SHAPE[1]), "--dtype", "bfloat16", "--optimizer", "adam",
+              "--lr", str(TRAIN_LR), "--log-every", "1"]
+# the quickstart's generated DML script is byte-equal to the reference's
+# (examples/quickstart.py's): sha256 of the reference's text, which
+# tests/test_torch_data_ckpt.py holds against the reference's generate_dml
+QUICKSTART_DML_SHA256 = "d20d38e672f28fedd02f8337bd83016ea00b6ceaa298af6263f890ba868f5a7b"
 _T0 = time.perf_counter()
 
 
@@ -510,6 +582,7 @@ def phase_kernels():
         max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by=by, library_ms=lib_ms)
     del q, k, v, ke, ve
+    results["flash_attention_train"] = flash_train_cases(flush, plain_flash)
     results["flash_attention_d256"] = flash_hybrid_cases(flush, plain_flash)
     results["paged_decode_attention_g10_d256"] = paged_hybrid_cases(flush)
     results["rglru_scan"] = rglru_kernel_cases(flush)
@@ -519,6 +592,100 @@ def phase_kernels():
     del flush
     torch.cuda.empty_cache()
     return results
+
+
+def flash_train_cases(flush, plain_flash) -> dict:
+    """flash_attention_train, the training forward, at the serving shapes
+    (Yi's (8, 2048) prompt pass at D = 128 and recurrentgemma-2b's at
+    D = 256, window 2048) in float32 and bfloat16: its output bit for bit
+    the serving op's and within tolerance of the plain version, its lse
+    against the plain training forward's (float32 on the same inputs), and
+    its recompute backward's dq, dk and dv against autograd through the
+    plain full-score form in float32. At Yi's shape in bfloat16 it is timed
+    by events and device time beside the serving op's device time (the
+    lse store's cost), the plain training forward, SDPA and its bound.
+    Returns its kernels-line entry."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    entry = None
+    for label, (b, hq, hkv, d, s, win) in (("D=128", (8, 32, 4, 128, 2048, 0)),
+                                           ("D=256", (8, 10, 1, 256, 2048, 2048))):
+        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, FLASH_BF16_TOL)):
+            name = f"flash_train {str(dtype)[6:]} {label} (B={b}, S={s}, window {win})"
+            q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
+            mask = dict(causal=True, window=win)
+            out, lse = FA.flash_attention_train(q, k, v, **mask)
+            serving = FA.flash_attention(q, k, v, **mask)
+            torch.cuda.synchronize()
+            if not torch.equal(out, serving):
+                fail(f"{name}: the training op's output is not the serving op's")
+            del serving
+            err = check_close(f"{name} out", out, plain_flash(q, k, v, **mask), tol)
+            _, plain_lse = FA.flash_attention_train_torch(q.float(), k.float(), v.float(),
+                                                          **mask)
+            check_close(f"{name} lse", lse, plain_lse, FP32_TOL)
+            del out, lse, plain_lse
+            grads = {}
+            dout = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(dtype)
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            FA.flash_attention_train(qq, kk, vv, **mask)[0].backward(dout)
+            qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+            FA.flash_attention_torch(qf, kf, vf, **mask).backward(dout.float())
+            for gname, got, want in (("dq", qq.grad, qf.grad), ("dk", kk.grad, kf.grad),
+                                     ("dv", vv.grad, vf.grad)):
+                gtol = FP32_TOL
+                if dtype == torch.bfloat16:
+                    rms = float(want.pow(2).mean().sqrt())
+                    gtol = (FLASH_BWD_BF16[0] * rms,) + FLASH_BWD_BF16[1:]
+                grads[gname] = check_close(f"{name} {gname} (recompute backward vs autograd "
+                                           f"through the full-score form)", got, want, gtol)
+            del qq, kk, vv, qf, kf, vf, dout
+            torch.cuda.empty_cache()
+            if label == "D=128" and dtype == torch.bfloat16:
+                def train():
+                    return FA.flash_attention_train(q, k, v, **mask)
+
+                def serve():
+                    return FA.flash_attention(q, k, v, **mask)
+
+                ms = cuda_ms(train, flush=flush)
+                serve_event_ms = cuda_ms(serve, flush=flush)
+                _, names = device_ms(train, "flash", flush)
+                # per launch, both ops in turns: train, serve, serve, train
+                readings = {"train": [], "serve": []}
+                for label_fn in ("train", "serve", "serve", "train"):
+                    readings[label_fn].append(launch_ms(train if label_fn == "train" else serve,
+                                                        "flash", flush))
+                dev_ms, serve_ms = (
+                    statistics.mean(got) if (got := [r[0] for r in readings[op]
+                                                     if r[0] is not None]) else None
+                    for op in ("train", "serve"))
+                plain_ms = cuda_ms(lambda: FA.flash_attention_train_torch(q, k, v, **mask),
+                                   reps=5, flush=flush)
+                ke, ve = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
+                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, ke, ve,
+                                                                         is_causal=True),
+                                 flush=flush)
+                del ke, ve
+                flops, nbytes = FA.work_train(q, k, v, True, win, -1)
+                bound, by = _bound_ms(nbytes, flops, dtype)
+                print(f"  flash_train timing, {label}: kernel {ms:.4f} ms by events "
+                      f"({_tflops(flops, ms)}; the serving op {serve_event_ms:.4f}), device "
+                      f"time per launch {_dev(dev_ms)} against the serving op's "
+                      f"{_dev(serve_ms)} (the lse store; readings in turns train, serve, "
+                      f"serve, train: {readings['train']}, {readings['serve']} as (ms, "
+                      f"launches traced of 10)) "
+                      f"({', '.join(_short(n) for n in names) or 'no events'}), plain training "
+                      f"forward {plain_ms:.3f} ms, scaled_dot_product_attention "
+                      f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP)")
+                entry = dict(name="flash_attention_train", route="cuda",
+                             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                             replaces="src/repro/kernels/flash_attention.py:116",
+                             max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, library_ms=lib_ms)
+            del q, k, v
+    return entry
 
 
 def flash_hybrid_cases(flush, plain_flash) -> dict:
@@ -932,6 +1099,24 @@ def device_ms(fn, family: str, flush, calls: int = 10) -> tuple:
     times = traced_kernels(fn, calls=calls, flush=flush)
     mine = {k: v for k, v in times.items() if _kernel_family(k) == family}
     return (sum(mine.values()) if mine else None), mine
+
+
+def launch_ms(fn, family: str, flush, calls: int = 10) -> tuple:
+    """(device milliseconds per launch or None, launches in the trace) of
+    the kernels of ``family`` that ``fn`` launches: the mean over the
+    launches the trace holds, so a session that drops events (as noted in
+    phase 9) reads low in its count, not in its time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and _kernel_family(e.name) == family]
+    return (sum(durs) / len(durs) / 1e3 if durs else None), len(durs)
 
 
 def _dev(ms) -> str:
@@ -2660,6 +2845,288 @@ def phase_analysis() -> None:
     print(f"  analysis: 0 findings in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# training: train-check (2 layers, float32), train (full Yi-6B), quickstart
+# ---------------------------------------------------------------------------
+
+
+# the attention projections' fan-in: the model's initialisation (the
+# reference's SpecBuilder) scales every "normal" weight by its second-to-last
+# dimension, which for the 4-D stacked projections is the head count (wq,
+# wk, wv: (L, d, H, Dh)) or the head dim (wo: (L, H, Dh, d)), not the
+# d_model or H * Dh inputs they contract
+PROJ_FAN_IN = {"wq": lambda sh: sh[1], "wk": lambda sh: sh[1], "wv": lambda sh: sh[1],
+               "wo": lambda sh: sh[1] * sh[2]}
+
+
+def trainable_params(model, seed: int) -> dict:
+    """Seeded random weights for the training phases: the model's own
+    initialisation with each attention projection rescaled to 1/sqrt of the
+    inputs it contracts. At the model's own scales (wk's std 0.5 at Yi's 4 kv
+    heads) a full-depth Yi-6B's attention saturates (scores of several
+    hundred) and its gradients grow several-fold a layer, to a global norm
+    of ~1e25 at 32 layers: no optimizer setting lowered its loss in 8 steps
+    (PERF.md, PR 23). Every other entry is the model's own."""
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    for key, p in params.items():
+        name = key.split(".")[-1]
+        if name in PROJ_FAN_IN:
+            sh = p.shape
+            p.mul_(math.sqrt(sh[-2] / PROJ_FAN_IN[name](sh)))
+    return params
+
+
+def _train_run(model, cfg, plan, opt, shape, init, backend="auto") -> tuple:
+    """TRAIN_CHECK_STEPS steps of ``make_train_step`` from a copy of
+    ``init`` under ``ops.BACKEND = backend``: (per-step metrics, final
+    params, flash_attention_train launches)."""
+    ops.BACKEND = backend
+    params = {k: v.clone() for k, v in init.items()}
+    state = init_opt_state(opt, params, plan)
+    train = TrainConfig(optimizer=opt, learning_rate=TRAIN_CHECK_LR[opt], grad_clip=1.0)
+    step = make_train_step(model, plan, MeshConfig((1,), ("data",)), train)
+    FA.flash_attention_train.launches = 0
+    recs = []
+    for i in range(TRAIN_CHECK_STEPS):
+        batch = make_batch(cfg, shape, step=i, dtype=torch.float32, device="cuda")
+        params, state, met = step(params, state, batch, i)
+        recs.append({k: float(v) for k, v in met.items()})
+    launches = FA.flash_attention_train.launches
+    ops.BACKEND = "auto"
+    del state
+    return recs, params, launches
+
+
+def _same_trajectory(label, opt, got, want) -> None:
+    """Holds one train-check run against another under the train-check
+    tolerances, printing the largest readings."""
+    (grecs, gparams, _), (wrecs, wparams, _) = got, want
+    worst = {"loss": 0.0, "xent": 0.0, "grad_norm": 0.0}
+    for g, w in zip(grecs, wrecs, strict=True):
+        for key, rtol in (("loss", 1e-5), ("xent", 1e-5), ("grad_norm", 1e-3)):
+            rel = abs(g[key] - w[key]) / max(abs(w[key]), 1e-30)
+            worst[key] = max(worst[key], rel)
+            if not (math.isfinite(g[key]) and rel <= rtol):
+                fail(f"train-check {label}: {key} {g[key]} against {w[key]} (rtol {rtol})")
+    lr = TRAIN_CHECK_LR[opt]
+    max_err = max_rms = 0.0
+    for k, want_t in wparams.items():
+        want_t = want_t.float()
+        err = (gparams[k].float() - want_t).abs()
+        rms = float(err.pow(2).mean().sqrt()) / max(float(want_t.pow(2).mean().sqrt()), 1e-30)
+        if opt == "sgd":
+            ok = not bool((err > 1e-5 + 1e-5 * want_t.abs()).any())
+        else:
+            ok = float(err.max()) <= 2 * TRAIN_CHECK_STEPS * lr and rms <= 3e-3
+        max_err, max_rms = max(max_err, float(err.max())), max(max_rms, rms)
+        if not ok:
+            fail(f"train-check {label}: parameter {k} max error {float(err.max()):.3e}, "
+                 f"error RMS / RMS {rms:.3e}")
+    print(f"  {label}: losses {[round(r['loss'], 6) for r in grecs]}; largest relative error "
+          f"of loss {worst['loss']:.2e}, grad_norm {worst['grad_norm']:.2e}; parameters: max "
+          f"error {max_err:.2e}, error RMS / RMS {max_rms:.2e}")
+
+
+def phase_train_check() -> None:
+    b, s = TRAIN_CHECK_SHAPE
+    phase(f"train-check: Yi-6B widths, {TRAIN_CHECK_LAYERS} layers, float32, batch {b}, seq "
+          f"{s}, {TRAIN_CHECK_STEPS} steps, sgd and adam, grad_clip 1.0: the flash kernel's "
+          f"path == the plain path, microbatches 1 == 2, remat on == off")
+    cfg = replace(get_config("yi-6b"), num_layers=TRAIN_CHECK_LAYERS)
+    model = build_model(cfg, dtype=torch.float32)
+    shape = InputShape("train-check", s, b, "train")
+    plan = compile_plan(cfg, shape, MeshConfig((1,), ("data",)), TrainConfig(),
+                        dtype="float32").config
+    print(f"  plan: {plan.strategy.value}, opt state {plan.opt_state_dtype}, remat "
+          f"{plan.remat}, microbatches {plan.microbatches}")
+    init = trainable_params(model, SEED)
+    for opt in ("sgd", "adam"):
+        kern = _train_run(model, cfg, plan, opt, shape, init)
+        runs = {"plain": (plan, "torch"), "microbatches 2": (plan.replace(microbatches=2), "auto"),
+                "remat off": (plan.replace(remat=False), "auto")}
+        per_step = TRAIN_CHECK_LAYERS * (1 + plan.remat)
+        print(f"  {opt}: kernel path {kern[2]} flash_attention_train launches "
+              f"(expected {TRAIN_CHECK_LAYERS} layers x {TRAIN_CHECK_STEPS} steps x "
+              f"{1 + plan.remat})")
+        if kern[2] != per_step * TRAIN_CHECK_STEPS:
+            fail(f"train-check {opt}: {kern[2]} launches, expected "
+                 f"{per_step * TRAIN_CHECK_STEPS}")
+        for label, (p, backend) in runs.items():
+            other = _train_run(model, cfg, p, opt, shape, init, backend)
+            want = (0 if backend == "torch" else
+                    TRAIN_CHECK_LAYERS * (1 + p.remat) * p.microbatches * TRAIN_CHECK_STEPS)
+            if other[2] != want:
+                fail(f"train-check {opt} {label}: {other[2]} launches, expected {want}")
+            _same_trajectory(f"{opt}, kernel path vs {label} ({other[2]} launches)", opt,
+                             kern, other)
+            del other
+        del kern
+    del init, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class _Calls:
+    """Counts calls of the model's CPU attention operators while the train
+    phase runs (a step on the card must take none)."""
+
+    NAMES = ("_einsum", "_blocked")
+
+    def __enter__(self):
+        self.calls = {n: 0 for n in self.NAMES}
+        self.saved = {n: getattr(ATT, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            def counting(*a, _n=n, _fn=fn, **kw):
+                self.calls[_n] += 1
+                return _fn(*a, **kw)
+            setattr(ATT, n, counting)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(ATT, n, fn)
+
+
+def _annotated(events, name):
+    """Device-side (start, end) of the profiler's annotations of the CPU
+    span ``name`` (the kernels launched inside it)."""
+    return [(e.time_range.start, e.time_range.end) for e in events
+            if e.name == name and e.device_type == DeviceType.CUDA and e.is_user_annotation]
+
+
+def step_breakdown(events, span: str) -> None:
+    """Device time of one traced train step by part: the flash forward,
+    the attention backward (kernels inside its spans' device annotations),
+    the optimizer (likewise), the other matrix products, the rest; the
+    step's busy time and idle share."""
+    found = [e.time_range for e in events if e.name == span and e.device_type == DeviceType.CPU]
+    dev = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    if not found or not dev:
+        print(f"    train step: not measured ({len(found)} spans, {len(dev)} device events)")
+        return
+    lo, hi = found[0].start, found[0].end
+    inside = [e for e in dev if lo <= e.time_range.start < hi]
+    regions = {"attention backward": _annotated(events, FA.BACKWARD_SPAN),
+               "optimizer": _annotated(events, OPTIMIZER_SPAN)}
+    parts = {"matmul": 0.0, "flash forward": 0.0, "attention backward": 0.0,
+             "optimizer": 0.0, "other": 0.0}
+    flash = sum(1 for e in inside if _kernel_family(e.name) == "flash")
+    for e in inside:
+        dur = e.time_range.end - e.time_range.start
+        part = next((p for p, spans in regions.items()
+                     if any(a <= e.time_range.start < b for a, b in spans)), None)
+        if part is None:
+            fam = _kernel_family(e.name)
+            part = {"flash": "flash forward", "matmul": "matmul"}.get(fam, "other")
+        parts[part] += dur
+    busy = _busy_us((e.time_range.start, min(e.time_range.end, hi)) for e in inside)
+    print(f"    train step (traced): span {(hi - lo) / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms, idle share {1 - busy / (hi - lo):.3f}, {len(inside)} device "
+          f"events; device time: " + ", ".join(f"{p} {v / 1e3:.3f} ms" for p, v in parts.items())
+          + (f" (flash launches in the trace {flash}; annotations: attention backward "
+             f"{len(regions['attention backward'])}, optimizer {len(regions['optimizer'])})"))
+
+
+def phase_train() -> dict:
+    b, s = TRAIN_SHAPE
+    phase(f"train: full Yi-6B (32 layers, bfloat16, seeded random weights), batch {b}, seq "
+          f"{s}, {TRAIN_STEPS} steps of adam at lr {TRAIN_LR} through "
+          f"repro_torch.launch.train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  device memory before: {_mem()}")
+    ckpt = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in _build.COUNTED:
+        fn.launches = 0
+    model = build_model(get_config("yi-6b"), dtype=torch.bfloat16)
+    init = trainable_params(model, SEED)
+    del model
+    with _Calls() as plain:
+        run = train_cli.main(TRAIN_ARGS + ["--checkpoint", str(ckpt)], params=init)
+    del init
+    launches = {fn.__name__: fn.launches for fn in _build.COUNTED}
+    peak = torch.cuda.max_memory_allocated()
+    plan = run.plan.config
+    layers = run.cfg.layer_pattern().count("a")
+    want = layers * TRAIN_STEPS * (1 + plan.remat) * plan.microbatches
+    losses = [h["loss"] for h in run.timer.history]
+    secs = [h["seconds"] for h in run.timer.history]
+    step_s = statistics.median(secs[2:8])
+    flops = cost.model_flops_per_step(run.cfg, run.shape)
+    print(f"  plan: {plan.strategy.value}, opt state {plan.opt_state_dtype}, remat "
+          f"{plan.remat}, microbatches {plan.microbatches}; estimate "
+          f"{run.plan.memory.total / 2**30:.2f} GiB a card")
+    print(f"  losses {[round(x, 4) for x in losses]}; step seconds "
+          f"{[round(x, 4) for x in secs]}")
+    print(f"  step {step_s * 1e3:.1f} ms (median of steps 2-7), {b * s / step_s:.0f} tokens/s, "
+          f"mfu {flops / step_s / hw.H100.peak_flops:.4f} ({flops / 1e12:.1f} model TFLOP a "
+          f"step against {hw.H100.peak_flops / 1e12:.0f} TFLOP/s)")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB against the plan's estimate "
+          f"{run.plan.memory.total / 2**30:.2f} GiB"
+          f"{' — ABOVE the estimate' if peak > run.plan.memory.total else ''}")
+    print(f"  launches {launches} (flash_attention_train expected {layers} layers x "
+          f"{TRAIN_STEPS} steps x {1 + plan.remat} = {want}); the model's CPU attention "
+          f"operators called {plain.calls}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: a loss is not finite: {losses}")
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        fail(f"train: the mean of the last three losses {statistics.mean(losses[-3:])} is "
+             f"not below step 0's {losses[0]}")
+    if launches["flash_attention_train"] != want:
+        fail(f"train: {launches['flash_attention_train']} flash_attention_train launches, "
+             f"expected {want}")
+    if any(plain.calls.values()):
+        fail(f"train: the step on the card took the CPU attention operators {plain.calls}")
+
+    t0 = time.perf_counter()
+    restored, step = load_checkpoint(str(ckpt), run.params)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = all(torch.equal(restored[k], run.params[k]) for k in run.params)
+    size = sum(f.stat().st_size for f in ckpt.iterdir())
+    print(f"  checkpoint: {size / 2**30:.2f} GiB saved in {run.save_s:.1f} s, restored in "
+          f"{restore_s:.1f} s (step {step}), equal to the trained parameters: {same}")
+    if step != TRAIN_STEPS or not same:
+        fail("train: the restored checkpoint differs from the trained parameters")
+    del restored
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # one more step, traced (it updates the parameters in place)
+    batch = make_batch(run.cfg, run.shape, step=TRAIN_STEPS, dtype=run.dtype, device="cuda")
+    span = "train.step"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(span):
+            run.step_fn(run.params, run.opt_state, batch, TRAIN_STEPS)
+            torch.cuda.synchronize()
+    step_breakdown(prof.events(), span)
+    del prof, batch, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention_train": launches["flash_attention_train"]}
+
+
+def phase_quickstart() -> None:
+    phase("quickstart: the paper's softmax classifier through Keras2Plan on the card "
+          "(repro_torch.launch.quickstart)")
+    MM.matmul.launches = 0
+    model, acc = quickstart.main([])
+    launches = MM.matmul.launches
+    steps = len(model.history)
+    digest = hashlib.sha256(model.dml_script.encode()).hexdigest()
+    print(f"  accuracy {acc:.4f} on {model.device}; {steps} steps; matmul launches {launches} "
+          f"(expected one per step's affine forward and one scoring pass = {steps + 1}); "
+          f"DML script sha256 {digest[:16]}... "
+          f"{'== the reference' if digest == QUICKSTART_DML_SHA256 else '!= the reference'}")
+    if digest != QUICKSTART_DML_SHA256:
+        fail("quickstart: the generated DML script differs from the reference's")
+    if launches != steps + 1:
+        fail(f"quickstart: {launches} matmul launches, expected {steps + 1}")
+    if not acc > 0.8:
+        fail(f"quickstart: accuracy {acc} is not above 0.8")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script", file=sys.stderr)
@@ -2685,6 +3152,9 @@ def main() -> int:
     phase_serve_check_hybrid()
     launches.update(phase_serve_hybrid())
     phase_analysis()
+    phase_train_check()
+    launches.update(phase_train())
+    phase_quickstart()
     for name, n in launches.items():
         kernels[name]["launches"] = n
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -2692,7 +3162,8 @@ def main() -> int:
     line = {"kernels": [{key: kernels[n][key] for key in order}
                         for n in ("paged_decode_attention", "flash_attention", "ssd_scan",
                                   "matmul", "conv2d_im2col", "flash_attention_d256",
-                                  "paged_decode_attention_g10_d256", "rglru_scan")]}
+                                  "paged_decode_attention_g10_d256", "rglru_scan",
+                                  "flash_attention_train")]}
     for entry in line["kernels"]:
         for key in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms"):
             if entry[key] is not None and not math.isfinite(entry[key]):

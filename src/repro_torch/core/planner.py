@@ -15,6 +15,16 @@ per-device memory budget, scored by the analytic cost model. The same escalation
 SystemML performs between "driver JVM single-node plan" and "distributed
 RDD plan" happens here between LOCAL / DATA_PARALLEL / +TP / FSDP /
 opt-state-compression / gradient-accumulation.
+
+One difference from the reference, for training on one card: the
+reference's single-device lattice holds one plan (LOCAL, float32 optimizer
+state unless the caller asks otherwise), because its single device is a CPU
+for tests while its deployments are meshes. On the H100 one card is a
+deployment, so there LOCAL walks on as the multi-device lattice does:
+optimizer state compressed to bfloat16 (unless it is bfloat16 already),
+then gradient accumulation in doubling microbatches. A 6B
+model's float32 Adam state and master copy alone (72 GB) do not fit one
+card. Under any other ``HardwareSpec`` the lattice is the reference's.
 """
 
 from __future__ import annotations
@@ -307,7 +317,7 @@ class PlanCompiler:
 
         if mesh.num_devices == 1:
             # single-node plan — SystemML's driver-JVM case
-            yield PlanConfig(
+            local = PlanConfig(
                 strategy=Strategy.LOCAL,
                 batch_axes=(),
                 attention_variant=variant,
@@ -315,6 +325,9 @@ class PlanCompiler:
                 microbatches=1,
                 opt_state_dtype=train.opt_state_dtype or "float32",
             )
+            yield local
+            if shape.kind == "train" and self.hw.name == H100.name:
+                yield from self._local_train_escalation(local, shape, train)
             return
 
         if shape.kind == "train":
@@ -325,6 +338,24 @@ class PlanCompiler:
             yield from self._serve_candidates(
                 model, shape, mesh, variant, batch_axes, is_moe
             )
+
+    @staticmethod
+    def _local_train_escalation(local: PlanConfig, shape: InputShape,
+                                train: TrainConfig) -> Iterator[PlanConfig]:
+        """One card's training plans past LOCAL, in the multi-device
+        lattice's order, conditions and notes: bfloat16 optimizer state
+        (unless it is already), then gradient accumulation x2, x4, ... up
+        to the batch."""
+        plan = local
+        if (train.opt_state_dtype or "float32") == "float32":
+            plan = plan.replace(opt_state_dtype="bfloat16",
+                                notes=("opt-state compressed to bf16 by planner",))
+            yield plan
+        micro = 2
+        while micro <= shape.global_batch:
+            yield plan.replace(microbatches=micro,
+                               notes=plan.notes + (f"grad-accum x{micro}",))
+            micro *= 2
 
     def _train_candidates(self, model, shape, mesh, train, variant, batch_axes, is_moe):
         base = PlanConfig(

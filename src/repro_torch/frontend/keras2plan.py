@@ -87,7 +87,8 @@ def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "Keras2Plan(mesh=...): parfor scoring over a device mesh needs core/parfor.py, "
-            "which is ported with the training runtime in slice 5 (ROADMAP Queue A 14)")
+            "which is ported with the multi-device half of the training runtime in slice 5 "
+            "(ROADMAP Queue A 14b)")
 
 
 class Keras2Plan:

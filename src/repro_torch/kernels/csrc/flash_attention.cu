@@ -8,7 +8,12 @@
 //                       && (window <= 0 || j > q_offset + i - window),
 // scores q . k * D^-0.5 in float32 masked out, an online softmax in float32,
 // P cast to V's dtype before the P.V product, and rows with no unmasked key
-// giving zeros.
+// giving zeros. Where the caller passes an lse buffer (B, Hq, Sq) in float32,
+// each row's log-sum-exp of its scaled scores, m + log(l), lands there too
+// (-1e30 for a row with no unmasked key): the training forward's residual,
+// from which the backward recomputes each key chunk's probabilities
+// (src/repro/models/attention.py, _blocked_fwd_impl and _blocked_bwd). The
+// epilogue already holds each row's m and l, so it costs one float a row.
 //
 // What bounds it on an H100: operations. At prefill lengths each K/V tile
 // is reused by a whole tile of queries, so the work per byte is far above
@@ -77,6 +82,7 @@ constexpr int NT = 128;                // threads per block (fp32, mma.sync)
 constexpr int KTP = BK + 4;            // padded row of the transposed K tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 constexpr int smem_floats() {
@@ -118,6 +124,7 @@ flash_fp32_kernel(const float* __restrict__ q,   // (B, Hq, Sq, D)
                   const float* __restrict__ k,   // (B, Hkv, Sk, D)
                   const float* __restrict__ v,   // (B, Hkv, Sk, D)
                   float* __restrict__ out,       // (B, Hq, Sq, D)
+                  float* __restrict__ lse,       // (B, Hq, Sq) or null
                   int hq, int hkv, int sq, int sk, int causal, int window,
                   int q_offset, float scale) {
   constexpr int DC = D / 16;           // output columns per thread
@@ -262,6 +269,9 @@ flash_fp32_kernel(const float* __restrict__ q,   // (B, Hq, Sq, D)
       const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
 #pragma unroll
       for (int j = 0; j < DC; ++j) ob[(size_t)r * D + tx + 16 * j] = o[i][j] * inv;
+      // q was pre-scaled: m is the row's largest scaled score
+      if (lse != nullptr && tx == 0)
+        lse[(size_t)bh * sq + r] = l[i] == 0.f ? kNegInf : m[i] + logf(l[i]);
     }
   }
 }
@@ -325,6 +335,14 @@ __device__ __forceinline__ float softmax_row(float (&s)[N], float& ms, float& l,
   return alpha;
 }
 
+// A row's log-sum-exp of its scaled scores from the exp2 softmax's state:
+// ms is the running max of the scores times scale * log2(e), so the max of
+// the scaled scores is ms * ln(2), and l sums exp2(s * c - ms) = exp(s *
+// scale - ms * ln(2)); -1e30 for a row with no unmasked key (l == 0).
+__device__ __forceinline__ float row_lse(float ms, float l) {
+  return l == 0.f ? kNegInf : ms * kLn2 + logf(l);
+}
+
 // ---------------------------------------------------------------------------
 // bfloat16, D = 32 and 64: mma.sync m16n8k16, float32 accumulate
 // ---------------------------------------------------------------------------
@@ -379,6 +397,7 @@ flash_mma_kernel(const bf16* __restrict__ q,   // (B, Hq, Sq, D)
                  const bf16* __restrict__ k,   // (B, Hkv, Sk, D)
                  const bf16* __restrict__ v,   // (B, Hkv, Sk, D)
                  bf16* __restrict__ out,       // (B, Hq, Sq, D)
+                 float* __restrict__ lse,      // (B, Hq, Sq) or null
                  int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
                  float c) {                    // scale * log2(e)
   static_assert(D <= 64, "flash_mma_kernel keeps a warp's Q fragments in registers");
@@ -490,6 +509,8 @@ flash_mma_kernel(const bf16* __restrict__ q,   // (B, Hq, Sq, D)
         *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r * D + col) =
             __floats2bfloat162_rn(o[j][half * 2] * inv, o[j][half * 2 + 1] * inv);
       }
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[(size_t)bh * sq + r] = row_lse(ms[half], l[half]);
     }
   }
 }
@@ -775,6 +796,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // (D, Sq, B*Hq)
                    const __grid_constant__ CUtensorMap tm_k,   // (D, Sk, B*Hkv)
                    const __grid_constant__ CUtensorMap tm_v,   // (D, Sk, B*Hkv)
                    bf16* __restrict__ out,                     // (B, Hq, Sq, D)
+                   float* __restrict__ lse,                    // (B, Hq, Sq) or null
                    int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
                    float c) {                                  // scale * log2(e)
   using namespace wg;
@@ -888,6 +910,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // (D, Sq, B*Hq)
           for (int j = 0; j < 16; ++j)
             *reinterpret_cast<__nv_bfloat162*>(orow + 128 * h + 8 * j) =
                 __floats2bfloat162_rn(o[h][4 * j + 2 * i] * inv, o[h][4 * j + 2 * i + 1] * inv);
+        if (lse != nullptr && lane % 4 == 0) lse[(size_t)bh * sq + r] = row_lse(ms[i], l[i]);
       }
     }
   }
@@ -898,9 +921,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // (D, Sq, B*Hq)
 // ---------------------------------------------------------------------------
 
 template <int D>
-cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* out, int batch,
-                        int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
-                        float scale, cudaStream_t stream) {
+cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int batch, int hq, int hkv, int sq, int sk, int causal, int window,
+                        int q_offset, float scale, cudaStream_t stream) {
   const int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(flash_fp32_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -908,15 +931,15 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* out, 
   dim3 grid((sq + BQ - 1) / BQ, batch * hq);
   flash_fp32_kernel<D><<<grid, NT, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), hq, hkv, sq, sk, causal,
+      static_cast<const float*>(v), static_cast<float*>(out), lse, hq, hkv, sq, sk, causal,
       window, q_offset, scale);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int batch,
-                       int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
-                       float scale, cudaStream_t stream) {
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int batch, int hq, int hkv, int sq, int sk, int causal, int window,
+                       int q_offset, float scale, cudaStream_t stream) {
   const int bytes = mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -924,7 +947,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, i
   dim3 grid((sq + BQ - 1) / BQ, batch * hq);
   flash_mma_kernel<D><<<grid, NT, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), hq, hkv, sq, sk, causal, window, q_offset, scale * kLog2e);
+      static_cast<bf16*>(out), lse, hq, hkv, sq, sk, causal, window, q_offset,
+      scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -969,9 +993,9 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int width, int
 }
 
 template <int D>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int batch,
-                         int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
-                         float scale, cudaStream_t stream) {
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
+                         int batch, int hq, int hkv, int sq, int sk, int causal, int window,
+                         int q_offset, float scale, cudaStream_t stream) {
   using L = wg::Layout<D>;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
@@ -985,24 +1009,24 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   dim3 grid(batch * hq, (sq + wg::BM - 1) / wg::BM);
   flash_wgmma_kernel<D><<<grid, wg::THREADS, L::SMEM_BYTES, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(out), hq, hkv, sq, sk, causal, window, q_offset,
+      tq, tk, tv, static_cast<bf16*>(out), lse, hq, hkv, sq, sk, causal, window, q_offset,
       scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* out,
-                   int batch, int hq, int hkv, int sq, int sk, int causal, int window,
+                   float* lse, int batch, int hq, int hkv, int sq, int sk, int causal, int window,
                    int q_offset, float scale, cudaStream_t s) {
   if (dtype == 0)
-    return launch_fp32<D>(q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset,
+    return launch_fp32<D>(q, k, v, out, lse, batch, hq, hkv, sq, sk, causal, window, q_offset,
                           scale, s);
   if (dtype != 1) return cudaErrorInvalidValue;
   if constexpr (D >= 128)
-    return launch_wgmma<D>(q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset,
+    return launch_wgmma<D>(q, k, v, out, lse, batch, hq, hkv, sq, sk, causal, window, q_offset,
                            scale, s);
   else
-    return launch_mma<D>(q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset,
+    return launch_mma<D>(q, k, v, out, lse, batch, hq, hkv, sq, sk, causal, window, q_offset,
                          scale, s);
 }
 
@@ -1010,29 +1034,31 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
 
 // dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 128, 256}; rows must be
 // 16-byte aligned. bfloat16 at d = 128 and 256 runs flash_wgmma_kernel<d>,
-// at d = 32 and 64 flash_mma_kernel<d>. Returns the launch's cudaError_t.
+// at d = 32 and 64 flash_mma_kernel<d>. lse: null, or (batch, hq, sq)
+// float32 for each row's log-sum-exp. Returns the launch's cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
-                               int dtype, int batch, int hq, int hkv, int sq, int sk, int d,
-                               int causal, int window, int q_offset, float scale,
-                               void* stream) {
+                               void* lse_out, int dtype, int batch, int hq, int hkv, int sq,
+                               int sk, int d, int causal, int window, int q_offset,
+                               float scale, void* stream) {
   if (hkv < 1 || hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   cudaError_t err;
   switch (d) {
     case 32:
-      err = launch<32>(dtype, q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset,
+      err = launch<32>(dtype, q, k, v, out, lse, batch, hq, hkv, sq, sk, causal, window, q_offset,
                        scale, s);
       break;
     case 64:
-      err = launch<64>(dtype, q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset,
+      err = launch<64>(dtype, q, k, v, out, lse, batch, hq, hkv, sq, sk, causal, window, q_offset,
                        scale, s);
       break;
     case 128:
-      err = launch<128>(dtype, q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset,
+      err = launch<128>(dtype, q, k, v, out, lse, batch, hq, hkv, sq, sk, causal, window, q_offset,
                         scale, s);
       break;
     case 256:
-      err = launch<256>(dtype, q, k, v, out, batch, hq, hkv, sq, sk, causal, window, q_offset,
+      err = launch<256>(dtype, q, k, v, out, lse, batch, hq, hkv, sq, sk, causal, window, q_offset,
                         scale, s);
       break;
     default:

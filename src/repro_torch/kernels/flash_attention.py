@@ -21,6 +21,16 @@ expansion is never materialized.
 - :func:`flash_attention_torch` is the plain version: the same masks
   applied to the full score matrix (``kernels/ref.py::attention_ref`` with
   the kernel's ``q_offset`` convention).
+- :func:`flash_attention_train` is the training forward, the custom op
+  ``repro_torch::flash_attention_train``: the same kernel, which then also
+  writes each row's log-sum-exp of its scaled scores (``lse``, float32,
+  -1e30 for a row with no unmasked key), returning ``(out, lse)``. Its
+  gradient is the reference's recompute rule (``_blocked``'s custom VJP,
+  ``repro/models/attention.py``), :func:`attention_bwd_torch`: plain
+  PyTorch, as the reference computes it outside any Pallas kernel. Its CPU
+  implementation is :func:`flash_attention_train_torch`, the reference's
+  ``_blocked_fwd_impl`` (online softmax over KV chunks of ``KV_CHUNK``).
+  The serving op keeps its schema and writes no ``lse``.
 - :func:`flash_attention_tiled` is the plain version in the bfloat16
   kernels' own order and rounding (:func:`key_tile` keys per tile, a
   running max, exp2 of the scores times ``scale * log2(e)``, P rounded to
@@ -31,9 +41,11 @@ expansion is never materialized.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.hw import H100
 from repro_torch.kernels import _build
@@ -51,6 +63,11 @@ BQ, BK = 64, 64
 WGMMA_BQ = 128
 WGMMA_TILES = {128: (128, 3), 256: (64, 2)}
 LOG2E = 1.4426950408889634
+# keys per chunk of the plain training forward and of the recompute backward
+# (the reference's models/attention.py KV_CHUNK)
+KV_CHUNK = 1024
+# the recompute backward's span in a torch.profiler trace
+BACKWARD_SPAN = "attention.backward"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -145,6 +162,96 @@ def flash_attention_tiled(q, k, v, *, causal: bool = True, window: int = 0,
     return (acc / torch.where(l == 0, 1.0, l)).reshape(b, hq, sq, d)
 
 
+def _chunk_mask(qpos, k0, n, sk, causal, window):
+    """(Sq, n) keys k0 .. k0 + n - 1 each query position sees."""
+    kpos = k0 + torch.arange(n, device=qpos.device)[None, :]
+    msk = kpos < sk
+    if causal:
+        msk = msk & (kpos <= qpos[:, None])
+    if window > 0:
+        msk = msk & (kpos > qpos[:, None] - window)
+    return msk.expand(qpos.shape[0], n)
+
+
+def flash_attention_train_torch(q, k, v, *, causal: bool = True, window: int = 0,
+                                q_offset: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain training forward, the reference's ``_blocked_fwd_impl``: q (B,
+    Hq, Sq, D), k/v (B, Hkv, Sk, D) -> (out in q's dtype, lse (B, Hq, Sq)
+    float32). An online softmax in float32 over chunks of ``KV_CHUNK``
+    keys, each GQA group's queries against its kv head (no expansion);
+    ``lse`` is the log-sum-exp of the scaled scores, -1e30 for a row with
+    no unmasked key (whose output is zero)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    off = sk - sq if q_offset < 0 else q_offset
+    chunk = min(KV_CHUNK, sk)
+    qf = (q.float() * (d ** -0.5)).reshape(b, hkv, g * sq, d)
+    qpos = off + torch.arange(sq, device=q.device)
+    m = torch.full((b, hkv, g, sq), NEG_INF, device=q.device)
+    l_sum = torch.zeros((b, hkv, g, sq), device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, d), device=q.device)
+    for k0 in range(0, sk, chunk):
+        kb, vb = k[:, :, k0:k0 + chunk].float(), v[:, :, k0:k0 + chunk].float()
+        msk = _chunk_mask(qpos, k0, kb.shape[2], sk, causal, window)
+        s = torch.matmul(qf, kb.transpose(-1, -2)).reshape(b, hkv, g, sq, -1)
+        s = torch.where(msk, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(msk, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l_sum = alpha * l_sum + p.sum(-1)
+        pv = torch.matmul(p.reshape(b, hkv, g * sq, -1), vb).reshape(b, hkv, g, sq, d)
+        acc = alpha[..., None] * acc + pv
+        m = m_new
+    l_safe = torch.where(l_sum == 0, 1.0, l_sum)
+    out = (acc / l_safe[..., None]).reshape(b, hq, sq, d).to(q.dtype)
+    lse = torch.where(l_sum == 0, NEG_INF, m + torch.log(l_safe)).reshape(b, hq, sq)
+    return out, lse
+
+
+def attention_bwd_torch(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
+                        q_offset: int = -1) -> Tuple[torch.Tensor, ...]:
+    """The reference's recompute backward (``_blocked_bwd``): the gradients
+    of ``(q, k, v)`` from the forward's ``out`` and ``lse`` and the output's
+    gradient, all in the kernel's layout (q, out, dout (B, Hq, Sq, D), k/v
+    (B, Hkv, Sk, D), lse (B, Hq, Sq)). Per chunk of ``KV_CHUNK`` keys, in
+    float32: ``p = exp(q.k * scale - lse)`` masked, ``delta = sum(dout *
+    out)``, ``ds = p * (dout.v - delta) * scale``; dk and dv are summed over
+    each GQA group's query heads, so K/V are never expanded. Returns (dq,
+    dk, dv) in q's, k's and v's dtypes."""
+    with record_function(BACKWARD_SPAN):
+        return _attention_bwd(q, k, v, out, lse, dout, causal, window, q_offset)
+
+
+def _attention_bwd(q, k, v, out, lse, dout, causal, window, q_offset):
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    off = sk - sq if q_offset < 0 else q_offset
+    chunk = min(KV_CHUNK, sk)
+    scale = d ** -0.5
+    qf = q.float().reshape(b, hkv, g * sq, d)
+    doutf = dout.float().reshape(b, hkv, g * sq, d)
+    delta = (doutf * out.float().reshape(b, hkv, g * sq, d)).sum(-1)
+    lse_r = lse.reshape(b, hkv, g * sq, 1)
+    qpos = off + torch.arange(sq, device=q.device)
+    dq = torch.zeros_like(qf)
+    dk = torch.empty((b, hkv, sk, d), device=q.device)
+    dv = torch.empty((b, hkv, sk, d), device=q.device)
+    for k0 in range(0, sk, chunk):
+        kb, vb = k[:, :, k0:k0 + chunk].float(), v[:, :, k0:k0 + chunk].float()
+        n = kb.shape[2]
+        msk = _chunk_mask(qpos, k0, n, sk, causal, window).repeat(g, 1)   # (g Sq, n)
+        s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
+        p = torch.where(msk, torch.exp(s - lse_r), 0.0)
+        dv[:, :, k0:k0 + n] = torch.matmul(p.transpose(-1, -2), doutf)
+        dp = torch.matmul(doutf, vb.transpose(-1, -2))
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.matmul(ds, kb)
+        dk[:, :, k0:k0 + n] = torch.matmul(ds.transpose(-1, -2), qf)
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
 def _check(q, k, v, hw_smem: int) -> None:
     """Raise with the reason on anything the CUDA kernel does not take."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -193,9 +300,15 @@ def work(q, k, v, causal: bool, window: int, q_offset: int) -> _build.Work:
                        (2 * q.numel() + 2 * k.numel()) * q.element_size())
 
 
-def _launch(q, k, v, causal, window, q_offset):
-    """CUDA implementation of ``repro_torch::flash_attention``, counted in
-    ``flash_attention.launches``."""
+def work_train(q, k, v, causal: bool, window: int, q_offset: int) -> _build.Work:
+    """:func:`work` plus the float32 ``lse`` written once a row."""
+    flops, nbytes = work(q, k, v, causal, window, q_offset)
+    return _build.Work(flops, nbytes + 4 * q.shape[0] * q.shape[1] * q.shape[2])
+
+
+def _run(q, k, v, causal, window, q_offset, lse) -> torch.Tensor:
+    """One launch of ``csrc/flash_attention.cu``: the output, and each row's
+    log-sum-exp into ``lse`` unless it is None."""
     _check(q, k, v, H100.vmem_bytes)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -207,16 +320,37 @@ def _launch(q, k, v, causal, window, q_offset):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, causal, window, q_offset,
             1.0 / (d ** 0.5), stream)
-    flash_attention.launches += 1
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError_t {err}")
     return out
 
 
+def _launch(q, k, v, causal, window, q_offset):
+    """CUDA implementation of ``repro_torch::flash_attention``, counted in
+    ``flash_attention.launches``."""
+    out = _run(q, k, v, causal, window, q_offset, None)
+    flash_attention.launches += 1
+    return out
+
+
+def _launch_train(q, k, v, causal, window, q_offset):
+    """CUDA implementation of ``repro_torch::flash_attention_train``,
+    counted in ``flash_attention_train.launches``."""
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    out = _run(q, k, v, causal, window, q_offset, lse)
+    flash_attention_train.launches += 1
+    return out, lse
+
+
 def _fake(q, k, v, causal, window, q_offset):
     return torch.empty_like(q)
+
+
+def _fake_train(q, k, v, causal, window, q_offset):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
 @_build.kernel_op("flash_attention", work, _launch, _fake)
@@ -236,8 +370,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash_op(q, k, v, causal, window, q_offset)
 
 
+@_build.kernel_op("flash_attention_train", work_train, _launch_train, _fake_train)
+def _flash_train_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                    window: int, q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_train_torch(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
+
+
+def _train_setup(ctx, inputs, output) -> None:
+    q, k, v, causal, window, q_offset = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+    ctx.mark_non_differentiable(lse)
+
+
+def _train_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = attention_bwd_torch(q, k, v, out, lse, dout, **ctx.mask)
+    return dq, dk, dv, None, None, None
+
+
+_flash_train_op.register_autograd(_train_backward, setup_context=_train_setup)
+
+
+@_build.counted
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, window: int = 0,
+                          q_offset: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper of the training forward: the custom op
+    ``repro_torch::flash_attention_train``, ``(out, lse)`` — on a CUDA
+    tensor one launch of ``csrc/flash_attention.cu`` that also writes
+    ``lse``, on a CPU tensor :func:`flash_attention_train_torch`; its
+    gradient is :func:`attention_bwd_torch` on either device."""
+    _build.require_cpu_or_cuda(q, "flash kernel")
+    return _flash_train_op(q, k, v, causal, window, q_offset)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.flash_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+    lib.flash_attention.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                                     + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_attention.restype = ctypes.c_int
 

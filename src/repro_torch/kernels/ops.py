@@ -19,7 +19,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.conv2d_im2col import conv2d_im2col, conv2d_torch
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_torch
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_torch,
+                                                 flash_attention_train)
 from repro_torch.kernels.matmul import matmul as matmul_kernel
 from repro_torch.kernels.matmul import matmul_torch
 from repro_torch.kernels.paged_attention import (paged_attention_torch,
@@ -59,6 +60,18 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     off = -1 if q_offset is None else q_offset
     fn = flash_attention_torch if _use_plain(q) else flash_attention
     return fn(q, k, v, causal=causal, window=window, q_offset=off)
+
+
+def attention_train(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: Optional[int] = None):
+    """The training forward, q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D): the
+    output of ``flash_attention_train``, whose gradient is the reference's
+    recompute rule from the kernel's ``(out, lse)``; under
+    ``BACKEND = "torch"``, autograd through the plain full-score form."""
+    off = -1 if q_offset is None else q_offset
+    if _use_plain(q):
+        return flash_attention_torch(q, k, v, causal=causal, window=window, q_offset=off)
+    return flash_attention_train(q, k, v, causal=causal, window=window, q_offset=off)[0]
 
 
 def paged_attention(q, k_cache, v_cache, tables, pos, *, page: int, sc: int):

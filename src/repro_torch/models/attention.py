@@ -1,12 +1,17 @@
-"""Attention forward paths (port of ``repro/models/attention.py``).
+"""Attention paths (port of ``repro/models/attention.py``).
 
 One logical op, three physical operators, chosen by where the tensors are:
 
 * CUDA tensors: the flash-attention kernel through ``kernels.ops``, with K/V
-  in kv-head form (the GQA expansion is never materialized);
-* CPU, short sequences: ``_einsum`` (the reference's CPU operator);
-* CPU, long sequences: the forward of ``_blocked`` (online softmax over KV
-  chunks). Its backward waits for the training slice.
+  in kv-head form (the GQA expansion is never materialized). Where autograd
+  records (a training step), ``ops.attention_train``: the kernel also writes
+  each row's log-sum-exp, and the gradient is the reference's recompute rule
+  (``kernels/flash_attention.py::attention_bwd_torch``);
+* CPU, short sequences: ``_einsum`` (the reference's CPU operator), under
+  autograd as it is;
+* CPU, long sequences: ``_blocked``, online softmax over KV chunks with K/V
+  in kv-head form and the reference's recompute backward (the training op's
+  plain version and gradient on a CPU tensor).
 
 plus the decode path: one query against a dense (possibly rotating) cache,
 or against a paged flat slot stack through per-row page tables.
@@ -24,10 +29,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops as kops
 
 BLOCKED_THRESHOLD = 4096  # beyond this seq, the CPU path uses _blocked
-KV_CHUNK = 1024
 NEG_INF = -1e30
 
 
@@ -43,14 +48,11 @@ def attention(
     sq, hq = q.shape[1], q.shape[2]
     sk, hkv = k.shape[1], k.shape[2]
     if q.device.type == "cuda":
-        out = kops.attention(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), causal=causal, window=window,
-            q_offset=q_offset)
+        op = kops.attention_train if _records_grad(q, k, v) else kops.attention
+        out = op(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                 v.transpose(1, 2).contiguous(), causal=causal, window=window,
+                 q_offset=q_offset)
         return out.transpose(1, 2)
-    if hq != hkv:
-        k = k.repeat_interleave(hq // hkv, dim=2)
-        v = v.repeat_interleave(hq // hkv, dim=2)
     big = max(sq, sk) >= BLOCKED_THRESHOLD
     # windowed attention beyond its window always prefers the blocked
     # operator: the einsum operator would materialize the full S^2 scores
@@ -58,7 +60,14 @@ def attention(
         big = True
     if big and sq > 1:
         return _blocked(q, k, v, causal, window, q_offset)
+    if hq != hkv:
+        k = k.repeat_interleave(hq // hkv, dim=2)
+        v = v.repeat_interleave(hq // hkv, dim=2)
     return _einsum(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def _records_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _mask(sq, sk, q_offset, causal, window, device):
@@ -84,36 +93,18 @@ def _einsum(q, k, v, *, causal, window, q_offset):
 
 
 def _blocked(q, k, v, causal, window, q_offset):
-    """Online softmax over KV chunks: flash semantics in plain ops."""
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    chunk = min(KV_CHUNK, sk)
-    n_chunks = -(-sk // chunk)
-    qf = q.float() * (d ** -0.5)
-    qpos = q_offset + torch.arange(sq, device=q.device)
-    m = torch.full((b, sq, h), NEG_INF, device=q.device)
-    l_sum = torch.zeros((b, sq, h), device=q.device)
-    acc = torch.zeros((b, sq, h, d), device=q.device)
-    for ci in range(n_chunks):
-        kb = k[:, ci * chunk:(ci + 1) * chunk].float()
-        vb = v[:, ci * chunk:(ci + 1) * chunk].float()
-        kpos = ci * chunk + torch.arange(kb.shape[1], device=q.device)
-        s = torch.einsum("bqhd,bkhd->bqhk", qf, kb)
-        msk = torch.ones((sq, kb.shape[1]), dtype=torch.bool, device=q.device)
-        if causal:
-            msk &= kpos[None, :] <= qpos[:, None]
-        if window:
-            msk &= kpos[None, :] > (qpos[:, None] - window)
-        msk = msk[None, :, None, :]
-        s = torch.where(msk, s, torch.full((), NEG_INF, device=q.device))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.where(msk, torch.exp(s - m_new[..., None]), torch.zeros((), device=q.device))
-        alpha = torch.exp(m - m_new)
-        l_sum = alpha * l_sum + p.sum(dim=-1)
-        acc = alpha[..., None] * acc + torch.einsum("bqhk,bkhd->bqhd", p, vb)
-        m = m_new
-    l_safe = torch.where(l_sum == 0, torch.ones((), device=q.device), l_sum)
-    return (acc / l_safe[..., None]).to(q.dtype)
+    """q (B, Sq, H, D), k/v (B, Sk, Hkv, D) in kv-head form -> (B, Sq, H, D):
+    the reference's ``_blocked``, online softmax over KV chunks with its
+    flash-style custom VJP. On a CPU tensor ``flash_attention_train`` is
+    exactly that: its forward the reference's ``_blocked_fwd_impl``, keeping
+    ``(q, k, v, out, lse)``, and its registered gradient the reference's
+    ``_blocked_bwd``, which recomputes each chunk's probabilities from
+    ``lse`` instead of autograd keeping every chunk's (the S^2 term stays
+    out of memory at the training shapes)."""
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    out, _lse = FA.flash_attention_train(q, k, v, causal=causal, window=window,
+                                         q_offset=q_offset)
+    return out.transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Shared model substrate: param specs, RMSNorm, RoPE, SwiGLU, the causal
-depthwise convolution of the SSM block.
+"""Shared model substrate: param specs, RMSNorm, RoPE, SwiGLU, the training
+loss (``softmax_xent_logits``), the causal depthwise convolution of the SSM
+block.
 
 Port of ``repro/models/common.py`` for one device: the reference's
 ``ShardCtx`` (sharding hints under a device mesh) has no counterpart here.
@@ -94,6 +95,21 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     u = torch.matmul(x, w_up)
     h = F.silu(g.float()).to(x.dtype) * u
     return torch.matmul(h, w_down)
+
+
+def softmax_xent_logits(logits: torch.Tensor, targets: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits (..., V) -> the float32 mean cross-entropy of ``targets``
+    (...), over the positions ``mask`` keeps where it is given (at least
+    one, as the reference divides by ``max(sum(mask), 1)``)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    tgt = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    nll = lse - tgt
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,

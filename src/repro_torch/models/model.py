@@ -8,6 +8,14 @@ convert one to one (``repro_torch.interop``). The reference's ``lax.scan``
 over layers, and its unrolled hybrid pattern, become one Python loop over
 the layers in order (:meth:`Model.layers`). The MoE, vision and audio
 families raise ``NotImplementedError`` naming the slice that ports them.
+
+Training: :meth:`Model.loss` is the reference's loss over the full-sequence
+forward, with the reference's per-layer rematerialisation when the plan asks
+for it (``remat``: each layer under ``torch.utils.checkpoint``, its
+activations recomputed in the backward pass). A layer stack may be given as
+a list of per-layer tensors instead of one stacked tensor: the train step
+(``runtime/train_loop.py``) passes per-layer leaves, so each layer's
+gradient lands in a tensor of its own.
 """
 
 from __future__ import annotations
@@ -16,14 +24,18 @@ import math
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import blocks as B
-from repro_torch.models.common import SpecBuilder, rms_norm
+from repro_torch.models.common import SpecBuilder, rms_norm, softmax_xent_logits
 
 # family -> the port slice that brings it (ROADMAP.md "Queue A")
 _LATER_SLICES = {"moe": 6, "vlm": 6, "audio": 6}
 _PORTED = ("dense", "ssm", "hybrid")
+# weight of the MoE auxiliary loss in the total (the reference's; no ported
+# family has one)
+MOE_AUX_COEF = 0.01
 
 
 def _subtree(params: Dict, prefix: str) -> Dict:
@@ -112,42 +124,72 @@ class Model:
     # ------------------------------------------------------------------
     # full-sequence forward (prefill)
     # ------------------------------------------------------------------
-    def apply(self, params, tokens: torch.Tensor, *,
-              last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    def apply(self, params, tokens: torch.Tensor, *, last_only: bool = False,
+              remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns ``(logits, aux_loss)``: logits for every position, or
         with ``last_only`` for the final position only (``(B, 1, vocab)``).
-        No ported family has an auxiliary loss (0)."""
+        No ported family has an auxiliary loss (0). With ``remat`` each
+        layer's activations are recomputed in the backward pass."""
         x, _ = self._stack_prefill(params, self._embed(params, tokens),
-                                   want_cache=False)
+                                   want_cache=False, remat=remat)
         x = rms_norm(x, params["final_ln"])
         logits = self._logits(params, x[:, -1:] if last_only else x)
         return logits, torch.zeros((), device=logits.device)
 
     def _stack_prefill(self, params, x, *, lengths: Optional[torch.Tensor] = None,
-                       want_cache: bool = True):
+                       want_cache: bool = True, remat: bool = False):
         """The layers over a full sequence. With ``want_cache`` also the
         layer-stacked per-layer caches: rope'd K/V ``(L, B, S, Kv, Dh)``
         for attention, the decode state after each row's ``lengths`` prompt
-        tokens for SSD and RG-LRU."""
+        tokens for SSD and RG-LRU. With ``remat`` (no cache) each layer runs
+        under ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
+        per layer: only its input is kept, and the backward pass runs it
+        again (a layer holds no randomness, so no RNG state is kept)."""
         cfg = self.cfg
         stacks = {prefix: _subtree(params, prefix) for prefix, _n, _b in self._stacks()}
         positions = torch.arange(x.shape[1], device=x.device)
         caches: Dict[str, list] = {prefix: [] for prefix in stacks}
         for kind, prefix, i in self.layers():
             lp = self._layer(stacks[prefix], i)
-            if kind == "a":
-                x, c = B.attn_block_apply(cfg, lp, x, positions, causal=True,
-                                          window=cfg.window_size)
-            else:
-                block = B.ssd_block_apply if kind == "s" else B.rglru_block_apply
-                out = block(cfg, lp, x, lengths=lengths, want_cache=want_cache)
-                x, c = out if want_cache else (out, None)
+            if remat and not want_cache:
+                x = checkpoint(self._layer_apply, kind, lp, x, positions, lengths,
+                               use_reentrant=False, preserve_rng_state=False)
+                continue
+            out = self._layer_apply(kind, lp, x, positions, lengths, want_cache)
             if want_cache:
+                x, c = out
                 caches[prefix].append(c)
+            else:
+                x = out
         if not want_cache:
             return x, None
         return x, {f"{prefix}{k}": torch.stack([c[k] for c in cs])
                    for prefix, cs in caches.items() if cs for k in cs[0]}
+
+    def _layer_apply(self, kind: str, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
+                     lengths: Optional[torch.Tensor], want_cache: bool = False):
+        """One layer over a full sequence: ``x``, or ``(x, cache)`` with
+        ``want_cache``."""
+        if kind == "a":
+            x, c = B.attn_block_apply(self.cfg, lp, x, positions, causal=True,
+                                      window=self.cfg.window_size)
+            return (x, c) if want_cache else x
+        block = B.ssd_block_apply if kind == "s" else B.rglru_block_apply
+        return block(self.cfg, lp, x, lengths=lengths, want_cache=want_cache)
+
+    # ------------------------------------------------------------------
+    # loss
+    # ------------------------------------------------------------------
+    def loss(self, params, batch: Dict[str, torch.Tensor], *,
+             remat: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The reference's training loss: the float32 mean cross-entropy of
+        ``batch["targets"]`` under the logits of ``batch["tokens"]``, plus
+        ``MOE_AUX_COEF`` times the auxiliary loss (0 for every ported
+        family). Returns ``(total, {"xent", "aux"})``."""
+        logits, aux = self.apply(params, batch["tokens"], remat=remat)
+        xent = softmax_xent_logits(logits, batch["targets"])
+        total = xent + MOE_AUX_COEF * aux
+        return total, {"xent": xent, "aux": aux}
 
     @property
     def supports_handoff(self) -> bool:

@@ -21,10 +21,14 @@ the card). The backward products stay plain PyTorch, as they are plain XLA
 in the reference. Autograd is never used; the tests hold every layer equal
 to the reference's.
 
-Ported so far: the layer kinds ``Sequential`` composes (affine, the eight
-activations, dropout, batch_norm1d/2d, conv2d with im2col/col2im, max and
-average pooling). The recurrent layers, embedding, layer/RMS norms and
-scale_shift come in a later slice.
+Every layer of the reference is ported: the kinds ``Sequential`` composes
+(affine, the eight activations, dropout, batch_norm1d/2d, conv2d with
+im2col/col2im, max and average pooling), layer_norm, rms_norm, scale_shift,
+embedding (its backward a scatter-add, ``index_add_``, which sums repeated
+ids as the reference's ``.at[ids].add`` does), and the recurrent simple_rnn
+and lstm, whose ``lax.scan`` over time becomes a loop over T (backward: the
+same loop in reverse, manual BPTT). Each ``init`` takes a
+``torch.Generator`` and builds its tensors on the generator's device.
 """
 
 from __future__ import annotations
@@ -251,6 +255,94 @@ class batch_norm2d:
         return dx, dgamma, dbeta
 
 
+class layer_norm:
+    eps = 1e-5
+
+    @staticmethod
+    def init(d: int, generator: Optional[torch.Generator] = None):
+        dev = generator.device if generator is not None else None
+        return torch.ones((1, d), device=dev), torch.zeros((1, d), device=dev)
+
+    @staticmethod
+    def forward(x, gamma, beta):
+        mu = x.mean(dim=1, keepdim=True)
+        var = x.var(dim=1, keepdim=True, unbiased=False)
+        xhat = (x - mu) / torch.sqrt(var + layer_norm.eps)
+        return gamma * xhat + beta, (xhat, var)
+
+    @staticmethod
+    def backward(dout, cache, x, gamma):
+        xhat, var = cache
+        d = x.shape[1]
+        istd = 1.0 / torch.sqrt(var + layer_norm.eps)
+        dgamma = (dout * xhat).sum(dim=0, keepdim=True)
+        dbeta = dout.sum(dim=0, keepdim=True)
+        dxhat = dout * gamma
+        dx = istd / d * (d * dxhat - dxhat.sum(dim=1, keepdim=True)
+                         - xhat * (dxhat * xhat).sum(dim=1, keepdim=True))
+        return dx, dgamma, dbeta
+
+
+class rms_norm:
+    eps = 1e-5
+
+    @staticmethod
+    def init(d: int, generator: Optional[torch.Generator] = None):
+        dev = generator.device if generator is not None else None
+        return (torch.ones((1, d), device=dev),)
+
+    @staticmethod
+    def forward(x, gamma):
+        ms = (x * x).mean(dim=1, keepdim=True)
+        inv = 1.0 / torch.sqrt(ms + rms_norm.eps)
+        return gamma * x * inv, inv
+
+    @staticmethod
+    def backward(dout, inv, x, gamma):
+        d = x.shape[1]
+        dgamma = (dout * x * inv).sum(dim=0, keepdim=True)
+        dxhat = dout * gamma
+        dx = inv * dxhat - (inv ** 3 / d) * x * (dxhat * x).sum(dim=1, keepdim=True)
+        return dx, dgamma
+
+
+class scale_shift:
+    """SystemML nn/layers/scale_shift*.dml: out = gamma*x + beta."""
+
+    @staticmethod
+    def init(d: int, generator: Optional[torch.Generator] = None):
+        dev = generator.device if generator is not None else None
+        return torch.ones((1, d), device=dev), torch.zeros((1, d), device=dev)
+
+    @staticmethod
+    def forward(x, gamma, beta):
+        return gamma * x + beta
+
+    @staticmethod
+    def backward(dout, x, gamma):
+        return dout * gamma, (dout * x).sum(0, keepdim=True), dout.sum(0, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# embedding
+# ---------------------------------------------------------------------------
+
+class embedding:
+    @staticmethod
+    def init(vocab: int, d: int, generator: torch.Generator):
+        return (torch.randn((vocab, d), generator=generator, device=generator.device) * 0.02,)
+
+    @staticmethod
+    def forward(ids, table):
+        return table[ids.long()]
+
+    @staticmethod
+    def backward(dout, ids, table):
+        d = table.shape[1]
+        return torch.zeros_like(table).index_add_(0, ids.reshape(-1).long(),
+                                                  dout.reshape(-1, d).to(table.dtype))
+
+
 # ---------------------------------------------------------------------------
 # conv2d — im2col lowering (paper ref [5]) on linearized matrices
 # ---------------------------------------------------------------------------
@@ -350,3 +442,110 @@ class avg_pool2d:
         d = dout.reshape(n, c, h // pool, 1, w // pool, 1)
         d = (d / (pool * pool)).expand(n, c, h // pool, pool, w // pool, pool)
         return d.reshape(n, -1)
+
+
+# ---------------------------------------------------------------------------
+# recurrent layers (simple RNN + LSTM), manual BPTT
+# ---------------------------------------------------------------------------
+
+class simple_rnn:
+    @staticmethod
+    def init(d: int, m: int, generator: torch.Generator):
+        dev = generator.device
+        wx = torch.randn((d, m), generator=generator, device=dev) * math.sqrt(1.0 / d)
+        wh = torch.randn((m, m), generator=generator, device=dev) * math.sqrt(1.0 / m)
+        return wx, wh, torch.zeros((1, m), device=dev)
+
+    @staticmethod
+    def forward(x, wx, wh, b, h0):
+        """x: (N, T, D); returns (hs: (N, T, M), the last h)."""
+        h, hs = h0, []
+        for t in range(x.shape[1]):
+            h = torch.tanh(x[:, t] @ wx + h @ wh + b)
+            hs.append(h)
+        return torch.stack(hs, dim=1), h
+
+    @staticmethod
+    def backward(dhs, x, wx, wh, b, h0):
+        """Manual BPTT: the loop over time in reverse."""
+        hs, _ = simple_rnn.forward(x, wx, wh, b, h0)
+        n, t, m = dhs.shape
+        h0b = h0.expand(n, m)[:, None, :]
+        hs_prev = torch.cat([h0b, hs[:, :-1]], dim=1)
+        dh_next = torch.zeros((n, m), dtype=dhs.dtype, device=dhs.device)
+        dxs, dwxs, dwhs, dbs = [], [], [], []
+        for i in reversed(range(t)):
+            ht, hprev, xt = hs[:, i], hs_prev[:, i], x[:, i]
+            dh = dhs[:, i] + dh_next
+            da = dh * (1.0 - ht * ht)
+            dxs.append(da @ wx.T)
+            dwxs.append(xt.T @ da)
+            dwhs.append(hprev.T @ da)
+            dbs.append(da.sum(0, keepdim=True))
+            dh_next = da @ wh.T
+        return (torch.stack(dxs[::-1], dim=1), torch.stack(dwxs).sum(0),
+                torch.stack(dwhs).sum(0), torch.stack(dbs).sum(0), dh_next)
+
+
+class lstm:
+    @staticmethod
+    def init(d: int, m: int, generator: torch.Generator):
+        dev = generator.device
+        wx = torch.randn((d, 4 * m), generator=generator, device=dev) * math.sqrt(1.0 / d)
+        wh = torch.randn((m, 4 * m), generator=generator, device=dev) * math.sqrt(1.0 / m)
+        return wx, wh, torch.zeros((1, 4 * m), device=dev)
+
+    @staticmethod
+    def _gates(a, m):
+        i = sigmoid.forward(a[:, :m])
+        f = sigmoid.forward(a[:, m:2 * m])
+        o = sigmoid.forward(a[:, 2 * m:3 * m])
+        g = torch.tanh(a[:, 3 * m:])
+        return i, f, o, g
+
+    @staticmethod
+    def forward(x, wx, wh, b, h0, c0):
+        """x: (N, T, D); returns (hs: (N, T, M), (hT, cT), cache), the cache
+        time-major: (hs, cs, i, f, o, g), each (T, N, M)."""
+        m = h0.shape[1]
+        h, c = h0, c0
+        steps = []
+        for t in range(x.shape[1]):
+            a = x[:, t] @ wx + h @ wh + b
+            i, f, o, g = lstm._gates(a, m)
+            c = f * c + i * g
+            h = o * torch.tanh(c)
+            steps.append((h, c, i, f, o, g))
+        cache = tuple(torch.stack(parts) for parts in zip(*steps))
+        return cache[0].transpose(0, 1), (h, c), cache
+
+    @staticmethod
+    def backward(dhs, cache, x, wx, wh, b, h0, c0):
+        """Manual BPTT: the loop over time in reverse. Returns (dx, dwx,
+        dwh, db, dh0, dc0)."""
+        hs, cs, i_, f_, o_, g_ = cache
+        n, t, _ = dhs.shape
+        m = h0.shape[1]
+        hs_prev = torch.cat([h0[None], hs[:-1]], dim=0)   # (T, N, M)
+        cs_prev = torch.cat([c0[None], cs[:-1]], dim=0)
+        dh_next = torch.zeros((n, m), dtype=dhs.dtype, device=dhs.device)
+        dc_next = torch.zeros_like(dh_next)
+        dxs, dwxs, dwhs, dbs = [], [], [], []
+        for k in reversed(range(t)):
+            ct, it, ft, ot, gt = cs[k], i_[k], f_[k], o_[k], g_[k]
+            dh = dhs[:, k] + dh_next
+            tc = torch.tanh(ct)
+            do = dh * tc
+            dc = dc_next + dh * ot * (1 - tc * tc)
+            di = dc * gt
+            df = dc * cs_prev[k]
+            dg = dc * it
+            da = torch.cat([di * it * (1 - it), df * ft * (1 - ft),
+                            do * ot * (1 - ot), dg * (1 - gt * gt)], dim=1)
+            dxs.append(da @ wx.T)
+            dwxs.append(x[:, k].T @ da)
+            dwhs.append(hs_prev[k].T @ da)
+            dbs.append(da.sum(0, keepdim=True))
+            dh_next, dc_next = da @ wh.T, dc * ft
+        return (torch.stack(dxs[::-1], dim=1), torch.stack(dwxs).sum(0),
+                torch.stack(dwhs).sum(0), torch.stack(dbs).sum(0), dh_next, dc_next)

@@ -1,8 +1,8 @@
-"""Serving-path counters (port of ``repro/runtime/metrics.py``:
-``LatencyStats``, ``serve_summary``, ``SchedulerMetrics``, ``pool_summary``,
+"""Step metrics and serving-path counters (port of
+``repro/runtime/metrics.py``: the training ``StepTimer``, ``LatencyStats``,
+``serve_summary``, ``SchedulerMetrics``, ``pool_summary``,
 ``scheduler_summary``, ``format_metrics``, and the router's
-``merge_scheduler_metrics``, ``RouterMetrics`` and ``router_summary``; the
-training step timer comes with the path that calls it).
+``merge_scheduler_metrics``, ``RouterMetrics`` and ``router_summary``).
 
 The plan-cache counters (:class:`PlanCacheMetrics`) live next to the cache
 in ``repro_torch.core.plan_cache``; they are re-exported here so the runtime
@@ -12,10 +12,56 @@ together with per-request latency."""
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
+import torch
+
+from repro_torch.config import HardwareSpec, InputShape, MeshConfig, ModelConfig
+from repro_torch.core.cost import model_flops_per_step
 from repro_torch.core.plan_cache import PlanCacheMetrics  # noqa: F401  (re-export)
+from repro_torch.hw import H100
+
+
+@dataclass
+class StepTimer:
+    """Per-step wall time, throughput and model FLOP utilisation against
+    ``hw`` (the port's H100 unless given another spec). CUDA runs
+    asynchronously, so :meth:`stop` waits for the card (where this process
+    has used it) before it reads the clock."""
+
+    model: Optional[ModelConfig] = None
+    shape: Optional[InputShape] = None
+    mesh: Optional[MeshConfig] = None
+    hw: HardwareSpec = H100
+    history: List[Dict] = field(default_factory=list)
+    _t0: float = 0.0
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self, step: int, metrics: Dict) -> Dict:
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - self._t0
+        rec = {"step": step, "seconds": dt}
+        rec.update({k: float(v) for k, v in metrics.items()})
+        if self.model is not None and self.shape is not None:
+            flops = model_flops_per_step(self.model, self.shape)
+            rec["tokens_per_s"] = self.shape.global_batch * self.shape.seq_len / dt
+            if self.mesh is not None:
+                rec["mfu"] = flops / dt / (self.mesh.num_devices * self.hw.peak_flops)
+        self.history.append(rec)
+        return rec
+
+    def summary(self) -> Dict:
+        if not self.history:
+            return {}
+        n = len(self.history)
+        keys = self.history[-1].keys()
+        return {k: sum(h.get(k, 0.0) for h in self.history) / n
+                for k in keys if k != "step"}
 
 
 @dataclass

@@ -22,6 +22,7 @@ from repro_torch import config as port_config_module  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, lenet, softmax_classifier  # noqa: E402
 from repro_torch.frontend import Keras2Plan  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime import serve_loop  # noqa: E402
 from repro_torch.runtime.engine_config import EngineConfig  # noqa: E402
@@ -53,6 +54,14 @@ def test_import_scan_covers_the_engine_slice():
                  "launch/serve.py", "runtime/router.py", "launch/serve_engine.py",
                  "launch/serve_batched.py", "launch/serve_router.py"):
         assert ROOT / "src" / "repro_torch" / name in PORT_FILES, name
+
+
+def test_import_scan_covers_the_training_slice():
+    for name in ("data/pipeline.py", "checkpoint/checkpoint.py", "core/ir.py",
+                 "runtime/train_loop.py", "launch/train.py", "launch/train_lm.py",
+                 "launch/quickstart.py"):
+        assert ROOT / "src" / "repro_torch" / name in PORT_FILES, name
+    assert ROOT / "tools" / "train_init_sweep.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -103,19 +112,26 @@ def test_planner_config_copy_equals_reference(name, args):
                                                 ref.model_parallelism)
 
 
-def _reference_cli_default(option: str):
-    """The default of ``option`` in the reference launcher's parser, read
-    from its source (``repro/launch/serve.py``), which stays as it is (a
+def _reference_flags(launcher: str) -> dict:
+    """{option: its add_argument call} of a reference launcher's parser,
+    read from its source (``repro/launch/<launcher>``), which stays as it
+    is."""
+    return {node.args[0].value: node
+            for node in ast.walk(ast.parse((ROOT / "src/repro/launch" / launcher).read_text()))
+            if isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument"
+            and node.args and isinstance(node.args[0], ast.Constant)}
+
+
+def _reference_cli_default(option: str, launcher: str = "serve.py"):
+    """The default of ``option`` in the reference launcher's parser (a
     ``store_true`` flag's is False)."""
-    for node in ast.walk(ast.parse((ROOT / "src/repro/launch/serve.py").read_text())):
-        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument"
-                and node.args and isinstance(node.args[0], ast.Constant)
-                and node.args[0].value == option):
-            kws = {kw.arg: kw.value for kw in node.keywords}
-            if "default" not in kws and ast.literal_eval(kws["action"]) == "store_true":
-                return False
-            return ast.literal_eval(kws["default"])
-    raise AssertionError(f"{option} not in the reference launcher's parser")
+    node = _reference_flags(launcher).get(option)
+    if node is None:
+        raise AssertionError(f"{option} not in the reference launcher's parser")
+    kws = {kw.arg: kw.value for kw in node.keywords}
+    if "default" not in kws and ast.literal_eval(kws["action"]) == "store_true":
+        return False
+    return ast.literal_eval(kws["default"])
 
 
 @pytest.mark.parametrize("option,dest", [("--decode-kernel", "decode_kernel"),
@@ -141,6 +157,21 @@ def test_serve_cli_engine_defaults_follow_the_reference(option):
     assert default == _reference_cli_default(option)
     if dest in {f.name for f in dataclasses.fields(EngineConfig)}:
         assert default == getattr(EngineConfig(), dest)
+
+
+def test_train_cli_has_the_reference_flags_and_device():
+    ours = {a for action in train_cli.build_parser()._actions for a in action.option_strings
+            if a.startswith("--")}
+    assert ours == set(_reference_flags("train.py")) | {"--device", "--help"}
+
+
+@pytest.mark.parametrize("option", ["--arch", "--steps", "--batch", "--seq", "--optimizer",
+                                    "--lr", "--log-every", "--checkpoint", "--dtype"])
+def test_train_cli_defaults_follow_the_reference(option):
+    dest = option[2:].replace("-", "_")
+    default = getattr(train_cli.build_parser().parse_args([]), dest)
+    assert default == _reference_cli_default(option, "train.py")
+    assert train_cli.build_parser().parse_args([]).device == "cuda"
 
 
 def test_engine_config_defaults_and_checks_follow_the_reference():

@@ -1,7 +1,7 @@
 """PyTorch port, the kernels as ``torch.library`` custom ops
 (``repro_torch/kernels/*.py``, ``kernels/_build.py``).
 
-Each of the six wrappers calls the custom op ``repro_torch::<name>``: on a
+Each of the seven wrappers calls the custom op ``repro_torch::<name>``: on a
 CPU tensor its CPU implementation is the kernel's plain version (held equal
 here, element for element, to calling the plain version directly), on a
 fake tensor its fake implementation gives the output's shape, dtype and
@@ -10,7 +10,9 @@ device only — on a fake ``cuda`` device too, in this CPU-only build — and
 launches) run on the card only (``chip_smoke.py``). Each kernel's
 ``work(...)`` (FLOPs and bytes, read by ``chip_smoke.py``'s bounds and by
 the cost audit) is held to the counts ``chip_smoke.py`` wrote out before it
-read ``work``, so phase 3's bounds print the same numbers.
+read ``work``, so phase 3's bounds print the same numbers; the training
+forward ``flash_attention_train``, which came later, to the flash count plus
+its float32 ``lse``.
 """
 
 import numpy as np
@@ -71,6 +73,9 @@ CASES = [
     ("flash_attention", FA.flash_attention, FA.flash_attention_torch,
      (_randn(20, 2, 4, 10, 32), _randn(21, 2, 2, 14, 32), _randn(22, 2, 2, 14, 32)),
      dict(causal=True, window=6, q_offset=-1)),
+    ("flash_attention_train", FA.flash_attention_train, FA.flash_attention_train_torch,
+     (_randn(23, 2, 4, 10, 32), _randn(24, 2, 2, 14, 32), _randn(25, 2, 2, 14, 32)),
+     dict(causal=True, window=6, q_offset=-1)),
     ("ssd_scan", SSD.ssd_scan, SSD.ssd_scan_torch, *_ssd_args()),
     ("rglru_scan", RG.rglru_scan, RG.rglru_scan_torch, *_rglru_args()),
     ("matmul", MM.matmul, MM.matmul_torch, (_randn(30, 7, 5), _randn(31, 5, 3)), {}),
@@ -85,7 +90,7 @@ def _leaves(out):
 
 
 def test_every_wrapper_is_a_registered_custom_op_with_work():
-    """Six ops in the ``repro_torch`` namespace, each with a ``work``."""
+    """Seven ops in the ``repro_torch`` namespace, each with a ``work``."""
     assert sorted(_build.WORK) == sorted(f"repro_torch::{n}" for n in IDS)
     for name in IDS:
         op = getattr(torch.ops.repro_torch, name).default
@@ -140,6 +145,7 @@ def test_fake_cuda_runs_no_kernel_and_counts_no_launch():
 OP_ARGS = {
     "paged_decode_attention": lambda a, k: (*a, k["page"], k["sc"]),
     "flash_attention": lambda a, k: (*a, k["causal"], k["window"], k["q_offset"]),
+    "flash_attention_train": lambda a, k: (*a, k["causal"], k["window"], k["q_offset"]),
     "ssd_scan": lambda a, k: (*a, k["chunk"]),
     "rglru_scan": lambda a, k: (*a, None),
     "matmul": lambda a, k: a,
@@ -158,6 +164,10 @@ def _former_counts(name, op_args):
         item = q.element_size()
         return 4 * hq * d * slots, (slots * hkv * d * 2 * item + 2 * b * hq * d * item
                                     + tables.numel() * 4 + b * 4)
+    if name == "flash_attention_train":
+        flops, nbytes = _former_counts("flash_attention", op_args)
+        q = op_args[0]
+        return flops, nbytes + 4 * q.shape[0] * q.shape[1] * q.shape[2]
     if name == "flash_attention":
         q, k, _v, causal, window, q_offset = op_args
         b, hq, sq, d = q.shape
