@@ -130,6 +130,22 @@ Phases, each of which must pass (nothing is caught):
               time (restored == trained), then one step traced: device time
               by part (matmul, flash forward, attention backward, optimizer,
               other) and the idle share;
+   train-check-ssm, train-check-hybrid — Mamba-2 1.3B's widths cut to 2
+              layers and RecurrentGemma-2B's to 3 (``rra``), float32, batch
+              2, seq 512, three steps of sgd and of adam (grad_clip 1.0):
+              the kernel path (the scan kernels' training forwards and
+              backward kernels, flash's training forward) against the plain
+              path and against 2 microbatches, launches exact;
+   train-ssm, train-hybrid — full mamba2-1.3b (48 layers) and
+              recurrentgemma-2b (26 layers ``rra``), bfloat16, (4, 2048), 8
+              steps of adam through ``launch.train``'s own entry on the
+              planner's one-card plan: losses finite and falling, launches
+              exact (each scan layer's training forward twice a step under
+              remat, its backward kernel once), no plain scan or CPU
+              attention function called; step ms, tokens/s, MFU, peak
+              memory against the estimate, one traced step by part (SSD,
+              RG-LRU and flash forwards, their backwards, matmul,
+              optimizer, other) and the idle share;
 14. quickstart — the paper's softmax classifier through ``Keras2Plan`` on the
               card (``repro_torch.launch.quickstart``): accuracy above 0.8,
               matmul launches exact, the DML script byte-equal to the
@@ -137,7 +153,14 @@ Phases, each of which must pass (nothing is caught):
 
 Phase 3 also holds ``flash_attention_train`` at the serving shapes (D = 128
 and 256, both dtypes): its output bit for bit the serving op's, its lse and
-its recompute backward's gradients against the plain versions.
+its recompute backward's gradients against the plain versions; and the
+scan kernels' training ops at Mamba-2's (4, 2048, 64, 64, 128) and
+RecurrentGemma's (4, 2048, 2560) training shapes and smaller, float32 and
+bfloat16, strong decay included: each training forward's output bit for
+bit the serving op's and its saved states against the plain training
+forward's; each backward kernel against the plain backward and against
+autograd through the plain forward, two calls bit for bit equal; both
+timed (events, profiler device time) beside their bounds.
 
 Before the last line it prints one JSON ``kernels`` line and the card's
 ``nvidia-smi`` name and power limit; the last line is the JSON ``ok`` line.
@@ -331,6 +354,38 @@ FLASH_BWD_BF16 = (0.25, 2.0 ** -8, 2.0 ** -8)
 # within 3e-3 of the parameter's
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_SHAPE, TRAIN_CHECK_STEPS = 2, (2, 512), 3
 TRAIN_CHECK_LR = {"sgd": 1e-3, "adam": 1e-4}
+# train-check-ssm and train-check-hybrid: the full widths cut to these
+# layers (float32, TRAIN_CHECK_SHAPE, TRAIN_CHECK_STEPS steps, clip 1.0), at
+# the CPU tests' learning rates for these families: Adam at 1e-5, since
+# their tied embeddings carry an element that Adam moves by a
+# rounding-dependent fraction of lr into every position holding its token
+# (tests/test_torch_train_hybrid.py: at 1e-4 step 2's grad_norm moved by
+# 2.4e-3 between two float32 runs of the same step)
+RECURRENT_CHECKS = {"ssm": ("mamba2-1.3b", dict(num_layers=2)),
+                    "hybrid": ("recurrentgemma-2b", dict(num_layers=3, block_pattern="rra"))}
+RECURRENT_CHECK_LR = {"sgd": 1e-3, "adam": 1e-5}
+# train-ssm and train-hybrid: the full models, at the train phase's shape,
+# steps, lr and clip
+RECURRENT_TRAIN = {"ssm": "mamba2-1.3b", "hybrid": "recurrentgemma-2b"}
+# the backward kernels' float32 gradients (and the float32 outputs ddt, da,
+# dd, dc of a bfloat16 run): FP32_TOL's rtol and RMS limit, atol 1e-4 of
+# the reference gradient's RMS: ddt sums terms (a times the reverse cumsum
+# of cum's gradient, up to ~16 x hundreds) that cancel to small values, so
+# float32 summation order moves an element by up to 2.3e-5 of ddt's RMS of
+# ~115 (2.7e-3) at Mamba-2's training shape (an H100 80GB HBM3 at 700 W),
+# past FP32_TOL's absolute 1e-4
+SCAN_BWD_FP32 = (1e-4, 1e-4, 1e-5)
+# the backward kernels in bfloat16: each gradient is formed in float32 from
+# the bfloat16 inputs and rounded once, held against the plain backward in
+# float32 on the same values, unrounded: rtol and the RMS limit are the
+# rounding's 2^-8; atol a quarter of the reference gradient's RMS, as the
+# flash training op's gradients (an element near zero where float32
+# summation order differs)
+SCAN_BWD_BF16 = (0.25, 2.0 ** -8, 2.0 ** -8)
+# the two training shapes of the scan kernels: Mamba-2 1.3B's and
+# RecurrentGemma-2B's (batch 4, seq 2048)
+SSD_TRAIN_SHAPE = (4, 2048, 64, 64, 128)
+RGLRU_TRAIN_SHAPE = (4, 2048, 2560)
 # train: full Yi-6B, bfloat16, trainable_params' seeded random weights,
 # through repro_torch.launch.train's own entry; the plan is the planner's
 # for one H100. Adam at lr 3e-4 (the port's TrainConfig default) with the
@@ -587,6 +642,8 @@ def phase_kernels():
     results["paged_decode_attention_g10_d256"] = paged_hybrid_cases(flush)
     results["rglru_scan"] = rglru_kernel_cases(flush)
     results["ssd_scan"] = ssd_kernel_cases(flush)
+    results.update(ssd_train_cases(flush))
+    results.update(rglru_train_cases(flush))
     results["matmul"] = matmul_kernel_cases(flush)
     results["conv2d_im2col"] = conv_kernel_cases(flush)
     del flush
@@ -1228,6 +1285,184 @@ def ssd_kernel_cases(flush) -> dict:
           "single library call")
     return dict(name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan.py:91", library_ms=None, **serving)
+
+
+def _bwd_tol(want, dtype, fp32_out):
+    """The tolerance of one gradient: SCAN_BWD_FP32 for float32 runs and
+    float32 outputs, SCAN_BWD_BF16 else, atol scaled by the reference's
+    RMS."""
+    tol = SCAN_BWD_FP32 if dtype == torch.float32 or fp32_out else SCAN_BWD_BF16
+    rms = float(want.double().pow(2).mean().sqrt())   # float64: strong decay's ~1e-33
+    return (tol[0] * rms,) + tol[1:]
+
+
+def _train_entry(name, source, replaces, fn, plain_fn, work, args, err, flush,
+                 plain_reps=3) -> dict:
+    """Times one training kernel (events, profiler device time per launch
+    with the L2 flushed, the plain version) beside its bound; returns its
+    kernels-line entry (no library call computes it)."""
+    ms = cuda_ms(fn, flush=flush)
+    family = "ssd" if "ssd" in name else "rglru"
+    dev_ms, names = device_ms(fn, family, flush)
+    _, n_traced = launch_ms(fn, family, flush)
+    plain_ms = cuda_ms(plain_fn, reps=plain_reps, warmup=1, flush=flush)
+    flops, nbytes = work(*args)
+    bound, by = _bound_ms(nbytes, flops, args[0].dtype)
+    print(f"  {name} timing, {str(args[0].dtype)[6:]} {tuple(args[0].shape)}: kernel "
+          f"{ms:.4f} ms by events, device time {_dev(dev_ms)} a call ("
+          f"{', '.join(f'{_short(k)} {v:.4f}' for k, v in names.items()) or 'no events'}; "
+          f"{n_traced} kernel launches traced in 10 calls); plain {plain_ms:.3f} ms; bound "
+          f"{bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); library: "
+          f"none (no single PyTorch call)")
+    return dict(name=name, route="cuda", source=source, replaces=replaces, max_abs_err=err,
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+
+def ssd_train_cases(flush) -> dict:
+    """The SSD training forward (``ssd_scan_train``: y bit for bit the
+    serving op's, each chunk's starting state against the plain training
+    forward's) and the backward kernel (``ssd_scan_bwd``) against the plain
+    backward and against autograd through the plain forward, at Mamba-2
+    1.3B's training shape and the smoke width, in float32 and bfloat16,
+    and under strong decay against the plain backward; both timed at the
+    training shape in bfloat16. Returns their kernels-line entries."""
+    entries = {}
+    b0, s0, h0, p0, n0 = SSD_TRAIN_SHAPE
+    cases = [  # (name, (b, s, h, p, n), strong decay, autograd check)
+        (f"training shape {SSD_TRAIN_SHAPE}", SSD_TRAIN_SHAPE, False, True),
+        ("smoke width (2, 128, 16, 16, 16)", (2, 128, 16, 16, 16), False, True),
+        ("S=96 (chunk 32)", (2, 96, 8, 64, 128), False, False),
+        ("strong decay (a=-16, dt to 7)", (2, 256, 64, 64, 128), True, False),
+        ("strong decay, smoke width", (2, 128, 16, 16, 16), True, False),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, dims, strong, autograd in cases:
+            chunk = 32 if dims[1] == 96 else 64
+            args = _ssd_inputs(*dims, dtype, 31, strong_decay=strong)
+            gen = torch.Generator(device="cuda").manual_seed(32)
+            dy = torch.randn(args[0].shape, generator=gen, device="cuda").to(dtype)
+            name = f"ssd_train {str(dtype)[6:]} {label}"
+            y, states = SSD.ssd_scan_train(*args, chunk=chunk)
+            serving = SSD.ssd_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            if not torch.equal(y, serving):
+                fail(f"{name}: the training forward's y is not the serving op's")
+            del serving
+            f32 = [t.float() for t in args]
+            _, want_states = SSD.ssd_scan_train_torch(*f32, chunk=chunk)
+            check_close(f"{name} chunk states", states, want_states, FP32_TOL)
+            del want_states
+            got = SSD.ssd_scan_bwd(*args, states, dy, chunk=chunk)
+            again = SSD.ssd_scan_bwd(*args, states, dy, chunk=chunk)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                fail(f"{name}: two backward calls on the same inputs differ")
+            del again
+            want = SSD.ssd_scan_bwd_torch(*f32, states, dy.float(), chunk=chunk)
+            errs = {gname: check_close(f"{name} {gname} vs the plain backward", g, w,
+                                       _bwd_tol(w, dtype, g.dtype == torch.float32))
+                    for gname, g, w in zip(("dx", "ddt", "da", "dB", "dC", "dd"), got, want)}
+            if autograd:
+                leaves = [t.detach().requires_grad_() for t in f32]
+                SSD.ssd_scan_torch(*leaves, chunk=chunk).backward(dy.float())
+                for gname, g, leaf in zip(("dx", "ddt", "da", "dB", "dC", "dd"), got, leaves):
+                    tol = _bwd_tol(leaf.grad, dtype, g.dtype == torch.float32)
+                    check_close(f"{name} {gname} vs autograd through the plain forward", g,
+                                leaf.grad, tol)
+                del leaves
+            del got, want, f32
+            if dtype == torch.bfloat16 and dims == SSD_TRAIN_SHAPE:
+                ferr = check_close(f"{name} y vs the plain forward", y,
+                                   SSD.ssd_scan_torch(*(t.float() for t in args)), SSD_BF16_TOL)
+                entries["ssd_scan_train"] = _train_entry(
+                    "ssd_scan_train", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                    "src/repro/kernels/ssd_scan.py:91", lambda: SSD.ssd_scan_train(*args),
+                    lambda: SSD.ssd_scan_train_torch(*args), SSD.work_train, args, ferr, flush)
+                entries["ssd_scan_bwd"] = _train_entry(
+                    "ssd_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                    "src/repro/kernels/ssd_scan.py:91",
+                    lambda: SSD.ssd_scan_bwd(*args, states, dy),
+                    lambda: SSD.ssd_scan_bwd_torch(*args, states, dy), SSD.work_bwd,
+                    (*args, states, dy), errs["dx"], flush)
+            del args, dy, y, states
+            torch.cuda.empty_cache()
+    return entries
+
+
+def rglru_train_cases(flush) -> dict:
+    """The RG-LRU training forward (``rglru_scan_train``: y bit for bit the
+    serving op's, the state entering each chunk of 8 against the plain
+    training forward's) and the backward kernel (``rglru_scan_bwd``)
+    against the plain backward and against autograd through the plain
+    loop, at RecurrentGemma-2B's training shape in float32 and bfloat16,
+    under strong and weak decay (a = 1 in float32: the clamp) and at an S
+    and a width that the chunks and a block's channels do not divide; both
+    timed at the training shape in bfloat16. Returns their kernels-line
+    entries."""
+    entries = {}
+    w0 = RGLRU_TRAIN_SHAPE[2]
+    cases = [  # (name, shape, decay, autograd check)
+        (f"training shape {RGLRU_TRAIN_SHAPE}", RGLRU_TRAIN_SHAPE, "normal", True),
+        ("strong decay", (2, 512, w0), "strong", False),
+        ("weak decay (the clamp)", (2, 512, w0), "weak", False),
+        ("ragged (3, 1001, 100)", (3, 1001, 100), "normal", True),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, shape, decay, autograd in cases:
+            xb, r_pre, i_pre, y_pre, c, _lengths = _rglru_inputs(*shape, dtype, 41, decay)
+            args = (xb, r_pre, i_pre, y_pre, c)
+            gen = torch.Generator(device="cuda").manual_seed(42)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            name = f"rglru_train {str(dtype)[6:]} {label}"
+            y, h_chunks = RG.rglru_scan_train(*args)
+            serving, _ = RG.rglru_scan(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(y, serving):
+                fail(f"{name}: the training forward's y is not the serving op's")
+            del serving
+            f32 = [t.float() for t in args]
+            _, want_h = RG.rglru_scan_train_torch(*f32)
+            check_close(f"{name} chunk states", h_chunks, want_h, FP32_TOL)
+            del want_h
+            got = RG.rglru_scan_bwd(*args, h_chunks, dy)
+            again = RG.rglru_scan_bwd(*args, h_chunks, dy)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                fail(f"{name}: two backward calls on the same inputs differ")
+            del again
+            want = RG.rglru_scan_bwd_torch(*f32, h_chunks, dy.float())
+            names = ("dxb", "dr_pre", "di_pre", "dy_pre", "dc")
+            errs = {gname: check_close(f"{name} {gname} vs the plain backward", g, w,
+                                       _bwd_tol(w, dtype, g.dtype == torch.float32))
+                    for gname, g, w in zip(names, got, want)}
+            if autograd:
+                leaves = [t.detach().requires_grad_() for t in f32]
+                RG.rglru_scan_torch(*leaves)[0].backward(dy.float())
+                for gname, g, leaf in zip(names, got, leaves):
+                    tol = _bwd_tol(leaf.grad, dtype, g.dtype == torch.float32)
+                    check_close(f"{name} {gname} vs autograd through the plain loop", g,
+                                leaf.grad, tol)
+                del leaves
+            del got, want, f32
+            if dtype == torch.bfloat16 and shape == RGLRU_TRAIN_SHAPE:
+                ferr = check_close(f"{name} y vs the plain forward", y,
+                                   RG.rglru_scan_torch(*args, out_dtype=torch.float32)[0],
+                                   RGLRU_BF16_TOL)
+                entries["rglru_scan_train"] = _train_entry(
+                    "rglru_scan_train", "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                    "src/repro/models/blocks.py:570", lambda: RG.rglru_scan_train(*args),
+                    lambda: RG.rglru_scan_train_torch(*args), RG.work_train, args, ferr,
+                    flush, plain_reps=2)
+                entries["rglru_scan_bwd"] = _train_entry(
+                    "rglru_scan_bwd", "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                    "src/repro/models/blocks.py:570",
+                    lambda: RG.rglru_scan_bwd(*args, h_chunks, dy),
+                    lambda: RG.rglru_scan_bwd_torch(*args, h_chunks, dy), RG.work_bwd,
+                    (*args, h_chunks, dy), errs["dxb"], flush, plain_reps=2)
+            del args, dy, y, h_chunks
+            torch.cuda.empty_cache()
+    return entries
 
 
 def _gemm_case(label, run, plain, library, want, tol, work, dtype, flush,
@@ -2876,30 +3111,32 @@ def trainable_params(model, seed: int) -> dict:
     return params
 
 
-def _train_run(model, cfg, plan, opt, shape, init, backend="auto") -> tuple:
+def _train_run(model, cfg, plan, opt, shape, init, backend="auto", lr=None) -> tuple:
     """TRAIN_CHECK_STEPS steps of ``make_train_step`` from a copy of
-    ``init`` under ``ops.BACKEND = backend``: (per-step metrics, final
-    params, flash_attention_train launches)."""
+    ``init`` under ``ops.BACKEND = backend`` at ``lr`` (default
+    TRAIN_CHECK_LR): (per-step metrics, final params, {wrapper: launches})."""
     ops.BACKEND = backend
     params = {k: v.clone() for k, v in init.items()}
     state = init_opt_state(opt, params, plan)
-    train = TrainConfig(optimizer=opt, learning_rate=TRAIN_CHECK_LR[opt], grad_clip=1.0)
+    train = TrainConfig(optimizer=opt, learning_rate=lr or TRAIN_CHECK_LR[opt], grad_clip=1.0)
     step = make_train_step(model, plan, MeshConfig((1,), ("data",)), train)
-    FA.flash_attention_train.launches = 0
+    for fn in _build.COUNTED:
+        fn.launches = 0
     recs = []
     for i in range(TRAIN_CHECK_STEPS):
         batch = make_batch(cfg, shape, step=i, dtype=torch.float32, device="cuda")
         params, state, met = step(params, state, batch, i)
         recs.append({k: float(v) for k, v in met.items()})
-    launches = FA.flash_attention_train.launches
+    launches = {fn.__name__: fn.launches for fn in _build.COUNTED}
     ops.BACKEND = "auto"
     del state
     return recs, params, launches
 
 
-def _same_trajectory(label, opt, got, want) -> None:
+def _same_trajectory(label, opt, got, want, lr=None) -> None:
     """Holds one train-check run against another under the train-check
-    tolerances, printing the largest readings."""
+    tolerances (Adam's element bound at ``lr``, default TRAIN_CHECK_LR),
+    printing the largest readings."""
     (grecs, gparams, _), (wrecs, wparams, _) = got, want
     worst = {"loss": 0.0, "xent": 0.0, "grad_norm": 0.0}
     for g, w in zip(grecs, wrecs, strict=True):
@@ -2908,7 +3145,7 @@ def _same_trajectory(label, opt, got, want) -> None:
             worst[key] = max(worst[key], rel)
             if not (math.isfinite(g[key]) and rel <= rtol):
                 fail(f"train-check {label}: {key} {g[key]} against {w[key]} (rtol {rtol})")
-    lr = TRAIN_CHECK_LR[opt]
+    lr = lr or TRAIN_CHECK_LR[opt]
     max_err = max_rms = 0.0
     for k, want_t in wparams.items():
         want_t = want_t.float()
@@ -2945,19 +3182,21 @@ def phase_train_check() -> None:
         runs = {"plain": (plan, "torch"), "microbatches 2": (plan.replace(microbatches=2), "auto"),
                 "remat off": (plan.replace(remat=False), "auto")}
         per_step = TRAIN_CHECK_LAYERS * (1 + plan.remat)
-        print(f"  {opt}: kernel path {kern[2]} flash_attention_train launches "
+        flash = kern[2]["flash_attention_train"]
+        print(f"  {opt}: kernel path {flash} flash_attention_train launches "
               f"(expected {TRAIN_CHECK_LAYERS} layers x {TRAIN_CHECK_STEPS} steps x "
               f"{1 + plan.remat})")
-        if kern[2] != per_step * TRAIN_CHECK_STEPS:
-            fail(f"train-check {opt}: {kern[2]} launches, expected "
+        if flash != per_step * TRAIN_CHECK_STEPS:
+            fail(f"train-check {opt}: {flash} launches, expected "
                  f"{per_step * TRAIN_CHECK_STEPS}")
         for label, (p, backend) in runs.items():
             other = _train_run(model, cfg, p, opt, shape, init, backend)
+            got = other[2]["flash_attention_train"]
             want = (0 if backend == "torch" else
                     TRAIN_CHECK_LAYERS * (1 + p.remat) * p.microbatches * TRAIN_CHECK_STEPS)
-            if other[2] != want:
-                fail(f"train-check {opt} {label}: {other[2]} launches, expected {want}")
-            _same_trajectory(f"{opt}, kernel path vs {label} ({other[2]} launches)", opt,
+            if got != want:
+                fail(f"train-check {opt} {label}: {got} launches, expected {want}")
+            _same_trajectory(f"{opt}, kernel path vs {label} ({got} launches)", opt,
                              kern, other)
             del other
         del kern
@@ -2967,24 +3206,29 @@ def phase_train_check() -> None:
 
 
 class _Calls:
-    """Counts calls of the model's CPU attention operators while the train
-    phase runs (a step on the card must take none)."""
+    """Counts calls of the plain functions that a step on the card must not
+    take while a train phase runs: the model's CPU attention operators and
+    the scan kernels' plain versions (``ops``' own names and the modules'
+    names the training ops' CPU implementations call)."""
 
-    NAMES = ("_einsum", "_blocked")
+    NAMES = ((ATT, "_einsum"), (ATT, "_blocked"), (ops, "ssd_scan_torch"),
+             (ops, "rglru_scan_torch"), (SSD, "ssd_scan_torch"), (SSD, "ssd_scan_train_torch"),
+             (SSD, "ssd_scan_bwd_torch"), (RG, "rglru_scan_torch"),
+             (RG, "rglru_scan_train_torch"), (RG, "rglru_scan_bwd_torch"))
 
     def __enter__(self):
-        self.calls = {n: 0 for n in self.NAMES}
-        self.saved = {n: getattr(ATT, n) for n in self.NAMES}
-        for n, fn in self.saved.items():
+        self.calls = {n: 0 for _m, n in self.NAMES}
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.NAMES]
+        for m, n, fn in self.saved:
             def counting(*a, _n=n, _fn=fn, **kw):
                 self.calls[_n] += 1
                 return _fn(*a, **kw)
-            setattr(ATT, n, counting)
+            setattr(m, n, counting)
         return self
 
     def __exit__(self, *exc):
-        for n, fn in self.saved.items():
-            setattr(ATT, n, fn)
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
 
 
 def _annotated(events, name):
@@ -2995,10 +3239,11 @@ def _annotated(events, name):
 
 
 def step_breakdown(events, span: str) -> None:
-    """Device time of one traced train step by part: the flash forward,
-    the attention backward (kernels inside its spans' device annotations),
-    the optimizer (likewise), the other matrix products, the rest; the
-    step's busy time and idle share."""
+    """Device time of one traced train step by part: the flash, SSD and
+    RG-LRU forwards (their kernels outside a backward span), the attention,
+    SSD and RG-LRU backwards (kernels inside their spans' device
+    annotations), the optimizer (likewise), the other matrix products, the
+    rest; the step's busy time and idle share."""
     found = [e.time_range for e in events if e.name == span and e.device_type == DeviceType.CPU]
     dev = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     if not found or not dev:
@@ -3007,24 +3252,30 @@ def step_breakdown(events, span: str) -> None:
     lo, hi = found[0].start, found[0].end
     inside = [e for e in dev if lo <= e.time_range.start < hi]
     regions = {"attention backward": _annotated(events, FA.BACKWARD_SPAN),
+               "ssd backward": _annotated(events, SSD.BACKWARD_SPAN),
+               "rglru backward": _annotated(events, RG.BACKWARD_SPAN),
                "optimizer": _annotated(events, OPTIMIZER_SPAN)}
+    forwards = {"flash": "flash forward", "ssd": "ssd forward", "rglru": "rglru forward",
+                "matmul": "matmul"}
     parts = {"matmul": 0.0, "flash forward": 0.0, "attention backward": 0.0,
-             "optimizer": 0.0, "other": 0.0}
-    flash = sum(1 for e in inside if _kernel_family(e.name) == "flash")
+             "ssd forward": 0.0, "ssd backward": 0.0, "rglru forward": 0.0,
+             "rglru backward": 0.0, "optimizer": 0.0, "other": 0.0}
+    kernels = {fam: sum(1 for e in inside if _kernel_family(e.name) == fam)
+               for fam in ("flash", "ssd", "rglru")}
     for e in inside:
         dur = e.time_range.end - e.time_range.start
         part = next((p for p, spans in regions.items()
                      if any(a <= e.time_range.start < b for a, b in spans)), None)
         if part is None:
-            fam = _kernel_family(e.name)
-            part = {"flash": "flash forward", "matmul": "matmul"}.get(fam, "other")
+            part = forwards.get(_kernel_family(e.name), "other")
         parts[part] += dur
     busy = _busy_us((e.time_range.start, min(e.time_range.end, hi)) for e in inside)
     print(f"    train step (traced): span {(hi - lo) / 1e3:.3f} ms, device busy "
           f"{busy / 1e3:.3f} ms, idle share {1 - busy / (hi - lo):.3f}, {len(inside)} device "
-          f"events; device time: " + ", ".join(f"{p} {v / 1e3:.3f} ms" for p, v in parts.items())
-          + (f" (flash launches in the trace {flash}; annotations: attention backward "
-             f"{len(regions['attention backward'])}, optimizer {len(regions['optimizer'])})"))
+          f"events; device time: " + ", ".join(f"{p} {v / 1e3:.3f} ms" for p, v in parts.items()
+                                                 if v or p in ("matmul", "optimizer", "other"))
+          + f" (kernel events in the trace {kernels}; annotations: "
+          + ", ".join(f"{p} {len(v)}" for p, v in regions.items()) + ")")
 
 
 def phase_train() -> dict:
@@ -3107,6 +3358,137 @@ def phase_train() -> dict:
     return {"flash_attention_train": launches["flash_attention_train"]}
 
 
+def _scan_launches(pattern: str, plan, steps: int) -> dict:
+    """Each training kernel's launches for ``steps`` steps of a stack of
+    ``pattern``: the forwards once a layer and microbatch, twice under
+    remat (the recompute); the backwards once."""
+    m, fwd = plan.microbatches, 1 + plan.remat
+    n = {k: pattern.count(k) for k in "sra"}
+    return {"ssd_scan_train": n["s"] * steps * m * fwd, "ssd_scan_bwd": n["s"] * steps * m,
+            "rglru_scan_train": n["r"] * steps * m * fwd, "rglru_scan_bwd": n["r"] * steps * m,
+            "flash_attention_train": n["a"] * steps * m * fwd}
+
+
+def phase_train_check_recurrent(family: str) -> None:
+    """train-check-ssm / train-check-hybrid: the family's full widths cut to
+    a few layers, float32, TRAIN_CHECK_STEPS steps of sgd and adam (clip
+    1.0): the kernel path (the scan kernels' training forwards and backward
+    kernels, flash's training forward) against the plain path and against 2
+    microbatches, under the train-check tolerances, launches exact."""
+    arch, cut = RECURRENT_CHECKS[family]
+    b, s = TRAIN_CHECK_SHAPE
+    cfg = replace(get_config(arch), **cut)
+    pattern = cfg.layer_pattern()
+    phase(f"train-check-{family}: {arch} widths, {len(pattern)} layers ({pattern}), float32, "
+          f"batch {b}, seq {s}, {TRAIN_CHECK_STEPS} steps, sgd and adam, grad_clip 1.0: the "
+          f"kernel path == the plain path, microbatches 1 == 2")
+    model = build_model(cfg, dtype=torch.float32)
+    shape = InputShape("train-check", s, b, "train")
+    plan = compile_plan(cfg, shape, MeshConfig((1,), ("data",)), TrainConfig(),
+                        dtype="float32").config
+    print(f"  plan: {plan.strategy.value}, opt state {plan.opt_state_dtype}, remat "
+          f"{plan.remat}, microbatches {plan.microbatches}")
+    init = trainable_params(model, SEED)
+    for opt in ("sgd", "adam"):
+        lr = RECURRENT_CHECK_LR[opt]
+        runs = {"kernel path": (plan, "auto"), "plain": (plan, "torch"),
+                "microbatches 2": (plan.replace(microbatches=2), "auto")}
+        out = {}
+        for label, (p, backend) in runs.items():
+            out[label] = _train_run(model, cfg, p, opt, shape, init, backend, lr=lr)
+            want = ({k: 0 for k in _scan_launches(pattern, p, 0)} if backend == "torch"
+                    else _scan_launches(pattern, p, TRAIN_CHECK_STEPS))
+            got = {k: out[label][2][k] for k in want}
+            print(f"  {opt} at lr {lr:g}, {label}: launches {got}")
+            if got != want:
+                fail(f"train-check-{family} {opt} {label}: launches {got}, expected {want}")
+        for label in ("plain", "microbatches 2"):
+            _same_trajectory(f"{opt}, kernel path vs {label}", opt, out["kernel path"],
+                             out[label], lr=lr)
+        del out
+    del init, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+
+def phase_train_recurrent(family: str) -> dict:
+    """train-ssm / train-hybrid: the full model, bfloat16, TRAIN_SHAPE,
+    TRAIN_STEPS Adam steps at TRAIN_LR through ``launch.train``'s own entry
+    on the planner's one-card plan, from ``trainable_params`` (Mamba-2 has
+    no attention projection, so its weights are the model's own seeded
+    initialisation; at RecurrentGemma-2B's own, whose 4-D attention
+    projections carry the head-count scaling, the gradient norm was 1e8 to
+    3e9 and the loss flat within its batches' noise: PERF.md section 6):
+    losses finite and falling, the training kernels' launches exact, no
+    plain scan or CPU attention function called; step ms, tokens/s, MFU,
+    peak memory against the estimate, one traced step's breakdown. Returns
+    the scan kernels' launches."""
+    arch = RECURRENT_TRAIN[family]
+    b, s = TRAIN_SHAPE
+    cfg = get_config(arch)
+    pattern = cfg.layer_pattern()
+    phase(f"train-{family}: full {arch} ({len(pattern)} layers, bfloat16, seeded "
+          f"trainable_params), batch {b}, seq {s}, {TRAIN_STEPS} steps of adam at lr "
+          f"{TRAIN_LR} through repro_torch.launch.train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  device memory before: {_mem()}")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, dtype=torch.bfloat16)
+    init = trainable_params(model, SEED)
+    del model
+    args = ["--arch", arch] + TRAIN_ARGS[2:]
+    for fn in _build.COUNTED:
+        fn.launches = 0
+    with _Calls() as plain:
+        run = train_cli.main(args, params=init)
+    launches = {fn.__name__: fn.launches for fn in _build.COUNTED}
+    del init
+    peak = torch.cuda.max_memory_allocated()
+    plan = run.plan.config
+    want = _scan_launches(pattern, plan, TRAIN_STEPS)
+    got = {k: launches[k] for k in want}
+    losses = [h["loss"] for h in run.timer.history]
+    secs = [h["seconds"] for h in run.timer.history]
+    step_s = statistics.median(secs[2:8])
+    flops = cost.model_flops_per_step(run.cfg, run.shape)
+    print(f"  plan: {plan.strategy.value}, opt state {plan.opt_state_dtype}, remat "
+          f"{plan.remat}, microbatches {plan.microbatches}; {run.plan.memory.summary()}")
+    print(f"  losses {[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(h['grad_norm'], 4) for h in run.timer.history]}; step seconds "
+          f"{[round(x, 4) for x in secs]}")
+    print(f"  step {step_s * 1e3:.1f} ms (median of steps 2-7), {b * s / step_s:.0f} tokens/s, "
+          f"mfu {flops / step_s / hw.H100.peak_flops:.4f} ({flops / 1e12:.1f} model TFLOP a "
+          f"step against {hw.H100.peak_flops / 1e12:.0f} TFLOP/s)")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB against the plan's estimate "
+          f"{run.plan.memory.total / 2**30:.2f} GiB"
+          f"{' — ABOVE the estimate' if peak > run.plan.memory.total else ''}")
+    print(f"  launches {got} (expected {want}); plain functions called {plain.calls}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train-{family}: a loss is not finite: {losses}")
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        fail(f"train-{family}: the mean of the last three losses "
+             f"{statistics.mean(losses[-3:])} is not below step 0's {losses[0]}")
+    if got != want:
+        fail(f"train-{family}: launches {got}, expected {want}")
+    if any(plain.calls.values()):
+        fail(f"train-{family}: the step on the card called plain functions {plain.calls}")
+    batch = make_batch(run.cfg, run.shape, step=TRAIN_STEPS, dtype=run.dtype, device="cuda")
+    span = "train.step"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(span):
+            run.step_fn(run.params, run.opt_state, batch, TRAIN_STEPS)
+            torch.cuda.synchronize()
+    step_breakdown(prof.events(), span)
+    del prof, batch, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    kinds = ("ssd_scan_train", "ssd_scan_bwd") if family == "ssm" else ("rglru_scan_train",
+                                                                        "rglru_scan_bwd")
+    return {k: launches[k] for k in kinds}
+
+
 def phase_quickstart() -> None:
     phase("quickstart: the paper's softmax classifier through Keras2Plan on the card "
           "(repro_torch.launch.quickstart)")
@@ -3154,6 +3536,9 @@ def main() -> int:
     phase_analysis()
     phase_train_check()
     launches.update(phase_train())
+    for family in ("ssm", "hybrid"):
+        phase_train_check_recurrent(family)
+        launches.update(phase_train_recurrent(family))
     phase_quickstart()
     for name, n in launches.items():
         kernels[name]["launches"] = n
@@ -3163,7 +3548,8 @@ def main() -> int:
                         for n in ("paged_decode_attention", "flash_attention", "ssd_scan",
                                   "matmul", "conv2d_im2col", "flash_attention_d256",
                                   "paged_decode_attention_g10_d256", "rglru_scan",
-                                  "flash_attention_train")]}
+                                  "flash_attention_train", "ssd_scan_train", "ssd_scan_bwd",
+                                  "rglru_scan_train", "rglru_scan_bwd")]}
     for entry in line["kernels"]:
         for key in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms"):
             if entry[key] is not None and not math.isfinite(entry[key]):

@@ -58,6 +58,18 @@ def dtype_bytes(dtype: str) -> int:
 # on its figures.
 EAGER_WORKING_BYTES = 4
 EAGER_SSD_FACTOR = 1.5
+# The H100's training terms. The float32 cross-entropy
+# (models/common.py::softmax_xent_logits) keeps a float32 copy of the logits
+# for its backward, which forms the softmax and the logits' gradient in
+# float32 beside it: XENT_BYTES a logit on top of the model-dtype logits
+# the activations count (25 GB at recurrentgemma-2b's 8192 x 256,000).
+# The recurrent layers' backward kernels add, per layer whose activations
+# are live, the state their training forward keeps (SSD: each chunk's
+# starting state, float32 (B, H, S / 64, P, N); RG-LRU: the state entering
+# each chunk of 8 positions, float32 (B, S / 8, W)) and, for the one layer
+# in its backward, its scratch (SSD: per-head dB and dC, float32
+# (B, H, S, N) each, and C B^T per chunk; RG-LRU: per-row dc).
+XENT_BYTES = 12
 
 # optimizer -> number of per-param state slots (repro_torch.nn.optim)
 OPTIMIZER_SLOTS = {
@@ -173,6 +185,11 @@ def estimate_memory(
             params_dev / nb * _opt_bytes_per_param(train.optimizer, plan.opt_state_dtype)
         )
         est.per_device["activations"] = _train_activation_bytes(model, shape, plan, dp, mp, nb)
+        if hw.name == H100.name:
+            tok = max(1, shape.global_batch // dp) // plan.microbatches * shape.seq_len
+            est.per_device["xent"] = tok * (model.vocab_size / mp) * XENT_BYTES
+            est.per_device["recurrent_backward"] = _recurrent_backward_bytes(model, shape, plan,
+                                                                             dp)
     elif shape.kind == "prefill":
         est.per_device["activations"] = _prefill_activation_bytes(
             model, shape, plan, dp, mp, nb, eager=hw.name == H100.name)
@@ -255,6 +272,29 @@ def _train_activation_bytes(
         enc_tok = b_micro * model.encoder_seq
         saved += model.encoder_layers * enc_tok * model.d_model * nb
     return saved + working + logits
+
+
+def _recurrent_backward_bytes(model: ModelConfig, shape: InputShape, plan: PlanConfig,
+                              dp: int) -> float:
+    """The recurrent layers' backward terms on the H100 (see XENT_BYTES):
+    the saved states of one layer under remat (of every such layer without
+    it) plus one layer's backward scratch, for the larger of the SSD and
+    RG-LRU kinds the pattern holds."""
+    b = max(1, max(1, shape.global_batch // dp) // plan.microbatches)
+    s = shape.seq_len
+    pat = model.layer_pattern()
+    terms = [0.0]
+    if "s" in pat:
+        h, p, n = model.ssm_num_heads, model.ssm_head_dim, model.ssm_state
+        nc = -(-s // 64)
+        saved = 4.0 * b * h * nc * p * n
+        scratch = 2 * 4.0 * b * h * s * n + 4.0 * b * nc * 64 * 64
+        terms.append(saved * (1 if plan.remat else pat.count("s")) + scratch)
+    if "r" in pat:
+        w = model.lru_width or model.d_model
+        saved = 4.0 * b * -(-s // 8) * w
+        terms.append(saved * (1 if plan.remat else pat.count("r")) + 4.0 * b * w)
+    return max(terms)
 
 
 def _prefill_activation_bytes(

@@ -143,6 +143,7 @@ rglru_scan_kernel(const T* __restrict__ xb,        // (B, S, W) conv output
                   const int32_t* __restrict__ lengths,  // (B,)
                   T* __restrict__ y,               // (B, S, W)
                   float* __restrict__ h_last,      // (B, W)
+                  float* __restrict__ h_chunks,    // (B, ceil(S / 8), W) or null
                   int s, int w) {
   __shared__ float chunk_a[kMaxChunks][kChannels];   // the tile's chunks' A
   __shared__ float chunk_h[kMaxChunks][kChannels];   // and H
@@ -184,6 +185,8 @@ rglru_scan_kernel(const T* __restrict__ xb,        // (B, S, W) conv output
     float h = carry[lane_ch];
     for (int j = 0; j < k; ++j) h = chunk_a[j][lane_ch] * h + chunk_h[j][lane_ch];
     __syncthreads();                                 // every carry read before it moves on
+    if (h_chunks != nullptr && live && t0 < s)       // training: the backward's carries
+      h_chunks[(static_cast<size_t>(b) * ((s + kChunk - 1) / kChunk) + t0 / kChunk) * w + ch] = h;
     if (k == n_chunks - 1) carry[lane_ch] = prod * h + end;
     if (edge)
       chunk_out<true>(y, h_last_b, off, w, live, t0, s, t_last, h, a, bt, yv);
@@ -194,35 +197,237 @@ rglru_scan_kernel(const T* __restrict__ xb,        // (B, S, W) conv output
 
 template <typename T>
 cudaError_t launch(const void* xb, const void* r_pre, const void* i_pre, const void* y_pre,
-                   const float* c, const int32_t* lengths, void* y, float* h_last, int batch,
-                   int s, int w, int n_chunks, cudaStream_t stream) {
+                   const float* c, const int32_t* lengths, void* y, float* h_last,
+                   float* h_chunks, int batch, int s, int w, int n_chunks, cudaStream_t stream) {
   dim3 grid((w + kChannels - 1) / kChannels, batch);
   rglru_scan_kernel<T><<<grid, kChannels * n_chunks, 0, stream>>>(
       static_cast<const T*>(xb), static_cast<const T*>(r_pre), static_cast<const T*>(i_pre),
-      static_cast<const T*>(y_pre), c, lengths, static_cast<T*>(y), h_last, s, w);
+      static_cast<const T*>(y_pre), c, lengths, static_cast<T*>(y), h_last, h_chunks, s, w);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the backward (training)
+// ---------------------------------------------------------------------------
+//
+// The gradient of y above for an output gradient dy, from the state the
+// training forward wrote at the start of each chunk of 8 positions
+// (h_chunks): per element, with e_t = dy_t gelu_tanh(y_pre_t),
+//   dh_t = e_t + a_{t+1} dh_{t+1}          (dh past S is 0)
+//   dy_pre = dy h_t gelu_tanh'(y_pre),  dxb = dh beta i,
+//   di_pre = dh xb beta i (1 - i),
+//   da = dh h_{t-1} - [1 - a^2 > 1e-9] (dh xb i) a / beta
+//        (JAX's maximum: half at a tie, which float32 cannot reach),
+//   dr_pre = da a c r (1 - r),  dc = sum over (B, S) of da a r.
+// The reverse recurrence composes like the forward's: a chunk maps the
+// value q = a_{t+1} dh_{t+1} handed in from its right to a_{t0} dh_{t0} =
+// A q + E, with the same decay product A. The block and thread layout is
+// the forward's (16 channels of one row, one thread per (channel, chunk)),
+// walking tiles from the last to the first: each thread takes its chunk's
+// (A, E) from q = 0, then the q entering its chunk (the tile's carry
+// composed with the chunks after it), then recomputes its chunk's states
+// from h_chunks and forms every gradient in reverse. So h_{t-1} costs 4
+// bytes per 8 positions of saved state, not a (B, S, W) float32 buffer.
+// dc is summed per thread in order, over a block's chunks in order, then
+// over rows in order by a second launch: no atomics. The special functions
+// are the IEEE ones (expf, tanhf, sqrtf, true division). Bound: bytes, as
+// the forward (five inputs read and four gradients written in T).
+
+__device__ __forceinline__ float sigmoid_ieee(float x) { return 1.f / (1.f + expf(-x)); }
+
+__device__ __forceinline__ float gelu_tanh_ieee(float x, float& grad) {
+  const float kBeta = 0.7978845608028654f;     // sqrt(2 / pi)
+  const float kKappa = 0.044715f;
+  const float th = tanhf(kBeta * (x + kKappa * (x * x * x)));
+  grad = 0.5f * (1.f + th) + 0.5f * x * (1.f - th * th) * kBeta * (1.f + 3.f * kKappa * x * x);
+  return 0.5f * x * (1.f + th);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kChannels * kMaxChunks, 1)
+rglru_scan_bwd_kernel(const T* __restrict__ xb, const T* __restrict__ r_pre,
+                      const T* __restrict__ i_pre, const T* __restrict__ y_pre,
+                      const float* __restrict__ c, const float* __restrict__ h_chunks,
+                      const T* __restrict__ dy, T* __restrict__ dxb, T* __restrict__ dr,
+                      T* __restrict__ di, T* __restrict__ dyp,
+                      float* __restrict__ dc_rows,   // (B, W)
+                      int s, int w) {
+  __shared__ float chunk_a[kMaxChunks][kChannels];   // the tile's chunks' A
+  __shared__ float chunk_e[kMaxChunks][kChannels];   // and E
+  __shared__ float carry[kChannels];                 // q entering the tile from its right
+  __shared__ float dc_part[kMaxChunks][kChannels];
+  const int lane_ch = threadIdx.x % kChannels;
+  const int k = threadIdx.x / kChannels;
+  const int n_chunks = blockDim.x / kChannels;
+  const int tile_len = n_chunks * kChunk;
+  const int ch = blockIdx.x * kChannels + lane_ch;
+  const int b = blockIdx.y;
+  const bool live = ch < w;
+  const int nck = (s + kChunk - 1) / kChunk;
+  const float cw = live ? c[ch] : 0.f;
+  const size_t row = static_cast<size_t>(b) * s * w + ch;
+  float dc_acc = 0.f;
+  if (k == 0) carry[lane_ch] = 0.f;
+
+  for (int tile = ((s - 1) / tile_len) * tile_len; tile >= 0; tile -= tile_len) {
+    const int t0 = tile + k * kChunk;
+    const size_t off = row + static_cast<size_t>(t0) * w;
+    float av[kChunk], ev[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      av[u] = 1.f;
+      ev[u] = 0.f;
+      if (live && t0 + u < s) {
+        const size_t e = off + static_cast<size_t>(u) * w;
+        float gg;
+        av[u] = expf(cw * sigmoid_ieee(to_f32(r_pre[e])));
+        ev[u] = to_f32(dy[e]) * gelu_tanh_ieee(to_f32(y_pre[e]), gg);
+      }
+    }
+    float prod = 1.f, end = 0.f;
+#pragma unroll
+    for (int u = kChunk - 1; u >= 0; --u) {
+      end = av[u] * (ev[u] + end);
+      prod *= av[u];
+    }
+    chunk_a[k][lane_ch] = prod;
+    chunk_e[k][lane_ch] = end;
+    __syncthreads();
+    float q = carry[lane_ch];
+    for (int j = n_chunks - 1; j > k; --j) q = chunk_a[j][lane_ch] * q + chunk_e[j][lane_ch];
+    __syncthreads();                                 // every carry read before it moves on
+    if (k == 0) carry[lane_ch] = prod * q + end;
+    if (live && t0 < s) {
+      // the chunk's states from the state entering it
+      const float h_in = h_chunks[(static_cast<size_t>(b) * nck + t0 / kChunk) * w + ch];
+      float hv[kChunk];
+      float h = h_in;
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        if (t0 + u < s) {
+          const size_t e = off + static_cast<size_t>(u) * w;
+          const float a = av[u];
+          const float beta = sqrtf(fmaxf(1.f - a * a, 1e-9f));
+          h = a * h + beta * sigmoid_ieee(to_f32(i_pre[e])) * to_f32(xb[e]);
+        }
+        hv[u] = h;
+      }
+#pragma unroll
+      for (int u = kChunk - 1; u >= 0; --u) {
+        if (t0 + u >= s) continue;
+        const size_t e = off + static_cast<size_t>(u) * w;
+        const float x = to_f32(xb[e]);
+        const float r = sigmoid_ieee(to_f32(r_pre[e]));
+        const float i = sigmoid_ieee(to_f32(i_pre[e]));
+        const float a = av[u];
+        const float one_m = 1.f - a * a;
+        const float beta = sqrtf(fmaxf(one_m, 1e-9f));
+        const float dh = ev[u] + q;
+        const float hprev = u > 0 ? hv[u - 1] : h_in;
+        float ggrad;
+        gelu_tanh_ieee(to_f32(y_pre[e]), ggrad);
+        dyp[e] = from_f32<T>(to_f32(dy[e]) * hv[u] * ggrad);
+        dxb[e] = from_f32<T>(dh * beta * i);
+        const float dg = dh * x;
+        di[e] = from_f32<T>(dg * beta * i * (1.f - i));
+        const float wgt = one_m > 1e-9f ? 1.f : (one_m == 1e-9f ? 0.5f : 0.f);
+        const float dbeta = wgt * dg * i;
+        const float ga = dh * hprev - dbeta * a / beta;
+        const float dca = ga * a;
+        dc_acc += dca * r;
+        dr[e] = from_f32<T>(dca * cw * r * (1.f - r));
+        q = a * dh;
+      }
+    }
+  }
+  dc_part[k][lane_ch] = dc_acc;
+  __syncthreads();
+  if (k == 0 && live) {
+    float sum = 0.f;
+    for (int j = 0; j < n_chunks; ++j) sum += dc_part[j][lane_ch];
+    dc_rows[static_cast<size_t>(b) * w + ch] = sum;
+  }
+}
+
+// dc: the per-row partials summed over rows in order
+__global__ void rglru_scan_dc_kernel(const float* __restrict__ dc_rows, float* __restrict__ dc,
+                                     int batch, int w) {
+  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
+  if (ch >= w) return;
+  float sum = 0.f;
+  for (int b = 0; b < batch; ++b) sum += dc_rows[static_cast<size_t>(b) * w + ch];
+  dc[ch] = sum;
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* xb, const void* r_pre, const void* i_pre,
+                       const void* y_pre, const float* c, const float* h_chunks,
+                       const void* dy, void* dxb, void* dr, void* di, void* dyp,
+                       float* dc_rows, float* dc, int batch, int s, int w, int n_chunks,
+                       cudaStream_t stream) {
+  dim3 grid((w + kChannels - 1) / kChannels, batch);
+  rglru_scan_bwd_kernel<T><<<grid, kChannels * n_chunks, 0, stream>>>(
+      static_cast<const T*>(xb), static_cast<const T*>(r_pre), static_cast<const T*>(i_pre),
+      static_cast<const T*>(y_pre), c, h_chunks, static_cast<const T*>(dy),
+      static_cast<T*>(dxb), static_cast<T*>(dr), static_cast<T*>(di), static_cast<T*>(dyp),
+      dc_rows, s, w);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rglru_scan_dc_kernel<<<(w + 255) / 256, 256, 0, stream>>>(dc_rows, dc, batch, w);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (xb, r_pre, i_pre, y_pre and y); c and
-// h_last float32, lengths int32; chunks: chunks of 8 positions a block
-// walks at a time, 1 to 32. Returns the launch's cudaError_t.
+// h_last float32, lengths int32; h_chunks null, or (batch, ceil(s / 8), w)
+// float32 for the state entering each chunk (the training forward);
+// chunks: chunks of 8 positions a block walks at a time, 1 to 32. Returns
+// the launch's cudaError_t.
 extern "C" int rglru_scan(const void* xb, const void* r_pre, const void* i_pre,
                           const void* y_pre, const void* c, const void* lengths, void* y,
-                          void* h_last, int dtype, int batch, int s, int w, int chunks,
-                          void* stream) {
+                          void* h_last, void* h_chunks, int dtype, int batch, int s, int w,
+                          int chunks, void* stream) {
   if (batch < 1 || s < 1 || w < 1 || batch > 65535 || chunks < 1 || chunks > kMaxChunks)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* cf = static_cast<const float*>(c);
   const int32_t* len = static_cast<const int32_t*>(lengths);
   float* hl = static_cast<float*>(h_last);
+  float* hc = static_cast<float*>(h_chunks);
   cudaError_t err;
   if (dtype == 0)
-    err = launch<float>(xb, r_pre, i_pre, y_pre, cf, len, y, hl, batch, s, w, chunks, st);
+    err = launch<float>(xb, r_pre, i_pre, y_pre, cf, len, y, hl, hc, batch, s, w, chunks, st);
   else if (dtype == 1)
-    err = launch<bf16>(xb, r_pre, i_pre, y_pre, cf, len, y, hl, batch, s, w, chunks, st);
+    err = launch<bf16>(xb, r_pre, i_pre, y_pre, cf, len, y, hl, hc, batch, s, w, chunks, st);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// The backward: dtype as above for xb, r_pre, i_pre, y_pre, dy and the four
+// gradients; c, h_chunks (batch, ceil(s / 8), w), dc_rows (batch, w)
+// scratch and dc (w,) float32; chunks as above. Two launches (the reverse
+// scan, the sum over rows). Returns the first failing launch's cudaError_t.
+extern "C" int rglru_scan_bwd(const void* xb, const void* r_pre, const void* i_pre,
+                              const void* y_pre, const void* c, const void* h_chunks,
+                              const void* dy, void* dxb, void* dr, void* di, void* dyp,
+                              void* dc_rows, void* dc, int dtype, int batch, int s, int w,
+                              int chunks, void* stream) {
+  if (batch < 1 || s < 1 || w < 1 || batch > 65535 || chunks < 1 || chunks > kMaxChunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* cf = static_cast<const float*>(c);
+  const float* hc = static_cast<const float*>(h_chunks);
+  float* dcr = static_cast<float*>(dc_rows);
+  float* dcf = static_cast<float*>(dc);
+  cudaError_t err;
+  if (dtype == 0)
+    err = launch_bwd<float>(xb, r_pre, i_pre, y_pre, cf, hc, dy, dxb, dr, di, dyp, dcr, dcf,
+                            batch, s, w, chunks, st);
+  else if (dtype == 1)
+    err = launch_bwd<bf16>(xb, r_pre, i_pre, y_pre, cf, hc, dy, dxb, dr, di, dyp, dcr, dcf,
+                           batch, s, w, chunks, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

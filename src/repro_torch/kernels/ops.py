@@ -10,6 +10,11 @@
 The reference's ``_fits_vmem`` fallback becomes each wrapper's own shape
 check: a shape the kernel cannot take raises with the reason. Nothing falls
 back to the plain version when the tensor is on the card.
+
+Where autograd records a call (a training step), attention, the SSD scan
+and the RG-LRU scan take their kernels' training ops, whose registered
+gradients are the flash recompute rule and the scans' backward kernels;
+under ``"torch"`` autograd runs through the plain versions.
 """
 
 from __future__ import annotations
@@ -25,8 +30,8 @@ from repro_torch.kernels.matmul import matmul as matmul_kernel
 from repro_torch.kernels.matmul import matmul_torch
 from repro_torch.kernels.paged_attention import (paged_attention_torch,
                                                  paged_decode_attention)
-from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_torch
-from repro_torch.kernels.ssd_scan import MAX_CHUNK, ssd_scan, ssd_scan_torch
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_torch, rglru_scan_train
+from repro_torch.kernels.ssd_scan import MAX_CHUNK, ssd_scan, ssd_scan_torch, ssd_scan_train
 
 BACKEND = "auto"
 _BACKENDS = ("auto", "kernel", "torch")
@@ -80,15 +85,34 @@ def paged_attention(q, k_cache, v_cache, tables, pos, *, page: int, sc: int):
     return fn(q, k_cache, v_cache, tables, pos, page=page, sc=sc)
 
 
+def records_grad(*ts: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``ts`` (a training step)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def ssd(x, dt, a, b_mat, c_mat, d, *, chunk: int = MAX_CHUNK):
     """Mamba-2 SSD over x (B, S, H, P) at ``chunk = min(chunk, S)``; y in
-    x's dtype."""
-    fn = ssd_scan_torch if _use_plain(x) else ssd_scan
-    return fn(x, dt, a, b_mat, c_mat, d, chunk=chunk)
+    x's dtype. Where autograd records the call, the training forward
+    ``ssd_scan_train``, whose gradient is the ``ssd_scan_bwd`` kernel; under
+    ``BACKEND = "torch"``, autograd through the plain version."""
+    if _use_plain(x):
+        return ssd_scan_torch(x, dt, a, b_mat, c_mat, d, chunk=chunk)
+    if records_grad(x, dt, a, b_mat, c_mat, d):
+        return ssd_scan_train(x, dt, a, b_mat, c_mat, d, chunk=chunk)[0]
+    return ssd_scan(x, dt, a, b_mat, c_mat, d, chunk=chunk)
 
 
 def rglru(xb, r_pre, i_pre, y_pre, c, lengths=None):
     """The RG-LRU gates, recurrence and output product over (B, S, W):
-    ``(y in xb's dtype, the float32 state at each row's lengths - 1)``."""
-    fn = rglru_scan_torch if _use_plain(xb) else rglru_scan
-    return fn(xb, r_pre, i_pre, y_pre, c, lengths)
+    ``(y in xb's dtype, the float32 state at each row's lengths - 1)``.
+    Where autograd records the call (a training step, which hands no decode
+    state on), ``(y, None)`` from the training forward ``rglru_scan_train``,
+    whose gradient is the ``rglru_scan_bwd`` kernel; under ``BACKEND =
+    "torch"``, autograd through the plain version."""
+    if _use_plain(xb):
+        return rglru_scan_torch(xb, r_pre, i_pre, y_pre, c, lengths)
+    if records_grad(xb, r_pre, i_pre, y_pre, c):
+        if lengths is not None:
+            raise ValueError("the RG-LRU training forward takes whole rows (lengths=None)")
+        return rglru_scan_train(xb, r_pre, i_pre, y_pre, c)[0], None
+    return rglru_scan(xb, r_pre, i_pre, y_pre, c, lengths)

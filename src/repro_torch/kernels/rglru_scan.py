@@ -31,14 +31,23 @@ reference's rounding points:
 - :func:`rglru_scan_chunked_torch` is the plain version in the kernel's
   order (its chunks, its float32 association of the recurrence); the tests
   hold it to a float64 sequential loop and to the reference.
+- Training: :func:`rglru_scan_train` (custom op
+  ``repro_torch::rglru_scan_train``) is the same kernel also writing the
+  state entering each chunk of ``SCAN_CHUNK`` positions, ``(y, h_chunks)``;
+  its registered gradient is :func:`rglru_scan_bwd` (custom op
+  ``repro_torch::rglru_scan_bwd``), a hand-written backward kernel in
+  ``csrc/rglru_scan.cu``; :func:`rglru_scan_train_torch` and
+  :func:`rglru_scan_bwd_torch` are their plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 import torch.nn.functional as F
 
 from repro_torch.hw import H100_SMS, sm_count
@@ -51,6 +60,8 @@ SCAN_CHUNK, SCAN_MAX_CHUNKS = 8, 32
 # threads per SM the chunk plan aims at: a full SM (two 512-thread blocks
 # of 64 registers), for loads enough in flight to cover the memory's latency
 SCAN_THREADS_PER_SM = 2048
+# the backward's span in a torch.profiler trace
+BACKWARD_SPAN = "rglru_scan.backward"
 
 
 def chunk_plan(b: int, s: int, w: int, sms: int = H100_SMS) -> Tuple[int, int]:
@@ -141,6 +152,101 @@ def rglru_scan_chunked_torch(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch
     return y, hseq[torch.arange(b, device=xb.device), last]
 
 
+def rglru_scan_train_torch(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
+                           y_pre: torch.Tensor, c: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the training forward: ``(y, h_chunks)``, y as
+    :func:`rglru_scan_torch`'s and ``h_chunks`` (B, ceil(S / SCAN_CHUNK), W)
+    float32 the state entering each chunk of ``SCAN_CHUNK`` positions
+    (zeros for the first), from which the backward recomputes each chunk's
+    states."""
+    b, s, w = xb.shape
+    a, gate = lru_gates_torch(r_pre, i_pre, c)
+    bt = gate * xb.float()
+    yb = F.gelu(y_pre.float(), approximate="tanh")
+    hseq = torch.empty((b, s, w), dtype=torch.float32, device=xb.device)
+    h = torch.zeros((b, w), dtype=torch.float32, device=xb.device)
+    for t in range(s):
+        h = a[:, t] * h + bt[:, t]
+        hseq[:, t] = h
+    h_chunks = torch.zeros((b, -(-s // SCAN_CHUNK), w), dtype=torch.float32,
+                           device=xb.device)
+    h_chunks[:, 1:] = hseq[:, SCAN_CHUNK - 1:s - 1:SCAN_CHUNK]
+    return (hseq * yb).to(xb.dtype), h_chunks
+
+
+def gelu_tanh_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx of the tanh-approximate gelu ``0.5 x (1 + tanh(u))``, ``u =
+    sqrt(2 / pi) (x + 0.044715 x^3)``: ``0.5 (1 + tanh u) + 0.5 x (1 -
+    tanh^2 u) du/dx`` (the derivative autodiff takes through JAX's
+    default ``jax.nn.gelu``)."""
+    k = math.sqrt(2.0 / math.pi)
+    th = torch.tanh(k * (x + 0.044715 * x * x * x))
+    return 0.5 * (1.0 + th) + 0.5 * x * (1.0 - th * th) * k * (1.0 + 3 * 0.044715 * x * x)
+
+
+def rglru_scan_bwd_torch(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
+                         y_pre: torch.Tensor, c: torch.Tensor, h_chunks: torch.Tensor,
+                         dy: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the backward: the gradient of
+    :func:`rglru_scan_train_torch`'s y for the output gradient ``dy``,
+    ``(dxb, dr_pre, di_pre, dy_pre, dc)``, the first four in the inputs'
+    dtype (formed in float32, rounded once), dc (W,) float32 summed over
+    (B, S).
+
+    The states are recomputed in the kernel's order: each chunk of
+    ``SCAN_CHUNK`` positions from the state ``h_chunks`` hands it, so
+    ``h_{t-1}`` needs no (B, S, W) buffer. Then the reverse recurrence
+    ``dh_t = dy_t gelu(y_pre_t) + a_{t+1} dh_{t+1}`` (sequential here; the
+    kernel composes chunks), ``da_t = dh_t h_{t-1}``, ``db_t = dh_t``, and
+    through the gates: ``b = beta sigmoid(i_pre) xb``, ``beta = sqrt(max(1 -
+    a^2, 1e-9))`` — whose derivative in a is ``-a / beta`` above the clamp,
+    0 below it and half that at a tie, as JAX's ``maximum`` takes it (in
+    float32 ``1 - a^2`` is 0 or at least 2^-24, so a tie cannot occur) —
+    and ``a = exp(c sigmoid(r_pre))``."""
+    b, s, w = xb.shape
+    r = torch.sigmoid(r_pre.float())
+    i = torch.sigmoid(i_pre.float())
+    a = torch.exp(c * r)
+    u = 1.0 - a * a
+    beta = torch.sqrt(torch.clamp(u, min=1e-9))
+    xf = xb.float()
+    bt = beta * i * xf
+    # h per chunk from the chunk's starting state, chunks side by side
+    nck = h_chunks.shape[1]
+    pad = nck * SCAN_CHUNK - s
+    a_c = F.pad(a, (0, 0, 0, pad), value=1.0).view(b, nck, SCAN_CHUNK, w)
+    b_c = F.pad(bt, (0, 0, 0, pad)).view(b, nck, SCAN_CHUNK, w)
+    hs = torch.empty((b, nck, SCAN_CHUNK, w), dtype=torch.float32, device=xb.device)
+    h = h_chunks
+    for q in range(SCAN_CHUNK):
+        h = a_c[:, :, q] * h + b_c[:, :, q]
+        hs[:, :, q] = h
+    hseq = hs.view(b, nck * SCAN_CHUNK, w)[:, :s]
+    hprev = torch.empty_like(hseq)                  # h_{t-1}: each chunk's carry first
+    hprev[:, 1:] = hseq[:, :-1]
+    hprev[:, ::SCAN_CHUNK] = h_chunks
+    yf = y_pre.float()
+    e = dy.float() * F.gelu(yf, approximate="tanh")
+    dh = torch.empty_like(e)
+    carry = torch.zeros((b, w), dtype=torch.float32, device=xb.device)
+    for t in reversed(range(s)):
+        carry = e[:, t] + carry
+        dh[:, t] = carry
+        carry = a[:, t] * carry
+    dy_pre = dy.float() * hseq * gelu_tanh_grad(yf)
+    dxb = dh * beta * i
+    dg = dh * xf
+    di_pre = dg * beta * i * (1.0 - i)
+    dbeta = torch.where(u > 1e-9, 1.0, torch.where(u == 1e-9, 0.5, 0.0)) * dg * i
+    ga = dh * hprev - dbeta * a / beta
+    dca = ga * a
+    dc = (dca * r).sum((0, 1))
+    dr_pre = dca * c * r * (1.0 - r)
+    dt = xb.dtype
+    return dxb.to(dt), dr_pre.to(dt), di_pre.to(dt), dy_pre.to(dt), dc
+
+
 def _check(xb, r_pre, i_pre, y_pre, c, lengths, chunks: int = 1) -> None:
     """Raise with the reason on anything the CUDA kernel does not take."""
     if xb.dim() != 3:
@@ -180,9 +286,9 @@ def work(xb, r_pre, i_pre, y_pre, c, lengths=None, chunks=None) -> _build.Work:
     return _build.Work(26 * elems, nbytes)
 
 
-def _launch(xb, r_pre, i_pre, y_pre, c, lengths, chunks):
-    """CUDA implementation of ``repro_torch::rglru_scan``, counted in
-    ``rglru_scan.launches``."""
+def _run(xb, r_pre, i_pre, y_pre, c, lengths, chunks, h_chunks):
+    """One launch of the scan kernel; with ``h_chunks`` (B, ceil(S /
+    SCAN_CHUNK), W) float32 it also writes the state entering each chunk."""
     b, s, w = xb.shape
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=xb.device)
@@ -196,12 +302,20 @@ def _launch(xb, r_pre, i_pre, y_pre, c, lengths, chunks):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rglru_scan(xb.data_ptr(), r_pre.data_ptr(), i_pre.data_ptr(),
                              y_pre.data_ptr(), c.data_ptr(), lengths.data_ptr(),
-                             y.data_ptr(), h_last.data_ptr(), _DTYPES[xb.dtype], b, s, w,
-                             chunks, stream)
-    rglru_scan.launches += 1
+                             y.data_ptr(), h_last.data_ptr(),
+                             h_chunks.data_ptr() if h_chunks is not None else None,
+                             _DTYPES[xb.dtype], b, s, w, chunks, stream)
     if err:
         raise RuntimeError(f"rglru_scan launch failed: cudaError_t {err}")
     return y, h_last
+
+
+def _launch(xb, r_pre, i_pre, y_pre, c, lengths, chunks):
+    """CUDA implementation of ``repro_torch::rglru_scan``, counted in
+    ``rglru_scan.launches``."""
+    out = _run(xb, r_pre, i_pre, y_pre, c, lengths, chunks, None)
+    rglru_scan.launches += 1
+    return out
 
 
 def _fake(xb, r_pre, i_pre, y_pre, c, lengths, chunks):
@@ -230,6 +344,146 @@ def rglru_scan(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
     return _rglru_op(xb, r_pre, i_pre, y_pre, c, lengths, chunks)
 
 
+# -- training: the forward that keeps each chunk's entering state, and the
+# backward --
+
+def work_bwd(xb, r_pre, i_pre, y_pre, c, h_chunks, dy) -> _build.Work:
+    """FLOPs and bytes of one backward call: ~60 float32 operations an
+    element (the gates and gelu again, the chunk's states from its carry,
+    the reverse recurrence, the gates' derivatives); the five inputs read
+    and four gradients written in the model dtype, the chunk states read
+    once, c read and dc written."""
+    b, s, w = xb.shape
+    elems = b * s * w
+    nbytes = 9 * xb.element_size() * elems + 4 * h_chunks.numel() + 8 * w
+    return _build.Work(60 * elems, nbytes)
+
+
+def work_train(xb, r_pre, i_pre, y_pre, c) -> _build.Work:
+    """:func:`work` plus the chunk states written."""
+    b, s, w = xb.shape
+    fw = work(xb, r_pre, i_pre, y_pre, c)
+    return _build.Work(fw.flops, fw.bytes + 4 * b * -(-s // SCAN_CHUNK) * w)
+
+
+def _launch_train(xb, r_pre, i_pre, y_pre, c):
+    """CUDA implementation of ``repro_torch::rglru_scan_train``: the scan
+    kernel also writing each chunk's entering state, counted in
+    ``rglru_scan_train.launches``."""
+    b, s, w = xb.shape
+    h_chunks = torch.empty((b, -(-s // SCAN_CHUNK), w), dtype=torch.float32,
+                           device=xb.device)
+    y, _ = _run(xb, r_pre, i_pre, y_pre, c, None, None, h_chunks)
+    rglru_scan_train.launches += 1
+    return y, h_chunks
+
+
+def _fake_train(xb, r_pre, i_pre, y_pre, c):
+    b, s, w = xb.shape
+    return torch.empty_like(xb), xb.new_empty((b, -(-s // SCAN_CHUNK), w),
+                                              dtype=torch.float32)
+
+
+def _check_bwd(xb, r_pre, i_pre, y_pre, c, h_chunks, dy) -> None:
+    """Raise with the reason on anything the backward kernel does not take
+    (besides the forward's limits)."""
+    b, s, w = xb.shape
+    _check(xb, r_pre, i_pre, y_pre, c, torch.zeros((b,), dtype=torch.int32, device=xb.device))
+    want = (b, -(-s // SCAN_CHUNK), w)
+    if tuple(h_chunks.shape) != want or h_chunks.dtype != torch.float32:
+        raise ValueError(f"h_chunks must be float32 {want}, got {h_chunks.dtype} "
+                         f"{tuple(h_chunks.shape)}")
+    if dy.shape != xb.shape or dy.dtype != xb.dtype:
+        raise ValueError(f"dy must match xb {tuple(xb.shape)} {xb.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    for name, t in (("h_chunks", h_chunks), ("dy", dy)):
+        if t.device != xb.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {xb.device}")
+
+
+def _launch_bwd(xb, r_pre, i_pre, y_pre, c, h_chunks, dy):
+    """CUDA implementation of ``repro_torch::rglru_scan_bwd``: the reverse
+    scan (per-row dc partials), then their fixed-order sum over rows,
+    counted once in ``rglru_scan_bwd.launches``."""
+    _check_bwd(xb, r_pre, i_pre, y_pre, c, h_chunks, dy)
+    b, s, w = xb.shape
+    chunks = chunk_plan(b, s, w, sm_count(xb.device))[1]
+    lib = _build.library("rglru_scan", _bind)
+    dxb, dr, di, dyp = (torch.empty_like(xb) for _ in range(4))
+    dc_rows = torch.empty((b, w), dtype=torch.float32, device=xb.device)
+    dc = torch.empty((w,), dtype=torch.float32, device=xb.device)
+    with torch.cuda.device(xb.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rglru_scan_bwd(xb.data_ptr(), r_pre.data_ptr(), i_pre.data_ptr(),
+                                 y_pre.data_ptr(), c.data_ptr(), h_chunks.data_ptr(),
+                                 dy.data_ptr(), dxb.data_ptr(), dr.data_ptr(), di.data_ptr(),
+                                 dyp.data_ptr(), dc_rows.data_ptr(), dc.data_ptr(),
+                                 _DTYPES[xb.dtype], b, s, w, chunks, stream)
+    rglru_scan_bwd.launches += 1
+    if err:
+        raise RuntimeError(f"rglru_scan_bwd launch failed: cudaError_t {err}")
+    return dxb, dr, di, dyp, dc
+
+
+def _fake_bwd(xb, r_pre, i_pre, y_pre, c, h_chunks, dy):
+    return (torch.empty_like(xb), torch.empty_like(xb), torch.empty_like(xb),
+            torch.empty_like(xb), torch.empty_like(c))
+
+
+@_build.kernel_op("rglru_scan_train", work_train, _launch_train, _fake_train)
+def _rglru_train_op(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
+                    y_pre: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return rglru_scan_train_torch(xb, r_pre, i_pre, y_pre, c)
+
+
+@_build.kernel_op("rglru_scan_bwd", work_bwd, _launch_bwd, _fake_bwd)
+def _rglru_bwd_op(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
+                  y_pre: torch.Tensor, c: torch.Tensor, h_chunks: torch.Tensor,
+                  dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                             torch.Tensor, torch.Tensor]:
+    return rglru_scan_bwd_torch(xb, r_pre, i_pre, y_pre, c, h_chunks, dy)
+
+
+def _train_setup(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs, output[1])
+    ctx.mark_non_differentiable(output[1])
+
+
+def _train_backward(ctx, dy, _dh_chunks):
+    with record_function(BACKWARD_SPAN):
+        return rglru_scan_bwd(*ctx.saved_tensors, dy.contiguous())
+
+
+_rglru_train_op.register_autograd(_train_backward, setup_context=_train_setup)
+
+
+@_build.counted
+def rglru_scan_train(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
+                     y_pre: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper of the training forward: the custom op
+    ``repro_torch::rglru_scan_train``, ``(y, h_chunks)`` — on a CUDA tensor
+    one launch of ``csrc/rglru_scan.cu`` (at :func:`chunk_plan`'s chunks a
+    block) that also writes the state entering each chunk of
+    ``SCAN_CHUNK`` positions, on a CPU tensor :func:`rglru_scan_train_torch`.
+    Its gradient is :func:`rglru_scan_bwd` on either device."""
+    _build.require_cpu_or_cuda(xb, "rglru_scan kernel")
+    return _rglru_train_op(xb, r_pre, i_pre, y_pre, c)
+
+
+@_build.counted
+def rglru_scan_bwd(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
+                   y_pre: torch.Tensor, c: torch.Tensor, h_chunks: torch.Tensor,
+                   dy: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Kernel wrapper of the backward: the custom op
+    ``repro_torch::rglru_scan_bwd``, ``(dxb, dr_pre, di_pre, dy_pre, dc)`` —
+    on a CUDA tensor the backward kernel of ``csrc/rglru_scan.cu``, on a CPU
+    tensor :func:`rglru_scan_bwd_torch`."""
+    _build.require_cpu_or_cuda(xb, "rglru_scan kernel")
+    return _rglru_bwd_op(xb, r_pre, i_pre, y_pre, c, h_chunks, dy)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.rglru_scan.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.rglru_scan.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.rglru_scan.restype = ctypes.c_int
+    lib.rglru_scan_bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.rglru_scan_bwd.restype = ctypes.c_int

@@ -31,13 +31,21 @@ float32 before the exp, so everything else is float32 arithmetic.
 - :func:`ssd_scan_tf32x3_torch` models the kernel's decomposition and
   rounding (tests only): ``G`` once per (row, chunk), ``W = (G o L) dt``,
   and every product's operands split into TF32 hi and lo parts.
+- Training: :func:`ssd_scan_train` (custom op ``repro_torch::ssd_scan_train``)
+  is the same kernel also writing each chunk's starting state, ``(y,
+  states)``; its registered gradient is :func:`ssd_scan_bwd` (custom op
+  ``repro_torch::ssd_scan_bwd``), a hand-written backward kernel in
+  ``csrc/ssd_scan.cu``; :func:`ssd_scan_train_torch` and
+  :func:`ssd_scan_bwd_torch` are their plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.hw import H100, H100_SMS, sm_count
 from repro_torch.kernels import _build
@@ -87,6 +95,19 @@ def ssd_scan_torch(x, dt, a, b_mat, c_mat, d, *, chunk: int = MAX_CHUNK) -> torc
     x's dtype. Every product is taken in float32 on float32 copies of the
     inputs, so bfloat16 inputs give an unrounded float32 result when passed
     as float32."""
+    return _ssd_chunks(x, dt, a, b_mat, c_mat, d, chunk, keep_states=False)[0]
+
+
+def ssd_scan_train_torch(x, dt, a, b_mat, c_mat, d, *,
+                         chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the training forward: ``(y, states)``, y as
+    :func:`ssd_scan_torch`'s and ``states`` (B, H, S / chunk, P, N) float32
+    the state entering each chunk (zeros for the first), which the backward
+    starts each chunk's local gradients from."""
+    return _ssd_chunks(x, dt, a, b_mat, c_mat, d, chunk, keep_states=True)
+
+
+def _ssd_chunks(x, dt, a, b_mat, c_mat, d, chunk, keep_states):
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
     chunk = min(chunk, s)
@@ -96,8 +117,12 @@ def ssd_scan_torch(x, dt, a, b_mat, c_mat, d, *, chunk: int = MAX_CHUNK) -> torc
     af = a.float()
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev))
     state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=dev)
+    states = (torch.empty((bsz, h, s // chunk, p, n), dtype=torch.float32, device=dev)
+              if keep_states else None)
     y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=dev)
     for t0 in range(0, s, chunk):
+        if keep_states:
+            states[:, :, t0 // chunk] = state
         xc = x[:, t0:t0 + chunk].float()                         # (B, c, H, P)
         dtc = dt[:, t0:t0 + chunk].float()                       # (B, c, H)
         bc = b_mat[:, t0:t0 + chunk].float()                     # (B, c, N)
@@ -119,7 +144,96 @@ def ssd_scan_torch(x, dt, a, b_mat, c_mat, d, *, chunk: int = MAX_CHUNK) -> torc
         state = torch.exp(total.float())[:, 0, :, None, None] * state + contrib
         y[:, t0:t0 + chunk] = (y_intra + y_inter).permute(0, 2, 1, 3)
     y = y + d.float()[None, None, :, None] * x.float()
-    return y.to(x.dtype)
+    return y.to(x.dtype), states
+
+
+def ssd_scan_bwd_torch(x, dt, a, b_mat, c_mat, d, states, dy, *,
+                       chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the backward, in the kernel's order: the gradient of
+    :func:`ssd_scan_torch` at (x, dt, a, b_mat, c_mat, d) for the output
+    gradient ``dy``, from the forward's chunk ``states``. Returns ``(dx,
+    ddt, da, db_mat, dc_mat, dd)``: dx, db_mat and dc_mat in the inputs'
+    dtype (formed in float32, rounded once), the rest float32.
+
+    Per (row, head) the state gradient dS is carried backward over the
+    chunks, from zero past the last: ``dS_in = exp(total) dS_out + sum_i
+    exp(cum_i) dy_i C_i^T``. Within a chunk, from its starting state S and
+    the dS_out it hands on, with ``G = C B^T``, ``L`` masked before the exp,
+    ``D = dy x^T``, ``sc_j = dt_j exp(total - cum_j)`` and ``rb_j = dS_out
+    B_j``:
+
+    - dx_j = sum_i G_ij L_ij dt_j dy_i + sc_j rb_j + d dy_j;
+    - dB_j = sum_i L_ij dt_j D_ij C_i + sc_j dS_out^T x_j (summed over heads);
+    - dC_i = sum_j L_ij dt_j D_ij B_j + exp(cum_i) S^T dy_i (summed over heads);
+    - ddt_j = sum_i G_ij L_ij D_ij + exp(total - cum_j) x_j . rb_j
+      + a * sum_{k >= j} dcum_k, the reverse cumsum taken in float64 over
+      dcum_k = sum_j dt_j K_kj - dt_k sum_i K_ik + exp(cum_k) C_k . (S^T
+      dy_k) - sc_k x_k . rb_k with K = G o L o D, and at the chunk's last
+      position also exp(total) <dS_out, S> + sum_j sc_j x_j . rb_j;
+    - da = sum dt_j * (that reverse cumsum); dd = sum x . dy.
+    """
+    bsz, s, h, p = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of chunk {chunk}")
+    dev = x.device
+    af = a.float()
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev))
+    below = torch.tril(torch.ones((chunk, chunk), device=dev), diagonal=-1)
+    xf, dyf = x.float(), dy.float()
+    dxo = torch.empty((bsz, s, h, p), dtype=torch.float32, device=dev)
+    ddt = torch.empty((bsz, s, h), dtype=torch.float32, device=dev)
+    dbo = torch.empty(b_mat.shape, dtype=torch.float32, device=dev)
+    dco = torch.empty(c_mat.shape, dtype=torch.float32, device=dev)
+    da = torch.zeros((h,), dtype=torch.float64, device=dev)
+    r = torch.zeros(states.shape[:2] + states.shape[3:], dtype=torch.float32, device=dev)
+    for ci in reversed(range(s // chunk)):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        xc, dyc = xf[:, sl].transpose(1, 2), dyf[:, sl].transpose(1, 2)  # (B, H, c, P)
+        dtc = dt[:, sl].float().transpose(1, 2)                         # (B, H, c)
+        bc, cc = b_mat[:, sl].float(), c_mat[:, sl].float()             # (B, c, N)
+        st = states[:, :, ci]                                           # (B, H, P, N)
+        cum = torch.cumsum((dtc * af[None, :, None]).double(), dim=2)   # (B, H, c)
+        total = cum[..., -1:]
+        li = (cum[..., :, None] - cum[..., None, :]).float()            # (B, H, c, c)
+        lmat = torch.exp(torch.where(tri, li, torch.full((), NEG_INF, device=dev)))
+        ec = torch.exp(cum.float())
+        dec = torch.exp((total - cum).float())
+        sc = dtc * dec
+        et = torch.exp(total.float())                                   # (B, H, 1)
+        g = torch.matmul(cc, bc.transpose(1, 2))[:, None]               # (B, 1, c, c)
+        dmat = torch.matmul(dyc, xc.transpose(2, 3))                    # D_ij = dy_i . x_j
+        a1 = lmat * dtc[..., None, :] * dmat
+        m = g * lmat * dtc[..., None, :]
+        k = g * lmat * dmat
+        rb = torch.matmul(bc[:, None], r.transpose(2, 3))               # (B, H, c, P)
+        dx = (torch.matmul(m.transpose(2, 3), dyc) + sc[..., None] * rb
+              + d.float()[None, :, None, None] * dyc)
+        dxo[:, sl] = dx.transpose(1, 2)
+        db = torch.matmul(a1.transpose(2, 3), cc[:, None]) + sc[..., None] * torch.matmul(xc, r)
+        dbo[:, sl] = db.sum(1)
+        sdy = torch.matmul(dyc, st)                                     # (S^T dy_i), (B, H, c, N)
+        dc = torch.matmul(a1, bc[:, None]) + ec[..., None] * sdy
+        dco[:, sl] = dc.sum(1)
+        xrb = (xc * rb).sum(-1)                                         # (B, H, c)
+        ci_dot = (cc[:, None] * sdy).sum(-1)
+        u = sc * xrb
+        # K's diagonal cancels from cum's gradient (L_ii = 1): the sums run
+        # strictly below it, in float64, or under strong decay the two
+        # sums cancel to a float32 rounding error of theirs (~1e-3 of da)
+        ks = (k * below).double()
+        col = ks.sum(2)
+        dcum = (torch.matmul(ks, dtc.double()[..., None])[..., 0] - dtc.double() * col
+                + (ec * ci_dot).double() - u.double())
+        col = col.float()
+        dcum[..., -1] += (et[..., 0] * (r * st).sum((2, 3)) + u.sum(-1)).double()
+        rc = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+        ddt[:, sl] = (col + torch.diagonal(k, dim1=2, dim2=3) + dec * xrb
+                      + af[None, :, None] * rc.float()).transpose(1, 2)
+        da += (dtc.double() * rc).sum((0, 2))
+        r = et[..., None] * r + torch.matmul((ec[..., None] * dyc).transpose(2, 3), cc[:, None])
+    dd = (xf * dyf).sum((0, 1, 3))
+    return (dxo.to(x.dtype), ddt, da.float(), dbo.to(b_mat.dtype), dco.to(c_mat.dtype), dd)
 
 
 def ssd_scan_tf32x3_torch(x, dt, a, b_mat, c_mat, d, *, chunk: int = MAX_CHUNK,
@@ -228,10 +342,9 @@ def work(x, dt, a, b_mat, c_mat, d, chunk: int = MAX_CHUNK) -> _build.Work:
     return _build.Work(flops, nbytes)
 
 
-def _launch(x, dt, a, b_mat, c_mat, d, chunk):
-    """CUDA implementation of ``repro_torch::ssd_scan``: the Gram pass and
-    the chunk walk, counted once in ``ssd_scan.launches``."""
-    chunk = min(chunk, x.shape[1])
+def _run(x, dt, a, b_mat, c_mat, d, chunk, states):
+    """The Gram pass and the chunk walk; with ``states`` (B, H, S / chunk,
+    P, N) float32 the walk also writes the state entering each chunk."""
     pt = _check(x, dt, a, b_mat, c_mat, d, chunk, sm_count(x.device))
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
@@ -244,10 +357,18 @@ def _launch(x, dt, a, b_mat, c_mat, d, chunk):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_scan(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
                            c_mat.data_ptr(), d.data_ptr(), g.data_ptr(), y.data_ptr(),
+                           states.data_ptr() if states is not None else None,
                            _DTYPES[x.dtype], bsz, s, h, p, n, pt, chunk, stream)
-    ssd_scan.launches += 1
     if err:
         raise RuntimeError(f"ssd_scan launch failed: cudaError_t {err}")
+    return y
+
+
+def _launch(x, dt, a, b_mat, c_mat, d, chunk):
+    """CUDA implementation of ``repro_torch::ssd_scan``, counted once in
+    ``ssd_scan.launches``."""
+    y = _run(x, dt, a, b_mat, c_mat, d, min(chunk, x.shape[1]), None)
+    ssd_scan.launches += 1
     return y
 
 
@@ -271,6 +392,186 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Te
     return _ssd_op(x, dt, a, b_mat, c_mat, d, chunk)
 
 
+# -- training: the forward that keeps each chunk's state, and the backward --
+
+def work_train(x, dt, a, b_mat, c_mat, d, chunk: int = MAX_CHUNK) -> _build.Work:
+    """:func:`work` plus the chunk states written, (B, H, S / chunk, P, N)
+    float32."""
+    b, s, h, p = x.shape
+    w = work(x, dt, a, b_mat, c_mat, d, chunk)
+    return _build.Work(w.flops, w.bytes + 4 * b * h * (s // min(chunk, s)) * p * b_mat.shape[-1])
+
+
+def work_bwd(x, dt, a, b_mat, c_mat, d, states, dy, chunk: int = MAX_CHUNK) -> _build.Work:
+    """FLOPs and bytes of one backward call: C B^T once per (row, chunk)
+    and, per (row, head, chunk), the products D = dy x^T and the dx, dB,
+    dC and dS terms (each (c, c, P), (c, c, N) or (c, P, N)); x, dy, B, C,
+    dt and the chunk states read once, dx, ddt, dB and dC written once."""
+    b, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    chunk = min(chunk, s)
+    nc = s // chunk
+    flops = b * nc * 2 * chunk * chunk * n + b * h * nc * (
+        2 * 2 * chunk * chunk * p + 2 * 2 * chunk * chunk * n + 4 * 2 * chunk * p * n)
+    item = x.element_size()
+    nbytes = (4 * x.numel() * item + 2 * dt.numel() * 4 + 4 * b_mat.numel() * item
+              + states.numel() * 4 + 4 * h * 4)
+    return _build.Work(flops, nbytes)
+
+
+def _check_bwd(x, dt, a, b_mat, c_mat, d, states, dy, chunk: int) -> None:
+    """Raise with the reason on anything the backward kernel does not take
+    (besides the forward's limits, :func:`_check`)."""
+    _check(x, dt, a, b_mat, c_mat, d, chunk)
+    bsz, s, h, p = x.shape
+    want = (bsz, h, s // chunk, p, b_mat.shape[-1])
+    if tuple(states.shape) != want or states.dtype != torch.float32:
+        raise ValueError(f"states must be float32 {want}, got {states.dtype} "
+                         f"{tuple(states.shape)}")
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"dy must match x {tuple(x.shape)} {x.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    for name, t in (("states", states), ("dy", dy)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+    if bwd_smem_bytes(p, b_mat.shape[-1]) > H100.vmem_bytes:
+        raise ValueError(f"ssd backward needs {bwd_smem_bytes(p, b_mat.shape[-1])} B of "
+                         f"shared memory per block, the budget is {H100.vmem_bytes} B")
+
+
+def bwd_smem_bytes(p: int, n: int) -> int:
+    """Dynamic shared memory of one backward block (csrc/ssd_scan.cu
+    ``Bwd::BYTES``): x and dy (c x P), B and C (c x N), the state gradient
+    (P x N), D / K, A1 and M (c x c), rows padded by one float; the dx and
+    dC row-dot partials; five per-position vectors, a 256-entry reduction
+    buffer, and four float64 vectors (the cumsum, K's row and column sums,
+    cum's gradient)."""
+    ch = MAX_CHUNK
+    floats = (2 * ch * (p + 1) + 2 * ch * (n + 1) + p * (n + 1) + 3 * ch * (ch + 1)
+              + ch * (p // 4) + ch * (n // 8) + 5 * ch + BWD_THREADS + 8)
+    return 4 * floats + 4 * 8 * ch
+
+
+# threads of a backward block (csrc/ssd_scan.cu BWD_NT)
+BWD_THREADS = 256
+# the backward's span in a torch.profiler trace
+BACKWARD_SPAN = "ssd_scan.backward"
+
+
+def _launch_train(x, dt, a, b_mat, c_mat, d, chunk):
+    """CUDA implementation of ``repro_torch::ssd_scan_train``: the forward
+    kernel writing each chunk's starting state, counted in
+    ``ssd_scan_train.launches``."""
+    chunk = min(chunk, x.shape[1])
+    bsz, s, h, p = x.shape
+    states = torch.empty((bsz, h, s // chunk, p, b_mat.shape[-1]), dtype=torch.float32,
+                         device=x.device)
+    y = _run(x, dt, a, b_mat, c_mat, d, chunk, states)
+    ssd_scan_train.launches += 1
+    return y, states
+
+
+def _fake_train(x, dt, a, b_mat, c_mat, d, chunk):
+    bsz, s, h, p = x.shape
+    chunk = min(chunk, s)
+    return torch.empty_like(x), x.new_empty((bsz, h, s // chunk, p, b_mat.shape[-1]),
+                                            dtype=torch.float32)
+
+
+def _launch_bwd(x, dt, a, b_mat, c_mat, d, states, dy, chunk):
+    """CUDA implementation of ``repro_torch::ssd_scan_bwd``: the Gram pass,
+    the backward walk (per-head dB and dC partials) and the fixed-order sum
+    over heads and rows, counted once in ``ssd_scan_bwd.launches``."""
+    chunk = min(chunk, x.shape[1])
+    _check_bwd(x, dt, a, b_mat, c_mat, d, states, dy, chunk)
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    lib = _build.library("ssd_scan", _bind)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, db, dc = torch.empty_like(x), torch.empty_like(b_mat), torch.empty_like(c_mat)
+    ddt, da, dd = torch.empty_like(dt), torch.empty((h,), **f32), torch.empty((h,), **f32)
+    g = torch.empty((bsz, s // chunk, MAX_CHUNK, MAX_CHUNK), **f32)
+    # per-head dB and dC, then summed over heads in order; per-row da, dd
+    db_h = torch.empty((bsz, h, s, n), **f32)
+    dc_h = torch.empty((bsz, h, s, n), **f32)
+    rows = torch.empty((2, bsz, h), **f32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+            d.data_ptr(), states.data_ptr(), dy.data_ptr(), g.data_ptr(), db_h.data_ptr(),
+            dc_h.data_ptr(), rows.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
+            db.data_ptr(), dc.data_ptr(), dd.data_ptr(), _DTYPES[x.dtype], bsz, s, h, p, n,
+            chunk, stream)
+    ssd_scan_bwd.launches += 1
+    if err:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: cudaError_t {err}")
+    return dx, ddt, da, db, dc, dd
+
+
+def _fake_bwd(x, dt, a, b_mat, c_mat, d, states, dy, chunk):
+    return (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(a),
+            torch.empty_like(b_mat), torch.empty_like(c_mat), torch.empty_like(d))
+
+
+@_build.kernel_op("ssd_scan_train", work_train, _launch_train, _fake_train)
+def _ssd_train_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+                  c_mat: torch.Tensor, d: torch.Tensor,
+                  chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return ssd_scan_train_torch(x, dt, a, b_mat, c_mat, d, chunk=chunk)
+
+
+@_build.kernel_op("ssd_scan_bwd", work_bwd, _launch_bwd, _fake_bwd)
+def _ssd_bwd_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+                c_mat: torch.Tensor, d: torch.Tensor, states: torch.Tensor, dy: torch.Tensor,
+                chunk: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                     torch.Tensor, torch.Tensor]:
+    return ssd_scan_bwd_torch(x, dt, a, b_mat, c_mat, d, states, dy, chunk=chunk)
+
+
+def _train_setup(ctx, inputs, output) -> None:
+    x, dt, a, b_mat, c_mat, d, chunk = inputs
+    ctx.save_for_backward(x, dt, a, b_mat, c_mat, d, output[1])
+    ctx.chunk = chunk
+    ctx.mark_non_differentiable(output[1])
+
+
+def _train_backward(ctx, dy, _dstates):
+    with record_function(BACKWARD_SPAN):
+        grads = ssd_scan_bwd(*ctx.saved_tensors, dy.contiguous(), chunk=ctx.chunk)
+    return (*grads, None)
+
+
+_ssd_train_op.register_autograd(_train_backward, setup_context=_train_setup)
+
+
+@_build.counted
+def ssd_scan_train(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+                   c_mat: torch.Tensor, d: torch.Tensor, *,
+                   chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper of the training forward: the custom op
+    ``repro_torch::ssd_scan_train``, ``(y, states)`` — on a CUDA tensor one
+    call of ``csrc/ssd_scan.cu`` that also writes each chunk's starting
+    state, on a CPU tensor :func:`ssd_scan_train_torch`. Its gradient is
+    :func:`ssd_scan_bwd` on either device."""
+    _build.require_cpu_or_cuda(x, "ssd kernel")
+    return _ssd_train_op(x, dt, a, b_mat, c_mat, d, chunk)
+
+
+@_build.counted
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
+                 c_mat: torch.Tensor, d: torch.Tensor, states: torch.Tensor, dy: torch.Tensor,
+                 *, chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, ...]:
+    """Kernel wrapper of the backward: the custom op
+    ``repro_torch::ssd_scan_bwd``, ``(dx, ddt, da, db_mat, dc_mat, dd)`` —
+    on a CUDA tensor the backward kernel of ``csrc/ssd_scan.cu``, on a CPU
+    tensor :func:`ssd_scan_bwd_torch`."""
+    _build.require_cpu_or_cuda(x, "ssd kernel")
+    return _ssd_bwd_op(x, dt, a, b_mat, c_mat, d, states, dy, chunk)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.ssd_scan.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.ssd_scan.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.ssd_scan.restype = ctypes.c_int
+    lib.ssd_scan_bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.ssd_scan_bwd.restype = ctypes.c_int

@@ -48,7 +48,7 @@ def attention(
     sq, hq = q.shape[1], q.shape[2]
     sk, hkv = k.shape[1], k.shape[2]
     if q.device.type == "cuda":
-        op = kops.attention_train if _records_grad(q, k, v) else kops.attention
+        op = kops.attention_train if kops.records_grad(q, k, v) else kops.attention
         out = op(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
                  v.transpose(1, 2).contiguous(), causal=causal, window=window,
                  q_offset=q_offset)
@@ -64,10 +64,6 @@ def attention(
         k = k.repeat_interleave(hq // hkv, dim=2)
         v = v.repeat_interleave(hq // hkv, dim=2)
     return _einsum(q, k, v, causal=causal, window=window, q_offset=q_offset)
-
-
-def _records_grad(*ts: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _mask(sq, sk, q_offset, causal, window, device):

@@ -206,8 +206,9 @@ def ssd_block_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
     ``(x_out, cache)`` where cache is the decode state after a per-row
     prompt of ``lengths`` tokens — {"state", "conv_x", "conv_b", "conv_c"}
     exactly as :func:`ssd_block_decode` consumes them. x, B and C enter the
-    scan rounded to the model dtype; the prefill state is formed from their
-    unrounded float32 values, as the reference does."""
+    scan rounded to the model dtype (their gradients formed in float32 and
+    rounded once, by the scan's backward); the prefill state is formed from
+    their unrounded float32 values, as the reference does."""
     b, s, _d = x.shape
     h = rms_norm(x, p["ln"])
     z, xin_raw, bm_raw, cm_raw, dt = _ssd_pre(cfg, p, h)
@@ -341,7 +342,8 @@ def rglru_block_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
     prompt of ``lengths`` tokens: {"h": (B, W) float32 at each row's
     ``lengths - 1``, "conv": the last 3 raw conv inputs}. The gates, the
     recurrence and the product with the gelu'd y branch run in
-    ``kernels.ops.rglru`` (one kernel on the card)."""
+    ``kernels.ops.rglru`` (one kernel on the card; where autograd records
+    the call, its training op, which forms no decode state)."""
     h = rms_norm(x, p["ln"])
     xb_raw = torch.matmul(h, p["wx"])
     y_pre = torch.matmul(h, p["wy"])

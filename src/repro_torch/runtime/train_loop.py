@@ -20,10 +20,13 @@ card already holding parameters, gradients and state. Each layer's
 gradient lands in a tensor of its own (the step hands the model per-layer
 leaves), so no stacked gradient is assembled from per-layer pieces.
 
-Not ported yet, with the sharding rules and parfor (ROADMAP Queue A 14b):
-``batch_specs``, ``opt_state_specs``/``opt_state_axes`` and
-``train_shardings``, and training the SSM and hybrid families, whose
-prompt-pass kernels (``ssd_scan``, ``rglru_scan``) have no backward yet.
+Every ported family trains: dense (the flash kernel's training forward and
+the reference's recompute backward), SSM (the SSD kernel's training
+forward and its backward kernel) and hybrid (the RG-LRU scan's training
+forward and backward kernel, and flash). Not ported yet, with the sharding
+rules and parfor (ROADMAP Queue A 14b): ``batch_specs``,
+``opt_state_specs``/``opt_state_axes`` and ``train_shardings``, so a step
+runs on one device.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from repro_torch.core.strategies import PlanConfig
 from repro_torch.nn.optim import get_optimizer
 
 # the families whose full-sequence forward has a backward on the card
-TRAINED_FAMILIES = ("dense",)
+TRAINED_FAMILIES = ("dense", "ssm", "hybrid")
 # the optimizer update's span in a torch.profiler trace
 OPTIMIZER_SPAN = "train.optimizer"
 
@@ -57,11 +60,6 @@ def init_opt_state(optimizer: str, params: Dict, plan: PlanConfig) -> Dict:
 
 def _check_trainable(model, mesh_cfg: MeshConfig) -> None:
     cfg = model.cfg
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family needs backward passes "
-            f"through its prompt-pass kernels (ssd_scan, rglru_scan), which come with "
-            f"ROADMAP Queue A 14b")
     if cfg.family not in TRAINED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family has no training step in the port; "

@@ -64,6 +64,29 @@ def test_import_scan_covers_the_training_slice():
     assert ROOT / "tools" / "train_init_sweep.py" in PORT_FILES
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b-smoke", "recurrentgemma-2b-smoke"])
+def test_train_cli_on_the_recurrent_archs_loads_no_jax(arch):
+    """The launcher's run of each family that trains since the SSM/hybrid
+    slice, in a fresh interpreter: no module of JAX or of the JAX package
+    is loaded on its way (the import scan above covers the files; this
+    covers what the run pulls in)."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "from repro_torch.launch import train\n"
+            f"train.main(['--arch', '{arch}', '--device', 'cpu', '--steps', '1', "
+            "'--batch', '2', '--seq', '16'])\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
     assert path.exists(), path

@@ -1,7 +1,7 @@
 """PyTorch port, the kernels as ``torch.library`` custom ops
 (``repro_torch/kernels/*.py``, ``kernels/_build.py``).
 
-Each of the seven wrappers calls the custom op ``repro_torch::<name>``: on a
+Each of the eleven wrappers calls the custom op ``repro_torch::<name>``: on a
 CPU tensor its CPU implementation is the kernel's plain version (held equal
 here, element for element, to calling the plain version directly), on a
 fake tensor its fake implementation gives the output's shape, dtype and
@@ -12,7 +12,10 @@ launches) run on the card only (``chip_smoke.py``). Each kernel's
 the cost audit) is held to the counts ``chip_smoke.py`` wrote out before it
 read ``work``, so phase 3's bounds print the same numbers; the training
 forward ``flash_attention_train``, which came later, to the flash count plus
-its float32 ``lse``.
+its float32 ``lse``; the SSD and RG-LRU training forwards to their serving
+counts plus the chunk states they write, and their backward ops to the
+counts their modules state (each input read once, each gradient written
+once).
 """
 
 import numpy as np
@@ -66,6 +69,18 @@ def _rglru_args():
              torch.tensor([12, 5], dtype=torch.int32)), {})
 
 
+def _ssd_bwd_args():
+    (x, dt, a, bm, cm, d), kw = _ssd_args()
+    _y, states = SSD.ssd_scan_train_torch(x, dt, a, bm, cm, d, **kw)
+    return (x, dt, a, bm, cm, d, states, _randn(15, *x.shape)), kw
+
+
+def _rglru_bwd_args():
+    args = _rglru_args()[0][:5]
+    _y, h_chunks = RG.rglru_scan_train_torch(*args)
+    return (*args, h_chunks, _randn(16, *args[0].shape)), {}
+
+
 # (op name, wrapper, plain version, args, kwargs)
 CASES = [
     ("paged_decode_attention", PA.paged_decode_attention, PA.paged_attention_torch,
@@ -78,6 +93,11 @@ CASES = [
      dict(causal=True, window=6, q_offset=-1)),
     ("ssd_scan", SSD.ssd_scan, SSD.ssd_scan_torch, *_ssd_args()),
     ("rglru_scan", RG.rglru_scan, RG.rglru_scan_torch, *_rglru_args()),
+    ("ssd_scan_train", SSD.ssd_scan_train, SSD.ssd_scan_train_torch, *_ssd_args()),
+    ("ssd_scan_bwd", SSD.ssd_scan_bwd, SSD.ssd_scan_bwd_torch, *_ssd_bwd_args()),
+    ("rglru_scan_train", RG.rglru_scan_train, RG.rglru_scan_train_torch,
+     _rglru_args()[0][:5], {}),
+    ("rglru_scan_bwd", RG.rglru_scan_bwd, RG.rglru_scan_bwd_torch, *_rglru_bwd_args()),
     ("matmul", MM.matmul, MM.matmul_torch, (_randn(30, 7, 5), _randn(31, 5, 3)), {}),
     ("conv2d_im2col", CONV.conv2d_im2col, CONV.conv2d_torch,
      (_randn(32, 2, 3, 9, 9), _randn(33, 4, 3, 3, 3)), dict(stride=2, pad=1)),
@@ -90,7 +110,7 @@ def _leaves(out):
 
 
 def test_every_wrapper_is_a_registered_custom_op_with_work():
-    """Seven ops in the ``repro_torch`` namespace, each with a ``work``."""
+    """Eleven ops in the ``repro_torch`` namespace, each with a ``work``."""
     assert sorted(_build.WORK) == sorted(f"repro_torch::{n}" for n in IDS)
     for name in IDS:
         op = getattr(torch.ops.repro_torch, name).default
@@ -148,6 +168,10 @@ OP_ARGS = {
     "flash_attention_train": lambda a, k: (*a, k["causal"], k["window"], k["q_offset"]),
     "ssd_scan": lambda a, k: (*a, k["chunk"]),
     "rglru_scan": lambda a, k: (*a, None),
+    "ssd_scan_train": lambda a, k: (*a, k["chunk"]),
+    "ssd_scan_bwd": lambda a, k: (*a, k["chunk"]),
+    "rglru_scan_train": lambda a, k: a,
+    "rglru_scan_bwd": lambda a, k: a,
     "matmul": lambda a, k: a,
     "conv2d_im2col": lambda a, k: (*a, k["stride"], k["pad"]),
 }
@@ -168,6 +192,29 @@ def _former_counts(name, op_args):
         flops, nbytes = _former_counts("flash_attention", op_args)
         q = op_args[0]
         return flops, nbytes + 4 * q.shape[0] * q.shape[1] * q.shape[2]
+    if name == "ssd_scan_train":
+        flops, nbytes = _former_counts("ssd_scan", op_args)
+        x, b_mat, chunk = op_args[0], op_args[3], op_args[6]
+        b, s, h, p = x.shape
+        return flops, nbytes + 4 * b * h * (s // chunk) * p * b_mat.shape[-1]
+    if name == "ssd_scan_bwd":
+        x, dt, _a, b_mat, _c, _d, states, _dy, chunk = op_args
+        b, s, h, p = x.shape
+        n, nc, item = b_mat.shape[-1], s // chunk, x.element_size()
+        # Gram pass; per (row, head, chunk) D, dx's intra product, A1^T C,
+        # A1 B (c x c) and dS B, dS^T x, S^T dy, the dS update (c x P x N)
+        flops = b * nc * 2 * chunk * chunk * n + b * h * nc * (
+            2 * 2 * chunk * chunk * p + 2 * 2 * chunk * chunk * n + 4 * 2 * chunk * p * n)
+        return flops, (4 * x.numel() * item + 2 * dt.numel() * 4
+                       + 4 * b_mat.numel() * item + states.numel() * 4 + 4 * h * 4)
+    if name == "rglru_scan_train":
+        flops, nbytes = _former_counts("rglru_scan", op_args)
+        b, s, w = op_args[0].shape
+        return flops, nbytes + 4 * b * -(-s // RG.SCAN_CHUNK) * w
+    if name == "rglru_scan_bwd":
+        b, s, w = op_args[0].shape
+        elems = b * s * w
+        return 60 * elems, 9 * 2 * elems + 4 * op_args[5].numel() + 8 * w
     if name == "flash_attention":
         q, k, _v, causal, window, q_offset = op_args
         b, hq, sq, d = q.shape

@@ -330,13 +330,6 @@ def test_opt_state_follows_the_plan_dtype():
     assert init_opt_state("sgd", params, PlanConfig(strategy=Strategy.LOCAL))["embed"] == ()
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b-smoke", "recurrentgemma-2b-smoke"])
-def test_ssm_and_hybrid_training_raise_and_name_their_slice(arch):
-    model = build_model(get_config(arch), dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="Queue A 14b"):
-        make_train_step(model, PlanConfig(strategy=Strategy.LOCAL), MESH, TrainConfig())
-
-
 def test_multi_device_train_step_raises_and_names_its_slice():
     model = build_model(get_config("yi-6b-smoke"), dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="Queue A 14b"):

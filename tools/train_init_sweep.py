@@ -1,9 +1,10 @@
-"""Loss over a few steps of full Yi-6B training at two random
+"""Loss over a few steps of full-model training at two random
 initialisations and several optimizer settings, on the card.
 
-    python3 tools/train_init_sweep.py [--steps 8]
+    python3 tools/train_init_sweep.py [--arch yi-6b] [--steps 8]
 
-Full Yi-6B, bfloat16, (4, 2048) batches of the synthetic corpus
+A full model (Yi-6B by default; ``--arch recurrentgemma-2b`` or
+``mamba2-1.3b``), bfloat16, (4, 2048) batches of the synthetic corpus
 (``make_batch``), the plan the port's planner compiles for one H100,
 ``make_train_step`` with Adam or SGD at a given lr, clipped at 1.0 or not.
 Each setting starts from fresh seeded weights: the model's own
@@ -45,6 +46,7 @@ SETTINGS = (("model", "adam", 3e-4, 1.0), ("model", "adam", 1e-3, 1.0),
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="yi-6b")
     ap.add_argument("--steps", type=int, default=8)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -54,7 +56,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
-    cfg = get_config("yi-6b")
+    cfg = get_config(args.arch)
     model = build_model(cfg, dtype=torch.bfloat16)
     shape = InputShape("cli", 2048, 4, "train")
     mesh = MeshConfig((1,), ("data",))
@@ -72,7 +74,7 @@ def main() -> int:
             losses.append(float(met["loss"]))
             norms.append(float(met["grad_norm"]))
         falls = statistics.mean(losses[-3:]) < losses[0]
-        print(f"{init} init, {opt} lr {lr:g} clip {clip:g}: losses "
+        print(f"{args.arch}, {init} init, {opt} lr {lr:g} clip {clip:g}: losses "
               f"{[round(x, 4) for x in losses]}; grad norms {[f'{n:.3g}' for n in norms]}; "
               f"mean of the last three {statistics.mean(losses[-3:]):.4f} "
               f"{'<' if falls else '>='} step 0's {losses[0]:.4f}; {smi}", flush=True)
