@@ -356,17 +356,25 @@ TRAIN_CHECK_LAYERS, TRAIN_CHECK_SHAPE, TRAIN_CHECK_STEPS = 2, (2, 512), 3
 TRAIN_CHECK_LR = {"sgd": 1e-3, "adam": 1e-4}
 # train-check-ssm and train-check-hybrid: the full widths cut to these
 # layers (float32, TRAIN_CHECK_SHAPE, TRAIN_CHECK_STEPS steps, clip 1.0), at
-# the CPU tests' learning rates for these families: Adam at 1e-5, since
-# their tied embeddings carry an element that Adam moves by a
-# rounding-dependent fraction of lr into every position holding its token
-# (tests/test_torch_train_hybrid.py: at 1e-4 step 2's grad_norm moved by
-# 2.4e-3 between two float32 runs of the same step)
+# the CPU tests' learning rates for each family: the SSM's are
+# TRAIN_CHECK_LR's (tests/test_torch_train_ssm.py); the hybrid's Adam runs
+# at 1e-5, since its tied sqrt(d)-scaled embedding carries elements that
+# Adam moves by a rounding-dependent fraction of lr into every position
+# holding their token (tests/test_torch_train_hybrid.py: at 1e-4 step 2's
+# grad_norm moved by 2.4e-3 between two float32 runs of the same step)
 RECURRENT_CHECKS = {"ssm": ("mamba2-1.3b", dict(num_layers=2)),
                     "hybrid": ("recurrentgemma-2b", dict(num_layers=3, block_pattern="rra"))}
-RECURRENT_CHECK_LR = {"sgd": 1e-3, "adam": 1e-5}
+RECURRENT_CHECK_LR = {"ssm": TRAIN_CHECK_LR, "hybrid": {"sgd": 1e-3, "adam": 1e-5}}
 # train-ssm and train-hybrid: the full models, at the train phase's shape,
-# steps, lr and clip
-RECURRENT_TRAIN = {"ssm": "mamba2-1.3b", "hybrid": "recurrentgemma-2b"}
+# steps, lr and clip, from trainable_params with the embedding scaled by
+# the second entry; the third says the losses must fall below ln(vocab), the
+# loss of uniform logits. At scale 1 RecurrentGemma-2B's step 0 reads 20.68,
+# far above ln(256000) = 12.45: its logits start far from uniform, and 8
+# steps only bring them back (to 12.95). At 0.5 step 0
+# reads 12.59 and the losses fall to 12.40 (tools/train_init_sweep.py
+# --embed-scales; PERF.md section 6)
+RECURRENT_TRAIN = {"ssm": ("mamba2-1.3b", 1.0, False),
+                   "hybrid": ("recurrentgemma-2b", 0.5, True)}
 # the backward kernels' float32 gradients (and the float32 outputs ddt, da,
 # dd, dc of a bfloat16 run): FP32_TOL's rtol and RMS limit, atol 1e-4 of
 # the reference gradient's RMS: ddt sums terms (a times the reverse cumsum
@@ -3094,20 +3102,22 @@ PROJ_FAN_IN = {"wq": lambda sh: sh[1], "wk": lambda sh: sh[1], "wv": lambda sh: 
                "wo": lambda sh: sh[1] * sh[2]}
 
 
-def trainable_params(model, seed: int) -> dict:
+def trainable_params(model, seed: int, embed_scale: float = 1.0) -> dict:
     """Seeded random weights for the training phases: the model's own
     initialisation with each attention projection rescaled to 1/sqrt of the
     inputs it contracts. At the model's own scales (wk's std 0.5 at Yi's 4 kv
     heads) a full-depth Yi-6B's attention saturates (scores of several
     hundred) and its gradients grow several-fold a layer, to a global norm
     of ~1e25 at 32 layers: no optimizer setting lowered its loss in 8 steps
-    (PERF.md, PR 23). Every other entry is the model's own."""
+    (PERF.md). The embedding is multiplied by ``embed_scale``. Every
+    other entry is the model's own."""
     params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
     for key, p in params.items():
         name = key.split(".")[-1]
         if name in PROJ_FAN_IN:
             sh = p.shape
             p.mul_(math.sqrt(sh[-2] / PROJ_FAN_IN[name](sh)))
+    params["embed"].mul_(embed_scale)
     return params
 
 
@@ -3390,7 +3400,7 @@ def phase_train_check_recurrent(family: str) -> None:
           f"{plan.remat}, microbatches {plan.microbatches}")
     init = trainable_params(model, SEED)
     for opt in ("sgd", "adam"):
-        lr = RECURRENT_CHECK_LR[opt]
+        lr = RECURRENT_CHECK_LR[family][opt]
         runs = {"kernel path": (plan, "auto"), "plain": (plan, "torch"),
                 "microbatches 2": (plan.replace(microbatches=2), "auto")}
         out = {}
@@ -3419,24 +3429,25 @@ def phase_train_recurrent(family: str) -> dict:
     no attention projection, so its weights are the model's own seeded
     initialisation; at RecurrentGemma-2B's own, whose 4-D attention
     projections carry the head-count scaling, the gradient norm was 1e8 to
-    3e9 and the loss flat within its batches' noise: PERF.md section 6):
-    losses finite and falling, the training kernels' launches exact, no
+    3e9 and the loss flat within its batches' noise: PERF.md section 6)
+    with the embedding scaled as RECURRENT_TRAIN says: losses finite and
+    falling (for the hybrid below ln(vocab)), the training kernels' launches exact, no
     plain scan or CPU attention function called; step ms, tokens/s, MFU,
     peak memory against the estimate, one traced step's breakdown. Returns
     the scan kernels' launches."""
-    arch = RECURRENT_TRAIN[family]
+    arch, embed_scale, below_uniform = RECURRENT_TRAIN[family]
     b, s = TRAIN_SHAPE
     cfg = get_config(arch)
     pattern = cfg.layer_pattern()
     phase(f"train-{family}: full {arch} ({len(pattern)} layers, bfloat16, seeded "
-          f"trainable_params), batch {b}, seq {s}, {TRAIN_STEPS} steps of adam at lr "
-          f"{TRAIN_LR} through repro_torch.launch.train")
+          f"trainable_params, embedding x {embed_scale:g}), batch {b}, seq {s}, {TRAIN_STEPS} "
+          f"steps of adam at lr {TRAIN_LR} through repro_torch.launch.train")
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  device memory before: {_mem()}")
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, dtype=torch.bfloat16)
-    init = trainable_params(model, SEED)
+    init = trainable_params(model, SEED, embed_scale)
     del model
     args = ["--arch", arch] + TRAIN_ARGS[2:]
     for fn in _build.COUNTED:
@@ -3470,6 +3481,10 @@ def phase_train_recurrent(family: str) -> dict:
     if not statistics.mean(losses[-3:]) < losses[0]:
         fail(f"train-{family}: the mean of the last three losses "
              f"{statistics.mean(losses[-3:])} is not below step 0's {losses[0]}")
+    if below_uniform and not statistics.mean(losses[-3:]) < math.log(cfg.vocab_size):
+        fail(f"train-{family}: the mean of the last three losses "
+             f"{statistics.mean(losses[-3:])} is not below ln(vocab) "
+             f"{math.log(cfg.vocab_size)}, the loss of uniform logits")
     if got != want:
         fail(f"train-{family}: launches {got}, expected {want}")
     if any(plain.calls.values()):

@@ -21,6 +21,8 @@ from typing import Dict
 from repro_torch.config import HardwareSpec, InputShape, MeshConfig, ModelConfig, TrainConfig
 from repro_torch.core.strategies import PlanConfig
 from repro_torch.hw import H100
+from repro_torch.kernels import rglru_scan as RGLRU
+from repro_torch.kernels import ssd_scan as SSD
 
 ACT_BYTES = 2       # bf16 default (cost-model roofline terms)
 PARAM_BYTES = 2     # bf16 default
@@ -279,22 +281,20 @@ def _recurrent_backward_bytes(model: ModelConfig, shape: InputShape, plan: PlanC
     """The recurrent layers' backward terms on the H100 (see XENT_BYTES):
     the saved states of one layer under remat (of every such layer without
     it) plus one layer's backward scratch, for the larger of the SSD and
-    RG-LRU kinds the pattern holds."""
+    RG-LRU kinds the pattern holds. Each kind's bytes are its kernel
+    module's ``train_bytes``, from the shapes its wrappers allocate."""
     b = max(1, max(1, shape.global_batch // dp) // plan.microbatches)
     s = shape.seq_len
     pat = model.layer_pattern()
     terms = [0.0]
     if "s" in pat:
-        h, p, n = model.ssm_num_heads, model.ssm_head_dim, model.ssm_state
-        nc = -(-s // 64)
-        saved = 4.0 * b * h * nc * p * n
-        scratch = 2 * 4.0 * b * h * s * n + 4.0 * b * nc * 64 * 64
+        saved, scratch = SSD.train_bytes(b, s, model.ssm_num_heads, model.ssm_head_dim,
+                                         model.ssm_state)
         terms.append(saved * (1 if plan.remat else pat.count("s")) + scratch)
     if "r" in pat:
-        w = model.lru_width or model.d_model
-        saved = 4.0 * b * -(-s // 8) * w
-        terms.append(saved * (1 if plan.remat else pat.count("r")) + 4.0 * b * w)
-    return max(terms)
+        saved, scratch = RGLRU.train_bytes(b, s, model.lru_width or model.d_model)
+        terms.append(saved * (1 if plan.remat else pat.count("r")) + scratch)
+    return float(max(terms))
 
 
 def _prefill_activation_bytes(

@@ -169,8 +169,7 @@ def rglru_scan_train_torch(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.T
     for t in range(s):
         h = a[:, t] * h + bt[:, t]
         hseq[:, t] = h
-    h_chunks = torch.zeros((b, -(-s // SCAN_CHUNK), w), dtype=torch.float32,
-                           device=xb.device)
+    h_chunks = torch.zeros(states_shape(b, s, w), dtype=torch.float32, device=xb.device)
     h_chunks[:, 1:] = hseq[:, SCAN_CHUNK - 1:s - 1:SCAN_CHUNK]
     return (hseq * yb).to(xb.dtype), h_chunks
 
@@ -347,6 +346,24 @@ def rglru_scan(xb: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
 # -- training: the forward that keeps each chunk's entering state, and the
 # backward --
 
+def states_shape(b: int, s: int, w: int) -> Tuple[int, int, int]:
+    """Shape of the float32 states the training forward keeps for the
+    backward: the state entering each chunk of ``SCAN_CHUNK`` positions,
+    (B, ceil(S / SCAN_CHUNK), W)."""
+    return (b, -(-s // SCAN_CHUNK), w)
+
+
+def bwd_scratch_shape(b: int, w: int) -> Tuple[int, int]:
+    """Shape of the float32 scratch one backward call allocates: dc per
+    row, (B, W), summed over rows in order afterwards."""
+    return (b, w)
+
+
+def train_bytes(b: int, s: int, w: int) -> Tuple[int, int]:
+    """(saved, scratch): bytes of the states one training forward keeps for
+    the backward, and of one backward call's scratch."""
+    return 4 * math.prod(states_shape(b, s, w)), 4 * math.prod(bwd_scratch_shape(b, w))
+
 def work_bwd(xb, r_pre, i_pre, y_pre, c, h_chunks, dy) -> _build.Work:
     """FLOPs and bytes of one backward call: ~60 float32 operations an
     element (the gates and gelu again, the chunk's states from its carry,
@@ -363,25 +380,21 @@ def work_train(xb, r_pre, i_pre, y_pre, c) -> _build.Work:
     """:func:`work` plus the chunk states written."""
     b, s, w = xb.shape
     fw = work(xb, r_pre, i_pre, y_pre, c)
-    return _build.Work(fw.flops, fw.bytes + 4 * b * -(-s // SCAN_CHUNK) * w)
+    return _build.Work(fw.flops, fw.bytes + train_bytes(b, s, w)[0])
 
 
 def _launch_train(xb, r_pre, i_pre, y_pre, c):
     """CUDA implementation of ``repro_torch::rglru_scan_train``: the scan
     kernel also writing each chunk's entering state, counted in
     ``rglru_scan_train.launches``."""
-    b, s, w = xb.shape
-    h_chunks = torch.empty((b, -(-s // SCAN_CHUNK), w), dtype=torch.float32,
-                           device=xb.device)
+    h_chunks = torch.empty(states_shape(*xb.shape), dtype=torch.float32, device=xb.device)
     y, _ = _run(xb, r_pre, i_pre, y_pre, c, None, None, h_chunks)
     rglru_scan_train.launches += 1
     return y, h_chunks
 
 
 def _fake_train(xb, r_pre, i_pre, y_pre, c):
-    b, s, w = xb.shape
-    return torch.empty_like(xb), xb.new_empty((b, -(-s // SCAN_CHUNK), w),
-                                              dtype=torch.float32)
+    return torch.empty_like(xb), xb.new_empty(states_shape(*xb.shape), dtype=torch.float32)
 
 
 def _check_bwd(xb, r_pre, i_pre, y_pre, c, h_chunks, dy) -> None:
@@ -389,7 +402,7 @@ def _check_bwd(xb, r_pre, i_pre, y_pre, c, h_chunks, dy) -> None:
     (besides the forward's limits)."""
     b, s, w = xb.shape
     _check(xb, r_pre, i_pre, y_pre, c, torch.zeros((b,), dtype=torch.int32, device=xb.device))
-    want = (b, -(-s // SCAN_CHUNK), w)
+    want = states_shape(b, s, w)
     if tuple(h_chunks.shape) != want or h_chunks.dtype != torch.float32:
         raise ValueError(f"h_chunks must be float32 {want}, got {h_chunks.dtype} "
                          f"{tuple(h_chunks.shape)}")
@@ -410,7 +423,7 @@ def _launch_bwd(xb, r_pre, i_pre, y_pre, c, h_chunks, dy):
     chunks = chunk_plan(b, s, w, sm_count(xb.device))[1]
     lib = _build.library("rglru_scan", _bind)
     dxb, dr, di, dyp = (torch.empty_like(xb) for _ in range(4))
-    dc_rows = torch.empty((b, w), dtype=torch.float32, device=xb.device)
+    dc_rows = torch.empty(bwd_scratch_shape(b, w), dtype=torch.float32, device=xb.device)
     dc = torch.empty((w,), dtype=torch.float32, device=xb.device)
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -42,6 +42,7 @@ float32 before the exp, so everything else is float32 arithmetic.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -117,8 +118,8 @@ def _ssd_chunks(x, dt, a, b_mat, c_mat, d, chunk, keep_states):
     af = a.float()
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev))
     state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=dev)
-    states = (torch.empty((bsz, h, s // chunk, p, n), dtype=torch.float32, device=dev)
-              if keep_states else None)
+    states = (torch.empty(states_shape(bsz, s, h, p, n, chunk), dtype=torch.float32,
+                          device=dev) if keep_states else None)
     y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=dev)
     for t0 in range(0, s, chunk):
         if keep_states:
@@ -394,12 +395,37 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torch.Te
 
 # -- training: the forward that keeps each chunk's state, and the backward --
 
+def states_shape(bsz: int, s: int, h: int, p: int, n: int,
+                 chunk: int = MAX_CHUNK) -> Tuple[int, ...]:
+    """Shape of the float32 chunk states the training forward keeps for the
+    backward: the state entering each chunk, (B, H, S / chunk, P, N)."""
+    return (bsz, h, s // min(chunk, s), p, n)
+
+
+def bwd_scratch_shapes(bsz: int, s: int, h: int, n: int,
+                       chunk: int = MAX_CHUNK) -> Tuple[Tuple[int, ...], ...]:
+    """Shapes of the float32 scratch one backward call allocates: the Gram
+    matrices C B^T (B, S / chunk, 64, 64), the per-head dB and dC partials
+    (B, H, S, N) each, and the per-row da and dd (2, B, H)."""
+    return ((bsz, s // min(chunk, s), MAX_CHUNK, MAX_CHUNK), (bsz, h, s, n), (bsz, h, s, n),
+            (2, bsz, h))
+
+
+def train_bytes(bsz: int, s: int, h: int, p: int, n: int,
+                chunk: int = MAX_CHUNK) -> Tuple[int, int]:
+    """(saved, scratch): bytes of the chunk states one training forward
+    keeps for the backward, and of one backward call's scratch."""
+    return (4 * math.prod(states_shape(bsz, s, h, p, n, chunk)),
+            4 * sum(math.prod(sh) for sh in bwd_scratch_shapes(bsz, s, h, n, chunk)))
+
+
 def work_train(x, dt, a, b_mat, c_mat, d, chunk: int = MAX_CHUNK) -> _build.Work:
     """:func:`work` plus the chunk states written, (B, H, S / chunk, P, N)
     float32."""
     b, s, h, p = x.shape
     w = work(x, dt, a, b_mat, c_mat, d, chunk)
-    return _build.Work(w.flops, w.bytes + 4 * b * h * (s // min(chunk, s)) * p * b_mat.shape[-1])
+    saved, _ = train_bytes(b, s, h, p, b_mat.shape[-1], chunk)
+    return _build.Work(w.flops, w.bytes + saved)
 
 
 def work_bwd(x, dt, a, b_mat, c_mat, d, states, dy, chunk: int = MAX_CHUNK) -> _build.Work:
@@ -414,7 +440,7 @@ def work_bwd(x, dt, a, b_mat, c_mat, d, states, dy, chunk: int = MAX_CHUNK) -> _
     flops = b * nc * 2 * chunk * chunk * n + b * h * nc * (
         2 * 2 * chunk * chunk * p + 2 * 2 * chunk * chunk * n + 4 * 2 * chunk * p * n)
     item = x.element_size()
-    nbytes = (4 * x.numel() * item + 2 * dt.numel() * 4 + 4 * b_mat.numel() * item
+    nbytes = (3 * x.numel() * item + 2 * dt.numel() * 4 + 4 * b_mat.numel() * item
               + states.numel() * 4 + 4 * h * 4)
     return _build.Work(flops, nbytes)
 
@@ -424,7 +450,7 @@ def _check_bwd(x, dt, a, b_mat, c_mat, d, states, dy, chunk: int) -> None:
     (besides the forward's limits, :func:`_check`)."""
     _check(x, dt, a, b_mat, c_mat, d, chunk)
     bsz, s, h, p = x.shape
-    want = (bsz, h, s // chunk, p, b_mat.shape[-1])
+    want = states_shape(bsz, s, h, p, b_mat.shape[-1], chunk)
     if tuple(states.shape) != want or states.dtype != torch.float32:
         raise ValueError(f"states must be float32 {want}, got {states.dtype} "
                          f"{tuple(states.shape)}")
@@ -464,8 +490,8 @@ def _launch_train(x, dt, a, b_mat, c_mat, d, chunk):
     ``ssd_scan_train.launches``."""
     chunk = min(chunk, x.shape[1])
     bsz, s, h, p = x.shape
-    states = torch.empty((bsz, h, s // chunk, p, b_mat.shape[-1]), dtype=torch.float32,
-                         device=x.device)
+    states = torch.empty(states_shape(bsz, s, h, p, b_mat.shape[-1], chunk),
+                         dtype=torch.float32, device=x.device)
     y = _run(x, dt, a, b_mat, c_mat, d, chunk, states)
     ssd_scan_train.launches += 1
     return y, states
@@ -473,8 +499,7 @@ def _launch_train(x, dt, a, b_mat, c_mat, d, chunk):
 
 def _fake_train(x, dt, a, b_mat, c_mat, d, chunk):
     bsz, s, h, p = x.shape
-    chunk = min(chunk, s)
-    return torch.empty_like(x), x.new_empty((bsz, h, s // chunk, p, b_mat.shape[-1]),
+    return torch.empty_like(x), x.new_empty(states_shape(bsz, s, h, p, b_mat.shape[-1], chunk),
                                             dtype=torch.float32)
 
 
@@ -490,11 +515,10 @@ def _launch_bwd(x, dt, a, b_mat, c_mat, d, states, dy, chunk):
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, db, dc = torch.empty_like(x), torch.empty_like(b_mat), torch.empty_like(c_mat)
     ddt, da, dd = torch.empty_like(dt), torch.empty((h,), **f32), torch.empty((h,), **f32)
-    g = torch.empty((bsz, s // chunk, MAX_CHUNK, MAX_CHUNK), **f32)
-    # per-head dB and dC, then summed over heads in order; per-row da, dd
-    db_h = torch.empty((bsz, h, s, n), **f32)
-    dc_h = torch.empty((bsz, h, s, n), **f32)
-    rows = torch.empty((2, bsz, h), **f32)
+    # the Gram matrices; per-head dB and dC, then summed over heads in order;
+    # per-row da, dd
+    g, db_h, dc_h, rows = (torch.empty(sh, **f32)
+                           for sh in bwd_scratch_shapes(bsz, s, h, n, chunk))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_scan_bwd(

@@ -205,7 +205,7 @@ def _former_counts(name, op_args):
         # A1 B (c x c) and dS B, dS^T x, S^T dy, the dS update (c x P x N)
         flops = b * nc * 2 * chunk * chunk * n + b * h * nc * (
             2 * 2 * chunk * chunk * p + 2 * 2 * chunk * chunk * n + 4 * 2 * chunk * p * n)
-        return flops, (4 * x.numel() * item + 2 * dt.numel() * 4
+        return flops, (3 * x.numel() * item + 2 * dt.numel() * 4
                        + 4 * b_mat.numel() * item + states.numel() * 4 + 4 * h * 4)
     if name == "rglru_scan_train":
         flops, nbytes = _former_counts("rglru_scan", op_args)
@@ -261,6 +261,23 @@ def test_work_equals_the_counts_chip_smoke_used(name, wrapper, plain, args, kwar
         extra["slots"] = sum(min(int(p) + 1, kwargs["sc"]) for p in bf16[4].tolist())
     got = _build.WORK[f"repro_torch::{name}"](*op_args, **extra)
     assert tuple(got) == _former_counts(name, op_args)
+
+
+# the backward ops' arguments and gradients in the model dtype (the rest float32)
+MODEL_DTYPE_ARGS = {"ssd_scan_bwd": (0, 3, 4, 7), "rglru_scan_bwd": (0, 1, 2, 3, 6)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(MODEL_DTYPE_ARGS))
+def test_backward_work_moves_each_input_and_output_once(name, dtype):
+    """A backward kernel's byte count, which its bound comes from, is its
+    arguments read once and its gradients written once, counted here from
+    the tensors the CPU op takes and returns."""
+    _n, wrapper, _p, args, kwargs = CASES[IDS.index(name)]
+    args = tuple(t.to(dtype) if i in MODEL_DTYPE_ARGS[name] else t for i, t in enumerate(args))
+    out = wrapper(*args, **kwargs)
+    moved = sum(t.nbytes for t in (*args, *out))
+    assert _build.WORK[f"repro_torch::{name}"](*OP_ARGS[name](args, kwargs)).bytes == moved
 
 
 def test_full_width_yi_decode_step_holds_32_paged_kernel_nodes():

@@ -11,6 +11,8 @@ train steps at the tolerances of
 ``tests/test_torch_train.py::test_train_step_trajectory_matches_reference``.
 """
 
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -31,6 +33,8 @@ from repro_torch.config import InputShape, MeshConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.strategies import PlanConfig, Strategy  # noqa: E402
 from repro_torch.data import make_batch  # noqa: E402
+from repro_torch.kernels import rglru_scan as RG  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime.train_loop import init_opt_state, make_train_step  # noqa: E402
@@ -149,4 +153,20 @@ def test_planner_plans_the_full_recurrent_models_on_one_h100(arch):
     assert plan.memory.fits()
     est = estimate_memory(cfg, shape, MESH, plan.config, TrainConfig(), H100)
     assert est.per_device["xent"] == 4 * 2048 * cfg.vocab_size * 12
-    assert est.per_device["recurrent_backward"] > 0
+    # one layer's saved states (remat) as the training op's fake returns them,
+    # plus the scratch its backward's wrapper allocates
+    meta = dict(device="meta")
+    if cfg.family == "ssm":
+        h, p, n = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
+        x = torch.empty((4, 2048, h, p), dtype=torch.bfloat16, **meta)
+        bm, v = torch.empty((4, 2048, n), dtype=torch.bfloat16, **meta), torch.empty(h, **meta)
+        states = torch.ops.repro_torch.ssd_scan_train(x, x[..., 0].float(), v, bm, bm, v,
+                                                      SSD.MAX_CHUNK)[1]
+        scratch = SSD.bwd_scratch_shapes(4, 2048, h, n)
+    else:
+        xb = torch.empty((4, 2048, cfg.lru_width), dtype=torch.bfloat16, **meta)
+        states = torch.ops.repro_torch.rglru_scan_train(
+            xb, xb, xb, xb, torch.empty(cfg.lru_width, **meta))[1]
+        scratch = (RG.bwd_scratch_shape(4, cfg.lru_width),)
+    want = states.nbytes + 4 * sum(math.prod(sh) for sh in scratch)
+    assert est.per_device["recurrent_backward"] == want

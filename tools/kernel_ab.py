@@ -1,0 +1,138 @@
+"""One kernel of one source tree, timed on the card at its serving path's
+shapes, for comparing two trees in one run.
+
+    python3 tools/kernel_ab.py --kernel {paged_decode,ssd_scan} [--tree DIR]
+        [--label NAME] [--flush-modes write read none]
+
+``--tree`` is the root of a checkout of this repository (default: this
+one); its ``src/repro_torch`` and its ``chip_smoke.py`` are imported, and
+its kernels are built into its own ``build/`` directory. For each shape:
+bfloat16 inputs from a fixed seed (the tree's ``chip_smoke.py`` input
+builders), the result held against the float32 plain version under the
+kernel's ``chip_smoke.py`` tolerance, then the CUDA-event median of 20 calls
+and the profiler device time per call of the kernel's family, the L2
+flushed before every call. One JSON line per shape, with the card's name
+and power limit. Run trees in turns, one process each (parent, change,
+change, parent), to compare them on one card.
+
+Kernels and shapes:
+
+- ``paged_decode``: Yi-6B widths (Hq 32, Hkv 4, D 128, page 64), the
+  (8, 2000) request mid-decode in its (8, 2048) bucket and the (1, 512)
+  request in its (1, 1024) bucket.
+- ``ssd_scan``: the serving SSD scan (the Gram pass and the walk) at
+  Mamba-2 1.3B's widths, the (8, 2048) and (1, 1024) buckets.
+
+The flush is ``chip_smoke.py``'s (96 MB of zeros written, which leaves the
+L2 full of dirty lines that the kernel's reads must write back first);
+``--flush-modes write read none`` adds the device time after a flush that
+only reads 96 MB (a clean L2 without the call's data) and with no flush at
+all (the call's data warm in the 50 MB L2 where it fits).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def paged_decode_cases(cs, pa):
+    """(label, call, plain, tolerance, bound_ms) at Yi-6B's decode shapes."""
+    hq, hkv, d, page = 32, 4, 128, 64
+    for label, b, sc, pos in (("serving (8, 2048)", 8, 2048, [2000 + 4 * i for i in range(8)]),
+                              ("bucket (1, 1024)", 1, 1024, [527])):
+        q, k, v, tables, posv = cs._paged_inputs(b, hq, hkv, d, page, sc, pos,
+                                                 torch.bfloat16, 4)
+        slots = sum(min(p + 1, sc) for p in pos)
+        nbytes = slots * hkv * d * 2 * 2 + 2 * b * hq * d * 2 + tables.numel() * 4 + b * 4
+        bound, _ = cs._bound_ms(nbytes, 4 * hq * d * slots, torch.bfloat16)
+        yield (label,
+               lambda: pa.paged_decode_attention(q, k, v, tables, posv, page=page, sc=sc),
+               lambda: pa.paged_attention_torch(q.float(), k.float(), v.float(), tables, posv,
+                                                page=page, sc=sc),
+               cs.PAGED_BF16_TOL, bound)
+
+
+def ssd_scan_cases(cs, ssd):
+    """(label, call, plain, tolerance, bound_ms) at Mamba-2 1.3B's prompt
+    buckets."""
+    for label, dims in (("serving (8, 2048)", (8, 2048, 64, 64, 128)),
+                        ("bucket (1, 1024)", (1, 1024, 64, 64, 128))):
+        inputs = cs._ssd_inputs(*dims, torch.bfloat16, 7)
+        work = ssd.work(*inputs)
+        bound, _ = cs._bound_ms(work.bytes, work.flops, torch.bfloat16)
+        yield (label, lambda: ssd.ssd_scan(*inputs),
+               lambda: ssd.ssd_scan_torch(*(t.float() for t in inputs)),
+               cs.SSD_BF16_TOL, bound)
+
+
+# kernel: (its module under repro_torch.kernels, its family in a trace, cases)
+KERNELS = {"paged_decode": ("paged_attention", "paged_decode", paged_decode_cases),
+           "ssd_scan": ("ssd_scan", "ssd", ssd_scan_cases)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", required=True, choices=sorted(KERNELS))
+    ap.add_argument("--tree", default=str(HERE))
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--flush-modes", nargs="+", default=["write"],
+                    choices=("write", "read", "none"))
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    # the tree's own chip_smoke.py and sources, chosen here at run time
+    sys.path.insert(0, str(tree / "src"))
+    sys.path.insert(1, str(tree))
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device available", file=sys.stderr)
+        return 2
+    import chip_smoke as cs  # lint: allow-local-import
+
+    module, family, cases = KERNELS[args.kernel]
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    if not Path(mod.__file__).resolve().is_relative_to(tree):
+        print(f"kernel_ab: imported {mod.__file__}, not from {tree}", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    reader = torch.zeros(24 << 20, dtype=torch.float32, device="cuda")   # 96 MB
+
+    class ReadFlush:
+        """Stands in for the flush buffer: ``zero_()`` reads 96 MB instead."""
+
+        def zero_(self):
+            reader.sum()
+
+    flushes = {"write": flush, "read": ReadFlush(), "none": None}
+    for label, call, plain, tol, bound in cases(cs, mod):
+        ok, max_err, _, rms_ratio = cs.within(call(), plain(), tol)
+        event_ms = cs.cuda_ms(call, flush=flush)
+        dev_ms, names = cs.device_ms(call, family, flush)
+        by_flush = {mode: cs.device_ms(call, family, flushes[mode])[0]
+                    for mode in args.flush_modes}
+        print(json.dumps({"tree": args.label or str(tree), "kernel": args.kernel,
+                          "shape": label, "ok": ok, "max_abs_err": max_err,
+                          "err_rms_ratio": rms_ratio, "event_ms": event_ms,
+                          "device_ms": dev_ms, "device_ms_by_flush": by_flush,
+                          "kernels": {cs._short(n): t for n, t in names.items()},
+                          "bound_ms": bound, "card": smi}), flush=True)
+        if not ok:
+            print(f"kernel_ab: {args.kernel} {label} disagrees with the plain version",
+                  file=sys.stderr)
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,6 +2,7 @@
 initialisations and several optimizer settings, on the card.
 
     python3 tools/train_init_sweep.py [--arch yi-6b] [--steps 8]
+        [--embed-scales K ...]
 
 A full model (Yi-6B by default; ``--arch recurrentgemma-2b`` or
 ``mamba2-1.3b``), bfloat16, (4, 2048) batches of the synthetic corpus
@@ -9,15 +10,19 @@ A full model (Yi-6B by default; ``--arch recurrentgemma-2b`` or
 ``make_train_step`` with Adam or SGD at a given lr, clipped at 1.0 or not.
 Each setting starts from fresh seeded weights: the model's own
 initialisation (``Model.init_params``) or ``chip_smoke.trainable_params``
-(the attention projections at their true fan-in). One line per setting:
-the losses, the global gradient norms (0 where nothing is clipped), and
-whether the mean of the last three losses is below step 0's, with the
-card's name and power limit. Needs the card.
+(the attention projections at their true fan-in). ``--embed-scales``
+runs instead ``trainable_params`` with the embedding multiplied by each
+K, under Adam at 3e-4 clipped at 1.0 (the train phases' setting). One line
+per setting: the losses, the global gradient norms (0 where nothing is
+clipped), and whether the mean of the last three losses is below step 0's
+and below ln(vocab), the loss of uniform logits, with the card's name and
+power limit. Needs the card.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import statistics
 import subprocess
 import sys
@@ -48,6 +53,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="yi-6b")
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--embed-scales", type=float, nargs="+", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("train_init_sweep: no CUDA device available", file=sys.stderr)
@@ -61,9 +67,14 @@ def main() -> int:
     shape = InputShape("cli", 2048, 4, "train")
     mesh = MeshConfig((1,), ("data",))
     plan = compile_plan(cfg, shape, mesh, TrainConfig()).config
-    for init, opt, lr, clip in SETTINGS:
-        params = (cs.trainable_params(model, cs.SEED) if init == "trainable" else
-                  model.init_params(torch.Generator(device="cuda").manual_seed(cs.SEED)))
+    settings = (SETTINGS if args.embed_scales is None else
+                [(f"trainable, embedding x {k:g}", "adam", 3e-4, 1.0) for k in args.embed_scales])
+    scales = dict(zip((s[0] for s in settings), args.embed_scales or ()))
+    uniform = math.log(cfg.vocab_size)
+    for init, opt, lr, clip in settings:
+        params = (model.init_params(torch.Generator(device="cuda").manual_seed(cs.SEED))
+                  if init == "model" else
+                  cs.trainable_params(model, cs.SEED, embed_scale=scales.get(init, 1.0)))
         state = init_opt_state(opt, params, plan)
         step = make_train_step(model, plan, mesh, TrainConfig(optimizer=opt, learning_rate=lr,
                                                               grad_clip=clip))
@@ -73,11 +84,12 @@ def main() -> int:
             params, state, met = step(params, state, batch, i)
             losses.append(float(met["loss"]))
             norms.append(float(met["grad_norm"]))
-        falls = statistics.mean(losses[-3:]) < losses[0]
+        last = statistics.mean(losses[-3:])
         print(f"{args.arch}, {init} init, {opt} lr {lr:g} clip {clip:g}: losses "
               f"{[round(x, 4) for x in losses]}; grad norms {[f'{n:.3g}' for n in norms]}; "
-              f"mean of the last three {statistics.mean(losses[-3:]):.4f} "
-              f"{'<' if falls else '>='} step 0's {losses[0]:.4f}; {smi}", flush=True)
+              f"mean of the last three {last:.4f} {'<' if last < losses[0] else '>='} step "
+              f"0's {losses[0]:.4f}, {'<' if last < uniform else '>='} ln(vocab) "
+              f"{uniform:.4f}; {smi}", flush=True)
         del params, state, step
         torch.cuda.empty_cache()
     return 0
