@@ -221,30 +221,41 @@ cudaError_t launch(const void* xb, const void* r_pre, const void* i_pre, const v
 //   dr_pre = da a c r (1 - r),  dc = sum over (B, S) of da a r.
 // The reverse recurrence composes like the forward's: a chunk maps the
 // value q = a_{t+1} dh_{t+1} handed in from its right to a_{t0} dh_{t0} =
-// A q + E, with the same decay product A. The block and thread layout is
-// the forward's (16 channels of one row, one thread per (channel, chunk)),
-// walking tiles from the last to the first: each thread takes its chunk's
-// (A, E) from q = 0, then the q entering its chunk (the tile's carry
-// composed with the chunks after it), then recomputes its chunk's states
-// from h_chunks and forms every gradient in reverse. So h_{t-1} costs 4
-// bytes per 8 positions of saved state, not a (B, S, W) float32 buffer.
-// dc is summed per thread in order, over a block's chunks in order, then
-// over rows in order by a second launch: no atomics. The special functions
-// are the IEEE ones (expf, tanhf, sqrtf, true division). Bound: bytes, as
-// the forward (five inputs read and four gradients written in T).
+// A q + E, with the same decay product A.
+//
+// Design: the forward's layout (16 channels of one row, one thread per
+// (channel, chunk)) walking tiles from the last to the first, one pass over
+// the inputs. A thread loads its chunk's five inputs once, computes each
+// gate, the gelu and its derivative once per element with the forward's
+// special functions (so a and the states are the forward's), and runs the
+// chunk's states forward from the carry the training forward saved (h_{t-1}
+// costs 4 bytes per 8 positions, not a (B, S, W) float32 buffer), writing
+// dy_pre as it goes. Every other gradient is linear in dh, so the thread
+// keeps a and e in registers and four coefficients an element in shared
+// memory: beta i (dxb), xb beta i (1 - i) (di_pre), and m r, m c r (1 - r)
+// with m = (h_{t-1} - [..] xb i a / beta) a (dc, dr_pre). Then the chunk's
+// (A, E) from q = 0, the q entering it (the tile's carry composed with the
+// chunks after it), and the reverse pass over the coefficients. Blocks of up
+// to 512 threads are held to 64 registers and 64 KB of coefficients, two an
+// SM, as the forward. dc is summed per thread in order, over a block's
+// chunks in order, then over rows in order by a second launch: no atomics.
+// Bound: bytes, as the forward (five inputs read and four gradients written
+// in T: 18 bytes an element in bfloat16).
 
-__device__ __forceinline__ float sigmoid_ieee(float x) { return 1.f / (1.f + expf(-x)); }
+constexpr int kCoefs = 4;   // reverse-pass coefficients an element
 
-__device__ __forceinline__ float gelu_tanh_ieee(float x, float& grad) {
+// the tanh gelu (x sigmoid(2 u), as gelu_tanh) and its derivative
+// 0.5 (1 + tanh u) + 0.5 x (1 - tanh^2 u) u' = s + 2 x s (1 - s) u'
+__device__ __forceinline__ void gelu_tanh_grad(float x, float& val, float& grad) {
   const float kBeta = 0.7978845608028654f;     // sqrt(2 / pi)
   const float kKappa = 0.044715f;
-  const float th = tanhf(kBeta * (x + kKappa * (x * x * x)));
-  grad = 0.5f * (1.f + th) + 0.5f * x * (1.f - th * th) * kBeta * (1.f + 3.f * kKappa * x * x);
-  return 0.5f * x * (1.f + th);
+  const float sg = sigmoid(2.f * (kBeta * (x + kKappa * (x * x * x))));
+  val = x * sg;
+  grad = sg + 2.f * x * sg * (1.f - sg) * kBeta * (1.f + 3.f * kKappa * x * x);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kChannels * kMaxChunks, 1)
+__global__ void __launch_bounds__(kChannels * kMaxChunks, 2)
 rglru_scan_bwd_kernel(const T* __restrict__ xb, const T* __restrict__ r_pre,
                       const T* __restrict__ i_pre, const T* __restrict__ y_pre,
                       const float* __restrict__ c, const float* __restrict__ h_chunks,
@@ -252,13 +263,14 @@ rglru_scan_bwd_kernel(const T* __restrict__ xb, const T* __restrict__ r_pre,
                       T* __restrict__ di, T* __restrict__ dyp,
                       float* __restrict__ dc_rows,   // (B, W)
                       int s, int w) {
-  __shared__ float chunk_a[kMaxChunks][kChannels];   // the tile's chunks' A
+  __shared__ float chunk_a[kMaxChunks][kChannels];   // the tile's chunks' A (at the end: dc)
   __shared__ float chunk_e[kMaxChunks][kChannels];   // and E
   __shared__ float carry[kChannels];                 // q entering the tile from its right
-  __shared__ float dc_part[kMaxChunks][kChannels];
+  extern __shared__ float coef[];                    // [kCoefs][kChunk][blockDim.x]
+  const int nt = blockDim.x;
   const int lane_ch = threadIdx.x % kChannels;
   const int k = threadIdx.x / kChannels;
-  const int n_chunks = blockDim.x / kChannels;
+  const int n_chunks = nt / kChannels;
   const int tile_len = n_chunks * kChunk;
   const int ch = blockIdx.x * kChannels + lane_ch;
   const int b = blockIdx.y;
@@ -266,22 +278,44 @@ rglru_scan_bwd_kernel(const T* __restrict__ xb, const T* __restrict__ r_pre,
   const int nck = (s + kChunk - 1) / kChunk;
   const float cw = live ? c[ch] : 0.f;
   const size_t row = static_cast<size_t>(b) * s * w + ch;
+  float* cf = coef + threadIdx.x;                    // coefficient (q, u) at cf[(q kChunk + u) nt]
   float dc_acc = 0.f;
   if (k == 0) carry[lane_ch] = 0.f;
 
   for (int tile = ((s - 1) / tile_len) * tile_len; tile >= 0; tile -= tile_len) {
     const int t0 = tile + k * kChunk;
     const size_t off = row + static_cast<size_t>(t0) * w;
+    const bool on = live && t0 < s;
     float av[kChunk], ev[kChunk];
+    float h = on ? h_chunks[(static_cast<size_t>(b) * nck + t0 / kChunk) * w + ch] : 0.f;
 #pragma unroll
     for (int u = 0; u < kChunk; ++u) {
       av[u] = 1.f;
       ev[u] = 0.f;
-      if (live && t0 + u < s) {
+      if (on && t0 + u < s) {
         const size_t e = off + static_cast<size_t>(u) * w;
-        float gg;
-        av[u] = expf(cw * sigmoid_ieee(to_f32(r_pre[e])));
-        ev[u] = to_f32(dy[e]) * gelu_tanh_ieee(to_f32(y_pre[e]), gg);
+        const float x = to_f32(xb[e]);
+        const float r = sigmoid(to_f32(r_pre[e]));
+        const float i = sigmoid(to_f32(i_pre[e]));
+        const float g = to_f32(dy[e]);
+        float gl, gd;
+        gelu_tanh_grad(to_f32(y_pre[e]), gl, gd);
+        const float a = __expf(cw * r);
+        const float one_m = 1.f - a * a;
+        const float d = fmaxf(one_m, 1e-9f);
+        const float rs = rsqrtf(d);                  // 1 / beta
+        const float beta = d * rs;
+        const float hprev = h;
+        h = a * h + beta * i * x;
+        dyp[e] = from_f32<T>(g * h * gd);
+        av[u] = a;
+        ev[u] = g * gl;
+        const float wgt = one_m > 1e-9f ? 1.f : (one_m == 1e-9f ? 0.5f : 0.f);
+        const float m = (hprev - wgt * x * i * a * rs) * a;
+        cf[(0 * kChunk + u) * nt] = beta * i;
+        cf[(1 * kChunk + u) * nt] = x * beta * i * (1.f - i);
+        cf[(2 * kChunk + u) * nt] = m * r;
+        cf[(3 * kChunk + u) * nt] = m * cw * r * (1.f - r);
       }
     }
     float prod = 1.f, end = 0.f;
@@ -297,54 +331,26 @@ rglru_scan_bwd_kernel(const T* __restrict__ xb, const T* __restrict__ r_pre,
     for (int j = n_chunks - 1; j > k; --j) q = chunk_a[j][lane_ch] * q + chunk_e[j][lane_ch];
     __syncthreads();                                 // every carry read before it moves on
     if (k == 0) carry[lane_ch] = prod * q + end;
-    if (live && t0 < s) {
-      // the chunk's states from the state entering it
-      const float h_in = h_chunks[(static_cast<size_t>(b) * nck + t0 / kChunk) * w + ch];
-      float hv[kChunk];
-      float h = h_in;
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        if (t0 + u < s) {
-          const size_t e = off + static_cast<size_t>(u) * w;
-          const float a = av[u];
-          const float beta = sqrtf(fmaxf(1.f - a * a, 1e-9f));
-          h = a * h + beta * sigmoid_ieee(to_f32(i_pre[e])) * to_f32(xb[e]);
-        }
-        hv[u] = h;
-      }
+    if (on) {
 #pragma unroll
       for (int u = kChunk - 1; u >= 0; --u) {
         if (t0 + u >= s) continue;
         const size_t e = off + static_cast<size_t>(u) * w;
-        const float x = to_f32(xb[e]);
-        const float r = sigmoid_ieee(to_f32(r_pre[e]));
-        const float i = sigmoid_ieee(to_f32(i_pre[e]));
-        const float a = av[u];
-        const float one_m = 1.f - a * a;
-        const float beta = sqrtf(fmaxf(one_m, 1e-9f));
         const float dh = ev[u] + q;
-        const float hprev = u > 0 ? hv[u - 1] : h_in;
-        float ggrad;
-        gelu_tanh_ieee(to_f32(y_pre[e]), ggrad);
-        dyp[e] = from_f32<T>(to_f32(dy[e]) * hv[u] * ggrad);
-        dxb[e] = from_f32<T>(dh * beta * i);
-        const float dg = dh * x;
-        di[e] = from_f32<T>(dg * beta * i * (1.f - i));
-        const float wgt = one_m > 1e-9f ? 1.f : (one_m == 1e-9f ? 0.5f : 0.f);
-        const float dbeta = wgt * dg * i;
-        const float ga = dh * hprev - dbeta * a / beta;
-        const float dca = ga * a;
-        dc_acc += dca * r;
-        dr[e] = from_f32<T>(dca * cw * r * (1.f - r));
-        q = a * dh;
+        dxb[e] = from_f32<T>(dh * cf[(0 * kChunk + u) * nt]);
+        di[e] = from_f32<T>(dh * cf[(1 * kChunk + u) * nt]);
+        dc_acc += dh * cf[(2 * kChunk + u) * nt];
+        dr[e] = from_f32<T>(dh * cf[(3 * kChunk + u) * nt]);
+        q = av[u] * dh;
       }
     }
   }
-  dc_part[k][lane_ch] = dc_acc;
+  __syncthreads();                                   // the last tile's A read everywhere
+  chunk_a[k][lane_ch] = dc_acc;
   __syncthreads();
   if (k == 0 && live) {
     float sum = 0.f;
-    for (int j = 0; j < n_chunks; ++j) sum += dc_part[j][lane_ch];
+    for (int j = 0; j < n_chunks; ++j) sum += chunk_a[j][lane_ch];
     dc_rows[static_cast<size_t>(b) * w + ch] = sum;
   }
 }
@@ -365,13 +371,23 @@ cudaError_t launch_bwd(const void* xb, const void* r_pre, const void* i_pre,
                        const void* dy, void* dxb, void* dr, void* di, void* dyp,
                        float* dc_rows, float* dc, int batch, int s, int w, int n_chunks,
                        cudaStream_t stream) {
+  const int nt = kChannels * n_chunks;
+  const int coef_bytes = kCoefs * kChunk * nt * static_cast<int>(sizeof(float));
+  auto kernel = rglru_scan_bwd_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, coef_bytes);
+  if (err != cudaSuccess) return err;
+  // the shared memory of two blocks an SM before L1
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
   dim3 grid((w + kChannels - 1) / kChannels, batch);
-  rglru_scan_bwd_kernel<T><<<grid, kChannels * n_chunks, 0, stream>>>(
+  kernel<<<grid, nt, coef_bytes, stream>>>(
       static_cast<const T*>(xb), static_cast<const T*>(r_pre), static_cast<const T*>(i_pre),
       static_cast<const T*>(y_pre), c, h_chunks, static_cast<const T*>(dy),
       static_cast<T*>(dxb), static_cast<T*>(dr), static_cast<T*>(di), static_cast<T*>(dyp),
       dc_rows, s, w);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   rglru_scan_dc_kernel<<<(w + 255) / 256, 256, 0, stream>>>(dc_rows, dc, batch, w);
   return cudaGetLastError();

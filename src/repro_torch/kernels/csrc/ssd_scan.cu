@@ -548,460 +548,740 @@ cudaError_t launch_typed(const void* x, const void* dt, const void* a, const voi
 // ---------------------------------------------------------------------------
 //
 // The gradient of the function above for an output gradient dy, from the
-// state entering each chunk (written by the training forward's walk). Per
-// (row, head) the state gradient dS is carried backward over the chunks,
-// starting from zero past the last:
-//   dS_in = exp(total) dS_out + sum_i exp(cum_i) dy_i C_i^T,
-// and each chunk's local gradients are formed from its starting state S and
-// the dS_out the chunks after it hand back (kernels/ssd_scan.py,
-// ssd_scan_bwd_torch, states the formulas and is the plain version in this
-// order). With G = C B^T (the Gram pass above), L masked before the exp,
-// D = dy x^T, A1 = L o dt_j o D, M = G o L o dt_j and K = G o L o D:
-//   dx_j  = sum_i M_ij dy_i + sc_j (dS_out B_j) + d dy_j
-//   dB_j  = sum_i A1_ij C_i + sc_j dS_out^T x_j        (per head)
-//   dC_i  = sum_j A1_ij B_j + exp(cum_i) S^T dy_i      (per head)
-//   ddt_j = sum_i K_ij + exp(total - cum_j) x_j . (dS_out B_j) + a rc_j
+// state S entering each chunk (written by the training forward's walk).
+// With G = C B^T (the Gram pass above), L masked before the exp, D = dy
+// x^T, A1 = L o dt_j o D, M = G o L o dt_j, K = G o L o D, sc_j = dt_j
+// exp(total - cum_j) and dS_out the gradient of the state a chunk hands on
+// (kernels/ssd_scan.py, ssd_scan_bwd_torch, states the formulas and is the
+// plain version in this order):
+//   dS_out[last] = 0,  dS_out[c - 1] = exp(total_c) dS_out[c] + U_c,
+//   U_c   = sum_i exp(cum_i) dy_i C_i^T                      (P x N)
+//   dx_j  = sum_i M_ij dy_i + sc_j rb_j + d dy_j,   rb_j = dS_out B_j
+//   dB_j  = sum_h [sum_i A1_ij C_i + sc_j dS_out^T x_j]
+//   dC_i  = sum_h [sum_j A1_ij B_j + exp(cum_i) S^T dy_i]
+//   ddt_j = sum_i K_ij + exp(total - cum_j) x_j . rb_j + a rc_j
 // where rc is the reverse cumsum, in float64, of the gradient of each
 // position's cum (the L, exp(cum), exp(total - cum) and exp(total) terms);
 // da = sum dt_j rc_j and dd = sum x . dy.
 //
-// Design (simple and right first): one block of 256 threads per (head,
-// row) walks the chunks from the last to the first. A chunk's x, dy, B and
-// C, dS_out and the three c x c matrices sit in shared memory as float32
-// (~190 KB at P 64, N 128); S is read from device memory where it is used.
-// Every product is float32 FMAs on the CUDA cores, each thread owning a
-// 4 x 4 or 4 x 8 tile of its output. B and C have no head axis, so their
-// gradients are written per head into float32 scratch (B, H, S, N) and a
-// last pass sums the heads in order; da and dd are written per (row, head)
-// and summed over rows in order: no atomics, so two runs give the same
-// bits. What bounds it on an H100: the CUDA cores' float32 rate (~7 MFLOP
-// a (row, head, chunk) at P 64, N 128, where the byte bound is the chunk
-// states' read); the tensor-core form, as the forward's walk, is for a
-// later PR.
+// Design. The only serial dependency is dS_out itself, a float32 scaled add
+// over the chunks; every other product reads one chunk's dS_out and S and
+// nothing carried. So the backward is four launches:
+// 1. the Gram pass above, G once per (row, chunk);
+// 2. the dS walk (ssd_scan_bwd_state_kernel): one block of 8 warps per
+//    (head, row) walks the chunks from the last to the first with dS in
+//    the accumulator registers of U's product (mma.sync m16n8k8 TF32,
+//    exp(cum) dy split hi/lo, C exact in bfloat16), the forward's state
+//    passing mirrored: one product a chunk, dy and C tiles in a 2-stage
+//    cp.async ring, warp 0 forming the next chunk's float64 cumsum. It
+//    writes each chunk's dS_out to float32 scratch (B, H, nc, P, N);
+// 3. the chunk pass (ssd_scan_bwd_chunk_kernel): one block per (chunk,
+//    row, head group) of 16 warps (8 at the smoke width), ~8,000 (row,
+//    head, chunk) units at the training shape. G, B and C are staged once
+//    per block; per head x, dy, S and dS_out arrive by cp.async (S for the
+//    next head while this one's dS products run; x, dy and dS_out while its
+//    scalar tail runs). Every product is on the tensor cores in 3xTF32 as
+//    the forward's walk (an operand exact in TF32, a bfloat16 input, is not
+//    split): D, then dy S (dC's term), then rb, sum_i M_ij dy_i and x
+//    dS_out (dB's term). Each warp owns 16 rows of every output, so A1's
+//    tiles stay in registers and are summed over the group's heads there:
+//    the A1 terms of dB and dC cost two products per group, not per head.
+//    dB and dC accumulate over the group's heads in registers in head
+//    order and are written once per group; a last pass sums the groups in
+//    order. The masked upper k-steps of M and A1 are skipped;
+// 4. the sum pass: dB, dC over the head groups in order, da and dd over
+//    (row, chunk) in order: no atomics, so two calls give the same bits.
+// The cumsum, K's strictly-below-diagonal row and column sums and the
+// reverse cumsum of cum's gradient stay in float64. Shared memory of a
+// chunk block is ~177 KB (bfloat16; float32 ~225 KB), one block an SM; a
+// dS-walk block ~54 KB (bfloat16).
+//
+// What bounds it on an H100: ~60 GFLOP of products at the training shape
+// (4, 2048, 64, 64, 128), two TF32 products each in bfloat16 (0.24 ms at
+// the TF32 peak), against 482 MB the function must move (0.144 ms); the
+// dS_out scratch adds 268 MB written and read again. The chunk pass takes
+// most of the time and is latency-bound at one block of 16 warps an SM
+// (128 registers): its loads and barriers wait little, every product
+// phase issues well below the SM's rate. Double buffers for the next
+// head's tiles and bfloat16 pair loads spilled registers and ran slower.
 
-constexpr int BWD_NT = 256;   // threads of a backward block
+constexpr int BWD_STATE_NW = 8;   // warps of a dS-walk block
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16(v); }
 
-// Shared memory of a backward block in floats after four float64 vectors
-// (CH each), mirrored by kernels/ssd_scan.py's bwd_smem_bytes. Rows are
-// padded by one float.
-template <int P, int N>
-struct Bwd {
-  static constexpr int LDP = P + 1, LDN = N + 1, LDQ = CH + 1;
-  static constexpr int X = 0;                        // x (CH x LDP)
-  static constexpr int DY = X + CH * LDP;            // dy
-  static constexpr int BM = DY + CH * LDP;           // B (CH x LDN)
-  static constexpr int CM = BM + CH * LDN;           // C
-  static constexpr int R = CM + CH * LDN;            // dS_out (P x LDN)
-  static constexpr int DK = R + P * LDN;             // D, then K (CH x LDQ)
-  static constexpr int A1 = DK + CH * LDQ;           // A1
-  static constexpr int M = A1 + CH * LDQ;            // M
-  static constexpr int XRBP = M + CH * LDQ;          // x_j . (dS_out B_j) partials
-  static constexpr int CIP = XRBP + CH * (P / 4);    // C_i . (S^T dy_i) partials
-  static constexpr int VEC = CIP + CH * (N / 8);     // five per-position vectors
-  static constexpr int RED = VEC + 5 * CH;           // one float a thread
-  static constexpr int SCAL = RED + BWD_NT;          // exp(total)
-  static constexpr int FLOATS = SCAL + 8;
-  static constexpr int BYTES = 4 * FLOATS + 4 * 8 * CH;
-  static_assert(P % 4 == 0 && N % 8 == 0, "tile shapes");
-};
+template <int J>
+__device__ __forceinline__ void zero(float (&t)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) t[j][0] = t[j][1] = t[j][2] = t[j][3] = 0.f;
+}
 
-// Block (head h, row b); see above.
-template <typename T, int P, int N>
-__global__ void __launch_bounds__(BWD_NT, 1)
-ssd_scan_bwd_kernel(const T* __restrict__ x,           // (B, S, H, P)
-                    const float* __restrict__ dt,      // (B, S, H)
-                    const float* __restrict__ a,       // (H,)
-                    const T* __restrict__ bm,          // (B, S, N)
-                    const T* __restrict__ cm,          // (B, S, N)
-                    const float* __restrict__ dskip,   // (H,)
-                    const float* __restrict__ states,  // (B, H, nc, P, N)
-                    const T* __restrict__ dy,          // (B, S, H, P)
-                    const float* __restrict__ g,       // (B, nc, CH, CH) from pass 1
-                    float* __restrict__ db_h,          // (B, H, S, N)
-                    float* __restrict__ dc_h,          // (B, H, S, N)
-                    float* __restrict__ rows,          // (2, B, H): da, dd per row
-                    T* __restrict__ dx,                // (B, S, H, P)
-                    float* __restrict__ ddt,           // (B, S, H)
-                    int seqlen, int heads, int chunk) {
-  using L = Bwd<P, N>;
-  extern __shared__ __align__(16) unsigned char smem_b[];
-  double* cum = reinterpret_cast<double*>(smem_b);
-  double* rowt = cum + CH;     // sum_{j<i} dt_j K_ij
-  double* colk = rowt + CH;    // sum_{i>j} K_ij
-  double* dcum = colk + CH;    // the gradient of each position's cum
-  float* f = reinterpret_cast<float*>(smem_b + 4 * 8 * CH);
-  float* xs = f + L::X;
-  float* dys = f + L::DY;
-  float* bs = f + L::BM;
-  float* cs = f + L::CM;
-  float* rs = f + L::R;
-  float* dk = f + L::DK;
-  float* a1 = f + L::A1;
-  float* mm = f + L::M;
-  float* xrbp = f + L::XRBP;
-  float* cip = f + L::CIP;
-  float* dts = f + L::VEC;
-  float* ec = dts + CH;        // exp(cum)
-  float* dec = ec + CH;        // exp(total - cum)
-  float* sc = dec + CH;        // dt exp(total - cum)
-  float* xrb = sc + CH;        // x_j . (dS_out B_j)
-  float* red = f + L::RED;
-  float* scal = f + L::SCAL;
-
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const float ah = a[h], dh = dskip[h];
-  const int n_chunks = seqlen / chunk;
-  const size_t xrow = static_cast<size_t>(heads) * P;
-  double da_acc = 0.0;   // thread 0: this row's da
-  float dd_acc = 0.f;
-
-  for (int e = tid; e < P * L::LDN; e += BWD_NT) rs[e] = 0.f;   // dS past the last chunk
-
-  for (int ci = n_chunks - 1; ci >= 0; --ci) {
-    const size_t row0 = static_cast<size_t>(b) * seqlen + static_cast<size_t>(ci) * chunk;
-    const float* sg = states + ((static_cast<size_t>(b) * heads + h) * n_chunks + ci) * P * N;
-    const float* gg = g + (static_cast<size_t>(b) * n_chunks + ci) * CH * CH;
-    // the chunk's rows (zero past the chunk), and warp 0's float64 cumsum
-    for (int e = tid; e < CH * P; e += BWD_NT) {
-      const int i = e / P, p = e % P;
-      const bool in = i < chunk;
-      const size_t off = (row0 + i) * xrow + static_cast<size_t>(h) * P + p;
-      xs[i * L::LDP + p] = in ? to_f(x[off]) : 0.f;
-      dys[i * L::LDP + p] = in ? to_f(dy[off]) : 0.f;
+// big, small += A (rows m0 .. m0 + 15) . B (J 8-column tiles from n0) over
+// k in [kb, ke) (multiples of 8), in 3xTF32 as mma3; fa(row, k) and
+// fb(k, col) read the operands. PERM pairs a thread's two k slots as (2t,
+// 2t + 1) rather than (t, t + 4), in A and B alike, which keeps a
+// (k row, column) read of 4 rows at a row stride of 4 banks on distinct
+// banks.
+template <int J, bool PERM, bool AX, bool BX, typename FA, typename FB>
+__device__ __forceinline__ void tile_mma(float (&big)[J][4], float (&small)[J][4], int m0, int n0,
+                                         int kb, int ke, FA fa, FB fb) {
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const int ka = PERM ? 2 * tq : tq, kc = PERM ? 2 * tq + 1 : tq + 4;
+#pragma unroll 2
+  for (int k0 = kb; k0 < ke; k0 += 8) {
+    Frag<4, AX> af;
+    af.set(0, fa(m0 + gq, k0 + ka));
+    af.set(1, fa(m0 + gq + 8, k0 + ka));
+    af.set(2, fa(m0 + gq, k0 + kc));
+    af.set(3, fa(m0 + gq + 8, k0 + kc));
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      Frag<2, BX> bf;
+      bf.set(0, fb(k0 + ka, n0 + 8 * j + gq));
+      bf.set(1, fb(k0 + kc, n0 + 8 * j + gq));
+      mma3(big[j], small[j], af, bf);
     }
-    for (int e = tid; e < CH * N; e += BWD_NT) {
-      const int i = e / N, n = e % N;
-      const bool in = i < chunk;
-      const size_t off = (row0 + i) * N + n;
-      bs[i * L::LDN + n] = in ? to_f(bm[off]) : 0.f;
-      cs[i * L::LDN + n] = in ? to_f(cm[off]) : 0.f;
-    }
-    if (tid < 32) {
-      const int i0 = 2 * lane;
-      const float d0 = i0 < chunk ? dt[(row0 + i0) * heads + h] : 0.f;
-      const float d1 = i0 + 1 < chunk ? dt[(row0 + i0 + 1) * heads + h] : 0.f;
-      const double v0 = static_cast<double>(d0 * ah);
-      const double v1 = static_cast<double>(d1 * ah);
-      double s = v0 + v1;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const double u = __shfl_up_sync(kFull, s, o);
-        if (lane >= o) s += u;
-      }
-      const double total = __shfl_sync(kFull, s, 31);
-      const double c0 = s - v1;
-      cum[i0] = c0;
-      cum[i0 + 1] = s;
-      dts[i0] = d0;
-      dts[i0 + 1] = d1;
-      ec[i0] = expf(static_cast<float>(c0));
-      ec[i0 + 1] = expf(static_cast<float>(s));
-      dec[i0] = expf(static_cast<float>(total - c0));
-      dec[i0 + 1] = expf(static_cast<float>(total - s));
-      sc[i0] = d0 * dec[i0];
-      sc[i0 + 1] = d1 * dec[i0 + 1];
-      if (lane == 0) scal[0] = expf(static_cast<float>(total));
-    }
-    __syncthreads();
-
-    // D = dy x^T, tiles on or below the diagonal
-    for (int t = tid; t < (CH / 4) * (CH / 4); t += BWD_NT) {
-      const int i0 = (t / (CH / 4)) * 4, j0 = (t % (CH / 4)) * 4;
-      if (i0 + 3 < j0) continue;
-      float acc[4][4] = {};
-      for (int p = 0; p < P; ++p) {
-        float u[4], v[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) u[r] = dys[(i0 + r) * L::LDP + p];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) v[c] = xs[(j0 + c) * L::LDP + p];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] += u[r] * v[c];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) dk[(i0 + r) * L::LDQ + j0 + c] = acc[r][c];
-    }
-    __syncthreads();
-
-    // A1, M and K (over D), masked before the exp
-    for (int e = tid; e < CH * CH; e += BWD_NT) {
-      const int i = e / CH, j = e % CH;
-      float va = 0.f, vm = 0.f, vk = 0.f;
-      if (i >= j && i < chunk) {
-        const float l = expf(static_cast<float>(cum[i] - cum[j]));
-        const float gij = gg[i * CH + j];
-        const float dij = dk[i * L::LDQ + j];
-        va = l * dts[j] * dij;
-        vm = gij * l * dts[j];
-        vk = gij * l * dij;
-      }
-      a1[i * L::LDQ + j] = va;
-      mm[i * L::LDQ + j] = vm;
-      dk[i * L::LDQ + j] = vk;
-    }
-    __syncthreads();
-
-    // K's row sums (weighted by dt_j) and column sums, in float64 and
-    // strictly below the diagonal, which cancels from cum's gradient
-    // exactly (L_ii = 1): under strong decay the two sums cancel to a
-    // float32 rounding error of theirs (~1e-3 of da)
-    if (tid < CH) {
-      double s = 0.0;
-      for (int j = 0; j < tid; ++j)
-        s += static_cast<double>(dts[j]) * static_cast<double>(dk[tid * L::LDQ + j]);
-      rowt[tid] = s;
-    } else if (tid < 2 * CH) {
-      const int j = tid - CH;
-      double s = 0.0;
-      for (int i = j + 1; i < CH; ++i) s += static_cast<double>(dk[i * L::LDQ + j]);
-      colk[j] = s;
-    }
-    // dx_j and x_j . (dS_out B_j), tiles of 4 positions x 4 columns
-    for (int t = tid; t < (CH / 4) * (P / 4); t += BWD_NT) {
-      const int j0 = (t / (P / 4)) * 4, p0 = (t % (P / 4)) * 4;
-      float rb[4][4] = {}, acc[4][4] = {};
-      for (int n = 0; n < N; ++n) {
-        float u[4], v[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) u[r] = bs[(j0 + r) * L::LDN + n];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) v[c] = rs[(p0 + c) * L::LDN + n];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) rb[r][c] += u[r] * v[c];
-      }
-      for (int i = j0; i < CH; ++i) {
-        float u[4], v[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) u[r] = mm[i * L::LDQ + j0 + r];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) v[c] = dys[i * L::LDP + p0 + c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] += u[r] * v[c];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int j = j0 + r;
-        float xr = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int p = p0 + c;
-          if (j < chunk)
-            store1(dx + (row0 + j) * xrow + static_cast<size_t>(h) * P + p,
-                   acc[r][c] + sc[j] * rb[r][c] + dh * dys[j * L::LDP + p]);
-          xr += xs[j * L::LDP + p] * rb[r][c];
-        }
-        xrbp[j * (P / 4) + p0 / 4] = xr;
-      }
-    }
-    // dB_j per head, tiles of 4 positions x 8 state columns
-    for (int t = tid; t < (CH / 4) * (N / 8); t += BWD_NT) {
-      const int j0 = (t / (N / 8)) * 4, n0 = (t % (N / 8)) * 8;
-      float t1[4][8] = {}, t2[4][8] = {};
-      for (int i = j0; i < CH; ++i) {
-        float u[4], v[8];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) u[r] = a1[i * L::LDQ + j0 + r];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) v[c] = cs[i * L::LDN + n0 + c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) t1[r][c] += u[r] * v[c];
-      }
-      for (int p = 0; p < P; ++p) {
-        float u[4], v[8];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) u[r] = xs[(j0 + r) * L::LDP + p];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) v[c] = rs[p * L::LDN + n0 + c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) t2[r][c] += u[r] * v[c];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int j = j0 + r;
-        if (j >= chunk) continue;
-        float* o = db_h + ((static_cast<size_t>(b) * heads + h) * seqlen + ci * chunk + j) * N +
-                   n0;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) o[c] = t1[r][c] + sc[j] * t2[r][c];
-      }
-    }
-    // dC_i per head and C_i . (S^T dy_i), tiles of 4 positions x 8 columns
-    for (int t = tid; t < (CH / 4) * (N / 8); t += BWD_NT) {
-      const int i0 = (t / (N / 8)) * 4, n0 = (t % (N / 8)) * 8;
-      float t1[4][8] = {}, sdy[4][8] = {};
-      for (int j = 0; j < i0 + 4; ++j) {
-        float u[4], v[8];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) u[r] = a1[(i0 + r) * L::LDQ + j];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) v[c] = bs[j * L::LDN + n0 + c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) t1[r][c] += u[r] * v[c];
-      }
-      for (int p = 0; p < P; ++p) {
-        float u[4], v[8];
-        const float4 s0 = __ldg(reinterpret_cast<const float4*>(sg + p * N + n0));
-        const float4 s1 = __ldg(reinterpret_cast<const float4*>(sg + p * N + n0 + 4));
-        v[0] = s0.x, v[1] = s0.y, v[2] = s0.z, v[3] = s0.w;
-        v[4] = s1.x, v[5] = s1.y, v[6] = s1.z, v[7] = s1.w;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) u[r] = dys[(i0 + r) * L::LDP + p];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) sdy[r][c] += u[r] * v[c];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = i0 + r;
-        float cd = 0.f;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) cd += cs[i * L::LDN + n0 + c] * sdy[r][c];
-        cip[i * (N / 8) + n0 / 8] = cd;
-        if (i >= chunk) continue;
-        float* o = dc_h + ((static_cast<size_t>(b) * heads + h) * seqlen + ci * chunk + i) * N +
-                   n0;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) o[c] = t1[r][c] + ec[i] * sdy[r][c];
-      }
-    }
-    // <dS_out, S> and x . dy, one partial a thread
-    {
-      float rsp = 0.f;
-      for (int e = tid; e < P * N; e += BWD_NT) rsp += rs[(e / N) * L::LDN + e % N] * sg[e];
-      red[tid] = rsp;
-      for (int e = tid; e < CH * P; e += BWD_NT)
-        dd_acc += xs[(e / P) * L::LDP + e % P] * dys[(e / P) * L::LDP + e % P];
-    }
-    __syncthreads();
-
-    // each position's cum gradient but the chunk-end terms
-    if (tid < chunk) {
-      const int j = tid;
-      float xr = 0.f, cd = 0.f;
-      for (int q = 0; q < P / 4; ++q) xr += xrbp[j * (P / 4) + q];
-      for (int q = 0; q < N / 8; ++q) cd += cip[j * (N / 8) + q];
-      xrb[j] = xr;
-      dcum[j] = rowt[j] - static_cast<double>(dts[j]) * colk[j] +
-                static_cast<double>(ec[j] * cd) - static_cast<double>(sc[j] * xr);
-    }
-    // dS_in = exp(total) dS_out + sum_i exp(cum_i) dy_i C_i^T, in place
-    const float et = scal[0];
-    for (int t = tid; t < (P / 4) * (N / 8); t += BWD_NT) {
-      const int p0 = (t / (N / 8)) * 4, n0 = (t % (N / 8)) * 8;
-      float acc[4][8] = {};
-      for (int i = 0; i < CH; ++i) {
-        float u[4], v[8];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) u[r] = ec[i] * dys[i * L::LDP + p0 + r];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) v[c] = cs[i * L::LDN + n0 + c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[r][c] += u[r] * v[c];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          float* o = rs + (p0 + r) * L::LDN + n0 + c;
-          *o = et * *o + acc[r][c];
-        }
-    }
-    __syncthreads();
-
-    // thread 0: the chunk-end terms, the float64 reverse cumsum, ddt, da
-    if (tid == 0) {
-      float rsum = 0.f, usum = 0.f;
-      for (int q = 0; q < BWD_NT; ++q) rsum += red[q];
-      for (int j = 0; j < chunk; ++j) usum += sc[j] * xrb[j];
-      double rc = 0.0;
-      for (int k = chunk - 1; k >= 0; --k) {
-        double v = dcum[k];
-        if (k == chunk - 1) v += static_cast<double>(et * rsum + usum);
-        rc += v;
-        ddt[(row0 + k) * heads + h] =
-            static_cast<float>(colk[k]) + dk[k * L::LDQ + k] + dec[k] * xrb[k] +
-            ah * static_cast<float>(rc);
-        da_acc += static_cast<double>(dts[k]) * rc;
-      }
-    }
-    __syncthreads();
-  }
-
-  red[tid] = dd_acc;
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.f;
-    for (int q = 0; q < BWD_NT; ++q) s += red[q];
-    const size_t bh = static_cast<size_t>(b) * heads + h;
-    rows[bh] = static_cast<float>(da_acc);
-    rows[static_cast<size_t>(gridDim.y) * heads + bh] = s;
   }
 }
 
-// dB and dC: the per-head partials summed over heads in order; da and dd
-// (block 0): the per-row values summed over rows in order
+// Warp 0: the chunk's float64 inclusive prefix sum of dt * a (two
+// positions per lane; dt = 0 past the chunk), dt, exp(cum), exp(total -
+// cum), dt exp(total - cum) and exp(total)
+__device__ __forceinline__ void bwd_chunk_scan(float d0, float d1, float ah, double* cum,
+                                               float* dts, float* ec, float* dec, float* sc,
+                                               float* et) {
+  const int lane = threadIdx.x % 32;
+  const double v0 = static_cast<double>(d0 * ah);
+  const double v1 = static_cast<double>(d1 * ah);
+  double s = v0 + v1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double u = __shfl_up_sync(kFull, s, o);
+    if (lane >= o) s += u;
+  }
+  const double total = __shfl_sync(kFull, s, 31);
+  const double c0 = s - v1;
+  const int i0 = 2 * lane;
+  cum[i0] = c0;
+  cum[i0 + 1] = s;
+  dts[i0] = d0;
+  dts[i0 + 1] = d1;
+  ec[i0] = expf(static_cast<float>(c0));
+  ec[i0 + 1] = expf(static_cast<float>(s));
+  dec[i0] = expf(static_cast<float>(total - c0));
+  dec[i0 + 1] = expf(static_cast<float>(total - s));
+  sc[i0] = d0 * dec[i0];
+  sc[i0 + 1] = d1 * dec[i0 + 1];
+  if (lane == 0) *et = expf(static_cast<float>(total));
+}
+
+// Shared memory of a dS-walk block (bytes): the per-chunk vectors (two
+// buffers), then STAGES ring stages of the chunk's dy and C tiles, rows padded as the forward's x
+// and B (a (k row, column) read of 4 rows x 8 columns on distinct banks).
+template <typename T, int P, int N>
+struct BwdState {
+  static constexpr int SZ = static_cast<int>(sizeof(T));
+  static constexpr int LDY = P + 8;   // T
+  static constexpr int LDC = N + 8;   // T
+  static constexpr int Y_BYTES = CH * LDY * SZ;
+  static constexpr int C_BYTES = CH * LDC * SZ;
+  static constexpr int STAGE_BYTES = Y_BYTES + C_BYTES;
+  // cum (float64), dt, exp(cum), exp(total - cum), dt exp(total - cum),
+  // exp(total): two buffers
+  static constexpr int VEC_BYTES = 2 * CH * 8 + 4 * 2 * CH * 4 + 16;
+  static constexpr int BYTES = VEC_BYTES + STAGES * STAGE_BYTES;
+  static_assert(Y_BYTES % 16 == 0 && C_BYTES % 16 == 0 && VEC_BYTES % 16 == 0, "aligned");
+};
+
+// Block (head h, row b): dS from zero past the last chunk, each chunk's
+// dS_out written to dso[b, h, c], then dS = exp(total) dS + U_c.
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(32 * BWD_STATE_NW, 2)
+ssd_scan_bwd_state_kernel(const T* __restrict__ dy,      // (B, S, H, P)
+                          const float* __restrict__ dt,  // (B, S, H)
+                          const float* __restrict__ a,   // (H,)
+                          const T* __restrict__ cm,      // (B, S, N)
+                          float* __restrict__ dso,       // (B, H, nc, P, N)
+                          int seqlen, int heads, int chunk) {
+  using L = BwdState<T, P, N>;
+  constexpr int NW = BWD_STATE_NW, NT = 32 * NW;
+  constexpr bool EX = Exact<T>::value;
+  constexpr int V = 16 / L::SZ;
+  // dS tiles (16 x 8); a warp takes consecutive tiles of one row block
+  constexpr int UT = (P / 16) * (N / 8), UPW = (UT + NW - 1) / NW;
+  static_assert(P % 16 == 0 && (N / 8) % UPW == 0, "a warp's tiles share rows");
+
+  extern __shared__ __align__(16) unsigned char smem_s[];
+  double* cum_s = reinterpret_cast<double*>(smem_s);   // [2][CH]
+  float* dt_s = reinterpret_cast<float*>(cum_s + 2 * CH);
+  float* ec_s = dt_s + 2 * CH;
+  float* dec_s = ec_s + 2 * CH;
+  float* sc_s = dec_s + 2 * CH;
+  float* et_s = sc_s + 2 * CH;                          // [2] (+ 2 padding)
+  unsigned char* ring = smem_s + L::VEC_BYTES;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const float ah = a[h];
+  const size_t xrow = static_cast<size_t>(heads) * P;
+  const int n_chunks = seqlen / chunk;
+  const size_t brow = static_cast<size_t>(b) * seqlen;
+  const int kend = min(CH, (chunk + 7) / 8 * 8);
+  const int ut0 = warp * UPW;
+  const bool u_on = ut0 < UT;
+  const int up0 = 16 * (ut0 / (N / 8)), un0 = 8 * (ut0 % (N / 8));
+
+  // issue chunk ci's dy and C tiles into its stage (one commit group)
+  auto load_chunk = [&](int ci) {
+    unsigned char* st = ring + (ci & 1) * L::STAGE_BYTES;
+    T* ys = reinterpret_cast<T*>(st);
+    T* cs = reinterpret_cast<T*>(st + L::Y_BYTES);
+    const size_t row0 = brow + static_cast<size_t>(ci) * chunk;
+    const T* ysrc = dy + row0 * xrow + static_cast<size_t>(h) * P;
+    for (int e = tid; e < CH * (P / V); e += NT) {
+      const int r = e / (P / V), q = (e % (P / V)) * V;
+      const bool in = r < chunk;
+      cp_async16(reinterpret_cast<float*>(ys + r * L::LDY + q), in ? ysrc + r * xrow + q : ysrc,
+                 in);
+    }
+    for (int e = tid; e < CH * (N / V); e += NT) {
+      const int r = e / (N / V), q = (e % (N / V)) * V;
+      const bool in = r < chunk;
+      cp_async16(reinterpret_cast<float*>(cs + r * L::LDC + q), cm + (in ? (row0 + r) * N + q : 0),
+                 in);
+    }
+    repro_tf32x3::cp_async_commit();
+  };
+  auto load_dt = [&](int ci, float& d0, float& d1) {
+    const size_t row0 = brow + static_cast<size_t>(ci) * chunk;
+    const int i0 = 2 * lane;
+    d0 = i0 < chunk ? __ldg(dt + (row0 + i0) * heads + h) : 0.f;
+    d1 = i0 + 1 < chunk ? __ldg(dt + (row0 + i0 + 1) * heads + h) : 0.f;
+  };
+  auto scan = [&](int ci, float d0, float d1) {
+    const int o = (ci & 1) * CH;
+    bwd_chunk_scan(d0, d1, ah, cum_s + o, dt_s + o, ec_s + o, dec_s + o, sc_s + o,
+                   et_s + (ci & 1));
+  };
+
+  float ds[UPW][4];   // this warp's dS tiles
+  zero(ds);
+  const int last = n_chunks - 1;
+  load_chunk(last);
+  float dn0 = 0.f, dn1 = 0.f;   // warp 0: dt of the chunk before the next one
+  if (warp == 0) {
+    load_dt(last, dn0, dn1);
+    scan(last, dn0, dn1);
+    if (last > 0) load_dt(last - 1, dn0, dn1);
+  }
+
+  for (int ci = last; ci >= 0; --ci) {
+    const unsigned char* stage = ring + (ci & 1) * L::STAGE_BYTES;
+    const T* ys = reinterpret_cast<const T*>(stage);
+    const T* cs = reinterpret_cast<const T*>(stage + L::Y_BYTES);
+    repro_tf32x3::cp_async_wait<0>();
+    __syncthreads();   // chunk ci has landed; chunk ci + 1 is done everywhere
+    if (ci > 0) {
+      load_chunk(ci - 1);
+      if (warp == 0) {
+        scan(ci - 1, dn0, dn1);
+        if (ci > 1) load_dt(ci - 2, dn0, dn1);
+      }
+    }
+    if (!u_on) continue;
+    float* out = dso + ((static_cast<size_t>(b) * heads + h) * n_chunks + ci) * P * N +
+                 static_cast<size_t>(up0 + gq) * N + un0 + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < UPW; ++j) {
+      *reinterpret_cast<float2*>(out + 8 * j) = make_float2(ds[j][0], ds[j][1]);
+      *reinterpret_cast<float2*>(out + 8 * j + 8 * N) = make_float2(ds[j][2], ds[j][3]);
+    }
+    if (ci == 0) break;   // the gradient of the zero initial state is not needed
+    const float* ec = ec_s + (ci & 1) * CH;
+    const float et = et_s[ci & 1];
+    float us[UPW][4];
+    zero(us);
+#pragma unroll
+    for (int j = 0; j < UPW; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) ds[j][v] *= et;
+    tile_mma<UPW, false, false, EX>(
+        ds, us, up0, un0, 0, kend,
+        [&](int r, int k) { return to_f(ys[k * L::LDY + r]) * ec[k]; },
+        [&](int k, int n) { return to_f(cs[k * L::LDC + n]); });
+#pragma unroll
+    for (int j = 0; j < UPW; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) ds[j][v] += us[j][v];
+  }
+}
+
+// Shared memory of a chunk block (bytes), mirrored by kernels/ssd_scan.py's
+// bwd_smem_bytes: three float64 vectors (cum, K's row and column sums),
+// the float vectors and partials, G, M (A1 summed over the group at
+// the end) and K (c x c float32), B and C (c x N), x and dy (c x P) in T,
+// S and dS_out (P x N float32). Row paddings keep each product's fragment
+// reads on distinct banks: x, dy, B, C read (8 rows x 4 columns) at a
+// stride of 4 banks, M (4 rows x 8 columns) at 8, S and dS_out both ways at
+// 4 (their (k row, column) reads pair k slots as (2t, 2t + 1)).
+template <typename T, int P, int N, int NW>
+struct BwdChunk {
+  static constexpr int SZ = static_cast<int>(sizeof(T));
+  static constexpr int CG = NW / 4;            // column groups of warps
+  static constexpr int LDG = CH + 8;           // floats: G, M, K
+  static constexpr int LDX = P + 16 / SZ;      // T: x, dy
+  static constexpr int LDBC = N + 16 / SZ;     // T: B, C
+  static constexpr int LDS = N + 4;            // floats: S, dS_out
+  static constexpr int G_BYTES = CH * LDG * 4;
+  static constexpr int X_BYTES = CH * LDX * SZ;
+  static constexpr int BC_BYTES = CH * LDBC * SZ;
+  static constexpr int S_BYTES = P * LDS * 4;
+  static constexpr int DVEC_BYTES = 3 * CH * 8;
+  // dt, exp(cum), exp(total - cum), dt exp(total - cum); the x . rb and
+  // C . (S^T dy) row partials per column group; two per-warp partials;
+  // exp(total)
+  static constexpr int FVEC_BYTES = ((4 * CH + 2 * CH * CG + 2 * NW + 4) * 4 + 15) / 16 * 16;
+  static constexpr int BYTES =
+      DVEC_BYTES + FVEC_BYTES + 3 * G_BYTES + 2 * BC_BYTES + 2 * X_BYTES + 2 * S_BYTES;
+  static_assert(X_BYTES % 16 == 0 && BC_BYTES % 16 == 0 && S_BYTES % 16 == 0, "aligned");
+};
+
+// Block (chunk ci, row b, head group): see above. Warp w owns rows 16 (w %
+// 4) .. + 15 of every output and the (w / 4)-th column group.
+template <typename T, int P, int N, int NW>
+__global__ void __launch_bounds__(32 * NW, 1)
+ssd_scan_bwd_chunk_kernel(const T* __restrict__ x,           // (B, S, H, P)
+                          const float* __restrict__ dt,      // (B, S, H)
+                          const float* __restrict__ a,       // (H,)
+                          const T* __restrict__ bm,          // (B, S, N)
+                          const T* __restrict__ cm,          // (B, S, N)
+                          const float* __restrict__ dskip,   // (H,)
+                          const float* __restrict__ states,  // (B, H, nc, P, N)
+                          const T* __restrict__ dy,          // (B, S, H, P)
+                          const float* __restrict__ g,       // (B, nc, CH, CH) from pass 1
+                          const float* __restrict__ dso,     // (B, H, nc, P, N) from the walk
+                          float* __restrict__ dbp,           // (B, groups, S, N)
+                          float* __restrict__ dcp,           // (B, groups, S, N)
+                          double* __restrict__ dap,          // (B, nc, H)
+                          float* __restrict__ ddp,           // (B, nc, H)
+                          T* __restrict__ dx,                // (B, S, H, P)
+                          float* __restrict__ ddt,           // (B, S, H)
+                          int seqlen, int heads, int chunk, int hpb) {
+  using L = BwdChunk<T, P, N, NW>;
+  constexpr int NT = 32 * NW, CG = L::CG;
+  constexpr int JC = CH / 8 / CG, JP = P / 8 / CG, JN = N / 8 / CG;
+  static_assert(NW % 4 == 0 && (P / 8) % CG == 0 && (N / 8) % CG == 0 && JP >= 1, "tiles");
+  constexpr bool EX = Exact<T>::value;
+  constexpr int V = 16 / L::SZ;
+
+  extern __shared__ __align__(16) unsigned char smem_c[];
+  double* cum = reinterpret_cast<double*>(smem_c);
+  double* rowt = cum + CH;    // sum_{j<i} dt_j K_ij
+  double* colk = rowt + CH;   // sum_{i>j} K_ij
+  float* dts = reinterpret_cast<float*>(smem_c + L::DVEC_BYTES);
+  float* ec = dts + CH;       // exp(cum)
+  float* dec = ec + CH;       // exp(total - cum)
+  float* sc = dec + CH;       // dt exp(total - cum)
+  float* xrbp = sc + CH;      // [CH][CG]: x_j . rb_j partials
+  float* cidp = xrbp + CH * CG;   // [CH][CG]: C_i . (S^T dy_i) partials
+  float* red = cidp + CH * CG;    // [2][NW]: <dS_out, S> and x . dy
+  float* et = red + 2 * NW;       // exp(total)
+  float* gs = reinterpret_cast<float*>(smem_c + L::DVEC_BYTES + L::FVEC_BYTES);
+  float* ms = gs + CH * L::LDG;   // M; at the end A1 summed over the group
+  float* ks = ms + CH * L::LDG;   // K
+  T* bs = reinterpret_cast<T*>(ks + CH * L::LDG);
+  T* cs = bs + CH * L::LDBC;
+  T* xs = cs + CH * L::LDBC;
+  T* dys = xs + CH * L::LDX;
+  float* ss = reinterpret_cast<float*>(dys + CH * L::LDX);
+  float* dss = ss + P * L::LDS;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int ci = blockIdx.x, b = blockIdx.y, grp = blockIdx.z;
+  const int h0 = grp * hpb, h1 = min(heads, h0 + hpb);
+  const int n_chunks = seqlen / chunk;
+  const size_t row0 = static_cast<size_t>(b) * seqlen + static_cast<size_t>(ci) * chunk;
+  const size_t xrow = static_cast<size_t>(heads) * P;
+  const int kend = min(CH, (chunk + 7) / 8 * 8);
+  const int m0 = 16 * (warp % 4), cgw = warp / 4;
+  const int c0 = cgw * 8 * JC, p0 = cgw * 8 * JP, n0 = cgw * 8 * JN;
+
+  // G, B and C of this (row, chunk), shared by every head of the group
+  {
+    const float* gsrc = g + (static_cast<size_t>(b) * n_chunks + ci) * CH * CH;
+    for (int e = tid; e < CH * CH / 4; e += NT)
+      cp_async16(gs + (e / (CH / 4)) * L::LDG + (e % (CH / 4)) * 4, gsrc + e * 4, true);
+    for (int e = tid; e < CH * (N / V); e += NT) {
+      const int r = e / (N / V), q = (e % (N / V)) * V;
+      const bool in = r < chunk;
+      const size_t off = in ? (row0 + r) * N + q : 0;
+      cp_async16(reinterpret_cast<float*>(bs + r * L::LDBC + q), bm + off, in);
+      cp_async16(reinterpret_cast<float*>(cs + r * L::LDBC + q), cm + off, in);
+    }
+  }
+  auto load_xdy = [&](int h) {
+    const size_t hoff = row0 * xrow + static_cast<size_t>(h) * P;
+    for (int e = tid; e < CH * (P / V); e += NT) {
+      const int r = e / (P / V), q = (e % (P / V)) * V;
+      const bool in = r < chunk;
+      const size_t off = in ? hoff + r * xrow + q : 0;
+      cp_async16(reinterpret_cast<float*>(xs + r * L::LDX + q), x + off, in);
+      cp_async16(reinterpret_cast<float*>(dys + r * L::LDX + q), dy + off, in);
+    }
+  };
+  auto load_pn = [&](float* dst, const float* src, int h) {   // S or dS_out of head h
+    const float* s0 = src + ((static_cast<size_t>(b) * heads + h) * n_chunks + ci) * P * N;
+    for (int e = tid; e < P * N / 4; e += NT)
+      cp_async16(dst + (e / (N / 4)) * L::LDS + (e % (N / 4)) * 4, s0 + e * 4, true);
+  };
+  load_xdy(h0);
+  load_pn(ss, states, h0);
+  load_pn(dss, dso, h0);
+  repro_tf32x3::cp_async_commit();
+
+  float db[JN][4], dc[JN][4];   // dB and dC of this warp's tiles, over the group's heads
+  float a1s[JC][4];             // A1 of this warp's D tiles, summed over the group's heads
+  zero(db);
+  zero(dc);
+  zero(a1s);
+
+  for (int h = h0; h < h1; ++h) {
+    const float ah = a[h], dk = dskip[h];
+    if (warp == 0) {
+      const int i0 = 2 * lane;
+      const float d0 = i0 < chunk ? __ldg(dt + (row0 + i0) * heads + h) : 0.f;
+      const float d1 = i0 + 1 < chunk ? __ldg(dt + (row0 + i0 + 1) * heads + h) : 0.f;
+      bwd_chunk_scan(d0, d1, ah, cum, dts, ec, dec, sc, et);
+    }
+    repro_tf32x3::cp_async_wait<0>();
+    __syncthreads();   // head h's x, dy, S and dS_out have landed; its vectors are formed
+
+    // 1. D = dy x^T over this warp's tiles; A1, M and K over it, masked
+    //    before the exp (M and K to shared memory, A1 summed in registers)
+    {
+      float d_big[JC][4], d_small[JC][4];
+      zero(d_big);
+      zero(d_small);
+      tile_mma<JC, false, EX, EX>(
+          d_big, d_small, m0, c0, 0, P, [&](int r, int k) { return to_f(dys[r * L::LDX + k]); },
+          [&](int k, int n) { return to_f(xs[n * L::LDX + k]); });
+#pragma unroll
+      for (int jj = 0; jj < JC; ++jj)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int i = m0 + gq + 8 * (v / 2), j = c0 + 8 * jj + 2 * tq + v % 2;
+          const float dij = d_big[jj][v] + d_small[jj][v];
+          float va = 0.f, vm = 0.f, vk = 0.f;
+          if (i >= j && i < chunk) {
+            const float l = expf(static_cast<float>(cum[i] - cum[j]));
+            const float gij = gs[i * L::LDG + j];
+            va = l * dts[j] * dij;
+            vm = gij * l * dts[j];
+            vk = gij * l * dij;
+          }
+          ms[i * L::LDG + j] = vm;
+          ks[i * L::LDG + j] = vk;
+          a1s[jj][v] += va;
+        }
+    }
+    __syncthreads();
+
+    // 2. K's row sums (weighted by dt_j) and column sums, in float64 and
+    //    strictly below the diagonal, which cancels from cum's gradient
+    //    exactly (L_ii = 1); dy S: dC += exp(cum_i) (S^T dy_i) and the
+    //    partials of C_i . (S^T dy_i); <dS_out, S> and x . dy
+    // (each row and column in 8 interleaved segments, one a thread, summed
+    // over the 8 neighbouring lanes in a fixed order)
+    for (int t = tid; t < 8 * CH; t += NT) {
+      const int r = t / 8, seg = t % 8;
+      double rs = 0.0, cs = 0.0;
+#pragma unroll
+      for (int q = seg; q < CH; q += 8) {
+        if (q < r) rs += static_cast<double>(dts[q]) * static_cast<double>(ks[r * L::LDG + q]);
+        if (q > r) cs += static_cast<double>(ks[q * L::LDG + r]);
+      }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1) {
+        rs += __shfl_xor_sync(kFull, rs, o);
+        cs += __shfl_xor_sync(kFull, cs, o);
+      }
+      if (seg == 0) {
+        rowt[r] = rs;
+        colk[r] = cs;
+      }
+    }
+    {
+      float t_big[JN][4], t_small[JN][4];
+      zero(t_big);
+      zero(t_small);
+      tile_mma<JN, true, EX, false>(
+          t_big, t_small, m0, n0, 0, P, [&](int r, int k) { return to_f(dys[r * L::LDX + k]); },
+          [&](int k, int n) { return ss[k * L::LDS + n]; });
+      float cd[2] = {0.f, 0.f};
+#pragma unroll
+      for (int jj = 0; jj < JN; ++jj)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int i = m0 + gq + 8 * (v / 2), n = n0 + 8 * jj + 2 * tq + v % 2;
+          const float t = t_big[jj][v] + t_small[jj][v];
+          dc[jj][v] += ec[i] * t;
+          cd[v / 2] += to_f(cs[i * L::LDBC + n]) * t;
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        cd[hh] += __shfl_xor_sync(kFull, cd[hh], 1);
+        cd[hh] += __shfl_xor_sync(kFull, cd[hh], 2);
+      }
+      if (tq == 0) {
+        cidp[(m0 + gq) * CG + cgw] = cd[0];
+        cidp[(m0 + gq + 8) * CG + cgw] = cd[1];
+      }
+    }
+    {
+      float rs = 0.f, xd = 0.f;
+      for (int e = tid; e < P * N; e += NT) {
+        const int o = (e / N) * L::LDS + e % N;
+        rs += dss[o] * ss[o];
+      }
+      for (int e = tid; e < CH * P; e += NT) {
+        const int o = (e / P) * L::LDX + e % P;
+        xd += to_f(xs[o]) * to_f(dys[o]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        rs += __shfl_xor_sync(kFull, rs, o);
+        xd += __shfl_xor_sync(kFull, xd, o);
+      }
+      if (lane == 0) {
+        red[warp] = rs;
+        red[NW + warp] = xd;
+      }
+    }
+    __syncthreads();
+    if (h + 1 < h1) {   // S is free: the next head's
+      load_pn(ss, states, h + 1);
+      repro_tf32x3::cp_async_commit();
+    }
+
+    // 3. rb = B dS_out^T and sum_i M_ij dy_i: dx and the partials of
+    //    x_j . rb_j; then x dS_out: dB += sc_j (dS_out^T x_j)
+    {
+      float r_big[JP][4], r_small[JP][4], m_big[JP][4], m_small[JP][4];
+      zero(r_big);
+      zero(r_small);
+      zero(m_big);
+      zero(m_small);
+      tile_mma<JP, false, EX, false>(
+          r_big, r_small, m0, p0, 0, N, [&](int r, int k) { return to_f(bs[r * L::LDBC + k]); },
+          [&](int k, int n) { return dss[n * L::LDS + k]; });
+      // M's columns j >= m0 are zero above row m0: k-steps from m0
+      tile_mma<JP, false, false, EX>(
+          m_big, m_small, m0, p0, m0, kend, [&](int r, int k) { return ms[k * L::LDG + r]; },
+          [&](int k, int n) { return to_f(dys[k * L::LDX + n]); });
+      float xr[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int j = m0 + gq + 8 * hh;
+#pragma unroll
+        for (int jj = 0; jj < JP; ++jj) {
+          const int p = p0 + 8 * jj + 2 * tq;
+          const float rb0 = r_big[jj][2 * hh] + r_small[jj][2 * hh];
+          const float rb1 = r_big[jj][2 * hh + 1] + r_small[jj][2 * hh + 1];
+          const float v0 = (m_big[jj][2 * hh] + m_small[jj][2 * hh]) + sc[j] * rb0 +
+                           dk * to_f(dys[j * L::LDX + p]);
+          const float v1 = (m_big[jj][2 * hh + 1] + m_small[jj][2 * hh + 1]) + sc[j] * rb1 +
+                           dk * to_f(dys[j * L::LDX + p + 1]);
+          if (j < chunk) store2(dx + (row0 + j) * xrow + static_cast<size_t>(h) * P + p, v0, v1);
+          xr[hh] += to_f(xs[j * L::LDX + p]) * rb0 + to_f(xs[j * L::LDX + p + 1]) * rb1;
+        }
+        xr[hh] += __shfl_xor_sync(kFull, xr[hh], 1);
+        xr[hh] += __shfl_xor_sync(kFull, xr[hh], 2);
+      }
+      if (tq == 0) {
+        xrbp[(m0 + gq) * CG + cgw] = xr[0];
+        xrbp[(m0 + gq + 8) * CG + cgw] = xr[1];
+      }
+    }
+    {
+      float t_big[JN][4], t_small[JN][4];
+      zero(t_big);
+      zero(t_small);
+      tile_mma<JN, true, EX, false>(
+          t_big, t_small, m0, n0, 0, P, [&](int r, int k) { return to_f(xs[r * L::LDX + k]); },
+          [&](int k, int n) { return dss[k * L::LDS + n]; });
+#pragma unroll
+      for (int jj = 0; jj < JN; ++jj)
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          db[jj][v] += sc[m0 + gq + 8 * (v / 2)] * (t_big[jj][v] + t_small[jj][v]);
+    }
+    __syncthreads();
+    if (h + 1 < h1) {   // x, dy and dS_out are free: the next head's
+      load_xdy(h + 1);
+      load_pn(dss, dso, h + 1);
+      repro_tf32x3::cp_async_commit();
+    }
+
+    // 4. warp 0: cum's gradient (two positions a lane), the chunk-end terms,
+    //    its float64 reverse cumsum rc, ddt, and this head's da and dd
+    if (warp == 0) {
+      double dcv[2];
+      float xrv[2];
+      float u = 0.f;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int j = 2 * lane + q;
+        float xr = 0.f, cd = 0.f;
+#pragma unroll
+        for (int c = 0; c < CG; ++c) {
+          xr += xrbp[j * CG + c];
+          cd += cidp[j * CG + c];
+        }
+        xrv[q] = xr;
+        dcv[q] = 0.0;
+        if (j < chunk) {
+          dcv[q] = rowt[j] - static_cast<double>(dts[j]) * colk[j] +
+                   static_cast<double>(ec[j] * cd) - static_cast<double>(sc[j] * xr);
+          u += sc[j] * xr;
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) u += __shfl_xor_sync(kFull, u, o);
+      float rsum = 0.f, xdsum = 0.f;
+      for (int w = 0; w < NW; ++w) {
+        rsum += red[w];
+        xdsum += red[NW + w];
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        if (2 * lane + q == chunk - 1) dcv[q] += static_cast<double>(et[0] * rsum + u);
+      // suffix sums over the lanes' pairs, then within the pair
+      double s = dcv[0] + dcv[1];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const double v = __shfl_down_sync(kFull, s, o);
+        if (lane + o < 32) s += v;
+      }
+      double next = __shfl_down_sync(kFull, s, 1);
+      if (lane == 31) next = 0.0;
+      const double rc1 = dcv[1] + next;
+      const double rc[2] = {dcv[0] + rc1, rc1};
+      double da_acc = 0.0;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int j = 2 * lane + q;
+        if (j >= chunk) continue;
+        ddt[(row0 + j) * heads + h] = static_cast<float>(colk[j]) + ks[j * L::LDG + j] +
+                                      dec[j] * xrv[q] + ah * static_cast<float>(rc[q]);
+        da_acc += static_cast<double>(dts[j]) * rc[q];
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) da_acc += __shfl_xor_sync(kFull, da_acc, o);
+      if (lane == 0) {
+        const size_t r = (static_cast<size_t>(b) * n_chunks + ci) * heads + h;
+        dap[r] = da_acc;
+        ddp[r] = xdsum;
+      }
+    }
+    __syncthreads();   // the next head rewrites the vectors and partials
+  }
+
+  // A1 summed over the group's heads: dB += (sum A1)^T C, dC += (sum A1) B
+#pragma unroll
+  for (int jj = 0; jj < JC; ++jj)
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      ms[(m0 + gq + 8 * (v / 2)) * L::LDG + c0 + 8 * jj + 2 * tq + v % 2] = a1s[jj][v];
+  __syncthreads();
+  {
+    float sm[JN][4];
+    zero(sm);
+    // (sum A1)_ij is zero for i < j: k-steps from m0
+    tile_mma<JN, false, false, EX>(
+        db, sm, m0, n0, m0, kend, [&](int r, int k) { return ms[k * L::LDG + r]; },
+        [&](int k, int n) { return to_f(cs[k * L::LDBC + n]); });
+#pragma unroll
+    for (int jj = 0; jj < JN; ++jj)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        db[jj][v] += sm[jj][v];
+        sm[jj][v] = 0.f;
+      }
+    // and for j > i: k-steps below m0 + 16
+    tile_mma<JN, false, false, EX>(
+        dc, sm, m0, n0, 0, min(kend, m0 + 16), [&](int r, int k) { return ms[r * L::LDG + k]; },
+        [&](int k, int n) { return to_f(bs[k * L::LDBC + n]); });
+#pragma unroll
+    for (int jj = 0; jj < JN; ++jj)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) dc[jj][v] += sm[jj][v];
+  }
+  // this group's dB and dC rows
+  const size_t gbase = (static_cast<size_t>(b) * gridDim.z + grp) * seqlen +
+                       static_cast<size_t>(ci) * chunk;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int j = m0 + gq + 8 * hh;
+    if (j >= chunk) continue;
+#pragma unroll
+    for (int jj = 0; jj < JN; ++jj) {
+      const size_t o = (gbase + j) * N + n0 + 8 * jj + 2 * tq;
+      *reinterpret_cast<float2*>(dbp + o) = make_float2(db[jj][2 * hh], db[jj][2 * hh + 1]);
+      *reinterpret_cast<float2*>(dcp + o) = make_float2(dc[jj][2 * hh], dc[jj][2 * hh + 1]);
+    }
+  }
+}
+
+// dB and dC: the head groups' partials summed in order; da and dd (block
+// 0): the (row, chunk) partials summed in order
 template <typename T>
-__global__ void ssd_scan_bwd_sum_kernel(const float* __restrict__ db_h,
-                                        const float* __restrict__ dc_h,
-                                        const float* __restrict__ rows, T* __restrict__ db,
+__global__ void ssd_scan_bwd_sum_kernel(const float* __restrict__ dbp,
+                                        const float* __restrict__ dcp,
+                                        const double* __restrict__ dap,
+                                        const float* __restrict__ ddp, T* __restrict__ db,
                                         T* __restrict__ dc, float* __restrict__ da,
-                                        float* __restrict__ dd, int batch, int seqlen,
-                                        int heads, int n) {
+                                        float* __restrict__ dd, int batch, int seqlen, int heads,
+                                        int n, int groups, int n_chunks) {
   const size_t stride = static_cast<size_t>(seqlen) * n;
   const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e < static_cast<size_t>(batch) * stride) {
     const size_t b = e / stride, rest = e % stride;
-    const float* pb = db_h + b * heads * stride + rest;
-    const float* pc = dc_h + b * heads * stride + rest;
+    const float* pb = dbp + b * groups * stride + rest;
+    const float* pc = dcp + b * groups * stride + rest;
     float sb = 0.f, scc = 0.f;
-    for (int h = 0; h < heads; ++h) {
-      sb += pb[h * stride];
-      scc += pc[h * stride];
+    for (int q = 0; q < groups; ++q) {
+      sb += pb[q * stride];
+      scc += pc[q * stride];
     }
     store1(db + e, sb);
     store1(dc + e, scc);
   }
   if (blockIdx.x == 0) {
     for (int h = threadIdx.x; h < heads; h += blockDim.x) {
-      float sa = 0.f, sd = 0.f;
-      for (int b = 0; b < batch; ++b) {
-        sa += rows[static_cast<size_t>(b) * heads + h];
-        sd += rows[static_cast<size_t>(batch + b) * heads + h];
+      double sa = 0.0;
+      float sd = 0.f;
+      for (int r = 0; r < batch * n_chunks; ++r) {
+        sa += dap[static_cast<size_t>(r) * heads + h];
+        sd += ddp[static_cast<size_t>(r) * heads + h];
       }
-      da[h] = sa;
+      da[h] = static_cast<float>(sa);
       dd[h] = sd;
     }
   }
 }
 
-template <typename T, int P, int N>
+template <typename T, int P, int N, int NW>
 cudaError_t launch_bwd(const void* x, const void* dt, const void* a, const void* b,
                        const void* c, const void* d, const void* states, const void* dy,
-                       void* g, void* db_h, void* dc_h, void* rows, void* dx, void* ddt,
-                       void* da, void* db, void* dc, void* dd, int batch, int seqlen, int heads,
-                       int chunk, cudaStream_t stream) {
+                       void* g, void* dso, void* dbp, void* dcp, void* dap, void* ddp, void* dx,
+                       void* ddt, void* da, void* db, void* dc, void* dd, int batch, int seqlen,
+                       int heads, int chunk, int hpb, cudaStream_t stream) {
   const int n_chunks = seqlen / chunk;
+  const int groups = (heads + hpb - 1) / hpb;
   constexpr int gram_bytes = Gram<T, N>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(ssd_scan_gram_kernel<T, N>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, gram_bytes);
@@ -1010,25 +1290,38 @@ cudaError_t launch_bwd(const void* x, const void* dt, const void* a, const void*
       static_cast<const T*>(b), static_cast<const T*>(c), static_cast<float*>(g), seqlen, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  constexpr int bwd_bytes = Bwd<P, N>::BYTES;
-  auto bwd = ssd_scan_bwd_kernel<T, P, N>;
-  err = cudaFuncSetAttribute(bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd_bytes);
+
+  constexpr int state_bytes = BwdState<T, P, N>::BYTES;
+  auto walk = ssd_scan_bwd_state_kernel<T, P, N>;
+  err = cudaFuncSetAttribute(walk, cudaFuncAttributeMaxDynamicSharedMemorySize, state_bytes);
   if (err != cudaSuccess) return err;
-  bwd<<<dim3(heads, batch), BWD_NT, bwd_bytes, stream>>>(
+  walk<<<dim3(heads, batch), 32 * BWD_STATE_NW, state_bytes, stream>>>(
+      static_cast<const T*>(dy), static_cast<const float*>(dt), static_cast<const float*>(a),
+      static_cast<const T*>(c), static_cast<float*>(dso), seqlen, heads, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int chunk_bytes = BwdChunk<T, P, N, NW>::BYTES;
+  auto grads = ssd_scan_bwd_chunk_kernel<T, P, N, NW>;
+  err = cudaFuncSetAttribute(grads, cudaFuncAttributeMaxDynamicSharedMemorySize, chunk_bytes);
+  if (err != cudaSuccess) return err;
+  grads<<<dim3(n_chunks, batch, groups), 32 * NW, chunk_bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(a),
       static_cast<const T*>(b), static_cast<const T*>(c), static_cast<const float*>(d),
       static_cast<const float*>(states), static_cast<const T*>(dy),
-      static_cast<const float*>(g), static_cast<float*>(db_h), static_cast<float*>(dc_h),
-      static_cast<float*>(rows), static_cast<T*>(dx), static_cast<float*>(ddt), seqlen, heads,
-      chunk);
+      static_cast<const float*>(g), static_cast<const float*>(dso), static_cast<float*>(dbp),
+      static_cast<float*>(dcp), static_cast<double*>(dap), static_cast<float*>(ddp),
+      static_cast<T*>(dx), static_cast<float*>(ddt), seqlen, heads, chunk, hpb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+
   const size_t total = static_cast<size_t>(batch) * seqlen * N;
   const int blocks = static_cast<int>((total + 255) / 256);
   ssd_scan_bwd_sum_kernel<T><<<blocks, 256, 0, stream>>>(
-      static_cast<const float*>(db_h), static_cast<const float*>(dc_h),
-      static_cast<const float*>(rows), static_cast<T*>(db), static_cast<T*>(dc),
-      static_cast<float*>(da), static_cast<float*>(dd), batch, seqlen, heads, N);
+      static_cast<const float*>(dbp), static_cast<const float*>(dcp),
+      static_cast<const double*>(dap), static_cast<const float*>(ddp), static_cast<T*>(db),
+      static_cast<T*>(dc), static_cast<float*>(da), static_cast<float*>(dd), batch, seqlen, heads,
+      N, groups, n_chunks);
   return cudaGetLastError();
 }
 
@@ -1071,32 +1364,35 @@ extern "C" int ssd_scan(const void* x, const void* dt, const void* a, const void
 // The backward: dtype 0 = float32, 1 = bfloat16 (x, B, C, dy, dx, dB, dC);
 // (p, n) in {(64, 128), (16, 16)}; 1 <= chunk <= 64, seqlen % chunk == 0;
 // states (batch, heads, seqlen / chunk, p, n) float32 from the training
-// forward; scratch g (batch, seqlen / chunk, 64, 64), db_h and dc_h
-// (batch, heads, seqlen, n) and rows (2, batch, heads), all float32; ddt
-// (batch, seqlen, heads), da and dd (heads,) float32. Three launches (the
-// Gram pass, the backward walk, the sums). Returns the first failing
-// launch's cudaError_t.
+// forward; hpb heads per chunk block (1 <= hpb <= heads). Scratch: g
+// (batch, seqlen / chunk, 64, 64) and dso (batch, heads, seqlen / chunk, p,
+// n) float32; dbp and dcp (batch, ceil(heads / hpb), seqlen, n) float32;
+// dap (batch, seqlen / chunk, heads) float64 and ddp float32. Outputs: ddt
+// (batch, seqlen, heads), da and dd (heads,) float32. Four launches (the
+// Gram pass, the dS walk, the chunk pass, the sums). Returns the first
+// failing launch's cudaError_t.
 extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* a, const void* b,
                             const void* c, const void* d, const void* states, const void* dy,
-                            void* g, void* db_h, void* dc_h, void* rows, void* dx, void* ddt,
-                            void* da, void* db, void* dc, void* dd, int dtype, int batch,
-                            int seqlen, int heads, int p, int n, int chunk, void* stream) {
+                            void* g, void* dso, void* dbp, void* dcp, void* dap, void* ddp,
+                            void* dx, void* ddt, void* da, void* db, void* dc, void* dd,
+                            int dtype, int batch, int seqlen, int heads, int p, int n, int chunk,
+                            int hpb, void* stream) {
   if (chunk < 1 || chunk > CH || seqlen % chunk != 0 || batch < 1 || batch > 65535 ||
-      heads < 1 || heads > 65535)
+      heads < 1 || heads > 65535 || hpb < 1 || hpb > heads)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_SSD_BWD(T, P, N)                                                                \
-  launch_bwd<T, P, N>(x, dt, a, b, c, d, states, dy, g, db_h, dc_h, rows, dx, ddt, da, db, dc, \
-                      dd, batch, seqlen, heads, chunk, s)
+#define REPRO_SSD_BWD(T, P, N, NW)                                                             \
+  launch_bwd<T, P, N, NW>(x, dt, a, b, c, d, states, dy, g, dso, dbp, dcp, dap, ddp, dx, ddt, \
+                          da, db, dc, dd, batch, seqlen, heads, chunk, hpb, s)
   cudaError_t err = cudaErrorInvalidValue;
   if (p == 64 && n == 128 && dtype == 0)
-    err = REPRO_SSD_BWD(float, 64, 128);
+    err = REPRO_SSD_BWD(float, 64, 128, 16);
   else if (p == 64 && n == 128 && dtype == 1)
-    err = REPRO_SSD_BWD(bf16, 64, 128);
+    err = REPRO_SSD_BWD(bf16, 64, 128, 16);
   else if (p == 16 && n == 16 && dtype == 0)
-    err = REPRO_SSD_BWD(float, 16, 16);
+    err = REPRO_SSD_BWD(float, 16, 16, 8);
   else if (p == 16 && n == 16 && dtype == 1)
-    err = REPRO_SSD_BWD(bf16, 16, 16);
+    err = REPRO_SSD_BWD(bf16, 16, 16, 8);
 #undef REPRO_SSD_BWD
   return static_cast<int>(err);
 }

@@ -36,7 +36,8 @@ reference's rounding points:
   state entering each chunk of ``SCAN_CHUNK`` positions, ``(y, h_chunks)``;
   its registered gradient is :func:`rglru_scan_bwd` (custom op
   ``repro_torch::rglru_scan_bwd``), a hand-written backward kernel in
-  ``csrc/rglru_scan.cu``; :func:`rglru_scan_train_torch` and
+  ``csrc/rglru_scan.cu`` (each input loaded once, the forward's special
+  functions); :func:`rglru_scan_train_torch` and
   :func:`rglru_scan_bwd_torch` are their plain versions.
 """
 

@@ -34,8 +34,10 @@ float32 before the exp, so everything else is float32 arithmetic.
 - Training: :func:`ssd_scan_train` (custom op ``repro_torch::ssd_scan_train``)
   is the same kernel also writing each chunk's starting state, ``(y,
   states)``; its registered gradient is :func:`ssd_scan_bwd` (custom op
-  ``repro_torch::ssd_scan_bwd``), a hand-written backward kernel in
-  ``csrc/ssd_scan.cu``; :func:`ssd_scan_train_torch` and
+  ``repro_torch::ssd_scan_bwd``), hand-written backward kernels in
+  ``csrc/ssd_scan.cu`` (the Gram pass, a walk over the chunks that carries
+  only the state gradient, a chunk-parallel pass forming every gradient on
+  the tensor cores, the fixed-order sums); :func:`ssd_scan_train_torch` and
   :func:`ssd_scan_bwd_torch` are their plain versions.
 """
 
@@ -156,85 +158,102 @@ def ssd_scan_bwd_torch(x, dt, a, b_mat, c_mat, d, states, dy, *,
     ddt, da, db_mat, dc_mat, dd)``: dx, db_mat and dc_mat in the inputs'
     dtype (formed in float32, rounded once), the rest float32.
 
-    Per (row, head) the state gradient dS is carried backward over the
-    chunks, from zero past the last: ``dS_in = exp(total) dS_out + sum_i
-    exp(cum_i) dy_i C_i^T``. Within a chunk, from its starting state S and
-    the dS_out it hands on, with ``G = C B^T``, ``L`` masked before the exp,
-    ``D = dy x^T``, ``sc_j = dt_j exp(total - cum_j)`` and ``rb_j = dS_out
-    B_j``:
+    Three steps, each vectorised over (row, head, chunk):
 
-    - dx_j = sum_i G_ij L_ij dt_j dy_i + sc_j rb_j + d dy_j;
-    - dB_j = sum_i L_ij dt_j D_ij C_i + sc_j dS_out^T x_j (summed over heads);
-    - dC_i = sum_j L_ij dt_j D_ij B_j + exp(cum_i) S^T dy_i (summed over heads);
-    - ddt_j = sum_i G_ij L_ij D_ij + exp(total - cum_j) x_j . rb_j
-      + a * sum_{k >= j} dcum_k, the reverse cumsum taken in float64 over
-      dcum_k = sum_j dt_j K_kj - dt_k sum_i K_ik + exp(cum_k) C_k . (S^T
-      dy_k) - sc_k x_k . rb_k with K = G o L o D, and at the chunk's last
-      position also exp(total) <dS_out, S> + sum_j sc_j x_j . rb_j;
-    - da = sum dt_j * (that reverse cumsum); dd = sum x . dy.
+    1. each chunk's increment of the state gradient, ``U_c = sum_i
+       exp(cum_i) dy_i C_i^T`` (P x N);
+    2. the one serial recurrence, over chunks from the last, from zero
+       past it: ``dS_out[c - 1] = exp(total_c) dS_out[c] + U_c``, where
+       dS_out[c] is the gradient of the state chunk c hands on;
+    3. every gradient of a chunk from its starting state S and its dS_out.
+       With ``G = C B^T``, ``L`` masked before the exp, ``D = dy x^T``,
+       ``A1 = L o dt_j o D``, ``M = G o L o dt_j``, ``K = G o L o D``,
+       ``sc_j = dt_j exp(total - cum_j)`` and ``rb_j = dS_out B_j``:
+
+       - dx_j = sum_i M_ij dy_i + sc_j rb_j + d dy_j;
+       - dB_j = (sum_h A1)^T C + sum_h sc_j dS_out^T x_j (A1 summed over
+         heads before its product, as the kernel does per head group);
+       - dC_i = (sum_h A1) B + sum_h exp(cum_i) S^T dy_i;
+       - ddt_j = sum_i K_ij + exp(total - cum_j) x_j . rb_j + a * sum_{k >=
+         j} dcum_k, the reverse cumsum taken in float64 over dcum_k = sum_j
+         dt_j K_kj - dt_k sum_i K_ik + exp(cum_k) C_k . (S^T dy_k) - sc_k
+         x_k . rb_k, and at the chunk's last position also exp(total)
+         <dS_out, S> + sum_j sc_j x_j . rb_j;
+       - da = sum dt_j * (that reverse cumsum); dd = sum x . dy.
     """
     bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of chunk {chunk}")
+    nc = s // chunk
     dev = x.device
     af = a.float()
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev))
     below = torch.tril(torch.ones((chunk, chunk), device=dev), diagonal=-1)
     xf, dyf = x.float(), dy.float()
-    dxo = torch.empty((bsz, s, h, p), dtype=torch.float32, device=dev)
-    ddt = torch.empty((bsz, s, h), dtype=torch.float32, device=dev)
-    dbo = torch.empty(b_mat.shape, dtype=torch.float32, device=dev)
-    dco = torch.empty(c_mat.shape, dtype=torch.float32, device=dev)
-    da = torch.zeros((h,), dtype=torch.float64, device=dev)
-    r = torch.zeros(states.shape[:2] + states.shape[3:], dtype=torch.float32, device=dev)
-    for ci in reversed(range(s // chunk)):
-        sl = slice(ci * chunk, (ci + 1) * chunk)
-        xc, dyc = xf[:, sl].transpose(1, 2), dyf[:, sl].transpose(1, 2)  # (B, H, c, P)
-        dtc = dt[:, sl].float().transpose(1, 2)                         # (B, H, c)
-        bc, cc = b_mat[:, sl].float(), c_mat[:, sl].float()             # (B, c, N)
-        st = states[:, :, ci]                                           # (B, H, P, N)
-        cum = torch.cumsum((dtc * af[None, :, None]).double(), dim=2)   # (B, H, c)
-        total = cum[..., -1:]
-        li = (cum[..., :, None] - cum[..., None, :]).float()            # (B, H, c, c)
-        lmat = torch.exp(torch.where(tri, li, torch.full((), NEG_INF, device=dev)))
-        ec = torch.exp(cum.float())
-        dec = torch.exp((total - cum).float())
-        sc = dtc * dec
-        et = torch.exp(total.float())                                   # (B, H, 1)
-        g = torch.matmul(cc, bc.transpose(1, 2))[:, None]               # (B, 1, c, c)
-        dmat = torch.matmul(dyc, xc.transpose(2, 3))                    # D_ij = dy_i . x_j
-        a1 = lmat * dtc[..., None, :] * dmat
-        m = g * lmat * dtc[..., None, :]
-        k = g * lmat * dmat
-        rb = torch.matmul(bc[:, None], r.transpose(2, 3))               # (B, H, c, P)
-        dx = (torch.matmul(m.transpose(2, 3), dyc) + sc[..., None] * rb
-              + d.float()[None, :, None, None] * dyc)
-        dxo[:, sl] = dx.transpose(1, 2)
-        db = torch.matmul(a1.transpose(2, 3), cc[:, None]) + sc[..., None] * torch.matmul(xc, r)
-        dbo[:, sl] = db.sum(1)
-        sdy = torch.matmul(dyc, st)                                     # (S^T dy_i), (B, H, c, N)
-        dc = torch.matmul(a1, bc[:, None]) + ec[..., None] * sdy
-        dco[:, sl] = dc.sum(1)
-        xrb = (xc * rb).sum(-1)                                         # (B, H, c)
-        ci_dot = (cc[:, None] * sdy).sum(-1)
-        u = sc * xrb
-        # K's diagonal cancels from cum's gradient (L_ii = 1): the sums run
-        # strictly below it, in float64, or under strong decay the two
-        # sums cancel to a float32 rounding error of theirs (~1e-3 of da)
-        ks = (k * below).double()
-        col = ks.sum(2)
-        dcum = (torch.matmul(ks, dtc.double()[..., None])[..., 0] - dtc.double() * col
-                + (ec * ci_dot).double() - u.double())
-        col = col.float()
-        dcum[..., -1] += (et[..., 0] * (r * st).sum((2, 3)) + u.sum(-1)).double()
-        rc = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
-        ddt[:, sl] = (col + torch.diagonal(k, dim1=2, dim2=3) + dec * xrb
-                      + af[None, :, None] * rc.float()).transpose(1, 2)
-        da += (dtc.double() * rc).sum((0, 2))
-        r = et[..., None] * r + torch.matmul((ec[..., None] * dyc).transpose(2, 3), cc[:, None])
+
+    def by_chunk(t):   # (B, S, H, ...) -> (B, H, nc, c, ...)
+        t = t.reshape(bsz, nc, chunk, h, *t.shape[3:])
+        return t.permute(0, 3, 1, 2, *range(4, t.dim()))
+
+    def to_seq(t):     # (B, H, nc, c, ...) -> (B, S, H, ...)
+        t = t.permute(0, 2, 3, 1, *range(4, t.dim()))
+        return t.reshape(bsz, s, h, *t.shape[4:]).contiguous()
+
+    xc, dyc, dtc = by_chunk(xf), by_chunk(dyf), by_chunk(dt.float())   # (B, H, nc, c[, P])
+    bc = b_mat.float().reshape(bsz, 1, nc, chunk, n)                    # (B, 1, nc, c, N)
+    cc = c_mat.float().reshape(bsz, 1, nc, chunk, n)
+    cum = torch.cumsum((dtc * af[None, :, None, None]).double(), dim=-1)   # (B, H, nc, c)
+    total = cum[..., -1:]
+    li = (cum[..., :, None] - cum[..., None, :]).float()                   # (B, H, nc, c, c)
+    lmat = torch.exp(torch.where(tri, li, torch.full((), NEG_INF, device=dev)))
+    ec = torch.exp(cum.float())
+    dec = torch.exp((total - cum).float())
+    sc = dtc * dec
+    et = torch.exp(total.float())                                          # (B, H, nc, 1)
+
+    # 1-2: the increments, then the scan of dS_out over the chunks
+    u = torch.matmul((ec[..., None] * dyc).transpose(-1, -2), cc)          # (B, H, nc, P, N)
+    ds = torch.empty_like(u)
+    r = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=dev)
+    for ci in reversed(range(nc)):
+        ds[:, :, ci] = r
+        r = et[:, :, ci, :, None] * r + u[:, :, ci]
+    del u
+
+    # 3: each chunk's gradients from its S and dS_out
+    g = torch.matmul(cc, bc.transpose(-1, -2))                             # (B, 1, nc, c, c)
+    dmat = torch.matmul(dyc, xc.transpose(-1, -2))                         # D_ij = dy_i . x_j
+    a1 = lmat * dtc[..., None, :] * dmat
+    m = g * lmat * dtc[..., None, :]
+    k = g * lmat * dmat
+    rb = torch.matmul(bc, ds.transpose(-1, -2))                            # (B, H, nc, c, P)
+    dx = (torch.matmul(m.transpose(-1, -2), dyc) + sc[..., None] * rb
+          + d.float()[None, :, None, None, None] * dyc)
+    a1h = a1.sum(1)                                                        # (B, nc, c, c)
+    db = (torch.matmul(a1h.transpose(-1, -2), cc[:, 0])
+          + (sc[..., None] * torch.matmul(xc, ds)).sum(1))                 # (B, nc, c, N)
+    sdy = torch.matmul(dyc, states)                                        # (S^T dy_i)
+    dc = torch.matmul(a1h, bc[:, 0]) + (ec[..., None] * sdy).sum(1)
+    xrb = (xc * rb).sum(-1)                                                # (B, H, nc, c)
+    ci_dot = (cc * sdy).sum(-1)
+    usc = sc * xrb
+    # K's diagonal cancels from cum's gradient (L_ii = 1): the sums run
+    # strictly below it, in float64, or under strong decay the two sums
+    # cancel to a float32 rounding error of theirs (~1e-3 of da)
+    ks = (k * below).double()
+    col = ks.sum(-2)
+    dcum = (torch.matmul(ks, dtc.double()[..., None])[..., 0] - dtc.double() * col
+            + (ec * ci_dot).double() - usc.double())
+    dcum[..., -1] += (et[..., 0] * (ds * states).sum((-1, -2)) + usc.sum(-1)).double()
+    rc = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    ddt = (col.float() + torch.diagonal(k, dim1=-2, dim2=-1) + dec * xrb
+           + af[None, :, None, None] * rc.float())
+    da = (dtc.double() * rc).sum((0, 2, 3))
     dd = (xf * dyf).sum((0, 1, 3))
-    return (dxo.to(x.dtype), ddt, da.float(), dbo.to(b_mat.dtype), dco.to(c_mat.dtype), dd)
+    return (to_seq(dx).to(x.dtype), to_seq(ddt), da.float(),
+            db.reshape(b_mat.shape).to(b_mat.dtype), dc.reshape(c_mat.shape).to(c_mat.dtype), dd)
 
 
 def ssd_scan_tf32x3_torch(x, dt, a, b_mat, c_mat, d, *, chunk: int = MAX_CHUNK,
@@ -402,21 +421,41 @@ def states_shape(bsz: int, s: int, h: int, p: int, n: int,
     return (bsz, h, s // min(chunk, s), p, n)
 
 
-def bwd_scratch_shapes(bsz: int, s: int, h: int, n: int,
-                       chunk: int = MAX_CHUNK) -> Tuple[Tuple[int, ...], ...]:
-    """Shapes of the float32 scratch one backward call allocates: the Gram
-    matrices C B^T (B, S / chunk, 64, 64), the per-head dB and dC partials
-    (B, H, S, N) each, and the per-row da and dd (2, B, H)."""
-    return ((bsz, s // min(chunk, s), MAX_CHUNK, MAX_CHUNK), (bsz, h, s, n), (bsz, h, s, n),
-            (2, bsz, h))
+def heads_per_block(bsz: int, s: int, h: int, chunk: int = MAX_CHUNK,
+                    sms: int = H100_SMS) -> int:
+    """Heads one block of the backward's chunk pass takes in order (a head
+    group): halving from all H, the most that still give ``BWD_WAVES``
+    blocks an SM, one block per (chunk, row, head group). 16 at Mamba-2
+    1.3B's training shape (4, 2048, 64 heads): 512 blocks on 132 SMs."""
+    blocks = bsz * (s // min(chunk, s))
+    hpb = h
+    while hpb > 1 and blocks * -(-h // hpb) < BWD_WAVES * sms:
+        hpb = -(-hpb // 2)
+    return hpb
+
+
+def bwd_scratch(bsz: int, s: int, h: int, p: int, n: int, chunk: int = MAX_CHUNK,
+                sms: int = H100_SMS) -> Tuple[Tuple[Tuple[int, ...], torch.dtype], ...]:
+    """(shape, dtype) of each scratch tensor one backward call allocates:
+    the Gram matrices C B^T (B, S / chunk, 64, 64); each chunk's dS_out
+    (B, H, S / chunk, P, N); the head groups' dB and dC partials (B, groups,
+    S, N) each, all float32; the per-(row, chunk, head) da partials in
+    float64 and dd partials in float32."""
+    nc = s // min(chunk, s)
+    groups = -(-h // heads_per_block(bsz, s, h, chunk, sms))
+    f32 = torch.float32
+    return (((bsz, nc, MAX_CHUNK, MAX_CHUNK), f32), ((bsz, h, nc, p, n), f32),
+            ((bsz, groups, s, n), f32), ((bsz, groups, s, n), f32),
+            ((bsz, nc, h), torch.float64), ((bsz, nc, h), f32))
 
 
 def train_bytes(bsz: int, s: int, h: int, p: int, n: int,
                 chunk: int = MAX_CHUNK) -> Tuple[int, int]:
     """(saved, scratch): bytes of the chunk states one training forward
     keeps for the backward, and of one backward call's scratch."""
-    return (4 * math.prod(states_shape(bsz, s, h, p, n, chunk)),
-            4 * sum(math.prod(sh) for sh in bwd_scratch_shapes(bsz, s, h, n, chunk)))
+    scratch = sum(math.prod(sh) * dt.itemsize
+                  for sh, dt in bwd_scratch(bsz, s, h, p, n, chunk))
+    return 4 * math.prod(states_shape(bsz, s, h, p, n, chunk)), scratch
 
 
 def work_train(x, dt, a, b_mat, c_mat, d, chunk: int = MAX_CHUNK) -> _build.Work:
@@ -460,26 +499,31 @@ def _check_bwd(x, dt, a, b_mat, c_mat, d, states, dy, chunk: int) -> None:
     for name, t in (("states", states), ("dy", dy)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    if bwd_smem_bytes(p, b_mat.shape[-1]) > H100.vmem_bytes:
-        raise ValueError(f"ssd backward needs {bwd_smem_bytes(p, b_mat.shape[-1])} B of "
-                         f"shared memory per block, the budget is {H100.vmem_bytes} B")
+    need = bwd_smem_bytes(p, b_mat.shape[-1], x.dtype)
+    if need > H100.vmem_bytes:
+        raise ValueError(f"ssd backward needs {need} B of shared memory per block, the "
+                         f"budget is {H100.vmem_bytes} B")
 
 
-def bwd_smem_bytes(p: int, n: int) -> int:
-    """Dynamic shared memory of one backward block (csrc/ssd_scan.cu
-    ``Bwd::BYTES``): x and dy (c x P), B and C (c x N), the state gradient
-    (P x N), D / K, A1 and M (c x c), rows padded by one float; the dx and
-    dC row-dot partials; five per-position vectors, a 256-entry reduction
-    buffer, and four float64 vectors (the cumsum, K's row and column sums,
-    cum's gradient)."""
-    ch = MAX_CHUNK
-    floats = (2 * ch * (p + 1) + 2 * ch * (n + 1) + p * (n + 1) + 3 * ch * (ch + 1)
-              + ch * (p // 4) + ch * (n // 8) + 5 * ch + BWD_THREADS + 8)
-    return 4 * floats + 4 * 8 * ch
+def bwd_smem_bytes(p: int, n: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the backward's chunk pass
+    (csrc/ssd_scan.cu ``BwdChunk::BYTES``): three float64 vectors (the
+    cumsum, K's row and column sums), the float vectors and row partials,
+    G, M and K (c x c float32, rows padded by 8), B and C (c x N) and x and
+    dy (c x P) in the input dtype (rows padded by 16 bytes), S and dS_out
+    (P x N float32, rows padded by 4)."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    ch, nw = MAX_CHUNK, BWD_WARPS[(p, n)]
+    fvec = -(-(4 * ch + 2 * ch * (nw // 4) + 2 * nw + 4) * 4 // 16) * 16
+    return (3 * ch * 8 + fvec + 3 * 4 * ch * (ch + 8) + 2 * item * ch * (n + 16 // item)
+            + 2 * item * ch * (p + 16 // item) + 2 * 4 * p * (n + 4))
 
 
-# threads of a backward block (csrc/ssd_scan.cu BWD_NT)
-BWD_THREADS = 256
+# warps of a chunk-pass block per (P, N) (csrc/ssd_scan.cu: 16 at the full
+# width, 8 at the smoke width)
+BWD_WARPS = {(64, 128): 16, (16, 16): 8}
+# blocks an SM the chunk pass's head groups aim at (heads_per_block)
+BWD_WAVES = 3
 # the backward's span in a torch.profiler trace
 BACKWARD_SPAN = "ssd_scan.backward"
 
@@ -505,28 +549,31 @@ def _fake_train(x, dt, a, b_mat, c_mat, d, chunk):
 
 def _launch_bwd(x, dt, a, b_mat, c_mat, d, states, dy, chunk):
     """CUDA implementation of ``repro_torch::ssd_scan_bwd``: the Gram pass,
-    the backward walk (per-head dB and dC partials) and the fixed-order sum
-    over heads and rows, counted once in ``ssd_scan_bwd.launches``."""
+    the dS walk, the chunk pass (per head group dB and dC partials) and the
+    fixed-order sums over groups and (row, chunk), counted once in
+    ``ssd_scan_bwd.launches``."""
     chunk = min(chunk, x.shape[1])
     _check_bwd(x, dt, a, b_mat, c_mat, d, states, dy, chunk)
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
+    sms = sm_count(x.device)
+    hpb = heads_per_block(bsz, s, h, chunk, sms)
     lib = _build.library("ssd_scan", _bind)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, db, dc = torch.empty_like(x), torch.empty_like(b_mat), torch.empty_like(c_mat)
     ddt, da, dd = torch.empty_like(dt), torch.empty((h,), **f32), torch.empty((h,), **f32)
-    # the Gram matrices; per-head dB and dC, then summed over heads in order;
-    # per-row da, dd
-    g, db_h, dc_h, rows = (torch.empty(sh, **f32)
-                           for sh in bwd_scratch_shapes(bsz, s, h, n, chunk))
+    # the Gram matrices, each chunk's dS_out, the groups' dB and dC partials,
+    # the (row, chunk, head) da and dd partials
+    g, dso, dbp, dcp, dap, ddp = (torch.empty(sh, dtype=dtype, device=x.device)
+                                  for sh, dtype in bwd_scratch(bsz, s, h, p, n, chunk, sms))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_scan_bwd(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-            d.data_ptr(), states.data_ptr(), dy.data_ptr(), g.data_ptr(), db_h.data_ptr(),
-            dc_h.data_ptr(), rows.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
-            db.data_ptr(), dc.data_ptr(), dd.data_ptr(), _DTYPES[x.dtype], bsz, s, h, p, n,
-            chunk, stream)
+            d.data_ptr(), states.data_ptr(), dy.data_ptr(), g.data_ptr(), dso.data_ptr(),
+            dbp.data_ptr(), dcp.data_ptr(), dap.data_ptr(), ddp.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(), dd.data_ptr(),
+            _DTYPES[x.dtype], bsz, s, h, p, n, chunk, hpb, stream)
     ssd_scan_bwd.launches += 1
     if err:
         raise RuntimeError(f"ssd_scan_bwd launch failed: cudaError_t {err}")
@@ -597,5 +644,5 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_mat: torc
 def _bind(lib: ctypes.CDLL) -> None:
     lib.ssd_scan.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.ssd_scan.restype = ctypes.c_int
-    lib.ssd_scan_bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.ssd_scan_bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.ssd_scan_bwd.restype = ctypes.c_int

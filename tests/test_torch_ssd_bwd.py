@@ -212,6 +212,53 @@ def test_backward_check_rejects_what_the_kernel_cannot_take(kind, error):
 
 
 def test_backward_fits_its_shared_memory_at_both_widths():
+    """The chunk pass's block fits one block's shared memory at both widths
+    and dtypes."""
     from repro_torch.hw import H100
-    assert SSD.bwd_smem_bytes(64, 128) <= H100.vmem_bytes
-    assert SSD.bwd_smem_bytes(16, 16) < SSD.bwd_smem_bytes(64, 128)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert SSD.bwd_smem_bytes(64, 128, dtype) <= H100.vmem_bytes
+        assert SSD.bwd_smem_bytes(16, 16, dtype) < SSD.bwd_smem_bytes(64, 128, dtype)
+    assert SSD.bwd_smem_bytes(64, 128, torch.bfloat16) < SSD.bwd_smem_bytes(64, 128,
+                                                                           torch.float32)
+
+
+@pytest.mark.parametrize("dims,hpb", [((4, 2048, 64, 64, 128), 16), ((2, 256, 64, 64, 128), 1),
+                                      ((8, 2048, 64, 64, 128), 32), ((2, 128, 3, 16, 16), 1),
+                                      ((64, 2048, 64, 64, 128), 64)])
+def test_head_groups_fill_the_card(dims, hpb):
+    """The chunk pass takes the most heads a block that still give
+    BWD_WAVES blocks an SM of the H100's 132 (all heads where the (row,
+    chunk) blocks alone do)."""
+    b, s, h, _p, _n = dims
+    assert SSD.heads_per_block(b, s, h) == hpb
+    blocks = b * (s // 64) * -(-h // hpb)
+    assert blocks >= SSD.BWD_WAVES * 132 or hpb == 1
+
+
+def test_recurrent_backward_term_counts_the_new_scratch():
+    """``core/memory.py``'s recurrent-backward term of Mamba-2 1.3B's
+    one-card train step (remat: one layer's saved states) is ``train_bytes``
+    of the backward's scratch: the Gram matrices, each chunk's float32
+    dS_out (B, H, nc, P, N), the head groups' dB and dC partials and the
+    (row, chunk, head) da (float64) and dd partials; no per-head (B, H, S,
+    N) partials."""
+    from repro_torch.config import InputShape, MeshConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.memory import estimate_memory
+    from repro_torch.core.planner import compile_plan
+    from repro_torch.hw import H100
+
+    cfg = get_config("mamba2-1.3b")
+    b, s, h, p, n = 4, 2048, cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
+    assert (h, p, n) == (64, 64, 128)
+    shape = InputShape("cli", s, b, "train")
+    mesh = MeshConfig((1,), ("data",))
+    plan = compile_plan(cfg, shape, mesh, TrainConfig())
+    est = estimate_memory(cfg, shape, mesh, plan.config, TrainConfig(), H100)
+    saved, scratch = SSD.train_bytes(b, s, h, p, n)
+    assert est.per_device["recurrent_backward"] == saved + scratch
+    nc, groups = s // 64, h // SSD.heads_per_block(b, s, h)
+    assert scratch == 4 * (b * nc * 64 * 64 + b * h * nc * p * n + 2 * b * groups * s * n
+                           + b * nc * h) + 8 * b * nc * h
+    assert saved == 4 * b * h * nc * p * n
+    assert scratch < 2 * 4 * b * h * s * n

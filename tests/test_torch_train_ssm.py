@@ -162,11 +162,11 @@ def test_planner_plans_the_full_recurrent_models_on_one_h100(arch):
         bm, v = torch.empty((4, 2048, n), dtype=torch.bfloat16, **meta), torch.empty(h, **meta)
         states = torch.ops.repro_torch.ssd_scan_train(x, x[..., 0].float(), v, bm, bm, v,
                                                       SSD.MAX_CHUNK)[1]
-        scratch = SSD.bwd_scratch_shapes(4, 2048, h, n)
+        scratch = SSD.bwd_scratch(4, 2048, h, p, n)
     else:
         xb = torch.empty((4, 2048, cfg.lru_width), dtype=torch.bfloat16, **meta)
         states = torch.ops.repro_torch.rglru_scan_train(
             xb, xb, xb, xb, torch.empty(cfg.lru_width, **meta))[1]
-        scratch = (RG.bwd_scratch_shape(4, cfg.lru_width),)
-    want = states.nbytes + 4 * sum(math.prod(sh) for sh in scratch)
+        scratch = ((RG.bwd_scratch_shape(4, cfg.lru_width), torch.float32),)
+    want = states.nbytes + sum(math.prod(sh) * dt.itemsize for sh, dt in scratch)
     assert est.per_device["recurrent_backward"] == want

@@ -1,15 +1,16 @@
 """One kernel of one source tree, timed on the card at its serving path's
 shapes, for comparing two trees in one run.
 
-    python3 tools/kernel_ab.py --kernel {paged_decode,ssd_scan} [--tree DIR]
-        [--label NAME] [--flush-modes write read none]
+    python3 tools/kernel_ab.py --kernel {paged_decode,ssd_scan,ssd_scan_bwd,rglru_scan_bwd}
+        [--tree DIR] [--label NAME] [--flush-modes write read none]
 
 ``--tree`` is the root of a checkout of this repository (default: this
 one); its ``src/repro_torch`` and its ``chip_smoke.py`` are imported, and
 its kernels are built into its own ``build/`` directory. For each shape:
 bfloat16 inputs from a fixed seed (the tree's ``chip_smoke.py`` input
 builders), the result held against the float32 plain version under the
-kernel's ``chip_smoke.py`` tolerance, then the CUDA-event median of 20 calls
+kernel's ``chip_smoke.py`` tolerance (a backward's every gradient under
+``_bwd_tol``), then the CUDA-event median of 20 calls
 and the profiler device time per call of the kernel's family, the L2
 flushed before every call. One JSON line per shape, with the card's name
 and power limit. Run trees in turns, one process each (parent, change,
@@ -22,6 +23,11 @@ Kernels and shapes:
   request in its (1, 1024) bucket.
 - ``ssd_scan``: the serving SSD scan (the Gram pass and the walk) at
   Mamba-2 1.3B's widths, the (8, 2048) and (1, 1024) buckets.
+- ``ssd_scan_bwd``: the SSD backward at Mamba-2 1.3B's training shape
+  (4, 2048, 64, 64, 128), from the tree's own training forward's chunk
+  states (``chip_smoke.py`` phase 3's inputs and dy).
+- ``rglru_scan_bwd``: the RG-LRU backward at RecurrentGemma-2B's training
+  shape (4, 2048, 2560), from the tree's own training forward's carries.
 
 The flush is ``chip_smoke.py``'s (96 MB of zeros written, which leaves the
 L2 full of dirty lines that the kernel's reads must write back first);
@@ -44,8 +50,27 @@ import torch
 HERE = Path(__file__).resolve().parents[1]
 
 
+def _close(cs, tol):
+    """check(got, want) -> (ok, max abs error, error RMS over the
+    reference's) under one tolerance."""
+    def check(got, want):
+        ok, max_err, _, rms_ratio = cs.within(got, want, tol)
+        return ok, max_err, rms_ratio
+    return check
+
+
+def _grads_close(cs, dtype):
+    """check for a backward's gradients: each under ``chip_smoke.py``'s
+    ``_bwd_tol``; the worst max error and RMS ratio."""
+    def check(got, want):
+        res = [cs.within(g, w, cs._bwd_tol(w, dtype, g.dtype == torch.float32))
+               for g, w in zip(got, want)]
+        return all(r[0] for r in res), max(r[1] for r in res), max(r[3] for r in res)
+    return check
+
+
 def paged_decode_cases(cs, pa):
-    """(label, call, plain, tolerance, bound_ms) at Yi-6B's decode shapes."""
+    """(label, call, plain, check, bound_ms) at Yi-6B's decode shapes."""
     hq, hkv, d, page = 32, 4, 128, 64
     for label, b, sc, pos in (("serving (8, 2048)", 8, 2048, [2000 + 4 * i for i in range(8)]),
                               ("bucket (1, 1024)", 1, 1024, [527])):
@@ -58,11 +83,11 @@ def paged_decode_cases(cs, pa):
                lambda: pa.paged_decode_attention(q, k, v, tables, posv, page=page, sc=sc),
                lambda: pa.paged_attention_torch(q.float(), k.float(), v.float(), tables, posv,
                                                 page=page, sc=sc),
-               cs.PAGED_BF16_TOL, bound)
+               _close(cs, cs.PAGED_BF16_TOL), bound)
 
 
 def ssd_scan_cases(cs, ssd):
-    """(label, call, plain, tolerance, bound_ms) at Mamba-2 1.3B's prompt
+    """(label, call, plain, check, bound_ms) at Mamba-2 1.3B's prompt
     buckets."""
     for label, dims in (("serving (8, 2048)", (8, 2048, 64, 64, 128)),
                         ("bucket (1, 1024)", (1, 1024, 64, 64, 128))):
@@ -71,12 +96,42 @@ def ssd_scan_cases(cs, ssd):
         bound, _ = cs._bound_ms(work.bytes, work.flops, torch.bfloat16)
         yield (label, lambda: ssd.ssd_scan(*inputs),
                lambda: ssd.ssd_scan_torch(*(t.float() for t in inputs)),
-               cs.SSD_BF16_TOL, bound)
+               _close(cs, cs.SSD_BF16_TOL), bound)
+
+
+def ssd_scan_bwd_cases(cs, ssd):
+    """(label, call, plain, check, bound_ms) at Mamba-2 1.3B's training
+    shape, bfloat16, from the tree's own training forward's chunk states."""
+    inputs = cs._ssd_inputs(*cs.SSD_TRAIN_SHAPE, torch.bfloat16, 31)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    dy = torch.randn(inputs[0].shape, generator=gen, device="cuda").to(torch.bfloat16)
+    _, states = ssd.ssd_scan_train(*inputs)
+    work = ssd.work_bwd(*inputs, states, dy)
+    bound, _ = cs._bound_ms(work.bytes, work.flops, torch.bfloat16)
+    yield ("training (4, 2048)", lambda: ssd.ssd_scan_bwd(*inputs, states, dy),
+           lambda: ssd.ssd_scan_bwd_torch(*(t.float() for t in inputs), states, dy.float()),
+           _grads_close(cs, torch.bfloat16), bound)
+
+
+def rglru_scan_bwd_cases(cs, rg):
+    """(label, call, plain, check, bound_ms) at RecurrentGemma-2B's training
+    shape, bfloat16, from the tree's own training forward's carries."""
+    *inputs, _lengths = cs._rglru_inputs(*cs.RGLRU_TRAIN_SHAPE, torch.bfloat16, 41)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    dy = torch.randn(cs.RGLRU_TRAIN_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+    _, h_chunks = rg.rglru_scan_train(*inputs)
+    work = rg.work_bwd(*inputs, h_chunks, dy)
+    bound, _ = cs._bound_ms(work.bytes, work.flops, torch.bfloat16)
+    yield ("training (4, 2048)", lambda: rg.rglru_scan_bwd(*inputs, h_chunks, dy),
+           lambda: rg.rglru_scan_bwd_torch(*(t.float() for t in inputs), h_chunks, dy.float()),
+           _grads_close(cs, torch.bfloat16), bound)
 
 
 # kernel: (its module under repro_torch.kernels, its family in a trace, cases)
 KERNELS = {"paged_decode": ("paged_attention", "paged_decode", paged_decode_cases),
-           "ssd_scan": ("ssd_scan", "ssd", ssd_scan_cases)}
+           "ssd_scan": ("ssd_scan", "ssd", ssd_scan_cases),
+           "ssd_scan_bwd": ("ssd_scan", "ssd", ssd_scan_bwd_cases),
+           "rglru_scan_bwd": ("rglru_scan", "rglru", rglru_scan_bwd_cases)}
 
 
 def main() -> int:
@@ -115,8 +170,8 @@ def main() -> int:
             reader.sum()
 
     flushes = {"write": flush, "read": ReadFlush(), "none": None}
-    for label, call, plain, tol, bound in cases(cs, mod):
-        ok, max_err, _, rms_ratio = cs.within(call(), plain(), tol)
+    for label, call, plain, check, bound in cases(cs, mod):
+        ok, max_err, rms_ratio = check(call(), plain())
         event_ms = cs.cuda_ms(call, flush=flush)
         dev_ms, names = cs.device_ms(call, family, flush)
         by_flush = {mode: cs.device_ms(call, family, flushes[mode])[0]
