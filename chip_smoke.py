@@ -139,13 +139,37 @@ Phases, each of which must pass (nothing is caught):
    train-ssm, train-hybrid — full mamba2-1.3b (48 layers) and
               recurrentgemma-2b (26 layers ``rra``), bfloat16, (4, 2048), 8
               steps of adam through ``launch.train``'s own entry on the
-              planner's one-card plan: losses finite and falling, launches
-              exact (each scan layer's training forward twice a step under
-              remat, its backward kernel once), no plain scan or CPU
-              attention function called; step ms, tokens/s, MFU, peak
+              planner's one-card plan: losses finite and falling
+              (RecurrentGemma's below ln(vocab); Mamba-2's last three below
+              step 2's by more than the step-to-step moves of steps 0-2),
+              launches exact (each scan layer's training forward twice a
+              step under remat, its backward kernel once), no plain scan or
+              CPU attention function called; step ms, tokens/s, MFU, peak
               memory against the estimate, one traced step by part (SSD,
               RG-LRU and flash forwards, their backwards, matmul,
               optimizer, other) and the idle share;
+   parfor   — two ranks spawned on the one card in a gloo process group
+              (``launch/ranks.py``, a file rendezvous under ``build/``;
+              each rank's output printed after it): LeNet with phase 9's
+              weights scores 2,048 images through ``Keras2Plan(mesh=
+              make_local_mesh())`` (remote parfor): plan "remote", each
+              rank's gathered probabilities within FP32_TOL of one
+              process's ``predict_proba`` with equal argmax, 2 conv + 2
+              matmul launches on each rank, no collective in the traced
+              body and one with ``reduce="mean"``;
+   train-sharded — two ranks on the card likewise: (a) Yi-6B's and
+              Mamba-2 1.3B's widths at 2 layers, float32, global batch
+              (2, 512), 3 adam steps under the planner's FSDP and DP plans
+              for mesh (2,), against one process's ``make_train_step`` under
+              train-check's tolerances, launches exact; (b) Yi-6B's full
+              widths at the deepest depth whose two ranks fit within 3/4 of
+              the card (the planner's per-card estimate), bfloat16, (4, 2048), 8 adam steps, FSDP:
+              per rank step ms, tokens/s, peak memory against the planner's
+              per-card estimate, collective calls and bytes a step, flash
+              launches exact, losses falling. A rank that does not start,
+              exits non-zero, runs off the card or finds a world under 2
+              fails the phase. Two ranks on one card measure the code path,
+              not scaling;
 14. quickstart — the paper's softmax classifier through ``Keras2Plan`` on the
               card (``repro_torch.launch.quickstart``): accuracy above 0.8,
               matmul launches exact, the DML script byte-equal to the
@@ -193,8 +217,10 @@ if str(SRC) not in sys.path:
     sys.path.append(str(SRC))
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
+from torch.fx.experimental.proxy_tensor import make_fx  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
 from repro_torch import hw  # noqa: E402
@@ -204,12 +230,14 @@ from repro_torch.checkpoint import load_checkpoint  # noqa: E402
 from repro_torch.config import InputShape, MeshConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.lenet import make_spec  # noqa: E402
-from repro_torch.core import cost  # noqa: E402
+from repro_torch.core import comm, cost  # noqa: E402
+from repro_torch.core.parfor import count_collectives, parfor  # noqa: E402
 from repro_torch.core.plan_cache import bucket_pow2 as bucket  # noqa: E402
 from repro_torch.core.planner import compile_plan  # noqa: E402
 from repro_torch.data import make_batch  # noqa: E402
 from repro_torch.frontend import Keras2Plan  # noqa: E402
 from repro_torch.hw import sm_count  # noqa: E402
+from repro_torch.interop import nn_params_from_numpy  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import conv2d_im2col as CONV  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
@@ -220,6 +248,8 @@ from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.ref import paged_decode_ref  # noqa: E402
 from repro_torch.launch import quickstart  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch.ranks import run_ranks  # noqa: E402
 from repro_torch.launch.train_lenet import synthetic_images  # noqa: E402
 from repro_torch.models import attention as ATT  # noqa: E402
 from repro_torch.models.attention import paged_cache_write  # noqa: E402
@@ -236,7 +266,7 @@ from repro_torch.runtime.scheduler import (ContinuousBatchingScheduler,  # noqa:
 from repro_torch.runtime.serve_loop import (DECODE_SPAN, PREFILL_SPAN,  # noqa: E402
                                             PlanServer, ServeRequest, make_decode_step)
 from repro_torch.runtime.train_loop import (OPTIMIZER_SPAN, init_opt_state,  # noqa: E402
-                                            make_train_step)
+                                            make_train_step, shard_params)
 SEED = 0
 # (atol, rtol, limit on the error's RMS over the reference's RMS). A
 # kernel's error passes where |got - want| <= atol + rtol * |want|.
@@ -372,9 +402,18 @@ RECURRENT_CHECK_LR = {"ssm": TRAIN_CHECK_LR, "hybrid": {"sgd": 1e-3, "adam": 1e-
 # far above ln(256000) = 12.45: its logits start far from uniform, and 8
 # steps only bring them back (to 12.95). At 0.5 step 0
 # reads 12.59 and the losses fall to 12.40 (tools/train_init_sweep.py
-# --embed-scales; PERF.md section 6)
+# --embed-scales; PERF.md section 6). Mamba-2 1.3B gets below ln(50280) =
+# 10.825 at no scale in 8 steps (the sweep over 1, 0.5, 0.3, 0.2, 0.1,
+# 0.05: from 0.3 down its step 0 starts within 0.04 of ln(vocab) and its
+# losses only wander by their step-to-step noise), so it keeps scale 1 and
+# passes the learning gate instead (LEARNING_GATE)
 RECURRENT_TRAIN = {"ssm": ("mamba2-1.3b", 1.0, False),
                    "hybrid": ("recurrentgemma-2b", 0.5, True)}
+# the families whose train phase must show learning beyond its noise: the
+# mean of the last three losses below step 2's by more than the largest
+# step-to-step move of steps 0-2 (at scale 1 Mamba-2's moves are ~0.016 and
+# the mean of its last three sits ~0.033 below step 2: PERF.md section 6)
+LEARNING_GATE = ("ssm",)
 # the backward kernels' float32 gradients (and the float32 outputs ddt, da,
 # dd, dc of a bfloat16 run): FP32_TOL's rtol and RMS limit, atol 1e-4 of
 # the reference gradient's RMS: ddt sums terms (a times the reverse cumsum
@@ -400,6 +439,17 @@ RGLRU_TRAIN_SHAPE = (4, 2048, 2560)
 # launcher's grad_clip 1.0: on the card 1e-4 lowered the loss less in 8
 # steps and 1e-3 raised it (PERF.md, PR 23)
 TRAIN_STEPS, TRAIN_SHAPE, TRAIN_LR = 8, (4, 2048), 3e-4
+# parfor and train-sharded: SHARDED_WORLD ranks on the one card over gloo
+# (NCCL refuses two ranks on one device), each phase's ranks given at most
+# SHARDED_TIMEOUT_S; parfor scores PARFOR_ROWS images; train-sharded (a)
+# checks SHARDED_CHECKS' widths at 2 layers, float32, global batch
+# SHARDED_CHECK_SHAPE, against one process; (b) trains full Yi-6B widths on
+# SHARDED_TRAIN_SHAPE in bfloat16 at the deepest of SHARDED_DEPTHS whose
+# ranks fit the card, a rank's CUDA context counted as CUDA_CONTEXT_BYTES
+SHARDED_WORLD, SHARDED_TIMEOUT_S, PARFOR_ROWS = 2, 600, 2048
+SHARDED_CHECKS = (("yi-6b", dict(num_layers=2)), ("mamba2-1.3b", dict(num_layers=2)))
+SHARDED_CHECK_SHAPE, SHARDED_TRAIN_SHAPE = (2, 512), (4, 2048)
+SHARDED_DEPTHS, CUDA_CONTEXT_BYTES = (32, 16, 8, 4, 2), 2**30
 TRAIN_ARGS = ["--arch", "yi-6b", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_SHAPE[0]),
               "--seq", str(TRAIN_SHAPE[1]), "--dtype", "bfloat16", "--optimizer", "adam",
               "--lr", str(TRAIN_LR), "--log-every", "1"]
@@ -2744,7 +2794,9 @@ def phase_lenet_check() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_lenet() -> dict:
+def phase_lenet() -> tuple:
+    """LeNet trained and scored: (the kernels' launches, the trained weights
+    as numpy arrays, which the parfor phase scores with)."""
     phase(f"lenet: Keras2Plan trains LeNet (1x28x28, 10 classes, float32) for one epoch of "
           f"{LENET_TRAIN} images at batch {LENET_BATCH}, scores {LENET_SCORE}")
     spec, meta = make_spec()
@@ -2761,6 +2813,7 @@ def phase_lenet() -> dict:
     t0 = time.perf_counter()
     est.fit(x, y)                                 # ends reading the loss history
     fit_s = time.perf_counter() - t0
+    weights = [[t.detach().cpu().numpy() for t in layer] for layer in est.params]
     t0 = time.perf_counter()
     probs = est.predict_proba(xt)                 # ends copying to the host
     score_s = time.perf_counter() - t0
@@ -2838,7 +2891,7 @@ def phase_lenet() -> dict:
             print(f"    {label}: not measured (no complete trace in {TRACE_ATTEMPTS} tries)")
     del est, params, state
     torch.cuda.empty_cache()
-    return launches
+    return launches, weights
 
 
 def _busy_us(intervals) -> float:
@@ -3485,6 +3538,14 @@ def phase_train_recurrent(family: str) -> dict:
         fail(f"train-{family}: the mean of the last three losses "
              f"{statistics.mean(losses[-3:])} is not below ln(vocab) "
              f"{math.log(cfg.vocab_size)}, the loss of uniform logits")
+    if family in LEARNING_GATE:
+        noise = max(abs(losses[1] - losses[0]), abs(losses[2] - losses[1]))
+        fall = losses[2] - statistics.mean(losses[-3:])
+        print(f"  learning gate: the last three's mean sits {fall:.4f} below step 2's loss; "
+              f"the largest step-to-step move of steps 0-2 is {noise:.4f}")
+        if not fall > noise:
+            fail(f"train-{family}: the mean of the last three losses is {fall:.4f} below step "
+                 f"2's, not more than the step-to-step noise {noise:.4f}: no learning shown")
     if got != want:
         fail(f"train-{family}: launches {got}, expected {want}")
     if any(plain.calls.values()):
@@ -3502,6 +3563,298 @@ def phase_train_recurrent(family: str) -> dict:
     kinds = ("ssd_scan_train", "ssd_scan_bwd") if family == "ssm" else ("rglru_scan_train",
                                                                         "rglru_scan_bwd")
     return {k: launches[k] for k in kinds}
+
+
+# ---------------------------------------------------------------------------
+# the multi-device phases: SHARDED_WORLD ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def on_ranks(fn, *args) -> list:
+    """``fn(rank, world, *args)`` on SHARDED_WORLD ranks of the card
+    (``launch/ranks.run_ranks``: one process group, gloo since the ranks
+    share the card, a file rendezvous in a directory under ``build/``);
+    prints each rank's output and returns each rank's result. A rank that
+    exits non-zero, gives no result or outlives SHARDED_TIMEOUT_S fails the
+    phase."""
+    work = ROOT / "build" / f"ranks-{fn.__name__}-{time.time_ns()}"
+    outs = run_ranks(fn, SHARDED_WORLD, work, "cuda", *args, timeout=SHARDED_TIMEOUT_S)
+    for r in range(SHARDED_WORLD):
+        for line in (work / f"rank{r}.log").read_text().splitlines():
+            print(f"  [rank {r}] {line}")
+    shutil.rmtree(work, ignore_errors=True)
+    return outs
+
+
+def _rank_setup() -> dict:
+    """A rank's settings on the card (TF32 off, as in this process) and
+    where it runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"backend": str(dist.get_backend()), "world": dist.get_world_size(),
+            "device": torch.cuda.get_device_name(torch.cuda.current_device()),
+            "cuda_index": torch.cuda.current_device()}
+
+
+def _check_ranks(label: str, outs: list) -> None:
+    for r, out in enumerate(outs):
+        info = out["rank"]
+        print(f"  rank {r}: backend {info['backend']}, world {info['world']}, "
+              f"{info['device']} (cuda:{info['cuda_index']})")
+        if info["world"] < 2 or info["world"] != SHARDED_WORLD or info["backend"] != "gloo":
+            fail(f"{label}: rank {r} ran in a world of {info['world']} over {info['backend']}")
+        if not all(dev == "cuda" for dev in out["devices"]):
+            fail(f"{label}: rank {r} ran off the card: {out['devices']}")
+
+
+def _parfor_rank(rank, world, spec, meta, params, x):
+    """Remote parfor scoring of LeNet through ``Keras2Plan(mesh=...)``: the
+    gathered probabilities, the plan, this rank's kernel launches, and the
+    collectives in traces of the parfor'd scoring (no reduction, and mean)."""
+    info = _rank_setup()
+    mesh = make_local_mesh("cuda")
+    est = Keras2Plan(spec, meta, mesh=mesh)
+    est.params = nn_params_from_numpy(params, torch.float32, "cuda")
+    est.predict_proba(x[:PARFOR_ROWS // 8])       # warm-up
+    torch.cuda.synchronize()
+    comm.reset_stats()
+    CONV.conv2d_im2col.launches = MM.matmul.launches = 0
+    t0 = time.perf_counter()
+    probs = est.predict_proba(x)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {"conv2d_im2col": CONV.conv2d_im2col.launches, "matmul": MM.matmul.launches}
+    calls = dict(comm.STATS["calls"])
+    rows = torch.from_numpy(x).cuda()
+
+    def score(r):
+        return est.module.predict(est.params, r)
+
+    body = make_fx(lambda r: parfor(score, r, mesh=mesh)[0])(rows).code
+    mean = make_fx(lambda r: parfor(score, r, mesh=mesh, reduce="mean")[0])(rows).code
+    return {"plan": est._last_score_plan, "probs": probs, "ms": ms, "launches": launches,
+            "gather_calls": calls, "body_collectives": count_collectives(body),
+            "mean_collectives": count_collectives(mean),
+            "rank": info, "devices": [p.device.type for layer in est.params for p in layer]}
+
+
+def phase_parfor(weights) -> None:
+    """parfor: LeNet (phase 9's weights) scores PARFOR_ROWS images through
+    ``Keras2Plan(mesh=make_local_mesh())`` on SHARDED_WORLD ranks of the card;
+    held against one process's ``predict_proba``."""
+    phase(f"parfor: remote parfor scoring of LeNet (phase 9's weights) on {PARFOR_ROWS} "
+          f"images, {SHARDED_WORLD} ranks on the card over gloo (two ranks share one card: "
+          f"this measures the code path, not scaling)")
+    spec, meta = make_spec()
+    x, _y = synthetic_images(PARFOR_ROWS, num_classes=10, size=28, seed=SEED + 2)
+    one = Keras2Plan(spec, meta)
+    one.params = [tuple(torch.from_numpy(a).cuda() for a in layer) for layer in weights]
+    want = one.predict_proba(x)
+    outs = on_ranks(_parfor_rank, spec, meta, weights, x)
+    _check_ranks("parfor", outs)
+    n = PARFOR_ROWS // SHARDED_WORLD
+    for r, out in enumerate(outs):
+        err = check_close(f"rank {r} gathered probabilities vs one process", torch.from_numpy(
+            out["probs"]), torch.from_numpy(want), FP32_TOL)
+        same = bool((out["probs"].argmax(axis=1) == want.argmax(axis=1)).all())
+        print(f"  rank {r}: plan {out['plan']}, scored its {n} rows and gathered all in "
+              f"{out['ms']:.2f} ms; launches {out['launches']} (expected 2 conv + 2 matmul for "
+              f"its block); collectives in the traced body {out['body_collectives']}, with "
+              f"reduce='mean' {out['mean_collectives']}; the scoring's collectives "
+              f"{out['gather_calls']} (the gather of the rows, after the body; nothing staged: "
+              f"gloo takes all ops on CUDA tensors); max_abs_err {err:.3e}, "
+              f"argmax equal {same}")
+        if out["plan"] != "remote":
+            fail(f"parfor: rank {r} planned {out['plan']}")
+        if not same:
+            fail(f"parfor: rank {r}'s argmax differs from one process's")
+        if out["launches"] != {"conv2d_im2col": 2, "matmul": 2}:
+            fail(f"parfor: rank {r} launched {out['launches']}")
+        if out["body_collectives"] != 0 or out["mean_collectives"] != 1:
+            fail(f"parfor: rank {r}'s traces hold {out['body_collectives']} and "
+                 f"{out['mean_collectives']} collectives, expected 0 and 1")
+
+
+def _sharded_train_run(model, cfg, plan, mesh_cfg, opt, shape, init, lr, dtype,
+                       steps=TRAIN_CHECK_STEPS, clip=1.0) -> tuple:
+    """``steps`` steps of ``make_train_step`` over the ranks from ``init``
+    (full tensors, the same on every rank), each rank holding what the plan
+    gives it: (per-step metrics and seconds, this rank's parameters,
+    launches, collective calls and bytes per step, peak memory, the
+    parameters' devices)."""
+    local = shard_params(init, model, plan, mesh_cfg)
+    state = init_opt_state(opt, local, plan)
+    step = make_train_step(model, plan, mesh_cfg,
+                           TrainConfig(optimizer=opt, learning_rate=lr, grad_clip=clip))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in _build.COUNTED:
+        fn.launches = 0
+    comm.reset_stats()
+    recs = []
+    for i in range(steps):
+        batch = make_batch(cfg, shape, step=i, dtype=dtype, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local, state, met = step(local, state, batch, i)
+        rec = {k: float(v) for k, v in met.items()}
+        rec["seconds"] = time.perf_counter() - t0
+        recs.append(rec)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {fn.__name__: fn.launches for fn in _build.COUNTED}
+    per_step = {k: {op: n / steps for op, n in c.items()} for k, c in comm.STATS.items()}
+    devices = sorted({t.device.type for t in local.values()})
+    del state
+    return recs, local, launches, per_step, peak, devices
+
+
+def _sharded_check(rank, world, arch, cut) -> dict:
+    """train-sharded (a): ``arch``'s widths cut as ``cut``, float32, 3 Adam
+    steps on SHARDED_CHECK_SHAPE under the planner's FSDP and DP plans for
+    the ranks' data mesh, against one process's ``make_train_step`` under
+    the train-check tolerances; launches exact. Each rank runs the one
+    process's steps too, and holds its own parameters (its blocks under
+    FSDP) against the same part of that run's."""
+    cfg = replace(get_config(arch), **cut)
+    pattern = cfg.layer_pattern()
+    b, s = SHARDED_CHECK_SHAPE
+    shape = InputShape("train-sharded-check", s, b, "train")
+    model = build_model(cfg, dtype=torch.float32)
+    init = trainable_params(model, SEED)
+    lr = TRAIN_CHECK_LR["adam"]
+    one_plan = compile_plan(cfg, shape, MeshConfig((1,), ("data",)), TrainConfig(),
+                            dtype="float32").config
+    want_recs, want_params, _ = _train_run(model, cfg, one_plan, "adam", shape, init, lr=lr)
+    mesh_cfg = MeshConfig((world,), ("data",))
+    out = {}
+    for strategy in ("fsdp_tensor_parallel", "data_parallel"):
+        plan = compile_plan(cfg, shape, mesh_cfg, TrainConfig(force_strategy=strategy),
+                            dtype="float32").config
+        t0 = time.perf_counter()
+        recs, local, launches, per_step, _peak, devices = _sharded_train_run(
+            model, cfg, plan, mesh_cfg, "adam", shape, init, lr, torch.float32)
+        secs = time.perf_counter() - t0
+        expect = _scan_launches(pattern, plan, TRAIN_CHECK_STEPS)
+        got = {k: launches[k] for k in expect}
+        if got != expect:
+            fail(f"train-sharded {arch} {strategy}: rank {rank} launches {got}, expected {expect}")
+        _same_trajectory(f"rank {rank}: {arch} {len(pattern)} layers, {plan.strategy.value} "
+                         f"(params over data {plan.params_over_data}) over {world} ranks vs one "
+                         f"process", "adam", (recs, local, launches),
+                         (want_recs, shard_params(want_params, model, plan, mesh_cfg, rank), None),
+                         lr=lr)
+        out[strategy] = {"launches": got, "collectives": per_step, "devices": devices,
+                         "losses": [r["loss"] for r in recs], "seconds": secs}
+        del local
+    del init, want_params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_run(rank, world, layers) -> dict:
+    """train-sharded (b): Yi-6B's full widths at ``layers`` layers, bfloat16,
+    SHARDED_TRAIN_SHAPE, TRAIN_STEPS Adam steps at TRAIN_LR (clip 1.0) under
+    the planner's FSDP plan for the ranks' data mesh."""
+    cfg = replace(get_config("yi-6b"), num_layers=layers)
+    b, s = SHARDED_TRAIN_SHAPE
+    shape = InputShape("train-sharded", s, b, "train")
+    mesh_cfg = MeshConfig((world,), ("data",))
+    plan = compile_plan(cfg, shape, mesh_cfg, TrainConfig(force_strategy="fsdp_tensor_parallel"),
+                        dtype="bfloat16")
+    model = build_model(cfg, dtype=torch.bfloat16)
+    init = trainable_params(model, SEED)
+    recs, local, launches, per_step, peak, devices = _sharded_train_run(
+        model, cfg, plan.config, mesh_cfg, "adam", shape, init, TRAIN_LR, torch.bfloat16,
+        steps=TRAIN_STEPS)
+    del init, local
+    return {"recs": recs, "launches": launches, "collectives": per_step, "peak": peak,
+            "devices": devices, "estimate": plan.memory.total,
+            "plan": (plan.config.strategy.value, plan.config.opt_state_dtype, plan.config.remat,
+                     plan.config.microbatches)}
+
+
+def _sharded_rank(rank, world, layers) -> dict:
+    info = _rank_setup()
+    checks = {arch: _sharded_check(rank, world, arch, cut) for arch, cut in SHARDED_CHECKS}
+    run = _sharded_run(rank, world, layers)
+    devices = run["devices"] + [d for c in checks.values() for v in c.values()
+                                for d in v["devices"]]
+    return {"checks": checks, "run": run, "devices": devices, "rank": info}
+
+
+def sharded_depth(world: int) -> tuple:
+    """The Yi-6B depth of train-sharded (b): the planner's per-card estimate
+    for mesh (world,) at each of SHARDED_DEPTHS, and the deepest whose
+    ``world`` ranks fit the card at 3/4 of its memory with a CUDA context
+    each."""
+    b, s = SHARDED_TRAIN_SHAPE
+    card = torch.cuda.get_device_properties(0).total_memory
+    est = {}
+    for layers in SHARDED_DEPTHS:
+        cfg = replace(get_config("yi-6b"), num_layers=layers)
+        est[layers] = compile_plan(cfg, InputShape("train-sharded", s, b, "train"),
+                                   MeshConfig((world,), ("data",)),
+                                   TrainConfig(force_strategy="fsdp_tensor_parallel"),
+                                   dtype="bfloat16").memory.total
+    fits = [n for n in est if world * (est[n] + CUDA_CONTEXT_BYTES) <= 0.75 * card]
+    if not fits:
+        fail(f"train-sharded: no depth of {SHARDED_DEPTHS} fits {world} ranks on the card")
+    return est, max(fits)
+
+
+def phase_train_sharded() -> dict:
+    b, s = SHARDED_TRAIN_SHAPE
+    phase(f"train-sharded: {SHARDED_WORLD} ranks on the card over gloo (two ranks share one "
+          f"card: this measures the code path, not scaling): (a) float32 checks at "
+          f"{', '.join(a for a, _c in SHARDED_CHECKS)} widths, 2 layers, global batch "
+          f"{SHARDED_CHECK_SHAPE}, {TRAIN_CHECK_STEPS} adam steps under FSDP and DP against one "
+          f"process; (b) full Yi-6B widths, bfloat16, ({b}, {s}), {TRAIN_STEPS} adam steps, FSDP")
+    gc.collect()
+    torch.cuda.empty_cache()
+    est, layers = sharded_depth(SHARDED_WORLD)
+    print("  planner's per-card estimate for mesh (2,), FSDP: " + ", ".join(
+        f"{n} layers {v / 2**30:.2f} GiB" for n, v in est.items()))
+    print(f"  depth of (b): {layers} layers, the deepest whose {SHARDED_WORLD} ranks with their "
+          f"CUDA contexts fit within 3/4 of the card")
+    outs = on_ranks(_sharded_rank, layers)
+    _check_ranks("train-sharded", outs)
+    for r, out in enumerate(outs):
+        for arch, runs in out["checks"].items():
+            for strategy, res in runs.items():
+                calls = {k: round(v, 1) for k, v in res["collectives"]["calls"].items()}
+                print(f"  rank {r} (a) {arch} {strategy}: {res['seconds']:.1f} s; losses "
+                      f"{[round(x, 6) for x in res['losses']]}; launches {res['launches']}; "
+                      f"collective calls a step {calls}")
+    want = None
+    for r, out in enumerate(outs):
+        run = out["run"]
+        strategy, state_dtype, remat, micro = run["plan"]
+        losses = [x["loss"] for x in run["recs"]]
+        secs = [x["seconds"] for x in run["recs"]]
+        step_s = statistics.median(secs[2:8])
+        want = layers * TRAIN_STEPS * (1 + remat) * micro
+        flash = run["launches"]["flash_attention_train"]
+        calls = {k: round(v, 1) for k, v in run["collectives"]["calls"].items()}
+        mib = {k: round(v / 2**20, 1) for k, v in run["collectives"]["bytes"].items()}
+        print(f"  rank {r} (b): plan {strategy}, opt state {state_dtype}, remat {remat}, "
+              f"microbatches {micro}; losses {[round(x, 4) for x in losses]}; step seconds "
+              f"{[round(x, 4) for x in secs]}")
+        print(f"  rank {r} (b): step {step_s * 1e3:.1f} ms (median of steps 2-7), "
+              f"{(b // SHARDED_WORLD) * s / step_s:.0f} tokens/s on this rank, {b * s / step_s:.0f} "
+              f"over the ranks; peak {run['peak'] / 2**30:.2f} GiB against the planner's "
+              f"per-card estimate {run['estimate'] / 2**30:.2f} GiB; collectives a step: calls "
+              f"{calls}, MiB {mib}; flash_attention_train launches {flash} (expected {layers} "
+              f"layers x {TRAIN_STEPS} steps x {1 + remat} x {micro} = {want})")
+        if flash != want:
+            fail(f"train-sharded: rank {r} launched flash_attention_train {flash} times, "
+                 f"expected {want}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"train-sharded: rank {r} loss not finite: {losses}")
+        if not statistics.mean(losses[-3:]) < losses[0]:
+            fail(f"train-sharded: rank {r}: the mean of the last three losses "
+                 f"{statistics.mean(losses[-3:])} is not below step 0's {losses[0]}")
+    return {"flash_attention_train": want}
 
 
 def phase_quickstart() -> None:
@@ -3545,7 +3898,8 @@ def main() -> int:
     phase_serve_check_ssm()
     launches.update(phase_serve_ssm())
     phase_lenet_check()
-    launches.update(phase_lenet())
+    lenet_launches, lenet_weights = phase_lenet()
+    launches.update(lenet_launches)
     phase_serve_check_hybrid()
     launches.update(phase_serve_hybrid())
     phase_analysis()
@@ -3554,6 +3908,8 @@ def main() -> int:
     for family in ("ssm", "hybrid"):
         phase_train_check_recurrent(family)
         launches.update(phase_train_recurrent(family))
+    phase_parfor(lenet_weights)
+    phase_train_sharded()
     phase_quickstart()
     for name, n in launches.items():
         kernels[name]["launches"] = n

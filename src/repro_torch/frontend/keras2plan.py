@@ -8,9 +8,12 @@ and trains and scores through the port's NN library on a torch device:
 * ``train_algo="minibatch"``  — a for-loop over batches (the paper's
   generated minibatch script);
 * ``train_algo="batch"``      — full-batch steps;
-* ``test_algo="serial"`` / ``"allreduce"`` — one scoring pass over all rows.
-  The reference's parfor row-partitioned scoring over a device mesh waits
-  for ``core/parfor.py``: a ``mesh`` raises ``NotImplementedError``.
+* ``test_algo="serial"`` — one scoring pass over all rows;
+  ``test_algo="allreduce"`` with a ``mesh`` (a ``DeviceMesh`` over the
+  process group's ranks) — remote parfor (``core/parfor.py``): each rank
+  scores its own block of rows, with no collective in the body, and the
+  blocks are gathered once at the end. ``fit`` runs on one device, as the
+  reference's does.
 
 The sklearn-style ``fit(X, Y)`` / ``predict(X)`` entry points accept NumPy
 arrays. The estimator runs on the card (``device="cuda"``) unless the
@@ -26,6 +29,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from repro_torch.core.parfor import parfor
+from repro_torch.core.sharding import gather_blocks
 from repro_torch.core.sparsity import characteristics, select_format
 from repro_torch.nn.module import Sequential
 
@@ -83,14 +88,6 @@ def step_seed(seed: int, t: int) -> int:
     return int(np.random.SeedSequence((seed, t)).generate_state(1)[0])
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "Keras2Plan(mesh=...): parfor scoring over a device mesh needs core/parfor.py, "
-            "which is ported with the multi-device half of the training runtime in slice 5 "
-            "(ROADMAP Queue A 14b)")
-
-
 class Keras2Plan:
     """sklearn/MLPipeline-style estimator over the repro_torch.nn runtime."""
 
@@ -103,7 +100,6 @@ class Keras2Plan:
             raise ValueError(train_algo)
         if test_algo not in ("allreduce", "serial"):
             raise ValueError(test_algo)
-        _refuse_mesh(mesh)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
@@ -125,8 +121,6 @@ class Keras2Plan:
         for k, v in kw.items():
             if not hasattr(self, k):
                 raise AttributeError(k)
-            if k == "mesh":
-                _refuse_mesh(v)
             setattr(self, k, v)
         return self
 
@@ -166,6 +160,13 @@ class Keras2Plan:
         if self.params is None:
             raise RuntimeError("fit first")
         xs = torch.from_numpy(np.asarray(X, np.float32)).to(self.device)
+        if self.test_algo == "allreduce" and self.mesh is not None:
+            out, plan = parfor(lambda rows: self.module.predict(self.params, rows),
+                               xs, mesh=self.mesh)
+            self._last_score_plan = plan
+            if plan == "remote":
+                out = gather_blocks(out.to_local(), out.device_mesh, out.placements)
+            return out.cpu().numpy()
         self._last_score_plan = "serial"
         return self.module.predict(self.params, xs).cpu().numpy()
 

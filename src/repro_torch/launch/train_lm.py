@@ -12,7 +12,10 @@ by 10 % (which takes the default 200 steps).
 
 Runs on the card unless ``--device`` names another device; the checkpoint
 goes to ``build/lm_ckpt`` at the repository root unless ``--checkpoint``
-names another directory.
+names another directory. Under ``torchrun`` it trains over the ranks as
+``launch/train.py`` does (each rank's blocks under the plan; only rank 0
+prints; the checkpoint holds the full arrays and each rank restores its
+blocks).
 """
 
 from __future__ import annotations
@@ -21,14 +24,18 @@ import argparse
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
-from repro_torch.config import InputShape, MeshConfig, ModelConfig, TrainConfig
+from repro_torch.config import InputShape, ModelConfig, TrainConfig
 from repro_torch.core.planner import compile_plan
 from repro_torch.data import make_batch
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.train import data_mesh
 from repro_torch.models.model import build_model
 from repro_torch.runtime.metrics import StepTimer, format_metrics
-from repro_torch.runtime.train_loop import init_opt_state, make_train_step
+from repro_torch.runtime.train_loop import (init_opt_state, make_train_step, shard_params,
+                                            train_shardings)
 
 SIZES = {
     "5m": dict(num_layers=4, d_model=256, num_heads=4, num_kv_heads=2,
@@ -57,15 +64,22 @@ def main(argv=None):
     cfg = ModelConfig(name=f"lm-{args.size}", family="dense",
                       tie_embeddings=False, **SIZES[args.size])
     model = build_model(cfg, dtype=torch.float32)
-    print(f"params: {model.param_count() / 1e6:.1f}M")
+    mesh_cfg = data_mesh(device)
+    lead = mesh_cfg.num_devices == 1 or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+    say(f"params: {model.param_count() / 1e6:.1f}M")
 
-    mesh_cfg = MeshConfig(shape=(1,), axis_names=("data",))
     shape = InputShape("lm", args.seq, args.batch, "train")
     train = TrainConfig(optimizer="adam", learning_rate=args.lr)
     plan = compile_plan(cfg, shape, mesh_cfg, train, dtype="float32")
-    print(plan.explain())
+    say(plan.explain())
 
     params = model.init_params(torch.Generator(device=device).manual_seed(0))
+    shardings = None
+    if mesh_cfg.num_devices > 1:
+        params = shard_params(params, model, plan.config, mesh_cfg)
+        (_s, _p, shardings), _o = train_shardings(model, plan.config, mesh_cfg, train,
+                                                  make_local_mesh(device))
     opt = init_opt_state("adam", params, plan.config)
     step_fn = make_train_step(model, plan.config, mesh_cfg, train)
 
@@ -78,17 +92,17 @@ def main(argv=None):
         rec = timer.stop(i, metrics)
         losses.append(rec["loss"])
         if i % 20 == 0 or i == args.steps - 1:
-            print(format_metrics(rec), flush=True)
+            say(format_metrics(rec), flush=True)
 
-    save_checkpoint(args.checkpoint, params, step=args.steps)
-    restored, step = load_checkpoint(args.checkpoint, params)
+    save_checkpoint(args.checkpoint, params, step=args.steps, shardings=shardings)
+    restored, step = load_checkpoint(args.checkpoint, params, shardings=shardings)
     if step != args.steps or any(not torch.equal(restored[k], params[k]) for k in params):
         raise SystemExit(f"checkpoint roundtrip failed at step {step}")
-    print(f"checkpoint roundtrip OK at step {step}")
-    print(f"loss: {losses[0]:.3f} -> {losses[-1]:.3f}")
+    say(f"checkpoint roundtrip OK at step {step}")
+    say(f"loss: {losses[0]:.3f} -> {losses[-1]:.3f}")
     if not losses[-1] < losses[0] * 0.9:
         raise SystemExit("loss should drop noticeably")
-    print("OK")
+    say("OK")
     return losses
 
 

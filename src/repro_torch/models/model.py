@@ -15,13 +15,18 @@ for it (``remat``: each layer under ``torch.utils.checkpoint``, its
 activations recomputed in the backward pass). A layer stack may be given as
 a list of per-layer tensors instead of one stacked tensor: the train step
 (``runtime/train_loop.py``) passes per-layer leaves, so each layer's
-gradient lands in a tensor of its own.
+gradient lands in a tensor of its own. Under FSDP the step also hands it a
+``gather`` that turns each rank's parameter shards into full tensors when
+they are used (:meth:`Model.apply`). :meth:`Model.param_specs`,
+:meth:`Model.param_axes` and :meth:`Model.cache_specs` give the sharding
+rules (``core/sharding.py``) each tensor's shape and logical axes.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -36,6 +41,9 @@ _PORTED = ("dense", "ssm", "hybrid")
 # weight of the MoE auxiliary loss in the total (the reference's; no ported
 # family has one)
 MOE_AUX_COEF = 0.01
+# FSDP's parameter gather: (stack prefix, or "" for the embedding, final
+# norm and head; {name: tensor this rank holds}) -> {name: full tensor}
+Gather = Callable[[str, Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]
 
 
 def _subtree(params: Dict, prefix: str) -> Dict:
@@ -97,6 +105,15 @@ class Model:
     def is_ssm(self) -> bool:
         return self.cfg.family == "ssm"
 
+    def param_specs(self) -> Dict[str, torch.Tensor]:
+        """Each parameter's shape and dtype, as a tensor on the meta device."""
+        return {k: torch.empty(sh, dtype=dt, device="meta")
+                for k, (sh, dt) in self.sb.shapes().items()}
+
+    def param_axes(self) -> Dict[str, Tuple]:
+        """Each parameter's logical axes (``core/sharding.py``)."""
+        return {k: ax for k, (_sh, ax, _ini, _sc, _dt) in self.sb.entries.items()}
+
     def init_params(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         return self.sb.init(generator)
 
@@ -125,19 +142,27 @@ class Model:
     # full-sequence forward (prefill)
     # ------------------------------------------------------------------
     def apply(self, params, tokens: torch.Tensor, *, last_only: bool = False,
-              remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+              remat: bool = False, gather: Optional[Gather] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns ``(logits, aux_loss)``: logits for every position, or
         with ``last_only`` for the final position only (``(B, 1, vocab)``).
         No ported family has an auxiliary loss (0). With ``remat`` each
-        layer's activations are recomputed in the backward pass."""
+        layer's activations are recomputed in the backward pass.
+        ``gather(prefix, tensors)`` (FSDP) turns the parameters this rank
+        holds into full ones: the embedding, final norm and head here, each
+        layer's when the layer runs (again in its recompute under remat)."""
+        if gather is not None:
+            params = dict(params)
+            params.update(gather("", {k: v for k, v in params.items() if "." not in k}))
         x, _ = self._stack_prefill(params, self._embed(params, tokens),
-                                   want_cache=False, remat=remat)
+                                   want_cache=False, remat=remat, gather=gather)
         x = rms_norm(x, params["final_ln"])
         logits = self._logits(params, x[:, -1:] if last_only else x)
         return logits, torch.zeros((), device=logits.device)
 
     def _stack_prefill(self, params, x, *, lengths: Optional[torch.Tensor] = None,
-                       want_cache: bool = True, remat: bool = False):
+                       want_cache: bool = True, remat: bool = False,
+                       gather: Optional[Gather] = None):
         """The layers over a full sequence. With ``want_cache`` also the
         layer-stacked per-layer caches: rope'd K/V ``(L, B, S, Kv, Dh)``
         for attention, the decode state after each row's ``lengths`` prompt
@@ -151,11 +176,14 @@ class Model:
         caches: Dict[str, list] = {prefix: [] for prefix in stacks}
         for kind, prefix, i in self.layers():
             lp = self._layer(stacks[prefix], i)
+            gather_layer = None if gather is None else functools.partial(gather, prefix)
             if remat and not want_cache:
                 x = checkpoint(self._layer_apply, kind, lp, x, positions, lengths,
-                               use_reentrant=False, preserve_rng_state=False)
+                               gather=gather_layer, use_reentrant=False,
+                               preserve_rng_state=False)
                 continue
-            out = self._layer_apply(kind, lp, x, positions, lengths, want_cache)
+            out = self._layer_apply(kind, lp, x, positions, lengths, want_cache,
+                                    gather=gather_layer)
             if want_cache:
                 x, c = out
                 caches[prefix].append(c)
@@ -167,9 +195,14 @@ class Model:
                    for prefix, cs in caches.items() if cs for k in cs[0]}
 
     def _layer_apply(self, kind: str, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
-                     lengths: Optional[torch.Tensor], want_cache: bool = False):
+                     lengths: Optional[torch.Tensor], want_cache: bool = False, *,
+                     gather: Optional[Callable[[Dict], Dict]] = None):
         """One layer over a full sequence: ``x``, or ``(x, cache)`` with
-        ``want_cache``."""
+        ``want_cache``. ``gather`` turns the layer's parameters into full
+        ones first (inside the checkpointed call, so a recompute gathers
+        again)."""
+        if gather is not None:
+            lp = gather(lp)
         if kind == "a":
             x, c = B.attn_block_apply(self.cfg, lp, x, positions, causal=True,
                                       window=self.cfg.window_size)
@@ -180,13 +213,14 @@ class Model:
     # ------------------------------------------------------------------
     # loss
     # ------------------------------------------------------------------
-    def loss(self, params, batch: Dict[str, torch.Tensor], *,
-             remat: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def loss(self, params, batch: Dict[str, torch.Tensor], *, remat: bool = False,
+             gather: Optional[Gather] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The reference's training loss: the float32 mean cross-entropy of
         ``batch["targets"]`` under the logits of ``batch["tokens"]``, plus
         ``MOE_AUX_COEF`` times the auxiliary loss (0 for every ported
-        family). Returns ``(total, {"xent", "aux"})``."""
-        logits, aux = self.apply(params, batch["tokens"], remat=remat)
+        family). Returns ``(total, {"xent", "aux"})``. ``gather``: as
+        :meth:`apply`."""
+        logits, aux = self.apply(params, batch["tokens"], remat=remat, gather=gather)
         xent = softmax_xent_logits(logits, batch["targets"])
         total = xent + MOE_AUX_COEF * aux
         return total, {"xent": xent, "aux": aux}
@@ -300,6 +334,13 @@ class Model:
             else:
                 out[k] = (shape, axes, dt)
         return out, n_pages, sc
+
+    def cache_specs(self, batch: int, seq_len: int):
+        """``(specs, axes)`` of the decode cache: meta tensors and each
+        entry's logical axes."""
+        ent = self.cache_entries(batch, seq_len)
+        specs = {k: torch.empty(s, dtype=d, device="meta") for k, (s, _a, d) in ent.items()}
+        return specs, {k: a for k, (_s, a, _d) in ent.items()}
 
     def init_cache(self, batch: int, seq_len: int, device) -> Dict[str, torch.Tensor]:
         ent = self.cache_entries(batch, seq_len)

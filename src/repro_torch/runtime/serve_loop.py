@@ -33,7 +33,8 @@ from repro_torch.config import (SINGLE_DEVICE_MESH, HardwareSpec, InputShape, Me
 from repro_torch.core.plan_cache import (BucketPolicy, CacheEntry, PlanCache, PlanKey,
                                          bucket_pow2)
 from repro_torch.core.planner import PlanCompiler
-from repro_torch.core.strategies import ExecutionPlan, RuntimeStats
+from repro_torch.core.sharding import tree_shardings, tree_specs
+from repro_torch.core.strategies import ExecutionPlan, PlanConfig, RuntimeStats
 from repro_torch.hw import H100
 from repro_torch.models.model import build_model
 from repro_torch.runtime.engine import (DECODE_SPAN, PREFILL_SPAN,  # noqa: F401  (re-export)
@@ -78,6 +79,18 @@ def make_prefill(model):
     def prefill(params, batch):
         return model.prefill(params, batch["tokens"], lengths=batch.get("lengths"))
     return prefill
+
+
+def cache_shardings(model, batch: int, seq_len: int, plan: PlanConfig,
+                    mesh_cfg: MeshConfig, device_mesh=None):
+    """``(specs, parts, shards)`` of the decode cache under ``plan``: meta
+    tensors, each entry's spec (``core/sharding.py``, kind "cache") and, on a
+    ``device_mesh``, its :class:`~repro_torch.core.sharding.NamedSharding`
+    (None without one). The rules only: serving runs on one card."""
+    specs, axes = model.cache_specs(batch, seq_len)
+    parts = tree_specs(specs, axes, plan, mesh_cfg, "cache")
+    shards = None if device_mesh is None else tree_shardings(device_mesh, parts)
+    return specs, parts, shards
 
 
 def plan_step(model, plan: ExecutionPlan, page: int):

@@ -1,11 +1,11 @@
-"""Training runtime: plan-driven train-step construction (port of the
-single-device part of ``repro/runtime/train_loop.py``).
+"""Training runtime: plan-driven train-step construction and the sharding
+rules of training (port of ``repro/runtime/train_loop.py``).
 
 ``make_train_step`` turns (model, plan, mesh, TrainConfig) into a step
-function whose gradient accumulation, optimizer-state dtype and per-layer
-rematerialisation all come from the *plan*; the model code never sees it.
-This is the runtime half of the paper's compiler: SystemML's generated
-execution plan, here run eagerly on one card.
+function whose gradient accumulation, optimizer-state dtype, per-layer
+rematerialisation and layout over the ranks all come from the *plan*; the
+model code never sees the mesh. This is the runtime half of the paper's
+compiler: SystemML's generated execution plan, here run eagerly.
 
 The step keeps the reference's arithmetic: gradients of ``Model.loss``
 (with ``microbatches`` > 1 accumulated in float32 over equal splits of the
@@ -20,25 +20,51 @@ card already holding parameters, gradients and state. Each layer's
 gradient lands in a tensor of its own (the step hands the model per-layer
 leaves), so no stacked gradient is assembled from per-layer pieces.
 
-Every ported family trains: dense (the flash kernel's training forward and
-the reference's recompute backward), SSM (the SSD kernel's training
-forward and its backward kernel) and hybrid (the RG-LRU scan's training
-forward and backward kernel, and flash). Not ported yet, with the sharding
-rules and parfor (ROADMAP Queue A 14b): ``batch_specs``,
-``opt_state_specs``/``opt_state_axes`` and ``train_shardings``, so a step
-runs on one device.
+On a mesh of more than one device (the reference's train front door uses
+``MeshConfig((n,), ("data",))``) the step runs inside an initialised
+process group with one rank a device, and equals the one-device step on the
+global batch:
+
+* every rank is given the same global batch and takes the rows that
+  :func:`batch_specs` assigns it (all of them where the batch does not
+  split), and backpropagates its token-mean loss weighted by its share of
+  the tokens over all ranks;
+* DP (``params_over_data`` False): parameters replicated; each gradient
+  all-reduced (summed) after the backward pass;
+* FSDP (``params_over_data`` True): each rank holds its block of every
+  parameter and of its optimizer state as :func:`train_shardings` splits
+  them (:func:`shard_params`); a layer's parameters are all-gathered when
+  the layer runs (again in its recompute under remat) and the gather's
+  backward reduce-scatters their gradient, summed in its own dtype
+  (``core/comm.AllGatherDim``);
+  parameters the rules leave whole are all-reduced as under DP;
+* the clipping norm (:func:`global_norm`) sums the squares of the blocks
+  over the ranks, after a power-of-two prescale taken from the largest
+  gradient entry over the ranks;
+* the optimizer updates this rank's blocks in place, one layer at a time.
+
+A ``model`` axis larger than one (tensor, sequence and expert parallelism)
+is not ported: ROADMAP Queue A 14c. Every ported family trains: dense (the
+flash kernel's training forward and the reference's recompute backward),
+SSM (the SSD kernel's training forward and its backward kernel) and hybrid
+(the RG-LRU scan's training forward and backward kernel, and flash).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.config import MeshConfig, TrainConfig
+from repro_torch.core import comm
+from repro_torch.core.sharding import (placements_for, shard_slices, spec_for,
+                                       tree_shardings, tree_specs)
 from repro_torch.core.strategies import PlanConfig
-from repro_torch.nn.optim import get_optimizer
+from repro_torch.nn.optim import OPTIMIZER_SLOTS, get_optimizer
 
 # the families whose full-sequence forward has a backward on the card
 TRAINED_FAMILIES = ("dense", "ssm", "hybrid")
@@ -58,16 +84,167 @@ def init_opt_state(optimizer: str, params: Dict, plan: PlanConfig) -> Dict:
     return {k: opt.init(v, dtype=dt) for k, v in params.items()}
 
 
+def opt_state_specs(optimizer: str, param_specs: Dict, plan: PlanConfig) -> Dict:
+    """Each parameter's optimizer state as meta tensors (its slots, in the
+    plan's state dtype)."""
+    slots = OPTIMIZER_SLOTS[optimizer]
+    dt = opt_state_dtype(plan)
+    return {k: tuple(torch.empty(s.shape, dtype=dt, device="meta") for _ in range(slots))
+            for k, s in param_specs.items()}
+
+
+def opt_state_axes(optimizer: str, param_axes: Dict) -> Dict:
+    slots = OPTIMIZER_SLOTS[optimizer]
+    return {k: tuple(ax for _ in range(slots)) for k, ax in param_axes.items()}
+
+
+# ---------------------------------------------------------------------------
+# batch sharding specs
+# ---------------------------------------------------------------------------
+
+BATCH_AXES_BY_RANK = {
+    2: ("batch", "seq"),
+    3: ("batch", "seq", None),
+}
+
+
+def batch_specs(batch_like: Dict, plan: PlanConfig, mesh_cfg: MeshConfig) -> Dict:
+    out = {}
+    for k, v in batch_like.items():
+        axes = BATCH_AXES_BY_RANK.get(len(v.shape), ("batch",) + (None,) * (len(v.shape) - 1))
+        if k in ("frames", "patch_embeds"):
+            axes = ("batch",) + (None,) * (len(v.shape) - 1)
+        out[k] = spec_for(tuple(v.shape), axes, plan, mesh_cfg, "act")
+    return out
+
+
+def train_shardings(model, plan: PlanConfig, mesh_cfg: MeshConfig, train: TrainConfig,
+                    device_mesh=None):
+    """``(param specs, param spec tuples, placements)`` and the same for the
+    optimizer state: meta tensors, ``core/sharding.py`` specs, and on a
+    ``device_mesh`` each spec's ``NamedSharding`` (None without one)."""
+    pspecs = model.param_specs()
+    paxes = model.param_axes()
+    p_part = tree_specs(pspecs, paxes, plan, mesh_cfg, "param")
+    o_specs = opt_state_specs(train.optimizer, pspecs, plan)
+    o_axes = opt_state_axes(train.optimizer, paxes)
+    o_part = {k: tuple(spec_for(tuple(s.shape), a, plan, mesh_cfg, "opt")
+                       for s, a in zip(o_specs[k], o_axes[k]))
+              for k in o_specs}
+
+    def as_shard(tree):
+        return None if device_mesh is None else tree_shardings(device_mesh, tree)
+
+    return (pspecs, p_part, as_shard(p_part)), (o_specs, o_part, as_shard(o_part))
+
+
+# ---------------------------------------------------------------------------
+# this rank's blocks
+# ---------------------------------------------------------------------------
+
+
+def _coordinate(mesh_cfg: MeshConfig, rank: int) -> tuple:
+    """The mesh coordinate of ``rank`` (ranks fill the mesh row-major)."""
+    return tuple(int(c) for c in np.unravel_index(rank, mesh_cfg.shape))
+
+
+def local_block(full: torch.Tensor, spec, mesh_cfg: MeshConfig, rank: int) -> torch.Tensor:
+    """The block of ``full`` that ``rank`` holds under ``spec`` (a view)."""
+    return full[shard_slices(full.shape, placements_for(spec, mesh_cfg.axis_names),
+                             mesh_cfg.shape, _coordinate(mesh_cfg, rank))]
+
+
+def shard_params(params: Dict, model, plan: PlanConfig, mesh_cfg: MeshConfig,
+                 rank: Optional[int] = None) -> Dict:
+    """This rank's copy of each of ``params`` (full tensors, the same on
+    every rank) under the plan's parameter specs: its block where the spec
+    shards, the whole tensor elsewhere."""
+    rank = dist.get_rank() if rank is None else rank
+    specs = tree_specs(model.param_specs(), model.param_axes(), plan, mesh_cfg, "param")
+    return {k: local_block(p, specs[k], mesh_cfg, rank).clone() for k, p in params.items()}
+
+
+def _shard_dim(spec) -> Optional[int]:
+    """The one dim a data-mesh spec splits, or None."""
+    dims = [i for i, e in enumerate(spec) if e is not None]
+    if len(dims) > 1:
+        raise NotImplementedError(f"spec {spec} splits more than one dim")
+    return dims[0] if dims else None
+
+
 def _check_trainable(model, mesh_cfg: MeshConfig) -> None:
     cfg = model.cfg
     if cfg.family not in TRAINED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family has no training step in the port; "
             f"it trains {', '.join(TRAINED_FAMILIES)} models")
-    if mesh_cfg.num_devices != 1:
+    if mesh_cfg.model_parallelism > 1:
         raise NotImplementedError(
-            f"a train step over {mesh_cfg.num_devices} devices needs the port's sharding "
-            f"rules and parfor (core/sharding.py, core/parfor.py), ROADMAP Queue A 14b")
+            f"a train step over a model axis of {mesh_cfg.model_parallelism} (tensor, sequence "
+            f"and expert parallelism) is not ported: ROADMAP Queue A 14c; the port trains over "
+            f"data axes (DP, FSDP)")
+
+
+class _Ranks:
+    """What a step over the ranks of a data mesh needs: this rank's rows of
+    the global batch, its loss weight, each parameter's split dim (FSDP) and
+    the collectives around the backward pass."""
+
+    def __init__(self, model, plan: PlanConfig, mesh_cfg: MeshConfig, stacked: tuple):
+        self.plan, self.mesh_cfg = plan, mesh_cfg
+        self.world = mesh_cfg.num_devices
+        specs = tree_specs(model.param_specs(), model.param_axes(), plan, mesh_cfg, "param")
+        # each key's split dim in the tensors the model is handed (a stacked
+        # key's per-layer leaves lose the layer dim, which never splits)
+        self.dims = {}
+        for k, spec in specs.items():
+            d = _shard_dim(spec)
+            self.dims[k] = d - 1 if d is not None and k.startswith(stacked) else d
+        # every rank holds as many tokens (batch_specs splits only a batch
+        # that divides evenly; otherwise every rank takes every row), so
+        # each rank's share of the global token count is 1 / world
+        self.weight = 1.0 / self.world
+
+    def check(self) -> None:
+        """The step runs inside a process group of one rank a device."""
+        if not dist.is_initialized():
+            raise RuntimeError(f"a train step over {self.world} devices runs inside an "
+                               f"initialised process group (launch/mesh.init_distributed)")
+        if dist.get_world_size() != self.world:
+            raise ValueError(f"the process group has {dist.get_world_size()} ranks, the mesh "
+                             f"{self.world} devices")
+
+    def rows(self, batch: Dict) -> Dict:
+        """This rank's rows of the global batch."""
+        specs = batch_specs(batch, self.plan, self.mesh_cfg)
+        return {k: local_block(v, specs[k], self.mesh_cfg, dist.get_rank())
+                for k, v in batch.items()}
+
+    def gather(self, prefix: str, tensors: Dict) -> Dict:
+        """``Model.apply``'s FSDP gather: full tensors from this rank's blocks."""
+        return {name: t if self.dims[prefix + name] is None
+                else comm.AllGatherDim.apply(t, self.dims[prefix + name], None)
+                for name, t in tensors.items()}
+
+    def reduce_whole(self, grads: Dict) -> None:
+        """Sums over the ranks the gradients of the parameters every rank
+        holds whole (all of them under DP)."""
+        for k, g in grads.items():
+            if not self.sharded(k):
+                for gi in (g if isinstance(g, list) else [g]):
+                    comm.all_reduce_(gi)
+
+    def sharded(self, k: str) -> bool:
+        """Whether this rank holds a block of ``k`` (FSDP; under DP the
+        rules split no parameter)."""
+        return self.dims[k] is not None
+
+    def counted(self, grads: Dict) -> List[bool]:
+        """Which of the flat gradients this rank adds to the global norm:
+        its blocks, and the whole gradients on rank 0 only."""
+        lead = dist.get_rank() == 0
+        return [self.sharded(k) or lead
+                for k, g in grads.items() for _ in (g if isinstance(g, list) else [g])]
 
 
 def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
@@ -80,6 +257,13 @@ def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
     opt = get_optimizer(train.optimizer)
     stacked = tuple(prefix for prefix, _n, _b in model._stacks())
     m = plan.microbatches
+    ranks = _Ranks(model, plan, mesh_cfg, stacked) if mesh_cfg.num_devices > 1 else None
+    gather = ranks.gather if ranks is not None and plan.params_over_data else None
+
+    def backward(loss: torch.Tensor) -> None:
+        """The loss's backward pass; over ranks, of its share of the global
+        token mean."""
+        (loss if ranks is None else loss * ranks.weight).backward()
 
     def leaves(params: Dict) -> Dict:
         """Leaves sharing the parameters' storage: a layer stack becomes a
@@ -101,8 +285,8 @@ def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
     def compute_grads(params, batch):
         tree = leaves(params)
         if m <= 1:
-            loss, metrics = model.loss(tree, batch, remat=plan.remat)
-            loss.backward()
+            loss, metrics = model.loss(tree, batch, remat=plan.remat, gather=gather)
+            backward(loss)
             return loss.detach(), {k: v.detach() for k, v in metrics.items()}, take_grads(tree)
         b = batch["tokens"].shape[0]
         if b % m:
@@ -112,8 +296,8 @@ def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
         loss_sum = torch.zeros((), device=batch["tokens"].device)
         for i in range(m):
             micro = {k: v[i * bm:(i + 1) * bm] for k, v in batch.items()}
-            loss, _ = model.loss(tree, micro, remat=plan.remat)
-            loss.backward()
+            loss, _ = model.loss(tree, micro, remat=plan.remat, gather=gather)
+            backward(loss)
             g = _flat(take_grads(tree))
             acc = ([x.float() / m for x in g] if acc is None
                    else [a + x.float() / m for a, x in zip(acc, g)])
@@ -139,10 +323,23 @@ def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
                     dst.copy_(src)
 
     def train_step(params: Dict, opt_state: Dict, batch: Dict, step: int):
-        loss, metrics, grads = compute_grads(params, batch)
+        if ranks is None:
+            loss, metrics, grads = compute_grads(params, batch)
+        else:
+            ranks.check()
+            loss, metrics, grads = compute_grads(params, ranks.rows(batch))
+            with torch.no_grad():
+                ranks.reduce_whole(grads)
+                # the global token mean of the loss and its parts
+                parts = torch.stack([loss, metrics["xent"], metrics["aux"]]).float()
+                comm.all_reduce_(parts.mul_(ranks.weight))
+                loss, metrics = parts[0], {"xent": parts[1], "aux": parts[2]}
         if train.grad_clip:
             with torch.no_grad():
-                gnorm = global_norm(_flat(grads))
+                if gather is None:           # every rank holds every gradient whole
+                    gnorm = global_norm(_flat(grads))
+                else:
+                    gnorm = global_norm(_flat(grads), ranks.counted(grads))
                 scale = torch.clamp(train.grad_clip / (gnorm + 1e-9), max=1.0)
                 torch._foreach_mul_(_flat(grads), scale)
         else:
@@ -154,7 +351,8 @@ def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
     return train_step
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: List[torch.Tensor],
+                counted: Optional[List[bool]] = None) -> torch.Tensor:
     """The gradients' global L2 norm: the square root of the float32 sum of
     their squares, as the reference's ``clip_by_global_norm`` takes it, over
     the gradients divided by a power of two at or above their largest
@@ -164,11 +362,21 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     passes ~1.8e19 the unscaled squares overflow to inf and this one stays
     finite. Full-depth Yi-6B at
     the reference's random initialisation has such entries: its residual
-    branches grow the gradient several times a layer."""
+    branches grow the gradient several times a layer. ``counted`` (FSDP)
+    makes it the norm over the ranks: the power of two comes from the
+    largest entry over the ranks, and the squares of the gradients
+    ``counted`` marks are summed over the ranks; without it the norm is this
+    rank's own."""
     amax = torch.stack([g.detach().abs().amax().float() for g in grads]).amax()
+    if counted is not None:
+        comm.all_reduce_(amax, "max")
     _mant, exp = torch.frexp(amax)
     scale = torch.where(amax > 0, torch.ldexp(torch.ones_like(amax), exp), 1.0)
-    total = sum(((g.float() / scale) ** 2).sum() for g in grads)
+    total = sum((((g.float() / scale) ** 2).sum()
+                 for g, c in zip(grads, counted or [True] * len(grads)) if c),
+                torch.zeros((), device=amax.device))
+    if counted is not None:
+        comm.all_reduce_(total)
     return torch.sqrt(total) * scale
 
 

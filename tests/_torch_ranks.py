@@ -1,0 +1,229 @@
+"""Gloo CPU ranks for the port's multi-device tests.
+
+:func:`run_ranks` runs one of the functions below on ``world`` CPU ranks
+through the port's launcher (``repro_torch.launch.ranks``): each rank a
+process with one thread in one gloo group, joined through a file
+rendezvous in the test's ``tmp_path`` (no TCP port: several xdist workers
+run at once), and each rank's pickled return value comes back to the
+parent. The ranks import torch and the port only, never JAX or the JAX
+package: the parent computes the references.
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT / "src") not in sys.path:
+    sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.launch import ranks  # noqa: E402
+
+
+def run_ranks(fn: str, world: int, tmp_path, *args, timeout: int = 240) -> list:
+    """``[fn(rank, world, *args) for rank in range(world)]``, each rank in a
+    process of its own inside one gloo group."""
+    work = Path(tmp_path) / f"{fn}-{world}-{len(list(Path(tmp_path).iterdir()))}"
+    return ranks.run_ranks(globals()[fn], world, work, "cpu", *args, timeout=timeout)
+
+
+# ---------------------------------------------------------------------------
+# what the ranks run
+# ---------------------------------------------------------------------------
+
+
+def parfor_case(rank, world, x, w):
+    """Remote parfor of a softmax scoring body on ``x`` (the same rows on
+    every rank): the gathered rows, the plan, the collectives in a trace of
+    the body and of the mean-reduced parfor, and the mean."""
+    import torch
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from repro_torch.core.parfor import count_collectives, parfor
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh("cpu")
+    x, w = torch.from_numpy(x), torch.from_numpy(w)
+
+    def score(rows):
+        return torch.softmax(rows @ w, dim=-1)
+
+    def summed(rows):
+        return torch.sum(rows @ w, dim=-1, keepdim=True)
+
+    remote, plan = parfor(score, x, mesh=mesh)
+    full = remote.full_tensor()
+    body = make_fx(lambda rows: parfor(score, rows, mesh=mesh)[0])(x).code
+    mean, _ = parfor(summed, x, mesh=mesh, reduce="mean")
+    total, _ = parfor(summed, x, mesh=mesh, reduce="sum")
+    reduced = make_fx(lambda rows: parfor(summed, rows, mesh=mesh, reduce="mean")[0])(x).code
+    return {"plan": plan, "full": full.numpy(), "local": remote.to_local().numpy(),
+            "body_collectives": count_collectives(body),
+            "mean_collectives": count_collectives(reduced), "mean": mean.numpy(),
+            "sum": total.numpy()}
+
+
+def keras_case(rank, world, spec, meta, params, x):
+    """``Keras2Plan(mesh=...).predict_proba`` on given weights."""
+    import torch
+
+    from repro_torch.frontend import Keras2Plan
+    from repro_torch.interop import nn_params_from_numpy
+    from repro_torch.launch.mesh import make_local_mesh
+
+    est = Keras2Plan(spec, meta, mesh=make_local_mesh("cpu"), device="cpu")
+    est.params = nn_params_from_numpy(params, torch.float32, "cpu")
+    probs = est.predict_proba(x)
+    serial = Keras2Plan(spec, meta, device="cpu")
+    serial.params = est.params
+    return {"plan": est._last_score_plan, "probs": probs, "serial": serial.predict_proba(x)}
+
+
+def _plan(arch, strategy, world, batch, seq, **replace):
+    from repro_torch.config import InputShape, MeshConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.planner import compile_plan
+
+    mesh_cfg = MeshConfig((world,), ("data",))
+    shape = InputShape("t", seq, batch, "train")
+    plan = compile_plan(get_config(arch), shape, mesh_cfg, TrainConfig(force_strategy=strategy),
+                        dtype="float32").config
+    return plan.replace(**replace), mesh_cfg
+
+
+def train_case(rank, world, arch, params, cases, steps, batch, seq):
+    """For each case (strategy, optimizer, lr, clip, microbatches):
+    ``steps`` steps of ``make_train_step`` over the ranks from ``params``
+    (full float32 arrays), each rank holding what the plan gives it; per
+    step loss, xent and grad_norm, and the full parameters after the last
+    step (gathered)."""
+    import torch
+
+    from repro_torch.config import InputShape, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.train_loop import (init_opt_state, make_train_step, shard_params,
+                                                train_shardings)
+
+    cfg = get_config(arch)
+    model = build_model(cfg, dtype=torch.float32)
+    full = {k: torch.from_numpy(v) for k, v in params.items()}
+    device_mesh = make_local_mesh("cpu")
+    out = []
+    for strategy, opt, lr, clip, micro in cases:
+        plan, mesh_cfg = _plan(arch, strategy, world, batch, seq, microbatches=micro,
+                               opt_state_dtype="float32")
+        local = shard_params(full, model, plan, mesh_cfg)
+        state = init_opt_state(opt, local, plan)
+        step = make_train_step(model, plan, mesh_cfg,
+                               TrainConfig(optimizer=opt, learning_rate=lr, grad_clip=clip))
+        mets = []
+        for i in range(steps):
+            b = make_batch(cfg, InputShape("t", seq, batch, "train"), step=i,
+                           dtype=torch.float32, device="cpu")
+            local, state, met = step(local, state, b, i)
+            mets.append({k: float(v) for k, v in met.items()})
+        shapes = {k: tuple(v.shape) for k, v in local.items()}
+        (_s, _p, shards), _o = train_shardings(model, plan, mesh_cfg, TrainConfig(), device_mesh)
+        gathered = {k: shards[k].gather(v) for k, v in local.items()}
+        out.append({"plan": (plan.strategy.value, plan.params_over_data, plan.batch_axes),
+                    "metrics": mets, "local_shapes": shapes,
+                    "params": {k: v.numpy() for k, v in gathered.items()} if rank == 0 else None})
+    return out
+
+
+def ckpt_save_case(rank, world, arch, params, path):
+    """Writes ``params`` (full, the same on every rank) as FSDP blocks through
+    ``save_checkpoint(shardings=)``; returns this rank's block shapes."""
+    import torch
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.train_loop import shard_params, train_shardings
+
+    model = build_model(get_config(arch), dtype=torch.float32)
+    plan, mesh_cfg = _plan(arch, "fsdp_tensor_parallel", world, 4, 16)
+    local = shard_params({k: torch.from_numpy(v) for k, v in params.items()}, model, plan,
+                         mesh_cfg)
+    (_s, _p, shards), _o = train_shardings(model, plan, mesh_cfg, TrainConfig(),
+                                           make_local_mesh("cpu"))
+    save_checkpoint(path, local, step=7, shardings=shards)
+    return {k: tuple(v.shape) for k, v in local.items()}
+
+
+def ckpt_load_case(rank, world, arch, path, full_templates):
+    """Restores a checkpoint onto the FSDP layout through
+    ``load_checkpoint(shardings=)``, with block-shaped or full-shaped
+    templates; returns this rank's blocks and the step."""
+    import torch
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.sharding import named_sharding
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.train_loop import shard_params, train_shardings
+
+    model = build_model(get_config(arch), dtype=torch.float32)
+    plan, mesh_cfg = _plan(arch, "fsdp_tensor_parallel", world, 4, 16)
+    (_s, _p, shards), _o = train_shardings(model, plan, mesh_cfg, TrainConfig(),
+                                           make_local_mesh("cpu"))
+    zeros = {k: torch.zeros(v.shape) for k, v in model.param_specs().items()}
+    like = zeros if full_templates else shard_params(zeros, model, plan, mesh_cfg)
+    axes = model.param_axes()
+    for k, v in zeros.items():      # named_sharding gives train_shardings' layout
+        named = named_sharding(shards[k].mesh, tuple(v.shape), axes[k], plan, mesh_cfg)
+        assert named.placements == shards[k].placements and named.spec == shards[k].spec, k
+    restored, step = load_checkpoint(path, like, shardings=shards)
+    coords = {k: [[s.start, s.stop] for s in _slices(shards[k], v.shape)]
+              for k, v in zeros.items()}
+    return {"step": step, "blocks": {k: v.numpy() for k, v in restored.items()},
+            "slices": coords}
+
+
+def _slices(named, shape):
+    from repro_torch.core.sharding import shard_slices
+
+    return shard_slices(shape, named.placements, named.mesh.shape, named.mesh.get_coordinate())
+
+
+def train_cli_case(rank, world, argv):
+    """``launch/train.py``'s entry over the ranks (the process group is
+    already up, as under torchrun): its per-step losses."""
+    from repro_torch.launch import train
+
+    run = train.main(argv)
+    return {"losses": [h["loss"] for h in run.timer.history],
+            "plan": run.plan.config.strategy.value}
+
+
+def comm_case(rank, world):
+    """``core/comm.py``'s collectives on this rank's tensors, and
+    ``AllGatherDim``'s backward."""
+    import torch
+
+    from repro_torch.core import comm
+
+    comm.reset_stats()
+    gen = torch.Generator().manual_seed(rank)
+    # small integers: every sum is exact whatever order the backend adds in
+    a = torch.randint(-64, 64, (3, 4, 6), generator=gen).float()
+    out = {"sum": comm.all_reduce_(a.clone()).numpy(),
+           "max": comm.all_reduce_(a.clone(), "max").numpy(),
+           "gather": {d: comm.all_gather_dim(a, d).numpy() for d in range(3)},
+           "scatter": {d: comm.reduce_scatter_dim(torch.cat([a] * world, d), d).numpy()
+                       for d in range(3)},
+           "mine": a.numpy()}
+    shard = a.clone().requires_grad_()
+    full = comm.AllGatherDim.apply(shard.double(), 1, None)
+    (full * torch.arange(full.numel()).reshape(full.shape)).sum().backward()
+    out["grad"] = shard.grad.numpy()
+    out["calls"] = dict(comm.STATS["calls"])
+    return out

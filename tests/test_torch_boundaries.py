@@ -64,6 +64,13 @@ def test_import_scan_covers_the_training_slice():
     assert ROOT / "tools" / "train_init_sweep.py" in PORT_FILES
 
 
+def test_import_scan_covers_the_multi_device_slice():
+    for name in ("core/sharding.py", "core/parfor.py", "core/comm.py", "core/__init__.py",
+                 "launch/mesh.py", "launch/ranks.py", "runtime/__init__.py"):
+        assert ROOT / "src" / "repro_torch" / name in PORT_FILES, name
+    assert ROOT / "tools" / "gloo_cuda_probe.py" in PORT_FILES
+
+
 @pytest.mark.parametrize("arch", ["mamba2-1.3b-smoke", "recurrentgemma-2b-smoke"])
 def test_train_cli_on_the_recurrent_archs_loads_no_jax(arch):
     """The launcher's run of each family that trains since the SSM/hybrid
@@ -263,11 +270,12 @@ def test_unported_parts_raise_and_name_their_slice():
     for arch in ("qwen3-moe-235b-a22b-smoke", "internvl2-2b-smoke", "whisper-medium-smoke"):
         with pytest.raises(NotImplementedError, match="slice 6"):
             build_model(get_config(arch))
+    # parfor is ported: Keras2Plan takes a mesh (remote scoring:
+    # tests/test_torch_parfor.py), at construction and through set
     spec, meta = softmax_classifier.make_spec(4, 2)
-    with pytest.raises(NotImplementedError, match="core/parfor.py.*slice 5"):
-        Keras2Plan(spec, meta, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="core/parfor.py.*slice 5"):
-        Keras2Plan(spec, meta, device="cpu").set(mesh=object())
+    mesh = object()
+    assert Keras2Plan(spec, meta, mesh=mesh, device="cpu").mesh is mesh
+    assert Keras2Plan(spec, meta, device="cpu").set(mesh=mesh).mesh is mesh
     # the engine and the router are ported: several replicas build a router
     from repro_torch.runtime.router import EngineRouter
 

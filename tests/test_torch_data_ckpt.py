@@ -159,10 +159,34 @@ def test_checkpoint_mismatch_raises_the_reference_errors(tmp_path):
         assert messages[0].startswith("checkpoint mismatch: missing={'b'} extra={'a'}")
 
 
+class _SecondOfTwoRanks:
+    """The parts of a 1-D ("data",) DeviceMesh that a restore reads, as rank 1
+    of 2 sees them (many ranks: tests/test_torch_ckpt_sharded.py)."""
+
+    mesh_dim_names = ("data",)
+    shape = (2,)
+
+    def get_coordinate(self):
+        return [1]
+
+
 def test_checkpoint_restore_with_shardings_names_its_slice(tmp_path):
-    save_checkpoint(str(tmp_path / "ck"), {"a": torch.ones(3)})
-    with pytest.raises(NotImplementedError, match="Queue A 14b"):
-        load_checkpoint(str(tmp_path / "ck"), {"a": torch.ones(3)}, shardings={"a": None})
+    """``shardings`` restores each rank's block: rank 1 of 2 gets the second
+    half of a tensor split on dim 0 and the second columns of one split on
+    dim 1; a tensor whose sharding is None comes back whole."""
+    from repro_torch.core.sharding import PartitionSpec, sharding_of
+
+    full = {"a": torch.arange(6.0), "b": torch.arange(12.0).reshape(3, 4), "c": torch.ones(3)}
+    save_checkpoint(str(tmp_path / "ck"), full)
+    mesh = _SecondOfTwoRanks()
+    shards = {"a": sharding_of(mesh, PartitionSpec("data")),
+              "b": sharding_of(mesh, PartitionSpec(None, "data")), "c": None}
+    like = {"a": torch.zeros(3), "b": torch.zeros(3, 4), "c": torch.zeros(3)}
+    got, _step = load_checkpoint(str(tmp_path / "ck"), like, shardings=shards)
+    assert torch.equal(got["a"], full["a"][3:]) and torch.equal(got["b"], full["b"][:, 2:])
+    assert torch.equal(got["c"], full["c"]) and got["b"].is_contiguous()
+    with pytest.raises(ValueError, match="block"):
+        load_checkpoint(str(tmp_path / "ck"), dict(like, a=torch.zeros(4)), shardings=shards)
 
 
 # ---------------------------------------------------------------------------

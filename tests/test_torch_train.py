@@ -331,10 +331,20 @@ def test_opt_state_follows_the_plan_dtype():
 
 
 def test_multi_device_train_step_raises_and_names_its_slice():
+    """A data mesh builds a step (DP or FSDP; it runs inside a process group
+    of as many ranks: tests/test_torch_train_sharded*.py); a model axis
+    (tensor, sequence and expert parallelism) raises and names its item."""
     model = build_model(get_config("yi-6b-smoke"), dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="Queue A 14b"):
-        make_train_step(model, PlanConfig(strategy=Strategy.LOCAL),
-                        MeshConfig((2,), ("data",)), TrainConfig())
+    for over_data in (False, True):
+        plan = PlanConfig(strategy=Strategy.FSDP if over_data else Strategy.DATA_PARALLEL,
+                          batch_axes=("data",), params_over_data=over_data)
+        step = make_train_step(model, plan, MeshConfig((2,), ("data",)), TrainConfig())
+        assert callable(step)
+        with pytest.raises(RuntimeError, match="process group"):
+            step({}, {}, {}, 0)
+    with pytest.raises(NotImplementedError, match="Queue A 14c"):
+        make_train_step(model, PlanConfig(strategy=Strategy.DP_TP, tensor_parallel=True),
+                        MeshConfig((2, 2), ("data", "model")), TrainConfig())
 
 
 def test_planner_compresses_opt_state_for_yi_6b_on_one_h100():
