@@ -25,6 +25,10 @@ Phases, each of which must pass (nothing is caught):
               (1, 4096, 2560), also under strong and weak decay, at an S
               that neither its chunk nor its tile divides and with lengths - 1
               on chunk and tile edges;
+              and qwen3-moe-235b-a22b's: flash at (8, 2048), 64 query heads
+              on 4 kv heads of 128, causal, bfloat16, beside SDPA, and paged
+              decode at g = 16 (its widest group; the variant read from the
+              trace);
    Then the H100's paged-dispatch figure fitted from the paged kernel's
    device time (beside ``core/cost.py``'s ``PAGED_STEP_LATENCY_S``);
 4. serve-check — Yi-6B widths cut to 2 layers, float32, through
@@ -112,6 +116,20 @@ Phases, each of which must pass (nothing is caught):
               weights) serving phase 5's three requests and a (1, 3000) one in
               the (1, 4096) bucket twice with graphs, every plan paged,
               launches exact, then traced;
+   serve-check-moe — Qwen3-MoE-235B-A22B widths cut to 2 layers,
+              float32: identical token streams under paged, gather, ref and
+              auto (every auto plan paged), graphed == eager, launches exact
+              (flash per layer and prompt pass, paged per layer and tick),
+              and phase 4's engine trace at the dropless capacity factor
+              E / k (its first prompt pass coalesces seven requests, and
+              capacity drops couple the rows of one prompt pass);
+   serve-moe — full-width qwen3-moe-235b-a22b (seeded random weights,
+              bfloat16) at the deepest of 16, 12, 8 and 4 layers whose
+              plans fit 3/4 of the card by the planner's estimate, serving
+              phase 5's three requests twice with graphs, every plan paged,
+              launches exact: prefill ms and decode ms/step beside the
+              expert products' floors, peak memory per bucket against the
+              estimate (above it fails), then traced (idle share);
    analysis — the plan, memory and cost audits (see phase_analysis);
 12. train-check — Yi-6B widths cut to 2 layers, float32, batch 2, seq 512,
               three steps of sgd and of adam (grad_clip 1.0) through
@@ -148,6 +166,19 @@ Phases, each of which must pass (nothing is caught):
               memory against the estimate, one traced step by part (SSD,
               RG-LRU and flash forwards, their backwards, matmul,
               optimizer, other) and the idle share;
+   train-check-moe — Qwen3-MoE-235B-A22B widths cut to 1 layer (15 GB
+              of float32 weights; the step's gradients and Adam state take
+              45 GB), float32, (2, 512), three steps of sgd and of adam
+              (clip 1.0) with flash's training forward against the plain
+              attention path: losses, aux, grad norms and parameters within
+              train-check's tolerances, launches exact;
+   train-moe — full-width qwen3-moe-235b-a22b, bfloat16, (4, 2048), 8
+              Adam steps through ``make_train_step`` at the deepest of 4, 2
+              and 1 layers whose plan fits 3/4 of the card by the planner's
+              estimate, from trainable_params: losses finite and falling,
+              flash launches exact, no plain attention; step ms, tokens/s,
+              MFU over the active parameters, peak against the estimate
+              (above it fails), a traced step by part;
    parfor   — two ranks spawned on the one card in a gloo process group
               (``launch/ranks.py``, a file rendezvous under ``build/``;
               each rank's output printed after it): LeNet with phase 9's
@@ -206,6 +237,7 @@ import sys
 import time
 from dataclasses import replace
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -233,7 +265,7 @@ from repro_torch.configs.lenet import make_spec  # noqa: E402
 from repro_torch.core import comm, cost  # noqa: E402
 from repro_torch.core.parfor import count_collectives, parfor  # noqa: E402
 from repro_torch.core.plan_cache import bucket_pow2 as bucket  # noqa: E402
-from repro_torch.core.planner import compile_plan  # noqa: E402
+from repro_torch.core.planner import PlanCompiler, compile_plan  # noqa: E402
 from repro_torch.data import make_batch  # noqa: E402
 from repro_torch.frontend import Keras2Plan  # noqa: E402
 from repro_torch.hw import sm_count  # noqa: E402
@@ -453,6 +485,22 @@ SHARDED_DEPTHS, CUDA_CONTEXT_BYTES = (32, 16, 8, 4, 2), 2**30
 TRAIN_ARGS = ["--arch", "yi-6b", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_SHAPE[0]),
               "--seq", str(TRAIN_SHAPE[1]), "--dtype", "bfloat16", "--optimizer", "adam",
               "--lr", str(TRAIN_LR), "--log-every", "1"]
+# the MoE phases: MOE_ARCH at full width, depth cut. serve-check-moe serves
+# CHECK_REQUESTS at MOE_CHECK_LAYERS layers in float32; its engine trace
+# runs at a dropless capacity factor (E / k), since a prompt pass that
+# coalesces several requests routes them as one group and capacity drops
+# couple its rows. serve-moe serves SERVE_REQUESTS in bfloat16 at the
+# deepest of MOE_SERVE_DEPTHS whose plans fit 3/4 of the card by the
+# planner's estimate; train-moe trains TRAIN_SHAPE likewise at the deepest
+# of MOE_TRAIN_DEPTHS (TRAIN_STEPS Adam steps at TRAIN_LR, clip 1.0, from
+# trainable_params). train-check-moe holds the flash kernel's path against
+# the plain path at MOE_TRAIN_CHECK_LAYERS layers in float32
+# (TRAIN_CHECK_SHAPE, TRAIN_CHECK_STEPS steps): the embedding, head and
+# one layer's experts are 3.73 B parameters, 15 GB in float32, and the
+# step's parameters, gradients and Adam state take 45 GB of the card
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_CHECK_LAYERS, MOE_TRAIN_CHECK_LAYERS = 2, 1
+MOE_SERVE_DEPTHS, MOE_TRAIN_DEPTHS = (16, 12, 8, 4), (4, 2, 1)
 # the quickstart's generated DML script is byte-equal to the reference's
 # (examples/quickstart.py's): sha256 of the reference's text, which
 # tests/test_torch_data_ckpt.py holds against the reference's generate_dml
@@ -698,6 +746,7 @@ def phase_kernels():
     results["flash_attention_train"] = flash_train_cases(flush, plain_flash)
     results["flash_attention_d256"] = flash_hybrid_cases(flush, plain_flash)
     results["paged_decode_attention_g10_d256"] = paged_hybrid_cases(flush)
+    results.update(moe_kernel_cases(flush, plain_flash))
     results["rglru_scan"] = rglru_kernel_cases(flush)
     results["ssd_scan"] = ssd_kernel_cases(flush)
     results.update(ssd_train_cases(flush))
@@ -900,6 +949,79 @@ def paged_hybrid_cases(flush) -> dict:
     return dict(name="paged_decode_attention_g10_d256", route="cuda",
                 source="src/repro_torch/kernels/csrc/paged_decode.cu",
                 replaces="src/repro/kernels/paged_attention.py:130", library_ms=None, **timed)
+
+
+def moe_kernel_cases(flush, plain_flash) -> dict:
+    """Flash and paged decode at qwen3-moe-235b-a22b's attention shape: 64
+    query heads on 4 kv heads of 128 (g = 16, paged decode's widest group).
+    Flash: the (8, 2000) request's prompt pass in the (8, 2048) bucket,
+    causal, bfloat16, against its plain version in the kernel's order,
+    timed by events and device time beside its plain version, SDPA and its
+    bound. Paged decode: that request mid-decode (pages of 64, Sc 2048),
+    float32 and bfloat16, against its plain version and the kernels' order,
+    the bfloat16 call timed and its variant read from the trace. Returns
+    both kernels-line entries."""
+    b, hq, hkv, d, s = 8, 64, 4, 128, 2048
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    got = FA.flash_attention(q, k, v, causal=True)
+    want = plain_flash(q, k, v, causal=True)
+    err = check_close(f"flash bfloat16 qwen3-moe (B={b}, S={s}, Hq={hq}, Hkv={hkv}, D={d}, "
+                      "causal)", got, want, FLASH_BF16_TOL)
+    del got, want
+    ms = cuda_ms(lambda: FA.flash_attention(q, k, v, causal=True), flush=flush)
+    dev_ms, names = device_ms(lambda: FA.flash_attention(q, k, v, causal=True), "flash", flush)
+    plain_ms = cuda_ms(lambda: FA.flash_attention_torch(q, k, v, causal=True), reps=5,
+                       flush=flush)
+    # yardstick only, never called by the port: the library's fused attention
+    # on the same inputs, K/V expanded to all heads beforehand
+    ke, ve = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True),
+                     flush=flush)
+    del ke, ve
+    flops, nbytes = FA.work(q, k, v, True, 0, -1)
+    bound, by = _bound_ms(nbytes, flops, torch.bfloat16)
+    print(f"  flash timing, qwen3-moe (B={b}, S={s}, g=16): kernel {ms:.4f} ms by events "
+          f"({_tflops(flops, ms)}), device time {_dev(dev_ms)} "
+          f"({', '.join(_short(n) for n in names) or 'no events'}), plain {plain_ms:.3f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms ({_tflops(flops, lib_ms)}), bound "
+          f"{bound:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP)")
+    want_name = FA.kernel_name(d, torch.bfloat16)
+    if names and not any(want_name in n for n in names):
+        fail(f"flash qwen3-moe: the trace holds {sorted(names)}, not {want_name}")
+    flash = dict(name="flash_attention_g16", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:116", max_abs_err=err, ms=ms,
+                 device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                 library_ms=lib_ms)
+    del q, k, v
+
+    sms = sm_count(torch.device("cuda"))
+    page, sc = 64, 2048
+    pos = [2000 + 4 * i for i in range(b)]
+    timed = None
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, PAGED_BF16_TOL)):
+        inputs = _paged_inputs(b, hq, hkv, d, page, sc, pos, dtype, 22)
+        label = f"paged {str(dtype)[6:]} qwen3-moe (B={b}, g=16, D={d}, Sc={sc})"
+        got = PA.paged_decode_attention(*inputs, page=page, sc=sc)
+        qf, kf, vf = (t.float() for t in inputs[:3])
+        want = PA.paged_attention_torch(qf, kf, vf, *inputs[3:], page=page, sc=sc)
+        model = PA.paged_attention_model(*inputs, page=page, sc=sc, sms=sms)
+        torch.cuda.synchronize()
+        perr = check_close(label, got, want, tol)
+        check_close(f"{label} vs the kernel's order", got, model, tol)
+        del got, want, model, qf, kf, vf
+        if dtype == torch.bfloat16:
+            timed = paged_timing(PA, "qwen3-moe (B=8, g=16, D=128, Sc=2048)", inputs, page,
+                                 sc, perr, flush)
+        del inputs
+    timed.pop("steps")
+    paged = dict(name="paged_decode_attention_g16", route="cuda",
+                 source="src/repro_torch/kernels/csrc/paged_decode.cu",
+                 replaces="src/repro/kernels/paged_attention.py:130", library_ms=None, **timed)
+    return {"flash_attention_g16": flash, "paged_decode_attention_g16": paged}
 
 
 def _rglru_inputs(b, s, w, dtype, seed, decay="normal"):
@@ -1799,7 +1921,8 @@ def phase_serve_check():
     torch.cuda.empty_cache()
 
 
-def serve_passes(srv, cfg, decode_kernel=None, requests=SERVE_REQUESTS) -> dict:
+def serve_passes(srv, cfg, decode_kernel=None, requests=SERVE_REQUESTS,
+                 steady: Optional[list] = None) -> dict:
     """Serves ``requests`` (32 new tokens each) twice through
     ``PlanServer.handle``. The first pass compiles each bucket's plans and
     captures its decode graph (``metrics.compile_seconds`` holds both); the
@@ -1807,7 +1930,8 @@ def serve_passes(srv, cfg, decode_kernel=None, requests=SERVE_REQUESTS) -> dict:
     Each request's tokens and logits are checked, each pass's kernel
     launches held against the layer count, the plans' decode kernels and
     the ticks. Fails where ``decode_kernel`` is given and a plan chose
-    another operator. Returns the launches of both passes."""
+    another operator. Returns the launches of both passes; the second
+    pass's results are appended to ``steady`` where it is given."""
     wrappers = _counted_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
@@ -1838,6 +1962,8 @@ def serve_passes(srv, cfg, decode_kernel=None, requests=SERVE_REQUESTS) -> dict:
             fail(f"kernel launches {got} != {want}")
         for k in total:
             total[k] += got[k]
+    if steady is not None:
+        steady.extend(outs)
     print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"({held / 2**30:.2f} GiB held before the passes; the rest arenas, prompt passes "
           f"and the decode graphs' private pools); {srv.summary()}")
@@ -3174,12 +3300,15 @@ def trainable_params(model, seed: int, embed_scale: float = 1.0) -> dict:
     return params
 
 
-def _train_run(model, cfg, plan, opt, shape, init, backend="auto", lr=None) -> tuple:
+def _train_run(model, cfg, plan, opt, shape, init, backend="auto", lr=None,
+               host=False) -> tuple:
     """TRAIN_CHECK_STEPS steps of ``make_train_step`` from a copy of
-    ``init`` under ``ops.BACKEND = backend`` at ``lr`` (default
-    TRAIN_CHECK_LR): (per-step metrics, final params, {wrapper: launches})."""
+    ``init`` (or from what ``init()`` returns, where it is a function) under
+    ``ops.BACKEND = backend`` at ``lr`` (default TRAIN_CHECK_LR): (per-step
+    metrics, final params, {wrapper: launches}); with ``host`` the final
+    params are moved to the host."""
     ops.BACKEND = backend
-    params = {k: v.clone() for k, v in init.items()}
+    params = init() if callable(init) else {k: v.clone() for k, v in init.items()}
     state = init_opt_state(opt, params, plan)
     train = TrainConfig(optimizer=opt, learning_rate=lr or TRAIN_CHECK_LR[opt], grad_clip=1.0)
     step = make_train_step(model, plan, MeshConfig((1,), ("data",)), train)
@@ -3193,6 +3322,8 @@ def _train_run(model, cfg, plan, opt, shape, init, backend="auto", lr=None) -> t
     launches = {fn.__name__: fn.launches for fn in _build.COUNTED}
     ops.BACKEND = "auto"
     del state
+    if host:
+        params = {k: v.cpu() for k, v in params.items()}
     return recs, params, launches
 
 
@@ -3211,8 +3342,9 @@ def _same_trajectory(label, opt, got, want, lr=None) -> None:
     lr = lr or TRAIN_CHECK_LR[opt]
     max_err = max_rms = 0.0
     for k, want_t in wparams.items():
-        want_t = want_t.float()
-        err = (gparams[k].float() - want_t).abs()
+        # on the card, whichever run's parameters the host holds
+        want_t = want_t.to("cuda").float()
+        err = (gparams[k].to("cuda").float() - want_t).abs()
         rms = float(err.pow(2).mean().sqrt()) / max(float(want_t.pow(2).mean().sqrt()), 1e-30)
         if opt == "sgd":
             ok = not bool((err > 1e-5 + 1e-5 * want_t.abs()).any())
@@ -3566,6 +3698,293 @@ def phase_train_recurrent(family: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the MoE family: qwen3-moe-235b-a22b at full width, depth cut
+# ---------------------------------------------------------------------------
+
+MESH1 = MeshConfig((1,), ("data",))
+
+
+def _moe_cfg(layers: int, **kw):
+    return replace(get_config(MOE_ARCH), num_layers=layers, **kw)
+
+
+def _deepest(label: str, est: dict) -> int:
+    """The deepest depth whose estimate fits 3/4 of the card, printed beside
+    every depth's estimate."""
+    card = torch.cuda.get_device_properties(0).total_memory
+    fits = [n for n, e in est.items() if e <= 0.75 * card]
+    print(f"  {label} depth: the planner's estimate by depth "
+          + ", ".join(f"{n} layers {e / 2**30:.2f} GiB" for n, e in est.items())
+          + f" against 3/4 of the card's {card / 2**30:.2f} GiB -> "
+          + (f"{max(fits)} layers (a cut of {get_config(MOE_ARCH).num_layers} to {max(fits)})"
+             if fits else "none fits"))
+    if not fits:
+        fail(f"{label}: no depth of {tuple(est)} fits 3/4 of the card")
+    return max(fits)
+
+
+def moe_serve_depth() -> int:
+    """serve-moe's depth: for each of MOE_SERVE_DEPTHS the largest plan
+    estimate over the prompt-pass and decode plans of SERVE_REQUESTS'
+    buckets, from the planner the server builds (bfloat16, page 64, its pool
+    of arenas, decode_kernel auto)."""
+    config = EngineConfig(dtype="bfloat16", prefill=True, page_size=64, decode_kernel="auto")
+    compiler = PlanCompiler(hw.H100, cache_pool_arenas=config.pool_arenas,
+                            cache_page_size=config.page_size, decode_kernel="auto",
+                            donate_cache=True)
+    buckets = sorted({(bucket(b, 1), bucket(c + SERVE_NEW_TOKENS, 16))
+                      for b, c in SERVE_REQUESTS})
+    est = {n: max(compiler.compile(_moe_cfg(n), InputShape("serve-moe", s, b, kind), MESH1,
+                                   dtype="bfloat16").memory.total
+                  for b, s in buckets for kind in ("prefill", "decode"))
+           for n in MOE_SERVE_DEPTHS}
+    return _deepest("serve-moe", est)
+
+
+def moe_floors(cfg, batch: int, seq: int) -> tuple:
+    """(decode ms a tick, prompt-pass ms) floors of the expert products at
+    ``cfg``'s depth in bfloat16: a decode tick's einsums read every
+    expert's weights (the reference's dense capacity buffer) at the card's
+    memory rate; a (batch, seq) prompt pass's three products over the
+    (E, C, D) buffer at its peak rate."""
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    t = batch * seq
+    cap = int(t * cfg.experts_per_token * cfg.moe_capacity_factor / e) + 1
+    cap = max(8, -(-cap // 8) * 8)
+    tick = cfg.num_layers * 3 * e * d * f * 2 / hw.H100.hbm_bandwidth * 1e3
+    prompt = cfg.num_layers * 3 * 2 * e * cap * d * f / hw.H100.peak_flops * 1e3
+    return tick, prompt, cap
+
+
+def phase_serve_check_moe():
+    phase(f"serve-check-moe: Qwen3-MoE-235B-A22B widths, {MOE_CHECK_LAYERS} layers, float32: "
+          "graphed == eager; paged == gather == ref == auto; the engine trace")
+    t_phase = time.perf_counter()
+    cfg = _moe_cfg(MOE_CHECK_LAYERS)
+    requests = [ServeRequest(batch, ctx, new_tokens=8) for batch, ctx in CHECK_REQUESTS]
+    wrappers = _counted_wrappers()
+    streams, logits, params = {}, {}, None
+    for kernel in ("paged", "gather", "ref", "auto"):
+        srv = PlanServer(cfg, config=EngineConfig(dtype="float32", prefill=True, page_size=64,
+                                                  decode_kernel=kernel, seed=SEED))
+        if params is None:
+            params = srv.params
+        srv.params = params
+        for fn in wrappers.values():
+            fn.launches = 0
+        outs = [srv.handle(r) for r in requests]
+        got = {k: fn.launches for k, fn in wrappers.items()}
+        chosen = [o["plan"].explain_axes()["decode_kernel"] for o in outs]
+        want = launches_expected(cfg, len(requests), sum(
+            o["decode_steps"] for o, k in zip(outs, chosen) if k == "paged"))
+        streams[kernel] = [o["tokens"].cpu().numpy() for o in outs]
+        logits[kernel] = [o["last_logits"].float() for o in outs]
+        print(f"  {kernel}: buckets {[o['bucket'] for o in outs]}, plans chose {chosen}; "
+              f"{[t.tolist() for t in streams[kernel]]}; launches {got} (expected {want})")
+        if got != want:
+            fail(f"moe decode_kernel={kernel}: launches {got} != {want}")
+        if kernel == "auto" and set(chosen) != {"paged"}:
+            fail(f"moe decode_kernel=auto: the plans chose {chosen}, not paged")
+        check_graphed_against_eager(srv, requests, outs, f"moe decode_kernel={kernel}")
+        del srv
+    for kernel in ("gather", "ref", "auto"):
+        for a, c in zip(streams["paged"], streams[kernel]):
+            if not np.array_equal(a, c):
+                fail(f"moe token streams differ between paged and {kernel}")
+        for a, c in zip(logits["paged"], logits[kernel]):
+            if not torch.allclose(a, c, atol=1e-3, rtol=1e-3):
+                fail(f"moe final logits differ between paged and {kernel}")
+    print("  token streams identical across paged, gather, ref and auto")
+    # the engine trace: a decode tick of at most 8 rows never drops (every
+    # expert's capacity is 8 slots and takes at most one pair a row), but
+    # the trace's first prompt pass coalesces seven requests, so it runs at
+    # the dropless capacity factor E / k
+    dropless = replace(cfg, moe_capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    srv = PlanServer(dropless, config=EngineConfig(dtype="float32", prefill=True, page_size=64,
+                                                   decode_kernel="paged", seed=SEED))
+    srv.params = params
+    engine_trace_check(srv, f"Qwen3-MoE {MOE_CHECK_LAYERS} layers, capacity factor "
+                            f"{dropless.moe_capacity_factor:g} (dropless), decode_kernel=paged")
+    del srv, params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  serve-check-moe: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_serve_moe() -> dict:
+    t_phase = time.perf_counter()
+    phase(f"serve-moe: {MOE_ARCH} at full width, bfloat16, page 64, decode_kernel=auto, one "
+          "CUDA graph per bucket")
+    layers = moe_serve_depth()
+    cfg = _moe_cfg(layers)
+    t0 = time.perf_counter()
+    srv = PlanServer(cfg, config=EngineConfig(dtype="bfloat16", prefill=True, page_size=64,
+                                              decode_kernel="auto", seed=SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in srv.params.values())
+    print(f"  weights: {n_params / 1e9:.2f} B parameters ({cfg.active_param_count() / 1e9:.2f} B "
+          f"active a token) at {layers} layers, random from seed {SEED}, built in "
+          f"{time.perf_counter() - t0:.1f} s; {_mem()}")
+    srv.handle(ServeRequest(1, 16, new_tokens=2))     # warm-up: cuBLAS, allocator
+    steady = []
+    launches = serve_passes(srv, cfg, decode_kernel="paged", steady=steady)
+    for req, out in zip(SERVE_REQUESTS, steady):
+        b, c = req
+        bb, s = srv.buckets(b, c + SERVE_NEW_TOKENS)
+        tick, prompt, cap = moe_floors(cfg, bb, s)
+        dec_ms = out["decode_s"] * 1e3 / max(1, out["decode_steps"])
+        print(f"    req {b}x{c} bucket ({bb}, {s}): prefill {out['prefill_s'] * 1e3:.1f} ms "
+              f"against the expert products' floor {prompt:.1f} ms (capacity {cap}); decode "
+              f"{dec_ms:.3f} ms/step against the expert weights' read {tick:.3f} ms")
+    print("  peak memory by bucket (one eager tick and one prompt pass), against the plan's "
+          "estimate:")
+    above = []
+    for b, c in SERVE_REQUESTS:
+        for measure in (memory_audit.measure_decode, memory_audit.measure_prefill):
+            rec, _found = measure(srv, b, c + SERVE_NEW_TOKENS)
+            over = rec["measured_bytes"] > rec["estimate_bytes"]
+            print(f"    {rec['where']}: measured {rec['measured_bytes'] / 2**30:.3f} GiB, "
+                  f"estimate {rec['estimate_bytes'] / 2**30:.3f} GiB"
+                  f"{' — ABOVE the estimate' if over else ''}")
+            if over:
+                above.append(rec["where"])
+    torch.cuda.empty_cache()
+    trace_decode(srv, [ServeRequest(b, c, new_tokens=SERVE_NEW_TOKENS) for b, c in SERVE_REQUESTS])
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  serve-moe: {time.perf_counter() - t_phase:.1f} s")
+    if above:
+        fail(f"serve-moe: measured peaks above the plan's estimate at {above}")
+    return {"flash_attention_g16": launches["flash_attention"],
+            "paged_decode_attention_g16": launches["paged_decode_attention"]}
+
+
+def phase_train_check_moe() -> None:
+    b, s = TRAIN_CHECK_SHAPE
+    phase(f"train-check-moe: Qwen3-MoE-235B-A22B widths, {MOE_TRAIN_CHECK_LAYERS} layer, "
+          f"float32, batch {b}, seq {s}, {TRAIN_CHECK_STEPS} steps, sgd and adam, grad_clip "
+          f"1.0: the flash kernel's path == the plain path")
+    t_phase = time.perf_counter()
+    cfg = _moe_cfg(MOE_TRAIN_CHECK_LAYERS)
+    model = build_model(cfg, dtype=torch.float32)
+    shape = InputShape("train-check-moe", s, b, "train")
+    plan = compile_plan(cfg, shape, MESH1, TrainConfig(), dtype="float32").config
+    print(f"  plan: {plan.strategy.value}, opt state {plan.opt_state_dtype}, remat "
+          f"{plan.remat}, microbatches {plan.microbatches}; {model.param_count() / 1e9:.2f} B "
+          "parameters")
+    # the same seeded weights for every run, made anew on the card each time
+    init = lambda: trainable_params(model, SEED)  # noqa: E731
+    per_step = MOE_TRAIN_CHECK_LAYERS * (1 + plan.remat) * plan.microbatches
+    for opt in ("sgd", "adam"):
+        kern = _train_run(model, cfg, plan, opt, shape, init, host=True)
+        flash = kern[2]["flash_attention_train"]
+        print(f"  {opt}: kernel path {flash} flash_attention_train launches (expected "
+              f"{per_step * TRAIN_CHECK_STEPS}); aux {[round(r['aux'], 6) for r in kern[0]]}")
+        if flash != per_step * TRAIN_CHECK_STEPS:
+            fail(f"train-check-moe {opt}: {flash} launches, expected "
+                 f"{per_step * TRAIN_CHECK_STEPS}")
+        other = _train_run(model, cfg, plan, opt, shape, init, "torch")
+        if other[2]["flash_attention_train"]:
+            fail(f"train-check-moe {opt}: the plain path launched the flash kernel")
+        for g, w in zip(kern[0], other[0]):
+            rel = abs(g["aux"] - w["aux"]) / max(abs(w["aux"]), 1e-30)
+            if not (math.isfinite(g["aux"]) and rel <= 1e-5):
+                fail(f"train-check-moe {opt}: aux {g['aux']} against {w['aux']} (rtol 1e-5)")
+        _same_trajectory(f"moe {opt}, kernel path vs plain", opt, kern, other)
+        del kern, other
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    print(f"  train-check-moe: {time.perf_counter() - t_phase:.1f} s")
+
+
+def moe_train_depth() -> int:
+    b, s = TRAIN_SHAPE
+    est = {n: compile_plan(_moe_cfg(n), InputShape("train-moe", s, b, "train"), MESH1,
+                           TrainConfig(), dtype="bfloat16").memory.total
+           for n in MOE_TRAIN_DEPTHS}
+    return _deepest("train-moe", est)
+
+
+def phase_train_moe() -> None:
+    b, s = TRAIN_SHAPE
+    phase(f"train-moe: {MOE_ARCH} at full width, bfloat16, batch {b}, seq {s}, {TRAIN_STEPS} "
+          f"steps of adam at lr {TRAIN_LR}, grad_clip 1.0, through make_train_step")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = moe_train_depth()
+    cfg = _moe_cfg(layers)
+    shape = InputShape("train-moe", s, b, "train")
+    eplan = compile_plan(cfg, shape, MESH1, TrainConfig(), dtype="bfloat16")
+    plan = eplan.config
+    print(f"  plan: {plan.strategy.value}, opt state {plan.opt_state_dtype}, remat "
+          f"{plan.remat}, microbatches {plan.microbatches}; {eplan.memory.summary()}")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, dtype=torch.bfloat16)
+    params = trainable_params(model, SEED)
+    state = init_opt_state("adam", params, plan)
+    step = make_train_step(model, plan, MESH1, TrainConfig(optimizer="adam",
+                                                           learning_rate=TRAIN_LR, grad_clip=1.0))
+    for fn in _build.COUNTED:
+        fn.launches = 0
+    recs, secs = [], []
+    with _Calls() as plain:
+        for i in range(TRAIN_STEPS):
+            batch = make_batch(cfg, shape, step=i, dtype=torch.bfloat16, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, met = step(params, state, batch, i)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            recs.append({k: float(v) for k, v in met.items()})
+    launches = {fn.__name__: fn.launches for fn in _build.COUNTED}
+    peak = torch.cuda.max_memory_allocated()
+    want = layers * TRAIN_STEPS * (1 + plan.remat) * plan.microbatches
+    losses = [r["loss"] for r in recs]
+    step_s = statistics.median(secs[2:])
+    flops = cost.model_flops_per_step(cfg, shape)
+    print(f"  losses {[round(x, 4) for x in losses]}; aux {[round(r['aux'], 4) for r in recs]}; "
+          f"grad norms {[round(r['grad_norm'], 4) for r in recs]}; step seconds "
+          f"{[round(x, 4) for x in secs]}")
+    print(f"  step {step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS - 1}), "
+          f"{b * s / step_s:.0f} tokens/s, mfu {flops / step_s / hw.H100.peak_flops:.4f} over "
+          f"the active parameters ({cfg.active_param_count() / 1e9:.3f} B of "
+          f"{model.param_count() / 1e9:.3f} B; {flops / 1e12:.1f} model TFLOP a step against "
+          f"{hw.H100.peak_flops / 1e12:.0f} TFLOP/s)")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB against the plan's estimate "
+          f"{eplan.memory.total / 2**30:.2f} GiB"
+          f"{' — ABOVE the estimate' if peak > eplan.memory.total else ''}")
+    print(f"  launches {launches} (flash_attention_train expected {layers} layers x "
+          f"{TRAIN_STEPS} steps x {1 + plan.remat} x {plan.microbatches} = {want}); the model's "
+          f"CPU attention operators called {plain.calls}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train-moe: a loss is not finite: {losses}")
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        fail(f"train-moe: the mean of the last three losses {statistics.mean(losses[-3:])} is "
+             f"not below step 0's {losses[0]}")
+    if launches["flash_attention_train"] != want:
+        fail(f"train-moe: {launches['flash_attention_train']} flash_attention_train launches, "
+             f"expected {want}")
+    if any(plain.calls.values()):
+        fail(f"train-moe: the step on the card took the CPU attention operators {plain.calls}")
+    batch = make_batch(cfg, shape, step=TRAIN_STEPS, dtype=torch.bfloat16, device="cuda")
+    span = "train.step"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(span):
+            step(params, state, batch, TRAIN_STEPS)
+            torch.cuda.synchronize()
+    step_breakdown(prof.events(), span)
+    del prof, batch, params, state, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  train-moe: {time.perf_counter() - t_phase:.1f} s")
+    if peak > eplan.memory.total:
+        fail(f"train-moe: peak {peak} B above the plan's estimate {eplan.memory.total:.0f} B")
+
+
+# ---------------------------------------------------------------------------
 # the multi-device phases: SHARDED_WORLD ranks on the one card
 # ---------------------------------------------------------------------------
 
@@ -3902,12 +4321,16 @@ def main() -> int:
     launches.update(lenet_launches)
     phase_serve_check_hybrid()
     launches.update(phase_serve_hybrid())
+    phase_serve_check_moe()
+    launches.update(phase_serve_moe())
     phase_analysis()
     phase_train_check()
     launches.update(phase_train())
     for family in ("ssm", "hybrid"):
         phase_train_check_recurrent(family)
         launches.update(phase_train_recurrent(family))
+    phase_train_check_moe()
+    phase_train_moe()
     phase_parfor(lenet_weights)
     phase_train_sharded()
     phase_quickstart()
@@ -3920,7 +4343,8 @@ def main() -> int:
                                   "matmul", "conv2d_im2col", "flash_attention_d256",
                                   "paged_decode_attention_g10_d256", "rglru_scan",
                                   "flash_attention_train", "ssd_scan_train", "ssd_scan_bwd",
-                                  "rglru_scan_train", "rglru_scan_bwd")]}
+                                  "rglru_scan_train", "rglru_scan_bwd", "flash_attention_g16",
+                                  "paged_decode_attention_g16")]}
     for entry in line["kernels"]:
         for key in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms"):
             if entry[key] is not None and not math.isfinite(entry[key]):

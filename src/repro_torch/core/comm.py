@@ -18,7 +18,9 @@ NCCL takes every op on CUDA tensors.
 :class:`AllGatherDim` is the FSDP parameter gather as an autograd function:
 its forward all-gathers the shards along one dim, its backward
 reduce-scatters the full gradient back to this rank's block, summing over
-the ranks in the gradient's dtype.
+the ranks in the gradient's dtype. :class:`AllReduceMean` is the mean over
+the ranks with its gradient (the MoE load-balance statistics of a train
+step over a data mesh).
 """
 
 from __future__ import annotations
@@ -92,3 +94,20 @@ class AllGatherDim(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return reduce_scatter_dim(grad, ctx.dim, ctx.group), None, None
+
+
+class AllReduceMean(torch.autograd.Function):
+    """The mean of ``t`` over the ranks. Every rank's loss reads the mean,
+    so its gradient is the mean over the ranks of the gradients reaching
+    it (each rank's loss already weighted by its share)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        world = dist.get_world_size(group)
+        return all_reduce_(t.detach().clone(), group=group).div_(world)
+
+    @staticmethod
+    def backward(ctx, grad):
+        world = dist.get_world_size(ctx.group)
+        return all_reduce_(grad.clone(), group=ctx.group).div_(world), None

@@ -3,13 +3,14 @@
 
 ``*_block_params(cfg)`` gives a block's per-layer specs, ``*_block_apply``
 its full-sequence forward (prefill), ``*_block_decode`` its one-token
-forward with its in-place cache update. The MoE block comes with the slice
-that ports its family.
+forward with its in-place cache update. The attention block's FFN is the
+dense SwiGLU, or for a config with ``num_experts`` the MoE FFN
+(:func:`moe_ffn`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,17 +28,29 @@ DECODE_KERNELS = ("paged", "gather", "ref")
 def attn_block_params(cfg: ModelConfig) -> Dict:
     d, hq, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                         cfg.head_dim, cfg.d_ff)
-    return {
+    p = {
         "ln1": ((d,), (None,), "ones"),
         "wq": ((d, hq, hd), ("embed", "q_heads", "head_dim"), "normal"),
         "wk": ((d, kv, hd), ("embed", "kv_heads", "head_dim"), "normal"),
         "wv": ((d, kv, hd), ("embed", "kv_heads", "head_dim"), "normal"),
         "wo": ((hq, hd, d), ("q_heads", "head_dim", "embed_out"), "normal"),
         "ln2": ((d,), (None,), "ones"),
-        "wg": ((d, f), ("embed", "ffn"), "normal"),
-        "wu": ((d, f), ("embed", "ffn"), "normal"),
-        "wd": ((f, d), ("ffn", "embed_out"), "normal"),
     }
+    if cfg.num_experts:
+        e = cfg.num_experts
+        p.update({
+            "router": ((d, e), ("embed", None), "normal"),
+            "e_wg": ((e, d, f), ("experts", "embed", "ffn"), "normal"),
+            "e_wu": ((e, d, f), ("experts", "embed", "ffn"), "normal"),
+            "e_wd": ((e, f, d), ("experts", "ffn", "embed_out"), "normal"),
+        })
+    else:
+        p.update({
+            "wg": ((d, f), ("embed", "ffn"), "normal"),
+            "wu": ((d, f), ("embed", "ffn"), "normal"),
+            "wd": ((f, d), ("ffn", "embed_out"), "normal"),
+        })
+    return p
 
 
 def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -65,22 +78,32 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return torch.matmul(o.reshape(*o.shape[:-2], h * k), wo.reshape(h * k, d))
 
 
-def _ffn(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    return swiglu(x, p["wg"], p["wu"], p["wd"])
+# a mean over the ranks of a data mesh (``runtime/train_loop.py``), or None
+# on one device
+RanksMean = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _ffn(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+         ranks_mean: RanksMean = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FFN and its auxiliary loss (0.0 for the dense SwiGLU)."""
+    if cfg.num_experts:
+        return moe_ffn(cfg, p, x, ranks_mean)
+    return swiglu(x, p["wg"], p["wu"], p["wd"]), 0.0
 
 
 def attn_block_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                      positions: torch.Tensor, *, causal: bool = True,
-                     window: int = 0):
-    """Full-sequence forward. Returns ``(x_out, {"k", "v"})`` — the rope'd
+                     window: int = 0, ranks_mean: RanksMean = None):
+    """Full-sequence forward. Returns ``(x_out, aux, {"k", "v"})``: the
+    FFN's auxiliary loss (the MoE load-balance loss, else 0) and the rope'd
     K/V in kv-head cache-row form ``(B, S, Kv, Dh)`` for the prefill→decode
     handoff."""
     h = rms_norm(x, p["ln1"])
     q, k, v = _qkv(cfg, p, h, positions)
     o = ATT.attention(q, k, v, causal=causal, window=window)
     x = x + _out_proj(o, p["wo"])
-    out = x + _ffn(p, rms_norm(x, p["ln2"]))
-    return out, {"k": k, "v": v}
+    f, aux = _ffn(cfg, p, rms_norm(x, p["ln2"]), ranks_mean)
+    return x + f, aux, {"k": k, "v": v}
 
 
 def attn_block_decode(
@@ -129,7 +152,8 @@ def attn_block_decode(
             ve = ve.repeat_interleave(g, dim=2)
         o = ATT.decode_attention(q, ke, ve, pos, window=window)
     x = x + _out_proj(o, p["wo"])
-    return x + _ffn(p, rms_norm(x, p["ln2"]))
+    f, _aux = _ffn(cfg, p, rms_norm(x, p["ln2"]))       # decode drops aux
+    return x + f
 
 
 def attn_cache_spec(cfg: ModelConfig, batch: int, seq: int) -> Dict:
@@ -137,6 +161,144 @@ def attn_cache_spec(cfg: ModelConfig, batch: int, seq: int) -> Dict:
     kvshape = (batch, seq, cfg.num_kv_heads, cfg.head_dim)
     axes = ("batch", "seq", "kv_heads", "head_dim")
     return {"k": (kvshape, axes), "v": (kvshape, axes)}
+
+
+# ===========================================================================
+# MoE FFN: sort-based grouped dispatch into a static capacity buffer
+# ===========================================================================
+
+
+def moe_ffn(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+            ranks_mean: RanksMean = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (y (B, S, D), aux), the reference's ``moe_ffn``.
+
+    Top-k routing on float32 softmax probabilities with renormalised gates,
+    a Switch-style load-balance loss from the top-1 density, then the
+    tokens sorted by expert into a static ``(E, C, D)`` buffer (tokens past
+    an expert's capacity ``C`` are dropped), three batched expert products
+    with SiLU, and the gate-weighted combine. Dispatch and combine are
+    gathers both ways (:func:`routing_tables`); their backward passes are
+    the reference's gathers too.
+
+    The reference splits the tokens into one group per data shard (one on
+    one device) and routes each group with the capacity of its own tokens.
+    Here every call routes its tokens as one group: on a data mesh each rank
+    holds one data shard's rows, so routing on the rank is that grouping.
+    ``ranks_mean`` (a mean over those ranks, with its gradient) makes the
+    load-balance statistics global, as the reference's means over the
+    mesh's whole batch are.
+
+    Everything is static in shape and free of host syncs (the capacity is
+    Python arithmetic on shapes), so a decode tick that runs it captures in
+    one CUDA graph."""
+    b, s, d = x.shape
+    e, kk = cfg.num_experts, cfg.experts_per_token
+    t = b * s
+    xf = x.reshape(t, d)
+    # logits in the activation dtype, then float32 (bf16 routing sees the
+    # reference's logits)
+    logits = torch.matmul(xf, p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k: the k largest, the lower index first on ties; torch.topk
+    # promises no tie order, a stable descending sort does
+    top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = top[:, :kk], order[:, :kk]
+    gates = gates / torch.sum(gates, dim=-1, keepdim=True)
+
+    # Switch-style load-balance aux loss
+    experts = torch.arange(e, device=x.device)
+    density = (idx[:, :1] == experts).float().mean(dim=0)
+    prob_mean = probs.mean(dim=0)
+    if ranks_mean is not None:
+        density, prob_mean = ranks_mean(density), ranks_mean(prob_mean)
+    aux = e * torch.sum(density * prob_mean)
+
+    cap = int(t * kk * cfg.moe_capacity_factor / e) + 1  # lint: allow-tracer-host-sync (shapes)
+    cap = max(8, -(-cap // 8) * 8)
+    tables = routing_tables(idx.reshape(t * kk), e, cap)
+    wj = gates.reshape(t * kk).to(x.dtype)
+    buf = _MoEDispatch.apply(xf, kk, *tables).view(e, cap, d)
+    gm = torch.matmul(buf, p["e_wg"])                              # (E, C, F)
+    um = torch.matmul(buf, p["e_wu"])
+    hsil = F.silu(gm.float()).to(x.dtype) * um
+    out_buf = torch.matmul(hsil, p["e_wd"])                        # (E, C, D)
+    y = _MoECombine.apply(out_buf.reshape(e * cap, d), wj, kk, *tables)
+    return y.reshape(b, s, d), aux
+
+
+def routing_tables(flat_e: torch.Tensor, e: int, cap: int) -> Tuple[torch.Tensor, ...]:
+    """Gather-only routing tables of one group, the reference's
+    ``_routing_tables``. ``flat_e`` (T*k,) is the expert of each (token, k)
+    pair, "j" in token-major order. Returns ``(j_of_slot, s_valid,
+    slot_of_j, j_valid)``: both directions of the token <-> slot
+    permutation over the ``(E * cap)`` slots, so dispatch, combine and their
+    gradients are all gathers. Within an expert the slots follow j's order
+    (a stable sort), and j past an expert's ``cap`` slots is dropped."""
+    tgk = flat_e.shape[0]
+    dev = flat_e.device
+    order = torch.argsort(flat_e, stable=True)                     # sorted position -> j
+    inv = torch.argsort(order)                                     # j -> sorted position
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(e + 1, device=dev))
+    # slot -> j
+    slot_ids = torch.arange(e * cap, device=dev)
+    s_e, s_c = slot_ids // cap, slot_ids % cap
+    spos = starts[s_e] + s_c
+    s_valid = spos < starts[s_e + 1]
+    j_of_slot = order[torch.clamp(spos, 0, tgk - 1)]
+    # j -> slot
+    pos_in_e = inv - starts[flat_e]
+    slot_of_j = flat_e * cap + torch.clamp(pos_in_e, max=cap - 1)
+    j_valid = pos_in_e < cap
+    return j_of_slot, s_valid, slot_of_j, j_valid
+
+
+class _MoEDispatch(torch.autograd.Function):
+    """Tokens (T, D) -> the slot buffer (E * cap, D): slot i holds token
+    ``j_of_slot[i] // k``, zeros where the slot is empty. The gradient is
+    the reference's gather: each token sums, over its k pairs, the slot
+    gradient of the slot that pair holds (none where the pair was dropped),
+    in the buffer's dtype."""
+
+    @staticmethod
+    def forward(ctx, xg, kk, j_of_slot, s_valid, slot_of_j, j_valid):
+        ctx.kk, ctx.tokens = kk, xg.shape[0]
+        ctx.save_for_backward(slot_of_j, j_valid)
+        return xg[j_of_slot // kk] * s_valid[:, None].to(xg.dtype)
+
+    @staticmethod
+    def backward(ctx, d_buf):
+        slot_of_j, j_valid = ctx.saved_tensors
+        vals = d_buf[slot_of_j] * j_valid[:, None].to(d_buf.dtype)
+        dx = vals.reshape(ctx.tokens, ctx.kk, d_buf.shape[1]).sum(dim=1).to(d_buf.dtype)
+        return dx, None, None, None, None, None
+
+
+class _MoECombine(torch.autograd.Function):
+    """The slot outputs (E * cap, D) and the gates (T * k,) -> tokens
+    (T, D): each token sums its k pairs' slot outputs weighted by their
+    gates (a dropped pair adds nothing). The gradients are the reference's
+    gathers: a slot's output gradient is its token's gradient times its
+    pair's gate; a pair's gate gradient is the dot of its slot's output
+    with its token's gradient."""
+
+    @staticmethod
+    def forward(ctx, out_flat, wj, kk, j_of_slot, s_valid, slot_of_j, j_valid):
+        ctx.kk = kk
+        ctx.save_for_backward(out_flat, wj, j_of_slot, s_valid, slot_of_j, j_valid)
+        vals = out_flat[slot_of_j] * (wj * j_valid.to(wj.dtype))[:, None]
+        return vals.reshape(wj.shape[0] // kk, kk, out_flat.shape[1]).sum(dim=1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        out_flat, wj, j_of_slot, s_valid, slot_of_j, j_valid = ctx.saved_tensors
+        kk = ctx.kk
+        dyj = dy[j_of_slot // kk]
+        wslot = wj[j_of_slot] * s_valid.to(wj.dtype)
+        d_out = (dyj * wslot[:, None]).to(out_flat.dtype)
+        dy_rep = dy.repeat_interleave(kk, dim=0)                   # j-order tokens
+        d_w = torch.sum(out_flat[slot_of_j] * dy_rep, dim=-1) * j_valid.to(wj.dtype)
+        return d_out, d_w.to(wj.dtype), None, None, None, None, None
 
 
 # ===========================================================================

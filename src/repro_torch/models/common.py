@@ -59,6 +59,9 @@ class SpecBuilder:
                 w = torch.randn(sh, generator=generator, dtype=torch.float32,
                                 device=dev)
                 out[k] = w.mul_(s).to(dt)
+                # the float32 draw goes before the next one is made: a
+                # stacked expert tensor's is 24 GiB at 8 Qwen3-MoE layers
+                del w
         return out
 
 

@@ -1,4 +1,4 @@
-"""Model assembly for the dense, SSM and hybrid families (port of
+"""Model assembly for the dense, MoE, SSM and hybrid families (port of
 ``repro/models/model.py``).
 
 Parameters are a flat dict with the reference's keys and layer-stacked
@@ -6,8 +6,11 @@ layouts (``l.wq`` is ``(L, d, Hq, Dh)``; the hybrid family stacks its RG-LRU
 layers under ``r.`` and its attention layers under ``a.``), so weights
 convert one to one (``repro_torch.interop``). The reference's ``lax.scan``
 over layers, and its unrolled hybrid pattern, become one Python loop over
-the layers in order (:meth:`Model.layers`). The MoE, vision and audio
-families raise ``NotImplementedError`` naming the slice that ports them.
+the layers in order (:meth:`Model.layers`). The MoE family is the dense
+stack with the MoE FFN (``blocks.moe_ffn``); its layers' load-balance losses
+are averaged into the auxiliary loss, as the reference's scan does. The
+vision and audio families raise ``NotImplementedError`` naming the slice
+that ports them.
 
 Training: :meth:`Model.loss` is the reference's loss over the full-sequence
 forward, with the reference's per-layer rematerialisation when the plan asks
@@ -17,7 +20,8 @@ a list of per-layer tensors instead of one stacked tensor: the train step
 (``runtime/train_loop.py``) passes per-layer leaves, so each layer's
 gradient lands in a tensor of its own. Under FSDP the step also hands it a
 ``gather`` that turns each rank's parameter shards into full tensors when
-they are used (:meth:`Model.apply`). :meth:`Model.param_specs`,
+they are used (:meth:`Model.apply`), and a ``ranks_mean`` that makes the MoE
+load-balance statistics means over the ranks. :meth:`Model.param_specs`,
 :meth:`Model.param_axes` and :meth:`Model.cache_specs` give the sharding
 rules (``core/sharding.py``) each tensor's shape and logical axes.
 """
@@ -36,10 +40,9 @@ from repro_torch.models import blocks as B
 from repro_torch.models.common import SpecBuilder, rms_norm, softmax_xent_logits
 
 # family -> the port slice that brings it (ROADMAP.md "Queue A")
-_LATER_SLICES = {"moe": 6, "vlm": 6, "audio": 6}
-_PORTED = ("dense", "ssm", "hybrid")
-# weight of the MoE auxiliary loss in the total (the reference's; no ported
-# family has one)
+_LATER_SLICES = {"vlm": 6, "audio": 6}
+_PORTED = ("dense", "moe", "ssm", "hybrid")
+# weight of the MoE auxiliary loss in the total (the reference's)
 MOE_AUX_COEF = 0.01
 # FSDP's parameter gather: (stack prefix, or "" for the embedding, final
 # norm and head; {name: tensor this rank holds}) -> {name: full tensor}
@@ -53,7 +56,7 @@ def _subtree(params: Dict, prefix: str) -> Dict:
 
 class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16):
-        if cfg.family not in _PORTED or cfg.num_experts or cfg.is_encdec:
+        if cfg.family not in _PORTED or cfg.is_encdec:
             slice_no = _LATER_SLICES.get(cfg.family, 6)
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is ported in slice "
@@ -142,85 +145,95 @@ class Model:
     # full-sequence forward (prefill)
     # ------------------------------------------------------------------
     def apply(self, params, tokens: torch.Tensor, *, last_only: bool = False,
-              remat: bool = False, gather: Optional[Gather] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              remat: bool = False, gather: Optional[Gather] = None,
+              ranks_mean: B.RanksMean = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns ``(logits, aux_loss)``: logits for every position, or
         with ``last_only`` for the final position only (``(B, 1, vocab)``).
-        No ported family has an auxiliary loss (0). With ``remat`` each
+        The auxiliary loss is the mean over the layers of the MoE
+        load-balance loss (0 for every other family). With ``remat`` each
         layer's activations are recomputed in the backward pass.
         ``gather(prefix, tensors)`` (FSDP) turns the parameters this rank
         holds into full ones: the embedding, final norm and head here, each
-        layer's when the layer runs (again in its recompute under remat)."""
+        layer's when the layer runs (again in its recompute under remat).
+        ``ranks_mean`` (a data mesh) takes the MoE load-balance statistics
+        over the ranks (``blocks.moe_ffn``)."""
         if gather is not None:
             params = dict(params)
             params.update(gather("", {k: v for k, v in params.items() if "." not in k}))
-        x, _ = self._stack_prefill(params, self._embed(params, tokens),
-                                   want_cache=False, remat=remat, gather=gather)
+        x, _, aux = self._stack_prefill(params, self._embed(params, tokens), want_cache=False,
+                                        remat=remat, gather=gather, ranks_mean=ranks_mean)
         x = rms_norm(x, params["final_ln"])
         logits = self._logits(params, x[:, -1:] if last_only else x)
-        return logits, torch.zeros((), device=logits.device)
+        return logits, torch.zeros((), device=logits.device) if aux is None else aux
 
     def _stack_prefill(self, params, x, *, lengths: Optional[torch.Tensor] = None,
                        want_cache: bool = True, remat: bool = False,
-                       gather: Optional[Gather] = None):
-        """The layers over a full sequence. With ``want_cache`` also the
-        layer-stacked per-layer caches: rope'd K/V ``(L, B, S, Kv, Dh)``
-        for attention, the decode state after each row's ``lengths`` prompt
-        tokens for SSD and RG-LRU. With ``remat`` (no cache) each layer runs
-        under ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
-        per layer: only its input is kept, and the backward pass runs it
-        again (a layer holds no randomness, so no RNG state is kept)."""
-        cfg = self.cfg
+                       gather: Optional[Gather] = None, ranks_mean: B.RanksMean = None):
+        """The layers over a full sequence: ``(x, caches, aux)``. With
+        ``want_cache`` the caches are the layer-stacked per-layer caches:
+        rope'd K/V ``(L, B, S, Kv, Dh)`` for attention, the decode state
+        after each row's ``lengths`` prompt tokens for SSD and RG-LRU (else
+        None). ``aux`` is the mean of the layers' MoE load-balance losses
+        (None without experts). With ``remat`` (no cache) each layer runs
+        under ``torch.utils.checkpoint``, as the reference's
+        ``jax.checkpoint`` per layer: only its input is kept, and the
+        backward pass runs it again (a layer holds no randomness, so no RNG
+        state is kept)."""
         stacks = {prefix: _subtree(params, prefix) for prefix, _n, _b in self._stacks()}
         positions = torch.arange(x.shape[1], device=x.device)
         caches: Dict[str, list] = {prefix: [] for prefix in stacks}
+        auxs = []
         for kind, prefix, i in self.layers():
             lp = self._layer(stacks[prefix], i)
             gather_layer = None if gather is None else functools.partial(gather, prefix)
             if remat and not want_cache:
-                x = checkpoint(self._layer_apply, kind, lp, x, positions, lengths,
-                               gather=gather_layer, use_reentrant=False,
-                               preserve_rng_state=False)
-                continue
-            out = self._layer_apply(kind, lp, x, positions, lengths, want_cache,
-                                    gather=gather_layer)
-            if want_cache:
-                x, c = out
-                caches[prefix].append(c)
+                x, aux = checkpoint(self._layer_apply, kind, lp, x, positions, lengths,
+                                    gather=gather_layer, ranks_mean=ranks_mean,
+                                    use_reentrant=False, preserve_rng_state=False)
             else:
-                x = out
+                x, aux, *c = self._layer_apply(kind, lp, x, positions, lengths, want_cache,
+                                               gather=gather_layer, ranks_mean=ranks_mean)
+                if want_cache:
+                    caches[prefix].append(c[0])
+            auxs.append(aux)
+        aux = torch.stack(auxs).mean() if self.cfg.num_experts else None
         if not want_cache:
-            return x, None
+            return x, None, aux
         return x, {f"{prefix}{k}": torch.stack([c[k] for c in cs])
-                   for prefix, cs in caches.items() if cs for k in cs[0]}
+                   for prefix, cs in caches.items() if cs for k in cs[0]}, aux
 
     def _layer_apply(self, kind: str, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
                      lengths: Optional[torch.Tensor], want_cache: bool = False, *,
-                     gather: Optional[Callable[[Dict], Dict]] = None):
-        """One layer over a full sequence: ``x``, or ``(x, cache)`` with
-        ``want_cache``. ``gather`` turns the layer's parameters into full
-        ones first (inside the checkpointed call, so a recompute gathers
-        again)."""
+                     gather: Optional[Callable[[Dict], Dict]] = None,
+                     ranks_mean: B.RanksMean = None):
+        """One layer over a full sequence: ``(x, aux)``, or ``(x, aux,
+        cache)`` with ``want_cache``; ``aux`` is the MoE load-balance loss
+        (0.0 without experts). ``gather`` turns the layer's parameters into
+        full ones first (inside the checkpointed call, so a recompute
+        gathers again)."""
         if gather is not None:
             lp = gather(lp)
         if kind == "a":
-            x, c = B.attn_block_apply(self.cfg, lp, x, positions, causal=True,
-                                      window=self.cfg.window_size)
-            return (x, c) if want_cache else x
+            x, aux, c = B.attn_block_apply(self.cfg, lp, x, positions, causal=True,
+                                           window=self.cfg.window_size, ranks_mean=ranks_mean)
+            return (x, aux, c) if want_cache else (x, aux)
         block = B.ssd_block_apply if kind == "s" else B.rglru_block_apply
-        return block(self.cfg, lp, x, lengths=lengths, want_cache=want_cache)
+        out = block(self.cfg, lp, x, lengths=lengths, want_cache=want_cache)
+        return (out[0], 0.0, out[1]) if want_cache else (out, 0.0)
 
     # ------------------------------------------------------------------
     # loss
     # ------------------------------------------------------------------
     def loss(self, params, batch: Dict[str, torch.Tensor], *, remat: bool = False,
-             gather: Optional[Gather] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             gather: Optional[Gather] = None, ranks_mean: B.RanksMean = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The reference's training loss: the float32 mean cross-entropy of
         ``batch["targets"]`` under the logits of ``batch["tokens"]``, plus
-        ``MOE_AUX_COEF`` times the auxiliary loss (0 for every ported
-        family). Returns ``(total, {"xent", "aux"})``. ``gather``: as
-        :meth:`apply`."""
-        logits, aux = self.apply(params, batch["tokens"], remat=remat, gather=gather)
+        ``MOE_AUX_COEF`` times the auxiliary loss (the MoE family's
+        load-balance loss; 0 for the others). Returns ``(total, {"xent",
+        "aux"})``. ``gather``, ``ranks_mean``: as :meth:`apply`."""
+        logits, aux = self.apply(params, batch["tokens"], remat=remat, gather=gather,
+                                 ranks_mean=ranks_mean)
         xent = softmax_xent_logits(logits, batch["targets"])
         total = xent + MOE_AUX_COEF * aux
         return total, {"xent": xent, "aux": aux}
@@ -247,8 +260,8 @@ class Model:
             lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
         lengths = lengths.to(device=dev, dtype=torch.int32)
         cache_len = cache_len or s
-        x, cache = self._stack_prefill(params, self._embed(params, tokens),
-                                       lengths=lengths)
+        x, cache, _aux = self._stack_prefill(params, self._embed(params, tokens),
+                                             lengths=lengths)
         x = rms_norm(x, params["final_ln"])
         # the reference's take_along_axis clamps; lengths >= 1 on every path
         last = torch.clamp(lengths.long() - 1, 0, s - 1)

@@ -41,13 +41,19 @@ global batch:
 * the clipping norm (:func:`global_norm`) sums the squares of the blocks
   over the ranks, after a power-of-two prescale taken from the largest
   gradient entry over the ranks;
-* the optimizer updates this rank's blocks in place, one layer at a time.
+* the optimizer updates this rank's blocks in place, one layer at a time;
+* an MoE layer routes this rank's rows (the reference's group of one data
+  shard) and takes its load-balance statistics as means over the ranks
+  (``comm.AllReduceMean``), so its auxiliary loss is the global batch's.
 
 A ``model`` axis larger than one (tensor, sequence and expert parallelism)
 is not ported: ROADMAP Queue A 14c. Every ported family trains: dense (the
 flash kernel's training forward and the reference's recompute backward),
-SSM (the SSD kernel's training forward and its backward kernel) and hybrid
-(the RG-LRU scan's training forward and backward kernel, and flash).
+MoE (the same attention; the expert dispatch and combine with the
+reference's gather-only backward), SSM (the SSD kernel's training forward
+and its backward kernel) and hybrid (the RG-LRU scan's training forward and
+backward kernel, and flash). The step's metrics carry the MoE auxiliary
+loss as ``aux`` beside ``xent``, as the reference's loss returns them.
 """
 
 from __future__ import annotations
@@ -67,7 +73,7 @@ from repro_torch.core.strategies import PlanConfig
 from repro_torch.nn.optim import OPTIMIZER_SLOTS, get_optimizer
 
 # the families whose full-sequence forward has a backward on the card
-TRAINED_FAMILIES = ("dense", "ssm", "hybrid")
+TRAINED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # the optimizer update's span in a torch.profiler trace
 OPTIMIZER_SPAN = "train.optimizer"
 
@@ -220,6 +226,11 @@ class _Ranks:
         return {k: local_block(v, specs[k], self.mesh_cfg, dist.get_rank())
                 for k, v in batch.items()}
 
+    @staticmethod
+    def mean(t: torch.Tensor) -> torch.Tensor:
+        """``Model.loss``'s ``ranks_mean``: the mean over the ranks."""
+        return comm.AllReduceMean.apply(t, None)
+
     def gather(self, prefix: str, tensors: Dict) -> Dict:
         """``Model.apply``'s FSDP gather: full tensors from this rank's blocks."""
         return {name: t if self.dims[prefix + name] is None
@@ -259,6 +270,7 @@ def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
     m = plan.microbatches
     ranks = _Ranks(model, plan, mesh_cfg, stacked) if mesh_cfg.num_devices > 1 else None
     gather = ranks.gather if ranks is not None and plan.params_over_data else None
+    ranks_mean = ranks.mean if ranks is not None else None
 
     def backward(loss: torch.Tensor) -> None:
         """The loss's backward pass; over ranks, of its share of the global
@@ -285,7 +297,8 @@ def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
     def compute_grads(params, batch):
         tree = leaves(params)
         if m <= 1:
-            loss, metrics = model.loss(tree, batch, remat=plan.remat, gather=gather)
+            loss, metrics = model.loss(tree, batch, remat=plan.remat, gather=gather,
+                                       ranks_mean=ranks_mean)
             backward(loss)
             return loss.detach(), {k: v.detach() for k, v in metrics.items()}, take_grads(tree)
         b = batch["tokens"].shape[0]
@@ -296,7 +309,8 @@ def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
         loss_sum = torch.zeros((), device=batch["tokens"].device)
         for i in range(m):
             micro = {k: v[i * bm:(i + 1) * bm] for k, v in batch.items()}
-            loss, _ = model.loss(tree, micro, remat=plan.remat, gather=gather)
+            loss, _ = model.loss(tree, micro, remat=plan.remat, gather=gather,
+                                 ranks_mean=ranks_mean)
             backward(loss)
             g = _flat(take_grads(tree))
             acc = ([x.float() / m for x in g] if acc is None

@@ -266,8 +266,12 @@ def test_unported_parts_raise_and_name_their_slice():
         assert "".join(k for k, _p, _i in model.layers())[:3] == kinds
         assert {k.split(".")[0] for k in model.sb.shapes()} >= {"r", "a"}
     assert build_model(get_config("mamba2-1.3b-smoke")).is_ssm   # ported
-    # the moe, vlm and audio families still raise and name their slice
-    for arch in ("qwen3-moe-235b-a22b-smoke", "internvl2-2b-smoke", "whisper-medium-smoke"):
+    # the moe family is ported: its configs build, full and reduced
+    for arch in ("qwen3-moe-235b-a22b", "qwen3-moe-235b-a22b-smoke", "dbrx-132b",
+                 "dbrx-132b-smoke"):
+        assert "l.e_wg" in build_model(get_config(arch)).sb.entries
+    # the vlm and audio families still raise and name their slice
+    for arch in ("internvl2-2b-smoke", "whisper-medium-smoke"):
         with pytest.raises(NotImplementedError, match="slice 6"):
             build_model(get_config(arch))
     # parfor is ported: Keras2Plan takes a mesh (remote scoring:

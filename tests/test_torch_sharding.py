@@ -50,10 +50,9 @@ MESHES = {
     "multi-pod": port_config.MULTI_POD_MESH,
 }
 ARCHES = [a + s for a in ARCH_IDS for s in ("", "-smoke")]
-PORTED = ("dense", "ssm", "hybrid")
+PORTED = ("dense", "moe", "ssm", "hybrid")
 # the archs whose model the port builds (the other families: Queue A 15)
-PORTED_ARCHES = [a for a in ARCHES
-                 if get_config(a).family in PORTED and not get_config(a).num_experts]
+PORTED_ARCHES = [a for a in ARCHES if get_config(a).family in PORTED]
 # activation axes the reference's model code constrains, beside batch_specs
 ACT_AXES = (("batch", "seq", "embed"), ("batch", "seq", "q_heads", "head_dim"),
             ("batch", "seq", "ffn"), ("batch", "seq", "vocab"))
@@ -101,7 +100,7 @@ def test_param_and_opt_specs_equal_reference(arch, mesh_name):
     jm = jax_build(jcfg, dtype=jnp.bfloat16)
     jspecs, jaxes = jm.param_specs(), jm.param_axes()
     shapes = {k: _meta(s.shape) for k, s in jspecs.items()}
-    if cfg.family in PORTED and not cfg.num_experts:
+    if cfg.family in PORTED:
         model = build_model(cfg, dtype=torch.bfloat16)
         assert model.param_axes() == jaxes
         assert {k: tuple(v.shape) for k, v in model.param_specs().items()} == \
@@ -183,7 +182,7 @@ def test_cache_specs_and_cache_shardings_equal_reference(arch, mesh_name):
     mesh = MESHES[mesh_name]
     cfg, jcfg = get_config(arch), jax_config(arch)
     jm = jax_build(jcfg, dtype=jnp.bfloat16)
-    ported = cfg.family in PORTED and not cfg.num_experts
+    ported = cfg.family in PORTED
     model = build_model(cfg, dtype=torch.bfloat16) if ported else None
     for shape, plan, jplan in _plans(cfg, mesh):
         if shape.kind == "train":

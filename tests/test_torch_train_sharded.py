@@ -4,6 +4,10 @@ yields for ``MeshConfig((2,), ("data",))``) against the reference's
 single-device ``make_train_step`` on the same weights and global batch
 (``tests/_torch_train_ref.py``; 4 ranks: ``test_torch_train_sharded_world4.py``,
 the SSM and hybrid families: ``test_torch_train_sharded_recurrent.py``).
+The MoE family (``qwen3-moe-235b-a22b-smoke``, dropless) takes a DP and an
+FSDP case: each rank routes its own rows (the reference's group of one data
+shard), takes the load-balance statistics as means over the ranks, and
+under FSDP gathers the ``(E, D, F)`` expert leaves from their blocks.
 
 The reference's own multi-device test cannot run on this container
 (``tests/test_parfor_multidev.py::test_sharded_train_step_multidev``,
@@ -13,16 +17,19 @@ the cases share one process group. Each rank of an FSDP case holds a block
 of every parameter the rules split: its block shapes are checked too.
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from _torch_ranks import run_ranks  # noqa: E402
-from _torch_train_ref import (ARCH, BATCH, CASES, SEQ, STEPS, case_id, check_blocks,  # noqa: E402
-                              check_case, reference)
+from _torch_train_ref import (ARCH, BATCH, CASES, DP, FSDP, SEQ, STEPS, case_id,  # noqa: E402
+                              check_blocks, check_case, reference)
 
 torch.set_num_threads(2)
 WORLD = 2
+MOE_ARCH = "qwen3-moe-235b-a22b-smoke"
+MOE_CASES = [(DP, "sgd", 1e-3, 1.0, 1), (FSDP, "adam", 1e-4, 1.0, 1)]
 
 
 @pytest.fixture(scope="module")
@@ -43,3 +50,26 @@ def test_sharded_step_equals_reference_single_device_step(rank_run, case):
     for out in outs[1:]:
         assert out["metrics"] == outs[0]["metrics"]
     check_case(outs[0], want_mets, want_params, opt, lr)
+
+
+@pytest.fixture(scope="module")
+def moe_rank_run(tmp_path_factory):
+    init = reference(MOE_ARCH, "sgd", 1e-3, 1.0, 1)[0]
+    return run_ranks("train_case", WORLD, tmp_path_factory.mktemp("ranks"), MOE_ARCH, init,
+                     MOE_CASES, STEPS, BATCH, SEQ)
+
+
+@pytest.mark.parametrize("case", MOE_CASES, ids=case_id)
+def test_moe_sharded_step_equals_reference_single_device_step(moe_rank_run, case):
+    _strategy, opt, lr, clip, micro = case
+    init, want_mets, want_params = reference(MOE_ARCH, opt, lr, clip, micro)
+    outs = [r[MOE_CASES.index(case)] for r in moe_rank_run]
+    check_blocks(outs, case, WORLD, init)
+    for out in outs[1:]:
+        assert out["metrics"] == outs[0]["metrics"]
+    for got, want in zip(outs[0]["metrics"], want_mets, strict=True):
+        np.testing.assert_allclose(got["aux"], want["aux"], rtol=1e-5)
+        assert got["aux"] > 0.0
+    check_case(outs[0], want_mets, want_params, opt, lr)
+    if case[0] == FSDP:       # the expert leaves are split over the ranks
+        assert outs[0]["local_shapes"]["l.e_wg"] != init["l.e_wg"].shape
