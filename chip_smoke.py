@@ -29,6 +29,15 @@ Phases, each of which must pass (nothing is caught):
               on 4 kv heads of 128, causal, bfloat16, beside SDPA, and paged
               decode at g = 16 (its widest group; the variant read from the
               trace);
+              and the vision and audio families': flash at D = 64 over
+              Whisper's 1500 frames (bidirectional, a ragged tail), at one
+              query row against them (the cross read of a decode tick), at
+              its decoder's training shapes (448 queries against 1500 keys;
+              causal at 448), and at InternVL2's 16/8 heads of 128; the
+              training forward and its backward at Whisper's shapes; paged
+              decode at g = 1, D = 64 and g = 2, D = 128; the encoder and
+              cross-read shapes and both paged shapes timed beside SDPA and
+              their bounds;
    Then the H100's paged-dispatch figure fitted from the paged kernel's
    device time (beside ``core/cost.py``'s ``PAGED_STEP_LATENCY_S``);
 4. serve-check — Yi-6B widths cut to 2 layers, float32, through
@@ -130,6 +139,27 @@ Phases, each of which must pass (nothing is caught):
               launches exact: prefill ms and decode ms/step beside the
               expert products' floors, peak memory per bucket against the
               estimate (above it fails), then traced (idle share);
+   serve-check-vlm, serve-check-audio — InternVL2-2B's and Whisper-medium's
+              widths cut to 2 layers (a stack), float32, through
+              ``PlanServer`` (InternVL2 with prefill=True, which hands no
+              cache to decode; Whisper with prefill=False, the reference's
+              one engine shape for an encoder-decoder): identical streams
+              under paged, gather, ref and auto (every auto plan paged),
+              graphed == eager, launches exact (Whisper's cross read is
+              flash per decoder layer and tick), the plain path
+              (``ops.BACKEND = "torch"``, eager) equal; Whisper also at the
+              model level: build_cross_cache kernel == plain, 16 greedy
+              tokens over the cross K/V graphed == eager == plain;
+   serve-vlm — full internvl2-2b (24 layers, bfloat16, seeded weights)
+              serving phase 5's three requests twice, every plan paged,
+              launches exact, peaks per bucket against the estimate, traced;
+   serve-audio — full whisper-medium (24 + 24 layers, bfloat16): (a) 8 rows
+              of seeded frames through build_cross_cache (24 flash
+              launches, encoder ms), 64 greedy tokens through the paged
+              decode step at 448 slots, one CUDA graph (graph_step), equal
+              to eager, launches exact, ms/tick and its device time by
+              kind; (b) PlanServer with prefill=False serving (1, 64),
+              (4, 192), (8, 384) twice, launches exact, peaks, traced;
    analysis — the plan, memory and cost audits (see phase_analysis);
 12. train-check — Yi-6B widths cut to 2 layers, float32, batch 2, seq 512,
               three steps of sgd and of adam (grad_clip 1.0) through
@@ -179,6 +209,16 @@ Phases, each of which must pass (nothing is caught):
               flash launches exact, no plain attention; step ms, tokens/s,
               MFU over the active parameters, peak against the estimate
               (above it fails), a traced step by part;
+   train-check-vlm, train-vlm, train-check-audio, train-audio — the same
+              pair for internvl2-2b (full depth, (4, 2048) after its 256
+              patch-prefix tokens) and whisper-medium (full depth, (8, 448)
+              over 1500 frames): twins at 2 layers in float32 (kernel path
+              == plain path), then 8 Adam steps in bfloat16 from
+              trainable_params through make_train_step: losses finite and
+              falling, flash launches exact (Whisper: encoder, decoder and
+              cross, each layer), no plain attention; step ms, tokens/s,
+              MFU (6 N tokens, the encoder's over its frames), peak against
+              the estimate, a traced step by part;
    parfor   — two ranks spawned on the one card in a gloo process group
               (``launch/ranks.py``, a file rendezvous under ``build/``;
               each rank's output printed after it): LeNet with phase 9's
@@ -193,8 +233,9 @@ Phases, each of which must pass (nothing is caught):
               (2, 512), 3 adam steps under the planner's FSDP and DP plans
               for mesh (2,), against one process's ``make_train_step`` under
               train-check's tolerances, launches exact; (b) Yi-6B's full
-              widths at the deepest depth whose two ranks fit within 3/4 of
-              the card (the planner's per-card estimate), bfloat16, (4, 2048), 8 adam steps, FSDP:
+              widths at the deepest of 4 and 2 layers whose two ranks fit
+              within 3/4 of the card (the planner's per-card estimate),
+              bfloat16, (4, 2048), 8 adam steps, FSDP:
               per rank step ms, tokens/s, peak memory against the planner's
               per-card estimate, collective calls and bytes a step, flash
               launches exact, losses falling. A rank that does not start,
@@ -291,7 +332,7 @@ from repro_torch.nn import loss as LOSS  # noqa: E402
 from repro_torch.nn.module import Sequential  # noqa: E402
 from repro_torch.runtime.engine import ServingEngine  # noqa: E402
 from repro_torch.runtime.engine_config import EngineConfig  # noqa: E402
-from repro_torch.runtime.graph_step import tick  # noqa: E402
+from repro_torch.runtime.graph_step import GraphDecodeStep, tick  # noqa: E402
 from repro_torch.runtime.router import EngineRouter  # noqa: E402
 from repro_torch.runtime.scheduler import (ContinuousBatchingScheduler,  # noqa: E402
                                            simulate_arrivals)
@@ -477,11 +518,14 @@ TRAIN_STEPS, TRAIN_SHAPE, TRAIN_LR = 8, (4, 2048), 3e-4
 # checks SHARDED_CHECKS' widths at 2 layers, float32, global batch
 # SHARDED_CHECK_SHAPE, against one process; (b) trains full Yi-6B widths on
 # SHARDED_TRAIN_SHAPE in bfloat16 at the deepest of SHARDED_DEPTHS whose
-# ranks fit the card, a rank's CUDA context counted as CUDA_CONTEXT_BYTES
+# ranks fit the card, a rank's CUDA context counted as CUDA_CONTEXT_BYTES.
+# (b) stops at 4 layers: its step is set by gloo's ~0.7 GB/s across the
+# host, and at 8 layers (the deepest that fits) its 8 steps took 128 s of
+# a 900 s run (PERF.md, PR 28)
 SHARDED_WORLD, SHARDED_TIMEOUT_S, PARFOR_ROWS = 2, 600, 2048
 SHARDED_CHECKS = (("yi-6b", dict(num_layers=2)), ("mamba2-1.3b", dict(num_layers=2)))
 SHARDED_CHECK_SHAPE, SHARDED_TRAIN_SHAPE = (2, 512), (4, 2048)
-SHARDED_DEPTHS, CUDA_CONTEXT_BYTES = (32, 16, 8, 4, 2), 2**30
+SHARDED_DEPTHS, CUDA_CONTEXT_BYTES = (4, 2), 2**30
 TRAIN_ARGS = ["--arch", "yi-6b", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_SHAPE[0]),
               "--seq", str(TRAIN_SHAPE[1]), "--dtype", "bfloat16", "--optimizer", "adam",
               "--lr", str(TRAIN_LR), "--log-every", "1"]
@@ -501,6 +545,19 @@ TRAIN_ARGS = ["--arch", "yi-6b", "--steps", str(TRAIN_STEPS), "--batch", str(TRA
 MOE_ARCH = "qwen3-moe-235b-a22b"
 MOE_CHECK_LAYERS, MOE_TRAIN_CHECK_LAYERS = 2, 1
 MOE_SERVE_DEPTHS, MOE_TRAIN_DEPTHS = (16, 12, 8, 4), (4, 2, 1)
+# the vision and audio phases: VLM_ARCH and AUDIO_ARCH at full width and
+# depth in bfloat16, their twins at ENCDEC_CHECK_LAYERS layers (a stack) in
+# float32. Whisper serves (a) at the model level: AUDIO_ROWS rows of seeded
+# frames through build_cross_cache, then AUDIO_DECODE_TOKENS greedy tokens
+# in a context of AUDIO_CONTEXT slots (Whisper's published decoder
+# context), and (b) through PlanServer with prefill=False (the reference's
+# one engine shape for an encoder-decoder) on AUDIO_SERVE_REQUESTS.
+# InternVL2 trains on VLM_TRAIN_SHAPE text tokens after its 256-token
+# prefix, Whisper on AUDIO_TRAIN_SHAPE decoder tokens over 1500 frames
+VLM_ARCH, AUDIO_ARCH, ENCDEC_CHECK_LAYERS = "internvl2-2b", "whisper-medium", 2
+AUDIO_ROWS, AUDIO_CONTEXT, AUDIO_DECODE_TOKENS = 8, 448, 64
+AUDIO_SERVE_REQUESTS = ((1, 64), (4, 192), (8, 384))
+VLM_TRAIN_SHAPE, AUDIO_TRAIN_SHAPE = (4, 2048), (8, 448)
 # the quickstart's generated DML script is byte-equal to the reference's
 # (examples/quickstart.py's): sha256 of the reference's text, which
 # tests/test_torch_data_ckpt.py holds against the reference's generate_dml
@@ -747,6 +804,7 @@ def phase_kernels():
     results["flash_attention_d256"] = flash_hybrid_cases(flush, plain_flash)
     results["paged_decode_attention_g10_d256"] = paged_hybrid_cases(flush)
     results.update(moe_kernel_cases(flush, plain_flash))
+    results.update(encdec_kernel_cases(flush, plain_flash))
     results["rglru_scan"] = rglru_kernel_cases(flush)
     results["ssd_scan"] = ssd_kernel_cases(flush)
     results.update(ssd_train_cases(flush))
@@ -1022,6 +1080,152 @@ def moe_kernel_cases(flush, plain_flash) -> dict:
                  source="src/repro_torch/kernels/csrc/paged_decode.cu",
                  replaces="src/repro/kernels/paged_attention.py:130", library_ms=None, **timed)
     return {"flash_attention_g16": flash, "paged_decode_attention_g16": paged}
+
+
+def encdec_kernel_cases(flush, plain_flash) -> dict:
+    """Flash and paged decode at the vision and audio families' shapes.
+    Flash, float32 and bfloat16, each against its plain version: Whisper's
+    encoder (8 rows, 16 heads of 64, 1500 frames, bidirectional: a ragged
+    tail of 28 keys past 23 64-key tiles), its cross read in a decode tick
+    (one query row against 1500 keys; 63 of the 64-row query tile are
+    padding), its decoder's training shapes (cross: 448 queries against 1500
+    keys; self: causal at 448, g = 1) and InternVL2's prompt pass (16 query
+    heads on 8 kv heads of 128, S = 2048, causal). The training forward at
+    Whisper's two training shapes: its output bit for bit the serving op's,
+    its lse and its recompute backward (a ragged last chunk of 476 keys)
+    against the plain versions. Paged decode at g = 1, D = 64 (Whisper's
+    decoder, Sc = 448) and g = 2, D = 128 (InternVL2, Sc = 2048), at page
+    edges and mid-decode. The encoder and cross-read shapes and both paged
+    shapes timed in bfloat16. Returns their four kernels-line entries."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    shapes = {  # name: (b, hq, hkv, d, sq, sk, causal)
+        "whisper encoder": (8, 16, 16, 64, 1500, 1500, False),
+        "whisper cross decode": (8, 16, 16, 64, 1, 1500, False),
+        "whisper cross train": (8, 16, 16, 64, 448, 1500, False),
+        "whisper decoder train": (8, 16, 16, 64, 448, 448, True),
+        "internvl2 prompt": (4, 16, 8, 128, 2048, 2048, True),
+    }
+
+    def inputs(name, dtype):
+        b, hq, hkv, d, sq, sk, _causal = shapes[name]
+        return tuple(torch.randn(sh, generator=gen, device="cuda").to(dtype)
+                     for sh in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+
+    def label(name):
+        b, hq, hkv, d, sq, sk, causal = shapes[name]
+        return (f"{name} (B={b}, Hq={hq}, Hkv={hkv}, D={d}, Sq={sq}, Sk={sk}, "
+                f"{'causal' if causal else 'bidirectional'})")
+
+    timed = {"flash_attention_d64": "whisper encoder",
+             "flash_attention_cross_decode": "whisper cross decode"}
+    kept = {}
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, FLASH_BF16_TOL)):
+        for name, shape in shapes.items():
+            q, k, v = inputs(name, dtype)
+            got = FA.flash_attention(q, k, v, causal=shape[-1])
+            want = plain_flash(q, k, v, causal=shape[-1])
+            torch.cuda.synchronize()
+            err = check_close(f"flash {str(dtype)[6:]} {label(name)}", got, want, tol)
+            del got, want
+            if dtype == torch.bfloat16 and name in timed.values():
+                kept[name] = (q, k, v, err)
+            del q, k, v
+    for name in ("whisper cross train", "whisper decoder train"):
+        for dtype in (torch.float32, torch.bfloat16):
+            flash_train_check(f"flash_train {str(dtype)[6:]} {label(name)}",
+                              *inputs(name, dtype), shapes[name][-1])
+            torch.cuda.empty_cache()
+
+    entries = {}
+    for key, name in timed.items():
+        q, k, v, err = kept.pop(name)
+
+        def call():
+            return FA.flash_attention(q, k, v, causal=False)
+
+        ms = cuda_ms(call, flush=flush)
+        dev_ms, names = device_ms(call, "flash", flush)
+        plain_ms = cuda_ms(lambda: FA.flash_attention_torch(q, k, v, causal=False), reps=5,
+                           flush=flush)
+        # yardstick only, never called by the port: the library's fused
+        # attention on the same inputs (g = 1: no expansion)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), flush=flush)
+        flops, nbytes = FA.work(q, k, v, False, 0, -1)
+        bound, by = _bound_ms(nbytes, flops, torch.bfloat16)
+        want_name = FA.kernel_name(q.shape[-1], torch.bfloat16)
+        if names and not any(want_name in n for n in names):
+            fail(f"flash {name}: the trace holds {sorted(names)}, not {want_name}")
+        print(f"  flash timing, {label(name)}: kernel {ms:.4f} ms by events "
+              f"({_tflops(flops, ms)}), device time {_dev(dev_ms)} "
+              f"({', '.join(_short(n) for n in names) or 'no events'}), plain "
+              f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        entries[key] = dict(name=key, route="cuda",
+                            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                            replaces="src/repro/kernels/flash_attention.py:116",
+                            max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        del q, k, v
+
+    sms = sm_count(torch.device("cuda"))
+    page = 64
+    for key, name, (b, hq, hkv, d, sc), edges, mid in (
+            ("paged_decode_attention_g1_d64", "whisper decoder", (8, 16, 16, 64, AUDIO_CONTEXT),
+             [0, 63, 64, 127, 200, 300, 446, 447], [400 + 6 * i for i in range(8)]),
+            ("paged_decode_attention_g2", "internvl2", (8, 16, 8, 128, 2048),
+             [0, 63, 64, 1000, 1500, 2000, 2046, 2047], [2000 + 4 * i for i in range(8)])):
+        shape = f"{name} (B={b}, g={hq // hkv}, D={d}, Sc={sc})"
+        timing = None
+        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, PAGED_BF16_TOL)):
+            for which, pos in (("page edges", edges), ("mid-decode", mid)):
+                inp = _paged_inputs(b, hq, hkv, d, page, sc, pos, dtype, 43)
+                lab = f"paged {str(dtype)[6:]} {shape} {which}"
+                got = PA.paged_decode_attention(*inp, page=page, sc=sc)
+                qf, kf, vf = (t.float() for t in inp[:3])
+                want = PA.paged_attention_torch(qf, kf, vf, *inp[3:], page=page, sc=sc)
+                model = PA.paged_attention_model(*inp, page=page, sc=sc, sms=sms)
+                torch.cuda.synchronize()
+                err = check_close(lab, got, want, tol)
+                check_close(f"{lab} vs the kernel's order", got, model, tol)
+                del got, want, model, qf, kf, vf
+                if dtype == torch.bfloat16 and which == "mid-decode":
+                    timing = paged_timing(PA, shape, inp, page, sc, err, flush)
+                del inp
+        timing.pop("steps")
+        entries[key] = dict(name=key, route="cuda",
+                            source="src/repro_torch/kernels/csrc/paged_decode.cu",
+                            replaces="src/repro/kernels/paged_attention.py:130",
+                            library_ms=None, **timing)
+    return entries
+
+
+def flash_train_check(name, q, k, v, causal: bool) -> None:
+    """``flash_attention_train`` at one shape: its output bit for bit the
+    serving op's, its lse against the plain training forward's (float32 on
+    the same inputs), and its recompute backward's dq, dk and dv against
+    autograd through the plain full-score form in float32 (bfloat16 at
+    FLASH_BWD_BF16)."""
+    dtype = q.dtype
+    out, lse = FA.flash_attention_train(q, k, v, causal=causal)
+    if not torch.equal(out, FA.flash_attention(q, k, v, causal=causal)):
+        fail(f"{name}: the training op's output is not the serving op's")
+    _, plain_lse = FA.flash_attention_train_torch(q.float(), k.float(), v.float(),
+                                                  causal=causal)
+    check_close(f"{name} lse", lse, plain_lse, FP32_TOL)
+    del out, lse, plain_lse
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    FA.flash_attention_train(qq, kk, vv, causal=causal)[0].backward(dout)
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    FA.flash_attention_torch(qf, kf, vf, causal=causal).backward(dout.float())
+    for gname, got, want in (("dq", qq.grad, qf.grad), ("dk", kk.grad, kf.grad),
+                             ("dv", vv.grad, vf.grad)):
+        gtol = FP32_TOL
+        if dtype == torch.bfloat16:
+            gtol = (FLASH_BWD_BF16[0] * float(want.pow(2).mean().sqrt()),) + FLASH_BWD_BF16[1:]
+        check_close(f"{name} {gname} (recompute backward vs autograd through the full-score "
+                    "form)", got, want, gtol)
 
 
 def _rglru_inputs(b, s, w, dtype, seed, decay="normal"):
@@ -1778,32 +1982,41 @@ def eager_handle(srv, req) -> tuple:
     """``req`` served as ``PlanServer.handle`` serves it (prompt pass,
     handoff write, greedy decoding in the same bucket and pool), but with
     the step of ``make_decode_step`` called eagerly tick by tick, with the
-    operator the server's plan chose: no graph, no plan cache. Returns the
-    tokens on the host and the request rows' last logits."""
+    operator the server's plan chose: no graph, no plan cache. A family
+    without a handoff decodes from a zero cache at position 0, from the
+    prompt pass's token (``prefill=True``, which is not counted) or from
+    token 1. Returns the tokens on the host and the request rows' last
+    logits."""
     dev = srv.device
     span = srv.request_span(req)
     b, s = srv.buckets(req.batch, span)
     kernel = _eager_kernel(srv.decode_entry(req.batch, span).plan)
     pool = srv.pool
-    arena = pool.acquire(b, s, force=True,
+    handoff = srv.prefill and srv.model.supports_handoff
+    arena = pool.acquire(b, s, zero=not handoff, force=True,
                          demand_bytes=pool.member_bytes(s, req.batch, span) if pool.paged
                          else None)
-    rows = pool.admit_request_rows(arena, req.batch, prompt=req.context, span=span, eager=True)
+    rows = pool.admit_request_rows(arena, req.batch, prompt=req.context if handoff else 0,
+                                   span=span, eager=True)
     rows_t = torch.tensor(rows, device=dev)
-    lengths = torch.tensor([req.context] * req.batch + [1] * (b - req.batch),
-                           dtype=torch.int32, device=dev)
-    logits, pkv = srv.model.prefill(
-        srv.params, torch.ones((b, s), dtype=torch.int32, device=dev), lengths=lengths)
-    first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-    pool.write_rows(arena, rows, pkv, src_rows=range(len(rows)))
     toks = torch.ones((b, 1), dtype=torch.int32, device=dev)
     pos = torch.zeros((b,), dtype=torch.int32, device=dev)
-    toks[rows_t] = first[:len(rows)]
-    pos[rows_t] = req.context
+    out = []
+    if srv.prefill:
+        lengths = torch.tensor([req.context] * req.batch + [1] * (b - req.batch),
+                               dtype=torch.int32, device=dev)
+        logits, pkv = srv.model.prefill(
+            srv.params, torch.ones((b, s), dtype=torch.int32, device=dev), lengths=lengths)
+        first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        toks[rows_t] = first[:len(rows)]
+        if handoff:
+            pool.write_rows(arena, rows, pkv, src_rows=range(len(rows)))
+            pos[rows_t] = req.context
+            out.append(first[:req.batch])
+    base = req.context if handoff else 0
     step = make_decode_step(srv.model, page=srv.page_size, seq_len=s, decode_kernel=kernel)
-    out = [first[:req.batch]]
-    for t in range(req.new_tokens - 1):
-        pool.ensure_decode_slots(arena, rows, req.context + t)
+    for t in range(req.new_tokens - len(out)):
+        pool.ensure_decode_slots(arena, rows, base + t)
         tables = arena.tables
         logits, _ = (step(srv.params, arena.cache, toks, pos) if tables is None
                      else step(srv.params, arena.cache, toks, pos, tables))
@@ -1951,8 +2164,9 @@ def serve_passes(srv, cfg, decode_kernel=None, requests=SERVE_REQUESTS,
         if decode_kernel is not None and set(chosen) != {decode_kernel}:
             fail(f"the plans chose decode kernels {chosen}; every bucket must choose "
                  f"{decode_kernel}")
-        want = launches_expected(cfg, len(requests), sum(
-            o["decode_steps"] for o, k in zip(outs, chosen) if k == "paged"))
+        want = launches_expected(cfg, len(requests) if srv.prefill else 0, sum(
+            o["decode_steps"] for o, k in zip(outs, chosen) if k == "paged"),
+            sum(o["decode_steps"] for o in outs))
         print(f"  {label}: compile + capture {m1['compile_seconds'] - m0['compile_seconds']:.3f} s; "
               f"plan cache +{m1['hits'] - m0['hits']} hits, +{m1['compiles'] - m0['compiles']} "
               f"compiles, {m1['recompiles']} recompiles")
@@ -2113,14 +2327,17 @@ def _counted_wrappers() -> dict:
             "rglru_scan": RG.rglru_scan}
 
 
-def launches_expected(cfg, prefills: int, paged_ticks: int) -> dict:
+def launches_expected(cfg, prefills: int, paged_ticks: int, ticks: int = 0) -> dict:
     """Each serving kernel's launches for ``prefills`` prompt passes and
-    ``paged_ticks`` decode ticks whose plan chose the paged kernel: flash,
-    the SSD scan and the RG-LRU scan once per layer of their kind and prompt
-    pass, paged decode once per attention layer and paged tick."""
+    ``paged_ticks`` decode ticks whose plan chose the paged kernel, of
+    ``ticks`` in all: flash, the SSD scan and the RG-LRU scan once per layer
+    of their kind and prompt pass, paged decode once per attention layer
+    and paged tick; an encoder-decoder's cross attention is flash once per
+    decoder layer and tick."""
     pattern = cfg.layer_pattern()
     n_attn = pattern.count("a")
-    return {"flash_attention": n_attn * prefills,
+    cross = cfg.num_layers * ticks if cfg.is_encdec else 0
+    return {"flash_attention": n_attn * prefills + cross,
             "paged_decode_attention": n_attn * paged_ticks,
             "ssd_scan": pattern.count("s") * prefills,
             "rglru_scan": pattern.count("r") * prefills}
@@ -3278,7 +3495,9 @@ def phase_analysis() -> None:
 # wk, wv: (L, d, H, Dh)) or the head dim (wo: (L, H, Dh, d)), not the
 # d_model or H * Dh inputs they contract
 PROJ_FAN_IN = {"wq": lambda sh: sh[1], "wk": lambda sh: sh[1], "wv": lambda sh: sh[1],
-               "wo": lambda sh: sh[1] * sh[2]}
+               "wo": lambda sh: sh[1] * sh[2], "xwq": lambda sh: sh[1],
+               "xwk": lambda sh: sh[1], "xwv": lambda sh: sh[1],
+               "xwo": lambda sh: sh[1] * sh[2]}
 
 
 def trainable_params(model, seed: int, embed_scale: float = 1.0) -> dict:
@@ -3288,8 +3507,9 @@ def trainable_params(model, seed: int, embed_scale: float = 1.0) -> dict:
     heads) a full-depth Yi-6B's attention saturates (scores of several
     hundred) and its gradients grow several-fold a layer, to a global norm
     of ~1e25 at 32 layers: no optimizer setting lowered its loss in 8 steps
-    (PERF.md). The embedding is multiplied by ``embed_scale``. Every
-    other entry is the model's own."""
+    (PERF.md). An encoder-decoder's cross projections (``xw*``) likewise.
+    The embedding is multiplied by ``embed_scale``. Every other entry is the
+    model's own."""
     params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
     for key, p in params.items():
         name = key.split(".")[-1]
@@ -3758,43 +3978,14 @@ def moe_floors(cfg, batch: int, seq: int) -> tuple:
 
 def phase_serve_check_moe():
     phase(f"serve-check-moe: Qwen3-MoE-235B-A22B widths, {MOE_CHECK_LAYERS} layers, float32: "
-          "graphed == eager; paged == gather == ref == auto; the engine trace")
+          "graphed == eager; paged == gather == ref == auto; kernel path == plain path; the "
+          "engine trace")
     t_phase = time.perf_counter()
     cfg = _moe_cfg(MOE_CHECK_LAYERS)
-    requests = [ServeRequest(batch, ctx, new_tokens=8) for batch, ctx in CHECK_REQUESTS]
-    wrappers = _counted_wrappers()
-    streams, logits, params = {}, {}, None
-    for kernel in ("paged", "gather", "ref", "auto"):
-        srv = PlanServer(cfg, config=EngineConfig(dtype="float32", prefill=True, page_size=64,
-                                                  decode_kernel=kernel, seed=SEED))
-        if params is None:
-            params = srv.params
-        srv.params = params
-        for fn in wrappers.values():
-            fn.launches = 0
-        outs = [srv.handle(r) for r in requests]
-        got = {k: fn.launches for k, fn in wrappers.items()}
-        chosen = [o["plan"].explain_axes()["decode_kernel"] for o in outs]
-        want = launches_expected(cfg, len(requests), sum(
-            o["decode_steps"] for o, k in zip(outs, chosen) if k == "paged"))
-        streams[kernel] = [o["tokens"].cpu().numpy() for o in outs]
-        logits[kernel] = [o["last_logits"].float() for o in outs]
-        print(f"  {kernel}: buckets {[o['bucket'] for o in outs]}, plans chose {chosen}; "
-              f"{[t.tolist() for t in streams[kernel]]}; launches {got} (expected {want})")
-        if got != want:
-            fail(f"moe decode_kernel={kernel}: launches {got} != {want}")
-        if kernel == "auto" and set(chosen) != {"paged"}:
-            fail(f"moe decode_kernel=auto: the plans chose {chosen}, not paged")
-        check_graphed_against_eager(srv, requests, outs, f"moe decode_kernel={kernel}")
-        del srv
-    for kernel in ("gather", "ref", "auto"):
-        for a, c in zip(streams["paged"], streams[kernel]):
-            if not np.array_equal(a, c):
-                fail(f"moe token streams differ between paged and {kernel}")
-        for a, c in zip(logits["paged"], logits[kernel]):
-            if not torch.allclose(a, c, atol=1e-3, rtol=1e-3):
-                fail(f"moe final logits differ between paged and {kernel}")
-    print("  token streams identical across paged, gather, ref and auto")
+    srv = serve_twin_check(cfg, [ServeRequest(b, c, new_tokens=8) for b, c in CHECK_REQUESTS],
+                           True, "moe")
+    params = srv.params
+    del srv
     # the engine trace: a decode tick of at most 8 rows never drops (every
     # expert's capacity is 8 slots and takes at most one pair a row), but
     # the trace's first prompt pass coalesces seven requests, so it runs at
@@ -3805,7 +3996,7 @@ def phase_serve_check_moe():
     srv.params = params
     engine_trace_check(srv, f"Qwen3-MoE {MOE_CHECK_LAYERS} layers, capacity factor "
                             f"{dropless.moe_capacity_factor:g} (dropless), decode_kernel=paged")
-    del srv, params, logits
+    del srv, params
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  serve-check-moe: {time.perf_counter() - t_phase:.1f} s")
@@ -3836,19 +4027,7 @@ def phase_serve_moe() -> dict:
         print(f"    req {b}x{c} bucket ({bb}, {s}): prefill {out['prefill_s'] * 1e3:.1f} ms "
               f"against the expert products' floor {prompt:.1f} ms (capacity {cap}); decode "
               f"{dec_ms:.3f} ms/step against the expert weights' read {tick:.3f} ms")
-    print("  peak memory by bucket (one eager tick and one prompt pass), against the plan's "
-          "estimate:")
-    above = []
-    for b, c in SERVE_REQUESTS:
-        for measure in (memory_audit.measure_decode, memory_audit.measure_prefill):
-            rec, _found = measure(srv, b, c + SERVE_NEW_TOKENS)
-            over = rec["measured_bytes"] > rec["estimate_bytes"]
-            print(f"    {rec['where']}: measured {rec['measured_bytes'] / 2**30:.3f} GiB, "
-                  f"estimate {rec['estimate_bytes'] / 2**30:.3f} GiB"
-                  f"{' — ABOVE the estimate' if over else ''}")
-            if over:
-                above.append(rec["where"])
-    torch.cuda.empty_cache()
+    above = measured_peaks(srv, SERVE_REQUESTS)
     trace_decode(srv, [ServeRequest(b, c, new_tokens=SERVE_NEW_TOKENS) for b, c in SERVE_REQUESTS])
     del srv
     gc.collect()
@@ -3861,42 +4040,9 @@ def phase_serve_moe() -> dict:
 
 
 def phase_train_check_moe() -> None:
-    b, s = TRAIN_CHECK_SHAPE
-    phase(f"train-check-moe: Qwen3-MoE-235B-A22B widths, {MOE_TRAIN_CHECK_LAYERS} layer, "
-          f"float32, batch {b}, seq {s}, {TRAIN_CHECK_STEPS} steps, sgd and adam, grad_clip "
-          f"1.0: the flash kernel's path == the plain path")
-    t_phase = time.perf_counter()
-    cfg = _moe_cfg(MOE_TRAIN_CHECK_LAYERS)
-    model = build_model(cfg, dtype=torch.float32)
-    shape = InputShape("train-check-moe", s, b, "train")
-    plan = compile_plan(cfg, shape, MESH1, TrainConfig(), dtype="float32").config
-    print(f"  plan: {plan.strategy.value}, opt state {plan.opt_state_dtype}, remat "
-          f"{plan.remat}, microbatches {plan.microbatches}; {model.param_count() / 1e9:.2f} B "
-          "parameters")
-    # the same seeded weights for every run, made anew on the card each time
-    init = lambda: trainable_params(model, SEED)  # noqa: E731
-    per_step = MOE_TRAIN_CHECK_LAYERS * (1 + plan.remat) * plan.microbatches
-    for opt in ("sgd", "adam"):
-        kern = _train_run(model, cfg, plan, opt, shape, init, host=True)
-        flash = kern[2]["flash_attention_train"]
-        print(f"  {opt}: kernel path {flash} flash_attention_train launches (expected "
-              f"{per_step * TRAIN_CHECK_STEPS}); aux {[round(r['aux'], 6) for r in kern[0]]}")
-        if flash != per_step * TRAIN_CHECK_STEPS:
-            fail(f"train-check-moe {opt}: {flash} launches, expected "
-                 f"{per_step * TRAIN_CHECK_STEPS}")
-        other = _train_run(model, cfg, plan, opt, shape, init, "torch")
-        if other[2]["flash_attention_train"]:
-            fail(f"train-check-moe {opt}: the plain path launched the flash kernel")
-        for g, w in zip(kern[0], other[0]):
-            rel = abs(g["aux"] - w["aux"]) / max(abs(w["aux"]), 1e-30)
-            if not (math.isfinite(g["aux"]) and rel <= 1e-5):
-                fail(f"train-check-moe {opt}: aux {g['aux']} against {w['aux']} (rtol 1e-5)")
-        _same_trajectory(f"moe {opt}, kernel path vs plain", opt, kern, other)
-        del kern, other
-        gc.collect()
-        torch.cuda.empty_cache()
-    del model
-    print(f"  train-check-moe: {time.perf_counter() - t_phase:.1f} s")
+    train_check_on_card(_moe_cfg(MOE_TRAIN_CHECK_LAYERS),
+                        f"train-check-moe: Qwen3-MoE-235B-A22B widths, {MOE_TRAIN_CHECK_LAYERS} "
+                        "layer")
 
 
 def moe_train_depth() -> int:
@@ -3909,14 +4055,77 @@ def moe_train_depth() -> int:
 
 def phase_train_moe() -> None:
     b, s = TRAIN_SHAPE
-    phase(f"train-moe: {MOE_ARCH} at full width, bfloat16, batch {b}, seq {s}, {TRAIN_STEPS} "
-          f"steps of adam at lr {TRAIN_LR}, grad_clip 1.0, through make_train_step")
-    t_phase = time.perf_counter()
+    phase(train_title(f"train-moe: {MOE_ARCH} at full width", b, s))
     gc.collect()
     torch.cuda.empty_cache()
-    layers = moe_train_depth()
-    cfg = _moe_cfg(layers)
+    cfg = _moe_cfg(moe_train_depth())
     shape = InputShape("train-moe", s, b, "train")
+    peak, estimate = train_on_card(
+        cfg, shape, "train-moe", cost.model_flops_per_step(cfg, shape),
+        f"over the active parameters, {cfg.active_param_count() / 1e9:.3f} B of "
+        f"{cfg.param_count() / 1e9:.3f} B")
+    if peak > estimate:
+        fail(f"train-moe: peak {peak} B above the plan's estimate {estimate:.0f} B")
+
+
+def train_check_on_card(cfg, title: str) -> None:
+    """A float32 twin's TRAIN_CHECK_STEPS steps of sgd and of adam (clip 1.0)
+    at TRAIN_CHECK_SHAPE from trainable_params: the flash kernel's path
+    against the plain attention path (``ops.BACKEND = "torch"``) under
+    train-check's tolerances, the MoE auxiliary loss too, flash launches
+    exact."""
+    b, s = TRAIN_CHECK_SHAPE
+    label = title.split(":")[0]
+    phase(f"{title}, float32, batch {b}, seq {s}, {TRAIN_CHECK_STEPS} steps, sgd and adam, "
+          "grad_clip 1.0: the flash kernel's path == the plain path")
+    t_phase = time.perf_counter()
+    model = build_model(cfg, dtype=torch.float32)
+    shape = InputShape(label, s, b, "train")
+    plan = compile_plan(cfg, shape, MESH1, TrainConfig(), dtype="float32").config
+    print(f"  plan: {plan.strategy.value}, opt state {plan.opt_state_dtype}, remat "
+          f"{plan.remat}, microbatches {plan.microbatches}; {model.param_count() / 1e9:.3f} B "
+          "parameters")
+    # the same seeded weights for every run, made anew on the card each time
+    init = lambda: trainable_params(model, SEED)  # noqa: E731
+    want = _flash_per_forward(cfg) * (1 + plan.remat) * plan.microbatches * TRAIN_CHECK_STEPS
+    for opt in ("sgd", "adam"):
+        kern = _train_run(model, cfg, plan, opt, shape, init, host=True)
+        flash = kern[2]["flash_attention_train"]
+        aux = f"; aux {[round(r['aux'], 6) for r in kern[0]]}" if cfg.num_experts else ""
+        print(f"  {opt}: kernel path {flash} flash_attention_train launches (expected "
+              f"{want}){aux}")
+        if flash != want:
+            fail(f"{label} {opt}: {flash} launches, expected {want}")
+        other = _train_run(model, cfg, plan, opt, shape, init, "torch")
+        if other[2]["flash_attention_train"]:
+            fail(f"{label} {opt}: the plain path launched the flash kernel")
+        for g, w in zip(kern[0], other[0]):
+            rel = abs(g["aux"] - w["aux"]) / max(abs(w["aux"]), 1e-30)
+            if not (math.isfinite(g["aux"]) and rel <= 1e-5):
+                fail(f"{label} {opt}: aux {g['aux']} against {w['aux']} (rtol 1e-5)")
+        _same_trajectory(f"{cfg.family} {opt}, kernel path vs plain", opt, kern, other)
+        del kern, other
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    print(f"  {label}: {time.perf_counter() - t_phase:.1f} s")
+
+
+def train_title(what: str, b: int, s: int) -> str:
+    return (f"{what}, bfloat16, batch {b}, seq {s}, {TRAIN_STEPS} steps of adam at lr "
+            f"{TRAIN_LR}, grad_clip 1.0, through make_train_step")
+
+
+def train_on_card(cfg, shape, label: str, flops: float, counted: str) -> tuple:
+    """TRAIN_STEPS Adam steps (lr TRAIN_LR, clip 1.0) of ``cfg`` in bfloat16
+    at ``shape`` through ``make_train_step`` on the planner's one-card plan,
+    from trainable_params: losses finite and the mean of the last three
+    below step 0's, flash launches exact, no plain attention; step ms,
+    tokens/s, MFU (``flops`` a step, ``counted`` saying over what), peak
+    against the estimate and a traced step by part. Returns (peak bytes,
+    the plan's estimate)."""
+    b, s = shape.global_batch, shape.seq_len
+    t_phase = time.perf_counter()
     eplan = compile_plan(cfg, shape, MESH1, TrainConfig(), dtype="bfloat16")
     plan = eplan.config
     print(f"  plan: {plan.strategy.value}, opt state {plan.opt_state_dtype}, remat "
@@ -3941,34 +4150,33 @@ def phase_train_moe() -> None:
             recs.append({k: float(v) for k, v in met.items()})
     launches = {fn.__name__: fn.launches for fn in _build.COUNTED}
     peak = torch.cuda.max_memory_allocated()
-    want = layers * TRAIN_STEPS * (1 + plan.remat) * plan.microbatches
+    want = _flash_per_forward(cfg) * TRAIN_STEPS * (1 + plan.remat) * plan.microbatches
     losses = [r["loss"] for r in recs]
     step_s = statistics.median(secs[2:])
-    flops = cost.model_flops_per_step(cfg, shape)
-    print(f"  losses {[round(x, 4) for x in losses]}; aux {[round(r['aux'], 4) for r in recs]}; "
-          f"grad norms {[round(r['grad_norm'], 4) for r in recs]}; step seconds "
+    aux = f"; aux {[round(r['aux'], 4) for r in recs]}" if cfg.num_experts else ""
+    print(f"  losses {[round(x, 4) for x in losses]}{aux}; grad norms "
+          f"{[round(r['grad_norm'], 4) for r in recs]}; step seconds "
           f"{[round(x, 4) for x in secs]}")
     print(f"  step {step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS - 1}), "
-          f"{b * s / step_s:.0f} tokens/s, mfu {flops / step_s / hw.H100.peak_flops:.4f} over "
-          f"the active parameters ({cfg.active_param_count() / 1e9:.3f} B of "
-          f"{model.param_count() / 1e9:.3f} B; {flops / 1e12:.1f} model TFLOP a step against "
+          f"{b * s / step_s:.0f} tokens/s, mfu {flops / step_s / hw.H100.peak_flops:.4f} "
+          f"(6 N tokens {counted}: {flops / 1e12:.2f} model TFLOP a step against "
           f"{hw.H100.peak_flops / 1e12:.0f} TFLOP/s)")
     print(f"  peak device memory {peak / 2**30:.2f} GiB against the plan's estimate "
           f"{eplan.memory.total / 2**30:.2f} GiB"
           f"{' — ABOVE the estimate' if peak > eplan.memory.total else ''}")
-    print(f"  launches {launches} (flash_attention_train expected {layers} layers x "
-          f"{TRAIN_STEPS} steps x {1 + plan.remat} x {plan.microbatches} = {want}); the model's "
-          f"CPU attention operators called {plain.calls}")
+    print(f"  launches {launches} (flash_attention_train expected {_flash_per_forward(cfg)} a "
+          f"forward x {TRAIN_STEPS} steps x {1 + plan.remat} x {plan.microbatches} = {want}); "
+          f"the model's CPU attention operators called {plain.calls}")
     if not all(math.isfinite(x) for x in losses):
-        fail(f"train-moe: a loss is not finite: {losses}")
+        fail(f"{label}: a loss is not finite: {losses}")
     if not statistics.mean(losses[-3:]) < losses[0]:
-        fail(f"train-moe: the mean of the last three losses {statistics.mean(losses[-3:])} is "
+        fail(f"{label}: the mean of the last three losses {statistics.mean(losses[-3:])} is "
              f"not below step 0's {losses[0]}")
     if launches["flash_attention_train"] != want:
-        fail(f"train-moe: {launches['flash_attention_train']} flash_attention_train launches, "
+        fail(f"{label}: {launches['flash_attention_train']} flash_attention_train launches, "
              f"expected {want}")
     if any(plain.calls.values()):
-        fail(f"train-moe: the step on the card took the CPU attention operators {plain.calls}")
+        fail(f"{label}: the step on the card took the CPU attention operators {plain.calls}")
     batch = make_batch(cfg, shape, step=TRAIN_STEPS, dtype=torch.bfloat16, device="cuda")
     span = "train.step"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3979,9 +4187,359 @@ def phase_train_moe() -> None:
     del prof, batch, params, state, model, step
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"  train-moe: {time.perf_counter() - t_phase:.1f} s")
-    if peak > eplan.memory.total:
-        fail(f"train-moe: peak {peak} B above the plan's estimate {eplan.memory.total:.0f} B")
+    print(f"  {label}: {time.perf_counter() - t_phase:.1f} s")
+    return peak, eplan.memory.total
+
+
+# ---------------------------------------------------------------------------
+# the vision and audio families: InternVL2-2B and Whisper-medium, full depth
+# ---------------------------------------------------------------------------
+
+
+def _encdec_cfg(arch: str, layers: Optional[int] = None):
+    """``arch``'s config, or its widths cut to ``layers`` layers (the
+    encoder's too)."""
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg
+    return replace(cfg, num_layers=layers,
+                   **({"encoder_layers": layers} if cfg.is_encdec else {}))
+
+
+def serve_twin_check(cfg, requests, prefill: bool, label: str):
+    """A float32 twin served through ``PlanServer`` under the paged, gather,
+    ref and auto decode kernels: launches exact (flash per layer and prompt
+    pass, and for an encoder-decoder per decoder layer and tick; paged per
+    layer and paged tick), every auto plan paged, graphed == eager, the
+    streams identical across the kernels, then the same requests eagerly on
+    the plain path (``ops.BACKEND = "torch"``, no kernel launched) equal
+    too. Returns the paged server."""
+    wrappers = _counted_wrappers()
+    streams, logits, params, kept = {}, {}, None, None
+    for kernel in ("paged", "gather", "ref", "auto"):
+        srv = PlanServer(cfg, config=EngineConfig(dtype="float32", prefill=prefill,
+                                                  page_size=64, decode_kernel=kernel, seed=SEED))
+        if params is None:
+            params = srv.params
+        srv.params = params
+        for fn in wrappers.values():
+            fn.launches = 0
+        outs = [srv.handle(r) for r in requests]
+        got = {k: fn.launches for k, fn in wrappers.items()}
+        chosen = [o["plan"].explain_axes()["decode_kernel"] for o in outs]
+        want = launches_expected(cfg, len(requests) if prefill else 0, sum(
+            o["decode_steps"] for o, k in zip(outs, chosen) if k == "paged"),
+            sum(o["decode_steps"] for o in outs))
+        streams[kernel] = [o["tokens"].cpu().numpy() for o in outs]
+        logits[kernel] = [o["last_logits"].float() for o in outs]
+        print(f"  {kernel}: buckets {[o['bucket'] for o in outs]}, plans chose {chosen}; "
+              f"{[t.tolist() for t in streams[kernel]]}; launches {got} (expected {want})")
+        if got != want:
+            fail(f"{label} decode_kernel={kernel}: launches {got} != {want}")
+        if kernel == "auto" and set(chosen) != {"paged"}:
+            fail(f"{label} decode_kernel=auto: the plans chose {chosen}, not paged")
+        check_graphed_against_eager(srv, requests, outs, f"{label} decode_kernel={kernel}")
+        if kernel == "paged":
+            kept = srv
+        del srv
+    for kernel in ("gather", "ref", "auto"):
+        for a, c in zip(streams["paged"], streams[kernel]):
+            if not np.array_equal(a, c):
+                fail(f"{label} token streams differ between paged and {kernel}")
+        for a, c in zip(logits["paged"], logits[kernel]):
+            if not torch.allclose(a, c, atol=1e-3, rtol=1e-3):
+                fail(f"{label} final logits differ between paged and {kernel}")
+    print(f"  {label}: token streams identical across paged, gather, ref and auto")
+    ops.BACKEND = "torch"
+    for fn in wrappers.values():
+        fn.launches = 0
+    plain = [eager_handle(kept, r) for r in requests]
+    ops.BACKEND = "auto"
+    if any(fn.launches for fn in wrappers.values()):
+        fail(f"{label}: the plain path launched a kernel")
+    for (tokens, last), a, lg in zip(plain, streams["paged"], logits["paged"]):
+        if not np.array_equal(tokens, a):
+            fail(f"{label}: token streams differ between the kernel path and the plain path")
+        if not torch.allclose(last, lg, atol=1e-3, rtol=1e-3):
+            fail(f"{label}: final logits differ between the kernel path and the plain path")
+    print(f"  {label}: the plain path (ops.BACKEND='torch', eager) gives the same streams")
+    return kept
+
+
+def encdec_greedy(srv, params, cross, steps: int, graphed: bool, trace: bool = False):
+    """Greedy decoding of ``steps`` tokens over the cross K/V ``cross``
+    (``build_cross_cache``'s, one row each) from token 1 at position 0, as
+    the reference's model-level enc-dec decode: ``make_decode_step``'s paged
+    step (paged kernel, ``srv``'s page size) at AUDIO_CONTEXT slots on an
+    arena of ``srv``'s pool, ticked through ``GraphDecodeStep`` (captured on
+    its first tick, replayed after) or eagerly. With ``trace`` four more
+    ticks are traced for the device's time by kind. Returns (tokens on the
+    host, last logits, seconds of ticks 2..steps, {kind: device ms a tick}
+    or None)."""
+    b = cross["x.k"].shape[1]
+    pool, dev = srv.pool, srv.device
+    arena = pool.acquire(b, AUDIO_CONTEXT, zero=True, force=True,
+                         demand_bytes=pool.member_bytes(AUDIO_CONTEXT, b, AUDIO_CONTEXT))
+    rows = pool.admit_request_rows(arena, b, prompt=0, span=AUDIO_CONTEXT, eager=True)
+    rows_t = torch.tensor(rows, device=dev)
+    for key in ("x.k", "x.v"):
+        arena.cache[key].index_copy_(1, rows_t, cross[key].to(arena.cache[key].dtype))
+    step = make_decode_step(srv.model, page=srv.page_size, seq_len=AUDIO_CONTEXT,
+                            decode_kernel="paged")
+    if graphed:
+        runner = GraphDecodeStep(step, dev)
+        toks, pos = runner.buffers(arena)
+
+        def run():
+            return runner(params, arena, toks, pos)
+    else:
+        toks = torch.ones((arena.batch, 1), dtype=torch.int32, device=dev)
+        pos = torch.zeros((arena.batch,), dtype=torch.int32, device=dev)
+
+        def run():
+            return tick(step, params, arena.cache, arena.tables, toks, pos)
+    toks.fill_(1)
+    pos.zero_()
+    out = []
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        logits = run()
+        out.append(toks[rows_t].clone())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    split = None
+    if trace:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                run()
+            torch.cuda.synchronize()
+        split = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+                fam = _kernel_family(e.name)
+                split[fam] = split.get(fam, 0.0) + (e.time_range.end - e.time_range.start) / 4e3
+    last = logits[:, -1][rows_t].float()
+    tokens = torch.cat(out, dim=1).cpu().numpy()
+    pool.free_rows(arena, rows)
+    pool.release(arena)
+    if graphed:
+        runner.clear()
+    return tokens, last, secs, split
+
+
+def phase_serve_check_vlm():
+    phase(f"serve-check-vlm: InternVL2-2B widths, {ENCDEC_CHECK_LAYERS} layers, float32, "
+          "prefill=True (no handoff): paged == gather == ref == auto, graphed == eager, "
+          "kernel path == plain path")
+    t_phase = time.perf_counter()
+    cfg = _encdec_cfg(VLM_ARCH, ENCDEC_CHECK_LAYERS)
+    srv = serve_twin_check(cfg, [ServeRequest(b, c, new_tokens=8) for b, c in CHECK_REQUESTS],
+                           True, "internvl2")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  serve-check-vlm: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_serve_vlm() -> dict:
+    t_phase = time.perf_counter()
+    cfg = _encdec_cfg(VLM_ARCH)
+    phase(f"serve-vlm: {cfg.name}, {cfg.num_layers} layers, bfloat16, prefill=True, page 64, "
+          "decode_kernel=auto, one CUDA graph per bucket")
+    t0 = time.perf_counter()
+    srv = PlanServer(cfg, config=EngineConfig(dtype="bfloat16", prefill=True, page_size=64,
+                                              decode_kernel="auto", seed=SEED))
+    torch.cuda.synchronize()
+    print(f"  weights: {sum(p.numel() for p in srv.params.values()) / 1e9:.3f} B parameters, "
+          f"random from seed {SEED}, built in {time.perf_counter() - t0:.1f} s; {_mem()}")
+    srv.handle(ServeRequest(1, 16, new_tokens=2))     # warm-up: cuBLAS, allocator
+    launches = serve_passes(srv, cfg, decode_kernel="paged")
+    measured_peaks(srv, SERVE_REQUESTS)
+    trace_decode(srv, [ServeRequest(b, c, new_tokens=SERVE_NEW_TOKENS) for b, c in SERVE_REQUESTS])
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  serve-vlm: {time.perf_counter() - t_phase:.1f} s")
+    return {"paged_decode_attention_g2": launches["paged_decode_attention"]}
+
+
+def measured_peaks(srv, requests, prefill: bool = True) -> list:
+    """Peak device memory of one eager tick and, with ``prefill``, one
+    prompt pass per bucket of ``requests`` on ``srv``, printed against the
+    plan's estimate; returns the cells measured above it."""
+    print("  peak memory by bucket (one eager tick and one prompt pass), against the plan's "
+          "estimate:")
+    kinds = (memory_audit.measure_decode,) + ((memory_audit.measure_prefill,) if prefill else ())
+    above = []
+    for b, c in requests:
+        for measure in kinds:
+            rec, _found = measure(srv, b, c + SERVE_NEW_TOKENS)
+            over = rec["measured_bytes"] > rec["estimate_bytes"]
+            print(f"    {rec['where']}: measured {rec['measured_bytes'] / 2**30:.3f} GiB, "
+                  f"estimate {rec['estimate_bytes'] / 2**30:.3f} GiB"
+                  f"{' — ABOVE the estimate' if over else ''}")
+            if over:
+                above.append(rec["where"])
+    torch.cuda.empty_cache()
+    return above
+
+
+def phase_serve_check_audio():
+    phase(f"serve-check-audio: Whisper-medium widths, {ENCDEC_CHECK_LAYERS} encoder and "
+          f"{ENCDEC_CHECK_LAYERS} decoder layers, float32: the cross cache and graphed decode "
+          "== eager == the plain path; PlanServer (prefill=False) paged == gather == ref == "
+          "auto")
+    t_phase = time.perf_counter()
+    cfg = _encdec_cfg(AUDIO_ARCH, ENCDEC_CHECK_LAYERS)
+    srv = serve_twin_check(cfg, [ServeRequest(b, c, new_tokens=8) for b, c in CHECK_REQUESTS],
+                           False, "whisper")
+    # (a) the model-level path on trainable_params' weights (at the model's
+    # own init the encoder's attention scores reach the hundreds, where a
+    # float32 reordering moves its output past any kernel tolerance)
+    params = trainable_params(srv.model, SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen, device="cuda")
+    FA.flash_attention.launches = 0
+    cross = srv.model.build_cross_cache(params, frames)
+    enc = FA.flash_attention.launches
+    ops.BACKEND = "torch"
+    plain = srv.model.build_cross_cache(params, frames)
+    ops.BACKEND = "auto"
+    print(f"  build_cross_cache: {enc} flash launches (expected {cfg.encoder_layers})")
+    if enc != cfg.encoder_layers:
+        fail(f"whisper build_cross_cache: {enc} flash launches, expected {cfg.encoder_layers}")
+    for key in ("x.k", "x.v"):
+        check_close(f"whisper cross cache {key}, kernel vs plain path", cross[key], plain[key],
+                    FP32_TOL)
+    steps = 16
+    runs = {"graphed": encdec_greedy(srv, params, cross, steps, graphed=True),
+            "eager": encdec_greedy(srv, params, cross, steps, graphed=False)}
+    ops.BACKEND = "torch"
+    runs["plain"] = encdec_greedy(srv, params, plain, steps, graphed=False)
+    ops.BACKEND = "auto"
+    for name in ("eager", "plain"):
+        if not np.array_equal(runs[name][0], runs["graphed"][0]):
+            fail(f"whisper model-level decode: {name} and graphed token streams differ")
+        if not torch.allclose(runs[name][1], runs["graphed"][1], atol=1e-3, rtol=1e-3):
+            fail(f"whisper model-level decode: {name} and graphed final logits differ")
+    print(f"  model-level decode, {steps} tokens over the cross cache: graphed == eager == "
+          f"plain path: {runs['graphed'][0].tolist()}")
+    del srv, params, cross, plain, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  serve-check-audio: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_serve_audio() -> dict:
+    t_phase = time.perf_counter()
+    cfg = _encdec_cfg(AUDIO_ARCH)
+    phase(f"serve-audio: {cfg.name}, {cfg.encoder_layers} + {cfg.num_layers} layers, "
+          "bfloat16: (a) build_cross_cache and graphed paged decode at the model level, "
+          "(b) PlanServer with prefill=False, page 64, decode_kernel=auto")
+    t0 = time.perf_counter()
+    srv = PlanServer(cfg, config=EngineConfig(dtype="bfloat16", prefill=False, page_size=64,
+                                              decode_kernel="auto", seed=SEED))
+    torch.cuda.synchronize()
+    print(f"  weights: {sum(p.numel() for p in srv.params.values()) / 1e9:.3f} B parameters, "
+          f"random from seed {SEED}, built in {time.perf_counter() - t0:.1f} s; {_mem()}")
+    # (a) on trainable_params' weights, so the tokens read the frames
+    params = trainable_params(srv.model, SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    frames = torch.randn((AUDIO_ROWS, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    for fn in _build.COUNTED:
+        fn.launches = 0
+    cross = srv.model.build_cross_cache(params, frames)
+    enc_launches = FA.flash_attention.launches
+    enc_ms = cuda_ms(lambda: srv.model.build_cross_cache(params, frames), reps=3, warmup=1)
+    if enc_launches != cfg.encoder_layers:
+        fail(f"serve-audio: the encoder launched flash {enc_launches} times, expected "
+             f"{cfg.encoder_layers}")
+    xbytes = sum(t.numel() * t.element_size() for t in cross.values())
+    print(f"  encoder + cross K/V over ({AUDIO_ROWS}, {cfg.encoder_seq}) frames: "
+          f"{enc_ms:.2f} ms (events, median of 3), {enc_launches} flash launches; cross K/V "
+          f"{xbytes / 2**20:.1f} MiB ({xbytes / AUDIO_ROWS / 1e6:.1f} MB a row, outside the "
+          "page pool)")
+    for fn in _build.COUNTED:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    graphed = encdec_greedy(srv, params, cross, AUDIO_DECODE_TOKENS, graphed=True, trace=True)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {fn.__name__: fn.launches for fn in _build.COUNTED if fn.launches}
+    eager = encdec_greedy(srv, params, cross, AUDIO_DECODE_TOKENS, graphed=False)
+    ticks = AUDIO_DECODE_TOKENS + 4
+    want = {"flash_attention": cfg.num_layers * ticks,
+            "paged_decode_attention": cfg.num_layers * ticks}
+    print(f"  decode: {AUDIO_DECODE_TOKENS} greedy tokens a row, {AUDIO_ROWS} rows, "
+          f"{AUDIO_CONTEXT}-slot context, pages of 64: graphed "
+          f"{graphed[2] * 1e3 / (AUDIO_DECODE_TOKENS - 1):.3f} ms/tick, eager "
+          f"{eager[2] * 1e3 / (AUDIO_DECODE_TOKENS - 1):.3f} ms/tick (ticks 2-"
+          f"{AUDIO_DECODE_TOKENS}); graphed launches {launches} (expected {want}); peak "
+          f"{peak / 2**30:.2f} GiB")
+    split = graphed[3]
+    print("  decode tick device time (4 graphed ticks traced): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+          + f" (paged = self-attention, flash = cross read); busy {sum(split.values()):.4f} "
+          "ms a tick")
+    print(f"  first row's tokens: {graphed[0][0].tolist()}")
+    if not np.array_equal(graphed[0], eager[0]):
+        fail("serve-audio: graphed and eager token streams differ")
+    if launches != want:
+        fail(f"serve-audio: graphed decode launches {launches} != {want}")
+    if not bool(torch.isfinite(graphed[1]).all()):
+        fail("serve-audio: non-finite logits")
+    print("  graphed == eager over the 64 tokens")
+    del params, cross, frames, graphed, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) PlanServer, prefill=False: decode from a zero cache
+    srv.handle(ServeRequest(1, 16, new_tokens=2))     # warm-up: cuBLAS, allocator
+    served = serve_passes(srv, cfg, decode_kernel="paged", requests=AUDIO_SERVE_REQUESTS)
+    measured_peaks(srv, AUDIO_SERVE_REQUESTS, prefill=False)
+    trace_decode(srv, [ServeRequest(b, c, new_tokens=SERVE_NEW_TOKENS)
+                       for b, c in AUDIO_SERVE_REQUESTS])
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  serve-audio: {time.perf_counter() - t_phase:.1f} s")
+    return {"flash_attention_d64": enc_launches,
+            "flash_attention_cross_decode": want["flash_attention"] + served["flash_attention"],
+            "paged_decode_attention_g1_d64": (want["paged_decode_attention"]
+                                              + served["paged_decode_attention"])}
+
+
+def _flash_per_forward(cfg) -> int:
+    """Flash training-forward launches of one forward: each layer's
+    self-attention, and an encoder-decoder's encoder layers and cross
+    attention."""
+    return cfg.num_layers + (cfg.encoder_layers + cfg.num_layers if cfg.is_encdec else 0)
+
+
+def phase_train_check_encdec(arch: str) -> None:
+    cfg = _encdec_cfg(arch, ENCDEC_CHECK_LAYERS)
+    train_check_on_card(cfg, f"train-check-{cfg.family}: {arch} widths, {ENCDEC_CHECK_LAYERS} "
+                             "layers")
+
+
+def phase_train_encdec(arch: str) -> None:
+    """The full model at its training shape. MFU counts 6 N tokens: the
+    encoder's parameters over its frames, the rest over the positions the
+    decoder reads, a vision prefix included."""
+    cfg = _encdec_cfg(arch)
+    b, s = VLM_TRAIN_SHAPE if cfg.family == "vlm" else AUDIO_TRAIN_SHAPE
+    n_enc = sum(math.prod(sh) for k, (sh, _dt) in build_model(cfg).sb.shapes().items()
+                if k.startswith("e."))
+    n = cfg.param_count() - n_enc
+    flops = 6.0 * (n * b * (s + cfg.num_frontend_tokens) + n_enc * b * cfg.encoder_seq)
+    where = (f" after its {cfg.num_frontend_tokens}-token patch prefix" if cfg.family == "vlm"
+             else f" over {cfg.encoder_seq} frames")
+    phase(train_title(f"train-{cfg.family}: {arch} at full depth{where}", b, s))
+    train_on_card(cfg, InputShape(f"train-{cfg.family}", s, b, "train"), f"train-{cfg.family}",
+                  flops,
+                  f"over {cfg.param_count() / 1e9:.3f} B parameters, the encoder's over its "
+                  "frames, a vision prefix counted")
 
 
 # ---------------------------------------------------------------------------
@@ -4234,8 +4792,8 @@ def phase_train_sharded() -> dict:
     est, layers = sharded_depth(SHARDED_WORLD)
     print("  planner's per-card estimate for mesh (2,), FSDP: " + ", ".join(
         f"{n} layers {v / 2**30:.2f} GiB" for n, v in est.items()))
-    print(f"  depth of (b): {layers} layers, the deepest whose {SHARDED_WORLD} ranks with their "
-          f"CUDA contexts fit within 3/4 of the card")
+    print(f"  depth of (b): {layers} layers, the deepest of {SHARDED_DEPTHS} whose "
+          f"{SHARDED_WORLD} ranks with their CUDA contexts fit within 3/4 of the card")
     outs = on_ranks(_sharded_rank, layers)
     _check_ranks("train-sharded", outs)
     for r, out in enumerate(outs):
@@ -4323,6 +4881,10 @@ def main() -> int:
     launches.update(phase_serve_hybrid())
     phase_serve_check_moe()
     launches.update(phase_serve_moe())
+    phase_serve_check_vlm()
+    launches.update(phase_serve_vlm())
+    phase_serve_check_audio()
+    launches.update(phase_serve_audio())
     phase_analysis()
     phase_train_check()
     launches.update(phase_train())
@@ -4331,6 +4893,9 @@ def main() -> int:
         launches.update(phase_train_recurrent(family))
     phase_train_check_moe()
     phase_train_moe()
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        phase_train_check_encdec(arch)
+        phase_train_encdec(arch)
     phase_parfor(lenet_weights)
     phase_train_sharded()
     phase_quickstart()
@@ -4344,7 +4909,10 @@ def main() -> int:
                                   "paged_decode_attention_g10_d256", "rglru_scan",
                                   "flash_attention_train", "ssd_scan_train", "ssd_scan_bwd",
                                   "rglru_scan_train", "rglru_scan_bwd", "flash_attention_g16",
-                                  "paged_decode_attention_g16")]}
+                                  "paged_decode_attention_g16", "flash_attention_d64",
+                                  "flash_attention_cross_decode",
+                                  "paged_decode_attention_g1_d64",
+                                  "paged_decode_attention_g2")]}
     for entry in line["kernels"]:
         for key in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms"):
             if entry[key] is not None and not math.isfinite(entry[key]):

@@ -4,8 +4,10 @@
 ``*_block_params(cfg)`` gives a block's per-layer specs, ``*_block_apply``
 its full-sequence forward (prefill), ``*_block_decode`` its one-token
 forward with its in-place cache update. The attention block's FFN is the
-dense SwiGLU, or for a config with ``num_experts`` the MoE FFN
-(:func:`moe_ffn`).
+dense SwiGLU, for a config with ``num_experts`` the MoE FFN
+(:func:`moe_ffn`), and for the audio family Whisper's GELU MLP. An
+encoder-decoder's decoder block (``cross=True``) adds cross attention over
+the encoder's output after its self-attention.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from repro_torch.models.common import causal_conv1d, rms_norm, rope, swiglu
 DECODE_KERNELS = ("paged", "gather", "ref")
 
 
-def attn_block_params(cfg: ModelConfig) -> Dict:
+def attn_block_params(cfg: ModelConfig, cross: bool = False) -> Dict:
     d, hq, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                         cfg.head_dim, cfg.d_ff)
     p = {
@@ -36,6 +38,14 @@ def attn_block_params(cfg: ModelConfig) -> Dict:
         "wo": ((hq, hd, d), ("q_heads", "head_dim", "embed_out"), "normal"),
         "ln2": ((d,), (None,), "ones"),
     }
+    if cross:
+        p.update({
+            "xln": ((d,), (None,), "ones"),
+            "xwq": ((d, hq, hd), ("embed", "q_heads", "head_dim"), "normal"),
+            "xwk": ((d, kv, hd), ("embed", "kv_heads", "head_dim"), "normal"),
+            "xwv": ((d, kv, hd), ("embed", "kv_heads", "head_dim"), "normal"),
+            "xwo": ((hq, hd, d), ("q_heads", "head_dim", "embed_out"), "normal"),
+        })
     if cfg.num_experts:
         e = cfg.num_experts
         p.update({
@@ -43,6 +53,12 @@ def attn_block_params(cfg: ModelConfig) -> Dict:
             "e_wg": ((e, d, f), ("experts", "embed", "ffn"), "normal"),
             "e_wu": ((e, d, f), ("experts", "embed", "ffn"), "normal"),
             "e_wd": ((e, f, d), ("experts", "ffn", "embed_out"), "normal"),
+        })
+    elif cfg.family == "audio":
+        # Whisper's GELU MLP
+        p.update({
+            "wi": ((d, f), ("embed", "ffn"), "normal"),
+            "wo_mlp": ((f, d), ("ffn", "embed_out"), "normal"),
         })
     else:
         p.update({
@@ -85,23 +101,41 @@ RanksMean = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 def _ffn(cfg: ModelConfig, p: Dict, x: torch.Tensor,
          ranks_mean: RanksMean = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The FFN and its auxiliary loss (0.0 for the dense SwiGLU)."""
+    """The FFN and its auxiliary loss (0.0 but for the MoE FFN). The audio
+    family's GELU (tanh form, as ``jax.nn.gelu``) runs on the float32
+    product, which is then cast back, in the reference's order."""
     if cfg.num_experts:
         return moe_ffn(cfg, p, x, ranks_mean)
+    if cfg.family == "audio":
+        h = F.gelu(torch.matmul(x, p["wi"]).float(), approximate="tanh")
+        return torch.matmul(h.to(x.dtype), p["wo_mlp"]), 0.0
     return swiglu(x, p["wg"], p["wu"], p["wd"]), 0.0
+
+
+def _cross(p: Dict, x: torch.Tensor, kx: torch.Tensor, vx: torch.Tensor) -> torch.Tensor:
+    """The residual stream after cross attention: queries from ``x`` (no
+    rope) over the encoder's K/V ``(B, Senc, Kv, Dh)`` in kv-head form,
+    every key seen (``causal=False``): on a CUDA tensor the flash kernel."""
+    qx = _proj_heads(rms_norm(x, p["xln"]), p["xwq"])
+    ox = ATT.attention(qx, kx, vx, causal=False)
+    return x + _out_proj(ox, p["xwo"])
 
 
 def attn_block_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                      positions: torch.Tensor, *, causal: bool = True,
-                     window: int = 0, ranks_mean: RanksMean = None):
+                     window: int = 0, ranks_mean: RanksMean = None,
+                     enc_out: Optional[torch.Tensor] = None):
     """Full-sequence forward. Returns ``(x_out, aux, {"k", "v"})``: the
     FFN's auxiliary loss (the MoE load-balance loss, else 0) and the rope'd
     K/V in kv-head cache-row form ``(B, S, Kv, Dh)`` for the prefill→decode
-    handoff."""
+    handoff. With ``enc_out`` (an encoder-decoder's decoder block) cross
+    attention over it follows the self-attention."""
     h = rms_norm(x, p["ln1"])
     q, k, v = _qkv(cfg, p, h, positions)
     o = ATT.attention(q, k, v, causal=causal, window=window)
     x = x + _out_proj(o, p["wo"])
+    if enc_out is not None:
+        x = _cross(p, x, _proj_heads(enc_out, p["xwk"]), _proj_heads(enc_out, p["xwv"]))
     f, aux = _ffn(cfg, p, rms_norm(x, p["ln2"]), ranks_mean)
     return x + f, aux, {"k": k, "v": v}
 
@@ -110,6 +144,7 @@ def attn_block_decode(
     cfg: ModelConfig, p: Dict, x: torch.Tensor, cache: Dict, pos: torch.Tensor,
     *, window: int = 0, tables: Optional[torch.Tensor] = None, page: int = 0,
     sc: int = 0, decode_kernel: str = "gather",
+    enc_out_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """x: (B, 1, D). cache: {"k", "v"} — dense ``(B, Sc, Kv, Dh)`` rows, or
     with ``tables``/``page``/``sc`` flat ``(n_slots, Kv, Dh)`` slot stacks
@@ -117,7 +152,10 @@ def attn_block_decode(
     ``pos`` is a scalar or a (B,) int32 vector. ``decode_kernel`` picks the
     paged read: "paged" (the fused kernel through ``kernels.ops``),
     "gather" (gathered view + dense decode attention) or "ref" (the
-    oracle)."""
+    oracle). ``enc_out_kv``: the layer's cross K/V ``(B, Senc, Kv, Dh)``
+    (an encoder-decoder's decoder block), read after the self-attention
+    through the same attention op as the prompt pass: on the card the flash
+    kernel at one query row."""
     h = rms_norm(x, p["ln1"])
     rope_pos = pos[None] if pos.dim() == 0 else pos[:, None]
     q, k, v = _qkv(cfg, p, h, rope_pos)
@@ -152,6 +190,8 @@ def attn_block_decode(
             ve = ve.repeat_interleave(g, dim=2)
         o = ATT.decode_attention(q, ke, ve, pos, window=window)
     x = x + _out_proj(o, p["wo"])
+    if enc_out_kv is not None:
+        x = _cross(p, x, *enc_out_kv)
     f, _aux = _ffn(cfg, p, rms_norm(x, p["ln2"]))       # decode drops aux
     return x + f
 

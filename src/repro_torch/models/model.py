@@ -1,16 +1,26 @@
-"""Model assembly for the dense, MoE, SSM and hybrid families (port of
-``repro/models/model.py``).
+"""Model assembly for every family (port of ``repro/models/model.py``).
 
 Parameters are a flat dict with the reference's keys and layer-stacked
 layouts (``l.wq`` is ``(L, d, Hq, Dh)``; the hybrid family stacks its RG-LRU
-layers under ``r.`` and its attention layers under ``a.``), so weights
-convert one to one (``repro_torch.interop``). The reference's ``lax.scan``
-over layers, and its unrolled hybrid pattern, become one Python loop over
-the layers in order (:meth:`Model.layers`). The MoE family is the dense
-stack with the MoE FFN (``blocks.moe_ffn``); its layers' load-balance losses
-are averaged into the auxiliary loss, as the reference's scan does. The
-vision and audio families raise ``NotImplementedError`` naming the slice
-that ports them.
+layers under ``r.`` and its attention layers under ``a.``; the audio
+family's encoder under ``e.`` and its decoder, whose blocks add cross
+attention, under ``d.``), so weights convert one to one
+(``repro_torch.interop``). The reference's ``lax.scan`` over layers, and its
+unrolled hybrid pattern, become one Python loop over the layers in order
+(:meth:`Model.layers`). The MoE family is the dense stack with the MoE FFN
+(``blocks.moe_ffn``); its layers' load-balance losses are averaged into the
+auxiliary loss, as the reference's scan does.
+
+The modality frontends are stubs, as in the reference: the vision family
+(InternVL2) takes precomputed ``patch_embeds`` and puts them before the
+text; the audio family (Whisper) takes precomputed ``frames``, runs them
+through its bidirectional encoder (ending in an RMS norm with the
+decoder's ``final_ln``, as the reference does) and reads the encoder's
+output through every decoder layer's cross attention. In decode the
+decoder's self-attention K/V are paged like any attention cache and each
+layer's cross K/V (``x.k``/``x.v``, :meth:`Model.build_cross_cache`) stay
+per row. Neither family hands a prompt pass's cache to decode
+(:attr:`Model.supports_handoff`).
 
 Training: :meth:`Model.loss` is the reference's loss over the full-sequence
 forward, with the reference's per-layer rematerialisation when the plan asks
@@ -39,9 +49,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models.common import SpecBuilder, rms_norm, softmax_xent_logits
 
-# family -> the port slice that brings it (ROADMAP.md "Queue A")
-_LATER_SLICES = {"vlm": 6, "audio": 6}
-_PORTED = ("dense", "moe", "ssm", "hybrid")
+_PORTED = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # weight of the MoE auxiliary loss in the total (the reference's)
 MOE_AUX_COEF = 0.01
 # FSDP's parameter gather: (stack prefix, or "" for the embedding, final
@@ -56,12 +64,10 @@ def _subtree(params: Dict, prefix: str) -> Dict:
 
 class Model:
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16):
-        if cfg.family not in _PORTED or cfg.is_encdec:
-            slice_no = _LATER_SLICES.get(cfg.family, 6)
+        if cfg.family not in _PORTED:
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family is ported in slice "
-                f"{slice_no} of the PyTorch port; the port serves the "
-                f"{', '.join(_PORTED[:-1])} and {_PORTED[-1]} families so far")
+                f"{cfg.name}: no family {cfg.family!r}; the port builds the "
+                f"{', '.join(_PORTED[:-1])} and {_PORTED[-1]} families")
         self.cfg = cfg
         self.dtype = dtype
         self.sb = self._build_specs()
@@ -92,15 +98,25 @@ class Model:
             pat = cfg.layer_pattern()
             return (("r.", pat.count("r"), B.rglru_block_params(cfg)),
                     ("a.", pat.count("a"), B.attn_block_params(cfg)))
+        if cfg.is_encdec:
+            return (("e.", cfg.encoder_layers, B.attn_block_params(cfg)),
+                    ("d.", cfg.num_layers, B.attn_block_params(cfg, cross=True)))
         blocks = B.ssd_block_params(cfg) if self.is_ssm else B.attn_block_params(cfg)
         return (("l.", cfg.num_layers, blocks),)
 
-    def layers(self) -> Iterator[Tuple[str, str, int]]:
+    def layers(self, encoder: bool = False) -> Iterator[Tuple[str, str, int]]:
         """(kind, stack prefix, index in the stack) of every layer in order;
-        kind is 'a' attention, 'r' RG-LRU or 's' SSD."""
+        kind is 'a' attention, 'r' RG-LRU or 's' SSD. The layers of the
+        decoder (the only stack but for an encoder-decoder), or with
+        ``encoder`` those of the encoder."""
+        cfg = self.cfg
+        if encoder:
+            yield from (("a", "e.", i) for i in range(cfg.encoder_layers))
+            return
         seen: Dict[str, int] = {}
-        for kind in self.cfg.layer_pattern():
-            prefix = f"{kind}." if self.cfg.family == "hybrid" else "l."
+        for kind in cfg.layer_pattern():
+            prefix = (f"{kind}." if cfg.family == "hybrid"
+                      else "d." if cfg.is_encdec else "l.")
             yield kind, prefix, seen.setdefault(prefix, 0)
             seen[prefix] += 1
 
@@ -144,32 +160,66 @@ class Model:
     # ------------------------------------------------------------------
     # full-sequence forward (prefill)
     # ------------------------------------------------------------------
-    def apply(self, params, tokens: torch.Tensor, *, last_only: bool = False,
+    def apply(self, params, tokens: torch.Tensor,
+              extra: Optional[Dict[str, torch.Tensor]] = None, *, last_only: bool = False,
               remat: bool = False, gather: Optional[Gather] = None,
               ranks_mean: B.RanksMean = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns ``(logits, aux_loss)``: logits for every position, or
-        with ``last_only`` for the final position only (``(B, 1, vocab)``).
-        The auxiliary loss is the mean over the layers of the MoE
-        load-balance loss (0 for every other family). With ``remat`` each
-        layer's activations are recomputed in the backward pass.
-        ``gather(prefix, tensors)`` (FSDP) turns the parameters this rank
-        holds into full ones: the embedding, final norm and head here, each
-        layer's when the layer runs (again in its recompute under remat).
-        ``ranks_mean`` (a data mesh) takes the MoE load-balance statistics
-        over the ranks (``blocks.moe_ffn``)."""
+        """Returns ``(logits, aux_loss)``: logits for every text position,
+        or with ``last_only`` for the final position only (``(B, 1,
+        vocab)``). ``extra`` holds the frontends' inputs: a vision model's
+        ``patch_embeds`` ``(B, P, D)`` (cast to the activation dtype and put
+        before the text, positions running over both; the logits drop the
+        prefix), an encoder-decoder's ``frames`` ``(B, Senc, D)``, which the
+        encoder reads (:meth:`_encode`). The auxiliary loss is the mean over
+        the layers of the MoE load-balance loss (0 for every other family).
+        With ``remat`` each layer's activations, the encoder's too, are
+        recomputed in the backward pass. ``gather(prefix, tensors)`` (FSDP)
+        turns the parameters this rank holds into full ones: the embedding,
+        final norm and head here, each layer's when the layer runs (again in
+        its recompute under remat). ``ranks_mean`` (a data mesh) takes the
+        MoE load-balance statistics over the ranks (``blocks.moe_ffn``)."""
+        cfg = self.cfg
+        extra = extra or {}
         if gather is not None:
             params = dict(params)
             params.update(gather("", {k: v for k, v in params.items() if "." not in k}))
-        x, _, aux = self._stack_prefill(params, self._embed(params, tokens), want_cache=False,
-                                        remat=remat, gather=gather, ranks_mean=ranks_mean)
+        x = self._embed(params, tokens)
+        prefix = 0
+        if cfg.frontend == "vision" and "patch_embeds" in extra:
+            pe = extra["patch_embeds"].to(x.dtype)
+            x = torch.cat([pe, x], dim=1)
+            prefix = pe.shape[1]
+        enc_out = None
+        if cfg.is_encdec:
+            enc_out = self._encode(params, extra["frames"].to(x.dtype), remat=remat,
+                                   gather=gather)
+        x, _, aux = self._stack_prefill(params, x, want_cache=False, remat=remat,
+                                        gather=gather, ranks_mean=ranks_mean, enc_out=enc_out)
         x = rms_norm(x, params["final_ln"])
-        logits = self._logits(params, x[:, -1:] if last_only else x)
+        if last_only:
+            # the last position is never inside the vision prefix
+            logits = self._logits(params, x[:, -1:])
+        else:
+            logits = self._logits(params, x)[:, prefix:]
         return logits, torch.zeros((), device=logits.device) if aux is None else aux
+
+    def _encode(self, params, frames: torch.Tensor, *, remat: bool = False,
+                gather: Optional[Gather] = None) -> torch.Tensor:
+        """The encoder stack over ``frames`` ``(B, Senc, D)``: bidirectional
+        attention blocks, then an RMS norm with the decoder's ``final_ln``
+        (the reference's, which the encoder shares)."""
+        x, _, _ = self._stack_prefill(params, frames, want_cache=False, remat=remat,
+                                      gather=gather, encoder=True)
+        return rms_norm(x, params["final_ln"])
 
     def _stack_prefill(self, params, x, *, lengths: Optional[torch.Tensor] = None,
                        want_cache: bool = True, remat: bool = False,
-                       gather: Optional[Gather] = None, ranks_mean: B.RanksMean = None):
-        """The layers over a full sequence: ``(x, caches, aux)``. With
+                       gather: Optional[Gather] = None, ranks_mean: B.RanksMean = None,
+                       enc_out: Optional[torch.Tensor] = None, encoder: bool = False):
+        """The layers over a full sequence: ``(x, caches, aux)``: the
+        decoder's, every decoder block reading ``enc_out`` through its
+        cross attention where it is given, or with ``encoder`` the
+        encoder's, bidirectional. With
         ``want_cache`` the caches are the layer-stacked per-layer caches:
         rope'd K/V ``(L, B, S, Kv, Dh)`` for attention, the decode state
         after each row's ``lengths`` prompt tokens for SSD and RG-LRU (else
@@ -183,16 +233,19 @@ class Model:
         positions = torch.arange(x.shape[1], device=x.device)
         caches: Dict[str, list] = {prefix: [] for prefix in stacks}
         auxs = []
-        for kind, prefix, i in self.layers():
+        causal = not encoder
+        for kind, prefix, i in self.layers(encoder):
             lp = self._layer(stacks[prefix], i)
             gather_layer = None if gather is None else functools.partial(gather, prefix)
             if remat and not want_cache:
                 x, aux = checkpoint(self._layer_apply, kind, lp, x, positions, lengths,
                                     gather=gather_layer, ranks_mean=ranks_mean,
+                                    causal=causal, enc_out=enc_out,
                                     use_reentrant=False, preserve_rng_state=False)
             else:
                 x, aux, *c = self._layer_apply(kind, lp, x, positions, lengths, want_cache,
-                                               gather=gather_layer, ranks_mean=ranks_mean)
+                                               gather=gather_layer, ranks_mean=ranks_mean,
+                                               causal=causal, enc_out=enc_out)
                 if want_cache:
                     caches[prefix].append(c[0])
             auxs.append(aux)
@@ -205,17 +258,21 @@ class Model:
     def _layer_apply(self, kind: str, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
                      lengths: Optional[torch.Tensor], want_cache: bool = False, *,
                      gather: Optional[Callable[[Dict], Dict]] = None,
-                     ranks_mean: B.RanksMean = None):
+                     ranks_mean: B.RanksMean = None, causal: bool = True,
+                     enc_out: Optional[torch.Tensor] = None):
         """One layer over a full sequence: ``(x, aux)``, or ``(x, aux,
         cache)`` with ``want_cache``; ``aux`` is the MoE load-balance loss
         (0.0 without experts). ``gather`` turns the layer's parameters into
         full ones first (inside the checkpointed call, so a recompute
-        gathers again)."""
+        gathers again). An attention layer is causal (with the arch's
+        window) or, for the encoder, bidirectional; ``enc_out`` is the
+        encoder's output a decoder block's cross attention reads."""
         if gather is not None:
             lp = gather(lp)
         if kind == "a":
-            x, aux, c = B.attn_block_apply(self.cfg, lp, x, positions, causal=True,
-                                           window=self.cfg.window_size, ranks_mean=ranks_mean)
+            x, aux, c = B.attn_block_apply(self.cfg, lp, x, positions, causal=causal,
+                                           window=self.cfg.window_size if causal else 0,
+                                           ranks_mean=ranks_mean, enc_out=enc_out)
             return (x, aux, c) if want_cache else (x, aux)
         block = B.ssd_block_apply if kind == "s" else B.rglru_block_apply
         out = block(self.cfg, lp, x, lengths=lengths, want_cache=want_cache)
@@ -231,8 +288,10 @@ class Model:
         ``batch["targets"]`` under the logits of ``batch["tokens"]``, plus
         ``MOE_AUX_COEF`` times the auxiliary loss (the MoE family's
         load-balance loss; 0 for the others). Returns ``(total, {"xent",
-        "aux"})``. ``gather``, ``ranks_mean``: as :meth:`apply`."""
-        logits, aux = self.apply(params, batch["tokens"], remat=remat, gather=gather,
+        "aux"})``. The batch is also :meth:`apply`'s ``extra`` (a vision
+        model's ``patch_embeds``, an encoder-decoder's ``frames``).
+        ``gather``, ``ranks_mean``: as :meth:`apply`."""
+        logits, aux = self.apply(params, batch["tokens"], batch, remat=remat, gather=gather,
                                  ranks_mean=ranks_mean)
         xent = softmax_xent_logits(logits, batch["targets"])
         total = xent + MOE_AUX_COEF * aux
@@ -245,7 +304,8 @@ class Model:
         from a zero cache."""
         return not self.cfg.is_encdec and self.cfg.frontend == "none"
 
-    def prefill(self, params, tokens: torch.Tensor, *,
+    def prefill(self, params, tokens: torch.Tensor,
+                extra: Optional[Dict[str, torch.Tensor]] = None, *,
                 lengths: Optional[torch.Tensor] = None,
                 cache_len: Optional[int] = None):
         """Prompt pass returning ``(last_logits, cache)``: each row's
@@ -253,7 +313,13 @@ class Model:
         and a populated decode cache — the :meth:`init_cache` dict at
         ``(batch, cache_len)`` — for the prefill→decode handoff.
         ``lengths`` is the per-row prompt length inside the padded
-        ``tokens`` (default: the full width)."""
+        ``tokens`` (default: the full width). A family without a handoff
+        returns the last position's logits of :meth:`apply` over ``tokens``
+        and ``extra`` (``lengths`` unread) and no cache, as the reference
+        does."""
+        if not self.supports_handoff:
+            logits, _ = self.apply(params, tokens, extra, last_only=True)
+            return logits[:, -1], None
         b, s = tokens.shape
         dev = tokens.device
         if lengths is None:
@@ -309,7 +375,7 @@ class Model:
             for name, (shape, axes, dt) in B.ssd_cache_spec(cfg, batch, self.dtype).items():
                 ent[f"l.{name}"] = ((cfg.num_layers, *shape), ("layers", *axes), dt)
             return ent
-        n_attn, prefix = cfg.num_layers, "l."
+        n_attn, prefix = cfg.num_layers, "d." if cfg.is_encdec else "l."
         if cfg.family == "hybrid":
             pat = cfg.layer_pattern()
             n_attn, prefix = pat.count("a"), "a."
@@ -319,12 +385,19 @@ class Model:
         sc = self.attn_cache_len(seq_len)
         for name, (shape, axes) in B.attn_cache_spec(cfg, batch, sc).items():
             ent[f"{prefix}{name}"] = ((n_attn, *shape), ("layers", *axes), self.dtype)
+        if cfg.is_encdec:
+            # each decoder layer's cross K/V over the encoder's output
+            kv = (cfg.num_layers, batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+            axes = ("layers", "batch", None, "kv_heads", "head_dim")
+            ent["x.k"] = (kv, axes, self.dtype)
+            ent["x.v"] = (kv, axes, self.dtype)
         return ent
 
     @staticmethod
     def is_paged_cache_key(key: str) -> bool:
         """Attention K/V stacks page their sequence dimension; recurrent
-        state is O(1) in sequence and stays per row."""
+        state is O(1) in sequence and an encoder-decoder's cross K/V fixed
+        in it: both stay per row."""
         return (key.endswith(".k") or key.endswith(".v")) and not key.startswith("x.")
 
     def paged_cache_entries(self, batch: int, seq_len: int, page: int):
@@ -377,7 +450,9 @@ class Model:
         (paged | gather | ref; see ``blocks.attn_block_decode``). Recurrent
         layers (SSD, RG-LRU) ignore ``pos``, ``tables`` and the window:
         their state is per row. The hybrid family's attention layers take
-        the arch's window, as the reference's do."""
+        the arch's window, as the reference's do. An encoder-decoder's
+        decoder layers read their cross K/V (``cache["x.k"]``,
+        ``cache["x.v"]``, per row) after their self-attention."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
@@ -393,7 +468,7 @@ class Model:
             window = 0                      # no attention layer
         else:
             window = (window_override if window_override is not None
-                      else self.decode_window(seq_len if paged else cache["l.k"].shape[2]))
+                      else self.decode_window(seq_len if paged else cache_seq(cache)))
         stacks, lcaches = {}, {}
         for prefix, _n, _b in self._stacks():
             stacks[prefix] = _subtree(params, prefix)
@@ -406,11 +481,33 @@ class Model:
             elif kind == "r":
                 x = B.rglru_block_decode(cfg, lp, x, lc)
             else:
+                xkv = (cache["x.k"][i], cache["x.v"][i]) if cfg.is_encdec else None
                 x = B.attn_block_decode(cfg, lp, x, lc, pos, window=window,
                                         tables=tables, page=page, sc=sc,
-                                        decode_kernel=decode_kernel)
+                                        decode_kernel=decode_kernel, enc_out_kv=xkv)
         x = rms_norm(x, params["final_ln"])
         return self._logits(params, x), cache
+
+    def build_cross_cache(self, params, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """An encoder-decoder's serving setup: the encoder run once over
+        ``frames`` ``(B, Senc, D)`` and every decoder layer's cross K/V
+        projected from its output: ``{"x.k", "x.v"}``, each ``(L, B, Senc,
+        Kv, Dh)`` in the model's dtype, to merge into the decode cache."""
+        if not self.cfg.is_encdec:
+            raise ValueError(f"{self.cfg.name} has no encoder")
+        enc_out = self._encode(params, frames.to(self.dtype))
+        xk = torch.einsum("bsd,ldhk->lbshk", enc_out, params["d.xwk"])
+        xv = torch.einsum("bsd,ldhk->lbshk", enc_out, params["d.xwv"])
+        return {"x.k": xk.to(self.dtype), "x.v": xv.to(self.dtype)}
+
+
+def cache_seq(cache: Dict) -> int:
+    """The slots of a dense decode cache's self-attention rows (0 without
+    attention)."""
+    for k, v in cache.items():
+        if k.endswith(".k") and not k.startswith("x."):
+            return v.shape[2]
+    return 0
 
 
 def gather_cache_slots(kv: torch.Tensor, lengths: torch.Tensor,

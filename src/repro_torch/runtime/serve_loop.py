@@ -76,8 +76,14 @@ def make_decode_step(model, page: int = 0, seq_len: int = 0,
 
 
 def make_prefill(model):
+    """The prompt pass of a batch: ``tokens`` and ``lengths``, every other
+    key handed on as the model's ``extra``, as the reference's is. The
+    server's prompt pass gives only the first two, so an encoder-decoder
+    model, whose ``apply`` reads ``frames``, raises ``KeyError`` there, as
+    the reference's does: it serves with ``prefill=False``."""
     def prefill(params, batch):
-        return model.prefill(params, batch["tokens"], lengths=batch.get("lengths"))
+        extra = {k: v for k, v in batch.items() if k not in ("tokens", "lengths")}
+        return model.prefill(params, batch["tokens"], extra, lengths=batch.get("lengths"))
     return prefill
 
 

@@ -51,9 +51,14 @@ is not ported: ROADMAP Queue A 14c. Every ported family trains: dense (the
 flash kernel's training forward and the reference's recompute backward),
 MoE (the same attention; the expert dispatch and combine with the
 reference's gather-only backward), SSM (the SSD kernel's training forward
-and its backward kernel) and hybrid (the RG-LRU scan's training forward and
-backward kernel, and flash). The step's metrics carry the MoE auxiliary
-loss as ``aux`` beside ``xent``, as the reference's loss returns them.
+and its backward kernel), hybrid (the RG-LRU scan's training forward and
+backward kernel, and flash), vision (InternVL2: the dense stack over its
+patch prefix and the text) and audio (Whisper: the bidirectional encoder
+and the decoder's cross attention, both through flash's training forward).
+The batch reaches the loss whole, so a vision model's ``patch_embeds`` and
+an encoder-decoder's ``frames`` split with the rows (``batch_specs``,
+microbatches). The step's metrics carry the MoE auxiliary loss as ``aux``
+beside ``xent``, as the reference's loss returns them.
 """
 
 from __future__ import annotations
@@ -73,7 +78,7 @@ from repro_torch.core.strategies import PlanConfig
 from repro_torch.nn.optim import OPTIMIZER_SLOTS, get_optimizer
 
 # the families whose full-sequence forward has a backward on the card
-TRAINED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+TRAINED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # the optimizer update's span in a torch.profiler trace
 OPTIMIZER_SPAN = "train.optimizer"
 

@@ -270,10 +270,18 @@ def test_unported_parts_raise_and_name_their_slice():
     for arch in ("qwen3-moe-235b-a22b", "qwen3-moe-235b-a22b-smoke", "dbrx-132b",
                  "dbrx-132b-smoke"):
         assert "l.e_wg" in build_model(get_config(arch)).sb.entries
-    # the vlm and audio families still raise and name their slice
-    for arch in ("internvl2-2b-smoke", "whisper-medium-smoke"):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            build_model(get_config(arch))
+    # the vlm and audio families are ported: their configs build, full and
+    # reduced, the audio family with its encoder (e.), decoder (d.) and
+    # cross (x*) leaves
+    for arch in ("internvl2-2b", "internvl2-2b-smoke"):
+        model = build_model(get_config(arch))
+        assert "l.wq" in model.sb.entries and not model.supports_handoff
+    for arch in ("whisper-medium", "whisper-medium-smoke"):
+        keys = set(build_model(get_config(arch)).sb.entries)
+        assert {"e.wq", "e.wi", "d.xwq", "d.xwk", "d.xwv", "d.xwo", "d.xln"} <= keys
+    # a family the port does not know still raises
+    with pytest.raises(NotImplementedError, match="no family"):
+        build_model(get_config("yi-6b-smoke").replace(family="diffusion"))
     # parfor is ported: Keras2Plan takes a mesh (remote scoring:
     # tests/test_torch_parfor.py), at construction and through set
     spec, meta = softmax_classifier.make_spec(4, 2)

@@ -50,8 +50,8 @@ MESHES = {
     "multi-pod": port_config.MULTI_POD_MESH,
 }
 ARCHES = [a + s for a in ARCH_IDS for s in ("", "-smoke")]
-PORTED = ("dense", "moe", "ssm", "hybrid")
-# the archs whose model the port builds (the other families: Queue A 15)
+PORTED = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# the archs whose model the port builds
 PORTED_ARCHES = [a for a in ARCHES if get_config(a).family in PORTED]
 # activation axes the reference's model code constrains, beside batch_specs
 ACT_AXES = (("batch", "seq", "embed"), ("batch", "seq", "q_heads", "head_dim"),
