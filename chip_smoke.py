@@ -358,6 +358,9 @@ FP32_TOL = (1e-4, 1e-4, 1e-5)
 # the rtol term and an RMS ratio of ~1.4e-2, caught by both limits.
 PAGED_BF16_TOL = (1e-5, 2.0 ** -8, 2.0 ** -8)
 FLASH_BF16_TOL = (2e-3, 2.0 ** -8, 2.0 ** -8)
+# flash_decode keeps P in float32 and rounds only its output, as paged
+# decode does: the paged check's tolerance
+DECODE_BF16_TOL = PAGED_BF16_TOL
 # SSD: the kernel computes in float32 on the bfloat16 inputs and rounds only
 # its output, so the plain version on float32 copies of the same inputs is
 # its reference; atol covers float32 summation order where an output sits
@@ -805,6 +808,7 @@ def phase_kernels():
     results["paged_decode_attention_g10_d256"] = paged_hybrid_cases(flush)
     results.update(moe_kernel_cases(flush, plain_flash))
     results.update(encdec_kernel_cases(flush, plain_flash))
+    results["flash_decode"] = flash_decode_cases(flush)
     results["rglru_scan"] = rglru_kernel_cases(flush)
     results["ssd_scan"] = ssd_kernel_cases(flush)
     results.update(ssd_train_cases(flush))
@@ -1086,17 +1090,19 @@ def encdec_kernel_cases(flush, plain_flash) -> dict:
     """Flash and paged decode at the vision and audio families' shapes.
     Flash, float32 and bfloat16, each against its plain version: Whisper's
     encoder (8 rows, 16 heads of 64, 1500 frames, bidirectional: a ragged
-    tail of 28 keys past 23 64-key tiles), its cross read in a decode tick
-    (one query row against 1500 keys; 63 of the 64-row query tile are
-    padding), its decoder's training shapes (cross: 448 queries against 1500
-    keys; self: causal at 448, g = 1) and InternVL2's prompt pass (16 query
-    heads on 8 kv heads of 128, S = 2048, causal). The training forward at
-    Whisper's two training shapes: its output bit for bit the serving op's,
-    its lse and its recompute backward (a ragged last chunk of 476 keys)
-    against the plain versions. Paged decode at g = 1, D = 64 (Whisper's
-    decoder, Sc = 448) and g = 2, D = 128 (InternVL2, Sc = 2048), at page
-    edges and mid-decode. The encoder and cross-read shapes and both paged
-    shapes timed in bfloat16. Returns their four kernels-line entries."""
+    tail of 92 keys past 11 128-key tiles), its cross read at one query row
+    through the flash op (the decode tick takes ``flash_decode``, in
+    :func:`flash_decode_cases`), its decoder's training shapes (cross: 448
+    queries against 1500 keys; self: causal at 448, g = 1) and InternVL2's
+    prompt pass (16 query heads on 8 kv heads of 128, S = 2048, causal);
+    each Whisper shape's bfloat16 call read from a profiler trace, which
+    must hold ``flash_wgmma_kernel<64>``. The training forward at Whisper's
+    two training shapes: its output bit for bit the serving op's, its lse
+    and its recompute backward (a ragged last chunk of 476 keys) against
+    the plain versions. Paged decode at g = 1, D = 64 (Whisper's decoder,
+    Sc = 448) and g = 2, D = 128 (InternVL2, Sc = 2048), at page edges and
+    mid-decode. The encoder shape and both paged shapes timed in bfloat16.
+    Returns their three kernels-line entries."""
     gen = torch.Generator(device="cuda").manual_seed(41)
     shapes = {  # name: (b, hq, hkv, d, sq, sk, causal)
         "whisper encoder": (8, 16, 16, 64, 1500, 1500, False),
@@ -1116,8 +1122,7 @@ def encdec_kernel_cases(flush, plain_flash) -> dict:
         return (f"{name} (B={b}, Hq={hq}, Hkv={hkv}, D={d}, Sq={sq}, Sk={sk}, "
                 f"{'causal' if causal else 'bidirectional'})")
 
-    timed = {"flash_attention_d64": "whisper encoder",
-             "flash_attention_cross_decode": "whisper cross decode"}
+    timed = {"flash_attention_d64": "whisper encoder"}
     kept = {}
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, FLASH_BF16_TOL)):
         for name, shape in shapes.items():
@@ -1127,6 +1132,14 @@ def encdec_kernel_cases(flush, plain_flash) -> dict:
             torch.cuda.synchronize()
             err = check_close(f"flash {str(dtype)[6:]} {label(name)}", got, want, tol)
             del got, want
+            if dtype == torch.bfloat16 and name.startswith("whisper"):
+                want_name = FA.kernel_name(shape[3], dtype)
+                ran = sorted(_short(n) for n in traced_kernels(
+                    lambda: FA.flash_attention(q, k, v, causal=shape[-1]), calls=1)
+                    if _kernel_family(n) == "flash")
+                print(f"    the trace reads {', '.join(ran) or 'no events'}")
+                if ran and not any(want_name in n for n in ran):
+                    fail(f"flash {name}: the trace holds {ran}, not {want_name}")
             if dtype == torch.bfloat16 and name in timed.values():
                 kept[name] = (q, k, v, err)
             del q, k, v
@@ -1150,6 +1163,8 @@ def encdec_kernel_cases(flush, plain_flash) -> dict:
         # yardstick only, never called by the port: the library's fused
         # attention on the same inputs (g = 1: no expansion)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), flush=flush)
+        lib_dev, lib_names = device_ms(lambda: F.scaled_dot_product_attention(q, k, v), "flash",
+                                       flush)
         flops, nbytes = FA.work(q, k, v, False, 0, -1)
         bound, by = _bound_ms(nbytes, flops, torch.bfloat16)
         want_name = FA.kernel_name(q.shape[-1], torch.bfloat16)
@@ -1158,7 +1173,8 @@ def encdec_kernel_cases(flush, plain_flash) -> dict:
         print(f"  flash timing, {label(name)}: kernel {ms:.4f} ms by events "
               f"({_tflops(flops, ms)}), device time {_dev(dev_ms)} "
               f"({', '.join(_short(n) for n in names) or 'no events'}), plain "
-              f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+              f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.4f} ms by events, "
+              f"device time {_dev(lib_dev)} ({', '.join(_short(n) for n in lib_names)}), bound "
               f"{bound:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
         entries[key] = dict(name=key, route="cuda",
                             source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1197,6 +1213,99 @@ def encdec_kernel_cases(flush, plain_flash) -> dict:
                             replaces="src/repro/kernels/paged_attention.py:130",
                             library_ms=None, **timing)
     return entries
+
+
+def flash_decode_cases(flush) -> dict:
+    """``flash_decode`` (one query row a batch row against K/V in the
+    model's (B, Sk, Hkv, D) layout, read in place), float32 and bfloat16,
+    against its plain version on the same inputs: Whisper's cross read
+    (8, 16/16, 1 x 1500, 64), also over one layer of a stacked (L, B, Sk,
+    Hkv, D) cross cache as the decode tick hands it; Sk of 1, 37, a split's
+    edge and one past either side; causal with ``q_offset`` inside the
+    first split; a window; and g = 1, 2, 8 and 16 query heads a kv head.
+    The cross read timed in bfloat16 beside scaled_dot_product_attention on
+    (B, Hq, 1, D) and transposed copies of K/V made before the timing, the
+    plain version and the bound. Returns its kernels-line entry."""
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    sms = sm_count(torch.device("cuda"))
+    # Sk = edge: four splits of exactly DECODE_MIN_SPLIT keys for Whisper's
+    # 128 (row, kv head) pairs on an H100's 132 SMs (FA.decode_splits)
+    edge = 4 * FA.DECODE_MIN_SPLIT
+    whisper = (8, 16, 16, 1500, 64)
+    cases = [  # label, (b, hq, hkv, sk, d), causal, window, q_offset
+        ("whisper cross decode", whisper, False, 0, -1),
+        ("Sk = 1", (8, 16, 16, 1, 64), False, 0, -1),
+        ("Sk = 37", (8, 16, 16, 37, 64), False, 0, -1),
+        (f"Sk = {edge - 1}", (8, 16, 16, edge - 1, 64), False, 0, -1),
+        (f"Sk = {edge}, a split's edge", (8, 16, 16, edge, 64), False, 0, -1),
+        (f"Sk = {edge + 1}", (8, 16, 16, edge + 1, 64), False, 0, -1),
+        ("causal, q_offset 50 (inside the first split)", whisper, True, 0, 50),
+        ("causal, window 100 at q_offset 700", whisper, True, 100, 700),
+        ("window 64 (the last 64 keys)", whisper, False, 64, -1),
+        ("g = 2", (8, 32, 16, 1500, 64), False, 0, -1),
+        ("g = 8", (4, 64, 8, 1500, 64), False, 0, -1),
+        ("g = 16", (2, 256, 16, 1500, 64), False, 0, -1),
+    ]
+    kept = None
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, DECODE_BF16_TOL)):
+        for label, (b, hq, hkv, sk, d), causal, window, q_offset in cases:
+            q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            got = FA.flash_decode(q, k, v, causal=causal, window=window, q_offset=q_offset)
+            want = FA.flash_decode_torch(q.float(), k.float(), v.float(), causal=causal,
+                                         window=window, q_offset=q_offset)
+            torch.cuda.synchronize()
+            lo, hi = FA.decode_range(sk, causal, window, q_offset)
+            n, split = FA.decode_splits(lo, hi, b * hkv, sms)
+            err = check_close(f"flash_decode {str(dtype)[6:]} {label} (B={b}, Hq={hq}, "
+                              f"Hkv={hkv}, Sk={sk}, D={d}; {n} splits of {split})", got, want,
+                              tol)
+            if dtype == torch.bfloat16 and label == "whisper cross decode":
+                kept = (q, k, v, err)
+            del got, want
+        stack = torch.randn((3, *whisper[:1], whisper[3], whisper[2], whisper[4]),
+                            generator=gen, device="cuda").to(dtype)
+        q = torch.randn(whisper[:2] + whisper[4:], generator=gen, device="cuda").to(dtype)
+        got = FA.flash_decode(q, stack[1], stack[2], causal=False)
+        want = FA.flash_decode_torch(q.float(), stack[1].float(), stack[2].float(), causal=False)
+        torch.cuda.synchronize()
+        check_close(f"flash_decode {str(dtype)[6:]} whisper cross decode over layer 1 of a "
+                    "stacked (3, 8, 1500, 16, 64) cache", got, want, tol)
+        del stack, got, want
+    q, k, v, err = kept
+
+    def call():
+        return FA.flash_decode(q, k, v, causal=False)
+
+    ms = cuda_ms(call, flush=flush)
+    dev_ms, names = device_ms(call, "flash", flush)
+    plain_ms = cuda_ms(lambda: FA.flash_decode_torch(q, k, v, causal=False), reps=5, flush=flush)
+    # yardstick only, never called by the port: the library's fused
+    # attention over K/V in its own (B, H, S, D) layout, copied beforehand
+    q4, kt, vt = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, kt, vt), flush=flush)
+    lib_dev, lib_names = device_ms(lambda: F.scaled_dot_product_attention(q4, kt, vt), "flash",
+                                   flush)
+    flops, nbytes = FA.work_decode(q, k, v, False, 0, -1)
+    bound, by = _bound_ms(nbytes, flops, torch.bfloat16)
+    if names and not any("flash_decode_kernel" in n for n in names):
+        fail(f"flash_decode: the trace holds {sorted(names)}, not flash_decode_kernel")
+    n, split = FA.decode_splits(0, 1500, 8 * 16, sms)
+    print(f"  flash_decode timing, whisper cross decode (B=8, Hq=16, Hkv=16, Sk=1500, D=64, "
+          f"{n} splits of {split} keys): {ms:.4f} ms by "
+          f"events, device time {_dev(dev_ms)} ("
+          + ", ".join(f"{_short(n)} {t:.4f} ms" for n, t in names.items()) + f"), plain "
+          f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.4f} ms by events, device "
+          f"time {_dev(lib_dev)} ({', '.join(_short(n) for n in lib_names)}), bound {bound:.4f} "
+          f"ms ({by}; {nbytes / 1e6:.1f} MB)")
+    entry = dict(name="flash_decode", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:116", max_abs_err=err, ms=ms,
+                 device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                 library_ms=lib_ms)
+    del q, k, v, q4, kt, vt
+    return entry
 
 
 def flash_train_check(name, q, k, v, causal: bool) -> None:
@@ -2322,7 +2431,7 @@ def _engine_case(solo, role) -> tuple:
 
 def _counted_wrappers() -> dict:
     """The kernel wrappers on the serving path, by name."""
-    return {"flash_attention": FA.flash_attention,
+    return {"flash_attention": FA.flash_attention, "flash_decode": FA.flash_decode,
             "paged_decode_attention": PA.paged_decode_attention, "ssd_scan": SSD.ssd_scan,
             "rglru_scan": RG.rglru_scan}
 
@@ -2332,12 +2441,12 @@ def launches_expected(cfg, prefills: int, paged_ticks: int, ticks: int = 0) -> d
     ``paged_ticks`` decode ticks whose plan chose the paged kernel, of
     ``ticks`` in all: flash, the SSD scan and the RG-LRU scan once per layer
     of their kind and prompt pass, paged decode once per attention layer
-    and paged tick; an encoder-decoder's cross attention is flash once per
-    decoder layer and tick."""
+    and paged tick; an encoder-decoder's cross attention is the one-row
+    ``flash_decode`` once per decoder layer and tick."""
     pattern = cfg.layer_pattern()
     n_attn = pattern.count("a")
     cross = cfg.num_layers * ticks if cfg.is_encdec else 0
-    return {"flash_attention": n_attn * prefills + cross,
+    return {"flash_attention": n_attn * prefills, "flash_decode": cross,
             "paged_decode_attention": n_attn * paged_ticks,
             "ssd_scan": pattern.count("s") * prefills,
             "rglru_scan": pattern.count("r") * prefills}
@@ -4470,7 +4579,8 @@ def phase_serve_audio() -> dict:
     launches = {fn.__name__: fn.launches for fn in _build.COUNTED if fn.launches}
     eager = encdec_greedy(srv, params, cross, AUDIO_DECODE_TOKENS, graphed=False)
     ticks = AUDIO_DECODE_TOKENS + 4
-    want = {"flash_attention": cfg.num_layers * ticks,
+    # no flash_attention launch in a tick: the cross read is flash_decode
+    want = {"flash_decode": cfg.num_layers * ticks,
             "paged_decode_attention": cfg.num_layers * ticks}
     print(f"  decode: {AUDIO_DECODE_TOKENS} greedy tokens a row, {AUDIO_ROWS} rows, "
           f"{AUDIO_CONTEXT}-slot context, pages of 64: graphed "
@@ -4481,8 +4591,8 @@ def phase_serve_audio() -> dict:
     split = graphed[3]
     print("  decode tick device time (4 graphed ticks traced): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
-          + f" (paged = self-attention, flash = cross read); busy {sum(split.values()):.4f} "
-          "ms a tick")
+          + " (paged = self-attention, flash = the cross read, flash_decode); busy "
+          f"{sum(split.values()):.4f} ms a tick")
     print(f"  first row's tokens: {graphed[0][0].tolist()}")
     if not np.array_equal(graphed[0], eager[0]):
         fail("serve-audio: graphed and eager token streams differ")
@@ -4505,7 +4615,7 @@ def phase_serve_audio() -> dict:
     torch.cuda.empty_cache()
     print(f"  serve-audio: {time.perf_counter() - t_phase:.1f} s")
     return {"flash_attention_d64": enc_launches,
-            "flash_attention_cross_decode": want["flash_attention"] + served["flash_attention"],
+            "flash_decode": want["flash_decode"] + served["flash_decode"],
             "paged_decode_attention_g1_d64": (want["paged_decode_attention"]
                                               + served["paged_decode_attention"])}
 
@@ -4910,7 +5020,7 @@ def main() -> int:
                                   "flash_attention_train", "ssd_scan_train", "ssd_scan_bwd",
                                   "rglru_scan_train", "rglru_scan_bwd", "flash_attention_g16",
                                   "paged_decode_attention_g16", "flash_attention_d64",
-                                  "flash_attention_cross_decode",
+                                  "flash_decode",
                                   "paged_decode_attention_g1_d64",
                                   "paged_decode_attention_g2")]}
     for entry in line["kernels"]:

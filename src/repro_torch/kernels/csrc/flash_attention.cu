@@ -25,41 +25,60 @@
 // GQA expansion is never materialized), skips kv tiles wholly outside the
 // causal / window mask (they contribute exactly zero) and masks the ragged
 // Sk tail in the kernel, with no padding copy.
-// - bfloat16, D = 128 (Yi's serving shape) and D = 256 (recurrentgemma's
-//   local attention): flash_wgmma_kernel<D>, three warpgroups per 128-row
-//   query tile. Warpgroup 2 is the producer: one thread issues TMA loads of
+// - bfloat16, D = 64 (Whisper's encoder, decoder and cross attention), 128
+//   (Yi's serving shape) and 256 (recurrentgemma's local attention):
+//   flash_wgmma_kernel<D>, two consumer warpgroups and a producer per
+//   128-row query tile. The producer issues, from one thread, TMA loads of
 //   Q (once) and of K and V tiles into a ring of shared memory, guarded by
-//   full and empty mbarriers for K and V apart; the warpgroup gives up
-//   registers (setmaxnreg.dec). Warpgroups 0 and 1 consume, 64 query rows
-//   each, with raised registers (setmaxnreg.inc), each holding one tile's S,
-//   P and O. Every tile is stored as 64-column slabs of 128-byte rows, the
-//   swizzle's width. S = Q.K^T is D / 16 wgmma k-steps from shared memory,
-//   the descriptors moving to the next slab every 4; the softmax runs in
-//   exp2 on scores times scale * log2(e), with the per-element mask only on
-//   the tiles that the diagonal, the window's lower edge or the Sk tail
-//   crosses; the score accumulators are rounded to bf16 in place into the A
-//   operand of O += P.V, wgmma m64n128k16 with V read through the
-//   descriptor's transpose bit (no copy of V^T), one per 128 output columns
-//   and 16 keys. The tensor maps are 3-D, (D, S, heads), so rows past Sq or
-//   Sk load as zeros and never reach into the next head; they are encoded
-//   on the host through the driver entry point, with 128-byte swizzle to
-//   match the wgmma shared-memory descriptors. Query tiles are launched
-//   longest first.
-//   The register budget sets the two shapes. At D = 128: 128-key tiles
-//   (S m64n128k16, 64 registers a thread; O 64), a three-stage ring,
-//   consumers at 232 registers and the producer at 40. At D = 256 a
-//   consumer's O is 64 x 256 float32, 128 registers a thread, so a 128-key
-//   tile's S (64) and P (32) would pass the 240 that setmaxnreg can give:
-//   64-key tiles (S m64n64k16, 32 registers; P 16), two P.V products per
-//   16 keys, consumers at 240 and the producer at 24 (2 x 128 x 240 +
-//   128 x 24 = 64,512 of the SM's 65,536). Q (128 x 256) takes 64 KB and a
-//   K or V tile 32 KB, so two stages (197,704 bytes, one block an SM) fit
-//   where three would not. Not yet: overlapping a tile's softmax with
-//   products (within a warpgroup, the next tile's S while this tile's
-//   softmax runs needs a second score buffer, for which ptxas spilled at
-//   D = 128, and that version ran slower on the H100; across the two
-//   warpgroups, ping-pong scheduling), persistent blocks.
-// - bfloat16, D = 32 and 64 (the smoke configurations; flash_mma_kernel):
+//   full and empty mbarriers for K and V apart. Warpgroups 0 and 1 consume,
+//   64 query rows each, each holding one tile's S, P and O. Every tile is
+//   stored as 64-column slabs of 128-byte rows, the swizzle's width. S =
+//   Q.K^T is D / 16 wgmma k-steps from shared memory, the descriptors
+//   moving to the next slab every 4; the softmax runs in exp2 on scores
+//   times scale * log2(e), with the per-element mask only on the tiles that
+//   the diagonal, the window's lower edge or the Sk tail crosses; the score
+//   accumulators are rounded to bf16 in place into the A operand of O +=
+//   P.V, wgmma with V read through the descriptor's transpose bit (no copy
+//   of V^T): m64n128k16 per 128 output columns and 16 keys, m64n64k16 at
+//   D = 64. The tensor maps are 3-D, (D, S, heads), so rows past Sq or Sk
+//   load as zeros and never reach into the next head; they are encoded on
+//   the host through the driver entry point, with 128-byte swizzle to match
+//   the wgmma shared-memory descriptors. Under a causal or window mask
+//   query tiles are launched longest first across heads; without one a
+//   head's tiles run together, so its K/V stay in L2.
+//   The register budget sets the shapes (Shape<D>). At D = 128: 128-key
+//   tiles (S m64n128k16, 64 registers a thread; O 64), a three-stage ring,
+//   the producer a warpgroup that gives up registers (setmaxnreg.dec, 40)
+//   to consumers at 232 (setmaxnreg.inc). At D = 256 a consumer's O is
+//   64 x 256 float32, 128 registers a thread, so a 128-key tile's S (64)
+//   and P (32) would pass the 240 that setmaxnreg can give: 64-key tiles
+//   (S m64n64k16, 32 registers; P 16), two P.V products per 16 keys,
+//   consumers at 240 and the producer at 24 (2 x 128 x 240 + 128 x 24 =
+//   64,512 of the SM's 65,536). Q (128 x 256) takes 64 KB and a K or V
+//   tile 32 KB, so two stages (197,704 bytes, one block an SM) fit where
+//   three would not.
+//   At D = 64 the special-function unit, not the tensor cores alone, sets
+//   the pace: a key's exponential per query row costs as much SFU time (16
+//   a clock an SM) as its 2 x 64 multiply-adds of tensor time, and with one
+//   block an SM both consumers tend to wait on the same tile, their
+//   softmaxes then leaving the tensor cores idle. So two blocks share an
+//   SM, whose four consumers drift apart: 64-key tiles (S 32 registers, P
+//   16, O 32), two stages, 50,248 bytes a block, and a one-warp producer
+//   (288 threads; no setmaxnreg) so that launch_bounds(288, 2) leaves each
+//   thread 112 registers. The softmax (FAST) takes 2^x from ex2.approx.ftz
+//   (one SFU instruction, where exp2f adds a range check and two
+//   scalings), moves a row's running max only when a tile's passes it by
+//   more than kSlack = 8 (so most tiles leave O unscaled, a warp vote
+//   skipping its multiplies; flash_attention_tiled models the same rule), and
+//   sums a row's quad once, at the end. Dropped on the card
+//   (tools/flash_d64_sweep.py; PERF.md): D = 128's shape, a third and a
+//   fourth stage, two blocks with a warpgroup producer at 104 consumer
+//   registers (as fast, fewer registers), and, in earlier builds, the next
+//   tile's Q.K^T issued beside this tile's softmax (ptxas serialises the
+//   wgmma, C7514: slower), the consumers taking turns at the tensor cores
+//   (slower) and pairwise-tree reductions (slower). Not yet: persistent
+//   blocks.
+// - bfloat16, D = 32 (only smoke configurations have it; flash_mma_kernel):
 //   mma.sync m16n8k16 on 64-row query tiles and 64-key tiles loaded
 //   synchronously; each warp keeps its Q fragments in registers, K and V
 //   reach the MMAs through ldmatrix (V transposed on the fly), and the
@@ -302,13 +321,29 @@ struct KeyMask {
   }
 };
 
+// 2^x by the special-function unit alone, subnormal inputs and results
+// flushed to zero (exp2f adds a range check and two scalings around it); a
+// probability below 2^-126 of its row's largest is dropped
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // One row's online-softmax step over the N scores this thread holds of it
 // (the other three threads of its quad hold the rest of the row): masked
 // scores (MASKED: where !ok) become kNegInf; the scaled running max ms
 // becomes max(ms, max(s) * c); s becomes p = exp2(s * c - ms), 0 where
 // masked; the row sum of p joins l; the factor alpha by which the row's
-// output must be scaled is returned.
-template <int N, bool MASKED>
+// output must be scaled is returned. FAST: 2^x by ex2_ftz; the running max
+// moves only when the tile's passes it by more than kSlack (so p stays below
+// 2^kSlack, and most tiles leave the row's output unscaled: alpha 1); and l
+// holds this thread's share of the row sum only (the running max is the
+// quad's, so the shares scale alike; the caller sums the quad once, at the
+// end).
+constexpr float kSlack = 8.f;
+
+template <int N, bool MASKED, bool FAST = false>
 __device__ __forceinline__ float softmax_row(float (&s)[N], float& ms, float& l, float c,
                                              const KeyMask& ok) {
   float mx = kNegInf;
@@ -319,17 +354,21 @@ __device__ __forceinline__ float softmax_row(float (&s)[N], float& ms, float& l,
   }
   mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
   mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-  const float ms_new = fmaxf(ms, mx * c);
+  float ms_new = fmaxf(ms, mx * c);
+  if (FAST && !(ms_new > ms + kSlack)) ms_new = ms;
   float sum = 0.f;
 #pragma unroll
   for (int e = 0; e < N; ++e) {
-    const float p = exp2f(fmaf(s[e], c, -ms_new));
+    const float x = fmaf(s[e], c, -ms_new);
+    const float p = FAST ? ex2_ftz(x) : exp2f(x);
     s[e] = (!MASKED || ok(e)) ? p : 0.f;
     sum += s[e];
   }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-  const float alpha = exp2f(ms - ms_new);
+  if (!FAST) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  }
+  const float alpha = FAST ? ex2_ftz(ms - ms_new) : exp2f(ms - ms_new);
   l = alpha * l + sum;
   ms = ms_new;
   return alpha;
@@ -344,7 +383,7 @@ __device__ __forceinline__ float row_lse(float ms, float l) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16, D = 32 and 64: mma.sync m16n8k16, float32 accumulate
+// bfloat16, D = 32: mma.sync m16n8k16, float32 accumulate
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -516,25 +555,43 @@ flash_mma_kernel(const bf16* __restrict__ q,   // (B, Hq, Sq, D)
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16, D = 128 and 256: TMA + wgmma, warp-specialised
+// bfloat16, D = 64, 128 and 256: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
 namespace wg {
 
 constexpr int BM = 128;                     // query rows per block, 64 per consumer
-constexpr int THREADS = 384;                // 2 consumer warpgroups + the producer
 constexpr int SLAB_ROW = 128;               // bytes of a slab row: 64 bf16, the swizzle's width
 
-// per head dim: keys per kv tile, K/V ring depth, and the registers a
-// consumer and a producer thread hold after setmaxnreg (2 x 128 x consumer
-// + 128 x producer <= 65,536)
+// per head dim: keys per kv tile, K/V ring depth, the registers a consumer
+// and a producer thread hold after setmaxnreg (BLOCKS x (2 x 128 x consumer
+// + 128 x producer) <= 65,536), the blocks an SM holds, whether the
+// producer is one warp instead of a warpgroup (SLIM: no setmaxnreg; every
+// thread keeps what the launch bounds give it), and whether the softmax is
+// softmax_row's FAST one
+template <int BN_, int STAGES_, int CONSUMER_REGS_, int PRODUCER_REGS_, int BLOCKS_, bool SLIM_,
+          bool FAST_>
+struct ShapeOf {
+  static constexpr int BN = BN_, STAGES = STAGES_, CONSUMER_REGS = CONSUMER_REGS_,
+                       PRODUCER_REGS = PRODUCER_REGS_, BLOCKS = BLOCKS_;
+  static constexpr bool SLIM = SLIM_, FAST = FAST_;
+  static constexpr int THREADS = SLIM ? 256 + 32 : 384;
+};
+// tools/flash_d64_sweep.py builds the other D = 64 shapes it times by
+// defining this macro (in a header it pre-includes); the port builds the
+// default
+#ifndef FLASH_D64_SHAPE
+#define FLASH_D64_SHAPE 64, 2, 0, 0, 2, true, true
+#endif
 template <int D> struct Shape;
-template <> struct Shape<128> {
-  static constexpr int BN = 128, STAGES = 3, CONSUMER_REGS = 232, PRODUCER_REGS = 40;
-};
-template <> struct Shape<256> {
-  static constexpr int BN = 64, STAGES = 2, CONSUMER_REGS = 240, PRODUCER_REGS = 24;
-};
+template <> struct Shape<64> : ShapeOf<FLASH_D64_SHAPE> {};
+template <> struct Shape<128> : ShapeOf<128, 3, 232, 40, 1, false, false> {};
+template <> struct Shape<256> : ShapeOf<64, 2, 240, 24, 1, false, false> {};
+
+// output columns per P.V product (wgmma m64n128k16, or m64n64k16 at D = 64)
+// and products per 16 keys
+template <int D> constexpr int ON = D >= 128 ? 128 : 64;
+template <int D> constexpr int OH = D / ON<D>;
 
 // A tile of R rows x D columns is D / 64 slabs of R rows of 128 bytes, each
 // slab 128-byte swizzled (one TMA box of 64 columns x R rows). Shared
@@ -551,6 +608,11 @@ struct Layout {
   static constexpr int BARRIERS = 1 + 4 * STAGES;   // q_full; full and empty, K and V, per stage
   static constexpr int SMEM_BYTES = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS;
   static_assert(SMEM_BYTES <= 232448, "a block's shared memory is past the opt-in limit");
+  static_assert(Shape<D>::BLOCKS * (SMEM_BYTES + 1024) <= 233472,
+                "Shape<D>::BLOCKS blocks do not fit an SM's shared memory");
+  static_assert(Shape<D>::SLIM || Shape<D>::BLOCKS * (256 * Shape<D>::CONSUMER_REGS +
+                                                      128 * Shape<D>::PRODUCER_REGS) <= 65536,
+                "Shape<D>::BLOCKS blocks do not fit an SM's registers");
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -678,6 +740,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+// the same with B 16 x 64: d is 64 x 64
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      "}\n"
+      : WG_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
 #undef WG_ACC8
 #undef WG_ACC32
 #undef WG_ACC64
@@ -726,20 +799,23 @@ __device__ __forceinline__ void issue_s(float (&s)[Shape<D>::BN / 2], const Smem
 }
 
 // O += P V of the tile in stage st, issued once it has landed: per 16 keys
-// (16 slab rows of 128 B) one m64n128k16 for each 128 output columns, whose
-// V is two 64-column slabs, KV_SLAB apart (MN-major)
+// (16 slab rows of 128 B) one product for each ON output columns, whose V
+// is ON / 64 slabs, KV_SLAB apart (MN-major); its wgmma.fence orders the
+// writes of o and pa before the products.
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 128][64],
+__device__ __forceinline__ void issue_pv(float (&o)[OH<D>][ON<D> / 2],
                                          const uint32_t (&pa)[Shape<D>::BN / 16][4],
                                          const Smem<D>& sm, int st, uint32_t phase) {
   using L = Layout<D>;
   mbar_wait(sm.full_v(st), phase);
+  wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < L::BN / 16; ++kk)
 #pragma unroll
-    for (int h = 0; h < D / 128; ++h)
+    for (int h = 0; h < OH<D>; ++h)
       wgmma_rs(o[h], pa[kk],
-               desc(sm.v(st) + 2 * h * L::KV_SLAB + kk * 16 * SLAB_ROW, L::KV_SLAB, 1024));
+               desc(sm.v(st) + h * (ON<D> / 64) * L::KV_SLAB + kk * 16 * SLAB_ROW,
+                    L::KV_SLAB, 1024));
   wgmma_commit();
 }
 
@@ -760,7 +836,7 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[N / 8][4], const float (&s
 // place (element 4 j + 2 i + c: row i, key k0 + 8 j + col0 + c); the rows'
 // output scale factors go to alpha. Only tiles the mask crosses (masked)
 // test each key.
-template <int N>
+template <bool FAST, int N>
 __device__ __forceinline__ void tile_softmax(float (&s)[N], float (&ms)[2], float (&l)[2],
                                              float (&alpha)[2], bool masked, int k0, int qpos0,
                                              int col0, int sk, int causal, int window,
@@ -771,16 +847,17 @@ __device__ __forceinline__ void tile_softmax(float (&s)[N], float (&ms)[2], floa
     float row[N / 2];
 #pragma unroll
     for (int e = 0; e < N / 2; ++e) row[e] = s[4 * (e >> 1) + 2 * i + (e & 1)];
-    alpha[i] = masked ? softmax_row<N / 2, true>(row, ms[i], l[i], c, ok)
-                      : softmax_row<N / 2, false>(row, ms[i], l[i], c, ok);
+    alpha[i] = masked ? softmax_row<N / 2, true, FAST>(row, ms[i], l[i], c, ok)
+                      : softmax_row<N / 2, false, FAST>(row, ms[i], l[i], c, ok);
 #pragma unroll
     for (int e = 0; e < N / 2; ++e) s[4 * (e >> 1) + 2 * i + (e & 1)] = row[e];
   }
 }
 
-__device__ __forceinline__ void scale_rows(float (&o)[64], const float (&alpha)[2]) {
+template <int N>
+__device__ __forceinline__ void scale_rows(float (&o)[N], const float (&alpha)[2]) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     o[4 * j] *= alpha[0];
     o[4 * j + 1] *= alpha[0];
     o[4 * j + 2] *= alpha[1];
@@ -791,7 +868,7 @@ __device__ __forceinline__ void scale_rows(float (&o)[64], const float (&alpha)[
 }  // namespace wg
 
 template <int D>
-__global__ void __launch_bounds__(wg::THREADS, 1)
+__global__ void __launch_bounds__(wg::Shape<D>::THREADS, wg::Shape<D>::BLOCKS)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // (D, Sq, B*Hq)
                    const __grid_constant__ CUtensorMap tm_k,   // (D, Sk, B*Hkv)
                    const __grid_constant__ CUtensorMap tm_v,   // (D, Sk, B*Hkv)
@@ -801,7 +878,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // (D, Sq, B*Hq)
                    float c) {                                  // scale * log2(e)
   using namespace wg;
   using L = Layout<D>;
-  constexpr int BN = L::BN, STAGES = L::STAGES, OH = D / 128;
+  constexpr int BN = L::BN, STAGES = L::STAGES, NH = OH<D>, NO = ON<D>;
   extern __shared__ __align__(1024) unsigned char smem_wg[];
   const Smem<D> sm{(smem_addr(smem_wg) + 1023u) & ~1023u};
 
@@ -817,8 +894,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // (D, Sq, B*Hq)
   }
   __syncthreads();
 
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // longest query tiles first
+  // under a causal or window mask, heads vary fastest and query tiles go
+  // longest first over the whole grid (the tiles' work differs); without
+  // one, query tiles vary fastest, so the blocks resident at once read the
+  // K/V of few heads and find them in L2 (by_head below, as launched)
+  const bool by_head = causal || window > 0;
+  const int bh = by_head ? blockIdx.x : blockIdx.y;
+  const int tile = by_head ? blockIdx.y : blockIdx.x;
+  const int q0 = ((by_head ? gridDim.y : gridDim.x) - 1 - tile) * BM;
   int kv_begin, kv_end;
   kv_range(q_offset + q0, q_offset + min(q0 + BM, sq) - 1, sk, causal, window, BN, kv_begin,
            kv_end);
@@ -827,9 +910,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // (D, Sq, B*Hq)
   const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
 
   if (role == 2) {
-    // ---- producer warpgroup: one thread keeps the ring full ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Shape<D>::PRODUCER_REGS)
-                 : "memory");
+    // ---- producer (a warpgroup, one warp where SLIM): one thread keeps the ring full ----
+    if constexpr (!Shape<D>::SLIM)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Shape<D>::PRODUCER_REGS)
+                   : "memory");
     if (threadIdx.x == 256) {
       const int b = bh / hq;
       const int kvh = b * hkv + (bh - b * hq) / (hq / hkv);
@@ -855,8 +939,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // (D, Sq, B*Hq)
     }
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Shape<D>::CONSUMER_REGS)
-                 : "memory");
+    if constexpr (!Shape<D>::SLIM)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Shape<D>::CONSUMER_REGS)
+                   : "memory");
     const int lane = threadIdx.x % 32;
     const int row0 = q0 + role * 64 + (threadIdx.x % 128 / 32) * 16 + lane / 4;   // and + 8
     const int qpos0 = q_offset + row0;
@@ -870,12 +955,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // (D, Sq, B*Hq)
       return (k0 + BN > sk) || (causal && k0 + BN - 1 > qlo) || (window > 0 && k0 <= qhi - window);
     };
 
-    float o[OH][64], s[BN / 2], ms[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+    float o[NH][NO / 2], s[BN / 2], ms[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
     uint32_t pa[BN / 16][4];            // P as the bf16 A fragments of P.V
 #pragma unroll
-    for (int h = 0; h < OH; ++h)
+    for (int h = 0; h < NH; ++h)
 #pragma unroll
-      for (int i = 0; i < 64; ++i) o[h][i] = 0.f;
+      for (int i = 0; i < NO / 2; ++i) o[h][i] = 0.f;
 
     mbar_wait(sm.q_full(), 0);
     for (int it = 0; it < n_tiles; ++it) {
@@ -886,35 +971,363 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // (D, Sq, B*Hq)
       wgmma_wait<0>();
       fence_regs(s);
       mbar_arrive(sm.empty_k(st));
-      tile_softmax(s, ms, l, alpha, crossed(k0), k0, qpos0, col0, sk, causal, window, c);
+      tile_softmax<Shape<D>::FAST>(s, ms, l, alpha, crossed(k0), k0, qpos0, col0, sk, causal,
+                                 window, c);
+      // FAST: most tiles leave every row of the warp unscaled
+      if (!Shape<D>::FAST || __any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int h = 0; h < OH; ++h) scale_rows(o[h], alpha);
+        for (int h = 0; h < NH; ++h) scale_rows(o[h], alpha);
+      }
       pack_p(pa, s);
-      wgmma_fence();                    // the writes of o and pa before the products
       issue_pv<D>(o, pa, sm, st, phase);
       wgmma_wait<0>();
 #pragma unroll
-      for (int h = 0; h < OH; ++h) fence_regs(o[h]);
+      for (int h = 0; h < NH; ++h) fence_regs(o[h]);
       mbar_arrive(sm.empty_v(st));
     }
 
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
+      if constexpr (Shape<D>::FAST) {   // the quad's shares of the row sum
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      }
       const int r = row0 + 8 * i;
       if (r < sq) {
         const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
         bf16* orow = out + ((size_t)bh * sq + r) * D + col0;
 #pragma unroll
-        for (int h = 0; h < OH; ++h)
+        for (int h = 0; h < NH; ++h)
 #pragma unroll
-          for (int j = 0; j < 16; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(orow + 128 * h + 8 * j) =
+          for (int j = 0; j < NO / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(orow + NO * h + 8 * j) =
                 __floats2bfloat162_rn(o[h][4 * j + 2 * i] * inv, o[h][4 * j + 2 * i + 1] * inv);
         if (lse != nullptr && lane % 4 == 0) lse[(size_t)bh * sq + r] = row_lse(ms[i], l[i]);
       }
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// one query row a batch row: split keys over blocks, K/V in the model's
+// (B, Sk, Hkv, D) layout (flash_decode)
+//
+// Replaces the TPU kernel above (flash_attention.py, flash_attention) where
+// the reference calls it with one query row: a decode tick's cross
+// attention (src/repro/models/blocks.py, attn_block_decode, through
+// models/attention.py::attention). Same function at Sq = 1: the row at
+// absolute position q_offset sees the keys [lo, hi) of the causal and
+// window masks (a contiguous range), softmax in float32, zeros where it
+// sees none.
+//
+// What bounds it on an H100: bytes. Each K and V element carries g
+// multiply-adds (one at Whisper's g = 1), so the card reads K/V far slower
+// than it could multiply them, and a tensor-core tile would be mostly
+// padding. What the design does about it: no copy (the rows are read in
+// place through their strides, Hkv * D apart, not transposed first), one
+// block per (kv head, split of the keys, batch row) so that enough bytes
+// are in flight to fill the card (the wrapper sizes the splits for about
+// four blocks an SM), each block reading its split once for all g query
+// heads of its kv head. The splits' partials are merged as
+// csrc/paged_decode.cu's combine merges them, but in the same launch: the
+// last split of a (row, kv head) to finish, found by an atomic count that
+// it resets, merges all of them (a second kernel cost 2-5 us, up to a fifth
+// of the read).
+// ---------------------------------------------------------------------------
+
+namespace dec {
+
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
+constexpr int STAGES = 3;                   // cp.async ring stages
+
+// A K or V row of D elements is read by LPK lanes, each holding E elements
+// (CPL 16-byte chunks, LPK apart); RPW rows a warp, R rows (row slots) a
+// block, U keys a row slot in each tile of TK keys.
+template <typename T, int D, int G>
+struct Cfg {
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int CHUNKS = D / VEC;
+  static constexpr int LPK = CHUNKS < 32 ? CHUNKS : 32;
+  static constexpr int CPL = CHUNKS / LPK;
+  static constexpr int E = CPL * VEC;
+  static constexpr int RPW = 32 / LPK;
+  static constexpr int R = WARPS * RPW;
+  static constexpr int U = G >= 8 ? 2 : 4;
+  static constexpr int TK = R * U;
+  static constexpr int RING = STAGES * 2 * TK * D * (int)sizeof(T);
+  static constexpr int MERGE = WARPS * G * (D + 2) * 4;
+  static constexpr int SMEM = G * D * 4 + (RING > MERGE ? RING : MERGE);
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a 16-byte chunk of shared memory as floats
+__device__ __forceinline__ void chunk_f32(const float* p, float* f) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  f[0] = t.x; f[1] = t.y; f[2] = t.z; f[3] = t.w;
+}
+__device__ __forceinline__ void chunk_f32(const bf16* p, float* f) {
+  const uint4 t = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+__device__ __forceinline__ float elem_f32(float x) { return x; }
+__device__ __forceinline__ float elem_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store_elem(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_elem(bf16* p, float x) { *p = __float2bfloat16(x); }
+
+// Block (kv head h, split, row b) reads keys [s0, s1) of the row's visible
+// range [lo, hi), s0 = lo + split * split_keys, for the g <= G query heads
+// h * g .. h * g + g - 1 together. Each lane copies its own chunks of its
+// rows into the ring with cp.async (zero-filled past s1) and reads back only
+// what it copied, so the walk needs no barrier: STAGES - 1 tiles are in
+// flight while one is computed. A row slot keeps each head's running max
+// (of scores times c, log2 units), denominator and E-element accumulator in
+// float32; the slots are merged by shuffles within a warp and through
+// shared memory across warps into the split's partial (m, l, acc).
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(THREADS)
+flash_decode_kernel(const T* __restrict__ q,        // (B, Hkv * g, D)
+                    const T* __restrict__ k,        // row j of kv head h: b sb + j ss + h sh
+                    const T* __restrict__ v,
+                    T* __restrict__ out,            // (B, Hkv * g, D)
+                    float* __restrict__ part_acc,   // (B, Hkv, n_splits, g, D)
+                    float* __restrict__ part_ml,    // (B, Hkv, n_splits, g, 2)
+                    int* __restrict__ counters,     // (B, Hkv), zero; left zero
+                    int hkv, int g, long long sb, long long ss, long long sh, int lo, int hi,
+                    int split_keys, float c) {
+  using C = Cfg<T, D, G>;
+  constexpr int E = C::E, U = C::U, R = C::R, TK = C::TK, LPK = C::LPK, VEC = C::VEC;
+  extern __shared__ __align__(16) unsigned char smem_dec[];
+  float* q_s = reinterpret_cast<float*>(smem_dec);                  // G x D
+  T* ring = reinterpret_cast<T*>(smem_dec + G * D * 4);             // [stage][K, V][TK][D]
+  float* merge = reinterpret_cast<float*>(smem_dec + G * D * 4);    // after the walk
+
+  const int h = blockIdx.x, split = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int slot = warp * C::RPW + lane / LPK;   // this lane's row slot
+  const int li = lane % LPK;                     // its place in the row
+  const int s0 = lo + split * split_keys;
+  const int n = max(0, min(hi, s0 + split_keys) - s0);
+  const int n_tiles = (n + TK - 1) / TK;
+  const T* kb = k + b * sb + h * sh + (long long)s0 * ss;
+  const T* vb = v + b * sb + h * sh + (long long)s0 * ss;
+
+  auto issue = [&](int t) {
+    T* ks = ring + (t % STAGES) * 2 * TK * D;
+    T* vs = ks + TK * D;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int row = u * R + slot;
+      const int i = t * TK + row;
+      const bool ok = i < n;
+      const long long off = (long long)(ok ? i : 0) * ss;
+#pragma unroll
+      for (int j = 0; j < C::CPL; ++j) {
+        const int col = (li + j * LPK) * VEC;
+        cp_async16(ks + row * D + col, kb + off + col, ok);
+        cp_async16(vs + row * D + col, vb + off + col, ok);
+      }
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_tiles) issue(t);
+    cp_async_commit();
+  }
+  const T* qb = q + ((size_t)b * hkv + h) * g * D;
+  for (int e = tid; e < G * D; e += THREADS) q_s[e] = e < g * D ? elem_f32(qb[e]) : 0.f;
+  __syncthreads();                                // q_s complete
+
+  float acc[G][E], m[G], l[G];
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();                  // this lane's copies of tile t landed
+    if (t + STAGES - 1 < n_tiles) issue(t + STAGES - 1);
+    cp_async_commit();
+    const T* ks = ring + (t % STAGES) * 2 * TK * D;
+    const T* vs = ks + TK * D;
+
+    float s[U][G];
+    {
+      float kf[U][E];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int j = 0; j < C::CPL; ++j)
+          chunk_f32(ks + (u * R + slot) * D + (li + j * LPK) * VEC, &kf[u][j * VEC]);
+#pragma unroll
+      for (int r = 0; r < G; ++r) {
+        float qf[E];
+#pragma unroll
+        for (int j = 0; j < C::CPL; ++j)
+#pragma unroll
+          for (int x = 0; x < VEC; x += 4)
+            chunk_f32(q_s + r * D + (li + j * LPK) * VEC + x, &qf[j * VEC + x]);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float a = 0.f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) a = fmaf(qf[e], kf[u][e], a);
+          s[u][r] = a;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = LPK / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int r = 0; r < G; ++r) s[u][r] += __shfl_xor_sync(0xffffffffu, s[u][r], o);
+
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) ok[u] = t * TK + u * R + slot < n;
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (ok[u]) mx = fmaxf(mx, s[u][r] * c);
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = exp2f(m[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[u][r] = ok[u] ? exp2f(fmaf(s[u][r], c, -m_new)) : 0.f;
+        sum += s[u][r];
+      }
+      l[r] = alpha * l[r] + sum;
+      m[r] = m_new;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[r][e] *= alpha;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vf[E];
+#pragma unroll
+      for (int j = 0; j < C::CPL; ++j)
+        chunk_f32(vs + (u * R + slot) * D + (li + j * LPK) * VEC, &vf[j * VEC]);
+#pragma unroll
+      for (int r = 0; r < G; ++r)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[r][e] = fmaf(s[u][r], vf[e], acc[r][e]);
+    }
+  }
+
+  // merge the warp's row slots (lanes LPK, 2 LPK, ... apart hold the same
+  // elements of other slots)
+#pragma unroll
+  for (int o = LPK; o < 32; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
+      const float lo_ = __shfl_xor_sync(0xffffffffu, l[r], o);
+      const float mn = fmaxf(m[r], mo);
+      const float a = exp2f(m[r] - mn), bo = exp2f(mo - mn);
+      l[r] = a * l[r] + bo * lo_;
+      m[r] = mn;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        acc[r][e] = a * acc[r][e] + bo * __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+    }
+  // ... and the warps' through shared memory, once the ring is idle
+  cp_async_wait<0>();
+  __syncthreads();
+  float* ml_w = merge;                            // [WARPS][G][2]
+  float* acc_w = merge + WARPS * G * 2;           // [WARPS][G][D]
+  if (lane < LPK) {
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      if (li == 0) {
+        ml_w[(warp * G + r) * 2] = m[r];
+        ml_w[(warp * G + r) * 2 + 1] = l[r];
+      }
+#pragma unroll
+      for (int j = 0; j < C::CPL; ++j)
+#pragma unroll
+        for (int x = 0; x < VEC; ++x)
+          acc_w[(warp * G + r) * D + (li + j * LPK) * VEC + x] = acc[r][j * VEC + x];
+    }
+  }
+  __syncthreads();
+  const size_t part = ((size_t)b * hkv + h) * gridDim.y + split;
+  for (int e = tid; e < g * D; e += THREADS) {
+    const int r = e / D;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mm = fmaxf(mm, ml_w[(w * G + r) * 2]);
+    float ll = 0.f, aa = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float f = exp2f(ml_w[(w * G + r) * 2] - mm);
+      ll = fmaf(f, ml_w[(w * G + r) * 2 + 1], ll);
+      aa = fmaf(f, acc_w[(w * G + r) * D + e - r * D], aa);
+    }
+    part_acc[part * g * D + e] = aa;
+    if (e - r * D == 0) {
+      part_ml[(part * g + r) * 2] = mm;
+      part_ml[(part * g + r) * 2 + 1] = ll;
+    }
+  }
+
+  // the last of the (row, kv head)'s splits to finish merges them all:
+  // out[b, h g + r, :] = sum_s w_s acc_s / sum_s w_s l_s, w_s = exp2(m_s -
+  // max m); a row that sees no key (every l_s = 0) gives zeros
+  __shared__ bool last;
+  __threadfence();                                // this split's partial, device-wide
+  __syncthreads();
+  if (tid == 0) {
+    int* count = counters + (size_t)b * hkv + h;
+    last = atomicAdd(count, 1) == (int)gridDim.y - 1;
+    if (last) *count = 0;                         // for the next launch on the stream
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int n_splits = gridDim.y;
+  const size_t first = ((size_t)b * hkv + h) * n_splits;
+  for (int e = tid; e < g * D; e += THREADS) {
+    const int r = e / D;
+    const float* ml = part_ml + (first * g + r) * 2;          // split s at ml[2 g s]
+    const float* acc_s = part_acc + (first * g + r) * D + (e - r * D);   // at [g D s]
+    float mm = kNegInf;
+    for (int sp = 0; sp < n_splits; ++sp) mm = fmaxf(mm, __ldcg(ml + 2 * g * sp));
+    float ll = 0.f, aa = 0.f;
+    for (int sp = 0; sp < n_splits; ++sp) {
+      const float f = exp2f(__ldcg(ml + 2 * g * sp) - mm);
+      ll = fmaf(f, __ldcg(ml + 2 * g * sp + 1), ll);
+      aa = fmaf(f, __ldcg(acc_s + (size_t)g * D * sp), aa);
+    }
+    store_elem(out + ((size_t)b * hkv + h) * g * D + e, aa / (ll == 0.f ? 1.f : ll));
+  }
+}
+
+}  // namespace dec
 
 // ---------------------------------------------------------------------------
 // launchers
@@ -1006,9 +1419,15 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_BYTES);
+  // the largest shared-memory carveout, so that Shape<D>::BLOCKS blocks fit an SM
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  dim3 grid(batch * hq, (sq + wg::BM - 1) / wg::BM);
-  flash_wgmma_kernel<D><<<grid, wg::THREADS, L::SMEM_BYTES, stream>>>(
+  const int tiles = (sq + wg::BM - 1) / wg::BM;
+  const dim3 grid = causal || window > 0 ? dim3(batch * hq, tiles) : dim3(tiles, batch * hq);
+  flash_wgmma_kernel<D><<<grid, wg::Shape<D>::THREADS, L::SMEM_BYTES, stream>>>(
       tq, tk, tv, static_cast<bf16*>(out), lse, hq, hkv, sq, sk, causal, window, q_offset,
       scale * kLog2e);
   return cudaGetLastError();
@@ -1022,7 +1441,7 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
     return launch_fp32<D>(q, k, v, out, lse, batch, hq, hkv, sq, sk, causal, window, q_offset,
                           scale, s);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if constexpr (D >= 128)
+  if constexpr (D >= 64)
     return launch_wgmma<D>(q, k, v, out, lse, batch, hq, hkv, sq, sk, causal, window, q_offset,
                            scale, s);
   else
@@ -1030,11 +1449,99 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
                          scale, s);
 }
 
+template <typename T, int D, int G>
+cudaError_t launch_decode(const void* q, const void* k, const void* v, void* out,
+                          float* part_acc, float* part_ml, int* counters, int batch, int hkv,
+                          int g, long long sb, long long ss, long long sh, int lo, int hi,
+                          int split_keys, int n_splits, float scale, cudaStream_t stream) {
+  constexpr int bytes = dec::Cfg<T, D, G>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(dec::flash_decode_kernel<T, D, G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dec::flash_decode_kernel<T, D, G><<<dim3(hkv, n_splits, batch), dec::THREADS, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), part_acc, part_ml, counters, hkv, g, sb, ss, sh, lo, hi,
+      split_keys, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t decode_g(const void* q, const void* k, const void* v, void* out, float* pa,
+                     float* pm, int* cnt, int batch, int hkv, int g, long long sb, long long ss,
+                     long long sh, int lo, int hi, int split_keys, int n_splits, float scale,
+                     cudaStream_t s) {
+  // the instantiation whose G is the smallest of 1, 4, 16 >= g
+  if (g == 1)
+    return launch_decode<T, D, 1>(q, k, v, out, pa, pm, cnt, batch, hkv, g, sb, ss, sh, lo, hi,
+                                  split_keys, n_splits, scale, s);
+  if (g <= 4)
+    return launch_decode<T, D, 4>(q, k, v, out, pa, pm, cnt, batch, hkv, g, sb, ss, sh, lo, hi,
+                                  split_keys, n_splits, scale, s);
+  return launch_decode<T, D, 16>(q, k, v, out, pa, pm, cnt, batch, hkv, g, sb, ss, sh, lo, hi,
+                                 split_keys, n_splits, scale, s);
+}
+
+template <typename T>
+cudaError_t decode_d(int d, const void* q, const void* k, const void* v, void* out, float* pa,
+                     float* pm, int* cnt, int batch, int hkv, int g, long long sb, long long ss,
+                     long long sh, int lo, int hi, int split_keys, int n_splits, float scale,
+                     cudaStream_t s) {
+  switch (d) {
+    case 32:
+      return decode_g<T, 32>(q, k, v, out, pa, pm, cnt, batch, hkv, g, sb, ss, sh, lo, hi,
+                             split_keys, n_splits, scale, s);
+    case 64:
+      return decode_g<T, 64>(q, k, v, out, pa, pm, cnt, batch, hkv, g, sb, ss, sh, lo, hi,
+                             split_keys, n_splits, scale, s);
+    case 128:
+      return decode_g<T, 128>(q, k, v, out, pa, pm, cnt, batch, hkv, g, sb, ss, sh, lo, hi,
+                              split_keys, n_splits, scale, s);
+    case 256:
+      return decode_g<T, 256>(q, k, v, out, pa, pm, cnt, batch, hkv, g, sb, ss, sh, lo, hi,
+                              split_keys, n_splits, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
+// One query row a batch row: q (batch, hkv * g, d), k and v rows of kv
+// head h at b * sb + j * ss + h * sh elements (16-byte aligned), keys
+// [lo, hi) seen, in n_splits splits of split_keys; out (batch, hkv * g, d)
+// in q's dtype. part_acc / part_ml: float32 workspace of batch * hkv *
+// n_splits * g * d and batch * hkv * n_splits * g * 2 elements; counters:
+// batch * hkv int32, zero, which the launch leaves zero. dtype: 0 =
+// float32, 1 = bfloat16; d in {32, 64, 128, 256}; 1 <= g <= 16. One launch
+// of flash_decode_kernel; returns its cudaError_t.
+extern "C" int flash_decode(const void* q, const void* k, const void* v, void* out,
+                            void* part_acc, void* part_ml, void* counters, int dtype, int batch,
+                            int hkv, int g, int d, long long sb, long long ss, long long sh,
+                            int lo, int hi, int split_keys, int n_splits, float scale,
+                            void* stream) {
+  if (g < 1 || g > 16 || lo < 0 || hi < lo || split_keys < 1 || n_splits < 1 ||
+      (long long)n_splits * split_keys < hi - lo)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pa = static_cast<float*>(part_acc);
+  float* pm = static_cast<float*>(part_ml);
+  int* cnt = static_cast<int*>(counters);
+  cudaError_t err;
+  if (dtype == 0)
+    err = decode_d<float>(d, q, k, v, out, pa, pm, cnt, batch, hkv, g, sb, ss, sh, lo, hi,
+                          split_keys, n_splits, scale, s);
+  else if (dtype == 1)
+    err = decode_d<bf16>(d, q, k, v, out, pa, pm, cnt, batch, hkv, g, sb, ss, sh, lo, hi,
+                         split_keys, n_splits, scale, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
 // dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 128, 256}; rows must be
-// 16-byte aligned. bfloat16 at d = 128 and 256 runs flash_wgmma_kernel<d>,
-// at d = 32 and 64 flash_mma_kernel<d>. lse: null, or (batch, hq, sq)
+// 16-byte aligned. bfloat16 at d = 64, 128 and 256 runs
+// flash_wgmma_kernel<d>, at d = 32 flash_mma_kernel<32>; float32 runs
+// flash_fp32_kernel<d>. lse: null, or (batch, hq, sq)
 // float32 for each row's log-sum-exp. Returns the launch's cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
                                void* lse_out, int dtype, int batch, int hq, int hkv, int sq,

@@ -13,11 +13,12 @@ expansion is never materialized.
   call's FLOPs and bytes. Unlike the TPU
   kernel it pads nothing: the ragged ``Sk`` tail is masked per element, so
   unaligned bidirectional attention needs no special case. bfloat16 at
-  D = 128 and 256 runs ``flash_wgmma_kernel<D>`` (TMA + wgmma; 128-key
-  tiles at D = 128, 64-key tiles at D = 256), at D = 32 and 64
-  ``flash_mma_kernel`` (mma.sync, 64-key tiles); float32 runs
-  ``flash_fp32_kernel`` (CUDA cores). Key tiles wholly outside the
-  causal and window masks are skipped, not masked.
+  D = 64, 128 and 256 runs ``flash_wgmma_kernel<D>`` (TMA + wgmma; 128-key
+  tiles at D = 128, 64-key tiles at D = 64, two blocks an SM, and at
+  D = 256), at D = 32
+  ``flash_mma_kernel`` (mma.sync, 64-key tiles; only smoke configurations
+  have D = 32); float32 runs ``flash_fp32_kernel`` (CUDA cores). Key tiles
+  wholly outside the causal and window masks are skipped, not masked.
 - :func:`flash_attention_torch` is the plain version: the same masks
   applied to the full score matrix (``kernels/ref.py::attention_ref`` with
   the kernel's ``q_offset`` convention).
@@ -31,6 +32,17 @@ expansion is never materialized.
   implementation is :func:`flash_attention_train_torch`, the reference's
   ``_blocked_fwd_impl`` (online softmax over KV chunks of ``KV_CHUNK``).
   The serving op keeps its schema and writes no ``lse``.
+- :func:`flash_decode` is the one-row kernel wrapper, the custom op
+  ``repro_torch::flash_decode``: q ``(B, Hq, D)``, one query row a batch
+  row, against K/V in the model's own ``(B, Sk, Hkv, D)`` layout, read in
+  place through their strides (no transpose, no copy), with the same
+  ``causal``, ``window`` and ``q_offset``. On a CUDA tensor it launches
+  ``flash_decode_kernel`` (one block per kv head, split of the keys and
+  batch row, :func:`decode_splits` sizing the splits to the card; float32
+  on the CUDA cores, the g <= 16 query heads of a kv head together; the
+  last split of each (row, kv head) to finish merges the splits' partials);
+  on a CPU tensor its plain version :func:`flash_decode_torch`. A decode tick's cross read takes it
+  (``models/attention.py``).
 - :func:`flash_attention_tiled` is the plain version in the bfloat16
   kernels' own order and rounding (:func:`key_tile` keys per tile, a
   running max, exp2 of the scores times ``scale * log2(e)``, P rounded to
@@ -41,13 +53,13 @@ expansion is never materialized.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.hw import H100
+from repro_torch.hw import H100, sm_count
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF, attention_ref
 
@@ -55,14 +67,31 @@ from repro_torch.kernels.ref import NEG_INF, attention_ref
 HEAD_DIMS = (32, 64, 128, 256)
 # query rows and keys per tile of flash_fp32_kernel and flash_mma_kernel
 BQ, BK = 64, 64
-# flash_wgmma_kernel<D> (bfloat16, D = 128 and 256): 128-row query tiles;
-# per head dim, (keys per tile, K/V ring stages): at D = 256 a consumer's
-# 64 x 256 float32 output takes 128 registers a thread, which leaves room
-# for a 64-key tile's scores only, and two 32 KB K/V stages beside the
-# 64 KB Q tile fill an SM's shared memory
+# flash_wgmma_kernel<D> (bfloat16, D = 64, 128 and 256): 128-row query
+# tiles; per head dim, (keys per tile, K/V ring stages): at D = 256 a
+# consumer's 64 x 256 float32 output takes 128 registers a thread, which
+# leaves room for a 64-key tile's scores only, and two 32 KB K/V stages
+# beside the 64 KB Q tile fill an SM's shared memory; at D = 64 two blocks
+# share an SM (csrc/flash_attention.cu, Shape<64>), each with 64-key tiles
+# in two stages and at most 112 registers a thread
 WGMMA_BQ = 128
-WGMMA_TILES = {128: (128, 3), 256: (64, 2)}
+WGMMA_TILES = {64: (64, 2), 128: (128, 3), 256: (64, 2)}
+# flash_decode (one query row a batch row): the blocks an SM the key splits
+# aim for (a block's 48 KB ring at D = 64 lets four share an SM), the
+# fewest keys a split takes, the most query heads a kv head may serve
+DECODE_BLOCKS_PER_SM = 4
+DECODE_MIN_SPLIT = 64
+DECODE_MAX_G = 16
+# flash_decode's count of finished splits per (batch row, kv head): zero
+# between launches (the last split resets it), one buffer per card that is
+# never freed, so that a captured CUDA graph's pointer to it stays valid
+DECODE_MAX_PAIRS = 1 << 16
+_COUNTERS: Dict[int, torch.Tensor] = {}
 LOG2E = 1.4426950408889634
+# flash_wgmma_kernel<64> moves a row's running max (of the scores times
+# scale * log2(e)) only when a tile's passes it by more than this, so most
+# tiles leave the row's output unscaled and p stays below 2^8 (kSlack)
+RESCALE_SLACK = {64: 8.0}
 # keys per chunk of the plain training forward and of the recompute backward
 # (the reference's models/attention.py KV_CHUNK)
 KV_CHUNK = 1024
@@ -74,16 +103,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def key_tile(d: int) -> int:
     """Keys per tile of the bfloat16 kernel at head dim d: 128 for
-    flash_wgmma_kernel<128>, 64 for flash_wgmma_kernel<256> and
-    flash_mma_kernel."""
+    flash_wgmma_kernel<128>, 64 for flash_wgmma_kernel<64> and <256> and
+    for flash_mma_kernel (D = 32)."""
     return WGMMA_TILES[d][0] if d in WGMMA_TILES else BK
 
 
 def smem_bytes(d: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory one block of the kernel takes at head dim d.
-    bfloat16 at D = 128 and 256: the Q tile, a K and a V tile per ring
+    bfloat16 at D = 64, 128 and 256: the Q tile, a K and a V tile per ring
     stage, the mbarriers and 1 KB to align the tiles to the 128-byte
-    swizzle's period; at D = 32, 64: Q, K and V tiles of padded bf16 rows.
+    swizzle's period; at D = 32: Q, K and V tiles of padded bf16 rows.
     float32: the query tile, the transposed K tile (reused for V) and the P
     tile."""
     if dtype == torch.bfloat16 and d in WGMMA_TILES:
@@ -118,13 +147,16 @@ def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_tiled(q, k, v, *, causal: bool = True, window: int = 0,
-                          q_offset: int = -1, bk: int | None = None) -> torch.Tensor:
+                          q_offset: int = -1, bk: int | None = None,
+                          slack: float | None = None) -> torch.Tensor:
     """Plain version in the bfloat16 kernels' order: q (B, Hq, Sq, D), k/v
     (B, Hkv, Sk, D) -> float32 (B, Hq, Sq, D), unrounded.
 
     Keys are visited in tiles of ``bk`` (default :func:`key_tile`). Each
     row keeps the running max of its scores times ``c = scale * log2(e)``
-    (``ms``) and its denominator in float32; a tile's unscaled scores s give
+    (``ms``; it moves only where a tile's passes it by more than ``slack``,
+    default :data:`RESCALE_SLACK` for the head dim, else 0) and its
+    denominator in float32; a tile's unscaled scores s give
     ``p = exp2(s * c - ms)``, the exponent rounded once as the kernel's fused
     multiply-add rounds it, and P is rounded to V's dtype before the P.V
     product, as in ``csrc/flash_attention.cu``. ``_flash_kernel`` computes
@@ -133,6 +165,7 @@ def flash_attention_tiled(q, k, v, *, causal: bool = True, window: int = 0,
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
     bk = key_tile(d) if bk is None else bk
+    slack = RESCALE_SLACK.get(d, 0.0) if slack is None else slack
     off = sk - sq if q_offset < 0 else q_offset
     c = exp2_scale(d)
     qf = q.float().reshape(b, hkv, g, sq, d)
@@ -151,6 +184,7 @@ def flash_attention_tiled(q, k, v, *, causal: bool = True, window: int = 0,
         s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt)
         s = torch.where(ok, s, NEG_INF)
         ms_new = torch.maximum(ms, s.amax(-1, keepdim=True) * c)
+        ms_new = torch.where(ms_new > ms + slack, ms_new, ms)
         # s * c is exact in float64, so one rounding to float32 follows
         arg = (s.double() * c - ms_new.double()).float()
         p = torch.where(ok, torch.exp2(arg), 0.0)
@@ -407,8 +441,145 @@ def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash_train_op(q, k, v, causal, window, q_offset)
 
 
+def decode_range(sk: int, causal: bool, window: int, q_offset: int) -> Tuple[int, int]:
+    """The keys ``[lo, hi)`` that one query row at absolute position
+    ``q_offset`` (-1: ``Sk - 1``) sees under the causal and window masks."""
+    qpos = sk - 1 if q_offset < 0 else q_offset
+    lo = max(0, qpos - window + 1) if window > 0 else 0
+    hi = min(sk, qpos + 1) if causal else sk
+    return lo, max(lo, hi)
+
+
+def decode_splits(lo: int, hi: int, rows: int, sms: int) -> Tuple[int, int]:
+    """(splits, keys a split) over ``[lo, hi)`` for ``rows`` (batch row, kv
+    head) pairs on ``sms`` SMs: at most :data:`DECODE_BLOCKS_PER_SM` blocks
+    an SM (one wave), no split under :data:`DECODE_MIN_SPLIT` keys, at least
+    one split."""
+    keys = hi - lo
+    n = max(1, min(DECODE_BLOCKS_PER_SM * sms // rows, -(-keys // DECODE_MIN_SPLIT)))
+    split = max(1, -(-keys // n))
+    return max(1, -(-keys // split)), split
+
+
+def flash_decode_torch(q, k, v, *, causal: bool = True, window: int = 0,
+                       q_offset: int = -1) -> torch.Tensor:
+    """Plain version of :func:`flash_decode`: q (B, Hq, D), k/v (B, Sk, Hkv,
+    D) -> (B, Hq, D) in q's dtype, :func:`flash_attention_torch` at one
+    query row."""
+    out = attention_ref(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+                        window=window, q_offset=None if q_offset < 0 else q_offset)
+    return out[:, :, 0]
+
+
+def work_decode(q, k, v, causal: bool, window: int, q_offset: int) -> _build.Work:
+    """FLOPs and bytes of one :func:`flash_decode` call: ``q.k`` and ``p.v``
+    over the keys each row sees, for every query head; those K and V rows
+    and q read once, the output written once (the splits' float32 partials
+    are the kernel's own traffic, not the function's)."""
+    b, hq, d = q.shape
+    lo, hi = decode_range(k.shape[1], causal, window, q_offset)
+    keys = hi - lo
+    return _build.Work(4 * d * keys * b * hq,
+                       (2 * q.numel() + 2 * b * k.shape[2] * keys * d) * q.element_size())
+
+
+def _check_decode(q, k, v) -> None:
+    """Raise with the reason on anything flash_decode_kernel does not take."""
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q must be (B, Hq, D) and k/v (B, Sk, Hkv, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or hq % hkv:
+        raise ValueError(f"shapes do not match: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if b * hkv > DECODE_MAX_PAIRS:
+        raise ValueError(f"flash_decode counts splits for at most {DECODE_MAX_PAIRS} "
+                         f"(row, kv head) pairs, got {b * hkv}")
+    if hq // hkv > DECODE_MAX_G:
+        raise ValueError(f"flash_decode takes at most {DECODE_MAX_G} query heads a kv head, "
+                         f"got {hq // hkv}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_decode is built for head dims {HEAD_DIMS}, got {d}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_decode takes float32 or bfloat16 q/k/v of one dtype, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    if k.stride() != v.stride() or k.stride(3) != 1:
+        raise ValueError(f"k and v must share strides with unit stride over D, got "
+                         f"{k.stride()} and {v.stride()}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)) or any(
+            (st * k.element_size()) % 16 for st in k.stride()[:3]):
+        raise ValueError("flash_decode copies K/V rows in 16-byte chunks: base addresses "
+                         "and row, head and batch strides must be multiples of 16 bytes")
+
+
+def _decode_counters(device: torch.device) -> torch.Tensor:
+    """The card's split counters (:data:`DECODE_MAX_PAIRS` int32, zero)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _COUNTERS:
+        _COUNTERS[index] = torch.zeros(DECODE_MAX_PAIRS, dtype=torch.int32, device=device)
+    return _COUNTERS[index]
+
+
+def _launch_decode(q, k, v, causal, window, q_offset):
+    """CUDA implementation of ``repro_torch::flash_decode``, counted in
+    ``flash_decode.launches``: one launch, whose last split of each (row,
+    kv head) merges the splits' partials."""
+    _check_decode(q, k, v)
+    b, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    lo, hi = decode_range(sk, causal, window, q_offset)
+    n_splits, split = decode_splits(lo, hi, b * hkv, sm_count(q.device))
+    part_acc = torch.empty((b, hkv, n_splits, g, d), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((b, hkv, n_splits, g, 2), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    counters = _decode_counters(q.device)
+    lib = _build.library("flash_attention", _bind)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+            part_ml.data_ptr(), counters.data_ptr(), _DTYPES[q.dtype], b, hkv, g, d,
+            k.stride(0), k.stride(1), k.stride(2), lo, hi, split, n_splits, 1.0 / (d ** 0.5),
+            stream)
+    if err:
+        raise RuntimeError(f"flash_decode launch failed: cudaError_t {err}")
+    flash_decode.launches += 1
+    return out
+
+
+def _fake_decode(q, k, v, causal, window, q_offset):
+    return torch.empty_like(q)
+
+
+@_build.kernel_op("flash_decode", work_decode, _launch_decode, _fake_decode)
+def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+               window: int, q_offset: int) -> torch.Tensor:
+    return flash_decode_torch(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+@_build.counted
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool = True, window: int = 0, q_offset: int = -1) -> torch.Tensor:
+    """Kernel wrapper: the custom op ``repro_torch::flash_decode``, one query
+    row a batch row (q (B, Hq, D)) against k/v (B, Sk, Hkv, D) read in
+    place; on a CUDA tensor one launch of ``flash_decode_kernel``, on a
+    CPU tensor :func:`flash_decode_torch`."""
+    _build.require_cpu_or_cuda(q, "flash decode kernel")
+    return _decode_op(q, k, v, causal, window, q_offset)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                                     + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_attention.restype = ctypes.c_int
+    lib.flash_decode.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                                 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
+                                 + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_decode.restype = ctypes.c_int
 

@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.kernels.conv2d_im2col import conv2d_im2col, conv2d_torch
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_torch,
-                                                 flash_attention_train)
+                                                 flash_attention_train, flash_decode,
+                                                 flash_decode_torch)
 from repro_torch.kernels.matmul import matmul as matmul_kernel
 from repro_torch.kernels.matmul import matmul_torch
 from repro_torch.kernels.paged_attention import (paged_attention_torch,
@@ -64,6 +65,15 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q (B, Hq, Sq, D); k/v (B, Hkv, Sk, D) in kv-head form."""
     off = -1 if q_offset is None else q_offset
     fn = flash_attention_torch if _use_plain(q) else flash_attention
+    return fn(q, k, v, causal=causal, window=window, q_offset=off)
+
+
+def attention_decode(q, k, v, *, causal: bool = True, window: int = 0,
+                     q_offset: Optional[int] = None):
+    """One query row a batch row: q (B, Hq, D) against k/v (B, Sk, Hkv, D)
+    in the model's layout, read in place (``flash_decode``)."""
+    off = -1 if q_offset is None else q_offset
+    fn = flash_decode_torch if _use_plain(q) else flash_decode
     return fn(q, k, v, causal=causal, window=window, q_offset=off)
 
 

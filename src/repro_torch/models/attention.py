@@ -6,7 +6,9 @@ One logical op, three physical operators, chosen by where the tensors are:
   in kv-head form (the GQA expansion is never materialized). Where autograd
   records (a training step), ``ops.attention_train``: the kernel also writes
   each row's log-sum-exp, and the gradient is the reference's recompute rule
-  (``kernels/flash_attention.py::attention_bwd_torch``);
+  (``kernels/flash_attention.py::attention_bwd_torch``). One query row with
+  no autograd recording (a decode tick's cross read) takes
+  ``ops.attention_decode``, which reads K/V in place, in the model's layout;
 * CPU, short sequences: ``_einsum`` (the reference's CPU operator), under
   autograd as it is;
 * CPU, long sequences: ``_blocked``, online softmax over KV chunks with K/V
@@ -48,6 +50,9 @@ def attention(
     sq, hq = q.shape[1], q.shape[2]
     sk, hkv = k.shape[1], k.shape[2]
     if q.device.type == "cuda":
+        if sq == 1 and not kops.records_grad(q, k, v):
+            return kops.attention_decode(q[:, 0].contiguous(), k, v, causal=causal,
+                                         window=window, q_offset=q_offset)[:, None]
         op = kops.attention_train if kops.records_grad(q, k, v) else kops.attention
         out = op(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
                  v.transpose(1, 2).contiguous(), causal=causal, window=window,

@@ -115,7 +115,9 @@ def _ffn(cfg: ModelConfig, p: Dict, x: torch.Tensor,
 def _cross(p: Dict, x: torch.Tensor, kx: torch.Tensor, vx: torch.Tensor) -> torch.Tensor:
     """The residual stream after cross attention: queries from ``x`` (no
     rope) over the encoder's K/V ``(B, Senc, Kv, Dh)`` in kv-head form,
-    every key seen (``causal=False``): on a CUDA tensor the flash kernel."""
+    every key seen (``causal=False``): on a CUDA tensor the flash kernel, or
+    at one query row (a decode tick) ``flash_decode``, which reads the K/V
+    in place."""
     qx = _proj_heads(rms_norm(x, p["xln"]), p["xwq"])
     ox = ATT.attention(qx, kx, vx, causal=False)
     return x + _out_proj(ox, p["xwo"])
@@ -154,8 +156,9 @@ def attn_block_decode(
     "gather" (gathered view + dense decode attention) or "ref" (the
     oracle). ``enc_out_kv``: the layer's cross K/V ``(B, Senc, Kv, Dh)``
     (an encoder-decoder's decoder block), read after the self-attention
-    through the same attention op as the prompt pass: on the card the flash
-    kernel at one query row."""
+    through the same attention op as the prompt pass: on the card
+    ``flash_decode``, the one-row kernel, which reads the layer's cross K/V
+    where the cache holds them."""
     h = rms_norm(x, p["ln1"])
     rope_pos = pos[None] if pos.dim() == 0 else pos[:, None]
     q, k, v = _qkv(cfg, p, h, rope_pos)

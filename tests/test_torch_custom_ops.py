@@ -1,7 +1,7 @@
 """PyTorch port, the kernels as ``torch.library`` custom ops
 (``repro_torch/kernels/*.py``, ``kernels/_build.py``).
 
-Each of the eleven wrappers calls the custom op ``repro_torch::<name>``: on a
+Each of the twelve wrappers calls the custom op ``repro_torch::<name>``: on a
 CPU tensor its CPU implementation is the kernel's plain version (held equal
 here, element for element, to calling the plain version directly), on a
 fake tensor its fake implementation gives the output's shape, dtype and
@@ -12,10 +12,11 @@ launches) run on the card only (``chip_smoke.py``). Each kernel's
 the cost audit) is held to the counts ``chip_smoke.py`` wrote out before it
 read ``work``, so phase 3's bounds print the same numbers; the training
 forward ``flash_attention_train``, which came later, to the flash count plus
-its float32 ``lse``; the SSD and RG-LRU training forwards to their serving
-counts plus the chunk states they write, and their backward ops to the
-counts their modules state (each input read once, each gradient written
-once).
+its float32 ``lse``; the one-row ``flash_decode`` to q.k and p.v over the
+keys its row sees, with q and those K/V rows read once; the SSD and RG-LRU
+training forwards to their serving counts plus the chunk states they
+write, and their backward ops to the counts their modules state (each
+input read once, each gradient written once).
 """
 
 import numpy as np
@@ -91,6 +92,9 @@ CASES = [
     ("flash_attention_train", FA.flash_attention_train, FA.flash_attention_train_torch,
      (_randn(23, 2, 4, 10, 32), _randn(24, 2, 2, 14, 32), _randn(25, 2, 2, 14, 32)),
      dict(causal=True, window=6, q_offset=-1)),
+    ("flash_decode", FA.flash_decode, FA.flash_decode_torch,
+     (_randn(26, 2, 4, 32), _randn(27, 2, 14, 2, 32), _randn(28, 2, 14, 2, 32)),
+     dict(causal=True, window=6, q_offset=9)),
     ("ssd_scan", SSD.ssd_scan, SSD.ssd_scan_torch, *_ssd_args()),
     ("rglru_scan", RG.rglru_scan, RG.rglru_scan_torch, *_rglru_args()),
     ("ssd_scan_train", SSD.ssd_scan_train, SSD.ssd_scan_train_torch, *_ssd_args()),
@@ -110,7 +114,7 @@ def _leaves(out):
 
 
 def test_every_wrapper_is_a_registered_custom_op_with_work():
-    """Eleven ops in the ``repro_torch`` namespace, each with a ``work``."""
+    """Twelve ops in the ``repro_torch`` namespace, each with a ``work``."""
     assert sorted(_build.WORK) == sorted(f"repro_torch::{n}" for n in IDS)
     for name in IDS:
         op = getattr(torch.ops.repro_torch, name).default
@@ -166,6 +170,7 @@ OP_ARGS = {
     "paged_decode_attention": lambda a, k: (*a, k["page"], k["sc"]),
     "flash_attention": lambda a, k: (*a, k["causal"], k["window"], k["q_offset"]),
     "flash_attention_train": lambda a, k: (*a, k["causal"], k["window"], k["q_offset"]),
+    "flash_decode": lambda a, k: (*a, k["causal"], k["window"], k["q_offset"]),
     "ssd_scan": lambda a, k: (*a, k["chunk"]),
     "rglru_scan": lambda a, k: (*a, None),
     "ssd_scan_train": lambda a, k: (*a, k["chunk"]),
@@ -192,6 +197,14 @@ def _former_counts(name, op_args):
         flops, nbytes = _former_counts("flash_attention", op_args)
         q = op_args[0]
         return flops, nbytes + 4 * q.shape[0] * q.shape[1] * q.shape[2]
+    if name == "flash_decode":
+        q, k, _v, causal, window, q_offset = op_args
+        b, hq, d = q.shape
+        sk, hkv = k.shape[1], k.shape[2]
+        qpos = sk - 1 if q_offset < 0 else q_offset
+        lo = max(0, qpos - window + 1) if window > 0 else 0
+        keys = max(0, (min(sk, qpos + 1) if causal else sk) - lo)
+        return 4 * d * keys * b * hq, (2 * q.numel() + 2 * b * hkv * keys * d) * q.element_size()
     if name == "ssd_scan_train":
         flops, nbytes = _former_counts("ssd_scan", op_args)
         x, b_mat, chunk = op_args[0], op_args[3], op_args[6]

@@ -438,8 +438,9 @@ def test_flash_plain_matches_pallas(b, hq, hkv, sq, sk, d, causal, window, q_off
 def test_flash_tiled_plain_matches_pallas(b, hq, hkv, sq, sk, d, causal, window,
                                           q_offset, bk):
     """The plain version in the CUDA kernels' order (64-key tiles of
-    flash_mma_kernel, 128-key tiles of flash_wgmma_kernel) against the
-    Pallas kernel with the same key tile."""
+    flash_mma_kernel and flash_wgmma_kernel<64> and <256>, 128-key tiles of
+    flash_wgmma_kernel<128>) against the Pallas kernel with the same key
+    tile."""
     q, k, v = _attn_inputs(b, hq, hkv, sq, sk, d, seed=2)
     want = jflash(*map(jnp.asarray, (q, k, v)), causal=causal, window=window,
                   q_offset=q_offset, bq=32, bk=bk, interpret=True)
@@ -449,22 +450,54 @@ def test_flash_tiled_plain_matches_pallas(b, hq, hkv, sq, sk, d, causal, window,
     _close(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,q_offset", [
+    (1, 4, 2, 200, 200, 64, True, 0, -1), (2, 2, 2, 96, 320, 64, False, 0, -1),
+    (1, 4, 1, 64, 160, 64, True, 48, -1)])
+def test_flash_tiled_slack_leaves_the_function(b, hq, hkv, sq, sk, d, causal, window, q_offset,
+                                               dtype):
+    """flash_wgmma_kernel<64>'s running max moves only past a slack of 8
+    (log2 units, ``RESCALE_SLACK``): the tiled plain version at that slack,
+    its D = 64 default, equals the one at slack 0 up to float32 rounding (in
+    bfloat16 up to P's rounding, which the slack moves), and both equal
+    Pallas at the same key tile. Scores scaled x4 so that rows do pass the
+    slack mid-row."""
+    q, k, v = _attn_inputs(b, hq, hkv, sq, sk, d, seed=11)
+    q = q * 4.0
+    tq, tk, tv = (t.to(dtype) for t in _t(q, k, v))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, bk=64)
+    assert tflash.RESCALE_SLACK[64] == 8.0
+    lazy = tflash.flash_attention_tiled(tq, tk, tv, **kw)
+    assert torch.equal(lazy, tflash.flash_attention_tiled(tq, tk, tv, slack=8.0, **kw))
+    eager = tflash.flash_attention_tiled(tq, tk, tv, slack=0.0, **kw)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=4e-3, rtol=2 ** -7)
+    np.testing.assert_allclose(lazy.numpy(), eager.numpy(), **tol)
+    if dtype == torch.float32:
+        want = jflash(*map(jnp.asarray, (q, k, v)), causal=causal, window=window,
+                      q_offset=q_offset, bq=32, bk=64, interpret=True)
+        _close(lazy, want)
+
+
 def test_flash_key_tile_follows_the_kernels():
     """128-key tiles where flash_wgmma_kernel<128> runs (bfloat16, D = 128),
-    64 where flash_wgmma_kernel<256> (D = 256) and flash_mma_kernel (D = 32,
-    64) do; the tiled plain version defaults to them. At D = 256 a bfloat16
-    block takes the 64 KB Q tile, two stages of 32 KB K and V tiles, 9
-    mbarriers and 1 KB of alignment (197,704 bytes, one block an SM), a
-    float32 block 151,552 bytes; every block fits the H100's opt-in shared
-    memory."""
+    64 where flash_wgmma_kernel<64> and <256> and flash_mma_kernel (D = 32)
+    do; the tiled plain version defaults to them. At D = 64 a bfloat16 block
+    takes the 16 KB Q tile, two stages of 8 KB K and V tiles, 9 mbarriers
+    and 1 KB of alignment (50,248 bytes: two blocks an SM, each with the
+    1 KB the card reserves, fit its 228 KB). At D = 256 the 64 KB Q tile,
+    two stages of 32 KB K and V tiles, 9 mbarriers and 1 KB of alignment
+    (197,704 bytes, one block an SM), a float32 block 151,552 bytes; every
+    block fits the H100's opt-in shared memory."""
     assert tflash.HEAD_DIMS == (32, 64, 128, 256)
     assert [tflash.key_tile(d) for d in tflash.HEAD_DIMS] == [64, 64, 128, 64]
     assert tflash.key_tile(256) == 64
     assert [tflash.kernel_name(d, torch.bfloat16) for d in tflash.HEAD_DIMS] == [
-        "flash_mma_kernel", "flash_mma_kernel", "flash_wgmma_kernel<128>",
+        "flash_mma_kernel", "flash_wgmma_kernel<64>", "flash_wgmma_kernel<128>",
         "flash_wgmma_kernel<256>"]
     assert {tflash.kernel_name(d, torch.float32) for d in tflash.HEAD_DIMS} == {
         "flash_fp32_kernel"}
+    assert tflash.smem_bytes(64, torch.bfloat16) == 1024 + 16384 + 4 * 8192 + 8 * 9 == 50_248
+    assert 2 * (tflash.smem_bytes(64, torch.bfloat16) + 1024) <= 228 * 1024
     assert tflash.smem_bytes(128, torch.bfloat16) == 1024 + 32768 * 7 + 8 * 13
     assert tflash.smem_bytes(256, torch.bfloat16) == 1024 + 65536 + 4 * 32768 + 8 * 9 \
         == 197_704

@@ -1,7 +1,8 @@
 """One kernel of one source tree, timed on the card at its serving path's
 shapes, for comparing two trees in one run.
 
-    python3 tools/kernel_ab.py --kernel {paged_decode,ssd_scan,ssd_scan_bwd,rglru_scan_bwd}
+    python3 tools/kernel_ab.py --kernel {paged_decode,ssd_scan,ssd_scan_bwd,rglru_scan_bwd,
+                                         flash_d64,cross_read}
         [--tree DIR] [--label NAME] [--flush-modes write read none]
 
 ``--tree`` is the root of a checkout of this repository (default: this
@@ -28,6 +29,16 @@ Kernels and shapes:
   states (``chip_smoke.py`` phase 3's inputs and dy).
 - ``rglru_scan_bwd``: the RG-LRU backward at RecurrentGemma-2B's training
   shape (4, 2048, 2560), from the tree's own training forward's carries.
+- ``flash_d64``: bfloat16 flash attention at head dim 64, Whisper-medium's
+  encoder (8, 16, 1500, 64, bidirectional) and its two training shapes
+  (cross: 448 queries over 1500 keys; self: causal at 448), each held
+  against the tree's ``flash_attention_tiled`` at the tree's own key tile.
+- ``cross_read``: the whole ``models/attention.py::attention`` call of
+  Whisper's decode tick, one query row (8, 1, 16, 64) over the cross K/V
+  (8, 1500, 16, 64) in the model's layout, ``causal=False``: whatever the
+  tree does inside it (transposed copies and the flash kernel, or the
+  one-row kernel), so both trees time the same public function. Its
+  ``device_ms`` sums every kernel the call launches, the copies included.
 
 The flush is ``chip_smoke.py``'s (96 MB of zeros written, which leaves the
 L2 full of dirty lines that the kernel's reads must write back first);
@@ -127,11 +138,57 @@ def rglru_scan_bwd_cases(cs, rg):
            _grads_close(cs, torch.bfloat16), bound)
 
 
-# kernel: (its module under repro_torch.kernels, its family in a trace, cases)
-KERNELS = {"paged_decode": ("paged_attention", "paged_decode", paged_decode_cases),
-           "ssd_scan": ("ssd_scan", "ssd", ssd_scan_cases),
-           "ssd_scan_bwd": ("ssd_scan", "ssd", ssd_scan_bwd_cases),
-           "rglru_scan_bwd": ("rglru_scan", "rglru", rglru_scan_bwd_cases)}
+def flash_d64_cases(cs, fa):
+    """(label, call, plain, check, bound_ms) at Whisper-medium's head-dim-64
+    shapes, bfloat16."""
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    for label, (sq, sk, causal) in (("encoder (8, 1500)", (1500, 1500, False)),
+                                    ("cross train (8, 448 x 1500)", (448, 1500, False)),
+                                    ("decoder train (8, 448) causal", (448, 448, True))):
+        q, k, v = (torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16)
+                   for sh in ((8, 16, sq, 64), (8, 16, sk, 64), (8, 16, sk, 64)))
+        flops, nbytes = fa.work(q, k, v, causal, 0, -1)
+        bound, _ = cs._bound_ms(nbytes, flops, torch.bfloat16)
+        yield (label, lambda: fa.flash_attention(q, k, v, causal=causal),
+               lambda: fa.flash_attention_tiled(q, k, v, causal=causal),
+               _close(cs, cs.FLASH_BF16_TOL), bound)
+
+
+def cross_read_cases(cs, att):
+    """(label, call, plain, check, bound_ms) of ``attention`` at Whisper's
+    decode-tick cross read, bfloat16, against the float32 reference form."""
+    gen = torch.Generator(device="cuda").manual_seed(65)
+    q = torch.randn((8, 1, 16, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((8, 1500, 16, 64), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    bound, _ = cs._bound_ms(nbytes, 4 * 64 * 1500 * 8 * 16, torch.bfloat16)
+    yield ("cross read (8, 1 x 1500, 16, 64)", lambda: att.attention(q, k, v, causal=False),
+           lambda: att._einsum(q.float(), k.float(), v.float(), causal=False, window=0,
+                               q_offset=0),
+           _close(cs, cs.FLASH_BF16_TOL), bound)
+
+
+# kernel: (its module under repro_torch, its family in a trace or None for
+# every kernel the call launches, cases)
+KERNELS = {"paged_decode": ("kernels.paged_attention", "paged_decode", paged_decode_cases),
+           "ssd_scan": ("kernels.ssd_scan", "ssd", ssd_scan_cases),
+           "ssd_scan_bwd": ("kernels.ssd_scan", "ssd", ssd_scan_bwd_cases),
+           "rglru_scan_bwd": ("kernels.rglru_scan", "rglru", rglru_scan_bwd_cases),
+           "flash_d64": ("kernels.flash_attention", "flash", flash_d64_cases),
+           "cross_read": ("models.attention", None, cross_read_cases)}
+
+
+def call_device_ms(cs, call, family, flush) -> tuple:
+    """(device ms per call, {kernel: ms}) of ``family``'s kernels, or with
+    ``family`` None of every kernel ``call`` launches (the flush's own
+    fill, timed alone the same way, left out)."""
+    if family is not None:
+        return cs.device_ms(call, family, flush)
+    fill = cs.traced_kernels(lambda: None, calls=10, flush=flush)
+    times = cs.traced_kernels(call, calls=10, flush=flush)
+    mine = {k: t for k, t in times.items() if k not in fill}
+    return (sum(mine.values()) if mine else None), mine
 
 
 def main() -> int:
@@ -152,7 +209,7 @@ def main() -> int:
     import chip_smoke as cs  # lint: allow-local-import
 
     module, family, cases = KERNELS[args.kernel]
-    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    mod = importlib.import_module(f"repro_torch.{module}")
     if not Path(mod.__file__).resolve().is_relative_to(tree):
         print(f"kernel_ab: imported {mod.__file__}, not from {tree}", file=sys.stderr)
         return 2
@@ -173,8 +230,8 @@ def main() -> int:
     for label, call, plain, check, bound in cases(cs, mod):
         ok, max_err, rms_ratio = check(call(), plain())
         event_ms = cs.cuda_ms(call, flush=flush)
-        dev_ms, names = cs.device_ms(call, family, flush)
-        by_flush = {mode: cs.device_ms(call, family, flushes[mode])[0]
+        dev_ms, names = call_device_ms(cs, call, family, flush)
+        by_flush = {mode: call_device_ms(cs, call, family, flushes[mode])[0]
                     for mode in args.flush_modes}
         print(json.dumps({"tree": args.label or str(tree), "kernel": args.kernel,
                           "shape": label, "ok": ok, "max_abs_err": max_err,
