@@ -304,6 +304,7 @@ from repro_torch.config import InputShape, MeshConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.lenet import make_spec  # noqa: E402
 from repro_torch.core import comm, cost  # noqa: E402
+from repro_torch.core.memory import estimate_memory  # noqa: E402
 from repro_torch.core.parfor import count_collectives, parfor  # noqa: E402
 from repro_torch.core.plan_cache import bucket_pow2 as bucket  # noqa: E402
 from repro_torch.core.planner import PlanCompiler, compile_plan  # noqa: E402
@@ -529,6 +530,34 @@ SHARDED_WORLD, SHARDED_TIMEOUT_S, PARFOR_ROWS = 2, 600, 2048
 SHARDED_CHECKS = (("yi-6b", dict(num_layers=2)), ("mamba2-1.3b", dict(num_layers=2)))
 SHARDED_CHECK_SHAPE, SHARDED_TRAIN_SHAPE = (2, 512), (4, 2048)
 SHARDED_DEPTHS, CUDA_CONTEXT_BYTES = (4, 2), 2**30
+# train-model-axis: the same SHARDED_WORLD ranks as a (1, 2) ("data",
+# "model") mesh (tensor, sequence and expert parallelism; two ranks on one
+# card measure the code path, not scaling). (a) float32 checks against one
+# process at MODEL_AXIS_CHECKS' widths (arch, cut, global batch, the
+# ln1/xln gains' scale) under the planner's dp_tensor_parallel plan with
+# seq_shard_checkpoints off and on: Yi-6B and Mamba-2 1.3B at 2 layers and
+# SHARDED_CHECK_SHAPE as train-sharded; RecurrentGemma-2B at 3 layers
+# ("rra": its 10 heads split 5 a rank, its one kv head whole); Whisper-medium
+# at 2 + 2 layers over its 1500 frames at its decoder context of 448, the
+# attention norms' gains at 0.1 as the CPU tests run it (its init is badly
+# conditioned: tests/test_torch_audio.py). (b) full Yi-6B widths under the
+# planner's fsdp_tensor_parallel plan with seq_shard_checkpoints, bfloat16,
+# SHARDED_TRAIN_SHAPE, TRAIN_STEPS Adam steps at TRAIN_LR, at the deepest of
+# SHARDED_DEPTHS whose two ranks fit 3/4 of the card by the planner's
+# per-card estimate (4 layers: each layer's sequence-parallel collectives
+# move 32-64 MiB a call through gloo's host copies, ~1 s a layer and step
+# on the H100: PERF.md);
+# (c) Qwen3-MoE-235B-A22B at full width and MOE_MODEL_AXIS_LAYERS layer, the
+# same form, its 128 experts split 64 a rank, its Adam state in bfloat16
+# (the planner's compression): with float32 state the two ranks ran the
+# card out of memory (PERF.md)
+MODEL_AXIS_MESH = MeshConfig((1, SHARDED_WORLD), ("data", "model"))
+MODEL_AXIS_CHECKS = (("yi-6b", dict(num_layers=2), SHARDED_CHECK_SHAPE, None),
+                     ("mamba2-1.3b", dict(num_layers=2), SHARDED_CHECK_SHAPE, None),
+                     ("recurrentgemma-2b", dict(num_layers=3, block_pattern="rra"),
+                      SHARDED_CHECK_SHAPE, None),
+                     ("whisper-medium", dict(num_layers=2, encoder_layers=2), (2, 448), 0.1))
+MOE_MODEL_AXIS_LAYERS = 1
 TRAIN_ARGS = ["--arch", "yi-6b", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_SHAPE[0]),
               "--seq", str(TRAIN_SHAPE[1]), "--dtype", "bfloat16", "--optimizer", "adam",
               "--lr", str(TRAIN_LR), "--log-every", "1"]
@@ -4764,11 +4793,12 @@ def phase_parfor(weights) -> None:
 def _sharded_train_run(model, cfg, plan, mesh_cfg, opt, shape, init, lr, dtype,
                        steps=TRAIN_CHECK_STEPS, clip=1.0) -> tuple:
     """``steps`` steps of ``make_train_step`` over the ranks from ``init``
-    (full tensors, the same on every rank), each rank holding what the plan
-    gives it: (per-step metrics and seconds, this rank's parameters,
-    launches, collective calls and bytes per step, peak memory, the
-    parameters' devices)."""
-    local = shard_params(init, model, plan, mesh_cfg)
+    (full tensors, the same on every rank, or a function that makes them:
+    then the full tensors are gone before the peak is measured), each rank
+    holding what the plan gives it: (per-step metrics and seconds, this
+    rank's parameters, launches, collective calls and bytes per step, peak
+    memory, the parameters' devices)."""
+    local = shard_params(init() if callable(init) else init, model, plan, mesh_cfg)
     state = init_opt_state(opt, local, plan)
     step = make_train_step(model, plan, mesh_cfg,
                            TrainConfig(optimizer=opt, learning_rate=lr, grad_clip=clip))
@@ -4944,6 +4974,245 @@ def phase_train_sharded() -> dict:
     return {"flash_attention_train": want}
 
 
+def _model_axis_check(rank, world, arch, cut, shape_bs, gain) -> dict:
+    """train-model-axis (a): ``arch``'s widths cut as ``cut``, float32, 3 Adam
+    steps on ``shape_bs`` under the planner's dp_tensor_parallel plan for
+    MODEL_AXIS_MESH with seq_shard_checkpoints off and on, against one
+    process's ``make_train_step`` under the train-check tolerances; the
+    training kernels' launches on this rank exact (each on the rank's block
+    of heads or channels). Each rank runs the one process's steps too, and
+    holds its own blocks against the same part of that run's."""
+    cfg = replace(get_config(arch), **cut)
+    b, s = shape_bs
+    shape = InputShape("train-model-axis-check", s, b, "train")
+    model = build_model(cfg, dtype=torch.float32)
+    init = trainable_params(model, SEED)
+    if gain is not None:
+        for k, v in init.items():
+            if k.endswith((".ln1", ".xln")):
+                v.mul_(gain)
+    lr = TRAIN_CHECK_LR["adam"]
+    one_plan = compile_plan(cfg, shape, MESH1, TrainConfig(), dtype="float32").config
+    want_recs, want_params, _ = _train_run(model, cfg, one_plan, "adam", shape, init, lr=lr)
+    base = compile_plan(cfg, shape, MODEL_AXIS_MESH,
+                        TrainConfig(force_strategy="dp_tensor_parallel"), dtype="float32").config
+    out = {}
+    for sp in (False, True):
+        plan = base.replace(seq_shard_checkpoints=sp)
+        t0 = time.perf_counter()
+        recs, local, launches, per_step, _peak, devices = _sharded_train_run(
+            model, cfg, plan, MODEL_AXIS_MESH, "adam", shape, init, lr, torch.float32)
+        secs = time.perf_counter() - t0
+        expect = _scan_launches(cfg.layer_pattern(), plan, TRAIN_CHECK_STEPS)
+        if cfg.is_encdec:
+            expect["flash_attention_train"] = (_flash_per_forward(cfg) * TRAIN_CHECK_STEPS
+                                               * plan.microbatches * (1 + plan.remat))
+        got = {k: launches[k] for k in expect}
+        label = f"{arch} {plan.strategy.value}{' +SP' if sp else ''}"
+        if got != expect:
+            fail(f"train-model-axis {label}: rank {rank} launches {got}, expected {expect}")
+        _same_trajectory(f"rank {rank}: {arch} ({cfg.layer_pattern()}), {label} over "
+                         f"{MODEL_AXIS_MESH.shape} vs one process", "adam",
+                         (recs, local, launches),
+                         (want_recs, shard_params(want_params, model, plan, MODEL_AXIS_MESH,
+                                                  rank), None), lr=lr)
+        out[label] = {"launches": got, "collectives": per_step, "devices": devices,
+                      "losses": [r["loss"] for r in recs], "seconds": secs}
+        del local
+    del init, want_params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def model_axis_plan(cfg, shape) -> tuple:
+    """(b) and (c)'s plan: the planner's fsdp_tensor_parallel plan for
+    MODEL_AXIS_MESH with seq_shard_checkpoints, its optimizer state in
+    float32, or compressed to bfloat16 (the planner's own knob) where the
+    ranks would not fit 3/4 of the card with it; ``(plan, its per-card
+    estimate, whether the ranks fit)``."""
+    card = torch.cuda.get_device_properties(0).total_memory
+    world = MODEL_AXIS_MESH.num_devices
+    for state_dtype in ("float32", "bfloat16"):
+        train = TrainConfig(force_strategy="fsdp_tensor_parallel", opt_state_dtype=state_dtype)
+        plan = compile_plan(cfg, shape, MODEL_AXIS_MESH, train, dtype="bfloat16").config
+        plan = plan.replace(seq_shard_checkpoints=True)
+        est = estimate_memory(cfg, shape, MODEL_AXIS_MESH, plan, train, hw.H100,
+                              "bfloat16").total
+        fits = world * (est + CUDA_CONTEXT_BYTES) <= 0.75 * card
+        if fits:
+            break
+    return plan, est, fits
+
+
+def model_axis_collectives(cfg, b: int, s: int, layers: int, mp: int, micro: int) -> tuple:
+    """The collective calls and bytes (each rank's contribution) one step of
+    (b) or (c) makes on each rank: an attention stack (dense FFN or experts)
+    under sequence parallelism with remat, heads, kv heads, ffn, experts and
+    vocab split over the model axis, no data axis (so no metric or FSDP
+    collectives), ``micro`` microbatches of ``b / micro`` rows, clipping on.
+    Each microbatch's forward and backward, per layer: the forward gathers the
+    sequence into attention and into the FFN (the MoE FFN routes the whole
+    sequence: an AllGatherSlice) and reduce-scatters out of each; its
+    recompute runs again up to its last saved activation (the experts'
+    combine or the down projection), so all but its last reduce-scatter;
+    its backward reduce-scatters each gather's gradient (an AllGatherSlice
+    takes its block: none), all-gathers each reduce-scatter's, and
+    all-reduces the gradients of the two norms' gains (on sequence shards)
+    and, for experts, of the tokens and gates that enter them whole. Around
+    the layers: the embedding's reduce-scatter (all-gather back), the gather
+    into the logits (reduce-scatter back) and the final norm's gain; the
+    vocab-parallel cross-entropy's max and its sums. Once a step: the
+    clipping norm's max and sum."""
+    d, act = cfg.d_model, 2                        # bfloat16 activations and gains
+    moe, k = bool(cfg.num_experts), cfg.experts_per_token
+    rows = b // micro
+    shard, whole = rows * (s // mp) * d * act, rows * s * d * act
+    ag, rs = 6 * layers + 2, (4 if moe else 5) * layers + 2
+    ar = (4 if moe else 2) * layers + 3
+    calls = {"all_gather": micro * ag, "reduce_scatter": micro * rs,
+             "all_reduce": micro * ar + 2}
+    nbytes = {"all_gather": micro * ag * shard, "reduce_scatter": micro * rs * whole,
+              "all_reduce": micro * (3 * rows * s * 4 + (2 * layers + 1) * d * act
+                                     + (layers * (whole + rows * s * k * act) if moe else 0))
+              + 2 * 4}
+    return calls, nbytes
+
+
+def _model_axis_run(rank, world, arch, layers) -> dict:
+    """train-model-axis (b) and (c): ``arch``'s full widths at ``layers``
+    layers, bfloat16, SHARDED_TRAIN_SHAPE, TRAIN_STEPS Adam steps at TRAIN_LR
+    (clip 1.0) under :func:`model_axis_plan`, from trainable_params."""
+    cfg = replace(get_config(arch), num_layers=layers)
+    b, s = SHARDED_TRAIN_SHAPE
+    shape = InputShape("train-model-axis", s, b, "train")
+    plan, estimate, fits = model_axis_plan(cfg, shape)
+    if not fits:
+        raise RuntimeError(f"train-model-axis: {arch} at {layers} layers does not fit "
+                           f"{world} ranks on the card")
+    model = build_model(cfg, dtype=torch.bfloat16)
+    # the full weights only while this rank takes its blocks: its peak is
+    # the step's (a full-width Qwen3-MoE layer's weights are 6.9 GiB)
+    recs, local, launches, per_step, peak, devices = _sharded_train_run(
+        model, cfg, plan, MODEL_AXIS_MESH, "adam", shape, lambda: trainable_params(model, SEED),
+        TRAIN_LR, torch.bfloat16, steps=TRAIN_STEPS)
+    shapes = {k: tuple(v.shape) for k, v in local.items() if not k.startswith("l.")}
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"recs": recs, "launches": launches, "collectives": per_step, "peak": peak,
+            "devices": devices, "estimate": estimate, "shapes": shapes,
+            "plan": (plan.strategy.value, plan.opt_state_dtype, plan.remat, plan.microbatches,
+                     plan.tensor_parallel, plan.expert_parallel, plan.seq_shard_checkpoints)}
+
+
+def _model_axis_rank(rank, world, layers) -> dict:
+    info = _rank_setup()
+    checks = {arch: _model_axis_check(rank, world, arch, cut, shape_bs, gain)
+              for arch, cut, shape_bs, gain in MODEL_AXIS_CHECKS}
+    runs = {"yi-6b": _model_axis_run(rank, world, "yi-6b", layers),
+            MOE_ARCH: _model_axis_run(rank, world, MOE_ARCH, MOE_MODEL_AXIS_LAYERS)}
+    devices = [d for r in runs.values() for d in r["devices"]] + [
+        d for c in checks.values() for v in c.values() for d in v["devices"]]
+    return {"checks": checks, "runs": runs, "devices": devices, "rank": info}
+
+
+def model_axis_depth() -> tuple:
+    """The Yi-6B depth of train-model-axis (b): :func:`model_axis_plan` at
+    each of SHARDED_DEPTHS (its per-card estimate and optimizer-state
+    dtype), and the deepest whose ranks fit the card at 3/4 of its memory
+    with a CUDA context each."""
+    b, s = SHARDED_TRAIN_SHAPE
+    shape = InputShape("train-model-axis", s, b, "train")
+    plans = {n: model_axis_plan(replace(get_config("yi-6b"), num_layers=n), shape)
+             for n in SHARDED_DEPTHS}
+    fits = [n for n, (_p, _e, ok) in plans.items() if ok]
+    if not fits:
+        fail(f"train-model-axis: no depth of {SHARDED_DEPTHS} fits "
+             f"{MODEL_AXIS_MESH.num_devices} ranks on the card")
+    return {n: (e, p.opt_state_dtype) for n, (p, e, _ok) in plans.items()}, max(fits)
+
+
+def phase_train_model_axis() -> dict:
+    b, s = SHARDED_TRAIN_SHAPE
+    t_phase = time.perf_counter()
+    phase(f"train-model-axis: {SHARDED_WORLD} ranks on the card as a {MODEL_AXIS_MESH.shape} "
+          f"('data', 'model') mesh over gloo (two ranks share one card: this measures the code "
+          f"path, not scaling): (a) float32 checks at "
+          f"{', '.join(a for a, *_r in MODEL_AXIS_CHECKS)} widths, {TRAIN_CHECK_STEPS} adam "
+          f"steps under dp_tensor_parallel, sequence parallelism off and on, against one "
+          f"process; (b) full Yi-6B widths and (c) {MOE_ARCH} at {MOE_MODEL_AXIS_LAYERS} layer, "
+          f"bfloat16, ({b}, {s}), {TRAIN_STEPS} adam steps, fsdp_tensor_parallel with sequence "
+          f"parallelism")
+    gc.collect()
+    torch.cuda.empty_cache()
+    est, layers = model_axis_depth()
+    print(f"  planner's per-card estimate for mesh {MODEL_AXIS_MESH.shape}, FSDP_TP + SP: "
+          + ", ".join(f"{n} layers {v / 2**30:.2f} GiB (opt state {dt})"
+                      for n, (v, dt) in est.items()))
+    print(f"  depth of (b): {layers} layers, the deepest of {SHARDED_DEPTHS} whose "
+          f"{SHARDED_WORLD} ranks with their CUDA contexts fit within 3/4 of the card")
+    outs = on_ranks(_model_axis_rank, layers)
+    _check_ranks("train-model-axis", outs)
+    for r, out in enumerate(outs):
+        for arch, runs in out["checks"].items():
+            for label, res in runs.items():
+                calls = {k: round(v, 1) for k, v in res["collectives"]["calls"].items()}
+                print(f"  rank {r} (a) {label}: {res['seconds']:.1f} s; losses "
+                      f"{[round(x, 6) for x in res['losses']]}; launches {res['launches']}; "
+                      f"collective calls a step {calls}")
+    launches = {}
+    for arch, depth, part in (("yi-6b", layers, "b"), (MOE_ARCH, MOE_MODEL_AXIS_LAYERS, "c")):
+        cfg = replace(get_config(arch), num_layers=depth)
+        for r, out in enumerate(outs):
+            run = out["runs"][arch]
+            strategy, state_dtype, remat, micro, tp, ep, sp = run["plan"]
+            want_calls, want_bytes = model_axis_collectives(cfg, b, s, depth, SHARDED_WORLD,
+                                                            micro)
+            losses = [x["loss"] for x in run["recs"]]
+            secs = [x["seconds"] for x in run["recs"]]
+            step_s = statistics.median(secs[2:8])
+            want = depth * TRAIN_STEPS * (1 + remat) * micro
+            flash = run["launches"]["flash_attention_train"]
+            calls = run["collectives"]["calls"]
+            got_bytes = run["collectives"]["bytes"]
+            mib = {k: round(v / 2**20, 3) for k, v in got_bytes.items()}
+            aux = (f"; aux {[round(x['aux'], 4) for x in run['recs']]}" if cfg.num_experts
+                   else "")
+            print(f"  rank {r} ({part}) {arch} at {depth} layers: plan {strategy}, opt state "
+                  f"{state_dtype}, remat {remat}, microbatches {micro}, tensor parallel {tp}, "
+                  f"expert parallel {ep}, sequence parallel {sp}; embed {run['shapes']['embed']}"
+                  f"; losses {[round(x, 4) for x in losses]}{aux}; step seconds "
+                  f"{[round(x, 4) for x in secs]}")
+            print(f"  rank {r} ({part}): step {step_s * 1e3:.1f} ms (median of steps 2-7), "
+                  f"{b * s / step_s:.0f} tokens/s over the mesh; peak {run['peak'] / 2**30:.2f} "
+                  f"GiB against the planner's per-card estimate {run['estimate'] / 2**30:.2f} "
+                  f"GiB; collectives a step: calls {calls} (the plan implies {want_calls}), MiB "
+                  f"{mib} (the plan implies "
+                  f"{ {k: round(v / 2**20, 3) for k, v in want_bytes.items()} }); "
+                  f"flash_attention_train launches {flash} (expected {depth} layers x "
+                  f"{TRAIN_STEPS} steps x {1 + remat} x {micro} = {want})")
+            if not (tp and sp and (ep == bool(cfg.num_experts))):
+                fail(f"train-model-axis ({part}): rank {r} ran plan {run['plan']}")
+            if calls != want_calls or got_bytes != want_bytes:
+                fail(f"train-model-axis ({part}): rank {r}'s collectives a step {calls}, "
+                     f"{got_bytes} B, the plan implies {want_calls}, {want_bytes} B")
+            if flash != want:
+                fail(f"train-model-axis ({part}): rank {r} launched flash_attention_train "
+                     f"{flash} times, expected {want}")
+            if run["peak"] > run["estimate"]:
+                fail(f"train-model-axis ({part}): rank {r}'s peak {run['peak']} B is above the "
+                     f"planner's per-card estimate {run['estimate']:.0f} B")
+            if not all(math.isfinite(x) for x in losses):
+                fail(f"train-model-axis ({part}): rank {r} loss not finite: {losses}")
+            if not statistics.mean(losses[-3:]) < losses[0]:
+                fail(f"train-model-axis ({part}): rank {r}: the mean of the last three losses "
+                     f"{statistics.mean(losses[-3:])} is not below step 0's {losses[0]}")
+        launches[arch] = want
+    print(f"  train-model-axis: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def phase_quickstart() -> None:
     phase("quickstart: the paper's softmax classifier through Keras2Plan on the card "
           "(repro_torch.launch.quickstart)")
@@ -5008,6 +5277,7 @@ def main() -> int:
         phase_train_encdec(arch)
     phase_parfor(lenet_weights)
     phase_train_sharded()
+    phase_train_model_axis()
     phase_quickstart()
     for name, n in launches.items():
         kernels[name]["launches"] = n

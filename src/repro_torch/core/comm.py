@@ -18,9 +18,22 @@ NCCL takes every op on CUDA tensors.
 :class:`AllGatherDim` is the FSDP parameter gather as an autograd function:
 its forward all-gathers the shards along one dim, its backward
 reduce-scatters the full gradient back to this rank's block, summing over
-the ranks in the gradient's dtype. :class:`AllReduceMean` is the mean over
-the ranks with its gradient (the MoE load-balance statistics of a train
-step over a data mesh).
+the ranks in the gradient's dtype (under sequence parallelism, also the
+gather of a layer's sequence shards). :class:`AllReduceMean` is the mean
+over the ranks with its gradient (the MoE load-balance statistics of a
+train step over a data mesh).
+
+The model axis (tensor, sequence and expert parallelism) uses Megatron's
+conjugate pairs, each over the model group: :class:`CopyToGroup`
+(identity forward, all-reduce backward: where a tensor every rank holds
+enters per-shard work) and :class:`ReduceFromGroup` (all-reduce forward,
+identity backward: the partial sums of a row-parallel product); under
+sequence parallelism :class:`AllGatherDim` and :class:`ReduceScatterDim`
+(reduce-scatter forward, all-gather backward) in their places. Where every
+rank runs the same work on a gathered tensor, :class:`AllGatherSlice`
+(all-gather forward, this rank's block of the gradient backward) and
+:class:`SliceDim` (this rank's block forward, all-gather backward). Each
+collective over a group of one rank is skipped and not counted.
 """
 
 from __future__ import annotations
@@ -50,6 +63,8 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 def all_reduce_(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     """``t`` reduced over ``group`` in place (``op``: sum | max)."""
+    if dist.get_world_size(group) == 1:
+        return t
     _count("all_reduce", t)
     dist.all_reduce(t, op=_REDUCE_OPS[op], group=group)
     return t
@@ -58,6 +73,8 @@ def all_reduce_(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
 def all_gather_dim(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """Every rank's ``t`` concatenated along ``dim`` in rank order."""
     world = dist.get_world_size(group)
+    if world == 1:
+        return t
     t = t.contiguous()
     _count("all_gather", t)
     # flat buffers: backends split the output's first dim into the ranks' parts
@@ -72,6 +89,8 @@ def all_gather_dim(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
 def reduce_scatter_dim(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """The sum over ranks of ``t``, split along ``dim``: this rank's block."""
     world = dist.get_world_size(group)
+    if world == 1:
+        return t
     n = t.shape[dim] // world
     if n * world != t.shape[dim]:
         raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split {world} ways")
@@ -111,3 +130,87 @@ class AllReduceMean(torch.autograd.Function):
     def backward(ctx, grad):
         world = dist.get_world_size(ctx.group)
         return all_reduce_(grad.clone(), group=ctx.group).div_(world), None
+
+
+def block_of(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """This rank's block of ``t`` split evenly along ``dim`` over ``group``
+    (a contiguous copy)."""
+    world = dist.get_world_size(group)
+    n = t.shape[dim] // world
+    if n * world != t.shape[dim]:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split {world} ways")
+    return t.narrow(dim, dist.get_rank(group) * n, n).contiguous()
+
+
+class CopyToGroup(torch.autograd.Function):
+    """Identity forward; backward, the gradient summed over the group. A
+    tensor that every rank of the group holds whole enters work that each
+    rank does on its own shard: each rank's gradient is a part of the
+    whole one."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.contiguous().clone(), group=ctx.group), None
+
+
+class ReduceFromGroup(torch.autograd.Function):
+    """Forward, the sum over the group (a row-parallel product's partial
+    sums); backward, identity: every rank receives the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce_(t.contiguous().clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class ReduceScatterDim(torch.autograd.Function):
+    """``reduce_scatter_dim`` whose backward all-gathers the gradient: a
+    row-parallel product's partial sums leaving for this rank's sequence
+    shard."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter_dim(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_dim(grad, ctx.dim, ctx.group), None, None
+
+
+class AllGatherSlice(torch.autograd.Function):
+    """``all_gather_dim`` for work every rank of the group repeats in full:
+    each rank's gradient is already the whole one, so the backward takes
+    this rank's block of it and sums nothing."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(shard, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return block_of(grad, ctx.dim, ctx.group), None, None
+
+
+class SliceDim(torch.autograd.Function):
+    """This rank's block of a tensor every rank of the group holds whole
+    (forward, no collective); the backward all-gathers the blocks'
+    gradients into the whole one."""
+
+    @staticmethod
+    def forward(ctx, full, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return block_of(full, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_dim(grad, ctx.dim, ctx.group), None, None

@@ -2,7 +2,10 @@
 
 ``make_local_mesh`` is the reference's: every local device on one
 ``("data",)`` axis, here a 1-D ``DeviceMesh`` over the initialised process
-group (one rank a device). ``make_production_mesh`` builds the reference's
+group (one rank a device); asked for a model axis, the 2-D ``("data",
+"model")`` mesh of the train step's tensor, sequence and expert
+parallelism. ``mesh_groups`` gives a train step its data and model groups
+from that mesh. ``make_production_mesh`` builds the reference's
 (16, 16) / (2, 16, 16) TPU pod meshes, which have no meaning on one H100
 host; it raises. ``mesh_cfg_for`` is copied. Nothing here touches
 distributed state at import.
@@ -18,7 +21,7 @@ ranks on one device) and gloo on the CPU.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -66,11 +69,35 @@ def init_distributed(device="cuda", *, init_method: Optional[str] = None,
     return backend
 
 
-def make_local_mesh(device="cuda"):
-    """A 1-D ``("data",)`` DeviceMesh over every rank of the initialised
-    process group, on ``device``'s type."""
+def make_local_mesh(device="cuda", model: int = 1):
+    """A DeviceMesh over every rank of the initialised process group, on
+    ``device``'s type: 1-D ``("data",)``, or with ``model`` > 1 the 2-D
+    ``("data", "model")`` mesh of shape ``(world // model, model)``, ranks
+    filling it row-major (a model group is ``model`` consecutive ranks)."""
     if not dist.is_initialized():
         raise RuntimeError("make_local_mesh needs an initialised process group "
                            "(init_distributed, or torchrun with --nproc-per-node)")
-    return init_device_mesh(torch.device(device).type, (dist.get_world_size(),),
-                            mesh_dim_names=("data",))
+    world = dist.get_world_size()
+    if model == 1:
+        return init_device_mesh(torch.device(device).type, (world,), mesh_dim_names=("data",))
+    if world % model:
+        raise ValueError(f"a model axis of {model} does not divide {world} ranks")
+    return init_device_mesh(torch.device(device).type, (world // model, model),
+                            mesh_dim_names=("data", "model"))
+
+
+def mesh_groups(mesh_cfg: MeshConfig, device="cuda") -> Tuple:
+    """``(data group, model group)`` of this rank on ``mesh_cfg``: on a data
+    mesh the default group and None; on a ``("data", "model")`` mesh the
+    groups of a new :func:`make_local_mesh` 2-D mesh, taken from it so that
+    every rank creates them in the same order (a collective call)."""
+    if mesh_cfg.axis_names == ("data",):
+        return None, None
+    if mesh_cfg.axis_names != ("data", "model"):
+        raise NotImplementedError(f"mesh axes {mesh_cfg.axis_names}: the port's train step "
+                                  f"runs over ('data',) and ('data', 'model') meshes")
+    mesh = make_local_mesh(device, mesh_cfg.model_parallelism)
+    if tuple(mesh.shape) != tuple(mesh_cfg.shape):
+        raise ValueError(f"the process group makes a {tuple(mesh.shape)} mesh, the plan's is "
+                         f"{tuple(mesh_cfg.shape)}")
+    return mesh.get_group("data"), mesh.get_group("model")

@@ -8,21 +8,40 @@ dense SwiGLU, for a config with ``num_experts`` the MoE FFN
 (:func:`moe_ffn`), and for the audio family Whisper's GELU MLP. An
 encoder-decoder's decoder block (``cross=True``) adds cross attention over
 the encoder's output after its self-attention.
+
+Each ``*_block_apply`` takes a :class:`~repro_torch.models.common.ShardCtx`
+(``ctx``) in a train step over ranks. Over a model axis (``ctx.tp``) the
+blocks run on the rank's blocks of their parameters, as the reference's
+GSPMD lowering of its sharding constraints does, with the collectives
+written out (Megatron's layout, the reference's ``blocks.py:76-175``,
+``:253-303``, ``:433-455`` and ``:553-573``): attention column-parallel over
+heads and row-parallel out (where the heads do not split the model axis,
+under sequence parallelism each rank's queries against all keys, else the
+attention whole on every rank); the FFN over ``ffn`` columns; the MoE
+FFN's experts over the ranks (routing whole on every rank, each rank's
+slots of the capacity buffer, the combine's partial sums reduced like a
+row-parallel product); the SSD block over its heads (B and C whole, the
+gated norm's mean square summed over the ranks); the RG-LRU block over its
+channels (each channel's gates read every channel of the conv output,
+all-gathered). A block whose split dims do not divide the model axis runs
+whole on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.core import comm
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.rglru_scan import lru_gates_torch
 from repro_torch.models import attention as ATT
-from repro_torch.models.common import causal_conv1d, rms_norm, rope, swiglu
+from repro_torch.models.common import (ShardCtx, causal_conv1d, rms_norm, rms_norm_sharded,
+                                       rope, swiglu)
 
 DECODE_KERNELS = ("paged", "gather", "ref")
 
@@ -94,22 +113,124 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return torch.matmul(o.reshape(*o.shape[:-2], h * k), wo.reshape(h * k, d))
 
 
-# a mean over the ranks of a data mesh (``runtime/train_loop.py``), or None
-# on one device
-RanksMean = Optional[Callable[[torch.Tensor], torch.Tensor]]
-
-
 def _ffn(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-         ranks_mean: RanksMean = None) -> Tuple[torch.Tensor, torch.Tensor]:
+         ctx: Optional[ShardCtx] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The FFN and its auxiliary loss (0.0 but for the MoE FFN). The audio
     family's GELU (tanh form, as ``jax.nn.gelu``) runs on the float32
-    product, which is then cast back, in the reference's order."""
+    product, which is then cast back, in the reference's order. Over a
+    model axis ``x`` is the residual stream's form and so is the result."""
     if cfg.num_experts:
-        return moe_ffn(cfg, p, x, ranks_mean)
+        return moe_ffn(cfg, p, x, ctx)
+    if ctx is not None and ctx.tp:
+        return _ffn_tp(cfg, p, x, ctx), 0.0
+    return _dense_ffn(cfg, p, x), 0.0
+
+
+def _dense_ffn(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.family == "audio":
         h = F.gelu(torch.matmul(x, p["wi"]).float(), approximate="tanh")
-        return torch.matmul(h.to(x.dtype), p["wo_mlp"]), 0.0
-    return swiglu(x, p["wg"], p["wu"], p["wd"]), 0.0
+        return torch.matmul(h.to(x.dtype), p["wo_mlp"])
+    return swiglu(x, p["wg"], p["wu"], p["wd"])
+
+
+def _ffn_tp(cfg: ModelConfig, p: Dict, h: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """The dense FFN over a model axis: column-parallel up (``wg``/``wu``,
+    or ``wi``) and row-parallel down (``wd``, or ``wo_mlp``); where ``ffn``
+    does not split, whole on every rank."""
+    up, down = ("wi", "wo_mlp") if cfg.family == "audio" else ("wg", "wd")
+    if p[up].shape[1] != cfg.d_ff:
+        return ctx.leave(_dense_ffn(cfg, p, ctx.enter(h)))
+    q = dict(p, **{down: ctx.rep_param(p[down], 1, cfg.d_model)})
+    return ctx.rep_out(_dense_ffn(cfg, q, ctx.rep_in(h)))
+
+
+def _kv_heads(ctx: ShardCtx, w: torch.Tensor, lo: int, hi: int, kv: int) -> torch.Tensor:
+    """The kv heads ``[lo, hi)`` of ``wk``/``wv``: the rank's block where the
+    rules split the kv heads (then exactly these), else a slice of the
+    whole tensor."""
+    if w.shape[1] != kv:
+        return w
+    return ctx.whole(w).narrow(1, lo, hi - lo)
+
+
+def _gqa_local(k: torch.Tensor, v: torch.Tensor, lo: int, hi: int, g: int, k_lo: int):
+    """K/V ``(B, S, n_kv, D)`` (kv heads from ``k_lo``) for the query heads
+    ``[lo, hi)``: as they are where each kv head serves an equal run of
+    them, else gathered to one kv head per query head."""
+    idx = [(h // g) - k_lo for h in range(lo, hi)]
+    nq, nkv = hi - lo, k.shape[2]
+    if nq % nkv == 0 and idx == [j // (nq // nkv) for j in range(nq)]:
+        return k, v
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def _attention_tp(cfg: ModelConfig, p: Dict, h: torch.Tensor, kv_in: torch.Tensor,
+                  positions: Optional[torch.Tensor], ctx: ShardCtx, names: Tuple[str, ...],
+                  *, causal: bool, window: int) -> torch.Tensor:
+    """Attention over a model axis, queries from ``h`` and K/V from
+    ``kv_in`` (``h`` itself, or the encoder's output), both in the residual
+    stream's form; returns the output projection in that form. ``positions``
+    (the whole sequence's) rope the queries and keys, None for none.
+
+    Heads split over the ranks: each rank's q heads and the kv heads they
+    read, row-parallel ``wo``. Heads that do not split, under sequence
+    parallelism: this rank's query positions against the gathered K/V at
+    ``q_offset`` (the reference's SP attention), ``wo`` whole. Otherwise
+    the attention whole on every rank."""
+    wq, wk, wv, wo = (p[n] for n in names)
+    hq, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.d_model
+    g = hq // kv
+    if wq.shape[1] != hq:
+        hf = ctx.enter(h)
+        kf = hf if kv_in is h else ctx.enter(kv_in)
+        lo, hi = ctx.span(hq)
+        k_lo, k_hi = lo // g, (hi - 1) // g + 1
+        q = _proj_heads(hf, wq)
+        k = _proj_heads(kf, _kv_heads(ctx, wk, k_lo, k_hi, kv))
+        v = _proj_heads(kf, _kv_heads(ctx, wv, k_lo, k_hi, kv))
+        if positions is not None:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        k, v = _gqa_local(k, v, lo, hi, g, k_lo)
+        o = ATT.attention(q, k, v, causal=causal, window=window)
+        return ctx.leave(_out_proj(o, wo))
+    if ctx.sp:
+        kf = ctx.enter(kv_in)
+        off = ctx.seq_offset(h.shape[1])
+        q = _proj_heads(h, ctx.whole(wq))
+        k = _proj_heads(kf, ctx.whole(wk))
+        v = _proj_heads(kf, ctx.whole(wv))
+        if positions is not None:
+            q = rope(q, positions[off:off + h.shape[1]], cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        o = ATT.attention(q, k, v, causal=causal, window=window, q_offset=off)
+        return _out_proj(o, ctx.joined(wo, 2, d))
+    q = _proj_heads(h, wq)
+    k = _proj_heads(kv_in, wk)
+    v = _proj_heads(kv_in, wv)
+    if positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    o = ATT.attention(q, k, v, causal=causal, window=window)
+    return _out_proj(o, ctx.rep_param(wo, 2, d))
+
+
+def _attn_block_tp(cfg: ModelConfig, p: Dict, x: torch.Tensor, positions: torch.Tensor,
+                   ctx: ShardCtx, *, causal: bool, window: int,
+                   enc_out: Optional[torch.Tensor]):
+    """:func:`attn_block_apply` over a model axis; ``x`` is the residual
+    stream (under sequence parallelism this rank's shard of it) and
+    ``positions`` the whole sequence's."""
+    h = rms_norm(x, ctx.gain(p["ln1"]))
+    x = x + _attention_tp(cfg, p, h, h, positions, ctx, ("wq", "wk", "wv", "wo"),
+                          causal=causal, window=window)
+    if enc_out is not None:
+        h = rms_norm(x, ctx.gain(p["xln"]))
+        x = x + _attention_tp(cfg, p, h, enc_out, None, ctx, ("xwq", "xwk", "xwv", "xwo"),
+                              causal=False, window=0)
+    f, aux = _ffn(cfg, p, rms_norm(x, ctx.gain(p["ln2"])), ctx)
+    return x + f, aux, {}
 
 
 def _cross(p: Dict, x: torch.Tensor, kx: torch.Tensor, vx: torch.Tensor) -> torch.Tensor:
@@ -125,20 +246,24 @@ def _cross(p: Dict, x: torch.Tensor, kx: torch.Tensor, vx: torch.Tensor) -> torc
 
 def attn_block_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                      positions: torch.Tensor, *, causal: bool = True,
-                     window: int = 0, ranks_mean: RanksMean = None,
+                     window: int = 0, ctx: Optional[ShardCtx] = None,
                      enc_out: Optional[torch.Tensor] = None):
     """Full-sequence forward. Returns ``(x_out, aux, {"k", "v"})``: the
     FFN's auxiliary loss (the MoE load-balance loss, else 0) and the rope'd
     K/V in kv-head cache-row form ``(B, S, Kv, Dh)`` for the prefill→decode
     handoff. With ``enc_out`` (an encoder-decoder's decoder block) cross
-    attention over it follows the self-attention."""
+    attention over it follows the self-attention. Over a model axis
+    (``ctx.tp``; a train step) no K/V are returned."""
+    if ctx is not None and ctx.tp:
+        return _attn_block_tp(cfg, p, x, positions, ctx, causal=causal, window=window,
+                              enc_out=enc_out)
     h = rms_norm(x, p["ln1"])
     q, k, v = _qkv(cfg, p, h, positions)
     o = ATT.attention(q, k, v, causal=causal, window=window)
     x = x + _out_proj(o, p["wo"])
     if enc_out is not None:
         x = _cross(p, x, _proj_heads(enc_out, p["xwk"]), _proj_heads(enc_out, p["xwv"]))
-    f, aux = _ffn(cfg, p, rms_norm(x, p["ln2"]), ranks_mean)
+    f, aux = _ffn(cfg, p, rms_norm(x, p["ln2"]), ctx)
     return x + f, aux, {"k": k, "v": v}
 
 
@@ -212,7 +337,7 @@ def attn_cache_spec(cfg: ModelConfig, batch: int, seq: int) -> Dict:
 
 
 def moe_ffn(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-            ranks_mean: RanksMean = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            ctx: Optional[ShardCtx] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), aux), the reference's ``moe_ffn``.
 
     Top-k routing on float32 softmax probabilities with renormalised gates,
@@ -227,17 +352,35 @@ def moe_ffn(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     one device) and routes each group with the capacity of its own tokens.
     Here every call routes its tokens as one group: on a data mesh each rank
     holds one data shard's rows, so routing on the rank is that grouping.
-    ``ranks_mean`` (a mean over those ranks, with its gradient) makes the
-    load-balance statistics global, as the reference's means over the
+    ``ctx.ranks_mean`` (a mean over those ranks, with its gradient) makes
+    the load-balance statistics global, as the reference's means over the
     mesh's whole batch are.
+
+    Over a model axis (``ctx.tp``) every model rank routes the data shard's
+    tokens whole (under sequence parallelism gathered first), so routing,
+    capacity and tables are the same on each; a rank with experts split
+    over the ranks dispatches to, runs and combines its own experts' slots
+    of the buffer (with ``ffn`` split instead, every expert's columns), and
+    the combine's partial sums are reduced like a row-parallel product.
 
     Everything is static in shape and free of host syncs (the capacity is
     Python arithmetic on shapes), so a decode tick that runs it captures in
     one CUDA graph."""
+    if ctx is not None and ctx.tp:
+        return _moe_tp(cfg, p, x, ctx)
     b, s, d = x.shape
+    kk = cfg.experts_per_token
+    xf = x.reshape(b * s, d)
+    wj, aux, cap, tables = _route(cfg, p, xf, None if ctx is None else ctx.ranks_mean)
+    y = _experts(cfg, p, xf, wj, cap, tables, kk)
+    return y.reshape(b, s, d), aux
+
+
+def _route(cfg: ModelConfig, p: Dict, xf: torch.Tensor, ranks_mean):
+    """Routing of tokens ``xf`` (T, D) as one group: ``(gates (T * k,) in
+    the activation dtype, aux, capacity, routing tables)``."""
     e, kk = cfg.num_experts, cfg.experts_per_token
-    t = b * s
-    xf = x.reshape(t, d)
+    t = xf.shape[0]
     # logits in the activation dtype, then float32 (bf16 routing sees the
     # reference's logits)
     logits = torch.matmul(xf, p["router"]).float()
@@ -249,7 +392,7 @@ def moe_ffn(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     gates = gates / torch.sum(gates, dim=-1, keepdim=True)
 
     # Switch-style load-balance aux loss
-    experts = torch.arange(e, device=x.device)
+    experts = torch.arange(e, device=xf.device)
     density = (idx[:, :1] == experts).float().mean(dim=0)
     prob_mean = probs.mean(dim=0)
     if ranks_mean is not None:
@@ -259,14 +402,48 @@ def moe_ffn(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     cap = int(t * kk * cfg.moe_capacity_factor / e) + 1  # lint: allow-tracer-host-sync (shapes)
     cap = max(8, -(-cap // 8) * 8)
     tables = routing_tables(idx.reshape(t * kk), e, cap)
-    wj = gates.reshape(t * kk).to(x.dtype)
+    return gates.reshape(t * kk).to(xf.dtype), aux, cap, tables
+
+
+def _experts(cfg: ModelConfig, p: Dict, xf: torch.Tensor, wj: torch.Tensor, cap: int,
+             tables, kk: int) -> torch.Tensor:
+    """Dispatch into the slots ``tables`` name (``p``'s experts, ``cap``
+    slots each), the three expert products and the combine: (T, D)."""
+    e, d = p["e_wg"].shape[0], xf.shape[1]
     buf = _MoEDispatch.apply(xf, kk, *tables).view(e, cap, d)
     gm = torch.matmul(buf, p["e_wg"])                              # (E, C, F)
     um = torch.matmul(buf, p["e_wu"])
-    hsil = F.silu(gm.float()).to(x.dtype) * um
+    hsil = F.silu(gm.float()).to(xf.dtype) * um
     out_buf = torch.matmul(hsil, p["e_wd"])                        # (E, C, D)
-    y = _MoECombine.apply(out_buf.reshape(e * cap, d), wj, kk, *tables)
-    return y.reshape(b, s, d), aux
+    return _MoECombine.apply(out_buf.reshape(e * cap, d), wj, kk, *tables)
+
+
+def _moe_tp(cfg: ModelConfig, p: Dict, x: torch.Tensor, ctx: ShardCtx):
+    """:func:`moe_ffn` over a model axis; ``x`` in the residual stream's form."""
+    e, f, kk = cfg.num_experts, cfg.d_ff, cfg.experts_per_token
+    h = ctx.rep_in(x)
+    b, s, d = h.shape
+    xf = h.reshape(b * s, d)
+    wj, aux, cap, tables = _route(cfg, p, xf, ctx.ranks_mean)
+    e_loc = p["e_wg"].shape[0]
+    if e_loc == e and p["e_wg"].shape[2] == f:
+        # neither the experts nor their columns split: whole on every rank
+        y = _experts(cfg, p, xf, wj, cap, tables, kk)
+        return ctx.rep_out(y.reshape(b, s, d)), aux
+    if e_loc != e:
+        tables = _slot_window(tables, ctx.mrank * e_loc * cap, e_loc * cap)
+    y = _experts(cfg, p, ctx.whole(xf), ctx.whole(wj), cap, tables, kk)
+    return ctx.leave(y.reshape(b, s, d)), aux
+
+
+def _slot_window(tables, lo: int, n: int):
+    """The routing tables of slots ``[lo, lo + n)`` alone (one rank's
+    experts): slot indices from ``lo``, and a (token, k) pair valid only
+    where its slot is in the window."""
+    j_of_slot, s_valid, slot_of_j, j_valid = tables
+    inside = (slot_of_j >= lo) & (slot_of_j < lo + n)
+    return (j_of_slot[lo:lo + n], s_valid[lo:lo + n], (slot_of_j - lo).clamp(0, n - 1),
+            j_valid & inside)
 
 
 def routing_tables(flat_e: torch.Tensor, e: int, cap: int) -> Tuple[torch.Tensor, ...]:
@@ -404,16 +581,66 @@ def _gate_out(cfg: ModelConfig, p: Dict, x: torch.Tensor, y: torch.Tensor,
     return x + torch.matmul(y, p["w_out"])
 
 
+def _whole_block(fn, cfg: ModelConfig, p: Dict, x: torch.Tensor, full: Dict,
+                 ctx: ShardCtx) -> torch.Tensor:
+    """``fn(cfg, p, x)`` run whole on every model rank, for a block whose
+    split dims do not divide the model axis: each parameter the rules split
+    gathered, the residual stream's sequence shards gathered under
+    sequence parallelism."""
+    q = {}
+    for k, t in p.items():
+        dims = [i for i, (a, n) in enumerate(zip(t.shape, full[k][0])) if a != n]
+        q[k] = ctx.rep_param(t, dims[0], full[k][0][dims[0]]) if dims else t
+    return ctx.rep_out(fn(cfg, q, ctx.rep_in(x)))
+
+
+def _split(p: Dict, full: Dict, names: Tuple[str, ...]) -> bool:
+    """Whether the rules split every one of ``names`` over the model axis."""
+    return all(tuple(p[k].shape) != full[k][0] for k in names)
+
+
+def _ssd_block_tp(cfg: ModelConfig, p: Dict, x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """:func:`ssd_block_apply` (no cache) over a model axis: each rank its
+    block of the heads (``wz``, ``wx``, ``conv_x``, ``wdt``, ``w_out`` split
+    over ``ssm_inner`` / ``ssm_heads``; ``dt_bias``, ``a_log``, ``d_skip``
+    and ``gate_ln`` sliced from their whole tensors), B and C whole on every
+    rank, the gated RMS norm over the whole inner width."""
+    full = ssd_block_params(cfg)
+    if not _split(p, full, ("wz", "wx", "conv_x", "wdt", "w_out")):
+        return _whole_block(ssd_block_apply, cfg, p, x, full, ctx)
+    di, nh, hd = cfg.d_inner, cfg.ssm_num_heads, cfg.ssm_head_dim
+    h = ctx.enter(rms_norm(x, ctx.gain(p["ln"])))
+    b, s, _d = h.shape
+    z = torch.matmul(h, p["wz"])
+    xin_raw = torch.matmul(h, p["wx"])
+    bm_raw = torch.matmul(h, ctx.whole(p["wb"]))
+    cm_raw = torch.matmul(h, ctx.whole(p["wc"]))
+    dt = F.softplus(torch.matmul(h, p["wdt"]).float() + ctx.part(p["dt_bias"], 0, nh).float())
+    xin = F.silu(causal_conv1d(xin_raw, p["conv_x"]).float()).to(x.dtype)
+    bm = F.silu(causal_conv1d(bm_raw, ctx.whole(p["conv_b"])).float()).to(x.dtype)
+    cm = F.silu(causal_conv1d(cm_raw, ctx.whole(p["conv_c"])).float()).to(x.dtype)
+    a = -torch.exp(ctx.part(p["a_log"], 0, nh).float())
+    hl = dt.shape[-1]
+    y = kops.ssd(xin.reshape(b, s, hl, hd), dt, a, bm, cm,
+                 ctx.part(p["d_skip"], 0, nh).float()).reshape(b, s, hl * hd)
+    y = rms_norm_sharded(y * F.silu(z.float()).to(x.dtype), ctx.part(p["gate_ln"], 0, di),
+                         di, ctx.model_group)
+    return x + ctx.leave(torch.matmul(y, p["w_out"]))
+
+
 def ssd_block_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
                     lengths: Optional[torch.Tensor] = None,
-                    want_cache: bool = False):
+                    want_cache: bool = False, ctx: Optional[ShardCtx] = None):
     """Full-sequence forward. Returns ``x_out``, or with ``want_cache``
     ``(x_out, cache)`` where cache is the decode state after a per-row
     prompt of ``lengths`` tokens — {"state", "conv_x", "conv_b", "conv_c"}
     exactly as :func:`ssd_block_decode` consumes them. x, B and C enter the
     scan rounded to the model dtype (their gradients formed in float32 and
     rounded once, by the scan's backward); the prefill state is formed from
-    their unrounded float32 values, as the reference does."""
+    their unrounded float32 values, as the reference does. Over a model
+    axis (``ctx.tp``, a train step): :func:`_ssd_block_tp`."""
+    if ctx is not None and ctx.tp:
+        return _ssd_block_tp(cfg, p, x, ctx)
     b, s, _d = x.shape
     h = rms_norm(x, p["ln"])
     z, xin_raw, bm_raw, cm_raw, dt = _ssd_pre(cfg, p, h)
@@ -539,16 +766,39 @@ def _lru_gates(p: Dict, xb: torch.Tensor):
     return lru_gates_torch(*_gate_pre(p, xb), _lru_decay(p))
 
 
+def _rglru_block_tp(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                    ctx: ShardCtx) -> torch.Tensor:
+    """:func:`rglru_block_apply` (no cache) over a model axis: each rank its
+    block of the channels (``wx``, ``wy``, ``conv``, ``w_r``, ``w_i``,
+    ``w_out`` split over ``lru``; ``b_r``, ``b_i`` and ``a_log`` sliced from
+    their whole tensors). A channel's gates read every channel of the conv
+    output, which is all-gathered over the model group."""
+    full = rglru_block_params(cfg)
+    if not _split(p, full, ("wx", "wy", "conv", "w_r", "w_i", "w_out")):
+        return _whole_block(rglru_block_apply, cfg, p, x, full, ctx)
+    w = cfg.lru_width or cfg.d_model
+    h = ctx.enter(rms_norm(x, ctx.gain(p["ln"])))
+    xb = causal_conv1d(torch.matmul(h, p["wx"]), p["conv"])
+    y_pre = torch.matmul(h, p["wy"])
+    q = dict(p, **{k: ctx.part(p[k], 0, w) for k in ("b_r", "b_i", "a_log")})
+    r_pre, i_pre = _gate_pre(q, comm.AllGatherDim.apply(xb, 2, ctx.model_group))
+    y, _h = kops.rglru(xb, r_pre, i_pre, y_pre, _lru_decay(q))
+    return x + ctx.leave(torch.matmul(y, p["w_out"]))
+
+
 def rglru_block_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
                       lengths: Optional[torch.Tensor] = None,
-                      want_cache: bool = False):
+                      want_cache: bool = False, ctx: Optional[ShardCtx] = None):
     """Full-sequence forward. Returns ``x_out``, or with ``want_cache``
     ``(x_out, cache)`` where cache is the decode state after a per-row
     prompt of ``lengths`` tokens: {"h": (B, W) float32 at each row's
     ``lengths - 1``, "conv": the last 3 raw conv inputs}. The gates, the
     recurrence and the product with the gelu'd y branch run in
     ``kernels.ops.rglru`` (one kernel on the card; where autograd records
-    the call, its training op, which forms no decode state)."""
+    the call, its training op, which forms no decode state). Over a model
+    axis (``ctx.tp``, a train step): :func:`_rglru_block_tp`."""
+    if ctx is not None and ctx.tp:
+        return _rglru_block_tp(cfg, p, x, ctx)
     h = rms_norm(x, p["ln"])
     xb_raw = torch.matmul(h, p["wx"])
     y_pre = torch.matmul(h, p["wy"])

@@ -1,19 +1,155 @@
 """Shared model substrate: param specs, RMSNorm, RoPE, SwiGLU, the training
 loss (``softmax_xent_logits``), the causal depthwise convolution of the SSM
-block.
+block, and :class:`ShardCtx`.
 
-Port of ``repro/models/common.py`` for one device: the reference's
-``ShardCtx`` (sharding hints under a device mesh) has no counterpart here.
-Parameters travel as flat dicts of tensors keyed exactly as the reference's.
+Port of ``repro/models/common.py``. Parameters travel as flat dicts of
+tensors keyed exactly as the reference's. The reference's ``ShardCtx``
+places sharding constraints and leaves the collectives to GSPMD; the
+port's :class:`ShardCtx` holds what a train step's forward needs over the
+ranks of a mesh and writes the collectives out: the FSDP parameter gather
+and the MoE statistics' mean over the data ranks, and over a model axis
+the Megatron region boundaries (``enter``/``leave``), the gradient sum of a
+tensor every model rank holds whole (``whole``), the vocab-parallel
+cross-entropy (:func:`softmax_xent_vocab`) and the RMS norm over a width
+split across the ranks (:func:`rms_norm_sharded`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.core import comm
+
+
+@dataclasses.dataclass
+class ShardCtx:
+    """How a train step's forward runs over the ranks of a mesh, under
+    ``plan``.
+
+    ``gather`` (FSDP) turns a layer's parameter blocks into the tensors the
+    model axis leaves (``Model.apply``); ``ranks_mean`` is the mean over the
+    data ranks (the MoE load-balance statistics). ``model_group`` is the
+    ranks of this rank's model axis where the plan puts work on it (tensor
+    or expert parallelism; None otherwise: every block then runs whole on
+    every rank). Over a model axis every activation is, on each rank, one
+    of three things: whole and the same on every model rank (the residual
+    stream; under ``plan.seq_shard_checkpoints`` its sequence shard
+    instead), a shard of a product split over the ranks (a block's heads,
+    ffn columns, experts, SSM heads, RG-LRU channels, vocab), or a partial
+    sum. :meth:`enter` and :meth:`leave` are the boundaries between them
+    (Megatron's f and g; under sequence parallelism the all-gather and the
+    reduce-scatter along the sequence): between them each rank's gradient
+    of an activation is its part of the whole gradient, so a parameter
+    held whole on every rank and used there enters through :meth:`whole`,
+    which sums its gradient over the model group. Model-split parameters
+    arrive as the rank's blocks (``core/sharding.py``'s rules); a block's
+    code tells a block from a whole tensor by its shape."""
+
+    plan: Any = None
+    model_group: Any = None
+    gather: Optional[Callable] = None
+    ranks_mean: Optional[Callable] = None
+
+    @property
+    def tp(self) -> bool:
+        """Whether work is split over a model axis."""
+        return self.model_group is not None
+
+    @property
+    def sp(self) -> bool:
+        """Sequence parallelism: the residual stream (and every remat
+        checkpoint) is this rank's sequence shard."""
+        return self.tp and bool(self.plan.seq_shard_checkpoints)
+
+    @property
+    def mp(self) -> int:
+        return dist.get_world_size(self.model_group) if self.tp else 1
+
+    @property
+    def mrank(self) -> int:
+        return dist.get_rank(self.model_group) if self.tp else 0
+
+    # region boundaries -------------------------------------------------
+    def enter(self, h: torch.Tensor) -> torch.Tensor:
+        """The residual stream (B, S, D) entering per-shard work: whole
+        forward, its gradient summed (under SP the shards gathered along
+        the sequence, the gradient reduce-scattered)."""
+        if self.sp:
+            return comm.AllGatherDim.apply(h, 1, self.model_group)
+        return comm.CopyToGroup.apply(h, self.model_group)
+
+    def leave(self, y: torch.Tensor) -> torch.Tensor:
+        """Partial sums (B, S, D) leaving for the residual stream: summed
+        over the ranks (under SP reduce-scattered to this rank's sequence
+        shard)."""
+        if self.sp:
+            return comm.ReduceScatterDim.apply(y, 1, self.model_group)
+        return comm.ReduceFromGroup.apply(y, self.model_group)
+
+    def whole(self, t: torch.Tensor) -> torch.Tensor:
+        """A tensor every model rank holds whole, entering per-shard work."""
+        return comm.CopyToGroup.apply(t, self.model_group)
+
+    def gain(self, g: torch.Tensor) -> torch.Tensor:
+        """A norm's gain on the residual stream: under SP each rank norms
+        its own positions, so the gain's gradient is summed."""
+        return self.whole(g) if self.sp else g
+
+    def span(self, n: int) -> Tuple[int, int]:
+        """This rank's ``[lo, hi)`` of ``n``: equal blocks where ``n``
+        splits, else blocks of ``ceil(n / mp)`` (the last ones shorter)."""
+        step = -(-n // self.mp)
+        return min(n, self.mrank * step), min(n, (self.mrank + 1) * step)
+
+    def part(self, t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """This rank's part of dim ``dim`` (``n`` long whole) of a
+        parameter: the block itself where the rules split it, else this
+        rank's :meth:`span` of the whole tensor, whose gradient is summed."""
+        if t.shape[dim] != n:
+            return t
+        lo, hi = self.span(n)
+        return self.whole(t).narrow(dim, lo, hi - lo)
+
+    def joined(self, t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """A parameter whole along ``dim`` for per-shard work: all-gathered
+        where the rules split it there (the gradient reduce-scattered),
+        else :meth:`whole`."""
+        if t.shape[dim] != n:
+            return comm.AllGatherDim.apply(t, dim, self.model_group)
+        return self.whole(t)
+
+    # work every model rank repeats in full -----------------------------
+    def rep_in(self, h: torch.Tensor) -> torch.Tensor:
+        """The residual stream entering work that every model rank does
+        whole (under SP the sequence gathered; each rank's gradient is the
+        whole one)."""
+        return comm.AllGatherSlice.apply(h, 1, self.model_group) if self.sp else h
+
+    def rep_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The output of such work returning to the residual stream."""
+        return comm.SliceDim.apply(y, 1, self.model_group) if self.sp else y
+
+    def rep_param(self, t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """A parameter the rules split along ``dim`` made whole for work
+        every model rank repeats (the backward keeps this rank's block)."""
+        if t.shape[dim] != n:
+            return comm.AllGatherSlice.apply(t, dim, self.model_group)
+        return t
+
+    # sequence ----------------------------------------------------------
+    def seq_len(self, local: int) -> int:
+        """The whole sequence of a residual stream ``local`` positions long."""
+        return local * self.mp if self.sp else local
+
+    def seq_offset(self, local: int) -> int:
+        """The first position of this rank's sequence shard."""
+        return self.mrank * local if self.sp else 0
 
 
 class SpecBuilder:
@@ -113,6 +249,60 @@ def softmax_xent_logits(logits: torch.Tensor, targets: torch.Tensor,
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def rms_norm_sharded(x: torch.Tensor, gamma: torch.Tensor, n: int, group,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """:func:`rms_norm` over a feature dim split across ``group``'s ranks
+    (``x`` and ``gamma`` this rank's ``n / world`` of them): the mean square
+    over all ``n`` features is the sum of the ranks' sums of squares, summed
+    again in the backward pass (each rank's gradient of it is a part)."""
+    xf = x.float()
+    ss = torch.sum(xf * xf, dim=-1, keepdim=True)
+    ss = comm.CopyToGroup.apply(comm.ReduceFromGroup.apply(ss, group), group)
+    return (xf * torch.rsqrt(ss / n + eps)).to(x.dtype) * gamma
+
+
+class _VocabXent(torch.autograd.Function):
+    """The float32 mean cross-entropy over vocab blocks split across the
+    ranks: each rank holds the logits of its block ``[lo, lo + V_r)``. The
+    log-sum-exp takes the max over the ranks (an all-reduce max) and the
+    sum of exponentials, the target logit comes from the rank that holds
+    it (one all-reduce of both); every rank returns the same loss. The
+    backward is this block's softmax minus its one-hot, over the positions,
+    with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, lo, group):
+        vr = logits.shape[-1]
+        # the max and the target logit are exact in the logits' own dtype
+        m = comm.all_reduce_(logits.amax(dim=-1).float(), "max", group)
+        ids = targets.long() - lo
+        own = (ids >= 0) & (ids < vr)
+        ids = ids.clamp(0, vr - 1)
+        tgt = torch.gather(logits, -1, ids[..., None])[..., 0].float() * own
+        # one float32 copy of the block, exponentiated in place: no further
+        # (B, S, V_r) float32 temporary
+        sumexp = logits.to(torch.float32, copy=True).sub_(m[..., None]).exp_().sum(-1)
+        both = comm.all_reduce_(torch.stack([sumexp, tgt]), group=group)
+        lse = m + torch.log(both[0])
+        ctx.save_for_backward(logits, lse, ids, own)
+        return (lse - both[1]).mean()
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse, ids, own = ctx.saved_tensors
+        p = logits.to(torch.float32, copy=True).sub_(lse[..., None]).exp_()
+        p.scatter_add_(-1, ids[..., None], -own[..., None].float())
+        return p.mul_(grad / lse.numel()).to(logits.dtype), None, None, None
+
+
+def softmax_xent_vocab(logits: torch.Tensor, targets: torch.Tensor, lo: int,
+                       group) -> torch.Tensor:
+    """:func:`softmax_xent_logits` (no mask) of logits whose vocab dim is
+    split over ``group``: ``logits`` (..., V_r) this rank's block, which
+    starts at ``lo``."""
+    return _VocabXent.apply(logits, targets, lo, group)
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,

@@ -28,10 +28,16 @@ for it (``remat``: each layer under ``torch.utils.checkpoint``, its
 activations recomputed in the backward pass). A layer stack may be given as
 a list of per-layer tensors instead of one stacked tensor: the train step
 (``runtime/train_loop.py``) passes per-layer leaves, so each layer's
-gradient lands in a tensor of its own. Under FSDP the step also hands it a
-``gather`` that turns each rank's parameter shards into full tensors when
-they are used (:meth:`Model.apply`), and a ``ranks_mean`` that makes the MoE
-load-balance statistics means over the ranks. :meth:`Model.param_specs`,
+gradient lands in a tensor of its own. Over ranks the step also hands it a
+:class:`~repro_torch.models.common.ShardCtx`: under FSDP its ``gather``
+turns each rank's parameter shards into the tensors the model axis leaves
+when they are used (:meth:`Model.apply`), its ``ranks_mean`` makes the MoE
+load-balance statistics means over the data ranks, and over a model axis
+the blocks run on the rank's parameter blocks: the embedding a masked
+lookup into the rank's vocab block, the residual stream whole on every
+model rank (or, under sequence parallelism, its sequence shard: each
+remat checkpoint is the shard), the logits the rank's vocab block and the
+loss the vocab-parallel cross-entropy. :meth:`Model.param_specs`,
 :meth:`Model.param_axes` and :meth:`Model.cache_specs` give the sharding
 rules (``core/sharding.py``) each tensor's shape and logical axes.
 """
@@ -46,17 +52,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
+from repro_torch.core import comm
 from repro_torch.models import blocks as B
-from repro_torch.models.common import SpecBuilder, rms_norm, softmax_xent_logits
+from repro_torch.models.common import (ShardCtx, SpecBuilder, rms_norm, softmax_xent_logits,
+                                       softmax_xent_vocab)
 
 _PORTED = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # weight of the MoE auxiliary loss in the total (the reference's)
 MOE_AUX_COEF = 0.01
-# FSDP's parameter gather: (stack prefix, or "" for the embedding, final
-# norm and head; {name: tensor this rank holds}) -> {name: full tensor}
-Gather = Callable[[str, Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]
-
-
 def _subtree(params: Dict, prefix: str) -> Dict:
     plen = len(prefix)
     return {k[plen:]: v for k, v in params.items() if k.startswith(prefix)}
@@ -148,7 +151,13 @@ class Model:
             x = x * (self.cfg.d_model ** 0.5)
         return x
 
-    def _logits(self, params, x):
+    def _logits(self, params, x, ctx: Optional[ShardCtx] = None):
+        """Logits of ``x``; over a model axis (``ctx.tp``) the rank's vocab
+        block of them."""
+        if ctx is not None and ctx.tp:
+            if self.cfg.tie_embeddings:
+                return torch.matmul(x, self._vocab_table(params, ctx).t())
+            return torch.matmul(x, ctx.part(params["head"], 1, self.cfg.vocab_size))
         if self.cfg.tie_embeddings:
             return torch.matmul(x, params["embed"].t())
         return torch.matmul(x, params["head"])
@@ -162,8 +171,8 @@ class Model:
     # ------------------------------------------------------------------
     def apply(self, params, tokens: torch.Tensor,
               extra: Optional[Dict[str, torch.Tensor]] = None, *, last_only: bool = False,
-              remat: bool = False, gather: Optional[Gather] = None,
-              ranks_mean: B.RanksMean = None) -> Tuple[torch.Tensor, torch.Tensor]:
+              remat: bool = False, ctx: Optional[ShardCtx] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns ``(logits, aux_loss)``: logits for every text position,
         or with ``last_only`` for the final position only (``(B, 1,
         vocab)``). ``extra`` holds the frontends' inputs: a vision model's
@@ -173,48 +182,89 @@ class Model:
         encoder reads (:meth:`_encode`). The auxiliary loss is the mean over
         the layers of the MoE load-balance loss (0 for every other family).
         With ``remat`` each layer's activations, the encoder's too, are
-        recomputed in the backward pass. ``gather(prefix, tensors)`` (FSDP)
-        turns the parameters this rank holds into full ones: the embedding,
-        final norm and head here, each layer's when the layer runs (again in
-        its recompute under remat). ``ranks_mean`` (a data mesh) takes the
-        MoE load-balance statistics over the ranks (``blocks.moe_ffn``)."""
+        recomputed in the backward pass. ``ctx`` (a train step over ranks):
+        ``ctx.gather`` (FSDP) turns the parameters this rank holds into
+        those the model axis leaves, the embedding, final norm and head
+        here, each layer's when the layer runs (again in its recompute
+        under remat); over a model axis (``ctx.tp``) the logits are this
+        rank's vocab block (:meth:`vocab_span`)."""
         cfg = self.cfg
         extra = extra or {}
+        gather = None if ctx is None else ctx.gather
         if gather is not None:
             params = dict(params)
             params.update(gather("", {k: v for k, v in params.items() if "." not in k}))
-        x = self._embed(params, tokens)
+        tp = ctx is not None and ctx.tp
+        if tp and last_only:
+            raise ValueError("over a model axis the model runs the training loss only")
+        x = self._embed_tp(params, tokens, ctx) if tp else self._embed(params, tokens)
         prefix = 0
         if cfg.frontend == "vision" and "patch_embeds" in extra:
             pe = extra["patch_embeds"].to(x.dtype)
+            if tp:                          # a partial sum: the prefix on one rank
+                pe = pe if ctx.mrank == 0 else torch.zeros_like(pe)
             x = torch.cat([pe, x], dim=1)
             prefix = pe.shape[1]
+        if tp:
+            x = ctx.leave(x)
         enc_out = None
         if cfg.is_encdec:
-            enc_out = self._encode(params, extra["frames"].to(x.dtype), remat=remat,
-                                   gather=gather)
-        x, _, aux = self._stack_prefill(params, x, want_cache=False, remat=remat,
-                                        gather=gather, ranks_mean=ranks_mean, enc_out=enc_out)
-        x = rms_norm(x, params["final_ln"])
-        if last_only:
-            # the last position is never inside the vision prefix
-            logits = self._logits(params, x[:, -1:])
+            enc_out = self._encode(params, extra["frames"].to(x.dtype), remat=remat, ctx=ctx)
+        x, _, aux = self._stack_prefill(params, x, want_cache=False, remat=remat, ctx=ctx,
+                                        enc_out=enc_out)
+        if tp:
+            x = ctx.enter(rms_norm(x, ctx.gain(params["final_ln"])))
+            logits = self._logits(params, x, ctx)[:, prefix:]
         else:
-            logits = self._logits(params, x)[:, prefix:]
+            x = rms_norm(x, params["final_ln"])
+            if last_only:
+                # the last position is never inside the vision prefix
+                logits = self._logits(params, x[:, -1:])
+            else:
+                logits = self._logits(params, x)[:, prefix:]
         return logits, torch.zeros((), device=logits.device) if aux is None else aux
 
+    def vocab_span(self, ctx: ShardCtx) -> Tuple[int, int]:
+        """The rank's ``[lo, hi)`` of the vocab over a model axis: the block
+        the rules give it where the vocab splits, else its
+        :meth:`ShardCtx.span` of the whole table."""
+        return ctx.span(self.cfg.vocab_size)
+
+    def _vocab_table(self, params, ctx: ShardCtx) -> torch.Tensor:
+        """The rank's rows of the embedding table (its block, or a slice of
+        the whole table whose gradient is summed over the model group)."""
+        return ctx.part(params["embed"], 0, self.cfg.vocab_size)
+
+    def _embed_tp(self, params, tokens, ctx: ShardCtx) -> torch.Tensor:
+        """The embedding over a model axis: a partial sum, each token's row
+        on the rank whose vocab block holds it and zeros elsewhere."""
+        table = self._vocab_table(params, ctx)
+        lo, _hi = self.vocab_span(ctx)
+        ids = tokens.long() - lo
+        own = (ids >= 0) & (ids < table.shape[0])
+        x = table[ids.clamp(0, table.shape[0] - 1)] * own[..., None].to(table.dtype)
+        if self.cfg.tie_embeddings:
+            x = x * (self.cfg.d_model ** 0.5)
+        return x
+
     def _encode(self, params, frames: torch.Tensor, *, remat: bool = False,
-                gather: Optional[Gather] = None) -> torch.Tensor:
+                ctx: Optional[ShardCtx] = None) -> torch.Tensor:
         """The encoder stack over ``frames`` ``(B, Senc, D)``: bidirectional
         attention blocks, then an RMS norm with the decoder's ``final_ln``
-        (the reference's, which the encoder shares)."""
+        (the reference's, which the encoder shares). Under sequence
+        parallelism each rank encodes its shard of the frames' positions."""
+        gain = params["final_ln"]
+        if ctx is not None and ctx.tp:
+            gain = ctx.gain(gain)
+            if ctx.sp:
+                frames = comm.block_of(frames, 1, ctx.model_group)
         x, _, _ = self._stack_prefill(params, frames, want_cache=False, remat=remat,
-                                      gather=gather, encoder=True)
-        return rms_norm(x, params["final_ln"])
+                                      ctx=ctx, encoder=True)
+        return rms_norm(x, gain)
 
     def _stack_prefill(self, params, x, *, lengths: Optional[torch.Tensor] = None,
                        want_cache: bool = True, remat: bool = False,
-                       gather: Optional[Gather] = None, ranks_mean: B.RanksMean = None,
+                       ctx: Optional[ShardCtx] = None,
                        enc_out: Optional[torch.Tensor] = None, encoder: bool = False):
         """The layers over a full sequence: ``(x, caches, aux)``: the
         decoder's, every decoder block reading ``enc_out`` through its
@@ -226,26 +276,29 @@ class Model:
         None). ``aux`` is the mean of the layers' MoE load-balance losses
         (None without experts). With ``remat`` (no cache) each layer runs
         under ``torch.utils.checkpoint``, as the reference's
-        ``jax.checkpoint`` per layer: only its input is kept, and the
-        backward pass runs it again (a layer holds no randomness, so no RNG
-        state is kept)."""
+        ``jax.checkpoint`` per layer: only its input is kept (under sequence
+        parallelism the rank's shard), and the backward pass runs it again,
+        its collectives too (a layer holds no randomness, so no RNG state is
+        kept)."""
         stacks = {prefix: _subtree(params, prefix) for prefix, _n, _b in self._stacks()}
-        positions = torch.arange(x.shape[1], device=x.device)
+        seq = x.shape[1] if ctx is None else ctx.seq_len(x.shape[1])
+        positions = torch.arange(seq, device=x.device)
         caches: Dict[str, list] = {prefix: [] for prefix in stacks}
         auxs = []
         causal = not encoder
+        gather = None if ctx is None else ctx.gather
         for kind, prefix, i in self.layers(encoder):
             lp = self._layer(stacks[prefix], i)
             gather_layer = None if gather is None else functools.partial(gather, prefix)
             if remat and not want_cache:
                 x, aux = checkpoint(self._layer_apply, kind, lp, x, positions, lengths,
-                                    gather=gather_layer, ranks_mean=ranks_mean,
-                                    causal=causal, enc_out=enc_out,
-                                    use_reentrant=False, preserve_rng_state=False)
+                                    gather=gather_layer, ctx=ctx, causal=causal,
+                                    enc_out=enc_out, use_reentrant=False,
+                                    preserve_rng_state=False)
             else:
                 x, aux, *c = self._layer_apply(kind, lp, x, positions, lengths, want_cache,
-                                               gather=gather_layer, ranks_mean=ranks_mean,
-                                               causal=causal, enc_out=enc_out)
+                                               gather=gather_layer, ctx=ctx, causal=causal,
+                                               enc_out=enc_out)
                 if want_cache:
                     caches[prefix].append(c[0])
             auxs.append(aux)
@@ -258,7 +311,7 @@ class Model:
     def _layer_apply(self, kind: str, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
                      lengths: Optional[torch.Tensor], want_cache: bool = False, *,
                      gather: Optional[Callable[[Dict], Dict]] = None,
-                     ranks_mean: B.RanksMean = None, causal: bool = True,
+                     ctx: Optional[ShardCtx] = None, causal: bool = True,
                      enc_out: Optional[torch.Tensor] = None):
         """One layer over a full sequence: ``(x, aux)``, or ``(x, aux,
         cache)`` with ``want_cache``; ``aux`` is the MoE load-balance loss
@@ -272,9 +325,11 @@ class Model:
         if kind == "a":
             x, aux, c = B.attn_block_apply(self.cfg, lp, x, positions, causal=causal,
                                            window=self.cfg.window_size if causal else 0,
-                                           ranks_mean=ranks_mean, enc_out=enc_out)
+                                           ctx=ctx, enc_out=enc_out)
             return (x, aux, c) if want_cache else (x, aux)
         block = B.ssd_block_apply if kind == "s" else B.rglru_block_apply
+        if ctx is not None and ctx.tp:
+            return block(self.cfg, lp, x, ctx=ctx), 0.0
         out = block(self.cfg, lp, x, lengths=lengths, want_cache=want_cache)
         return (out[0], 0.0, out[1]) if want_cache else (out, 0.0)
 
@@ -282,18 +337,22 @@ class Model:
     # loss
     # ------------------------------------------------------------------
     def loss(self, params, batch: Dict[str, torch.Tensor], *, remat: bool = False,
-             gather: Optional[Gather] = None, ranks_mean: B.RanksMean = None
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             ctx: Optional[ShardCtx] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The reference's training loss: the float32 mean cross-entropy of
         ``batch["targets"]`` under the logits of ``batch["tokens"]``, plus
         ``MOE_AUX_COEF`` times the auxiliary loss (the MoE family's
         load-balance loss; 0 for the others). Returns ``(total, {"xent",
         "aux"})``. The batch is also :meth:`apply`'s ``extra`` (a vision
-        model's ``patch_embeds``, an encoder-decoder's ``frames``).
-        ``gather``, ``ranks_mean``: as :meth:`apply`."""
-        logits, aux = self.apply(params, batch["tokens"], batch, remat=remat, gather=gather,
-                                 ranks_mean=ranks_mean)
-        xent = softmax_xent_logits(logits, batch["targets"])
+        model's ``patch_embeds``, an encoder-decoder's ``frames``). ``ctx``:
+        as :meth:`apply`; over a model axis the cross-entropy is the
+        vocab-parallel one (``common.softmax_xent_vocab``), the same loss on
+        every model rank."""
+        logits, aux = self.apply(params, batch["tokens"], batch, remat=remat, ctx=ctx)
+        if ctx is not None and ctx.tp:
+            xent = softmax_xent_vocab(logits, batch["targets"], self.vocab_span(ctx)[0],
+                                      ctx.model_group)
+        else:
+            xent = softmax_xent_logits(logits, batch["targets"])
         total = xent + MOE_AUX_COEF * aux
         return total, {"xent": xent, "aux": aux}
 

@@ -21,33 +21,49 @@ gradient lands in a tensor of its own (the step hands the model per-layer
 leaves), so no stacked gradient is assembled from per-layer pieces.
 
 On a mesh of more than one device (the reference's train front door uses
-``MeshConfig((n,), ("data",))``) the step runs inside an initialised
-process group with one rank a device, and equals the one-device step on the
-global batch:
+``MeshConfig((n,), ("data",))``; its multi-device test a ``("data",
+"model")`` mesh) the step runs inside an initialised process group with
+one rank a device, and equals the one-device step on the global batch:
 
-* every rank is given the same global batch and takes the rows that
-  :func:`batch_specs` assigns it (all of them where the batch does not
-  split), and backpropagates its token-mean loss weighted by its share of
-  the tokens over all ranks;
+* every rank is given the same global batch and takes, of each
+  microbatch (a run of the global batch's rows, as the reference splits
+  it), the rows that :func:`batch_specs` assigns it over the data axis
+  (all of them where the batch does not split; the model ranks of a data
+  group take the same rows), and backpropagates its token-mean loss
+  weighted by its share of the tokens over the data ranks;
 * DP (``params_over_data`` False): parameters replicated; each gradient
   all-reduced (summed) after the backward pass;
 * FSDP (``params_over_data`` True): each rank holds its block of every
   parameter and of its optimizer state as :func:`train_shardings` splits
-  them (:func:`shard_params`); a layer's parameters are all-gathered when
-  the layer runs (again in its recompute under remat) and the gather's
-  backward reduce-scatters their gradient, summed in its own dtype
-  (``core/comm.AllGatherDim``);
-  parameters the rules leave whole are all-reduced as under DP;
+  them (:func:`shard_params`); a layer's parameters are all-gathered over
+  the data axis when the layer runs (again in its recompute under remat)
+  and the gather's backward reduce-scatters their gradient, summed in its
+  own dtype (``core/comm.AllGatherDim``); parameters the rules leave whole
+  over the data axis are all-reduced over it as under DP;
+* a ``model`` axis (``DP_TP`` / ``FSDP_TP``: ``tensor_parallel``,
+  ``expert_parallel``, ``seq_shard_checkpoints``): each rank holds its
+  model block of every parameter the rules split over ``"model"`` (heads,
+  ffn, vocab, experts, SSM heads and inner width, RG-LRU width), and the
+  blocks run on them with the collectives over the model group written out
+  (``models/common.ShardCtx``, ``models/blocks.py``): Megatron's
+  column- and row-parallel products, the vocab-parallel embedding and
+  cross-entropy, and under ``seq_shard_checkpoints`` the residual stream
+  and every remat checkpoint as the rank's sequence shard. A parameter
+  every model rank holds whole has the whole gradient on every rank: its
+  gradient is summed over the model group inside the backward pass where
+  each rank's use of it is a part (``ShardCtx.whole``);
 * the clipping norm (:func:`global_norm`) sums the squares of the blocks
-  over the ranks, after a power-of-two prescale taken from the largest
-  gradient entry over the ranks;
+  over the ranks, each gradient once over the mesh, after a power-of-two
+  prescale taken from the largest gradient entry over the ranks;
 * the optimizer updates this rank's blocks in place, one layer at a time;
-* an MoE layer routes this rank's rows (the reference's group of one data
-  shard) and takes its load-balance statistics as means over the ranks
-  (``comm.AllReduceMean``), so its auxiliary loss is the global batch's.
+* an MoE layer routes its data shard's rows (the reference's group of one
+  data shard) and takes its load-balance statistics as means over the data
+  ranks (``comm.AllReduceMean``), so its auxiliary loss is the global
+  batch's.
 
-A ``model`` axis larger than one (tensor, sequence and expert parallelism)
-is not ported: ROADMAP Queue A 14c. Every ported family trains: dense (the
+Pod-scale meshes (``("pod", "data", "model")``) raise: ROADMAP Queue A 15.
+A plan that puts no work on a model axis runs every block whole on each of
+its ranks. Every ported family trains: dense (the
 flash kernel's training forward and the reference's recompute backward),
 MoE (the same attention; the expert dispatch and combine with the
 reference's gather-only backward), SSM (the SSD kernel's training forward
@@ -75,6 +91,8 @@ from repro_torch.core import comm
 from repro_torch.core.sharding import (placements_for, shard_slices, spec_for,
                                        tree_shardings, tree_specs)
 from repro_torch.core.strategies import PlanConfig
+from repro_torch.launch.mesh import mesh_groups
+from repro_torch.models.common import ShardCtx
 from repro_torch.nn.optim import OPTIMIZER_SLOTS, get_optimizer
 
 # the families whose full-sequence forward has a backward on the card
@@ -175,12 +193,13 @@ def shard_params(params: Dict, model, plan: PlanConfig, mesh_cfg: MeshConfig,
     return {k: local_block(p, specs[k], mesh_cfg, rank).clone() for k, p in params.items()}
 
 
-def _shard_dim(spec) -> Optional[int]:
-    """The one dim a data-mesh spec splits, or None."""
-    dims = [i for i, e in enumerate(spec) if e is not None]
-    if len(dims) > 1:
-        raise NotImplementedError(f"spec {spec} splits more than one dim")
-    return dims[0] if dims else None
+def _split_dims(spec) -> Dict[str, int]:
+    """Each mesh axis ``spec`` splits a dim over -> that dim."""
+    out = {}
+    for i, entry in enumerate(spec):
+        for axis in ((entry,) if isinstance(entry, str) else (entry or ())):
+            out[axis] = i
+    return out
 
 
 def _check_trainable(model, mesh_cfg: MeshConfig) -> None:
@@ -189,32 +208,38 @@ def _check_trainable(model, mesh_cfg: MeshConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family has no training step in the port; "
             f"it trains {', '.join(TRAINED_FAMILIES)} models")
-    if mesh_cfg.model_parallelism > 1:
+    if mesh_cfg.num_devices > 1 and mesh_cfg.axis_names not in (("data",), ("data", "model")):
         raise NotImplementedError(
-            f"a train step over a model axis of {mesh_cfg.model_parallelism} (tensor, sequence "
-            f"and expert parallelism) is not ported: ROADMAP Queue A 14c; the port trains over "
-            f"data axes (DP, FSDP)")
+            f"mesh axes {mesh_cfg.axis_names}: the port trains over ('data',) and ('data', "
+            f"'model') meshes; pod-scale meshes come with the dry-run tooling, ROADMAP "
+            f"Queue A 15")
 
 
 class _Ranks:
-    """What a step over the ranks of a data mesh needs: this rank's rows of
-    the global batch, its loss weight, each parameter's split dim (FSDP) and
+    """What a step over the ranks of a ``("data",)`` or ``("data",
+    "model")`` mesh needs: this rank's rows of the global batch, its loss
+    weight, each parameter's split dims, the data and model groups, and
     the collectives around the backward pass."""
 
     def __init__(self, model, plan: PlanConfig, mesh_cfg: MeshConfig, stacked: tuple):
         self.plan, self.mesh_cfg = plan, mesh_cfg
         self.world = mesh_cfg.num_devices
         specs = tree_specs(model.param_specs(), model.param_axes(), plan, mesh_cfg, "param")
-        # each key's split dim in the tensors the model is handed (a stacked
-        # key's per-layer leaves lose the layer dim, which never splits)
-        self.dims = {}
-        for k, spec in specs.items():
-            d = _shard_dim(spec)
-            self.dims[k] = d - 1 if d is not None and k.startswith(stacked) else d
-        # every rank holds as many tokens (batch_specs splits only a batch
-        # that divides evenly; otherwise every rank takes every row), so
-        # each rank's share of the global token count is 1 / world
-        self.weight = 1.0 / self.world
+        # each key's split dim per mesh axis in the tensors the model is
+        # handed (a stacked key's per-layer leaves lose the layer dim, which
+        # never splits)
+        self.dims = {k: {axis: d - 1 if k.startswith(stacked) else d
+                         for axis, d in _split_dims(spec).items()}
+                     for k, spec in specs.items()}
+        # the model ranks of a data group see the same rows (batch_specs
+        # splits only a batch that divides evenly over the data axes;
+        # otherwise every rank takes every row), so each rank's share of the
+        # global token count is 1 / data ranks
+        self.weight = 1.0 / mesh_cfg.data_parallelism
+        # work on the model axis (tensor, sequence and expert parallelism)
+        self.on_model = mesh_cfg.model_parallelism > 1 and (plan.tensor_parallel
+                                                            or plan.expert_parallel)
+        self.groups = self.data_group = self.model_group = None
 
     def check(self) -> None:
         """The step runs inside a process group of one rank a device."""
@@ -225,41 +250,55 @@ class _Ranks:
             raise ValueError(f"the process group has {dist.get_world_size()} ranks, the mesh "
                              f"{self.world} devices")
 
+    def ctx(self, fsdp: bool, device) -> ShardCtx:
+        """The forward's :class:`ShardCtx` on this rank, with the mesh's
+        data and model groups (made at the step's first call)."""
+        if self.groups is None:
+            self.groups = mesh_groups(self.mesh_cfg, device)
+        self.data_group, self.model_group = self.groups
+        return ShardCtx(self.plan, self.model_group if self.on_model else None,
+                        gather=self.gather if fsdp else None,
+                        ranks_mean=self.mean if self.mesh_cfg.data_parallelism > 1 else None)
+
     def rows(self, batch: Dict) -> Dict:
         """This rank's rows of the global batch."""
         specs = batch_specs(batch, self.plan, self.mesh_cfg)
         return {k: local_block(v, specs[k], self.mesh_cfg, dist.get_rank())
                 for k, v in batch.items()}
 
-    @staticmethod
-    def mean(t: torch.Tensor) -> torch.Tensor:
-        """``Model.loss``'s ``ranks_mean``: the mean over the ranks."""
-        return comm.AllReduceMean.apply(t, None)
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """``ShardCtx.ranks_mean``: the mean over the data ranks."""
+        return comm.AllReduceMean.apply(t, self.data_group)
 
     def gather(self, prefix: str, tensors: Dict) -> Dict:
-        """``Model.apply``'s FSDP gather: full tensors from this rank's blocks."""
-        return {name: t if self.dims[prefix + name] is None
-                else comm.AllGatherDim.apply(t, self.dims[prefix + name], None)
-                for name, t in tensors.items()}
+        """``ShardCtx.gather`` (FSDP): each tensor whole over the data axis
+        from this rank's block of it."""
+        out = {}
+        for name, t in tensors.items():
+            d = self.dims[prefix + name].get("data")
+            out[name] = t if d is None else comm.AllGatherDim.apply(t, d, self.data_group)
+        return out
 
     def reduce_whole(self, grads: Dict) -> None:
-        """Sums over the ranks the gradients of the parameters every rank
-        holds whole (all of them under DP)."""
+        """Sums over the data ranks the gradients of the parameters every
+        data rank holds whole (all of them under DP)."""
         for k, g in grads.items():
-            if not self.sharded(k):
+            if "data" not in self.dims[k]:
                 for gi in (g if isinstance(g, list) else [g]):
-                    comm.all_reduce_(gi)
+                    comm.all_reduce_(gi, group=self.data_group)
 
-    def sharded(self, k: str) -> bool:
-        """Whether this rank holds a block of ``k`` (FSDP; under DP the
-        rules split no parameter)."""
-        return self.dims[k] is not None
+    @property
+    def any_split(self) -> bool:
+        """Whether the rules split any parameter over any mesh axis."""
+        return any(self.dims.values())
 
     def counted(self, grads: Dict) -> List[bool]:
         """Which of the flat gradients this rank adds to the global norm:
-        its blocks, and the whole gradients on rank 0 only."""
-        lead = dist.get_rank() == 0
-        return [self.sharded(k) or lead
+        each gradient exactly once over the mesh, on the first rank of every
+        mesh axis its spec does not split (a gradient is the same on every
+        rank of such an axis)."""
+        coord = dict(zip(self.mesh_cfg.axis_names, _coordinate(self.mesh_cfg, dist.get_rank())))
+        return [all(c == 0 for axis, c in coord.items() if axis not in self.dims[k])
                 for k, g in grads.items() for _ in (g if isinstance(g, list) else [g])]
 
 
@@ -274,8 +313,7 @@ def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
     stacked = tuple(prefix for prefix, _n, _b in model._stacks())
     m = plan.microbatches
     ranks = _Ranks(model, plan, mesh_cfg, stacked) if mesh_cfg.num_devices > 1 else None
-    gather = ranks.gather if ranks is not None and plan.params_over_data else None
-    ranks_mean = ranks.mean if ranks is not None else None
+    shard_ctx = None
 
     def backward(loss: torch.Tensor) -> None:
         """The loss's backward pass; over ranks, of its share of the global
@@ -299,11 +337,18 @@ def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
         return {k: [take(t) for t in v] if isinstance(v, list) else take(v)
                 for k, v in tree.items()}
 
+    def rows(batch: Dict) -> Dict:
+        """This rank's rows of a (micro)batch of the global batch."""
+        return batch if ranks is None else ranks.rows(batch)
+
     def compute_grads(params, batch):
+        """The loss, its metrics and the gradients of the global ``batch``:
+        each microbatch is a run of the global batch's rows, of which each
+        rank takes its own (as the reference splits its global batch into
+        microbatches before its data shards route each one's tokens)."""
         tree = leaves(params)
         if m <= 1:
-            loss, metrics = model.loss(tree, batch, remat=plan.remat, gather=gather,
-                                       ranks_mean=ranks_mean)
+            loss, metrics = model.loss(tree, rows(batch), remat=plan.remat, ctx=shard_ctx)
             backward(loss)
             return loss.detach(), {k: v.detach() for k, v in metrics.items()}, take_grads(tree)
         b = batch["tokens"].shape[0]
@@ -313,9 +358,8 @@ def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
         acc = None
         loss_sum = torch.zeros((), device=batch["tokens"].device)
         for i in range(m):
-            micro = {k: v[i * bm:(i + 1) * bm] for k, v in batch.items()}
-            loss, _ = model.loss(tree, micro, remat=plan.remat, gather=gather,
-                                 ranks_mean=ranks_mean)
+            micro = rows({k: v[i * bm:(i + 1) * bm] for k, v in batch.items()})
+            loss, _ = model.loss(tree, micro, remat=plan.remat, ctx=shard_ctx)
             backward(loss)
             g = _flat(take_grads(tree))
             acc = ([x.float() / m for x in g] if acc is None
@@ -342,20 +386,23 @@ def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
                     dst.copy_(src)
 
     def train_step(params: Dict, opt_state: Dict, batch: Dict, step: int):
+        nonlocal shard_ctx
         if ranks is None:
             loss, metrics, grads = compute_grads(params, batch)
         else:
             ranks.check()
-            loss, metrics, grads = compute_grads(params, ranks.rows(batch))
+            shard_ctx = ranks.ctx(plan.params_over_data, batch["tokens"].device)
+            loss, metrics, grads = compute_grads(params, batch)
             with torch.no_grad():
                 ranks.reduce_whole(grads)
-                # the global token mean of the loss and its parts
+                # the global token mean of the loss and its parts (the same
+                # on every model rank of a data group)
                 parts = torch.stack([loss, metrics["xent"], metrics["aux"]]).float()
-                comm.all_reduce_(parts.mul_(ranks.weight))
+                comm.all_reduce_(parts.mul_(ranks.weight), group=ranks.data_group)
                 loss, metrics = parts[0], {"xent": parts[1], "aux": parts[2]}
         if train.grad_clip:
             with torch.no_grad():
-                if gather is None:           # every rank holds every gradient whole
+                if ranks is None or not ranks.any_split:   # every gradient whole on every rank
                     gnorm = global_norm(_flat(grads))
                 else:
                     gnorm = global_norm(_flat(grads), ranks.counted(grads))

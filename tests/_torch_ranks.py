@@ -227,3 +227,139 @@ def comm_case(rank, world):
     out["grad"] = shard.grad.numpy()
     out["calls"] = dict(comm.STATS["calls"])
     return out
+
+
+def _plan_2d(arch, strategy, mesh_shape, batch, seq, cut=(), **replace):
+    from dataclasses import replace as dc_replace
+
+    from repro_torch.config import InputShape, MeshConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.planner import compile_plan
+
+    mesh_cfg = MeshConfig(tuple(mesh_shape), ("data", "model"))
+    cfg = dc_replace(get_config(arch), **dict(cut))
+    shape = InputShape("t", seq, batch, "train")
+    plan = compile_plan(cfg, shape, mesh_cfg, TrainConfig(force_strategy=strategy),
+                        dtype="float32").config
+    return cfg, plan.replace(**replace), mesh_cfg
+
+
+def tp_train_case(rank, world, arch, params, cases, steps, batch, seq, mesh_shape, cut=()):
+    """``train_case`` over a ``("data", "model")`` mesh of ``mesh_shape``;
+    each case (strategy, optimizer, lr, clip, microbatches, seq_shard):
+    ``seq_shard`` sets the plan's ``seq_shard_checkpoints``; ``cut``
+    replaces config fields. Also the plan's model-axis fields, and the
+    collective calls of the run."""
+    import torch
+
+    from repro_torch.config import InputShape, TrainConfig
+    from repro_torch.core import comm
+    from repro_torch.data import make_batch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.train_loop import (init_opt_state, make_train_step, shard_params,
+                                                train_shardings)
+
+    full = {k: torch.from_numpy(v) for k, v in params.items()}
+    device_mesh = make_local_mesh("cpu", mesh_shape[1])
+    out = []
+    for strategy, opt, lr, clip, micro, seq_shard in cases:
+        cfg, plan, mesh_cfg = _plan_2d(arch, strategy, mesh_shape, batch, seq, cut,
+                                       microbatches=micro, opt_state_dtype="float32",
+                                       seq_shard_checkpoints=seq_shard)
+        model = build_model(cfg, dtype=torch.float32)
+        local = shard_params(full, model, plan, mesh_cfg)
+        state = init_opt_state(opt, local, plan)
+        step = make_train_step(model, plan, mesh_cfg,
+                               TrainConfig(optimizer=opt, learning_rate=lr, grad_clip=clip))
+        mets = []
+        comm.reset_stats()
+        for i in range(steps):
+            b = make_batch(cfg, InputShape("t", seq, batch, "train"), step=i,
+                           dtype=torch.float32, device="cpu")
+            local, state, met = step(local, state, b, i)
+            mets.append({k: float(v) for k, v in met.items()})
+        calls = dict(comm.STATS["calls"])
+        shapes = {k: tuple(v.shape) for k, v in local.items()}
+        (_s, _p, shards), _o = train_shardings(model, plan, mesh_cfg, TrainConfig(), device_mesh)
+        gathered = {k: shards[k].gather(v) for k, v in local.items()}
+        out.append({"plan": (plan.strategy.value, plan.params_over_data, plan.batch_axes,
+                             plan.tensor_parallel, plan.expert_parallel,
+                             plan.seq_shard_checkpoints),
+                    "metrics": mets, "local_shapes": shapes, "calls": calls,
+                    "params": {k: v.numpy() for k, v in gathered.items()} if rank == 0 else None})
+    return out
+
+
+def comm_tp_case(rank, world):
+    """The model axis's autograd collectives (``core/comm.py``) on this
+    rank's tensors: each op's output and the gradient of ``sum(out * w)``
+    with this rank's weights ``w``, and the calls they made."""
+    import torch
+
+    from repro_torch.core import comm
+
+    gen = torch.Generator().manual_seed(rank)
+    # small integers in float64: every sum is exact in any order
+    a = torch.randint(-64, 64, (4, 8, 6), generator=gen).double()
+    ops = {"copy_to": lambda t: comm.CopyToGroup.apply(t, None),
+           "reduce_from": lambda t: comm.ReduceFromGroup.apply(t, None),
+           "reduce_scatter": lambda t: comm.ReduceScatterDim.apply(t, 1, None),
+           "gather_slice": lambda t: comm.AllGatherSlice.apply(t, 2, None),
+           "slice": lambda t: comm.SliceDim.apply(t, 0, None),
+           "gather": lambda t: comm.AllGatherDim.apply(t, 1, None)}
+    out = {"mine": a.numpy()}
+    for name, op in ops.items():
+        comm.reset_stats()
+        x = a.clone().requires_grad_()
+        y = op(x)
+        w = torch.arange(y.numel(), dtype=torch.float64).reshape(y.shape) + 1000 * rank
+        (y * w).sum().backward()
+        out[name] = {"out": y.detach().numpy(), "grad": x.grad.numpy(),
+                     "calls": dict(comm.STATS["calls"])}
+    return out
+
+
+def vocab_xent_case(rank, world, logits, targets):
+    """``softmax_xent_vocab`` on this rank's vocab block of ``logits`` (the
+    whole array on every rank): the loss and the block's gradient."""
+    import torch
+
+    from repro_torch.core import comm
+    from repro_torch.models.common import softmax_xent_vocab
+
+    v = logits.shape[-1] // world
+    block = torch.from_numpy(logits[..., rank * v:(rank + 1) * v].copy()).requires_grad_()
+    comm.reset_stats()
+    loss = softmax_xent_vocab(block, torch.from_numpy(targets), rank * v, None)
+    loss.backward()
+    return {"loss": float(loss), "grad": block.grad.numpy(), "calls": dict(comm.STATS["calls"])}
+
+
+def ckpt_tp_case(rank, world, arch, params, path, mesh_shape):
+    """``params`` (full, the same on every rank) as this rank's FSDP_TP
+    blocks on a ``("data", "model")`` mesh, written through
+    ``save_checkpoint(shardings=)`` and read back through
+    ``load_checkpoint(shardings=)`` from zero blocks: the blocks' shapes,
+    the restored blocks, and each block's slices of the whole tensors."""
+    import torch
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.train_loop import shard_params, train_shardings
+
+    cfg, plan, mesh_cfg = _plan_2d(arch, "fsdp_tensor_parallel", mesh_shape, 4, 16)
+    model = build_model(cfg, dtype=torch.float32)
+    local = shard_params({k: torch.from_numpy(v) for k, v in params.items()}, model, plan,
+                         mesh_cfg)
+    (_s, _p, shards), _o = train_shardings(model, plan, mesh_cfg, TrainConfig(),
+                                           make_local_mesh("cpu", mesh_shape[1]))
+    save_checkpoint(path, local, step=11, shardings=shards)
+    zeros = {k: torch.zeros_like(v) for k, v in local.items()}
+    restored, step = load_checkpoint(path, zeros, shardings=shards)
+    return {"shapes": {k: tuple(v.shape) for k, v in local.items()}, "step": step,
+            "blocks": {k: v.numpy() for k, v in restored.items()},
+            "slices": {k: [[s.start, s.stop] for s in _slices(shards[k], v.shape)]
+                       for k, v in params.items()}}

@@ -36,13 +36,19 @@ def case_id(case):
 _REF = {}
 
 
-def reference(arch, opt, lr, clip, micro, steps=STEPS, batch=BATCH, seq=SEQ):
+def reference(arch, opt, lr, clip, micro, steps=STEPS, batch=BATCH, seq=SEQ, cut=(),
+              gain=None):
     """The reference's single-device trajectory: per-step metrics and the
-    final parameters; and its initial parameters."""
-    key = (arch, opt, lr, clip, micro, steps, batch, seq)
+    final parameters; and its initial parameters. ``cut`` replaces config
+    fields; ``gain`` scales the attention norms' gains (``ln1``, ``xln``) of
+    the init."""
+    key = (arch, opt, lr, clip, micro, steps, batch, seq, tuple(cut), gain)
     if key not in _REF:
-        jm = jax_build(jax_config(arch), dtype=jnp.float32)
+        jcfg = jax_config(arch).replace(**dict(cut))
+        jm = jax_build(jcfg, dtype=jnp.float32)
         jp = jm.init_params(jax.random.PRNGKey(0))
+        if gain is not None:
+            jp = {k: v * gain if k.endswith((".ln1", ".xln")) else v for k, v in jp.items()}
         init = {k: np.asarray(v) for k, v in jp.items()}
         plan = JaxPlan(strategy=JaxStrategy.LOCAL, microbatches=micro)
         train = jax_config_module.TrainConfig(optimizer=opt, learning_rate=lr, grad_clip=clip)
@@ -51,7 +57,7 @@ def reference(arch, opt, lr, clip, micro, steps=STEPS, batch=BATCH, seq=SEQ):
         shape = jax_config_module.InputShape("t", seq, batch, "train")
         mets = []
         for i in range(steps):
-            b = jax_make_batch(jax_config(arch), shape, step=i, dtype=jnp.float32)
+            b = jax_make_batch(jcfg, shape, step=i, dtype=jnp.float32)
             jp, state, met = step(jp, state, b, jnp.int32(i))
             mets.append({k: float(v) for k, v in met.items()})
         _REF[key] = (init, mets, {k: np.asarray(v) for k, v in jp.items()})
@@ -91,3 +97,30 @@ def check_blocks(outs, case, world, init):
         assert (split > 0) == (strategy == FSDP)
 
 
+
+
+def check_blocks_2d(outs, mesh_shape, arch, cut=()):
+    """Every rank holds, of each parameter, the block the reference's own
+    sharding rules (``repro.core.sharding.spec_for``) give it under the
+    plan it ran, on the ``("data", "model")`` mesh: each dim the rules
+    split over an axis is 1/size of the whole."""
+    from repro.core.sharding import spec_for as jax_spec_for
+
+    mesh = jax_config_module.MeshConfig(tuple(mesh_shape), ("data", "model"))
+    jm = jax_build(jax_config(arch).replace(**dict(cut)), dtype=jnp.float32)
+    specs, axes = jm.param_specs(), jm.param_axes()
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    for out in outs:
+        name, over_data, batch_axes, tp, ep, seq_shard = out["plan"]
+        plan = JaxPlan(strategy=JaxStrategy(name), batch_axes=batch_axes, tensor_parallel=tp,
+                       params_over_data=over_data, expert_parallel=ep,
+                       seq_shard_checkpoints=seq_shard)
+        split = 0
+        for k, spec in specs.items():
+            want = list(spec.shape)
+            for i, entry in enumerate(jax_spec_for(tuple(spec.shape), axes[k], plan, mesh)):
+                for a in ((entry,) if isinstance(entry, str) else (entry or ())):
+                    want[i] //= sizes[a]
+            assert out["local_shapes"][k] == tuple(want), (k, out["local_shapes"][k], want)
+            split += tuple(want) != tuple(spec.shape)
+        assert split > 0

@@ -7,7 +7,10 @@ the full arrays in the reference's format: it loads in the reference and in
 one process of the port, equal to the weights the ranks were given. The
 reverse: a checkpoint the reference wrote restores onto the ranks, each
 rank's tensors the block its sharding names, from block-shaped or
-full-shaped templates.
+full-shaped templates. Over a ``("data", "model")`` mesh of (2, 2) under
+``FSDP_TP`` (blocks split over both axes): the ranks' checkpoint loads in
+the reference and in one process, and restores each rank its own 2-D
+blocks.
 """
 
 import jax
@@ -65,3 +68,25 @@ def test_reference_checkpoint_restores_each_rank_its_block(tmp_path, full_templa
             np.testing.assert_array_equal(out["blocks"][k], block, err_msg=k)
             split += block.shape != v.shape
     assert split > 0
+
+
+def test_fsdp_tp_checkpoint_round_trip_on_a_2x2_mesh(tmp_path):
+    jm, params = _weights()
+    path = str(tmp_path / "ck")
+    outs = run_ranks("ckpt_tp_case", 4, tmp_path, ARCH, params, path, (2, 2))
+    # the blocks split over both mesh axes: wq over data (embed) and model (heads)
+    assert outs[0]["shapes"]["l.wq"] == (2, 64, 2, 32)
+    ref, step = jax_load(path, jm.param_specs())
+    ours, our_step = load_checkpoint(path, {k: torch.zeros(v.shape) for k, v in params.items()})
+    assert step == our_step == 11
+    for k, v in params.items():
+        np.testing.assert_array_equal(np.asarray(ref[k]), v, err_msg=k)
+        np.testing.assert_array_equal(ours[k].numpy(), v, err_msg=k)
+    for out in outs:
+        assert out["step"] == 11
+        for k, v in params.items():
+            block = v[tuple(slice(a, b) for a, b in out["slices"][k])]
+            assert block.shape == out["shapes"][k], k
+            np.testing.assert_array_equal(out["blocks"][k], block, err_msg=k)
+    # the four ranks hold four different blocks of wq
+    assert len({tuple(map(tuple, o["slices"]["l.wq"])) for o in outs}) == 4

@@ -331,9 +331,12 @@ def test_opt_state_follows_the_plan_dtype():
 
 
 def test_multi_device_train_step_raises_and_names_its_slice():
-    """A data mesh builds a step (DP or FSDP; it runs inside a process group
-    of as many ranks: tests/test_torch_train_sharded*.py); a model axis
-    (tensor, sequence and expert parallelism) raises and names its item."""
+    """A data mesh builds a step (DP or FSDP) and so does a data x model mesh
+    (tensor, sequence and expert parallelism under DP_TP and FSDP_TP); each
+    runs inside a process group of as many ranks
+    (tests/test_torch_train_sharded*.py, tests/test_torch_train_tp*.py) and
+    raises outside one. A mesh with other axes raises and names the item
+    that brings pod-scale meshes."""
     model = build_model(get_config("yi-6b-smoke"), dtype=torch.float32)
     for over_data in (False, True):
         plan = PlanConfig(strategy=Strategy.FSDP if over_data else Strategy.DATA_PARALLEL,
@@ -342,9 +345,19 @@ def test_multi_device_train_step_raises_and_names_its_slice():
         assert callable(step)
         with pytest.raises(RuntimeError, match="process group"):
             step({}, {}, {}, 0)
-    with pytest.raises(NotImplementedError, match="Queue A 14c"):
+    for over_data in (False, True):
+        for seq_shard in (False, True):
+            plan = PlanConfig(strategy=Strategy.FSDP_TP if over_data else Strategy.DP_TP,
+                              batch_axes=("data",), tensor_parallel=True,
+                              params_over_data=over_data, seq_shard_checkpoints=seq_shard)
+            step = make_train_step(model, plan, MeshConfig((2, 2), ("data", "model")),
+                                   TrainConfig())
+            assert callable(step)
+            with pytest.raises(RuntimeError, match="process group"):
+                step({}, {}, {}, 0)
+    with pytest.raises(NotImplementedError, match="Queue A 15"):
         make_train_step(model, PlanConfig(strategy=Strategy.DP_TP, tensor_parallel=True),
-                        MeshConfig((2, 2), ("data", "model")), TrainConfig())
+                        MeshConfig((2, 2, 2), ("pod", "data", "model")), TrainConfig())
 
 
 def test_planner_compresses_opt_state_for_yi_6b_on_one_h100():

@@ -1,0 +1,42 @@
+"""PyTorch port, the train step of the MoE family over a (1, 2) ``("data",
+"model")`` mesh against the reference's single-device steps
+(``tests/_torch_train_ref.py``'s tolerances; the (2, 2) mesh:
+``test_torch_train_tp_families_world4.py``; the vision and audio
+families: ``test_torch_train_tp_vlm.py``, ``test_torch_train_tp_audio.py``).
+
+``qwen3-moe-235b-a22b-smoke`` under expert parallelism: every model rank
+routes its data shard's tokens whole (under sequence parallelism gathered
+first), runs its own experts' slots of the capacity buffer, and the
+combine's partial sums are reduced; the load-balance statistics are means
+over the data ranks. ``DP_TP`` without ``seq_shard_checkpoints`` and
+``FSDP_TP`` with it under Adam.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+from test_torch_train_tp import (DP_TP, FSDP_TP, check_tp_run, tp_params,  # noqa: E402
+                                tp_rank_runs)
+
+torch.set_num_threads(2)
+# (arch, cut, gain of the attention norms, mesh, cases)
+RUNS = {
+    "moe-12": ("qwen3-moe-235b-a22b-smoke", (), None, (1, 2),
+               [(DP_TP, "sgd", 1e-3, 1.0, 1, False), (FSDP_TP, "adam", 1e-4, 1.0, 1, True)]),
+}
+PARAMS, IDS = tp_params(RUNS)
+rank_runs = tp_rank_runs(RUNS)
+
+
+@pytest.mark.parametrize("run,case", PARAMS, ids=IDS)
+def test_family_tp_step_equals_reference(rank_runs, run, case):
+    outs, want_mets = check_tp_run(RUNS, rank_runs, run, case)
+    micro = case[4]
+    for got, want in zip(outs[0]["metrics"], want_mets, strict=True):
+        np.testing.assert_allclose(got["aux"], want["aux"], rtol=1e-5)
+        # over microbatches the step reports no auxiliary loss, as the reference's
+        assert (got["aux"] > 0.0) == (micro == 1)
+    # expert parallel: each model rank holds half the experts
+    assert outs[0]["local_shapes"]["l.e_wg"][1] == 2
