@@ -242,6 +242,17 @@ Phases, each of which must pass (nothing is caught):
               exits non-zero, runs off the card or finds a world under 2
               fails the phase. Two ranks on one card measure the code path,
               not scaling;
+   train-model-axis and serve-model-axis — the same two ranks as a (1, 2)
+              ("data", "model") mesh: training (tensor, sequence and expert
+              parallelism) against one process and at full width, then
+              serving under the planner's DP_TP layouts: float32 -smoke
+              twins' streams == one process's, full Yi-6B through the paged
+              kernel against one card (logits within SERVE_AXIS_BF16_TOL,
+              flash and paged launches exact); the dry run
+              (``launch/dryrun.py``'s trace of each rank's step on fake cuda
+              tensors, run here beside the ranks) gives each rank's counted
+              collective calls and bytes exactly and its measured peak
+              within PEAK_RATIO_BOUNDS;
 14. quickstart — the paper's softmax classifier through ``Keras2Plan`` on the
               card (``repro_torch.launch.quickstart``): accuracy above 0.8,
               matmul launches exact, the DML script byte-equal to the
@@ -267,6 +278,7 @@ or when the port's sources are not beside it.
 from __future__ import annotations
 
 import gc
+from concurrent.futures import ThreadPoolExecutor
 import hashlib
 import json
 import math
@@ -322,7 +334,9 @@ from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kernels.ref import paged_decode_ref  # noqa: E402
 from repro_torch.launch import quickstart  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.core.strategies import ExecutionPlan, PlanConfig, Strategy  # noqa: E402
+from repro_torch.launch import graph_analysis  # noqa: E402
+from repro_torch.launch.mesh import TracedMesh, make_local_mesh, mesh_groups  # noqa: E402
 from repro_torch.launch.ranks import run_ranks  # noqa: E402
 from repro_torch.launch.train_lenet import synthetic_images  # noqa: E402
 from repro_torch.models import attention as ATT  # noqa: E402
@@ -338,7 +352,8 @@ from repro_torch.runtime.router import EngineRouter  # noqa: E402
 from repro_torch.runtime.scheduler import (ContinuousBatchingScheduler,  # noqa: E402
                                            simulate_arrivals)
 from repro_torch.runtime.serve_loop import (DECODE_SPAN, PREFILL_SPAN,  # noqa: E402
-                                            PlanServer, ServeRequest, make_decode_step)
+                                            PlanServer, ServeRequest, make_decode_step,
+                                            make_prefill)
 from repro_torch.runtime.train_loop import (OPTIMIZER_SPAN, init_opt_state,  # noqa: E402
                                             make_train_step, shard_params)
 SEED = 0
@@ -558,6 +573,33 @@ MODEL_AXIS_CHECKS = (("yi-6b", dict(num_layers=2), SHARDED_CHECK_SHAPE, None),
                       SHARDED_CHECK_SHAPE, None),
                      ("whisper-medium", dict(num_layers=2, encoder_layers=2), (2, 448), 0.1))
 MOE_MODEL_AXIS_LAYERS = 1
+# serve-model-axis, in the same two ranks as a (1, 2) ("data", "model") mesh
+# under the planner's DP_TP serve layout (cache on kv heads where they split
+# the model axis, else along its sequence; SSM state on its heads): (a) the
+# -smoke twins in float32 (RecurrentGemma cut to "rra": its one kv head
+# splits its cache along the sequence), a (4, 128) prompt pass in the
+# (4, 256) bucket and SERVE_AXIS_CHECK_TOKENS greedy tokens, each rank's
+# stream byte-identical to one process's on the same weights; (b) full
+# Yi-6B in bfloat16 (16 of 32 q heads and 2 of 4 kv heads a rank), a
+# (4, 1000) prompt in the (4, 2048) bucket and SERVE_AXIS_TOKENS greedy
+# tokens through the paged kernel from trainable_params, against one card:
+# the prompt pass's logits and each tick's whose input tokens agree within
+# SERVE_AXIS_BF16_TOL = (atol, rtol, error RMS over the logits' RMS). The
+# model axis sums its bfloat16 partial products in another order, and 32
+# layers carry each rounding on: a probe of the phase read a max error of
+# 0.12 on logits of RMS 1.28 and max 5.9 (4 bfloat16 ulps at that
+# magnitude) and an error RMS of 2.0 % of the logits'; a rank that dropped
+# a partial sum would be off by the size of the logits
+SERVE_AXIS_BF16_TOL = (0.25, 2.0 ** -5, 2.0 ** -5)
+SERVE_AXIS_CHECKS = (("yi-6b-smoke", {}), ("mamba2-1.3b-smoke", {}),
+                     ("recurrentgemma-2b-smoke", dict(num_layers=3, block_pattern="rra")),
+                     ("qwen3-moe-235b-a22b-smoke", {}))
+SERVE_AXIS_CHECK_SHAPE, SERVE_AXIS_CHECK_BUCKET, SERVE_AXIS_CHECK_TOKENS = (4, 128), 256, 16
+SERVE_AXIS_SHAPE, SERVE_AXIS_BUCKET, SERVE_AXIS_TOKENS = (4, 1000), 2048, 32
+SERVE_AXIS_PAGE = 64
+# each rank's measured peak over the dry run's traced peak
+# (launch/dryrun.py) of the same step: PERF.md's prediction, gated
+PEAK_RATIO_BOUNDS = (0.75, 1.25)
 TRAIN_ARGS = ["--arch", "yi-6b", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_SHAPE[0]),
               "--seq", str(TRAIN_SHAPE[1]), "--dtype", "bfloat16", "--optimizer", "adam",
               "--lr", str(TRAIN_LR), "--log-every", "1"]
@@ -4753,19 +4795,26 @@ def _parfor_rank(rank, world, spec, meta, params, x):
             "rank": info, "devices": [p.device.type for layer in est.params for p in layer]}
 
 
-def phase_parfor(weights) -> None:
-    """parfor: LeNet (phase 9's weights) scores PARFOR_ROWS images through
-    ``Keras2Plan(mesh=make_local_mesh())`` on SHARDED_WORLD ranks of the card;
-    held against one process's ``predict_proba``."""
-    phase(f"parfor: remote parfor scoring of LeNet (phase 9's weights) on {PARFOR_ROWS} "
-          f"images, {SHARDED_WORLD} ranks on the card over gloo (two ranks share one card: "
-          f"this measures the code path, not scaling)")
+def parfor_inputs(weights) -> tuple:
+    """parfor's work: LeNet (phase 9's ``weights``) and PARFOR_ROWS seeded
+    images, and one process's ``predict_proba`` of them: ``(the ranks'
+    arguments, the reference)``."""
     spec, meta = make_spec()
     x, _y = synthetic_images(PARFOR_ROWS, num_classes=10, size=28, seed=SEED + 2)
     one = Keras2Plan(spec, meta)
     one.params = [tuple(torch.from_numpy(a).cuda() for a in layer) for layer in weights]
-    want = one.predict_proba(x)
-    outs = on_ranks(_parfor_rank, spec, meta, weights, x)
+    return (spec, meta, weights, x), one.predict_proba(x)
+
+
+def phase_parfor(outs, want) -> None:
+    """parfor: LeNet scores PARFOR_ROWS images through
+    ``Keras2Plan(mesh=make_local_mesh())`` on SHARDED_WORLD ranks of the card
+    (the ranks' ``parfor`` results of the train-sharded session); held
+    against one process's ``predict_proba``."""
+    phase(f"parfor: remote parfor scoring of LeNet (phase 9's weights) on {PARFOR_ROWS} "
+          f"images, {SHARDED_WORLD} ranks on the card over gloo (two ranks share one card: "
+          f"this measures the code path, not scaling), first in train-sharded's rank session")
+    outs = [out["parfor"] for out in outs]
     _check_ranks("parfor", outs)
     n = PARFOR_ROWS // SHARDED_WORLD
     for r, out in enumerate(outs):
@@ -4891,13 +4940,16 @@ def _sharded_run(rank, world, layers) -> dict:
                      plan.config.microbatches)}
 
 
-def _sharded_rank(rank, world, layers) -> dict:
+def _sharded_rank(rank, world, layers, parfor_args) -> dict:
+    """parfor's scoring, then train-sharded (a) and (b), in one rank
+    session (one start-up of the ranks for both phases)."""
+    scored = _parfor_rank(rank, world, *parfor_args)
     info = _rank_setup()
     checks = {arch: _sharded_check(rank, world, arch, cut) for arch, cut in SHARDED_CHECKS}
     run = _sharded_run(rank, world, layers)
     devices = run["devices"] + [d for c in checks.values() for v in c.values()
                                 for d in v["devices"]]
-    return {"checks": checks, "run": run, "devices": devices, "rank": info}
+    return {"checks": checks, "run": run, "devices": devices, "rank": info, "parfor": scored}
 
 
 def sharded_depth(world: int) -> tuple:
@@ -4920,21 +4972,26 @@ def sharded_depth(world: int) -> tuple:
     return est, max(fits)
 
 
-def phase_train_sharded() -> dict:
+def phase_train_sharded(lenet_weights) -> dict:
+    """parfor and train-sharded, whose ranks run in one session."""
     b, s = SHARDED_TRAIN_SHAPE
-    phase(f"train-sharded: {SHARDED_WORLD} ranks on the card over gloo (two ranks share one "
-          f"card: this measures the code path, not scaling): (a) float32 checks at "
-          f"{', '.join(a for a, _c in SHARDED_CHECKS)} widths, 2 layers, global batch "
-          f"{SHARDED_CHECK_SHAPE}, {TRAIN_CHECK_STEPS} adam steps under FSDP and DP against one "
-          f"process; (b) full Yi-6B widths, bfloat16, ({b}, {s}), {TRAIN_STEPS} adam steps, FSDP")
+    parfor_args, parfor_want = parfor_inputs(lenet_weights)
     gc.collect()
     torch.cuda.empty_cache()
     est, layers = sharded_depth(SHARDED_WORLD)
+    t0 = time.perf_counter()
+    outs = on_ranks(_sharded_rank, layers, parfor_args)
+    phase_parfor(outs, parfor_want)
+    phase(f"train-sharded: {SHARDED_WORLD} ranks on the card over gloo (two ranks share one "
+          f"card: this measures the code path, not scaling), the parfor phase's rank session "
+          f"({time.perf_counter() - t0:.1f} s for both): (a) float32 checks at "
+          f"{', '.join(a for a, _c in SHARDED_CHECKS)} widths, 2 layers, global batch "
+          f"{SHARDED_CHECK_SHAPE}, {TRAIN_CHECK_STEPS} adam steps under FSDP and DP against one "
+          f"process; (b) full Yi-6B widths, bfloat16, ({b}, {s}), {TRAIN_STEPS} adam steps, FSDP")
     print("  planner's per-card estimate for mesh (2,), FSDP: " + ", ".join(
         f"{n} layers {v / 2**30:.2f} GiB" for n, v in est.items()))
     print(f"  depth of (b): {layers} layers, the deepest of {SHARDED_DEPTHS} whose "
           f"{SHARDED_WORLD} ranks with their CUDA contexts fit within 3/4 of the card")
-    outs = on_ranks(_sharded_rank, layers)
     _check_ranks("train-sharded", outs)
     for r, out in enumerate(outs):
         for arch, runs in out["checks"].items():
@@ -5112,9 +5169,166 @@ def _model_axis_rank(rank, world, layers) -> dict:
               for arch, cut, shape_bs, gain in MODEL_AXIS_CHECKS}
     runs = {"yi-6b": _model_axis_run(rank, world, "yi-6b", layers),
             MOE_ARCH: _model_axis_run(rank, world, MOE_ARCH, MOE_MODEL_AXIS_LAYERS)}
+    serve_checks = {arch: _serve_axis_check(rank, arch, cut) for arch, cut in SERVE_AXIS_CHECKS}
+    serve = _serve_axis_run(rank)
     devices = [d for r in runs.values() for d in r["devices"]] + [
-        d for c in checks.values() for v in c.values() for d in v["devices"]]
-    return {"checks": checks, "runs": runs, "devices": devices, "rank": info}
+        d for c in checks.values() for v in c.values() for d in v["devices"]] + [
+        d for c in serve_checks.values() for d in c["devices"]] + serve["devices"]
+    return {"checks": checks, "runs": runs, "serve_checks": serve_checks, "serve": serve,
+            "devices": devices, "rank": info}
+
+
+def serve_axis_plan(cfg) -> PlanConfig:
+    """The planner's DP_TP serve layout for MODEL_AXIS_MESH
+    (``core/planner.py::_serve_candidates``): tensor parallelism (experts
+    over the model axis for MoE), the cache on kv heads where they split
+    the model axis (an SSM's state on its heads), else along its
+    sequence."""
+    mp = MODEL_AXIS_MESH.model_parallelism
+    kv = cfg.num_kv_heads
+    heads = cfg.family == "ssm" or (kv >= mp and kv % mp == 0)
+    return PlanConfig(strategy=Strategy.DP_TP, batch_axes=("data",), cache_batch_axes=("data",),
+                      tensor_parallel=True, expert_parallel=bool(cfg.num_experts),
+                      cache_heads_over_model=heads, cache_seq_axes=() if heads else ("model",),
+                      remat=False, microbatches=1)
+
+
+def _paged(model, cache: dict, page: int) -> tuple:
+    """A dense decode cache's attention K/V as paged slot stacks, row r's
+    pages the r-th run of them, and the page table that reads them."""
+    key = next((k for k in cache if model.is_paged_cache_key(k)), None)
+    if key is None:
+        return cache, None
+    rows, sc = cache[key].shape[1], cache[key].shape[2]
+    out = {k: (v.reshape(v.shape[0], rows * sc, *v.shape[3:]) if model.is_paged_cache_key(k)
+               else v) for k, v in cache.items()}
+    tables = torch.arange(rows * (sc // page), dtype=torch.int32,
+                          device=cache[key].device).view(rows, -1)
+    return out, tables
+
+
+def _serve_stream(model, params, batch, cache_len, new_tokens, ctx_kw, paged) -> dict:
+    """A prompt pass then ``new_tokens`` greedy ticks (paged through the
+    kernel, or dense), one process's or this rank's under ``ctx_kw``
+    (``plan``, ``mesh_cfg``, ``groups``): the stream, the prompt pass's
+    logits and each tick's (float32, host), seconds, collectives and
+    kernel launches of each part, and the prompt pass's peak memory."""
+    out = {}
+    for fn in _build.COUNTED:
+        fn.launches = 0
+    comm.reset_stats()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, cache = make_prefill(model, **ctx_kw)(params, batch)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    out["prefill_peak"] = torch.cuda.max_memory_allocated()
+    out["prefill_collectives"] = {k: dict(c) for k, c in comm.STATS.items()}
+    out["prefill_launches"] = {fn.__name__: fn.launches for fn in _build.COUNTED}
+    page = SERVE_AXIS_PAGE if paged else 0
+    tables = None
+    if paged:
+        cache, tables = _paged(model, cache, page)
+    step = make_decode_step(model, page=page, seq_len=cache_len, decode_kernel="paged",
+                            **ctx_kw)
+    tok = torch.argmax(first, dim=-1).to(torch.int32)[:, None]
+    pos = batch["lengths"].clone()
+    stream, logits = [tok], []
+    for fn in _build.COUNTED:
+        fn.launches = 0
+    comm.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(new_tokens):
+        args = (params, cache, tok, pos) + ((tables,) if tables is not None else ())
+        lg, cache = step(*args)
+        logits.append(lg[:, -1].float().cpu())
+        tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+        stream.append(tok)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    out["decode_s"] = time.perf_counter() - t0
+    out["decode_collectives"] = {k: {op: n / new_tokens for op, n in c.items()}
+                                 for k, c in comm.STATS.items()}
+    out["decode_launches"] = {fn.__name__: fn.launches for fn in _build.COUNTED}
+    out["stream"] = torch.cat(stream, dim=1).cpu().numpy()
+    out["first"] = first.float().cpu()
+    out["logits"] = torch.stack(logits)
+    out["devices"] = sorted({t.device.type for t in cache.values()})
+    del cache
+    return out
+
+
+def _serve_inputs(cfg, shape_bs, bucket_len, seed) -> dict:
+    b, s = shape_bs
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(1, cfg.vocab_size, (b, bucket_len), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    return {"tokens": tokens, "lengths": torch.full((b,), s, dtype=torch.int32, device="cuda")}
+
+
+def _serve_axis_check(rank, arch, cut) -> dict:
+    """serve-model-axis (a): ``arch`` (a -smoke twin, cut as ``cut``) in
+    float32 from seeded weights, one process's prompt pass and greedy ticks
+    on the whole model, then this rank's under :func:`serve_axis_plan`;
+    paged through the kernel where the cache is on kv heads."""
+    cfg = replace(get_config(arch), **cut)
+    model = build_model(cfg, dtype=torch.float32)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(SEED))
+    plan = serve_axis_plan(cfg)
+    paged = cfg.family != "ssm" and plan.cache_heads_over_model
+    batch = _serve_inputs(cfg, SERVE_AXIS_CHECK_SHAPE, SERVE_AXIS_CHECK_BUCKET, SEED + 1)
+    with torch.no_grad():
+        one = _serve_stream(model, params, batch, SERVE_AXIS_CHECK_BUCKET,
+                            SERVE_AXIS_CHECK_TOKENS, {}, paged)
+        local = shard_params(params, model, plan, MODEL_AXIS_MESH, rank)
+        groups = mesh_groups(MODEL_AXIS_MESH, "cuda")
+        mine = _serve_stream(model, local, batch, SERVE_AXIS_CHECK_BUCKET,
+                             SERVE_AXIS_CHECK_TOKENS,
+                             dict(plan=plan, mesh_cfg=MODEL_AXIS_MESH, groups=groups,
+                                  device="cuda"), paged)
+    del params, local
+    return {"same": bool(np.array_equal(one["stream"], mine["stream"])),
+            "stream": mine["stream"], "paged": paged, "plan": plan,
+            "max_err": float((one["logits"] - mine["logits"]).abs().max()),
+            "launches": {k: mine["prefill_launches"][k] + mine["decode_launches"][k]
+                         for k in mine["decode_launches"]},
+            "one_launches": {k: one["prefill_launches"][k] + one["decode_launches"][k]
+                             for k in one["decode_launches"]},
+            "decode_collectives": mine["decode_collectives"], "devices": mine["devices"]}
+
+
+def _serve_axis_run(rank) -> dict:
+    """serve-model-axis (b): full Yi-6B in bfloat16 from seeded
+    :func:`trainable_params` (at the model's own scales the full depth's
+    attention saturates, and bfloat16 rounding in another order sends the
+    two streams apart from the first token). Rank 0 serves the whole model
+    first (one card's stream); then each rank its blocks under
+    :func:`serve_axis_plan`, paged through the kernel."""
+    cfg = get_config("yi-6b")
+    model = build_model(cfg, dtype=torch.bfloat16)
+    plan = serve_axis_plan(cfg)
+    batch = _serve_inputs(cfg, SERVE_AXIS_SHAPE, SERVE_AXIS_BUCKET, SEED + 2)
+    out = {"plan": plan}
+    with torch.no_grad():
+        full = trainable_params(model, SEED)
+        if rank == 0:
+            out["one"] = _serve_stream(model, full, batch, SERVE_AXIS_BUCKET,
+                                       SERVE_AXIS_TOKENS, {}, True)
+        local = shard_params(full, model, plan, MODEL_AXIS_MESH, rank)
+        del full
+        groups = mesh_groups(MODEL_AXIS_MESH, "cuda")
+        ctx_kw = dict(plan=plan, mesh_cfg=MODEL_AXIS_MESH, groups=groups, device="cuda")
+        out["mine"] = _serve_stream(model, local, batch, SERVE_AXIS_BUCKET, SERVE_AXIS_TOKENS,
+                                    ctx_kw, True)
+    out["devices"] = out["mine"]["devices"]
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def model_axis_depth() -> tuple:
@@ -5152,7 +5366,13 @@ def phase_train_model_axis() -> dict:
                       for n, (v, dt) in est.items()))
     print(f"  depth of (b): {layers} layers, the deepest of {SHARDED_DEPTHS} whose "
           f"{SHARDED_WORLD} ranks with their CUDA contexts fit within 3/4 of the card")
-    outs = on_ranks(_model_axis_rank, layers)
+    # the dry run's traces need no card: they run here while the ranks do
+    with ThreadPoolExecutor(1) as pool:
+        dry_future = pool.submit(dry_run_model_axis, layers)
+        outs = on_ranks(_model_axis_rank, layers)
+        dry, dry_s = dry_future.result()
+    print(f"  dry run of train-model-axis (b), (c) and serve-model-axis (b): {dry_s:.1f} s of "
+          f"tracing on fake cuda tensors, beside the ranks")
     _check_ranks("train-model-axis", outs)
     for r, out in enumerate(outs):
         for arch, runs in out["checks"].items():
@@ -5209,7 +5429,172 @@ def phase_train_model_axis() -> dict:
                 fail(f"train-model-axis ({part}): rank {r}: the mean of the last three losses "
                      f"{statistics.mean(losses[-3:])} is not below step 0's {losses[0]}")
         launches[arch] = want
+    ratios = {}
+    for arch, part in (("yi-6b", "b"), (MOE_ARCH, "c")):
+        for r, rank_out in enumerate(outs):
+            run = rank_out["runs"][arch]
+            cost, counts = dry[(part, r)]
+            ratios[(part, r)] = _hold_to_dry_run(
+                f"dry run, train-model-axis ({part}) rank {r}", run["collectives"], counts,
+                run["peak"], cost.memory["peak_estimate_bytes"], run["estimate"])
     print(f"  train-model-axis: {time.perf_counter() - t_phase:.1f} s")
+    t_serve = time.perf_counter()
+    launches = check_serve_model_axis(outs, dry, ratios)
+    print(f"  serve-model-axis checks: {time.perf_counter() - t_serve:.1f} s")
+    return launches
+
+
+def dry_run_cost(model, plan: ExecutionPlan, rank: int, train=None):
+    """The dry run's cost of ``rank``'s step of ``plan`` on
+    MODEL_AXIS_MESH (``launch/dryrun.py``'s trace: fake ``cuda`` tensors of
+    the rank's blocks, collectives counted over trace groups), traced at
+    ``model``'s depth: ``(GraphCost, collective counts)``."""
+    coord = tuple(int(c) for c in np.unravel_index(rank, MODEL_AXIS_MESH.shape))
+    trace = plan_audit.trace_cell(model, plan, plan.shape.kind, plan.shape.global_batch,
+                                  plan.shape.seq_len, mesh=TracedMesh(MODEL_AXIS_MESH, coord),
+                                  train=train, device="cuda")
+    if trace.gm is None:
+        fail(f"dry run: the {plan.shape.kind} step did not trace: {trace.error}")
+    return graph_analysis.analyze(trace.gm, trace.collectives), trace.collectives
+
+
+def _hold_to_dry_run(label: str, got: dict, want: dict, peak, dry_peak, estimate) -> float:
+    """A rank's counted collective calls and bytes equal to the dry run's;
+    its measured peak within PEAK_RATIO_BOUNDS of the dry run's; printed
+    beside the planner's estimate. Returns the ratio."""
+    keep = ("calls", "bytes")
+    got = {k: {op: n for op, n in got[k].items() if n} for k in keep}
+    want = {k: {op: n for op, n in want[k].items() if n} for k in keep}
+    ratio = peak / dry_peak
+    est = f"{estimate / 2**30:.2f} GiB" if estimate else "none"
+    print(f"  {label}: collectives counted {got}, dry run {want}; peak measured "
+          f"{peak / 2**30:.3f} GiB, dry run {dry_peak / 2**30:.3f} GiB (ratio {ratio:.3f}), "
+          f"planner's estimate {est}")
+    if got != want:
+        fail(f"{label}: the dry run's collectives {want} differ from the counted {got}")
+    if not PEAK_RATIO_BOUNDS[0] <= ratio <= PEAK_RATIO_BOUNDS[1]:
+        fail(f"{label}: measured peak / dry run's {ratio:.3f} outside {PEAK_RATIO_BOUNDS}")
+    return ratio
+
+
+def dry_run_model_axis(layers) -> tuple:
+    """The dry run of each rank's step in train-model-axis (b) and (c)
+    (their plans and shapes, at their depths) and of serve-model-axis
+    (b)'s prompt pass and tick: ``({(part, rank): (GraphCost, counts)},
+    seconds)``."""
+    t0 = time.perf_counter()
+    b, s = SHARDED_TRAIN_SHAPE
+    shape = InputShape("train-model-axis", s, b, "train")
+    train = TrainConfig(optimizer="adam", learning_rate=TRAIN_LR, grad_clip=1.0)
+    out = {}
+    for arch, depth, part in (("yi-6b", layers, "b"), (MOE_ARCH, MOE_MODEL_AXIS_LAYERS, "c")):
+        cfg = replace(get_config(arch), num_layers=depth)
+        plan = model_axis_plan(cfg, shape)[0]
+        model = build_model(cfg, dtype=torch.bfloat16)
+        eplan = ExecutionPlan(model=cfg, shape=shape, mesh=MODEL_AXIS_MESH, config=plan)
+        for r in range(MODEL_AXIS_MESH.num_devices):
+            out[(part, r)] = dry_run_cost(model, eplan, r, train)
+    cfg = get_config("yi-6b")
+    model = build_model(cfg, dtype=torch.bfloat16)
+    for kind in ("prefill", "decode"):
+        eplan = ExecutionPlan(model=cfg, shape=InputShape(f"serve-model-axis-{kind}",
+                                                          SERVE_AXIS_BUCKET,
+                                                          SERVE_AXIS_SHAPE[0], kind),
+                              mesh=MODEL_AXIS_MESH, config=serve_axis_plan(cfg))
+        for r in range(MODEL_AXIS_MESH.num_devices):
+            out[(f"serve-{kind}", r)] = dry_run_cost(model, eplan, r)
+    return out, time.perf_counter() - t0
+
+
+def check_serve_model_axis(outs, dry: dict, ratios: dict) -> dict:
+    """serve-model-axis: (a) each rank's float32 stream == one process's,
+    launches exact; (b) full Yi-6B against one card, held to the dry run;
+    returns (b)'s kernel launches summed over the ranks (the kernels line's
+    Yi-6B shapes; (a)'s -smoke shapes are not that line's)."""
+    phase(f"serve-model-axis: the same {SHARDED_WORLD} ranks as a {MODEL_AXIS_MESH.shape} "
+          f"('data', 'model') mesh under the planner's DP_TP serve layout: (a) float32 "
+          f"{', '.join(a for a, _c in SERVE_AXIS_CHECKS)}, {SERVE_AXIS_CHECK_SHAPE} prompts in "
+          f"the {SERVE_AXIS_CHECK_BUCKET} bucket, {SERVE_AXIS_CHECK_TOKENS} greedy tokens, "
+          f"against one process; (b) full Yi-6B in bfloat16, a {SERVE_AXIS_SHAPE} prompt in the "
+          f"{SERVE_AXIS_BUCKET} bucket, {SERVE_AXIS_TOKENS} greedy tokens through the paged "
+          f"kernel, against one card")
+    launches: dict = {}
+    for arch, cut in SERVE_AXIS_CHECKS:
+        cfg = replace(get_config(arch), **cut)
+        attn = cfg.layer_pattern().count("a")
+        for r, out in enumerate(outs):
+            res = out["serve_checks"][arch]
+            plan = res["plan"]
+            want = {"flash_attention": attn, "paged_decode_attention":
+                    attn * SERVE_AXIS_CHECK_TOKENS if res["paged"] else 0,
+                    "ssd_scan": cfg.layer_pattern().count("s"),
+                    "rglru_scan": cfg.layer_pattern().count("r")}
+            got = {k: res["launches"][k] for k in want}
+            calls = {k: round(v, 2) for k, v in res["decode_collectives"]["calls"].items()}
+            print(f"  rank {r} (a) {arch} ({cfg.layer_pattern()}): cache "
+                  f"{'on kv heads' if plan.cache_heads_over_model else 'along its sequence'}"
+                  f", decode {'paged' if res['paged'] else 'dense'}; stream == one process: "
+                  f"{res['same']}; max |logit diff| {res['max_err']:.3e}; launches {got}; "
+                  f"collective calls a tick {calls}")
+            if not res["same"]:
+                fail(f"serve-model-axis (a) {arch}: rank {r}'s stream differs from one "
+                     f"process's")
+            if got != want:
+                fail(f"serve-model-axis (a) {arch}: rank {r} launches {got}, expected {want}")
+    cfg = get_config("yi-6b")
+    one = outs[0]["serve"]["one"]
+    for r, out in enumerate(outs):
+        mine = out["serve"]["mine"]
+        same = mine["stream"] == one["stream"]
+        agree = int(same.sum())
+        # tick t reads token t: its logits are comparable while every row's
+        # tokens so far agree
+        ticks = SERVE_AXIS_TOKENS if same.all() else int(np.argmin(same.all(axis=0)))
+        ok_first, first_err, _r, first_rms = within(mine["first"], one["first"],
+                                                    SERVE_AXIS_BF16_TOL)
+        tick_checks = [within(mine["logits"][t], one["logits"][t], SERVE_AXIS_BF16_TOL)
+                       for t in range(ticks)]
+        ok_ticks = all(c[0] for c in tick_checks)
+        tick_err = max([c[1] for c in tick_checks] or [0.0])
+        tick_rms = max([c[3] for c in tick_checks] or [0.0])
+        pre = {k: {op: n for op, n in c.items() if n} for k, c in
+               mine["prefill_collectives"].items() if k != "traffic"}
+        dec = {k: {op: round(n, 3) for op, n in c.items() if n} for k, c in
+               mine["decode_collectives"].items() if k != "traffic"}
+        flash = mine["prefill_launches"]["flash_attention"]
+        paged = mine["decode_launches"]["paged_decode_attention"]
+        print(f"  rank {r} (b) Yi-6B, 16 of 32 q heads and 2 of 4 kv heads: prefill "
+              f"{mine['prefill_s'] * 1e3:.1f} ms (one card {one['prefill_s'] * 1e3:.1f} ms); "
+              f"decode {mine['decode_s'] / SERVE_AXIS_TOKENS * 1e3:.2f} ms/step (one card "
+              f"{one['decode_s'] / SERVE_AXIS_TOKENS * 1e3:.2f}); {agree} of "
+              f"{one['stream'].size} tokens agree with one card's stream (every row's through "
+              f"tick {ticks}); prompt-pass logits max |diff| {first_err:.3e}, error RMS / "
+              f"RMS {first_rms:.3e}; those ticks' max |diff| {tick_err:.3e}, error RMS / RMS "
+              f"up to {tick_rms:.3e}; collectives: "
+              f"prompt pass {pre}, a tick {dec}; flash launches {flash} (expected "
+              f"{cfg.num_layers}), paged {paged} (expected "
+              f"{cfg.num_layers * SERVE_AXIS_TOKENS})")
+        if not (ok_first and ok_ticks):
+            fail(f"serve-model-axis (b): rank {r}'s logits differ from one card's beyond "
+                 f"{SERVE_AXIS_BF16_TOL}")
+        if flash != cfg.num_layers or paged != cfg.num_layers * SERVE_AXIS_TOKENS:
+            fail(f"serve-model-axis (b): rank {r} launched flash {flash}, paged {paged}")
+        pcost, pcounts = dry[("serve-prefill", r)]
+        _dcost, dcounts = dry[("serve-decode", r)]
+        ratios[("serve-b", r)] = _hold_to_dry_run(
+            f"dry run, serve-model-axis (b) prompt pass rank {r}", mine["prefill_collectives"],
+            pcounts, mine["prefill_peak"], pcost.memory["peak_estimate_bytes"], None)
+        tick = {k: {op: n for op, n in mine["decode_collectives"][k].items() if n}
+                for k in ("calls", "bytes")}
+        if tick != {k: {op: n for op, n in dcounts[k].items() if n} for k in ("calls", "bytes")}:
+            fail(f"serve-model-axis (b): rank {r}'s collectives a tick {tick} differ from the "
+                 f"dry run's {dcounts}")
+        print(f"  dry run, serve-model-axis (b) tick rank {r}: collectives == the dry run's "
+              f"dense decode step's")
+        launches["flash_attention"] = launches.get("flash_attention", 0) + flash
+        launches["paged_decode_attention"] = launches.get("paged_decode_attention", 0) + paged
+    print(f"  measured peak / dry run's peak: "
+          + ", ".join(f"{k[0]} rank {k[1]} {v:.3f}" for k, v in ratios.items()))
     return launches
 
 
@@ -5275,9 +5660,9 @@ def main() -> int:
     for arch in (VLM_ARCH, AUDIO_ARCH):
         phase_train_check_encdec(arch)
         phase_train_encdec(arch)
-    phase_parfor(lenet_weights)
-    phase_train_sharded()
-    phase_train_model_axis()
+    phase_train_sharded(lenet_weights)
+    for name, n in phase_train_model_axis().items():
+        launches[name] = launches.get(name, 0) + n
     phase_quickstart()
     for name, n in launches.items():
         kernels[name]["launches"] = n

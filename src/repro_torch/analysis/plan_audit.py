@@ -73,9 +73,13 @@ from repro_torch.analysis.matrix import (DEVICE, PAGE_SIZE, POOL_ARENAS, REPORT_
 from repro_torch.config import SINGLE_DEVICE_MESH, InputShape
 from repro_torch.configs import get_config
 from repro_torch.core.planner import LONG_CONTEXT_THRESHOLD, PlanCompiler
+from repro_torch.core.sharding import block_shape, spec_for, tree_specs
 from repro_torch.kernels._build import NAMESPACE
 from repro_torch.models.model import build_model
-from repro_torch.runtime.serve_loop import plan_step
+from repro_torch.core import comm
+from repro_torch.runtime.serve_loop import make_decode_step, make_prefill, plan_step
+from repro_torch.runtime.train_loop import (batch_input_specs, batch_specs, make_train_step,
+                                            train_shardings)
 
 WORKSPACE_FRACTION = 0.08  # mirrors core/memory.py's workspace class
 # what the card's path allocates beyond the graph's tensors: PyTorch's CUDA
@@ -164,12 +168,15 @@ class Trace:
     """One traced step. ``gm`` is None when tracing stopped at a host sync
     or a data-dependent shape (``error``). ``args`` and ``out`` are the
     step's inputs and outputs as the traced function saw them (fake
-    tensors), so an output that *is* an input leaf is the same object."""
+    tensors), so an output that *is* an input leaf is the same object.
+    ``collectives`` (a rank's trace on a traced mesh): the calls, bytes and
+    traffic by op that ``comm.STATS`` counted over the trace."""
 
     gm: Optional[GraphModule]
     args: tuple = ()
     out: Any = None
     error: Optional[BaseException] = None
+    collectives: Optional[Dict[str, Dict[str, float]]] = None
 
 
 def trace_step(step: Callable, args: Sequence[Any]) -> Trace:
@@ -210,14 +217,80 @@ def step_inputs(model, kind: str, batch: int, seq: int, page: int = PAGE_SIZE,
 
 
 def trace_cell(model, plan, kind: str, batch: int, seq: int, page: int = PAGE_SIZE,
-               device: str = DEVICE, wrap=None) -> Trace:
+               device: str = DEVICE, wrap=None, mesh=None, train=None) -> Trace:
     """Trace one cell's step on fake tensors. ``wrap(step)`` lets the
-    self-tests plant violations in the step."""
+    self-tests plant violations in the step. With ``mesh`` (a
+    ``launch.mesh.TracedMesh``) the step is that rank's under ``plan`` (an
+    ``ExecutionPlan``; ``train`` the ``TrainConfig`` of a train step) on
+    fake tensors of its blocks (:func:`rank_inputs`), its collectives
+    counted over trace groups (``Trace.collectives``): the train step
+    (``make_train_step``), the prompt pass (``make_prefill``) or the dense
+    decode step (``make_decode_step``), each under the plan's layout, as
+    the reference's dry run lowers them."""
+    if mesh is not None:
+        return trace_rank(model, plan, mesh, train, device, wrap)
     step = plan_step(model, plan, page)
     if wrap is not None:
         step = wrap(step)
     args = step_inputs(model, kind, batch, seq, page, device)
     return trace_step(step, args)
+
+
+def rank_inputs(model, plan, mesh, train=None, device: str = DEVICE) -> list:
+    """Fake inputs of one rank's step of ``plan`` (an ``ExecutionPlan``) on
+    the traced ``mesh``, each at this rank's block shape under
+    ``core/sharding.py``'s rules: ``[params, opt_state, global batch,
+    step]`` for a train step (the step takes its rows itself), ``[params,
+    batch block]`` for a prompt pass (its rows, and under context-parallel
+    prefill its block of the prompt, with the rows' ``lengths``) and
+    ``[params, cache block, tokens block, pos]`` for the dense decode
+    step."""
+    cfg, config, shape = mesh.cfg, plan.config, plan.shape
+
+    def blocks(specs: Dict, parts: Dict) -> Dict:
+        return {k: torch.empty(block_shape(v.shape, parts[k], cfg), dtype=v.dtype, device=device)
+                for k, v in specs.items()}
+
+    with FakeTensorMode():
+        pspecs = model.param_specs()
+        params = blocks(pspecs, tree_specs(pspecs, model.param_axes(), config, cfg, "param"))
+        b = shape.global_batch
+        if shape.kind == "train":
+            _p, (o_specs, o_part, _o) = train_shardings(model, config, cfg, train)
+            opt = {k: tuple(torch.empty(block_shape(t.shape, sp, cfg), dtype=t.dtype,
+                                        device=device) for t, sp in zip(o_specs[k], o_part[k]))
+                   for k in o_specs}
+            batch = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                     for k, v in batch_input_specs(model.cfg, shape, model.dtype).items()}
+            return [params, opt, batch, 0]
+        if shape.kind == "prefill":
+            specs = batch_input_specs(model.cfg, shape, model.dtype)
+            specs["lengths"] = torch.empty((b,), dtype=torch.int32, device="meta")
+            return [params, blocks(specs, batch_specs(specs, config, cfg))]
+        cspecs, caxes = model.cache_specs(b, shape.seq_len)
+        cache = blocks(cspecs, tree_specs(cspecs, caxes, config, cfg, "cache"))
+        tspec = spec_for((b, 1), ("batch", None), config, cfg, "act")
+        tokens = torch.empty(block_shape((b, 1), tspec, cfg), dtype=torch.int32, device=device)
+        return [params, cache, tokens, torch.empty((), dtype=torch.int32, device=device)]
+
+
+def trace_rank(model, plan, mesh, train=None, device: str = DEVICE, wrap=None) -> Trace:
+    """:func:`trace_cell` of one rank of a traced mesh."""
+    kind = plan.shape.kind
+    if kind == "train":
+        step = make_train_step(model, plan.config, mesh, train)
+    elif kind == "prefill":
+        step = make_prefill(model, plan=plan.config, mesh_cfg=mesh, device=device)
+    else:
+        step = make_decode_step(model, plan=plan.config, mesh_cfg=mesh, device=device)
+    if wrap is not None:
+        step = wrap(step)
+    args = rank_inputs(model, plan, mesh, train, device)
+    comm.reset_stats()
+    trace = trace_step(step, args)
+    trace.collectives = {k: dict(c) for k, c in comm.STATS.items()}
+    comm.reset_stats()
+    return trace
 
 
 # ---------------------------------------------------------------------------

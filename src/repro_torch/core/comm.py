@@ -39,13 +39,19 @@ collective over a group of one rank is skipped and not counted.
 from __future__ import annotations
 
 from collections import Counter
+from dataclasses import dataclass
 from typing import Dict
 
 import torch
 import torch.distributed as dist
 
-# op -> calls, and op -> bytes of the tensor each rank contributes
-STATS: Dict[str, Counter] = {"calls": Counter(), "bytes": Counter()}
+# op -> calls, op -> bytes of the tensor each rank contributes, and op ->
+# bytes a rank's link carries under the reference's per-chip convention
+# (``repro/launch/hlo_analysis.py``: an all-gather its result, an
+# all-reduce twice its result, a reduce-scatter its result times the group)
+STATS: Dict[str, Counter] = {"calls": Counter(), "bytes": Counter(), "traffic": Counter()}
+_TRAFFIC = {"all_gather": lambda n, world: n * world, "all_reduce": lambda n, world: 2 * n,
+            "reduce_scatter": lambda n, world: n}
 
 
 def reset_stats() -> None:
@@ -53,33 +59,65 @@ def reset_stats() -> None:
         c.clear()
 
 
-def _count(op: str, t: torch.Tensor) -> None:
+def _count(op: str, t: torch.Tensor, world: int) -> None:
+    nbytes = t.numel() * t.element_size()
     STATS["calls"][op] += 1
-    STATS["bytes"][op] += t.numel() * t.element_size()
+    STATS["bytes"][op] += nbytes
+    STATS["traffic"][op] += _TRAFFIC[op](nbytes, world)
 
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
+@dataclass(frozen=True)
+class TraceGroup:
+    """A group of ``size`` ranks seen from rank ``rank``, where no process
+    group exists: the collectives of this module count their calls and
+    bytes over it and send nothing."""
+
+    size: int
+    rank: int = 0
+
+    def __post_init__(self):
+        if not 0 <= self.rank < self.size:
+            raise ValueError(f"rank {self.rank} is not in a group of {self.size}")
+
+
+def world_size(group=None) -> int:
+    """The ranks of ``group`` (a process group, None for the default one,
+    or a :class:`TraceGroup`)."""
+    return group.size if isinstance(group, TraceGroup) else dist.get_world_size(group)
+
+
+def rank_in(group=None) -> int:
+    """This rank's index in ``group``."""
+    return group.rank if isinstance(group, TraceGroup) else dist.get_rank(group)
+
+
 def all_reduce_(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     """``t`` reduced over ``group`` in place (``op``: sum | max)."""
-    if dist.get_world_size(group) == 1:
+    world = world_size(group)
+    if world == 1:
         return t
-    _count("all_reduce", t)
-    dist.all_reduce(t, op=_REDUCE_OPS[op], group=group)
+    _count("all_reduce", t, world)
+    if not isinstance(group, TraceGroup):
+        dist.all_reduce(t, op=_REDUCE_OPS[op], group=group)
     return t
 
 
 def all_gather_dim(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """Every rank's ``t`` concatenated along ``dim`` in rank order."""
-    world = dist.get_world_size(group)
+    world = world_size(group)
     if world == 1:
         return t
     t = t.contiguous()
-    _count("all_gather", t)
+    _count("all_gather", t, world)
     # flat buffers: backends split the output's first dim into the ranks' parts
-    flat = torch.empty(world * t.numel(), dtype=t.dtype, device=t.device)
-    dist.all_gather_into_tensor(flat, t.reshape(-1), group=group)
+    if isinstance(group, TraceGroup):
+        flat = t.reshape(-1).repeat(world)
+    else:
+        flat = torch.empty(world * t.numel(), dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(flat, t.reshape(-1), group=group)
     out = flat.view(world, *t.shape)
     if dim == 0:
         return out.reshape(world * t.shape[0], *t.shape[1:])
@@ -88,14 +126,16 @@ def all_gather_dim(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
 
 def reduce_scatter_dim(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """The sum over ranks of ``t``, split along ``dim``: this rank's block."""
-    world = dist.get_world_size(group)
+    world = world_size(group)
     if world == 1:
         return t
     n = t.shape[dim] // world
     if n * world != t.shape[dim]:
         raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split {world} ways")
     blocks = t.unflatten(dim, (world, n)).movedim(dim, 0).contiguous()
-    _count("reduce_scatter", blocks)
+    _count("reduce_scatter", blocks, world)
+    if isinstance(group, TraceGroup):
+        return blocks[group.rank].clone()
     out = torch.empty(blocks[0].numel(), dtype=t.dtype, device=t.device)
     dist.reduce_scatter_tensor(out, blocks.reshape(-1), group=group)
     return out.view(blocks.shape[1:])
@@ -123,23 +163,21 @@ class AllReduceMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
         ctx.group = group
-        world = dist.get_world_size(group)
-        return all_reduce_(t.detach().clone(), group=group).div_(world)
+        return all_reduce_(t.detach().clone(), group=group).div_(world_size(group))
 
     @staticmethod
     def backward(ctx, grad):
-        world = dist.get_world_size(ctx.group)
-        return all_reduce_(grad.clone(), group=ctx.group).div_(world), None
+        return all_reduce_(grad.clone(), group=ctx.group).div_(world_size(ctx.group)), None
 
 
 def block_of(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """This rank's block of ``t`` split evenly along ``dim`` over ``group``
     (a contiguous copy)."""
-    world = dist.get_world_size(group)
+    world = world_size(group)
     n = t.shape[dim] // world
     if n * world != t.shape[dim]:
         raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split {world} ways")
-    return t.narrow(dim, dist.get_rank(group) * n, n).contiguous()
+    return t.narrow(dim, rank_in(group) * n, n).contiguous()
 
 
 class CopyToGroup(torch.autograd.Function):

@@ -219,6 +219,17 @@ def shard_slices(shape: Sequence[int], placements: Sequence, mesh_shape: Sequenc
     return tuple(slice(a, a + s) for a, s in zip(lo, size))
 
 
+def block_shape(shape: Sequence[int], spec: PartitionSpec,
+                mesh: MeshConfig) -> Tuple[int, ...]:
+    """The shape of each rank's block of a ``shape`` tensor under ``spec``:
+    every dim divided by the sizes of the mesh axes the spec names for it."""
+    out = []
+    for n, entry in zip(shape, spec):
+        names = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        out.append(n // _axis_size(mesh, names))
+    return tuple(out)
+
+
 def gather_blocks(local: torch.Tensor, mesh, placements) -> torch.Tensor:
     """The full tensor from every rank's block under ``placements`` on
     ``mesh``: one all-gather per sharded mesh dim, the inner mesh dim first

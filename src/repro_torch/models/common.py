@@ -11,7 +11,11 @@ and the MoE statistics' mean over the data ranks, and over a model axis
 the Megatron region boundaries (``enter``/``leave``), the gradient sum of a
 tensor every model rank holds whole (``whole``), the vocab-parallel
 cross-entropy (:func:`softmax_xent_vocab`) and the RMS norm over a width
-split across the ranks (:func:`rms_norm_sharded`).
+split across the ranks (:func:`rms_norm_sharded`). Serving under a model
+axis uses the same boundaries without autograd, plus the merge of partial
+attention over a decode cache whose sequence is split
+(:meth:`ShardCtx.merge_attention`) and, under context-parallel prefill,
+the residual stream as the rank's block of the prompt.
 """
 
 from __future__ import annotations
@@ -21,7 +25,6 @@ import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import comm
@@ -29,8 +32,9 @@ from repro_torch.core import comm
 
 @dataclasses.dataclass
 class ShardCtx:
-    """How a train step's forward runs over the ranks of a mesh, under
-    ``plan``.
+    """How a step's forward runs over the ranks of a mesh, under ``plan``.
+    Without a model group every boundary below is the identity, so one
+    block path serves one device and a model axis.
 
     ``gather`` (FSDP) turns a layer's parameter blocks into the tensors the
     model axis leaves (``Model.apply``); ``ranks_mean`` is the mean over the
@@ -49,12 +53,24 @@ class ShardCtx:
     held whole on every rank and used there enters through :meth:`whole`,
     which sums its gradient over the model group. Model-split parameters
     arrive as the rank's blocks (``core/sharding.py``'s rules); a block's
-    code tells a block from a whole tensor by its shape."""
+    code tells a block from a whole tensor by its shape.
+
+    Serving: ``cache_group`` is the group over which a decode cache's
+    sequence is split (``plan.cache_seq_axes``: the model group, or every
+    idle axis at long context; None where the cache is not split along its
+    sequence), over which :meth:`merge_attention` merges each rank's
+    partial attention; ``mesh`` (a ``MeshConfig``) gives the serving cache
+    its block shapes. Under context-parallel prefill (:attr:`cp`,
+    ``plan.seq_axes`` holding ``"model"``) the residual stream is the
+    rank's block of the prompt, as under sequence parallelism. Either group
+    may be a process group or a ``comm.TraceGroup``."""
 
     plan: Any = None
     model_group: Any = None
     gather: Optional[Callable] = None
     ranks_mean: Optional[Callable] = None
+    cache_group: Any = None
+    mesh: Any = None
 
     @property
     def tp(self) -> bool:
@@ -62,24 +78,33 @@ class ShardCtx:
         return self.model_group is not None
 
     @property
+    def cp(self) -> bool:
+        """Context-parallel prefill: the prompt's sequence over the model
+        axis."""
+        return self.tp and "model" in tuple(self.plan.seq_axes)
+
+    @property
     def sp(self) -> bool:
         """Sequence parallelism: the residual stream (and every remat
-        checkpoint) is this rank's sequence shard."""
-        return self.tp and bool(self.plan.seq_shard_checkpoints)
+        checkpoint) is this rank's sequence shard (also under
+        context-parallel prefill)."""
+        return self.tp and (bool(self.plan.seq_shard_checkpoints) or self.cp)
 
     @property
     def mp(self) -> int:
-        return dist.get_world_size(self.model_group) if self.tp else 1
+        return comm.world_size(self.model_group) if self.tp else 1
 
     @property
     def mrank(self) -> int:
-        return dist.get_rank(self.model_group) if self.tp else 0
+        return comm.rank_in(self.model_group) if self.tp else 0
 
     # region boundaries -------------------------------------------------
     def enter(self, h: torch.Tensor) -> torch.Tensor:
         """The residual stream (B, S, D) entering per-shard work: whole
         forward, its gradient summed (under SP the shards gathered along
         the sequence, the gradient reduce-scattered)."""
+        if not self.tp:
+            return h
         if self.sp:
             return comm.AllGatherDim.apply(h, 1, self.model_group)
         return comm.CopyToGroup.apply(h, self.model_group)
@@ -88,13 +113,15 @@ class ShardCtx:
         """Partial sums (B, S, D) leaving for the residual stream: summed
         over the ranks (under SP reduce-scattered to this rank's sequence
         shard)."""
+        if not self.tp:
+            return y
         if self.sp:
             return comm.ReduceScatterDim.apply(y, 1, self.model_group)
         return comm.ReduceFromGroup.apply(y, self.model_group)
 
     def whole(self, t: torch.Tensor) -> torch.Tensor:
         """A tensor every model rank holds whole, entering per-shard work."""
-        return comm.CopyToGroup.apply(t, self.model_group)
+        return comm.CopyToGroup.apply(t, self.model_group) if self.tp else t
 
     def gain(self, g: torch.Tensor) -> torch.Tensor:
         """A norm's gain on the residual stream: under SP each rank norms
@@ -111,18 +138,64 @@ class ShardCtx:
         """This rank's part of dim ``dim`` (``n`` long whole) of a
         parameter: the block itself where the rules split it, else this
         rank's :meth:`span` of the whole tensor, whose gradient is summed."""
-        if t.shape[dim] != n:
+        if t.shape[dim] != n or self.mp == 1:
             return t
         lo, hi = self.span(n)
         return self.whole(t).narrow(dim, lo, hi - lo)
 
-    def joined(self, t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
-        """A parameter whole along ``dim`` for per-shard work: all-gathered
-        where the rules split it there (the gradient reduce-scattered),
-        else :meth:`whole`."""
-        if t.shape[dim] != n:
-            return comm.AllGatherDim.apply(t, dim, self.model_group)
+    def joined(self, t: torch.Tensor, full: Tuple[int, ...]) -> torch.Tensor:
+        """A parameter whole (``full`` its whole shape) for per-shard work:
+        all-gathered along the dim the rules split (the gradient
+        reduce-scattered), else :meth:`whole`."""
+        for dim, (a, n) in enumerate(zip(t.shape, full)):
+            if a != n:
+                return comm.AllGatherDim.apply(t, dim, self.model_group)
         return self.whole(t)
+
+    def whole_dim(self, t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """A serving activation whole along ``dim`` (``n`` long): this
+        rank's block of it all-gathered over the model group, or ``t``
+        where it is whole already (no autograd)."""
+        return t if t.shape[dim] == n else comm.all_gather_dim(t, dim, self.model_group)
+
+    # serving ------------------------------------------------------------
+    def cache_span(self, n: int) -> Tuple[int, int]:
+        """This rank's ``[lo, hi)`` of ``n`` cache slots split evenly over
+        :attr:`cache_group` (all of them without one)."""
+        if self.cache_group is None:
+            return 0, n
+        step = n // comm.world_size(self.cache_group)
+        lo = comm.rank_in(self.cache_group) * step
+        return lo, lo + step
+
+    def merge_attention(self, s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """Attention over a cache whose slots are split over
+        :attr:`cache_group`, from this rank's part: ``s`` (B, H, K) float32
+        scores over its slots (masked to ``NEG_INF``), ``v`` (B, K, H, D)
+        its values. The row max is all-reduced (max) first; then each
+        rank's numerators and denominators at that max are summed in one
+        all-reduce. Returns (B, H, D) float32."""
+        m = comm.all_reduce_(s.amax(dim=-1), "max", self.cache_group)      # (B, H)
+        p = torch.exp(s - m[..., None])
+        num = torch.einsum("bhk,bkhd->bhd", p, v.float())
+        both = comm.all_reduce_(torch.cat([num, p.sum(-1, keepdim=True)], dim=-1),
+                                group=self.cache_group)
+        return both[..., :-1] / both[..., -1:]
+
+    def last_rows(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """Each row's hidden state at its position ``idx`` (B,) of the whole
+        sequence, (B, D): under sequence parallelism the rank holding the
+        position gives it and the others zeros, summed over the model
+        group."""
+        b = x.shape[0]
+        rows = torch.arange(b, device=x.device)
+        if not self.sp:
+            return x[rows, idx]
+        s = x.shape[1]
+        local = idx - self.seq_offset(s)
+        own = (local >= 0) & (local < s)
+        xl = x[rows, local.clamp(0, s - 1)] * own[:, None].to(x.dtype)
+        return comm.all_reduce_(xl.contiguous(), group=self.model_group)
 
     # work every model rank repeats in full -----------------------------
     def rep_in(self, h: torch.Tensor) -> torch.Tensor:

@@ -53,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import comm
+from repro_torch.core.sharding import block_shape, spec_for
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (ShardCtx, SpecBuilder, rms_norm, softmax_xent_logits,
                                        softmax_xent_vocab)
@@ -187,16 +188,18 @@ class Model:
         those the model axis leaves, the embedding, final norm and head
         here, each layer's when the layer runs (again in its recompute
         under remat); over a model axis (``ctx.tp``) the logits are this
-        rank's vocab block (:meth:`vocab_span`)."""
+        rank's vocab block (:meth:`vocab_span`), or with ``last_only`` the
+        whole vocab's, gathered over the model group. Under context-parallel
+        prefill (``ctx.cp``) ``tokens`` are this rank's block of the
+        prompt."""
         cfg = self.cfg
         extra = extra or {}
-        gather = None if ctx is None else ctx.gather
-        if gather is not None:
-            params = dict(params)
-            params.update(gather("", {k: v for k, v in params.items() if "." not in k}))
+        params = self._gathered_top(params, ctx)
         tp = ctx is not None and ctx.tp
-        if tp and last_only:
-            raise ValueError("over a model axis the model runs the training loss only")
+        if tp and ctx.cp:
+            # each rank holds its block of the prompt; the vocab-parallel
+            # embedding reads every rank's ids
+            tokens = comm.all_gather_dim(tokens, 1, ctx.model_group)
         x = self._embed_tp(params, tokens, ctx) if tp else self._embed(params, tokens)
         prefix = 0
         if cfg.frontend == "vision" and "patch_embeds" in extra:
@@ -212,7 +215,11 @@ class Model:
             enc_out = self._encode(params, extra["frames"].to(x.dtype), remat=remat, ctx=ctx)
         x, _, aux = self._stack_prefill(params, x, want_cache=False, remat=remat, ctx=ctx,
                                         enc_out=enc_out)
-        if tp:
+        if tp and last_only:
+            x = rms_norm(x, ctx.gain(params["final_ln"]))
+            last = torch.full((x.shape[0],), ctx.seq_len(x.shape[1]) - 1, device=x.device)
+            logits = self._whole_logits(params, ctx.last_rows(x, last)[:, None], ctx)
+        elif tp:
             x = ctx.enter(rms_norm(x, ctx.gain(params["final_ln"])))
             logits = self._logits(params, x, ctx)[:, prefix:]
         else:
@@ -223,6 +230,28 @@ class Model:
             else:
                 logits = self._logits(params, x)[:, prefix:]
         return logits, torch.zeros((), device=logits.device) if aux is None else aux
+
+    def _whole_logits(self, params, x, ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+        """Serving logits of ``x`` over the whole vocab on every rank: over a
+        model axis whose rules split the vocab, this rank's block of them
+        all-gathered over the model group; else the product with the whole
+        table."""
+        if ctx is not None and ctx.tp:
+            table = params["embed"] if self.cfg.tie_embeddings else params["head"]
+            if table.shape[0 if self.cfg.tie_embeddings else 1] != self.cfg.vocab_size:
+                return comm.all_gather_dim(self._logits(params, x, ctx), x.dim() - 1,
+                                           ctx.model_group)
+        return self._logits(params, x)
+
+    @staticmethod
+    def _gathered_top(params, ctx: Optional[ShardCtx]):
+        """``params`` with the embedding, final norm and head whole over the
+        data axes (``ctx.gather``, FSDP); the layers gather when they run."""
+        if ctx is None or ctx.gather is None:
+            return params
+        params = dict(params)
+        params.update(ctx.gather("", {k: v for k, v in params.items() if "." not in k}))
+        return params
 
     def vocab_span(self, ctx: ShardCtx) -> Tuple[int, int]:
         """The rank's ``[lo, hi)`` of the vocab over a model axis: the block
@@ -328,9 +357,7 @@ class Model:
                                            ctx=ctx, enc_out=enc_out)
             return (x, aux, c) if want_cache else (x, aux)
         block = B.ssd_block_apply if kind == "s" else B.rglru_block_apply
-        if ctx is not None and ctx.tp:
-            return block(self.cfg, lp, x, ctx=ctx), 0.0
-        out = block(self.cfg, lp, x, lengths=lengths, want_cache=want_cache)
+        out = block(self.cfg, lp, x, lengths=lengths, want_cache=want_cache, ctx=ctx)
         return (out[0], 0.0, out[1]) if want_cache else (out, 0.0)
 
     # ------------------------------------------------------------------
@@ -366,7 +393,7 @@ class Model:
     def prefill(self, params, tokens: torch.Tensor,
                 extra: Optional[Dict[str, torch.Tensor]] = None, *,
                 lengths: Optional[torch.Tensor] = None,
-                cache_len: Optional[int] = None):
+                cache_len: Optional[int] = None, ctx: Optional[ShardCtx] = None):
         """Prompt pass returning ``(last_logits, cache)``: each row's
         next-token logits at its own final prompt position ``(B, vocab)``
         and a populated decode cache — the :meth:`init_cache` dict at
@@ -375,31 +402,46 @@ class Model:
         ``tokens`` (default: the full width). A family without a handoff
         returns the last position's logits of :meth:`apply` over ``tokens``
         and ``extra`` (``lengths`` unread) and no cache, as the reference
-        does."""
+        does.
+
+        ``ctx`` (a serving ``ShardCtx`` over a model axis): the blocks run
+        on this rank's parameter blocks, the logits are the whole vocab's
+        on every rank, and the cache is this rank's block of it under the
+        plan's cache layout (:meth:`init_cache` with the same ``ctx``'s
+        plan and mesh): its kv heads, or under ``cache_seq_axes`` its
+        slots. Under context-parallel prefill ``tokens`` are this rank's
+        block of the prompt and ``lengths`` the whole prompt's."""
         if not self.supports_handoff:
-            logits, _ = self.apply(params, tokens, extra, last_only=True)
+            logits, _ = self.apply(params, tokens, extra, last_only=True, ctx=ctx)
             return logits[:, -1], None
+        tp = ctx is not None and ctx.tp
+        params = self._gathered_top(params, ctx)
+        if tp and ctx.cp:
+            tokens = comm.all_gather_dim(tokens, 1, ctx.model_group)
         b, s = tokens.shape
         dev = tokens.device
         if lengths is None:
             lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
         lengths = lengths.to(device=dev, dtype=torch.int32)
         cache_len = cache_len or s
-        x, cache, _aux = self._stack_prefill(params, self._embed(params, tokens),
-                                             lengths=lengths)
+        x = ctx.leave(self._embed_tp(params, tokens, ctx)) if tp else self._embed(params, tokens)
+        x, cache, _aux = self._stack_prefill(params, x, lengths=lengths, ctx=ctx)
         x = rms_norm(x, params["final_ln"])
         # the reference's take_along_axis clamps; lengths >= 1 on every path
         last = torch.clamp(lengths.long() - 1, 0, s - 1)
-        xl = x[torch.arange(b, device=dev), last]                  # (B, D)
-        logits = self._logits(params, xl[:, None])[:, 0]
+        xl = ctx.last_rows(x, last) if tp else x[torch.arange(b, device=dev), last]   # (B, D)
+        logits = self._whole_logits(params, xl[:, None], ctx)[:, 0]
         # attention K/V land in their decode-slot layout; recurrent state
         # entries are already in decode form
         sc = self.attn_cache_len(cache_len)
         cache = {k: (gather_cache_slots(v, lengths, sc) if self.is_paged_cache_key(k)
                      else v) for k, v in cache.items()}
+        ent = self.cache_entries(b, cache_len, ctx, local_rows=True)
+        if tp:
+            cache = {k: _rank_block(v, ent[k][0], k, ctx) for k, v in cache.items()}
         # the init_cache dict exactly: a hybrid pattern that drops a block
         # kind still carries that kind's zero-layer entries
-        for k, (shape, _axes, dt) in self.cache_entries(b, cache_len).items():
+        for k, (shape, _axes, dt) in ent.items():
             if k not in cache:
                 cache[k] = torch.zeros(shape, dtype=dt, device=dev)
         return logits, cache
@@ -426,8 +468,22 @@ class Model:
             return cfg.serve_window
         return 0
 
-    def cache_entries(self, batch: int, seq_len: int) -> Dict[str, Tuple]:
-        """{name: (shape, axes, dtype)} for the decode cache."""
+    def cache_entries(self, batch: int, seq_len: int, ctx: Optional[ShardCtx] = None,
+                      local_rows: bool = False) -> Dict[str, Tuple]:
+        """{name: (shape, axes, dtype)} for the decode cache; with a serving
+        ``ctx`` (its ``plan`` and ``mesh``) each shape is this rank's block
+        under the plan's cache specs (``core/sharding.py``, kind "cache")
+        of a ``batch``-row cache, or with ``local_rows`` of a cache whose
+        ``batch`` rows are this rank's already."""
+        ent = self._cache_entries(batch, seq_len)
+        if ctx is None or ctx.mesh is None:
+            return ent
+        plan = ctx.plan.replace(cache_batch_axes=()) if local_rows else ctx.plan
+        return {k: (block_shape(shape, spec_for(shape, axes, plan, ctx.mesh, "cache"),
+                                ctx.mesh), axes, dt)
+                for k, (shape, axes, dt) in ent.items()}
+
+    def _cache_entries(self, batch: int, seq_len: int) -> Dict[str, Tuple]:
         cfg = self.cfg
         ent = {}
         if self.is_ssm:
@@ -459,44 +515,58 @@ class Model:
         in it: both stay per row."""
         return (key.endswith(".k") or key.endswith(".v")) and not key.startswith("x.")
 
-    def paged_cache_entries(self, batch: int, seq_len: int, page: int):
+    def paged_cache_entries(self, batch: int, seq_len: int, page: int,
+                            ctx: Optional[ShardCtx] = None):
         """Block-granular layout: attention K/V trade their per-row sequence
         dimension ``(L, B, sc, Kv, Dh)`` for one flat per-arena slot stack
         ``(L, n_pages * page, Kv, Dh)`` shared by all rows through per-row
         page tables; everything else keeps its ``(L, B, ...)`` row layout.
         Returns ``(entries, n_pages, sc)``; ``n_pages`` is 0 when no entry
-        pages (the SSM family)."""
-        ent = self.cache_entries(batch, seq_len)
+        pages (the SSM family). With a serving ``ctx``, this rank's blocks
+        (its rows and kv heads); a cache split along its sequence has no
+        paged layout (the reference's paged path runs on one device) and
+        raises."""
+        ent = self.cache_entries(batch, seq_len, ctx)
         sc = self.attn_cache_len(seq_len)
         has_paged = any(self.is_paged_cache_key(k) for k in ent)
-        n_pages = batch * -(-sc // page) if has_paged else 0
+        rows = next((shape[1] for k, (shape, _a, _d) in ent.items()
+                     if self.is_paged_cache_key(k)), batch)
+        n_pages = rows * -(-sc // page) if has_paged else 0
         out = {}
         for k, (shape, axes, dt) in ent.items():
             if self.is_paged_cache_key(k):
-                ll, _b, _s, *rest = shape
+                ll, _b, s_loc, *rest = shape
+                if s_loc != sc:
+                    raise ValueError(f"{k}: a cache split along its sequence "
+                                     f"({s_loc} of {sc} slots a rank) has no paged layout; "
+                                     f"the paged path runs on one device's slot stack")
                 out[k] = ((ll, n_pages * page, *rest),
                           (axes[0], "kv_slots", *axes[3:]), dt)
             else:
                 out[k] = (shape, axes, dt)
         return out, n_pages, sc
 
-    def cache_specs(self, batch: int, seq_len: int):
-        """``(specs, axes)`` of the decode cache: meta tensors and each
-        entry's logical axes."""
-        ent = self.cache_entries(batch, seq_len)
+    def cache_specs(self, batch: int, seq_len: int, ctx: Optional[ShardCtx] = None):
+        """``(specs, axes)`` of the decode cache: meta tensors (with a
+        serving ``ctx``, at this rank's block shapes) and each entry's
+        logical axes."""
+        ent = self.cache_entries(batch, seq_len, ctx)
         specs = {k: torch.empty(s, dtype=d, device="meta") for k, (s, _a, d) in ent.items()}
         return specs, {k: a for k, (_s, a, _d) in ent.items()}
 
-    def init_cache(self, batch: int, seq_len: int, device) -> Dict[str, torch.Tensor]:
-        ent = self.cache_entries(batch, seq_len)
+    def init_cache(self, batch: int, seq_len: int, device,
+                   ctx: Optional[ShardCtx] = None) -> Dict[str, torch.Tensor]:
+        ent = self.cache_entries(batch, seq_len, ctx)
         return {k: torch.zeros(s, dtype=d, device=device) for k, (s, _a, d) in ent.items()}
 
-    def init_paged_cache(self, batch: int, seq_len: int, page: int, device):
-        ent, _n_pages, _sc = self.paged_cache_entries(batch, seq_len, page)
+    def init_paged_cache(self, batch: int, seq_len: int, page: int, device,
+                         ctx: Optional[ShardCtx] = None):
+        ent, _n_pages, _sc = self.paged_cache_entries(batch, seq_len, page, ctx)
         return {k: torch.zeros(s, dtype=d, device=device) for k, (s, _a, d) in ent.items()}
 
     def decode_step(self, params, cache: Dict, tokens: torch.Tensor,
-                    pos: torch.Tensor, *, window_override: Optional[int] = None,
+                    pos: torch.Tensor, ctx: Optional[ShardCtx] = None, *,
+                    window_override: Optional[int] = None,
                     tables: Optional[torch.Tensor] = None, page: int = 0,
                     seq_len: int = 0, decode_kernel: str = "gather"):
         """tokens: (B, 1); pos: scalar or (B,) int32 — rows may sit at
@@ -511,9 +581,15 @@ class Model:
         their state is per row. The hybrid family's attention layers take
         the arch's window, as the reference's do. An encoder-decoder's
         decoder layers read their cross K/V (``cache["x.k"]``,
-        ``cache["x.v"]``, per row) after their self-attention."""
+        ``cache["x.v"]``, per row) after their self-attention. ``ctx`` (a
+        serving ``ShardCtx`` over a model axis): ``cache`` is this rank's
+        block of it (:meth:`init_cache` with the ``ctx``), the blocks run
+        on this rank's parameter blocks and the logits are the whole
+        vocab's on every rank."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        tp = ctx is not None and ctx.tp
+        params = self._gathered_top(params, ctx)
+        x = ctx.leave(self._embed_tp(params, tokens, ctx)) if tp else self._embed(params, tokens)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
         paged = tables is not None and page > 0
         sc = self.attn_cache_len(seq_len) if paged else 0
@@ -526,37 +602,56 @@ class Model:
         elif self.is_ssm:
             window = 0                      # no attention layer
         else:
+            slots = cache_seq(cache)
+            if ctx is not None and ctx.cache_group is not None:
+                slots *= comm.world_size(ctx.cache_group)
             window = (window_override if window_override is not None
-                      else self.decode_window(seq_len if paged else cache_seq(cache)))
+                      else self.decode_window(seq_len if paged else slots))
         stacks, lcaches = {}, {}
         for prefix, _n, _b in self._stacks():
             stacks[prefix] = _subtree(params, prefix)
             lcaches[prefix] = _subtree(cache, prefix)
         for kind, prefix, i in self.layers():
             lp = self._layer(stacks[prefix], i)
+            if ctx is not None and ctx.gather is not None:
+                lp = ctx.gather(prefix, lp)
             lc = self._layer(lcaches[prefix], i)
             if kind == "s":
-                x = B.ssd_block_decode(cfg, lp, x, lc)
+                x = B.ssd_block_decode(cfg, lp, x, lc, ctx)
             elif kind == "r":
-                x = B.rglru_block_decode(cfg, lp, x, lc)
+                x = B.rglru_block_decode(cfg, lp, x, lc, ctx)
             else:
                 xkv = (cache["x.k"][i], cache["x.v"][i]) if cfg.is_encdec else None
                 x = B.attn_block_decode(cfg, lp, x, lc, pos, window=window,
                                         tables=tables, page=page, sc=sc,
-                                        decode_kernel=decode_kernel, enc_out_kv=xkv)
+                                        decode_kernel=decode_kernel, enc_out_kv=xkv, ctx=ctx)
         x = rms_norm(x, params["final_ln"])
-        return self._logits(params, x), cache
+        return (self._whole_logits(params, x, ctx) if tp else self._logits(params, x)), cache
 
-    def build_cross_cache(self, params, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def build_cross_cache(self, params, frames: torch.Tensor,
+                          ctx: Optional[ShardCtx] = None) -> Dict[str, torch.Tensor]:
         """An encoder-decoder's serving setup: the encoder run once over
         ``frames`` ``(B, Senc, D)`` and every decoder layer's cross K/V
         projected from its output: ``{"x.k", "x.v"}``, each ``(L, B, Senc,
-        Kv, Dh)`` in the model's dtype, to merge into the decode cache."""
+        Kv, Dh)`` in the model's dtype, to merge into the decode cache. With
+        a serving ``ctx`` over a model axis the encoder runs on this rank's
+        parameter blocks and the cross K/V are the cache's block: this
+        rank's kv heads under ``cache_heads_over_model``, else all of
+        them."""
         if not self.cfg.is_encdec:
             raise ValueError(f"{self.cfg.name} has no encoder")
-        enc_out = self._encode(params, frames.to(self.dtype))
-        xk = torch.einsum("bsd,ldhk->lbshk", enc_out, params["d.xwk"])
-        xv = torch.einsum("bsd,ldhk->lbshk", enc_out, params["d.xwv"])
+        params = self._gathered_top(params, ctx)
+        enc_out = self._encode(params, frames.to(self.dtype), ctx=ctx)
+        wk, wv = params["d.xwk"], params["d.xwv"]
+        if ctx is not None and ctx.gather is not None:
+            layers = [ctx.gather("d.", {"xwk": a, "xwv": b}) for a, b in zip(wk, wv)]
+            wk = torch.stack([lp["xwk"] for lp in layers])
+            wv = torch.stack([lp["xwv"] for lp in layers])
+        xk = torch.einsum("bsd,ldhk->lbshk", enc_out, wk)
+        xv = torch.einsum("bsd,ldhk->lbshk", enc_out, wv)
+        if ctx is not None and ctx.tp and not ctx.plan.cache_heads_over_model:
+            kv = self.cfg.num_kv_heads
+            xk, xv = ctx.whole_dim(xk, 3, kv), ctx.whole_dim(xv, 3, kv)
         return {"x.k": xk.to(self.dtype), "x.v": xv.to(self.dtype)}
 
 
@@ -584,6 +679,23 @@ def gather_cache_slots(kv: torch.Tensor, lengths: torch.Tensor,
     pc = torch.clamp(p, 0, s - 1)
     out = kv[:, torch.arange(b, device=kv.device)[:, None], pc]       # (L, B, sc, ...)
     return torch.where(valid, out, torch.zeros((), dtype=kv.dtype, device=kv.device))
+
+
+def _rank_block(t: torch.Tensor, block: Tuple[int, ...], key: str,
+                ctx: ShardCtx) -> torch.Tensor:
+    """This rank's block ``block`` (its shape) of a prompt pass's cache
+    entry ``t``: the kv heads of its model rank, the slots of its
+    ``ctx.cache_group`` rank (a K/V entry's sequence), or ``t`` where the
+    pass already formed the block."""
+    for dim, (a, n) in enumerate(zip(t.shape, block)):
+        if a == n:
+            continue
+        if key.endswith((".k", ".v")) and dim == 2:
+            lo, _hi = ctx.cache_span(a)
+        else:
+            lo = ctx.mrank * n
+        t = t.narrow(dim, lo, n)
+    return t.contiguous()
 
 
 def build_model(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16) -> Model:

@@ -19,6 +19,7 @@ device between ticks.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import time
 import weakref
@@ -36,6 +37,8 @@ from repro_torch.core.planner import PlanCompiler
 from repro_torch.core.sharding import tree_shardings, tree_specs
 from repro_torch.core.strategies import ExecutionPlan, PlanConfig, RuntimeStats
 from repro_torch.hw import H100
+from repro_torch.launch.mesh import TracedMesh, axes_group, mesh_groups
+from repro_torch.models.common import ShardCtx
 from repro_torch.models.model import build_model
 from repro_torch.runtime.engine import (DECODE_SPAN, PREFILL_SPAN,  # noqa: F401  (re-export)
                                         ServingEngine, WallClock, sync)
@@ -43,6 +46,7 @@ from repro_torch.runtime.engine_config import EngineConfig
 from repro_torch.runtime.graph_step import build_decode_step
 from repro_torch.runtime.kv_cache import KVCachePool
 from repro_torch.runtime.metrics import LatencyStats, pool_summary, serve_summary
+from repro_torch.runtime.train_loop import data_split_dims, gather_over_data
 
 
 def resolve_device(device=None) -> torch.device:
@@ -57,42 +61,97 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def serve_ctx(plan: Optional[PlanConfig], mesh_cfg, groups: Optional[Tuple] = None,
+              device="cuda", model=None) -> Optional[ShardCtx]:
+    """The serving :class:`~repro_torch.models.common.ShardCtx` of this rank
+    under ``plan`` on ``mesh_cfg`` (a ``MeshConfig`` over the initialised
+    process group, or a ``launch.mesh.TracedMesh``), or None where the plan
+    puts no work on a model axis (neither weights nor the prompt's
+    sequence: each rank then serves its rows as one device does). ``groups``: this rank's ``(data group, model group)``,
+    else :func:`~repro_torch.launch.mesh.mesh_groups` makes them. The cache
+    group is the model group where ``plan.cache_seq_axes`` is
+    ``("model",)``, else the group over those axes. Under serve-time FSDP
+    (``params_over_data``) the ``ctx.gather`` of ``model``'s parameters
+    all-gathers each layer's blocks over the data axes when the layer
+    runs."""
+    if plan is None or mesh_cfg is None:
+        return None
+    traced = mesh_cfg if isinstance(mesh_cfg, TracedMesh) else None
+    cfg = traced.cfg if traced is not None else mesh_cfg
+    if cfg.model_parallelism == 1 or not (plan.tensor_parallel or plan.expert_parallel
+                                          or "model" in plan.seq_axes):
+        return None
+    _data, model_group = groups if groups is not None else mesh_groups(mesh_cfg, device)
+    cache_group = None
+    if plan.cache_seq_axes:
+        if tuple(plan.cache_seq_axes) == ("model",):
+            cache_group = model_group
+        elif traced is not None:
+            cache_group = traced.group(plan.cache_seq_axes)
+        else:
+            cache_group = axes_group(cfg, plan.cache_seq_axes)
+    gather = None
+    if plan.params_over_data:
+        gather = functools.partial(gather_over_data, data_split_dims(model, plan, cfg), _data)
+    return ShardCtx(plan, model_group, gather=gather, cache_group=cache_group, mesh=cfg)
+
+
 def make_decode_step(model, page: int = 0, seq_len: int = 0,
-                     decode_kernel: str = "paged"):
+                     decode_kernel: str = "paged", *, plan: Optional[PlanConfig] = None,
+                     mesh_cfg=None, groups: Optional[Tuple] = None, device="cuda"):
     """``page > 0``: the paged decode step, taking the (B, max_pages) page
     table as a fifth argument (None for an arena with no paged entries,
     which then decodes with dense semantics); ``seq_len`` is the bucket
     context the arena is sized for. ``decode_kernel`` picks the paged read
-    (paged | gather | ref)."""
+    (paged | gather | ref). With ``plan`` and ``mesh_cfg`` (and this rank's
+    ``groups``), the step of this rank under the plan's layout
+    (:func:`serve_ctx`): its blocks of the parameters and the cache (a
+    tick's one position is never split: context parallelism is the prompt
+    pass's)."""
+    if plan is not None:
+        plan = plan.replace(seq_axes=())
+    ctx = serve_ctx(plan, mesh_cfg, groups, device, model)
     if page:
         def decode_step(params, cache, tokens, pos, tables=None):
-            return model.decode_step(params, cache, tokens, pos, tables=tables,
+            return model.decode_step(params, cache, tokens, pos, ctx, tables=tables,
                                      page=page, seq_len=seq_len,
                                      decode_kernel=decode_kernel)
     else:
         def decode_step(params, cache, tokens, pos):
-            return model.decode_step(params, cache, tokens, pos)
+            return model.decode_step(params, cache, tokens, pos, ctx)
     return decode_step
 
 
-def make_prefill(model):
+def make_prefill(model, *, plan: Optional[PlanConfig] = None, mesh_cfg=None,
+                 groups: Optional[Tuple] = None, device="cuda"):
     """The prompt pass of a batch: ``tokens`` and ``lengths``, every other
     key handed on as the model's ``extra``, as the reference's is. The
     server's prompt pass gives only the first two, so an encoder-decoder
     model, whose ``apply`` reads ``frames``, raises ``KeyError`` there, as
-    the reference's does: it serves with ``prefill=False``."""
+    the reference's does: it serves with ``prefill=False``. With ``plan``
+    and ``mesh_cfg``, this rank's prompt pass under the plan's layout
+    (:func:`serve_ctx`): the batch is this rank's block of it (its rows,
+    and under context-parallel prefill its block of the prompt, with the
+    whole prompt's ``lengths``)."""
+    ctx = serve_ctx(plan, mesh_cfg, groups, device, model)
+
     def prefill(params, batch):
         extra = {k: v for k, v in batch.items() if k not in ("tokens", "lengths")}
-        return model.prefill(params, batch["tokens"], extra, lengths=batch.get("lengths"))
+        return model.prefill(params, batch["tokens"], extra, lengths=batch.get("lengths"),
+                             ctx=ctx)
     return prefill
 
 
 def cache_shardings(model, batch: int, seq_len: int, plan: PlanConfig,
-                    mesh_cfg: MeshConfig, device_mesh=None):
+                    mesh_cfg, device_mesh=None):
     """``(specs, parts, shards)`` of the decode cache under ``plan``: meta
     tensors, each entry's spec (``core/sharding.py``, kind "cache") and, on a
     ``device_mesh``, its :class:`~repro_torch.core.sharding.NamedSharding`
-    (None without one). The rules only: serving runs on one card."""
+    (None without one). ``mesh_cfg`` may be a traced mesh. Each rank's
+    block of an entry is :func:`~repro_torch.core.sharding.block_shape` of
+    its spec, the shape ``Model.init_cache`` makes under :func:`serve_ctx`
+    (the dry run's decode cache)."""
+    mesh_cfg = mesh_cfg.cfg if isinstance(mesh_cfg, TracedMesh) else mesh_cfg
     specs, axes = model.cache_specs(batch, seq_len)
     parts = tree_specs(specs, axes, plan, mesh_cfg, "cache")
     shards = None if device_mesh is None else tree_shardings(device_mesh, parts)

@@ -61,7 +61,11 @@ one rank a device, and equals the one-device step on the global batch:
   ranks (``comm.AllReduceMean``), so its auxiliary loss is the global
   batch's.
 
-Pod-scale meshes (``("pod", "data", "model")``) raise: ROADMAP Queue A 15.
+On a pod mesh (``("pod", "data", "model")``) ``"pod"`` and ``"data"``
+together are the data axes: the batch, FSDP's blocks and the data
+group span both, pod-major. ``mesh_cfg`` may also be a traced mesh
+(``launch/mesh.TracedMesh``, the dry run's): the step is then that rank's,
+its groups ``comm.TraceGroup`` stand-ins, and no process group is needed.
 A plan that puts no work on a model axis runs every block whole on each of
 its ranks. Every ported family trains: dense (the
 flash kernel's training forward and the reference's recompute backward),
@@ -86,12 +90,12 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
-from repro_torch.config import MeshConfig, TrainConfig
+from repro_torch.config import InputShape, MeshConfig, TrainConfig
 from repro_torch.core import comm
 from repro_torch.core.sharding import (placements_for, shard_slices, spec_for,
                                        tree_shardings, tree_specs)
 from repro_torch.core.strategies import PlanConfig
-from repro_torch.launch.mesh import mesh_groups
+from repro_torch.launch.mesh import TracedMesh, mesh_groups
 from repro_torch.models.common import ShardCtx
 from repro_torch.nn.optim import OPTIMIZER_SLOTS, get_optimizer
 
@@ -135,6 +139,28 @@ BATCH_AXES_BY_RANK = {
     2: ("batch", "seq"),
     3: ("batch", "seq", None),
 }
+
+
+def batch_input_specs(cfg, shape: InputShape, dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """The global batch of a step (the reference's
+    ``launch/dryrun.batch_input_specs``), as meta tensors: decode
+    ``tokens`` (B, 1); otherwise ``tokens`` (B, S), a train step's
+    ``targets``, a vision model's ``patch_embeds`` and an
+    encoder-decoder's ``frames``."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = dict(dtype=torch.int32, device="meta")
+    if shape.kind == "decode":
+        return {"tokens": torch.empty((b, 1), **i32)}
+    specs = {"tokens": torch.empty((b, s), **i32)}
+    if shape.kind == "train":
+        specs["targets"] = torch.empty((b, s), **i32)
+    if cfg.frontend == "vision":
+        specs["patch_embeds"] = torch.empty((b, cfg.num_frontend_tokens, cfg.d_model),
+                                            dtype=dtype, device="meta")
+    if cfg.is_encdec:
+        specs["frames"] = torch.empty((b, cfg.encoder_seq, cfg.d_model), dtype=dtype,
+                                      device="meta")
+    return specs
 
 
 def batch_specs(batch_like: Dict, plan: PlanConfig, mesh_cfg: MeshConfig) -> Dict:
@@ -208,11 +234,11 @@ def _check_trainable(model, mesh_cfg: MeshConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family has no training step in the port; "
             f"it trains {', '.join(TRAINED_FAMILIES)} models")
-    if mesh_cfg.num_devices > 1 and mesh_cfg.axis_names not in (("data",), ("data", "model")):
+    if mesh_cfg.num_devices > 1 and mesh_cfg.axis_names not in (
+            ("data",), ("data", "model"), ("pod", "data", "model")):
         raise NotImplementedError(
-            f"mesh axes {mesh_cfg.axis_names}: the port trains over ('data',) and ('data', "
-            f"'model') meshes; pod-scale meshes come with the dry-run tooling, ROADMAP "
-            f"Queue A 15")
+            f"mesh axes {mesh_cfg.axis_names}: the port trains over ('data',), ('data', "
+            f"'model') and ('pod', 'data', 'model') meshes")
 
 
 class _Ranks:
@@ -221,16 +247,11 @@ class _Ranks:
     weight, each parameter's split dims, the data and model groups, and
     the collectives around the backward pass."""
 
-    def __init__(self, model, plan: PlanConfig, mesh_cfg: MeshConfig, stacked: tuple):
-        self.plan, self.mesh_cfg = plan, mesh_cfg
+    def __init__(self, model, plan: PlanConfig, mesh_cfg: MeshConfig,
+                 traced: Optional[TracedMesh] = None):
+        self.plan, self.mesh_cfg, self.traced = plan, mesh_cfg, traced
         self.world = mesh_cfg.num_devices
-        specs = tree_specs(model.param_specs(), model.param_axes(), plan, mesh_cfg, "param")
-        # each key's split dim per mesh axis in the tensors the model is
-        # handed (a stacked key's per-layer leaves lose the layer dim, which
-        # never splits)
-        self.dims = {k: {axis: d - 1 if k.startswith(stacked) else d
-                         for axis, d in _split_dims(spec).items()}
-                     for k, spec in specs.items()}
+        self.dims = data_split_dims(model, plan, mesh_cfg)
         # the model ranks of a data group see the same rows (batch_specs
         # splits only a batch that divides evenly over the data axes;
         # otherwise every rank takes every row), so each rank's share of the
@@ -241,8 +262,20 @@ class _Ranks:
                                                             or plan.expert_parallel)
         self.groups = self.data_group = self.model_group = None
 
+    @property
+    def rank(self) -> int:
+        return self.traced.rank if self.traced is not None else dist.get_rank()
+
+    @property
+    def world_group(self):
+        """The group of every rank of the mesh (None: the default one)."""
+        return None if self.traced is None else self.traced.group(self.mesh_cfg.axis_names)
+
     def check(self) -> None:
-        """The step runs inside a process group of one rank a device."""
+        """The step runs inside a process group of one rank a device (or on
+        a traced mesh)."""
+        if self.traced is not None:
+            return
         if not dist.is_initialized():
             raise RuntimeError(f"a train step over {self.world} devices runs inside an "
                                f"initialised process group (launch/mesh.init_distributed)")
@@ -254,7 +287,7 @@ class _Ranks:
         """The forward's :class:`ShardCtx` on this rank, with the mesh's
         data and model groups (made at the step's first call)."""
         if self.groups is None:
-            self.groups = mesh_groups(self.mesh_cfg, device)
+            self.groups = mesh_groups(self.traced or self.mesh_cfg, device)
         self.data_group, self.model_group = self.groups
         return ShardCtx(self.plan, self.model_group if self.on_model else None,
                         gather=self.gather if fsdp else None,
@@ -263,7 +296,7 @@ class _Ranks:
     def rows(self, batch: Dict) -> Dict:
         """This rank's rows of the global batch."""
         specs = batch_specs(batch, self.plan, self.mesh_cfg)
-        return {k: local_block(v, specs[k], self.mesh_cfg, dist.get_rank())
+        return {k: local_block(v, specs[k], self.mesh_cfg, self.rank)
                 for k, v in batch.items()}
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
@@ -273,11 +306,7 @@ class _Ranks:
     def gather(self, prefix: str, tensors: Dict) -> Dict:
         """``ShardCtx.gather`` (FSDP): each tensor whole over the data axis
         from this rank's block of it."""
-        out = {}
-        for name, t in tensors.items():
-            d = self.dims[prefix + name].get("data")
-            out[name] = t if d is None else comm.AllGatherDim.apply(t, d, self.data_group)
-        return out
+        return gather_over_data(self.dims, self.data_group, prefix, tensors)
 
     def reduce_whole(self, grads: Dict) -> None:
         """Sums over the data ranks the gradients of the parameters every
@@ -297,9 +326,32 @@ class _Ranks:
         each gradient exactly once over the mesh, on the first rank of every
         mesh axis its spec does not split (a gradient is the same on every
         rank of such an axis)."""
-        coord = dict(zip(self.mesh_cfg.axis_names, _coordinate(self.mesh_cfg, dist.get_rank())))
+        coord = dict(zip(self.mesh_cfg.axis_names, _coordinate(self.mesh_cfg, self.rank)))
         return [all(c == 0 for axis, c in coord.items() if axis not in self.dims[k])
                 for k, g in grads.items() for _ in (g if isinstance(g, list) else [g])]
+
+
+def data_split_dims(model, plan: PlanConfig, mesh_cfg: MeshConfig) -> Dict[str, Dict[str, int]]:
+    """Each parameter's split dim per mesh axis in the tensors a layer is
+    handed (a stacked key's per-layer tensors lose the layer dim, which
+    never splits)."""
+    stacked = tuple(prefix for prefix, _n, _b in model._stacks())
+    specs = tree_specs(model.param_specs(), model.param_axes(), plan, mesh_cfg, "param")
+    return {k: {axis: d - 1 if k.startswith(stacked) else d
+                for axis, d in _split_dims(spec).items()}
+            for k, spec in specs.items()}
+
+
+def gather_over_data(dims: Dict[str, Dict[str, int]], group, prefix: str,
+                     tensors: Dict) -> Dict:
+    """FSDP's gather: each of ``tensors`` (keys under ``prefix``) whole over
+    the data axes from this rank's block of it (the gradient
+    reduce-scattered)."""
+    out = {}
+    for name, t in tensors.items():
+        d = dims[prefix + name].get("data")
+        out[name] = t if d is None else comm.AllGatherDim.apply(t, d, group)
+    return out
 
 
 def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
@@ -307,12 +359,15 @@ def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
     """``step(params, opt_state, batch, step) -> (params, opt_state,
     metrics)``; ``params`` and ``opt_state`` are updated in place and
     returned. ``metrics`` holds 0-d tensors: ``xent``, ``aux``, ``loss``
-    and ``grad_norm`` (0 without clipping)."""
+    and ``grad_norm`` (0 without clipping). ``mesh_cfg`` may be a
+    ``TracedMesh``: the step of its rank, over trace groups."""
+    traced = mesh_cfg if isinstance(mesh_cfg, TracedMesh) else None
+    mesh_cfg = traced.cfg if traced is not None else mesh_cfg
     _check_trainable(model, mesh_cfg)
     opt = get_optimizer(train.optimizer)
     stacked = tuple(prefix for prefix, _n, _b in model._stacks())
     m = plan.microbatches
-    ranks = _Ranks(model, plan, mesh_cfg, stacked) if mesh_cfg.num_devices > 1 else None
+    ranks = _Ranks(model, plan, mesh_cfg, traced) if mesh_cfg.num_devices > 1 else None
     shard_ctx = None
 
     def backward(loss: torch.Tensor) -> None:
@@ -405,7 +460,7 @@ def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
                 if ranks is None or not ranks.any_split:   # every gradient whole on every rank
                     gnorm = global_norm(_flat(grads))
                 else:
-                    gnorm = global_norm(_flat(grads), ranks.counted(grads))
+                    gnorm = global_norm(_flat(grads), ranks.counted(grads), ranks.world_group)
                 scale = torch.clamp(train.grad_clip / (gnorm + 1e-9), max=1.0)
                 torch._foreach_mul_(_flat(grads), scale)
         else:
@@ -417,8 +472,8 @@ def make_train_step(model, plan: PlanConfig, mesh_cfg: MeshConfig,
     return train_step
 
 
-def global_norm(grads: List[torch.Tensor],
-                counted: Optional[List[bool]] = None) -> torch.Tensor:
+def global_norm(grads: List[torch.Tensor], counted: Optional[List[bool]] = None,
+                group=None) -> torch.Tensor:
     """The gradients' global L2 norm: the square root of the float32 sum of
     their squares, as the reference's ``clip_by_global_norm`` takes it, over
     the gradients divided by a power of two at or above their largest
@@ -431,18 +486,18 @@ def global_norm(grads: List[torch.Tensor],
     branches grow the gradient several times a layer. ``counted`` (FSDP)
     makes it the norm over the ranks: the power of two comes from the
     largest entry over the ranks, and the squares of the gradients
-    ``counted`` marks are summed over the ranks; without it the norm is this
-    rank's own."""
+    ``counted`` marks are summed over the ranks of ``group`` (the default
+    group where None); without it the norm is this rank's own."""
     amax = torch.stack([g.detach().abs().amax().float() for g in grads]).amax()
     if counted is not None:
-        comm.all_reduce_(amax, "max")
+        comm.all_reduce_(amax, "max", group)
     _mant, exp = torch.frexp(amax)
     scale = torch.where(amax > 0, torch.ldexp(torch.ones_like(amax), exp), 1.0)
     total = sum((((g.float() / scale) ** 2).sum()
                  for g, c in zip(grads, counted or [True] * len(grads)) if c),
                 torch.zeros((), device=amax.device))
     if counted is not None:
-        comm.all_reduce_(total)
+        comm.all_reduce_(total, group=group)
     return torch.sqrt(total) * scale
 
 

@@ -363,3 +363,207 @@ def ckpt_tp_case(rank, world, arch, params, path, mesh_shape):
             "blocks": {k: v.numpy() for k, v in restored.items()},
             "slices": {k: [[s.start, s.stop] for s in _slices(shards[k], v.shape)]
                        for k, v in params.items()}}
+
+
+def tp_serve_case(rank, world, arch, params, cases, mesh_shape, cut, tokens, lengths,
+                  cache_len, n_new, extra=None):
+    """Serving under a ``("data", "model")`` mesh of ``mesh_shape``: for each
+    case ``(name, plan fields, decode)`` this rank's prompt pass
+    (``make_prefill`` under the plan: its rows and, under context-parallel
+    prefill, its block of the prompt) and ``n_new`` greedy decode ticks
+    (``make_decode_step``) from the handed-off cache, ``decode`` "dense" or
+    the paged "paged" / "gather" read of the same cache as slot stacks.
+    A family without a handoff returns the last position's logits and
+    decodes from a zero cache (an encoder-decoder's cross K/V from
+    ``build_cross_cache``) at positions from 0. Returns per case this
+    rank's rows' first logits, each tick's logits, the stream, the cache
+    block shapes and the collective calls."""
+    from dataclasses import replace as dc_replace
+
+    import torch
+
+    from repro_torch.config import MeshConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import comm
+    from repro_torch.core.strategies import PlanConfig, Strategy
+    from repro_torch.launch.mesh import mesh_groups
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.serve_loop import make_decode_step, make_prefill, serve_ctx
+    from repro_torch.runtime.train_loop import batch_specs, local_block, shard_params
+
+    torch.set_num_threads(1)
+    cfg = dc_replace(get_config(arch), **dict(cut))
+    model = build_model(cfg, dtype=torch.float32)
+    full = {k: torch.from_numpy(v) for k, v in params.items()}
+    mesh_cfg = MeshConfig(tuple(mesh_shape), ("data", "model"))
+    groups = mesh_groups(mesh_cfg, "cpu")
+    out = []
+    for name, fields, decode in cases:
+        plan = PlanConfig(**dict(dict(strategy=Strategy.DP_TP, batch_axes=("data",),
+                                      cache_batch_axes=("data",), tensor_parallel=True,
+                                      remat=False), **dict(fields)))
+        local = shard_params(full, model, plan, mesh_cfg, rank)
+        batch = {"tokens": torch.from_numpy(tokens), "lengths": torch.from_numpy(lengths)}
+        batch.update({k: torch.from_numpy(v) for k, v in (extra or {}).items()})
+        specs = batch_specs(batch, plan, mesh_cfg)
+        mine = {k: local_block(v, specs[k], mesh_cfg, rank) for k, v in batch.items()}
+        ctx = serve_ctx(plan, mesh_cfg, groups, "cpu")
+        comm.reset_stats()
+        with torch.no_grad():
+            prefill_calls = None
+            if model.supports_handoff:
+                first, cache = make_prefill(model, plan=plan, mesh_cfg=mesh_cfg, groups=groups,
+                                            device="cpu")(local, mine)
+                prefill_calls = dict(comm.STATS["calls"])
+                pos = mine["lengths"].clone()
+            else:
+                prompt = {k: v for k, v in mine.items() if k != "lengths"}
+                first = make_prefill(model, plan=plan, mesh_cfg=mesh_cfg, groups=groups,
+                                     device="cpu")(local, prompt)[0]
+                prefill_calls = dict(comm.STATS["calls"])
+                rows = first.shape[0]
+                cache = model.init_cache(tokens.shape[0], cache_len, "cpu", ctx)
+                if cfg.is_encdec:
+                    cache.update(model.build_cross_cache(local, mine["frames"], ctx))
+                pos = torch.zeros((rows,), dtype=torch.int32)
+            shapes = {k: tuple(v.shape) for k, v in cache.items()}
+            page, tables = 0, None
+            if decode != "dense":
+                page = 8
+                kv_key = next(k for k in cache if model.is_paged_cache_key(k))
+                rows, sc = cache[kv_key].shape[1], cache[kv_key].shape[2]
+                for k in [k for k in cache if model.is_paged_cache_key(k)]:
+                    cache[k] = cache[k].reshape(cache[k].shape[0], rows * sc, *cache[k].shape[3:])
+                tables = torch.arange(rows * (sc // page), dtype=torch.int32).view(rows, -1)
+            step = make_decode_step(model, page=page, seq_len=cache_len,
+                                    decode_kernel=decode if decode != "dense" else "gather",
+                                    plan=plan, mesh_cfg=mesh_cfg, groups=groups, device="cpu")
+            tok = torch.argmax(first, dim=-1).to(torch.int32)[:, None]
+            stream, logits = [tok], []
+            comm.reset_stats()
+            for _ in range(n_new):
+                args = (local, cache, tok, pos) + ((tables,) if tables is not None else ())
+                lg, cache = step(*args)
+                logits.append(lg[:, -1].numpy())
+                tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+                stream.append(tok)
+                pos = pos + 1
+            decode_calls = {k: v / n_new for k, v in comm.STATS["calls"].items()}
+        out.append({"name": name, "first": first.numpy(), "logits": logits,
+                    "stream": torch.cat(stream, dim=1).numpy(), "cache_shapes": shapes,
+                    "prefill_calls": prefill_calls, "decode_calls": decode_calls,
+                    "cache_group": None if ctx is None or ctx.cache_group is None
+                    else comm.world_size(ctx.cache_group)})
+    return out
+
+
+def dryrun_count_case(rank, world, arch, mesh_shape, cases, batch, seq):
+    """Each case ``(kind, config fields)``: one train step, prompt pass or
+    decode tick of ``arch`` in float32 on this rank of a ``("data",
+    "model")`` mesh under the plan ``_torch_dryrun_plans.plan_of`` builds,
+    from seeded weights; the collective calls, bytes and traffic it made
+    (``comm.STATS``)."""
+    import torch
+
+    from repro_torch.config import MeshConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import comm
+    from repro_torch.data import make_batch
+    from repro_torch.launch.mesh import mesh_groups
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.serve_loop import make_decode_step, make_prefill, serve_ctx
+    from repro_torch.runtime.train_loop import (batch_specs, init_opt_state, local_block,
+                                                make_train_step, shard_params)
+    from _torch_dryrun_plans import plan_of
+
+    torch.set_num_threads(1)
+    cfg = get_config(arch)
+    model = build_model(cfg, dtype=torch.float32)
+    mesh_cfg = MeshConfig(tuple(mesh_shape), ("data", "model"))
+    groups = mesh_groups(mesh_cfg, "cpu")
+    full = model.init_params(torch.Generator().manual_seed(0))
+    out = []
+    for kind, fields in cases:
+        plan = plan_of(cfg, kind, fields, mesh_cfg, batch, seq)
+        local = shard_params(full, model, plan.config, mesh_cfg, rank)
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(1, cfg.vocab_size, (batch, seq), generator=gen, dtype=torch.int32)
+        with torch.set_grad_enabled(kind == "train"):
+            if kind == "train":
+                train = TrainConfig()
+                state = init_opt_state(train.optimizer, local, plan.config)
+                step = make_train_step(model, plan.config, mesh_cfg, train)
+                b = make_batch(cfg, plan.shape, step=0, dtype=torch.float32, device="cpu")
+                step(local, state, b, 0)        # the first call makes the mesh's groups
+                comm.reset_stats()
+                step(local, state, b, 1)
+            elif kind == "prefill":
+                full_batch = {"tokens": tokens,
+                              "lengths": torch.full((batch,), seq, dtype=torch.int32)}
+                specs = batch_specs(full_batch, plan.config, mesh_cfg)
+                mine = {k: local_block(v, specs[k], mesh_cfg, rank) for k, v in full_batch.items()}
+                prefill = make_prefill(model, plan=plan.config, mesh_cfg=mesh_cfg, groups=groups,
+                                       device="cpu")
+                comm.reset_stats()
+                prefill(local, mine)
+            else:
+                dec = plan.config.replace(seq_axes=())
+                ctx = serve_ctx(dec, mesh_cfg, groups, "cpu", model)
+                cache = model.init_cache(batch, seq, "cpu", ctx)
+                step = make_decode_step(model, plan=plan.config, mesh_cfg=mesh_cfg,
+                                        groups=groups, device="cpu")
+                rows = cache[next(iter(cache))].shape[1]
+                comm.reset_stats()
+                step(local, cache, tokens[:rows, :1].contiguous(), torch.tensor(3, dtype=torch.int32))
+        out.append({k: dict(c) for k, c in comm.STATS.items()})
+    return out
+
+
+def pod_train_case(rank, world, arch, params, cases, steps, batch, seq, mesh_shape):
+    """``tp_train_case`` over a ``("pod", "data", "model")`` mesh of
+    ``mesh_shape`` (pod and data together the data axes): per case the
+    plan's fields, the per-step metrics, the collective calls, and on rank
+    0 the parameters gathered from every rank's blocks."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.config import InputShape, MeshConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import comm
+    from repro_torch.core.planner import compile_plan
+    from repro_torch.data import make_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.train_loop import (init_opt_state, make_train_step, shard_params,
+                                                train_shardings)
+
+    axes = ("pod", "data", "model")
+    cfg = get_config(arch)
+    model = build_model(cfg, dtype=torch.float32)
+    full = {k: torch.from_numpy(v) for k, v in params.items()}
+    mesh_cfg = MeshConfig(tuple(mesh_shape), axes)
+    device_mesh = init_device_mesh("cpu", tuple(mesh_shape), mesh_dim_names=axes)
+    shape = InputShape("t", seq, batch, "train")
+    out = []
+    for strategy, opt, lr, clip, micro, seq_shard in cases:
+        plan = compile_plan(cfg, shape, mesh_cfg, TrainConfig(force_strategy=strategy),
+                            dtype="float32").config
+        plan = plan.replace(microbatches=micro, opt_state_dtype="float32",
+                            seq_shard_checkpoints=seq_shard)
+        local = shard_params(full, model, plan, mesh_cfg)
+        state = init_opt_state(opt, local, plan)
+        step = make_train_step(model, plan, mesh_cfg,
+                               TrainConfig(optimizer=opt, learning_rate=lr, grad_clip=clip))
+        mets = []
+        comm.reset_stats()
+        for i in range(steps):
+            b = make_batch(cfg, shape, step=i, dtype=torch.float32, device="cpu")
+            local, state, met = step(local, state, b, i)
+            mets.append({k: float(v) for k, v in met.items()})
+        calls = dict(comm.STATS["calls"])
+        (_s, _p, shards), _o = train_shardings(model, plan, mesh_cfg, TrainConfig(), device_mesh)
+        gathered = {k: shards[k].gather(v) for k, v in local.items()}
+        out.append({"plan": (plan.strategy.value, plan.params_over_data, plan.batch_axes,
+                             plan.tensor_parallel, plan.seq_shard_checkpoints),
+                    "metrics": mets, "calls": calls,
+                    "params": {k: v.numpy() for k, v in gathered.items()} if rank == 0 else None})
+    return out

@@ -225,8 +225,14 @@ def test_placements_follow_the_spec_and_the_mesh_order():
 def test_production_mesh_raises_and_mesh_cfg_is_the_reference():
     from repro.launch import mesh as jax_mesh_module
 
-    with pytest.raises(NotImplementedError, match="Queue A 15"):
-        port_mesh.make_production_mesh()
+    # the pod meshes are traced: one rank's view, its groups trace groups,
+    # and no process group is started
+    for multi in (False, True):
+        traced = port_mesh.make_production_mesh(multi_pod=multi)
+        assert traced.cfg == port_mesh.mesh_cfg_for(multi_pod=multi)
+        assert traced.model_group.size == 16
+        assert traced.data_group.size == (32 if multi else 16)
+    assert not torch.distributed.is_initialized()
     for multi in (False, True):
         assert dataclasses.asdict(port_mesh.mesh_cfg_for(multi_pod=multi)) == \
             dataclasses.asdict(jax_mesh_module.mesh_cfg_for(multi_pod=multi))

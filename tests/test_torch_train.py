@@ -335,8 +335,9 @@ def test_multi_device_train_step_raises_and_names_its_slice():
     (tensor, sequence and expert parallelism under DP_TP and FSDP_TP); each
     runs inside a process group of as many ranks
     (tests/test_torch_train_sharded*.py, tests/test_torch_train_tp*.py) and
-    raises outside one. A mesh with other axes raises and names the item
-    that brings pod-scale meshes."""
+    raises outside one; so does a pod mesh, whose pod and data axes are the
+    data axes. A mesh with other axes raises and names the meshes the port
+    trains over."""
     model = build_model(get_config("yi-6b-smoke"), dtype=torch.float32)
     for over_data in (False, True):
         plan = PlanConfig(strategy=Strategy.FSDP if over_data else Strategy.DATA_PARALLEL,
@@ -355,9 +356,14 @@ def test_multi_device_train_step_raises_and_names_its_slice():
             assert callable(step)
             with pytest.raises(RuntimeError, match="process group"):
                 step({}, {}, {}, 0)
-    with pytest.raises(NotImplementedError, match="Queue A 15"):
+    step = make_train_step(model, PlanConfig(strategy=Strategy.DP_TP, tensor_parallel=True,
+                                             batch_axes=("pod", "data")),
+                           MeshConfig((2, 2, 2), ("pod", "data", "model")), TrainConfig())
+    with pytest.raises(RuntimeError, match="process group"):
+        step({}, {}, {}, 0)
+    with pytest.raises(NotImplementedError, match="'pod', 'data', 'model'"):
         make_train_step(model, PlanConfig(strategy=Strategy.DP_TP, tensor_parallel=True),
-                        MeshConfig((2, 2, 2), ("pod", "data", "model")), TrainConfig())
+                        MeshConfig((2, 2), ("data", "expert")), TrainConfig())
 
 
 def test_planner_compresses_opt_state_for_yi_6b_on_one_h100():
