@@ -68,8 +68,9 @@ Phases, each of which must pass (nothing is caught):
               the layer count and the plans; then each request once more (in
               its bucket, with 8 or more new tokens) under ``torch.profiler``
               for the device's busy time and idle share in prefill and in
-              the graphed decode, and the paged split-kernel events on the
-              device held at one per attention layer and tick; then
+              the graphed decode, and the paged split-kernel events inside
+              the decode span's device-side annotation held at one per
+              attention layer and tick; then
               the planner's paged and gather seconds per bucket beside both
               operators' measured device time;
    serve-engine — phase 5's model and weights with a pool of one arena,
@@ -168,12 +169,16 @@ Phases, each of which must pass (nothing is caught):
               attention forced to the plain path (``ops.BACKEND``), with 2
               microbatches, and with remat off: losses, grad norms and
               parameters within the stated tolerances, flash launches exact
-              (layers x steps x microbatches x (1 + remat));
+              (the training forward layers x steps x microbatches x (1 +
+              remat), the backward kernel ``flash_attention_bwd`` layers x
+              steps x microbatches; every train phase below holds both);
 13. train    — full Yi-6B (32 layers, bfloat16, seeded random weights),
               (4, 2048), 8 steps of adam through ``repro_torch.launch.train``'s
               own entry on the plan the port's planner compiles for one H100:
               losses finite and falling, flash launches exact, no CPU
-              attention operator called; step ms, tokens/s, MFU, peak memory
+              attention operator and no call of the backward's plain rule
+              (every train phase on the card fails on one); step ms,
+              tokens/s, MFU, peak memory
               against the plan's estimate, the checkpoint's save and restore
               time (restored == trained), then one step traced: device time
               by part (matmul, flash forward, attention backward, optimizer,
@@ -260,7 +265,14 @@ Phases, each of which must pass (nothing is caught):
 
 Phase 3 also holds ``flash_attention_train`` at the serving shapes (D = 128
 and 256, both dtypes): its output bit for bit the serving op's, its lse and
-its recompute backward's gradients against the plain versions; and the
+its backward kernel's gradients against the plain versions; the backward
+kernel ``flash_attention_bwd`` (csrc/flash_attention_bwd.cu) on its own at
+every head dim, g from 1 to 16, every mask, Whisper's 1500-key and 448 x
+1500 shapes and rows that see no key: float32 against the plain rule,
+bfloat16 against the plain version in its order and against autograd
+through the full-score form, two calls bit for bit equal, D = 96 raising,
+timed at Yi-6B's training shape beside the plain rule, SDPA's backward and
+its bound; and the
 scan kernels' training ops at Mamba-2's (4, 2048, 64, 64, 128) and
 RecurrentGemma's (4, 2048, 2560) training shapes and smaller, float32 and
 bfloat16, strong decay included: each training forward's output bit for
@@ -454,7 +466,7 @@ ANALYSIS_MODELS = (("yi-6b", SERVE_REQUESTS), ("mamba2-1.3b", SERVE_REQUESTS),
                    ("recurrentgemma-2b", HYBRID_SERVE_REQUESTS))
 ANALYSIS_MEASURED: list = []
 SERVE_NEW_TOKENS = 32     # new tokens of each request of phases 5, 7 and 11
-# flash_attention_train's recompute backward in bfloat16 against autograd
+# flash_attention_train's backward kernel in bfloat16 against autograd
 # through the plain full-score form in float32 on the same bfloat16 inputs:
 # rtol and the RMS limit are the flash check's 2^-8 (the gradients' own
 # rounding, ~1.8e-3 as an RMS ratio); the backward's delta = sum(dout * out)
@@ -463,6 +475,43 @@ SERVE_NEW_TOKENS = 32     # new tokens of each request of phases 5, 7 and 11
 # the CPU at S = 2048, D = 128 and 256), so atol is a quarter of the
 # reference gradient's RMS
 FLASH_BWD_BF16 = (0.25, 2.0 ** -8, 2.0 ** -8)
+# the backward kernel in bfloat16 against its plain version in the kernel's
+# order and rounding (attention_bwd_tiled, float32, on the same inputs,
+# out and lse included): rtol and the RMS limit are 2^-8, the gradients'
+# own rounding (~1.7e-3 as an RMS ratio); what float32 summation order adds
+# is the few P and dS values that round to bfloat16 the other way, which
+# near a zero gradient is not relative to it: the tiled version with its
+# products taken in float64 (another order) left up to 5.6e-3 of the
+# reference's RMS past the rtol term on the CPU at Whisper's cross shape,
+# so atol is 2^-6 of the reference gradient's RMS
+FLASH_BWD_TILED_BF16 = (2.0 ** -6, 2.0 ** -8, 2.0 ** -8)
+# the backward kernel's cases (flash_bwd_cases): (name, b, hq, hkv, d, sq,
+# sk, causal, window, q_offset); the first is Yi-6B's training shape, timed
+FLASH_BWD_CASES = (
+    ("Yi-6B training shape", 4, 32, 4, 128, 2048, 2048, True, 0, -1),
+    ("D=128 g=8 S=1000 causal (ragged)", 1, 16, 2, 128, 1000, 1000, True, 0, -1),
+    ("D=128 g=8 S=1000 window=100", 1, 16, 2, 128, 1000, 1000, True, 100, -1),
+    ("D=128 g=2 Sq=512 Sk=2048 q_offset=700 window=256", 1, 4, 2, 128, 512, 2048, True, 256,
+     700),
+    ("D=128 g=2 Sq=300 Sk=200 causal (rows that see no key)", 1, 4, 2, 128, 300, 200, True, 0,
+     -1),
+    ("D=128 g=8 Sq=1024 Sk=2048 q_offset=1024 (a sequence shard of 16/2 heads)", 1, 16, 2, 128,
+     1024, 2048, True, 0, 1024),
+    ("D=128 g=16 S=512 causal (Qwen3-MoE)", 1, 32, 2, 128, 512, 512, True, 0, -1),
+    ("D=128 g=2 S=2304 causal (InternVL2)", 1, 16, 8, 128, 2304, 2304, True, 0, -1),
+    ("D=32 g=2 S=100 causal", 2, 4, 2, 32, 100, 100, True, 0, -1),
+    ("D=32 g=1 S=100 bidirectional", 2, 2, 2, 32, 100, 100, False, 0, -1),
+    ("D=64 g=1 S=1500 bidirectional (Whisper encoder)", 2, 16, 16, 64, 1500, 1500, False, 0, -1),
+    ("D=64 g=1 Sq=448 Sk=1500 (Whisper cross)", 2, 16, 16, 64, 448, 1500, False, 0, -1),
+    ("D=64 g=1 S=448 causal (Whisper decoder)", 2, 16, 16, 64, 448, 448, True, 0, -1),
+    ("D=256 g=10 S=2048 window=2048 (RecurrentGemma)", 1, 10, 1, 256, 2048, 2048, True, 2048,
+     -1),
+    ("D=256 g=10 S=500 window=64", 1, 10, 1, 256, 500, 500, True, 64, -1),
+    ("D=256 g=5 Sq=300 Sk=200 causal (5/1 heads a rank)", 1, 5, 1, 256, 300, 200, True, 0, -1),
+    ("D=256 g=2 S=1000 bidirectional", 1, 4, 2, 256, 1000, 1000, False, 0, -1),
+    ("D=256 g=10 Sq=200 Sk=1100 q_offset=700 window=300", 1, 10, 1, 256, 200, 1100, True, 300,
+     700),
+)
 # train-check: Yi-6B widths cut to TRAIN_CHECK_LAYERS layers, float32,
 # (batch, seq), TRAIN_CHECK_STEPS steps, grad_clip 1.0, per optimizer lr,
 # on trainable_params' weights. The kernel path against the plain path (and
@@ -731,6 +780,7 @@ def phase_build():
     out = _build.build_all()
     _build.library("paged_decode", PA._bind)
     _build.library("flash_attention", FA._bind)
+    _build.library("flash_attention_bwd", FA._bind_bwd)
     _build.library("ssd_scan", SSD._bind)
     _build.library("matmul", MM._bind)
     _build.library("conv2d_im2col", CONV._bind)
@@ -875,6 +925,7 @@ def phase_kernels():
         bound_by=by, library_ms=lib_ms)
     del q, k, v, ke, ve
     results["flash_attention_train"] = flash_train_cases(flush, plain_flash)
+    results["flash_attention_bwd"] = flash_bwd_cases(flush)
     results["flash_attention_d256"] = flash_hybrid_cases(flush, plain_flash)
     results["paged_decode_attention_g10_d256"] = paged_hybrid_cases(flush)
     results.update(moe_kernel_cases(flush, plain_flash))
@@ -935,7 +986,7 @@ def flash_train_cases(flush, plain_flash) -> dict:
                 if dtype == torch.bfloat16:
                     rms = float(want.pow(2).mean().sqrt())
                     gtol = (FLASH_BWD_BF16[0] * rms,) + FLASH_BWD_BF16[1:]
-                grads[gname] = check_close(f"{name} {gname} (recompute backward vs autograd "
+                grads[gname] = check_close(f"{name} {gname} (backward kernel vs autograd "
                                            f"through the full-score form)", got, want, gtol)
             del qq, kk, vv, qf, kf, vf, dout
             torch.cuda.empty_cache()
@@ -1404,8 +1455,128 @@ def flash_train_check(name, q, k, v, causal: bool) -> None:
         gtol = FP32_TOL
         if dtype == torch.bfloat16:
             gtol = (FLASH_BWD_BF16[0] * float(want.pow(2).mean().sqrt()),) + FLASH_BWD_BF16[1:]
-        check_close(f"{name} {gname} (recompute backward vs autograd through the full-score "
+        check_close(f"{name} {gname} (backward kernel vs autograd through the full-score "
                     "form)", got, want, gtol)
+
+
+def flash_bwd_cases(flush) -> dict:
+    """The attention backward kernel (``flash_attention_bwd``) on
+    FLASH_BWD_CASES (every head dim, g from 1 to 16, causal, window,
+    q_offset, Sq != Sk, ragged tails, bidirectional, rows that see no key)
+    from the training forward kernel's out and lse, in float32 against the
+    plain rule (``attention_bwd_torch``) at FP32_TOL and in bfloat16
+    against ``attention_bwd_tiled`` at FLASH_BWD_TILED_BF16 and against
+    autograd through the plain full-score form in float32 at
+    FLASH_BWD_BF16; rows that see no key give dq = 0 and keys no row sees
+    dk = dv = 0; two calls on the same inputs give the same bits; a head
+    dim the kernel is not built for (96) and mixed dtypes raise. At Yi-6B's
+    training shape in bfloat16: events, profiler device time, the plain
+    rule, scaled_dot_product_attention's backward on expanded K/V (a
+    yardstick, never called by the port) and the bound from ``work_bwd``.
+    Returns its kernels-line entry."""
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    entry = None
+    for name, b, hq, hkv, d, sq, sk, causal, window, off in FLASH_BWD_CASES:
+        mask = dict(causal=causal, window=window, q_offset=off)
+        qpos = (sk - sq if off < 0 else off) + torch.arange(sq, device="cuda")
+        seen = FA._chunk_mask(qpos, 0, sk, sk, causal, window)
+        for dtype in (torch.float32, torch.bfloat16):
+            label = f"flash_bwd {str(dtype)[6:]} {name} (B={b}, Hq={hq}, Hkv={hkv}, D={d}, " \
+                    f"Sq={sq}, Sk={sk})"
+            q = torch.randn((b, hq, sq, d), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dtype)
+            dout = torch.randn((b, hq, sq, d), generator=gen, device="cuda").to(dtype)
+            out, lse = FA.flash_attention_train(q, k, v, **mask)
+            args = (q, k, v, out, lse, dout)
+            got = FA.flash_attention_bwd(*args, **mask)
+            again = FA.flash_attention_bwd(*args, **mask)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                fail(f"{label}: two calls on the same inputs differ")
+            del again
+            if bool(got[0][:, :, ~seen.any(1)].any()):
+                fail(f"{label}: rows that see no key have a nonzero dq")
+            if bool(got[1][:, :, ~seen.any(0)].any()) or bool(got[2][:, :, ~seen.any(0)].any()):
+                fail(f"{label}: keys that no row sees have a nonzero dk or dv")
+            errs = []
+            if dtype == torch.float32:
+                want = FA.attention_bwd_torch(*args, **mask)
+                for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                    errs.append(check_close(f"{label} {gname} vs the plain rule", g, w,
+                                            FP32_TOL))
+                del want
+            else:
+                tiled = FA.attention_bwd_tiled(*args, **mask)
+                for gname, g, w in zip(("dq", "dk", "dv"), got, tiled):
+                    rms = float(w.pow(2).mean().sqrt())
+                    tol = (FLASH_BWD_TILED_BF16[0] * rms,) + FLASH_BWD_TILED_BF16[1:]
+                    errs.append(check_close(f"{label} {gname} vs the kernel's order", g, w,
+                                            tol))
+                del tiled
+                leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+                FA.flash_attention_torch(*leaves, **mask).backward(dout.float())
+                for gname, g, leaf in zip(("dq", "dk", "dv"), got, leaves):
+                    rms = float(leaf.grad.pow(2).mean().sqrt())
+                    tol = (FLASH_BWD_BF16[0] * rms,) + FLASH_BWD_BF16[1:]
+                    check_close(f"{label} {gname} vs autograd through the full-score form", g,
+                                leaf.grad, tol)
+                del leaves
+            del got
+            torch.cuda.empty_cache()
+            if name == FLASH_BWD_CASES[0][0] and dtype == torch.bfloat16:
+                entry = _flash_bwd_timing(args, mask, max(errs), flush)
+            del q, k, v, dout, out, lse, args
+    q = torch.zeros((1, 4, 64, 96), device="cuda", dtype=torch.bfloat16)
+    kv = torch.zeros((1, 2, 64, 96), device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros((1, 4, 64), device="cuda")
+    for what, args in (("D=96", (q, kv, kv, q, lse, q)),
+                       ("dout in float32", (q[..., :64], kv[..., :64], kv[..., :64],
+                                            q[..., :64], lse, q[..., :64].float()))):
+        try:
+            FA.flash_attention_bwd(*(t.contiguous() for t in args))
+        except (ValueError, TypeError) as e:
+            print(f"  flash_bwd {what}: raises ({e})")
+        else:
+            fail(f"flash_bwd {what}: the kernel took a shape it is not built for")
+    return entry
+
+
+def _flash_bwd_timing(args, mask, err, flush) -> dict:
+    """The backward kernel at one shape (bfloat16): events, profiler device
+    time, the plain rule, scaled_dot_product_attention's backward on K/V
+    expanded to every head, and the bound; its kernels-line entry."""
+    q, k, v, out, lse, dout = args
+    g = q.shape[1] // k.shape[1]
+
+    def call():
+        return FA.flash_attention_bwd(*args, **mask)
+
+    ms = cuda_ms(call, flush=flush)
+    dev_ms, names = device_ms(call, "flash_bwd", flush)
+    plain_ms = cuda_ms(lambda: FA.attention_bwd_torch(*args, **mask), reps=3, warmup=1,
+                       flush=flush)
+    # yardstick only, never called by the port: the library's fused attention
+    # backward, K/V expanded beforehand, its forward's graph kept for the calls
+    qe, ke, ve = (t.detach().requires_grad_() for t in (q, k.repeat_interleave(g, 1),
+                                                        v.repeat_interleave(g, 1)))
+    o = F.scaled_dot_product_attention(qe, ke, ve, is_causal=mask["causal"])
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(o, (qe, ke, ve), dout, retain_graph=True),
+                     flush=flush)
+    del o, qe, ke, ve
+    flops, nbytes = FA.work_bwd(*args, mask["causal"], mask["window"], mask["q_offset"])
+    bound, by = _bound_ms(nbytes, flops, q.dtype)
+    print(f"  flash_bwd timing, {tuple(q.shape)} q, {tuple(k.shape)} k/v: kernel {ms:.4f} ms by "
+          f"events ({_tflops(flops, ms)}), device time {_dev(dev_ms)} ("
+          f"{', '.join(f'{_short(n)} {t:.4f}' for n, t in names.items()) or 'no events'}); "
+          f"plain rule {plain_ms:.3f} ms; scaled_dot_product_attention's backward "
+          f"{lib_ms:.4f} ms ({_tflops(flops, lib_ms)}); bound {bound:.4f} ms ({by}; "
+          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/kernels/flash_attention.py:116", max_abs_err=err, ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
 
 
 def _rglru_inputs(b, s, w, dtype, seed, decay="normal"):
@@ -3436,6 +3607,8 @@ def _kernel_family(name: str) -> str:
         return "ssd"
     if "rglru_scan" in name:
         return "rglru"
+    if "flash_bwd" in name:
+        return "flash_bwd"
     if "flash_" in name:
         return "flash"
     if "repro_mm_" in name:
@@ -3459,8 +3632,9 @@ def trace_decode(srv, requests) -> None:
     the rest of the span.
 
     The replayed graphs' launches are held against the device: the decode
-    span must hold one paged split-kernel event per attention layer and
-    tick where the plan chose paged, none elsewhere. A trace that misses
+    span's device-side annotation must hold one paged split-kernel event
+    per attention layer and tick where the plan chose paged, none
+    elsewhere. A trace that misses
     (a session can drop device events) is taken again, up to
     ``TRACE_ATTEMPTS`` times; the phase fails if none holds that count."""
     n_attn = srv.cfg.layer_pattern().count("a")
@@ -3479,11 +3653,11 @@ def trace_decode(srv, requests) -> None:
             steps = out["decode_steps"]
             paged = out["plan"].explain_axes()["decode_kernel"] == "paged"
             want = n_attn * steps if paged else 0
-            got = paged_split_events(events, DECODE_SPAN)
+            got, in_host = paged_split_events(events, DECODE_SPAN)
             if got == want:
                 break
             print(f"    req {shape}: trace {attempt} holds {got} paged split-kernel events "
-                  f"in the decode span, expected {want}")
+                  f"in the decode span's device annotation, expected {want}")
         else:
             fail(f"req {shape}: no trace in {TRACE_ATTEMPTS} held {want} paged "
                  f"split-kernel launches ({n_attn} attention layers x {steps} ticks)")
@@ -3491,20 +3665,28 @@ def trace_decode(srv, requests) -> None:
             span_report(events, span, n,
                         f"req {shape} bucket={out['bucket']} {span.split('.')[1]}")
         print(f"    req {shape}: {got / steps:.0f} paged split-kernel events per tick "
-              f"on the device ({n_attn} attention layers)")
+              f"on the device ({n_attn} attention layers); {in_host} of the {got} start "
+              "inside the decode span on the host clock")
 
 
 def paged_split_events(events, span: str):
     """The paged decode split-kernel events (one per wrapper call; the
-    combine kernel left out) that start inside the CPU span ``span``, or
-    None where the trace holds no such span."""
-    found = [e.time_range for e in events if e.name == span and e.device_type == DeviceType.CPU]
-    if not found:
-        return None
-    lo, hi = found[0].start, found[0].end
-    return sum(1 for e in events if e.device_type == DeviceType.CUDA
-               and lo <= e.time_range.start < hi
-               and ("paged_mma_kernel" in e.name or "paged_split_kernel" in e.name))
+    combine kernel left out) inside the device-side annotation of the CPU
+    span ``span`` (the kernels launched inside it, on the device's clock),
+    and, for the record, how many of them start inside the CPU span itself;
+    (None, None) where the trace holds no such span. Only the first
+    count is held: over a 24-tick decode the device timestamps of the last
+    kernels can land past the span's end on the host clock, though the
+    span ends after the device has finished them."""
+    found = _annotated(events, span)
+    host = [e.time_range for e in events if e.name == span and e.device_type == DeviceType.CPU]
+    if not found or not host:
+        return None, None
+    lo, hi = min(a for a, _ in found), max(b for _, b in found)
+    starts = [e.time_range.start for e in events if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation and lo <= e.time_range.start <= hi
+              and ("paged_mma_kernel" in e.name or "paged_split_kernel" in e.name)]
+    return len(starts), sum(1 for t in starts if host[0].start <= t < host[0].end)
 
 
 def span_report(events, span: str, n: int, label: str) -> None:
@@ -3780,10 +3962,11 @@ def phase_train_check() -> None:
         flash = kern[2]["flash_attention_train"]
         print(f"  {opt}: kernel path {flash} flash_attention_train launches "
               f"(expected {TRAIN_CHECK_LAYERS} layers x {TRAIN_CHECK_STEPS} steps x "
-              f"{1 + plan.remat})")
+              f"{1 + plan.remat}), {kern[2]['flash_attention_bwd']} flash_attention_bwd")
         if flash != per_step * TRAIN_CHECK_STEPS:
             fail(f"train-check {opt}: {flash} launches, expected "
                  f"{per_step * TRAIN_CHECK_STEPS}")
+        check_bwd_launches(f"train-check {opt}", kern[2], flash, plan.remat)
         for label, (p, backend) in runs.items():
             other = _train_run(model, cfg, p, opt, shape, init, backend)
             got = other[2]["flash_attention_train"]
@@ -3791,6 +3974,7 @@ def phase_train_check() -> None:
                     TRAIN_CHECK_LAYERS * (1 + p.remat) * p.microbatches * TRAIN_CHECK_STEPS)
             if got != want:
                 fail(f"train-check {opt} {label}: {got} launches, expected {want}")
+            check_bwd_launches(f"train-check {opt} {label}", other[2], want, p.remat)
             _same_trajectory(f"{opt}, kernel path vs {label} ({got} launches)", opt,
                              kern, other)
             del other
@@ -3800,13 +3984,26 @@ def phase_train_check() -> None:
     torch.cuda.empty_cache()
 
 
+def check_bwd_launches(label: str, launches: dict, fwd: int, remat: bool) -> int:
+    """Holds the attention backward kernel's launches to one a flash
+    training forward of a step's first pass: ``fwd`` forwards (the remat
+    recompute's included) over 1 + remat. Returns the count."""
+    want = fwd // (1 + remat)
+    if launches["flash_attention_bwd"] != want:
+        fail(f"{label}: {launches['flash_attention_bwd']} flash_attention_bwd launches, "
+             f"expected {want} (one a layer's first forward)")
+    return want
+
+
 class _Calls:
     """Counts calls of the plain functions that a step on the card must not
-    take while a train phase runs: the model's CPU attention operators and
-    the scan kernels' plain versions (``ops``' own names and the modules'
-    names the training ops' CPU implementations call)."""
+    take while a train phase runs: the model's CPU attention operators, the
+    attention backward's plain rule and the scan kernels' plain versions
+    (``ops``' own names and the modules' names the training ops' CPU
+    implementations call)."""
 
-    NAMES = ((ATT, "_einsum"), (ATT, "_blocked"), (ops, "ssd_scan_torch"),
+    NAMES = ((ATT, "_einsum"), (ATT, "_blocked"), (FA, "attention_bwd_torch"),
+             (ops, "ssd_scan_torch"),
              (ops, "rglru_scan_torch"), (SSD, "ssd_scan_torch"), (SSD, "ssd_scan_train_torch"),
              (SSD, "ssd_scan_bwd_torch"), (RG, "rglru_scan_torch"),
              (RG, "rglru_scan_train_torch"), (RG, "rglru_scan_bwd_torch"))
@@ -3856,7 +4053,7 @@ def step_breakdown(events, span: str) -> None:
              "ssd forward": 0.0, "ssd backward": 0.0, "rglru forward": 0.0,
              "rglru backward": 0.0, "optimizer": 0.0, "other": 0.0}
     kernels = {fam: sum(1 for e in inside if _kernel_family(e.name) == fam)
-               for fam in ("flash", "ssd", "rglru")}
+               for fam in ("flash", "flash_bwd", "ssd", "rglru")}
     for e in inside:
         dur = e.time_range.end - e.time_range.start
         part = next((p for p, spans in regions.items()
@@ -3913,8 +4110,9 @@ def phase_train() -> dict:
           f"{run.plan.memory.total / 2**30:.2f} GiB"
           f"{' — ABOVE the estimate' if peak > run.plan.memory.total else ''}")
     print(f"  launches {launches} (flash_attention_train expected {layers} layers x "
-          f"{TRAIN_STEPS} steps x {1 + plan.remat} = {want}); the model's CPU attention "
-          f"operators called {plain.calls}")
+          f"{TRAIN_STEPS} steps x {1 + plan.remat} = {want}, flash_attention_bwd "
+          f"{layers * TRAIN_STEPS * plan.microbatches}); the plain attention functions called "
+          f"{plain.calls}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"train: a loss is not finite: {losses}")
     if not statistics.mean(losses[-3:]) < losses[0]:
@@ -3923,8 +4121,9 @@ def phase_train() -> dict:
     if launches["flash_attention_train"] != want:
         fail(f"train: {launches['flash_attention_train']} flash_attention_train launches, "
              f"expected {want}")
+    check_bwd_launches("train", launches, want, plan.remat)
     if any(plain.calls.values()):
-        fail(f"train: the step on the card took the CPU attention operators {plain.calls}")
+        fail(f"train: the step on the card took the plain attention functions {plain.calls}")
 
     t0 = time.perf_counter()
     restored, step = load_checkpoint(str(ckpt), run.params)
@@ -3950,18 +4149,20 @@ def phase_train() -> dict:
     del prof, batch, run
     gc.collect()
     torch.cuda.empty_cache()
-    return {"flash_attention_train": launches["flash_attention_train"]}
+    return {k: launches[k] for k in ("flash_attention_train", "flash_attention_bwd")}
 
 
 def _scan_launches(pattern: str, plan, steps: int) -> dict:
     """Each training kernel's launches for ``steps`` steps of a stack of
     ``pattern``: the forwards once a layer and microbatch, twice under
-    remat (the recompute); the backwards once."""
+    remat (the recompute); the backwards (the attention backward's too)
+    once."""
     m, fwd = plan.microbatches, 1 + plan.remat
     n = {k: pattern.count(k) for k in "sra"}
     return {"ssd_scan_train": n["s"] * steps * m * fwd, "ssd_scan_bwd": n["s"] * steps * m,
             "rglru_scan_train": n["r"] * steps * m * fwd, "rglru_scan_bwd": n["r"] * steps * m,
-            "flash_attention_train": n["a"] * steps * m * fwd}
+            "flash_attention_train": n["a"] * steps * m * fwd,
+            "flash_attention_bwd": n["a"] * steps * m}
 
 
 def phase_train_check_recurrent(family: str) -> None:
@@ -4273,12 +4474,13 @@ def train_check_on_card(cfg, title: str) -> None:
         flash = kern[2]["flash_attention_train"]
         aux = f"; aux {[round(r['aux'], 6) for r in kern[0]]}" if cfg.num_experts else ""
         print(f"  {opt}: kernel path {flash} flash_attention_train launches (expected "
-              f"{want}){aux}")
+              f"{want}), {kern[2]['flash_attention_bwd']} flash_attention_bwd{aux}")
         if flash != want:
             fail(f"{label} {opt}: {flash} launches, expected {want}")
+        check_bwd_launches(f"{label} {opt}", kern[2], want, plan.remat)
         other = _train_run(model, cfg, plan, opt, shape, init, "torch")
-        if other[2]["flash_attention_train"]:
-            fail(f"{label} {opt}: the plain path launched the flash kernel")
+        if other[2]["flash_attention_train"] or other[2]["flash_attention_bwd"]:
+            fail(f"{label} {opt}: the plain path launched a flash kernel")
         for g, w in zip(kern[0], other[0]):
             rel = abs(g["aux"] - w["aux"]) / max(abs(w["aux"]), 1e-30)
             if not (math.isfinite(g["aux"]) and rel <= 1e-5):
@@ -4345,8 +4547,9 @@ def train_on_card(cfg, shape, label: str, flops: float, counted: str) -> tuple:
           f"{eplan.memory.total / 2**30:.2f} GiB"
           f"{' — ABOVE the estimate' if peak > eplan.memory.total else ''}")
     print(f"  launches {launches} (flash_attention_train expected {_flash_per_forward(cfg)} a "
-          f"forward x {TRAIN_STEPS} steps x {1 + plan.remat} x {plan.microbatches} = {want}); "
-          f"the model's CPU attention operators called {plain.calls}")
+          f"forward x {TRAIN_STEPS} steps x {1 + plan.remat} x {plan.microbatches} = {want}, "
+          f"flash_attention_bwd {want // (1 + plan.remat)}); the plain attention functions "
+          f"called {plain.calls}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"{label}: a loss is not finite: {losses}")
     if not statistics.mean(losses[-3:]) < losses[0]:
@@ -4355,8 +4558,9 @@ def train_on_card(cfg, shape, label: str, flops: float, counted: str) -> tuple:
     if launches["flash_attention_train"] != want:
         fail(f"{label}: {launches['flash_attention_train']} flash_attention_train launches, "
              f"expected {want}")
+    check_bwd_launches(label, launches, want, plan.remat)
     if any(plain.calls.values()):
-        fail(f"{label}: the step on the card took the CPU attention operators {plain.calls}")
+        fail(f"{label}: the step on the card took the plain attention functions {plain.calls}")
     batch = make_batch(cfg, shape, step=TRAIN_STEPS, dtype=torch.bfloat16, device="cuda")
     span = "train.step"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -5019,10 +5223,12 @@ def phase_train_sharded(lenet_weights) -> dict:
               f"over the ranks; peak {run['peak'] / 2**30:.2f} GiB against the planner's "
               f"per-card estimate {run['estimate'] / 2**30:.2f} GiB; collectives a step: calls "
               f"{calls}, MiB {mib}; flash_attention_train launches {flash} (expected {layers} "
-              f"layers x {TRAIN_STEPS} steps x {1 + remat} x {micro} = {want})")
+              f"layers x {TRAIN_STEPS} steps x {1 + remat} x {micro} = {want}), "
+              f"flash_attention_bwd {run['launches']['flash_attention_bwd']}")
         if flash != want:
             fail(f"train-sharded: rank {r} launched flash_attention_train {flash} times, "
                  f"expected {want}")
+        check_bwd_launches(f"train-sharded: rank {r}", run["launches"], want, remat)
         if not all(math.isfinite(x) for x in losses):
             fail(f"train-sharded: rank {r} loss not finite: {losses}")
         if not statistics.mean(losses[-3:]) < losses[0]:
@@ -5064,6 +5270,8 @@ def _model_axis_check(rank, world, arch, cut, shape_bs, gain) -> dict:
         if cfg.is_encdec:
             expect["flash_attention_train"] = (_flash_per_forward(cfg) * TRAIN_CHECK_STEPS
                                                * plan.microbatches * (1 + plan.remat))
+            expect["flash_attention_bwd"] = (_flash_per_forward(cfg) * TRAIN_CHECK_STEPS
+                                             * plan.microbatches)
         got = {k: launches[k] for k in expect}
         label = f"{arch} {plan.strategy.value}{' +SP' if sp else ''}"
         if got != expect:
@@ -5411,7 +5619,8 @@ def phase_train_model_axis() -> dict:
                   f"{mib} (the plan implies "
                   f"{ {k: round(v / 2**20, 3) for k, v in want_bytes.items()} }); "
                   f"flash_attention_train launches {flash} (expected {depth} layers x "
-                  f"{TRAIN_STEPS} steps x {1 + remat} x {micro} = {want})")
+                  f"{TRAIN_STEPS} steps x {1 + remat} x {micro} = {want}), "
+                  f"flash_attention_bwd {run['launches']['flash_attention_bwd']}")
             if not (tp and sp and (ep == bool(cfg.num_experts))):
                 fail(f"train-model-axis ({part}): rank {r} ran plan {run['plan']}")
             if calls != want_calls or got_bytes != want_bytes:
@@ -5420,6 +5629,8 @@ def phase_train_model_axis() -> dict:
             if flash != want:
                 fail(f"train-model-axis ({part}): rank {r} launched flash_attention_train "
                      f"{flash} times, expected {want}")
+            check_bwd_launches(f"train-model-axis ({part}): rank {r}", run["launches"], want,
+                               remat)
             if run["peak"] > run["estimate"]:
                 fail(f"train-model-axis ({part}): rank {r}'s peak {run['peak']} B is above the "
                      f"planner's per-card estimate {run['estimate']:.0f} B")
@@ -5673,7 +5884,8 @@ def main() -> int:
                                   "matmul", "conv2d_im2col", "flash_attention_d256",
                                   "paged_decode_attention_g10_d256", "rglru_scan",
                                   "flash_attention_train", "ssd_scan_train", "ssd_scan_bwd",
-                                  "rglru_scan_train", "rglru_scan_bwd", "flash_attention_g16",
+                                  "rglru_scan_train", "rglru_scan_bwd", "flash_attention_bwd",
+                                  "flash_attention_g16",
                                   "paged_decode_attention_g16", "flash_attention_d64",
                                   "flash_decode",
                                   "paged_decode_attention_g1_d64",

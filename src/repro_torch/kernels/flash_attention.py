@@ -26,12 +26,23 @@ expansion is never materialized.
   ``repro_torch::flash_attention_train``: the same kernel, which then also
   writes each row's log-sum-exp of its scaled scores (``lse``, float32,
   -1e30 for a row with no unmasked key), returning ``(out, lse)``. Its
-  gradient is the reference's recompute rule (``_blocked``'s custom VJP,
-  ``repro/models/attention.py``), :func:`attention_bwd_torch`: plain
-  PyTorch, as the reference computes it outside any Pallas kernel. Its CPU
+  gradient is :func:`flash_attention_bwd`: the kernel of
+  ``csrc/flash_attention_bwd.cu`` on a CUDA tensor, the reference's
+  recompute rule (``_blocked``'s custom VJP, ``repro/models/attention.py``)
+  as plain PyTorch, :func:`attention_bwd_torch`, on a CPU tensor. Its CPU
   implementation is :func:`flash_attention_train_torch`, the reference's
   ``_blocked_fwd_impl`` (online softmax over KV chunks of ``KV_CHUNK``).
   The serving op keeps its schema and writes no ``lse``.
+- :func:`flash_attention_bwd` is the backward's kernel wrapper, the custom
+  op ``repro_torch::flash_attention_bwd``, ``(dq, dk, dv)`` from ``(q, k,
+  v, out, lse, dout)``: on a CUDA tensor one call of
+  ``csrc/flash_attention_bwd.cu`` (delta, then the dK/dV pass over key
+  tiles and the dQ pass over query tiles, sums in a fixed order; bfloat16
+  on mma.sync, float32 on the CUDA cores), on a CPU tensor
+  :func:`attention_bwd_torch`; :func:`work_bwd` counts its five products
+  and its bytes. :func:`attention_bwd_tiled` is its plain version in the
+  kernel's order and rounding (P and dS rounded to the inputs' dtype before
+  they feed a product), returning float32.
 - :func:`flash_decode` is the one-row kernel wrapper, the custom op
   ``repro_torch::flash_decode``: q ``(B, Hq, D)``, one query row a batch
   row, against K/V in the model's own ``(B, Sk, Hkv, D)`` layout, read in
@@ -95,8 +106,11 @@ RESCALE_SLACK = {64: 8.0}
 # keys per chunk of the plain training forward and of the recompute backward
 # (the reference's models/attention.py KV_CHUNK)
 KV_CHUNK = 1024
-# the recompute backward's span in a torch.profiler trace
+# the backward's span in a torch.profiler trace
 BACKWARD_SPAN = "attention.backward"
+# keys per tile of csrc/flash_attention_bwd.cu's dQ pass: bfloat16, float32
+BWD_KEYS = 64
+BWD_FP32_KEYS = 32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -286,6 +300,56 @@ def _attention_bwd(q, k, v, out, lse, dout, causal, window, q_offset):
     return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
+def attention_bwd_tiled(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
+                        q_offset: int = -1) -> Tuple[torch.Tensor, ...]:
+    """Plain version of :func:`flash_attention_bwd` in the kernel's order
+    and rounding, the same arguments -> float32 (dq, dk, dv), unrounded.
+
+    P is recomputed in the exp2 domain, ``p = exp2(s * c - lse * log2(e))``
+    with ``c = scale * log2(e)``, the exponent rounded once as the kernel's
+    fused multiply-add rounds it; ``delta = sum(dout * out)`` and ``ds = p *
+    (dp - delta) * scale`` in float32. P and dS are rounded to the inputs'
+    dtype where they feed a product (dV += P^T.dO, dK += dS^T.Q, dQ += dS.K),
+    as the bfloat16 kernel rounds them (in float32 nothing is rounded). dQ
+    sums over the key tiles of the kernel's dQ pass."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    bk = BWD_KEYS if q.dtype == torch.bfloat16 else BWD_FP32_KEYS
+    off = sk - sq if q_offset < 0 else q_offset
+    c = exp2_scale(d)
+    scale = float(np.float32(1.0 / (d ** 0.5)))  # lint: allow-tracer-host-sync (a numpy scalar)
+
+    def rnd(t):
+        return t.to(q.dtype).float()
+
+    qf = q.float().reshape(b, hkv, g, sq, d)
+    dof = dout.float().reshape(b, hkv, g, sq, d)
+    delta = (dof * out.float().reshape(b, hkv, g, sq, d)).sum(-1, keepdim=True)
+    lse2 = (lse.float() * np.float32(LOG2E)).reshape(b, hkv, g, sq, 1)
+    qpos = off + torch.arange(sq, device=q.device)[:, None]
+    dq = torch.zeros((b, hkv, g, sq, d), device=q.device)
+    dk = torch.zeros((b, hkv, sk, d), device=q.device)
+    dv = torch.zeros((b, hkv, sk, d), device=q.device)
+    for k0 in range(0, sk, bk):
+        kt, vt = k[:, :, k0:k0 + bk].float(), v[:, :, k0:k0 + bk].float()
+        kpos = k0 + torch.arange(kt.shape[2], device=q.device)[None, :]
+        ok = torch.ones((sq, kt.shape[2]), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= kpos <= qpos
+        if window > 0:
+            ok &= kpos > qpos - window
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt)
+        arg = (s.double() * c - lse2.double()).float()
+        p = torch.where(ok, torch.exp2(arg), 0.0)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vt)
+        ds = p * (dp - delta) * scale
+        dv[:, :, k0:k0 + bk] = torch.einsum("bhgqk,bhgqd->bhkd", rnd(p), dof)
+        dk[:, :, k0:k0 + bk] = torch.einsum("bhgqk,bhgqd->bhkd", rnd(ds), qf)
+        dq += torch.einsum("bhgqk,bhkd->bhgqd", rnd(ds), kt)
+    return dq.reshape(b, hq, sq, d), dk, dv
+
+
 def _check(q, k, v, hw_smem: int) -> None:
     """Raise with the reason on anything the CUDA kernel does not take."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -338,6 +402,41 @@ def work_train(q, k, v, causal: bool, window: int, q_offset: int) -> _build.Work
     """:func:`work` plus the float32 ``lse`` written once a row."""
     flops, nbytes = work(q, k, v, causal, window, q_offset)
     return _build.Work(flops, nbytes + 4 * q.shape[0] * q.shape[1] * q.shape[2])
+
+
+def work_bwd(q, k, v, out, lse, dout, causal: bool, window: int,
+             q_offset: int) -> _build.Work:
+    """FLOPs and bytes of one backward call: five products (S = Q.K^T, dP =
+    dO.V^T, dV, dK and dQ) of ``2 D`` FLOPs per unmasked pair of every (row,
+    query head), whatever the kernel recomputes; q, k, v, out, dout and the
+    float32 lse read once, dq, dk and dv written once."""
+    b, hq, sq, d = q.shape
+    pairs = unmasked_pairs(sq, k.shape[2], causal, window, q_offset)
+    return _build.Work(5 * 2 * d * pairs * b * hq,
+                       4 * (q.numel() + k.numel()) * q.element_size()
+                       + lse.numel() * lse.element_size())
+
+
+def _check_bwd(q, k, v, out, lse, dout) -> None:
+    """Raise with the reason on anything the backward kernel does not take:
+    q/k/v as the forward's :func:`_check` takes them, out/lse/dout beside
+    them. A pass whose shared memory the card refuses fails at its launch."""
+    _check(q, k, v, H100.vmem_bytes)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} must have q's shape {tuple(q.shape)} and dtype {q.dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {tuple(q.shape[:3])}, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    for name, t in (("out", out), ("lse", lse), ("dout", dout)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"the backward kernel loads rows with 16-byte loads: {name}'s "
+                             f"base address must be a multiple of 16")
 
 
 def _run(q, k, v, causal, window, q_offset, lse) -> torch.Tensor:
@@ -420,8 +519,12 @@ def _train_setup(ctx, inputs, output) -> None:
 
 
 def _train_backward(ctx, dout, _dlse):
+    # the output's gradient reaches here as a view of the model's (B, Sq,
+    # Hq, D) layout (models/attention.py returns out.transpose(1, 2)): the
+    # kernel reads it as one contiguous copy
     q, k, v, out, lse = ctx.saved_tensors
-    dq, dk, dv = attention_bwd_torch(q, k, v, out, lse, dout, **ctx.mask)
+    with record_function(BACKWARD_SPAN):
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), **ctx.mask)
     return dq, dk, dv, None, None, None
 
 
@@ -436,9 +539,62 @@ def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``repro_torch::flash_attention_train``, ``(out, lse)`` — on a CUDA
     tensor one launch of ``csrc/flash_attention.cu`` that also writes
     ``lse``, on a CPU tensor :func:`flash_attention_train_torch`; its
-    gradient is :func:`attention_bwd_torch` on either device."""
+    gradient is :func:`flash_attention_bwd`: the backward kernel on a CUDA
+    tensor, the plain rule :func:`attention_bwd_torch` on a CPU tensor."""
     _build.require_cpu_or_cuda(q, "flash kernel")
     return _flash_train_op(q, k, v, causal, window, q_offset)
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal, window, q_offset):
+    """CUDA implementation of ``repro_torch::flash_attention_bwd``: the delta
+    pass, the dK/dV pass and the dQ pass of ``csrc/flash_attention_bwd.cu``,
+    counted once in ``flash_attention_bwd.launches``."""
+    _check_bwd(q, k, v, out, lse, dout)
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if q_offset < 0:
+        q_offset = sk - sq
+    lib = _build.library("flash_attention_bwd", _bind_bwd)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            dout.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, causal, window, q_offset,
+            1.0 / (d ** 0.5), stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError_t {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def _fake_bwd(q, k, v, out, lse, dout, causal, window, q_offset):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@_build.kernel_op("flash_attention_bwd", work_bwd, _launch_bwd, _fake_bwd)
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                  lse: torch.Tensor, dout: torch.Tensor, causal: bool, window: int,
+                  q_offset: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return attention_bwd_torch(q, k, v, out, lse, dout, causal=causal, window=window,
+                               q_offset=q_offset)
+
+
+@_build.counted
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0,
+                        q_offset: int = -1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel wrapper of the backward: the custom op
+    ``repro_torch::flash_attention_bwd``, ``(dq, dk, dv)`` in q's, k's and
+    v's dtypes from the training forward's inputs, ``out`` and ``lse`` and
+    the output's gradient, all in the kernel's layout — on a CUDA tensor one
+    call of ``csrc/flash_attention_bwd.cu`` (raising on anything it does not
+    take), on a CPU tensor :func:`attention_bwd_torch`."""
+    _build.require_cpu_or_cuda(q, "flash backward kernel")
+    return _flash_bwd_op(q, k, v, out, lse, dout, causal, window, q_offset)
 
 
 def decode_range(sk: int, causal: bool, window: int, q_offset: int) -> Tuple[int, int]:
@@ -583,3 +739,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                                  + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_decode.restype = ctypes.c_int
 
+
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    lib.flash_attention_bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+                                        + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_bwd.restype = ctypes.c_int

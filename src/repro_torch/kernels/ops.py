@@ -80,8 +80,9 @@ def attention_decode(q, k, v, *, causal: bool = True, window: int = 0,
 def attention_train(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: Optional[int] = None):
     """The training forward, q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D): the
-    output of ``flash_attention_train``, whose gradient is the reference's
-    recompute rule from the kernel's ``(out, lse)``; under
+    output of ``flash_attention_train``, whose gradient from the kernel's
+    ``(out, lse)`` is the backward kernel ``flash_attention_bwd`` (the
+    reference's recompute rule on a CPU tensor); under
     ``BACKEND = "torch"``, autograd through the plain full-score form."""
     off = -1 if q_offset is None else q_offset
     if _use_plain(q):

@@ -5,8 +5,9 @@ One logical op, three physical operators, chosen by where the tensors are:
 * CUDA tensors: the flash-attention kernel through ``kernels.ops``, with K/V
   in kv-head form (the GQA expansion is never materialized). Where autograd
   records (a training step), ``ops.attention_train``: the kernel also writes
-  each row's log-sum-exp, and the gradient is the reference's recompute rule
-  (``kernels/flash_attention.py::attention_bwd_torch``). One query row with
+  each row's log-sum-exp, and the gradient is the backward kernel
+  (``kernels/flash_attention.py::flash_attention_bwd``; the reference's
+  recompute rule, ``attention_bwd_torch``, on a CPU tensor). One query row with
   no autograd recording (a decode tick's cross read) takes
   ``ops.attention_decode``, which reads K/V in place, in the model's layout;
 * CPU, short sequences: ``_einsum`` (the reference's CPU operator), under

@@ -1,7 +1,7 @@
 """PyTorch port, the kernels as ``torch.library`` custom ops
 (``repro_torch/kernels/*.py``, ``kernels/_build.py``).
 
-Each of the twelve wrappers calls the custom op ``repro_torch::<name>``: on a
+Each of the thirteen wrappers calls the custom op ``repro_torch::<name>``: on a
 CPU tensor its CPU implementation is the kernel's plain version (held equal
 here, element for element, to calling the plain version directly), on a
 fake tensor its fake implementation gives the output's shape, dtype and
@@ -15,8 +15,9 @@ forward ``flash_attention_train``, which came later, to the flash count plus
 its float32 ``lse``; the one-row ``flash_decode`` to q.k and p.v over the
 keys its row sees, with q and those K/V rows read once; the SSD and RG-LRU
 training forwards to their serving counts plus the chunk states they
-write, and their backward ops to the counts their modules state (each
-input read once, each gradient written once).
+write, and their backward ops (the attention backward ``flash_attention_bwd``
+too: five products of 2 D FLOPs per unmasked pair) to the counts their
+modules state (each input read once, each gradient written once).
 """
 
 import numpy as np
@@ -76,6 +77,13 @@ def _ssd_bwd_args():
     return (x, dt, a, bm, cm, d, states, _randn(15, *x.shape)), kw
 
 
+def _flash_bwd_args():
+    q, k, v = _randn(34, 2, 4, 10, 32), _randn(35, 2, 2, 14, 32), _randn(36, 2, 2, 14, 32)
+    mask = dict(causal=True, window=6, q_offset=-1)
+    out, lse = FA.flash_attention_train_torch(q, k, v, **mask)
+    return (q, k, v, out, lse, _randn(37, 2, 4, 10, 32)), mask
+
+
 def _rglru_bwd_args():
     args = _rglru_args()[0][:5]
     _y, h_chunks = RG.rglru_scan_train_torch(*args)
@@ -92,6 +100,7 @@ CASES = [
     ("flash_attention_train", FA.flash_attention_train, FA.flash_attention_train_torch,
      (_randn(23, 2, 4, 10, 32), _randn(24, 2, 2, 14, 32), _randn(25, 2, 2, 14, 32)),
      dict(causal=True, window=6, q_offset=-1)),
+    ("flash_attention_bwd", FA.flash_attention_bwd, FA.attention_bwd_torch, *_flash_bwd_args()),
     ("flash_decode", FA.flash_decode, FA.flash_decode_torch,
      (_randn(26, 2, 4, 32), _randn(27, 2, 14, 2, 32), _randn(28, 2, 14, 2, 32)),
      dict(causal=True, window=6, q_offset=9)),
@@ -114,7 +123,7 @@ def _leaves(out):
 
 
 def test_every_wrapper_is_a_registered_custom_op_with_work():
-    """Twelve ops in the ``repro_torch`` namespace, each with a ``work``."""
+    """Thirteen ops in the ``repro_torch`` namespace, each with a ``work``."""
     assert sorted(_build.WORK) == sorted(f"repro_torch::{n}" for n in IDS)
     for name in IDS:
         op = getattr(torch.ops.repro_torch, name).default
@@ -170,6 +179,7 @@ OP_ARGS = {
     "paged_decode_attention": lambda a, k: (*a, k["page"], k["sc"]),
     "flash_attention": lambda a, k: (*a, k["causal"], k["window"], k["q_offset"]),
     "flash_attention_train": lambda a, k: (*a, k["causal"], k["window"], k["q_offset"]),
+    "flash_attention_bwd": lambda a, k: (*a, k["causal"], k["window"], k["q_offset"]),
     "flash_decode": lambda a, k: (*a, k["causal"], k["window"], k["q_offset"]),
     "ssd_scan": lambda a, k: (*a, k["chunk"]),
     "rglru_scan": lambda a, k: (*a, None),
@@ -197,6 +207,14 @@ def _former_counts(name, op_args):
         flops, nbytes = _former_counts("flash_attention", op_args)
         q = op_args[0]
         return flops, nbytes + 4 * q.shape[0] * q.shape[1] * q.shape[2]
+    if name == "flash_attention_bwd":
+        flops, _ = _former_counts("flash_attention", (*op_args[:3], *op_args[6:]))
+        q, k = op_args[:2]
+        lse = op_args[4]
+        # S, dP, dV, dK and dQ against flash's q.k and p.v; q, k, v, out and
+        # dout read, dq, dk and dv written, lse read
+        return flops // 2 * 5, (4 * (q.numel() + k.numel()) * q.element_size()
+                                + lse.numel() * lse.element_size())
     if name == "flash_decode":
         q, k, _v, causal, window, q_offset = op_args
         b, hq, d = q.shape
@@ -277,7 +295,8 @@ def test_work_equals_the_counts_chip_smoke_used(name, wrapper, plain, args, kwar
 
 
 # the backward ops' arguments and gradients in the model dtype (the rest float32)
-MODEL_DTYPE_ARGS = {"ssd_scan_bwd": (0, 3, 4, 7), "rglru_scan_bwd": (0, 1, 2, 3, 6)}
+MODEL_DTYPE_ARGS = {"ssd_scan_bwd": (0, 3, 4, 7), "rglru_scan_bwd": (0, 1, 2, 3, 6),
+                    "flash_attention_bwd": (0, 1, 2, 3, 5)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
