@@ -499,6 +499,9 @@ FLASH_BWD_CASES = (
      1024, 2048, True, 0, 1024),
     ("D=128 g=16 S=512 causal (Qwen3-MoE)", 1, 32, 2, 128, 512, 512, True, 0, -1),
     ("D=128 g=2 S=2304 causal (InternVL2)", 1, 16, 8, 128, 2304, 2304, True, 0, -1),
+    ("D=128 g=2 Sq=700 Sk=900 bidirectional (ragged)", 2, 4, 2, 128, 700, 900, False, 0, -1),
+    ("D=128 g=1 S=150 causal (Sk not a multiple of 128: a key tile's second half past Sk)", 2,
+     4, 4, 128, 150, 150, True, 0, -1),
     ("D=32 g=2 S=100 causal", 2, 4, 2, 32, 100, 100, True, 0, -1),
     ("D=32 g=1 S=100 bidirectional", 2, 2, 2, 32, 100, 100, False, 0, -1),
     ("D=64 g=1 S=1500 bidirectional (Whisper encoder)", 2, 16, 16, 64, 1500, 1500, False, 0, -1),
@@ -511,6 +514,24 @@ FLASH_BWD_CASES = (
     ("D=256 g=2 S=1000 bidirectional", 1, 4, 2, 256, 1000, 1000, False, 0, -1),
     ("D=256 g=10 Sq=200 Sk=1100 q_offset=700 window=300", 1, 10, 1, 256, 200, 1100, True, 300,
      700),
+)
+# the backward kernel's timed shapes (bfloat16; _flash_bwd_timing): each
+# train phase's attention (label, b, hq, hkv, d, sq, sk, causal, window);
+# the first is FLASH_BWD_CASES' first, whose entry is the kernels line's.
+# The others are held against attention_bwd_tiled at FLASH_BWD_BF16: at
+# these sizes a few dq elements pass FLASH_BWD_TILED_BF16's atol (2^-6 of
+# the RMS) whatever computes them — at Yi's shape on another seed the
+# mma.sync kernel and the TMA + wgmma one by the same 0.0158 of the RMS at
+# the same element, the tiled version with float64 products by 0.0156 (an
+# H100 80GB HBM3, 700 W)
+FLASH_BWD_TIMED = (
+    ("Yi-6B training shape", 4, 32, 4, 128, 2048, 2048, True, 0),
+    ("InternVL2-2B training shape (2048 + a 256-token prefix)", 4, 16, 8, 128, 2304, 2304, True,
+     0),
+    ("Qwen3-MoE training shape (g = 16)", 4, 64, 4, 128, 2048, 2048, True, 0),
+    ("Whisper-medium encoder (D = 64, bidirectional)", 8, 16, 16, 64, 1500, 1500, False, 0),
+    ("RecurrentGemma-2B training shape (D = 256, window 2048)", 4, 10, 1, 256, 2048, 2048, True,
+     2048),
 )
 # train-check: Yi-6B widths cut to TRAIN_CHECK_LAYERS layers, float32,
 # (batch, seq), TRAIN_CHECK_STEPS steps, grad_clip 1.0, per optimizer lr,
@@ -1469,11 +1490,13 @@ def flash_bwd_cases(flush) -> dict:
     autograd through the plain full-score form in float32 at
     FLASH_BWD_BF16; rows that see no key give dq = 0 and keys no row sees
     dk = dv = 0; two calls on the same inputs give the same bits; a head
-    dim the kernel is not built for (96) and mixed dtypes raise. At Yi-6B's
-    training shape in bfloat16: events, profiler device time, the plain
-    rule, scaled_dot_product_attention's backward on expanded K/V (a
-    yardstick, never called by the port) and the bound from ``work_bwd``.
-    Returns its kernels-line entry."""
+    dim the kernel is not built for (96) and mixed dtypes raise. At each
+    shape of FLASH_BWD_TIMED in bfloat16 (Yi-6B's the first case's inputs,
+    the others held against ``attention_bwd_tiled`` at FLASH_BWD_BF16
+    first): events, profiler device time, the plain rule,
+    scaled_dot_product_attention's backward on expanded K/V (a yardstick,
+    never called by the port) and the bound from ``work_bwd``. Returns
+    Yi-6B's kernels-line entry."""
     gen = torch.Generator(device="cuda").manual_seed(61)
     entry = None
     for name, b, hq, hkv, d, sq, sk, causal, window, off in FLASH_BWD_CASES:
@@ -1524,9 +1547,29 @@ def flash_bwd_cases(flush) -> dict:
                 del leaves
             del got
             torch.cuda.empty_cache()
-            if name == FLASH_BWD_CASES[0][0] and dtype == torch.bfloat16:
+            if name == FLASH_BWD_TIMED[0][0] and dtype == torch.bfloat16:
                 entry = _flash_bwd_timing(args, mask, max(errs), flush)
             del q, k, v, dout, out, lse, args
+    for name, b, hq, hkv, d, sq, sk, causal, window in FLASH_BWD_TIMED[1:]:
+        mask = dict(causal=causal, window=window, q_offset=-1)
+        q = torch.randn((b, hq, sq, d), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(torch.bfloat16)
+        dout = torch.randn((b, hq, sq, d), generator=gen, device="cuda").to(torch.bfloat16)
+        out, lse = FA.flash_attention_train(q, k, v, **mask)
+        args = (q, k, v, out, lse, dout)
+        got = FA.flash_attention_bwd(*args, **mask)
+        errs = []
+        for gname, g, w in zip(("dq", "dk", "dv"), got, FA.attention_bwd_tiled(*args, **mask)):
+            tol = (FLASH_BWD_BF16[0] * float(w.pow(2).mean().sqrt()),) + FLASH_BWD_BF16[1:]
+            errs.append(check_close(f"flash_bwd bfloat16 {name} {gname} vs the kernel's order", g,
+                                    w, tol))
+        del got
+        torch.cuda.empty_cache()
+        print(f"  {name}:")
+        _flash_bwd_timing(args, mask, max(errs), flush)
+        del q, k, v, dout, out, lse, args
+        torch.cuda.empty_cache()
     q = torch.zeros((1, 4, 64, 96), device="cuda", dtype=torch.bfloat16)
     kv = torch.zeros((1, 2, 64, 96), device="cuda", dtype=torch.bfloat16)
     lse = torch.zeros((1, 4, 64), device="cuda")

@@ -23,52 +23,102 @@
 //
 // What the design does about it: the deterministic two-pass FlashAttention-2
 // backward, every sum in a fixed order (two calls give identical bits), no
-// atomics, no expanded K/V, nothing of size Sq x Sk in device memory.
+// atomics and no sum of dQ across blocks, no expanded K/V, nothing of size
+// Sq x Sk in device memory. The price: S and dP are recomputed in both
+// passes, seven products where the bound counts five.
 // - pass 0 (flash_bwd_delta_kernel): delta = rowsum(dout * out) in float32,
 //   one warp a row, into a (B, Hq, Sq) float32 scratch buffer.
-// - pass 1 (dK, dV): one block per (64-key tile, batch row x kv head, column
-//   chunk). The block keeps its K and V tiles in shared memory and its dK
-//   and dV accumulators in registers, walks the g query heads of its group
-//   and in each the query tiles the masks leave, and per query tile
-//   recomputes S^T = K.Q^T and P^T = exp2(S^T * scale * log2(e) - lse *
-//   log2(e)), then dV += P^T.dO, dP^T = V.dO^T, dS^T = P^T * (dP^T - delta)
-//   * scale and dK += dS^T.Q. It writes dK and dV once.
-// - pass 2 (dQ): one block per (64-row query tile, batch row x query head,
-//   column chunk). It walks the key tiles its rows see, recomputes S, P, dP
-//   and dS the same way and accumulates dQ += dS.K. It writes dQ once.
+// - pass 1 (dK, dV): one block per key tile and (batch row, kv head). The
+//   block keeps its K and V tiles in shared memory and its dK and dV
+//   accumulators in registers, walks the g query heads of its group and in
+//   each the query tiles the masks leave, and per query tile recomputes
+//   S^T = K.Q^T and P^T = exp2(S^T * scale * log2(e) - lse * log2(e)),
+//   then dV += P^T.dO, dP^T = V.dO^T, dS^T = P^T * (dP^T - delta) * scale
+//   and dK += dS^T.Q. It writes dK and dV once.
+// - pass 2 (dQ): one block per query tile and (batch row, query head). It
+//   walks the key tiles its rows see in ascending order, recomputes S, P,
+//   dP and dS the same way and accumulates dQ += dS.K. It writes dQ once.
 // Both passes skip query or key tiles wholly outside the causal and window
 // masks by the forward's rule and mask per element inside the tiles; the
 // mask is applied before the exponential, so a row whose lse is -1e30 never
 // overflows. P is recomputed in the exp2 domain in every pass and dtype
 // (the bfloat16 forward's lse comes from its exp2-domain maximum).
-// The accumulators of one thread cover a chunk of at most 128 of the D
-// output columns: at D = 256 (recurrentgemma-2b) each pass runs two column
-// chunks, each recomputing S and dP over the full D, since a 64-key tile's
-// dK and dV over all 256 columns would not fit a thread's 255 registers.
-// - bfloat16: mma.sync m16n8k16 with float32 accumulators, tiles of padded
-//   bf16 rows in shared memory read through ldmatrix (.trans where the
-//   contraction runs over the tile's rows), the S^T/S and dP^T/dP
-//   accumulators reused in registers as the A operands of the next
-//   products. P and dS are rounded to bfloat16 where they feed a product
-//   (dV += P^T.dO, dK += dS^T.Q, dQ += dS.K); dS itself is computed from P
-//   in float32. Pass 1: 4 warps x 16 keys, query tiles of 64 rows where the
-//   column chunk is at most 64 wide, else 32 (dK and dV at 128 columns take
-//   128 registers a thread). Pass 2: 4 warps x 16 rows, 64-key tiles.
+// - bfloat16 at D = 128 (Yi, InternVL2, Qwen3-MoE): TMA + wgmma with warp
+//   specialisation, the forward's plumbing (hopper_wgmma.cuh). A block is
+//   two consumer warpgroups and a producer warpgroup (setmaxnreg: consumers
+//   240 registers, producer 24). Tiles are 64-column slabs of 128-byte rows,
+//   128-byte swizzled, loaded by TMA through 3-D (D, S, heads) maps, so rows
+//   past Sq or Sk load as zeros.
+//   Pass 1: 128 keys a block, 64 a consumer. The producer loads K and V
+//   once and streams 64-row Q and dO tiles, with their rows' lse * log2(e)
+//   and delta (staged by the producer warp's lanes), through a two-stage
+//   ring guarded by full and empty mbarriers. Per tile a consumer issues S^T
+//   and dP^T (wgmma m64n64k16, K and V against Q and dO, all from shared
+//   memory) as two groups; it forms P^T while dP^T is in flight, rounds it
+//   to bf16 in place into the A fragments of dV += P^T.dO (m64n128k16, dO
+//   read through the descriptor's transpose bit, as the forward reads V),
+//   forms dS^T while that product runs and issues dK += dS^T.Q likewise.
+//   dK 64 + dV 64 + S^T 32 + dP^T 32 accumulator registers a thread. Under
+//   a causal or window mask kv heads vary fastest and key tiles go in order,
+//   the first (which the most rows see) first; without one key tiles vary
+//   fastest.
+//   Pass 2: 128 rows a block, 64 a consumer; Q and dO loaded once, 64-key
+//   K and V tiles through a two-stage ring. Per tile S and dP (m64n64k16),
+//   P while dP is in flight, dS into dP's registers, rounded to bf16 into
+//   the A fragments of dQ += dS.K (m64n128k16, K through the transpose bit):
+//   dQ 64 + S 32 + dP 32 registers. Query tiles go longest first under a
+//   mask, as the forward's do.
+//   Both passes skip, per consumer, a tile none of whose pairs its rows or
+//   keys see (an exact zero), and mask per element only where the Sq or Sk
+//   tail, the diagonal or the window's edge crosses the tile. 2^x comes from
+//   ex2.approx.ftz (one special-function instruction: within 2 ulp, below
+//   P's bf16 rounding; P under 2^-126 becomes 0).
+//   What bounds it: the chain of each consumer's tile (products, then the
+//   exponentials, dS and the last product, then a wait), which the two
+//   consumers overlap only in part; the registers hold it there: a deeper
+//   wgmma pipeline makes ptxas serialise the products.
+//   Variants timed on the card by tools/flash_bwd_sweep.py (H100 80GB
+//   HBM3, 700 W; device ms at Yi's, InternVL2's and Qwen3-MoE's training
+//   shapes, this design 1.1203, 0.6975, 2.1745): exp2f for ex2.approx
+//   1.4389, 0.9101, 2.8262; a tile's S and dP in one group, the
+//   exponentials after both, 1.1385, 0.7330, 2.2403; 128-key tiles in pass
+//   2 1.1577, 0.7471, 2.2813; consumers at 232 registers with a
+//   40-register producer (16 bytes of spill, wgmma serialised: C7512)
+//   1.2480, 0.8049, 2.4461; three or four ring stages in either pass
+//   within 6 % either way, no consistent gain. Also tried on the card and
+//   dropped (builds not kept): the consumers taking turns to issue their
+//   products through named barriers (no gain overall), pass 1's last wait
+//   deferred into the next tile (it spilled), dS staged through shared
+//   memory for a dQ product with both operands there (slower), and the
+//   next tile's S and dP issued before the dQ product's wait (ptxas
+//   serialised the wgmma, C7511: slower).
+// - bfloat16 at D = 32, 64 and 256: mma.sync m16n8k16 with float32
+//   accumulators, tiles of padded bf16 rows in shared memory read through
+//   ldmatrix (.trans where the contraction runs over the tile's rows), the
+//   S^T/S and dP^T/dP accumulators reused in registers as the A operands of
+//   the next products. P and dS are rounded to bfloat16 where they feed a
+//   product (dV += P^T.dO, dK += dS^T.Q, dQ += dS.K); dS itself is computed
+//   from P in float32. Pass 1: 64-key blocks of 4 warps x 16 keys, query
+//   tiles of 64 rows where the column chunk is at most 64 wide, else 32;
+//   pass 2: 64-row blocks of 4 warps x 16 rows, 64-key tiles. The
+//   accumulators of one thread cover a chunk of at most 128 of the D output
+//   columns: at D = 256 (recurrentgemma-2b) each pass runs two column
+//   chunks, each recomputing S and dP over the full D. Loads are
+//   synchronous (global -> registers -> shared).
 // - float32 (the float32 training checks): the CUDA cores, 256 threads a block,
 //   each thread one key (pass 1) or one row (pass 2) of the score tile and
 //   the same row of its accumulators; P^T and dS^T (pass 1) or dS (pass 2)
 //   go through shared memory into the accumulating products. Pass 1: 64
 //   keys x 32-row query tiles; pass 2: 64 rows x 32-key tiles.
-// Loads are synchronous (global -> registers -> shared); TMA, wgmma and
-// a ring of stages are for a later pass.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper_wgmma.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int BKV = 64;      // keys per block of pass 1 (both dtypes), per tile of pass 2 (bf16)
@@ -96,11 +146,11 @@ struct Mask {
   }
 };
 
-// the query rows [begin, end) that keys [k0, k0 + BKV) can be seen by,
+// the query rows [begin, end) that keys [k0, k0 + bkv) can be seen by,
 // begin rounded down to a multiple of bm; empty when begin >= end
-__device__ __forceinline__ void q_range(int k0, int sq, int sk, int causal, int window,
+__device__ __forceinline__ void q_range(int k0, int bkv, int sq, int sk, int causal, int window,
                                         int q_offset, int bm, int& begin, int& end) {
-  const int k_last = min(k0 + BKV, sk) - 1;
+  const int k_last = min(k0 + bkv, sk) - 1;
   begin = causal ? max(0, k0 - q_offset) : 0;
   end = window > 0 ? min(sq, k_last + window - q_offset) : sq;
   begin = (begin / bm) * bm;
@@ -141,15 +191,6 @@ flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 // ---------------------------------------------------------------------------
 // bfloat16: mma.sync m16n8k16, float32 accumulate
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -297,7 +338,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,      // (B, Hq, Sq, D)
   const int key0 = k0 + warp * 16 + (lane >> 2);   // this thread's keys key0, key0 + 8
   const int col = 2 * (lane & 3);
   int qb, qe;
-  q_range(k0, sq, sk, causal, window, q_offset, BM, qb, qe);
+  q_range(k0, BKV, sq, sk, causal, window, q_offset, BM, qb, qe);
 
   for (int h = 0; h < g; ++h) {
     const size_t bh = (size_t)b * hq + (size_t)hk * g + h;
@@ -540,7 +581,7 @@ flash_bwd_dkdv_fp32_kernel(const float* __restrict__ q, const float* __restrict_
   for (int j = 0; j < CJ; ++j) dk_acc[j] = dv_acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   int qb, qe;
-  q_range(k0, sq, sk, causal, window, q_offset, FBM, qb, qe);
+  q_range(k0, BKV, sq, sk, causal, window, q_offset, FBM, qb, qe);
   for (int h = 0; h < g; ++h) {
     const size_t bh = (size_t)b * hq + (size_t)hk * g + h;
     for (int q0 = qb; q0 < qe; q0 += FBM) {
@@ -695,12 +736,514 @@ flash_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16, D = 128: TMA + wgmma, warp-specialised
+// ---------------------------------------------------------------------------
+
+namespace hb {
+
+using namespace wg;
+
+constexpr int D = 128;
+constexpr int SLABS = D / 64;            // 64-column slabs of a tile row
+constexpr int THREADS = 384;             // warpgroups 0 and 1 consume, 2 produces
+constexpr int CONSUMER_REGS = 240;       // after setmaxnreg: 2 x 128 x 240 + 128 x 24 <= 65,536
+constexpr int PRODUCER_REGS = 24;
+// The dK/dV pass: a block's 128 keys (64 a consumer warpgroup) of one
+// (batch row, kv head), K and V loaded once; a ring of STAGES query tiles
+// of 64 rows (Q, dO, and the rows' lse * log2(e) and delta); shared memory
+// holds K, V, the stages' Q and dO tiles, the stages' rows, the barriers.
+struct Dkdv {
+  static constexpr int BN = 128, BM = 64, STAGES = 2;
+  static constexpr int KV_SLAB = BN * SLAB_ROW;
+  static constexpr int KV_BYTES = SLABS * KV_SLAB;
+  static constexpr int Q_SLAB = BM * SLAB_ROW;
+  static constexpr int Q_BYTES = SLABS * Q_SLAB;
+  static constexpr int ROWS_BYTES = 2 * BM * 4;
+  static constexpr int TILES = 2 * KV_BYTES + STAGES * 2 * Q_BYTES;
+  static constexpr int BARRIERS = 1 + 2 * STAGES;      // kv_full; full and empty per stage
+  static constexpr int SMEM_BYTES = 1024 + TILES + STAGES * ROWS_BYTES + 8 * BARRIERS;
+  static_assert(SMEM_BYTES <= 232448, "the dK/dV pass's shared memory is past the limit");
+
+  uint32_t base;
+  __device__ __forceinline__ uint32_t k() const { return base; }
+  __device__ __forceinline__ uint32_t v() const { return base + KV_BYTES; }
+  __device__ __forceinline__ uint32_t q(int st) const {
+    return base + 2 * KV_BYTES + 2 * st * Q_BYTES;
+  }
+  __device__ __forceinline__ uint32_t dout(int st) const { return q(st) + Q_BYTES; }
+  __device__ __forceinline__ uint32_t rows(int st) const {
+    return base + TILES + st * ROWS_BYTES;
+  }
+  __device__ __forceinline__ uint32_t bar(int i) const {
+    return base + TILES + STAGES * ROWS_BYTES + 8u * i;
+  }
+  __device__ __forceinline__ uint32_t kv_full() const { return bar(0); }
+  __device__ __forceinline__ uint32_t full(int st) const { return bar(1 + st); }
+  __device__ __forceinline__ uint32_t empty(int st) const { return bar(1 + STAGES + st); }
+};
+
+// The dQ pass: a block's 128 query rows (64 a consumer warpgroup) of one
+// (batch row, query head), Q and dO loaded once; a ring of STAGES key tiles
+// of 64 keys (K and V).
+struct Dq {
+  static constexpr int BM = 128, BN = 64, STAGES = 2;
+  static constexpr int Q_SLAB = BM * SLAB_ROW;
+  static constexpr int Q_BYTES = SLABS * Q_SLAB;
+  static constexpr int KV_SLAB = BN * SLAB_ROW;
+  static constexpr int KV_BYTES = SLABS * KV_SLAB;
+  static constexpr int TILES = 2 * Q_BYTES + STAGES * 2 * KV_BYTES;
+  static constexpr int BARRIERS = 1 + 2 * STAGES;      // q_full; full and empty per stage
+  static constexpr int SMEM_BYTES = 1024 + TILES + 8 * BARRIERS;
+  static_assert(SMEM_BYTES <= 232448, "the dQ pass's shared memory is past the limit");
+
+  uint32_t base;
+  __device__ __forceinline__ uint32_t q() const { return base; }
+  __device__ __forceinline__ uint32_t dout() const { return base + Q_BYTES; }
+  __device__ __forceinline__ uint32_t k(int st) const {
+    return base + 2 * Q_BYTES + 2 * st * KV_BYTES;
+  }
+  __device__ __forceinline__ uint32_t v(int st) const { return k(st) + KV_BYTES; }
+  __device__ __forceinline__ uint32_t bar(int i) const { return base + TILES + 8u * i; }
+  __device__ __forceinline__ uint32_t q_full() const { return bar(0); }
+  __device__ __forceinline__ uint32_t full(int st) const { return bar(1 + st); }
+  __device__ __forceinline__ uint32_t empty(int st) const { return bar(1 + STAGES + st); }
+};
+
+// whether some (query row in [r0, r_last], key in [k_lo, k_hi]) pair is seen:
+// the keys rows r0 .. r_last see are the interval [q_offset + r0 - window +
+// 1, q_offset + r_last] (each end only under its mask), since a window is at
+// least one key wide
+__device__ __forceinline__ bool meets(int r0, int r_last, int k_lo, int k_hi, int causal,
+                                      int window, int q_offset) {
+  const int lo = window > 0 ? q_offset + r0 - window + 1 : INT_MIN;
+  const int hi = causal ? q_offset + r_last : INT_MAX;
+  return r0 <= r_last && k_lo <= k_hi && k_lo <= hi && k_hi >= lo;
+}
+
+// whether every pair of rows [r0, r0 + nr) and keys [k0, k0 + nk) is seen,
+// so that no element needs the mask
+__device__ __forceinline__ bool inside(int r0, int nr, int k0, int nk, int sq, int sk,
+                                       int causal, int window, int q_offset) {
+  return r0 + nr <= sq && k0 + nk <= sk && (!causal || k0 + nk - 1 <= q_offset + r0) &&
+         (window <= 0 || k0 > q_offset + r0 + nr - 1 - window);
+}
+
+// (d) = A (64 rows of a, K-major) . B^T (n rows of b, K-major) over D: D / 16
+// k-steps, 4 in each 64-column slab; a_slab, b_slab the tiles' slab sizes
+template <int N>
+__device__ __forceinline__ void product_ss(float (&d)[N], uint32_t a, int a_slab, uint32_t b,
+                                           int b_slab) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t col = (ks % 4) * 32;
+    wgmma_ss(d, desc_k(a + (ks / 4) * a_slab + col), desc_k(b + (ks / 4) * b_slab + col), ks);
+  }
+}
+
+// (d) += X (the A fragments of 16 KN rows' products, registers) . B (16 KN
+// rows of b, D columns, MN-major: the descriptor's transpose bit)
+template <int KN>
+__device__ __forceinline__ void product_rs(float (&d)[64], const uint32_t (&x)[KN][4], uint32_t b,
+                                           int b_slab) {
+#pragma unroll
+  for (int kk = 0; kk < KN; ++kk) wgmma_rs(d, x[kk], desc(b + kk * 16 * SLAB_ROW, b_slab, 1024));
+}
+
+// a consumer thread's 64 x 128 float32 accumulator rows (row0, row0 + 8) into
+// rows of a (rows, D) bf16 matrix, those below n_rows
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[64], int row0, int col0,
+                                           int n_rows) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 8 * i;
+    if (r < n_rows) {
+      bf16* row = dst + (size_t)r * D + col0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+}  // namespace hb
+
+// The dK/dV pass. Block: keys [k0, k0 + 128) of (batch row, kv head) bkv;
+// consumer warpgroup w takes keys k0 + 64 w .. + 63, thread (warp, lane) of
+// it the keys key0 = k0 + 64 w + 16 warp + lane / 4 and key0 + 8. Its S^T
+// and dP^T accumulators (m64n64, 32 each) hold element 4 j + 2 i + c at
+// (key key0 + 8 i, query q0 + 8 j + col0 + c); its dK and dV (m64n128, 64
+// each) at (key key0 + 8 i, column 8 j + col0 + c).
+__global__ void __launch_bounds__(hb::THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, Sq, B*Hq), 64 rows
+                            const __grid_constant__ CUtensorMap tm_do,   // (D, Sq, B*Hq), 64 rows
+                            const __grid_constant__ CUtensorMap tm_k,    // (D, Sk, B*Hkv), 128
+                            const __grid_constant__ CUtensorMap tm_v,    // (D, Sk, B*Hkv), 128
+                            const float* __restrict__ lse,     // (B, Hq, Sq)
+                            const float* __restrict__ delta,   // (B, Hq, Sq)
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,   // (B, Hkv, Sk, D)
+                            int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
+                            float scale) {
+  using namespace hb;
+  using L = Dkdv;
+  constexpr int BM = L::BM, STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_dkdv_wg[];
+  const uint32_t raw = smem_addr(smem_dkdv_wg);
+  const L sm{(raw + 1023u) & ~1023u};
+  unsigned char* const gbase = smem_dkdv_wg + (sm.base - raw);   // the same bytes, generic
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.kv_full(), 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(sm.full(st), 1 + 32);        // the TMA's bytes and the producer warp's rows
+      mbar_init(sm.empty(st), 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // under a causal or window mask, kv heads vary fastest and key tiles go
+  // in order, the first (which the most query rows see under the causal
+  // mask) first; without one, key tiles vary fastest, so the blocks resident
+  // at once read the Q and dO of few heads
+  const bool by_head = causal || window > 0;
+  const int bkv = by_head ? blockIdx.x : blockIdx.y;
+  const int k0 = (by_head ? blockIdx.y : blockIdx.x) * L::BN;
+  const int b = bkv / hkv;
+  const int hk = bkv - b * hkv;
+  const int g = hq / hkv;
+  int qb, qe;
+  q_range(k0, L::BN, sq, sk, causal, window, q_offset, BM, qb, qe);
+  const int n_q = qe > qb ? (qe - qb + BM - 1) / BM : 0;
+  const int n_tiles = g * n_q;
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (role == 2) {
+    // ---- producer: one warp; lane 0 issues the TMA loads, every lane
+    // stages two rows' lse * log2(e) and delta ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    if (threadIdx.x >= 256 + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_expect_tx(sm.kv_full(), 2 * L::KV_BYTES);
+#pragma unroll
+      for (int j = 0; j < SLABS; ++j) {
+        tma_load(sm.k() + j * L::KV_SLAB, &tm_k, sm.kv_full(), 64 * j, k0, bkv);
+        tma_load(sm.v() + j * L::KV_SLAB, &tm_v, sm.kv_full(), 64 * j, k0, bkv);
+      }
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % STAGES;
+      const uint32_t phase = ((it / STAGES) & 1) ^ 1;   // the first round finds them free
+      const int h = it / n_q;
+      const int q0 = qb + (it - h * n_q) * BM;
+      const int bh = (b * hkv + hk) * g + h;
+      mbar_wait(sm.empty(st), phase);
+      if (lane == 0) {
+        mbar_expect_tx(sm.full(st), 2 * L::Q_BYTES);
+#pragma unroll
+        for (int j = 0; j < SLABS; ++j) {
+          tma_load(sm.q(st) + j * L::Q_SLAB, &tm_q, sm.full(st), 64 * j, q0, bh);
+          tma_load(sm.dout(st) + j * L::Q_SLAB, &tm_do, sm.full(st), 64 * j, q0, bh);
+        }
+      }
+      float* rows = reinterpret_cast<float*>(gbase + (sm.rows(st) - sm.base));
+#pragma unroll
+      for (int r = lane; r < BM; r += 32) {
+        const bool in = q0 + r < sq;
+        rows[r] = in ? lse[(size_t)bh * sq + q0 + r] * kLog2e : 0.f;
+        rows[BM + r] = in ? delta[(size_t)bh * sq + q0 + r] : 0.f;
+      }
+      mbar_arrive(sm.full(st));
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 keys each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+  const int lane = threadIdx.x % 32;
+  const int kw0 = k0 + 64 * role;                          // this warpgroup's keys
+  const int key0 = kw0 + (threadIdx.x % 128 / 32) * 16 + lane / 4;   // and + 8
+  const int col0 = 2 * (lane % 4);
+  const uint32_t k_w = sm.k() + role * 64 * SLAB_ROW;     // its 64 rows of each slab
+  const uint32_t v_w = sm.v() + role * 64 * SLAB_ROW;
+  const float c = scale * kLog2e;
+  const Mask ok{sq, sk, causal, window, q_offset};
+
+  float dk_acc[64], dv_acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  mbar_wait(sm.kv_full(), 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % STAGES;
+    const int q0 = qb + (it % n_q) * BM;
+    mbar_wait(sm.full(st), (it / STAGES) & 1);
+    if (meets(q0, min(q0 + BM, sq) - 1, kw0, min(kw0 + 64, sk) - 1, causal, window, q_offset)) {
+      // S^T = K . Q^T and dP^T = V . dO^T, both over D from shared memory
+      float s[32], dp[32];
+      wgmma_fence();
+      product_ss(s, k_w, L::KV_SLAB, sm.q(st), L::Q_SLAB);
+      wgmma_commit();
+      product_ss(dp, v_w, L::KV_SLAB, sm.dout(st), L::Q_SLAB);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      // P^T = exp2(S^T * c - lse * log2(e)), masked before the exponential,
+      // while dP^T is in flight
+      const float* rows = reinterpret_cast<const float*>(gbase + (sm.rows(st) - sm.base));
+      const bool masked = !inside(q0, BM, kw0, 64, sq, sk, causal, window, q_offset);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int qi = 8 * j + col0 + cc;
+          const float l2 = rows[qi];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * j + 2 * i + cc;
+            const bool seen = !masked || ok(q0 + qi, key0 + 8 * i);
+            s[e] = seen ? ex2_ftz(fmaf(s[e], c, -l2)) : 0.f;
+          }
+        }
+      // dV += P^T . dO, P^T rounded to bf16 in registers, dO read through
+      // the transpose bit; then dP^T has landed
+      uint32_t pa[BM / 16][4], da[BM / 16][4];
+      pack_p(pa, s);
+      wgmma_fence();
+      product_rs(dv_acc, pa, sm.dout(st), L::Q_SLAB);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(dp);
+      // dS^T = P^T * (dP^T - delta) * scale while dV's product runs; dK +=
+      // dS^T . Q, likewise
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const float dl = rows[BM + 8 * j + col0 + cc];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * j + 2 * i + cc;
+            dp[e] = s[e] * (dp[e] - dl) * scale;
+          }
+        }
+      pack_p(da, dp);
+      wgmma_fence();
+      product_rs(dk_acc, da, sm.q(st), L::Q_SLAB);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(pa);
+      fence_regs(da);
+    }
+    mbar_arrive(sm.empty(st));
+  }
+  store_rows(dk + (size_t)bkv * sk * D, dk_acc, key0, col0, sk);
+  store_rows(dv + (size_t)bkv * sk * D, dv_acc, key0, col0, sk);
+}
+
+// The dQ pass. Block: query rows [q0, q0 + 128) of (batch row, query head)
+// bh; consumer warpgroup w takes rows q0 + 64 w .. + 63, thread (warp, lane)
+// of it the rows row0 = q0 + 64 w + 16 warp + lane / 4 and row0 + 8. Its S
+// and dP accumulators (m64n64, 32 each) hold element 4 j + 2 i + c at (row
+// row0 + 8 i, key k0 + 8 j + col0 + c), its dQ (m64n128, 64) at (row row0 +
+// 8 i, column 8 j + col0 + c). dQ sums the key tiles in ascending order.
+__global__ void __launch_bounds__(hb::THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, Sq, B*Hq), 128 rows
+                          const __grid_constant__ CUtensorMap tm_do,   // (D, Sq, B*Hq), 128 rows
+                          const __grid_constant__ CUtensorMap tm_k,    // (D, Sk, B*Hkv), 64
+                          const __grid_constant__ CUtensorMap tm_v,    // (D, Sk, B*Hkv), 64
+                          const float* __restrict__ lse,     // (B, Hq, Sq)
+                          const float* __restrict__ delta,   // (B, Hq, Sq)
+                          bf16* __restrict__ dq,             // (B, Hq, Sq, D)
+                          int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
+                          float scale) {
+  using namespace hb;
+  using L = Dq;
+  constexpr int BN = L::BN, STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_dq_wg[];
+  const L sm{(smem_addr(smem_dq_wg) + 1023u) & ~1023u};
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.q_full(), 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(sm.full(st), 1);
+      mbar_init(sm.empty(st), 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // under a causal or window mask, heads vary fastest and query tiles go
+  // longest first (the forward's order); without one, query tiles vary
+  // fastest, so the blocks resident at once read the K and V of few heads
+  const bool by_head = causal || window > 0;
+  const int bh = by_head ? blockIdx.x : blockIdx.y;
+  const int tile = by_head ? blockIdx.y : blockIdx.x;
+  const int q0 = ((by_head ? gridDim.y : gridDim.x) - 1 - tile) * L::BM;
+  const int b = bh / hq;
+  const int kvh = b * hkv + (bh - b * hq) / (hq / hkv);
+  int kb, ke;
+  k_range(q0, min(q0 + L::BM, sq) - 1, sk, causal, window, q_offset, BN, kb, ke);
+  const int n_tiles = ke > kb ? (ke - kb + BN - 1) / BN : 0;
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (role == 2) {
+    // ---- producer: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    if (threadIdx.x != 256) return;
+    mbar_expect_tx(sm.q_full(), 2 * L::Q_BYTES);
+#pragma unroll
+    for (int j = 0; j < SLABS; ++j) {
+      tma_load(sm.q() + j * L::Q_SLAB, &tm_q, sm.q_full(), 64 * j, q0, bh);
+      tma_load(sm.dout() + j * L::Q_SLAB, &tm_do, sm.q_full(), 64 * j, q0, bh);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % STAGES;
+      const int k0 = kb + it * BN;
+      mbar_wait(sm.empty(st), ((it / STAGES) & 1) ^ 1);
+      mbar_expect_tx(sm.full(st), 2 * L::KV_BYTES);
+#pragma unroll
+      for (int j = 0; j < SLABS; ++j) {
+        tma_load(sm.k(st) + j * L::KV_SLAB, &tm_k, sm.full(st), 64 * j, k0, kvh);
+        tma_load(sm.v(st) + j * L::KV_SLAB, &tm_v, sm.full(st), 64 * j, k0, kvh);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 query rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+  const int lane = threadIdx.x % 32;
+  const int r0 = q0 + 64 * role;                             // this warpgroup's rows
+  const int r_last = min(r0 + 64, sq) - 1;
+  const int row0 = r0 + (threadIdx.x % 128 / 32) * 16 + lane / 4;   // and + 8
+  const int col0 = 2 * (lane % 4);
+  const uint32_t q_w = sm.q() + role * 64 * SLAB_ROW;       // its 64 rows of each slab
+  const uint32_t do_w = sm.dout() + role * 64 * SLAB_ROW;
+  const float c = scale * kLog2e;
+  const Mask ok{sq, sk, causal, window, q_offset};
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 8 * i;
+    lse2[i] = r < sq ? lse[(size_t)bh * sq + r] * kLog2e : 0.f;
+    dl[i] = r < sq ? delta[(size_t)bh * sq + r] : 0.f;
+  }
+
+  float dq_acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq_acc[i] = 0.f;
+
+  mbar_wait(sm.q_full(), 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % STAGES;
+    const int k0 = kb + it * BN;
+    mbar_wait(sm.full(st), (it / STAGES) & 1);
+    if (meets(r0, r_last, k0, min(k0 + BN, sk) - 1, causal, window, q_offset)) {
+      // S = Q . K^T and dP = dO . V^T
+      float s[BN / 2], dp[BN / 2];
+      wgmma_fence();
+      product_ss(s, q_w, L::Q_SLAB, sm.k(st), L::KV_SLAB);
+      wgmma_commit();
+      product_ss(dp, do_w, L::Q_SLAB, sm.v(st), L::KV_SLAB);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      // P while dP is in flight, then dS = P * (dP - delta) * scale in dp's
+      // registers
+      const bool masked = !inside(r0, 64, k0, BN, sq, sk, causal, window, q_offset);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int e = 4 * j + 2 * i + cc;
+            const bool seen = !masked || ok(row0 + 8 * i, k0 + 8 * j + col0 + cc);
+            s[e] = seen ? ex2_ftz(fmaf(s[e], c, -lse2[i])) : 0.f;
+          }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) dp[e] = s[e] * (dp[e] - dl[(e >> 1) & 1]) * scale;
+      // dQ += dS . K, dS rounded to bf16 in registers, K read through the
+      // transpose bit
+      uint32_t da[BN / 16][4];
+      pack_p(da, dp);
+      wgmma_fence();
+      product_rs(dq_acc, da, sm.k(st), L::KV_SLAB);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq_acc);
+      fence_regs(da);
+    }
+    mbar_arrive(sm.empty(st));
+  }
+  store_rows(dq + (size_t)bh * sq * D, dq_acc, row0, col0, sq);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// bfloat16 at D = 128: the delta pass, then the TMA + wgmma dK/dV and dQ
+// passes. Each tensor is mapped in the boxes of the pass that reads it: Q
+// and dO in 64 rows (dK/dV) and 128 (dQ), K and V in 128 (dK/dV) and 64
+// (dQ); rows past Sq or Sk load as zeros. With no
+// query row or no key, no pair is seen: the gradients are zeros.
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* out,
+                             const float* lse, const void* dout, float* delta, void* dq,
+                             void* dk, void* dv, int batch, int hq, int hkv, int sq, int sk,
+                             int causal, int window, int q_offset, float scale, cudaStream_t s) {
+  constexpr int D = hb::D;
+  const size_t kv_bytes = (size_t)batch * hkv * sk * D * sizeof(bf16);
+  if (sq == 0 || sk == 0) {
+    cudaError_t err = cudaMemsetAsync(dk, 0, kv_bytes, s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, kv_bytes, s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dq, 0, (size_t)batch * hq * sq * D * 2, s);
+    return err;
+  }
+  const int rows = batch * hq * sq;
+  flash_bwd_delta_kernel<bf16><<<(rows + 7) / 8, 256, 0, s>>>(
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), delta, rows, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq64, tdo64, tq128, tdo128, tk128, tv128, tk64, tv64;
+  if (!make_map(enc, &tq64, q, D, sq, batch * hq, hb::Dkdv::BM) ||
+      !make_map(enc, &tdo64, dout, D, sq, batch * hq, hb::Dkdv::BM) ||
+      !make_map(enc, &tq128, q, D, sq, batch * hq, hb::Dq::BM) ||
+      !make_map(enc, &tdo128, dout, D, sq, batch * hq, hb::Dq::BM) ||
+      !make_map(enc, &tk128, k, D, sk, batch * hkv, hb::Dkdv::BN) ||
+      !make_map(enc, &tv128, v, D, sk, batch * hkv, hb::Dkdv::BN) ||
+      !make_map(enc, &tk64, k, D, sk, batch * hkv, hb::Dq::BN) ||
+      !make_map(enc, &tv64, v, D, sk, batch * hkv, hb::Dq::BN))
+    return cudaErrorInvalidValue;
+  const bool by_head = causal || window > 0;
+  const int k_tiles = (sk + hb::Dkdv::BN - 1) / hb::Dkdv::BN;
+  const int q_tiles = (sq + hb::Dq::BM - 1) / hb::Dq::BM;
+  if ((err = set_smem(flash_bwd_dkdv_wgmma_kernel, hb::Dkdv::SMEM_BYTES)) != cudaSuccess)
+    return err;
+  flash_bwd_dkdv_wgmma_kernel<<<by_head ? dim3(batch * hkv, k_tiles) : dim3(k_tiles, batch * hkv),
+                                hb::THREADS, hb::Dkdv::SMEM_BYTES, s>>>(
+      tq64, tdo64, tk128, tv128, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), hq,
+      hkv, sq, sk, causal, window, q_offset, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = set_smem(flash_bwd_dq_wgmma_kernel, hb::Dq::SMEM_BYTES)) != cudaSuccess) return err;
+  flash_bwd_dq_wgmma_kernel<<<by_head ? dim3(batch * hq, q_tiles) : dim3(q_tiles, batch * hq),
+                              hb::THREADS, hb::Dq::SMEM_BYTES, s>>>(
+      tq128, tdo128, tk64, tv64, lse, delta, static_cast<bf16*>(dq), hq, hkv, sq, sk, causal,
+      window, q_offset, scale);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -739,29 +1282,36 @@ cudaError_t launch_bwd(int dtype, const void* q, const void* k, const void* v, c
     return err;
   }
   if (dtype != 1) return cudaErrorInvalidValue;
-  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v), *ob = static_cast<const bf16*>(dout);
-  if (rows > 0)
-    flash_bwd_delta_kernel<bf16><<<(rows + 7) / 8, 256, 0, s>>>(static_cast<const bf16*>(out),
-                                                                ob, delta, rows, D);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (grid_kv.x > 0 && grid_kv.y > 0) {
-    if ((err = set_smem(flash_bwd_dkdv_mma_kernel<D>, mma_dkdv_smem<D>())) != cudaSuccess)
-      return err;
-    flash_bwd_dkdv_mma_kernel<D><<<grid_kv, NT, mma_dkdv_smem<D>(), s>>>(
-        qb, kb, vb, ob, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), hq, hkv, sq,
-        sk, causal, window, q_offset, scale);
+  // bfloat16: D = 128 on the TMA + wgmma passes, the other head dims on
+  // mma.sync
+  if constexpr (D == hb::D) {
+    return launch_bwd_wgmma(q, k, v, out, lse, dout, delta, dq, dk, dv, batch, hq, hkv, sq, sk,
+                            causal, window, q_offset, scale, s);
+  } else {
+    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+               *vb = static_cast<const bf16*>(v), *ob = static_cast<const bf16*>(dout);
+    if (rows > 0)
+      flash_bwd_delta_kernel<bf16><<<(rows + 7) / 8, 256, 0, s>>>(static_cast<const bf16*>(out),
+                                                                  ob, delta, rows, D);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (grid_kv.x > 0 && grid_kv.y > 0) {
+      if ((err = set_smem(flash_bwd_dkdv_mma_kernel<D>, mma_dkdv_smem<D>())) != cudaSuccess)
+        return err;
+      flash_bwd_dkdv_mma_kernel<D><<<grid_kv, NT, mma_dkdv_smem<D>(), s>>>(
+          qb, kb, vb, ob, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), hq, hkv, sq,
+          sk, causal, window, q_offset, scale);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    if (grid_q.x > 0 && grid_q.y > 0) {
+      if ((err = set_smem(flash_bwd_dq_mma_kernel<D>, mma_dq_smem<D>())) != cudaSuccess)
+        return err;
+      flash_bwd_dq_mma_kernel<D><<<grid_q, NT, mma_dq_smem<D>(), s>>>(
+          qb, kb, vb, ob, lse, delta, static_cast<bf16*>(dq), hq, hkv, sq, sk, causal, window,
+          q_offset, scale);
+      err = cudaGetLastError();
+    }
+    return err;
   }
-  if (grid_q.x > 0 && grid_q.y > 0) {
-    if ((err = set_smem(flash_bwd_dq_mma_kernel<D>, mma_dq_smem<D>())) != cudaSuccess)
-      return err;
-    flash_bwd_dq_mma_kernel<D><<<grid_q, NT, mma_dq_smem<D>(), s>>>(
-        qb, kb, vb, ob, lse, delta, static_cast<bf16*>(dq), hq, hkv, sq, sk, causal, window,
-        q_offset, scale);
-    err = cudaGetLastError();
-  }
-  return err;
 }
 
 }  // namespace

@@ -38,11 +38,14 @@ expansion is never materialized.
   v, out, lse, dout)``: on a CUDA tensor one call of
   ``csrc/flash_attention_bwd.cu`` (delta, then the dK/dV pass over key
   tiles and the dQ pass over query tiles, sums in a fixed order; bfloat16
-  on mma.sync, float32 on the CUDA cores), on a CPU tensor
+  at D = 128 on TMA + wgmma, 128-key blocks and 128-row dQ blocks, at the
+  other head dims on mma.sync; float32 on the CUDA cores), on a CPU tensor
   :func:`attention_bwd_torch`; :func:`work_bwd` counts its five products
-  and its bytes. :func:`attention_bwd_tiled` is its plain version in the
-  kernel's order and rounding (P and dS rounded to the inputs' dtype before
-  they feed a product), returning float32.
+  and its bytes, :func:`bwd_smem_bytes` its shared memory.
+  :func:`attention_bwd_tiled` is its plain version in the kernel's order
+  and rounding (P and dS rounded to the inputs' dtype before they feed a
+  product, dQ summed over :func:`bwd_key_tile` keys a tile), returning
+  float32.
 - :func:`flash_decode` is the one-row kernel wrapper, the custom op
   ``repro_torch::flash_decode``: q ``(B, Hq, D)``, one query row a batch
   row, against K/V in the model's own ``(B, Sk, Hkv, D)`` layout, read in
@@ -108,8 +111,15 @@ RESCALE_SLACK = {64: 8.0}
 KV_CHUNK = 1024
 # the backward's span in a torch.profiler trace
 BACKWARD_SPAN = "attention.backward"
-# keys per tile of csrc/flash_attention_bwd.cu's dQ pass: bfloat16, float32
-BWD_KEYS = 64
+# csrc/flash_attention_bwd.cu, bfloat16 at D = 128 (TMA + wgmma): the dK/dV
+# pass's (keys a block, query rows a tile, ring stages) and the dQ pass's
+# (query rows a block, keys a tile, ring stages)
+BWD_WGMMA_DKDV = {128: (128, 64, 2)}
+BWD_WGMMA_DQ = {128: (128, 64, 2)}
+# its other passes: keys a dK/dV block, query rows a dQ block and, in
+# bfloat16, keys a dQ tile (both dtypes, every other head dim); float32:
+# query rows a dK/dV tile and keys a dQ tile
+BWD_BLOCK = 64
 BWD_FP32_KEYS = 32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -120,6 +130,39 @@ def key_tile(d: int) -> int:
     flash_wgmma_kernel<128>, 64 for flash_wgmma_kernel<64> and <256> and
     for flash_mma_kernel (D = 32)."""
     return WGMMA_TILES[d][0] if d in WGMMA_TILES else BK
+
+
+def bwd_key_tile(d: int) -> int:
+    """Keys per tile of the bfloat16 backward's dQ pass at head dim d, over
+    which dQ is summed in ascending order: the TMA + wgmma pass's at D = 128
+    (``BWD_WGMMA_DQ``), the mma.sync pass's (``BWD_BLOCK``) at the other
+    head dims; 64 at every head dim as built."""
+    return BWD_WGMMA_DQ[d][1] if d in BWD_WGMMA_DQ else BWD_BLOCK
+
+
+def bwd_smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of the backward's larger pass at head dim d.
+    bfloat16 at D = 128: the dK/dV pass holds its K and V tiles, and per
+    ring stage a Q and a dO tile and the rows' lse and delta (float32); the
+    dQ pass holds its Q and dO tiles and per stage a K and a V tile; each
+    adds its mbarriers and 1 KB to align the tiles to the 128-byte
+    swizzle's period. bfloat16 elsewhere: tiles of padded rows (D + 8) of
+    K, V, Q and dO (dK/dV pass, with the tile's lse and delta) or of Q, dO,
+    K and V (dQ pass). float32: padded rows (D + 4) of K, V, Q and dO and
+    the P^T and dS^T tiles (dK/dV pass), or of Q, dO, K, V and the dS tile
+    (dQ pass)."""
+    if dtype == torch.bfloat16 and d in BWD_WGMMA_DKDV:
+        bn, bm, stages = BWD_WGMMA_DKDV[d]
+        dkdv = 1024 + 2 * bn * d * 2 + stages * (2 * bm * d * 2 + 2 * bm * 4) + 8 * (1 + 2 * stages)
+        bm, bn, stages = BWD_WGMMA_DQ[d]
+        dq = 1024 + 2 * bm * d * 2 + stages * 2 * bn * d * 2 + 8 * (1 + 2 * stages)
+        return max(dkdv, dq)
+    blk, fb = BWD_BLOCK, BWD_FP32_KEYS
+    if dtype == torch.bfloat16:
+        bm = 64 if min(d, 128) <= 64 else 32   # query rows a dK/dV tile
+        return max((2 * blk + 2 * bm) * (d + 8) * 2 + 2 * bm * 4, 4 * blk * (d + 8) * 2)
+    return 4 * max(2 * blk * (d + 4) + 2 * fb * (d + 4) + 2 * blk * (fb + 4) + 2 * fb,
+                   2 * blk * (d + 4) + 2 * fb * (d + 4) + blk * (fb + 4))
 
 
 def smem_bytes(d: int, dtype: torch.dtype) -> int:
@@ -311,11 +354,12 @@ def attention_bwd_tiled(q, k, v, out, lse, dout, *, causal: bool = True, window:
     (dp - delta) * scale`` in float32. P and dS are rounded to the inputs'
     dtype where they feed a product (dV += P^T.dO, dK += dS^T.Q, dQ += dS.K),
     as the bfloat16 kernel rounds them (in float32 nothing is rounded). dQ
-    sums over the key tiles of the kernel's dQ pass."""
+    sums over the key tiles of the kernel's dQ pass in ascending order
+    (:func:`bwd_key_tile` keys in bfloat16, ``BWD_FP32_KEYS`` in float32)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
-    bk = BWD_KEYS if q.dtype == torch.bfloat16 else BWD_FP32_KEYS
+    bk = bwd_key_tile(d) if q.dtype == torch.bfloat16 else BWD_FP32_KEYS
     off = sk - sq if q_offset < 0 else q_offset
     c = exp2_scale(d)
     scale = float(np.float32(1.0 / (d ** 0.5)))  # lint: allow-tracer-host-sync (a numpy scalar)
@@ -417,11 +461,16 @@ def work_bwd(q, k, v, out, lse, dout, causal: bool, window: int,
                        + lse.numel() * lse.element_size())
 
 
-def _check_bwd(q, k, v, out, lse, dout) -> None:
+def _check_bwd(q, k, v, out, lse, dout, hw_smem: int = H100.vmem_bytes) -> None:
     """Raise with the reason on anything the backward kernel does not take:
     q/k/v as the forward's :func:`_check` takes them, out/lse/dout beside
-    them. A pass whose shared memory the card refuses fails at its launch."""
+    them, and a pass's shared memory (:func:`bwd_smem_bytes`) past the
+    per-block budget ``hw_smem``."""
     _check(q, k, v, H100.vmem_bytes)
+    need = bwd_smem_bytes(q.shape[-1], q.dtype)
+    if need > hw_smem:
+        raise ValueError(f"flash backward kernel needs {need} B of shared memory per block, "
+                         f"the budget is {hw_smem} B")
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype:
             raise ValueError(f"{name} must have q's shape {tuple(q.shape)} and dtype {q.dtype}, "

@@ -17,6 +17,13 @@ Tolerances, float32:
   ``tests/test_torch_train.py`` holds the training op; the reference takes
   K/V expanded to every head, so its dk/dv are summed over each GQA group
   first.
+
+Tolerance, bfloat16 (head dim 128, where the kernel's dQ pass is the TMA +
+wgmma one, summing over ``bwd_key_tile(128)`` keys a tile): the tiled
+version on bfloat16 inputs against ``jax.vjp`` of ``_blocked`` on the same
+values in float32: P and dS rounded to bfloat16 where they feed a product
+keep each gradient's error RMS within 2^-7 of the reference's, as they keep
+it from the tiled version's float32 self.
 """
 
 import pytest
@@ -29,6 +36,7 @@ import numpy as np  # noqa: E402
 from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 
 from repro.models import attention as JATT  # noqa: E402
+from repro_torch.hw import H100  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 
@@ -43,6 +51,8 @@ CASES = [  # (name, b, hq, hkv, d, sq, sk, causal, window, q_offset)
     ("bidirectional ragged g=2", 2, 4, 2, 32, 40, 65, False, 0, -1),
     ("rows that see no key g=8", 1, 8, 1, 32, 45, 30, True, 0, -1),
     ("window past the keys g=10", 1, 10, 1, 64, 40, 100, True, 30, 70),
+    ("D=128 causal ragged g=4", 1, 4, 1, 128, 150, 150, True, 0, -1),
+    ("D=128 bidirectional Sq<Sk ragged g=2", 1, 4, 2, 128, 70, 200, False, 0, -1),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -110,7 +120,8 @@ def _reference(q, k, v, dout, causal, window, q_offset):
 
 
 @pytest.mark.parametrize("name,b,hq,hkv,d,sq,sk,causal,window,q_offset",
-                         [CASES[i] for i in (0, 2, 4, 5)], ids=[IDS[i] for i in (0, 2, 4, 5)])
+                         [CASES[i] for i in (0, 2, 4, 5, 7, 8)],
+                         ids=[IDS[i] for i in (0, 2, 4, 5, 7, 8)])
 def test_plain_versions_match_the_reference_vjp(name, b, hq, hkv, d, sq, sk, causal, window,
                                                 q_offset):
     mask = dict(causal=causal, window=window, q_offset=q_offset)
@@ -121,6 +132,51 @@ def test_plain_versions_match_the_reference_vjp(name, b, hq, hkv, d, sq, sk, cau
         for got, ref in zip(fn(*args, **mask), want, strict=True):
             np.testing.assert_allclose(got.double().numpy(), ref, rtol=1e-5,
                                        atol=1e-5 * max(np.abs(ref).max(), 1e-30))
+
+
+@pytest.mark.parametrize("name,b,hq,hkv,d,sq,sk,causal,window,q_offset",
+                         [CASES[i] for i in (7, 8)], ids=[IDS[i] for i in (7, 8)])
+def test_tiled_bfloat16_at_d128_matches_the_reference_vjp(name, b, hq, hkv, d, sq, sk, causal,
+                                                          window, q_offset):
+    """At D = 128 the bfloat16 tiled version sums dQ over the TMA + wgmma dQ
+    pass's key tiles, three or more here, the last ragged: within the
+    bfloat16 tolerance of ``jax.vjp`` of ``_blocked`` on the same values."""
+    assert sk > 2 * FA.bwd_key_tile(d) and sk % FA.bwd_key_tile(d)
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    q, k, v, _out, _lse, dout = _inputs(b, hq, hkv, d, sq, sk, **mask, seed=5)
+    q, k, v, dout = (t.to(torch.bfloat16) for t in (q, k, v, dout))
+    out, lse = FA.flash_attention_train_torch(q.float(), k.float(), v.float(), **mask)
+    got = FA.attention_bwd_tiled(q, k, v, out.to(torch.bfloat16), lse, dout, **mask)
+    want = _reference(q.float(), k.float(), v.float(), dout.float(), causal, window, q_offset)
+    for g, w in zip(got, want, strict=True):
+        w = torch.from_numpy(np.ascontiguousarray(w)).double()
+        ratio = float((g.double() - w).pow(2).mean().sqrt() / w.pow(2).mean().sqrt())
+        assert ratio < 2.0 ** -7, ratio
+
+
+def test_backward_tiles_and_shared_memory_per_head_dim():
+    """The dQ pass's key tile (the tiled version's order) is 64 at every head
+    dim, the TMA + wgmma pass's at D = 128; every pass's shared memory fits
+    the card's per-block budget, D = 128's in bfloat16 being the dK/dV
+    pass's: 128-key K and V tiles, two stages of 64-row Q and dO tiles with
+    their rows' lse and delta, five mbarriers and the 1 KB alignment."""
+    assert {d: FA.bwd_key_tile(d) for d in FA.HEAD_DIMS} == {32: 64, 64: 64, 128: 64, 256: 64}
+    assert FA.BWD_WGMMA_DQ[128][1] == FA.bwd_key_tile(128)
+    dkdv = 1024 + 2 * 32768 + 2 * (2 * 16384 + 512) + 8 * 5
+    assert FA.bwd_smem_bytes(128, torch.bfloat16) == dkdv
+    for d in FA.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            assert 0 < FA.bwd_smem_bytes(d, dtype) <= H100.vmem_bytes
+
+
+def test_check_bwd_raises_past_the_shared_memory_budget():
+    mask = dict(causal=True, window=0, q_offset=-1)
+    args = [t.to(torch.bfloat16) if t.dim() == 4 else t
+            for t in _inputs(1, 4, 2, 128, 16, 16, **mask)]
+    need = FA.bwd_smem_bytes(128, torch.bfloat16)
+    FA._check_bwd(*args, hw_smem=need)
+    with pytest.raises(ValueError, match="backward kernel needs 133160 B of shared memory"):
+        FA._check_bwd(*args, hw_smem=need - 1)
 
 
 def test_tiled_bfloat16_rounds_p_and_ds_only_where_they_feed_a_product():

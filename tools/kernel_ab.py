@@ -2,7 +2,7 @@
 shapes, for comparing two trees in one run.
 
     python3 tools/kernel_ab.py --kernel {paged_decode,ssd_scan,ssd_scan_bwd,rglru_scan_bwd,
-                                         flash_d64,cross_read}
+                                         flash_d64,cross_read,flash_bwd}
         [--tree DIR] [--label NAME] [--flush-modes write read none]
 
 ``--tree`` is the root of a checkout of this repository (default: this
@@ -39,6 +39,12 @@ Kernels and shapes:
   tree does inside it (transposed copies and the flash kernel, or the
   one-row kernel), so both trees time the same public function. Its
   ``device_ms`` sums every kernel the call launches, the copies included.
+- ``flash_bwd``: the attention backward at head dim 128 in the causal
+  training shapes of Yi-6B (4, 2048, 32/4 heads), InternVL2-2B (4, 2304:
+  2048 after a 256-token prefix, 16/8) and Qwen3-MoE (4, 2048, 64/4), from
+  the tree's own training forward's out and lse, each gradient held under
+  ``_bwd_tol`` against the tree's ``attention_bwd_tiled`` (its own dQ key
+  tile).
 
 The flush is ``chip_smoke.py``'s (96 MB of zeros written, which leaves the
 L2 full of dirty lines that the kernel's reads must write back first);
@@ -169,6 +175,25 @@ def cross_read_cases(cs, att):
            _close(cs, cs.FLASH_BF16_TOL), bound)
 
 
+def flash_bwd_cases(cs, fa):
+    """(label, call, plain, check, bound_ms) of the attention backward at the
+    head-dim-128 training shapes, bfloat16, causal."""
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    for label, (b, hq, hkv, s) in (("Yi-6B training (4, 2048, 32/4)", (4, 32, 4, 2048)),
+                                   ("InternVL2-2B training (4, 2304, 16/8)", (4, 16, 8, 2304)),
+                                   ("Qwen3-MoE training (4, 2048, 64/4)", (4, 64, 4, 2048))):
+        q, k, v, dout = (torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16)
+                         for sh in ((b, hq, s, 128), (b, hkv, s, 128), (b, hkv, s, 128),
+                                    (b, hq, s, 128)))
+        out, lse = fa.flash_attention_train(q, k, v, causal=True)
+        args = (q, k, v, out, lse, dout)
+        flops, nbytes = fa.work_bwd(*args, True, 0, -1)
+        bound, _ = cs._bound_ms(nbytes, flops, torch.bfloat16)
+        yield (label, lambda: fa.flash_attention_bwd(*args, causal=True),
+               lambda: fa.attention_bwd_tiled(*args, causal=True),
+               _grads_close(cs, torch.bfloat16), bound)
+
+
 # kernel: (its module under repro_torch, its family in a trace or None for
 # every kernel the call launches, cases)
 KERNELS = {"paged_decode": ("kernels.paged_attention", "paged_decode", paged_decode_cases),
@@ -176,7 +201,8 @@ KERNELS = {"paged_decode": ("kernels.paged_attention", "paged_decode", paged_dec
            "ssd_scan_bwd": ("kernels.ssd_scan", "ssd", ssd_scan_bwd_cases),
            "rglru_scan_bwd": ("kernels.rglru_scan", "rglru", rglru_scan_bwd_cases),
            "flash_d64": ("kernels.flash_attention", "flash", flash_d64_cases),
-           "cross_read": ("models.attention", None, cross_read_cases)}
+           "cross_read": ("models.attention", None, cross_read_cases),
+           "flash_bwd": ("kernels.flash_attention", "flash_bwd", flash_bwd_cases)}
 
 
 def call_device_ms(cs, call, family, flush) -> tuple:
