@@ -530,6 +530,9 @@ FLASH_BWD_TIMED = (
      0),
     ("Qwen3-MoE training shape (g = 16)", 4, 64, 4, 128, 2048, 2048, True, 0),
     ("Whisper-medium encoder (D = 64, bidirectional)", 8, 16, 16, 64, 1500, 1500, False, 0),
+    ("Whisper-medium decoder self-attention (D = 64, causal)", 8, 16, 16, 64, 448, 448, True, 0),
+    ("Whisper-medium cross attention (D = 64, 448 x 1500, bidirectional)", 8, 16, 16, 64, 448,
+     1500, False, 0),
     ("RecurrentGemma-2B training shape (D = 256, window 2048)", 4, 10, 1, 256, 2048, 2048, True,
      2048),
 )
@@ -1570,6 +1573,23 @@ def flash_bwd_cases(flush) -> dict:
         _flash_bwd_timing(args, mask, max(errs), flush)
         del q, k, v, dout, out, lse, args
         torch.cuda.empty_cache()
+    # float32 (the CUDA-core passes) at the train-check twins' attention
+    # shape: Yi-6B's 32/4 heads of 128 at TRAIN_CHECK_SHAPE, causal
+    b, s = TRAIN_CHECK_SHAPE
+    mask = dict(causal=True, window=0, q_offset=-1)
+    q, dout = (torch.randn((b, 32, s, 128), generator=gen, device="cuda") for _ in range(2))
+    k, v = (torch.randn((b, 4, s, 128), generator=gen, device="cuda") for _ in range(2))
+    out, lse = FA.flash_attention_train(q, k, v, **mask)
+    args = (q, k, v, out, lse, dout)
+    errs = [check_close(f"flash_bwd float32 train-check shape {gname} vs the plain rule", g, w,
+                        FP32_TOL)
+            for gname, g, w in zip(("dq", "dk", "dv"), FA.flash_attention_bwd(*args, **mask),
+                                   FA.attention_bwd_torch(*args, **mask))]
+    print(f"  float32 at the train-check twins' shape ({b}, {s}), 32/4 heads of 128, causal:")
+    _flash_bwd_timing(args, mask, max(errs), flush)
+    del q, k, v, dout, out, lse, args
+    torch.cuda.empty_cache()
+    flash_bwd_kernel_names()
     q = torch.zeros((1, 4, 64, 96), device="cuda", dtype=torch.bfloat16)
     kv = torch.zeros((1, 2, 64, 96), device="cuda", dtype=torch.bfloat16)
     lse = torch.zeros((1, 4, 64), device="cuda")
@@ -1585,6 +1605,32 @@ def flash_bwd_cases(flush) -> dict:
     return entry
 
 
+def flash_bwd_kernel_names() -> None:
+    """Which passes of csrc/flash_attention_bwd.cu each head dim and dtype
+    ran, read from a profiler trace of a small call each (one trace per
+    configuration); fails where a traced call ran another dK/dV or dQ
+    kernel than the ones the source dispatches to (``FA.bwd_kernel_names``:
+    bfloat16 at D = 64, 128 and 256 the TMA + wgmma passes, at D = 32
+    mma.sync, float32 the CUDA-core passes)."""
+    gen = torch.Generator(device="cuda").manual_seed(62)
+    took = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in FA.HEAD_DIMS:
+            q, dout = (torch.randn((1, 4, 200, d), generator=gen, device="cuda").to(dtype)
+                       for _ in range(2))
+            k, v = (torch.randn((1, 2, 200, d), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            out, lse = FA.flash_attention_train(q, k, v, causal=True)
+            names = {m.group(0) for name in traced_kernels(
+                lambda: FA.flash_attention_bwd(q, k, v, out, lse, dout, causal=True), calls=1)
+                for m in [re.search(r"flash_bwd_\w+_kernel(<\d+>)?", name)] if m}
+            took.append(f"{str(dtype)[6:]} D={d} -> {', '.join(sorted(names)) or 'not measured'}")
+            want = FA.bwd_kernel_names(d, dtype)
+            if names and not all(w in names for w in want):
+                fail(f"flash_bwd {str(dtype)[6:]} D={d} ran {sorted(names)}, not {want}")
+    print("  flash_bwd kernels by head dim (profiler): " + "; ".join(took))
+
+
 def _flash_bwd_timing(args, mask, err, flush) -> dict:
     """The backward kernel at one shape (bfloat16): events, profiler device
     time, the plain rule, scaled_dot_product_attention's backward on K/V
@@ -1597,6 +1643,9 @@ def _flash_bwd_timing(args, mask, err, flush) -> dict:
 
     ms = cuda_ms(call, flush=flush)
     dev_ms, names = device_ms(call, "flash_bwd", flush)
+    want = FA.bwd_kernel_names(q.shape[-1], q.dtype)
+    if names and not all(any(w in n for n in names) for w in want):
+        fail(f"flash_bwd {tuple(q.shape)} {q.dtype} ran {sorted(names)}, not {want}")
     plain_ms = cuda_ms(lambda: FA.attention_bwd_torch(*args, **mask), reps=3, warmup=1,
                        flush=flush)
     # yardstick only, never called by the port: the library's fused attention

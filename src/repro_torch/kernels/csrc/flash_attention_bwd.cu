@@ -27,7 +27,8 @@
 // Sq x Sk in device memory. The price: S and dP are recomputed in both
 // passes, seven products where the bound counts five.
 // - pass 0 (flash_bwd_delta_kernel): delta = rowsum(dout * out) in float32,
-//   one warp a row, into a (B, Hq, Sq) float32 scratch buffer.
+//   16-byte loads, up to 32 lanes a row, into a (B, Hq, Sq) float32 scratch
+//   buffer.
 // - pass 1 (dK, dV): one block per key tile and (batch row, kv head). The
 //   block keeps its K and V tiles in shared memory and its dK and dV
 //   accumulators in registers, walks the g query heads of its group and in
@@ -39,72 +40,113 @@
 //   walks the key tiles its rows see in ascending order, recomputes S, P,
 //   dP and dS the same way and accumulates dQ += dS.K. It writes dQ once.
 // Both passes skip query or key tiles wholly outside the causal and window
-// masks by the forward's rule and mask per element inside the tiles; the
-// mask is applied before the exponential, so a row whose lse is -1e30 never
-// overflows. P is recomputed in the exp2 domain in every pass and dtype
+// masks by the forward's rule and mask per element inside the tiles; a
+// masked element's P is 0 whatever its exponent (the wgmma passes select
+// after the exponential, the others mask before it), so a row whose lse is
+// -1e30 gives zeros. P is recomputed in the exp2 domain in every pass and dtype
 // (the bfloat16 forward's lse comes from its exp2-domain maximum).
-// - bfloat16 at D = 128 (Yi, InternVL2, Qwen3-MoE): TMA + wgmma with warp
-//   specialisation, the forward's plumbing (hopper_wgmma.cuh). A block is
-//   two consumer warpgroups and a producer warpgroup (setmaxnreg: consumers
-//   240 registers, producer 24). Tiles are 64-column slabs of 128-byte rows,
+// - bfloat16 at D = 64, 128 and 256 (Whisper; Yi, InternVL2, Qwen3-MoE;
+//   RecurrentGemma): TMA + wgmma with warp specialisation, the forward's
+//   plumbing (hopper_wgmma.cuh), one kernel pair templated on D with a
+//   per-D shape (hb::Shape<D>). A block is consumer warpgroups and a
+//   producer warpgroup whose registers setmaxnreg moves to the consumers
+//   (D = 128 and 256: two consumers at 240 registers, D = 64: three at 160;
+//   the producer at 24). Tiles are 64-column slabs of 128-byte rows,
 //   128-byte swizzled, loaded by TMA through 3-D (D, S, heads) maps, so rows
 //   past Sq or Sk load as zeros.
-//   Pass 1: 128 keys a block, 64 a consumer. The producer loads K and V
-//   once and streams 64-row Q and dO tiles, with their rows' lse * log2(e)
-//   and delta (staged by the producer warp's lanes), through a two-stage
-//   ring guarded by full and empty mbarriers. Per tile a consumer issues S^T
-//   and dP^T (wgmma m64n64k16, K and V against Q and dO, all from shared
-//   memory) as two groups; it forms P^T while dP^T is in flight, rounds it
-//   to bf16 in place into the A fragments of dV += P^T.dO (m64n128k16, dO
-//   read through the descriptor's transpose bit, as the forward reads V),
-//   forms dS^T while that product runs and issues dK += dS^T.Q likewise.
-//   dK 64 + dV 64 + S^T 32 + dP^T 32 accumulator registers a thread. Under
-//   a causal or window mask kv heads vary fastest and key tiles go in order,
-//   the first (which the most rows see) first; without one key tiles vary
-//   fastest.
-//   Pass 2: 128 rows a block, 64 a consumer; Q and dO loaded once, 64-key
-//   K and V tiles through a two-stage ring. Per tile S and dP (m64n64k16),
-//   P while dP is in flight, dS into dP's registers, rounded to bf16 into
-//   the A fragments of dQ += dS.K (m64n128k16, K through the transpose bit):
-//   dQ 64 + S 32 + dP 32 registers. Query tiles go longest first under a
-//   mask, as the forward's do.
+//   Pass 1 (dK, dV): a block's keys of one (batch row, kv head), K and V
+//   loaded once; the producer streams 64-row Q and dO tiles, with their
+//   rows' lse * log2(e) and delta (staged by the producer warp's lanes),
+//   through a ring guarded by full and empty mbarriers. Per tile a consumer
+//   issues S^T and dP^T (wgmma m64n64k16, K and V against Q and dO, all from
+//   shared memory) as two groups; it forms P^T while dP^T is in flight,
+//   rounds it to bf16 in place into the A fragments of dV += P^T.dO (dO read
+//   through the descriptor's transpose bit, as the forward reads V), forms
+//   dS^T while that product runs and issues dK += dS^T.Q likewise.
+//   D = 128: 128 keys a block, 64 a consumer, two stages; dK 64 + dV 64 +
+//   S^T 32 + dP^T 32 accumulator registers a thread.
+//   D = 64: 192 keys a block, 64 a consumer, three stages; dV's product
+//   waits until dS^T is formed (DEFER_DV: both products issued together),
+//   so that dK 32 + dV 32 + S^T 32 + dP^T 32 fit a third consumer's 160.
+//   D = 256: dK and dV over 256 columns would take 256 registers a
+//   consumer. A block takes one 64-key tile and each consumer half of the
+//   output columns; both recompute S^T and dP^T over the full D (6 products
+//   a pair where the two passes' bound counts 5) and nothing is exchanged;
+//   64 + 64 + 32 + 32 registers; K, V and two stages of Q and dO fill 192
+//   KB. RecurrentGemma's grid is then 4 x 1 x 32 = 128 blocks under 132
+//   SMs, and under the causal mask key tile 0 walks every query tile of 10
+//   heads while the last walks one: the host (bwd_kv_splits,
+//   kernels/flash_attention.py) divides each kv head's query heads over
+//   `splits` blocks where the blocks would not fill the card twice over,
+//   each writing float32 partials that flash_bwd_sum_kernel adds in split
+//   order (deterministic; 34 MB of scratch and ~11 us at that shape).
+//   Under a causal or window mask kv heads (and splits) vary fastest and
+//   key tiles go in order, the first (which the most rows see) first;
+//   without one key tiles vary fastest.
+//   Pass 2 (dQ): 64 rows a consumer (128 a block, 192 at D = 64); Q and dO
+//   loaded once, 64-key K and V tiles through a ring. Per tile S and dP
+//   (m64n64k16), P while dP is in flight, dS into dP's registers, rounded
+//   to bf16 into the A fragments of dQ += dS.K (K through the transpose
+//   bit; m64n128k16 per 128 output columns, m64n64k16 at D = 64): dQ D / 2
+//   + S 32 + dP 32 registers. At D = 64 and 128 the ring holds stages of a
+//   K and a V tile (3 and 2). At D = 256 the 128-row Q and dO tiles take 128
+//   KB, which leaves room for three 32 KB tiles, not two stages of both: the
+//   ring's three slots hold a K or a V tile each (K of tile t, then its V),
+//   V's slot freed once dP has read it, so the next tile's K loads during
+//   this one and V is waited on only once S is issued. Query tiles go
+//   longest first under a mask, as the forward's do.
 //   Both passes skip, per consumer, a tile none of whose pairs its rows or
 //   keys see (an exact zero), and mask per element only where the Sq or Sk
-//   tail, the diagonal or the window's edge crosses the tile. 2^x comes from
-//   ex2.approx.ftz (one special-function instruction: within 2 ulp, below
-//   P's bf16 rounding; P under 2^-126 becomes 0).
+//   tail, the diagonal or the window's edge crosses the tile: a tile's
+//   exponentials are one of two loops, masked or not, chosen once a tile
+//   (p_transposed / p_rows), and a row pair's lse and delta one 8-byte
+//   shared load. 2^x comes from ex2.approx.ftz (one special-function
+//   instruction: within 2 ulp, below P's bf16 rounding; P under 2^-126
+//   becomes 0).
 //   What bounds it: the chain of each consumer's tile (products, then the
-//   exponentials, dS and the last product, then a wait), which the two
-//   consumers overlap only in part; the registers hold it there: a deeper
-//   wgmma pipeline makes ptxas serialise the products.
-//   Variants timed on the card by tools/flash_bwd_sweep.py (H100 80GB
-//   HBM3, 700 W; device ms at Yi's, InternVL2's and Qwen3-MoE's training
-//   shapes, this design 1.1203, 0.6975, 2.1745): exp2f for ex2.approx
-//   1.4389, 0.9101, 2.8262; a tile's S and dP in one group, the
-//   exponentials after both, 1.1385, 0.7330, 2.2403; 128-key tiles in pass
-//   2 1.1577, 0.7471, 2.2813; consumers at 232 registers with a
-//   40-register producer (16 bytes of spill, wgmma serialised: C7512)
-//   1.2480, 0.8049, 2.4461; three or four ring stages in either pass
-//   within 6 % either way, no consistent gain. Also tried on the card and
-//   dropped (builds not kept): the consumers taking turns to issue their
-//   products through named barriers (no gain overall), pass 1's last wait
-//   deferred into the next tile (it spilled), dS staged through shared
-//   memory for a dQ product with both operands there (slower), and the
-//   next tile's S and dP issued before the dQ product's wait (ptxas
-//   serialised the wgmma, C7511: slower).
-// - bfloat16 at D = 32, 64 and 256: mma.sync m16n8k16 with float32
-//   accumulators, tiles of padded bf16 rows in shared memory read through
-//   ldmatrix (.trans where the contraction runs over the tile's rows), the
-//   S^T/S and dP^T/dP accumulators reused in registers as the A operands of
-//   the next products. P and dS are rounded to bfloat16 where they feed a
-//   product (dV += P^T.dO, dK += dS^T.Q, dQ += dS.K); dS itself is computed
-//   from P in float32. Pass 1: 64-key blocks of 4 warps x 16 keys, query
-//   tiles of 64 rows where the column chunk is at most 64 wide, else 32;
-//   pass 2: 64-row blocks of 4 warps x 16 rows, 64-key tiles. The
-//   accumulators of one thread cover a chunk of at most 128 of the D output
-//   columns: at D = 256 (recurrentgemma-2b) each pass runs two column
-//   chunks, each recomputing S and dP over the full D. Loads are
-//   synchronous (global -> registers -> shared).
+//   exponentials, dS and the last product, then a wait), which the
+//   consumers overlap only in part; at D = 64 the per-pair elementwise work
+//   weighs as much as the products, so a third consumer helps more than
+//   larger tiles.
+//   Variants timed on the card by tools/flash_bwd_sweep.py (H100 80GB HBM3,
+//   700 W; device ms, the L2 flushed, in turns with this design). D = 256
+//   at RecurrentGemma's (4, 2048, 10/1, window 2048), this design 0.6741:
+//   no query-head split 1.0505 (dK/dV 0.75 against 0.40), three splits
+//   0.7091, dV deferred 0.6657 and 0.5999 (the second reading had every
+//   pass faster, the untouched delta pass too: not taken as a gain); the
+//   dQ pass's 64-key tile taken in two
+//   32-key m64n32k16 steps 0.7258 (16 bytes of spill), and before the
+//   exponentials were split into masked and unmasked loops the whole
+//   64-key step spilled 512 bytes (C7512: wgmma serialised). D = 64 at
+//   Whisper's encoder (8, 1500, 16/16), decoder (8, 448, causal) and cross
+//   (448 x 1500) shapes, this design 0.6117, 0.0704, 0.2337: two consumers
+//   at 240 registers (128 keys or rows a block) 0.7181, 0.0750, 0.2600, the
+//   same with dV deferred 0.7081, 0.0747, 0.2593, three consumers with
+//   two-stage rings 0.6113, 0.0761, 0.2363, and with 128-key dQ tiles
+//   taken in two 64-key steps 0.5965, 0.0702, 0.2312 (dropped: a dQ key
+//   tile other than the sum's grouping, for 2.5 %); with two consumers and
+//   before the masked split, 128-row dK/dV query tiles spilled 48 bytes and
+//   ran 5 % slower, 128-key dQ tiles 3 % slower. D = 128 at Yi's (4, 2048, 32/4), this design
+//   0.8669: dV deferred 0.8722. Variants of the first D = 128 design
+//   (before the masked split: 1.1203 at Yi's shape): exp2f for ex2.approx 1.4389; a tile's S and dP
+//   in one group, the exponentials after both, 1.1385; 128-key tiles in
+//   pass 2 1.1577; consumers at 232 registers with a 40-register producer
+//   (16 bytes of spill, C7512) 1.2480; three or four ring stages within 6 %
+//   either way. Also tried then and dropped (builds not kept): the
+//   consumers taking turns to issue their products through named barriers,
+//   pass 1's last wait deferred into the next tile (it spilled), dS staged
+//   through shared memory for a dQ product with both operands there, and
+//   the next tile's S and dP issued before the dQ product's wait (ptxas
+//   serialised the wgmma, C7511).
+// - bfloat16 at D = 32 (smoke configurations only): mma.sync m16n8k16 with
+//   float32 accumulators, tiles of padded bf16 rows in shared memory read
+//   through ldmatrix (.trans where the contraction runs over the tile's
+//   rows), the S^T/S and dP^T/dP accumulators reused in registers as the A
+//   operands of the next products. P and dS are rounded to bfloat16 where
+//   they feed a product (dV += P^T.dO, dK += dS^T.Q, dQ += dS.K); dS itself
+//   is computed from P in float32. Pass 1: 64-key blocks of 4 warps x 16
+//   keys, 64-row query tiles; pass 2: 64-row blocks of 4 warps x 16 rows,
+//   64-key tiles. Loads are synchronous (global -> registers -> shared).
 // - float32 (the float32 training checks): the CUDA cores, 256 threads a block,
 //   each thread one key (pass 1) or one row (pass 2) of the score tile and
 //   the same row of its accumulators; P^T and dS^T (pass 1) or dS (pass 2)
@@ -132,9 +174,7 @@ constexpr int FBK = 32;      // float32 pass 2: keys per tile
 template <int D>
 constexpr int CHUNK_COLS = D < 128 ? D : 128;
 
-// bfloat16 pass 1: query rows per tile
-template <int D>
-constexpr int MMA_BM = CHUNK_COLS<D> <= 64 ? 64 : 32;
+constexpr int MMA_BM = 64;   // bfloat16 mma.sync pass 1 (D = 32): query rows per tile
 
 // (query row i, key j) seen: i < sq, j < sk and the causal / window masks
 // at absolute query position q_offset + i
@@ -165,27 +205,67 @@ __device__ __forceinline__ void k_range(int q0, int q_last, int sk, int causal, 
   begin = (begin / bk) * bk;
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
 // ---------------------------------------------------------------------------
-// pass 0: delta = rowsum(dout * out), one warp a row, lanes in a fixed order
+// pass 0: delta = rowsum(dout * out): a row's 16-byte chunks over
+// min(32, chunks) lanes, each lane's chunks in order, then the lanes summed
+// by a fixed butterfly
 // ---------------------------------------------------------------------------
 
+template <typename T, int D>
+struct DeltaShape {
+  static constexpr int VEC = 16 / sizeof(T);                   // elements a 16-byte load
+  static constexpr int TPR = D / VEC < 32 ? D / VEC : 32;      // lanes a row
+  static constexpr int RPB = 256 / TPR;                        // rows a block
+};
+
+// acc + the dot product of two 16-byte chunks of T, in element order
 template <typename T>
+__device__ __forceinline__ float dot16(uint4 a, uint4 b, float acc) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(&a);
+    const float4 y = *reinterpret_cast<const float4*>(&b);
+    return fmaf(x.w, y.w, fmaf(x.z, y.z, fmaf(x.y, y.y, fmaf(x.x, y.x, acc))));
+  } else {
+    const uint32_t xa[4] = {a.x, a.y, a.z, a.w}, xb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xa[i]));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xb[i]));
+      acc = fmaf(x.y, y.y, fmaf(x.x, y.x, acc));
+    }
+    return acc;
+  }
+}
+
+template <typename T, int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-                       float* __restrict__ delta, int rows, int d) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const T* o = out + (size_t)row * d;
-  const T* g = dout + (size_t)row * d;
+                       float* __restrict__ delta, int rows) {
+  using S = DeltaShape<T, D>;
+  const int row = blockIdx.x * S::RPB + threadIdx.x / S::TPR;
+  const int t = threadIdx.x % S::TPR;
   float acc = 0.f;
-  for (int c = lane; c < d; c += 32) acc = fmaf(to_f32(g[c]), to_f32(o[c]), acc);
+  if (row < rows) {
+    const uint4* o = reinterpret_cast<const uint4*>(out + (size_t)row * D);
+    const uint4* g = reinterpret_cast<const uint4*>(dout + (size_t)row * D);
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
-  if (lane == 0) delta[row] = acc;
+    for (int c = t; c < D / S::VEC; c += S::TPR)
+      acc = dot16<T>(__ldg(g + c), __ldg(o + c), acc);
+  }
+  // every lane of the warp takes part (a row's lanes lie in one warp)
+#pragma unroll
+  for (int s = S::TPR / 2; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+  if (t == 0 && row < rows) delta[row] = acc;
+}
+
+template <typename T, int D>
+cudaError_t launch_delta(const void* out, const void* dout, float* delta, int rows,
+                         cudaStream_t s) {
+  constexpr int RPB = DeltaShape<T, D>::RPB;
+  if (rows > 0)
+    flash_bwd_delta_kernel<T, D><<<(rows + RPB - 1) / RPB, 256, 0, s>>>(
+        static_cast<const T*>(out), static_cast<const T*>(dout), delta, rows);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -281,7 +361,7 @@ __device__ __forceinline__ void product_acc(float (&acc)[DC / 8][4], const float
 
 template <int D>
 constexpr int mma_dkdv_smem() {
-  return (2 * BKV + 2 * MMA_BM<D>) * (D + 8) * 2 + 2 * MMA_BM<D> * 4;
+  return (2 * BKV + 2 * MMA_BM) * (D + 8) * 2 + 2 * MMA_BM * 4;
 }
 
 template <int D>
@@ -305,7 +385,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,      // (B, Hq, Sq, D)
                           float scale) {
   constexpr int LD = D + 8;
   constexpr int DC = CHUNK_COLS<D>;
-  constexpr int BM = MMA_BM<D>;
+  constexpr int BM = MMA_BM;
   constexpr int QN = BM / 8;           // 8-wide query n-tiles of a tile
   extern __shared__ __align__(16) unsigned char smem_dkdv[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_dkdv);   // BKV x LD
@@ -736,24 +816,58 @@ flash_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16, D = 128: TMA + wgmma, warp-specialised
+// bfloat16, D = 64, 128 and 256: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
 namespace hb {
 
 using namespace wg;
 
-constexpr int D = 128;
-constexpr int SLABS = D / 64;            // 64-column slabs of a tile row
-constexpr int THREADS = 384;             // warpgroups 0 and 1 consume, 2 produces
-constexpr int CONSUMER_REGS = 240;       // after setmaxnreg: 2 x 128 x 240 + 128 x 24 <= 65,536
-constexpr int PRODUCER_REGS = 24;
-// The dK/dV pass: a block's 128 keys (64 a consumer warpgroup) of one
-// (batch row, kv head), K and V loaded once; a ring of STAGES query tiles
-// of 64 rows (Q, dO, and the rows' lse * log2(e) and delta); shared memory
-// holds K, V, the stages' Q and dO tiles, the stages' rows, the barriers.
+constexpr int PRODUCER_REGS = 24;        // the producer warpgroup after setmaxnreg
+
+// Per head dim. A block is CONSUMERS consumer warpgroups and a producer
+// warpgroup; after setmaxnreg a consumer thread holds CONSUMER_REGS
+// registers (CONSUMERS x 128 x CONSUMER_REGS + 128 x PRODUCER_REGS <=
+// 65,536). The dK/dV pass (64-row query tiles): keys a block (64 a
+// consumer; or, with two consumers and 64 keys, both on the same keys, each
+// accumulating half of the output columns), ring stages, and whether dV's
+// product waits until dS is formed (DEFER_DV: P^T and dS^T packed and both
+// products issued together, fewer registers live at once). The dQ pass (64
+// query rows a consumer, 64-key tiles): ring depth, and whether the ring's
+// slots hold a K or a V tile each (APART: the depth counts tiles) or a K
+// and a V tile together (the depth counts stages).
+// tools/flash_bwd_sweep.py builds its variants by replacing these lines.
+template <int CONSUMERS_, int CONSUMER_REGS_, int KV_BN_, int KV_STAGES_, bool KV_DEFER_DV_,
+          int Q_STAGES_, bool Q_APART_>
+struct ShapeOf {
+  static constexpr int CONSUMERS = CONSUMERS_, CONSUMER_REGS = CONSUMER_REGS_;
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+  static constexpr int KV_BN = KV_BN_, KV_STAGES = KV_STAGES_;
+  static constexpr bool KV_DEFER_DV = KV_DEFER_DV_;
+  static constexpr int Q_STAGES = Q_STAGES_;
+  static constexpr bool Q_APART = Q_APART_;
+  static_assert(CONSUMERS * 128 * CONSUMER_REGS + 128 * PRODUCER_REGS <= 65536,
+                "the warpgroups' registers do not fit an SM");
+};
+template <int D> struct Shape;
+template <> struct Shape<64> : ShapeOf<3, 160, 192, 3, true, 3, false> {};
+template <> struct Shape<128> : ShapeOf<2, 240, 128, 2, false, 2, false> {};
+template <> struct Shape<256> : ShapeOf<2, 240, 64, 2, false, 3, true> {};
+
+// The dK/dV pass: a block's keys of one (batch row, kv head), K and V
+// loaded once; a ring of STAGES query tiles of BM rows (Q, dO, and the
+// rows' lse * log2(e) and delta); shared memory holds K, V, the stages' Q
+// and dO tiles, the stages' rows, the barriers.
+template <int D>
 struct Dkdv {
-  static constexpr int BN = 128, BM = 64, STAGES = 2;
+  static constexpr int SLABS = D / 64;     // 64-column slabs of a tile row
+  static constexpr int CONSUMERS = Shape<D>::CONSUMERS;
+  static constexpr int BN = Shape<D>::KV_BN, BM = 64, STAGES = Shape<D>::KV_STAGES;
+  // two consumers on one 64-key tile split its output columns
+  static constexpr bool COL_SPLIT = BN == 64 && CONSUMERS == 2;
+  static constexpr int OW = COL_SPLIT ? D / 2 : D;   // output columns a consumer accumulates
+  static_assert((BN == 64 * CONSUMERS || COL_SPLIT) && (OW == 64 || OW == 128),
+                "the dK/dV pass takes 64 keys a consumer, 64 or 128 output columns");
   static constexpr int KV_SLAB = BN * SLAB_ROW;
   static constexpr int KV_BYTES = SLABS * KV_SLAB;
   static constexpr int Q_SLAB = BM * SLAB_ROW;
@@ -782,27 +896,37 @@ struct Dkdv {
   __device__ __forceinline__ uint32_t empty(int st) const { return bar(1 + STAGES + st); }
 };
 
-// The dQ pass: a block's 128 query rows (64 a consumer warpgroup) of one
-// (batch row, query head), Q and dO loaded once; a ring of STAGES key tiles
-// of 64 keys (K and V).
+// The dQ pass: a block's BM query rows (64 a consumer warpgroup) of one
+// (batch row, query head), Q and dO loaded once; a ring of key tiles of BN
+// keys (K and V), STAGES stages of both or, APART, STAGES slots of one.
+template <int D>
 struct Dq {
-  static constexpr int BM = 128, BN = 64, STAGES = 2;
+  static constexpr int SLABS = D / 64;
+  static constexpr int CONSUMERS = Shape<D>::CONSUMERS;
+  static constexpr int BM = 64 * CONSUMERS, BN = 64, STAGES = Shape<D>::Q_STAGES;
+  static constexpr bool APART = Shape<D>::Q_APART;
+  // output columns a dQ product (m64n128k16, m64n64k16 at D = 64), and
+  // products per 16 keys
+  static constexpr int ON = D >= 128 ? 128 : 64;
+  static constexpr int OH = D / ON;
   static constexpr int Q_SLAB = BM * SLAB_ROW;
   static constexpr int Q_BYTES = SLABS * Q_SLAB;
   static constexpr int KV_SLAB = BN * SLAB_ROW;
   static constexpr int KV_BYTES = SLABS * KV_SLAB;
-  static constexpr int TILES = 2 * Q_BYTES + STAGES * 2 * KV_BYTES;
-  static constexpr int BARRIERS = 1 + 2 * STAGES;      // q_full; full and empty per stage
+  static constexpr int TILES = 2 * Q_BYTES + (APART ? STAGES : 2 * STAGES) * KV_BYTES;
+  static constexpr int BARRIERS = 1 + 2 * STAGES;      // q_full; full and empty per slot
   static constexpr int SMEM_BYTES = 1024 + TILES + 8 * BARRIERS;
   static_assert(SMEM_BYTES <= 232448, "the dQ pass's shared memory is past the limit");
+  static_assert(!APART || STAGES >= 3, "K and V apart need a third slot to load ahead");
 
   uint32_t base;
   __device__ __forceinline__ uint32_t q() const { return base; }
   __device__ __forceinline__ uint32_t dout() const { return base + Q_BYTES; }
-  __device__ __forceinline__ uint32_t k(int st) const {
-    return base + 2 * Q_BYTES + 2 * st * KV_BYTES;
+  __device__ __forceinline__ uint32_t tile(int i) const {
+    return base + 2 * Q_BYTES + i * KV_BYTES;
   }
-  __device__ __forceinline__ uint32_t v(int st) const { return k(st) + KV_BYTES; }
+  __device__ __forceinline__ uint32_t k(int st) const { return tile(2 * st); }
+  __device__ __forceinline__ uint32_t v(int st) const { return tile(2 * st + 1); }
   __device__ __forceinline__ uint32_t bar(int i) const { return base + TILES + 8u * i; }
   __device__ __forceinline__ uint32_t q_full() const { return bar(0); }
   __device__ __forceinline__ uint32_t full(int st) const { return bar(1 + st); }
@@ -830,7 +954,7 @@ __device__ __forceinline__ bool inside(int r0, int nr, int k0, int nk, int sq, i
 
 // (d) = A (64 rows of a, K-major) . B^T (n rows of b, K-major) over D: D / 16
 // k-steps, 4 in each 64-column slab; a_slab, b_slab the tiles' slab sizes
-template <int N>
+template <int D, int N>
 __device__ __forceinline__ void product_ss(float (&d)[N], uint32_t a, int a_slab, uint32_t b,
                                            int b_slab) {
 #pragma unroll
@@ -841,52 +965,104 @@ __device__ __forceinline__ void product_ss(float (&d)[N], uint32_t a, int a_slab
 }
 
 // (d) += X (the A fragments of 16 KN rows' products, registers) . B (16 KN
-// rows of b, D columns, MN-major: the descriptor's transpose bit)
-template <int KN>
-__device__ __forceinline__ void product_rs(float (&d)[64], const uint32_t (&x)[KN][4], uint32_t b,
+// rows of b from its first slab on, 2 N columns, MN-major: the descriptor's
+// transpose bit)
+template <int N, int KN>
+__device__ __forceinline__ void product_rs(float (&d)[N], const uint32_t (&x)[KN][4], uint32_t b,
                                            int b_slab) {
 #pragma unroll
   for (int kk = 0; kk < KN; ++kk) wgmma_rs(d, x[kk], desc(b + kk * 16 * SLAB_ROW, b_slab, 1024));
 }
 
-// a consumer thread's 64 x 128 float32 accumulator rows (row0, row0 + 8) into
-// rows of a (rows, D) bf16 matrix, those below n_rows
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[64], int row0, int col0,
+// P^T of the dK/dV pass in place of S^T (element 4 j + 2 i + c at key key0
+// + 8 i, query q0 + 8 j + col0 + c): exp2(S^T * c - lse * log2(e)) from
+// the tile's staged rows, masked before the exponential where MASKED
+template <bool MASKED, int N>
+__device__ __forceinline__ void p_transposed(float (&s)[N], const float* rows, const Mask& ok,
+                                             int q0, int key0, int col0, float c) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(rows + 8 * j + col0);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int e = 4 * j + 2 * i + cc;
+        const float p = ex2_ftz(fmaf(s[e], c, -(cc ? l2.y : l2.x)));
+        s[e] = !MASKED || ok(q0 + 8 * j + col0 + cc, key0 + 8 * i) ? p : 0.f;
+      }
+  }
+}
+
+// P of the dQ pass in place of S (element 4 j + 2 i + c at row row0 + 8 i,
+// key k0 + 8 j + col0 + c), masked before the exponential where MASKED
+template <bool MASKED, int N>
+__device__ __forceinline__ void p_rows(float (&s)[N], const float (&lse2)[2], const Mask& ok,
+                                       int row0, int k0, int col0, float c) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int e = 4 * j + 2 * i + cc;
+        const float p = ex2_ftz(fmaf(s[e], c, -lse2[i]));
+        s[e] = !MASKED || ok(row0 + 8 * i, k0 + 8 * j + col0 + cc) ? p : 0.f;
+      }
+}
+
+// a consumer thread's 64 x (2 N) float32 accumulator rows (row0, row0 + 8)
+// into rows of a (rows, D) matrix from its column 0 (bf16, or float32
+// partials), those below n_rows
+template <int D, int N, typename T>
+__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[N], int row0, int col0,
                                            int n_rows) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row0 + 8 * i;
     if (r < n_rows) {
-      bf16* row = dst + (size_t)r * D + col0;
+      T* row = dst + (size_t)r * D + col0;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      for (int j = 0; j < N / 4; ++j) {
+        if constexpr (sizeof(T) == 2)
+          *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        else
+          *reinterpret_cast<float2*>(row + 8 * j) =
+              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      }
     }
   }
 }
 
 }  // namespace hb
 
-// The dK/dV pass. Block: keys [k0, k0 + 128) of (batch row, kv head) bkv;
-// consumer warpgroup w takes keys k0 + 64 w .. + 63, thread (warp, lane) of
-// it the keys key0 = k0 + 64 w + 16 warp + lane / 4 and key0 + 8. Its S^T
-// and dP^T accumulators (m64n64, 32 each) hold element 4 j + 2 i + c at
-// (key key0 + 8 i, query q0 + 8 j + col0 + c); its dK and dV (m64n128, 64
-// each) at (key key0 + 8 i, column 8 j + col0 + c).
-__global__ void __launch_bounds__(hb::THREADS, 1)
-flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, Sq, B*Hq), 64 rows
-                            const __grid_constant__ CUtensorMap tm_do,   // (D, Sq, B*Hq), 64 rows
-                            const __grid_constant__ CUtensorMap tm_k,    // (D, Sk, B*Hkv), 128
-                            const __grid_constant__ CUtensorMap tm_v,    // (D, Sk, B*Hkv), 128
+// The dK/dV pass. Block: keys [k0, k0 + BN) of (batch row, kv head) bkv and
+// the query heads of its split (all g where splits = 1). Consumer
+// warpgroup w takes keys k0 + 64 w .. + 63 and every output column or,
+// with COL_SPLIT, keys k0 .. k0 + 63 and the output columns OW w .. + OW -
+// 1. Thread (warp, lane) holds the keys key0 = kw0 + 16 warp + lane / 4
+// and key0 + 8 of its warpgroup's first key kw0. Its S^T and dP^T
+// accumulators (m64nBM) hold element 4 j + 2 i + c at (key key0 + 8 i,
+// query q0 + 8 j + col0 + c); its dK and dV (m64nOW) at (key key0 + 8 i,
+// column 8 j + col0 + c of its columns). With splits > 1 it writes float32
+// partials, (2, splits, B*Hkv, Sk, D), which flash_bwd_sum_kernel adds in
+// split order.
+template <int D>
+__global__ void __launch_bounds__(hb::Shape<D>::THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, Sq, B*Hq), BM rows
+                            const __grid_constant__ CUtensorMap tm_do,   // (D, Sq, B*Hq), BM rows
+                            const __grid_constant__ CUtensorMap tm_k,    // (D, Sk, B*Hkv), BN
+                            const __grid_constant__ CUtensorMap tm_v,    // (D, Sk, B*Hkv), BN
                             const float* __restrict__ lse,     // (B, Hq, Sq)
                             const float* __restrict__ delta,   // (B, Hq, Sq)
                             bf16* __restrict__ dk, bf16* __restrict__ dv,   // (B, Hkv, Sk, D)
-                            int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
-                            float scale) {
+                            float* __restrict__ part, int splits, int hq, int hkv, int sq, int sk,
+                            int causal, int window, int q_offset, float scale) {
   using namespace hb;
-  using L = Dkdv;
-  constexpr int BM = L::BM, STAGES = L::STAGES;
+  using L = Dkdv<D>;
+  using S = Shape<D>;
+  constexpr int BM = L::BM, STAGES = L::STAGES, OW = L::OW;
   extern __shared__ __align__(1024) unsigned char smem_dkdv_wg[];
   const uint32_t raw = smem_addr(smem_dkdv_wg);
   const L sm{(raw + 1023u) & ~1023u};
@@ -896,38 +1072,42 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, 
     mbar_init(sm.kv_full(), 1);
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(sm.full(st), 1 + 32);        // the TMA's bytes and the producer warp's rows
-      mbar_init(sm.empty(st), 2 * 128);
+      mbar_init(sm.empty(st), S::CONSUMERS * 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // under a causal or window mask, kv heads vary fastest and key tiles go
-  // in order, the first (which the most query rows see under the causal
-  // mask) first; without one, key tiles vary fastest, so the blocks resident
-  // at once read the Q and dO of few heads
+  // under a causal or window mask, kv heads (and splits) vary fastest and
+  // key tiles go in order, the first (which the most query rows see under
+  // the causal mask) first; without one, key tiles vary fastest, so the
+  // blocks resident at once read the Q and dO of few heads
   const bool by_head = causal || window > 0;
-  const int bkv = by_head ? blockIdx.x : blockIdx.y;
+  const int unit = by_head ? blockIdx.x : blockIdx.y;      // bkv * splits + split
   const int k0 = (by_head ? blockIdx.y : blockIdx.x) * L::BN;
+  const int bkv = unit / splits;
+  const int split = unit - bkv * splits;
   const int b = bkv / hkv;
   const int hk = bkv - b * hkv;
   const int g = hq / hkv;
+  const int h0 = split * g / splits;                       // this split's query heads
+  const int nh = (split + 1) * g / splits - h0;
   int qb, qe;
   q_range(k0, L::BN, sq, sk, causal, window, q_offset, BM, qb, qe);
   const int n_q = qe > qb ? (qe - qb + BM - 1) / BM : 0;
-  const int n_tiles = g * n_q;
+  const int n_tiles = nh * n_q;
   const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
 
-  if (role == 2) {
+  if (role == S::CONSUMERS) {
     // ---- producer: one warp; lane 0 issues the TMA loads, every lane
-    // stages two rows' lse * log2(e) and delta ----
+    // stages rows' lse * log2(e) and delta ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
-    if (threadIdx.x >= 256 + 32) return;
+    if (threadIdx.x >= S::CONSUMERS * 128 + 32) return;
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
       mbar_expect_tx(sm.kv_full(), 2 * L::KV_BYTES);
 #pragma unroll
-      for (int j = 0; j < SLABS; ++j) {
+      for (int j = 0; j < L::SLABS; ++j) {
         tma_load(sm.k() + j * L::KV_SLAB, &tm_k, sm.kv_full(), 64 * j, k0, bkv);
         tma_load(sm.v() + j * L::KV_SLAB, &tm_v, sm.kv_full(), 64 * j, k0, bkv);
       }
@@ -935,14 +1115,14 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, 
     for (int it = 0; it < n_tiles; ++it) {
       const int st = it % STAGES;
       const uint32_t phase = ((it / STAGES) & 1) ^ 1;   // the first round finds them free
-      const int h = it / n_q;
-      const int q0 = qb + (it - h * n_q) * BM;
+      const int h = h0 + it / n_q;
+      const int q0 = qb + (it % n_q) * BM;
       const int bh = (b * hkv + hk) * g + h;
       mbar_wait(sm.empty(st), phase);
       if (lane == 0) {
         mbar_expect_tx(sm.full(st), 2 * L::Q_BYTES);
 #pragma unroll
-        for (int j = 0; j < SLABS; ++j) {
+        for (int j = 0; j < L::SLABS; ++j) {
           tma_load(sm.q(st) + j * L::Q_SLAB, &tm_q, sm.full(st), 64 * j, q0, bh);
           tma_load(sm.dout(st) + j * L::Q_SLAB, &tm_do, sm.full(st), 64 * j, q0, bh);
         }
@@ -959,20 +1139,22 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, 
     return;
   }
 
-  // ---- consumer warpgroups: 64 keys each ----
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+  // ---- consumer warpgroups: 64 keys each, OW output columns ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::CONSUMER_REGS) : "memory");
   const int lane = threadIdx.x % 32;
-  const int kw0 = k0 + 64 * role;                          // this warpgroup's keys
+  const int kw0 = L::COL_SPLIT ? k0 : k0 + 64 * role;      // this warpgroup's keys
+  const int cw0 = L::COL_SPLIT ? OW * role : 0;            // and its first output column
   const int key0 = kw0 + (threadIdx.x % 128 / 32) * 16 + lane / 4;   // and + 8
   const int col0 = 2 * (lane % 4);
-  const uint32_t k_w = sm.k() + role * 64 * SLAB_ROW;     // its 64 rows of each slab
-  const uint32_t v_w = sm.v() + role * 64 * SLAB_ROW;
+  const uint32_t k_w = sm.k() + (kw0 - k0) * SLAB_ROW;     // its 64 rows of each slab
+  const uint32_t v_w = sm.v() + (kw0 - k0) * SLAB_ROW;
+  const uint32_t c_q = (cw0 / 64) * L::Q_SLAB;             // its first column's slab
   const float c = scale * kLog2e;
   const Mask ok{sq, sk, causal, window, q_offset};
 
-  float dk_acc[64], dv_acc[64];
+  float dk_acc[OW / 2], dv_acc[OW / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < OW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   mbar_wait(sm.kv_full(), 0);
   for (int it = 0; it < n_tiles; ++it) {
@@ -981,56 +1163,51 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, 
     mbar_wait(sm.full(st), (it / STAGES) & 1);
     if (meets(q0, min(q0 + BM, sq) - 1, kw0, min(kw0 + 64, sk) - 1, causal, window, q_offset)) {
       // S^T = K . Q^T and dP^T = V . dO^T, both over D from shared memory
-      float s[32], dp[32];
+      float s[BM / 2], dp[BM / 2];
       wgmma_fence();
-      product_ss(s, k_w, L::KV_SLAB, sm.q(st), L::Q_SLAB);
+      product_ss<D>(s, k_w, L::KV_SLAB, sm.q(st), L::Q_SLAB);
       wgmma_commit();
-      product_ss(dp, v_w, L::KV_SLAB, sm.dout(st), L::Q_SLAB);
+      product_ss<D>(dp, v_w, L::KV_SLAB, sm.dout(st), L::Q_SLAB);
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(s);
-      // P^T = exp2(S^T * c - lse * log2(e)), masked before the exponential,
-      // while dP^T is in flight
+      // P^T = exp2(S^T * c - lse * log2(e)), masked before the exponential
+      // only where the tile crosses a mask or a tail, while dP^T is in flight
       const float* rows = reinterpret_cast<const float*>(gbase + (sm.rows(st) - sm.base));
-      const bool masked = !inside(q0, BM, kw0, 64, sq, sk, causal, window, q_offset);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int cc = 0; cc < 2; ++cc) {
-          const int qi = 8 * j + col0 + cc;
-          const float l2 = rows[qi];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int e = 4 * j + 2 * i + cc;
-            const bool seen = !masked || ok(q0 + qi, key0 + 8 * i);
-            s[e] = seen ? ex2_ftz(fmaf(s[e], c, -l2)) : 0.f;
-          }
-        }
+      if (inside(q0, BM, kw0, 64, sq, sk, causal, window, q_offset))
+        p_transposed<false>(s, rows, ok, q0, key0, col0, c);
+      else
+        p_transposed<true>(s, rows, ok, q0, key0, col0, c);
       // dV += P^T . dO, P^T rounded to bf16 in registers, dO read through
-      // the transpose bit; then dP^T has landed
+      // the transpose bit (DEFER_DV: once dS^T is formed too); then dP^T
+      // has landed
       uint32_t pa[BM / 16][4], da[BM / 16][4];
-      pack_p(pa, s);
-      wgmma_fence();
-      product_rs(dv_acc, pa, sm.dout(st), L::Q_SLAB);
-      wgmma_commit();
-      wgmma_wait<1>();
+      if constexpr (!S::KV_DEFER_DV) {
+        pack_p(pa, s);
+        wgmma_fence();
+        product_rs(dv_acc, pa, sm.dout(st) + c_q, L::Q_SLAB);
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
       fence_regs(dp);
       // dS^T = P^T * (dP^T - delta) * scale while dV's product runs; dK +=
       // dS^T . Q, likewise
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < BM / 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(rows + BM + 8 * j + col0);
 #pragma unroll
-        for (int cc = 0; cc < 2; ++cc) {
-          const float dl = rows[BM + 8 * j + col0 + cc];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int e = 4 * j + 2 * i + cc;
-            dp[e] = s[e] * (dp[e] - dl) * scale;
-          }
+        for (int i = 0; i < 2; ++i) {
+          dp[4 * j + 2 * i] = s[4 * j + 2 * i] * (dp[4 * j + 2 * i] - dl.x) * scale;
+          dp[4 * j + 2 * i + 1] = s[4 * j + 2 * i + 1] * (dp[4 * j + 2 * i + 1] - dl.y) * scale;
         }
+      }
+      if constexpr (S::KV_DEFER_DV) pack_p(pa, s);
       pack_p(da, dp);
       wgmma_fence();
-      product_rs(dk_acc, da, sm.q(st), L::Q_SLAB);
+      if constexpr (S::KV_DEFER_DV) product_rs(dv_acc, pa, sm.dout(st) + c_q, L::Q_SLAB);
+      product_rs(dk_acc, da, sm.q(st) + c_q, L::Q_SLAB);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv_acc);
@@ -1040,29 +1217,62 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, 
     }
     mbar_arrive(sm.empty(st));
   }
-  store_rows(dk + (size_t)bkv * sk * D, dk_acc, key0, col0, sk);
-  store_rows(dv + (size_t)bkv * sk * D, dv_acc, key0, col0, sk);
+  if (splits == 1) {
+    store_rows<D>(dk + (size_t)bkv * sk * D + cw0, dk_acc, key0, col0, sk);
+    store_rows<D>(dv + (size_t)bkv * sk * D + cw0, dv_acc, key0, col0, sk);
+  } else {
+    const size_t plane = (size_t)((by_head ? gridDim.x : gridDim.y) / splits) * sk * D;
+    float* pk = part + (size_t)split * plane + (size_t)bkv * sk * D + cw0;
+    store_rows<D>(pk, dk_acc, key0, col0, sk);
+    store_rows<D>(pk + (size_t)splits * plane, dv_acc, key0, col0, sk);
+  }
 }
 
-// The dQ pass. Block: query rows [q0, q0 + 128) of (batch row, query head)
-// bh; consumer warpgroup w takes rows q0 + 64 w .. + 63, thread (warp, lane)
-// of it the rows row0 = q0 + 64 w + 16 warp + lane / 4 and row0 + 8. Its S
-// and dP accumulators (m64n64, 32 each) hold element 4 j + 2 i + c at (row
-// row0 + 8 i, key k0 + 8 j + col0 + c), its dQ (m64n128, 64) at (row row0 +
-// 8 i, column 8 j + col0 + c). dQ sums the key tiles in ascending order.
-__global__ void __launch_bounds__(hb::THREADS, 1)
-flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, Sq, B*Hq), 128 rows
-                          const __grid_constant__ CUtensorMap tm_do,   // (D, Sq, B*Hq), 128 rows
-                          const __grid_constant__ CUtensorMap tm_k,    // (D, Sk, B*Hkv), 64
-                          const __grid_constant__ CUtensorMap tm_v,    // (D, Sk, B*Hkv), 64
+// dK and dV from the dK/dV pass's float32 partials (2, splits, n): each
+// element the sum over the splits in order, rounded once to bf16; 4
+// elements a thread
+__global__ void __launch_bounds__(256)
+flash_bwd_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, size_t n4, int splits) {
+  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= 2 * n4) return;
+  const size_t which = i >= n4;
+  const size_t e = i - which * n4;
+  const float4* p = reinterpret_cast<const float4*>(part) + which * splits * n4 + e;
+  float4 acc = p[0];
+  for (int s = 1; s < splits; ++s) {
+    const float4 x = p[(size_t)s * n4];
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  *reinterpret_cast<uint2*>((which ? dv : dk) + 4 * e) =
+      make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+}
+
+// The dQ pass. Block: query rows [q0, q0 + BM) of (batch row, query head)
+// bh; consumer warpgroup w takes rows q0 + 64 w .. + 63, thread (warp,
+// lane) of it the rows row0 = q0 + 64 w + 16 warp + lane / 4 and row0 + 8.
+// Its S and dP accumulators (m64nBN) hold element 4 j + 2 i + c at (row
+// row0 + 8 i, key k0 + 8 j + col0 + c); its dQ (OH accumulators of m64nON)
+// at (row row0 + 8 i, column ON h + 8 j + col0 + c). dQ sums the key tiles
+// in ascending order.
+template <int D>
+__global__ void __launch_bounds__(hb::Shape<D>::THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, Sq, B*Hq), BM rows
+                          const __grid_constant__ CUtensorMap tm_do,   // (D, Sq, B*Hq), BM rows
+                          const __grid_constant__ CUtensorMap tm_k,    // (D, Sk, B*Hkv), BN
+                          const __grid_constant__ CUtensorMap tm_v,    // (D, Sk, B*Hkv), BN
                           const float* __restrict__ lse,     // (B, Hq, Sq)
                           const float* __restrict__ delta,   // (B, Hq, Sq)
                           bf16* __restrict__ dq,             // (B, Hq, Sq, D)
                           int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
                           float scale) {
   using namespace hb;
-  using L = Dq;
-  constexpr int BN = L::BN, STAGES = L::STAGES;
+  using L = Dq<D>;
+  using S = Shape<D>;
+  constexpr int BN = L::BN, STAGES = L::STAGES, ON = L::ON, OH = L::OH;
   extern __shared__ __align__(1024) unsigned char smem_dq_wg[];
   const L sm{(smem_addr(smem_dq_wg) + 1023u) & ~1023u};
 
@@ -1070,7 +1280,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, Sq
     mbar_init(sm.q_full(), 1);
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(sm.full(st), 1);
-      mbar_init(sm.empty(st), 2 * 128);
+      mbar_init(sm.empty(st), S::CONSUMERS * 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -1090,32 +1300,50 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, Sq
   const int n_tiles = ke > kb ? (ke - kb + BN - 1) / BN : 0;
   const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
 
-  if (role == 2) {
+  if (role == S::CONSUMERS) {
     // ---- producer: one thread keeps the ring full ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
-    if (threadIdx.x != 256) return;
+    if (threadIdx.x != S::CONSUMERS * 128) return;
     mbar_expect_tx(sm.q_full(), 2 * L::Q_BYTES);
 #pragma unroll
-    for (int j = 0; j < SLABS; ++j) {
+    for (int j = 0; j < L::SLABS; ++j) {
       tma_load(sm.q() + j * L::Q_SLAB, &tm_q, sm.q_full(), 64 * j, q0, bh);
       tma_load(sm.dout() + j * L::Q_SLAB, &tm_do, sm.q_full(), 64 * j, q0, bh);
     }
-    for (int it = 0; it < n_tiles; ++it) {
-      const int st = it % STAGES;
-      const int k0 = kb + it * BN;
-      mbar_wait(sm.empty(st), ((it / STAGES) & 1) ^ 1);
-      mbar_expect_tx(sm.full(st), 2 * L::KV_BYTES);
+    if constexpr (L::APART) {
+      // K of tile it is load 2 it, V load 2 it + 1, each into the next slot
+      for (int it = 0; it < n_tiles; ++it) {
+        const int k0 = kb + it * BN;
 #pragma unroll
-      for (int j = 0; j < SLABS; ++j) {
-        tma_load(sm.k(st) + j * L::KV_SLAB, &tm_k, sm.full(st), 64 * j, k0, kvh);
-        tma_load(sm.v(st) + j * L::KV_SLAB, &tm_v, sm.full(st), 64 * j, k0, kvh);
+        for (int kv = 0; kv < 2; ++kv) {
+          const int ld = 2 * it + kv;
+          const int st = ld % STAGES;
+          mbar_wait(sm.empty(st), ((ld / STAGES) & 1) ^ 1);
+          mbar_expect_tx(sm.full(st), L::KV_BYTES);
+#pragma unroll
+          for (int j = 0; j < L::SLABS; ++j)
+            tma_load(sm.tile(st) + j * L::KV_SLAB, kv ? &tm_v : &tm_k, sm.full(st), 64 * j, k0,
+                     kvh);
+        }
+      }
+    } else {
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % STAGES;
+        const int k0 = kb + it * BN;
+        mbar_wait(sm.empty(st), ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(sm.full(st), 2 * L::KV_BYTES);
+#pragma unroll
+        for (int j = 0; j < L::SLABS; ++j) {
+          tma_load(sm.k(st) + j * L::KV_SLAB, &tm_k, sm.full(st), 64 * j, k0, kvh);
+          tma_load(sm.v(st) + j * L::KV_SLAB, &tm_v, sm.full(st), 64 * j, k0, kvh);
+        }
       }
     }
     return;
   }
 
   // ---- consumer warpgroups: 64 query rows each ----
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::CONSUMER_REGS) : "memory");
   const int lane = threadIdx.x % 32;
   const int r0 = q0 + 64 * role;                             // this warpgroup's rows
   const int r_last = min(r0 + 64, sq) - 1;
@@ -1133,40 +1361,50 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, Sq
     dl[i] = r < sq ? delta[(size_t)bh * sq + r] : 0.f;
   }
 
-  float dq_acc[64];
+  float dq_acc[OH][ON / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dq_acc[i] = 0.f;
+  for (int h = 0; h < OH; ++h)
+#pragma unroll
+    for (int i = 0; i < ON / 2; ++i) dq_acc[h][i] = 0.f;
 
   mbar_wait(sm.q_full(), 0);
   for (int it = 0; it < n_tiles; ++it) {
-    const int st = it % STAGES;
     const int k0 = kb + it * BN;
-    mbar_wait(sm.full(st), (it / STAGES) & 1);
+    // the slots of this tile's K and V, and the parities of their loads
+    int st_k, st_v;
+    uint32_t ph_k, ph_v;
+    if constexpr (L::APART) {
+      st_k = (2 * it) % STAGES;
+      st_v = (2 * it + 1) % STAGES;
+      ph_k = ((2 * it) / STAGES) & 1;
+      ph_v = ((2 * it + 1) / STAGES) & 1;
+    } else {
+      st_k = st_v = it % STAGES;
+      ph_k = ph_v = (it / STAGES) & 1;
+    }
+    const uint32_t kt = L::APART ? sm.tile(st_k) : sm.k(st_k);
+    const uint32_t vt = L::APART ? sm.tile(st_v) : sm.v(st_v);
+    mbar_wait(sm.full(st_k), ph_k);
     if (meets(r0, r_last, k0, min(k0 + BN, sk) - 1, causal, window, q_offset)) {
-      // S = Q . K^T and dP = dO . V^T
+      // S = Q . K^T and dP = dO . V^T (APART: V waited on once S is issued)
       float s[BN / 2], dp[BN / 2];
       wgmma_fence();
-      product_ss(s, q_w, L::Q_SLAB, sm.k(st), L::KV_SLAB);
+      product_ss<D>(s, q_w, L::Q_SLAB, kt, L::KV_SLAB);
       wgmma_commit();
-      product_ss(dp, do_w, L::Q_SLAB, sm.v(st), L::KV_SLAB);
+      if constexpr (L::APART) mbar_wait(sm.full(st_v), ph_v);
+      product_ss<D>(dp, do_w, L::Q_SLAB, vt, L::KV_SLAB);
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(s);
-      // P while dP is in flight, then dS = P * (dP - delta) * scale in dp's
-      // registers
-      const bool masked = !inside(r0, 64, k0, BN, sq, sk, causal, window, q_offset);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int cc = 0; cc < 2; ++cc) {
-            const int e = 4 * j + 2 * i + cc;
-            const bool seen = !masked || ok(row0 + 8 * i, k0 + 8 * j + col0 + cc);
-            s[e] = seen ? ex2_ftz(fmaf(s[e], c, -lse2[i])) : 0.f;
-          }
+      // P while dP is in flight, masked only where the tile crosses a mask
+      // or a tail; then dS = P * (dP - delta) * scale in dp's registers
+      if (inside(r0, 64, k0, BN, sq, sk, causal, window, q_offset))
+        p_rows<false>(s, lse2, ok, row0, k0, col0, c);
+      else
+        p_rows<true>(s, lse2, ok, row0, k0, col0, c);
       wgmma_wait<0>();
       fence_regs(dp);
+      if constexpr (L::APART) mbar_arrive(sm.empty(st_v));   // V is read
 #pragma unroll
       for (int e = 0; e < BN / 2; ++e) dp[e] = s[e] * (dp[e] - dl[(e >> 1) & 1]) * scale;
       // dQ += dS . K, dS rounded to bf16 in registers, K read through the
@@ -1174,15 +1412,23 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, Sq
       uint32_t da[BN / 16][4];
       pack_p(da, dp);
       wgmma_fence();
-      product_rs(dq_acc, da, sm.k(st), L::KV_SLAB);
+#pragma unroll
+      for (int h = 0; h < OH; ++h)
+        product_rs(dq_acc[h], da, kt + h * (ON / 64) * L::KV_SLAB, L::KV_SLAB);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(dq_acc);
+#pragma unroll
+      for (int h = 0; h < OH; ++h) fence_regs(dq_acc[h]);
       fence_regs(da);
+    } else if constexpr (L::APART) {
+      mbar_wait(sm.full(st_v), ph_v);
+      mbar_arrive(sm.empty(st_v));
     }
-    mbar_arrive(sm.empty(st));
+    mbar_arrive(sm.empty(st_k));
   }
-  store_rows(dq + (size_t)bh * sq * D, dq_acc, row0, col0, sq);
+#pragma unroll
+  for (int h = 0; h < OH; ++h)
+    store_rows<D>(dq + (size_t)bh * sq * D + h * ON, dq_acc[h], row0, col0, sq);
 }
 
 // ---------------------------------------------------------------------------
@@ -1194,54 +1440,64 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// bfloat16 at D = 128: the delta pass, then the TMA + wgmma dK/dV and dQ
-// passes. Each tensor is mapped in the boxes of the pass that reads it: Q
-// and dO in 64 rows (dK/dV) and 128 (dQ), K and V in 128 (dK/dV) and 64
-// (dQ); rows past Sq or Sk load as zeros. With no
-// query row or no key, no pair is seen: the gradients are zeros.
+// bfloat16 at D = 64, 128 and 256: the delta pass, then the TMA + wgmma
+// dK/dV and dQ passes (with splits > 1, the dK/dV pass's partials summed
+// into dk and dv in between). Each tensor is mapped in the boxes of the
+// pass that reads it: Q and dO in the dK/dV pass's query tile and 128 rows
+// (dQ), K and V in the dK/dV pass's key block and the dQ pass's key tile;
+// rows past Sq or Sk load as zeros. With no query row or no key, no pair
+// is seen: the gradients are zeros.
+template <int D>
 cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* out,
                              const float* lse, const void* dout, float* delta, void* dq,
-                             void* dk, void* dv, int batch, int hq, int hkv, int sq, int sk,
-                             int causal, int window, int q_offset, float scale, cudaStream_t s) {
-  constexpr int D = hb::D;
+                             void* dk, void* dv, float* part, int splits, int batch, int hq,
+                             int hkv, int sq, int sk, int causal, int window, int q_offset,
+                             float scale, cudaStream_t s) {
+  using KV = hb::Dkdv<D>;
+  using DQ = hb::Dq<D>;
   const size_t kv_bytes = (size_t)batch * hkv * sk * D * sizeof(bf16);
+  if (splits < 1 || splits > hq / hkv || (splits > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
   if (sq == 0 || sk == 0) {
     cudaError_t err = cudaMemsetAsync(dk, 0, kv_bytes, s);
     if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, kv_bytes, s);
     if (err == cudaSuccess) err = cudaMemsetAsync(dq, 0, (size_t)batch * hq * sq * D * 2, s);
     return err;
   }
-  const int rows = batch * hq * sq;
-  flash_bwd_delta_kernel<bf16><<<(rows + 7) / 8, 256, 0, s>>>(
-      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), delta, rows, D);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<bf16, D>(out, dout, delta, batch * hq * sq, s);
   if (err != cudaSuccess) return err;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
-  CUtensorMap tq64, tdo64, tq128, tdo128, tk128, tv128, tk64, tv64;
-  if (!make_map(enc, &tq64, q, D, sq, batch * hq, hb::Dkdv::BM) ||
-      !make_map(enc, &tdo64, dout, D, sq, batch * hq, hb::Dkdv::BM) ||
-      !make_map(enc, &tq128, q, D, sq, batch * hq, hb::Dq::BM) ||
-      !make_map(enc, &tdo128, dout, D, sq, batch * hq, hb::Dq::BM) ||
-      !make_map(enc, &tk128, k, D, sk, batch * hkv, hb::Dkdv::BN) ||
-      !make_map(enc, &tv128, v, D, sk, batch * hkv, hb::Dkdv::BN) ||
-      !make_map(enc, &tk64, k, D, sk, batch * hkv, hb::Dq::BN) ||
-      !make_map(enc, &tv64, v, D, sk, batch * hkv, hb::Dq::BN))
+  CUtensorMap tq_kv, tdo_kv, tq_dq, tdo_dq, tk_kv, tv_kv, tk_dq, tv_dq;
+  if (!make_map(enc, &tq_kv, q, D, sq, batch * hq, KV::BM) ||
+      !make_map(enc, &tdo_kv, dout, D, sq, batch * hq, KV::BM) ||
+      !make_map(enc, &tq_dq, q, D, sq, batch * hq, DQ::BM) ||
+      !make_map(enc, &tdo_dq, dout, D, sq, batch * hq, DQ::BM) ||
+      !make_map(enc, &tk_kv, k, D, sk, batch * hkv, KV::BN) ||
+      !make_map(enc, &tv_kv, v, D, sk, batch * hkv, KV::BN) ||
+      !make_map(enc, &tk_dq, k, D, sk, batch * hkv, DQ::BN) ||
+      !make_map(enc, &tv_dq, v, D, sk, batch * hkv, DQ::BN))
     return cudaErrorInvalidValue;
   const bool by_head = causal || window > 0;
-  const int k_tiles = (sk + hb::Dkdv::BN - 1) / hb::Dkdv::BN;
-  const int q_tiles = (sq + hb::Dq::BM - 1) / hb::Dq::BM;
-  if ((err = set_smem(flash_bwd_dkdv_wgmma_kernel, hb::Dkdv::SMEM_BYTES)) != cudaSuccess)
-    return err;
-  flash_bwd_dkdv_wgmma_kernel<<<by_head ? dim3(batch * hkv, k_tiles) : dim3(k_tiles, batch * hkv),
-                                hb::THREADS, hb::Dkdv::SMEM_BYTES, s>>>(
-      tq64, tdo64, tk128, tv128, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), hq,
-      hkv, sq, sk, causal, window, q_offset, scale);
+  const int k_tiles = (sk + KV::BN - 1) / KV::BN;
+  const int units = batch * hkv * splits;
+  const int q_tiles = (sq + DQ::BM - 1) / DQ::BM;
+  if ((err = set_smem(flash_bwd_dkdv_wgmma_kernel<D>, KV::SMEM_BYTES)) != cudaSuccess) return err;
+  flash_bwd_dkdv_wgmma_kernel<D><<<by_head ? dim3(units, k_tiles) : dim3(k_tiles, units),
+                                   hb::Shape<D>::THREADS, KV::SMEM_BYTES, s>>>(
+      tq_kv, tdo_kv, tk_kv, tv_kv, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      part, splits, hq, hkv, sq, sk, causal, window, q_offset, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = set_smem(flash_bwd_dq_wgmma_kernel, hb::Dq::SMEM_BYTES)) != cudaSuccess) return err;
-  flash_bwd_dq_wgmma_kernel<<<by_head ? dim3(batch * hq, q_tiles) : dim3(q_tiles, batch * hq),
-                              hb::THREADS, hb::Dq::SMEM_BYTES, s>>>(
-      tq128, tdo128, tk64, tv64, lse, delta, static_cast<bf16*>(dq), hq, hkv, sq, sk, causal,
+  if (splits > 1) {
+    const size_t n4 = (size_t)batch * hkv * sk * D / 4;
+    flash_bwd_sum_kernel<<<(unsigned)((2 * n4 + 255) / 256), 256, 0, s>>>(
+        part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n4, splits);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if ((err = set_smem(flash_bwd_dq_wgmma_kernel<D>, DQ::SMEM_BYTES)) != cudaSuccess) return err;
+  flash_bwd_dq_wgmma_kernel<D><<<by_head ? dim3(batch * hq, q_tiles) : dim3(q_tiles, batch * hq),
+                                 hb::Shape<D>::THREADS, DQ::SMEM_BYTES, s>>>(
+      tq_dq, tdo_dq, tk_dq, tv_dq, lse, delta, static_cast<bf16*>(dq), hq, hkv, sq, sk, causal,
       window, q_offset, scale);
   return cudaGetLastError();
 }
@@ -1249,8 +1505,17 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
 template <int D>
 cudaError_t launch_bwd(int dtype, const void* q, const void* k, const void* v, const void* out,
                        const float* lse, const void* dout, float* delta, void* dq, void* dk,
-                       void* dv, int batch, int hq, int hkv, int sq, int sk, int causal,
-                       int window, int q_offset, float scale, cudaStream_t s) {
+                       void* dv, float* part, int splits, int batch, int hq, int hkv, int sq,
+                       int sk, int causal, int window, int q_offset, float scale,
+                       cudaStream_t s) {
+  // bfloat16 at D = 64, 128 and 256 on the TMA + wgmma passes
+  if constexpr (D >= 64) {
+    if (dtype == 1)
+      return launch_bwd_wgmma<D>(q, k, v, out, lse, dout, delta, dq, dk, dv, part, splits,
+                                 batch, hq, hkv, sq, sk, causal, window, q_offset, scale, s);
+  }
+  // the other passes write dk and dv themselves, one block a key tile
+  if (splits != 1) return cudaErrorInvalidValue;
   constexpr int CHUNKS = D / CHUNK_COLS<D>;
   const int rows = batch * hq * sq;
   const dim3 grid_kv((sk + BKV - 1) / BKV, batch * hkv, CHUNKS);
@@ -1259,10 +1524,7 @@ cudaError_t launch_bwd(int dtype, const void* q, const void* k, const void* v, c
   if (dtype == 0) {
     const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
                 *vf = static_cast<const float*>(v), *of = static_cast<const float*>(dout);
-    if (rows > 0)
-      flash_bwd_delta_kernel<float><<<(rows + 7) / 8, 256, 0, s>>>(
-          static_cast<const float*>(out), of, delta, rows, D);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = launch_delta<float, D>(out, dout, delta, rows, s)) != cudaSuccess) return err;
     if (grid_kv.x > 0 && grid_kv.y > 0) {
       if ((err = set_smem(flash_bwd_dkdv_fp32_kernel<D>, fp32_dkdv_smem<D>())) != cudaSuccess)
         return err;
@@ -1282,18 +1544,11 @@ cudaError_t launch_bwd(int dtype, const void* q, const void* k, const void* v, c
     return err;
   }
   if (dtype != 1) return cudaErrorInvalidValue;
-  // bfloat16: D = 128 on the TMA + wgmma passes, the other head dims on
-  // mma.sync
-  if constexpr (D == hb::D) {
-    return launch_bwd_wgmma(q, k, v, out, lse, dout, delta, dq, dk, dv, batch, hq, hkv, sq, sk,
-                            causal, window, q_offset, scale, s);
-  } else {
+  if constexpr (D < 64) {
+    // bfloat16 at D = 32 on mma.sync
     const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
                *vb = static_cast<const bf16*>(v), *ob = static_cast<const bf16*>(dout);
-    if (rows > 0)
-      flash_bwd_delta_kernel<bf16><<<(rows + 7) / 8, 256, 0, s>>>(static_cast<const bf16*>(out),
-                                                                  ob, delta, rows, D);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = launch_delta<bf16, D>(out, dout, delta, rows, s)) != cudaSuccess) return err;
     if (grid_kv.x > 0 && grid_kv.y > 0) {
       if ((err = set_smem(flash_bwd_dkdv_mma_kernel<D>, mma_dkdv_smem<D>())) != cudaSuccess)
         return err;
@@ -1310,8 +1565,8 @@ cudaError_t launch_bwd(int dtype, const void* q, const void* k, const void* v, c
           q_offset, scale);
       err = cudaGetLastError();
     }
-    return err;
   }
+  return err;
 }
 
 }  // namespace
@@ -1321,36 +1576,40 @@ cudaError_t launch_bwd(int dtype, const void* q, const void* k, const void* v, c
 // contiguous, 16-byte aligned; lse (batch, hq, sq) float32 as the forward
 // wrote it; delta: float32 scratch of batch * hq * sq. Writes dq (the
 // shape and dtype of q) and dk, dv (those of k). d in {32, 64, 128, 256};
-// q_offset >= 0 (the caller resolves -1 to sk - sq). Three launches on
-// `stream` (delta, dK/dV, dQ); returns the first failing one's
-// cudaError_t, else 0.
+// q_offset >= 0 (the caller resolves -1 to sk - sq). splits: the blocks
+// over which the dK/dV pass divides each kv head's query heads, 1 <= splits
+// <= hq / hkv, above 1 only in bfloat16 at d >= 64, with part a float32
+// scratch of 2 * splits * batch * hkv * sk * d (else unused). Three
+// launches on `stream` (delta, dK/dV, dQ; a fourth, the partials' sum,
+// with splits > 1); returns the first failing one's cudaError_t, else 0.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                    const void* lse, const void* dout, void* delta, void* dq,
-                                   void* dk, void* dv, int dtype, int batch, int hq, int hkv,
-                                   int sq, int sk, int d, int causal, int window, int q_offset,
-                                   float scale, void* stream) {
+                                   void* dk, void* dv, void* part, int dtype, int batch, int hq,
+                                   int hkv, int sq, int sk, int d, int splits, int causal,
+                                   int window, int q_offset, float scale, void* stream) {
   if (hkv < 1 || hq % hkv != 0 || sq < 0 || sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  float* pt = static_cast<float*>(part);
   cudaError_t err;
   switch (d) {
     case 32:
-      err = launch_bwd<32>(dtype, q, k, v, out, l, dout, dl, dq, dk, dv, batch, hq, hkv, sq, sk,
-                           causal, window, q_offset, scale, s);
+      err = launch_bwd<32>(dtype, q, k, v, out, l, dout, dl, dq, dk, dv, pt, splits, batch, hq,
+                           hkv, sq, sk, causal, window, q_offset, scale, s);
       break;
     case 64:
-      err = launch_bwd<64>(dtype, q, k, v, out, l, dout, dl, dq, dk, dv, batch, hq, hkv, sq, sk,
-                           causal, window, q_offset, scale, s);
+      err = launch_bwd<64>(dtype, q, k, v, out, l, dout, dl, dq, dk, dv, pt, splits, batch, hq,
+                           hkv, sq, sk, causal, window, q_offset, scale, s);
       break;
     case 128:
-      err = launch_bwd<128>(dtype, q, k, v, out, l, dout, dl, dq, dk, dv, batch, hq, hkv, sq, sk,
-                            causal, window, q_offset, scale, s);
+      err = launch_bwd<128>(dtype, q, k, v, out, l, dout, dl, dq, dk, dv, pt, splits, batch, hq,
+                            hkv, sq, sk, causal, window, q_offset, scale, s);
       break;
     case 256:
-      err = launch_bwd<256>(dtype, q, k, v, out, l, dout, dl, dq, dk, dv, batch, hq, hkv, sq, sk,
-                            causal, window, q_offset, scale, s);
+      err = launch_bwd<256>(dtype, q, k, v, out, l, dout, dl, dq, dk, dv, pt, splits, batch, hq,
+                            hkv, sq, sk, causal, window, q_offset, scale, s);
       break;
     default:
       err = cudaErrorInvalidValue;

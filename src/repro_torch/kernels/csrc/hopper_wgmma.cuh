@@ -1,11 +1,11 @@
 // Hopper plumbing shared by flash_attention.cu (the forward's
 // flash_wgmma_kernel<D>) and flash_attention_bwd.cu (the backward's TMA +
-// wgmma passes at D = 128): 2^x on the special-function unit, mbarriers,
-// TMA tile loads, wgmma shared-memory descriptors for 128-byte-swizzled
-// tiles, the m64n64k16 / m64n128k16 products with A from shared memory or
-// from registers, the packing of float32 accumulators into a bf16 A
-// fragment, and the host-side encoder of the 3-D (D, S, heads) tensor maps
-// the tiles are loaded through.
+// wgmma passes at D = 64, 128 and 256): 2^x on the special-function unit,
+// mbarriers, TMA tile loads, wgmma shared-memory descriptors for
+// 128-byte-swizzled tiles, the m64n64k16 / m64n128k16 products with A from
+// shared memory or from registers, the packing of float32 accumulators
+// into a bf16 A fragment, and the host-side encoder of the 3-D (D, S,
+// heads) tensor maps the tiles are loaded through.
 //
 // Tiles are stored as 64-column slabs of 128-byte rows (SLAB_ROW), the
 // swizzle's width; a K-major operand's 8-row groups lie 1024 bytes apart.

@@ -38,8 +38,12 @@ expansion is never materialized.
   v, out, lse, dout)``: on a CUDA tensor one call of
   ``csrc/flash_attention_bwd.cu`` (delta, then the dK/dV pass over key
   tiles and the dQ pass over query tiles, sums in a fixed order; bfloat16
-  at D = 128 on TMA + wgmma, 128-key blocks and 128-row dQ blocks, at the
-  other head dims on mma.sync; float32 on the CUDA cores), on a CPU tensor
+  at D = 64, 128 and 256 on TMA + wgmma (64 keys or query rows a consumer
+  warpgroup, two a block at D = 128, three at D = 64; at D = 256 one
+  64-key tile a block with the output columns split between its two
+  consumers and each kv head's query heads over :func:`bwd_kv_splits`
+  blocks), at D = 32 on mma.sync; float32 on the CUDA cores;
+  :func:`bwd_kernel_names` names the passes a call runs), on a CPU tensor
   :func:`attention_bwd_torch`; :func:`work_bwd` counts its five products
   and its bytes, :func:`bwd_smem_bytes` its shared memory.
   :func:`attention_bwd_tiled` is its plain version in the kernel's order
@@ -111,14 +115,23 @@ RESCALE_SLACK = {64: 8.0}
 KV_CHUNK = 1024
 # the backward's span in a torch.profiler trace
 BACKWARD_SPAN = "attention.backward"
-# csrc/flash_attention_bwd.cu, bfloat16 at D = 128 (TMA + wgmma): the dK/dV
-# pass's (keys a block, query rows a tile, ring stages) and the dQ pass's
-# (query rows a block, keys a tile, ring stages)
-BWD_WGMMA_DKDV = {128: (128, 64, 2)}
-BWD_WGMMA_DQ = {128: (128, 64, 2)}
-# its other passes: keys a dK/dV block, query rows a dQ block and, in
-# bfloat16, keys a dQ tile (both dtypes, every other head dim); float32:
-# query rows a dK/dV tile and keys a dQ tile
+# csrc/flash_attention_bwd.cu, bfloat16 at D = 64, 128 and 256 (TMA +
+# wgmma, hb::Shape<D>): the dK/dV pass's (keys a block, query rows a tile,
+# ring stages; 64 keys a block: the two consumers split the output columns)
+# and the dQ pass's (query rows a block, keys a tile, ring depth)
+BWD_WGMMA_DKDV = {64: (192, 64, 3), 128: (128, 64, 2), 256: (64, 64, 2)}
+BWD_WGMMA_DQ = {64: (192, 64, 3), 128: (128, 64, 2), 256: (128, 64, 3)}
+# head dims whose dQ ring holds a K or a V tile a slot (its depth counts
+# tiles), not a stage of both
+BWD_DQ_APART = frozenset({256})
+# head dims whose dK/dV pass divides each kv head's query heads over up to
+# this many blocks (float32 partials, summed in split order) where its
+# blocks would not fill the card BWD_KV_WAVES times over
+BWD_KV_SPLITS = {256: 2}
+BWD_KV_WAVES = 2
+# its other passes (bfloat16 at D = 32, float32 at every head dim): keys a
+# dK/dV block, query rows a dQ block and, in bfloat16, keys a dQ tile;
+# float32: query rows a dK/dV tile and keys a dQ tile
 BWD_BLOCK = 64
 BWD_FP32_KEYS = 32
 
@@ -134,33 +147,62 @@ def key_tile(d: int) -> int:
 
 def bwd_key_tile(d: int) -> int:
     """Keys per tile of the bfloat16 backward's dQ pass at head dim d, over
-    which dQ is summed in ascending order: the TMA + wgmma pass's at D = 128
-    (``BWD_WGMMA_DQ``), the mma.sync pass's (``BWD_BLOCK``) at the other
-    head dims; 64 at every head dim as built."""
+    which dQ is summed in ascending order: the TMA + wgmma pass's at D = 64,
+    128 and 256 (``BWD_WGMMA_DQ``), the mma.sync pass's (``BWD_BLOCK``) at
+    D = 32; 64 at every head dim as built."""
     return BWD_WGMMA_DQ[d][1] if d in BWD_WGMMA_DQ else BWD_BLOCK
+
+
+def bwd_kv_splits(b: int, hq: int, hkv: int, sk: int, d: int, dtype: torch.dtype,
+                  sms: int) -> int:
+    """The blocks over which the bfloat16 dK/dV pass divides each kv head's
+    query heads on a card of ``sms`` SMs: 1 unless the head dim allows more
+    (``BWD_KV_SPLITS``) and its ``b * hkv * ceil(sk / keys a block)`` blocks
+    would not fill the card ``BWD_KV_WAVES`` times over; then as many as
+    that needs, at most the cap and the g query heads. Each split's blocks
+    write float32 partials of dK and dV that a fourth launch sums in split
+    order, so a shape always gets the same splits and the same bits."""
+    cap = min(BWD_KV_SPLITS.get(d, 1) if dtype == torch.bfloat16 else 1, hq // hkv)
+    blocks = b * hkv * -(-sk // BWD_WGMMA_DKDV.get(d, (BWD_BLOCK,))[0])
+    if cap <= 1 or blocks == 0 or blocks >= BWD_KV_WAVES * sms:
+        return 1
+    return min(cap, -(-BWD_KV_WAVES * sms // blocks))
+
+
+def bwd_kernel_names(d: int, dtype: torch.dtype) -> Tuple[str, str]:
+    """The dK/dV and dQ kernels of ``csrc/flash_attention_bwd.cu`` that a
+    backward call at head dim d in dtype runs (the C entry point dispatches
+    on both; the delta pass and, with splits, the partials' sum beside
+    them)."""
+    if dtype == torch.float32:
+        return f"flash_bwd_dkdv_fp32_kernel<{d}>", f"flash_bwd_dq_fp32_kernel<{d}>"
+    if d in BWD_WGMMA_DKDV:
+        return f"flash_bwd_dkdv_wgmma_kernel<{d}>", f"flash_bwd_dq_wgmma_kernel<{d}>"
+    return f"flash_bwd_dkdv_mma_kernel<{d}>", f"flash_bwd_dq_mma_kernel<{d}>"
 
 
 def bwd_smem_bytes(d: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of the backward's larger pass at head dim d.
-    bfloat16 at D = 128: the dK/dV pass holds its K and V tiles, and per
-    ring stage a Q and a dO tile and the rows' lse and delta (float32); the
-    dQ pass holds its Q and dO tiles and per stage a K and a V tile; each
-    adds its mbarriers and 1 KB to align the tiles to the 128-byte
-    swizzle's period. bfloat16 elsewhere: tiles of padded rows (D + 8) of
-    K, V, Q and dO (dK/dV pass, with the tile's lse and delta) or of Q, dO,
-    K and V (dQ pass). float32: padded rows (D + 4) of K, V, Q and dO and
-    the P^T and dS^T tiles (dK/dV pass), or of Q, dO, K, V and the dS tile
-    (dQ pass)."""
+    bfloat16 at D = 64, 128 and 256: the dK/dV pass holds its K and V
+    tiles, and per ring stage a Q and a dO tile and the rows' lse and delta
+    (float32); the dQ pass holds its Q and dO tiles and per stage a K and a
+    V tile (``BWD_DQ_APART``: per slot one of them); each adds its
+    mbarriers (one, and a full and an empty one per stage or slot) and 1 KB
+    to align the tiles to the 128-byte swizzle's period. bfloat16 at D = 32:
+    tiles of padded rows (D + 8) of K, V, Q and dO (dK/dV pass, with the
+    tile's lse and delta) or of Q, dO, K and V (dQ pass). float32: padded
+    rows (D + 4) of K, V, Q and dO and the P^T and dS^T tiles (dK/dV pass),
+    or of Q, dO, K, V and the dS tile (dQ pass)."""
     if dtype == torch.bfloat16 and d in BWD_WGMMA_DKDV:
         bn, bm, stages = BWD_WGMMA_DKDV[d]
         dkdv = 1024 + 2 * bn * d * 2 + stages * (2 * bm * d * 2 + 2 * bm * 4) + 8 * (1 + 2 * stages)
         bm, bn, stages = BWD_WGMMA_DQ[d]
-        dq = 1024 + 2 * bm * d * 2 + stages * 2 * bn * d * 2 + 8 * (1 + 2 * stages)
+        tiles = stages if d in BWD_DQ_APART else 2 * stages
+        dq = 1024 + 2 * bm * d * 2 + tiles * bn * d * 2 + 8 * (1 + 2 * stages)
         return max(dkdv, dq)
     blk, fb = BWD_BLOCK, BWD_FP32_KEYS
-    if dtype == torch.bfloat16:
-        bm = 64 if min(d, 128) <= 64 else 32   # query rows a dK/dV tile
-        return max((2 * blk + 2 * bm) * (d + 8) * 2 + 2 * bm * 4, 4 * blk * (d + 8) * 2)
+    if dtype == torch.bfloat16:   # 64-row query tiles in the dK/dV pass
+        return max(4 * blk * (d + 8) * 2 + 2 * blk * 4, 4 * blk * (d + 8) * 2)
     return 4 * max(2 * blk * (d + 4) + 2 * fb * (d + 4) + 2 * blk * (fb + 4) + 2 * fb,
                    2 * blk * (d + 4) + 2 * fb * (d + 4) + blk * (fb + 4))
 
@@ -355,7 +397,10 @@ def attention_bwd_tiled(q, k, v, out, lse, dout, *, causal: bool = True, window:
     dtype where they feed a product (dV += P^T.dO, dK += dS^T.Q, dQ += dS.K),
     as the bfloat16 kernel rounds them (in float32 nothing is rounded). dQ
     sums over the key tiles of the kernel's dQ pass in ascending order
-    (:func:`bwd_key_tile` keys in bfloat16, ``BWD_FP32_KEYS`` in float32)."""
+    (:func:`bwd_key_tile` keys in bfloat16, 64 at every head dim;
+    ``BWD_FP32_KEYS`` in float32). dK and dV are float32 sums over each kv
+    head's query heads whose order (over :func:`bwd_kv_splits` blocks or
+    one) is not modelled: it moves them by float32 rounding only."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -596,8 +641,10 @@ def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _launch_bwd(q, k, v, out, lse, dout, causal, window, q_offset):
     """CUDA implementation of ``repro_torch::flash_attention_bwd``: the delta
-    pass, the dK/dV pass and the dQ pass of ``csrc/flash_attention_bwd.cu``,
-    counted once in ``flash_attention_bwd.launches``."""
+    pass, the dK/dV pass (with :func:`bwd_kv_splits` above 1, into float32
+    partials that a fourth launch sums) and the dQ pass of
+    ``csrc/flash_attention_bwd.cu``, counted once in
+    ``flash_attention_bwd.launches``."""
     _check_bwd(q, k, v, out, lse, dout)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -606,13 +653,16 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, window, q_offset):
     lib = _build.library("flash_attention_bwd", _bind_bwd)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    splits = bwd_kv_splits(b, hq, hkv, sk, d, q.dtype, sm_count(q.device))
+    part = (torch.empty((2, splits, b, hkv, sk, d), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             dout.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, causal, window, q_offset,
-            1.0 / (d ** 0.5), stream)
+            None if part is None else part.data_ptr(), _DTYPES[q.dtype], b, hq, hkv, sq, sk, d,
+            splits, causal, window, q_offset, 1.0 / (d ** 0.5), stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd launch failed: cudaError_t {err}")
     flash_attention_bwd.launches += 1
@@ -790,6 +840,6 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
-    lib.flash_attention_bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+    lib.flash_attention_bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
                                         + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_attention_bwd.restype = ctypes.c_int

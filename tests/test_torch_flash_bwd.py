@@ -18,8 +18,8 @@ Tolerances, float32:
   K/V expanded to every head, so its dk/dv are summed over each GQA group
   first.
 
-Tolerance, bfloat16 (head dim 128, where the kernel's dQ pass is the TMA +
-wgmma one, summing over ``bwd_key_tile(128)`` keys a tile): the tiled
+Tolerance, bfloat16 (head dims 64, 128 and 256, where the kernel's dQ pass
+is the TMA + wgmma one, summing over ``bwd_key_tile(d)`` keys a tile): the tiled
 version on bfloat16 inputs against ``jax.vjp`` of ``_blocked`` on the same
 values in float32: P and dS rounded to bfloat16 where they feed a product
 keep each gradient's error RMS within 2^-7 of the reference's, as they keep
@@ -36,7 +36,7 @@ import numpy as np  # noqa: E402
 from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 
 from repro.models import attention as JATT  # noqa: E402
-from repro_torch.hw import H100  # noqa: E402
+from repro_torch.hw import H100, H100_SMS  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 
@@ -53,6 +53,10 @@ CASES = [  # (name, b, hq, hkv, d, sq, sk, causal, window, q_offset)
     ("window past the keys g=10", 1, 10, 1, 64, 40, 100, True, 30, 70),
     ("D=128 causal ragged g=4", 1, 4, 1, 128, 150, 150, True, 0, -1),
     ("D=128 bidirectional Sq<Sk ragged g=2", 1, 4, 2, 128, 70, 200, False, 0, -1),
+    ("D=64 causal ragged g=2", 1, 4, 2, 64, 150, 150, True, 0, -1),
+    ("D=64 bidirectional Sq<Sk ragged g=1", 1, 2, 2, 64, 70, 200, False, 0, -1),
+    ("D=256 causal ragged g=2", 1, 2, 1, 256, 150, 150, True, 0, -1),
+    ("D=256 q_offset window g=5", 1, 5, 1, 256, 60, 210, True, 100, 130),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -156,27 +160,84 @@ def test_tiled_bfloat16_at_d128_matches_the_reference_vjp(name, b, hq, hkv, d, s
 
 def test_backward_tiles_and_shared_memory_per_head_dim():
     """The dQ pass's key tile (the tiled version's order) is 64 at every head
-    dim, the TMA + wgmma pass's at D = 128; every pass's shared memory fits
-    the card's per-block budget, D = 128's in bfloat16 being the dK/dV
-    pass's: 128-key K and V tiles, two stages of 64-row Q and dO tiles with
-    their rows' lse and delta, five mbarriers and the 1 KB alignment."""
+    dim, the TMA + wgmma pass's at D = 64, 128 and 256; every pass's shared
+    memory fits the card's per-block budget. In bfloat16, D = 128's larger
+    pass is the dK/dV pass: 128-key K and V tiles, two stages of 64-row Q
+    and dO tiles with their rows' lse and delta, five mbarriers and the 1 KB
+    alignment; D = 64's also the dK/dV pass, at half the width with 192
+    keys (three consumers) and three stages; D = 256's the dQ pass:
+    128-row Q and dO tiles, three slots of one 64-key K or V tile, seven
+    mbarriers and the alignment (its dK/dV pass: one 64-key K and V tile,
+    two stages of 64-row Q and dO tiles)."""
     assert {d: FA.bwd_key_tile(d) for d in FA.HEAD_DIMS} == {32: 64, 64: 64, 128: 64, 256: 64}
-    assert FA.BWD_WGMMA_DQ[128][1] == FA.bwd_key_tile(128)
+    for d in (64, 128, 256):
+        assert FA.BWD_WGMMA_DQ[d][1] == FA.bwd_key_tile(d)
     dkdv = 1024 + 2 * 32768 + 2 * (2 * 16384 + 512) + 8 * 5
     assert FA.bwd_smem_bytes(128, torch.bfloat16) == dkdv
+    dkdv = 1024 + 2 * 24576 + 3 * (2 * 8192 + 512) + 8 * 7
+    dq = 1024 + 2 * 24576 + 3 * 2 * 8192 + 8 * 7
+    assert FA.bwd_smem_bytes(64, torch.bfloat16) == dkdv == 100920 > dq
+    dq = 1024 + 2 * 65536 + 3 * 32768 + 8 * 7
+    dkdv = 1024 + 2 * 32768 + 2 * (2 * 32768 + 512) + 8 * 5
+    assert FA.bwd_smem_bytes(256, torch.bfloat16) == dq == 230456 > dkdv
     for d in FA.HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             assert 0 < FA.bwd_smem_bytes(d, dtype) <= H100.vmem_bytes
 
 
 def test_check_bwd_raises_past_the_shared_memory_budget():
+    """At D = 128 and at D = 256 (whose dQ pass comes within 2 KB of the
+    card's per-block budget) the launch's check takes the pass's exact
+    shared memory and raises one byte below it."""
     mask = dict(causal=True, window=0, q_offset=-1)
-    args = [t.to(torch.bfloat16) if t.dim() == 4 else t
-            for t in _inputs(1, 4, 2, 128, 16, 16, **mask)]
-    need = FA.bwd_smem_bytes(128, torch.bfloat16)
-    FA._check_bwd(*args, hw_smem=need)
-    with pytest.raises(ValueError, match="backward kernel needs 133160 B of shared memory"):
-        FA._check_bwd(*args, hw_smem=need - 1)
+    for d, need in ((128, 133160), (256, 230456)):
+        args = [t.to(torch.bfloat16) if t.dim() == 4 else t
+                for t in _inputs(1, 4, 2, d, 16, 16, **mask)]
+        assert FA.bwd_smem_bytes(d, torch.bfloat16) == need
+        FA._check_bwd(*args, hw_smem=need)
+        FA._check_bwd(*args)   # the card's own budget
+        with pytest.raises(ValueError, match=f"backward kernel needs {need} B of shared memory"):
+            FA._check_bwd(*args, hw_smem=need - 1)
+
+
+def test_kv_splits_divide_query_heads_only_where_blocks_are_few():
+    """The dK/dV pass divides a kv head's query heads over blocks only at D
+    = 256 in bfloat16, only where its blocks would not fill the card twice
+    over, at most at the cap and g: RecurrentGemma-2B's training shape (4 x
+    1 kv head x 32 key tiles = 128 blocks on 132 SMs) takes two; a shape
+    with enough blocks, one query head a kv head, float32 or another head
+    dim takes one."""
+    sms, bf = H100_SMS, torch.bfloat16
+    assert FA.bwd_kv_splits(4, 10, 1, 2048, 256, bf, sms) == 2
+    assert FA.bwd_kv_splits(1, 5, 1, 200, 256, bf, sms) == 2
+    assert FA.bwd_kv_splits(16, 10, 1, 2048, 256, bf, sms) == 1      # 512 blocks
+    assert FA.bwd_kv_splits(4, 4, 4, 2048, 256, bf, sms) == 1        # g = 1
+    assert FA.bwd_kv_splits(4, 10, 1, 2048, 256, torch.float32, sms) == 1
+    for d in (32, 64, 128):
+        assert FA.bwd_kv_splits(1, 16, 1, 256, d, bf, sms) == 1
+    assert FA.bwd_kv_splits(4, 10, 1, 0, 256, bf, sms) == 1
+
+
+def test_kernel_names_per_head_dim_and_dtype():
+    """bfloat16 at D = 64, 128 and 256 runs the TMA + wgmma passes, at D =
+    32 the mma.sync ones; float32 the CUDA-core ones at every head dim."""
+    for d in FA.HEAD_DIMS:
+        names = FA.bwd_kernel_names(d, torch.bfloat16)
+        kind = "mma" if d == 32 else "wgmma"
+        assert names == (f"flash_bwd_dkdv_{kind}_kernel<{d}>", f"flash_bwd_dq_{kind}_kernel<{d}>")
+        assert FA.bwd_kernel_names(d, torch.float32) == (f"flash_bwd_dkdv_fp32_kernel<{d}>",
+                                                         f"flash_bwd_dq_fp32_kernel<{d}>")
+
+
+@pytest.mark.parametrize("name,b,hq,hkv,d,sq,sk,causal,window,q_offset", CASES[9:], ids=IDS[9:])
+def test_tiled_bfloat16_at_d64_and_d256_matches_the_reference_vjp(name, b, hq, hkv, d, sq, sk,
+                                                                  causal, window, q_offset):
+    """At D = 64 and 256 the bfloat16 tiled version sums dQ over the TMA +
+    wgmma dQ pass's key tiles, three or more here, the last ragged (one case
+    windowed with q_offset): within the bfloat16 tolerance of ``jax.vjp`` of
+    ``_blocked`` on the same values."""
+    test_tiled_bfloat16_at_d128_matches_the_reference_vjp(name, b, hq, hkv, d, sq, sk, causal,
+                                                          window, q_offset)
 
 
 def test_tiled_bfloat16_rounds_p_and_ds_only_where_they_feed_a_product():

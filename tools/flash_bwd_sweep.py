@@ -1,21 +1,26 @@
-"""Variants of the head-dim-128 attention backward (the TMA + wgmma passes of
+"""Variants of the bfloat16 attention backward (the TMA + wgmma passes of
 ``csrc/flash_attention_bwd.cu``), timed side by side on the card at the
 training shapes that run them.
 
-    python3 tools/flash_bwd_sweep.py [--variants port exp2f dq_128_keys ...]
+    python3 tools/flash_bwd_sweep.py [--variants port d256_splits_1 d64_c2 ...]
+        [--shapes ...]
 
 Each variant is the port's source with a few lines replaced (``VARIANTS``:
-the exponential, the products' grouping, the ring depths, the dQ pass's key
-tile, the register split). This tool writes each one under
-``build/flash_bwd_sweep/<variant>/`` (gitignored), compiles them all at once
-with the port's nvcc flags, ``-Xptxas -v`` and the source directory on the
-include path, and prints the registers, spills and ptxas notes (such as
-wgmma serialised, C7511) of the two wgmma kernels. Then, at Yi-6B's (4,
-2048, 32/4 heads), InternVL2-2B's (4, 2304, 16/8) and Qwen3-MoE's (4, 2048,
-64/4) causal training shapes, bfloat16 inputs from a fixed seed and the
-port's training forward's out and lse: each variant's gradients held
-against ``attention_bwd_tiled`` under ``chip_smoke.py``'s ``_bwd_tol``,
-then its profiler device time per call with the L2 flushed
+the per-head-dim shapes ``hb::Shape<D>``, the exponential), and may also
+change the wrapper's settings in ``kernels/flash_attention.py`` (the dK/dV
+pass's query-head splits at D = 256, the tiles its checks read). This tool
+writes each one under ``build/flash_bwd_sweep/<variant>/`` (gitignored),
+compiles them all at once with the port's nvcc flags, ``-Xptxas -v`` and the
+source directory on the include path, and prints the registers, spills and
+ptxas notes (such as wgmma serialised, C7511) of the wgmma kernels. Then at each
+training shape of the head dims a variant changes (D = 128: Yi-6B's (4,
+2048, 32/4 heads), InternVL2-2B's (4, 2304, 16/8), Qwen3-MoE's (4, 2048,
+64/4), causal; D = 256: RecurrentGemma-2B's (4, 2048, 10/1, window 2048);
+D = 64: Whisper-medium's encoder (8, 1500, 16/16, bidirectional), decoder
+(8, 448, causal) and cross (448 x 1500) shapes), bfloat16 inputs from a
+fixed seed and the port's training forward's out and lse: each variant's
+gradients held against ``attention_bwd_tiled`` under ``chip_smoke.py``'s
+``_bwd_tol``, then its profiler device time per call with the L2 flushed
 (``chip_smoke.device_ms``), the variants in turns (forward order, then
 reversed). One JSON line per variant and shape, with the card's name and
 power limit. Exits non-zero where a variant does not build or disagrees.
@@ -42,40 +47,73 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 
-DKDV = "static constexpr int BN = 128, BM = 64, STAGES = 2;"
-DQ = "static constexpr int BM = 128, BN = 64, STAGES = 2;"
-# name: {text of the port's source: its replacement}, every occurrence
+PORT_SHAPES = {64: "3, 160, 192, 3, true, 3, false",
+               128: "2, 240, 128, 2, false, 2, false",
+               256: "2, 240, 64, 2, false, 3, true"}
+
+
+def shape(d: int, args: str) -> dict:
+    """The text substitution that gives hb::Shape<d> these arguments
+    (consumers, their registers; the dK/dV pass's keys a block, stages,
+    DEFER_DV; the dQ pass's ring depth, APART)."""
+    line = "template <> struct Shape<{}> : ShapeOf<{}> {{}};"
+    return {line.format(d, PORT_SHAPES[d]): line.format(d, args)}
+
+
+# name: (head dims it changes, {text of the port's source: its replacement},
+# {wrapper setting: {head dim: value}})
 VARIANTS = {
-    "port": {},
-    # 2^x by exp2f (a range check and two scalings around ex2.approx)
-    "exp2f": {"ex2_ftz(fmaf(": "exp2f(fmaf("},
-    # a tile's S and dP in one group, the exponentials after both
-    "one_group": {"      wgmma_commit();\n      product_ss(dp, ": "      product_ss(dp, ",
-                  "      wgmma_wait<1>();\n      fence_regs(s);":
-                      "      wgmma_wait<0>();\n      fence_regs(s);"},
-    "dkdv_3_stages": {DKDV: DKDV.replace("STAGES = 2", "STAGES = 3")},
-    "dkdv_4_stages": {DKDV: DKDV.replace("STAGES = 2", "STAGES = 4")},
-    "dq_3_stages": {DQ: DQ.replace("STAGES = 2", "STAGES = 3")},
-    "dq_128_keys": {DQ: DQ.replace("BN = 64", "BN = 128")},
-    "regs_232_40": {"constexpr int CONSUMER_REGS = 240;": "constexpr int CONSUMER_REGS = 232;",
-                    "constexpr int PRODUCER_REGS = 24;": "constexpr int PRODUCER_REGS = 40;"},
+    "port": ((64, 128, 256), {}, {}),
+    # D = 256: the dK/dV pass's query heads in one block a kv head, or up
+    # to three; dV's product deferred until dS^T is formed
+    "d256_splits_1": ((256,), {}, {"BWD_KV_SPLITS": {256: 1}}),
+    "d256_splits_3": ((256,), {}, {"BWD_KV_SPLITS": {256: 3}}),
+    "d256_defer_dv": ((256,), shape(256, "2, 240, 64, 2, true, 3, true"), {}),
+    # D = 64: two consumers at 240 registers (128 keys or rows a block)
+    # without and with dV's product deferred; three with two-stage rings
+    "d64_c2": ((64,), shape(64, "2, 240, 128, 2, false, 2, false"),
+               {"BWD_WGMMA_DKDV": {64: (128, 64, 2)}, "BWD_WGMMA_DQ": {64: (128, 64, 2)}}),
+    "d64_c2_defer_dv": ((64,), shape(64, "2, 240, 128, 2, true, 2, false"),
+                        {"BWD_WGMMA_DKDV": {64: (128, 64, 2)},
+                         "BWD_WGMMA_DQ": {64: (128, 64, 2)}}),
+    "d64_c3_2_stages": ((64,), shape(64, "3, 160, 192, 2, true, 2, false"),
+                        {"BWD_WGMMA_DKDV": {64: (192, 64, 2)},
+                         "BWD_WGMMA_DQ": {64: (192, 64, 2)}}),
+    # D = 128: dV's product deferred
+    "d128_defer_dv": ((128,), shape(128, "2, 240, 128, 2, true, 2, false"), {}),
+    # every head dim: 2^x by exp2f (a range check and two scalings around
+    # ex2.approx)
+    "exp2f": ((64, 128, 256), {"ex2_ftz(fmaf(": "exp2f(fmaf("}, {}),
 }
-SHAPES = {  # name: (b, hq, hkv, s), causal, D = 128
-    "Yi-6B (4, 2048, 32/4)": (4, 32, 4, 2048),
-    "InternVL2-2B (4, 2304, 16/8)": (4, 16, 8, 2304),
-    "Qwen3-MoE (4, 2048, 64/4)": (4, 64, 4, 2048),
+SHAPES = {  # name: (b, hq, hkv, d, sq, sk, causal, window)
+    "Yi-6B (4, 2048, 32/4)": (4, 32, 4, 128, 2048, 2048, True, 0),
+    "InternVL2-2B (4, 2304, 16/8)": (4, 16, 8, 128, 2304, 2304, True, 0),
+    "Qwen3-MoE (4, 2048, 64/4)": (4, 64, 4, 128, 2048, 2048, True, 0),
+    "RecurrentGemma-2B (4, 2048, 10/1, window 2048)": (4, 10, 1, 256, 2048, 2048, True, 2048),
+    "Whisper-medium encoder (8, 1500, 16/16)": (8, 16, 16, 64, 1500, 1500, False, 0),
+    "Whisper-medium decoder (8, 448, 16/16, causal)": (8, 16, 16, 64, 448, 448, True, 0),
+    "Whisper-medium cross (8, 448 x 1500, 16/16)": (8, 16, 16, 64, 448, 1500, False, 0),
 }
 KERNELS = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+SETTINGS = ("BWD_KV_SPLITS", "BWD_WGMMA_DKDV", "BWD_WGMMA_DQ")
+PORT = {name: dict(getattr(FA, name)) for name in SETTINGS}
+
+
+def apply(name: str) -> None:
+    """The wrapper's settings as the variant has them (the port's where it
+    changes none)."""
+    for setting in SETTINGS:
+        setattr(FA, setting, {**PORT[setting], **VARIANTS[name][2].get(setting, {})})
 
 
 def build(names) -> dict:
-    """name -> (loaded library, ptxas lines of the two wgmma kernels) of the
+    """name -> (loaded library, ptxas lines of the wgmma kernels) of the
     variants that build; any other is reported and left out."""
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     procs = {}
     for name in names:
         text = src
-        for old, new in VARIANTS[name].items():
+        for old, new in VARIANTS[name][1].items():
             if old not in text:
                 raise ValueError(f"variant {name}: {old!r} is not in the source")
             text = text.replace(old, new)
@@ -94,15 +132,18 @@ def build(names) -> dict:
             continue
         lines = log.splitlines()
         info = {}
-        for kernel in KERNELS:
-            for i, line in enumerate(lines):
-                if "Compiling entry function" in line and kernel in line:
-                    info[kernel] = " | ".join(x.strip() for x in lines[i + 1:i + 4]
-                                              if re.search(r"registers|spill", x))
-            notes = [x.strip() for x in lines if kernel in x and re.search(r"\(C75\d\d\)", x)]
-            if notes:
-                info[kernel] = info.get(kernel, "") + " | " + " | ".join(
-                    re.sub(r" in function .*", "", n) for n in notes)
+        for i, line in enumerate(lines):
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m and any(k in m.group(1) for k in KERNELS):
+                kernel = next(k for k in KERNELS if k in m.group(1))
+                d = re.search(r"ILi(\d+)E", m.group(1))
+                key = f"{kernel}<{d.group(1) if d else '?'}>"
+                info[key] = " | ".join(x.strip() for x in lines[i + 1:i + 4]
+                                       if re.search(r"registers|spill", x))
+        notes = [re.sub(r" in function .*", "", x.strip()) for x in lines
+                 if re.search(r"\(C75\d\d\)", x) and any(k in x for k in KERNELS)]
+        if notes:
+            info["notes"] = sorted(set(notes))
         lib = ctypes.CDLL(str(ROOT / "build" / "flash_bwd_sweep" / name
                               / "libflash_attention_bwd.so"))
         FA._bind_bwd(lib)
@@ -113,6 +154,7 @@ def build(names) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
+    ap.add_argument("--shapes", nargs="+", default=list(SHAPES), choices=list(SHAPES))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_bwd_sweep: no CUDA device available", file=sys.stderr)
@@ -127,34 +169,43 @@ def main() -> int:
         print(json.dumps({"variant": name, "ptxas": info}), flush=True)
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(33)
-    for label, (b, hq, hkv, s) in SHAPES.items():
+    for label in args.shapes:
+        b, hq, hkv, d, sq, sk, causal, window = SHAPES[label]
+        mine = [n for n in libs if d in VARIANTS[n][0]]
+        if not mine:
+            continue
+        mask = dict(causal=causal, window=window, q_offset=-1)
         q, k, v, dout = (torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16)
-                         for sh in ((b, hq, s, 128), (b, hkv, s, 128), (b, hkv, s, 128),
-                                    (b, hq, s, 128)))
-        out, lse = FA.flash_attention_train(q, k, v, causal=True)
+                         for sh in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
+                                    (b, hq, sq, d)))
+        out, lse = FA.flash_attention_train(q, k, v, **mask)
         args_ = (q, k, v, out, lse, dout)
-        flops, nbytes = FA.work_bwd(*args_, True, 0, -1)
+        flops, nbytes = FA.work_bwd(*args_, causal, window, -1)
         bound, by = cs._bound_ms(nbytes, flops, torch.bfloat16)
-        want = FA.attention_bwd_tiled(*args_, causal=True)
-        checks, times = {}, {n: [] for n in libs}
+        checks, times = {}, {n: [] for n in mine}
 
         def call():
-            return FA.flash_attention_bwd(*args_, causal=True)
+            return FA.flash_attention_bwd(*args_, **mask)
 
-        for name, (lib, _info) in libs.items():
-            _build._LIBS["flash_attention_bwd"] = lib
+        for name in mine:
+            _build._LIBS["flash_attention_bwd"] = libs[name][0]
+            apply(name)
             got = call()
+            want = FA.attention_bwd_tiled(*args_, **mask)
+            again = call()
             res = [cs.within(g, w, cs._bwd_tol(w, torch.bfloat16, False))
                    for g, w in zip(got, want)]
-            checks[name] = (all(r[0] for r in res), max(r[1] for r in res))
+            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            checks[name] = (all(r[0] for r in res) and same, max(r[1] for r in res))
             bad += not checks[name][0]
-            del got
-        del want
-        for order in (list(libs), list(reversed(libs))):
+            del got, want, again
+        for order in (mine, list(reversed(mine))):
             for name in order:
                 _build._LIBS["flash_attention_bwd"] = libs[name][0]
+                apply(name)
                 times[name].append(cs.device_ms(call, "flash_bwd", flush))
-        for name in libs:
+        apply("port")
+        for name in mine:
             ms = [t for t, _ in times[name] if t is not None]
             print(json.dumps({
                 "variant": name, "shape": label, "ok": checks[name][0],

@@ -39,12 +39,15 @@ Kernels and shapes:
   tree does inside it (transposed copies and the flash kernel, or the
   one-row kernel), so both trees time the same public function. Its
   ``device_ms`` sums every kernel the call launches, the copies included.
-- ``flash_bwd``: the attention backward at head dim 128 in the causal
-  training shapes of Yi-6B (4, 2048, 32/4 heads), InternVL2-2B (4, 2304:
-  2048 after a 256-token prefix, 16/8) and Qwen3-MoE (4, 2048, 64/4), from
-  the tree's own training forward's out and lse, each gradient held under
-  ``_bwd_tol`` against the tree's ``attention_bwd_tiled`` (its own dQ key
-  tile).
+- ``flash_bwd``: the attention backward in the training shapes: head dim
+  128, causal, Yi-6B (4, 2048, 32/4 heads), InternVL2-2B (4, 2304: 2048
+  after a 256-token prefix, 16/8) and Qwen3-MoE (4, 2048, 64/4); head dim
+  256, RecurrentGemma-2B (4, 2048, 10/1, window 2048); head dim 64,
+  Whisper-medium's encoder (8, 1500, 16/16, bidirectional), decoder
+  self-attention (8, 448, causal) and cross attention (448 queries over
+  1500 keys); from the tree's own training forward's out and lse, each
+  gradient held under ``_bwd_tol`` against the tree's
+  ``attention_bwd_tiled`` (its own dQ key tile).
 
 The flush is ``chip_smoke.py``'s (96 MB of zeros written, which leaves the
 L2 full of dirty lines that the kernel's reads must write back first);
@@ -177,20 +180,32 @@ def cross_read_cases(cs, att):
 
 def flash_bwd_cases(cs, fa):
     """(label, call, plain, check, bound_ms) of the attention backward at the
-    head-dim-128 training shapes, bfloat16, causal."""
+    training shapes, bfloat16: head dim 128 (Yi-6B, InternVL2-2B, Qwen3-MoE,
+    causal), 256 (RecurrentGemma-2B, window 2048) and 64 (Whisper-medium's
+    encoder, decoder self-attention and cross attention)."""
     gen = torch.Generator(device="cuda").manual_seed(33)
-    for label, (b, hq, hkv, s) in (("Yi-6B training (4, 2048, 32/4)", (4, 32, 4, 2048)),
-                                   ("InternVL2-2B training (4, 2304, 16/8)", (4, 16, 8, 2304)),
-                                   ("Qwen3-MoE training (4, 2048, 64/4)", (4, 64, 4, 2048))):
+    for label, (b, hq, hkv, d, sq, sk, causal, window) in (
+            ("Yi-6B training (4, 2048, 32/4)", (4, 32, 4, 128, 2048, 2048, True, 0)),
+            ("InternVL2-2B training (4, 2304, 16/8)", (4, 16, 8, 128, 2304, 2304, True, 0)),
+            ("Qwen3-MoE training (4, 2048, 64/4)", (4, 64, 4, 128, 2048, 2048, True, 0)),
+            ("RecurrentGemma-2B training (4, 2048, 10/1, D 256, window 2048)",
+             (4, 10, 1, 256, 2048, 2048, True, 2048)),
+            ("Whisper-medium encoder (8, 1500, 16/16, D 64, bidirectional)",
+             (8, 16, 16, 64, 1500, 1500, False, 0)),
+            ("Whisper-medium decoder (8, 448, 16/16, D 64, causal)",
+             (8, 16, 16, 64, 448, 448, True, 0)),
+            ("Whisper-medium cross (8, 448 x 1500, 16/16, D 64)",
+             (8, 16, 16, 64, 448, 1500, False, 0))):
+        mask = dict(causal=causal, window=window, q_offset=-1)
         q, k, v, dout = (torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16)
-                         for sh in ((b, hq, s, 128), (b, hkv, s, 128), (b, hkv, s, 128),
-                                    (b, hq, s, 128)))
-        out, lse = fa.flash_attention_train(q, k, v, causal=True)
+                         for sh in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
+                                    (b, hq, sq, d)))
+        out, lse = fa.flash_attention_train(q, k, v, **mask)
         args = (q, k, v, out, lse, dout)
-        flops, nbytes = fa.work_bwd(*args, True, 0, -1)
+        flops, nbytes = fa.work_bwd(*args, causal, window, -1)
         bound, _ = cs._bound_ms(nbytes, flops, torch.bfloat16)
-        yield (label, lambda: fa.flash_attention_bwd(*args, causal=True),
-               lambda: fa.attention_bwd_tiled(*args, causal=True),
+        yield (label, lambda args=args, mask=mask: fa.flash_attention_bwd(*args, **mask),
+               lambda args=args, mask=mask: fa.attention_bwd_tiled(*args, **mask),
                _grads_close(cs, torch.bfloat16), bound)
 
 
