@@ -516,7 +516,8 @@ FLASH_BWD_CASES = (
      700),
 )
 # the backward kernel's timed shapes (bfloat16; _flash_bwd_timing): each
-# train phase's attention (label, b, hq, hkv, d, sq, sk, causal, window);
+# train phase's attention and the D = 32 smoke width's (label, b, hq, hkv,
+# d, sq, sk, causal, window);
 # the first is FLASH_BWD_CASES' first, whose entry is the kernels line's.
 # The others are held against attention_bwd_tiled at FLASH_BWD_BF16: at
 # these sizes a few dq elements pass FLASH_BWD_TILED_BF16's atol (2^-6 of
@@ -535,6 +536,22 @@ FLASH_BWD_TIMED = (
      1500, False, 0),
     ("RecurrentGemma-2B training shape (D = 256, window 2048)", 4, 10, 1, 256, 2048, 2048, True,
      2048),
+    ("yi-6b-smoke widths (D = 32, 4/2 heads) at the train-check twins' (2, 512)", 2, 4, 2, 32,
+     512, 512, True, 0),
+)
+# the float32 backward's timed shapes (_flash_bwd_timing): the float32
+# train-check twins' attention at TRAIN_CHECK_SHAPE (label, b, hq, hkv, d,
+# sq, sk, causal, window): Yi-6B's (train-check, the kernels line's
+# float32 entry), RecurrentGemma-2B's (train-check-hybrid: window 2048, wider
+# than the sequence) and Whisper-medium's encoder over its 1500 frames
+# (train-check-audio, bidirectional)
+FLASH_BWD_FP32_TIMED = (
+    ("the train-check twin's shape (2, 512, 32/4 heads of 128, causal)", 2, 32, 4, 128, 512, 512,
+     True, 0),
+    ("the train-check-hybrid twin's shape (2, 512, 10/1 heads of 256, window 2048)", 2, 10, 1,
+     256, 512, 512, True, 2048),
+    ("the train-check-audio twin's encoder (2, 1500, 16/16 heads of 64, bidirectional)", 2, 16,
+     16, 64, 1500, 1500, False, 0),
 )
 # train-check: Yi-6B widths cut to TRAIN_CHECK_LAYERS layers, float32,
 # (batch, seq), TRAIN_CHECK_STEPS steps, grad_clip 1.0, per optimizer lr,
@@ -949,7 +966,8 @@ def phase_kernels():
         bound_by=by, library_ms=lib_ms)
     del q, k, v, ke, ve
     results["flash_attention_train"] = flash_train_cases(flush, plain_flash)
-    results["flash_attention_bwd"] = flash_bwd_cases(flush)
+    results["flash_attention_train_fp32"] = flash_fp32_train_timing(flush)
+    results.update(flash_bwd_cases(flush))
     results["flash_attention_d256"] = flash_hybrid_cases(flush, plain_flash)
     results["paged_decode_attention_g10_d256"] = paged_hybrid_cases(flush)
     results.update(moe_kernel_cases(flush, plain_flash))
@@ -1058,6 +1076,58 @@ def flash_train_cases(flush, plain_flash) -> dict:
                              bound_ms=bound, bound_by=by, library_ms=lib_ms)
             del q, k, v
     return entry
+
+
+def flash_fp32_train_timing(flush) -> dict:
+    """The float32 training forward (``flash_attention_train``, the float32
+    path of csrc/flash_attention.cu) at the train-check twin's attention
+    shape, Yi-6B's 32/4 heads of 128 at TRAIN_CHECK_SHAPE, causal: its
+    output bit for bit the serving op's, out and lse against the plain
+    training forward at FP32_TOL; events, profiler device time, the plain
+    training forward, SDPA in float32 on expanded K/V (a yardstick, never
+    called by the port) and the bound (the smaller of float32's and
+    3xTF32's). Returns its kernels-line entry."""
+    b, s = TRAIN_CHECK_SHAPE
+    hq, hkv, d = 32, 4, 128
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    q = torch.randn((b, hq, s, d), generator=gen, device="cuda")
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device="cuda") for _ in range(2))
+    name = f"flash_train float32 train-check shape ({b}, {s}, {hq}/{hkv} heads of {d}, causal)"
+    out, lse = FA.flash_attention_train(q, k, v, causal=True)
+    if not torch.equal(out, FA.flash_attention(q, k, v, causal=True)):
+        fail(f"{name}: the training op's output is not the serving op's")
+    plain_out, plain_lse = FA.flash_attention_train_torch(q, k, v, causal=True)
+    err = check_close(f"{name} out", out, plain_out, FP32_TOL)
+    check_close(f"{name} lse", lse, plain_lse, FP32_TOL)
+    del out, lse, plain_out, plain_lse
+
+    def train():
+        return FA.flash_attention_train(q, k, v, causal=True)
+
+    ms = cuda_ms(train, flush=flush)
+    dev_ms, names = device_ms(train, "flash", flush)
+    plain_ms = cuda_ms(lambda: FA.flash_attention_train_torch(q, k, v, causal=True), reps=5,
+                       flush=flush)
+    ke, ve = k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True),
+                     flush=flush)
+    lib_names = traced_kernels(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True),
+                               flush=flush)
+    del ke, ve
+    flops, nbytes = FA.work_train(q, k, v, True, 0, -1)
+    bound, by = _bound_ms(nbytes, flops, torch.float32, tf32x3=True)
+    def listed(times):
+        return ", ".join(f"{_short(n)} {t:.4f}" for n, t in times.items()) or "no events"
+
+    print(f"  {name} timing: kernel {ms:.4f} ms by events ({_tflops(flops, ms)}), device time "
+          f"{_dev(dev_ms)} ({listed(names)}); plain training forward {plain_ms:.3f} ms; "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms ({listed(lib_names)}); bound "
+          f"{bound:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP)")
+    return dict(name="flash_attention_train_fp32", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:116", max_abs_err=err, ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
 
 
 def flash_hybrid_cases(flush, plain_flash) -> dict:
@@ -1498,10 +1568,14 @@ def flash_bwd_cases(flush) -> dict:
     the others held against ``attention_bwd_tiled`` at FLASH_BWD_BF16
     first): events, profiler device time, the plain rule,
     scaled_dot_product_attention's backward on expanded K/V (a yardstick,
-    never called by the port) and the bound from ``work_bwd``. Returns
-    Yi-6B's kernels-line entry."""
+    never called by the port) and the bound from ``work_bwd``; the same in
+    float32 at each shape of FLASH_BWD_FP32_TIMED (the float32 train-check
+    twins' attention), held against the plain rule at FP32_TOL first.
+    Returns the kernels-line entries: ``flash_attention_bwd`` (bfloat16 at
+    Yi-6B's shape) and ``flash_attention_bwd_fp32`` (float32 at the
+    train-check twin's)."""
     gen = torch.Generator(device="cuda").manual_seed(61)
-    entry = None
+    entries = {}
     for name, b, hq, hkv, d, sq, sk, causal, window, off in FLASH_BWD_CASES:
         mask = dict(causal=causal, window=window, q_offset=off)
         qpos = (sk - sq if off < 0 else off) + torch.arange(sq, device="cuda")
@@ -1551,7 +1625,7 @@ def flash_bwd_cases(flush) -> dict:
             del got
             torch.cuda.empty_cache()
             if name == FLASH_BWD_TIMED[0][0] and dtype == torch.bfloat16:
-                entry = _flash_bwd_timing(args, mask, max(errs), flush)
+                entries["flash_attention_bwd"] = _flash_bwd_timing(args, mask, max(errs), flush)
             del q, k, v, dout, out, lse, args
     for name, b, hq, hkv, d, sq, sk, causal, window in FLASH_BWD_TIMED[1:]:
         mask = dict(causal=causal, window=window, q_offset=-1)
@@ -1573,22 +1647,23 @@ def flash_bwd_cases(flush) -> dict:
         _flash_bwd_timing(args, mask, max(errs), flush)
         del q, k, v, dout, out, lse, args
         torch.cuda.empty_cache()
-    # float32 (the CUDA-core passes) at the train-check twins' attention
-    # shape: Yi-6B's 32/4 heads of 128 at TRAIN_CHECK_SHAPE, causal
-    b, s = TRAIN_CHECK_SHAPE
-    mask = dict(causal=True, window=0, q_offset=-1)
-    q, dout = (torch.randn((b, 32, s, 128), generator=gen, device="cuda") for _ in range(2))
-    k, v = (torch.randn((b, 4, s, 128), generator=gen, device="cuda") for _ in range(2))
-    out, lse = FA.flash_attention_train(q, k, v, **mask)
-    args = (q, k, v, out, lse, dout)
-    errs = [check_close(f"flash_bwd float32 train-check shape {gname} vs the plain rule", g, w,
-                        FP32_TOL)
-            for gname, g, w in zip(("dq", "dk", "dv"), FA.flash_attention_bwd(*args, **mask),
-                                   FA.attention_bwd_torch(*args, **mask))]
-    print(f"  float32 at the train-check twins' shape ({b}, {s}), 32/4 heads of 128, causal:")
-    _flash_bwd_timing(args, mask, max(errs), flush)
-    del q, k, v, dout, out, lse, args
-    torch.cuda.empty_cache()
+    # float32 (the 3xTF32 passes) at the float32 train-check twins' attention
+    # shapes, the first (Yi-6B's) the kernels line's float32 entry
+    for name, b, hq, hkv, d, sq, sk, causal, window in FLASH_BWD_FP32_TIMED:
+        mask = dict(causal=causal, window=window, q_offset=-1)
+        q, dout = (torch.randn((b, hq, sq, d), generator=gen, device="cuda") for _ in range(2))
+        k, v = (torch.randn((b, hkv, sk, d), generator=gen, device="cuda") for _ in range(2))
+        out, lse = FA.flash_attention_train(q, k, v, **mask)
+        args = (q, k, v, out, lse, dout)
+        errs = [check_close(f"flash_bwd float32 {name} {gname} vs the plain rule", g, w,
+                            FP32_TOL)
+                for gname, g, w in zip(("dq", "dk", "dv"), FA.flash_attention_bwd(*args, **mask),
+                                       FA.attention_bwd_torch(*args, **mask))]
+        print(f"  float32 at {name}:")
+        timed = _flash_bwd_timing(args, mask, max(errs), flush, "flash_attention_bwd_fp32")
+        entries.setdefault("flash_attention_bwd_fp32", timed)
+        del q, k, v, dout, out, lse, args
+        torch.cuda.empty_cache()
     flash_bwd_kernel_names()
     q = torch.zeros((1, 4, 64, 96), device="cuda", dtype=torch.bfloat16)
     kv = torch.zeros((1, 2, 64, 96), device="cuda", dtype=torch.bfloat16)
@@ -1602,7 +1677,7 @@ def flash_bwd_cases(flush) -> dict:
             print(f"  flash_bwd {what}: raises ({e})")
         else:
             fail(f"flash_bwd {what}: the kernel took a shape it is not built for")
-    return entry
+    return entries
 
 
 def flash_bwd_kernel_names() -> None:
@@ -1611,7 +1686,7 @@ def flash_bwd_kernel_names() -> None:
     configuration); fails where a traced call ran another dK/dV or dQ
     kernel than the ones the source dispatches to (``FA.bwd_kernel_names``:
     bfloat16 at D = 64, 128 and 256 the TMA + wgmma passes, at D = 32
-    mma.sync, float32 the CUDA-core passes)."""
+    mma.sync, float32 the 3xTF32 passes at every head dim)."""
     gen = torch.Generator(device="cuda").manual_seed(62)
     took = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -1631,10 +1706,12 @@ def flash_bwd_kernel_names() -> None:
     print("  flash_bwd kernels by head dim (profiler): " + "; ".join(took))
 
 
-def _flash_bwd_timing(args, mask, err, flush) -> dict:
-    """The backward kernel at one shape (bfloat16): events, profiler device
-    time, the plain rule, scaled_dot_product_attention's backward on K/V
-    expanded to every head, and the bound; its kernels-line entry."""
+def _flash_bwd_timing(args, mask, err, flush, entry_name: str = "flash_attention_bwd") -> dict:
+    """The backward kernel at one shape: events, profiler device time, the
+    plain rule, scaled_dot_product_attention's backward on K/V expanded to
+    every head, and the bound (in float32 the smaller of float32's and
+    3xTF32's: the card's least time for the same products); its
+    kernels-line entry under ``entry_name``."""
     q, k, v, out, lse, dout = args
     g = q.shape[1] // k.shape[1]
 
@@ -1657,14 +1734,15 @@ def _flash_bwd_timing(args, mask, err, flush) -> dict:
                      flush=flush)
     del o, qe, ke, ve
     flops, nbytes = FA.work_bwd(*args, mask["causal"], mask["window"], mask["q_offset"])
-    bound, by = _bound_ms(nbytes, flops, q.dtype)
-    print(f"  flash_bwd timing, {tuple(q.shape)} q, {tuple(k.shape)} k/v: kernel {ms:.4f} ms by "
+    bound, by = _bound_ms(nbytes, flops, q.dtype, tf32x3=True)
+    print(f"  flash_bwd timing, {str(q.dtype)[6:]} {tuple(q.shape)} q, {tuple(k.shape)} k/v: "
+          f"kernel {ms:.4f} ms by "
           f"events ({_tflops(flops, ms)}), device time {_dev(dev_ms)} ("
           f"{', '.join(f'{_short(n)} {t:.4f}' for n, t in names.items()) or 'no events'}); "
           f"plain rule {plain_ms:.3f} ms; scaled_dot_product_attention's backward "
           f"{lib_ms:.4f} ms ({_tflops(flops, lib_ms)}); bound {bound:.4f} ms ({by}; "
           f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
-    return dict(name="flash_attention_bwd", route="cuda",
+    return dict(name=entry_name, route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                 replaces="src/repro/kernels/flash_attention.py:116", max_abs_err=err, ms=ms,
                 device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
@@ -4033,7 +4111,10 @@ def _same_trajectory(label, opt, got, want, lr=None) -> None:
           f"error {max_err:.2e}, error RMS / RMS {max_rms:.2e}")
 
 
-def phase_train_check() -> None:
+def phase_train_check() -> dict:
+    """Yi-6B's float32 twin (see the phase title); returns the launches of
+    the float32 training forward and backward in its kernel-path runs, the
+    kernels line's float32 entries' main path."""
     b, s = TRAIN_CHECK_SHAPE
     phase(f"train-check: Yi-6B widths, {TRAIN_CHECK_LAYERS} layers, float32, batch {b}, seq "
           f"{s}, {TRAIN_CHECK_STEPS} steps, sgd and adam, grad_clip 1.0: the flash kernel's "
@@ -4046,8 +4127,11 @@ def phase_train_check() -> None:
     print(f"  plan: {plan.strategy.value}, opt state {plan.opt_state_dtype}, remat "
           f"{plan.remat}, microbatches {plan.microbatches}")
     init = trainable_params(model, SEED)
+    counts = {"flash_attention_train_fp32": 0, "flash_attention_bwd_fp32": 0}
     for opt in ("sgd", "adam"):
         kern = _train_run(model, cfg, plan, opt, shape, init)
+        counts["flash_attention_train_fp32"] += kern[2]["flash_attention_train"]
+        counts["flash_attention_bwd_fp32"] += kern[2]["flash_attention_bwd"]
         runs = {"plain": (plan, "torch"), "microbatches 2": (plan.replace(microbatches=2), "auto"),
                 "remat off": (plan.replace(remat=False), "auto")}
         per_step = TRAIN_CHECK_LAYERS * (1 + plan.remat)
@@ -4067,12 +4151,16 @@ def phase_train_check() -> None:
             if got != want:
                 fail(f"train-check {opt} {label}: {got} launches, expected {want}")
             check_bwd_launches(f"train-check {opt} {label}", other[2], want, p.remat)
+            counts["flash_attention_train_fp32"] += got
+            counts["flash_attention_bwd_fp32"] += other[2]["flash_attention_bwd"]
             _same_trajectory(f"{opt}, kernel path vs {label} ({got} launches)", opt,
                              kern, other)
             del other
         del kern
     del init, model
     gc.collect()
+    print(f"  float32 launches in this phase's kernel-path runs: {counts}")
+    return counts
     torch.cuda.empty_cache()
 
 
@@ -5953,7 +6041,7 @@ def main() -> int:
     phase_serve_check_audio()
     launches.update(phase_serve_audio())
     phase_analysis()
-    phase_train_check()
+    launches.update(phase_train_check())
     launches.update(phase_train())
     for family in ("ssm", "hybrid"):
         phase_train_check_recurrent(family)
@@ -5977,6 +6065,7 @@ def main() -> int:
                                   "paged_decode_attention_g10_d256", "rglru_scan",
                                   "flash_attention_train", "ssd_scan_train", "ssd_scan_bwd",
                                   "rglru_scan_train", "rglru_scan_bwd", "flash_attention_bwd",
+                                  "flash_attention_bwd_fp32", "flash_attention_train_fp32",
                                   "flash_attention_g16",
                                   "paged_decode_attention_g16", "flash_attention_d64",
                                   "flash_decode",

@@ -83,46 +83,40 @@
 //   synchronously; each warp keeps its Q fragments in registers, K and V
 //   reach the MMAs through ldmatrix (V transposed on the fly), and the
 //   scores become the P operand in registers. Same exp2 softmax.
-// - float32 (flash_fp32_kernel): the CUDA cores. Each of the 128 threads
-//   owns an 8 x 4 block of the score tile and an 8 x D/16 block of the
-//   output; K is stored transposed so the score loop reads it with 16-byte
-//   loads.
+// - float32 (flash_tf32x3_kernel<D>): 3xTF32 on mma.sync m16n8k8 through
+//   tf32x3_frag.cuh (each operand split into a TF32 hi and lo as its
+//   fragment is read; lo.hi and hi.lo into a second accumulator, hi.hi into
+//   the main one, summed at the end of each product), 8 warps a block,
+//   64-key tiles through a cp.async ring of swizzled float32 tiles (ff::Shape<D>).
+//   Up to D = 128: 128-row query tiles of 8 warps x 16 rows, two stages; a
+//   warp's S = Q.K^T stays in registers for the exp2 online softmax
+//   (softmax_row, exp2f), and P goes through its rows of a shared tile into
+//   O += P.V, 32 output columns at a time, each chunk's product from zero
+//   and added into O (scaled by alpha) in float32, so O's sum over the key
+//   tiles never runs through the tensor cores' own accumulation. At D = 256
+//   a warp's 16 x 256 output would take 128 registers a thread (it spilled):
+//   64-row tiles, each row group's two warps computing S over half the keys
+//   and O over half the columns, the pair exchanging each row's max and
+//   sum through shared memory; one stage. The serving and the training op
+//   run the same kernel, so their outputs are equal bit for bit.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "hopper_wgmma.cuh"
+#include "tf32x3_frag.cuh"
 
 namespace {
 
-constexpr int BQ = 64;                 // query rows per block (fp32, mma.sync)
-constexpr int BK = 64;                 // keys per kv tile (fp32, mma.sync)
-constexpr int NT = 128;                // threads per block (fp32, mma.sync)
-constexpr int KTP = BK + 4;            // padded row of the transposed K tile
+constexpr int BQ = 64;                 // query rows per block (bf16 mma.sync)
+constexpr int BK = 64;                 // keys per kv tile (bf16 mma.sync)
+constexpr int NT = 128;                // threads per block (bf16 mma.sync)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-template <int D>
-constexpr int smem_floats() {
-  return BQ * D + (D * KTP > BK * D ? D * KTP : BK * D) + BQ * BK;
-}
-
-// half-warp reductions: the 16 threads sharing one row group are
-// consecutive lanes, so xor offsets below 16 stay inside the group
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // the first and last kv tile a query range [qlo, qhi] can see (absolute
 // positions), tiles of bk keys; the range is empty when begin >= end
@@ -133,168 +127,6 @@ __device__ __forceinline__ void kv_range(int qlo, int qhi, int sk, int causal, i
   begin = 0;
   if (window > 0) begin = max(0, qlo - window + 1);
   begin = (begin / bk) * bk;
-}
-
-// ---------------------------------------------------------------------------
-// float32: CUDA cores
-// ---------------------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_fp32_kernel(const float* __restrict__ q,   // (B, Hq, Sq, D)
-                  const float* __restrict__ k,   // (B, Hkv, Sk, D)
-                  const float* __restrict__ v,   // (B, Hkv, Sk, D)
-                  float* __restrict__ out,       // (B, Hq, Sq, D)
-                  float* __restrict__ lse,       // (B, Hq, Sq) or null
-                  int hq, int hkv, int sq, int sk, int causal, int window,
-                  int q_offset, float scale) {
-  constexpr int DC = D / 16;           // output columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                   // BQ x D, pre-scaled
-  float* kv_s = q_s + BQ * D;          // K^T (D x KTP), then V (BK x D)
-  float* p_s = kv_s + (D * KTP > BK * D ? D * KTP : BK * D);  // BQ x BK
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;             // row group: rows ty*8 .. ty*8+7
-  const int tx = tid & 15;             // score cols tx*4.., output cols tx+16j
-  const int bh = blockIdx.y;
-  const int b = bh / hq;
-  const int h = bh - b * hq;
-  const int g = hq / hkv;
-  const int q0 = blockIdx.x * BQ;
-
-  const float* qb = q + (size_t)bh * sq * D;
-  const size_t kv_head = (size_t)b * hkv + h / g;
-  const float* kb = k + kv_head * sk * D;
-  const float* vb = v + kv_head * sk * D;
-
-  for (int e = tid; e < BQ * D; e += NT) {
-    const int r = e / D;
-    const int c = e - r * D;
-    q_s[e] = (q0 + r < sq) ? qb[(size_t)(q0 + r) * D + c] * scale : 0.f;
-  }
-
-  float o[8][DC];
-  float m[8], l[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) o[i][j] = 0.f;
-  }
-
-  int kv_begin, kv_end;
-  kv_range(q_offset + q0, q_offset + min(q0 + BQ, sq) - 1, sk, causal, window, BK, kv_begin,
-           kv_end);
-
-  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // previous tile's P.V done before kv_s is overwritten
-    for (int e = tid; e < BK * D; e += NT) {
-      const int c = e / D;
-      const int dd = e - c * D;
-      kv_s[dd * KTP + c] = (k0 + c < sk) ? kb[(size_t)(k0 + c) * D + dd] : 0.f;
-    }
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
-#pragma unroll 4
-    for (int dd = 0; dd < D; dd += 4) {
-      float kk[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 t = *reinterpret_cast<const float4*>(&kv_s[(dd + j) * KTP + tx * 4]);
-        kk[j][0] = t.x; kk[j][1] = t.y; kk[j][2] = t.z; kk[j][3] = t.w;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 qq = *reinterpret_cast<const float4*>(&q_s[(ty * 8 + i) * D + dd]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float a = s[i][c];
-          a = fmaf(qq.x, kk[0][c], a);
-          a = fmaf(qq.y, kk[1][c], a);
-          a = fmaf(qq.z, kk[2][c], a);
-          a = fmaf(qq.w, kk[3][c], a);
-          s[i][c] = a;
-        }
-      }
-    }
-    __syncthreads();  // everyone is done reading K before V replaces it
-
-    for (int e = tid; e < BK * D; e += NT) {
-      const int c = e / D;
-      kv_s[e] = (k0 + c < sk) ? vb[(size_t)k0 * D + e] : 0.f;
-    }
-
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int qpos = q_offset + q0 + ty * 8 + i;
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kpos = k0 + tx * 4 + c;
-        ok[c] = kpos < sk && (!causal || kpos <= qpos) && (window <= 0 || kpos > qpos - window);
-        if (!ok[c]) s[i][c] = kNegInf;
-        mx = fmaxf(mx, s[i][c]);
-      }
-      const float m_new = fmaxf(m[i], group_max(mx));
-      float p[4];
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        p[c] = ok[c] ? expf(s[i][c] - m_new) : 0.f;
-        sum += p[c];
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + group_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DC; ++j) o[i][j] *= alpha;
-      // P is already in V's dtype (float32)
-      *reinterpret_cast<float4*>(&p_s[(ty * 8 + i) * BK + tx * 4]) =
-          make_float4(p[0], p[1], p[2], p[3]);
-    }
-    __syncthreads();  // V tile and P tile complete
-
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float pp[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 t = *reinterpret_cast<const float4*>(&p_s[(ty * 8 + i) * BK + c]);
-        pp[i][0] = t.x; pp[i][1] = t.y; pp[i][2] = t.z; pp[i][3] = t.w;
-      }
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-        for (int j = 0; j < DC; ++j) {
-          const float vv = kv_s[(c + cc) * D + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) o[i][j] = fmaf(pp[i][cc], vv, o[i][j]);
-        }
-      }
-    }
-  }
-
-  float* ob = out + (size_t)bh * sq * D;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = q0 + ty * 8 + i;
-    if (r < sq) {
-      const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-#pragma unroll
-      for (int j = 0; j < DC; ++j) ob[(size_t)r * D + tx + 16 * j] = o[i][j] * inv;
-      // q was pre-scaled: m is the row's largest scaled score
-      if (lse != nullptr && tx == 0)
-        lse[(size_t)bh * sq + r] = l[i] == 0.f ? kNegInf : m[i] + logf(l[i]);
-    }
-  }
 }
 
 // Key e of the scores a thread holds of one row: k0 + 8 (e / 2) + col0 +
@@ -358,6 +190,259 @@ __device__ __forceinline__ float softmax_row(float (&s)[N], float& ms, float& l,
 // scale - ms * ln(2)); -1e30 for a row with no unmasked key (l == 0).
 __device__ __forceinline__ float row_lse(float ms, float l) {
   return l == 0.f ? kNegInf : ms * kLn2 + logf(l);
+}
+
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 on mma.sync m16n8k8
+// ---------------------------------------------------------------------------
+
+namespace ff {
+
+constexpr int THREADS = 256;   // 8 warps
+
+// Per head dim: keys a tile, K/V ring stages, and the parts over which a
+// row group's keys and output columns are divided. The block's 8 warps are
+// 8 / PARTS row groups of 16 query rows times PARTS parts: with PARTS = 2
+// (D = 256, where a warp's 16 x 256 output would take 128 registers a
+// thread and spilled) each warp of a pair computes S for its half of the
+// tile's keys and O for its half of the columns, the pair exchanging each
+// row's max and sum through shared memory. Two parts at D = 64 and 128
+// ran level and slower on the card.
+template <int BN_, int STAGES_, int PARTS_>
+struct ShapeOf {
+  static constexpr int BN = BN_, STAGES = STAGES_, PARTS = PARTS_;
+};
+template <int D> struct Shape;
+template <> struct Shape<32> : ShapeOf<64, 2, 1> {};
+template <> struct Shape<64> : ShapeOf<64, 2, 1> {};
+template <> struct Shape<128> : ShapeOf<64, 2, 1> {};
+template <> struct Shape<256> : ShapeOf<64, 1, 2> {};
+
+// shared memory: the Q tile, the ring's K and V tiles, P (each row group
+// its 16 rows) and, with PARTS > 1, each part's row maxima and sums
+template <int D>
+struct Layout {
+  using S = Shape<D>;
+  static constexpr int BN = S::BN, STAGES = S::STAGES, PARTS = S::PARTS;
+  static constexpr int CN = 32;           // output columns a P.V chunk
+  static constexpr int GROUPS = 8 / PARTS, BM = 16 * GROUPS;
+  static constexpr int KW = BN / PARTS;   // keys of a warp's S piece
+  static constexpr int OW = D / PARTS;    // output columns a warp accumulates
+  static constexpr int STATS = PARTS > 1 ? 2 * PARTS * BM : 0;
+  static constexpr int SMEM_BYTES = 4 * (BM * D + STAGES * 2 * BN * D + BM * BN + STATS);
+  static_assert(GROUPS * PARTS == 8 && D % 32 == 0 && BN % 32 == 0 && KW % 8 == 0 &&
+                    OW % CN == 0 && CN % 8 == 0,
+                "32-float rows, 32-deep product steps, chunks of 8-column n-tiles");
+  static_assert(SMEM_BYTES <= 232448, "the float32 forward's shared memory is past the limit");
+};
+
+// the PARTS warps of row group grp meet (named barrier 1 + grp)
+template <int PARTS>
+__device__ __forceinline__ void group_sync(int grp) {
+  if constexpr (PARTS == 1)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "n"(32 * PARTS) : "memory");
+}
+
+}  // namespace ff
+
+// Block: query rows [q0, q0 + BM) of (batch row, query head) bh, Q loaded
+// once; K and V tiles of BN keys through a STAGES-deep cp.async ring. Warp
+// w is row group w % GROUPS (16 rows) and part w / GROUPS: per tile S =
+// Q.K^T (3xTF32) for its rows and the part's KW keys, the exp2 online
+// softmax (softmax_row's steps, exp2f; with PARTS > 1 each row's max and
+// sum summed over the parts in order, so every part holds the same
+// running max and sum), P stored to its rows of a shared tile, then O =
+// alpha O + P.V (3xTF32) for the part's OW columns, CN at a time, each
+// chunk's product from zero, added into O scaled by alpha in float32. The
+// output and lse are written as the other paths write them.
+template <int D>
+__global__ void __launch_bounds__(ff::THREADS, 1)
+flash_tf32x3_kernel(const float* __restrict__ q,   // (B, Hq, Sq, D)
+                    const float* __restrict__ k,   // (B, Hkv, Sk, D)
+                    const float* __restrict__ v,   // (B, Hkv, Sk, D)
+                    float* __restrict__ out,       // (B, Hq, Sq, D)
+                    float* __restrict__ lse,       // (B, Hq, Sq) or null
+                    int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
+                    float c) {                     // scale * log2(e)
+  using L = ff::Layout<D>;
+  using repro_tf32x3::at;
+  constexpr int BM = L::BM, BN = L::BN, STAGES = L::STAGES, CN = L::CN, PARTS = L::PARTS;
+  constexpr int KW = L::KW, OW = L::OW, CH = OW / CN;
+  extern __shared__ __align__(16) float smem_ff[];
+  float* q_s = smem_ff;                       // BM x D
+  float* ring = q_s + BM * D;                 // per stage: K, V (BN x D)
+  float* p_s = ring + STAGES * 2 * BN * D;    // BM x BN
+  float* mx_s = p_s + BM * BN;                // PARTS x BM row maxima, then sums
+  float* sum_s = mx_s + PARTS * BM;
+
+  // under a causal or window mask, heads vary fastest and query tiles go
+  // longest first; without one, a head's query tiles run together
+  const bool by_head = causal || window > 0;
+  const int bh = by_head ? blockIdx.x : blockIdx.y;
+  const int tile = by_head ? blockIdx.y : blockIdx.x;
+  const int q0 = (by_head ? gridDim.y - 1 - tile : tile) * BM;
+  const int b = bh / hq;
+  const size_t kvh = (size_t)b * hkv + (bh - b * hq) / (hq / hkv);
+  int kv_begin, kv_end;
+  kv_range(q_offset + q0, q_offset + min(q0 + BM, sq) - 1, sk, causal, window, BN, kv_begin,
+           kv_end);
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BN - 1) / BN : 0;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp % L::GROUPS, prt = warp / L::GROUPS;
+  const int r0 = q0 + 16 * grp;               // this warp's rows
+  const int row0 = r0 + lane / 4;             // this thread's: row0, row0 + 8
+  const int col0 = 2 * (lane % 4);
+  // the keys rows r0 .. r_last see: [q_offset + r0 - window + 1, q_offset
+  // + r_last] under the window and the causal mask
+  const int r_last = min(r0 + 16, sq) - 1;
+  const int see_lo = window > 0 ? q_offset + r0 - window + 1 : INT_MIN;
+  const int see_hi = causal ? q_offset + r_last : INT_MAX;
+
+  auto issue = [&](int it) {
+    float* st = ring + (it % STAGES) * 2 * BN * D;
+    const int k0 = kv_begin + it * BN;
+    repro_tf32x3::load_tile<D, BN, ff::THREADS>(st, k + kvh * sk * D, k0, sk);
+    repro_tf32x3::load_tile<D, BN, ff::THREADS>(st + BN * D, v + kvh * sk * D, k0, sk);
+  };
+  repro_tf32x3::load_tile<D, BM, ff::THREADS>(q_s, q + (size_t)bh * sq * D, q0, sq);
+  if (n_tiles > 0) issue(0);
+  repro_tf32x3::cp_async_commit();
+
+  float o[CH][CN / 8][4];
+#pragma unroll
+  for (int ch = 0; ch < CH; ++ch)
+#pragma unroll
+    for (int n = 0; n < CN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[ch][n][e] = 0.f;
+  float ms[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    repro_tf32x3::cp_async_wait<0>();
+    __syncthreads();   // tile it has landed; every warp is done with tile it - 1
+    if (STAGES > 1 && it + 1 < n_tiles) issue(it + 1);
+    repro_tf32x3::cp_async_commit();
+    const float* kt = ring + (it % STAGES) * 2 * BN * D;
+    const float* vt = kt + BN * D;
+    const int k0 = kv_begin + it * BN;
+    const int kw0 = k0 + prt * KW;            // this warp's keys
+    // the row group's parts take this branch together
+    if (r0 <= r_last && k0 <= see_hi && min(k0 + BN, sk) - 1 >= see_lo) {
+      float s[KW / 8][4];
+      if (kw0 <= see_hi && min(kw0 + KW, sk) - 1 >= see_lo && kw0 < sk) {
+        repro_tf32x3::product<KW / 8, D, D, D, false>(s, q_s, 16 * grp, kt, prt * KW, lane);
+      } else {
+#pragma unroll
+        for (int n = 0; n < KW / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      }
+      float alpha[2];
+      float row[2][KW / 4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < KW / 8; ++n) {
+          row[i][2 * n] = s[n][2 * i];
+          row[i][2 * n + 1] = s[n][2 * i + 1];
+        }
+      if constexpr (PARTS == 1) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const KeyMask ok{kw0, col0, q_offset + row0 + 8 * i, sk, causal, window};
+          alpha[i] = softmax_row<KW / 4, true>(row[i], ms[i], l[i], c, ok);
+        }
+      } else {
+        // softmax_row's steps with each row's max and sum over the parts
+        float mx[2], sum[2], ms_new[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const KeyMask ok{kw0, col0, q_offset + row0 + 8 * i, sk, causal, window};
+          mx[i] = kNegInf;
+#pragma unroll
+          for (int e = 0; e < KW / 4; ++e) {
+            if (!ok(e)) row[i][e] = kNegInf;
+            mx[i] = fmaxf(mx[i], row[i][e]);
+          }
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          if (lane % 4 == 0) mx_s[prt * BM + 16 * grp + lane / 4 + 8 * i] = mx[i];
+        }
+        ff::group_sync<PARTS>(grp);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const KeyMask ok{kw0, col0, q_offset + row0 + 8 * i, sk, causal, window};
+          float m_all = mx_s[16 * grp + lane / 4 + 8 * i];
+#pragma unroll
+          for (int pt = 1; pt < PARTS; ++pt)
+            m_all = fmaxf(m_all, mx_s[pt * BM + 16 * grp + lane / 4 + 8 * i]);
+          ms_new[i] = fmaxf(ms[i], m_all * c);
+          sum[i] = 0.f;
+#pragma unroll
+          for (int e = 0; e < KW / 4; ++e) {
+            const float p = exp2f(fmaf(row[i][e], c, -ms_new[i]));
+            row[i][e] = ok(e) ? p : 0.f;
+            sum[i] += row[i][e];
+          }
+          sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+          sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+          if (lane % 4 == 0) sum_s[prt * BM + 16 * grp + lane / 4 + 8 * i] = sum[i];
+        }
+        ff::group_sync<PARTS>(grp);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float tot = sum_s[16 * grp + lane / 4 + 8 * i];
+#pragma unroll
+          for (int pt = 1; pt < PARTS; ++pt) tot += sum_s[pt * BM + 16 * grp + lane / 4 + 8 * i];
+          alpha[i] = exp2f(ms[i] - ms_new[i]);
+          l[i] = alpha[i] * l[i] + tot;
+          ms[i] = ms_new[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < KW / 8; ++n)
+          *reinterpret_cast<float2*>(
+              p_s + at<BN>(16 * grp + lane / 4 + 8 * i, prt * KW + 8 * n + col0)) =
+              make_float2(row[i][2 * n], row[i][2 * n + 1]);
+      ff::group_sync<PARTS>(grp);   // the row group's P rows are whole
+#pragma unroll
+      for (int ch = 0; ch < CH; ++ch) {
+        float m[CN / 8][4];
+        repro_tf32x3::product<CN / 8, BN, BN, D, true>(m, p_s, 16 * grp, vt, prt * OW + CN * ch,
+                                                       lane);
+#pragma unroll
+        for (int n = 0; n < CN / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[ch][n][e] = fmaf(o[ch][n][e], alpha[e >> 1], m[n][e]);
+      }
+    }
+    if (STAGES == 1 && it + 1 < n_tiles) {
+      __syncthreads();   // every warp is done with the stage
+      issue(it + 1);
+      repro_tf32x3::cp_async_commit();
+    }
+  }
+  repro_tf32x3::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 8 * i;
+    if (r < sq) {
+      const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+      float* orow = out + ((size_t)bh * sq + r) * D + prt * OW + col0;
+#pragma unroll
+      for (int ch = 0; ch < CH; ++ch)
+#pragma unroll
+        for (int n = 0; n < CN / 8; ++n)
+          *reinterpret_cast<float2*>(orow + CN * ch + 8 * n) =
+              make_float2(o[ch][n][2 * i] * inv, o[ch][n][2 * i + 1] * inv);
+      if (lse != nullptr && prt == 0 && lane % 4 == 0)
+        lse[(size_t)bh * sq + r] = row_lse(ms[i], l[i]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1157,18 +1242,20 @@ flash_decode_kernel(const T* __restrict__ q,        // (B, Hkv * g, D)
 // ---------------------------------------------------------------------------
 
 template <int D>
-cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* out, float* lse,
-                        int batch, int hq, int hkv, int sq, int sk, int causal, int window,
-                        int q_offset, float scale, cudaStream_t stream) {
-  const int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(flash_fp32_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* out, float* lse,
+                          int batch, int hq, int hkv, int sq, int sk, int causal, int window,
+                          int q_offset, float scale, cudaStream_t stream) {
+  using L = ff::Layout<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_tf32x3_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         L::SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + BQ - 1) / BQ, batch * hq);
-  flash_fp32_kernel<D><<<grid, NT, bytes, stream>>>(
+  const int tiles = (sq + L::BM - 1) / L::BM;
+  const dim3 grid = causal || window > 0 ? dim3(batch * hq, tiles) : dim3(tiles, batch * hq);
+  flash_tf32x3_kernel<D><<<grid, ff::THREADS, L::SMEM_BYTES, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, hq, hkv, sq, sk, causal,
-      window, q_offset, scale);
+      window, q_offset, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -1221,8 +1308,8 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
                    float* lse, int batch, int hq, int hkv, int sq, int sk, int causal, int window,
                    int q_offset, float scale, cudaStream_t s) {
   if (dtype == 0)
-    return launch_fp32<D>(q, k, v, out, lse, batch, hq, hkv, sq, sk, causal, window, q_offset,
-                          scale, s);
+    return launch_tf32x3<D>(q, k, v, out, lse, batch, hq, hkv, sq, sk, causal, window,
+                            q_offset, scale, s);
   if (dtype != 1) return cudaErrorInvalidValue;
   if constexpr (D >= 64)
     return launch_wgmma<D>(q, k, v, out, lse, batch, hq, hkv, sq, sk, causal, window, q_offset,
@@ -1324,7 +1411,7 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v, void* o
 // dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 128, 256}; rows must be
 // 16-byte aligned. bfloat16 at d = 64, 128 and 256 runs
 // flash_wgmma_kernel<d>, at d = 32 flash_mma_kernel<32>; float32 runs
-// flash_fp32_kernel<d>. lse: null, or (batch, hq, sq)
+// flash_tf32x3_kernel<d>. lse: null, or (batch, hq, sq)
 // float32 for each row's log-sum-exp. Returns the launch's cudaError_t.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
                                void* lse_out, int dtype, int batch, int hq, int hkv, int sq,

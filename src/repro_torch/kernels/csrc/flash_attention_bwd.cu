@@ -147,11 +147,64 @@
 //   is computed from P in float32. Pass 1: 64-key blocks of 4 warps x 16
 //   keys, 64-row query tiles; pass 2: 64-row blocks of 4 warps x 16 rows,
 //   64-key tiles. Loads are synchronous (global -> registers -> shared).
-// - float32 (the float32 training checks): the CUDA cores, 256 threads a block,
-//   each thread one key (pass 1) or one row (pass 2) of the score tile and
-//   the same row of its accumulators; P^T and dS^T (pass 1) or dS (pass 2)
-//   go through shared memory into the accumulating products. Pass 1: 64
-//   keys x 32-row query tiles; pass 2: 64 rows x 32-key tiles.
+// - float32 (the float32 training checks, float32 fine-tuning): 3xTF32 on
+//   mma.sync m16n8k8, 8 warps a block (f3::Shape<D>), the products of
+//   tf32x3_frag.cuh: each operand split as tf32x3_tile.cuh splits it (hi
+//   rounded to TF32 by two integer operations, lo = x - hi) as its fragment
+//   is read from shared memory; per k-step lo.hi and hi.lo go into a second
+//   accumulator and hi.hi into the main one, summed once at the end of the
+//   product. The products over the tile's rows or keys (dV, dK, dQ) go 32
+//   output columns at a time into such a pair that starts from zero every
+//   tile and is added once a tile into the running float32 sums (a rounded
+//   add): sums over thousands of rows never run through the tensor cores'
+//   own accumulation, which truncates. Tiles of float32 rows of D floats in
+//   shared memory, filled by 16-byte cp.async copies, are swizzled so that
+//   a fragment read in either orientation falls on 32 distinct banks: the
+//   products that contract over a tile's rows read it as it is, with no
+//   transposed copy. P^T and dS^T (pass 1) or dS (pass 2) are formed from
+//   unrounded float32 P and stored in shared memory, from which every warp
+//   reads the A fragments of the next product: a warp's S^T or S piece (16
+//   or 32 keys or rows x a part of the tile) and its output block (the
+//   same keys or rows x a part of the columns) are cut differently, so no
+//   product is computed twice. 2^x comes from exp2f, as in the CUDA-core
+//   passes this design replaced.
+//   Pass 1: 64 keys a block (128 at D = 32 and 64; 32 at D = 256, so that
+//   a warp's dK and dV are 16 keys x 64 columns), 64-row query tiles
+//   through a two-stage ring (one at D = 256); pass 2: 128 rows a block
+//   (32 at D = 256), 64-key tiles, two stages (one at D = 128 and 256,
+//   where the Q and dO tiles take 128 KB). The host divides each kv
+//   head's query heads over bwd_kv_splits blocks where the dK/dV pass's
+//   blocks would not fill the
+//   card (the train-check twins' (2, 512, 32/4) has 64), their float32
+//   partials summed in split order by flash_bwd_sum_kernel<float>.
+//   What bounds it: issue slots more than the tensor cores. Every operand
+//   value costs a shared load and three split operations as it is read,
+//   about four instructions beside each mma.sync, and a warp's S^T (S)
+//   piece re-splits the B fragments that the other key (row) groups also
+//   split. Where registers allow (D = 64, and D = 128's dK/dV pass) a warp
+//   takes two 16-key (16-row) m-tiles, so that each B fragment it splits
+//   feeds twice the products.
+//   Variants timed on the card by tools/flash_bwd_sweep.py --dtype
+//   float32 (H100 80GB HBM3, 700.00 W; device ms, the L2 flushed, in
+//   turns). Against this design: one m-tile a warp in D = 128's dK/dV
+//   pass, at the train-check twin's (2, 512, 32/4) 0.4298 against 0.4126
+//   and at Yi-6B's (4, 2048, 32/4) 10.5707 against 10.1461; D = 128's dQ
+//   pass at 64 rows with two m-tiles and two stages 0.4139 and 10.2956; at
+//   D = 64 one m-tile a warp, Whisper-medium's encoder twin (2, 1500,
+//   16/16) 1.6053 against 1.4320. In an earlier sweep two m-tiles in D =
+//   128's dQ pass spilled 48 bytes, and in D = 256's dQ pass ran level
+//   (RecurrentGemma-2B's twin (2, 512, 10/1, D 256) 0.3712 against 0.3724).
+//   Before the m-tiles (one a warp everywhere; D = 128's dQ pass at 64 rows
+//   and two stages, D = 64 at 64 keys or rows, up to 8 splits; the
+//   train-check twin at 0.4569, Yi-6B at 10.9889): no split 0.9823 (the
+//   twin), 4 splits 0.4337 (8 heads as 2 each; 5 splits left some 2 too),
+//   32-key dK/dV blocks 0.4761 and 12.1513, 32-row tiles 0.4787 and
+//   11.7041, one-stage rings 0.4691 and 11.3286, 128-row dQ blocks (one
+//   stage) 0.4548 and 10.5856; the RecurrentGemma twin 0.3714, no split
+//   1.2086, 4 splits 0.4728, 64-row dQ blocks of 32-key tiles 0.4063 (4
+//   bytes of spill); the Whisper twin 1.7821, 128-key and 128-row blocks
+//   1.6072. Before the D = 256 dK/dV pass took 32 keys a block, its 64 keys
+//   and 32-row tiles spilled 56 bytes and the twin ran 0.598.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -159,16 +212,14 @@
 #include <stdint.h>
 
 #include "hopper_wgmma.cuh"
+#include "tf32x3_frag.cuh"
 
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int BKV = 64;      // keys per block of pass 1 (both dtypes), per tile of pass 2 (bf16)
-constexpr int BQ = 64;       // query rows per block of pass 2 (both dtypes)
-constexpr int NT = 128;      // threads of a bfloat16 block: 4 warps
-constexpr int NTF = 256;     // threads of a float32 block
-constexpr int FBM = 32;      // float32 pass 1: query rows per tile
-constexpr int FBK = 32;      // float32 pass 2: keys per tile
+constexpr int BKV = 64;      // bfloat16 mma.sync: keys per block of pass 1, per tile of pass 2
+constexpr int BQ = 64;       // bfloat16 mma.sync: query rows per block of pass 2
+constexpr int NT = 128;      // threads of a bfloat16 mma.sync block: 4 warps
 
 // the most output columns a block accumulates
 template <int D>
@@ -566,252 +617,6 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,      // (B, Hq, Sq, D)
         *reinterpret_cast<__nv_bfloat162*>(dq + base + 8 * j) =
             __floats2bfloat162_rn(dq_acc[j][2 * half], dq_acc[j][2 * half + 1]);
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32: CUDA cores
-// ---------------------------------------------------------------------------
-
-// Copies rows [row0, row0 + R) of a (rows, D) float32 matrix into a shared
-// tile of rows padded to D + 4 floats with 16-byte loads; rows past n_rows
-// are zero.
-template <int D, int R>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int row0,
-                                              int n_rows) {
-  constexpr int LD = D + 4;
-  constexpr int CPR = D / 4;
-  for (int c = threadIdx.x; c < R * CPR; c += NTF) {
-    const int r = c / CPR;
-    const int col = c - r * CPR;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows)
-      val = __ldg(reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D) + col);
-    *reinterpret_cast<float4*>(dst + r * LD + col * 4) = val;
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy4(float4& acc, float a, float4 x) {
-  acc.x = fmaf(a, x.x, acc.x);
-  acc.y = fmaf(a, x.y, acc.y);
-  acc.z = fmaf(a, x.z, acc.z);
-  acc.w = fmaf(a, x.w, acc.w);
-}
-
-template <int D>
-constexpr int fp32_dkdv_smem() {
-  return 4 * (2 * BKV * (D + 4) + 2 * FBM * (D + 4) + 2 * BKV * (FBM + 4) + 2 * FBM);
-}
-
-template <int D>
-constexpr int fp32_dq_smem() {
-  return 4 * (2 * BQ * (D + 4) + 2 * FBK * (D + 4) + BQ * (FBK + 4));
-}
-
-// Thread t: key (pass 1) or row (pass 2) t / 4 of the tile; of the score
-// tile the columns t % 4 + 4 m; of the accumulators the columns c0 + 4 (t %
-// 4) + 16 j .. + 3.
-template <int D>
-__global__ void __launch_bounds__(NTF)
-flash_bwd_dkdv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const float* __restrict__ dout,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           float* __restrict__ dk, float* __restrict__ dv, int hq, int hkv,
-                           int sq, int sk, int causal, int window, int q_offset, float scale) {
-  constexpr int LD = D + 4;
-  constexpr int PL = FBM + 4;
-  constexpr int DC = CHUNK_COLS<D>;
-  constexpr int CJ = DC / 16;          // float4 column groups a thread accumulates
-  constexpr int M = FBM / 4;           // score-tile columns a thread computes
-  extern __shared__ float4 smem_f32_dkdv[];
-  float* k_s = reinterpret_cast<float*>(smem_f32_dkdv);   // BKV x LD
-  float* v_s = k_s + BKV * LD;
-  float* q_s = v_s + BKV * LD;                             // FBM x LD
-  float* do_s = q_s + FBM * LD;
-  float* pt_s = do_s + FBM * LD;                           // BKV x PL: P^T
-  float* ds_s = pt_s + BKV * PL;                           // BKV x PL: dS^T
-  float* lse_s = ds_s + BKV * PL;                          // FBM
-  float* dl_s = lse_s + FBM;                               // FBM
-
-  const int tid = threadIdx.x;
-  const int kl = tid >> 2;
-  const int grp = tid & 3;
-  const int k0 = blockIdx.x * BKV;
-  const int bkv = blockIdx.y;
-  const int b = bkv / hkv;
-  const int hk = bkv - b * hkv;
-  const int c0 = blockIdx.z * DC;
-  const int g = hq / hkv;
-  const float c = scale * kLog2e;
-  const Mask ok{sq, sk, causal, window, q_offset};
-  const int key = k0 + kl;
-
-  load_rows_f32<D, BKV>(k_s, k + (size_t)bkv * sk * D, k0, sk);
-  load_rows_f32<D, BKV>(v_s, v + (size_t)bkv * sk * D, k0, sk);
-
-  float4 dk_acc[CJ], dv_acc[CJ];
-#pragma unroll
-  for (int j = 0; j < CJ; ++j) dk_acc[j] = dv_acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  int qb, qe;
-  q_range(k0, BKV, sq, sk, causal, window, q_offset, FBM, qb, qe);
-  for (int h = 0; h < g; ++h) {
-    const size_t bh = (size_t)b * hq + (size_t)hk * g + h;
-    for (int q0 = qb; q0 < qe; q0 += FBM) {
-      __syncthreads();   // the last tile's reads are done
-      load_rows_f32<D, FBM>(q_s, q + bh * sq * D, q0, sq);
-      load_rows_f32<D, FBM>(do_s, dout + bh * sq * D, q0, sq);
-      for (int r = tid; r < FBM; r += NTF) {
-        const bool in = q0 + r < sq;
-        lse_s[r] = in ? lse[bh * sq + q0 + r] * kLog2e : 0.f;
-        dl_s[r] = in ? delta[bh * sq + q0 + r] : 0.f;
-      }
-      __syncthreads();
-
-      float s[M], dp[M];
-#pragma unroll
-      for (int m = 0; m < M; ++m) s[m] = dp[m] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(k_s + kl * LD + d);
-        const float4 vv = *reinterpret_cast<const float4*>(v_s + kl * LD + d);
-#pragma unroll
-        for (int m = 0; m < M; ++m) {
-          const int qi = grp + 4 * m;
-          s[m] = dot4(kk, *reinterpret_cast<const float4*>(q_s + qi * LD + d), s[m]);
-          dp[m] = dot4(vv, *reinterpret_cast<const float4*>(do_s + qi * LD + d), dp[m]);
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int qi = grp + 4 * m;
-        const float p = ok(q0 + qi, key) ? exp2f(fmaf(s[m], c, -lse_s[qi])) : 0.f;
-        pt_s[kl * PL + qi] = p;
-        ds_s[kl * PL + qi] = p * (dp[m] - dl_s[qi]) * scale;
-      }
-      __syncthreads();
-
-      // dV += P^T . dO, dK += dS^T . Q over the tile's rows, in order
-#pragma unroll 4
-      for (int i = 0; i < FBM; ++i) {
-        const float p = pt_s[kl * PL + i];
-        const float ds = ds_s[kl * PL + i];
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          const int cc = c0 + 4 * grp + 16 * j;
-          axpy4(dv_acc[j], p, *reinterpret_cast<const float4*>(do_s + i * LD + cc));
-          axpy4(dk_acc[j], ds, *reinterpret_cast<const float4*>(q_s + i * LD + cc));
-        }
-      }
-    }
-  }
-
-  if (key < sk) {
-    const size_t base = ((size_t)bkv * sk + key) * D + c0 + 4 * grp;
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      *reinterpret_cast<float4*>(dk + base + 16 * j) = dk_acc[j];
-      *reinterpret_cast<float4*>(dv + base + 16 * j) = dv_acc[j];
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTF)
-flash_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dq, int hq, int hkv, int sq, int sk, int causal,
-                         int window, int q_offset, float scale) {
-  constexpr int LD = D + 4;
-  constexpr int SL = FBK + 4;
-  constexpr int DC = CHUNK_COLS<D>;
-  constexpr int CJ = DC / 16;
-  constexpr int M = FBK / 4;
-  extern __shared__ float4 smem_f32_dq[];
-  float* q_s = reinterpret_cast<float*>(smem_f32_dq);   // BQ x LD
-  float* do_s = q_s + BQ * LD;
-  float* k_s = do_s + BQ * LD;                           // FBK x LD
-  float* v_s = k_s + FBK * LD;
-  float* ds_s = v_s + FBK * LD;                          // BQ x SL: dS
-
-  const int tid = threadIdx.x;
-  const int rl = tid >> 2;
-  const int grp = tid & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
-  const int b = bh / hq;
-  const int h = bh - b * hq;
-  const int g = hq / hkv;
-  const size_t kv_head = (size_t)b * hkv + h / g;
-  const int c0 = blockIdx.z * DC;
-  const float c = scale * kLog2e;
-  const Mask ok{sq, sk, causal, window, q_offset};
-  const int row = q0 + rl;
-  const float lse2 = row < sq ? lse[(size_t)bh * sq + row] * kLog2e : 0.f;
-  const float dl = row < sq ? delta[(size_t)bh * sq + row] : 0.f;
-
-  load_rows_f32<D, BQ>(q_s, q + (size_t)bh * sq * D, q0, sq);
-  load_rows_f32<D, BQ>(do_s, dout + (size_t)bh * sq * D, q0, sq);
-
-  float4 dq_acc[CJ];
-#pragma unroll
-  for (int j = 0; j < CJ; ++j) dq_acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  int kb, ke;
-  k_range(q0, min(q0 + BQ, sq) - 1, sk, causal, window, q_offset, FBK, kb, ke);
-  const float* kh = k + kv_head * sk * D;
-  const float* vh = v + kv_head * sk * D;
-  for (int k0 = kb; k0 < ke; k0 += FBK) {
-    __syncthreads();   // the last tile's reads are done (and Q, dO stored)
-    load_rows_f32<D, FBK>(k_s, kh, k0, sk);
-    load_rows_f32<D, FBK>(v_s, vh, k0, sk);
-    __syncthreads();
-
-    float s[M], dp[M];
-#pragma unroll
-    for (int m = 0; m < M; ++m) s[m] = dp[m] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 qq = *reinterpret_cast<const float4*>(q_s + rl * LD + d);
-      const float4 oo = *reinterpret_cast<const float4*>(do_s + rl * LD + d);
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int kj = grp + 4 * m;
-        s[m] = dot4(qq, *reinterpret_cast<const float4*>(k_s + kj * LD + d), s[m]);
-        dp[m] = dot4(oo, *reinterpret_cast<const float4*>(v_s + kj * LD + d), dp[m]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const int kj = grp + 4 * m;
-      const float p = ok(row, k0 + kj) ? exp2f(fmaf(s[m], c, -lse2)) : 0.f;
-      ds_s[rl * SL + kj] = p * (dp[m] - dl) * scale;
-    }
-    __syncthreads();
-
-    // dQ += dS . K over the tile's keys, in order
-#pragma unroll 4
-    for (int j2 = 0; j2 < FBK; ++j2) {
-      const float ds = ds_s[rl * SL + j2];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j)
-        axpy4(dq_acc[j], ds, *reinterpret_cast<const float4*>(k_s + j2 * LD + c0 + 4 * grp +
-                                                               16 * j));
-    }
-  }
-
-  if (row < sq) {
-    const size_t base = ((size_t)bh * sq + row) * D + c0 + 4 * grp;
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) *reinterpret_cast<float4*>(dq + base + 16 * j) = dq_acc[j];
   }
 }
 
@@ -1229,11 +1034,12 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, 
 }
 
 // dK and dV from the dK/dV pass's float32 partials (2, splits, n): each
-// element the sum over the splits in order, rounded once to bf16; 4
-// elements a thread
+// element the sum over the splits in order, stored as T (rounded once to
+// bf16, or float32 as it is); 4 elements a thread
+template <typename T>
 __global__ void __launch_bounds__(256)
-flash_bwd_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, size_t n4, int splits) {
+flash_bwd_sum_kernel(const float* __restrict__ part, T* __restrict__ dk, T* __restrict__ dv,
+                     size_t n4, int splits) {
   const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
   if (i >= 2 * n4) return;
   const size_t which = i >= n4;
@@ -1247,8 +1053,11 @@ flash_bwd_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
     acc.z += x.z;
     acc.w += x.w;
   }
-  *reinterpret_cast<uint2*>((which ? dv : dk) + 4 * e) =
-      make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+  if constexpr (sizeof(T) == 2)
+    *reinterpret_cast<uint2*>((which ? dv : dk) + 4 * e) =
+        make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+  else
+    *reinterpret_cast<float4*>((which ? dv : dk) + 4 * e) = acc;
 }
 
 // The dQ pass. Block: query rows [q0, q0 + BM) of (batch row, query head)
@@ -1432,6 +1241,411 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,    // (D, Sq
 }
 
 // ---------------------------------------------------------------------------
+// float32: 3xTF32 on mma.sync m16n8k8
+// ---------------------------------------------------------------------------
+
+namespace f3 {
+
+constexpr int THREADS = 256;   // 8 warps a block
+
+// Per head dim. The dK/dV pass: keys a block (KV_BN), query rows a tile
+// (KV_BM), ring stages of the Q and dO tiles, and 16-key m-tiles a warp
+// (KV_M). The dQ pass: query rows a block (Q_BM), keys a tile (Q_BN), ring
+// stages of the K and V tiles, and 16-row m-tiles a warp (Q_M). The
+// block's 8 warps are the key (row) groups of 16 M times the parts over
+// which each group's S^T (S) piece divides the tile's query rows (keys)
+// and its dK/dV (dQ) output columns; a warp with two m-tiles splits each B
+// fragment once for both.
+// tools/flash_bwd_sweep.py builds its variants by replacing these lines.
+template <int KV_BN_, int KV_BM_, int KV_STAGES_, int KV_M_, int Q_BM_, int Q_BN_, int Q_STAGES_,
+          int Q_M_>
+struct ShapeOf {
+  static constexpr int KV_BN = KV_BN_, KV_BM = KV_BM_, KV_STAGES = KV_STAGES_, KV_M = KV_M_;
+  static constexpr int Q_BM = Q_BM_, Q_BN = Q_BN_, Q_STAGES = Q_STAGES_, Q_M = Q_M_;
+};
+template <int D> struct Shape;
+template <> struct Shape<32> : ShapeOf<128, 64, 2, 1, 128, 64, 2, 1> {};
+template <> struct Shape<64> : ShapeOf<128, 64, 2, 2, 128, 64, 2, 2> {};
+template <> struct Shape<128> : ShapeOf<64, 64, 2, 2, 128, 64, 1, 1> {};
+template <> struct Shape<256> : ShapeOf<32, 64, 1, 1, 32, 64, 1, 1> {};
+
+using repro_tf32x3::at;
+using repro_tf32x3::product_m;
+
+template <int W, int R>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int n_rows) {
+  repro_tf32x3::load_tile<W, R, THREADS>(dst, src, row0, n_rows);
+}
+
+template <int R>
+__device__ __forceinline__ void load_vec(float* dst, const float* src, int row0, int n_rows) {
+  repro_tf32x3::load_vec<R, THREADS>(dst, src, row0, n_rows);
+}
+
+template <int D>
+struct Dkdv {
+  using S = Shape<D>;
+  static constexpr int BN = S::KV_BN, BM = S::KV_BM, STAGES = S::KV_STAGES, M = S::KV_M;
+  static constexpr int GROUPS = BN / (16 * M), PARTS = 8 / GROUPS;
+  static constexpr int QW = BM / PARTS;    // query rows of a warp's S^T piece
+  static constexpr int OW = D / PARTS;     // output columns a warp accumulates
+  static constexpr int STAGE = 2 * BM * D + 2 * BM;   // Q, dO, lse, delta
+  static constexpr int SMEM_BYTES = 4 * (2 * BN * D + STAGES * STAGE + 2 * BN * BM);
+  static_assert(GROUPS * PARTS == 8 && QW % 8 == 0 && OW % 32 == 0 && BM % 32 == 0 &&
+                    D % 32 == 0,
+                "the dK/dV pass's warps: 16 M keys each, S^T pieces of 8 rows, 32-column chunks");
+  static_assert(SMEM_BYTES <= 232448, "the dK/dV pass's shared memory is past the limit");
+};
+
+template <int D>
+struct Dq {
+  using S = Shape<D>;
+  static constexpr int BM = S::Q_BM, BN = S::Q_BN, STAGES = S::Q_STAGES, M = S::Q_M;
+  static constexpr int GROUPS = BM / (16 * M), PARTS = 8 / GROUPS;
+  static constexpr int KW = BN / PARTS;    // keys of a warp's S piece
+  static constexpr int OW = D / PARTS;     // output columns a warp accumulates
+  static constexpr int SMEM_BYTES = 4 * (2 * BM * D + STAGES * 2 * BN * D + BM * BN);
+  static_assert(GROUPS * PARTS == 8 && KW % 8 == 0 && OW % 32 == 0 && BN % 32 == 0,
+                "the dQ pass's warps: 16 M rows each, S pieces of 8 keys, 32-column chunks");
+  static_assert(SMEM_BYTES <= 232448, "the dQ pass's shared memory is past the limit");
+};
+
+// out[ch][n] += the 16 x 32 chunk c (a product's layout)
+__device__ __forceinline__ void add_chunk(float (&out)[4][4], const float (&c)[4][4]) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[n][e] += c[n][e];
+}
+
+// a warp's 16 x (32 CH) accumulator rows (r0 + lane / 4, + 8) into rows of a
+// (rows, D) float32 matrix from its column col0, those below n_rows
+template <int D, int CH>
+__device__ __forceinline__ void store_acc(float* dst, const float (&acc)[CH][4][4], int r0,
+                                          int col0, int n_rows, int lane) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + lane / 4 + 8 * i;
+    if (r < n_rows) {
+      float* row = dst + (size_t)r * D + col0 + 2 * (lane % 4);
+#pragma unroll
+      for (int ch = 0; ch < CH; ++ch)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          *reinterpret_cast<float2*>(row + 32 * ch + 8 * n) =
+              make_float2(acc[ch][n][2 * i], acc[ch][n][2 * i + 1]);
+    }
+  }
+}
+
+}  // namespace f3
+
+// The float32 dK/dV pass. Block: keys [k0, k0 + BN) of (batch row, kv head)
+// bkv and the query heads of its split, K and V loaded once; Q and dO tiles
+// of BM rows (with the rows' lse and delta) through a STAGES-deep cp.async
+// ring. Warp w is key group w % GROUPS (16 M keys) and part w / GROUPS: per
+// tile it computes S^T and dP^T for its keys and the part's QW query rows,
+// forms P^T and dS^T and stores them in shared memory; then dV += P^T.dO and
+// dK += dS^T.Q for its keys and the part's OW output columns, 32 at a time,
+// each chunk's product added once a tile into the running float32 sums.
+// With splits > 1 it writes float32 partials, (2, splits, B*Hkv, Sk, D).
+template <int D>
+__global__ void __launch_bounds__(f3::THREADS, 1)
+flash_bwd_dkdv_tf32x3_kernel(const float* __restrict__ q,      // (B, Hq, Sq, D)
+                             const float* __restrict__ k,      // (B, Hkv, Sk, D)
+                             const float* __restrict__ v,      // (B, Hkv, Sk, D)
+                             const float* __restrict__ dout,   // (B, Hq, Sq, D)
+                             const float* __restrict__ lse,    // (B, Hq, Sq)
+                             const float* __restrict__ delta,  // (B, Hq, Sq)
+                             float* __restrict__ dk, float* __restrict__ dv,   // (B, Hkv, Sk, D)
+                             float* __restrict__ part, int splits, int hq, int hkv, int sq, int sk,
+                             int causal, int window, int q_offset, float scale) {
+  using namespace f3;
+  using L = Dkdv<D>;
+  constexpr int BN = L::BN, BM = L::BM, M = L::M, QW = L::QW, OW = L::OW, CH = OW / 32;
+  extern __shared__ __align__(16) float smem_f3_dkdv[];
+  float* k_s = smem_f3_dkdv;                      // BN x D
+  float* v_s = k_s + BN * D;
+  float* ring = v_s + BN * D;                     // per stage: Q, dO (BM x D), lse, delta
+  float* pt_s = ring + L::STAGES * L::STAGE;      // BN x BM: P^T
+  float* ds_s = pt_s + BN * BM;                   // BN x BM: dS^T
+
+  // under a causal or window mask, kv heads (and splits) vary fastest and
+  // key tiles go in order, the first (which the most query rows see under
+  // the causal mask) first; without one, key tiles vary fastest
+  const bool by_head = causal || window > 0;
+  const int unit = by_head ? blockIdx.x : blockIdx.y;   // bkv * splits + split
+  const int k0 = (by_head ? blockIdx.y : blockIdx.x) * BN;
+  const int bkv = unit / splits;
+  const int split = unit - bkv * splits;
+  const int b = bkv / hkv;
+  const int hk = bkv - b * hkv;
+  const int g = hq / hkv;
+  const int h0 = split * g / splits;                    // this split's query heads
+  const int nh = (split + 1) * g / splits - h0;
+  int qb, qe;
+  q_range(k0, BN, sq, sk, causal, window, q_offset, BM, qb, qe);
+  const int n_q = qe > qb ? (qe - qb + BM - 1) / BM : 0;
+  const int n_tiles = nh * n_q;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp % L::GROUPS, prt = warp / L::GROUPS;
+  const int kr0 = 16 * M * grp;                         // this warp's first key in the block
+  const int kw0 = k0 + kr0;
+  const int kw_last = min(kw0 + 16 * M, sk) - 1;
+  const int col0 = 2 * (lane % 4);
+  const float c = scale * kLog2e;
+  const Mask ok{sq, sk, causal, window, q_offset};
+
+  // tile it: query head h0 + it / n_q, rows qb + (it % n_q) BM
+  auto issue = [&](int it) {
+    float* st = ring + (it % L::STAGES) * L::STAGE;
+    const int q0 = qb + (it % n_q) * BM;
+    const size_t bh = (size_t)(b * hkv + hk) * g + h0 + it / n_q;
+    load_tile<D, BM>(st, q + bh * sq * D, q0, sq);
+    load_tile<D, BM>(st + BM * D, dout + bh * sq * D, q0, sq);
+    load_vec<BM>(st + 2 * BM * D, lse + bh * sq, q0, sq);
+    load_vec<BM>(st + 2 * BM * D + BM, delta + bh * sq, q0, sq);
+  };
+  load_tile<D, BN>(k_s, k + (size_t)bkv * sk * D, k0, sk);
+  load_tile<D, BN>(v_s, v + (size_t)bkv * sk * D, k0, sk);
+  if (n_tiles > 0) issue(0);
+  repro_tf32x3::cp_async_commit();
+
+  float dk_acc[M][CH][4][4], dv_acc[M][CH][4][4];
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk_acc[m][ch][n][e] = dv_acc[m][ch][n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    repro_tf32x3::cp_async_wait<0>();
+    __syncthreads();   // tile it has landed; every warp is done with tile it - 1
+    if (L::STAGES > 1 && it + 1 < n_tiles) issue(it + 1);
+    repro_tf32x3::cp_async_commit();
+    const float* qt = ring + (it % L::STAGES) * L::STAGE;
+    const float* dot = qt + BM * D;
+    const float* lse_t = dot + BM * D;
+    const float* dl_t = lse_t + BM;
+    const int q0 = qb + (it % n_q) * BM;
+    const int qw0 = q0 + prt * QW;   // the first query row of this warp's piece
+
+    // S^T = K.Q^T and dP^T = V.dO^T for its keys and rows; P^T = exp2(S^T
+    // c - lse log2(e)) masked, dS^T = P^T (dP^T - delta) scale, stored
+    float s[M][QW / 8][4], dp[M][QW / 8][4];
+    const bool live =
+        hb::meets(qw0, min(qw0 + QW, sq) - 1, kw0, kw_last, causal, window, q_offset);
+    if (live) {
+      product_m<M, QW / 8, D, D, D, false>(s, k_s, kr0, qt, prt * QW, lane);
+      product_m<M, QW / 8, D, D, D, false>(dp, v_s, kr0, dot, prt * QW, lane);
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int n = 0; n < QW / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int kr = kr0 + 16 * m + lane / 4 + 8 * i;   // the key's row in the block
+          const int qi = prt * QW + 8 * n + col0;           // and qi + 1
+          float p[2] = {0.f, 0.f}, ds[2] = {0.f, 0.f};
+          if (live) {
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+              if (ok(q0 + qi + cc, k0 + kr))
+                p[cc] = exp2f(fmaf(s[m][n][2 * i + cc], c, -lse_t[qi + cc] * kLog2e));
+              ds[cc] = p[cc] * (dp[m][n][2 * i + cc] - dl_t[qi + cc]) * scale;
+            }
+          }
+          const int at_ = at<BM>(kr, qi);
+          *reinterpret_cast<float2*>(pt_s + at_) = make_float2(p[0], p[1]);
+          *reinterpret_cast<float2*>(ds_s + at_) = make_float2(ds[0], ds[1]);
+        }
+    __syncthreads();   // P^T and dS^T are whole
+
+    // dV += P^T.dO and dK += dS^T.Q over the tile's rows, for its keys and
+    // the part's output columns
+    if (hb::meets(q0, min(q0 + BM, sq) - 1, kw0, kw_last, causal, window, q_offset)) {
+#pragma unroll
+      for (int ch = 0; ch < CH; ++ch) {
+        float mm[M][4][4];
+        product_m<M, 4, BM, BM, D, true>(mm, pt_s, kr0, dot, prt * OW + 32 * ch, lane);
+#pragma unroll
+        for (int m = 0; m < M; ++m) add_chunk(dv_acc[m][ch], mm[m]);
+        product_m<M, 4, BM, BM, D, true>(mm, ds_s, kr0, qt, prt * OW + 32 * ch, lane);
+#pragma unroll
+        for (int m = 0; m < M; ++m) add_chunk(dk_acc[m][ch], mm[m]);
+      }
+    }
+    if (L::STAGES == 1 && it + 1 < n_tiles) {
+      __syncthreads();   // every warp is done with the stage
+      issue(it + 1);
+      repro_tf32x3::cp_async_commit();
+    }
+  }
+  repro_tf32x3::cp_async_wait<0>();
+
+  float* dk_out = dk + (size_t)bkv * sk * D;
+  float* dv_out = dv + (size_t)bkv * sk * D;
+  if (splits > 1) {
+    const size_t plane = (size_t)((by_head ? gridDim.x : gridDim.y) / splits) * sk * D;
+    dk_out = part + (size_t)split * plane + (size_t)bkv * sk * D;
+    dv_out = dk_out + (size_t)splits * plane;
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    store_acc<D, CH>(dk_out, dk_acc[m], kw0 + 16 * m, prt * OW, sk, lane);
+    store_acc<D, CH>(dv_out, dv_acc[m], kw0 + 16 * m, prt * OW, sk, lane);
+  }
+}
+
+// The float32 dQ pass. Block: query rows [q0, q0 + BM) of (batch row,
+// query head) bh, Q and dO loaded once; K and V tiles of BN keys through a
+// STAGES-deep cp.async ring. Warp w is row group w % GROUPS (16 M rows) and
+// part w / GROUPS: per tile it computes S and dP for its rows and the
+// part's KW keys, forms dS and stores it in shared memory; then dQ += dS.K
+// for its rows and the part's OW output columns, 32 at a time, each chunk's
+// product added once a tile into the running float32 sums. dQ sums the key
+// tiles in ascending order.
+template <int D>
+__global__ void __launch_bounds__(f3::THREADS, 1)
+flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,      // (B, Hq, Sq, D)
+                           const float* __restrict__ k,      // (B, Hkv, Sk, D)
+                           const float* __restrict__ v,      // (B, Hkv, Sk, D)
+                           const float* __restrict__ dout,   // (B, Hq, Sq, D)
+                           const float* __restrict__ lse,    // (B, Hq, Sq)
+                           const float* __restrict__ delta,  // (B, Hq, Sq)
+                           float* __restrict__ dq,           // (B, Hq, Sq, D)
+                           int hq, int hkv, int sq, int sk, int causal, int window, int q_offset,
+                           float scale) {
+  using namespace f3;
+  using L = Dq<D>;
+  constexpr int BM = L::BM, BN = L::BN, M = L::M, KW = L::KW, OW = L::OW, CH = OW / 32;
+  extern __shared__ __align__(16) float smem_f3_dq[];
+  float* q_s = smem_f3_dq;                     // BM x D
+  float* do_s = q_s + BM * D;
+  float* ring = do_s + BM * D;                 // per stage: K, V (BN x D)
+  float* ds_s = ring + L::STAGES * 2 * BN * D; // BM x BN: dS
+
+  // under a causal or window mask, heads vary fastest and query tiles go
+  // longest first (the forward's order); without one, query tiles vary
+  // fastest
+  const bool by_head = causal || window > 0;
+  const int bh = by_head ? blockIdx.x : blockIdx.y;
+  const int tile = by_head ? blockIdx.y : blockIdx.x;
+  const int q0 = (by_head ? gridDim.y - 1 - tile : tile) * BM;
+  const int b = bh / hq;
+  const size_t kvh = (size_t)b * hkv + (bh - b * hq) / (hq / hkv);
+  int kb, ke;
+  k_range(q0, min(q0 + BM, sq) - 1, sk, causal, window, q_offset, BN, kb, ke);
+  const int n_tiles = ke > kb ? (ke - kb + BN - 1) / BN : 0;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp % L::GROUPS, prt = warp / L::GROUPS;
+  const int rr0 = 16 * M * grp;                // this warp's first row in the block
+  const int r0 = q0 + rr0;
+  const int r_last = min(r0 + 16 * M, sq) - 1;
+  const int col0 = 2 * (lane % 4);
+  const float c = scale * kLog2e;
+  const Mask ok{sq, sk, causal, window, q_offset};
+  // this thread's rows r0 + 16 m + lane / 4 + 8 i: lse * log2(e), delta
+  float lse2[M][2], dl[M][2];
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 16 * m + lane / 4 + 8 * i;
+      lse2[m][i] = r < sq ? lse[(size_t)bh * sq + r] * kLog2e : 0.f;
+      dl[m][i] = r < sq ? delta[(size_t)bh * sq + r] : 0.f;
+    }
+
+  auto issue = [&](int it) {
+    float* st = ring + (it % L::STAGES) * 2 * BN * D;
+    load_tile<D, BN>(st, k + kvh * sk * D, kb + it * BN, sk);
+    load_tile<D, BN>(st + BN * D, v + kvh * sk * D, kb + it * BN, sk);
+  };
+  load_tile<D, BM>(q_s, q + (size_t)bh * sq * D, q0, sq);
+  load_tile<D, BM>(do_s, dout + (size_t)bh * sq * D, q0, sq);
+  if (n_tiles > 0) issue(0);
+  repro_tf32x3::cp_async_commit();
+
+  float dq_acc[M][CH][4][4];
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq_acc[m][ch][n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    repro_tf32x3::cp_async_wait<0>();
+    __syncthreads();   // tile it has landed; every warp is done with tile it - 1
+    if (L::STAGES > 1 && it + 1 < n_tiles) issue(it + 1);
+    repro_tf32x3::cp_async_commit();
+    const float* kt = ring + (it % L::STAGES) * 2 * BN * D;
+    const float* vt = kt + BN * D;
+    const int k0 = kb + it * BN;
+    const int kw0 = k0 + prt * KW;   // the first key of this warp's piece
+
+    // S = Q.K^T and dP = dO.V^T for its rows and keys; P = exp2(S c - lse
+    // log2(e)) masked, dS = P (dP - delta) scale, stored
+    float s[M][KW / 8][4], dp[M][KW / 8][4];
+    const bool live =
+        hb::meets(r0, r_last, kw0, min(kw0 + KW, sk) - 1, causal, window, q_offset);
+    if (live) {
+      product_m<M, KW / 8, D, D, D, false>(s, q_s, rr0, kt, prt * KW, lane);
+      product_m<M, KW / 8, D, D, D, false>(dp, do_s, rr0, vt, prt * KW, lane);
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int n = 0; n < KW / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int rr = rr0 + 16 * m + lane / 4 + 8 * i;   // the row in the block
+          const int kj = prt * KW + 8 * n + col0;           // and kj + 1
+          float ds[2] = {0.f, 0.f};
+          if (live) {
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+              const float p = ok(q0 + rr, k0 + kj + cc)
+                                  ? exp2f(fmaf(s[m][n][2 * i + cc], c, -lse2[m][i]))
+                                  : 0.f;
+              ds[cc] = p * (dp[m][n][2 * i + cc] - dl[m][i]) * scale;
+            }
+          }
+          *reinterpret_cast<float2*>(ds_s + at<BN>(rr, kj)) = make_float2(ds[0], ds[1]);
+        }
+    __syncthreads();   // dS is whole
+
+    // dQ += dS.K over the tile's keys, for its rows and the part's columns
+    if (hb::meets(r0, r_last, k0, min(k0 + BN, sk) - 1, causal, window, q_offset)) {
+#pragma unroll
+      for (int ch = 0; ch < CH; ++ch) {
+        float mm[M][4][4];
+        product_m<M, 4, BN, BN, D, true>(mm, ds_s, rr0, kt, prt * OW + 32 * ch, lane);
+#pragma unroll
+        for (int m = 0; m < M; ++m) add_chunk(dq_acc[m][ch], mm[m]);
+      }
+    }
+    if (L::STAGES == 1 && it + 1 < n_tiles) {
+      __syncthreads();   // every warp is done with the stage
+      issue(it + 1);
+      repro_tf32x3::cp_async_commit();
+    }
+  }
+  repro_tf32x3::cp_async_wait<0>();
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+    store_acc<D, CH>(dq + (size_t)bh * sq * D, dq_acc[m], r0 + 16 * m, prt * OW, sq, lane);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -1490,7 +1704,7 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (splits > 1) {
     const size_t n4 = (size_t)batch * hkv * sk * D / 4;
-    flash_bwd_sum_kernel<<<(unsigned)((2 * n4 + 255) / 256), 256, 0, s>>>(
+    flash_bwd_sum_kernel<bf16><<<(unsigned)((2 * n4 + 255) / 256), 256, 0, s>>>(
         part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n4, splits);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
@@ -1502,53 +1716,84 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
   return cudaGetLastError();
 }
 
+// float32 at every head dim: the delta pass, then the 3xTF32 dK/dV and dQ
+// passes (with splits > 1, the dK/dV pass's partials summed into dk and dv
+// in between). With no query row or no key, no pair is seen: the gradients
+// are zeros.
+template <int D>
+cudaError_t launch_bwd_tf32x3(const void* q, const void* k, const void* v, const void* out,
+                              const float* lse, const void* dout, float* delta, void* dq,
+                              void* dk, void* dv, float* part, int splits, int batch, int hq,
+                              int hkv, int sq, int sk, int causal, int window, int q_offset,
+                              float scale, cudaStream_t s) {
+  using KV = f3::Dkdv<D>;
+  using DQ = f3::Dq<D>;
+  if (splits < 1 || splits > hq / hkv || (splits > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  if (sq == 0 || sk == 0) {
+    const size_t kv_bytes = (size_t)batch * hkv * sk * D * sizeof(float);
+    cudaError_t err = cudaMemsetAsync(dk, 0, kv_bytes, s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, kv_bytes, s);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(dq, 0, (size_t)batch * hq * sq * D * sizeof(float), s);
+    return err;
+  }
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v), *of = static_cast<const float*>(dout);
+  float *dkf = static_cast<float*>(dk), *dvf = static_cast<float*>(dv);
+  cudaError_t err = launch_delta<float, D>(out, dout, delta, batch * hq * sq, s);
+  if (err != cudaSuccess) return err;
+  const bool by_head = causal || window > 0;
+  const int k_tiles = (sk + KV::BN - 1) / KV::BN;
+  const int units = batch * hkv * splits;
+  const int q_tiles = (sq + DQ::BM - 1) / DQ::BM;
+  if ((err = set_smem(flash_bwd_dkdv_tf32x3_kernel<D>, KV::SMEM_BYTES)) != cudaSuccess)
+    return err;
+  flash_bwd_dkdv_tf32x3_kernel<D><<<by_head ? dim3(units, k_tiles) : dim3(k_tiles, units),
+                                    f3::THREADS, KV::SMEM_BYTES, s>>>(
+      qf, kf, vf, of, lse, delta, dkf, dvf, part, splits, hq, hkv, sq, sk, causal, window,
+      q_offset, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (splits > 1) {
+    const size_t n4 = (size_t)batch * hkv * sk * D / 4;
+    flash_bwd_sum_kernel<float><<<(unsigned)((2 * n4 + 255) / 256), 256, 0, s>>>(part, dkf, dvf,
+                                                                                 n4, splits);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if ((err = set_smem(flash_bwd_dq_tf32x3_kernel<D>, DQ::SMEM_BYTES)) != cudaSuccess) return err;
+  flash_bwd_dq_tf32x3_kernel<D><<<by_head ? dim3(batch * hq, q_tiles) : dim3(q_tiles, batch * hq),
+                                  f3::THREADS, DQ::SMEM_BYTES, s>>>(
+      qf, kf, vf, of, lse, delta, static_cast<float*>(dq), hq, hkv, sq, sk, causal, window,
+      q_offset, scale);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_bwd(int dtype, const void* q, const void* k, const void* v, const void* out,
                        const float* lse, const void* dout, float* delta, void* dq, void* dk,
                        void* dv, float* part, int splits, int batch, int hq, int hkv, int sq,
                        int sk, int causal, int window, int q_offset, float scale,
                        cudaStream_t s) {
+  // float32 at every head dim on the 3xTF32 passes
+  if (dtype == 0)
+    return launch_bwd_tf32x3<D>(q, k, v, out, lse, dout, delta, dq, dk, dv, part, splits, batch,
+                                hq, hkv, sq, sk, causal, window, q_offset, scale, s);
+  if (dtype != 1) return cudaErrorInvalidValue;
   // bfloat16 at D = 64, 128 and 256 on the TMA + wgmma passes
   if constexpr (D >= 64) {
-    if (dtype == 1)
-      return launch_bwd_wgmma<D>(q, k, v, out, lse, dout, delta, dq, dk, dv, part, splits,
-                                 batch, hq, hkv, sq, sk, causal, window, q_offset, scale, s);
-  }
-  // the other passes write dk and dv themselves, one block a key tile
-  if (splits != 1) return cudaErrorInvalidValue;
-  constexpr int CHUNKS = D / CHUNK_COLS<D>;
-  const int rows = batch * hq * sq;
-  const dim3 grid_kv((sk + BKV - 1) / BKV, batch * hkv, CHUNKS);
-  const dim3 grid_q((sq + BQ - 1) / BQ, batch * hq, CHUNKS);
-  cudaError_t err = cudaSuccess;
-  if (dtype == 0) {
-    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
-                *vf = static_cast<const float*>(v), *of = static_cast<const float*>(dout);
-    if ((err = launch_delta<float, D>(out, dout, delta, rows, s)) != cudaSuccess) return err;
-    if (grid_kv.x > 0 && grid_kv.y > 0) {
-      if ((err = set_smem(flash_bwd_dkdv_fp32_kernel<D>, fp32_dkdv_smem<D>())) != cudaSuccess)
-        return err;
-      flash_bwd_dkdv_fp32_kernel<D><<<grid_kv, NTF, fp32_dkdv_smem<D>(), s>>>(
-          qf, kf, vf, of, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), hq, hkv,
-          sq, sk, causal, window, q_offset, scale);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    }
-    if (grid_q.x > 0 && grid_q.y > 0) {
-      if ((err = set_smem(flash_bwd_dq_fp32_kernel<D>, fp32_dq_smem<D>())) != cudaSuccess)
-        return err;
-      flash_bwd_dq_fp32_kernel<D><<<grid_q, NTF, fp32_dq_smem<D>(), s>>>(
-          qf, kf, vf, of, lse, delta, static_cast<float*>(dq), hq, hkv, sq, sk, causal, window,
-          q_offset, scale);
-      err = cudaGetLastError();
-    }
-    return err;
-  }
-  if (dtype != 1) return cudaErrorInvalidValue;
-  if constexpr (D < 64) {
-    // bfloat16 at D = 32 on mma.sync
+    return launch_bwd_wgmma<D>(q, k, v, out, lse, dout, delta, dq, dk, dv, part, splits, batch,
+                               hq, hkv, sq, sk, causal, window, q_offset, scale, s);
+  } else {
+    // bfloat16 at D = 32 on mma.sync: dk and dv written by the dK/dV pass
+    // itself, one block a key tile
+    if (splits != 1) return cudaErrorInvalidValue;
+    constexpr int CHUNKS = D / CHUNK_COLS<D>;
+    const dim3 grid_kv((sk + BKV - 1) / BKV, batch * hkv, CHUNKS);
+    const dim3 grid_q((sq + BQ - 1) / BQ, batch * hq, CHUNKS);
     const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
                *vb = static_cast<const bf16*>(v), *ob = static_cast<const bf16*>(dout);
-    if ((err = launch_delta<bf16, D>(out, dout, delta, rows, s)) != cudaSuccess) return err;
+    cudaError_t err = launch_delta<bf16, D>(out, dout, delta, batch * hq * sq, s);
+    if (err != cudaSuccess) return err;
     if (grid_kv.x > 0 && grid_kv.y > 0) {
       if ((err = set_smem(flash_bwd_dkdv_mma_kernel<D>, mma_dkdv_smem<D>())) != cudaSuccess)
         return err;
@@ -1565,8 +1810,8 @@ cudaError_t launch_bwd(int dtype, const void* q, const void* k, const void* v, c
           q_offset, scale);
       err = cudaGetLastError();
     }
+    return err;
   }
-  return err;
 }
 
 }  // namespace
@@ -1578,7 +1823,7 @@ cudaError_t launch_bwd(int dtype, const void* q, const void* k, const void* v, c
 // shape and dtype of q) and dk, dv (those of k). d in {32, 64, 128, 256};
 // q_offset >= 0 (the caller resolves -1 to sk - sq). splits: the blocks
 // over which the dK/dV pass divides each kv head's query heads, 1 <= splits
-// <= hq / hkv, above 1 only in bfloat16 at d >= 64, with part a float32
+// <= hq / hkv, above 1 in float32 or in bfloat16 at d >= 64, with part a float32
 // scratch of 2 * splits * batch * hkv * sk * d (else unused). Three
 // launches on `stream` (delta, dK/dV, dQ; a fourth, the partials' sum,
 // with splits > 1); returns the first failing one's cudaError_t, else 0.

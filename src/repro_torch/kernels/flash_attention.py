@@ -17,7 +17,9 @@ expansion is never materialized.
   tiles at D = 128, 64-key tiles at D = 64, two blocks an SM, and at
   D = 256), at D = 32
   ``flash_mma_kernel`` (mma.sync, 64-key tiles; only smoke configurations
-  have D = 32); float32 runs ``flash_fp32_kernel`` (CUDA cores). Key tiles
+  have D = 32); float32 runs ``flash_tf32x3_kernel<D>`` (3xTF32 on mma.sync,
+  8 warps, 128-row query tiles and 64-key tiles; at D = 256 64-row tiles,
+  each row group's keys and columns over two warps). Key tiles
   wholly outside the causal and window masks are skipped, not masked.
 - :func:`flash_attention_torch` is the plain version: the same masks
   applied to the full score matrix (``kernels/ref.py::attention_ref`` with
@@ -42,7 +44,9 @@ expansion is never materialized.
   warpgroup, two a block at D = 128, three at D = 64; at D = 256 one
   64-key tile a block with the output columns split between its two
   consumers and each kv head's query heads over :func:`bwd_kv_splits`
-  blocks), at D = 32 on mma.sync; float32 on the CUDA cores;
+  blocks), at D = 32 on mma.sync; float32 in 3xTF32 on mma.sync, 8 warps
+  a block, each kv head's query heads over :func:`bwd_kv_splits` blocks
+  where the dK/dV pass's blocks are few;
   :func:`bwd_kernel_names` names the passes a call runs), on a CPU tensor
   :func:`attention_bwd_torch`; :func:`work_bwd` counts its five products
   and its bytes, :func:`bwd_smem_bytes` its shared memory.
@@ -83,8 +87,14 @@ from repro_torch.kernels.ref import NEG_INF, attention_ref
 
 # head dims csrc/flash_attention.cu is instantiated for
 HEAD_DIMS = (32, 64, 128, 256)
-# query rows and keys per tile of flash_fp32_kernel and flash_mma_kernel
+# query rows and keys per tile of flash_mma_kernel (bfloat16, D = 32)
 BQ, BK = 64, 64
+# flash_tf32x3_kernel<D> (float32, csrc/flash_attention.cu ff::Shape<D>):
+# per head dim (query rows a block, keys a tile, K/V ring stages, parts):
+# 8 warps of 16 rows; at D = 256 64 rows, each row group's keys and output
+# columns divided between two warps, which exchange each row's max and sum
+TF32X3_TILES = {32: (128, 64, 2, 1), 64: (128, 64, 2, 1), 128: (128, 64, 2, 1),
+                256: (64, 64, 1, 2)}
 # flash_wgmma_kernel<D> (bfloat16, D = 64, 128 and 256): 128-row query
 # tiles; per head dim, (keys per tile, K/V ring stages): at D = 256 a
 # consumer's 64 x 256 float32 output takes 128 registers a thread, which
@@ -124,16 +134,23 @@ BWD_WGMMA_DQ = {64: (192, 64, 3), 128: (128, 64, 2), 256: (128, 64, 3)}
 # head dims whose dQ ring holds a K or a V tile a slot (its depth counts
 # tiles), not a stage of both
 BWD_DQ_APART = frozenset({256})
-# head dims whose dK/dV pass divides each kv head's query heads over up to
-# this many blocks (float32 partials, summed in split order) where its
-# blocks would not fill the card BWD_KV_WAVES times over
+# head dims whose bfloat16 dK/dV pass divides each kv head's query heads
+# over up to this many blocks (float32 partials, summed in split order)
+# where its blocks would not fill the card BWD_KV_WAVES times over; the
+# float32 pass may divide them over up to g blocks at every head dim
 BWD_KV_SPLITS = {256: 2}
 BWD_KV_WAVES = 2
-# its other passes (bfloat16 at D = 32, float32 at every head dim): keys a
-# dK/dV block, query rows a dQ block and, in bfloat16, keys a dQ tile;
-# float32: query rows a dK/dV tile and keys a dQ tile
+# bfloat16 at D = 32 (mma.sync): keys a dK/dV block, query rows a dQ block
+# and keys a dQ tile
 BWD_BLOCK = 64
-BWD_FP32_KEYS = 32
+# float32 (3xTF32 on mma.sync, f3::Shape<D>): keys a tile of the dQ pass
+# at every head dim, over which dQ is summed in ascending order; the dK/dV
+# pass's (keys a block, query rows a tile, ring stages) and the dQ pass's
+# (query rows a block, keys a tile, ring stages)
+BWD_FP32_KEYS = 64
+BWD_FP32_DKDV = {32: (128, 64, 2), 64: (128, 64, 2), 128: (64, 64, 2), 256: (32, 64, 1)}
+BWD_FP32_DQ = {32: (128, BWD_FP32_KEYS, 2), 64: (128, BWD_FP32_KEYS, 2),
+               128: (128, BWD_FP32_KEYS, 1), 256: (32, BWD_FP32_KEYS, 1)}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -145,37 +162,48 @@ def key_tile(d: int) -> int:
     return WGMMA_TILES[d][0] if d in WGMMA_TILES else BK
 
 
-def bwd_key_tile(d: int) -> int:
-    """Keys per tile of the bfloat16 backward's dQ pass at head dim d, over
-    which dQ is summed in ascending order: the TMA + wgmma pass's at D = 64,
-    128 and 256 (``BWD_WGMMA_DQ``), the mma.sync pass's (``BWD_BLOCK``) at
-    D = 32; 64 at every head dim as built."""
+def bwd_key_tile(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Keys per tile of the backward's dQ pass at head dim d, over which dQ
+    is summed in ascending order: in bfloat16 the TMA + wgmma pass's at D =
+    64, 128 and 256 (``BWD_WGMMA_DQ``), the mma.sync pass's (``BWD_BLOCK``)
+    at D = 32; in float32 the 3xTF32 pass's (``BWD_FP32_KEYS``); 64 at
+    every head dim in both as built."""
+    if dtype == torch.float32:
+        return BWD_FP32_KEYS
     return BWD_WGMMA_DQ[d][1] if d in BWD_WGMMA_DQ else BWD_BLOCK
 
 
 def bwd_kv_splits(b: int, hq: int, hkv: int, sk: int, d: int, dtype: torch.dtype,
                   sms: int) -> int:
-    """The blocks over which the bfloat16 dK/dV pass divides each kv head's
-    query heads on a card of ``sms`` SMs: 1 unless the head dim allows more
-    (``BWD_KV_SPLITS``) and its ``b * hkv * ceil(sk / keys a block)`` blocks
-    would not fill the card ``BWD_KV_WAVES`` times over; then as many as
-    that needs, at most the cap and the g query heads. Each split's blocks
-    write float32 partials of dK and dV that a fourth launch sums in split
-    order, so a shape always gets the same splits and the same bits."""
-    cap = min(BWD_KV_SPLITS.get(d, 1) if dtype == torch.bfloat16 else 1, hq // hkv)
-    blocks = b * hkv * -(-sk // BWD_WGMMA_DKDV.get(d, (BWD_BLOCK,))[0])
+    """The blocks over which the dK/dV pass divides each kv head's query
+    heads on a card of ``sms`` SMs: 1 unless the head dim and dtype allow
+    more (``BWD_KV_SPLITS`` in bfloat16; in float32 at every head dim) and
+    its ``b * hkv * ceil(sk / keys a block)`` blocks would not fill the
+    card ``BWD_KV_WAVES`` times over; then as many as that needs, at most
+    the cap and the g query heads, and of those as few as give a split no
+    more query heads (``ceil(g / splits)``, the longest split's share). Each
+    split's blocks write float32 partials of dK and dV that a fourth launch
+    sums in split order, so a shape always gets the same splits and the
+    same bits."""
+    g = hq // hkv
+    if dtype == torch.float32:
+        cap, keys = g, BWD_FP32_DKDV[d][0]
+    else:
+        cap, keys = min(BWD_KV_SPLITS.get(d, 1), g), BWD_WGMMA_DKDV.get(d, (BWD_BLOCK,))[0]
+    blocks = b * hkv * -(-sk // keys)
     if cap <= 1 or blocks == 0 or blocks >= BWD_KV_WAVES * sms:
         return 1
-    return min(cap, -(-BWD_KV_WAVES * sms // blocks))
+    return -(-g // -(-g // min(cap, -(-BWD_KV_WAVES * sms // blocks))))
 
 
 def bwd_kernel_names(d: int, dtype: torch.dtype) -> Tuple[str, str]:
     """The dK/dV and dQ kernels of ``csrc/flash_attention_bwd.cu`` that a
     backward call at head dim d in dtype runs (the C entry point dispatches
     on both; the delta pass and, with splits, the partials' sum beside
-    them)."""
+    them): float32 the 3xTF32 passes at every head dim, bfloat16 the TMA +
+    wgmma passes at D = 64, 128 and 256 and the mma.sync ones at D = 32."""
     if dtype == torch.float32:
-        return f"flash_bwd_dkdv_fp32_kernel<{d}>", f"flash_bwd_dq_fp32_kernel<{d}>"
+        return f"flash_bwd_dkdv_tf32x3_kernel<{d}>", f"flash_bwd_dq_tf32x3_kernel<{d}>"
     if d in BWD_WGMMA_DKDV:
         return f"flash_bwd_dkdv_wgmma_kernel<{d}>", f"flash_bwd_dq_wgmma_kernel<{d}>"
     return f"flash_bwd_dkdv_mma_kernel<{d}>", f"flash_bwd_dq_mma_kernel<{d}>"
@@ -190,9 +218,10 @@ def bwd_smem_bytes(d: int, dtype: torch.dtype) -> int:
     mbarriers (one, and a full and an empty one per stage or slot) and 1 KB
     to align the tiles to the 128-byte swizzle's period. bfloat16 at D = 32:
     tiles of padded rows (D + 8) of K, V, Q and dO (dK/dV pass, with the
-    tile's lse and delta) or of Q, dO, K and V (dQ pass). float32: padded
-    rows (D + 4) of K, V, Q and dO and the P^T and dS^T tiles (dK/dV pass),
-    or of Q, dO, K, V and the dS tile (dQ pass)."""
+    tile's lse and delta) or of Q, dO, K and V (dQ pass). float32: tiles of
+    rows of D floats (swizzled, unpadded): K and V, per ring stage Q and dO
+    with the rows' lse and delta, and P^T and dS^T (dK/dV pass, ``keys x
+    rows``); or Q and dO, per stage K and V, and dS (dQ pass)."""
     if dtype == torch.bfloat16 and d in BWD_WGMMA_DKDV:
         bn, bm, stages = BWD_WGMMA_DKDV[d]
         dkdv = 1024 + 2 * bn * d * 2 + stages * (2 * bm * d * 2 + 2 * bm * 4) + 8 * (1 + 2 * stages)
@@ -200,11 +229,14 @@ def bwd_smem_bytes(d: int, dtype: torch.dtype) -> int:
         tiles = stages if d in BWD_DQ_APART else 2 * stages
         dq = 1024 + 2 * bm * d * 2 + tiles * bn * d * 2 + 8 * (1 + 2 * stages)
         return max(dkdv, dq)
-    blk, fb = BWD_BLOCK, BWD_FP32_KEYS
     if dtype == torch.bfloat16:   # 64-row query tiles in the dK/dV pass
+        blk = BWD_BLOCK
         return max(4 * blk * (d + 8) * 2 + 2 * blk * 4, 4 * blk * (d + 8) * 2)
-    return 4 * max(2 * blk * (d + 4) + 2 * fb * (d + 4) + 2 * blk * (fb + 4) + 2 * fb,
-                   2 * blk * (d + 4) + 2 * fb * (d + 4) + blk * (fb + 4))
+    bn, bm, stages = BWD_FP32_DKDV[d]
+    dkdv = 4 * (2 * bn * d + stages * (2 * bm * d + 2 * bm) + 2 * bn * bm)
+    bm, bn, stages = BWD_FP32_DQ[d]
+    dq = 4 * (2 * bm * d + stages * 2 * bn * d + bm * bn)
+    return max(dkdv, dq)
 
 
 def smem_bytes(d: int, dtype: torch.dtype) -> int:
@@ -212,22 +244,26 @@ def smem_bytes(d: int, dtype: torch.dtype) -> int:
     bfloat16 at D = 64, 128 and 256: the Q tile, a K and a V tile per ring
     stage, the mbarriers and 1 KB to align the tiles to the 128-byte
     swizzle's period; at D = 32: Q, K and V tiles of padded bf16 rows.
-    float32: the query tile, the transposed K tile (reused for V) and the P
-    tile."""
+    float32: the Q tile (128 rows, 64 at D = 256), a K and a V tile per
+    ring stage and the P tile (the Q tile's rows of a key tile), float32
+    rows of D (or the key tile's) floats, swizzled, unpadded; at D = 256
+    also each row's max and sum from each of its two warps."""
     if dtype == torch.bfloat16 and d in WGMMA_TILES:
         bk, stages = WGMMA_TILES[d]
         q_tile, kv_tile = WGMMA_BQ * d * 2, bk * d * 2
         return 1024 + q_tile + 2 * stages * kv_tile + 8 * (1 + 4 * stages)
     if dtype == torch.bfloat16:
         return 3 * BQ * (d + 8) * 2
-    return 4 * (BQ * d + max(d * (BK + 4), BK * d) + BQ * BK)
+    bm, bk, stages, parts = TF32X3_TILES[d]
+    stats = 2 * parts * bm if parts > 1 else 0
+    return 4 * (bm * d + stages * 2 * bk * d + bm * bk + stats)
 
 
 def kernel_name(d: int, dtype: torch.dtype) -> str:
     """The kernel of ``csrc/flash_attention.cu`` that a call at head dim d
     in dtype runs (the C entry point dispatches on both)."""
     if dtype == torch.float32:
-        return "flash_fp32_kernel"
+        return f"flash_tf32x3_kernel<{d}>"
     return f"flash_wgmma_kernel<{d}>" if d in WGMMA_TILES else "flash_mma_kernel"
 
 
@@ -397,14 +433,14 @@ def attention_bwd_tiled(q, k, v, out, lse, dout, *, causal: bool = True, window:
     dtype where they feed a product (dV += P^T.dO, dK += dS^T.Q, dQ += dS.K),
     as the bfloat16 kernel rounds them (in float32 nothing is rounded). dQ
     sums over the key tiles of the kernel's dQ pass in ascending order
-    (:func:`bwd_key_tile` keys in bfloat16, 64 at every head dim;
-    ``BWD_FP32_KEYS`` in float32). dK and dV are float32 sums over each kv
+    (:func:`bwd_key_tile` keys, 64 at every head dim in both dtypes).
+    dK and dV are float32 sums over each kv
     head's query heads whose order (over :func:`bwd_kv_splits` blocks or
     one) is not modelled: it moves them by float32 rounding only."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
-    bk = bwd_key_tile(d) if q.dtype == torch.bfloat16 else BWD_FP32_KEYS
+    bk = bwd_key_tile(d, q.dtype)
     off = sk - sq if q_offset < 0 else q_offset
     c = exp2_scale(d)
     scale = float(np.float32(1.0 / (d ** 0.5)))  # lint: allow-tracer-host-sync (a numpy scalar)

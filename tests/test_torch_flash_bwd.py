@@ -84,9 +84,12 @@ def _within(got, want, tol):
 @pytest.mark.parametrize("name,b,hq,hkv,d,sq,sk,causal,window,q_offset", CASES, ids=IDS)
 def test_tiled_float32_equals_the_plain_rule(name, b, hq, hkv, d, sq, sk, causal, window,
                                              q_offset):
-    """In float32 nothing is rounded, so the kernel's order is the plain
-    rule's function: within FP32_TOL, and rows that see no key get dq = 0
-    in both, keys no query sees dk = dv = 0."""
+    """In float32 nothing is rounded, so the kernel's order (dQ summed over
+    ``BWD_FP32_KEYS`` = 64 keys a tile, the 3xTF32 dQ pass's, more than one
+    tile where Sk passes 64) is the plain rule's function: within FP32_TOL,
+    and rows that see no key get dq = 0 in both, keys no query sees dk = dv
+    = 0."""
+    assert FA.bwd_key_tile(d, torch.float32) == FA.BWD_FP32_KEYS
     mask = dict(causal=causal, window=window, q_offset=q_offset)
     args = _inputs(b, hq, hkv, d, sq, sk, **mask)
     want = FA.attention_bwd_torch(*args, **mask)
@@ -160,8 +163,9 @@ def test_tiled_bfloat16_at_d128_matches_the_reference_vjp(name, b, hq, hkv, d, s
 
 def test_backward_tiles_and_shared_memory_per_head_dim():
     """The dQ pass's key tile (the tiled version's order) is 64 at every head
-    dim, the TMA + wgmma pass's at D = 64, 128 and 256; every pass's shared
-    memory fits the card's per-block budget. In bfloat16, D = 128's larger
+    dim in both dtypes, the TMA + wgmma pass's at D = 64, 128 and 256 in
+    bfloat16; every pass's shared memory fits the card's per-block budget
+    (float32's D = 128 dK/dV pass within 2 KB of it). In bfloat16, D = 128's larger
     pass is the dK/dV pass: 128-key K and V tiles, two stages of 64-row Q
     and dO tiles with their rows' lse and delta, five mbarriers and the 1 KB
     alignment; D = 64's also the dK/dV pass, at half the width with 192
@@ -180,6 +184,22 @@ def test_backward_tiles_and_shared_memory_per_head_dim():
     dq = 1024 + 2 * 65536 + 3 * 32768 + 8 * 7
     dkdv = 1024 + 2 * 32768 + 2 * (2 * 32768 + 512) + 8 * 5
     assert FA.bwd_smem_bytes(256, torch.bfloat16) == dq == 230456 > dkdv
+    # float32 (3xTF32): swizzled rows of D floats; the dK/dV pass's K and V,
+    # its ring of Q and dO tiles with their rows' lse and delta, and P^T and
+    # dS^T; the dQ pass's Q and dO, its ring of K and V tiles, and dS. Its
+    # dQ key tile is 64 at every head dim.
+    assert {d: FA.bwd_key_tile(d, torch.float32) for d in FA.HEAD_DIMS} == {
+        32: 64, 64: 64, 128: 64, 256: 64}
+    assert all(FA.BWD_FP32_DQ[d][1] == FA.BWD_FP32_KEYS for d in FA.HEAD_DIMS)
+    dkdv = 4 * (2 * 64 * 128 + 2 * (2 * 64 * 128 + 2 * 64) + 2 * 64 * 64)
+    dq = 4 * (2 * 128 * 128 + 2 * 64 * 128 + 128 * 64)
+    assert FA.bwd_smem_bytes(128, torch.float32) == dkdv == 230400 > dq == 229376
+    dkdv = 4 * (2 * 32 * 256 + (2 * 64 * 256 + 2 * 64) + 2 * 32 * 64)
+    dq = 4 * (2 * 32 * 256 + 2 * 64 * 256 + 32 * 64)
+    assert FA.bwd_smem_bytes(256, torch.float32) == dkdv == 213504 > dq
+    assert FA.bwd_smem_bytes(64, torch.float32) == 4 * (2 * 128 * 64 + 2 * (2 * 64 * 64 + 128)
+                                                        + 2 * 128 * 64) == 197632
+    assert FA.bwd_smem_bytes(32, torch.float32) == 132096
     for d in FA.HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             assert 0 < FA.bwd_smem_bytes(d, dtype) <= H100.vmem_bytes
@@ -201,32 +221,47 @@ def test_check_bwd_raises_past_the_shared_memory_budget():
 
 
 def test_kv_splits_divide_query_heads_only_where_blocks_are_few():
-    """The dK/dV pass divides a kv head's query heads over blocks only at D
-    = 256 in bfloat16, only where its blocks would not fill the card twice
-    over, at most at the cap and g: RecurrentGemma-2B's training shape (4 x
-    1 kv head x 32 key tiles = 128 blocks on 132 SMs) takes two; a shape
-    with enough blocks, one query head a kv head, float32 or another head
-    dim takes one."""
-    sms, bf = H100_SMS, torch.bfloat16
+    """The dK/dV pass divides a kv head's query heads over blocks at D =
+    256 in bfloat16 and at every head dim in float32, only where its blocks
+    would not fill the card twice over, at most at the cap and g:
+    RecurrentGemma-2B's training shape in bfloat16 (4 x 1 kv head x 32 key
+    tiles = 128 blocks on 132 SMs) takes two; in float32 the train-check
+    twins' (2, 512, 32/4) (2 x 4 x 8 = 64 blocks, 5 wanted) takes 4, two
+    query heads each as 5 would give the longest split, the hybrid twin's
+    (2, 512, 10/1, D 256) 5 (32 blocks, 9 wanted: two heads each); a
+    shape with enough blocks, one query head a kv head, or
+    (bfloat16) another head dim takes one. The count depends on the shape
+    and the card only, so a shape always gets the same bits."""
+    sms, bf, f32 = H100_SMS, torch.bfloat16, torch.float32
     assert FA.bwd_kv_splits(4, 10, 1, 2048, 256, bf, sms) == 2
     assert FA.bwd_kv_splits(1, 5, 1, 200, 256, bf, sms) == 2
     assert FA.bwd_kv_splits(16, 10, 1, 2048, 256, bf, sms) == 1      # 512 blocks
     assert FA.bwd_kv_splits(4, 4, 4, 2048, 256, bf, sms) == 1        # g = 1
-    assert FA.bwd_kv_splits(4, 10, 1, 2048, 256, torch.float32, sms) == 1
     for d in (32, 64, 128):
         assert FA.bwd_kv_splits(1, 16, 1, 256, d, bf, sms) == 1
     assert FA.bwd_kv_splits(4, 10, 1, 0, 256, bf, sms) == 1
+    assert FA.bwd_kv_splits(2, 32, 4, 512, 128, f32, sms) == 4
+    assert FA.bwd_kv_splits(2, 10, 1, 512, 256, f32, sms) == 5
+    assert FA.bwd_kv_splits(4, 10, 1, 2048, 256, f32, sms) == 2      # 256 blocks
+    assert FA.bwd_kv_splits(4, 32, 4, 2048, 128, f32, sms) == 1      # 512 blocks
+    assert FA.bwd_kv_splits(2, 16, 16, 512, 64, f32, sms) == 1       # g = 1
+    assert FA.bwd_kv_splits(1, 4, 2, 200, 32, f32, sms) == 2         # 2 blocks, g = 2
+    assert FA.bwd_kv_splits(2, 32, 4, 0, 128, f32, sms) == 1
+    for d in FA.HEAD_DIMS:
+        for dtype in (bf, f32):
+            splits = FA.bwd_kv_splits(1, 16, 2, 100, d, dtype, sms)
+            assert 1 <= splits <= 8 and splits == FA.bwd_kv_splits(1, 16, 2, 100, d, dtype, sms)
 
 
 def test_kernel_names_per_head_dim_and_dtype():
     """bfloat16 at D = 64, 128 and 256 runs the TMA + wgmma passes, at D =
-    32 the mma.sync ones; float32 the CUDA-core ones at every head dim."""
+    32 the mma.sync ones; float32 the 3xTF32 ones at every head dim."""
     for d in FA.HEAD_DIMS:
         names = FA.bwd_kernel_names(d, torch.bfloat16)
         kind = "mma" if d == 32 else "wgmma"
         assert names == (f"flash_bwd_dkdv_{kind}_kernel<{d}>", f"flash_bwd_dq_{kind}_kernel<{d}>")
-        assert FA.bwd_kernel_names(d, torch.float32) == (f"flash_bwd_dkdv_fp32_kernel<{d}>",
-                                                         f"flash_bwd_dq_fp32_kernel<{d}>")
+        assert FA.bwd_kernel_names(d, torch.float32) == (f"flash_bwd_dkdv_tf32x3_kernel<{d}>",
+                                                         f"flash_bwd_dq_tf32x3_kernel<{d}>")
 
 
 @pytest.mark.parametrize("name,b,hq,hkv,d,sq,sk,causal,window,q_offset", CASES[9:], ids=IDS[9:])

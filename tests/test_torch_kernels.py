@@ -486,22 +486,28 @@ def test_flash_key_tile_follows_the_kernels():
     and 1 KB of alignment (50,248 bytes: two blocks an SM, each with the
     1 KB the card reserves, fit its 228 KB). At D = 256 the 64 KB Q tile,
     two stages of 32 KB K and V tiles, 9 mbarriers and 1 KB of alignment
-    (197,704 bytes, one block an SM), a float32 block 151,552 bytes; every
-    block fits the H100's opt-in shared memory."""
+    (197,704 bytes, one block an SM); a float32 block (flash_tf32x3_kernel:
+    128-row Q tiles, 64-key tiles in two stages; at D = 256 64-row tiles, one
+    stage and the row statistics of two warps a row group) 229,376 bytes at
+    D = 128 and 214,016 at D = 256; every block fits the H100's opt-in
+    shared memory."""
     assert tflash.HEAD_DIMS == (32, 64, 128, 256)
     assert [tflash.key_tile(d) for d in tflash.HEAD_DIMS] == [64, 64, 128, 64]
     assert tflash.key_tile(256) == 64
     assert [tflash.kernel_name(d, torch.bfloat16) for d in tflash.HEAD_DIMS] == [
         "flash_mma_kernel", "flash_wgmma_kernel<64>", "flash_wgmma_kernel<128>",
         "flash_wgmma_kernel<256>"]
-    assert {tflash.kernel_name(d, torch.float32) for d in tflash.HEAD_DIMS} == {
-        "flash_fp32_kernel"}
+    assert [tflash.kernel_name(d, torch.float32) for d in tflash.HEAD_DIMS] == [
+        f"flash_tf32x3_kernel<{d}>" for d in tflash.HEAD_DIMS]
     assert tflash.smem_bytes(64, torch.bfloat16) == 1024 + 16384 + 4 * 8192 + 8 * 9 == 50_248
     assert 2 * (tflash.smem_bytes(64, torch.bfloat16) + 1024) <= 228 * 1024
     assert tflash.smem_bytes(128, torch.bfloat16) == 1024 + 32768 * 7 + 8 * 13
     assert tflash.smem_bytes(256, torch.bfloat16) == 1024 + 65536 + 4 * 32768 + 8 * 9 \
         == 197_704
-    assert tflash.smem_bytes(256, torch.float32) == 4 * (64 * 256 + 256 * 68 + 64 * 64)
+    assert tflash.smem_bytes(256, torch.float32) == 4 * (64 * 256 + 2 * 64 * 256 + 64 * 64
+                                                          + 2 * 2 * 64) == 214_016
+    assert tflash.smem_bytes(128, torch.float32) == 4 * (128 * 128 + 2 * 2 * 64 * 128 + 128 * 64) \
+        == 229_376
     for d in tflash.HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             assert tflash.smem_bytes(d, dtype) <= H100.vmem_bytes

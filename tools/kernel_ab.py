@@ -2,8 +2,9 @@
 shapes, for comparing two trees in one run.
 
     python3 tools/kernel_ab.py --kernel {paged_decode,ssd_scan,ssd_scan_bwd,rglru_scan_bwd,
-                                         flash_d64,cross_read,flash_bwd}
+                                         flash_d64,cross_read,flash_bwd,flash_fp32}
         [--tree DIR] [--label NAME] [--flush-modes write read none]
+        [--dtype {bfloat16,float32}]
 
 ``--tree`` is the root of a checkout of this repository (default: this
 one); its ``src/repro_torch`` and its ``chip_smoke.py`` are imported, and
@@ -47,7 +48,16 @@ Kernels and shapes:
   self-attention (8, 448, causal) and cross attention (448 queries over
   1500 keys); from the tree's own training forward's out and lse, each
   gradient held under ``_bwd_tol`` against the tree's
-  ``attention_bwd_tiled`` (its own dQ key tile).
+  ``attention_bwd_tiled`` (its own dQ key tile). With ``--dtype float32``
+  the float32 train-check twins' attention instead: Yi-6B's (2, 512,
+  32/4 heads of 128, causal), RecurrentGemma-2B's (2, 512, 10/1 of 256,
+  window 2048) and Whisper-medium's encoder (2, 1500, 16/16 of 64,
+  bidirectional), held against the tree's plain rule
+  ``attention_bwd_torch``.
+- ``flash_fp32``: the float32 training forward (``flash_attention_train``,
+  out and lse) at the float32 train-check twins' attention shapes (those
+  of ``flash_bwd --dtype float32``), out and lse held at ``FP32_TOL``
+  against the tree's plain training forward ``flash_attention_train_torch``.
 
 The flush is ``chip_smoke.py``'s (96 MB of zeros written, which leaves the
 L2 full of dirty lines that the kernel's reads must write back first);
@@ -59,6 +69,7 @@ all (the call's data warm in the 50 MB L2 where it fits).
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib
 import json
 import subprocess
@@ -178,13 +189,24 @@ def cross_read_cases(cs, att):
            _close(cs, cs.FLASH_BF16_TOL), bound)
 
 
-def flash_bwd_cases(cs, fa):
+# the float32 train-check twins' attention (--dtype float32)
+FLASH_BWD_FP32_SHAPES = (
+    ("Yi-6B train-check (2, 512, 32/4, D 128, causal)", (2, 32, 4, 128, 512, 512, True, 0)),
+    ("RecurrentGemma-2B train-check (2, 512, 10/1, D 256, window 2048)",
+     (2, 10, 1, 256, 512, 512, True, 2048)),
+    ("Whisper-medium train-check encoder (2, 1500, 16/16, D 64, bidirectional)",
+     (2, 16, 16, 64, 1500, 1500, False, 0)))
+
+
+def flash_bwd_cases(cs, fa, dtype=torch.bfloat16):
     """(label, call, plain, check, bound_ms) of the attention backward at the
     training shapes, bfloat16: head dim 128 (Yi-6B, InternVL2-2B, Qwen3-MoE,
     causal), 256 (RecurrentGemma-2B, window 2048) and 64 (Whisper-medium's
-    encoder, decoder self-attention and cross attention)."""
+    encoder, decoder self-attention and cross attention); float32: the
+    train-check twins' shapes (``FLASH_BWD_FP32_SHAPES``) against the plain
+    rule, the bound the smaller of float32's and 3xTF32's."""
     gen = torch.Generator(device="cuda").manual_seed(33)
-    for label, (b, hq, hkv, d, sq, sk, causal, window) in (
+    shapes = FLASH_BWD_FP32_SHAPES if dtype == torch.float32 else (
             ("Yi-6B training (4, 2048, 32/4)", (4, 32, 4, 128, 2048, 2048, True, 0)),
             ("InternVL2-2B training (4, 2304, 16/8)", (4, 16, 8, 128, 2304, 2304, True, 0)),
             ("Qwen3-MoE training (4, 2048, 64/4)", (4, 64, 4, 128, 2048, 2048, True, 0)),
@@ -195,18 +217,40 @@ def flash_bwd_cases(cs, fa):
             ("Whisper-medium decoder (8, 448, 16/16, D 64, causal)",
              (8, 16, 16, 64, 448, 448, True, 0)),
             ("Whisper-medium cross (8, 448 x 1500, 16/16, D 64)",
-             (8, 16, 16, 64, 448, 1500, False, 0))):
+             (8, 16, 16, 64, 448, 1500, False, 0)))
+    plain = fa.attention_bwd_torch if dtype == torch.float32 else fa.attention_bwd_tiled
+    for label, (b, hq, hkv, d, sq, sk, causal, window) in shapes:
         mask = dict(causal=causal, window=window, q_offset=-1)
-        q, k, v, dout = (torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v, dout = (torch.randn(sh, generator=gen, device="cuda").to(dtype)
                          for sh in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
                                     (b, hq, sq, d)))
         out, lse = fa.flash_attention_train(q, k, v, **mask)
         args = (q, k, v, out, lse, dout)
         flops, nbytes = fa.work_bwd(*args, causal, window, -1)
-        bound, _ = cs._bound_ms(nbytes, flops, torch.bfloat16)
+        bound, _ = cs._bound_ms(nbytes, flops, dtype, tf32x3=True)
         yield (label, lambda args=args, mask=mask: fa.flash_attention_bwd(*args, **mask),
-               lambda args=args, mask=mask: fa.attention_bwd_tiled(*args, **mask),
-               _grads_close(cs, torch.bfloat16), bound)
+               lambda args=args, mask=mask: plain(*args, **mask), _grads_close(cs, dtype), bound)
+
+
+def flash_fp32_cases(cs, fa):
+    """(label, call, plain, check, bound_ms) of the float32 training forward
+    at the float32 train-check twins' shapes; out and lse each at
+    FP32_TOL."""
+    gen = torch.Generator(device="cuda").manual_seed(34)
+
+    def check(got, want):
+        res = [cs.within(g, w, cs.FP32_TOL) for g, w in zip(got, want)]
+        return all(r[0] for r in res), max(r[1] for r in res), max(r[3] for r in res)
+
+    for label, (b, hq, hkv, d, sq, sk, causal, window) in FLASH_BWD_FP32_SHAPES:
+        mask = dict(causal=causal, window=window, q_offset=-1)
+        q, k, v = (torch.randn(sh, generator=gen, device="cuda")
+                   for sh in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+        flops, nbytes = fa.work_train(q, k, v, causal, window, -1)
+        bound, _ = cs._bound_ms(nbytes, flops, torch.float32, tf32x3=True)
+        yield (label, lambda q=q, k=k, v=v, mask=mask: fa.flash_attention_train(q, k, v, **mask),
+               lambda q=q, k=k, v=v, mask=mask: fa.flash_attention_train_torch(q, k, v, **mask),
+               check, bound)
 
 
 # kernel: (its module under repro_torch, its family in a trace or None for
@@ -217,7 +261,8 @@ KERNELS = {"paged_decode": ("kernels.paged_attention", "paged_decode", paged_dec
            "rglru_scan_bwd": ("kernels.rglru_scan", "rglru", rglru_scan_bwd_cases),
            "flash_d64": ("kernels.flash_attention", "flash", flash_d64_cases),
            "cross_read": ("models.attention", None, cross_read_cases),
-           "flash_bwd": ("kernels.flash_attention", "flash_bwd", flash_bwd_cases)}
+           "flash_bwd": ("kernels.flash_attention", "flash_bwd", flash_bwd_cases),
+           "flash_fp32": ("kernels.flash_attention", "flash", flash_fp32_cases)}
 
 
 def call_device_ms(cs, call, family, flush) -> tuple:
@@ -239,6 +284,8 @@ def main() -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--flush-modes", nargs="+", default=["write"],
                     choices=("write", "read", "none"))
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                    help="the inputs' dtype of --kernel flash_bwd")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     # the tree's own chip_smoke.py and sources, chosen here at run time
@@ -268,6 +315,8 @@ def main() -> int:
             reader.sum()
 
     flushes = {"write": flush, "read": ReadFlush(), "none": None}
+    if args.kernel == "flash_bwd":
+        cases = functools.partial(cases, dtype=getattr(torch, args.dtype))
     for label, call, plain, check, bound in cases(cs, mod):
         ok, max_err, rms_ratio = check(call(), plain())
         event_ms = cs.cuda_ms(call, flush=flush)
